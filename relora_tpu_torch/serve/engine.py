@@ -1,0 +1,219 @@
+"""The paged inference engine: model, KV page pool, and step functions.
+
+Counterpart of the paged half of ``relora_tpu/serve/engine.py``.  The engine
+owns the decode model on its device and builds the shared KV page pool
+(``init_pool``); three step functions run forwards through it:
+
+- ``prefill_chunk(ids, start, pool, block_table)`` — one fixed-size prompt
+  chunk written straight into the pool through the request's block table;
+- ``decode_paged(pool, token, pos, block_tables)`` — one token per slot;
+- ``step_paged(pool, ids, positions, block_tables, row_map)`` — one packed
+  mixed batch of decode rows and prefill tokens (``token_budget`` set).
+
+The JAX engine donates the pool to each jitted step and gets a new one
+back; here the forward updates the pool tensors in place and returns the
+same pool, so the call shape stays ``logits, pool = engine.step(pool, ...)``.
+Every forward runs under ``torch.inference_mode()``.
+
+The contiguous engine (``prefill``/``decode``/``insert``, ``generate``),
+speculative verify, adapter slots and page migration are not ported yet.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from relora_tpu_torch import resolve_device
+from relora_tpu_torch.config.model import ModelConfig
+from relora_tpu_torch.models.llama import LlamaForCausalLM
+
+Pool = List[Dict[str, torch.Tensor]]
+
+_DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
+
+
+def bucket_length(n: int, minimum: int = 16) -> int:
+    """Round a prompt length up to the next power of two (>= minimum)."""
+    if n < 1:
+        raise ValueError(f"prompt length must be >= 1, got {n}")
+    return max(minimum, 1 << (n - 1).bit_length())
+
+
+def build_decode_model(
+    model_cfg: ModelConfig,
+    *,
+    dtype=torch.float32,
+    device="cuda",
+    attention_arm: str = "auto",
+) -> LlamaForCausalLM:
+    """The serving model on ``device`` (parameters uninitialized: load a
+    state dict or call ``models.params_util.init_params``)."""
+    device = resolve_device(device)
+    with torch.device("meta"):
+        model = LlamaForCausalLM(model_cfg, dtype=dtype, attention_arm=attention_arm)
+    return model.to_empty(device=device).eval()
+
+
+class InferenceEngine:
+    """Owns the paged decode model, its device and the pool layout.
+
+    ``params`` is a state dict of :class:`LlamaForCausalLM` (for instance
+    from :func:`relora_tpu_torch.models.convert.params_from_jax`) or an
+    already built model on ``device``.  ``dtype`` is the compute dtype;
+    ``kv_dtype="bf16"`` stores the pool at it, ``"int8"`` stores codes plus
+    per-``(page, kv_head)`` f32 scales.
+    """
+
+    def __init__(
+        self,
+        model_cfg: ModelConfig,
+        params,
+        *,
+        cache_size: int,
+        dtype=torch.float32,
+        page_size: Optional[int] = None,
+        num_pages: Optional[int] = None,
+        chunk_size: int = 64,
+        kv_dtype: str = "bf16",
+        token_budget: Optional[int] = None,
+        attention_arm: str = "auto",
+        device="cuda",
+    ):
+        if cache_size < 1:
+            raise ValueError(f"cache_size must be >= 1, got {cache_size}")
+        if page_size is None:
+            raise NotImplementedError(
+                "the contiguous engine is not ported yet: pass page_size/num_pages"
+            )
+        if page_size < 1:
+            raise ValueError(f"page_size must be >= 1, got {page_size}")
+        if cache_size % page_size:
+            raise ValueError(
+                f"cache_size ({cache_size}) must be a multiple of "
+                f"page_size ({page_size}) for paged decode"
+            )
+        self.block_table_width = cache_size // page_size
+        if num_pages is None:
+            raise ValueError("paged decode requires num_pages")
+        if num_pages < self.block_table_width + 1:
+            raise ValueError(
+                f"num_pages ({num_pages}) cannot hold one max-size request: "
+                f"need >= {self.block_table_width} + 1 (page 0 is the null page)"
+            )
+        if chunk_size < 1:
+            raise ValueError(f"chunk_size must be >= 1, got {chunk_size}")
+        if kv_dtype not in ("bf16", "int8"):
+            raise ValueError(f"kv_dtype must be 'bf16' or 'int8', got {kv_dtype!r}")
+        if token_budget is not None and token_budget < 1:
+            raise ValueError(f"token_budget must be >= 1, got {token_budget}")
+        self.device = resolve_device(device)
+        self.config = model_cfg
+        self.cache_size = cache_size
+        self.paged = True
+        self.page_size = page_size
+        self.num_pages = num_pages
+        self.chunk_size = min(chunk_size, cache_size)
+        self.kv_dtype = kv_dtype
+        self.token_budget = token_budget or 0
+        self.dtype = dtype
+        if isinstance(params, LlamaForCausalLM):
+            self.model = params.eval()
+        else:
+            self.model = build_decode_model(
+                model_cfg, dtype=dtype, device=self.device, attention_arm=attention_arm
+            )
+            self.model.load_state_dict(dict(params))
+        self.model.attention_arm = attention_arm
+
+    # -- pool ------------------------------------------------------------------
+
+    def init_pool(self) -> Pool:
+        """Zero page pool: per layer ``k``/``v`` ``(num_pages, page_size,
+        kv_heads, head_dim)`` at the compute dtype, or int8 codes plus
+        ``k_scale``/``v_scale`` ``(num_pages, kv_heads)`` f32."""
+        cfg = self.config
+        shape = (self.num_pages, self.page_size, cfg.kv_heads, cfg.head_dim)
+        quantized = self.kv_dtype == "int8"
+        code_dtype = torch.int8 if quantized else self.dtype
+        pool = []
+        for _ in range(cfg.num_hidden_layers):
+            layer = {
+                "k": torch.zeros(shape, dtype=code_dtype, device=self.device),
+                "v": torch.zeros(shape, dtype=code_dtype, device=self.device),
+            }
+            if quantized:
+                for name in ("k_scale", "v_scale"):
+                    layer[name] = torch.zeros(
+                        shape[0], shape[2], dtype=torch.float32, device=self.device
+                    )
+            pool.append(layer)
+        return pool
+
+    def pool_bytes(self) -> int:
+        """Resident bytes of the page pool (codes plus int8 scales)."""
+        cfg = self.config
+        per_page = 2 * self.page_size * cfg.kv_heads * cfg.head_dim * (
+            1 if self.kv_dtype == "int8" else torch.finfo(self.dtype).bits // 8
+        )
+        if self.kv_dtype == "int8":
+            per_page += 2 * cfg.kv_heads * 4
+        return per_page * self.num_pages * cfg.num_hidden_layers
+
+    # -- step functions ----------------------------------------------------------
+
+    def _tensor(self, x, dtype=torch.int32) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(x), dtype=dtype).to(self.device)
+
+    def _forward(self, ids, positions, pool, block_tables, row_map=None):
+        with torch.inference_mode():
+            return self.model(
+                self._tensor(ids, torch.long),
+                self._tensor(positions),
+                pool,
+                self._tensor(block_tables),
+                None if row_map is None else self._tensor(row_map),
+            )
+
+    def prefill_chunk(self, ids, start: int, pool: Pool, block_table) -> Tuple[torch.Tensor, Pool]:
+        """One chunk ``(1, chunk_size)`` of a prompt at absolute positions
+        ``start ..`` through ``block_table`` ``(1, W)``.  Returns the chunk's
+        logits ``(1, chunk_size, V)`` and the (updated) pool."""
+        B, T = np.shape(ids)
+        positions = start + np.broadcast_to(np.arange(T, dtype=np.int32)[None, :], (B, T))
+        return self._forward(ids, positions, pool, block_table), pool
+
+    def decode_paged(self, pool: Pool, token, pos, block_tables) -> Tuple[torch.Tensor, Pool]:
+        """One decode step: ``token``/``pos`` ``(B, 1)``, ``block_tables``
+        ``(B, W)``.  Rows without a decoding request carry all-null tables.
+        Returns logits ``(B, V)`` and the pool."""
+        logits = self._forward(token, pos, pool, block_tables)
+        return logits[:, -1, :], pool
+
+    def step_paged(self, pool: Pool, ids, positions, block_tables, row_map) -> Tuple[torch.Tensor, Pool]:
+        """One packed mixed-batch step: ``ids``/``positions`` ``(1, Tb)``,
+        ``row_map`` ``(Tb,)`` the block-table row of each token,
+        ``block_tables`` ``(rows, W+1)`` — every slot's table plus a trailing
+        null column and a final all-null pad row.  Returns the window's
+        logits ``(1, Tb, V)`` and the pool."""
+        return self._forward(ids, positions, pool, block_tables, row_map), pool
+
+    def packed_buckets(self) -> Tuple[int, ...]:
+        """Packed-step sizes: halving from ``token_budget`` down to 8."""
+        if not self.token_budget:
+            raise ValueError("engine was built without token_budget: no packed step")
+        buckets = set()
+        t = self.token_budget
+        while True:
+            buckets.add(t)
+            if t <= 8:
+                break
+            t = max(8, t // 2)
+        return tuple(sorted(buckets))
+
+
+def compute_dtype(name: str) -> torch.dtype:
+    """``"f32"``/``"bf16"`` (the CLI's ``--dtype``) to a torch dtype."""
+    return _DTYPES[name]

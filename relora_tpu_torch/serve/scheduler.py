@@ -1,0 +1,622 @@
+"""Continuous batching over the paged engine.
+
+Counterpart of ``relora_tpu/serve/scheduler.py`` for the paged path:
+
+- :class:`ContinuousBatchingScheduler` is the incremental core —
+  ``submit`` queues a validated request, ``step`` runs one round and
+  returns the requests that finished in it, ``cancel`` frees a request
+  mid-flight, ``run`` submits a batch and steps until idle.  Its own
+  ``step`` (the contiguous engine's prefill-on-admission round) is not
+  ported yet.
+- :class:`PagedContinuousBatchingScheduler` runs budgeted rounds: expire
+  deadlines, admit pending requests (page allocation and a prefix-cache
+  lookup, all-or-nothing on the worst-case page count; the queue head waits
+  when the pool is exhausted), run at most one prefill chunk for the oldest
+  prefilling slot, then one paged decode over every decoding slot.  With
+  ``packed=True`` each round is ONE ``step_paged`` dispatch carrying every
+  decoding row plus oldest-first prefill tokens from as many slots as the
+  engine's token budget admits.
+
+Sampling is keyed by ``(seed, uid, token_index)``, never by slot or step,
+so a request's tokens do not depend on what shares its batch.  Speculative
+decoding, disaggregated roles, adapters, tracing and metrics are not ported
+yet; asking for them raises.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import logging
+import time
+from collections import deque
+from typing import Callable, Deque, Dict, Iterable, List, Optional, Sequence
+
+import numpy as np
+
+from relora_tpu_torch.serve.engine import InferenceEngine
+from relora_tpu_torch.serve.paging import PageAllocator, PrefixCache, pages_needed
+from relora_tpu_torch.serve.sampling import request_generator, sample
+
+logger = logging.getLogger(__name__)
+
+#: uid, token id, token index within the generation (0 = first sampled token)
+TokenCallback = Callable[[int, int, int], None]
+#: called exactly once per request with its Completion
+FinishCallback = Callable[["Completion"], None]
+
+
+def _not_ported(what: str) -> NotImplementedError:
+    return NotImplementedError(f"{what} is not ported to relora_tpu_torch yet")
+
+
+@dataclasses.dataclass(frozen=True)
+class Request:
+    """One generation request: token-id prompt plus per-request sampling.
+    ``top_k`` is batch-global and lives on the scheduler."""
+
+    uid: int
+    prompt: Sequence[int]
+    max_new_tokens: int
+    temperature: float = 0.0
+    top_p: float = 1.0
+    adapter: Optional[str] = None
+
+
+@dataclasses.dataclass
+class Completion:
+    uid: int
+    tokens: List[int]
+    finish_reason: str  # "eos" | "length" | "timeout" | "cancelled" | "error"
+    prompt_tokens: int
+    ttft_s: float
+    latency_s: float
+    error: Optional[str] = None
+
+
+@dataclasses.dataclass
+class _Slot:
+    request: Request
+    pos: int  # absolute position of the next cache write
+    tokens: List[int]
+    t_admit: float
+    t_first: float
+    deadline: Optional[float] = None
+
+
+class ContinuousBatchingScheduler:
+    """Drains a stream of requests through ``max_batch`` decode slots."""
+
+    def __init__(
+        self,
+        engine: InferenceEngine,
+        *,
+        max_batch: int,
+        eos_id: Optional[int] = None,
+        top_k: int = 0,
+        seed: int = 0,
+        metrics=None,
+        tracer=None,
+        obs_registry=None,
+        adapter_registry=None,
+    ):
+        if max_batch < 1:
+            raise ValueError(f"max_batch must be >= 1, got {max_batch}")
+        if adapter_registry is not None:
+            raise _not_ported("multi-tenant adapter serving")
+        if metrics is not None or tracer is not None or obs_registry is not None:
+            raise _not_ported("serving metrics and tracing")
+        self.engine = engine
+        self.max_batch = max_batch
+        self.eos_id = eos_id
+        self.top_k = top_k
+        self.seed = seed
+        self._step_count = 0
+        self._pending: Deque[Request] = deque()
+        self._slots: List[Optional[_Slot]] = [None] * max_batch
+        self._tokens = np.zeros(max_batch, np.int32)
+        self._positions = np.zeros(max_batch, np.int32)
+        self._deadlines: Dict[int, float] = {}
+        self._on_token: Dict[int, TokenCallback] = {}
+        self._on_finish: Dict[int, FinishCallback] = {}
+
+    def _request_generator(self, req: Request, token_index: int):
+        # keyed by (uid, token index): a request's sample stream does not
+        # depend on which slot it landed in or what shares its batch
+        return request_generator(self.seed, req.uid, token_index)
+
+    # -- incremental API --------------------------------------------------------
+
+    def validate_request(self, req: Request) -> None:
+        """Reject requests the decode loop could not serve: empty prompts and
+        generations that cannot fit the cache."""
+        need = len(req.prompt) + req.max_new_tokens
+        if len(req.prompt) < 1:
+            raise ValueError(f"request {req.uid}: empty prompt")
+        if need > self.engine.cache_size:
+            raise ValueError(
+                f"request {req.uid} needs {need} cache entries, "
+                f"capacity is {self.engine.cache_size}"
+            )
+        if req.max_new_tokens < 1:
+            raise ValueError(
+                f"request {req.uid}: max_new_tokens must be >= 1, got {req.max_new_tokens}"
+            )
+        if req.adapter is not None:
+            raise _not_ported("multi-tenant adapter serving")
+
+    def submit(
+        self,
+        req: Request,
+        *,
+        on_token: Optional[TokenCallback] = None,
+        on_finish: Optional[FinishCallback] = None,
+        deadline: Optional[float] = None,
+    ) -> None:
+        """Queue a request for admission at the next ``step()``.
+        ``on_token(uid, token, index)`` fires per sampled token, ``on_finish``
+        once with the Completion; ``deadline`` is an absolute
+        ``time.monotonic()`` bound (past it the request finishes with reason
+        ``"timeout"``)."""
+        self.validate_request(req)
+        if req.uid in self._deadlines or req.uid in self._on_finish or any(
+            r.uid == req.uid for r in self._pending
+        ) or any(s is not None and s.request.uid == req.uid for s in self._slots):
+            raise ValueError(f"request {req.uid}: uid already in flight")
+        if deadline is not None:
+            self._deadlines[req.uid] = deadline
+        if on_token is not None:
+            self._on_token[req.uid] = on_token
+        if on_finish is not None:
+            self._on_finish[req.uid] = on_finish
+        self._pending.append(req)
+
+    def cancel(
+        self, uid: int, reason: str = "cancelled", detail: Optional[str] = None
+    ) -> Optional[Completion]:
+        """Free a request's slot (or drop it from the queue) and report its
+        partial output; None when the uid is unknown."""
+        for req in list(self._pending):
+            if req.uid == uid:
+                self._pending.remove(req)
+                return self._finalize_unadmitted(req, reason, detail)
+        for slot_idx, slot in enumerate(self._slots):
+            if slot is not None and slot.request.uid == uid:
+                return self._retire(slot_idx, reason, detail)
+        return None
+
+    def has_work(self) -> bool:
+        return bool(self._pending) or any(s is not None for s in self._slots)
+
+    def step(self) -> List[Completion]:
+        raise _not_ported("the contiguous (prefill-on-admission) scheduler")
+
+    def run(self, requests: Iterable[Request]) -> Dict[int, Completion]:
+        """Admit-and-decode until every request completes.  Returns
+        completions keyed by ``Request.uid``."""
+        incoming = list(requests)
+        for req in incoming:
+            # validate everything before admitting anything
+            self.validate_request(req)
+        for req in incoming:
+            self.submit(req)
+        completions: Dict[int, Completion] = {}
+        t_start = time.monotonic()
+        while self.has_work():
+            for completion in self.step():
+                completions[completion.uid] = completion
+        logger.info(
+            f"drained {len(completions)} requests in {time.monotonic() - t_start:.2f}s "
+            f"({self._step_count} decode steps)"
+        )
+        return completions
+
+    # -- internals -------------------------------------------------------------
+
+    def _expire_deadlines(self, finished: List[Completion]) -> None:
+        if not self._deadlines:
+            return
+        now = time.monotonic()
+        for slot_idx, slot in enumerate(self._slots):
+            if slot is not None and slot.deadline is not None and now >= slot.deadline:
+                finished.append(self._retire(slot_idx, "timeout"))
+
+    def _sample_one(self, logits_row, req: Request) -> int:
+        """First token of a request (token index 0) from ``(1, V)`` logits."""
+        gens = [self._request_generator(req, 0) if req.temperature > 0 else None]
+        drawn = sample(
+            logits_row, gens, temperature=req.temperature, top_k=self.top_k,
+            top_p=req.top_p,
+        )
+        return int(drawn[0])
+
+    def _sample_rows(self, logits, slots) -> np.ndarray:
+        temps = np.zeros(self.max_batch, np.float32)
+        top_ps = np.ones(self.max_batch, np.float32)
+        gens: List = [None] * self.max_batch
+        for slot_idx, slot in enumerate(slots):
+            if slot is None:
+                continue
+            temps[slot_idx] = slot.request.temperature
+            top_ps[slot_idx] = slot.request.top_p
+            if slot.request.temperature > 0:
+                gens[slot_idx] = self._request_generator(slot.request, len(slot.tokens))
+        drawn = sample(
+            logits, gens, temperature=temps, top_k=self.top_k, top_p=top_ps
+        )
+        return drawn.cpu().numpy()
+
+    def _emit_token(self, uid: int, token: int, index: int) -> None:
+        callback = self._on_token.get(uid)
+        if callback is None:
+            return
+        try:
+            callback(uid, token, index)
+        except Exception as e:  # a dead stream must not kill the decode loop
+            logger.warning(f"request {uid}: token callback failed: {e!r}")
+            self._on_token.pop(uid, None)
+
+    def _finish_if_done(self, slot_idx: int, finished: List[Completion]) -> None:
+        slot = self._slots[slot_idx]
+        last = slot.tokens[-1]
+        reason = None
+        if self.eos_id is not None and last == self.eos_id:
+            reason = "eos"
+        elif len(slot.tokens) >= slot.request.max_new_tokens:
+            reason = "length"
+        if reason is not None:
+            finished.append(self._retire(slot_idx, reason))
+
+    def _retire(self, slot_idx: int, reason: str, detail: Optional[str] = None) -> Completion:
+        """Evict a slot: build the Completion, free the row, notify."""
+        slot = self._slots[slot_idx]
+        req = slot.request
+        now = time.monotonic()
+        completion = Completion(
+            uid=req.uid,
+            tokens=list(slot.tokens),
+            finish_reason=reason,
+            prompt_tokens=len(req.prompt),
+            ttft_s=slot.t_first - slot.t_admit,
+            latency_s=now - slot.t_admit,
+            error=detail,
+        )
+        self._slots[slot_idx] = None
+        self._finalize(completion)
+        return completion
+
+    def _finalize_unadmitted(
+        self, req: Request, reason: str, detail: Optional[str] = None
+    ) -> Completion:
+        completion = Completion(
+            uid=req.uid, tokens=[], finish_reason=reason,
+            prompt_tokens=len(req.prompt), ttft_s=0.0, latency_s=0.0, error=detail,
+        )
+        self._finalize(completion)
+        return completion
+
+    def _finalize(self, completion: Completion) -> None:
+        self._deadlines.pop(completion.uid, None)
+        self._on_token.pop(completion.uid, None)
+        callback = self._on_finish.pop(completion.uid, None)
+        if callback is None:
+            return
+        try:
+            callback(completion)
+        except Exception as e:
+            logger.warning(f"request {completion.uid}: finish callback failed: {e!r}")
+
+
+@dataclasses.dataclass
+class _PagedSlot(_Slot):
+    pages: List[int] = dataclasses.field(default_factory=list)  # logical order
+    shared_pages: int = 0  # leading pages borrowed from the prefix cache
+    prefill_progress: int = 0  # prompt tokens already written to the pool
+    decoding: bool = False  # first token sampled; joins the decode batch
+    seq: int = 0  # admission order; prefill is scheduled oldest-first
+
+
+class PagedContinuousBatchingScheduler(ContinuousBatchingScheduler):
+    """Continuous batching over the paged engine: budgeted rounds instead
+    of prefill-on-admission (see the module docstring)."""
+
+    def __init__(
+        self,
+        engine: InferenceEngine,
+        *,
+        prefix_cache: bool = True,
+        prefix_cache_entries: int = 256,
+        spec: str = "off",
+        packed: bool = False,
+        role: str = "mixed",
+        **kwargs,
+    ):
+        super().__init__(engine, **kwargs)
+        if spec != "off":
+            raise _not_ported(f"speculative decoding (spec={spec!r})")
+        if role != "mixed":
+            raise _not_ported(f"disaggregated serving (role={role!r})")
+        if not getattr(engine, "paged", False):
+            raise ValueError("PagedContinuousBatchingScheduler needs a paged engine")
+        self._packed = packed
+        if packed:
+            if not engine.token_budget:
+                raise ValueError("packed=True needs an engine built with token_budget")
+            if engine.token_budget < self.max_batch:
+                raise ValueError(
+                    f"token_budget ({engine.token_budget}) cannot hold every "
+                    f"decode row: need >= {self.max_batch} (max_batch)"
+                )
+        self.allocator = PageAllocator(
+            engine.num_pages,
+            engine.page_size,
+            page_bytes=engine.pool_bytes() // engine.num_pages,
+        )
+        self.prefix_cache = (
+            PrefixCache(self.allocator, max_entries=prefix_cache_entries)
+            if prefix_cache
+            else None
+        )
+        self._pool = None  # allocated on first admission, then persistent
+        # decode block tables: all-null rows for free / prefilling slots, so
+        # their garbage decode write lands in the null page
+        self._tables = np.zeros((self.max_batch, engine.block_table_width), np.int32)
+        # the packed step's tables: every slot's (W plus a trailing null
+        # column) and a final all-null row that padding tokens point at
+        self._ptables = np.zeros(
+            (self.max_batch + 1, engine.block_table_width + 1), np.int32
+        )
+        self._admit_seq = 0
+
+    def _ensure_pool(self):
+        if self._pool is None:
+            self._pool = self.engine.init_pool()
+        return self._pool
+
+    # -- admission ---------------------------------------------------------------
+
+    def _admit_pass(self, finished: List[Completion]) -> None:
+        """Fill free slots from the queue head: prefix lookup + page
+        allocation only.  Allocation failure leaves the head queued."""
+        while self._pending:
+            slot_idx = next(
+                (i for i in range(self.max_batch) if self._slots[i] is None), None
+            )
+            if slot_idx is None:
+                return
+            req = self._pending[0]
+            deadline = self._deadlines.get(req.uid)
+            if deadline is not None and time.monotonic() >= deadline:
+                self._pending.popleft()
+                finished.append(self._finalize_unadmitted(req, "timeout"))
+                continue
+            need = pages_needed(len(req.prompt) + req.max_new_tokens, self.engine.page_size)
+            shared_pages: List[int] = []
+            shared_tokens = 0
+            if self.prefix_cache is not None:
+                shared_pages, shared_tokens = self.prefix_cache.lookup(req.prompt)
+            fresh = self.allocator.alloc(need - len(shared_pages))
+            if fresh is None and self.prefix_cache is not None:
+                # under pressure: drop idle prefix entries (LRU) and retry
+                self.prefix_cache.evict(need - len(shared_pages))
+                fresh = self.allocator.alloc(need - len(shared_pages))
+            if fresh is None:
+                # allocator exhausted: stay queued; pages free as requests retire
+                if shared_pages:
+                    self.allocator.decref(shared_pages)
+                return
+            self._pending.popleft()
+            t_admit = time.monotonic()
+            pages = shared_pages + fresh
+            self._slots[slot_idx] = _PagedSlot(
+                request=req,
+                pos=0,
+                tokens=[],
+                t_admit=t_admit,
+                t_first=t_admit,
+                deadline=deadline,
+                pages=pages,
+                shared_pages=len(shared_pages),
+                prefill_progress=shared_tokens,
+                seq=self._admit_seq,
+            )
+            self._admit_seq += 1
+            self._tokens[slot_idx] = 0
+            self._positions[slot_idx] = 0
+            self._tables[slot_idx, :] = 0
+            # the packed table row is live from admission: prefill tokens
+            # route through it the round they are admitted
+            self._ptables[slot_idx, :] = 0
+            self._ptables[slot_idx, : len(pages)] = pages
+
+    def _arm_decoding(self, slot_idx: int, first_id: int, finished: List[Completion]) -> None:
+        """The prompt is in the pool and its first token sampled: register
+        the prompt's full pages with the prefix cache and join decode."""
+        slot = self._slots[slot_idx]
+        req = slot.request
+        L = len(req.prompt)
+        if self.prefix_cache is not None:
+            # only pages fully covered by prompt tokens register
+            self.prefix_cache.register(list(req.prompt), slot.pages)
+        slot.decoding = True
+        slot.tokens = [first_id]
+        slot.pos = L
+        slot.t_first = time.monotonic()
+        self._tokens[slot_idx] = first_id
+        self._positions[slot_idx] = L
+        self._tables[slot_idx, : len(slot.pages)] = slot.pages
+        self._emit_token(req.uid, first_id, 0)
+        self._finish_if_done(slot_idx, finished)
+
+    def _prefilling(self) -> List[int]:
+        """Slots still prefilling, oldest admission first."""
+        return [
+            i
+            for _, i in sorted(
+                (s.seq, i)
+                for i, s in enumerate(self._slots)
+                if s is not None and not s.decoding
+            )
+        ]
+
+    # -- prefill (one chunk per round) --------------------------------------------
+
+    def _prefill_pass(self, finished: List[Completion]) -> None:
+        """One prefill chunk for the oldest prefilling slot; when it
+        completes the prompt, sample the first token and arm decode."""
+        prefilling = self._prefilling()
+        if not prefilling:
+            return
+        slot_idx = prefilling[0]
+        slot = self._slots[slot_idx]
+        req = slot.request
+        L = len(req.prompt)
+        chunk = self.engine.chunk_size
+        start = slot.prefill_progress
+        n_real = min(chunk, L - start)
+        ids = np.zeros((1, chunk), np.int32)
+        ids[0, :n_real] = list(req.prompt[start : start + n_real])
+        table = np.zeros((1, self.engine.block_table_width), np.int32)
+        table[0, : len(slot.pages)] = slot.pages
+        logits, self._pool = self.engine.prefill_chunk(ids, start, self._ensure_pool(), table)
+        slot.prefill_progress = start + n_real
+        if slot.prefill_progress >= L:
+            self._arm_decoding(slot_idx, self._sample_one(logits[:, L - 1 - start, :], req), finished)
+
+    # -- the budgeted round -------------------------------------------------------
+
+    def step(self) -> List[Completion]:
+        """One budgeted round: expire deadlines, admit, at most one prefill
+        chunk, then one paged decode over every decoding slot (or, packed,
+        the single-dispatch round of :meth:`_step_packed`)."""
+        if self._packed:
+            return self._step_packed()
+        finished: List[Completion] = []
+        self._expire_deadlines(finished)
+        self._admit_pass(finished)
+        self._prefill_pass(finished)
+        decoding = [s if (s is not None and s.decoding) else None for s in self._slots]
+        if not any(s is not None for s in decoding):
+            return finished
+        logits, self._pool = self.engine.decode_paged(
+            self._ensure_pool(),
+            self._tokens[:, None],
+            self._positions[:, None],
+            self._tables,
+        )
+        self._step_count += 1
+        next_tokens = self._sample_rows(logits, decoding).tolist()
+        for slot_idx, slot in enumerate(decoding):
+            if slot is None:
+                continue
+            self._advance(slot_idx, next_tokens[slot_idx], finished)
+        return finished
+
+    def _advance(self, slot_idx: int, tok: int, finished: List[Completion]) -> None:
+        slot = self._slots[slot_idx]
+        slot.tokens.append(tok)
+        slot.pos += 1
+        self._tokens[slot_idx] = tok
+        self._positions[slot_idx] = slot.pos
+        self._emit_token(slot.request.uid, tok, len(slot.tokens) - 1)
+        self._finish_if_done(slot_idx, finished)
+
+    # -- the packed single-dispatch round -------------------------------------------
+
+    def _step_packed(self) -> List[Completion]:
+        """Token-budget round in ONE model dispatch: every decoding row's
+        token first, then oldest-first prefill tokens from as many slots as
+        the budget admits, padded to the smallest packed bucket.  Each token
+        routes through its own slot's block table (``row_map``); sampling
+        uses the sequential round's calls and keys, so the drain is
+        token-identical to the unpacked scheduler's."""
+        finished: List[Completion] = []
+        self._expire_deadlines(finished)
+        self._admit_pass(finished)
+        if not any(s is not None for s in self._slots):
+            return finished
+        engine = self.engine
+        B = self.max_batch
+        ids: List[int] = []
+        poss: List[int] = []
+        rows: List[int] = []
+        slot_off: Dict[int, int] = {}  # decoding slot -> its token's offset
+        for slot_idx, slot in enumerate(self._slots):
+            if slot is None or not slot.decoding:
+                continue
+            slot_off[slot_idx] = len(ids)
+            ids.append(int(self._tokens[slot_idx]))
+            poss.append(int(self._positions[slot_idx]))
+            rows.append(slot_idx)
+
+        # prefill from several slots into the leftover budget; every write
+        # lands before any token attends, so a slot may clear its backlog
+        budget_left = engine.token_budget - len(ids)
+        prefill_spans: List[tuple] = []  # (slot_idx, start, n, packed offset)
+        for slot_idx in self._prefilling():
+            if budget_left <= 0:
+                break
+            slot = self._slots[slot_idx]
+            req = slot.request
+            start = slot.prefill_progress
+            n = min(len(req.prompt) - start, budget_left)
+            if n <= 0:
+                continue
+            prefill_spans.append((slot_idx, start, n, len(ids)))
+            ids.extend(int(t) for t in req.prompt[start : start + n])
+            poss.extend(range(start, start + n))
+            rows.extend([slot_idx] * n)
+            budget_left -= n
+
+        n_real = len(ids)
+        if n_real == 0:
+            return finished
+        bucket = next(b for b in engine.packed_buckets() if b >= n_real)
+        pad = bucket - n_real
+        ids.extend([0] * pad)
+        poss.extend([engine.cache_size] * pad)  # clips into the null page
+        rows.extend([B] * pad)  # the all-null pad row of _ptables
+        logits, self._pool = engine.step_paged(
+            self._ensure_pool(),
+            np.asarray(ids, np.int32)[None, :],
+            np.asarray(poss, np.int32)[None, :],
+            self._ptables,
+            np.asarray(rows, np.int32),
+        )
+        self._step_count += 1
+
+        if slot_off:
+            sample_idx = np.zeros(B, np.int64)
+            for slot_idx, off in slot_off.items():
+                sample_idx[slot_idx] = off
+            gathered = logits[0][sample_idx]
+            masked = [s if i in slot_off else None for i, s in enumerate(self._slots)]
+            next_tokens = self._sample_rows(gathered, masked).tolist()
+            for slot_idx in sorted(slot_off):
+                self._advance(slot_idx, next_tokens[slot_idx], finished)
+
+        for slot_idx, start, n, off in prefill_spans:
+            slot = self._slots[slot_idx]
+            if slot is None:
+                continue
+            slot.prefill_progress = start + n
+            if slot.prefill_progress < len(slot.request.prompt):
+                continue
+            first_id = self._sample_one(logits[:, off + n - 1, :], slot.request)
+            self._arm_decoding(slot_idx, first_id, finished)
+        return finished
+
+    # -- retirement (page bookkeeping) --------------------------------------------
+
+    def _retire(self, slot_idx: int, reason: str, detail: Optional[str] = None) -> Completion:
+        slot = self._slots[slot_idx]
+        completion = super()._retire(slot_idx, reason, detail)
+        if slot.pages:
+            # one decref per page: fresh pages drop their alloc ref, shared
+            # pages this request's lookup ref
+            self.allocator.decref(slot.pages)
+            slot.pages = []
+        self._tables[slot_idx, :] = 0
+        self._ptables[slot_idx, :] = 0
+        self._tokens[slot_idx] = 0
+        self._positions[slot_idx] = 0
+        return completion

@@ -14,8 +14,13 @@ setup(
         "TPU-native ReLoRA pretraining: high-rank training through low-rank "
         "updates on JAX/XLA/pallas/pjit"
     ),
-    packages=find_packages(include=["relora_tpu", "relora_tpu.*"]),
-    package_data={"relora_tpu.data.native": ["helpers.cpp"]},
+    packages=find_packages(
+        include=["relora_tpu", "relora_tpu.*", "relora_tpu_torch", "relora_tpu_torch.*"]
+    ),
+    package_data={
+        "relora_tpu.data.native": ["helpers.cpp"],
+        "relora_tpu_torch": ["csrc/*.cu"],
+    },
     python_requires=">=3.10",
     install_requires=[
         "jax",

@@ -1,0 +1,95 @@
+#!/usr/bin/env python3
+"""Where a PyTorch-port drain spends its time on the card.
+
+Runs one ``relora_tpu_torch.serve_cli`` drain (the same 16 requests as
+``chip_smoke.py``: llama_250m, prompts of 32-512 tokens, 64 new tokens,
+``--random-init --dtype bf16 --max-batch 8 --paged``) three times — a
+warm-up drain, a timed drain, then one under ``torch.profiler`` tracing
+the device only — and prints one JSON line: the timed drain's wall seconds
+and tokens/s, the profiled drain's wall seconds (the difference is the
+tracer's cost), the device's busy time and idle share of the profiled
+drain, and device time by kernel name (names cut to 80 characters, times
+of names that share those summed), largest first.  Extra flags go to the
+CLI:
+
+    python3 tools/torch_drain_profile.py               # sequential rounds
+    python3 tools/torch_drain_profile.py --packed
+    python3 tools/torch_drain_profile.py --kv-dtype int8
+
+Needs a CUDA card.  Busy time is the union of kernel intervals on the
+device, so overlapping streams are not counted twice.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import time
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, REPO)
+
+
+def main(argv) -> int:
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    if not torch.cuda.is_available():
+        print("torch_drain_profile: no CUDA card", file=sys.stderr)
+        return 2
+    import chip_smoke
+    from relora_tpu_torch import serve_cli
+
+    work = os.path.join(REPO, "build", "chip_smoke")
+    os.makedirs(work, exist_ok=True)
+    prompts = os.path.join(work, "prompts.txt")
+    chip_smoke.write_prompts(prompts, 32100)
+    args = ["--model_config", "llama_250m", "--random-init", "--dtype", "bf16",
+            "--max-batch", "8", "--paged", "--max-new-tokens", "64",
+            "--input-file", prompts, *argv]
+    serve_cli.run(args)  # warm-up: cuBLAS handles, allocator, kernel build
+    completions, seconds = serve_cli.run(args)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        serve_cli.run(args)
+        wall = time.perf_counter() - t0
+    intervals = []
+    by_name = {}
+    for ev in prof.events():
+        if ev.device_type == torch.autograd.DeviceType.CUDA and ev.time_range.elapsed_us() > 0:
+            intervals.append((ev.time_range.start, ev.time_range.end))
+            name = ev.name[:80]
+            by_name[name] = by_name.get(name, 0.0) + ev.time_range.elapsed_us()
+    if not intervals:
+        raise SystemExit("torch_drain_profile: the profiler traced no device time")
+    busy = 0.0
+    end = None
+    for s, e in sorted(intervals):
+        if end is None or s > end:
+            busy += e - s
+            end = e
+        elif e > end:
+            busy += e - end
+            end = e
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
+    tokens = sum(len(c.tokens) for c in completions.values())
+    print(json.dumps({
+        "flags": argv,
+        "card": subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+            capture_output=True, text=True, check=True,
+        ).stdout.strip().splitlines()[0],
+        "drain_s": seconds,
+        "profiled_wall_s": wall,
+        "tokens_per_s": tokens / seconds,
+        "device_busy_s": busy / 1e6,
+        "device_idle_share": 1.0 - busy / 1e6 / wall,
+        "kernels_ms": {name: us / 1e3 for name, us in top},
+    }))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))
