@@ -1,30 +1,50 @@
 #!/usr/bin/env python3
-"""Quickest proof that the PyTorch port serves on one NVIDIA H100.
+"""Quickest proof that the PyTorch port serves and trains on one NVIDIA H100.
 
     python3 chip_smoke.py
 
 Phases, in order; any failure raises and the script exits non-zero:
 
-1. build   — nvcc builds every kernel of ``relora_tpu_torch/csrc`` for sm_90a.
-2. kernels — each kernel against its plain PyTorch twin on the card, at
-             llama_250m (N=16, H=48) and llama_1b (N=32, H=64) widths, page 16,
-             table width 64, B=8 with S in {1, 5} and a packed T=72, for f32,
-             bf16 and int8 pools; then each is timed at the main path's shape
-             beside its plain twin, a gather + scaled_dot_product_attention
-             yardstick, and its bound.
-3. drains  — ``relora_tpu_torch.serve_cli`` drains 16 requests (prompts of
-             32-512 tokens, 64 new tokens each) for llama_250m at full width,
-             ``--random-init --dtype bf16 --max-batch 8 --paged``: at
-             ``--kv-dtype bf16``, with ``--packed``, and at ``--kv-dtype int8``.
-             The launch counters are zeroed before each drain and read after;
-             the drain fails if its kernel never launched.
-4. f32     — one ``decode_paged`` and one ``step_paged`` step at f32, the
-             kernel arm against the plain arm, compared on logits.
+1. build     — nvcc builds every kernel of ``relora_tpu_torch/csrc`` for
+               sm_90a, one process per source, all started together.
+2. kernels   — the paged kernels (1-2) against their plain PyTorch twins on
+               the card, at llama_250m (N=16, H=48) and llama_1b (N=32, H=64)
+               widths, page 16, table width 64, B=8 with S in {1, 5} and a
+               packed T=72, for f32, bf16 and int8 pools; then each is timed at
+               the main path's shape beside its plain twin, a gather +
+               scaled_dot_product_attention yardstick, and its bound.
+3. kernels-3 — the flash forward, dK/dV and dQ kernels against their twins:
+               the train phase's shape (B=8, S=512, N=16, H=48), grouped
+               heads (N=16, n_kv=4, H=64) and an unaligned S=200, at bf16 and
+               f32; then each, and forward+backward together, timed beside
+               its twin, a scaled_dot_product_attention(is_causal=True)
+               yardstick and its bound.
+4. drains    — ``relora_tpu_torch.serve_cli`` drains 16 requests (prompts of
+               32-512 tokens, 64 new tokens each) for llama_250m at full width,
+               ``--random-init --dtype bf16 --max-batch 8 --paged``: at
+               ``--kv-dtype bf16``, with ``--packed``, and at ``--kv-dtype int8``.
+               The launch counters are zeroed before each drain and read after;
+               the drain fails if its kernel never launched.
+5. f32       — one ``decode_paged`` and one ``step_paged`` step at f32, the
+               kernel arm against the plain arm, compared on logits.
+6. train     — ``relora_tpu_torch.main`` trains llama_250m (full width and
+               depth, bf16, LoRA r=128 with dropout 0.1) for 9 updates of two
+               8 x 512 microbatches on a seeded Zipf corpus written under
+               ``build/chip_smoke/``, merging and resetting every 3 updates.
+               Fails unless every loss is finite and the last is below the
+               first, the run merged and reset at updates 4 and 7, and the
+               flash launch counters (zeroed before, read after) equal
+               layers x microbatches x updates (+ layers x eval batches for
+               the forward).
+7. f32-train — one update of a 2-layer llama_250m at f32, the flash arm
+               against the naive arm on loss and gradient norm, then one merge
+               against an f64 oracle.
 
-Output: a ``{"kernels": [...]}`` line, one line per drain, the card's
-``nvidia-smi --query-gpu=name,power.limit`` line, and last
-``{"ok": true, "device": {...}}``.  Without CUDA, or without the package
-beside it, it exits non-zero and prints no result.
+Output: a forward+backward timing line, one line per drain, a train line, a
+``{"kernels": [...]}`` line, the card's ``nvidia-smi
+--query-gpu=name,power.limit`` line, and last ``{"ok": true, "device":
+{...}}``.  Without CUDA, or without the package beside it, it exits non-zero
+and prints no result.
 """
 
 from __future__ import annotations
@@ -236,6 +256,154 @@ def check_kernels(torch, device):
     return rows
 
 
+# kernel 3 cases: (B, S, N, n_kv, H, dtype); the first is the train phase's
+# shape (llama_250m, --batch_size 8 --max_length 512), then grouped-query
+# heads at llama_1b's head_dim and an S that is no multiple of the 64-row tile
+FLASH_CASES = [
+    (8, 512, 16, 16, 48, "bf16"), (8, 512, 16, 16, 48, "f32"),
+    (2, 512, 16, 4, 64, "bf16"), (2, 512, 16, 4, 64, "f32"),
+    (2, 200, 16, 16, 48, "bf16"), (2, 200, 16, 16, 48, "f32"),
+]
+# error relative to max(1, max|twin|): f32 sums the same terms in another
+# order (1e-6 scale at S=512); bf16 outputs round once to bf16 (2^-8 relative)
+FLASH_TOL = {"f32": 1e-4, "bf16": 1e-2}
+BF16_FLOPS_PER_S = 989e12  # H100 SXM dense bf16 tensor-core peak
+FLASH_NAMES = ("flash_attention_forward", "flash_attention_bwd_dkdv", "flash_attention_bwd_dq")
+
+
+def make_flash_case(torch, device, B, S, N, n_kv, H, dtype, seed):
+    g = torch.Generator(device=device).manual_seed(seed)
+    dt = torch.float32 if dtype == "f32" else torch.bfloat16
+    q = torch.randn((B, S, N, H), generator=g, device=device).to(dt)
+    k = torch.randn((B, S, n_kv, H), generator=g, device=device).to(dt)
+    v = torch.randn((B, S, n_kv, H), generator=g, device=device).to(dt)
+    dout = torch.randn((B, S, N, H), generator=g, device=device).to(dt)
+    return q, k, v, dout
+
+
+def flash_bound(q, k, kernel):
+    """Least time on an H100 SXM: each input read once and each output
+    written once over 3.35 TB/s, against the causal matmul work (in units of
+    B*N*S^2*H: forward 2, dK/dV 4 with the recomputed QK^T, dQ 3, forward
+    plus backward 2 + 5) over the bf16 tensor-core peak."""
+    B, S, N, H = q.shape
+    qb = q.numel() * q.element_size()
+    kb = k.numel() * k.element_size()
+    rows = B * N * S * 4  # one f32 per (b, head, row): lse or delta
+    bytes_, units = {
+        "forward": (2 * qb + 2 * kb + rows, 2),
+        "dkdv": (2 * qb + 4 * kb + 2 * rows, 4),
+        "dq": (3 * qb + 2 * kb + 2 * rows, 3),
+        "fwd_bwd": (4 * qb + 4 * kb, 7),
+    }[kernel]
+    t_bytes = bytes_ / HBM_BYTES_PER_S
+    t_ops = units * B * N * S * S * H / BF16_FLOPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def check_flash_kernels(torch, device):
+    """Phase kernels-3: the three flash kernels against their twins on the
+    card, then timings at the train phase's shape."""
+    import torch.nn.functional as F
+
+    from relora_tpu_torch.ops import flash_attention as FA
+
+    worst = dict.fromkeys(FLASH_NAMES, 0.0)
+    for i, (B, S, N, n_kv, H, dtype) in enumerate(FLASH_CASES):
+        q, k, v, dout = make_flash_case(torch, device, B, S, N, n_kv, H, dtype, seed=11 + i)
+        scale = H**-0.5
+        want_out, want_lse = FA.flash_attention_forward_plain(q, k, v, scale)
+        delta = FA.flash_attention_delta(want_out, dout)
+        got_out, got_lse = FA.flash_attention_forward(q, k, v, scale)
+        pairs = {
+            "flash_attention_forward": [(got_out, want_out), (got_lse, want_lse)],
+            "flash_attention_bwd_dkdv": list(zip(
+                FA.flash_attention_bwd_dkdv(q, k, v, dout, want_lse, delta, scale),
+                FA.flash_attention_bwd_dkdv_plain(q, k, v, dout, want_lse, delta, scale))),
+            "flash_attention_bwd_dq": [(
+                FA.flash_attention_bwd_dq(q, k, v, dout, want_lse, delta, scale),
+                FA.flash_attention_bwd_dq_plain(q, k, v, dout, want_lse, delta, scale))],
+        }
+        torch.cuda.synchronize()
+        for name, outs in pairs.items():
+            err = rel = peak = 0.0
+            finite = True
+            for got, want in outs:
+                got, want = got.float(), want.float()
+                finite = finite and bool(torch.isfinite(got).all() and torch.isfinite(want).all())
+                diff = (got - want).abs().max().item()
+                err = max(err, diff)
+                peak = max(peak, want.abs().max().item())
+                rel = max(rel, diff / max(1.0, want.abs().max().item()))
+            ok = finite and peak > 0 and rel <= FLASH_TOL[dtype]
+            print(f"kernel-check {name} B={B} S={S} N={N} n_kv={n_kv} H={H} {dtype} "
+                  f"max_abs_err={err:.3e} rel_err={rel:.3e} max_abs={peak:.3e} "
+                  f"tol={FLASH_TOL[dtype]:g} {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"{name} disagrees with its plain twin ({B, S, N, n_kv, H, dtype})")
+            if i == 0:
+                worst[name] = err
+
+    B, S, N, n_kv, H, dtype = FLASH_CASES[0]
+    q, k, v, dout = make_flash_case(torch, device, B, S, N, n_kv, H, dtype, seed=99)
+    scale = H**-0.5
+    out, lse = FA.flash_attention_forward(q, k, v, scale)
+    delta = FA.flash_attention_delta(out, dout)
+    bwd = (q, k, v, dout, lse, delta, scale)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+
+    def fwd_bwd(attend, inputs, cotangent):
+        leaves = [x.detach().requires_grad_() for x in inputs]
+        return torch.autograd.grad(attend(*leaves), leaves, cotangent)
+
+    def plain_fwd_bwd():
+        o, l = FA.flash_attention_forward_plain(q, k, v, scale)
+        d = FA.flash_attention_delta(o, dout)
+        FA.flash_attention_bwd_dkdv_plain(q, k, v, dout, l, d, scale)
+        FA.flash_attention_bwd_dq_plain(q, k, v, dout, l, d, scale)
+
+    rows = []
+    for name, kernel, fn, plain, library in (
+        ("flash_attention_forward", "forward", lambda: FA.flash_attention_forward(q, k, v, scale),
+         lambda: FA.flash_attention_forward_plain(q, k, v, scale), sdpa),
+        ("flash_attention_bwd_dkdv", "dkdv", lambda: FA.flash_attention_bwd_dkdv(*bwd),
+         lambda: FA.flash_attention_bwd_dkdv_plain(*bwd), None),
+        ("flash_attention_bwd_dq", "dq", lambda: FA.flash_attention_bwd_dq(*bwd),
+         lambda: FA.flash_attention_bwd_dq_plain(*bwd), None),
+    ):
+        bound_ms, bound_by = flash_bound(q, k, kernel)
+        rows.append({
+            "name": name,
+            "route": "cuda",
+            "source": "relora_tpu_torch/csrc/flash_attention.cu",
+            "replaces": "relora_tpu/ops/attention.py:84",
+            "launches": 0,
+            "max_abs_err": worst[name],
+            "ms": time_ms(torch, fn),
+            "plain_ms": time_ms(torch, plain),
+            "bound_ms": bound_ms,
+            "bound_by": bound_by,
+            "library_ms": time_ms(torch, library) if library else None,
+        })
+    bound_ms, bound_by = flash_bound(q, k, "fwd_bwd")
+    pair = {
+        "flash_fwd_bwd": "forward+backward",
+        "shape": [B, S, N, n_kv, H, dtype],
+        "ms": time_ms(torch, lambda: fwd_bwd(FA.flash_attention, (q, k, v), dout)),
+        "plain_ms": time_ms(torch, plain_fwd_bwd),
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "library_ms": time_ms(torch, lambda: fwd_bwd(
+            lambda a, b, c: F.scaled_dot_product_attention(a, b, c, is_causal=True),
+            (qt, kt, vt), dout.transpose(1, 2))),
+    }
+    print(json.dumps(pair))
+    return rows
+
+
 def write_prompts(path, vocab, seed=0):
     import numpy as np
 
@@ -350,6 +518,135 @@ def f32_comparison(torch, device):
             raise AssertionError(f"f32 {name}: kernel arm and plain arm disagree")
 
 
+TRAIN_UPDATES = 9
+TRAIN_MICRO = 2
+TRAIN_ARGS = [
+    "--model_config", "llama_250m", "--dtype", "bfloat16",
+    "--batch_size", "8", "--total_batch_size", "16", "--max_length", "512",
+    "--use_peft", "true", "--lora_r", "128", "--lr", "1e-3", "--relora", "3",
+    "--cycle_length", "3", "--scheduler", "cosine_restarts", "--warmup_steps", "2",
+    "--restart_warmup_steps", "1", "--num_training_steps", str(TRAIN_UPDATES),
+    "--eval_every", "1000",
+]
+# f32-train: flash arm vs naive arm after 2 layers (f32 sums in another
+# order, 1e-6 scale per op); the merge vs an f64 oracle at f32 rounding
+F32_TRAIN_TOL = {"loss": 1e-5, "grad_norm": 1e-4, "merge": 1e-6}
+
+
+def write_corpus(work, vocab=32100, seed=0):
+    """A seeded Megatron memmap corpus of Zipf-distributed token ids (so the
+    loss has something to learn) and its JSON-form data config."""
+    import numpy as np
+
+    from relora_tpu_torch.data.memmap import MemmapTokenWriter
+
+    rng = np.random.default_rng(seed)
+    prefix = os.path.join(work, "zipf_corpus")
+    with MemmapTokenWriter(prefix, dtype=np.uint16) as w:
+        for _ in range(600):
+            w.add_document((rng.zipf(1.2, int(rng.integers(200, 1500))) - 1) % vocab)
+    path = os.path.join(work, "zipf_data.json")
+    with open(path, "w") as f:
+        json.dump({"data_path": prefix, "split": "95,5,0", "seq_length": 512, "seed": 1234}, f)
+    return path
+
+
+def train(torch, data_config):
+    """Phase train: ``relora_tpu_torch.main`` on the card, counters read
+    around the run."""
+    from relora_tpu_torch import main as train_main
+    from relora_tpu_torch.config.model import load_model_config
+    from relora_tpu_torch.ops import flash_attention as FA
+
+    counters = [getattr(FA, name) for name in FLASH_NAMES]
+    for c in counters:
+        c.launches = 0
+    result = train_main.main(TRAIN_ARGS + ["--megatron_dataset_config", data_config])
+    launches = dict(zip(FLASH_NAMES, (c.launches for c in counters)))
+
+    records = result["records"]
+    losses = [r["loss"] for r in records]
+    layers = load_model_config("llama_250m").num_hidden_layers
+    backward = layers * TRAIN_MICRO * TRAIN_UPDATES
+    want = {
+        "flash_attention_forward": backward + layers * result["eval_batches"],
+        "flash_attention_bwd_dkdv": backward,
+        "flash_attention_bwd_dq": backward,
+    }
+    merges_at = [r["update_step"] for a, r in zip([None] + records, records)
+                 if a is not None and r["n_lora_restarts"] > a["n_lora_restarts"]]
+    resets_at = [r["update_step"] for a, r in zip([None] + records, records)
+                 if a is not None and r["n_optimizer_resets"] > a["n_optimizer_resets"]]
+    steady = sorted(r["update_seconds"] for r in records[1:])
+    ms = steady[len(steady) // 2] * 1e3
+    line = {
+        "train": "llama_250m", "updates": len(records), "ms_per_update": ms,
+        "tokens_per_s": 16 * 512 / (ms / 1e3), "first_loss": losses[0], "last_loss": losses[-1],
+        "final_eval_loss": result.get("final_eval_loss"), "merges_at": merges_at,
+        "resets_at": resets_at, "eval_batches": result["eval_batches"], "launches": launches,
+        "fit_seconds": result["fit_seconds"],
+    }
+    print(json.dumps(line))
+    if len(records) != TRAIN_UPDATES or not all(torch.isfinite(torch.tensor(losses))):
+        raise AssertionError(f"train: expected {TRAIN_UPDATES} finite losses, got {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"train: loss did not fall ({losses[0]} -> {losses[-1]})")
+    if merges_at != [4, 7] or resets_at != [4, 7] or result["n_lora_restarts"] != 2:
+        raise AssertionError(f"train: merges at {merges_at}, resets at {resets_at}, expected [4, 7]")
+    if launches != want:
+        raise AssertionError(f"train: flash launches {launches}, expected {want}")
+    return launches
+
+
+def f32_train(torch, device):
+    """Phase f32-train: one update through the flash arm and the naive arm
+    from the same weights and batch, then a merge against an f64 oracle."""
+    import dataclasses
+
+    import numpy as np
+
+    from relora_tpu_torch.config.model import load_model_config
+    from relora_tpu_torch.core import optim, relora
+    from relora_tpu_torch.models.llama import LlamaForCausalLM
+    from relora_tpu_torch.models.params_util import init_params
+    from relora_tpu_torch.ops import flash_attention as FA
+    from relora_tpu_torch.train.step import TrainState, make_train_step
+
+    cfg = dataclasses.replace(load_model_config("llama_250m"), num_hidden_layers=2)
+    spec = relora.LoraSpec(r=128, alpha=32.0, dropout=0.0)
+    rng = np.random.default_rng(5)
+    batch = torch.as_tensor((rng.zipf(1.2, (2, 4, 512)) - 1) % cfg.vocab_size, device=device)
+    state_dict, out = None, {}
+    n0 = FA.flash_attention_bwd_dq.launches
+    for arm in ("flash", "naive"):
+        with torch.device(device):
+            model = LlamaForCausalLM(cfg, dtype=torch.float32, attention_arm=arm, lora=spec)
+        if state_dict is None:
+            init_params(model, torch.Generator(device=device).manual_seed(3))
+            state_dict = {k: v.clone() for k, v in model.state_dict().items()}
+        model.load_state_dict(state_dict)
+        relora.set_trainable(model)
+        opt = optim.build_optimizer(p for p in model.parameters() if p.requires_grad)
+        step = make_train_step(model, opt, clip_grad_norm=1.0, schedule=lambda s: 1e-3)
+        out[arm] = (step(TrainState(), batch), model)
+    if FA.flash_attention_bwd_dq.launches == n0:
+        raise AssertionError("f32-train: the flash arm did not reach the kernels")
+    (mf, model), (mn, _) = out["flash"], out["naive"]
+    errs = {k: abs(mf[k] - mn[k]) / abs(mn[k]) for k in ("loss", "grad_norm")}
+
+    module = model.layers[0].self_attn.q_proj
+    oracle = module.weight.double() + (
+        module.lora_a.double() @ module.lora_b.double() * spec.scale).t()
+    relora.merge_and_reinit(model, torch.Generator(device=device).manual_seed(4), spec)
+    errs["merge"] = ((module.weight.double() - oracle).abs().max() / oracle.abs().max()).item()
+    for key, err in errs.items():
+        ok = err <= F32_TRAIN_TOL[key]
+        print(f"f32-train {key} flash={mf.get(key)} naive={mn.get(key)} rel_err={err:.3e} "
+              f"tol={F32_TRAIN_TOL[key]:g} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"f32-train: {key} off by {err:.3e}")
+
+
 def main() -> int:
     import torch
 
@@ -370,6 +667,7 @@ def main() -> int:
     print(f"build: {sorted(libs)} in {time.perf_counter() - t0:.1f}s")
 
     rows = check_kernels(torch, device)
+    flash_rows = check_flash_kernels(torch, device)
     work = os.path.join(REPO, "build", "chip_smoke")
     os.makedirs(work, exist_ok=True)
     prompts = os.path.join(work, "prompts.txt")
@@ -378,6 +676,13 @@ def main() -> int:
     for row in rows:
         row["launches"] = launches[row["name"]]
     f32_comparison(torch, device)
+    torch.cuda.empty_cache()
+    launches = train(torch, write_corpus(work))
+    for row in flash_rows:
+        row["launches"] = launches[row["name"]]
+    rows += flash_rows
+    torch.cuda.empty_cache()
+    f32_train(torch, device)
 
     print(json.dumps({"kernels": rows}))
     smi = subprocess.run(

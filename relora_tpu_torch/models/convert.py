@@ -28,11 +28,25 @@ _LLAMA_LAYER_MAP = {
 }
 
 
-def _leaf(tree: Mapping[str, Any], dotted: str) -> np.ndarray:
+#: LoRA leaves of a projection, copied in the JAX layouts: lora_a (in, r),
+#: lora_b (r, out), lora_s (1,)
+_LORA_LEAVES = ("lora_a", "lora_b", "lora_s")
+
+
+def _has(tree: Mapping[str, Any], dotted: str) -> bool:
     node: Any = tree
     for part in dotted.split("."):
         if not isinstance(node, Mapping) or part not in node:
-            raise KeyError(f"parameter tree has no leaf {dotted!r}")
+            return False
+        node = node[part]
+    return True
+
+
+def _leaf(tree: Mapping[str, Any], dotted: str) -> np.ndarray:
+    if not _has(tree, dotted):
+        raise KeyError(f"parameter tree has no leaf {dotted!r}")
+    node: Any = tree
+    for part in dotted.split("."):
         node = node[part]
     return np.asarray(node, dtype=np.float32)
 
@@ -45,16 +59,20 @@ def _weight(value: np.ndarray, src: str) -> torch.Tensor:
 
 def params_from_jax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     """State dict of :class:`relora_tpu_torch.models.llama.LlamaForCausalLM`
-    from a merged JAX Llama parameter tree, scanned (``layers`` with a
-    leading axis L) or unrolled (``layers_0`` .. ``layers_{L-1}``).  LoRA
-    leaves are not converted: serving takes merged weights."""
+    from a JAX Llama parameter tree, scanned (``layers`` with a leading axis
+    L) or unrolled (``layers_0`` .. ``layers_{L-1}``).  A LoRA tree's
+    ``lora_a``/``lora_b``/``lora_s`` leaves keep their layouts (the port's
+    ``LoRALinear`` stores them as the JAX module does); a ``lora_only``
+    projection has no ``kernel`` and so no ``weight``."""
     if "layers" in tree:
         stacked = tree["layers"]
         n_layers = _leaf(stacked, "input_layernorm.scale").shape[0]
         layer = lambda i, path: _leaf(stacked, path)[i]
+        layer_has = lambda i, path: _has(stacked, path)
     else:
         n_layers = sum(1 for k in tree if k.startswith("layers_") and k[7:].isdigit())
         layer = lambda i, path: _leaf(tree[f"layers_{i}"], path)
+        layer_has = lambda i, path: _has(tree[f"layers_{i}"], path)
     if n_layers == 0:
         raise KeyError("parameter tree has no decoder layers")
     out = {
@@ -64,5 +82,11 @@ def params_from_jax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     }
     for i in range(n_layers):
         for src, dst in _LLAMA_LAYER_MAP.items():
-            out[f"layers.{i}.{dst}"] = _weight(layer(i, src), src)
+            module = src.rsplit(".", 1)[0]
+            lora_only = not layer_has(i, src) and layer_has(i, f"{module}.lora_a")
+            if not lora_only:
+                out[f"layers.{i}.{dst}"] = _weight(layer(i, src), src)
+            for name in _LORA_LEAVES:
+                if src.endswith(".kernel") and layer_has(i, f"{module}.{name}"):
+                    out[f"layers.{i}.{module}.{name}"] = torch.tensor(layer(i, f"{module}.{name}"))
     return out

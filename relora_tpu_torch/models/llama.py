@@ -1,19 +1,28 @@
-"""Llama decoder for paged serving, in PyTorch.
+"""Llama decoder in PyTorch: the training forward and the paged serving forward.
 
-Counterpart of ``relora_tpu/models/llama.py`` for the decode forward of the
-paged serving path: RMSNorm, rotary tables (with linear and dynamic scaling),
-grouped-query attention that writes into and attends from a shared KV page
-pool, the SwiGLU MLP, and the causal-LM head.  Parameter names follow the HF
-Llama layout (``relora_tpu/models/hf_compat.py``): ``embed_tokens.weight``,
+Counterpart of ``relora_tpu/models/llama.py``: RMSNorm, rotary tables (with
+linear and dynamic scaling), grouped-query attention, the SwiGLU MLP, and the
+causal-LM head.  Parameter names follow the HF Llama layout
+(``relora_tpu/models/hf_compat.py``): ``embed_tokens.weight``,
 ``layers.{i}.self_attn.q_proj.weight``, ..., ``norm.weight``,
-``lm_head.weight``; linear weights are ``(out, in)``.
+``lm_head.weight``; linear weights are ``(out, in)``.  With a ``LoraSpec``
+every attention and MLP projection is a
+:class:`~relora_tpu_torch.models.lora.LoRALinear` carrying ``lora_a``,
+``lora_b`` (and ``lora_s``) beside its weight; ``lm_head`` never is.
 
-Numerics mirror the JAX model: projections run in the compute dtype, norms
-and rotary in f32, attention math in f32, logits returned in f32.  The KV
-pool is not module state: the engine owns it as one dict per layer
-(``k``/``v`` of shape ``(num_pages, page_size, n_kv, head_dim)`` plus
-``k_scale``/``v_scale`` ``(num_pages, n_kv)`` for an int8 pool) and passes it
-to every forward, which updates it in place.
+Numerics mirror the JAX model: parameters are stored in ``param_dtype`` (f32
+masters in training, the compute dtype in serving), projections run in the
+compute dtype, norms and rotary in f32, attention math in f32, logits
+returned in f32.
+
+Called without a pool, the model runs the training forward: causal
+self-attention through ``ops.attention.dot_product_attention`` (the flash
+kernels on CUDA), optional per-layer activation checkpointing, and LoRA
+dropout seeded per call.  Called with a pool, it runs the paged decode
+forward: the engine owns the pool as one dict per layer (``k``/``v`` of
+shape ``(num_pages, page_size, n_kv, head_dim)`` plus ``k_scale``/``v_scale``
+``(num_pages, n_kv)`` for an int8 pool) and every forward updates it in
+place.
 """
 
 from __future__ import annotations
@@ -24,8 +33,16 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from torch.utils.checkpoint import checkpoint
+
 from relora_tpu_torch.config.model import ModelConfig
+from relora_tpu_torch.core.relora import LoraSpec
+from relora_tpu_torch.models.lora import LoRALinear
+from relora_tpu_torch.ops.attention import dot_product_attention
 from relora_tpu_torch.ops.attention_dispatch import packed_attention, paged_attention
+
+#: dropout seeds a decoder layer spends: one per projection (7), rounded up
+SEEDS_PER_LAYER = 8
 
 LayerPool = Dict[str, torch.Tensor]
 
@@ -167,98 +184,142 @@ def apply_rotary(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch
     return (x32 * cos + _rotate_half(x32) * sin).to(x.dtype)
 
 
-def _linear(i: int, o: int, dtype) -> nn.Linear:
-    return nn.Linear(i, o, bias=False, dtype=dtype)
+def _seed(base: Optional[int], offset: int) -> Optional[int]:
+    return None if base is None else base + offset
 
 
 class LlamaAttention(nn.Module):
-    def __init__(self, config: ModelConfig, dtype=torch.float32):
+    def __init__(self, config: ModelConfig, dtype=torch.float32, lora=None, param_dtype=None):
         super().__init__()
         h, n_kv, hd = config.hidden_size, config.kv_heads, config.head_dim
         self.config = config
-        self.q_proj = _linear(h, h, dtype)
-        self.k_proj = _linear(h, n_kv * hd, dtype)
-        self.v_proj = _linear(h, n_kv * hd, dtype)
-        self.o_proj = _linear(h, h, dtype)
+        linear = lambda i, o: LoRALinear(i, o, lora=lora, dtype=dtype, param_dtype=param_dtype)
+        self.q_proj = linear(h, h)
+        self.k_proj = linear(h, n_kv * hd)
+        self.v_proj = linear(h, n_kv * hd)
+        self.o_proj = linear(h, h)
 
-    def forward(self, x, cos, sin, positions, block_tables, pool, row_map=None, arm="auto"):
+    def forward(self, x, cos, sin, positions, block_tables, pool, row_map=None, arm="auto",
+                dropout_seed=None):
         cfg = self.config
         B, S = x.shape[:2]
-        q = self.q_proj(x).reshape(B, S, cfg.num_attention_heads, cfg.head_dim)
-        k = self.k_proj(x).reshape(B, S, cfg.kv_heads, cfg.head_dim)
-        v = self.v_proj(x).reshape(B, S, cfg.kv_heads, cfg.head_dim)
+        q = self.q_proj(x, _seed(dropout_seed, 0)).reshape(B, S, cfg.num_attention_heads, cfg.head_dim)
+        k = self.k_proj(x, _seed(dropout_seed, 1)).reshape(B, S, cfg.kv_heads, cfg.head_dim)
+        v = self.v_proj(x, _seed(dropout_seed, 2)).reshape(B, S, cfg.kv_heads, cfg.head_dim)
         q = apply_rotary(q, cos, sin)
         k = apply_rotary(k, cos, sin)
-        out = attend_with_paged_cache(q, k, v, positions, block_tables, pool, row_map, arm)
-        return self.o_proj(out.reshape(B, S, cfg.hidden_size))
+        if pool is None:
+            out = dot_product_attention(q, k, v, causal=True, impl=arm)
+        else:
+            out = attend_with_paged_cache(q, k, v, positions, block_tables, pool, row_map, arm)
+        return self.o_proj(out.reshape(B, S, cfg.hidden_size), _seed(dropout_seed, 3))
 
 
 class LlamaMLP(nn.Module):
     """SwiGLU: down(silu(gate(x)) * up(x))."""
 
-    def __init__(self, config: ModelConfig, dtype=torch.float32):
+    def __init__(self, config: ModelConfig, dtype=torch.float32, lora=None, param_dtype=None):
         super().__init__()
         h, i = config.hidden_size, config.intermediate_size
-        self.gate_proj = _linear(h, i, dtype)
-        self.up_proj = _linear(h, i, dtype)
-        self.down_proj = _linear(i, h, dtype)
+        linear = lambda a, b: LoRALinear(a, b, lora=lora, dtype=dtype, param_dtype=param_dtype)
+        self.gate_proj = linear(h, i)
+        self.up_proj = linear(h, i)
+        self.down_proj = linear(i, h)
 
-    def forward(self, x):
-        return self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x))
+    def forward(self, x, dropout_seed=None):
+        gate = self.gate_proj(x, _seed(dropout_seed, 4))
+        up = self.up_proj(x, _seed(dropout_seed, 5))
+        return self.down_proj(F.silu(gate) * up, _seed(dropout_seed, 6))
 
 
 class LlamaDecoderLayer(nn.Module):
     """Pre-norm block: x + attn(norm(x)), then + mlp(norm(x))."""
 
-    def __init__(self, config: ModelConfig, dtype=torch.float32):
+    def __init__(self, config: ModelConfig, dtype=torch.float32, lora=None, param_dtype=None):
         super().__init__()
         self.input_layernorm = RMSNorm(config.hidden_size, config.rms_norm_eps, dtype)
-        self.self_attn = LlamaAttention(config, dtype)
+        self.self_attn = LlamaAttention(config, dtype, lora, param_dtype)
         self.post_attention_layernorm = RMSNorm(config.hidden_size, config.rms_norm_eps, dtype)
-        self.mlp = LlamaMLP(config, dtype)
+        self.mlp = LlamaMLP(config, dtype, lora, param_dtype)
 
-    def forward(self, x, cos, sin, positions, block_tables, pool, row_map=None, arm="auto"):
+    def forward(self, x, cos, sin, positions, block_tables, pool, row_map=None, arm="auto",
+                dropout_seed=None):
         x = x + self.self_attn(
-            self.input_layernorm(x), cos, sin, positions, block_tables, pool, row_map, arm
+            self.input_layernorm(x), cos, sin, positions, block_tables, pool, row_map, arm,
+            dropout_seed,
         )
-        return x + self.mlp(self.post_attention_layernorm(x))
+        return x + self.mlp(self.post_attention_layernorm(x), dropout_seed)
 
 
 class LlamaForCausalLM(nn.Module):
-    """Causal LM over the paged KV pool, returning f32 logits.
+    """Causal LM returning f32 logits (``logits_dtype``).
 
     ``dtype`` is the compute dtype of the projections and the embedding
-    (norm weights stay f32, as in the JAX model).  ``attention_arm`` pins
-    the attention arm (``"auto"`` or ``"naive"``) for every layer."""
+    output; ``param_dtype`` (default ``dtype``) stores the weights (norm
+    weights stay f32, as in the JAX model).  ``attention_arm`` pins the
+    attention arm for every layer: ``"auto"``, ``"naive"``, or ``"flash"``
+    (training only).  ``lora`` wraps every attention and MLP projection;
+    ``remat`` recomputes each decoder layer in the backward pass
+    (``torch.utils.checkpoint``, non-reentrant)."""
 
-    def __init__(self, config: ModelConfig, dtype=torch.float32, attention_arm: str = "auto"):
+    def __init__(
+        self,
+        config: ModelConfig,
+        dtype=torch.float32,
+        attention_arm: str = "auto",
+        *,
+        lora: Optional[LoraSpec] = None,
+        param_dtype=None,
+        remat: bool = False,
+        logits_dtype=torch.float32,
+    ):
         super().__init__()
         if config.family != "llama":
             raise NotImplementedError(
                 f"model family {config.family!r} is not ported yet (llama only)"
             )
-        if attention_arm not in ("auto", "naive"):
-            raise ValueError(f"attention_arm must be 'auto' or 'naive', got {attention_arm!r}")
+        if attention_arm not in ("auto", "naive", "flash"):
+            raise ValueError(
+                f"attention_arm must be 'auto', 'naive' or 'flash', got {attention_arm!r}"
+            )
+        param_dtype = param_dtype or dtype
         self.config = config
         self.dtype = dtype
         self.attention_arm = attention_arm
-        self.embed_tokens = nn.Embedding(config.vocab_size, config.hidden_size, dtype=dtype)
+        self.lora = lora
+        self.remat = remat
+        self.logits_dtype = logits_dtype
+        self.embed_tokens = nn.Embedding(config.vocab_size, config.hidden_size, dtype=param_dtype)
         self.layers = nn.ModuleList(
-            LlamaDecoderLayer(config, dtype) for _ in range(config.num_hidden_layers)
+            LlamaDecoderLayer(config, dtype, lora, param_dtype)
+            for _ in range(config.num_hidden_layers)
         )
         self.norm = RMSNorm(config.hidden_size, config.rms_norm_eps, dtype)
-        self.lm_head = _linear(config.hidden_size, config.vocab_size, dtype)
+        self.lm_head = LoRALinear(
+            config.hidden_size, config.vocab_size, dtype=dtype, param_dtype=param_dtype
+        )
 
     def forward(
         self,
         input_ids: torch.Tensor,
-        positions: torch.Tensor,
-        pool: List[LayerPool],
-        block_tables: torch.Tensor,
+        positions: Optional[torch.Tensor] = None,
+        pool: Optional[List[LayerPool]] = None,
+        block_tables: Optional[torch.Tensor] = None,
         row_map: Optional[torch.Tensor] = None,
+        *,
+        dropout_seed: Optional[int] = None,
     ) -> torch.Tensor:
+        """Logits ``(B, S, vocab)``.  Without ``pool`` this is the training
+        forward over ``input_ids`` ``(B, S)`` at positions ``0..S-1`` (causal
+        attention; ``dropout_seed`` turns LoRA dropout on, layer ``i`` drawing
+        from seeds ``dropout_seed + 8*i + j``).  With ``pool`` it is the paged
+        decode forward at ``positions`` through ``block_tables``."""
         cfg = self.config
-        x = self.embed_tokens(input_ids)
+        x = self.embed_tokens(input_ids).to(self.dtype)
+        if positions is None:
+            if pool is not None:
+                raise ValueError("the paged forward needs positions")
+            positions = torch.arange(input_ids.shape[1], device=input_ids.device)[None, :]
         cos, sin = rotary_tables(
             positions,
             cfg.head_dim,
@@ -268,9 +329,10 @@ class LlamaForCausalLM(nn.Module):
             max_position=cfg.max_sequence_length,
             current_length=input_ids.shape[1],
         )
-        for layer, layer_pool in zip(self.layers, pool):
-            x = layer(
-                x, cos, sin, positions, block_tables, layer_pool, row_map,
-                self.attention_arm,
-            )
-        return self.lm_head(self.norm(x)).float()
+        pools = pool if pool is not None else [None] * len(self.layers)
+        remat = self.remat and pool is None and torch.is_grad_enabled()
+        for i, (layer, layer_pool) in enumerate(zip(self.layers, pools)):
+            args = (x, cos, sin, positions, block_tables, layer_pool, row_map,
+                    self.attention_arm, _seed(dropout_seed, SEEDS_PER_LAYER * i))
+            x = checkpoint(layer, *args, use_reentrant=False) if remat else layer(*args)
+        return self.lm_head(self.norm(x)).to(self.logits_dtype)

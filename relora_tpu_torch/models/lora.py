@@ -1,0 +1,98 @@
+"""LoRA-factored linear layer: the PyTorch counterpart of
+``relora_tpu/models/lora.py::LoRALinear``.
+
+Forward (the reference's ``ReLoRaLinear``)::
+
+    y = x @ Wᵀ  +  ((dropout(x) @ A) @ B) * scale
+
+``weight`` is the frozen base in the HF ``(out, in)`` layout (so a model
+without LoRA keeps the serving state-dict names), ``lora_a`` ``(in, r)`` and
+``lora_b`` ``(r, out)`` keep the JAX package's layouts, ``lora_s`` ``(1,)``
+is the trainable scaling (``scale = tanh(lora_s)``).  Parameters are stored
+in ``param_dtype`` (the base in bf16 under ``base_dtype="bf16"``); every
+matmul runs in the compute ``dtype``, cast exactly where the JAX module casts.
+
+Dropout draws its mask from a generator seeded by the caller's
+``dropout_seed``: the same seed draws the same mask, so a layer recomputed
+under activation checkpointing reuses its forward's masks.  No seed means
+deterministic (eval), like the JAX module's ``deterministic=True``.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from relora_tpu_torch.core.relora import LoraSpec
+
+
+def dropout_mask(shape, p: float, seed: int, device) -> torch.Tensor:
+    """Boolean keep-mask (True with probability ``1 - p``) drawn from a
+    generator seeded with ``seed`` on ``device``."""
+    gen = torch.Generator(device=device).manual_seed(int(seed))
+    return torch.rand(shape, generator=gen, device=device) < 1.0 - p
+
+
+class LoRALinear(nn.Module):
+    """``in_features -> out_features`` linear without bias, with LoRA factors
+    when ``lora`` is given."""
+
+    def __init__(
+        self,
+        in_features: int,
+        out_features: int,
+        *,
+        lora: Optional[LoraSpec] = None,
+        dtype=torch.float32,
+        param_dtype=None,
+    ):
+        super().__init__()
+        param_dtype = param_dtype or dtype
+        self.lora = lora
+        self.dtype = dtype
+        if lora is not None:
+            if lora.quantize:
+                raise NotImplementedError(
+                    f"a {lora.quantize} frozen base is not ported yet: see ROADMAP"
+                )
+            if lora.fused is not False:
+                raise NotImplementedError(
+                    "the fused LoRA kernels (--lora_fused true|auto) are not ported yet: see ROADMAP"
+                )
+            if lora.num_slots:
+                raise NotImplementedError("multi-tenant adapter slots are not ported yet: see ROADMAP")
+        if lora is not None and lora.lora_only:
+            self.register_parameter("weight", None)
+        else:
+            base_dtype = torch.bfloat16 if lora is not None and lora.base_dtype == "bf16" else param_dtype
+            self.weight = nn.Parameter(torch.empty(out_features, in_features, dtype=base_dtype))
+        if lora is not None:
+            self.lora_a = nn.Parameter(torch.empty(in_features, lora.r, dtype=param_dtype))
+            self.lora_b = nn.Parameter(torch.empty(lora.r, out_features, dtype=param_dtype))
+            if lora.trainable_scaling:
+                self.lora_s = nn.Parameter(torch.empty(1, dtype=param_dtype))
+
+    def forward(self, x: torch.Tensor, dropout_seed: Optional[int] = None) -> torch.Tensor:
+        if self.lora is not None and self.lora.lora_only:
+            return self._lora_branch(x, dropout_seed)
+        y = F.linear(x.to(self.dtype), self.weight.to(self.dtype))
+        if self.lora is not None:
+            y = y + self._lora_branch(x, dropout_seed)
+        return y
+
+    def _lora_branch(self, x: torch.Tensor, dropout_seed: Optional[int]) -> torch.Tensor:
+        """``((dropout(x) @ A) @ B) * scale`` (``relora_tpu/models/lora.py:414-423``)."""
+        spec = self.lora
+        h = x
+        if spec.dropout > 0.0 and dropout_seed is not None:
+            keep = dropout_mask(x.shape, spec.dropout, dropout_seed, x.device)
+            h = torch.where(keep, x / (1.0 - spec.dropout), torch.zeros((), dtype=x.dtype, device=x.device))
+        z = torch.matmul(h.to(self.dtype), self.lora_a.to(self.dtype))
+        z = torch.matmul(z, self.lora_b.to(self.dtype))
+        if spec.trainable_scaling:
+            return z * torch.tanh(self.lora_s.to(self.dtype))
+        return z * spec.scale
+

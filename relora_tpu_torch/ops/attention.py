@@ -1,7 +1,9 @@
-"""Cached and paged attention for the serving path.
+"""Causal attention for training, cached and paged attention for serving.
 
-PyTorch counterpart of ``relora_tpu/ops/attention.py`` for what the paged
-serving path runs:
+PyTorch counterpart of ``relora_tpu/ops/attention.py``.  Training's causal
+self-attention is :func:`dot_product_attention` over two arms: ``naive``
+(:func:`naive_attention`, plain f32) and ``flash`` (the CUDA kernels of
+``ops/flash_attention.py``).  For what the paged serving path runs:
 
 - the plain arm: :func:`cached_attention`, :func:`gather_kv_pages`,
   :func:`dequantize_gathered_pages` and :func:`paged_cached_attention`
@@ -27,6 +29,57 @@ import torch
 #: masked logit of the fused kernels (the TPU kernels use the same value)
 _MASKED = -1e30
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+
+
+def naive_attention(q, k, v, *, causal: bool, scale: float) -> torch.Tensor:
+    """softmax(QKᵀ)V in f32 over ``(B, S, N, H)`` q and ``(B, S, n_kv, H)``
+    k/v (grouped heads attend without expanding K/V): the JAX package's
+    ``naive`` arm, masked logits at the f32 minimum."""
+    B, S, N, H = q.shape
+    n_kv = k.shape[2]
+    if N % n_kv:
+        raise ValueError(f"num_heads={N} must divide by kv_heads={n_kv}")
+    qg = q.float().reshape(B, S, n_kv, N // n_kv, H)
+    logits = torch.einsum("bqkgh,bskh->bkgqs", qg, k.float()) * scale
+    if causal:
+        mask = torch.ones((S, k.shape[1]), dtype=torch.bool, device=q.device).tril()
+        logits = torch.where(mask, logits, torch.finfo(torch.float32).min)
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bkgqs,bskh->bqkgh", probs, v.float())
+    return out.reshape(B, S, N, H).to(q.dtype)
+
+
+def dot_product_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    impl: str = "auto",
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    """Training self-attention over ``(B, S, N, H)`` tensors.
+
+    ``impl="auto"`` resolves through
+    :func:`relora_tpu_torch.ops.attention_dispatch.choose_training_arm`;
+    ``"flash"`` is the causal CUDA kernel pair (its plain twins for CPU
+    tensors), ``"naive"`` the plain f32 arm.  Both arms compute the same
+    function; forcing one is how tests and ``chip_smoke.py`` compare them."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    if impl == "auto":
+        from relora_tpu_torch.ops.attention_dispatch import choose_training_arm
+
+        impl = choose_training_arm(q)
+    if impl == "flash":
+        if not causal:
+            raise ValueError("the flash arm computes causal attention only")
+        from relora_tpu_torch.ops.flash_attention import flash_attention
+
+        return flash_attention(q, k, v, scale)
+    if impl == "naive":
+        return naive_attention(q, k, v, causal=causal, scale=scale)
+    raise ValueError(f"unknown attention impl {impl!r}; expected auto|naive|flash")
 
 
 def cached_attention(

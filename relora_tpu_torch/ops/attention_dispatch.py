@@ -1,7 +1,9 @@
-"""Choose the arm that attends a query against the paged KV pool.
+"""Choose the attention arm: training's causal arm, and the arm that attends a
+query against the paged KV pool.
 
-PyTorch counterpart of ``relora_tpu/ops/attention_dispatch.py``'s serving
-entries.  Two arms serve each entry:
+PyTorch counterpart of ``relora_tpu/ops/attention_dispatch.py``'s training
+rule (:func:`choose_training_arm`) and serving entries.  Two arms serve each
+serving entry:
 
 - **naive** — :func:`relora_tpu_torch.ops.attention.paged_cached_attention`:
   gather, then masked einsum softmax einsum.  Any S; chunked prefill's arm.
@@ -30,12 +32,23 @@ from relora_tpu_torch.ops.attention import (
     paged_decode_attention,
 )
 
-__all__ = ["PAGED_DECODE_MAX_S", "paged_attention", "packed_attention"]
+__all__ = ["PAGED_DECODE_MAX_S", "choose_training_arm", "paged_attention", "packed_attention"]
 
 #: largest query length the fused paged kernel serves: plain decode (S=1)
 #: and every speculative verify window (K+1 for K <= 15); chunked prefill at
 #: the default chunk_size=64 keeps the naive arm
 PAGED_DECODE_MAX_S = 16
+
+
+def choose_training_arm(q: torch.Tensor) -> str:
+    """Arm of a training causal self-attention: ``"flash"`` (the CUDA kernels)
+    for a query on a CUDA device, ``"naive"`` otherwise.
+
+    A structural rule, like :func:`paged_attention`'s: the JAX package ranks
+    flash/xla/naive by a roofline table of TPU v5e constants
+    (``relora_tpu/ops/attention_dispatch.py:266``), which do not carry over to
+    the H100; the flash kernels take any S, so no shape strikes them."""
+    return "flash" if q.is_cuda else "naive"
 
 
 def paged_attention(

@@ -1,0 +1,170 @@
+"""The training slice as a whole: the port's ``Trainer.fit`` and its CLI.
+
+Per-update loss parity: the port's trainer and the JAX package's train step,
+merge and reset, driven under the JAX trainer's cadence rule, from one JAX
+init on the tiny llama of ``tests/test_end_to_end.py``, over 6 updates of 2
+microbatches with one merge and one reset, at f32 on the CPU, within 1e-4.
+The A re-draw at the merge comes from ``jax.random`` in one package and a
+``torch.Generator`` in the other, so the test carries the JAX package's
+fresh A into the port at the merge; LoRA dropout is off.
+"""
+
+import json
+import os
+import signal
+import subprocess
+import sys
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from relora_tpu.config.model import ModelConfig as JaxModelConfig
+from relora_tpu.core import optim as jax_optim
+from relora_tpu.core import relora as jax_relora
+from relora_tpu.core.partition import partition
+from relora_tpu.core.schedules import make_schedule as jax_make_schedule
+from relora_tpu.models.llama import LlamaForCausalLM as JaxLlama
+from relora_tpu.models.params_util import init_params as jax_init_params
+from relora_tpu.train.state import TrainState as JaxTrainState
+from relora_tpu.train.step import make_train_step as jax_make_train_step
+from relora_tpu_torch.config.model import ModelConfig
+from relora_tpu_torch.config.training import TrainingConfig
+from relora_tpu_torch.core import relora
+from relora_tpu_torch.data.memmap import MemmapTokenWriter
+from relora_tpu_torch.models.convert import params_from_jax
+from relora_tpu_torch.train.trainer import Trainer
+
+pytestmark = pytest.mark.torch_port
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+TINY = dict(vocab_size=128, hidden_size=32, intermediate_size=64, num_hidden_layers=2,
+            num_attention_heads=2, max_sequence_length=32)
+RECIPE = dict(batch_size=4, total_batch_size=8, max_length=16, lr=5e-3, scheduler="cosine_restarts",
+              warmup_steps=2, restart_warmup_steps=1, num_training_steps=6, cycle_length=3, relora=3,
+              use_peft=True, lora_r=4, lora_dropout=0.0, eval_every=1000, seed=0)
+LOSS_TOL = 1e-4
+
+
+def _data_config(tmp_path):
+    path = tmp_path / "data.json"
+    path.write_text(json.dumps({"data_path": str(tmp_path / "unused"), "seq_length": 16}))
+    return str(path)
+
+
+def _jax_run(batches):
+    """The JAX package's step, merge and reset under the trainer's cadence
+    rule; returns per-update losses, the initial params and the fresh A of
+    every merge."""
+    spec = jax_relora.LoraSpec(r=4, dropout=0.0)
+    model = JaxLlama(JaxModelConfig(**TINY), lora=spec, dtype=jnp.float32, scan_layers=True,
+                     attention_impl="naive")
+    params = jax_init_params(model, jax.random.PRNGKey(0), jnp.zeros((1, 16), jnp.int32))
+    mask = jax_relora.trainable_param_mask(params)
+    sched = jax_make_schedule("cosine_restarts", lr=5e-3, num_training_steps=6, warmup_steps=2,
+                              cycle_length=3, restart_warmup_steps=1)
+    tx = jax_optim.build_optimizer(schedule=sched)
+    state = JaxTrainState.create(params, tx.init(partition(params, mask)[0]))
+    step = jax.jit(jax_make_train_step(model, tx, mask, clip_grad_norm=1.0, schedule=sched))
+    losses, fresh_a = [], []
+    for u, batch in enumerate(batches, start=1):
+        state, metrics = step(state, jnp.asarray(batch), jax.random.PRNGKey(u))
+        losses.append(float(metrics["loss"]))
+        if u >= 3 and u % 3 == 1:
+            state = state.replace(params=jax_relora.merge_and_reinit(state.params, jax.random.PRNGKey(u), spec))
+            fresh_a.append(jax.tree_util.tree_map(np.asarray, state.params))
+            state = state.replace(opt_state=jax_optim.reset_optimizer_state(state.opt_state, mode="zero", ratio=1.0))
+    return losses, jax.tree_util.tree_map(np.asarray, params), fresh_a
+
+
+def test_trainer_fit_tracks_jax_loss_per_update(tmp_path, monkeypatch):
+    rng = np.random.default_rng(0)
+    starts = rng.integers(0, 128, (6, 2, 4, 1))
+    batches = ((starts + np.arange(16)) % 128).astype(np.int32)  # learnable: i -> i+1
+    want, params, merged_trees = _jax_run(batches)
+
+    cfg = TrainingConfig(megatron_dataset_config=_data_config(tmp_path), dtype="float32",
+                         device="cpu", **RECIPE).finalize()
+    trainer = Trainer(cfg, model_cfg=ModelConfig(**TINY))
+    trainer.model.load_state_dict(params_from_jax(params))
+    # the merge re-draws each A: take the JAX package's draw, module by module
+    queue = []
+    for tree in merged_trees:
+        sd = params_from_jax(tree)
+        queue.extend(sd[f"{name}.lora_a"] for name, _ in relora.lora_modules(trainer.model))
+    monkeypatch.setattr(relora, "kaiming_uniform", lambda shape, generator, device: queue.pop(0))
+    result = trainer.fit(iter(batches))
+
+    got = [r["loss"] for r in result["records"]]
+    np.testing.assert_allclose(got, want, atol=LOSS_TOL, rtol=0)
+    assert not queue, "every merge took the JAX draw"
+    assert result["update_step"] == 6
+    assert (result["n_lora_restarts"], result["n_optimizer_resets"]) == (1, 1)
+    assert got[-1] < got[0]
+
+
+def test_sigterm_stops_at_the_update_boundary(tmp_path):
+    """With handle_preemption (the default) a SIGTERM during the run stops
+    the loop after the update in flight, reports preempted and skips the
+    final eval, as the JAX trainer does without a checkpoint to write."""
+    cfg = TrainingConfig(megatron_dataset_config=_data_config(tmp_path), dtype="float32",
+                         device="cpu", **RECIPE).finalize()
+    trainer = Trainer(cfg, model_cfg=ModelConfig(**TINY))
+    batches = np.random.default_rng(1).integers(0, 128, (6, 2, 4, 16))
+
+    def stream():
+        for i, batch in enumerate(batches):
+            if i == 2:
+                os.kill(os.getpid(), signal.SIGTERM)
+            yield batch
+
+    result = trainer.fit(stream(), eval_iter_factory=lambda: iter(batches[0]))
+    assert result["preempted"] and result["update_step"] == 3
+    assert "final_eval_loss" not in result and result["eval_batches"] == 0
+
+
+@pytest.mark.parametrize("flag,value", [
+    ("save_dir", "ckpt"), ("warmed_up_model", "."), ("spike_threshold", 3.0),
+    ("prune_sparsity", 0.5), ("quantize", "int8"), ("lora_fused", "true"),
+    ("loss_impl", "chunked"), ("wandb", True), ("tp_size", 2),
+])
+def test_unported_options_raise(tmp_path, flag, value):
+    cfg = TrainingConfig(megatron_dataset_config=_data_config(tmp_path), dtype="float32",
+                         device="cpu", **{**RECIPE, flag: value}).finalize()
+    with pytest.raises(NotImplementedError, match="not ported"):
+        Trainer(cfg, model_cfg=ModelConfig(**TINY))
+
+
+def test_cli_trains_on_cpu_without_jax(tmp_path):
+    """``python -m relora_tpu_torch.main --device cpu`` on a tiny Megatron
+    corpus, in a process where importing jax, flax or relora_tpu fails."""
+    rng = np.random.default_rng(0)
+    with MemmapTokenWriter(str(tmp_path / "corpus"), dtype=np.uint16) as w:
+        for _ in range(120):
+            w.add_document((rng.zipf(1.3, rng.integers(20, 200)) % 128).astype(np.uint16))
+    (tmp_path / "data.json").write_text(json.dumps(
+        {"data_path": str(tmp_path / "corpus"), "split": "90,10,0", "seq_length": 16, "seed": 1}))
+    (tmp_path / "tiny.json").write_text(json.dumps(TINY))
+    args = ["--device", "cpu", "--model_config", str(tmp_path / "tiny.json"),
+            "--megatron_dataset_config", str(tmp_path / "data.json"), "--final_eval_tokens", "500"]
+    for key in ("batch_size", "total_batch_size", "max_length", "lr", "scheduler", "warmup_steps",
+                "restart_warmup_steps", "num_training_steps", "cycle_length", "relora", "lora_r"):
+        args += [f"--{key}", str(RECIPE[key])]
+    args += ["--use_peft", "true"]
+    code = (
+        "import sys, runpy\n"
+        "for name in ('jax', 'jaxlib', 'flax', 'relora_tpu'):\n"
+        "    sys.modules[name] = None\n"
+        f"sys.argv = ['relora_tpu_torch.main'] + {args!r}\n"
+        "runpy.run_module('relora_tpu_torch.main', run_name='__main__')\n"
+    )
+    env = {**os.environ, "PYTHONPATH": REPO}
+    out = subprocess.run([sys.executable, "-c", code], cwd=tmp_path, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    result = json.loads(out.stdout.strip().splitlines()[-1])
+    assert result["update_step"] == 6
+    assert (result["n_lora_restarts"], result["n_optimizer_resets"]) == (1, 1)
+    assert np.isfinite(result["final_eval_loss"]) and result["eval_batches"] > 0
