@@ -39,9 +39,26 @@ Phases, in order; any failure raises and the script exits non-zero:
 7. f32-train — one update of a 2-layer llama_250m at f32, the flash arm
                against the naive arm on loss and gradient norm, then one merge
                against an f64 oracle.
+8. kernels-4 — the fused LoRA forward, dx and dA/dB kernels (4, 6, 7)
+               against their twins: the three llama_250m projection shapes
+               (M=4096, r=128; (K, N) = (768, 768), (768, 2560), (2560, 768))
+               at bf16 and f32 with W the transposed view the model passes, a
+               contiguous W, a ragged M=200, K=72, N=100, r=8, and a tensor
+               scale through the autograd Function (ds too); then each timed
+               per shape beside its twin, the ordered cuBLAS chain of the
+               default path and its bound.
+9. fused-train — the train phase again with ``--lora_fused true
+               --lora_dropout 0``: the same checks, and the fused launch
+               counters equal 7 x layers x (microbatches x updates + eval
+               batches) for the forward and 7 x layers x microbatches x
+               updates for dx and dA/dB.
+10. f32-fused — one update of a 2-layer llama_250m at f32 (TF32 off),
+               ``lora_fused`` true against false from the same weights
+               (nonzero B) and batch, on loss and gradient norm.
 
 Output: a forward+backward timing line, one line per drain, a train line, a
-``{"kernels": [...]}`` line, the card's ``nvidia-smi
+LoRA timing line, a fused-train line, a ``{"kernels": [...]}`` line, the
+card's ``nvidia-smi
 --query-gpu=name,power.limit`` line, and last ``{"ok": true, "device":
 {...}}``.  Without CUDA, or without the package beside it, it exits non-zero
 and prints no result.
@@ -551,27 +568,35 @@ def write_corpus(work, vocab=32100, seed=0):
     return path
 
 
-def train(torch, data_config):
-    """Phase train: ``relora_tpu_torch.main`` on the card, counters read
-    around the run."""
+LORA_NAMES = ("fused_lora_forward", "fused_lora_bwd_dx", "fused_lora_bwd_dab")
+
+
+def train(torch, data_config, label="train", extra=()):
+    """Phases train and fused-train: ``relora_tpu_torch.main`` on the card,
+    counters read around the run."""
     from relora_tpu_torch import main as train_main
     from relora_tpu_torch.config.model import load_model_config
     from relora_tpu_torch.ops import flash_attention as FA
+    from relora_tpu_torch.ops import lora_matmul as LM
 
-    counters = [getattr(FA, name) for name in FLASH_NAMES]
+    counters = [getattr(FA, n) for n in FLASH_NAMES] + [getattr(LM, n) for n in LORA_NAMES]
     for c in counters:
         c.launches = 0
-    result = train_main.main(TRAIN_ARGS + ["--megatron_dataset_config", data_config])
-    launches = dict(zip(FLASH_NAMES, (c.launches for c in counters)))
+    result = train_main.main(TRAIN_ARGS + list(extra) + ["--megatron_dataset_config", data_config])
+    launches = dict(zip(FLASH_NAMES + LORA_NAMES, (c.launches for c in counters)))
 
     records = result["records"]
     losses = [r["loss"] for r in records]
     layers = load_model_config("llama_250m").num_hidden_layers
     backward = layers * TRAIN_MICRO * TRAIN_UPDATES
+    fused = "--lora_fused" in extra
     want = {
         "flash_attention_forward": backward + layers * result["eval_batches"],
         "flash_attention_bwd_dkdv": backward,
         "flash_attention_bwd_dq": backward,
+        "fused_lora_forward": 7 * (backward + layers * result["eval_batches"]) if fused else 0,
+        "fused_lora_bwd_dx": 7 * backward if fused else 0,
+        "fused_lora_bwd_dab": 7 * backward if fused else 0,
     }
     merges_at = [r["update_step"] for a, r in zip([None] + records, records)
                  if a is not None and r["n_lora_restarts"] > a["n_lora_restarts"]]
@@ -580,7 +605,7 @@ def train(torch, data_config):
     steady = sorted(r["update_seconds"] for r in records[1:])
     ms = steady[len(steady) // 2] * 1e3
     line = {
-        "train": "llama_250m", "updates": len(records), "ms_per_update": ms,
+        label: "llama_250m", "updates": len(records), "ms_per_update": ms,
         "tokens_per_s": 16 * 512 / (ms / 1e3), "first_loss": losses[0], "last_loss": losses[-1],
         "final_eval_loss": result.get("final_eval_loss"), "merges_at": merges_at,
         "resets_at": resets_at, "eval_batches": result["eval_batches"], "launches": launches,
@@ -588,13 +613,13 @@ def train(torch, data_config):
     }
     print(json.dumps(line))
     if len(records) != TRAIN_UPDATES or not all(torch.isfinite(torch.tensor(losses))):
-        raise AssertionError(f"train: expected {TRAIN_UPDATES} finite losses, got {losses}")
+        raise AssertionError(f"{label}: expected {TRAIN_UPDATES} finite losses, got {losses}")
     if not losses[-1] < losses[0]:
-        raise AssertionError(f"train: loss did not fall ({losses[0]} -> {losses[-1]})")
+        raise AssertionError(f"{label}: loss did not fall ({losses[0]} -> {losses[-1]})")
     if merges_at != [4, 7] or resets_at != [4, 7] or result["n_lora_restarts"] != 2:
-        raise AssertionError(f"train: merges at {merges_at}, resets at {resets_at}, expected [4, 7]")
+        raise AssertionError(f"{label}: merges at {merges_at}, resets at {resets_at}, expected [4, 7]")
     if launches != want:
-        raise AssertionError(f"train: flash launches {launches}, expected {want}")
+        raise AssertionError(f"{label}: launches {launches}, expected {want}")
     return launches
 
 
@@ -647,6 +672,222 @@ def f32_train(torch, device):
             raise AssertionError(f"f32-train: {key} off by {err:.3e}")
 
 
+# kernels 4, 6, 7: llama_250m's projections at the train phase's M = 8 x 512
+# and r = 128, (K, N) per shape and how many of each one decoder layer runs
+LORA_M, LORA_R = 8 * 512, 128
+LORA_SHAPES = ((768, 768, 4), (768, 2560, 2), (2560, 768, 1))  # q/k/v/o, gate/up, down
+# error relative to max(1, max|twin|): f32 sums K = 2560 terms in another
+# order; bf16 outputs round once to bf16 (2^-8 relative)
+LORA_TOL = {"f32": 1e-4, "bf16": 1e-2}
+LORA_LINES = {"fused_lora_forward": 102, "fused_lora_bwd_dx": 317, "fused_lora_bwd_dab": 343}
+
+
+def make_lora_case(torch, device, M, K, N, r, dtype, seed, transposed=True):
+    """x, W (K, N), A, B and a cotangent g, drawn like a layer's: W as the
+    (N, K) weight's transposed view (or a contiguous (K, N) copy), A
+    kaiming-uniform, B small."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    dt = torch.float32 if dtype == "f32" else torch.bfloat16
+    x = torch.randn((M, K), generator=g, device=device).to(dt)
+    w_nk = (torch.randn((N, K), generator=g, device=device) * 0.02).to(dt)
+    a = ((torch.rand((K, r), generator=g, device=device) * 2 - 1) / K**0.5).to(dt)
+    b = (torch.randn((r, N), generator=g, device=device) * 0.02).to(dt)
+    gy = torch.randn((M, N), generator=g, device=device).to(dt)
+    return x, (w_nk.t() if transposed else w_nk.t().contiguous()), a, b, gy
+
+
+def _rel_err(pairs):
+    """(max abs error, error relative to max(1, max|twin|), all finite)."""
+    err = rel = 0.0
+    finite = True
+    for got, want in pairs:
+        got, want = got.float(), want.float()
+        finite = finite and bool(got.isfinite().all() and want.isfinite().all())
+        diff = (got - want).abs().max().item()
+        err = max(err, diff)
+        rel = max(rel, diff / max(1.0, want.abs().max().item()))
+    return err, rel, finite
+
+
+def lora_bound(M, K, N, r, e, kernel):
+    """The two terms of the least time on an H100 SXM, in ms: each input
+    read once and each output written once (e bytes per element, f32 for z,
+    u, dA, dB) over 3.35 TB/s, and the matmul work over the bf16
+    tensor-core peak.  dA/dB as the main path calls it, with u from dx."""
+    bytes_, flops = {
+        "fused_lora_forward": (e * (M * K + K * N + K * r + r * N + M * N) + 4 * M * r,
+                               2 * M * (K * N + K * r + r * N)),
+        "fused_lora_bwd_dx": (e * (M * N + K * N + K * r + r * N + M * K) + 4 * M * r,
+                              2 * M * (N * K + N * r + r * K)),
+        "fused_lora_bwd_dab": (e * (M * N + M * K) + 4 * (2 * M * r + K * r + r * N),
+                               2 * M * r * (K + N)),
+    }[kernel]
+    return bytes_ / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOPS_PER_S * 1e3
+
+
+def check_lora_kernels(torch, device):
+    """Phase kernels-4: kernels 4, 6, 7 against their twins on the card,
+    then timings per llama_250m shape beside the twin, the ordered cuBLAS
+    chain of the default path and the bound."""
+    import torch.nn.functional as F
+
+    from relora_tpu_torch.core.relora import full_f32_matmul
+    from relora_tpu_torch.ops import lora_matmul as LM
+
+    worst = dict.fromkeys(LORA_NAMES, 0.0)
+    cases = [(LORA_M, K, N, LORA_R, dt, True) for K, N, _ in LORA_SHAPES
+             for dt in ("bf16", "f32")]
+    cases += [(LORA_M, 768, 768, LORA_R, dt, False) for dt in ("bf16", "f32")]
+    cases += [(200, 72, 100, 8, dt, True) for dt in ("bf16", "f32")]
+    with full_f32_matmul():
+        for i, (M, K, N, r, dtype, transposed) in enumerate(cases):
+            x, w, a, b, gy = make_lora_case(torch, device, M, K, N, r, dtype, seed=21 + i,
+                                            transposed=transposed)
+            s = 0.25
+            y0, z0 = LM.fused_lora_forward_plain(x, w, a, b, s)
+            dx0, u0 = LM.fused_lora_bwd_dx_plain(gy, w, a, b, s)
+            dab0 = LM.fused_lora_bwd_dab_plain(gy, x, z0, b, s, u0)
+            pairs = {
+                "fused_lora_forward": list(zip(LM.fused_lora_forward(x, w, a, b, s), (y0, z0))),
+                "fused_lora_bwd_dx": list(zip(LM.fused_lora_bwd_dx(gy, w, a, b, s), (dx0, u0))),
+                "fused_lora_bwd_dab": list(zip(LM.fused_lora_bwd_dab(gy, x, z0, b, s, u0), dab0))
+                + list(zip(LM.fused_lora_bwd_dab(gy, x, z0, b, s), dab0)),
+            }
+            torch.cuda.synchronize()
+            for name, outs in pairs.items():
+                err, rel, finite = _rel_err(outs)
+                ok = finite and rel <= LORA_TOL[dtype]
+                print(f"kernel-check {name} M={M} K={K} N={N} r={r} {dtype} "
+                      f"W={'(N,K).t()' if transposed else '(K,N)'} max_abs_err={err:.3e} "
+                      f"rel_err={rel:.3e} tol={LORA_TOL[dtype]:g} {'ok' if ok else 'FAIL'}")
+                if not ok:
+                    raise AssertionError(f"{name} disagrees with its plain twin ({M, K, N, r, dtype})")
+                if dtype == "bf16" and M == LORA_M and transposed:
+                    worst[name] = max(worst[name], err)
+
+        # a tensor scale through the autograd Function against autograd of
+        # the plain composite, ds included
+        x, w, a, b, gy = make_lora_case(torch, device, LORA_M, 768, 768, LORA_R, "f32", seed=40)
+        s = torch.tensor([0.7], device=device)
+        got_in = [t.clone().requires_grad_() for t in (x, a, b, s)]
+        want_in = [t.clone().requires_grad_() for t in (x, a, b, s)]
+        got = LM.fused_lora_matmul(got_in[0], w, *got_in[1:])
+        xw, aw, bw, sw = want_in
+        want = xw @ w + ((xw @ aw) @ bw) * sw
+        got.backward(gy)
+        want.backward(gy)
+        torch.cuda.synchronize()
+        grads = [(p.grad, q.grad) for p, q in zip(got_in, want_in)]
+        for name, pair in zip(("y", "dx", "dA", "dB", "ds"), [(got, want)] + grads):
+            err, rel, finite = _rel_err([pair])
+            ok = finite and rel <= LORA_TOL["f32"]
+            print(f"kernel-check FusedLoRAMatmul tensor-s {name} M={LORA_M} K=768 N=768 "
+                  f"r={LORA_R} f32 max_abs_err={err:.3e} rel_err={rel:.3e} "
+                  f"tol={LORA_TOL['f32']:g} {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"FusedLoRAMatmul with a tensor scale: {name} disagrees")
+
+    # per layer: ms, plain_ms, library_ms (the chain), bound_ms and its two terms
+    keys = ("ms", "plain_ms", "library_ms", "bound_ms", "t_bytes", "t_ops")
+    rows = {name: dict.fromkeys(keys, 0.0) for name in LORA_NAMES}
+    per_shape = []
+    for K, N, count in LORA_SHAPES:
+        x, w, a, b, gy = make_lora_case(torch, device, LORA_M, K, N, LORA_R, "bf16", seed=99)
+        w_nk, s = w.t(), 0.25
+        y, z = LM.fused_lora_forward(x, w, a, b, s)
+        _, u = LM.fused_lora_bwd_dx(gy, w, a, b, s)
+        gs = gy * s
+        dz = gs @ b.t()
+        zb = z.to(x.dtype)
+        calls = {
+            "fused_lora_forward": (lambda: LM.fused_lora_forward(x, w, a, b, s),
+                                   lambda: LM.fused_lora_forward_plain(x, w, a, b, s),
+                                   lambda: F.linear(x, w_nk) + ((x @ a) @ b) * s),
+            "fused_lora_bwd_dx": (lambda: LM.fused_lora_bwd_dx(gy, w, a, b, s),
+                                  lambda: LM.fused_lora_bwd_dx_plain(gy, w, a, b, s),
+                                  lambda: gy @ w_nk + ((gy * s) @ b.t()) @ a.t()),
+            "fused_lora_bwd_dab": (lambda: LM.fused_lora_bwd_dab(gy, x, z, b, s, u),
+                                   lambda: LM.fused_lora_bwd_dab_plain(gy, x, z, b, s, u),
+                                   lambda: (x.t() @ dz, zb.t() @ gs)),
+        }
+        shape = {"K": K, "N": N, "M": LORA_M, "r": LORA_R, "per_layer": count}
+        for name, (fn, plain, chain) in calls.items():
+            t_bytes, t_ops = lora_bound(LORA_M, K, N, LORA_R, 2, name)
+            ms, plain_ms, chain_ms = time_ms(torch, fn), time_ms(torch, plain), time_ms(torch, chain)
+            shape[name] = {"ms": ms, "plain_ms": plain_ms, "chain_ms": chain_ms,
+                           "bound_ms": max(t_bytes, t_ops),
+                           "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+            for key, v in zip(keys, (ms, plain_ms, chain_ms, max(t_bytes, t_ops), t_bytes, t_ops)):
+                rows[name][key] += count * v
+        per_shape.append(shape)
+    print(json.dumps({"lora_timings": "bf16, ms per call; chain = the default path's ordered "
+                      "cuBLAS matmuls, timed only", "shapes": per_shape}))
+    # one decoder layer's seven projections (4 x 768->768, 2 x 768->2560,
+    # 1 x 2560->768) summed; no single PyTorch call computes any of the three
+    # functions, so library_ms is the ordered chain
+    return [{
+        "name": name,
+        "route": "cuda",
+        "source": "relora_tpu_torch/csrc/lora_matmul.cu",
+        "replaces": f"relora_tpu/ops/pallas_lora_matmul.py:{LORA_LINES[name]}",
+        "launches": 0,
+        "max_abs_err": worst[name],
+        "ms": row["ms"],
+        "plain_ms": row["plain_ms"],
+        "bound_ms": row["bound_ms"],
+        "bound_by": "bytes" if row["t_bytes"] >= row["t_ops"] else "operations",
+        "library_ms": row["library_ms"],
+    } for name, row in rows.items()]
+
+
+def f32_fused(torch, device):
+    """Phase f32-fused: one update with lora_fused true and false from the
+    same weights (B drawn nonzero) and batch, at f32 with TF32 off."""
+    import dataclasses
+
+    import numpy as np
+
+    from relora_tpu_torch.config.model import load_model_config
+    from relora_tpu_torch.core import optim, relora
+    from relora_tpu_torch.models.llama import LlamaForCausalLM
+    from relora_tpu_torch.models.params_util import init_params
+    from relora_tpu_torch.ops import lora_matmul as LM
+    from relora_tpu_torch.train.step import TrainState, make_train_step
+
+    cfg = dataclasses.replace(load_model_config("llama_250m"), num_hidden_layers=2)
+    rng = np.random.default_rng(6)
+    batch = torch.as_tensor((rng.zipf(1.2, (2, 4, 512)) - 1) % cfg.vocab_size, device=device)
+    state_dict, out = None, {}
+    n0 = LM.fused_lora_bwd_dab.launches
+    with relora.full_f32_matmul():
+        for fused in (True, False):
+            spec = relora.LoraSpec(r=128, alpha=32.0, dropout=0.0, fused=fused)
+            with torch.device(device):
+                model = LlamaForCausalLM(cfg, dtype=torch.float32, attention_arm="flash", lora=spec)
+            if state_dict is None:
+                gen = torch.Generator(device=device).manual_seed(3)
+                init_params(model, gen)
+                with torch.no_grad():
+                    for name, p in model.named_parameters():
+                        if name.endswith("lora_b"):
+                            p.copy_(torch.randn(p.shape, generator=gen, device=device) * 0.02)
+                state_dict = {k: v.clone() for k, v in model.state_dict().items()}
+            model.load_state_dict(state_dict)
+            relora.set_trainable(model)
+            opt = optim.build_optimizer(p for p in model.parameters() if p.requires_grad)
+            step = make_train_step(model, opt, clip_grad_norm=1.0, schedule=lambda s: 1e-3)
+            out[fused] = step(TrainState(), batch)
+    if LM.fused_lora_bwd_dab.launches == n0:
+        raise AssertionError("f32-fused: the fused arm did not reach the kernels")
+    for key in ("loss", "grad_norm"):
+        err = abs(out[True][key] - out[False][key]) / abs(out[False][key])
+        ok = err <= F32_TRAIN_TOL[key]
+        print(f"f32-fused {key} fused={out[True][key]} unfused={out[False][key]} rel_err={err:.3e} "
+              f"tol={F32_TRAIN_TOL[key]:g} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"f32-fused: {key} off by {err:.3e}")
+
+
 def main() -> int:
     import torch
 
@@ -683,6 +924,16 @@ def main() -> int:
     rows += flash_rows
     torch.cuda.empty_cache()
     f32_train(torch, device)
+    torch.cuda.empty_cache()
+    lora_rows = check_lora_kernels(torch, device)
+    torch.cuda.empty_cache()
+    launches = train(torch, write_corpus(work), "fused_train",
+                     ["--lora_fused", "true", "--lora_dropout", "0"])
+    for row in lora_rows:
+        row["launches"] = launches[row["name"]]
+    rows += lora_rows
+    torch.cuda.empty_cache()
+    f32_fused(torch, device)
 
     print(json.dumps({"kernels": rows}))
     smi = subprocess.run(

@@ -62,9 +62,9 @@ class TrainingConfig:
     relora: Optional[int] = None  # merge-and-reinit every N update steps
     train_scaling: bool = False
     # LoRA composite execution: "false" = historical unfused path, "true" =
-    # fused Pallas kernel (ops/pallas_lora_matmul), "auto" = per-shape
-    # dispatch (ops/lora_dispatch).  A string (not bool) so the CLI accepts
-    # "auto" — maps onto LoraSpec.fused.
+    # the fused CUDA kernels (ops/lora_matmul), "auto" = per-shape dispatch
+    # (not ported: the trainer refuses it).  A string (not bool) so the CLI
+    # accepts "auto" — maps onto LoraSpec.fused.
     lora_fused: str = "false"
     reset_optimizer_on_relora: bool = True
     optimizer_random_pruning: float = 0.0

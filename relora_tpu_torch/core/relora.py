@@ -31,8 +31,9 @@ LORA_PREFIX = "lora_"
 class LoraSpec:
     """Static LoRA hyperparameters (``relora_tpu/core/relora.py:35``).
 
-    ``quantize``, ``fused`` and ``num_slots`` are accepted for parity and
-    raise where a module would use them: those paths are not ported yet."""
+    ``quantize``, ``fused="auto"`` and ``num_slots`` are accepted for parity
+    and raise where a module would use them: those paths are not ported yet.
+    ``fused=True`` routes each projection through the fused LoRA kernels."""
 
     r: int
     alpha: float = 32.0

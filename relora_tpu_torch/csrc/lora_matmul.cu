@@ -1,0 +1,355 @@
+// The fused LoRA composite y = x@W + ((x@A)@B)*s and its backward, for sm_90a.
+//
+// Replaces the TPU kernels of relora_tpu/ops/pallas_lora_matmul.py (dense base):
+//
+//   fused_lora_forward_launch  kernel 4, _forward (:102) -> pallas_call :113
+//                              (_fused_lora_kernel :73): y (M, N) in x's dtype
+//                              and z = x@A (M, r) f32, the residual of the
+//                              backward
+//   fused_lora_bwd_dx_launch   kernel 6, _backward_dx (:317) -> :327
+//                              (_bwd_dx_kernel :263): dx = g@W^T + s*(g@B^T)@A^T
+//                              in x's dtype, and u = g@B^T (M, r) f32
+//   fused_lora_bwd_dab_launch  kernel 7, _backward_dab (:343) -> :347
+//                              (_bwd_dab_kernel :292): dA = s*x^T u (K, r) and
+//                              dB = s*z^T g (r, N), f32
+//
+// x (M, K), g (M, N), A (K, r) and B (r, N) are row-major; W is the logical
+// (K, N) base with any element strides (the port passes the (N, K) weight's
+// transpose as a view).  Inputs are f32 or bf16 and are widened to f32 as they
+// are staged; s is read from a device pointer (the trainable tanh(lora_s)) or
+// given by value, so no call needs a host sync.  Any M, K, N and r: ragged
+// tiles are masked.
+//
+// Design.  One tiled GEMM kernel, lora_gemm_kernel, computes
+//     C = P1 @ Q1 + P2 @ (s * Q2)
+// over two contraction segments for strided f32/bf16 operands, and each
+// TPU kernel is a short sequence of its launches on one stream:
+//   forward:  z = x@A (f32), then y = x@W + z@(s*B)   (contraction K + r)
+//   dx:       u = g@B^T (f32), then dx = g@W^T + u@(s*A^T)   (contraction N + r)
+//   dA/dB:    partials of x^T u and z^T g over chunks of 512 rows of M, then
+//             one reduce pass sums the chunks in a fixed order and scales by s
+// On the TPU every (i, j) program of the forward recomputes z for its M stripe
+// and every (i, k) program of dx recomputes u; here each is computed once per
+// row, written once as f32 (2 MB at M=4096, r=128) and read back from L2 by
+// the second launch, whose grid is the full 2-D (M, N) tiling.  dx hands u on
+// to dA/dB, which then skips its own u pass.  On the TPU dA and dB sum across
+// a sequential grid; Hopper blocks run in no order, so the sum over M is
+// split over blocks (the chunk index is blockIdx.z) into an f32 scratch the
+// wrapper allocates, and reduced in a second pass: deterministic, no atomics.
+//
+// The GEMM block is 256 threads on a 64x64 or 128x128 output tile (128x128
+// when that still gives two blocks per SM), with 16-deep slices of both
+// operands staged in shared memory as f32 (k-major, so each thread reads its
+// 4 or 8 rows and columns as float4s); each thread owns a 4x4 or 8x8 block of
+// C in registers.  All math is f32 FMAs on the CUDA cores: no TF32, so the f32
+// path is exact to summation order.  Tensor cores (mma.sync or wgmma fed by
+// TMA) are later work.
+//
+// Bound.  At llama_250m training shapes (M = 4096, r = 128; (K, N) = (768,
+// 768), (768, 2560), (2560, 768)) the forward and dx do 2M(KN + Kr + rN) flops
+// over ~2(MK + KN + MN) bytes, about 600 flops per byte: above the H100's ~295
+// bf16 balance point, so on tensor cores they would be bound by operations;
+// dA/dB does 2Mr(K + N) flops over ~2M(K + N) + 4Mr bytes, below it, so bound
+// by bytes.  These kernels use the f32 CUDA cores (67 TFLOP/s peak), so all
+// three are far from that bound by construction.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kThreads = 256;  // 16 x 16 threads
+constexpr int kBK = 16;        // contraction depth of one staged slice
+constexpr int kChunk = 512;    // rows of M per dA/dB partial
+
+struct Mat {  // a logical (rows x cols) operand
+  const void* p;
+  long long s0, s1;  // element strides of a row step and a column step
+  int bf16;          // 0: float32, 1: bfloat16
+};
+
+struct Gemm {
+  // C[m, n] = sum_{k < K1} P1[m, k] Q1[k, n] + s * sum_{k < K2} P2[m, k] Q2[k, n]
+  Mat p1, q1, p2, q2;
+  int M, N, K1, K2;
+  const float* s_ptr;  // device scalar; when null, s_val is s
+  float s_val;
+  void* c;             // C[m, n] at c + z * c_zstride + m * c_ld + n
+  int c_bf16;
+  long long c_ld, c_zstride;
+  int kchunk;          // > 0: block z contracts segment 1 over [z * kchunk, (z + 1) * kchunk)
+};
+
+__device__ __forceinline__ float load(const Mat& m, long long off) {
+  if (m.bf16) return __bfloat162float(static_cast<const __nv_bfloat16*>(m.p)[off]);
+  return static_cast<const float*>(m.p)[off];
+}
+
+template <int BM, int BN>
+__global__ void __launch_bounds__(kThreads, 2) lora_gemm_kernel(Gemm g) {
+  constexpr int TM = BM / 16, TN = BN / 16;  // rows and columns a thread owns
+  __shared__ __align__(16) float ps[kBK][BM + 4];
+  __shared__ __align__(16) float qs[kBK][BN + 4];
+  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+  const float s = g.s_ptr ? *g.s_ptr : g.s_val;
+
+  float acc[TM][TN];
+#pragma unroll
+  for (int i = 0; i < TM; ++i)
+#pragma unroll
+    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
+
+  for (int seg = 0; seg < 2; ++seg) {
+    const Mat P = seg ? g.p2 : g.p1;
+    const Mat Q = seg ? g.q2 : g.q1;
+    const float qscale = seg ? s : 1.f;
+    int k_begin = 0, k_end = seg ? g.K2 : g.K1;
+    if (seg == 0 && g.kchunk > 0) {
+      k_begin = blockIdx.z * g.kchunk;
+      k_end = min(k_end, k_begin + g.kchunk);
+    }
+    for (int k0 = k_begin; k0 < k_end; k0 += kBK) {
+      // P slice (BM x kBK) and Q slice (kBK x BN), k-major, zero past the edges;
+      // neighbouring threads walk the operand's unit-stride dimension
+      for (int idx = tid; idx < BM * kBK; idx += kThreads) {
+        int i, kk;
+        if (P.s1 == 1) {
+          kk = idx % kBK;
+          i = idx / kBK;
+        } else {
+          i = idx % BM;
+          kk = idx / BM;
+        }
+        const int m = m0 + i, k = k0 + kk;
+        ps[kk][i] = (m < g.M && k < k_end) ? load(P, (long long)m * P.s0 + (long long)k * P.s1)
+                                           : 0.f;
+      }
+      for (int idx = tid; idx < kBK * BN; idx += kThreads) {
+        int kk, j;
+        if (Q.s1 == 1) {
+          j = idx % BN;
+          kk = idx / BN;
+        } else {
+          kk = idx % kBK;
+          j = idx / kBK;
+        }
+        const int n = n0 + j, k = k0 + kk;
+        qs[kk][j] = (n < g.N && k < k_end)
+                        ? qscale * load(Q, (long long)k * Q.s0 + (long long)n * Q.s1)
+                        : 0.f;
+      }
+      __syncthreads();
+
+#pragma unroll
+      for (int kk = 0; kk < kBK; ++kk) {
+        // rows ty*4 + 64*gi + {0..3}, columns tx*4 + 64*gj + {0..3}: each
+        // quarter-warp reads 128 contiguous bytes, free of bank conflicts
+        float pa[TM], qb[TN];
+#pragma unroll
+        for (int gi = 0; gi < TM / 4; ++gi) {
+          const float4 v = *reinterpret_cast<const float4*>(&ps[kk][gi * 64 + ty * 4]);
+          pa[gi * 4 + 0] = v.x;
+          pa[gi * 4 + 1] = v.y;
+          pa[gi * 4 + 2] = v.z;
+          pa[gi * 4 + 3] = v.w;
+        }
+#pragma unroll
+        for (int gj = 0; gj < TN / 4; ++gj) {
+          const float4 v = *reinterpret_cast<const float4*>(&qs[kk][gj * 64 + tx * 4]);
+          qb[gj * 4 + 0] = v.x;
+          qb[gj * 4 + 1] = v.y;
+          qb[gj * 4 + 2] = v.z;
+          qb[gj * 4 + 3] = v.w;
+        }
+#pragma unroll
+        for (int i = 0; i < TM; ++i)
+#pragma unroll
+          for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(pa[i], qb[j], acc[i][j]);
+      }
+      __syncthreads();
+    }
+  }
+
+  const long long zoff = (long long)blockIdx.z * g.c_zstride;
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    const int m = m0 + (i / 4) * 64 + ty * 4 + i % 4;
+    if (m >= g.M) continue;
+#pragma unroll
+    for (int j = 0; j < TN; ++j) {
+      const int n = n0 + (j / 4) * 64 + tx * 4 + j % 4;
+      if (n >= g.N) continue;
+      const long long off = zoff + (long long)m * g.c_ld + n;
+      if (g.c_bf16)
+        static_cast<__nv_bfloat16*>(g.c)[off] = __float2bfloat16_rn(acc[i][j]);
+      else
+        static_cast<float*>(g.c)[off] = acc[i][j];
+    }
+  }
+}
+
+// da[i] (i < n_da) and db[i - n_da] = s * sum over chunks of part[chunk, i],
+// chunks summed in order
+__global__ void lora_dab_reduce_kernel(const float* part, int chunks, long long len,
+                                       long long n_da, const float* s_ptr, float s_val,
+                                       float* da, float* db) {
+  const float s = s_ptr ? *s_ptr : s_val;
+  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < len;
+       i += (long long)gridDim.x * blockDim.x) {
+    float acc = 0.f;
+    for (int c = 0; c < chunks; ++c) acc += part[c * len + i];
+    acc *= s;
+    if (i < n_da)
+      da[i] = acc;
+    else
+      db[i - n_da] = acc;
+  }
+}
+
+int sm_count() {
+  static int count = 0;
+  if (count == 0) {
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&count, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+      count = 132;
+  }
+  return count;
+}
+
+int tiles(int n, int b) { return (n + b - 1) / b; }
+
+int run_gemm(const Gemm& g, int chunks, cudaStream_t stream) {
+  if (g.M == 0 || g.N == 0) return (int)cudaSuccess;
+  // 128 x 128 tiles while they still give two blocks per SM, else 64 x 64
+  const bool big = (long long)tiles(g.M, 128) * tiles(g.N, 128) * chunks >= 2LL * sm_count();
+  const int bm = big ? 128 : 64;
+  if (tiles(g.M, bm) > 65535 || chunks > 65535) return (int)cudaErrorInvalidValue;
+  dim3 grid(tiles(g.N, bm), tiles(g.M, bm), chunks);
+  if (big)
+    lora_gemm_kernel<128, 128><<<grid, kThreads, 0, stream>>>(g);
+  else
+    lora_gemm_kernel<64, 64><<<grid, kThreads, 0, stream>>>(g);
+  return (int)cudaGetLastError();
+}
+
+Mat mat(const void* p, long long s0, long long s1, int bf16) { return Mat{p, s0, s1, bf16}; }
+
+Gemm gemm(int M, int N, const float* s_ptr, float s_val, void* c, int c_bf16, long long c_ld) {
+  Gemm g{};
+  g.M = M;
+  g.N = N;
+  g.s_ptr = s_ptr;
+  g.s_val = s_val;
+  g.c = c;
+  g.c_bf16 = c_bf16;
+  g.c_ld = c_ld;
+  return g;
+}
+
+// u = g @ B^T (M, r) f32
+int u_pass(const void* g, const void* b, float* u, int M, int N, int r, int bf, cudaStream_t st) {
+  Gemm q = gemm(M, r, nullptr, 1.f, u, 0, r);
+  q.p1 = mat(g, N, 1, bf);
+  q.q1 = mat(b, 1, N, bf);  // B^T (N, r)
+  q.K1 = N;
+  return run_gemm(q, 1, st);
+}
+
+bool bad_args(int M, int K, int N, int r, int dtype) {
+  return M < 0 || K <= 0 || N <= 0 || r <= 0 || (dtype != 0 && dtype != 1);
+}
+
+}  // namespace
+
+extern "C" {
+
+const char* lora_matmul_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+// rows of M per dA/dB partial: the wrapper sizes the scratch as
+// (ceil(M / chunk), K*r + r*N) f32
+int lora_matmul_dab_chunk() { return kChunk; }
+
+// x (M, K); W logical (K, N) at element strides (w_s0, w_s1); A (K, r); B (r, N);
+// y (M, N) in the inputs' dtype; z (M, r) f32.  dtype: 0 float32, 1 bfloat16.
+int fused_lora_forward_launch(const void* x, const void* w, long long w_s0, long long w_s1,
+                              const void* a, const void* b, const float* s_ptr, float s_val,
+                              void* y, float* z, int M, int K, int N, int r, int dtype,
+                              void* stream) {
+  if (bad_args(M, K, N, r, dtype)) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  Gemm zg = gemm(M, r, nullptr, 1.f, z, 0, r);
+  zg.p1 = mat(x, K, 1, dtype);
+  zg.q1 = mat(a, r, 1, dtype);
+  zg.K1 = K;
+  int err = run_gemm(zg, 1, st);
+  if (err) return err;
+  Gemm yg = gemm(M, N, s_ptr, s_val, y, dtype, N);
+  yg.p1 = mat(x, K, 1, dtype);
+  yg.q1 = mat(w, w_s0, w_s1, dtype);
+  yg.K1 = K;
+  yg.p2 = mat(z, r, 1, 0);
+  yg.q2 = mat(b, N, 1, dtype);
+  yg.K2 = r;
+  return run_gemm(yg, 1, st);
+}
+
+// g (M, N); dx (M, K) in the inputs' dtype; u (M, r) f32 = g @ B^T, written
+// for fused_lora_bwd_dab_launch
+int fused_lora_bwd_dx_launch(const void* g, const void* w, long long w_s0, long long w_s1,
+                             const void* a, const void* b, const float* s_ptr, float s_val,
+                             void* dx, float* u, int M, int K, int N, int r, int dtype,
+                             void* stream) {
+  if (bad_args(M, K, N, r, dtype)) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  int err = u_pass(g, b, u, M, N, r, dtype, st);
+  if (err) return err;
+  Gemm dg = gemm(M, K, s_ptr, s_val, dx, dtype, K);
+  dg.p1 = mat(g, N, 1, dtype);
+  dg.q1 = mat(w, w_s1, w_s0, dtype);  // W^T (N, K)
+  dg.K1 = N;
+  dg.p2 = mat(u, r, 1, 0);
+  dg.q2 = mat(a, 1, r, dtype);        // A^T (r, K)
+  dg.K2 = r;
+  return run_gemm(dg, 1, st);
+}
+
+// g (M, N); x (M, K); z, u (M, r) f32 (u is computed here first unless
+// have_u); part (chunks, K*r + r*N) f32 scratch with chunks = ceil(M / 512)
+// (at least 1); dA (K, r) and dB (r, N) f32.
+int fused_lora_bwd_dab_launch(const void* g, const void* x, const float* z, float* u, int have_u,
+                              const void* b, const float* s_ptr, float s_val, float* part,
+                              float* da, float* db, int M, int K, int N, int r, int dtype,
+                              void* stream) {
+  if (bad_args(M, K, N, r, dtype)) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  int err = have_u ? 0 : u_pass(g, b, u, M, N, r, dtype, st);
+  if (err) return err;
+  const int chunks = M > 0 ? tiles(M, kChunk) : 1;
+  const long long len = (long long)K * r + (long long)r * N;
+  Gemm ag = gemm(K, r, nullptr, 1.f, part, 0, r);  // x^T u, per chunk
+  ag.p1 = mat(x, 1, K, dtype);                      // x^T (K, M)
+  ag.q1 = mat(u, r, 1, 0);
+  ag.K1 = M;
+  ag.kchunk = kChunk;
+  ag.c_zstride = len;
+  if ((err = run_gemm(ag, chunks, st))) return err;
+  Gemm bg = gemm(r, N, nullptr, 1.f, part + (long long)K * r, 0, N);  // z^T g, per chunk
+  bg.p1 = mat(z, 1, r, 0);                                            // z^T (r, M)
+  bg.q1 = mat(g, N, 1, dtype);
+  bg.K1 = M;
+  bg.kchunk = kChunk;
+  bg.c_zstride = len;
+  if ((err = run_gemm(bg, chunks, st))) return err;
+  const long long want = (len + kThreads - 1) / kThreads;
+  const int blocks = (int)(want < 4096 ? want : 4096);
+  lora_dab_reduce_kernel<<<blocks, kThreads, 0, st>>>(part, chunks, len, (long long)K * r, s_ptr,
+                                                      s_val, da, db);
+  return (int)cudaGetLastError();
+}
+
+}  // extern "C"

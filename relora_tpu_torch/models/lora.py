@@ -16,6 +16,13 @@ Dropout draws its mask from a generator seeded by the caller's
 ``dropout_seed``: the same seed draws the same mask, so a layer recomputed
 under activation checkpointing reuses its forward's masks.  No seed means
 deterministic (eval), like the JAX module's ``deterministic=True``.
+
+``LoraSpec(fused=True)`` routes the whole composite through
+``ops/lora_dispatch.lora_matmul(arm="fused")`` (the fused CUDA kernels), by
+the JAX module's rule (``relora_tpu/models/lora.py:117-126``): not for a
+``lora_only`` layer (branch only), and not while dropout is active (a seed
+and ``dropout > 0``: the branch input then differs from the base input), so
+training with dropout keeps the historical path and eval takes the kernels.
 """
 
 from __future__ import annotations
@@ -58,9 +65,9 @@ class LoRALinear(nn.Module):
                 raise NotImplementedError(
                     f"a {lora.quantize} frozen base is not ported yet: see ROADMAP"
                 )
-            if lora.fused is not False:
+            if lora.fused == "auto":
                 raise NotImplementedError(
-                    "the fused LoRA kernels (--lora_fused true|auto) are not ported yet: see ROADMAP"
+                    "fused='auto' (--lora_fused auto) needs the LoRA cost model, not ported yet: see ROADMAP"
                 )
             if lora.num_slots:
                 raise NotImplementedError("multi-tenant adapter slots are not ported yet: see ROADMAP")
@@ -76,12 +83,34 @@ class LoRALinear(nn.Module):
                 self.lora_s = nn.Parameter(torch.empty(1, dtype=param_dtype))
 
     def forward(self, x: torch.Tensor, dropout_seed: Optional[int] = None) -> torch.Tensor:
-        if self.lora is not None and self.lora.lora_only:
+        spec = self.lora
+        if spec is not None and spec.lora_only:
             return self._lora_branch(x, dropout_seed)
+        dropout_active = spec is not None and spec.dropout > 0.0 and dropout_seed is not None
+        if spec is not None and spec.fused is True and not dropout_active:
+            return self._fused(x)
         y = F.linear(x.to(self.dtype), self.weight.to(self.dtype))
-        if self.lora is not None:
+        if spec is not None:
             y = y + self._lora_branch(x, dropout_seed)
         return y
+
+    def _fused(self, x: torch.Tensor) -> torch.Tensor:
+        """The composite through the fused arm (``relora_tpu/models/lora.py:200-232``):
+        every operand in the compute dtype, the frozen base detached and
+        passed as the ``(in, out)`` view of its ``(out, in)`` storage."""
+        from relora_tpu_torch.ops.lora_dispatch import lora_matmul
+
+        spec = self.lora
+        scale = torch.tanh(self.lora_s.to(self.dtype)) if spec.trainable_scaling else spec.scale
+        return lora_matmul(
+            x.to(self.dtype),
+            self.weight.detach().to(self.dtype).t(),
+            self.lora_a.to(self.dtype),
+            self.lora_b.to(self.dtype),
+            scale,
+            arm="fused",
+            dtype=self.dtype,
+        )
 
     def _lora_branch(self, x: torch.Tensor, dropout_seed: Optional[int]) -> torch.Tensor:
         """``((dropout(x) @ A) @ B) * scale`` (``relora_tpu/models/lora.py:414-423``)."""

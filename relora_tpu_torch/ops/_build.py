@@ -89,6 +89,18 @@ def build_all() -> Dict[str, Path]:
     return libs
 
 
+def stream_arg(t) -> ctypes.c_void_p:
+    """The current CUDA stream of ``t``'s device, as a kernel argument."""
+    import torch
+
+    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+
+
+def ptr_arg(t) -> ctypes.c_void_p:
+    """``t``'s data pointer, as a kernel argument."""
+    return ctypes.c_void_p(t.data_ptr())
+
+
 def library(name: str) -> ctypes.CDLL:
     """The loaded shared library of ``csrc/<name>.cu``, built if needed."""
     if name not in _LIBS:

@@ -29,6 +29,8 @@ from typing import Optional, Tuple
 
 import torch
 
+from relora_tpu_torch.ops._build import ptr_arg, stream_arg
+
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 #: largest head_dim the kernels take (it must also be even)
 MAX_HEAD_DIM = 128
@@ -173,14 +175,6 @@ def _check(kernel: str, q, k, v, *others):
     return lib, (B, S, N, n_kv, H), _DTYPE_CODE[q.dtype]
 
 
-def _stream(t: torch.Tensor):
-    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
-
-
-def _ptr(t: torch.Tensor):
-    return ctypes.c_void_p(t.data_ptr())
-
-
 def _raise_on_error(lib, err: int, what: str) -> None:
     if err != 0:
         raise RuntimeError(f"{what}: {lib.flash_attention_error_string(err).decode()} ({err})")
@@ -209,8 +203,8 @@ def flash_attention_forward(
     out = torch.empty_like(q)
     lse = torch.empty((B, N, S), dtype=torch.float32, device=q.device)
     err = lib.flash_attention_forward_launch(
-        _ptr(q), _ptr(k), _ptr(v), _ptr(out), _ptr(lse),
-        B, S, N, n_kv, H, float(scale), code, _stream(q),
+        ptr_arg(q), ptr_arg(k), ptr_arg(v), ptr_arg(out), ptr_arg(lse),
+        B, S, N, n_kv, H, float(scale), code, stream_arg(q),
     )
     _raise_on_error(lib, err, "flash_fwd_kernel")
     flash_attention_forward.launches += 1
@@ -238,8 +232,8 @@ def flash_attention_bwd_dkdv(q, k, v, dout, lse, delta, scale: Optional[float] =
     lib, (B, S, N, n_kv, H), code = _check("dkdv", q, k, v, dout, lse, delta)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     err = lib.flash_attention_bwd_dkdv_launch(
-        _ptr(q), _ptr(k), _ptr(v), _ptr(dout), _ptr(lse), _ptr(delta), _ptr(dk), _ptr(dv),
-        B, S, N, n_kv, H, float(scale), code, _stream(q),
+        ptr_arg(q), ptr_arg(k), ptr_arg(v), ptr_arg(dout), ptr_arg(lse), ptr_arg(delta),
+        ptr_arg(dk), ptr_arg(dv), B, S, N, n_kv, H, float(scale), code, stream_arg(q),
     )
     _raise_on_error(lib, err, "flash_bwd_dkdv_kernel")
     flash_attention_bwd_dkdv.launches += 1
@@ -267,8 +261,8 @@ def flash_attention_bwd_dq(q, k, v, dout, lse, delta, scale: Optional[float] = N
     lib, (B, S, N, n_kv, H), code = _check("dq", q, k, v, dout, lse, delta)
     dq = torch.empty_like(q)
     err = lib.flash_attention_bwd_dq_launch(
-        _ptr(q), _ptr(k), _ptr(v), _ptr(dout), _ptr(lse), _ptr(delta), _ptr(dq),
-        B, S, N, n_kv, H, float(scale), code, _stream(q),
+        ptr_arg(q), ptr_arg(k), ptr_arg(v), ptr_arg(dout), ptr_arg(lse), ptr_arg(delta), ptr_arg(dq),
+        B, S, N, n_kv, H, float(scale), code, stream_arg(q),
     )
     _raise_on_error(lib, err, "flash_bwd_dq_kernel")
     flash_attention_bwd_dq.launches += 1

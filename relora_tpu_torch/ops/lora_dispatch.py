@@ -1,0 +1,60 @@
+"""Execution arms of the LoRA composite ``x @ W + ((x @ A) @ B) * s``.
+
+Counterpart of ``relora_tpu/ops/lora_dispatch.py:271-349`` ``lora_matmul``:
+
+- **fused**: :func:`relora_tpu_torch.ops.lora_matmul.fused_lora_matmul`, the
+  hand-written kernels on CUDA (their plain twins on the CPU), for every
+  shape (the JAX package's quiet ``plan_blocks`` fallback to ordered has no
+  counterpart: the kernels mask ragged tiles);
+- **ordered**: ``x@W + ((x@A)@B)*s``, plain PyTorch in the compute dtype
+  (``:347-349``);
+- **merged**: ``x @ (W + s*(A@B))``, plain PyTorch (``:344-346``).
+
+``arm="auto"`` raises ``NotImplementedError``: its cost model
+(``choose_arm``, ``estimate_arm_times``) carries TPU v5e constants
+(``:73-78``) and is ported once they are re-derived for the H100.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from relora_tpu_torch.ops.lora_matmul import Scale, fused_lora_matmul
+
+ARMS: Tuple[str, ...] = ("fused", "ordered", "merged")
+
+
+def lora_matmul(
+    x: torch.Tensor,
+    base: torch.Tensor,
+    a: torch.Tensor,
+    b: torch.Tensor,
+    scale: Scale = 1.0,
+    *,
+    arm: str = "auto",
+    dtype: Optional[torch.dtype] = None,
+) -> torch.Tensor:
+    """``x @ W + ((x @ A) @ B) * scale`` through ``arm``, with ``x``, the
+    ``(K, N)`` base ``W`` and the factors cast to ``dtype`` (default x's).
+    The fused arm gives the base no gradient; pass a detached base to every
+    arm so they agree."""
+    if arm not in ARMS and arm != "auto":
+        raise ValueError(f"unknown arm {arm!r}; expected one of {ARMS + ('auto',)}")
+    if arm == "auto":
+        raise NotImplementedError(
+            "lora_matmul(arm='auto'): the cost model carries TPU v5e constants and is "
+            "not ported until they are re-derived for the H100 (see ROADMAP)"
+        )
+    if isinstance(base, tuple):
+        raise NotImplementedError("an int8 (q, scale) base is not ported yet: see ROADMAP")
+    dtype = dtype or x.dtype
+    xd, w, ad, bd = (t.to(dtype) for t in (x, base, a, b))
+    if arm == "fused":
+        return fused_lora_matmul(xd, w, ad, bd, scale)
+    if arm == "merged":
+        delta = torch.matmul(ad, bd) * scale
+        return torch.matmul(xd, w + delta.to(dtype))
+    z = torch.matmul(torch.matmul(xd, ad), bd)
+    return torch.matmul(xd, w) + z * scale

@@ -1,0 +1,327 @@
+"""The fused LoRA composite ``y = x @ W + ((x @ A) @ B) * s``: three CUDA
+kernels and their plain twins.
+
+Replaces the dense-base TPU kernels of ``relora_tpu/ops/pallas_lora_matmul.py``:
+``_forward`` (kernel 4, ``:102``), ``_backward_dx`` (kernel 6, ``:317``) and
+``_backward_dab`` (kernel 7, ``:343``).  ``csrc/lora_matmul.cu`` holds the
+Hopper kernels; its header note gives the design and the bound.  Here:
+
+- :func:`fused_lora_forward` ``(x, w, a, b, s) -> (y, z)``,
+  :func:`fused_lora_bwd_dx` ``(g, w, a, b, s) -> (dx, u)`` and
+  :func:`fused_lora_bwd_dab` ``(g, x, z, b, s, u=None) -> (da, db)``: one
+  wrapper per kernel.  A CPU tensor runs the plain twin of the same name with
+  ``_plain``; a CUDA tensor launches the kernel or raises.  Each wrapper
+  counts its launches in ``.launches``.
+- :class:`FusedLoRAMatmul`, the ``torch.autograd.Function`` over the three
+  (the JAX package's ``custom_vjp``, ``:375-400``), and
+  :func:`fused_lora_matmul`, its entry point (``:467-494``).
+
+Layouts follow the JAX package: ``x`` ``(M, K)``, ``w`` ``(K, N)``, ``a``
+``(K, r)``, ``b`` ``(r, N)``; ``z = x @ A`` and ``u = g @ Bᵀ`` are ``(M, r)``
+f32.  ``w`` may be contiguous or the transpose of a contiguous ``(N, K)``
+tensor (the port's ``(out, in)`` weight ``.t()``), read in place.  ``s`` is a
+Python float or a one-element tensor (the trainable ``tanh(lora_s)``), which
+the kernels read on the device: no call syncs with the host.  Math is f32;
+``y`` and ``dx`` take the inputs' dtype, ``da``/``db`` are f32.  The frozen
+base gets no gradient (the JAX package's ``stop_gradient`` contract).
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Tuple, Union
+
+import torch
+
+from relora_tpu_torch.ops._build import library, ptr_arg, stream_arg
+
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+#: largest LoRA rank the kernels take
+MAX_RANK = 256
+
+Scale = Union[float, torch.Tensor]
+
+
+# ---------------------------------------------------------------------------
+# Plain twins: the kernels' arithmetic in f32
+# ---------------------------------------------------------------------------
+
+
+def _scale_f32(s: Scale):
+    return s.float().reshape(()) if isinstance(s, torch.Tensor) else float(s)
+
+
+def fused_lora_forward_plain(x, w, a, b, s: Scale) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain twin of :func:`fused_lora_forward`."""
+    x32 = x.float()
+    z = x32 @ a.float()
+    y = x32 @ w.float() + (z @ b.float()) * _scale_f32(s)
+    return y.to(x.dtype), z
+
+
+def fused_lora_bwd_dx_plain(g, w, a, b, s: Scale) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain twin of :func:`fused_lora_bwd_dx`."""
+    g32 = g.float()
+    u = g32 @ b.float().t()
+    dx = g32 @ w.float().t() + (u @ a.float().t()) * _scale_f32(s)
+    return dx.to(g.dtype), u
+
+
+def fused_lora_bwd_dab_plain(g, x, z, b, s: Scale, u=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain twin of :func:`fused_lora_bwd_dab`."""
+    g32 = g.float()
+    if u is None:
+        u = g32 @ b.float().t()
+    s32 = _scale_f32(s)
+    return (x.float().t() @ u) * s32, (z.t() @ g32) * s32
+
+
+# ---------------------------------------------------------------------------
+# Kernel wrappers
+# ---------------------------------------------------------------------------
+
+
+def _kernel_library():
+    lib = library("lora_matmul")
+    if not getattr(lib, "_relora_typed", False):
+        vp, i32, i64, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+        product = [vp, vp, i64, i64, vp, vp, vp, f32, vp, vp] + [i32] * 5 + [vp]
+        lib.fused_lora_forward_launch.argtypes = product
+        lib.fused_lora_bwd_dx_launch.argtypes = product
+        lib.fused_lora_bwd_dab_launch.argtypes = (
+            [vp, vp, vp, vp, i32, vp, vp, f32, vp, vp, vp] + [i32] * 5 + [vp]
+        )
+        for fn in ("forward", "bwd_dx", "bwd_dab"):
+            getattr(lib, f"fused_lora_{fn}_launch").restype = i32
+        lib.lora_matmul_dab_chunk.restype = i32
+        lib.lora_matmul_error_string.argtypes = [i32]
+        lib.lora_matmul_error_string.restype = ctypes.c_char_p
+        lib._relora_typed = True
+    return lib
+
+
+def _on_cuda(*tensors) -> None:
+    for t in tensors:
+        if t.device.type != "cuda":
+            raise ValueError(
+                f"the fused LoRA kernels run on CUDA tensors; got {t.device} "
+                "(CPU tensors take the plain version)"
+            )
+        if t.device != tensors[0].device:
+            raise ValueError("all kernel operands must be on one device")
+
+
+def _dtype_code(*tensors) -> int:
+    dtype = tensors[0].dtype
+    if dtype not in _DTYPE_CODE or any(t.dtype != dtype for t in tensors):
+        raise ValueError(
+            f"operands must share float32 or bfloat16, got {[str(t.dtype) for t in tensors]}"
+        )
+    return _DTYPE_CODE[dtype]
+
+
+def _rows(t: torch.Tensor, shape, what: str, dtype=None) -> torch.Tensor:
+    """``t`` as a contiguous tensor of ``shape`` (and ``dtype``), or raise."""
+    if tuple(t.shape) != tuple(shape) or (dtype is not None and t.dtype != dtype):
+        raise ValueError(f"{what}: expected {tuple(shape)} {dtype or ''}, got {tuple(t.shape)} {t.dtype}")
+    return t.contiguous()
+
+
+def _base_strides(w: torch.Tensor) -> Tuple[int, int]:
+    """Element strides of the logical ``(K, N)`` base: a contiguous ``w`` or
+    the transpose of a contiguous one; anything else raises."""
+    if w.ndim != 2 or not (w.is_contiguous() or w.t().is_contiguous()):
+        raise ValueError(
+            f"the base W must be a contiguous (K, N) tensor or the transpose of a "
+            f"contiguous (N, K) one; got shape {tuple(w.shape)}, strides {w.stride()}"
+        )
+    return w.stride(0), w.stride(1)
+
+
+def _factor_shapes(w, a, b) -> Tuple[int, int, int]:
+    if w.ndim != 2 or a.ndim != 2 or b.ndim != 2:
+        raise ValueError("W, A and B must be 2-D")
+    K, N = w.shape
+    r = a.shape[1]
+    if a.shape[0] != K or tuple(b.shape) != (r, N):
+        raise ValueError(f"LoRA factor shapes {tuple(a.shape)} x {tuple(b.shape)} do not match base ({K}, {N})")
+    if not 0 < r <= MAX_RANK:
+        raise ValueError(f"LoRA rank {r} must be in 1..{MAX_RANK}")
+    return K, N, r
+
+
+def _scale_arg(s: Scale, like: torch.Tensor):
+    """``(device pointer or None, value, keep-alive tensor)`` for the kernels'
+    ``s``: a tensor is read on the device, a float passed by value."""
+    if isinstance(s, torch.Tensor):
+        if s.numel() != 1:
+            raise ValueError(f"scale must have one element, got shape {tuple(s.shape)}")
+        s32 = s.detach().to(device=like.device, dtype=torch.float32).reshape(1).contiguous()
+        return ptr_arg(s32), 0.0, s32
+    return None, float(s), None
+
+
+def _raise_on_error(lib, err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{what}: {lib.lora_matmul_error_string(err).decode()} ({err})")
+
+
+def fused_lora_forward(x, w, a, b, s: Scale = 1.0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``y = x @ W + ((x @ A) @ B) * s`` ``(M, N)`` in x's dtype and ``z = x
+    @ A`` ``(M, r)`` f32, the residual the backward reads.
+
+    A CPU ``x`` runs :func:`fused_lora_forward_plain`; any other device
+    launches the forward of ``csrc/lora_matmul.cu`` or raises."""
+    if x.device.type == "cpu":
+        return fused_lora_forward_plain(x, w, a, b, s)
+    _on_cuda(x, w, a, b)
+    K, N, r = _factor_shapes(w, a, b)
+    M = x.shape[0]
+    x, a, b = _rows(x, (M, K), "x"), a.contiguous(), b.contiguous()
+    code = _dtype_code(x, w, a, b)
+    ws0, ws1 = _base_strides(w)
+    lib = _kernel_library()
+    y = torch.empty((M, N), dtype=x.dtype, device=x.device)
+    z = torch.empty((M, r), dtype=torch.float32, device=x.device)
+    s_ptr, s_val, _keep = _scale_arg(s, x)
+    err = lib.fused_lora_forward_launch(
+        ptr_arg(x), ptr_arg(w), ws0, ws1, ptr_arg(a), ptr_arg(b), s_ptr, s_val,
+        ptr_arg(y), ptr_arg(z), M, K, N, r, code, stream_arg(x),
+    )
+    _raise_on_error(lib, err, "fused_lora_forward")
+    fused_lora_forward.launches += 1
+    return y, z
+
+
+fused_lora_forward.launches = 0
+
+
+def fused_lora_bwd_dx(g, w, a, b, s: Scale = 1.0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``dx = g @ Wᵀ + s * (g @ Bᵀ) @ Aᵀ`` ``(M, K)`` in g's dtype, and ``u =
+    g @ Bᵀ`` ``(M, r)`` f32, which :func:`fused_lora_bwd_dab` reuses.
+
+    A CPU ``g`` runs :func:`fused_lora_bwd_dx_plain`; any other device
+    launches the dx kernel or raises."""
+    if g.device.type == "cpu":
+        return fused_lora_bwd_dx_plain(g, w, a, b, s)
+    _on_cuda(g, w, a, b)
+    K, N, r = _factor_shapes(w, a, b)
+    M = g.shape[0]
+    g, a, b = _rows(g, (M, N), "g"), a.contiguous(), b.contiguous()
+    code = _dtype_code(g, w, a, b)
+    ws0, ws1 = _base_strides(w)
+    lib = _kernel_library()
+    dx = torch.empty((M, K), dtype=g.dtype, device=g.device)
+    u = torch.empty((M, r), dtype=torch.float32, device=g.device)
+    s_ptr, s_val, _keep = _scale_arg(s, g)
+    err = lib.fused_lora_bwd_dx_launch(
+        ptr_arg(g), ptr_arg(w), ws0, ws1, ptr_arg(a), ptr_arg(b), s_ptr, s_val,
+        ptr_arg(dx), ptr_arg(u), M, K, N, r, code, stream_arg(g),
+    )
+    _raise_on_error(lib, err, "fused_lora_bwd_dx")
+    fused_lora_bwd_dx.launches += 1
+    return dx, u
+
+
+fused_lora_bwd_dx.launches = 0
+
+
+def fused_lora_bwd_dab(g, x, z, b, s: Scale = 1.0, u=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``dA = s * xᵀ (g @ Bᵀ)`` ``(K, r)`` and ``dB = s * zᵀ g`` ``(r, N)``,
+    both f32, summed over the M rows; ``u = g @ Bᵀ`` from
+    :func:`fused_lora_bwd_dx` saves recomputing it.
+
+    A CPU ``g`` runs :func:`fused_lora_bwd_dab_plain`; any other device
+    launches the dA/dB kernels (partials over 512-row chunks of M, then a
+    reduce pass) or raises."""
+    if g.device.type == "cpu":
+        return fused_lora_bwd_dab_plain(g, x, z, b, s, u)
+    _on_cuda(g, x, z, b, *(() if u is None else (u,)))
+    M, N = g.shape
+    K = x.shape[1]
+    r = b.shape[0]
+    if not 0 < r <= MAX_RANK:
+        raise ValueError(f"LoRA rank {r} must be in 1..{MAX_RANK}")
+    g, x, b = _rows(g, (M, N), "g"), _rows(x, (M, K), "x"), _rows(b, (r, N), "B")
+    z = _rows(z, (M, r), "z", torch.float32)
+    code = _dtype_code(g, x, b)
+    lib = _kernel_library()
+    have_u = u is not None
+    if have_u:
+        u = _rows(u, (M, r), "u", torch.float32)
+    else:
+        u = torch.empty((M, r), dtype=torch.float32, device=g.device)
+    chunks = max(1, -(-M // lib.lora_matmul_dab_chunk()))
+    part = torch.empty((chunks, K * r + r * N), dtype=torch.float32, device=g.device)
+    da = torch.empty((K, r), dtype=torch.float32, device=g.device)
+    db = torch.empty((r, N), dtype=torch.float32, device=g.device)
+    s_ptr, s_val, _keep = _scale_arg(s, g)
+    err = lib.fused_lora_bwd_dab_launch(
+        ptr_arg(g), ptr_arg(x), ptr_arg(z), ptr_arg(u), int(have_u), ptr_arg(b), s_ptr, s_val,
+        ptr_arg(part), ptr_arg(da), ptr_arg(db), M, K, N, r, code, stream_arg(g),
+    )
+    _raise_on_error(lib, err, "fused_lora_bwd_dab")
+    fused_lora_bwd_dab.launches += 1
+    return da, db
+
+
+fused_lora_bwd_dab.launches = 0
+
+
+class FusedLoRAMatmul(torch.autograd.Function):
+    """``x2 @ W + ((x2 @ A) @ B) * s`` over ``(M, K)`` rows, whose forward
+    and backward are the three wrappers above (kernels for CUDA tensors,
+    twins for CPU tensors).  ``z`` is saved from the forward; dx hands ``u``
+    to dA/dB; ``ds = sum(g * (z @ B))`` is plain PyTorch, computed only when
+    ``s`` is a tensor that needs it; W gets no gradient."""
+
+    @staticmethod
+    def forward(ctx, x2, w, a, b, s):
+        y, z = fused_lora_forward(x2, w, a, b, s)
+        ctx.s = None if isinstance(s, torch.Tensor) else s
+        ctx.save_for_backward(x2, w, a, b, z, *((s,) if ctx.s is None else ()))
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        x2, w, a, b, z, *rest = ctx.saved_tensors
+        s = rest[0] if rest else ctx.s
+        need_x, _, need_a, need_b, need_s = ctx.needs_input_grad
+        g = g.contiguous()
+        dx = da = db = ds = u = None
+        if need_x:
+            dx, u = fused_lora_bwd_dx(g, w, a, b, s)
+            dx = dx.to(x2.dtype)
+        if need_a or need_b:
+            da, db = fused_lora_bwd_dab(g, x2, z, b, s, u)
+            da, db = da.to(a.dtype), db.to(b.dtype)
+        if need_s:
+            ds = (g.float() * (z @ b.float())).sum().reshape(s.shape).to(s.dtype)
+        return dx, None, da, db, ds
+
+
+def fused_lora_matmul(
+    x: torch.Tensor, w: torch.Tensor, a: torch.Tensor, b: torch.Tensor, scale: Scale = 1.0
+) -> torch.Tensor:
+    """``x @ W + ((x @ A) @ B) * scale`` through :class:`FusedLoRAMatmul`.
+
+    ``x``: ``(..., K)``; ``w``: ``(K, N)`` frozen base (contiguous or a
+    transposed view); ``a``: ``(K, r)``; ``b``: ``(r, N)``; ``scale``: a
+    float or a one-element tensor.  Differentiable in x, a, b and a tensor
+    scale; ``w`` is detached, so it gets no gradient.  Any M, K and N and a
+    rank up to :data:`MAX_RANK`: there is no tiling condition and no unfused
+    fallback."""
+    K = x.shape[-1]
+    if w.ndim != 2 or K != w.shape[0]:
+        raise ValueError(f"contraction mismatch: x K={K} vs base {tuple(w.shape)}")
+    N = w.shape[1]
+    if a.ndim != 2 or b.ndim != 2 or a.shape[0] != K or b.shape[0] != a.shape[1] or b.shape[1] != N:
+        raise ValueError(
+            f"LoRA factor shapes {tuple(a.shape)} x {tuple(b.shape)} do not match base ({K}, {N})"
+        )
+    if not 0 < a.shape[1] <= MAX_RANK:
+        raise ValueError(f"LoRA rank {a.shape[1]} must be in 1..{MAX_RANK}")
+    lead = x.shape[:-1]
+    scale = scale if isinstance(scale, torch.Tensor) else float(scale)
+    y = FusedLoRAMatmul.apply(x.reshape(-1, K), w.detach(), a, b, scale)
+    return y.reshape(*lead, N)

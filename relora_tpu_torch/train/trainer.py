@@ -14,9 +14,10 @@ the port's counters and the records.
 
 Options the port does not run yet raise ``NotImplementedError`` when set:
 checkpoints (``save_dir``, resume, autoresume), warm starts, loss-spike
-rollback, pruning, magnitude re-init, quantized or fused LoRA, chunked loss,
-the ``wandb``/``watch``/``profile`` observability, a custom PRNG, and
-parallelism beyond one device.
+rollback, pruning, magnitude re-init, quantized LoRA, ``--lora_fused auto``,
+chunked loss, the ``wandb``/``watch``/``profile`` observability, a custom
+PRNG, and parallelism beyond one device.  ``--lora_fused true`` runs every
+LoRA projection through the fused kernels wherever dropout is not active.
 
 Randomness comes from ``torch.Generator``\\ s seeded from ``--seed``: weights
 (``seed``), LoRA dropout (``seed + 1``, one seed per microbatch), the A
@@ -68,7 +69,7 @@ def refuse_unported(cfg: TrainingConfig) -> None:
         "prune_sparsity / prune_nm (pruning)": cfg.prune_enabled,
         "reset_init='magnitude'": cfg.reset_init != "random",
         "quantize": cfg.quantize is not None,
-        "lora_fused": cfg.lora_fused != "false",
+        "lora_fused='auto' (the LoRA cost model)": cfg.lora_fused == "auto",
         "loss_impl='chunked'": cfg.loss_impl != "dense",
         "wandb": cfg.wandb,
         "wandb_watch": cfg.wandb_watch,
@@ -132,6 +133,7 @@ class Trainer:
                 trainable_scaling=cfg.train_scaling,
                 base_dtype=cfg.base_dtype,
                 lora_only=not need_linear_weight,
+                fused=cfg.lora_fused == "true",
             )
             if cfg.use_peft
             else None

@@ -127,7 +127,7 @@ def test_sigterm_stops_at_the_update_boundary(tmp_path):
 
 @pytest.mark.parametrize("flag,value", [
     ("save_dir", "ckpt"), ("warmed_up_model", "."), ("spike_threshold", 3.0),
-    ("prune_sparsity", 0.5), ("quantize", "int8"), ("lora_fused", "true"),
+    ("prune_sparsity", 0.5), ("quantize", "int8"), ("lora_fused", "auto"),
     ("loss_impl", "chunked"), ("wandb", True), ("tp_size", 2),
 ])
 def test_unported_options_raise(tmp_path, flag, value):
@@ -137,9 +137,10 @@ def test_unported_options_raise(tmp_path, flag, value):
         Trainer(cfg, model_cfg=ModelConfig(**TINY))
 
 
-def test_cli_trains_on_cpu_without_jax(tmp_path):
+def _run_cli(tmp_path, extra=()):
     """``python -m relora_tpu_torch.main --device cpu`` on a tiny Megatron
-    corpus, in a process where importing jax, flax or relora_tpu fails."""
+    corpus, in a process where importing jax, flax or relora_tpu fails;
+    returns the result dict and the number of fused forward twin calls."""
     rng = np.random.default_rng(0)
     with MemmapTokenWriter(str(tmp_path / "corpus"), dtype=np.uint16) as w:
         for _ in range(120):
@@ -152,19 +153,38 @@ def test_cli_trains_on_cpu_without_jax(tmp_path):
     for key in ("batch_size", "total_batch_size", "max_length", "lr", "scheduler", "warmup_steps",
                 "restart_warmup_steps", "num_training_steps", "cycle_length", "relora", "lora_r"):
         args += [f"--{key}", str(RECIPE[key])]
-    args += ["--use_peft", "true"]
+    args += ["--use_peft", "true", *extra]
     code = (
-        "import sys, runpy\n"
+        "import json, sys, runpy\n"
         "for name in ('jax', 'jaxlib', 'flax', 'relora_tpu'):\n"
         "    sys.modules[name] = None\n"
+        "import relora_tpu_torch.ops.lora_matmul as LM\n"
+        "calls, twin = [], LM.fused_lora_forward_plain\n"
+        "LM.fused_lora_forward_plain = lambda *a: calls.append(1) or twin(*a)\n"
         f"sys.argv = ['relora_tpu_torch.main'] + {args!r}\n"
         "runpy.run_module('relora_tpu_torch.main', run_name='__main__')\n"
+        "print(len(calls))\n"
     )
     env = {**os.environ, "PYTHONPATH": REPO}
     out = subprocess.run([sys.executable, "-c", code], cwd=tmp_path, env=env,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-3000:]
-    result = json.loads(out.stdout.strip().splitlines()[-1])
+    lines = out.stdout.strip().splitlines()
+    result = json.loads(lines[-2])
     assert result["update_step"] == 6
     assert (result["n_lora_restarts"], result["n_optimizer_resets"]) == (1, 1)
     assert np.isfinite(result["final_eval_loss"]) and result["eval_batches"] > 0
+    return result, int(lines[-1])
+
+
+def test_cli_trains_on_cpu_without_jax(tmp_path):
+    _, fused_calls = _run_cli(tmp_path)
+    assert fused_calls == 0
+
+
+def test_cli_trains_fused_on_cpu_without_jax(tmp_path):
+    """``--lora_fused true --lora_dropout 0``: every projection, in training
+    and eval, takes the fused path (its plain twins on the CPU)."""
+    result, fused_calls = _run_cli(tmp_path, ["--lora_fused", "true", "--lora_dropout", "0"])
+    layers = TINY["num_hidden_layers"]
+    assert fused_calls == 7 * layers * (2 * 6 + result["eval_batches"])

@@ -10,10 +10,12 @@ device only.  Prints one JSON line: the timed run's median ms per update
 (updates 2-9) and tokens/s, the profiled run's fit seconds (the difference
 is the tracer's cost), the device's busy time and idle share of the profiled
 fit, and device time by kernel name (names cut to 80 characters, times of
-names that share those summed), largest first, with the flash kernels'
-share.
+names that share those summed), largest first, with the shares of the
+flash kernels and of the fused LoRA kernels.  Extra training flags are
+appended to the train phase's, e.g. the fused-LoRA run:
 
     python3 tools/torch_train_profile.py
+    python3 tools/torch_train_profile.py --lora_fused true --lora_dropout 0
 
 Needs a CUDA card.  Busy time is the union of kernel intervals on the
 device, so overlapping streams are not counted twice.
@@ -57,7 +59,9 @@ def main() -> int:
 
     work = os.path.join(REPO, "build", "chip_smoke")
     os.makedirs(work, exist_ok=True)
-    cfg = parse_train_args(chip_smoke.TRAIN_ARGS + ["--megatron_dataset_config", chip_smoke.write_corpus(work)])
+    cfg = parse_train_args(
+        chip_smoke.TRAIN_ARGS + sys.argv[1:] + ["--megatron_dataset_config", chip_smoke.write_corpus(work)]
+    )
 
     def run(prof=None):
         trainer = Trainer(cfg)
@@ -84,10 +88,12 @@ def main() -> int:
         raise SystemExit("torch_train_profile: the profiler traced no device time")
     busy = busy_seconds(intervals)
     flash_ms = sum(us for name, us in by_name.items() if "flash_" in name) / 1e3
+    lora_ms = sum(us for name, us in by_name.items() if "lora_gemm" in name or "lora_dab" in name) / 1e3
     steady = sorted(r["update_seconds"] for r in timed["records"][1:])
     ms = steady[len(steady) // 2] * 1e3
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:15]
     print(json.dumps({
+        "extra_flags": sys.argv[1:],
         "card": subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
             capture_output=True, text=True, check=True,
@@ -101,6 +107,8 @@ def main() -> int:
         "device_idle_share": 1.0 - busy / traced["fit_seconds"],
         "flash_kernels_ms": flash_ms,
         "flash_share_of_busy": flash_ms / 1e3 / busy,
+        "fused_lora_kernels_ms": lora_ms,
+        "fused_lora_share_of_busy": lora_ms / 1e3 / busy,
         "kernels_ms": {name: us / 1e3 for name, us in top},
     }))
     return 0
