@@ -55,10 +55,34 @@ Phases, in order; any failure raises and the script exits non-zero:
 10. f32-fused — one update of a 2-layer llama_250m at f32 (TF32 off),
                ``lora_fused`` true against false from the same weights
                (nonzero B) and batch, on loss and gradient norm.
+11. kernels-8 — kernel 8 (the int8 dequant matmul) and the int8 fused
+               forward and dx (4-int8, 6-int8) against their twins: the three
+               projection shapes at bf16 and f32 with q the transposed view of
+               the (N, K) codes the model passes, a contiguous (K, N) q, a
+               ragged M=200, K=72, N=100, r=8, and a tensor scale through
+               FusedLoRAMatmulInt8 (ds and dqscale too) and DequantMatmul;
+               then each timed per shape beside its twin, the dequantize +
+               cuBLAS chain of the JAX default path and its bound.
+12. int8_train — a seeded full-rank llama_250m ``pytorch_model.bin`` (f32)
+               written under ``build/chip_smoke/``, then the train phase with
+               ``--quantize int8 --warmed_up_model DIR``: the train checks,
+               codes nonzero after the warm start and int8 after the merges
+               at updates 4 and 7 (which move them), kernel 8 launched 7 x
+               layers x (microbatches x updates + eval batches) times and no
+               fused kernel.
+13. int8_fused_train — the same with ``--lora_fused true --lora_dropout 0``:
+               4-int8 launched 7 x layers x (microbatches x updates + eval
+               batches) times, 6-int8 and kernel 7 7 x layers x microbatches
+               x updates, kernel 8 never.
+14. f32-int8 — one update of a 2-layer int8 llama_250m at f32 (TF32 off),
+               the fused-int8 arm against the unfused kernel-8 arm from the
+               same warm-started weights (nonzero B) and batch, on loss and
+               gradient norm; then one int8 merge on the card against an f64
+               oracle, to the requant rule.
 
 Output: a forward+backward timing line, one line per drain, a train line, a
-LoRA timing line, a fused-train line, a ``{"kernels": [...]}`` line, the
-card's ``nvidia-smi
+LoRA timing line, a fused-train line, an int8 timing line, the int8 train
+lines, a ``{"kernels": [...]}`` line, the card's ``nvidia-smi
 --query-gpu=name,power.limit`` line, and last ``{"ok": true, "device":
 {...}}``.  Without CUDA, or without the package beside it, it exits non-zero
 and prints no result.
@@ -569,34 +593,84 @@ def write_corpus(work, vocab=32100, seed=0):
 
 
 LORA_NAMES = ("fused_lora_forward", "fused_lora_bwd_dx", "fused_lora_bwd_dab")
+INT8_NAMES = ("dequant_matmul", "fused_lora_int8_forward", "fused_lora_int8_bwd_dx")
+
+
+def _counters():
+    """``{name: wrapper}`` of every kernel wrapper a training run launches."""
+    from relora_tpu_torch.ops import flash_attention as FA
+    from relora_tpu_torch.ops import lora_matmul as LM
+    from relora_tpu_torch.ops import quant_matmul as QM
+
+    return {**{n: getattr(FA, n) for n in FLASH_NAMES}, **{n: getattr(LM, n) for n in LORA_NAMES},
+            "dequant_matmul": QM.dequant_matmul,
+            **{n: getattr(LM, n) for n in INT8_NAMES[1:]}}
+
+
+class MergeWatch:
+    """Wraps the trainer's ``merge_and_reinit`` to read every int8 base
+    around each merge: the codes' dtype, how many are nonzero before, and
+    whether the merge moved them."""
+
+    def __init__(self, torch):
+        from relora_tpu_torch.train import trainer
+
+        self.torch, self.trainer, self.real = torch, trainer, trainer.merge_and_reinit
+        self.merges = []
+
+    def __enter__(self):
+        self.trainer.merge_and_reinit = self._merge
+        return self
+
+    def __exit__(self, *exc):
+        self.trainer.merge_and_reinit = self.real
+
+    def _merge(self, model, *args, **kwargs):
+        from relora_tpu_torch.core.relora import lora_modules
+
+        codes = [m.weight_q for _, m in lora_modules(model) if getattr(m, "weight_q", None) is not None]
+        before = [q.clone() for q in codes]
+        out = self.real(model, *args, **kwargs)
+        self.merges.append({
+            "modules": len(codes),
+            "nonzero_before": sum(int(q.count_nonzero()) for q in before),
+            "int8_after": all(q.dtype == self.torch.int8 for q in codes),
+            "moved": sum(int(not self.torch.equal(q, b)) for q, b in zip(codes, before)),
+        })
+        return out
 
 
 def train(torch, data_config, label="train", extra=()):
-    """Phases train and fused-train: ``relora_tpu_torch.main`` on the card,
-    counters read around the run."""
+    """Phases train, fused-train, int8_train and int8_fused_train:
+    ``relora_tpu_torch.main`` on the card, counters read around the run, and
+    for an int8 base each merge's codes read around it."""
     from relora_tpu_torch import main as train_main
     from relora_tpu_torch.config.model import load_model_config
-    from relora_tpu_torch.ops import flash_attention as FA
-    from relora_tpu_torch.ops import lora_matmul as LM
 
-    counters = [getattr(FA, n) for n in FLASH_NAMES] + [getattr(LM, n) for n in LORA_NAMES]
-    for c in counters:
+    counters = _counters()
+    for c in counters.values():
         c.launches = 0
-    result = train_main.main(TRAIN_ARGS + list(extra) + ["--megatron_dataset_config", data_config])
-    launches = dict(zip(FLASH_NAMES + LORA_NAMES, (c.launches for c in counters)))
+    with MergeWatch(torch) as watch:
+        result = train_main.main(TRAIN_ARGS + list(extra) + ["--megatron_dataset_config", data_config])
+    launches = {n: c.launches for n, c in counters.items()}
 
     records = result["records"]
     losses = [r["loss"] for r in records]
     layers = load_model_config("llama_250m").num_hidden_layers
     backward = layers * TRAIN_MICRO * TRAIN_UPDATES
+    forward = backward + layers * result["eval_batches"]
     fused = "--lora_fused" in extra
+    int8 = "--quantize" in extra
     want = {
-        "flash_attention_forward": backward + layers * result["eval_batches"],
+        "flash_attention_forward": forward,
         "flash_attention_bwd_dkdv": backward,
         "flash_attention_bwd_dq": backward,
-        "fused_lora_forward": 7 * (backward + layers * result["eval_batches"]) if fused else 0,
-        "fused_lora_bwd_dx": 7 * backward if fused else 0,
+        "fused_lora_forward": 7 * forward if fused and not int8 else 0,
+        "fused_lora_bwd_dx": 7 * backward if fused and not int8 else 0,
         "fused_lora_bwd_dab": 7 * backward if fused else 0,
+        "dequant_matmul": 7 * forward if int8 and not fused else 0,
+        "fused_lora_int8_forward": 7 * forward if int8 and fused else 0,
+        "fused_lora_int8_bwd_dx": 7 * backward if int8 and fused else 0,
     }
     merges_at = [r["update_step"] for a, r in zip([None] + records, records)
                  if a is not None and r["n_lora_restarts"] > a["n_lora_restarts"]]
@@ -611,6 +685,8 @@ def train(torch, data_config, label="train", extra=()):
         "resets_at": resets_at, "eval_batches": result["eval_batches"], "launches": launches,
         "fit_seconds": result["fit_seconds"],
     }
+    if int8:
+        line["int8_merges"] = watch.merges
     print(json.dumps(line))
     if len(records) != TRAIN_UPDATES or not all(torch.isfinite(torch.tensor(losses))):
         raise AssertionError(f"{label}: expected {TRAIN_UPDATES} finite losses, got {losses}")
@@ -620,6 +696,11 @@ def train(torch, data_config, label="train", extra=()):
         raise AssertionError(f"{label}: merges at {merges_at}, resets at {resets_at}, expected [4, 7]")
     if launches != want:
         raise AssertionError(f"{label}: launches {launches}, expected {want}")
+    if int8 and not (len(watch.merges) == 2 and all(
+            m["modules"] == 7 * layers and m["nonzero_before"] > 0 and m["int8_after"]
+            and m["moved"] > 0 for m in watch.merges)):
+        raise AssertionError(f"{label}: int8 merges {watch.merges}: expected 2 merges over the "
+                             f"nonzero int8 codes of {7 * layers} projections, moving them")
     return launches
 
 
@@ -888,6 +969,263 @@ def f32_fused(torch, device):
             raise AssertionError(f"f32-fused: {key} off by {err:.3e}")
 
 
+# kernel 8 and the int8 variants of 4 and 6, at kernels-4's shapes
+INT8_LINES = {"dequant_matmul": "pallas_quant_matmul.py:46",
+              "fused_lora_int8_forward": "pallas_lora_matmul.py:88",
+              "fused_lora_int8_bwd_dx": "pallas_lora_matmul.py:279"}
+
+
+def make_int8_case(torch, device, M, K, N, r, dtype, seed, transposed=True):
+    """x, the int8 base (q (K, N), qscale (1, N)) quantized from a layer-like
+    (N, K) weight, A, B and a cotangent g.  q is the (N, K) codes'
+    transposed view, as the model passes it, or a contiguous (K, N) copy."""
+    from relora_tpu_torch.ops.quant import quantize_int8
+
+    x, w, a, b, gy = make_lora_case(torch, device, M, K, N, r, dtype, seed)
+    q_nk, qscale = quantize_int8(w.t())
+    return x, (q_nk.t() if transposed else q_nk.t().contiguous()), qscale, a, b, gy
+
+
+def int8_bound(M, K, N, r, e, kernel):
+    """The two terms of the least time on an H100 SXM, in ms: each input
+    read once and each output written once (e bytes per activation element,
+    1 per code, f32 scales, z and u) over 3.35 TB/s, and the matmul work over
+    the bf16 tensor-core peak."""
+    base = K * N + 4 * N
+    bytes_, flops = {
+        "dequant_matmul": (e * (M * K + M * N) + base, 2 * M * K * N),
+        "fused_lora_int8_forward": (e * (M * K + K * r + r * N + M * N) + base + 4 * M * r,
+                                    2 * M * (K * N + K * r + r * N)),
+        "fused_lora_int8_bwd_dx": (e * (M * N + K * r + r * N + M * K) + base + 4 * M * r,
+                                   2 * M * (N * K + N * r + r * K)),
+    }[kernel]
+    return bytes_ / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOPS_PER_S * 1e3
+
+
+def check_int8_kernels(torch, device):
+    """Phase kernels-8: kernel 8 and the int8 fused forward and dx against
+    their twins on the card, then timings per llama_250m shape beside the
+    twin, the JAX default path's dequantize + cuBLAS chain and the bound."""
+    import torch.nn.functional as F
+
+    from relora_tpu_torch.core.relora import full_f32_matmul
+    from relora_tpu_torch.ops import lora_matmul as LM
+    from relora_tpu_torch.ops import quant_matmul as QM
+
+    worst = dict.fromkeys(INT8_NAMES, 0.0)
+    cases = [(LORA_M, K, N, LORA_R, dt, True) for K, N, _ in LORA_SHAPES
+             for dt in ("bf16", "f32")]
+    cases += [(LORA_M, 768, 768, LORA_R, dt, False) for dt in ("bf16", "f32")]
+    cases += [(200, 72, 100, 8, dt, True) for dt in ("bf16", "f32")]
+    with full_f32_matmul(), torch.no_grad():
+        for i, (M, K, N, r, dtype, transposed) in enumerate(cases):
+            x, q, qs, a, b, gy = make_int8_case(torch, device, M, K, N, r, dtype, seed=51 + i,
+                                                transposed=transposed)
+            s = 0.25
+            pairs = {
+                "dequant_matmul": [(QM.dequant_matmul(x, q, qs), QM.dequant_matmul_plain(x, q, qs))],
+                "fused_lora_int8_forward": list(zip(LM.fused_lora_int8_forward(x, q, qs, a, b, s),
+                                                    LM.fused_lora_int8_forward_plain(x, q, qs, a, b, s))),
+                "fused_lora_int8_bwd_dx": list(zip(LM.fused_lora_int8_bwd_dx(gy, q, qs, a, b, s),
+                                                   LM.fused_lora_int8_bwd_dx_plain(gy, q, qs, a, b, s))),
+            }
+            torch.cuda.synchronize()
+            for name, outs in pairs.items():
+                err, rel, finite = _rel_err(outs)
+                ok = finite and rel <= LORA_TOL[dtype]
+                print(f"kernel-check {name} M={M} K={K} N={N} r={r} {dtype} "
+                      f"q={'(N,K).t()' if transposed else '(K,N)'} max_abs_err={err:.3e} "
+                      f"rel_err={rel:.3e} tol={LORA_TOL[dtype]:g} {'ok' if ok else 'FAIL'}")
+                if not ok:
+                    raise AssertionError(f"{name} disagrees with its plain twin ({M, K, N, r, dtype})")
+                if dtype == "bf16" and M == LORA_M and transposed:
+                    worst[name] = max(worst[name], err)
+
+    # a tensor scale (and a qscale that asks for its gradient) through both
+    # Functions against autograd of the plain composite
+    with full_f32_matmul():
+        x, q, qs, a, b, gy = make_int8_case(torch, device, LORA_M, 768, 768, LORA_R, "f32", seed=60)
+        s = torch.tensor([0.7], device=device)
+        checks = []
+        got_in = [t.clone().requires_grad_() for t in (x, qs, a, b, s)]
+        want_in = [t.clone().requires_grad_() for t in (x, qs, a, b, s)]
+        got = LM.fused_lora_matmul_int8(got_in[0], q, *got_in[1:])
+        xw, qw, aw, bw, sw = want_in
+        want = xw @ LM.dequantize_kn(q, qw) + ((xw @ aw) @ bw) * sw
+        got.backward(gy)
+        want.backward(gy)
+        checks += [("FusedLoRAMatmulInt8", n, pair) for n, pair in zip(
+            ("y", "dx", "dqscale", "dA", "dB", "ds"),
+            [(got, want)] + [(p.grad, r.grad) for p, r in zip(got_in, want_in)])]
+        got_in = [t.clone().requires_grad_() for t in (x, qs)]
+        want_in = [t.clone().requires_grad_() for t in (x, qs)]
+        got = QM.dequant_matmul(got_in[0], q, got_in[1])
+        want = want_in[0] @ LM.dequantize_kn(q, want_in[1])
+        got.backward(gy)
+        want.backward(gy)
+        checks += [("DequantMatmul", n, pair) for n, pair in zip(
+            ("y", "dx", "dscale"), [(got, want)] + [(p.grad, r.grad) for p, r in zip(got_in, want_in)])]
+        torch.cuda.synchronize()
+        for fn_name, name, pair in checks:
+            err, rel, finite = _rel_err([pair])
+            ok = finite and rel <= LORA_TOL["f32"]
+            print(f"kernel-check {fn_name} tensor-s {name} M={LORA_M} K=768 N=768 r={LORA_R} f32 "
+                  f"max_abs_err={err:.3e} rel_err={rel:.3e} tol={LORA_TOL['f32']:g} "
+                  f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"{fn_name} with a tensor scale: {name} disagrees")
+
+    from relora_tpu_torch.ops.quant import dequantize_int8
+
+    keys = ("ms", "plain_ms", "library_ms", "bound_ms", "t_bytes", "t_ops")
+    rows = {name: dict.fromkeys(keys, 0.0) for name in INT8_NAMES}
+    per_shape = []
+    with torch.no_grad():
+        for K, N, count in LORA_SHAPES:
+            x, q, qs, a, b, gy = make_int8_case(torch, device, LORA_M, K, N, LORA_R, "bf16", seed=99)
+            q_nk, s = q.t(), 0.25
+
+            def deq():
+                return dequantize_int8(q_nk, qs, x.dtype)
+
+            calls = {
+                "dequant_matmul": (lambda: QM.dequant_matmul(x, q, qs),
+                                   lambda: QM.dequant_matmul_plain(x, q, qs),
+                                   lambda: F.linear(x, deq())),
+                "fused_lora_int8_forward": (lambda: LM.fused_lora_int8_forward(x, q, qs, a, b, s),
+                                            lambda: LM.fused_lora_int8_forward_plain(x, q, qs, a, b, s),
+                                            lambda: F.linear(x, deq()) + ((x @ a) @ b) * s),
+                "fused_lora_int8_bwd_dx": (lambda: LM.fused_lora_int8_bwd_dx(gy, q, qs, a, b, s),
+                                           lambda: LM.fused_lora_int8_bwd_dx_plain(gy, q, qs, a, b, s),
+                                           lambda: gy @ deq() + ((gy * s) @ b.t()) @ a.t()),
+            }
+            shape = {"K": K, "N": N, "M": LORA_M, "r": LORA_R, "per_layer": count}
+            for name, (fn, plain, chain) in calls.items():
+                t_bytes, t_ops = int8_bound(LORA_M, K, N, LORA_R, 2, name)
+                ms, plain_ms, chain_ms = time_ms(torch, fn), time_ms(torch, plain), time_ms(torch, chain)
+                shape[name] = {"ms": ms, "plain_ms": plain_ms, "chain_ms": chain_ms,
+                               "bound_ms": max(t_bytes, t_ops),
+                               "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+                for key, v in zip(keys, (ms, plain_ms, chain_ms, max(t_bytes, t_ops), t_bytes, t_ops)):
+                    rows[name][key] += count * v
+            per_shape.append(shape)
+    print(json.dumps({"int8_timings": "bf16 activations, int8 base, ms per call; chain = the JAX "
+                      "default path's dequantize + cuBLAS matmuls, timed only", "shapes": per_shape}))
+    # one decoder layer's seven projections summed, as kernels-4; no single
+    # PyTorch call computes any of the three, so library_ms is the chain
+    return [{
+        "name": name,
+        "route": "cuda",
+        "source": "relora_tpu_torch/csrc/lora_matmul.cu",
+        "replaces": f"relora_tpu/ops/{INT8_LINES[name]}",
+        "launches": 0,
+        "max_abs_err": worst[name],
+        "ms": row["ms"],
+        "plain_ms": row["plain_ms"],
+        "bound_ms": row["bound_ms"],
+        "bound_by": "bytes" if row["t_bytes"] >= row["t_ops"] else "operations",
+        "library_ms": row["library_ms"],
+    } for name, row in rows.items()]
+
+
+def write_warm_start(torch, path, device, seed=11, model_config="llama_250m"):
+    """A full-rank ``model_config`` with seeded random weights, saved as an f32
+    HF-named ``path/pytorch_model.bin`` (``model.`` prefix, ``lm_head``
+    without it) for ``--warmed_up_model path``; returns ``path``."""
+    from relora_tpu_torch.config.model import load_model_config
+    from relora_tpu_torch.models.llama import LlamaForCausalLM
+    from relora_tpu_torch.models.params_util import init_params
+
+    os.makedirs(path, exist_ok=True)
+    with torch.device(device):
+        model = LlamaForCausalLM(load_model_config(model_config))
+    init_params(model, torch.Generator(device=device).manual_seed(seed))
+    torch.save({(k if k == "lm_head.weight" else f"model.{k}"): v.cpu()
+                for k, v in model.state_dict().items()}, os.path.join(path, "pytorch_model.bin"))
+    return path
+
+
+# f32-int8: the merge against an f64 oracle, to the requant rule
+INT8_MERGE_MIN_EQUAL = 0.999
+
+
+def f32_int8(torch, device, warm):
+    """Phase f32-int8: one update with the fused-int8 and the unfused
+    kernel-8 arms from the same warm-started weights (B drawn nonzero) and
+    batch at f32 with TF32 off, then one int8 merge against an f64 oracle."""
+    import dataclasses
+
+    import numpy as np
+
+    from relora_tpu_torch.config.model import load_model_config
+    from relora_tpu_torch.core import optim, relora
+    from relora_tpu_torch.models.llama import LlamaForCausalLM
+    from relora_tpu_torch.models.params_util import init_params
+    from relora_tpu_torch.models.warm_start import graft_base_weights
+    from relora_tpu_torch.ops import lora_matmul as LM
+    from relora_tpu_torch.ops import quant_matmul as QM
+    from relora_tpu_torch.train.step import TrainState, make_train_step
+
+    cfg = dataclasses.replace(load_model_config("llama_250m"), num_hidden_layers=2)
+    source = torch.load(os.path.join(warm, "pytorch_model.bin"), map_location="cpu", weights_only=True)
+    source = {k: v for k, v in source.items() if not k.startswith("model.layers.")
+              or int(k.split(".")[2]) < 2}
+    rng = np.random.default_rng(7)
+    batch = torch.as_tensor((rng.zipf(1.2, (2, 4, 512)) - 1) % cfg.vocab_size, device=device)
+    state_dict, out = None, {}
+    n_deq, n_dx = QM.dequant_matmul.launches, LM.fused_lora_int8_bwd_dx.launches
+    with relora.full_f32_matmul():
+        for fused in (True, False):
+            spec = relora.LoraSpec(r=128, alpha=32.0, dropout=0.0, quantize="int8", fused=fused)
+            with torch.device(device):
+                model = LlamaForCausalLM(cfg, dtype=torch.float32, attention_arm="flash", lora=spec)
+            if state_dict is None:
+                gen = torch.Generator(device=device).manual_seed(3)
+                init_params(model, gen)
+                graft_base_weights(model, source)
+                with torch.no_grad():
+                    for name, p in model.named_parameters():
+                        if name.endswith("lora_b"):
+                            p.copy_(torch.randn(p.shape, generator=gen, device=device) * 0.02)
+                state_dict = {k: v.clone() for k, v in model.state_dict().items()}
+            model.load_state_dict(state_dict)
+            relora.set_trainable(model)
+            opt = optim.build_optimizer(p for p in model.parameters() if p.requires_grad)
+            step = make_train_step(model, opt, clip_grad_norm=1.0, schedule=lambda s: 1e-3)
+            out[fused] = step(TrainState(), batch)
+        if QM.dequant_matmul.launches == n_deq or LM.fused_lora_int8_bwd_dx.launches == n_dx:
+            raise AssertionError("f32-int8: an arm did not reach its kernels")
+        errs = {k: abs(out[True][k] - out[False][k]) / abs(out[False][k]) for k in ("loss", "grad_norm")}
+        for key, err in errs.items():
+            ok = err <= F32_TRAIN_TOL[key]
+            print(f"f32-int8 {key} fused={out[True][key]} unfused={out[False][key]} rel_err={err:.3e} "
+                  f"tol={F32_TRAIN_TOL[key]:g} {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"f32-int8: {key} off by {err:.3e}")
+
+        # the merge on the card against dequantize + delta + requantize in
+        # f64; every fifth output column's delta is zero (B's column zeroed)
+        module = model.layers[0].self_attn.q_proj
+        with torch.no_grad():
+            module.lora_b[:, ::5] = 0.0
+        q0, s0 = module.weight_q.clone(), module.weight_scale.clone()
+        w64 = q0.double() * s0.double().t() + (
+            module.lora_a.double() @ module.lora_b.double() * spec.scale).t()
+        scale64 = torch.clamp(w64.abs().amax(dim=1, keepdim=True) / 127.0, min=1e-12)
+        q64 = torch.clamp(torch.round(w64 / scale64), -127, 127)
+        relora.merge_and_reinit(model, torch.Generator(device=device).manual_seed(4), spec)
+        q, s = module.weight_q, module.weight_scale
+        step_err = ((q.double() * s.double().t() - q64 * scale64).abs()
+                    / torch.maximum(s.double().t(), scale64)).max().item()
+        equal = (q.double() == q64).double().mean().item()
+        fixed = bool(torch.equal(q[::5], q0[::5]) and torch.equal(s[:, ::5], s0[:, ::5]))
+    ok = q.dtype == torch.int8 and step_err <= 1.0 + 1e-6 and equal >= INT8_MERGE_MIN_EQUAL and fixed
+    print(f"f32-int8 merge max_err_in_steps={step_err:.3e} (tol 1) codes_equal={equal:.6f} "
+          f"(min {INT8_MERGE_MIN_EQUAL}) zero_delta_fixed={fixed} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("f32-int8: the int8 merge breaks the requant rule against f64")
+
+
 def main() -> int:
     import torch
 
@@ -934,6 +1272,21 @@ def main() -> int:
     rows += lora_rows
     torch.cuda.empty_cache()
     f32_fused(torch, device)
+    torch.cuda.empty_cache()
+    int8_rows = check_int8_kernels(torch, device)
+    torch.cuda.empty_cache()
+    warm = write_warm_start(torch, os.path.join(work, "warm_llama_250m"), device)
+    int8 = ["--quantize", "int8", "--warmed_up_model", warm]
+    launches = train(torch, write_corpus(work), "int8_train", int8)
+    int8_rows[0]["launches"] = launches["dequant_matmul"]
+    torch.cuda.empty_cache()
+    launches = train(torch, write_corpus(work), "int8_fused_train",
+                     int8 + ["--lora_fused", "true", "--lora_dropout", "0"])
+    for row in int8_rows[1:]:
+        row["launches"] = launches[row["name"]]
+    rows += int8_rows
+    torch.cuda.empty_cache()
+    f32_int8(torch, device, warm)
 
     print(json.dumps({"kernels": rows}))
     smi = subprocess.run(

@@ -4,14 +4,18 @@ PyTorch counterpart of ``relora_tpu/core/relora.py``.  A LoRA-wrapped linear
 (:class:`relora_tpu_torch.models.lora.LoRALinear`) owns ``weight`` (the
 frozen base, ``(out, in)``), ``lora_a`` ``(in, r)``, ``lora_b`` ``(r, out)``
 and optionally ``lora_s`` ``(1,)``: the factor layouts of the JAX package, so
-``params_from_jax`` copies them unchanged.  Trainability is ``requires_grad``:
-every parameter trains except the frozen bases (with ``lora_only`` only the
-factors), the JAX package's ``trainable_param_mask``.
+``params_from_jax`` copies them unchanged.  An int8 base (``LoraSpec(quantize=
+"int8")``) is ``weight_q`` ``(out, in)`` int8 codes and ``weight_scale`` ``(1,
+out)`` f32 scales in place of ``weight``.  Trainability is ``requires_grad``:
+every parameter trains except the frozen bases and the int8 codes and scales
+(with ``lora_only`` only the factors), the JAX package's
+``trainable_param_mask``.
 
 :func:`merge_and_reinit` folds ``A @ B * scale`` into each base in f32 with
 TF32 off (the JAX package merges at ``Precision.HIGHEST``: merge error would
-otherwise compound over every cycle), re-draws A from the kaiming-uniform
-bound and zeroes B (and ``lora_s``), in place.
+otherwise compound over every cycle), an int8 base by dequantize, add,
+requantize; then re-draws A from the kaiming-uniform bound and zeroes B (and
+``lora_s``), in place.
 """
 
 from __future__ import annotations
@@ -24,16 +28,22 @@ from typing import Dict, Iterator, Optional, Tuple, Union
 import torch
 from torch import nn
 
+from relora_tpu_torch.ops.quant import dequantize_int8, quantize_int8
+
 LORA_PREFIX = "lora_"
+#: the int8 base's leaves, never trainable (``frozen_param_mask``, ``:149-168``)
+INT8_LEAVES = ("weight_q", "weight_scale")
 
 
 @dataclass(frozen=True)
 class LoraSpec:
     """Static LoRA hyperparameters (``relora_tpu/core/relora.py:35``).
 
-    ``quantize``, ``fused="auto"`` and ``num_slots`` are accepted for parity
-    and raise where a module would use them: those paths are not ported yet.
-    ``fused=True`` routes each projection through the fused LoRA kernels."""
+    ``quantize="nf4"``, ``fused="auto"`` and ``num_slots`` are accepted for
+    parity and raise where a module would use them: those paths are not
+    ported yet.  ``quantize="int8"`` stores each frozen base as int8 codes
+    and scales; ``fused=True`` routes each projection through the fused LoRA
+    kernels."""
 
     r: int
     alpha: float = 32.0
@@ -46,6 +56,8 @@ class LoraSpec:
     num_slots: int = 0
 
     def __post_init__(self):
+        if self.quantize not in (None, "int8", "nf4"):
+            raise ValueError(f"quantize must be None, 'int8' or 'nf4', got {self.quantize!r}")
         if self.base_dtype not in (None, "bf16"):
             raise ValueError(f"base_dtype must be None or 'bf16', got {self.base_dtype!r}")
         if self.base_dtype and self.quantize:
@@ -84,15 +96,19 @@ def lora_modules(model: nn.Module) -> Iterator[Tuple[str, nn.Module]]:
 
 def set_trainable(model: nn.Module, lora_only: bool = False) -> None:
     """``requires_grad`` per the JAX package's ``trainable_param_mask``:
-    False for the base weight of every LoRA-wrapped linear, True elsewhere;
-    with ``lora_only`` only the LoRA factors train."""
+    False for the base weight of every LoRA-wrapped linear and for every
+    int8 code and scale, True elsewhere; with ``lora_only`` only the LoRA
+    factors train."""
     frozen = {
         f"{name}.weight" if name else "weight"
         for name, module in lora_modules(model)
         if getattr(module, "weight", None) is not None
     }
     for name, p in model.named_parameters():
-        trainable = is_lora_name(name) if lora_only else name not in frozen
+        if lora_only:
+            trainable = is_lora_name(name)
+        else:
+            trainable = name not in frozen and name.rsplit(".", 1)[-1] not in INT8_LEAVES
         p.requires_grad_(trainable)
 
 
@@ -150,21 +166,28 @@ def merge_and_reinit(
 ) -> nn.Module:
     """ReLoRA reset in place (``relora_tpu/core/relora.py:232-324``): for every
     LoRA-wrapped linear, ``W += (A @ B * scale)ᵀ`` computed in f32 and cast
-    back to W's storage dtype (f32 master or ``base_dtype="bf16"``), then A
-    re-drawn kaiming-uniform from ``generator``, B zeroed, and ``lora_s``
-    zeroed under trainable scaling.  ``lora_only`` modules (no base) are
-    skipped, as in the reference."""
+    back to W's storage dtype (f32 master or ``base_dtype="bf16"``), or, for
+    an int8 base, dequantized, added to and requantized in f32 (``:287-294``);
+    then A re-drawn kaiming-uniform from ``generator``, B zeroed, and
+    ``lora_s`` zeroed under trainable scaling.  ``lora_only`` modules (no
+    base) are skipped, as in the reference."""
     if a_init is not None:
         raise NotImplementedError(
             "merge_and_reinit(a_init=...) (reset_init='magnitude') is not ported yet: see ROADMAP"
         )
-    if spec.quantize:
-        raise NotImplementedError(f"merging a {spec.quantize} base is not ported yet: see ROADMAP")
+    if spec.quantize == "nf4":
+        raise NotImplementedError("merging an nf4 base is not ported yet: see ROADMAP")
     for _, module in lora_modules(model):
-        if getattr(module, "weight", None) is None:
+        if getattr(module, "weight_q", None) is not None:
+            merged = dequantize_int8(module.weight_q, module.weight_scale) + lora_delta(module, spec)
+            q, scale = quantize_int8(merged)
+            module.weight_q.copy_(q)
+            module.weight_scale.copy_(scale)
+        elif getattr(module, "weight", None) is None:
             continue  # lora_only: nothing to merge into
-        merged = module.weight.float() + lora_delta(module, spec)
-        module.weight.copy_(merged.to(module.weight.dtype))
+        else:
+            merged = module.weight.float() + lora_delta(module, spec)
+            module.weight.copy_(merged.to(module.weight.dtype))
         fresh = kaiming_uniform(module.lora_a.shape, generator, module.lora_a.device)
         module.lora_a.copy_(fresh.to(module.lora_a.dtype))
         module.lora_b.zero_()

@@ -1,33 +1,51 @@
-// The fused LoRA composite y = x@W + ((x@A)@B)*s and its backward, for sm_90a.
+// The fused LoRA composite y = x@W + ((x@A)@B)*s and its backward, and the
+// int8 dequant matmul, for sm_90a.
 //
-// Replaces the TPU kernels of relora_tpu/ops/pallas_lora_matmul.py (dense base):
+// Replaces the TPU kernels of relora_tpu/ops/pallas_lora_matmul.py and
+// relora_tpu/ops/pallas_quant_matmul.py:
 //
-//   fused_lora_forward_launch  kernel 4, _forward (:102) -> pallas_call :113
-//                              (_fused_lora_kernel :73): y (M, N) in x's dtype
-//                              and z = x@A (M, r) f32, the residual of the
-//                              backward
-//   fused_lora_bwd_dx_launch   kernel 6, _backward_dx (:317) -> :327
-//                              (_bwd_dx_kernel :263): dx = g@W^T + s*(g@B^T)@A^T
-//                              in x's dtype, and u = g@B^T (M, r) f32
-//   fused_lora_bwd_dab_launch  kernel 7, _backward_dab (:343) -> :347
-//                              (_bwd_dab_kernel :292): dA = s*x^T u (K, r) and
-//                              dB = s*z^T g (r, N), f32
+//   fused_lora_forward_launch       kernel 4, _forward (:102) -> pallas_call :113
+//                                   (_fused_lora_kernel :73): y (M, N) in x's
+//                                   dtype and z = x@A (M, r) f32, the residual
+//                                   of the backward
+//   fused_lora_int8_forward_launch  kernel 4, int8 base (_fused_lora_int8_kernel
+//                                   :88): the same with W = q * qscale
+//   fused_lora_bwd_dx_launch        kernel 6, _backward_dx (:317) -> :327
+//                                   (_bwd_dx_kernel :263): dx = g@W^T + s*(g@B^T)@A^T
+//                                   in x's dtype, and u = g@B^T (M, r) f32
+//   fused_lora_int8_bwd_dx_launch   kernel 6, int8 base (_bwd_dx_int8_kernel :279)
+//   fused_lora_bwd_dab_launch       kernel 7, _backward_dab (:343) -> :347
+//                                   (_bwd_dab_kernel :292): dA = s*x^T u (K, r) and
+//                                   dB = s*z^T g (r, N), f32; it never reads W, so
+//                                   it serves both bases
+//   dequant_matmul_launch           kernel 8, pallas_quant_matmul.py _pallas_forward
+//                                   (:46) -> :49 (_dequant_matmul_kernel :35):
+//                                   y = x @ (q * scale) in x's dtype
 //
 // x (M, K), g (M, N), A (K, r) and B (r, N) are row-major; W is the logical
 // (K, N) base with any element strides (the port passes the (N, K) weight's
 // transpose as a view).  Inputs are f32 or bf16 and are widened to f32 as they
-// are staged; s is read from a device pointer (the trainable tanh(lora_s)) or
-// given by value, so no call needs a host sync.  Any M, K, N and r: ragged
-// tiles are masked.
+// are staged; an int8 base is q (K, N) int8 codes, again at any strides, with
+// qscale (1, N) f32 per output column: each code is widened and multiplied by
+// its column's scale as the tile is staged, the f32 value the TPU kernel
+// forms in VMEM, so no dequantized copy of W is ever written.  s is read from
+// a device pointer (the trainable tanh(lora_s)) or given by value, so no call
+// needs a host sync.  Any M, K, N and r: ragged tiles are masked.
 //
 // Design.  One tiled GEMM kernel, lora_gemm_kernel, computes
 //     C = P1 @ Q1 + P2 @ (s * Q2)
-// over two contraction segments for strided f32/bf16 operands, and each
-// TPU kernel is a short sequence of its launches on one stream:
+// over two contraction segments for strided f32/bf16/scaled-int8 operands,
+// and each TPU kernel is a short sequence of its launches on one stream:
 //   forward:  z = x@A (f32), then y = x@W + z@(s*B)   (contraction K + r)
 //   dx:       u = g@B^T (f32), then dx = g@W^T + u@(s*A^T)   (contraction N + r)
 //   dA/dB:    partials of x^T u and z^T g over chunks of 512 rows of M, then
 //             one reduce pass sums the chunks in a fixed order and scales by s
+//   dequant:  y = x@(q*scale), one segment
+// An operand is (pointer, two strides, type) plus, for int8, a scale pointer
+// with two strides of its own: in the forward and kernel 8 the scale runs
+// along the logical N columns of W (strides 0, 1); in dx the operand is W^T
+// (N, K), so the same scale runs along its rows, the contraction axis
+// (strides 1, 0).
 // On the TPU every (i, j) program of the forward recomputes z for its M stripe
 // and every (i, k) program of dx recomputes u; here each is computed once per
 // row, written once as f32 (2 MB at M=4096, r=128) and read back from L2 by
@@ -50,8 +68,10 @@
 // over ~2(MK + KN + MN) bytes, about 600 flops per byte: above the H100's ~295
 // bf16 balance point, so on tensor cores they would be bound by operations;
 // dA/dB does 2Mr(K + N) flops over ~2M(K + N) + 4Mr bytes, below it, so bound
-// by bytes.  These kernels use the f32 CUDA cores (67 TFLOP/s peak), so all
-// three are far from that bound by construction.
+// by bytes.  Kernel 8 does 2MKN flops over 2MK + KN + 2MN bytes (int8 W): bound
+// by operations too; the int8 base saves bytes that do not bound it here.
+// These kernels use the f32 CUDA cores (67 TFLOP/s peak), so all are far
+// from that bound by construction.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -63,10 +83,14 @@ constexpr int kThreads = 256;  // 16 x 16 threads
 constexpr int kBK = 16;        // contraction depth of one staged slice
 constexpr int kChunk = 512;    // rows of M per dA/dB partial
 
+enum { kF32 = 0, kBF16 = 1, kI8 = 2 };
+
 struct Mat {  // a logical (rows x cols) operand
   const void* p;
   long long s0, s1;  // element strides of a row step and a column step
-  int bf16;          // 0: float32, 1: bfloat16
+  int type;          // kF32, kBF16, or kI8: int8 codes times a per-element scale
+  const float* sc;   // kI8: element (i, j) is p[i*s0 + j*s1] * sc[i*c0 + j*c1]
+  long long c0, c1;
 };
 
 struct Gemm {
@@ -81,8 +105,12 @@ struct Gemm {
   int kchunk;          // > 0: block z contracts segment 1 over [z * kchunk, (z + 1) * kchunk)
 };
 
-__device__ __forceinline__ float load(const Mat& m, long long off) {
-  if (m.bf16) return __bfloat162float(static_cast<const __nv_bfloat16*>(m.p)[off]);
+// element (i, j) of m as f32; an int8 code is widened, then scaled in f32
+__device__ __forceinline__ float load(const Mat& m, long long i, long long j) {
+  const long long off = i * m.s0 + j * m.s1;
+  if (m.type == kBF16) return __bfloat162float(static_cast<const __nv_bfloat16*>(m.p)[off]);
+  if (m.type == kI8)
+    return static_cast<float>(static_cast<const int8_t*>(m.p)[off]) * m.sc[i * m.c0 + j * m.c1];
   return static_cast<const float*>(m.p)[off];
 }
 
@@ -123,8 +151,7 @@ __global__ void __launch_bounds__(kThreads, 2) lora_gemm_kernel(Gemm g) {
           kk = idx / BM;
         }
         const int m = m0 + i, k = k0 + kk;
-        ps[kk][i] = (m < g.M && k < k_end) ? load(P, (long long)m * P.s0 + (long long)k * P.s1)
-                                           : 0.f;
+        ps[kk][i] = (m < g.M && k < k_end) ? load(P, m, k) : 0.f;
       }
       for (int idx = tid; idx < kBK * BN; idx += kThreads) {
         int kk, j;
@@ -136,9 +163,7 @@ __global__ void __launch_bounds__(kThreads, 2) lora_gemm_kernel(Gemm g) {
           j = idx / kBK;
         }
         const int n = n0 + j, k = k0 + kk;
-        qs[kk][j] = (n < g.N && k < k_end)
-                        ? qscale * load(Q, (long long)k * Q.s0 + (long long)n * Q.s1)
-                        : 0.f;
+        qs[kk][j] = (n < g.N && k < k_end) ? qscale * load(Q, k, n) : 0.f;
       }
       __syncthreads();
 
@@ -235,7 +260,14 @@ int run_gemm(const Gemm& g, int chunks, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-Mat mat(const void* p, long long s0, long long s1, int bf16) { return Mat{p, s0, s1, bf16}; }
+Mat mat(const void* p, long long s0, long long s1, int type) {
+  return Mat{p, s0, s1, type, nullptr, 0, 0};
+}
+
+// int8 codes at strides (s0, s1) with their f32 scales at strides (c0, c1)
+Mat qmat(const void* p, long long s0, long long s1, const float* sc, long long c0, long long c1) {
+  return Mat{p, s0, s1, kI8, sc, c0, c1};
+}
 
 Gemm gemm(int M, int N, const float* s_ptr, float s_val, void* c, int c_bf16, long long c_ld) {
   Gemm g{};
@@ -259,7 +291,43 @@ int u_pass(const void* g, const void* b, float* u, int M, int N, int r, int bf, 
 }
 
 bool bad_args(int M, int K, int N, int r, int dtype) {
-  return M < 0 || K <= 0 || N <= 0 || r <= 0 || (dtype != 0 && dtype != 1);
+  return M < 0 || K <= 0 || N <= 0 || r <= 0 || (dtype != kF32 && dtype != kBF16);
+}
+
+// z = x @ A, then y = x @ W + z @ (s * B); w is the logical (K, N) base
+int fwd_pass(const void* x, const Mat& w, const void* a, const void* b, const float* s_ptr,
+             float s_val, void* y, float* z, int M, int K, int N, int r, int dtype,
+             cudaStream_t st) {
+  Gemm zg = gemm(M, r, nullptr, 1.f, z, 0, r);
+  zg.p1 = mat(x, K, 1, dtype);
+  zg.q1 = mat(a, r, 1, dtype);
+  zg.K1 = K;
+  int err = run_gemm(zg, 1, st);
+  if (err) return err;
+  Gemm yg = gemm(M, N, s_ptr, s_val, y, dtype, N);
+  yg.p1 = mat(x, K, 1, dtype);
+  yg.q1 = w;
+  yg.K1 = K;
+  yg.p2 = mat(z, r, 1, kF32);
+  yg.q2 = mat(b, N, 1, dtype);
+  yg.K2 = r;
+  return run_gemm(yg, 1, st);
+}
+
+// u = g @ B^T, then dx = g @ W^T + u @ (s * A^T); wt is the logical (N, K) W^T
+int dx_pass(const void* g, const Mat& wt, const void* a, const void* b, const float* s_ptr,
+            float s_val, void* dx, float* u, int M, int K, int N, int r, int dtype,
+            cudaStream_t st) {
+  int err = u_pass(g, b, u, M, N, r, dtype, st);
+  if (err) return err;
+  Gemm dg = gemm(M, K, s_ptr, s_val, dx, dtype, K);
+  dg.p1 = mat(g, N, 1, dtype);
+  dg.q1 = wt;
+  dg.K1 = N;
+  dg.p2 = mat(u, r, 1, kF32);
+  dg.q2 = mat(a, 1, r, dtype);  // A^T (r, K)
+  dg.K2 = r;
+  return run_gemm(dg, 1, st);
 }
 
 }  // namespace
@@ -281,21 +349,19 @@ int fused_lora_forward_launch(const void* x, const void* w, long long w_s0, long
                               void* y, float* z, int M, int K, int N, int r, int dtype,
                               void* stream) {
   if (bad_args(M, K, N, r, dtype)) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  Gemm zg = gemm(M, r, nullptr, 1.f, z, 0, r);
-  zg.p1 = mat(x, K, 1, dtype);
-  zg.q1 = mat(a, r, 1, dtype);
-  zg.K1 = K;
-  int err = run_gemm(zg, 1, st);
-  if (err) return err;
-  Gemm yg = gemm(M, N, s_ptr, s_val, y, dtype, N);
-  yg.p1 = mat(x, K, 1, dtype);
-  yg.q1 = mat(w, w_s0, w_s1, dtype);
-  yg.K1 = K;
-  yg.p2 = mat(z, r, 1, 0);
-  yg.q2 = mat(b, N, 1, dtype);
-  yg.K2 = r;
-  return run_gemm(yg, 1, st);
+  return fwd_pass(x, mat(w, w_s0, w_s1, dtype), a, b, s_ptr, s_val, y, z, M, K, N, r, dtype,
+                  static_cast<cudaStream_t>(stream));
+}
+
+// the same over an int8 base: q logical (K, N) int8 at element strides
+// (q_s0, q_s1), qscale (1, N) f32 contiguous
+int fused_lora_int8_forward_launch(const void* x, const void* q, long long q_s0, long long q_s1,
+                                   const float* qscale, const void* a, const void* b,
+                                   const float* s_ptr, float s_val, void* y, float* z, int M,
+                                   int K, int N, int r, int dtype, void* stream) {
+  if (bad_args(M, K, N, r, dtype)) return (int)cudaErrorInvalidValue;
+  return fwd_pass(x, qmat(q, q_s0, q_s1, qscale, 0, 1), a, b, s_ptr, s_val, y, z, M, K, N, r,
+                  dtype, static_cast<cudaStream_t>(stream));
 }
 
 // g (M, N); dx (M, K) in the inputs' dtype; u (M, r) f32 = g @ B^T, written
@@ -305,17 +371,32 @@ int fused_lora_bwd_dx_launch(const void* g, const void* w, long long w_s0, long 
                              void* dx, float* u, int M, int K, int N, int r, int dtype,
                              void* stream) {
   if (bad_args(M, K, N, r, dtype)) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  int err = u_pass(g, b, u, M, N, r, dtype, st);
-  if (err) return err;
-  Gemm dg = gemm(M, K, s_ptr, s_val, dx, dtype, K);
-  dg.p1 = mat(g, N, 1, dtype);
-  dg.q1 = mat(w, w_s1, w_s0, dtype);  // W^T (N, K)
-  dg.K1 = N;
-  dg.p2 = mat(u, r, 1, 0);
-  dg.q2 = mat(a, 1, r, dtype);        // A^T (r, K)
-  dg.K2 = r;
-  return run_gemm(dg, 1, st);
+  return dx_pass(g, mat(w, w_s1, w_s0, dtype), a, b, s_ptr, s_val, dx, u, M, K, N, r, dtype,
+                 static_cast<cudaStream_t>(stream));
+}
+
+// the same over an int8 base (q, qscale as in fused_lora_int8_forward_launch):
+// in W^T the column scale runs along the contraction axis
+int fused_lora_int8_bwd_dx_launch(const void* g, const void* q, long long q_s0, long long q_s1,
+                                  const float* qscale, const void* a, const void* b,
+                                  const float* s_ptr, float s_val, void* dx, float* u, int M,
+                                  int K, int N, int r, int dtype, void* stream) {
+  if (bad_args(M, K, N, r, dtype)) return (int)cudaErrorInvalidValue;
+  return dx_pass(g, qmat(q, q_s1, q_s0, qscale, 1, 0), a, b, s_ptr, s_val, dx, u, M, K, N, r,
+                 dtype, static_cast<cudaStream_t>(stream));
+}
+
+// kernel 8: y (M, N) = x (M, K) @ (q * qscale), q logical (K, N) int8 at element
+// strides (q_s0, q_s1), qscale (1, N) f32; y in x's dtype
+int dequant_matmul_launch(const void* x, const void* q, long long q_s0, long long q_s1,
+                          const float* qscale, void* y, int M, int K, int N, int dtype,
+                          void* stream) {
+  if (bad_args(M, K, N, 1, dtype)) return (int)cudaErrorInvalidValue;
+  Gemm yg = gemm(M, N, nullptr, 1.f, y, dtype, N);
+  yg.p1 = mat(x, K, 1, dtype);
+  yg.q1 = qmat(q, q_s0, q_s1, qscale, 0, 1);
+  yg.K1 = K;
+  return run_gemm(yg, 1, static_cast<cudaStream_t>(stream));
 }
 
 // g (M, N); x (M, K); z, u (M, r) f32 (u is computed here first unless

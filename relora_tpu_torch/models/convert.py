@@ -42,13 +42,13 @@ def _has(tree: Mapping[str, Any], dotted: str) -> bool:
     return True
 
 
-def _leaf(tree: Mapping[str, Any], dotted: str) -> np.ndarray:
+def _leaf(tree: Mapping[str, Any], dotted: str, dtype=np.float32) -> np.ndarray:
     if not _has(tree, dotted):
         raise KeyError(f"parameter tree has no leaf {dotted!r}")
     node: Any = tree
     for part in dotted.split("."):
         node = node[part]
-    return np.asarray(node, dtype=np.float32)
+    return np.asarray(node, dtype=dtype)
 
 
 def _weight(value: np.ndarray, src: str) -> torch.Tensor:
@@ -63,15 +63,17 @@ def params_from_jax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     L) or unrolled (``layers_0`` .. ``layers_{L-1}``).  A LoRA tree's
     ``lora_a``/``lora_b``/``lora_s`` leaves keep their layouts (the port's
     ``LoRALinear`` stores them as the JAX module does); a ``lora_only``
-    projection has no ``kernel`` and so no ``weight``."""
+    projection has no ``kernel`` and so no ``weight``.  An int8 projection's
+    ``kernel_q`` ``(in, out)`` becomes ``weight_q`` ``(out, in)``, kept int8,
+    and its ``kernel_scale`` ``(1, out)`` becomes ``weight_scale`` as it is."""
     if "layers" in tree:
         stacked = tree["layers"]
         n_layers = _leaf(stacked, "input_layernorm.scale").shape[0]
-        layer = lambda i, path: _leaf(stacked, path)[i]
+        layer = lambda i, path, dtype=np.float32: _leaf(stacked, path, dtype)[i]
         layer_has = lambda i, path: _has(stacked, path)
     else:
         n_layers = sum(1 for k in tree if k.startswith("layers_") and k[7:].isdigit())
-        layer = lambda i, path: _leaf(tree[f"layers_{i}"], path)
+        layer = lambda i, path, dtype=np.float32: _leaf(tree[f"layers_{i}"], path, dtype)
         layer_has = lambda i, path: _has(tree[f"layers_{i}"], path)
     if n_layers == 0:
         raise KeyError("parameter tree has no decoder layers")
@@ -83,8 +85,13 @@ def params_from_jax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     for i in range(n_layers):
         for src, dst in _LLAMA_LAYER_MAP.items():
             module = src.rsplit(".", 1)[0]
-            lora_only = not layer_has(i, src) and layer_has(i, f"{module}.lora_a")
-            if not lora_only:
+            if layer_has(i, f"{module}.kernel_q"):
+                codes = layer(i, f"{module}.kernel_q", np.int8)
+                out[f"layers.{i}.{module}.weight_q"] = torch.tensor(codes.T)
+                out[f"layers.{i}.{module}.weight_scale"] = torch.tensor(
+                    layer(i, f"{module}.kernel_scale")
+                )
+            elif layer_has(i, src) or not layer_has(i, f"{module}.lora_a"):
                 out[f"layers.{i}.{dst}"] = _weight(layer(i, src), src)
             for name in _LORA_LEAVES:
                 if src.endswith(".kernel") and layer_has(i, f"{module}.{name}"):

@@ -62,7 +62,8 @@ def _write_quantized(codes, scales, new, rows, offs, fresh):
     flat_rows = rows.reshape(-1).long()
     scatter_index = flat_rows[:, None].expand(-1, n_kv)
     new32 = new.float()
-    cand = torch.clamp(new32.abs().amax(dim=-1) / 127.0, min=1e-12)  # (B, T, n_kv)
+    absmax = new32.abs().amax(dim=-1)  # (B, T, n_kv); a true division, also on CUDA
+    cand = torch.clamp(absmax / absmax.new_full((), 127.0), min=1e-12)
     scales.scatter_reduce_(0, scatter_index, fresh.reshape(-1, 1).expand(-1, n_kv), "prod")
     new_scale = scales.clone().scatter_reduce_(0, scatter_index, cand.reshape(-1, n_kv), "amax")
     ratio = scales[flat_rows] / new_scale[flat_rows]  # (B*T, n_kv)

@@ -23,6 +23,17 @@ the JAX module's rule (``relora_tpu/models/lora.py:117-126``): not for a
 ``lora_only`` layer (branch only), and not while dropout is active (a seed
 and ``dropout > 0``: the branch input then differs from the base input), so
 training with dropout keeps the historical path and eval takes the kernels.
+
+``LoraSpec(quantize="int8")`` stores the frozen base as ``weight_q`` ``(out,
+in)`` int8 codes and ``weight_scale`` ``(1, out)`` f32 per-output scales
+(the JAX module's ``kernel_q``/``kernel_scale``, ``:165-190``), both
+parameters that never train.  A fresh init is codes 0 and scales 1, W = 0:
+an int8 base means something only after a warm start
+(``models/warm_start.py``), which quantizes real weights into it.  Forward
+(``:91-142``): the fused arm over ``(weight_q.t(), weight_scale)`` where the
+dense base would take it, else the base product through
+``ops/quant_matmul.dequant_matmul`` (kernel 8 for CUDA tensors) plus the LoRA
+branch.  The codes and scales are never cast to the compute dtype.
 """
 
 from __future__ import annotations
@@ -34,6 +45,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from relora_tpu_torch.core.relora import LoraSpec
+from relora_tpu_torch.ops.quant_matmul import dequant_matmul
 
 
 def dropout_mask(shape, p: float, seed: int, device) -> torch.Tensor:
@@ -61,7 +73,7 @@ class LoRALinear(nn.Module):
         self.lora = lora
         self.dtype = dtype
         if lora is not None:
-            if lora.quantize:
+            if lora.quantize not in (None, "int8"):
                 raise NotImplementedError(
                     f"a {lora.quantize} frozen base is not ported yet: see ROADMAP"
                 )
@@ -73,6 +85,14 @@ class LoRALinear(nn.Module):
                 raise NotImplementedError("multi-tenant adapter slots are not ported yet: see ROADMAP")
         if lora is not None and lora.lora_only:
             self.register_parameter("weight", None)
+        elif lora is not None and lora.quantize == "int8":
+            self.register_parameter("weight", None)
+            self.weight_q = nn.Parameter(
+                torch.zeros(out_features, in_features, dtype=torch.int8), requires_grad=False
+            )
+            self.weight_scale = nn.Parameter(
+                torch.ones(1, out_features, dtype=torch.float32), requires_grad=False
+            )
         else:
             base_dtype = torch.bfloat16 if lora is not None and lora.base_dtype == "bf16" else param_dtype
             self.weight = nn.Parameter(torch.empty(out_features, in_features, dtype=base_dtype))
@@ -89,7 +109,10 @@ class LoRALinear(nn.Module):
         dropout_active = spec is not None and spec.dropout > 0.0 and dropout_seed is not None
         if spec is not None and spec.fused is True and not dropout_active:
             return self._fused(x)
-        y = F.linear(x.to(self.dtype), self.weight.to(self.dtype))
+        if spec is not None and spec.quantize == "int8":
+            y = dequant_matmul(x.to(self.dtype), self.weight_q.t(), self.weight_scale)
+        else:
+            y = F.linear(x.to(self.dtype), self.weight.to(self.dtype))
         if spec is not None:
             y = y + self._lora_branch(x, dropout_seed)
         return y
@@ -97,14 +120,19 @@ class LoRALinear(nn.Module):
     def _fused(self, x: torch.Tensor) -> torch.Tensor:
         """The composite through the fused arm (``relora_tpu/models/lora.py:200-232``):
         every operand in the compute dtype, the frozen base detached and
-        passed as the ``(in, out)`` view of its ``(out, in)`` storage."""
+        passed as the ``(in, out)`` view of its ``(out, in)`` storage; an
+        int8 base as the ``(in, out)`` view of its codes and its f32 scales."""
         from relora_tpu_torch.ops.lora_dispatch import lora_matmul
 
         spec = self.lora
         scale = torch.tanh(self.lora_s.to(self.dtype)) if spec.trainable_scaling else spec.scale
+        if spec.quantize == "int8":
+            base = (self.weight_q.t(), self.weight_scale)
+        else:
+            base = self.weight.detach().to(self.dtype).t()
         return lora_matmul(
             x.to(self.dtype),
-            self.weight.detach().to(self.dtype).t(),
+            base,
             self.lora_a.to(self.dtype),
             self.lora_b.to(self.dtype),
             scale,

@@ -10,6 +10,12 @@ Counterpart of ``relora_tpu/ops/lora_dispatch.py:271-349`` ``lora_matmul``:
   (``:347-349``);
 - **merged**: ``x @ (W + s*(A@B))``, plain PyTorch (``:344-346``).
 
+The base is a dense ``(K, N)`` ``W`` or an int8 pair ``(q, qscale)``
+(``q`` ``(K, N)`` int8, ``qscale`` ``(1, N)`` f32, ``:300-349``): the fused arm
+then takes :func:`~relora_tpu_torch.ops.lora_matmul.fused_lora_matmul_int8`
+(the int8 kernels), and ordered and merged dequantize in plain PyTorch and use
+``torch.matmul``, as the JAX arms do outside any kernel.
+
 ``arm="auto"`` raises ``NotImplementedError``: its cost model
 (``choose_arm``, ``estimate_arm_times``) carries TPU v5e constants
 (``:73-78``) and is ported once they are re-derived for the H100.
@@ -17,18 +23,23 @@ Counterpart of ``relora_tpu/ops/lora_dispatch.py:271-349`` ``lora_matmul``:
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Optional, Tuple, Union
 
 import torch
 
-from relora_tpu_torch.ops.lora_matmul import Scale, fused_lora_matmul
+from relora_tpu_torch.ops.lora_matmul import (
+    Scale,
+    dequantize_kn,
+    fused_lora_matmul,
+    fused_lora_matmul_int8,
+)
 
 ARMS: Tuple[str, ...] = ("fused", "ordered", "merged")
 
 
 def lora_matmul(
     x: torch.Tensor,
-    base: torch.Tensor,
+    base: Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]],
     a: torch.Tensor,
     b: torch.Tensor,
     scale: Scale = 1.0,
@@ -37,9 +48,10 @@ def lora_matmul(
     dtype: Optional[torch.dtype] = None,
 ) -> torch.Tensor:
     """``x @ W + ((x @ A) @ B) * scale`` through ``arm``, with ``x``, the
-    ``(K, N)`` base ``W`` and the factors cast to ``dtype`` (default x's).
-    The fused arm gives the base no gradient; pass a detached base to every
-    arm so they agree."""
+    ``(K, N)`` base ``W`` (dequantized first for an int8 ``(q, qscale)``
+    base, outside the fused arm) and the factors cast to ``dtype`` (default
+    x's).  The fused arm gives a dense base no gradient; pass a detached base
+    to every arm so they agree."""
     if arm not in ARMS and arm != "auto":
         raise ValueError(f"unknown arm {arm!r}; expected one of {ARMS + ('auto',)}")
     if arm == "auto":
@@ -47,12 +59,17 @@ def lora_matmul(
             "lora_matmul(arm='auto'): the cost model carries TPU v5e constants and is "
             "not ported until they are re-derived for the H100 (see ROADMAP)"
         )
-    if isinstance(base, tuple):
-        raise NotImplementedError("an int8 (q, scale) base is not ported yet: see ROADMAP")
     dtype = dtype or x.dtype
-    xd, w, ad, bd = (t.to(dtype) for t in (x, base, a, b))
-    if arm == "fused":
-        return fused_lora_matmul(xd, w, ad, bd, scale)
+    xd, ad, bd = (t.to(dtype) for t in (x, a, b))
+    if isinstance(base, tuple):
+        q, qscale = base
+        if arm == "fused":
+            return fused_lora_matmul_int8(xd, q, qscale, ad, bd, scale)
+        w = dequantize_kn(q, qscale).to(dtype)
+    else:
+        w = base.to(dtype)
+        if arm == "fused":
+            return fused_lora_matmul(xd, w, ad, bd, scale)
     if arm == "merged":
         delta = torch.matmul(ad, bd) * scale
         return torch.matmul(xd, w + delta.to(dtype))

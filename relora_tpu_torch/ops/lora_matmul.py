@@ -1,25 +1,33 @@
-"""The fused LoRA composite ``y = x @ W + ((x @ A) @ B) * s``: three CUDA
-kernels and their plain twins.
+"""The fused LoRA composite ``y = x @ W + ((x @ A) @ B) * s``: CUDA kernels
+and their plain twins, for a dense and for an int8 base.
 
-Replaces the dense-base TPU kernels of ``relora_tpu/ops/pallas_lora_matmul.py``:
-``_forward`` (kernel 4, ``:102``), ``_backward_dx`` (kernel 6, ``:317``) and
-``_backward_dab`` (kernel 7, ``:343``).  ``csrc/lora_matmul.cu`` holds the
-Hopper kernels; its header note gives the design and the bound.  Here:
+Replaces the TPU kernels of ``relora_tpu/ops/pallas_lora_matmul.py``:
+``_forward`` (kernel 4, ``:102``; int8 base ``_fused_lora_int8_kernel``
+``:88``), ``_backward_dx`` (kernel 6, ``:317``; int8 base
+``_bwd_dx_int8_kernel`` ``:279``) and ``_backward_dab`` (kernel 7, ``:343``,
+which never reads the base).  ``csrc/lora_matmul.cu`` holds the Hopper
+kernels; its header note gives the design and the bound.  Here:
 
 - :func:`fused_lora_forward` ``(x, w, a, b, s) -> (y, z)``,
-  :func:`fused_lora_bwd_dx` ``(g, w, a, b, s) -> (dx, u)`` and
-  :func:`fused_lora_bwd_dab` ``(g, x, z, b, s, u=None) -> (da, db)``: one
+  :func:`fused_lora_bwd_dx` ``(g, w, a, b, s) -> (dx, u)``,
+  :func:`fused_lora_bwd_dab` ``(g, x, z, b, s, u=None) -> (da, db)``,
+  :func:`fused_lora_int8_forward` ``(x, q, qscale, a, b, s) -> (y, z)`` and
+  :func:`fused_lora_int8_bwd_dx` ``(g, q, qscale, a, b, s) -> (dx, u)``: one
   wrapper per kernel.  A CPU tensor runs the plain twin of the same name with
   ``_plain``; a CUDA tensor launches the kernel or raises.  Each wrapper
   counts its launches in ``.launches``.
-- :class:`FusedLoRAMatmul`, the ``torch.autograd.Function`` over the three
-  (the JAX package's ``custom_vjp``, ``:375-400``), and
-  :func:`fused_lora_matmul`, its entry point (``:467-494``).
+- :class:`FusedLoRAMatmul` and :class:`FusedLoRAMatmulInt8`, the autograd
+  Functions over them (the JAX package's ``custom_vjp`` pair, ``:375-427``),
+  and :func:`fused_lora_matmul` / :func:`fused_lora_matmul_int8`, their
+  entry points (``:467-524``).
 
 Layouts follow the JAX package: ``x`` ``(M, K)``, ``w`` ``(K, N)``, ``a``
 ``(K, r)``, ``b`` ``(r, N)``; ``z = x @ A`` and ``u = g @ Bᵀ`` are ``(M, r)``
 f32.  ``w`` may be contiguous or the transpose of a contiguous ``(N, K)``
-tensor (the port's ``(out, in)`` weight ``.t()``), read in place.  ``s`` is a
+tensor (the port's ``(out, in)`` weight ``.t()``), read in place.  An int8
+base is ``q`` ``(K, N)`` int8 codes, laid out like ``w``, and ``qscale``
+``(1, N)`` f32 per output column; the kernels dequantize each code as they
+stage it, so no dequantized copy of the base is ever written.  ``s`` is a
 Python float or a one-element tensor (the trainable ``tanh(lora_s)``), which
 the kernels read on the device: no call syncs with the host.  Math is f32;
 ``y`` and ``dx`` take the inputs' dtype, ``da``/``db`` are f32.  The frozen
@@ -76,6 +84,22 @@ def fused_lora_bwd_dab_plain(g, x, z, b, s: Scale, u=None) -> Tuple[torch.Tensor
     return (x.float().t() @ u) * s32, (z.t() @ g32) * s32
 
 
+def dequantize_kn(q: torch.Tensor, qscale: torch.Tensor) -> torch.Tensor:
+    """The f32 base ``q * qscale`` of logical ``(K, N)`` codes and ``(1, N)``
+    scales, the value the kernels form as they stage each tile."""
+    return q.float() * qscale.float().reshape(1, -1)
+
+
+def fused_lora_int8_forward_plain(x, q, qscale, a, b, s: Scale) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain twin of :func:`fused_lora_int8_forward`."""
+    return fused_lora_forward_plain(x, dequantize_kn(q, qscale), a, b, s)
+
+
+def fused_lora_int8_bwd_dx_plain(g, q, qscale, a, b, s: Scale) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain twin of :func:`fused_lora_int8_bwd_dx`."""
+    return fused_lora_bwd_dx_plain(g, dequantize_kn(q, qscale), a, b, s)
+
+
 # ---------------------------------------------------------------------------
 # Kernel wrappers
 # ---------------------------------------------------------------------------
@@ -86,13 +110,18 @@ def _kernel_library():
     if not getattr(lib, "_relora_typed", False):
         vp, i32, i64, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
         product = [vp, vp, i64, i64, vp, vp, vp, f32, vp, vp] + [i32] * 5 + [vp]
+        int8_product = [vp, vp, i64, i64, vp, vp, vp, vp, f32, vp, vp] + [i32] * 5 + [vp]
         lib.fused_lora_forward_launch.argtypes = product
         lib.fused_lora_bwd_dx_launch.argtypes = product
+        lib.fused_lora_int8_forward_launch.argtypes = int8_product
+        lib.fused_lora_int8_bwd_dx_launch.argtypes = int8_product
         lib.fused_lora_bwd_dab_launch.argtypes = (
             [vp, vp, vp, vp, i32, vp, vp, f32, vp, vp, vp] + [i32] * 5 + [vp]
         )
-        for fn in ("forward", "bwd_dx", "bwd_dab"):
-            getattr(lib, f"fused_lora_{fn}_launch").restype = i32
+        lib.dequant_matmul_launch.argtypes = [vp, vp, i64, i64, vp, vp] + [i32] * 4 + [vp]
+        for fn in ("fused_lora_forward", "fused_lora_bwd_dx", "fused_lora_bwd_dab",
+                   "fused_lora_int8_forward", "fused_lora_int8_bwd_dx", "dequant_matmul"):
+            getattr(lib, f"{fn}_launch").restype = i32
         lib.lora_matmul_dab_chunk.restype = i32
         lib.lora_matmul_error_string.argtypes = [i32]
         lib.lora_matmul_error_string.restype = ctypes.c_char_p
@@ -136,6 +165,20 @@ def _base_strides(w: torch.Tensor) -> Tuple[int, int]:
             f"contiguous (N, K) one; got shape {tuple(w.shape)}, strides {w.stride()}"
         )
     return w.stride(0), w.stride(1)
+
+
+def int8_base(q: torch.Tensor, qscale: torch.Tensor):
+    """``(q strides, contiguous (1, N) f32 qscale)`` of an int8 base: ``q``
+    int8 laid out as :func:`_base_strides` takes, ``qscale`` f32 with one
+    element per column of ``q``; anything else raises."""
+    if q.dtype != torch.int8:
+        raise ValueError(f"the int8 base codes must be int8, got {q.dtype}")
+    if qscale.dtype != torch.float32 or qscale.numel() != q.shape[-1] or qscale.device != q.device:
+        raise ValueError(
+            f"qscale must be float32 with one element per column of q {tuple(q.shape)} on "
+            f"{q.device}; got {qscale.dtype} {tuple(qscale.shape)} on {qscale.device}"
+        )
+    return _base_strides(q), qscale.detach().reshape(1, -1).contiguous()
 
 
 def _factor_shapes(w, a, b) -> Tuple[int, int, int]:
@@ -268,6 +311,64 @@ def fused_lora_bwd_dab(g, x, z, b, s: Scale = 1.0, u=None) -> Tuple[torch.Tensor
 fused_lora_bwd_dab.launches = 0
 
 
+def fused_lora_int8_forward(x, q, qscale, a, b, s: Scale = 1.0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`fused_lora_forward` over the int8 base ``q * qscale``.
+
+    A CPU ``x`` runs :func:`fused_lora_int8_forward_plain`; any other device
+    launches the int8 forward of ``csrc/lora_matmul.cu`` or raises."""
+    if x.device.type == "cpu":
+        return fused_lora_int8_forward_plain(x, q, qscale, a, b, s)
+    _on_cuda(x, q, a, b)
+    K, N, r = _factor_shapes(q, a, b)
+    M = x.shape[0]
+    x, a, b = _rows(x, (M, K), "x"), a.contiguous(), b.contiguous()
+    code = _dtype_code(x, a, b)
+    (qs0, qs1), qscale = int8_base(q, qscale)
+    lib = _kernel_library()
+    y = torch.empty((M, N), dtype=x.dtype, device=x.device)
+    z = torch.empty((M, r), dtype=torch.float32, device=x.device)
+    s_ptr, s_val, _keep = _scale_arg(s, x)
+    err = lib.fused_lora_int8_forward_launch(
+        ptr_arg(x), ptr_arg(q), qs0, qs1, ptr_arg(qscale), ptr_arg(a), ptr_arg(b), s_ptr, s_val,
+        ptr_arg(y), ptr_arg(z), M, K, N, r, code, stream_arg(x),
+    )
+    _raise_on_error(lib, err, "fused_lora_int8_forward")
+    fused_lora_int8_forward.launches += 1
+    return y, z
+
+
+fused_lora_int8_forward.launches = 0
+
+
+def fused_lora_int8_bwd_dx(g, q, qscale, a, b, s: Scale = 1.0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`fused_lora_bwd_dx` over the int8 base ``q * qscale``.
+
+    A CPU ``g`` runs :func:`fused_lora_int8_bwd_dx_plain`; any other device
+    launches the int8 dx kernel or raises."""
+    if g.device.type == "cpu":
+        return fused_lora_int8_bwd_dx_plain(g, q, qscale, a, b, s)
+    _on_cuda(g, q, a, b)
+    K, N, r = _factor_shapes(q, a, b)
+    M = g.shape[0]
+    g, a, b = _rows(g, (M, N), "g"), a.contiguous(), b.contiguous()
+    code = _dtype_code(g, a, b)
+    (qs0, qs1), qscale = int8_base(q, qscale)
+    lib = _kernel_library()
+    dx = torch.empty((M, K), dtype=g.dtype, device=g.device)
+    u = torch.empty((M, r), dtype=torch.float32, device=g.device)
+    s_ptr, s_val, _keep = _scale_arg(s, g)
+    err = lib.fused_lora_int8_bwd_dx_launch(
+        ptr_arg(g), ptr_arg(q), qs0, qs1, ptr_arg(qscale), ptr_arg(a), ptr_arg(b), s_ptr, s_val,
+        ptr_arg(dx), ptr_arg(u), M, K, N, r, code, stream_arg(g),
+    )
+    _raise_on_error(lib, err, "fused_lora_int8_bwd_dx")
+    fused_lora_int8_bwd_dx.launches += 1
+    return dx, u
+
+
+fused_lora_int8_bwd_dx.launches = 0
+
+
 class FusedLoRAMatmul(torch.autograd.Function):
     """``x2 @ W + ((x2 @ A) @ B) * s`` over ``(M, K)`` rows, whose forward
     and backward are the three wrappers above (kernels for CUDA tensors,
@@ -300,6 +401,55 @@ class FusedLoRAMatmul(torch.autograd.Function):
         return dx, None, da, db, ds
 
 
+class FusedLoRAMatmulInt8(torch.autograd.Function):
+    """``x2 @ (q * qscale) + ((x2 @ A) @ B) * s``: :class:`FusedLoRAMatmul`
+    over an int8 base (``_fused_int8_vjp``, ``pallas_lora_matmul.py:403-427``).
+    The forward and dx are the int8 wrappers; dA/dB reuse kernel 7, which
+    never reads the base; ``ds`` is the dense arm's.  ``dqscale = Σ_m g ⊙ (x
+    @ q)`` is plain PyTorch, computed only when asked for; ``q`` gets none."""
+
+    @staticmethod
+    def forward(ctx, x2, q, qscale, a, b, s):
+        y, z = fused_lora_int8_forward(x2, q, qscale, a, b, s)
+        ctx.s = None if isinstance(s, torch.Tensor) else s
+        ctx.save_for_backward(x2, q, qscale, a, b, z, *((s,) if ctx.s is None else ()))
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        x2, q, qscale, a, b, z, *rest = ctx.saved_tensors
+        s = rest[0] if rest else ctx.s
+        need_x, _, need_qscale, need_a, need_b, need_s = ctx.needs_input_grad
+        g = g.contiguous()
+        dx = dqscale = da = db = ds = u = None
+        if need_x:
+            dx, u = fused_lora_int8_bwd_dx(g, q, qscale, a, b, s)
+            dx = dx.to(x2.dtype)
+        if need_a or need_b:
+            da, db = fused_lora_bwd_dab(g, x2, z, b, s, u)
+            da, db = da.to(a.dtype), db.to(b.dtype)
+        if need_s:
+            ds = (g.float() * (z @ b.float())).sum().reshape(s.shape).to(s.dtype)
+        if need_qscale:
+            xq = torch.matmul(x2.float(), q.float())
+            dqscale = (g.float() * xq).sum(0).reshape(qscale.shape).to(qscale.dtype)
+        return dx, None, dqscale, da, db, ds
+
+
+def _check_composite(K: int, base: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> int:
+    """N of the composite over the logical ``(K, N)`` base, or raise."""
+    if base.ndim != 2 or K != base.shape[0]:
+        raise ValueError(f"contraction mismatch: x K={K} vs base {tuple(base.shape)}")
+    N = base.shape[1]
+    if a.ndim != 2 or b.ndim != 2 or a.shape[0] != K or b.shape[0] != a.shape[1] or b.shape[1] != N:
+        raise ValueError(
+            f"LoRA factor shapes {tuple(a.shape)} x {tuple(b.shape)} do not match base ({K}, {N})"
+        )
+    if not 0 < a.shape[1] <= MAX_RANK:
+        raise ValueError(f"LoRA rank {a.shape[1]} must be in 1..{MAX_RANK}")
+    return N
+
+
 def fused_lora_matmul(
     x: torch.Tensor, w: torch.Tensor, a: torch.Tensor, b: torch.Tensor, scale: Scale = 1.0
 ) -> torch.Tensor:
@@ -312,16 +462,32 @@ def fused_lora_matmul(
     rank up to :data:`MAX_RANK`: there is no tiling condition and no unfused
     fallback."""
     K = x.shape[-1]
-    if w.ndim != 2 or K != w.shape[0]:
-        raise ValueError(f"contraction mismatch: x K={K} vs base {tuple(w.shape)}")
-    N = w.shape[1]
-    if a.ndim != 2 or b.ndim != 2 or a.shape[0] != K or b.shape[0] != a.shape[1] or b.shape[1] != N:
-        raise ValueError(
-            f"LoRA factor shapes {tuple(a.shape)} x {tuple(b.shape)} do not match base ({K}, {N})"
-        )
-    if not 0 < a.shape[1] <= MAX_RANK:
-        raise ValueError(f"LoRA rank {a.shape[1]} must be in 1..{MAX_RANK}")
+    N = _check_composite(K, w, a, b)
     lead = x.shape[:-1]
     scale = scale if isinstance(scale, torch.Tensor) else float(scale)
     y = FusedLoRAMatmul.apply(x.reshape(-1, K), w.detach(), a, b, scale)
+    return y.reshape(*lead, N)
+
+
+def fused_lora_matmul_int8(
+    x: torch.Tensor,
+    q: torch.Tensor,
+    qscale: torch.Tensor,
+    a: torch.Tensor,
+    b: torch.Tensor,
+    scale: Scale = 1.0,
+) -> torch.Tensor:
+    """``x @ (q * qscale) + ((x @ A) @ B) * scale`` through
+    :class:`FusedLoRAMatmulInt8` (``fused_lora_matmul_int8``,
+    ``pallas_lora_matmul.py:497-524``).
+
+    ``q``: ``(K, N)`` int8 codes (contiguous or a transposed view);
+    ``qscale``: ``(1, N)`` f32.  Differentiable in x, a, b, a tensor scale
+    and ``qscale`` (its true gradient, as the JAX package gives it); ``q``
+    gets none.  Shapes as :func:`fused_lora_matmul`."""
+    K = x.shape[-1]
+    N = _check_composite(K, q, a, b)
+    lead = x.shape[:-1]
+    scale = scale if isinstance(scale, torch.Tensor) else float(scale)
+    y = FusedLoRAMatmulInt8.apply(x.reshape(-1, K), q, qscale, a, b, scale)
     return y.reshape(*lead, N)

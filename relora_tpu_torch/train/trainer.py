@@ -12,12 +12,21 @@ the optimizer reset on the same rule with ``cycle_length``
 record; :meth:`Trainer.fit` returns the result dict of the JAX trainer plus
 the port's counters and the records.
 
+``--warmed_up_model DIR`` grafts ``DIR/pytorch_model.bin`` into the freshly
+initialised model (``models/warm_start.py``) and takes the counters of
+``DIR/training_state.json`` when it exists, the schedule starting there
+(``relora_tpu/train/trainer.py:284-319``).  ``--quantize int8`` stores every
+LoRA projection's frozen base as int8 codes and scales: kernel 8 in each
+unfused projection, the int8 fused kernels under ``--lora_fused true``, and
+a dequantize-add-requantize merge.
+
 Options the port does not run yet raise ``NotImplementedError`` when set:
-checkpoints (``save_dir``, resume, autoresume), warm starts, loss-spike
-rollback, pruning, magnitude re-init, quantized LoRA, ``--lora_fused auto``,
-chunked loss, the ``wandb``/``watch``/``profile`` observability, a custom
-PRNG, and parallelism beyond one device.  ``--lora_fused true`` runs every
-LoRA projection through the fused kernels wherever dropout is not active.
+checkpoints (``save_dir``, resume, autoresume, a warm start from a
+checkpoint's ``state/``), loss-spike rollback, pruning, magnitude re-init,
+``--quantize nf4``, ``--lora_fused auto``, chunked loss, the
+``wandb``/``watch``/``profile`` observability, a custom PRNG, and
+parallelism beyond one device.  ``--lora_fused true`` runs every LoRA
+projection through the fused kernels wherever dropout is not active.
 
 Randomness comes from ``torch.Generator``\\ s seeded from ``--seed``: weights
 (``seed``), LoRA dropout (``seed + 1``, one seed per microbatch), the A
@@ -29,6 +38,7 @@ from __future__ import annotations
 
 import json
 import logging
+import os
 import time
 from typing import Iterator, Optional
 
@@ -43,6 +53,7 @@ from relora_tpu_torch.core.relora import LoraSpec, merge_and_reinit, set_trainab
 from relora_tpu_torch.core.schedules import make_schedule
 from relora_tpu_torch.models.llama import LlamaForCausalLM
 from relora_tpu_torch.models.params_util import init_params
+from relora_tpu_torch.models.warm_start import STATE_SUBDIR, load_warm_start, warm_start_counters
 from relora_tpu_torch.train.resilience import PreemptionGuard
 from relora_tpu_torch.train.step import TrainState, eval_step, make_train_step
 
@@ -63,12 +74,13 @@ def refuse_unported(cfg: TrainingConfig) -> None:
         "save_dir (checkpoints)": cfg.save_dir is not None,
         "resume_from": cfg.resume_from is not None,
         "autoresume": cfg.autoresume,
-        "warmed_up_model": cfg.warmed_up_model is not None,
+        "warmed_up_model with a state/ checkpoint": cfg.warmed_up_model is not None
+        and os.path.isdir(os.path.join(cfg.warmed_up_model, STATE_SUBDIR)),
         "dataset_path (HF datasets)": cfg.dataset_path is not None,
         "spike_threshold (loss-spike rollback)": cfg.spike_threshold > 0,
         "prune_sparsity / prune_nm (pruning)": cfg.prune_enabled,
         "reset_init='magnitude'": cfg.reset_init != "random",
-        "quantize": cfg.quantize is not None,
+        "quantize='nf4'": cfg.quantize == "nf4",
         "lora_fused='auto' (the LoRA cost model)": cfg.lora_fused == "auto",
         "loss_impl='chunked'": cfg.loss_impl != "dense",
         "wandb": cfg.wandb,
@@ -124,13 +136,16 @@ class Trainer:
         if model_cfg is None:
             model_cfg = load_model_config(cfg.model_config or cfg.model_name_or_path)
         self.model_cfg = model_cfg
-        need_linear_weight = cfg.relora is not None or cfg.force_keep_original
+        need_linear_weight = (
+            cfg.relora is not None or cfg.force_keep_original or cfg.warmed_up_model is not None
+        )
         self.lora_spec = (
             LoraSpec(
                 r=cfg.lora_r,
                 alpha=cfg.lora_alpha,
                 dropout=cfg.lora_dropout,
                 trainable_scaling=cfg.train_scaling,
+                quantize=cfg.quantize,
                 base_dtype=cfg.base_dtype,
                 lora_only=not need_linear_weight,
                 fused=cfg.lora_fused == "true",
@@ -140,6 +155,8 @@ class Trainer:
         )
         self.model = build_model(model_cfg, self.lora_spec, cfg, self.device)
         init_params(self.model, torch.Generator(device=self.device).manual_seed(cfg.seed))
+        if cfg.warmed_up_model:
+            load_warm_start(self.model, cfg.warmed_up_model)
         set_trainable(self.model)
         self.param_counts = split_param_counts(self.model)
         counts = self.param_counts
@@ -158,6 +175,13 @@ class Trainer:
         self.n_optimizer_resets = 0
         self.eval_batches = 0
         self._local_updates = 0
+        if cfg.warmed_up_model:
+            counters = warm_start_counters(cfg.warmed_up_model)
+            if counters:
+                self.update_step = counters.get("update_step", 0)
+                self.global_step = counters.get("global_step", 0)
+                self.tokens_seen = counters.get("tokens_seen", 0)
+        # the schedule runs over the remaining steps with a fresh first warmup
         self.scheduler_start_step = self.update_step
         self.schedule = make_schedule(
             cfg.scheduler,

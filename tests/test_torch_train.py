@@ -35,6 +35,8 @@ from relora_tpu_torch.config.training import TrainingConfig
 from relora_tpu_torch.core import relora
 from relora_tpu_torch.data.memmap import MemmapTokenWriter
 from relora_tpu_torch.models.convert import params_from_jax
+from relora_tpu_torch.models.llama import LlamaForCausalLM
+from relora_tpu_torch.models.params_util import init_params
 from relora_tpu_torch.train.trainer import Trainer
 
 pytestmark = pytest.mark.torch_port
@@ -126,21 +128,27 @@ def test_sigterm_stops_at_the_update_boundary(tmp_path):
 
 
 @pytest.mark.parametrize("flag,value", [
-    ("save_dir", "ckpt"), ("warmed_up_model", "."), ("spike_threshold", 3.0),
-    ("prune_sparsity", 0.5), ("quantize", "int8"), ("lora_fused", "auto"),
+    ("save_dir", "ckpt"), ("warmed_up_model", "state/"), ("spike_threshold", 3.0),
+    ("prune_sparsity", 0.5), ("quantize", "nf4"), ("lora_fused", "auto"),
     ("loss_impl", "chunked"), ("wandb", True), ("tp_size", 2),
 ])
 def test_unported_options_raise(tmp_path, flag, value):
+    """Each option raises; a warm start from a checkpoint directory (one
+    holding state/) does too, while a pytorch_model.bin one is ported."""
+    if flag == "warmed_up_model":
+        (tmp_path / "ckpt" / "state").mkdir(parents=True)
+        value = str(tmp_path / "ckpt")
     cfg = TrainingConfig(megatron_dataset_config=_data_config(tmp_path), dtype="float32",
                          device="cpu", **{**RECIPE, flag: value}).finalize()
     with pytest.raises(NotImplementedError, match="not ported"):
         Trainer(cfg, model_cfg=ModelConfig(**TINY))
 
 
-def _run_cli(tmp_path, extra=()):
+def _run_cli(tmp_path, extra=(), twin=("lora_matmul", "fused_lora_forward_plain")):
     """``python -m relora_tpu_torch.main --device cpu`` on a tiny Megatron
     corpus, in a process where importing jax, flax or relora_tpu fails;
-    returns the result dict and the number of fused forward twin calls."""
+    returns the result dict and the number of calls of ``twin`` (module of
+    ``relora_tpu_torch.ops``, function), the fused forward twin by default."""
     rng = np.random.default_rng(0)
     with MemmapTokenWriter(str(tmp_path / "corpus"), dtype=np.uint16) as w:
         for _ in range(120):
@@ -158,9 +166,9 @@ def _run_cli(tmp_path, extra=()):
         "import json, sys, runpy\n"
         "for name in ('jax', 'jaxlib', 'flax', 'relora_tpu'):\n"
         "    sys.modules[name] = None\n"
-        "import relora_tpu_torch.ops.lora_matmul as LM\n"
-        "calls, twin = [], LM.fused_lora_forward_plain\n"
-        "LM.fused_lora_forward_plain = lambda *a: calls.append(1) or twin(*a)\n"
+        f"import relora_tpu_torch.ops.{twin[0]} as M\n"
+        f"calls, twin = [], M.{twin[1]}\n"
+        f"M.{twin[1]} = lambda *a: calls.append(1) or twin(*a)\n"
         f"sys.argv = ['relora_tpu_torch.main'] + {args!r}\n"
         "runpy.run_module('relora_tpu_torch.main', run_name='__main__')\n"
         "print(len(calls))\n"
@@ -188,3 +196,17 @@ def test_cli_trains_fused_on_cpu_without_jax(tmp_path):
     result, fused_calls = _run_cli(tmp_path, ["--lora_fused", "true", "--lora_dropout", "0"])
     layers = TINY["num_hidden_layers"]
     assert fused_calls == 7 * layers * (2 * 6 + result["eval_batches"])
+
+
+def test_cli_trains_int8_warm_started_on_cpu_without_jax(tmp_path):
+    """``--quantize int8 --warmed_up_model DIR`` from a pytorch_model.bin of
+    seeded f32 weights: every projection's base product, in training and
+    eval, takes kernel 8's path (its plain twin on the CPU)."""
+    dense = LlamaForCausalLM(ModelConfig(**TINY))
+    init_params(dense, torch.Generator().manual_seed(7))
+    (tmp_path / "warm").mkdir()
+    torch.save({f"model.{k}" if k != "lm_head.weight" else k: v for k, v in dense.state_dict().items()},
+               tmp_path / "warm" / "pytorch_model.bin")
+    result, calls = _run_cli(tmp_path, ["--quantize", "int8", "--warmed_up_model",
+                                        str(tmp_path / "warm")], twin=("quant_matmul", "dequant_matmul_plain"))
+    assert calls == 7 * TINY["num_hidden_layers"] * (2 * 6 + result["eval_batches"])

@@ -11,11 +11,21 @@ device only.  Prints one JSON line: the timed run's median ms per update
 is the tracer's cost), the device's busy time and idle share of the profiled
 fit, and device time by kernel name (names cut to 80 characters, times of
 names that share those summed), largest first, with the shares of the
-flash kernels and of the fused LoRA kernels.  Extra training flags are
-appended to the train phase's, e.g. the fused-LoRA run:
+flash kernels and of ``lora_gemm_kernel``/``lora_dab_reduce_kernel``.  The
+GEMM kernel serves the fused LoRA kernels 4, 6, 7 and, over an int8 base,
+4-int8, 6-int8 and kernel 8, so the line also gives the timed run's launch
+count of every kernel wrapper: in an unfused int8 run the GEMM time is
+kernel 8's alone.  Extra training flags are appended to the train phase's,
+e.g. the fused-LoRA and the int8 runs:
 
     python3 tools/torch_train_profile.py
     python3 tools/torch_train_profile.py --lora_fused true --lora_dropout 0
+    python3 tools/torch_train_profile.py --quantize int8 --warmed_up_model build/warm
+    python3 tools/torch_train_profile.py --quantize int8 --warmed_up_model build/warm \
+        --lora_fused true --lora_dropout 0
+
+A ``--warmed_up_model`` directory without a ``pytorch_model.bin`` gets one
+first: ``chip_smoke.write_warm_start``'s seeded full-rank llama_250m (f32).
 
 Needs a CUDA card.  Busy time is the union of kernel intervals on the
 device, so overlapping streams are not counted twice.
@@ -59,6 +69,10 @@ def main() -> int:
 
     work = os.path.join(REPO, "build", "chip_smoke")
     os.makedirs(work, exist_ok=True)
+    if "--warmed_up_model" in sys.argv:
+        warm = sys.argv[sys.argv.index("--warmed_up_model") + 1]
+        if not os.path.exists(os.path.join(warm, "pytorch_model.bin")):
+            chip_smoke.write_warm_start(torch, warm, torch.device("cuda"))
     cfg = parse_train_args(
         chip_smoke.TRAIN_ARGS + sys.argv[1:] + ["--megatron_dataset_config", chip_smoke.write_corpus(work)]
     )
@@ -75,7 +89,11 @@ def main() -> int:
         return result
 
     run()  # warm-up: kernel build, cuBLAS handles, allocator
+    counters = chip_smoke._counters()
+    for c in counters.values():
+        c.launches = 0
     timed = run()
+    launches = {n: c.launches for n, c in counters.items()}
     prof = profile(activities=[ProfilerActivity.CUDA])
     traced = run(prof)
     intervals, by_name = [], {}
@@ -88,7 +106,7 @@ def main() -> int:
         raise SystemExit("torch_train_profile: the profiler traced no device time")
     busy = busy_seconds(intervals)
     flash_ms = sum(us for name, us in by_name.items() if "flash_" in name) / 1e3
-    lora_ms = sum(us for name, us in by_name.items() if "lora_gemm" in name or "lora_dab" in name) / 1e3
+    gemm_ms = sum(us for name, us in by_name.items() if "lora_gemm" in name or "lora_dab" in name) / 1e3
     steady = sorted(r["update_seconds"] for r in timed["records"][1:])
     ms = steady[len(steady) // 2] * 1e3
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:15]
@@ -107,8 +125,9 @@ def main() -> int:
         "device_idle_share": 1.0 - busy / traced["fit_seconds"],
         "flash_kernels_ms": flash_ms,
         "flash_share_of_busy": flash_ms / 1e3 / busy,
-        "fused_lora_kernels_ms": lora_ms,
-        "fused_lora_share_of_busy": lora_ms / 1e3 / busy,
+        "lora_gemm_kernels_ms": gemm_ms,
+        "lora_gemm_share_of_busy": gemm_ms / 1e3 / busy,
+        "launches": launches,
         "kernels_ms": {name: us / 1e3 for name, us in top},
     }))
     return 0
