@@ -80,9 +80,34 @@ Phases, in order; any failure raises and the script exits non-zero:
                gradient norm; then one int8 merge on the card against an f64
                oracle, to the requant rule.
 
+15. kernels-5 — kernel 5 (the grouped multi-tenant LoRA forward) against its
+               twin at bf16 and f32: M in {8, 64, 72} (decode rows, a prefill
+               chunk, a packed step) x the three projection shapes, r=128,
+               S=4 slots, a mixed idx that includes slot 0, W the transposed
+               view; and a ragged M=5, K=72, N=100, r=8, S=3; then each M and
+               shape timed beside its twin, the gathered chain (cuBLAS x @ W
+               plus the gathered bmm composite) and its bound.
+16. adapters  — a seeded llama_250m base (LoRA r=128) and three seeded tenant
+               adapters (tA, tB, tC; alpha 32, 64, 16) written under
+               ``build/chip_smoke/`` by ``train/checkpoint.save_checkpoint``;
+               then the 16 prompts drained by ``serve_cli --checkpoint BASE
+               --no-merge --adapter-dir D --adapters tA,tB`` (base rows
+               through kernel 5), round-robin over [base, tA, tB, tC] through
+               the scheduler API with 4 slots, sequential and packed, and
+               with 3 slots, so adapters load from disk and evict mid-traffic.
+               Each drain fails unless kernel 5 launched 7 x 24 times per
+               forward; then tenant rows must differ from the base row on a
+               shared prompt, and tB after tA on one prompt must equal tB
+               alone (the prefix cache is keyed per adapter).
+17. f32-adapters — one ``decode_paged`` and one ``step_paged`` step of a
+               slotted llama_250m at f32 with a mixed ``adapter_idx``, the
+               kernel arm (kernel 5, the paged kernels) against the plain arm
+               (the gathered composite, naive attention), compared on logits.
+
 Output: a forward+backward timing line, one line per drain, a train line, a
 LoRA timing line, a fused-train line, an int8 timing line, the int8 train
-lines, a ``{"kernels": [...]}`` line, the card's ``nvidia-smi
+lines, a grouped timing line and one line per adapter drain, a
+``{"kernels": [...]}`` line, the card's ``nvidia-smi
 --query-gpu=name,power.limit`` line, and last ``{"ok": true, "device":
 {...}}``.  Without CUDA, or without the package beside it, it exits non-zero
 and prints no result.
@@ -1226,6 +1251,369 @@ def f32_int8(torch, device, warm):
         raise AssertionError("f32-int8: the int8 merge breaks the requant rule against f64")
 
 
+# kernel 5 at the adapter drains' shapes: M rows per call (decode rows, a
+# prefill chunk, a packed step), llama_250m's projections, r and slots as
+# served
+GROUPED_MS = (BATCH, 64, BATCH + 64)
+ADAPTER_R, ADAPTER_SLOTS = 128, 4
+TENANT_ALPHAS = {"tA": 32.0, "tB": 64.0, "tC": 16.0}
+
+
+def make_grouped_case(torch, device, M, K, N, r, S, dtype, seed):
+    """x, W (the (N, K) weight's transposed view), stacked A and B with slot
+    0 the zero identity adapter, per-slot scales and a mixed idx."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    dt = torch.float32 if dtype == "f32" else torch.bfloat16
+    x = torch.randn((M, K), generator=g, device=device).to(dt)
+    w_nk = (torch.randn((N, K), generator=g, device=device) * 0.02).to(dt)
+    a = ((torch.rand((S, K, r), generator=g, device=device) * 2 - 1) / K**0.5).to(dt)
+    b = (torch.randn((S, r, N), generator=g, device=device) * 0.05).to(dt)
+    a[0], b[0] = 0, 0
+    s = torch.tensor([0.25 * (i + 1) for i in range(S)], device=device)
+    idx = (torch.arange(M, device=device) * 5 % S).to(torch.int32)
+    return x, w_nk.t(), a, b, s, idx
+
+
+def grouped_bound(M, K, N, r, used, e):
+    """The two terms of the least time on an H100 SXM, in ms: x, W, the
+    A and B of each slot the rows use, idx and y, each once, over 3.35 TB/s,
+    and 2M(KN + Kr + rN) over the bf16 tensor-core peak."""
+    bytes_ = e * (M * K + K * N + used * (K * r + r * N) + M * N) + 4 * M + 4 * used
+    return bytes_ / HBM_BYTES_PER_S * 1e3, 2 * M * (K * N + K * r + r * N) / BF16_FLOPS_PER_S * 1e3
+
+
+def check_grouped_kernels(torch, device):
+    """Phase kernels-5: kernel 5 against its twin on the card, then timings
+    per M and llama_250m shape beside the twin, the gathered chain and the
+    bound."""
+    from relora_tpu_torch.core.relora import full_f32_matmul
+    from relora_tpu_torch.ops import lora_matmul as LM
+    from relora_tpu_torch.ops.lora_dispatch import lora_matmul_grouped
+
+    worst = 0.0
+    cases = [(M, K, N, ADAPTER_R, ADAPTER_SLOTS, dt) for M in GROUPED_MS for K, N, _ in LORA_SHAPES
+             for dt in ("bf16", "f32")]
+    cases += [(5, 72, 100, 8, 3, dt) for dt in ("bf16", "f32")]
+    with full_f32_matmul(), torch.no_grad():
+        for i, (M, K, N, r, S, dtype) in enumerate(cases):
+            x, w, a, b, s, idx = make_grouped_case(torch, device, M, K, N, r, S, dtype, seed=71 + i)
+            got = LM.grouped_lora_matmul(x, w, a, b, s, idx)
+            want = LM.grouped_lora_matmul_plain(x, w, a, b, s, idx)
+            torch.cuda.synchronize()
+            err, rel, finite = _rel_err([(got, want)])
+            ok = finite and rel <= LORA_TOL[dtype]
+            print(f"kernel-check grouped_lora_matmul M={M} K={K} N={N} r={r} S={S} {dtype} "
+                  f"max_abs_err={err:.3e} rel_err={rel:.3e} tol={LORA_TOL[dtype]:g} "
+                  f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"grouped_lora_matmul disagrees with its twin ({M, K, N, r, S, dtype})")
+            if dtype == "bf16" and r == ADAPTER_R:
+                worst = max(worst, err)
+
+    keys = ("ms", "plain_ms", "library_ms", "bound_ms", "t_bytes", "t_ops")
+    per_layer = {M: dict.fromkeys(keys, 0.0) for M in GROUPED_MS}
+    per_shape = []
+    with torch.no_grad():
+        for M in GROUPED_MS:
+            for K, N, count in LORA_SHAPES:
+                args = make_grouped_case(torch, device, M, K, N, ADAPTER_R, ADAPTER_SLOTS, "bf16", seed=99)
+                used = len(set(args[-1].tolist()))
+                t_bytes, t_ops = grouped_bound(M, K, N, ADAPTER_R, used, 2)
+                times = (time_ms(torch, lambda: LM.grouped_lora_matmul(*args)),
+                         time_ms(torch, lambda: LM.grouped_lora_matmul_plain(*args)),
+                         time_ms(torch, lambda: lora_matmul_grouped(*args, arm="gathered")))
+                per_shape.append({"M": M, "K": K, "N": N, "r": ADAPTER_R, "slots_used": used,
+                                  "per_layer": count, "ms": times[0], "plain_ms": times[1],
+                                  "chain_ms": times[2], "bound_ms": max(t_bytes, t_ops),
+                                  "bound_by": "bytes" if t_bytes >= t_ops else "operations"})
+                for key, v in zip(keys, times + (max(t_bytes, t_ops), t_bytes, t_ops)):
+                    per_layer[M][key] += count * v
+    print(json.dumps({"grouped_timings": "bf16, ms per call; chain = cuBLAS x @ W plus the "
+                      "gathered bmm composite (the gathered arm), timed only",
+                      "shapes": per_shape,
+                      "per_layer": {str(M): row for M, row in per_layer.items()}}))
+    # the row: one decoder layer's seven projections at the decode shape
+    # (M = 8 rows, most of the drains' calls); no single PyTorch call computes
+    # the function, so library_ms is the gathered chain
+    row = per_layer[BATCH]
+    return [{
+        "name": "grouped_lora_matmul",
+        "route": "cuda",
+        "source": "relora_tpu_torch/csrc/lora_matmul.cu",
+        "replaces": "relora_tpu/ops/pallas_lora_matmul.py:161",
+        "launches": 0,
+        "max_abs_err": worst,
+        "ms": row["ms"],
+        "plain_ms": row["plain_ms"],
+        "bound_ms": row["bound_ms"],
+        "bound_by": "bytes" if row["t_bytes"] >= row["t_ops"] else "operations",
+        "library_ms": row["library_ms"],
+    }]
+
+
+def write_adapter_checkpoints(torch, work, device, model_config="llama_250m"):
+    """A seeded ``model_config`` base with LoRA r=128 (f32, B = 0, as a
+    ReLoRA checkpoint right after a merge) and three seeded tenant adapters
+    (their factors only, alpha per TENANT_ALPHAS), each written by
+    ``train/checkpoint.save_checkpoint``; returns (base dir, adapter dir)."""
+    import shutil
+
+    from relora_tpu_torch.config.model import load_model_config
+    from relora_tpu_torch.core.relora import LoraSpec, kaiming_uniform
+    from relora_tpu_torch.models.llama import LlamaForCausalLM
+    from relora_tpu_torch.models.params_util import init_params
+    from relora_tpu_torch.serve.adapters import extract_lora_factors
+    from relora_tpu_torch.train.checkpoint import save_checkpoint
+
+    root = os.path.join(work, f"adapters_{model_config}")
+    shutil.rmtree(root, ignore_errors=True)
+    spec = LoraSpec(r=ADAPTER_R, alpha=32.0)
+    with torch.device(device):
+        model = LlamaForCausalLM(load_model_config(model_config), lora=spec)
+    gen = torch.Generator(device=device).manual_seed(21)
+    init_params(model, gen)
+    base = save_checkpoint(os.path.join(root, "base"), 0, model.state_dict(), {"update_step": 0},
+                           lora_spec=spec)
+    tenants = os.path.join(root, "tenants")
+    for i, (name, alpha) in enumerate(TENANT_ALPHAS.items()):
+        factors = {}
+        for key, p in extract_lora_factors(model.state_dict()).items():
+            if key.endswith("lora_a"):
+                factors[key] = kaiming_uniform(p.shape, gen, device)
+            else:
+                factors[key] = torch.randn(p.shape, generator=gen, device=device) * 0.05
+        path = save_checkpoint(tenants, i, factors, {"update_step": 0},
+                               lora_spec=LoraSpec(r=ADAPTER_R, alpha=alpha))
+        os.rename(path, os.path.join(tenants, name))
+    del model
+    return base, tenants
+
+
+def read_prompts(path):
+    with open(path) as f:
+        return [[int(t) for t in line.split()] for line in f if line.strip()]
+
+
+def tenant_engine(torch, base, slots, device, dtype="bf16"):
+    """The serving engine of the adapter drains: llama_250m from the base
+    checkpoint, unmerged, with ``slots`` adapter slots, the CLI's pool."""
+    from relora_tpu_torch.config.model import load_model_config
+    from relora_tpu_torch.serve.engine import InferenceEngine, compute_dtype
+    from relora_tpu_torch.train.checkpoint import load_lora_spec, restore_params_host
+
+    cfg = load_model_config("llama_250m")
+    cache = cfg.max_sequence_length
+    return InferenceEngine(cfg, restore_params_host(base), cache_size=cache, dtype=compute_dtype(dtype),
+                           page_size=PAGE, num_pages=BATCH * (cache // PAGE) + 1, chunk_size=64,
+                           token_budget=BATCH + 64, device=device, lora=load_lora_spec(base),
+                           adapter_slots=slots)
+
+
+def tenant_drain(torch, engine, registry, requests, packed=False, max_batch=BATCH):
+    """Drain ``requests`` through the scheduler API; returns (completions,
+    seconds ending in a device synchronize)."""
+    from relora_tpu_torch.serve.scheduler import PagedContinuousBatchingScheduler
+
+    sched = PagedContinuousBatchingScheduler(
+        engine, max_batch=max_batch, eos_id=engine.config.eos_token_id, seed=0, packed=packed,
+        adapter_registry=registry,
+    )
+    t0 = time.perf_counter()
+    completions = sched.run(requests)
+    torch.cuda.synchronize()
+    return completions, time.perf_counter() - t0, sched
+
+
+def tenant_requests(prompts, names, max_new=64):
+    from relora_tpu_torch.serve.scheduler import Request
+
+    return [Request(uid=i, prompt=p, max_new_tokens=max_new, adapter=names[i % len(names)])
+            for i, p in enumerate(prompts)]
+
+
+class ForwardCount:
+    """Counts the serving engine's model forwards while it is entered."""
+
+    def __enter__(self):
+        from relora_tpu_torch.serve.engine import InferenceEngine
+
+        self.cls, self.real, self.n = InferenceEngine, InferenceEngine._forward, 0
+
+        def counted(engine, *args, **kwargs):
+            self.n += 1
+            return self.real(engine, *args, **kwargs)
+
+        InferenceEngine._forward = counted
+        return self
+
+    def __exit__(self, *exc):
+        self.cls._forward = self.real
+
+
+def adapter_drains(torch, device, prompts_path, base, tenants):
+    """Phase adapters: the CLI drain, the mixed-tenant drains (sequential,
+    packed, under slot contention), the tenant and prefix-isolation probes;
+    returns kernel 5's launches over the drains."""
+    from relora_tpu_torch import serve_cli
+    from relora_tpu_torch.config.model import load_model_config
+    from relora_tpu_torch.ops import lora_matmul as LM
+    from relora_tpu_torch.serve.adapters import AdapterRegistry
+
+    layers = load_model_config("llama_250m").num_hidden_layers
+    prompts = read_prompts(prompts_path)
+    mix = [None] + list(TENANT_ALPHAS)
+    total = 0
+
+    def drained(label, run, **extra):
+        nonlocal total
+        LM.grouped_lora_matmul.launches = 0
+        with ForwardCount() as forwards:
+            completions, seconds = run()[:2]
+        launches = LM.grouped_lora_matmul.launches
+        tokens = [c.tokens for c in completions.values()]
+        n = sum(len(t) for t in tokens)
+        line = {"drain": label, "requests": len(tokens), "tokens": n, "seconds": seconds,
+                "tokens_per_s": n / seconds, "forwards": forwards.n,
+                "launches": {"grouped_lora_matmul": launches}, **extra}
+        print(json.dumps(line))
+        if len(tokens) != len(prompts) or not all(1 <= len(t) <= 64 for t in tokens):
+            raise AssertionError(f"drain {label}: malformed completions")
+        if not all(0 <= tok < 32100 for t in tokens for tok in t):
+            raise AssertionError(f"drain {label}: token id out of the vocabulary")
+        if forwards.n == 0 or launches != 7 * layers * forwards.n:
+            raise AssertionError(f"drain {label}: kernel 5 launched {launches} times over "
+                                 f"{forwards.n} forwards, expected 7 x {layers} per forward")
+        total += launches
+
+    drained("adapters_cli", lambda: serve_cli.run([
+        "--model_config", "llama_250m", "--checkpoint", base, "--no-merge", "--adapter-dir",
+        tenants, "--adapters", "tA,tB", "--paged", "--dtype", "bf16", "--max-batch", str(BATCH),
+        "--max-new-tokens", "64", "--input-file", prompts_path]))
+
+    engine = tenant_engine(torch, base, ADAPTER_SLOTS, device)
+    registry = AdapterRegistry(tenants, ADAPTER_SLOTS, expected_r=ADAPTER_R, writer=engine.adapter_writer())
+    requests = tenant_requests(prompts, mix)
+    for packed in (False, True):
+        drained("tenants_packed" if packed else "tenants",
+                lambda: tenant_drain(torch, engine, registry, requests, packed), adapters=mix)
+
+    # every tenant steers: its row differs from the base row on one prompt
+    probe = tenant_requests([prompts[0]] * len(mix), mix, max_new=16)
+    done = tenant_drain(torch, engine, registry, probe)[0]
+    steered = {name: done[i].tokens != done[0].tokens for i, name in enumerate(mix) if name}
+    # tB after tA on one prompt equals tB alone: tA's prefix pages are not
+    # tB's; a tenant's own repeat does hit them
+    def alone(names):
+        got = tenant_drain(torch, engine, registry, tenant_requests([prompts[1]] * len(names), names,
+                                                                    max_new=16), max_batch=1)
+        return [got[0][i].tokens for i in range(len(names))], got[2].prefix_cache.hits
+
+    (_, b_after), hits_ab = alone(["tA", "tB"])
+    (b_alone,), _ = alone(["tB"])
+    _, hits_aa = alone(["tA", "tA"])
+    probe_line = {"tenant_probe": steered, "prompt_tokens": len(prompts[1]),
+                  "tB_after_tA_equals_tB_alone": b_after == b_alone, "prefix_hits_tA_tB": hits_ab,
+                  "prefix_hits_tA_tA": hits_aa}
+    print(json.dumps(probe_line))
+    if not all(steered.values()):
+        raise AssertionError(f"adapters: a tenant decoded the base's tokens: {steered}")
+    if b_after != b_alone or hits_ab != 0 or hits_aa != 1:
+        raise AssertionError(f"adapters: prefix isolation failed: {probe_line}")
+    del engine, registry
+    torch.cuda.empty_cache()
+
+    engine = tenant_engine(torch, base, 3, device)
+    registry = AdapterRegistry(tenants, 3, expected_r=ADAPTER_R, writer=engine.adapter_writer())
+    drained("tenants_contention", lambda: tenant_drain(torch, engine, registry, requests),
+            adapters=mix, slots=3)
+    stats = registry.stats()
+    print(json.dumps({"contention_registry": stats}))
+    if stats["evictions_total"] < 1 or stats["loads_total"] <= len(TENANT_ALPHAS):
+        raise AssertionError(f"contention drain: expected loads and evictions mid-traffic, got {stats}")
+    return total
+
+
+def f32_adapters(torch, device, tenants):
+    """Phase f32-adapters: decode_paged and step_paged of a slotted
+    llama_250m at f32, the kernel arm against the plain arm from identical
+    pools, rows on mixed adapter slots; logits compared."""
+    import numpy as np
+
+    from relora_tpu_torch.config.model import load_model_config
+    from relora_tpu_torch.core.relora import LoraSpec
+    from relora_tpu_torch.models.llama import LlamaForCausalLM
+    from relora_tpu_torch.models.lora import LoRALinear
+    from relora_tpu_torch.models.params_util import init_params
+    from relora_tpu_torch.ops import lora_matmul as LM
+    from relora_tpu_torch.serve.adapters import default_loader
+    from relora_tpu_torch.serve.engine import InferenceEngine
+
+    cfg = load_model_config("llama_250m")
+    spec = LoraSpec(r=ADAPTER_R, alpha=32.0)
+    with torch.device(device):
+        model = LlamaForCausalLM(cfg, lora=spec)
+    init_params(model, torch.Generator(device=device).manual_seed(1))
+    W = cfg.max_sequence_length // PAGE
+    engine = InferenceEngine(cfg, model.state_dict(), cache_size=cfg.max_sequence_length,
+                             page_size=PAGE, num_pages=(BATCH + 1) * W + 1, chunk_size=64,
+                             token_budget=BATCH + 64, device=device, lora=spec,
+                             adapter_slots=ADAPTER_SLOTS)
+    del model
+    for slot, name in enumerate(TENANT_ALPHAS, 1):
+        engine.write_adapter_slot(slot, *default_loader(os.path.join(tenants, name), ADAPTER_R))
+    modules = [m for m in engine.model.modules() if isinstance(m, LoRALinear) and m.lora is not None]
+    rng = np.random.default_rng(4)
+    lengths = rng.integers(32, 513, BATCH)
+    slots = (np.arange(BATCH) % ADAPTER_SLOTS).astype(np.int32)
+    tables = (np.arange(BATCH * W).reshape(BATCH, W) + 1).astype(np.int32)
+    pool = engine.init_pool()
+    for row, L in enumerate(lengths):
+        prompt = rng.integers(2, cfg.vocab_size, L)
+        for start in range(0, L, 64):
+            ids = np.zeros((1, 64), np.int32)
+            part = prompt[start : start + 64]
+            ids[0, : len(part)] = part
+            _, pool = engine.prefill_chunk(ids, start, pool, tables[row : row + 1],
+                                           adapter_idx=[slots[row]])
+
+    def both(step):
+        out = {}
+        for arm, attention, grouped in (("kernel", "auto", "auto"), ("plain", "naive", "gathered")):
+            engine.model.attention_arm = attention
+            for m in modules:
+                m.grouped_arm = grouped
+            pool_copy = [{k: t.clone() for k, t in layer.items()} for layer in pool]
+            n0 = LM.grouped_lora_matmul.launches
+            out[arm] = step(pool_copy).float()
+            if (LM.grouped_lora_matmul.launches > n0) != (arm == "kernel"):
+                raise AssertionError(f"f32-adapters: the {arm} arm took the wrong grouped path")
+        engine.model.attention_arm = "auto"
+        for m in modules:
+            m.grouped_arm = "auto"
+        torch.cuda.synchronize()
+        return (out["kernel"] - out["plain"]).abs().max().item(), out["kernel"]
+
+    token = rng.integers(2, cfg.vocab_size, (BATCH, 1)).astype(np.int32)
+    err_d, logits = both(lambda p: engine.decode_paged(p, token, lengths[:, None], tables, adapter_idx=slots)[0])
+    ptables = np.zeros((BATCH + 2, W + 1), np.int32)
+    ptables[:BATCH, :W] = tables
+    ptables[BATCH, :W] = np.arange(W) + 1 + BATCH * W
+    n_new = 64 - 8
+    ids = np.concatenate([token[:, 0], rng.integers(2, cfg.vocab_size, n_new), np.zeros(8, int)])
+    positions = np.concatenate([lengths, np.arange(n_new), np.full(8, cfg.max_sequence_length)])
+    row_map = np.array(list(range(BATCH)) + [BATCH] * n_new + [BATCH + 1] * 8, np.int32)
+    adapter_idx = np.concatenate([slots, np.full(n_new, 2), np.zeros(8)]).astype(np.int32)
+    err_p, plogits = both(lambda p: engine.step_paged(
+        p, ids[None].astype(np.int32), positions[None].astype(np.int32), ptables, row_map,
+        adapter_idx=adapter_idx)[0])
+    for name, err, out in (("decode_paged", err_d, logits), ("step_paged", err_p, plogits)):
+        ok = bool(torch.isfinite(out).all()) and err <= LOGIT_TOL
+        print(f"f32-adapters {name} shape={tuple(out.shape)} slots={slots.tolist()} "
+              f"max_abs_err={err:.3e} tol={LOGIT_TOL:g} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"f32-adapters {name}: kernel arm and plain arm disagree")
+
+
 def main() -> int:
     import torch
 
@@ -1287,6 +1675,15 @@ def main() -> int:
     rows += int8_rows
     torch.cuda.empty_cache()
     f32_int8(torch, device, warm)
+    torch.cuda.empty_cache()
+    grouped_rows = check_grouped_kernels(torch, device)
+    torch.cuda.empty_cache()
+    base, tenants = write_adapter_checkpoints(torch, work, device)
+    torch.cuda.empty_cache()
+    grouped_rows[0]["launches"] = adapter_drains(torch, device, prompts, base, tenants)
+    rows += grouped_rows
+    torch.cuda.empty_cache()
+    f32_adapters(torch, device, tenants)
 
     print(json.dumps({"kernels": rows}))
     smi = subprocess.run(

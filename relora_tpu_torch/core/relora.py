@@ -37,13 +37,18 @@ INT8_LEAVES = ("weight_q", "weight_scale")
 
 @dataclass(frozen=True)
 class LoraSpec:
-    """Static LoRA hyperparameters (``relora_tpu/core/relora.py:35``).
+    """Static LoRA hyperparameters (``relora_tpu/core/relora.py:35``), with
+    the same fields, so a ``relora_config.json`` sidecar written by either
+    package loads into either.
 
-    ``quantize="nf4"``, ``fused="auto"`` and ``num_slots`` are accepted for
-    parity and raise where a module would use them: those paths are not
-    ported yet.  ``quantize="int8"`` stores each frozen base as int8 codes
-    and scales; ``fused=True`` routes each projection through the fused LoRA
-    kernels."""
+    ``quantize="nf4"`` and ``fused="auto"`` are accepted for parity and
+    raise where a module would use them: those paths are not ported yet.
+    ``quantize="int8"`` stores each frozen base as int8 codes and scales;
+    ``fused=True`` routes each projection through the fused LoRA kernels;
+    ``num_slots > 0`` stacks the factors as multi-tenant adapter slots
+    served through the grouped kernel.  ``use_double_quant`` (nf4 only) is
+    carried for the sidecar; ``weights_static`` is the serving hint the
+    decode model sets."""
 
     r: int
     alpha: float = 32.0
@@ -51,8 +56,10 @@ class LoraSpec:
     trainable_scaling: bool = False
     quantize: Optional[str] = None
     base_dtype: Optional[str] = None  # None (f32 master) | "bf16"
+    use_double_quant: bool = True
     lora_only: bool = False
     fused: Union[bool, str] = False
+    weights_static: bool = False
     num_slots: int = 0
 
     def __post_init__(self):
@@ -66,6 +73,16 @@ class LoraSpec:
             raise ValueError(f"fused must be True, False or 'auto', got {self.fused!r}")
         if self.num_slots < 0:
             raise ValueError(f"num_slots must be >= 0, got {self.num_slots}")
+        if self.num_slots > 0 and self.trainable_scaling:
+            raise ValueError(
+                "num_slots > 0 is a serving-only layout; trainable_scaling has no "
+                "stacked equivalent (per-slot scales come from each adapter's sidecar)"
+            )
+        if self.num_slots > 0 and self.quantize:
+            raise ValueError(
+                "num_slots > 0 requires a dense base (the grouped kernel does not "
+                "read quantized bases); drop quantize for multi-tenant serving"
+            )
 
     @property
     def scale(self) -> float:
@@ -194,3 +211,37 @@ def merge_and_reinit(
         if spec.trainable_scaling and getattr(module, "lora_s", None) is not None:
             module.lora_s.zero_()
     return model
+
+
+@torch.no_grad()
+def merged_params(params: Dict[str, torch.Tensor], spec: LoraSpec) -> Dict[str, torch.Tensor]:
+    """Merge without reinit (``relora_tpu/core/relora.py:335-375``) over a
+    flat state dict: every module with ``lora_a`` and ``lora_b`` gets
+    ``weight + (A @ B * scale)ᵀ`` in f32 with TF32 off, cast back to the
+    weight's dtype; an int8 base (``weight_q``, ``weight_scale``) becomes a
+    dequantized f32 ``weight`` plus the delta.  LoRA leaves are dropped, so
+    the result loads into a model without LoRA.  A state dict without
+    factors (an already merged export that kept its sidecar) passes
+    through."""
+    out = {k: v for k, v in params.items() if not is_lora_name(k)}
+    for key in params:
+        if not key.endswith(".lora_a"):
+            continue
+        prefix = key[: -len("lora_a")]
+        if prefix + "lora_b" not in params:
+            continue
+        a, b = params[key].float(), params[prefix + "lora_b"].float()
+        with full_f32_matmul():
+            delta = torch.matmul(a, b)
+        if spec.trainable_scaling and prefix + "lora_s" in params:
+            delta = delta * torch.tanh(params[prefix + "lora_s"].float())
+        else:
+            delta = delta * spec.scale
+        if prefix + "weight_q" in params:
+            out.pop(prefix + "weight_q")
+            scale = out.pop(prefix + "weight_scale")
+            out[prefix + "weight"] = dequantize_int8(params[prefix + "weight_q"], scale) + delta.t()
+        else:
+            weight = params[prefix + "weight"]
+            out[prefix + "weight"] = (weight.float() + delta.t()).to(weight.dtype)
+    return out

@@ -1,5 +1,5 @@
-// The fused LoRA composite y = x@W + ((x@A)@B)*s and its backward, and the
-// int8 dequant matmul, for sm_90a.
+// The fused LoRA composite y = x@W + ((x@A)@B)*s and its backward, its
+// grouped multi-tenant forward, and the int8 dequant matmul, for sm_90a.
 //
 // Replaces the TPU kernels of relora_tpu/ops/pallas_lora_matmul.py and
 // relora_tpu/ops/pallas_quant_matmul.py:
@@ -21,6 +21,10 @@
 //   dequant_matmul_launch           kernel 8, pallas_quant_matmul.py _pallas_forward
 //                                   (:46) -> :49 (_dequant_matmul_kernel :35):
 //                                   y = x @ (q * scale) in x's dtype
+//   grouped_lora_forward_launch     kernel 5, _grouped_forward (:161) -> :180
+//                                   (_grouped_lora_kernel :142): y[m] = x[m]@W +
+//                                   ((x[m]@A[idx[m]])@B[idx[m]])*s[idx[m]] in x's
+//                                   dtype, one adapter slot per row; inference only
 //
 // x (M, K), g (M, N), A (K, r) and B (r, N) are row-major; W is the logical
 // (K, N) base with any element strides (the port passes the (N, K) weight's
@@ -72,6 +76,23 @@
 // by operations too; the int8 base saves bytes that do not bound it here.
 // These kernels use the f32 CUDA cores (67 TFLOP/s peak), so all are far
 // from that bound by construction.
+//
+// Kernel 5 (grouped).  Multi-tenant serving stacks every adapter as slabs
+// A (S, K, r), B (S, r, N), s (S,) f32, and each row m of a batch names its
+// slot idx[m] (int32, read on the device).  The TPU kernel steers its DMAs by
+// the prefetched idx so that no gathered A[idx] / B[idx] copy is written; here
+// too each row reads its own slot's factors in place, and z is computed once
+// per row, not once per N stripe as the TPU grid (M, N/bn) does.  Two launches:
+//   z:  part[c, m, :] = x[m, chunk c] @ A[idx[m]][chunk c], chunks of 256 rows
+//       of K, so that even M = 8 decode rows spread over many blocks;
+//   y:  lora_gemm_kernel's tiling: x @ W with one W tile per block for all its
+//       rows, then, for each slot present among the block's rows, z (summed
+//       over the chunks in order) of that slot's rows times s * B[slot]; a
+//       slot no row of the block uses costs nothing, a used one is read once.
+// Bound: at serving shapes (M <= 72) the bytes of W and of the distinct slots'
+// factors dominate (2M(KN + Kr + rN) flops over ~2KN bytes is M flops per byte,
+// far below the ~295 balance point), so it is bound by bytes; the f32 FMA
+// tiles at M <= 72 leave most SMs idle (a 64 x 64 tile grid of N / 64 blocks).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -82,6 +103,7 @@ namespace {
 constexpr int kThreads = 256;  // 16 x 16 threads
 constexpr int kBK = 16;        // contraction depth of one staged slice
 constexpr int kChunk = 512;    // rows of M per dA/dB partial
+constexpr int kZChunk = 256;   // rows of K per partial of kernel 5's z
 
 enum { kF32 = 0, kBF16 = 1, kI8 = 2 };
 
@@ -112,6 +134,63 @@ __device__ __forceinline__ float load(const Mat& m, long long i, long long j) {
   if (m.type == kI8)
     return static_cast<float>(static_cast<const int8_t*>(m.p)[off]) * m.sc[i * m.c0 + j * m.c1];
   return static_cast<const float*>(m.p)[off];
+}
+
+// acc += ps^T qs over one staged kBK-deep slice: the thread owns rows ty*4 +
+// 64*gi + {0..3} and columns tx*4 + 64*gj + {0..3}, so each quarter-warp reads
+// 128 contiguous bytes, free of bank conflicts
+template <int BM, int BN>
+__device__ __forceinline__ void tile_fma(const float (&ps)[kBK][BM + 4],
+                                         const float (&qs)[kBK][BN + 4],
+                                         float (&acc)[BM / 16][BN / 16], int tx, int ty) {
+  constexpr int TM = BM / 16, TN = BN / 16;
+#pragma unroll
+  for (int kk = 0; kk < kBK; ++kk) {
+    float pa[TM], qb[TN];
+#pragma unroll
+    for (int gi = 0; gi < TM / 4; ++gi) {
+      const float4 v = *reinterpret_cast<const float4*>(&ps[kk][gi * 64 + ty * 4]);
+      pa[gi * 4 + 0] = v.x;
+      pa[gi * 4 + 1] = v.y;
+      pa[gi * 4 + 2] = v.z;
+      pa[gi * 4 + 3] = v.w;
+    }
+#pragma unroll
+    for (int gj = 0; gj < TN / 4; ++gj) {
+      const float4 v = *reinterpret_cast<const float4*>(&qs[kk][gj * 64 + tx * 4]);
+      qb[gj * 4 + 0] = v.x;
+      qb[gj * 4 + 1] = v.y;
+      qb[gj * 4 + 2] = v.z;
+      qb[gj * 4 + 3] = v.w;
+    }
+#pragma unroll
+    for (int i = 0; i < TM; ++i)
+#pragma unroll
+      for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(pa[i], qb[j], acc[i][j]);
+  }
+}
+
+// the thread's block of C into c[zoff + m * c_ld + n], f32 or rounded to bf16
+template <int BM, int BN>
+__device__ __forceinline__ void store_tile(const float (&acc)[BM / 16][BN / 16], void* c,
+                                           int c_bf16, long long c_ld, long long zoff, int M,
+                                           int N, int m0, int n0, int tx, int ty) {
+  constexpr int TM = BM / 16, TN = BN / 16;
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    const int m = m0 + (i / 4) * 64 + ty * 4 + i % 4;
+    if (m >= M) continue;
+#pragma unroll
+    for (int j = 0; j < TN; ++j) {
+      const int n = n0 + (j / 4) * 64 + tx * 4 + j % 4;
+      if (n >= N) continue;
+      const long long off = zoff + (long long)m * c_ld + n;
+      if (c_bf16)
+        static_cast<__nv_bfloat16*>(c)[off] = __float2bfloat16_rn(acc[i][j]);
+      else
+        static_cast<float*>(c)[off] = acc[i][j];
+    }
+  }
 }
 
 template <int BM, int BN>
@@ -167,52 +246,13 @@ __global__ void __launch_bounds__(kThreads, 2) lora_gemm_kernel(Gemm g) {
       }
       __syncthreads();
 
-#pragma unroll
-      for (int kk = 0; kk < kBK; ++kk) {
-        // rows ty*4 + 64*gi + {0..3}, columns tx*4 + 64*gj + {0..3}: each
-        // quarter-warp reads 128 contiguous bytes, free of bank conflicts
-        float pa[TM], qb[TN];
-#pragma unroll
-        for (int gi = 0; gi < TM / 4; ++gi) {
-          const float4 v = *reinterpret_cast<const float4*>(&ps[kk][gi * 64 + ty * 4]);
-          pa[gi * 4 + 0] = v.x;
-          pa[gi * 4 + 1] = v.y;
-          pa[gi * 4 + 2] = v.z;
-          pa[gi * 4 + 3] = v.w;
-        }
-#pragma unroll
-        for (int gj = 0; gj < TN / 4; ++gj) {
-          const float4 v = *reinterpret_cast<const float4*>(&qs[kk][gj * 64 + tx * 4]);
-          qb[gj * 4 + 0] = v.x;
-          qb[gj * 4 + 1] = v.y;
-          qb[gj * 4 + 2] = v.z;
-          qb[gj * 4 + 3] = v.w;
-        }
-#pragma unroll
-        for (int i = 0; i < TM; ++i)
-#pragma unroll
-          for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(pa[i], qb[j], acc[i][j]);
-      }
+      tile_fma<BM, BN>(ps, qs, acc, tx, ty);
       __syncthreads();
     }
   }
 
-  const long long zoff = (long long)blockIdx.z * g.c_zstride;
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int m = m0 + (i / 4) * 64 + ty * 4 + i % 4;
-    if (m >= g.M) continue;
-#pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int n = n0 + (j / 4) * 64 + tx * 4 + j % 4;
-      if (n >= g.N) continue;
-      const long long off = zoff + (long long)m * g.c_ld + n;
-      if (g.c_bf16)
-        static_cast<__nv_bfloat16*>(g.c)[off] = __float2bfloat16_rn(acc[i][j]);
-      else
-        static_cast<float*>(g.c)[off] = acc[i][j];
-    }
-  }
+  store_tile<BM, BN>(acc, g.c, g.c_bf16, g.c_ld, (long long)blockIdx.z * g.c_zstride, g.M, g.N,
+                     m0, n0, tx, ty);
 }
 
 // da[i] (i < n_da) and db[i - n_da] = s * sum over chunks of part[chunk, i],
@@ -231,6 +271,123 @@ __global__ void lora_dab_reduce_kernel(const float* part, int chunks, long long 
     else
       db[i - n_da] = acc;
   }
+}
+
+// Kernel 5, pass 1: part[c, m, j] = sum over k in chunk c of x[m, k] *
+// A[idx[m], k, j], chunks of kZChunk rows of K; a row whose slot is outside
+// [0, slots) gets zeros.  Block (c, m-stride): x's chunk of the row is staged
+// in shared memory; thread t owns rank column j = t % rp (rp = r rounded up to
+// 32, so a warp reads 32 neighbouring elements of A's row) and every
+// (256 / rp)-th k of the chunk; the k groups are summed in a fixed order.
+__global__ void __launch_bounds__(kThreads) grouped_z_kernel(const void* x, const void* a,
+                                                            const int* idx, int slots,
+                                                            float* part, int M, int K, int r,
+                                                            int dtype) {
+  __shared__ float xs[kZChunk];
+  __shared__ float red[kThreads];
+  const int c = blockIdx.x, tid = threadIdx.x;
+  const int k0 = c * kZChunk, k1 = min(K, k0 + kZChunk);
+  const int rp = (r + 31) / 32 * 32, groups = kThreads / rp;
+  const int j = tid % rp, grp = tid / rp;
+  const Mat xm = {x, K, 1, dtype, nullptr, 0, 0};
+  const Mat am = {a, r, 1, dtype, nullptr, 0, 0};  // slot s, row k is row s*K + k
+  for (int m = blockIdx.y; m < M; m += gridDim.y) {
+    const int slot = idx[m];
+    const bool live = slot >= 0 && slot < slots;
+    for (int k = k0 + tid; k < k1; k += kThreads) xs[k - k0] = live ? load(xm, m, k) : 0.f;
+    __syncthreads();
+    float acc = 0.f;
+    if (live && j < r && grp < groups)
+      for (int k = k0 + grp; k < k1; k += groups)
+        acc = fmaf(xs[k - k0], load(am, (long long)slot * K + k, j), acc);
+    red[tid] = acc;
+    __syncthreads();
+    if (grp == 0 && j < r) {
+      float sum = 0.f;
+      for (int q = 0; q < groups; ++q) sum += red[q * rp + j];
+      part[((long long)c * M + m) * r + j] = sum;
+    }
+    __syncthreads();
+  }
+}
+
+struct GroupedY {
+  // y[m, n] = sum_k x[m, k] W[k, n] + s[idx[m]] * sum_j z[m, j] B[idx[m], j, n]
+  Mat x, w, b;         // b: (slots * r, N), slot s's row j at s*r + j
+  const float* part;   // z as (chunks, M, r) f32 partials, summed in chunk order
+  const float* s;      // (slots,) f32
+  const int* idx;      // (M,) int32
+  int slots, chunks, M, K, N, r;
+  void* y;
+  int y_bf16;
+};
+
+// Kernel 5, pass 2: lora_gemm_kernel's tiling.  The base segment stages one W
+// tile for every row of the block, whatever their slots.  The adapter segment
+// runs once for each slot present among the block's rows: it stages that
+// slot's B tile times its scale, and z for the rows of that slot (zeros for
+// the others), so each distinct slot's B is read once per block and a row
+// only ever meets its own adapter.
+template <int BM, int BN>
+__global__ void __launch_bounds__(kThreads, 2) grouped_lora_kernel(GroupedY g) {
+  __shared__ __align__(16) float ps[kBK][BM + 4];
+  __shared__ __align__(16) float qs[kBK][BN + 4];
+  __shared__ int sidx[BM];
+  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+  for (int i = tid; i < BM; i += kThreads) sidx[i] = m0 + i < g.M ? g.idx[m0 + i] : -1;
+
+  float acc[BM / 16][BN / 16];
+#pragma unroll
+  for (int i = 0; i < BM / 16; ++i)
+#pragma unroll
+    for (int j = 0; j < BN / 16; ++j) acc[i][j] = 0.f;
+  __syncthreads();
+
+  for (int k0 = 0; k0 < g.K; k0 += kBK) {
+    for (int e = tid; e < BM * kBK; e += kThreads) {
+      const int i = e / kBK, kk = e % kBK, m = m0 + i, k = k0 + kk;
+      ps[kk][i] = (m < g.M && k < g.K) ? load(g.x, m, k) : 0.f;
+    }
+    for (int e = tid; e < kBK * BN; e += kThreads) {
+      int kk, j;
+      if (g.w.s1 == 1) {
+        j = e % BN;
+        kk = e / BN;
+      } else {
+        kk = e % kBK;
+        j = e / kBK;
+      }
+      const int n = n0 + j, k = k0 + kk;
+      qs[kk][j] = (n < g.N && k < g.K) ? load(g.w, k, n) : 0.f;
+    }
+    __syncthreads();
+    tile_fma<BM, BN>(ps, qs, acc, tx, ty);
+    __syncthreads();
+  }
+
+  for (int slot = 0; slot < g.slots; ++slot) {
+    if (!__syncthreads_or(tid < BM && sidx[tid] == slot)) continue;
+    const float s = g.s[slot];
+    for (int k0 = 0; k0 < g.r; k0 += kBK) {
+      for (int e = tid; e < BM * kBK; e += kThreads) {
+        const int i = e / kBK, kk = e % kBK, m = m0 + i, k = k0 + kk;
+        float z = 0.f;
+        if (sidx[i] == slot && k < g.r)
+          for (int c = 0; c < g.chunks; ++c) z += g.part[((long long)c * g.M + m) * g.r + k];
+        ps[kk][i] = z;
+      }
+      for (int e = tid; e < kBK * BN; e += kThreads) {
+        const int j = e % BN, kk = e / BN, n = n0 + j, k = k0 + kk;
+        qs[kk][j] = (n < g.N && k < g.r) ? s * load(g.b, (long long)slot * g.r + k, n) : 0.f;
+      }
+      __syncthreads();
+      tile_fma<BM, BN>(ps, qs, acc, tx, ty);
+      __syncthreads();
+    }
+  }
+
+  store_tile<BM, BN>(acc, g.y, g.y_bf16, g.N, 0, g.M, g.N, m0, n0, tx, ty);
 }
 
 int sm_count() {
@@ -342,6 +499,10 @@ const char* lora_matmul_error_string(int err) {
 // (ceil(M / chunk), K*r + r*N) f32
 int lora_matmul_dab_chunk() { return kChunk; }
 
+// rows of K per partial of kernel 5's z: the wrapper sizes the scratch as
+// (ceil(K / chunk), M, r) f32
+int grouped_lora_z_chunk() { return kZChunk; }
+
 // x (M, K); W logical (K, N) at element strides (w_s0, w_s1); A (K, r); B (r, N);
 // y (M, N) in the inputs' dtype; z (M, r) f32.  dtype: 0 float32, 1 bfloat16.
 int fused_lora_forward_launch(const void* x, const void* w, long long w_s0, long long w_s1,
@@ -430,6 +591,48 @@ int fused_lora_bwd_dab_launch(const void* g, const void* x, const float* z, floa
   const int blocks = (int)(want < 4096 ? want : 4096);
   lora_dab_reduce_kernel<<<blocks, kThreads, 0, st>>>(part, chunks, len, (long long)K * r, s_ptr,
                                                       s_val, da, db);
+  return (int)cudaGetLastError();
+}
+
+// kernel 5: x (M, K); W logical (K, N) at element strides (w_s0, w_s1);
+// a_stack (slots, K, r) and b_stack (slots, r, N) contiguous; s (slots,) f32;
+// idx (M,) int32; part (ceil(K / 256), M, r) f32 scratch; y (M, N) in the
+// inputs' dtype.  A row whose idx is outside [0, slots) gets x @ W alone.
+int grouped_lora_forward_launch(const void* x, const void* w, long long w_s0, long long w_s1,
+                                const void* a, const void* b, const float* s, const int* idx,
+                                float* part, void* y, int M, int K, int N, int r, int slots,
+                                int dtype, void* stream) {
+  if (bad_args(M, K, N, r, dtype) || r > 256 || slots <= 0) return (int)cudaErrorInvalidValue;
+  if (M == 0) return (int)cudaSuccess;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int chunks = tiles(K, kZChunk);
+  dim3 zgrid(chunks, M < 65535 ? M : 65535);
+  grouped_z_kernel<<<zgrid, kThreads, 0, st>>>(x, a, idx, slots, part, M, K, r, dtype);
+  int err = (int)cudaGetLastError();
+  if (err) return err;
+  GroupedY g;
+  g.x = mat(x, K, 1, dtype);
+  g.w = mat(w, w_s0, w_s1, dtype);
+  g.b = mat(b, N, 1, dtype);
+  g.part = part;
+  g.s = s;
+  g.idx = idx;
+  g.slots = slots;
+  g.chunks = chunks;
+  g.M = M;
+  g.K = K;
+  g.N = N;
+  g.r = r;
+  g.y = y;
+  g.y_bf16 = dtype == kBF16;
+  const bool big = (long long)tiles(M, 128) * tiles(N, 128) >= 2LL * sm_count();
+  const int bm = big ? 128 : 64;
+  if (tiles(M, bm) > 65535) return (int)cudaErrorInvalidValue;
+  dim3 grid(tiles(N, bm), tiles(M, bm));
+  if (big)
+    grouped_lora_kernel<128, 128><<<grid, kThreads, 0, st>>>(g);
+  else
+    grouped_lora_kernel<64, 64><<<grid, kThreads, 0, st>>>(g);
   return (int)cudaGetLastError();
 }
 

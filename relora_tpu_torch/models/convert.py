@@ -29,7 +29,8 @@ _LLAMA_LAYER_MAP = {
 
 
 #: LoRA leaves of a projection, copied in the JAX layouts: lora_a (in, r),
-#: lora_b (r, out), lora_s (1,)
+#: lora_b (r, out), lora_s (1,); a slotted tree's stacks (S, in, r),
+#: (S, r, out) and (S,) likewise
 _LORA_LEAVES = ("lora_a", "lora_b", "lora_s")
 
 
@@ -62,7 +63,8 @@ def params_from_jax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     from a JAX Llama parameter tree, scanned (``layers`` with a leading axis
     L) or unrolled (``layers_0`` .. ``layers_{L-1}``).  A LoRA tree's
     ``lora_a``/``lora_b``/``lora_s`` leaves keep their layouts (the port's
-    ``LoRALinear`` stores them as the JAX module does); a ``lora_only``
+    ``LoRALinear`` stores them as the JAX module does), the stacked leaves
+    of a multi-tenant tree (``num_slots``) too; a ``lora_only``
     projection has no ``kernel`` and so no ``weight``.  An int8 projection's
     ``kernel_q`` ``(in, out)`` becomes ``weight_q`` ``(out, in)``, kept int8,
     and its ``kernel_scale`` ``(1, out)`` becomes ``weight_scale`` as it is."""

@@ -201,19 +201,22 @@ class LlamaAttention(nn.Module):
         self.o_proj = linear(h, h)
 
     def forward(self, x, cos, sin, positions, block_tables, pool, row_map=None, arm="auto",
-                dropout_seed=None):
+                dropout_seed=None, adapter_idx=None):
         cfg = self.config
         B, S = x.shape[:2]
-        q = self.q_proj(x, _seed(dropout_seed, 0)).reshape(B, S, cfg.num_attention_heads, cfg.head_dim)
-        k = self.k_proj(x, _seed(dropout_seed, 1)).reshape(B, S, cfg.kv_heads, cfg.head_dim)
-        v = self.v_proj(x, _seed(dropout_seed, 2)).reshape(B, S, cfg.kv_heads, cfg.head_dim)
+        q = self.q_proj(x, _seed(dropout_seed, 0), adapter_idx)
+        k = self.k_proj(x, _seed(dropout_seed, 1), adapter_idx)
+        v = self.v_proj(x, _seed(dropout_seed, 2), adapter_idx)
+        q = q.reshape(B, S, cfg.num_attention_heads, cfg.head_dim)
+        k = k.reshape(B, S, cfg.kv_heads, cfg.head_dim)
+        v = v.reshape(B, S, cfg.kv_heads, cfg.head_dim)
         q = apply_rotary(q, cos, sin)
         k = apply_rotary(k, cos, sin)
         if pool is None:
             out = dot_product_attention(q, k, v, causal=True, impl=arm)
         else:
             out = attend_with_paged_cache(q, k, v, positions, block_tables, pool, row_map, arm)
-        return self.o_proj(out.reshape(B, S, cfg.hidden_size), _seed(dropout_seed, 3))
+        return self.o_proj(out.reshape(B, S, cfg.hidden_size), _seed(dropout_seed, 3), adapter_idx)
 
 
 class LlamaMLP(nn.Module):
@@ -227,10 +230,10 @@ class LlamaMLP(nn.Module):
         self.up_proj = linear(h, i)
         self.down_proj = linear(i, h)
 
-    def forward(self, x, dropout_seed=None):
-        gate = self.gate_proj(x, _seed(dropout_seed, 4))
-        up = self.up_proj(x, _seed(dropout_seed, 5))
-        return self.down_proj(F.silu(gate) * up, _seed(dropout_seed, 6))
+    def forward(self, x, dropout_seed=None, adapter_idx=None):
+        gate = self.gate_proj(x, _seed(dropout_seed, 4), adapter_idx)
+        up = self.up_proj(x, _seed(dropout_seed, 5), adapter_idx)
+        return self.down_proj(F.silu(gate) * up, _seed(dropout_seed, 6), adapter_idx)
 
 
 class LlamaDecoderLayer(nn.Module):
@@ -244,12 +247,12 @@ class LlamaDecoderLayer(nn.Module):
         self.mlp = LlamaMLP(config, dtype, lora, param_dtype)
 
     def forward(self, x, cos, sin, positions, block_tables, pool, row_map=None, arm="auto",
-                dropout_seed=None):
+                dropout_seed=None, adapter_idx=None):
         x = x + self.self_attn(
             self.input_layernorm(x), cos, sin, positions, block_tables, pool, row_map, arm,
-            dropout_seed,
+            dropout_seed, adapter_idx,
         )
-        return x + self.mlp(self.post_attention_layernorm(x), dropout_seed)
+        return x + self.mlp(self.post_attention_layernorm(x), dropout_seed, adapter_idx)
 
 
 class LlamaForCausalLM(nn.Module):
@@ -309,12 +312,18 @@ class LlamaForCausalLM(nn.Module):
         row_map: Optional[torch.Tensor] = None,
         *,
         dropout_seed: Optional[int] = None,
+        adapter_idx: Optional[torch.Tensor] = None,
     ) -> torch.Tensor:
         """Logits ``(B, S, vocab)``.  Without ``pool`` this is the training
         forward over ``input_ids`` ``(B, S)`` at positions ``0..S-1`` (causal
         attention; ``dropout_seed`` turns LoRA dropout on, layer ``i`` drawing
         from seeds ``dropout_seed + 8*i + j``).  With ``pool`` it is the paged
-        decode forward at ``positions`` through ``block_tables``."""
+        decode forward at ``positions`` through ``block_tables``.
+
+        ``adapter_idx`` routes a slotted model's rows (``LoraSpec(num_slots)``)
+        to their adapter slots: per batch row ``(B,)``, repeated across its
+        tokens, or per token ``(B*S,)`` (the packed forward, B = 1); no index
+        is slot 0 everywhere.  Every LoRA projection of every layer takes it."""
         cfg = self.config
         x = self.embed_tokens(input_ids).to(self.dtype)
         if positions is None:
@@ -334,6 +343,6 @@ class LlamaForCausalLM(nn.Module):
         remat = self.remat and pool is None and torch.is_grad_enabled()
         for i, (layer, layer_pool) in enumerate(zip(self.layers, pools)):
             args = (x, cos, sin, positions, block_tables, layer_pool, row_map,
-                    self.attention_arm, _seed(dropout_seed, SEEDS_PER_LAYER * i))
+                    self.attention_arm, _seed(dropout_seed, SEEDS_PER_LAYER * i), adapter_idx)
             x = checkpoint(layer, *args, use_reentrant=False) if remat else layer(*args)
         return self.lm_head(self.norm(x)).to(self.logits_dtype)

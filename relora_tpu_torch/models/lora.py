@@ -34,6 +34,16 @@ an int8 base means something only after a warm start
 dense base would take it, else the base product through
 ``ops/quant_matmul.dequant_matmul`` (kernel 8 for CUDA tensors) plus the LoRA
 branch.  The codes and scales are never cast to the compute dtype.
+
+``LoraSpec(num_slots=S)`` is the multi-tenant serving layout (the JAX
+module's ``_grouped``, ``:234-297``): ``lora_a`` ``(S, in, r)``, ``lora_b``
+``(S, r, out)`` and ``lora_s`` ``(S,)`` f32, zero factors and ``alpha / r``
+scales at construction, so slot 0 and every unloaded slot are the identity.
+``forward(x, adapter_idx=...)`` routes row ``m`` to slot ``adapter_idx[m]``
+through ``ops/lora_dispatch.lora_matmul_grouped`` (kernel 5 on CUDA); a
+per-batch index ``(B,)`` repeats across each batch row's tokens, and no index
+routes every row to slot 0.  The serving engine writes tenants' factors into
+the slots in place (``serve/engine.py``); nothing trains them.
 """
 
 from __future__ import annotations
@@ -57,7 +67,10 @@ def dropout_mask(shape, p: float, seed: int, device) -> torch.Tensor:
 
 class LoRALinear(nn.Module):
     """``in_features -> out_features`` linear without bias, with LoRA factors
-    when ``lora`` is given."""
+    when ``lora`` is given.  ``grouped_arm`` pins the arm of a slotted
+    layout's composite (``ops/lora_dispatch.GROUPED_ARMS`` or ``"auto"``)."""
+
+    grouped_arm = "auto"
 
     def __init__(
         self,
@@ -77,12 +90,18 @@ class LoRALinear(nn.Module):
                 raise NotImplementedError(
                     f"a {lora.quantize} frozen base is not ported yet: see ROADMAP"
                 )
-            if lora.fused == "auto":
+            if lora.fused == "auto" and not lora.num_slots:
                 raise NotImplementedError(
                     "fused='auto' (--lora_fused auto) needs the LoRA cost model, not ported yet: see ROADMAP"
                 )
-            if lora.num_slots:
-                raise NotImplementedError("multi-tenant adapter slots are not ported yet: see ROADMAP")
+        if lora is not None and lora.num_slots:
+            slots = lora.num_slots
+            base_dtype = torch.bfloat16 if lora.base_dtype == "bf16" else param_dtype
+            self.weight = nn.Parameter(torch.empty(out_features, in_features, dtype=base_dtype))
+            self.lora_a = nn.Parameter(torch.zeros(slots, in_features, lora.r, dtype=param_dtype))
+            self.lora_b = nn.Parameter(torch.zeros(slots, lora.r, out_features, dtype=param_dtype))
+            self.lora_s = nn.Parameter(torch.full((slots,), lora.scale, dtype=torch.float32))
+            return
         if lora is not None and lora.lora_only:
             self.register_parameter("weight", None)
         elif lora is not None and lora.quantize == "int8":
@@ -102,8 +121,15 @@ class LoRALinear(nn.Module):
             if lora.trainable_scaling:
                 self.lora_s = nn.Parameter(torch.empty(1, dtype=param_dtype))
 
-    def forward(self, x: torch.Tensor, dropout_seed: Optional[int] = None) -> torch.Tensor:
+    def forward(
+        self,
+        x: torch.Tensor,
+        dropout_seed: Optional[int] = None,
+        adapter_idx: Optional[torch.Tensor] = None,
+    ) -> torch.Tensor:
         spec = self.lora
+        if spec is not None and spec.num_slots:
+            return self._grouped(x, adapter_idx)
         if spec is not None and spec.lora_only:
             return self._lora_branch(x, dropout_seed)
         dropout_active = spec is not None and spec.dropout > 0.0 and dropout_seed is not None
@@ -137,6 +163,30 @@ class LoRALinear(nn.Module):
             self.lora_b.to(self.dtype),
             scale,
             arm="fused",
+            dtype=self.dtype,
+        )
+
+    def _grouped(self, x: torch.Tensor, adapter_idx: Optional[torch.Tensor]) -> torch.Tensor:
+        """The multi-tenant composite (``relora_tpu/models/lora.py:234-297``):
+        the frozen base detached as the ``(in, out)`` view of its storage,
+        the stacked factors and the per-slot scales, one slot per row."""
+        from relora_tpu_torch.ops.lora_dispatch import lora_matmul_grouped
+
+        rows = x.numel() // x.shape[-1]
+        if adapter_idx is None:
+            idx = torch.zeros(rows, dtype=torch.int32, device=x.device)
+        else:
+            idx = adapter_idx.reshape(-1).to(torch.int32)
+            if idx.numel() != rows:
+                idx = idx.repeat_interleave(rows // idx.numel())
+        return lora_matmul_grouped(
+            x.to(self.dtype),
+            self.weight.detach().to(self.dtype).t(),
+            self.lora_a.detach().to(self.dtype),
+            self.lora_b.detach().to(self.dtype),
+            self.lora_s.detach(),
+            idx,
+            arm=self.grouped_arm,
             dtype=self.dtype,
         )
 

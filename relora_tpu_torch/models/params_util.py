@@ -6,6 +6,7 @@ import torch
 from torch import nn
 
 from relora_tpu_torch.core.relora import INT8_LEAVES, kaiming_uniform
+from relora_tpu_torch.models.lora import LoRALinear
 
 
 @torch.no_grad()
@@ -17,14 +18,26 @@ def init_params(model: nn.Module, generator: torch.Generator) -> nn.Module:
     ``lora_s`` — the initializers of ``relora_tpu``'s Llama.  An int8
     base's codes and scales keep their construction values (0 and 1, the
     JAX module's init): a quantized base is filled by a warm start, never by
-    noise.  Torch and JAX draw different bits from the same seed; weights
+    noise.  A slotted layout's stacked factors (``LoraSpec(num_slots)``)
+    are zero and its scales ``alpha / r``, every slot the identity, as in
+    the JAX module.  Torch and JAX draw different bits from the same seed; weights
     cross between the two packages through
     :func:`relora_tpu_torch.models.convert.params_from_jax`.
     """
     std = model.config.initializer_range
+    # stacked factor -> its fill: 0 for lora_a / lora_b, alpha / r for lora_s
+    slotted = {
+        f"{name}.{leaf}": module.lora.scale if leaf == "lora_s" else 0.0
+        for name, module in model.named_modules()
+        if isinstance(module, LoRALinear) and module.lora is not None and module.lora.num_slots
+        for leaf in ("lora_a", "lora_b", "lora_s")
+    }
     for name, p in model.named_parameters():
         leaf = name.rsplit(".", 1)[-1]
         if leaf in INT8_LEAVES:
+            continue
+        if name in slotted:
+            p.fill_(slotted[name])
             continue
         if name.endswith("layernorm.weight") or name == "norm.weight" or leaf == "lora_s":
             p.fill_(1.0)

@@ -1,12 +1,14 @@
 """The fused LoRA composite ``y = x @ W + ((x @ A) @ B) * s``: CUDA kernels
-and their plain twins, for a dense and for an int8 base.
+and their plain twins, for a dense and for an int8 base, and its grouped
+multi-tenant forward.
 
 Replaces the TPU kernels of ``relora_tpu/ops/pallas_lora_matmul.py``:
 ``_forward`` (kernel 4, ``:102``; int8 base ``_fused_lora_int8_kernel``
 ``:88``), ``_backward_dx`` (kernel 6, ``:317``; int8 base
-``_bwd_dx_int8_kernel`` ``:279``) and ``_backward_dab`` (kernel 7, ``:343``,
-which never reads the base).  ``csrc/lora_matmul.cu`` holds the Hopper
-kernels; its header note gives the design and the bound.  Here:
+``_bwd_dx_int8_kernel`` ``:279``), ``_backward_dab`` (kernel 7, ``:343``,
+which never reads the base) and ``_grouped_forward`` (kernel 5, ``:161``).
+``csrc/lora_matmul.cu`` holds the Hopper kernels; its header note gives the
+design and the bound.  Here:
 
 - :func:`fused_lora_forward` ``(x, w, a, b, s) -> (y, z)``,
   :func:`fused_lora_bwd_dx` ``(g, w, a, b, s) -> (dx, u)``,
@@ -20,6 +22,10 @@ kernels; its header note gives the design and the bound.  Here:
   Functions over them (the JAX package's ``custom_vjp`` pair, ``:375-427``),
   and :func:`fused_lora_matmul` / :func:`fused_lora_matmul_int8`, their
   entry points (``:467-524``).
+- :func:`grouped_lora_matmul` ``(x, w, a_stack, b_stack, s_stack, idx) ->
+  y``, kernel 5's wrapper, and :func:`grouped_lora_matmul_plain`, its twin
+  (``grouped_lora_reference``, ``:188-204``): every row ``m`` takes the
+  adapter of slot ``idx[m]``.  Inference only: there is no autograd Function.
 
 Layouts follow the JAX package: ``x`` ``(M, K)``, ``w`` ``(K, N)``, ``a``
 ``(K, r)``, ``b`` ``(r, N)``; ``z = x @ A`` and ``u = g @ Bᵀ`` are ``(M, r)``
@@ -84,6 +90,21 @@ def fused_lora_bwd_dab_plain(g, x, z, b, s: Scale, u=None) -> Tuple[torch.Tensor
     return (x.float().t() @ u) * s32, (z.t() @ g32) * s32
 
 
+def grouped_lora_matmul_plain(x, w, a_stack, b_stack, s_stack, idx) -> torch.Tensor:
+    """Plain twin of :func:`grouped_lora_matmul` (``grouped_lora_reference``):
+    gathers ``A[idx]`` and ``B[idx]`` per row in f32, then contracts; ``y`` in
+    x's dtype, shaped ``(..., N)`` like x."""
+    lead, K = x.shape[:-1], x.shape[-1]
+    x2 = x.reshape(-1, K).float()
+    idx = idx.reshape(-1).long()
+    a = a_stack.float()[idx]  # (M, K, r)
+    b = b_stack.float()[idx]  # (M, r, N)
+    s = s_stack.reshape(-1).float()[idx]  # (M,)
+    z = torch.einsum("mk,mkr->mr", x2, a)
+    y = x2 @ w.float() + torch.einsum("mr,mrn->mn", z, b) * s[:, None]
+    return y.to(x.dtype).reshape(*lead, w.shape[1])
+
+
 def dequantize_kn(q: torch.Tensor, qscale: torch.Tensor) -> torch.Tensor:
     """The f32 base ``q * qscale`` of logical ``(K, N)`` codes and ``(1, N)``
     scales, the value the kernels form as they stage each tile."""
@@ -119,10 +140,15 @@ def _kernel_library():
             [vp, vp, vp, vp, i32, vp, vp, f32, vp, vp, vp] + [i32] * 5 + [vp]
         )
         lib.dequant_matmul_launch.argtypes = [vp, vp, i64, i64, vp, vp] + [i32] * 4 + [vp]
+        lib.grouped_lora_forward_launch.argtypes = (
+            [vp, vp, i64, i64, vp, vp, vp, vp, vp, vp] + [i32] * 6 + [vp]
+        )
         for fn in ("fused_lora_forward", "fused_lora_bwd_dx", "fused_lora_bwd_dab",
-                   "fused_lora_int8_forward", "fused_lora_int8_bwd_dx", "dequant_matmul"):
+                   "fused_lora_int8_forward", "fused_lora_int8_bwd_dx", "dequant_matmul",
+                   "grouped_lora_forward"):
             getattr(lib, f"{fn}_launch").restype = i32
         lib.lora_matmul_dab_chunk.restype = i32
+        lib.grouped_lora_z_chunk.restype = i32
         lib.lora_matmul_error_string.argtypes = [i32]
         lib.lora_matmul_error_string.restype = ctypes.c_char_p
         lib._relora_typed = True
@@ -367,6 +393,72 @@ def fused_lora_int8_bwd_dx(g, q, qscale, a, b, s: Scale = 1.0) -> Tuple[torch.Te
 
 
 fused_lora_int8_bwd_dx.launches = 0
+
+
+def grouped_shapes(x, w, a_stack, b_stack, idx) -> Tuple[int, int, int, int, int]:
+    """``(M, K, N, r, S)`` of a grouped call, checked as the JAX entry point
+    checks them (``pallas_lora_matmul.py:236-252``); anything else raises."""
+    K = x.shape[-1]
+    if w.ndim != 2 or a_stack.ndim != 3 or b_stack.ndim != 3:
+        raise ValueError("the base must be 2-D and the A and B stacks 3-D")
+    N = w.shape[1]
+    S, Ka, r = a_stack.shape
+    if Ka != K or w.shape[0] != K:
+        raise ValueError(
+            f"contraction mismatch: x K={K}, base {tuple(w.shape)}, A {tuple(a_stack.shape)}"
+        )
+    if tuple(b_stack.shape) != (S, r, N):
+        raise ValueError(
+            f"B stack {tuple(b_stack.shape)} does not match A stack {tuple(a_stack.shape)} / base N={N}"
+        )
+    if not 0 < r <= MAX_RANK:
+        raise ValueError(f"LoRA rank {r} must be in 1..{MAX_RANK}")
+    M = x.numel() // K
+    if idx.numel() != M:
+        raise ValueError(
+            f"adapter_idx has {idx.numel()} rows but x flattens to M={M} "
+            "(expand per-batch indices to per-row before the kernel)"
+        )
+    return M, K, N, r, S
+
+
+def grouped_lora_matmul(x, w, a_stack, b_stack, s_stack, idx) -> torch.Tensor:
+    """``y[m] = x[m] @ W + ((x[m] @ A[idx[m]]) @ B[idx[m]]) * s[idx[m]]`` for
+    a mixed-tenant batch (kernel 5).
+
+    ``x``: ``(..., K)``, flattening to M rows; ``w``: ``(K, N)`` shared base,
+    contiguous or the ``(N, K)`` weight's transposed view; ``a_stack``:
+    ``(S, K, r)``; ``b_stack``: ``(S, r, N)``; ``s_stack``: ``(S,)`` f32;
+    ``idx``: ``(M,)`` the slot of each row, read on the device (no host
+    sync).  x, w and the stacks share f32 or bf16; ``y`` takes their dtype and
+    x's leading shape.  A CPU ``x`` runs :func:`grouped_lora_matmul_plain`;
+    any other device launches both passes of kernel 5 (counted as one call
+    in ``.launches``) or raises."""
+    M, K, N, r, S = grouped_shapes(x, w, a_stack, b_stack, idx)
+    if x.device.type == "cpu":
+        return grouped_lora_matmul_plain(x, w, a_stack, b_stack, s_stack, idx)
+    _on_cuda(x, w, a_stack, b_stack, s_stack, idx)
+    lead = x.shape[:-1]
+    x2 = x.reshape(M, K).contiguous()
+    a_stack, b_stack = a_stack.contiguous(), b_stack.contiguous()
+    code = _dtype_code(x2, w, a_stack, b_stack)
+    ws0, ws1 = _base_strides(w)
+    s32 = _rows(s_stack.reshape(-1), (S,), "s_stack", torch.float32)
+    idx32 = _rows(idx.reshape(-1), (M,), "adapter_idx", torch.int32)
+    lib = _kernel_library()
+    chunks = -(-K // lib.grouped_lora_z_chunk())
+    part = torch.empty((chunks, M, r), dtype=torch.float32, device=x.device)
+    y = torch.empty((M, N), dtype=x.dtype, device=x.device)
+    err = lib.grouped_lora_forward_launch(
+        ptr_arg(x2), ptr_arg(w), ws0, ws1, ptr_arg(a_stack), ptr_arg(b_stack), ptr_arg(s32),
+        ptr_arg(idx32), ptr_arg(part), ptr_arg(y), M, K, N, r, S, code, stream_arg(x2),
+    )
+    _raise_on_error(lib, err, "grouped_lora_matmul")
+    grouped_lora_matmul.launches += 1
+    return y.reshape(*lead, N)
+
+
+grouped_lora_matmul.launches = 0
 
 
 class FusedLoRAMatmul(torch.autograd.Function):

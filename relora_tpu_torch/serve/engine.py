@@ -10,25 +10,35 @@ owns the decode model on its device and builds the shared KV page pool
 - ``step_paged(pool, ids, positions, block_tables, row_map)`` — one packed
   mixed batch of decode rows and prefill tokens (``token_budget`` set).
 
+Each takes ``adapter_idx``: with ``adapter_slots`` set (multi-tenant
+serving, ``relora_tpu/serve/engine.py:159-199``, ``:556-664``) every LoRA
+projection is stacked ``(adapter_slots, ...)`` and each row (each token of a
+packed step) decodes through its own slot, slot 0 being the base model;
+``write_adapter_slot`` copies a tenant's factors into a slot in place.  With
+``lora=`` and no slots the factors are served unmerged for one tenant.
+
 The JAX engine donates the pool to each jitted step and gets a new one
 back; here the forward updates the pool tensors in place and returns the
 same pool, so the call shape stays ``logits, pool = engine.step(pool, ...)``.
 Every forward runs under ``torch.inference_mode()``.
 
 The contiguous engine (``prefill``/``decode``/``insert``, ``generate``),
-speculative verify, adapter slots and page migration are not ported yet.
+speculative verify and page migration are not ported yet.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Tuple
+import dataclasses
+from typing import Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
 
 from relora_tpu_torch import resolve_device
 from relora_tpu_torch.config.model import ModelConfig
+from relora_tpu_torch.core.relora import LoraSpec, is_lora_name
 from relora_tpu_torch.models.llama import LlamaForCausalLM
+from relora_tpu_torch.models.lora import LoRALinear
 
 Pool = List[Dict[str, torch.Tensor]]
 
@@ -48,12 +58,26 @@ def build_decode_model(
     dtype=torch.float32,
     device="cuda",
     attention_arm: str = "auto",
+    lora: Optional[LoraSpec] = None,
+    adapter_slots: int = 0,
 ) -> LlamaForCausalLM:
     """The serving model on ``device`` (parameters uninitialized: load a
-    state dict or call ``models.params_util.init_params``)."""
+    state dict or call ``models.params_util.init_params``).  ``lora=None``
+    serves a merged, LoRA-free state dict; the checkpoint's ``LoraSpec``
+    serves its factors unmerged, rewritten for decode as the JAX package
+    does: ``weights_static=True``, ``fused=False`` promoted to ``"auto"``,
+    and ``num_slots=adapter_slots`` when slots are asked for (every LoRA
+    leaf stacked, slot 0 the identity adapter)."""
     device = resolve_device(device)
+    if lora is not None:
+        lora = dataclasses.replace(
+            lora,
+            weights_static=True,
+            fused="auto" if lora.fused is False else lora.fused,
+            num_slots=adapter_slots if adapter_slots else lora.num_slots,
+        )
     with torch.device("meta"):
-        model = LlamaForCausalLM(model_cfg, dtype=dtype, attention_arm=attention_arm)
+        model = LlamaForCausalLM(model_cfg, dtype=dtype, attention_arm=attention_arm, lora=lora)
     return model.to_empty(device=device).eval()
 
 
@@ -64,7 +88,10 @@ class InferenceEngine:
     from :func:`relora_tpu_torch.models.convert.params_from_jax`) or an
     already built model on ``device``.  ``dtype`` is the compute dtype;
     ``kv_dtype="bf16"`` stores the pool at it, ``"int8"`` stores codes plus
-    per-``(page, kv_head)`` f32 scales.
+    per-``(page, kv_head)`` f32 scales.  ``lora`` (the checkpoint's spec)
+    serves the factors unmerged; ``adapter_slots >= 2`` with it stacks them
+    for multi-tenant serving: the state dict's non-LoRA tensors are loaded,
+    its own factors dropped, and every slot starts as the identity.
     """
 
     def __init__(
@@ -81,7 +108,21 @@ class InferenceEngine:
         token_budget: Optional[int] = None,
         attention_arm: str = "auto",
         device="cuda",
+        lora: Optional[LoraSpec] = None,
+        adapter_slots: int = 0,
     ):
+        if adapter_slots:
+            if lora is None:
+                raise ValueError(
+                    "adapter_slots > 0 requires the checkpoint's LoraSpec "
+                    "(multi-tenant serving runs the factors unmerged)"
+                )
+            if adapter_slots < 2:
+                raise ValueError(
+                    f"adapter_slots must be >= 2 (slot 0 is the identity "
+                    f"adapter), got {adapter_slots}"
+                )
+        self.adapter_slots = adapter_slots
         if cache_size < 1:
             raise ValueError(f"cache_size must be >= 1, got {cache_size}")
         if page_size is None:
@@ -123,9 +164,13 @@ class InferenceEngine:
             self.model = params.eval()
         else:
             self.model = build_decode_model(
-                model_cfg, dtype=dtype, device=self.device, attention_arm=attention_arm
+                model_cfg, dtype=dtype, device=self.device, attention_arm=attention_arm,
+                lora=lora, adapter_slots=adapter_slots,
             )
-            self.model.load_state_dict(dict(params))
+            if adapter_slots:
+                self._stack_adapter_params(params)
+            else:
+                self.model.load_state_dict(dict(params))
         self.model.attention_arm = attention_arm
 
     # -- pool ------------------------------------------------------------------
@@ -162,12 +207,101 @@ class InferenceEngine:
             per_page += 2 * cfg.kv_heads * 4
         return per_page * self.num_pages * cfg.num_hidden_layers
 
+    # -- multi-tenant adapter slots (adapter_slots set at construction) ------
+
+    @torch.no_grad()
+    def _stack_adapter_params(self, params: Mapping[str, torch.Tensor]) -> None:
+        """Fill the slotted model (``relora_tpu/serve/engine.py:558-594``):
+        every non-LoRA tensor from the checkpoint, copied onto the device at
+        the model's dtype; every stacked factor zero and every ``lora_s``
+        the spec's scale, so each slot starts as the identity adapter.  The checkpoint's own factors are
+        dropped: tenants load theirs through the registry."""
+        for name, t in self.model.state_dict().items():
+            if is_lora_name(name):
+                continue
+            if name not in params:
+                raise ValueError(
+                    f"checkpoint is missing param leaf {name!r} required by the slotted decode model"
+                )
+            t.copy_(params[name])
+        for module in self._slotted_modules().values():
+            module.lora_a.zero_()
+            module.lora_b.zero_()
+            module.lora_s.fill_(module.lora.scale)
+
+    def _slotted_modules(self) -> Dict[str, torch.nn.Module]:
+        return {
+            name: m for name, m in self.model.named_modules()
+            if isinstance(m, LoRALinear) and m.lora is not None and m.lora.num_slots
+        }
+
+    def _require_slots(self):
+        if not self.adapter_slots:
+            raise ValueError("engine was built without adapter_slots: no slot writes")
+
+    @torch.no_grad()
+    def write_adapter_slot(self, slot: int, factors: Mapping[str, torch.Tensor], scale: float) -> None:
+        """Copy one adapter's unmerged factors into slot ``slot`` in place
+        (``relora_tpu/serve/engine.py:621-658``).  ``factors`` maps the
+        port's state-dict names (``layers.{i}.self_attn.q_proj.lora_a`` ...)
+        to ``(in, r)`` / ``(r, out)`` tensors, as
+        :func:`relora_tpu_torch.serve.adapters.extract_lora_factors` returns
+        them; a module the adapter does not name gets zeros.  Factors are
+        cast onto the slabs' dtype and device; every shape is checked before
+        anything is written, so a refused adapter leaves the slot as it was.
+        Slot 0, the identity adapter, is immutable.  The stacked parameters
+        keep their storage (``copy_``), so the module never rebinds them."""
+        self._require_slots()
+        if not (0 < slot < self.adapter_slots):
+            raise ValueError(
+                f"slot must be in [1, {self.adapter_slots}) (slot 0 is the "
+                f"identity adapter), got {slot}"
+            )
+        modules = self._slotted_modules()
+        writes = []
+        for name, module in modules.items():
+            for leaf in ("lora_a", "lora_b"):
+                stacked = getattr(module, leaf)
+                value = factors.get(f"{name}.{leaf}")
+                if value is not None and tuple(value.shape) != tuple(stacked.shape[1:]):
+                    raise ValueError(
+                        f"adapter factor {name}.{leaf!r} has shape {tuple(value.shape)}, "
+                        f"expected {tuple(stacked.shape[1:])}"
+                    )
+                writes.append((stacked[slot], value))
+        for dst, value in writes:
+            if value is None:
+                dst.zero_()  # a module the adapter does not touch
+            else:
+                dst.copy_(value)
+        for module in modules.values():
+            module.lora_s[slot] = float(scale)
+
+    def adapter_writer(self):
+        """The ``writer(slot, factors, scale)`` callback an
+        :class:`~relora_tpu_torch.serve.adapters.AdapterRegistry` wants."""
+        self._require_slots()
+        return self.write_adapter_slot
+
     # -- step functions ----------------------------------------------------------
 
     def _tensor(self, x, dtype=torch.int32) -> torch.Tensor:
         return torch.as_tensor(np.asarray(x), dtype=dtype).to(self.device)
 
-    def _forward(self, ids, positions, pool, block_tables, row_map=None):
+    def _row_idx(self, adapter_idx, rows: int) -> Optional[torch.Tensor]:
+        """An optional per-row adapter index as a ``(rows,)`` int32 device
+        tensor (None: slot 0 everywhere); None on an engine without slots,
+        whose model has none to route."""
+        if not self.adapter_slots:
+            return None
+        if adapter_idx is None:
+            return torch.zeros(rows, dtype=torch.int32, device=self.device)
+        idx = np.asarray(adapter_idx, np.int32)
+        if idx.shape != (rows,):
+            raise ValueError(f"adapter_idx must have shape ({rows},), got {idx.shape}")
+        return self._tensor(idx)
+
+    def _forward(self, ids, positions, pool, block_tables, row_map=None, adapter_idx=None):
         with torch.inference_mode():
             return self.model(
                 self._tensor(ids, torch.long),
@@ -175,30 +309,43 @@ class InferenceEngine:
                 pool,
                 self._tensor(block_tables),
                 None if row_map is None else self._tensor(row_map),
+                adapter_idx=adapter_idx,
             )
 
-    def prefill_chunk(self, ids, start: int, pool: Pool, block_table) -> Tuple[torch.Tensor, Pool]:
+    def prefill_chunk(
+        self, ids, start: int, pool: Pool, block_table, adapter_idx=None
+    ) -> Tuple[torch.Tensor, Pool]:
         """One chunk ``(1, chunk_size)`` of a prompt at absolute positions
-        ``start ..`` through ``block_table`` ``(1, W)``.  Returns the chunk's
-        logits ``(1, chunk_size, V)`` and the (updated) pool."""
+        ``start ..`` through ``block_table`` ``(1, W)``; ``adapter_idx`` the
+        request's slot, ``(1,)``.  Returns the chunk's logits ``(1,
+        chunk_size, V)`` and the (updated) pool."""
         B, T = np.shape(ids)
         positions = start + np.broadcast_to(np.arange(T, dtype=np.int32)[None, :], (B, T))
-        return self._forward(ids, positions, pool, block_table), pool
+        idx = self._row_idx(adapter_idx, B)
+        return self._forward(ids, positions, pool, block_table, adapter_idx=idx), pool
 
-    def decode_paged(self, pool: Pool, token, pos, block_tables) -> Tuple[torch.Tensor, Pool]:
+    def decode_paged(
+        self, pool: Pool, token, pos, block_tables, adapter_idx=None
+    ) -> Tuple[torch.Tensor, Pool]:
         """One decode step: ``token``/``pos`` ``(B, 1)``, ``block_tables``
-        ``(B, W)``.  Rows without a decoding request carry all-null tables.
-        Returns logits ``(B, V)`` and the pool."""
-        logits = self._forward(token, pos, pool, block_tables)
+        ``(B, W)``, ``adapter_idx`` ``(B,)`` each row's slot.  Rows without a
+        decoding request carry all-null tables.  Returns logits ``(B, V)``
+        and the pool."""
+        idx = self._row_idx(adapter_idx, np.shape(token)[0])
+        logits = self._forward(token, pos, pool, block_tables, adapter_idx=idx)
         return logits[:, -1, :], pool
 
-    def step_paged(self, pool: Pool, ids, positions, block_tables, row_map) -> Tuple[torch.Tensor, Pool]:
+    def step_paged(
+        self, pool: Pool, ids, positions, block_tables, row_map, adapter_idx=None
+    ) -> Tuple[torch.Tensor, Pool]:
         """One packed mixed-batch step: ``ids``/``positions`` ``(1, Tb)``,
         ``row_map`` ``(Tb,)`` the block-table row of each token,
         ``block_tables`` ``(rows, W+1)`` — every slot's table plus a trailing
-        null column and a final all-null pad row.  Returns the window's
-        logits ``(1, Tb, V)`` and the pool."""
-        return self._forward(ids, positions, pool, block_tables, row_map), pool
+        null column and a final all-null pad row.  ``adapter_idx`` is per
+        token here, ``(Tb,)``: the grouped kernel sees one row per packed
+        token.  Returns the window's logits ``(1, Tb, V)`` and the pool."""
+        idx = self._row_idx(adapter_idx, np.shape(ids)[1])
+        return self._forward(ids, positions, pool, block_tables, row_map, idx), pool
 
     def packed_buckets(self) -> Tuple[int, ...]:
         """Packed-step sizes: halving from ``token_budget`` down to 8."""

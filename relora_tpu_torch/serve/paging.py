@@ -11,7 +11,9 @@ no device code): the PyTorch port imports nothing of the JAX package.
   decode rows and chunk padding land in a page nothing reads unmasked.
 - :class:`PrefixCache` — refcounted sharing of page-aligned prompt
   prefixes, keyed by the digest of their tokens, evicted LRU under
-  allocation pressure.
+  allocation pressure.  A tenant adapter's name salts the digest: pages
+  written through one adapter are never shared with another (the JAX
+  package keys by tokens alone, and so mixes tenants).
 """
 
 from __future__ import annotations
@@ -157,20 +159,27 @@ class PrefixCache:
         return self.hits / self.lookups if self.lookups else 0.0
 
     @staticmethod
-    def _digest(tokens: Sequence[int]) -> bytes:
+    def _digest(tokens: Sequence[int], salt: Optional[str] = None) -> bytes:
+        """Key of a token prefix.  ``salt`` (an adapter's name) keys the
+        prefix per tenant: K/V pages depend on the adapter that wrote them,
+        so a tenant must never read another's.  No salt gives the plain
+        token digest."""
         h = hashlib.sha1()
+        if salt is not None:
+            h.update(b"adapter\0" + salt.encode() + b"\0")
         for t in tokens:
             h.update(int(t).to_bytes(8, "little", signed=True))
         return h.digest()
 
-    def lookup(self, prompt: Sequence[int]) -> Tuple[List[int], int]:
-        """Longest cached page-aligned proper prefix of ``prompt``.  Returns
-        ``(pages, n_tokens)`` with every returned page increfed for the
-        caller (who must decref them at retire), or ``([], 0)``."""
+    def lookup(self, prompt: Sequence[int], salt: Optional[str] = None) -> Tuple[List[int], int]:
+        """Longest cached page-aligned proper prefix of ``prompt`` under
+        ``salt``.  Returns ``(pages, n_tokens)`` with every returned page
+        increfed for the caller (who must decref them at retire), or
+        ``([], 0)``."""
         ps = self.allocator.page_size
         self.lookups += 1
         for k in range((len(prompt) - 1) // ps, 0, -1):
-            digest = self._digest(prompt[: k * ps])
+            digest = self._digest(prompt[: k * ps], salt)
             entry = self._entries.get(digest)
             if entry is None:
                 continue
@@ -180,14 +189,17 @@ class PrefixCache:
             return list(entry.pages), entry.n_tokens
         return [], 0
 
-    def register(self, prompt: Sequence[int], pages: Sequence[int]) -> int:
+    def register(
+        self, prompt: Sequence[int], pages: Sequence[int], salt: Optional[str] = None
+    ) -> int:
         """File every page-aligned prefix of a fully prefilled prompt whose
-        block pages are ``pages`` (logical order).  Returns how many new
-        entries were created.  Capacity overflow evicts LRU entries."""
+        block pages are ``pages`` (logical order), under ``salt``.  Returns
+        how many new entries were created.  Capacity overflow evicts LRU
+        entries."""
         ps = self.allocator.page_size
         created = 0
         for k in range(1, len(prompt) // ps + 1):
-            digest = self._digest(prompt[: k * ps])
+            digest = self._digest(prompt[: k * ps], salt)
             if digest in self._entries:
                 self._entries.move_to_end(digest)
                 continue

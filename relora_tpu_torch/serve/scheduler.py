@@ -18,9 +18,16 @@ Counterpart of ``relora_tpu/serve/scheduler.py`` for the paged path:
   engine's token budget admits.
 
 Sampling is keyed by ``(seed, uid, token_index)``, never by slot or step,
-so a request's tokens do not depend on what shares its batch.  Speculative
-decoding, disaggregated roles, adapters, tracing and metrics are not ported
-yet; asking for them raises.
+so a request's tokens do not depend on what shares its batch.
+
+Multi-tenant adapters (``adapter_registry``, an engine with
+``adapter_slots``): a request's ``adapter`` is pinned to a slot at admission
+(the request stays queued while every slot is pinned), every forward routes
+each row (each packed token) to its request's slot, free rows and pad
+tokens to slot 0, and the pin drops at retirement.  The prefix cache is keyed
+per adapter, so a tenant never reads pages another tenant's adapter wrote.
+Speculative decoding, disaggregated roles, tracing and metrics are not
+ported yet; asking for them raises.
 """
 
 from __future__ import annotations
@@ -33,6 +40,7 @@ from typing import Callable, Deque, Dict, Iterable, List, Optional, Sequence
 
 import numpy as np
 
+from relora_tpu_torch.serve.adapters import BASE_ADAPTER
 from relora_tpu_torch.serve.engine import InferenceEngine
 from relora_tpu_torch.serve.paging import PageAllocator, PrefixCache, pages_needed
 from relora_tpu_torch.serve.sampling import request_generator, sample
@@ -52,7 +60,9 @@ def _not_ported(what: str) -> NotImplementedError:
 @dataclasses.dataclass(frozen=True)
 class Request:
     """One generation request: token-id prompt plus per-request sampling.
-    ``top_k`` is batch-global and lives on the scheduler."""
+    ``top_k`` is batch-global and lives on the scheduler.  ``adapter`` names
+    a tenant adapter of the scheduler's registry; ``None`` decodes the base
+    model (slot 0)."""
 
     uid: int
     prompt: Sequence[int]
@@ -81,6 +91,7 @@ class _Slot:
     t_admit: float
     t_first: float
     deadline: Optional[float] = None
+    adapter_slot: int = 0  # the slot this request's adapter is pinned to
 
 
 class ContinuousBatchingScheduler:
@@ -101,8 +112,11 @@ class ContinuousBatchingScheduler:
     ):
         if max_batch < 1:
             raise ValueError(f"max_batch must be >= 1, got {max_batch}")
-        if adapter_registry is not None:
-            raise _not_ported("multi-tenant adapter serving")
+        if adapter_registry is not None and not getattr(engine, "adapter_slots", 0):
+            raise ValueError(
+                "adapter_registry needs an engine built with adapter_slots "
+                "(the stacked multi-tenant LoRA layout)"
+            )
         if metrics is not None or tracer is not None or obs_registry is not None:
             raise _not_ported("serving metrics and tracing")
         self.engine = engine
@@ -110,11 +124,15 @@ class ContinuousBatchingScheduler:
         self.eos_id = eos_id
         self.top_k = top_k
         self.seed = seed
+        self.adapter_registry = adapter_registry
         self._step_count = 0
         self._pending: Deque[Request] = deque()
         self._slots: List[Optional[_Slot]] = [None] * max_batch
         self._tokens = np.zeros(max_batch, np.int32)
         self._positions = np.zeros(max_batch, np.int32)
+        # each row's adapter slot for the grouped kernel; free rows point at
+        # slot 0 (the identity adapter), so their garbage decode is base work
+        self._adapter_row = np.zeros(max_batch, np.int32)
         self._deadlines: Dict[int, float] = {}
         self._on_token: Dict[int, TokenCallback] = {}
         self._on_finish: Dict[int, FinishCallback] = {}
@@ -142,7 +160,19 @@ class ContinuousBatchingScheduler:
                 f"request {req.uid}: max_new_tokens must be >= 1, got {req.max_new_tokens}"
             )
         if req.adapter is not None:
-            raise _not_ported("multi-tenant adapter serving")
+            if self.adapter_registry is None:
+                raise ValueError(
+                    f"request {req.uid}: server is not running with an adapter "
+                    "registry (--adapter-dir); 'adapter' is not accepted"
+                )
+            if not self.adapter_registry.known(req.adapter):
+                raise ValueError(f"request {req.uid}: unknown adapter {req.adapter!r}")
+
+    def adapter_stats(self) -> Optional[Dict]:
+        """The adapter registry's slot and hit statistics; None without one."""
+        if self.adapter_registry is None:
+            return None
+        return self.adapter_registry.stats()
 
     def submit(
         self,
@@ -211,6 +241,18 @@ class ContinuousBatchingScheduler:
         return completions
 
     # -- internals -------------------------------------------------------------
+
+    def _acquire_adapter(self, req: Request) -> Optional[int]:
+        """Pin the request's adapter for admission: its slot, or None when
+        every slot is pinned (the request stays queued).  Raises when the
+        adapter fails to load."""
+        if self.adapter_registry is None:
+            return 0
+        return self.adapter_registry.acquire(req.adapter)
+
+    def _release_adapter(self, req: Request) -> None:
+        if self.adapter_registry is not None and req.adapter is not None:
+            self.adapter_registry.release(req.adapter)
 
     def _expire_deadlines(self, finished: List[Completion]) -> None:
         if not self._deadlines:
@@ -281,6 +323,8 @@ class ContinuousBatchingScheduler:
             error=detail,
         )
         self._slots[slot_idx] = None
+        self._adapter_row[slot_idx] = 0  # free rows decode the identity adapter
+        self._release_adapter(req)
         self._finalize(completion)
         return completion
 
@@ -372,6 +416,12 @@ class PagedContinuousBatchingScheduler(ContinuousBatchingScheduler):
             self._pool = self.engine.init_pool()
         return self._pool
 
+    @staticmethod
+    def _prefix_salt(req: Request) -> Optional[str]:
+        """The prefix-cache key's salt: the adapter's name, or None for the
+        base model (whose pages every base request shares)."""
+        return None if req.adapter in (None, BASE_ADAPTER) else req.adapter
+
     # -- admission ---------------------------------------------------------------
 
     def _admit_pass(self, finished: List[Completion]) -> None:
@@ -389,11 +439,26 @@ class PagedContinuousBatchingScheduler(ContinuousBatchingScheduler):
                 self._pending.popleft()
                 finished.append(self._finalize_unadmitted(req, "timeout"))
                 continue
+            try:
+                adapter_slot = self._acquire_adapter(req)
+            except Exception as e:
+                logger.warning(f"request {req.uid}: adapter load failed: {e!r}")
+                self._pending.popleft()
+                finished.append(
+                    self._finalize_unadmitted(req, "error", f"adapter load failed: {e}")
+                )
+                continue
+            if adapter_slot is None:
+                # every adapter slot pinned by live traffic: the head stays
+                # queued (FIFO) and retries once a retirement drops a pin
+                return
             need = pages_needed(len(req.prompt) + req.max_new_tokens, self.engine.page_size)
             shared_pages: List[int] = []
             shared_tokens = 0
             if self.prefix_cache is not None:
-                shared_pages, shared_tokens = self.prefix_cache.lookup(req.prompt)
+                shared_pages, shared_tokens = self.prefix_cache.lookup(
+                    req.prompt, self._prefix_salt(req)
+                )
             fresh = self.allocator.alloc(need - len(shared_pages))
             if fresh is None and self.prefix_cache is not None:
                 # under pressure: drop idle prefix entries (LRU) and retry
@@ -403,6 +468,7 @@ class PagedContinuousBatchingScheduler(ContinuousBatchingScheduler):
                 # allocator exhausted: stay queued; pages free as requests retire
                 if shared_pages:
                     self.allocator.decref(shared_pages)
+                self._release_adapter(req)  # drop the pin while we wait
                 return
             self._pending.popleft()
             t_admit = time.monotonic()
@@ -418,6 +484,7 @@ class PagedContinuousBatchingScheduler(ContinuousBatchingScheduler):
                 shared_pages=len(shared_pages),
                 prefill_progress=shared_tokens,
                 seq=self._admit_seq,
+                adapter_slot=adapter_slot,
             )
             self._admit_seq += 1
             self._tokens[slot_idx] = 0
@@ -427,6 +494,7 @@ class PagedContinuousBatchingScheduler(ContinuousBatchingScheduler):
             # route through it the round they are admitted
             self._ptables[slot_idx, :] = 0
             self._ptables[slot_idx, : len(pages)] = pages
+            self._adapter_row[slot_idx] = adapter_slot
 
     def _arm_decoding(self, slot_idx: int, first_id: int, finished: List[Completion]) -> None:
         """The prompt is in the pool and its first token sampled: register
@@ -436,7 +504,7 @@ class PagedContinuousBatchingScheduler(ContinuousBatchingScheduler):
         L = len(req.prompt)
         if self.prefix_cache is not None:
             # only pages fully covered by prompt tokens register
-            self.prefix_cache.register(list(req.prompt), slot.pages)
+            self.prefix_cache.register(list(req.prompt), slot.pages, self._prefix_salt(req))
         slot.decoding = True
         slot.tokens = [first_id]
         slot.pos = L
@@ -477,7 +545,9 @@ class PagedContinuousBatchingScheduler(ContinuousBatchingScheduler):
         ids[0, :n_real] = list(req.prompt[start : start + n_real])
         table = np.zeros((1, self.engine.block_table_width), np.int32)
         table[0, : len(slot.pages)] = slot.pages
-        logits, self._pool = self.engine.prefill_chunk(ids, start, self._ensure_pool(), table)
+        logits, self._pool = self.engine.prefill_chunk(
+            ids, start, self._ensure_pool(), table, adapter_idx=[slot.adapter_slot]
+        )
         slot.prefill_progress = start + n_real
         if slot.prefill_progress >= L:
             self._arm_decoding(slot_idx, self._sample_one(logits[:, L - 1 - start, :], req), finished)
@@ -502,6 +572,7 @@ class PagedContinuousBatchingScheduler(ContinuousBatchingScheduler):
             self._tokens[:, None],
             self._positions[:, None],
             self._tables,
+            adapter_idx=self._adapter_row,
         )
         self._step_count += 1
         next_tokens = self._sample_rows(logits, decoding).tolist()
@@ -539,6 +610,7 @@ class PagedContinuousBatchingScheduler(ContinuousBatchingScheduler):
         ids: List[int] = []
         poss: List[int] = []
         rows: List[int] = []
+        adap: List[int] = []  # each packed token's adapter slot
         slot_off: Dict[int, int] = {}  # decoding slot -> its token's offset
         for slot_idx, slot in enumerate(self._slots):
             if slot is None or not slot.decoding:
@@ -547,6 +619,7 @@ class PagedContinuousBatchingScheduler(ContinuousBatchingScheduler):
             ids.append(int(self._tokens[slot_idx]))
             poss.append(int(self._positions[slot_idx]))
             rows.append(slot_idx)
+            adap.append(slot.adapter_slot)
 
         # prefill from several slots into the leftover budget; every write
         # lands before any token attends, so a slot may clear its backlog
@@ -565,6 +638,7 @@ class PagedContinuousBatchingScheduler(ContinuousBatchingScheduler):
             ids.extend(int(t) for t in req.prompt[start : start + n])
             poss.extend(range(start, start + n))
             rows.extend([slot_idx] * n)
+            adap.extend([slot.adapter_slot] * n)
             budget_left -= n
 
         n_real = len(ids)
@@ -575,12 +649,14 @@ class PagedContinuousBatchingScheduler(ContinuousBatchingScheduler):
         ids.extend([0] * pad)
         poss.extend([engine.cache_size] * pad)  # clips into the null page
         rows.extend([B] * pad)  # the all-null pad row of _ptables
+        adap.extend([0] * pad)  # pad tokens decode the identity adapter
         logits, self._pool = engine.step_paged(
             self._ensure_pool(),
             np.asarray(ids, np.int32)[None, :],
             np.asarray(poss, np.int32)[None, :],
             self._ptables,
             np.asarray(rows, np.int32),
+            adapter_idx=np.asarray(adap, np.int32),
         )
         self._step_count += 1
 

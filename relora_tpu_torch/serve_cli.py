@@ -9,12 +9,26 @@ per request, in request order.  Runs on ``--device cuda`` (the default);
 
     python -m relora_tpu_torch.serve_cli --model_config llama_250m \
         --random-init --paged --dtype bf16 --max-batch 8 --input-file prompts.txt
+
+Weights come from ``--random-init`` or from ``--checkpoint DIR``, a
+checkpoint directory of ``relora_tpu_torch.train.checkpoint``: merged by
+default, its factors unmerged with ``--no-merge``.  Multi-tenant serving
+stacks tenant adapters over an unmerged base:
+
+    python -m relora_tpu_torch.serve_cli --model_config llama_250m \
+        --checkpoint BASE --no-merge --adapter-dir ADAPTERS --adapters tA,tB \
+        --paged --dtype bf16 --max-batch 8 --input-file prompts.txt
+
+``--adapter-dir`` holds one checkpoint directory per tenant; the batch mode's
+requests name no adapter, so they decode the base through the grouped kernel
+(requests pick a tenant through ``Request.adapter`` in the scheduler API).
 """
 
 from __future__ import annotations
 
 import argparse
 import logging
+import os
 import sys
 import time
 from typing import Dict, List, Tuple
@@ -24,11 +38,17 @@ import torch
 from relora_tpu_torch import resolve_device
 from relora_tpu_torch.config.model import load_model_config
 from relora_tpu_torch.models.params_util import init_params
+from relora_tpu_torch.serve.adapters import AdapterRegistry
 from relora_tpu_torch.serve.engine import InferenceEngine, build_decode_model, compute_dtype
 from relora_tpu_torch.serve.scheduler import (
     Completion,
     PagedContinuousBatchingScheduler,
     Request,
+)
+from relora_tpu_torch.train.checkpoint import (
+    load_lora_spec,
+    restore_params_host,
+    restore_serving_params,
 )
 
 logger = logging.getLogger("relora_tpu_torch.serve")
@@ -36,10 +56,30 @@ logger = logging.getLogger("relora_tpu_torch.serve")
 
 def parse_args(argv=None) -> argparse.Namespace:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    p.add_argument("--checkpoint", default=None, help="model_{step} checkpoint dir (not ported yet)")
+    p.add_argument("--checkpoint", default=None, help="model_{step} checkpoint dir")
     p.add_argument(
         "--random-init", action="store_true",
         help="serve randomly initialized weights drawn from --seed",
+    )
+    p.add_argument(
+        "--no-merge", action="store_true",
+        help="serve LoRA factors unmerged (adapter hot-swap); reads the "
+        "checkpoint's relora_config.json",
+    )
+    p.add_argument(
+        "--adapter-dir", default=None,
+        help="multi-tenant serving: directory of unmerged adapter checkpoint "
+        "dirs (each with a relora_config.json sidecar); requires --no-merge",
+    )
+    p.add_argument(
+        "--adapters", default=None,
+        help="comma-separated adapter names to preload into slots at startup; "
+        "requires --adapter-dir",
+    )
+    p.add_argument(
+        "--adapter-slots", type=int, default=None,
+        help="adapter slot pool size, including the reserved identity slot 0 "
+        "(default 4); requires --adapter-dir",
     )
     p.add_argument("--model_config", required=True, help="zoo name, HF config JSON, or dir")
     p.add_argument("--prompt", action="append", default=[], help="one prompt (repeatable)")
@@ -81,15 +121,55 @@ def _encode(text: str) -> List[int]:
         raise SystemExit(f"prompt {text!r} is not a token-id list")
 
 
+def check_adapter_flags(args: argparse.Namespace) -> None:
+    """``serve.py``'s checks of the adapter flags, with its messages."""
+    if args.adapter_dir is not None and not args.no_merge:
+        raise SystemExit(
+            "--adapter-dir requires --no-merge (tenant adapters hot-swap "
+            "against an unmerged base; a merged checkpoint has no LoRA slots)"
+        )
+    if args.adapters is not None and args.adapter_dir is None:
+        raise SystemExit("--adapters preloads tenant adapters and requires --adapter-dir")
+    if args.adapter_slots is not None:
+        if args.adapter_dir is None:
+            raise SystemExit(
+                "--adapter-slots sizes the tenant slot pool and requires --adapter-dir"
+            )
+        if args.adapter_slots < 2:
+            raise SystemExit(
+                f"--adapter-slots must be >= 2 (slot 0 is the reserved "
+                f"identity adapter), got {args.adapter_slots}"
+            )
+    if args.adapter_dir is not None and not os.path.isdir(args.adapter_dir):
+        raise SystemExit(f"--adapter-dir {args.adapter_dir} is not a directory")
+
+
+def load_params(args: argparse.Namespace, model_cfg, dtype, device):
+    """``(params, lora_spec)``: a seeded model under ``--random-init``, else
+    the checkpoint's state dict, merged unless ``--no-merge``, with its
+    sidecar's spec then."""
+    if args.random_init:
+        if args.checkpoint or args.no_merge:
+            raise SystemExit("--random-init excludes --checkpoint/--no-merge")
+        model = build_decode_model(model_cfg, dtype=dtype, device=device)
+        return init_params(model, torch.Generator(device=device).manual_seed(args.seed)), None
+    if args.checkpoint is None:
+        raise SystemExit("pass --checkpoint (or --random-init for drills)")
+    logger.info(f"restoring {args.checkpoint}")
+    if not args.no_merge:
+        return restore_serving_params(args.checkpoint), None
+    spec = load_lora_spec(args.checkpoint)
+    if spec is None:
+        raise SystemExit(
+            f"--no-merge: {args.checkpoint} has no relora_config.json sidecar "
+            "(full-rank checkpoint? drop the flag)"
+        )
+    return restore_params_host(args.checkpoint), spec
+
+
 def build(args: argparse.Namespace) -> PagedContinuousBatchingScheduler:
     """The engine and scheduler the flags describe, weights included."""
-    if args.checkpoint is not None:
-        raise SystemExit(
-            "--checkpoint is not ported yet (checkpoints are orbax; reading "
-            "them without JAX is a later slice): use --random-init"
-        )
-    if not args.random_init:
-        raise SystemExit("pass --random-init (checkpoint loading is not ported yet)")
+    check_adapter_flags(args)
     if not args.paged:
         raise SystemExit("the contiguous engine is not ported yet: pass --paged")
     if args.packed and args.token_budget < 0:
@@ -100,12 +180,12 @@ def build(args: argparse.Namespace) -> PagedContinuousBatchingScheduler:
     model_cfg = load_model_config(args.model_config)
     cache_size = args.cache_size or model_cfg.max_sequence_length
     dtype = compute_dtype(args.dtype)
-    model = build_decode_model(model_cfg, dtype=dtype, device=device)
-    init_params(model, torch.Generator(device=device).manual_seed(args.seed))
+    params, lora_spec = load_params(args, model_cfg, dtype, device)
+    adapter_slots = (args.adapter_slots or 4) if args.adapter_dir else 0
     num_pages = args.num_pages or (args.max_batch * (cache_size // args.page_size) + 1)
     engine = InferenceEngine(
         model_cfg,
-        model,
+        params,
         cache_size=cache_size,
         dtype=dtype,
         page_size=args.page_size,
@@ -116,7 +196,29 @@ def build(args: argparse.Namespace) -> PagedContinuousBatchingScheduler:
         if args.packed
         else None,
         device=device,
+        lora=lora_spec,
+        adapter_slots=adapter_slots,
     )
+    registry = None
+    if args.adapter_dir:
+        registry = AdapterRegistry(
+            args.adapter_dir, adapter_slots, expected_r=lora_spec.r,
+            writer=engine.adapter_writer(),
+        )
+        names = registry.list_adapters()
+        logger.info(
+            f"adapter registry: {adapter_slots} slots over {args.adapter_dir} "
+            f"({len(names)} adapters: {', '.join(names) or 'none'})"
+        )
+        for name in [n.strip() for n in (args.adapters or "").split(",") if n.strip()]:
+            try:
+                slot = registry.acquire(name)
+            except ValueError as e:
+                raise SystemExit(f"--adapters: {e}")
+            if slot is None:
+                raise SystemExit(f"--adapters: no free slot for {name!r} (raise --adapter-slots)")
+            registry.release(name)
+            logger.info(f"preloaded adapter {name!r} into slot {slot}")
     return PagedContinuousBatchingScheduler(
         engine,
         packed=args.packed,
@@ -124,6 +226,7 @@ def build(args: argparse.Namespace) -> PagedContinuousBatchingScheduler:
         eos_id=args.eos_id if args.eos_id is not None else model_cfg.eos_token_id,
         top_k=args.top_k,
         seed=args.seed,
+        adapter_registry=registry,
     )
 
 

@@ -8,13 +8,19 @@ warm-up drain, a timed drain, then one under ``torch.profiler`` tracing
 the device only — and prints one JSON line: the timed drain's wall seconds
 and tokens/s, the profiled drain's wall seconds (the difference is the
 tracer's cost), the device's busy time and idle share of the profiled
-drain, and device time by kernel name (names cut to 80 characters, times
-of names that share those summed), largest first.  Extra flags go to the
-CLI:
+drain, device time by kernel name (names cut to 80 characters, times
+of names that share those summed), largest first, and kernel 5's share of
+the busy time.  Extra flags go to the CLI:
 
     python3 tools/torch_drain_profile.py               # sequential rounds
     python3 tools/torch_drain_profile.py --packed
     python3 tools/torch_drain_profile.py --kv-dtype int8
+    python3 tools/torch_drain_profile.py --checkpoint B --no-merge --adapter-dir D
+
+``--tenants`` drains chip_smoke.py's mixed-tenant traffic instead: a seeded
+llama_250m base and three tenant adapters written under ``build/chip_smoke/``,
+the 16 prompts round-robin over [base, tA, tB, tC] through the scheduler API
+with 4 adapter slots (``--packed`` for packed rounds).
 
 Needs a CUDA card.  Busy time is the union of kernel intervals on the
 device, so overlapping streams are not counted twice.
@@ -46,14 +52,32 @@ def main(argv) -> int:
     os.makedirs(work, exist_ok=True)
     prompts = os.path.join(work, "prompts.txt")
     chip_smoke.write_prompts(prompts, 32100)
-    args = ["--model_config", "llama_250m", "--random-init", "--dtype", "bf16",
-            "--max-batch", "8", "--paged", "--max-new-tokens", "64",
-            "--input-file", prompts, *argv]
-    serve_cli.run(args)  # warm-up: cuBLAS handles, allocator, kernel build
-    completions, seconds = serve_cli.run(args)
+    if "--tenants" in argv:
+        from relora_tpu_torch.serve.adapters import AdapterRegistry
+
+        device = torch.device("cuda")
+        base, tenants = chip_smoke.write_adapter_checkpoints(torch, work, device)
+        engine = chip_smoke.tenant_engine(torch, base, chip_smoke.ADAPTER_SLOTS, device)
+        registry = AdapterRegistry(tenants, chip_smoke.ADAPTER_SLOTS, expected_r=chip_smoke.ADAPTER_R,
+                                   writer=engine.adapter_writer())
+        requests = chip_smoke.tenant_requests(chip_smoke.read_prompts(prompts),
+                                              [None] + list(chip_smoke.TENANT_ALPHAS))
+
+        def drain():
+            return chip_smoke.tenant_drain(torch, engine, registry, requests, "--packed" in argv)[:2]
+    else:
+        init = [] if "--checkpoint" in argv else ["--random-init"]
+        args = ["--model_config", "llama_250m", *init, "--dtype", "bf16", "--max-batch", "8",
+                "--paged", "--max-new-tokens", "64", "--input-file", prompts, *argv]
+
+        def drain():
+            return serve_cli.run(args)
+
+    drain()  # warm-up: cuBLAS handles, allocator, kernel build
+    completions, seconds = drain()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        serve_cli.run(args)
+        drain()
         wall = time.perf_counter() - t0
     intervals = []
     by_name = {}
@@ -74,6 +98,7 @@ def main(argv) -> int:
             busy += e - end
             end = e
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
+    grouped_us = sum(us for name, us in by_name.items() if "grouped_" in name)
     tokens = sum(len(c.tokens) for c in completions.values())
     print(json.dumps({
         "flags": argv,
@@ -86,6 +111,7 @@ def main(argv) -> int:
         "tokens_per_s": tokens / seconds,
         "device_busy_s": busy / 1e6,
         "device_idle_share": 1.0 - busy / 1e6 / wall,
+        "grouped_lora_share": grouped_us / busy,
         "kernels_ms": {name: us / 1e3 for name, us in top},
     }))
     return 0
