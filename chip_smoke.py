@@ -13,12 +13,17 @@ Phases, in order; any failure raises and the script exits non-zero:
                packed T=72, for f32, bf16 and int8 pools; then each is timed at
                the main path's shape beside its plain twin, a gather +
                scaled_dot_product_attention yardstick, and its bound.
-3. kernels-3 — the flash forward, dK/dV and dQ kernels against their twins:
-               the train phase's shape (B=8, S=512, N=16, H=48), grouped
-               heads (N=16, n_kv=4, H=64) and an unaligned S=200, at bf16 and
-               f32; then each, and forward+backward together, timed beside
-               its twin, a scaled_dot_product_attention(is_causal=True)
-               yardstick and its bound.
+3. kernels-3 — the HMMA count of each bf16 flash kernel's SASS
+               (``cuobjdump -sass``: the tensor cores are used); the flash
+               forward, dK/dV and dQ kernels against their twins: the train
+               phase's shape (B=8, S=512, N=16, H=48), grouped heads (N=16,
+               n_kv=4, H=64), an unaligned S=200, llama_40m's H=52,
+               llama_7b's H=128 and H=50 with grouped heads at S=200, at
+               bf16 (tensor-core kernels) and f32 (FMA kernels); then each,
+               forward+backward together and the backward alone, timed
+               beside its twin, a scaled_dot_product_attention(is_causal=True)
+               yardstick (forward, its backward alone from a saved output,
+               both) and its bound.
 4. drains    — ``relora_tpu_torch.serve_cli`` drains 16 requests (prompts of
                32-512 tokens, 64 new tokens each) for llama_250m at full width,
                ``--random-init --dtype bf16 --max-batch 8 --paged``: at
@@ -43,8 +48,9 @@ Phases, in order; any failure raises and the script exits non-zero:
                against their twins: the three llama_250m projection shapes
                (M=4096, r=128; (K, N) = (768, 768), (768, 2560), (2560, 768))
                at bf16 and f32 with W the transposed view the model passes, a
-               contiguous W, a ragged M=200, K=72, N=100, r=8, and a tensor
-               scale through the autograd Function (ds too); then each timed
+               contiguous W, a ragged M=200, K=72, N=100, r=8, a rank past
+               256 (M=1024, K=N=768, r=320), and a tensor scale through the
+               autograd Function (ds too); then each timed
                per shape beside its twin, the ordered cuBLAS chain of the
                default path and its bound.
 9. fused-train — the train phase again with ``--lora_fused true
@@ -59,7 +65,8 @@ Phases, in order; any failure raises and the script exits non-zero:
                forward and dx (4-int8, 6-int8) against their twins: the three
                projection shapes at bf16 and f32 with q the transposed view of
                the (N, K) codes the model passes, a contiguous (K, N) q, a
-               ragged M=200, K=72, N=100, r=8, and a tensor scale through
+               ragged M=200, K=72, N=100, r=8, r=320 at M=1024, K=N=768,
+               and a tensor scale through
                FusedLoRAMatmulInt8 (ds and dqscale too) and DequantMatmul;
                then each timed per shape beside its twin, the dequantize +
                cuBLAS chain of the JAX default path and its bound.
@@ -84,7 +91,8 @@ Phases, in order; any failure raises and the script exits non-zero:
                twin at bf16 and f32: M in {8, 64, 72} (decode rows, a prefill
                chunk, a packed step) x the three projection shapes, r=128,
                S=4 slots, a mixed idx that includes slot 0, W the transposed
-               view; and a ragged M=5, K=72, N=100, r=8, S=3; then each M and
+               view; a ragged M=5, K=72, N=100, r=8, S=3; and r=320 (two
+               rank chunks of the z pass) at M=72, K=N=768, S=4; then each M and
                shape timed beside its twin, the gathered chain (cuBLAS x @ W
                plus the gathered bmm composite) and its bound.
 16. adapters  — a seeded llama_250m base (LoRA r=128) and three seeded tenant
@@ -103,6 +111,9 @@ Phases, in order; any failure raises and the script exits non-zero:
                slotted llama_250m at f32 with a mixed ``adapter_idx``, the
                kernel arm (kernel 5, the paged kernels) against the plain arm
                (the gathered composite, naive attention), compared on logits.
+
+``python3 chip_smoke.py --ab DIR [--train [FLAGS...]]`` times another
+checkout's package instead (see :func:`ab`); it checks nothing.
 
 Output: a forward+backward timing line, one line per drain, a train line, a
 LoRA timing line, a fused-train line, an int8 timing line, the int8 train
@@ -239,10 +250,17 @@ def library_call(torch, case, packed=False):
     return call
 
 
+SLEEP_CYCLES = 10_000_000  # ~5 ms of the H100's clock: longer than any call's enqueue
+
+
 def time_ms(torch, fn, iters=30):
     """Median device time of ``fn`` over ``iters`` launches, CUDA events
     around each, with a 128 MiB write between launches so the K/V pages come
-    from device memory as in a forward (each layer has its own pool)."""
+    from device memory as in a forward (each layer has its own pool).  The
+    device sleeps before each start event, so the host has enqueued the
+    whole call by the time the window opens: the window holds the device's
+    time alone, not the wrapper's Python and launch cost (which a short
+    kernel would otherwise wait behind)."""
     flush = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")
     for _ in range(3):
         fn()
@@ -251,6 +269,7 @@ def time_ms(torch, fn, iters=30):
         flush.zero_()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SLEEP_CYCLES)
         start.record()
         fn()
         end.record()
@@ -324,11 +343,17 @@ def check_kernels(torch, device):
 
 # kernel 3 cases: (B, S, N, n_kv, H, dtype); the first is the train phase's
 # shape (llama_250m, --batch_size 8 --max_length 512), then grouped-query
-# heads at llama_1b's head_dim and an S that is no multiple of the 64-row tile
+# heads at llama_1b's head_dim, an S that is no multiple of the 64-row tile,
+# llama_40m's H = 52 (padded to 64 on the card, 8-byte copies), llama_7b's
+# H = 128 (the 32-row backward tiles), and H = 50 with grouped heads and a
+# ragged S (4-byte copies)
 FLASH_CASES = [
     (8, 512, 16, 16, 48, "bf16"), (8, 512, 16, 16, 48, "f32"),
     (2, 512, 16, 4, 64, "bf16"), (2, 512, 16, 4, 64, "f32"),
     (2, 200, 16, 16, 48, "bf16"), (2, 200, 16, 16, 48, "f32"),
+    (4, 512, 8, 8, 52, "bf16"), (4, 512, 8, 8, 52, "f32"),
+    (1, 512, 32, 32, 128, "bf16"), (1, 512, 32, 32, 128, "f32"),
+    (2, 200, 4, 2, 50, "bf16"), (2, 200, 4, 2, 50, "f32"),
 ]
 # error relative to max(1, max|twin|): f32 sums the same terms in another
 # order (1e-6 scale at S=512); bf16 outputs round once to bf16 (2^-8 relative)
@@ -365,6 +390,31 @@ def flash_bound(q, k, kernel):
     t_bytes = bytes_ / HBM_BYTES_PER_S
     t_ops = units * B * N * S * S * H / BF16_FLOPS_PER_S
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+FLASH_TC_KERNELS = ("flash_fwd_tc_kernel", "flash_bwd_dkdv_tc_kernel", "flash_bwd_dq_tc_kernel")
+
+
+def count_hmma(lib_path):
+    """``{kernel: HMMA instructions in its SASS}`` of the bf16 flash kernels
+    in the built library (all head-dim instantiations summed), read with
+    ``cuobjdump -sass``: nonzero shows the tensor cores are used."""
+    from relora_tpu_torch.ops import _build
+
+    cuobjdump = os.path.join(os.path.dirname(_build.find_nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", str(lib_path)], capture_output=True, text=True,
+                          check=True).stdout
+    counts = dict.fromkeys(FLASH_TC_KERNELS, 0)
+    current = None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            current = next((k for k in FLASH_TC_KERNELS if k in line), None)
+        elif current and "HMMA" in line:
+            counts[current] += 1
+    print(json.dumps({"sass_hmma": counts, "library": os.path.relpath(str(lib_path), REPO)}))
+    if not all(counts.values()):
+        raise AssertionError(f"a bf16 flash kernel has no HMMA instruction: {counts}")
+    return counts
 
 
 def check_flash_kernels(torch, device):
@@ -421,6 +471,16 @@ def check_flash_kernels(torch, device):
     def sdpa():
         return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
 
+    # SDPA's backward alone, from one saved forward: dQ, dK and dV together
+    sdpa_in = [x.detach().requires_grad_() for x in (qt, kt, vt)]
+    sdpa_out = F.scaled_dot_product_attention(*sdpa_in, is_causal=True)
+    dout_t = dout.transpose(1, 2)
+
+    def sdpa_bwd():
+        return torch.autograd.grad(sdpa_out, sdpa_in, dout_t, retain_graph=True)
+
+    sdpa_bwd_ms = time_ms(torch, sdpa_bwd)
+
     def fwd_bwd(attend, inputs, cotangent):
         leaves = [x.detach().requires_grad_() for x in inputs]
         return torch.autograd.grad(attend(*leaves), leaves, cotangent)
@@ -431,14 +491,16 @@ def check_flash_kernels(torch, device):
         FA.flash_attention_bwd_dkdv_plain(q, k, v, dout, l, d, scale)
         FA.flash_attention_bwd_dq_plain(q, k, v, dout, l, d, scale)
 
+    # the backward rows both carry SDPA's backward, which computes dQ, dK and
+    # dV in one call
     rows = []
-    for name, kernel, fn, plain, library in (
+    for name, kernel, fn, plain, library_ms in (
         ("flash_attention_forward", "forward", lambda: FA.flash_attention_forward(q, k, v, scale),
-         lambda: FA.flash_attention_forward_plain(q, k, v, scale), sdpa),
+         lambda: FA.flash_attention_forward_plain(q, k, v, scale), time_ms(torch, sdpa)),
         ("flash_attention_bwd_dkdv", "dkdv", lambda: FA.flash_attention_bwd_dkdv(*bwd),
-         lambda: FA.flash_attention_bwd_dkdv_plain(*bwd), None),
+         lambda: FA.flash_attention_bwd_dkdv_plain(*bwd), sdpa_bwd_ms),
         ("flash_attention_bwd_dq", "dq", lambda: FA.flash_attention_bwd_dq(*bwd),
-         lambda: FA.flash_attention_bwd_dq_plain(*bwd), None),
+         lambda: FA.flash_attention_bwd_dq_plain(*bwd), sdpa_bwd_ms),
     ):
         bound_ms, bound_by = flash_bound(q, k, kernel)
         rows.append({
@@ -452,7 +514,7 @@ def check_flash_kernels(torch, device):
             "plain_ms": time_ms(torch, plain),
             "bound_ms": bound_ms,
             "bound_by": bound_by,
-            "library_ms": time_ms(torch, library) if library else None,
+            "library_ms": library_ms,
         })
     bound_ms, bound_by = flash_bound(q, k, "fwd_bwd")
     pair = {
@@ -464,7 +526,10 @@ def check_flash_kernels(torch, device):
         "bound_by": bound_by,
         "library_ms": time_ms(torch, lambda: fwd_bwd(
             lambda a, b, c: F.scaled_dot_product_attention(a, b, c, is_causal=True),
-            (qt, kt, vt), dout.transpose(1, 2))),
+            (qt, kt, vt), dout_t)),
+        "backward_ms": time_ms(torch, lambda: (FA.flash_attention_bwd_dkdv(*bwd),
+                                               FA.flash_attention_bwd_dq(*bwd))),
+        "library_backward_ms": sdpa_bwd_ms,
     }
     print(json.dumps(pair))
     return rows
@@ -845,6 +910,7 @@ def check_lora_kernels(torch, device):
              for dt in ("bf16", "f32")]
     cases += [(LORA_M, 768, 768, LORA_R, dt, False) for dt in ("bf16", "f32")]
     cases += [(200, 72, 100, 8, dt, True) for dt in ("bf16", "f32")]
+    cases += [(1024, 768, 768, 320, dt, True) for dt in ("bf16", "f32")]  # a rank past 256
     with full_f32_matmul():
         for i, (M, K, N, r, dtype, transposed) in enumerate(cases):
             x, w, a, b, gy = make_lora_case(torch, device, M, K, N, r, dtype, seed=21 + i,
@@ -1042,6 +1108,7 @@ def check_int8_kernels(torch, device):
              for dt in ("bf16", "f32")]
     cases += [(LORA_M, 768, 768, LORA_R, dt, False) for dt in ("bf16", "f32")]
     cases += [(200, 72, 100, 8, dt, True) for dt in ("bf16", "f32")]
+    cases += [(1024, 768, 768, 320, dt, True) for dt in ("bf16", "f32")]  # a rank past 256
     with full_f32_matmul(), torch.no_grad():
         for i, (M, K, N, r, dtype, transposed) in enumerate(cases):
             x, q, qs, a, b, gy = make_int8_case(torch, device, M, K, N, r, dtype, seed=51 + i,
@@ -1294,6 +1361,7 @@ def check_grouped_kernels(torch, device):
     cases = [(M, K, N, ADAPTER_R, ADAPTER_SLOTS, dt) for M in GROUPED_MS for K, N, _ in LORA_SHAPES
              for dt in ("bf16", "f32")]
     cases += [(5, 72, 100, 8, 3, dt) for dt in ("bf16", "f32")]
+    cases += [(BATCH + 64, 768, 768, 320, ADAPTER_SLOTS, dt) for dt in ("bf16", "f32")]  # r > 256
     with full_f32_matmul(), torch.no_grad():
         for i, (M, K, N, r, S, dtype) in enumerate(cases):
             x, w, a, b, s, idx = make_grouped_case(torch, device, M, K, N, r, S, dtype, seed=71 + i)
@@ -1632,6 +1700,7 @@ def main() -> int:
     t0 = time.perf_counter()
     libs = _build.build_all()
     print(f"build: {sorted(libs)} in {time.perf_counter() - t0:.1f}s")
+    count_hmma(libs["flash_attention"])
 
     rows = check_kernels(torch, device)
     flash_rows = check_flash_kernels(torch, device)
@@ -1699,5 +1768,62 @@ def main() -> int:
     return 0
 
 
+def ab(argv) -> int:
+    """``python3 chip_smoke.py --ab DIR [--train [FLAGS...]]``: one JSON line
+    of the times of the package in the checkout at DIR (another tree, such
+    as the parent unpacked with ``git archive``) by this script's timer and
+    shapes, so two trees compare on one card when run in turns in one call
+    (parent, change, change, parent).  Without ``--train``: kernel 3 at the
+    train phase's shape, bf16 (forward, dK/dV, dQ, the backward pair, and
+    forward+backward through autograd), 100 launches each.  With it: the
+    train phase (plus FLAGS) run twice, each run's median ms per update of
+    updates 2-9."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; nothing to time", file=sys.stderr)
+        return 2
+    tree = os.path.abspath(argv[1])
+    sys.path.insert(0, tree)
+    import relora_tpu_torch
+
+    if not os.path.abspath(relora_tpu_torch.__file__).startswith(tree + os.sep):
+        raise RuntimeError(f"imported {relora_tpu_torch.__file__}, not the package in {tree}")
+    out = {"tree": argv[1], "card": torch.cuda.get_device_name(0)}
+    if argv[2:3] == ["--train"]:
+        from relora_tpu_torch import main as train_main
+
+        work = os.path.join(REPO, "build", "chip_smoke")
+        os.makedirs(work, exist_ok=True)
+        args = TRAIN_ARGS + argv[3:] + ["--megatron_dataset_config", write_corpus(work)]
+        out["flags"] = argv[3:]
+        for key in ("warm_ms_per_update", "ms_per_update"):
+            steady = sorted(r["update_seconds"] for r in train_main.main(args)["records"][1:])
+            out[key] = steady[len(steady) // 2] * 1e3
+    else:
+        from relora_tpu_torch.ops import flash_attention as FA
+
+        B, S, N, n_kv, H, dtype = FLASH_CASES[0]
+        q, k, v, dout = make_flash_case(torch, torch.device("cuda"), B, S, N, n_kv, H, dtype, seed=99)
+        scale = H**-0.5
+        o, lse = FA.flash_attention_forward(q, k, v, scale)
+        bwd = (q, k, v, dout, lse, FA.flash_attention_delta(o, dout), scale)
+
+        def fwd_bwd():
+            leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+            return torch.autograd.grad(FA.flash_attention(*leaves), leaves, dout)
+
+        for key, fn in (
+            ("forward_ms", lambda: FA.flash_attention_forward(q, k, v, scale)),
+            ("dkdv_ms", lambda: FA.flash_attention_bwd_dkdv(*bwd)),
+            ("dq_ms", lambda: FA.flash_attention_bwd_dq(*bwd)),
+            ("backward_ms", lambda: (FA.flash_attention_bwd_dkdv(*bwd), FA.flash_attention_bwd_dq(*bwd))),
+            ("fwd_bwd_ms", fwd_bwd),
+        ):
+            out[key] = time_ms(torch, fn, iters=100)
+    print(json.dumps(out))
+    return 0
+
+
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(ab(sys.argv[1:]) if sys.argv[1:2] == ["--ab"] else main())

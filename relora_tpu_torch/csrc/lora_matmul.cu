@@ -34,7 +34,9 @@
 // its column's scale as the tile is staged, the f32 value the TPU kernel
 // forms in VMEM, so no dequantized copy of W is ever written.  s is read from
 // a device pointer (the trainable tanh(lora_s)) or given by value, so no call
-// needs a host sync.  Any M, K, N and r: ragged tiles are masked.
+// needs a host sync.  Any M, K, N and r (a rank past 256 included, as the
+// TPU kernels take it: the GEMM's contraction segments have no rank limit and
+// kernel 5's z pass walks the rank in chunks of 256): ragged tiles are masked.
 //
 // Design.  One tiled GEMM kernel, lora_gemm_kernel, computes
 //     C = P1 @ Q1 + P2 @ (s * Q2)
@@ -84,7 +86,8 @@
 // too each row reads its own slot's factors in place, and z is computed once
 // per row, not once per N stripe as the TPU grid (M, N/bn) does.  Two launches:
 //   z:  part[c, m, :] = x[m, chunk c] @ A[idx[m]][chunk c], chunks of 256 rows
-//       of K, so that even M = 8 decode rows spread over many blocks;
+//       of K, so that even M = 8 decode rows spread over many blocks; a thread
+//       owns one rank column, the columns taken 256 at a time, so any r;
 //   y:  lora_gemm_kernel's tiling: x @ W with one W tile per block for all its
 //       rows, then, for each slot present among the block's rows, z (summed
 //       over the chunks in order) of that slot's rows times s * B[slot]; a
@@ -276,9 +279,11 @@ __global__ void lora_dab_reduce_kernel(const float* part, int chunks, long long 
 // Kernel 5, pass 1: part[c, m, j] = sum over k in chunk c of x[m, k] *
 // A[idx[m], k, j], chunks of kZChunk rows of K; a row whose slot is outside
 // [0, slots) gets zeros.  Block (c, m-stride): x's chunk of the row is staged
-// in shared memory; thread t owns rank column j = t % rp (rp = r rounded up to
-// 32, so a warp reads 32 neighbouring elements of A's row) and every
-// (256 / rp)-th k of the chunk; the k groups are summed in a fixed order.
+// in shared memory; the rank columns go in chunks of up to 256 (one chunk up
+// to r = 256, so any r): within a chunk of rc columns, thread t owns column
+// j = t % rp (rp = rc rounded up to 32, so a warp reads 32 neighbouring
+// elements of A's row) and every (256 / rp)-th k of the chunk; the k groups
+// are summed in a fixed order.
 __global__ void __launch_bounds__(kThreads) grouped_z_kernel(const void* x, const void* a,
                                                             const int* idx, int slots,
                                                             float* part, int M, int K, int r,
@@ -287,8 +292,6 @@ __global__ void __launch_bounds__(kThreads) grouped_z_kernel(const void* x, cons
   __shared__ float red[kThreads];
   const int c = blockIdx.x, tid = threadIdx.x;
   const int k0 = c * kZChunk, k1 = min(K, k0 + kZChunk);
-  const int rp = (r + 31) / 32 * 32, groups = kThreads / rp;
-  const int j = tid % rp, grp = tid / rp;
   const Mat xm = {x, K, 1, dtype, nullptr, 0, 0};
   const Mat am = {a, r, 1, dtype, nullptr, 0, 0};  // slot s, row k is row s*K + k
   for (int m = blockIdx.y; m < M; m += gridDim.y) {
@@ -296,18 +299,23 @@ __global__ void __launch_bounds__(kThreads) grouped_z_kernel(const void* x, cons
     const bool live = slot >= 0 && slot < slots;
     for (int k = k0 + tid; k < k1; k += kThreads) xs[k - k0] = live ? load(xm, m, k) : 0.f;
     __syncthreads();
-    float acc = 0.f;
-    if (live && j < r && grp < groups)
-      for (int k = k0 + grp; k < k1; k += groups)
-        acc = fmaf(xs[k - k0], load(am, (long long)slot * K + k, j), acc);
-    red[tid] = acc;
-    __syncthreads();
-    if (grp == 0 && j < r) {
-      float sum = 0.f;
-      for (int q = 0; q < groups; ++q) sum += red[q * rp + j];
-      part[((long long)c * M + m) * r + j] = sum;
+    for (int j0 = 0; j0 < r; j0 += kThreads) {
+      const int rc = min(kThreads, r - j0);
+      const int rp = (rc + 31) / 32 * 32, groups = kThreads / rp;
+      const int j = tid % rp, grp = tid / rp;
+      float acc = 0.f;
+      if (live && j < rc && grp < groups)
+        for (int k = k0 + grp; k < k1; k += groups)
+          acc = fmaf(xs[k - k0], load(am, (long long)slot * K + k, j0 + j), acc);
+      red[tid] = acc;
+      __syncthreads();
+      if (grp == 0 && j < rc) {
+        float sum = 0.f;
+        for (int q = 0; q < groups; ++q) sum += red[q * rp + j];
+        part[((long long)c * M + m) * r + j0 + j] = sum;
+      }
+      __syncthreads();  // red, and after the last chunk xs, are free again
     }
-    __syncthreads();
   }
 }
 
@@ -602,7 +610,7 @@ int grouped_lora_forward_launch(const void* x, const void* w, long long w_s0, lo
                                 const void* a, const void* b, const float* s, const int* idx,
                                 float* part, void* y, int M, int K, int N, int r, int slots,
                                 int dtype, void* stream) {
-  if (bad_args(M, K, N, r, dtype) || r > 256 || slots <= 0) return (int)cudaErrorInvalidValue;
+  if (bad_args(M, K, N, r, dtype) || slots <= 0) return (int)cudaErrorInvalidValue;
   if (M == 0) return (int)cudaSuccess;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int chunks = tiles(K, kZChunk);

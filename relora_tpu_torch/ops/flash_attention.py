@@ -3,7 +3,11 @@
 Replaces the TPU flash kernel that ``relora_tpu/ops/attention.py:84``
 (``_pallas_attention``) reaches through JAX's Pallas library (forward, dK/dV
 and dQ ``pallas_call``\\ s).  ``csrc/flash_attention.cu`` holds the Hopper
-kernels; its header note gives the design and the bound.  Here:
+kernels; its header note gives the design and the bound.  The dtype alone
+picks the kernels: bf16 tensors always launch the tensor-core kernels
+(``mma.sync`` bf16 products, f32 accumulation), f32 tensors always launch the
+f32 FMA kernels, which are exact to summation order.  A bf16 call those
+kernels cannot take raises; it never drops to the f32 kernels.  Here:
 
 - :func:`flash_attention_forward` ``(q, k, v) -> (out, lse)``,
   :func:`flash_attention_bwd_dkdv` ``-> (dk, dv)`` and
@@ -19,7 +23,9 @@ kernels; its header note gives the design and the bound.  Here:
 Layouts follow the JAX package: ``q`` ``(B, S, N, H)``, ``k``/``v`` ``(B, S,
 n_kv, H)`` with ``N % n_kv == 0`` (query head ``h`` reads kv head ``h //
 (N // n_kv)``), ``lse`` and ``delta`` ``(B, N, S)`` f32.  Key ``j`` is visible
-to query ``i`` iff ``j <= i``.  Math is f32; outputs take the input dtype.
+to query ``i`` iff ``j <= i``.  Sums and the softmax are f32 (bf16: the
+tensor-core products take bf16 operands, P and dS rounded to bf16 in
+registers); outputs take the input dtype.
 """
 
 from __future__ import annotations
@@ -137,7 +143,7 @@ def _kernel_library():
         lib.flash_attention_bwd_dq_launch.argtypes = [vp] * 7 + [i32] * 5 + [f32, i32, vp]
         for fn in ("forward", "bwd_dkdv", "bwd_dq"):
             getattr(lib, f"flash_attention_{fn}_launch").restype = i32
-        lib.flash_attention_smem_bytes.argtypes = [i32, i32]
+        lib.flash_attention_smem_bytes.argtypes = [i32, i32, i32]
         lib.flash_attention_smem_bytes.restype = ctypes.c_size_t
         lib.flash_attention_error_string.argtypes = [i32]
         lib.flash_attention_error_string.restype = ctypes.c_char_p
@@ -169,10 +175,11 @@ def _check(kernel: str, q, k, v, *others):
     if H % 2 or H > MAX_HEAD_DIM:
         raise ValueError(f"head_dim {H} must be even and <= {MAX_HEAD_DIM}")
     lib = _kernel_library()
-    smem = lib.flash_attention_smem_bytes(_KERNELS[kernel], H)
+    code = _DTYPE_CODE[q.dtype]
+    smem = lib.flash_attention_smem_bytes(_KERNELS[kernel], H, code)
     if smem > _MAX_SMEM:
         raise ValueError(f"head_dim {H} needs {smem} B of shared memory (> {_MAX_SMEM})")
-    return lib, (B, S, N, n_kv, H), _DTYPE_CODE[q.dtype]
+    return lib, (B, S, N, n_kv, H), code
 
 
 def _raise_on_error(lib, err: int, what: str) -> None:
@@ -193,7 +200,9 @@ def flash_attention_forward(
     log-sum-exp ``lse`` ``(B, N, S)`` f32 the backward needs.
 
     A CPU ``q`` runs :func:`flash_attention_forward_plain`; any other device
-    launches ``flash_fwd_kernel`` (csrc/flash_attention.cu) or raises."""
+    launches the forward kernel of ``csrc/flash_attention.cu`` (bf16:
+    ``flash_fwd_tc_kernel`` on the tensor cores; f32: ``flash_fwd_kernel``)
+    or raises."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
     if q.device.type == "cpu":
@@ -219,7 +228,8 @@ def flash_attention_bwd_dkdv(q, k, v, dout, lse, delta, scale: Optional[float] =
     and :func:`flash_attention_delta`.
 
     A CPU ``q`` runs :func:`flash_attention_bwd_dkdv_plain`; any other device
-    launches ``flash_bwd_dkdv_kernel`` or raises."""
+    launches the dK/dV kernel (bf16: ``flash_bwd_dkdv_tc_kernel``; f32:
+    ``flash_bwd_dkdv_kernel``) or raises."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
     if q.device.type == "cpu":
@@ -248,7 +258,8 @@ def flash_attention_bwd_dq(q, k, v, dout, lse, delta, scale: Optional[float] = N
     :func:`flash_attention_delta`.
 
     A CPU ``q`` runs :func:`flash_attention_bwd_dq_plain`; any other device
-    launches ``flash_bwd_dq_kernel`` or raises."""
+    launches the dQ kernel (bf16: ``flash_bwd_dq_tc_kernel``; f32:
+    ``flash_bwd_dq_kernel``) or raises."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
     if q.device.type == "cpu":

@@ -50,8 +50,6 @@ import torch
 from relora_tpu_torch.ops._build import library, ptr_arg, stream_arg
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-#: largest LoRA rank the kernels take
-MAX_RANK = 256
 
 Scale = Union[float, torch.Tensor]
 
@@ -214,8 +212,6 @@ def _factor_shapes(w, a, b) -> Tuple[int, int, int]:
     r = a.shape[1]
     if a.shape[0] != K or tuple(b.shape) != (r, N):
         raise ValueError(f"LoRA factor shapes {tuple(a.shape)} x {tuple(b.shape)} do not match base ({K}, {N})")
-    if not 0 < r <= MAX_RANK:
-        raise ValueError(f"LoRA rank {r} must be in 1..{MAX_RANK}")
     return K, N, r
 
 
@@ -309,8 +305,6 @@ def fused_lora_bwd_dab(g, x, z, b, s: Scale = 1.0, u=None) -> Tuple[torch.Tensor
     M, N = g.shape
     K = x.shape[1]
     r = b.shape[0]
-    if not 0 < r <= MAX_RANK:
-        raise ValueError(f"LoRA rank {r} must be in 1..{MAX_RANK}")
     g, x, b = _rows(g, (M, N), "g"), _rows(x, (M, K), "x"), _rows(b, (r, N), "B")
     z = _rows(z, (M, r), "z", torch.float32)
     code = _dtype_code(g, x, b)
@@ -411,8 +405,6 @@ def grouped_shapes(x, w, a_stack, b_stack, idx) -> Tuple[int, int, int, int, int
         raise ValueError(
             f"B stack {tuple(b_stack.shape)} does not match A stack {tuple(a_stack.shape)} / base N={N}"
         )
-    if not 0 < r <= MAX_RANK:
-        raise ValueError(f"LoRA rank {r} must be in 1..{MAX_RANK}")
     M = x.numel() // K
     if idx.numel() != M:
         raise ValueError(
@@ -537,8 +529,6 @@ def _check_composite(K: int, base: torch.Tensor, a: torch.Tensor, b: torch.Tenso
         raise ValueError(
             f"LoRA factor shapes {tuple(a.shape)} x {tuple(b.shape)} do not match base ({K}, {N})"
         )
-    if not 0 < a.shape[1] <= MAX_RANK:
-        raise ValueError(f"LoRA rank {a.shape[1]} must be in 1..{MAX_RANK}")
     return N
 
 
@@ -550,9 +540,9 @@ def fused_lora_matmul(
     ``x``: ``(..., K)``; ``w``: ``(K, N)`` frozen base (contiguous or a
     transposed view); ``a``: ``(K, r)``; ``b``: ``(r, N)``; ``scale``: a
     float or a one-element tensor.  Differentiable in x, a, b and a tensor
-    scale; ``w`` is detached, so it gets no gradient.  Any M, K and N and a
-    rank up to :data:`MAX_RANK`: there is no tiling condition and no unfused
-    fallback."""
+    scale; ``w`` is detached, so it gets no gradient.  Any M, K, N and rank,
+    as the JAX package's fused kernel: there is no tiling condition and no
+    unfused fallback."""
     K = x.shape[-1]
     N = _check_composite(K, w, a, b)
     lead = x.shape[:-1]

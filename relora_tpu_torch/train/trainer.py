@@ -28,10 +28,13 @@ checkpoint's ``state/``), loss-spike rollback, pruning, magnitude re-init,
 parallelism beyond one device.  ``--lora_fused true`` runs every LoRA
 projection through the fused kernels wherever dropout is not active.
 
-Randomness comes from ``torch.Generator``\\ s seeded from ``--seed``: weights
-(``seed``), LoRA dropout (``seed + 1``, one seed per microbatch), the A
-re-draw at merges (``seed + 2``) and random moment pruning (``seed + 3``).
-They draw other bits than the JAX package's ``jax.random`` keys.
+Randomness is keyed, as the JAX package's ``fold_in(PRNGKey(seed + k),
+update_step)``: the weights come from ``seed``; LoRA dropout (``k = 1``, one
+seed per microbatch), the A re-draw at a merge (``k = 2``) and random moment
+pruning (``k = 3``) at update ``t`` from :func:`fold_in` of ``(seed + k, t)``
+alone, never from a generator that runs across updates, so a run reaching
+``t`` by any path draws the same bits there.  They are other bits than the
+JAX package's ``jax.random`` keys.
 """
 
 from __future__ import annotations
@@ -58,6 +61,29 @@ from relora_tpu_torch.train.resilience import PreemptionGuard
 from relora_tpu_torch.train.step import TrainState, eval_step, make_train_step
 
 logger = logging.getLogger(__name__)
+
+_MASK64 = (1 << 64) - 1
+
+
+def fold_in(seed: int, data: int) -> int:
+    """A 63-bit seed that depends only on ``(seed, data)``: splitmix64's
+    finaliser over the pair packed into 64 bits, so neighbouring pairs give
+    unrelated seeds (the port's counterpart of ``jax.random.fold_in``)."""
+    x = ((((seed & 0xFFFFFFFF) << 32) | (data & 0xFFFFFFFF)) + 0x9E3779B97F4A7C15) & _MASK64
+    x = ((x ^ (x >> 30)) * 0xBF58476D1CE4E5B9) & _MASK64
+    x = ((x ^ (x >> 27)) * 0x94D049BB133111EB) & _MASK64
+    return (x ^ (x >> 31)) >> 1
+
+
+def keyed_generator(seed: int, update_step: int, device) -> torch.Generator:
+    """A fresh generator on ``device`` seeded from ``(seed, update_step)``."""
+    return torch.Generator(device=device).manual_seed(fold_in(seed, update_step))
+
+
+def dropout_seeds(seed: int, update_step: int, microbatches: int) -> list:
+    """The LoRA dropout seed of each microbatch of update ``update_step``."""
+    key = fold_in(seed, update_step)
+    return [fold_in(key, i) for i in range(microbatches)]
 
 _DTYPES = {
     "bfloat16": torch.bfloat16,
@@ -210,9 +236,6 @@ class Trainer:
             loss_impl=cfg.loss_impl,
             log_per_layer_scaling=cfg.train_scaling,
         )
-        self._dropout_gen = torch.Generator().manual_seed(cfg.seed + 1)
-        self._merge_gen = torch.Generator(device=self.device).manual_seed(cfg.seed + 2)
-        self._reset_gen = torch.Generator(device=self.device).manual_seed(cfg.seed + 3)
         self.records: list = []
 
     # ------------------------------------------------------------------
@@ -251,7 +274,7 @@ class Trainer:
                     self.global_step += self.grad_accum
                     continue
                 self.tokens_seen += int(np.asarray(batch).size)
-                seeds = torch.randint(0, 2**62, (self.grad_accum,), generator=self._dropout_gen).tolist()
+                seeds = dropout_seeds(cfg.seed + 1, self.update_step, self.grad_accum)
                 metrics = self._train_step(self.state, self._device_batch(batch), seeds)
                 self.update_step += 1
                 self._local_updates += 1
@@ -275,7 +298,8 @@ class Trainer:
                 ):
                     t0 = time.perf_counter()
                     self.n_lora_restarts += 1
-                    merge_and_reinit(self.model, self._merge_gen, self.lora_spec)
+                    merge_and_reinit(self.model, keyed_generator(cfg.seed + 2, self.update_step, self.device),
+                                     self.lora_spec)
                     logger.info(
                         f"LoRA merge #{self.n_lora_restarts} at update {self.update_step} "
                         f"took {time.perf_counter() - t0:.2f}s"
@@ -293,7 +317,7 @@ class Trainer:
                         self.optimizer, self.model,
                         mode=cfg.optimizer_reset_mode or "zero",
                         ratio=cfg.optimizer_reset_ratio,
-                        generator=self._reset_gen,
+                        generator=keyed_generator(cfg.seed + 3, self.update_step, self.device),
                     )
                     z = zeroed_fraction(self.optimizer)
                     logger.info(

@@ -100,7 +100,8 @@ def torch_args(*arrays):
     return [torch.from_numpy(np.ascontiguousarray(t)) for t in arrays]
 
 
-@pytest.mark.parametrize("shape", [(6, 32, 128, 4, 3), (5, 72, 100, 8, 3)], ids=["mixed", "ragged"])
+@pytest.mark.parametrize("shape", [(6, 32, 128, 4, 3), (5, 72, 100, 8, 3), (6, 32, 128, 320, 3)],
+                         ids=["mixed", "ragged", "rank320"])
 def test_grouped_twin_matches_jax_kernel_and_reference(shape):
     M, K, N, r, S = shape
     ops = grouped_operands(M, K, N, r, S)
@@ -131,9 +132,12 @@ def test_grouped_shape_errors():
         grouped_lora_matmul(x, w, a, b[:, :, :64], s, idx)
     with pytest.raises(ValueError, match="adapter_idx"):
         grouped_lora_matmul(x, w, a, b, s, idx[:3])
-    with pytest.raises(ValueError, match="rank"):
-        big = torch.zeros(3, 32, 257)
-        grouped_lora_matmul(x, w, big, torch.zeros(3, 257, 128), s, idx)
+    with pytest.raises(ValueError, match="B stack"):
+        grouped_lora_matmul(x, w, torch.zeros(3, 32, 257), torch.zeros(3, 256, 128), s, idx)
+    # any rank is taken: zero adapters of rank 257 leave the base product
+    big = torch.zeros(3, 32, 257)
+    torch.testing.assert_close(grouped_lora_matmul(x, w, big, torch.zeros(3, 257, 128), s, idx), x @ w,
+                               rtol=0, atol=0)
     with pytest.raises(ValueError, match="unknown grouped arm"):
         lora_matmul_grouped(x, w, a, b, s, idx, arm="fused")
     with pytest.raises(ValueError, match="dense base"):

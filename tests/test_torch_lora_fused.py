@@ -78,7 +78,7 @@ def _close(got, want, name):
     np.testing.assert_allclose(got, want, atol=atol, rtol=0, err_msg=name)
 
 
-@pytest.mark.parametrize("r", [8, 128])
+@pytest.mark.parametrize("r", [8, 128, 320])
 def test_forward_twin_matches_jax_interpret_kernel(r):
     """y and z of the forward twin against the JAX forward kernel (interpret)."""
     x, w, a, b, _ = _operands(64, 256, 128, r, seed=r)
@@ -131,6 +131,19 @@ def test_gradients_match_jax_grad_of_fused_kernel(scale):
         _close(gt, wt, name)
 
 
+@pytest.mark.parametrize("scale", [0.5, np.array([0.7], np.float32)], ids=["static", "tensor_s"])
+def test_rank_past_256_matches_jax_fused_arm(scale):
+    """r = 320, past the 256 the port's kernels once refused: y and the
+    gradients through lora_matmul(arm="fused") against the JAX dispatcher's
+    fused arm, whose kernels take any rank (interpret)."""
+    x, w, a, b, g = _operands(64, 256, 128, 320, seed=5)
+    want = _jax_vjp(x, w, a, b, g, scale, arm="fused", interpret=True)
+    got = _torch_grads(x, w, a, b, g, scale,
+                       fn=lambda xx, ww, aa, bb, ss: lora_matmul(xx, ww, aa, bb, ss, arm="fused"))
+    for name, gt, wt in zip(("y", "dx", "dA", "dB", "ds"), got, want):
+        _close(gt, wt, name)
+
+
 def test_ragged_shape_matches_jax_fused_arm():
     """M=10, N=100 do not tile for JAX, whose fused arm falls back to ordered;
     the port's fused path takes them as they are."""
@@ -175,8 +188,11 @@ def test_dispatch_auto_and_unknown_arms_raise():
         lora_matmul(x, w, a, b, 1.0, arm="tiled")
     with pytest.raises(ValueError, match="contraction mismatch"):
         LM.fused_lora_matmul(x, w[:8], a, b)
-    with pytest.raises(ValueError, match="rank"):
-        LM.fused_lora_matmul(x, w, torch.zeros(16, 300), torch.zeros(300, 8))
+    with pytest.raises(ValueError, match="factor shapes"):
+        LM.fused_lora_matmul(x, w, torch.zeros(16, 300), torch.zeros(299, 8))
+    # any rank is taken: zero factors of rank 300 leave the base product
+    torch.testing.assert_close(LM.fused_lora_matmul(x, w, torch.zeros(16, 300), torch.zeros(300, 8)),
+                               x @ w, rtol=0, atol=0)
 
 
 def _count_calls(monkeypatch, module, name):

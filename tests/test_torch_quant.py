@@ -174,7 +174,7 @@ def test_dequant_matmul_leading_dims_and_no_scale_grad():
 # --------------------------------------------------------- kernels 4, 6 int8
 
 
-@pytest.mark.parametrize("r", [8, 128])
+@pytest.mark.parametrize("r", [8, 128, 320])
 def test_int8_twins_match_jax_interpret_kernels(r):
     """y, z of the int8 forward twin and dx of the int8 dx twin against the
     JAX int8 forward and dx kernels (interpret); u against g @ Bᵀ."""
@@ -221,11 +221,13 @@ def _torch_int8_grads(x, q, qs, a, b, g, s):
     return [y, xt.grad, qst.grad, at.grad, bt.grad] + ([st.grad] if not isinstance(s, float) else [])
 
 
+@pytest.mark.parametrize("r", [8, 320])
 @pytest.mark.parametrize("scale", [0.5, np.array([0.7], np.float32)], ids=["static", "tensor_s"])
-def test_fused_int8_gradients_match_jax_grad(scale):
+def test_fused_int8_gradients_match_jax_grad(scale, r):
     """y, dx, dqscale, dA, dB (and ds) through FusedLoRAMatmulInt8 against
-    jax.vjp of fused_lora_matmul_int8 (interpret)."""
-    x, q, qs, a, b, g = _int8_operands(64, 256, 128, 8, seed=3)
+    jax.vjp of fused_lora_matmul_int8 (interpret), at r = 8 and at r = 320,
+    past the 256 the port's kernels once refused."""
+    x, q, qs, a, b, g = _int8_operands(64, 256, 128, r, seed=3)
     want = _jax_int8_vjp(x, q, qs, a, b, g, scale)
     got = _torch_int8_grads(x, q, qs, a, b, g, scale)
     for name, gt, wt in zip(("y", "dx", "dqscale", "dA", "dB", "ds"), got, want):

@@ -37,7 +37,8 @@ from relora_tpu_torch.data.memmap import MemmapTokenWriter
 from relora_tpu_torch.models.convert import params_from_jax
 from relora_tpu_torch.models.llama import LlamaForCausalLM
 from relora_tpu_torch.models.params_util import init_params
-from relora_tpu_torch.train.trainer import Trainer
+from relora_tpu_torch.train import trainer as trainer_mod
+from relora_tpu_torch.train.trainer import Trainer, keyed_generator
 
 pytestmark = pytest.mark.torch_port
 
@@ -105,6 +106,88 @@ def test_trainer_fit_tracks_jax_loss_per_update(tmp_path, monkeypatch):
     assert result["update_step"] == 6
     assert (result["n_lora_restarts"], result["n_optimizer_resets"]) == (1, 1)
     assert got[-1] < got[0]
+
+
+def _record_draws(monkeypatch, trainer):
+    """Spy on the trainer's three keyed draws; returns ``{kind: {update:
+    value}}``: the dropout seeds of each update, the first module's fresh A
+    at each merge and the reset generator's state at each reset."""
+    draws = {"dropout": {}, "merge_a": {}, "reset": {}}
+    step = trainer._train_step
+
+    def spy_step(state, batch, seeds):
+        draws["dropout"][trainer.update_step + 1] = list(seeds)
+        return step(state, batch, seeds)
+
+    def spy_merge(model, generator, spec):
+        out = real_merge(model, generator, spec)
+        name = next(relora.lora_modules(model))[0]
+        draws["merge_a"][trainer.update_step] = model.get_submodule(name).lora_a.detach().clone()
+        return out
+
+    def spy_reset(optimizer, model, **kw):
+        draws["reset"][trainer.update_step] = kw["generator"].get_state().clone()
+        return real_reset(optimizer, model, **kw)
+
+    real_merge, real_reset = trainer_mod.merge_and_reinit, trainer_mod.reset_optimizer_state
+    trainer._train_step = spy_step
+    monkeypatch.setattr(trainer_mod, "merge_and_reinit", spy_merge)
+    monkeypatch.setattr(trainer_mod, "reset_optimizer_state", spy_reset)
+    return draws
+
+
+def test_draws_are_keyed_by_seed_and_update_step(tmp_path, monkeypatch):
+    """Dropout seeds, the merge's fresh A and the random-pruning reset's
+    generator at update t depend only on (seed, t): a run that reaches t
+    straight and a fresh Trainer whose counters start at t - 1 draw the
+    same, and t and t + 1 (or the next merge) draw differently."""
+    recipe = {**RECIPE, "num_training_steps": 9, "lora_dropout": 0.1,
+              "reset_optimizer_on_relora": False, "optimizer_random_pruning": 0.5}
+    cfg = TrainingConfig(megatron_dataset_config=_data_config(tmp_path), dtype="float32",
+                         device="cpu", **recipe).finalize()
+    batches = np.random.default_rng(2).integers(0, 128, (9, 2, 4, 16))
+    straight = Trainer(cfg, model_cfg=ModelConfig(**TINY))
+    want = _record_draws(monkeypatch, straight)
+    straight.fit(iter(batches))
+    assert sorted(want["merge_a"]) == sorted(want["reset"]) == [4, 7]
+
+    resumed = Trainer(cfg, model_cfg=ModelConfig(**TINY))
+    # the counters as they stood after update 3 (the cadence counts the
+    # updates run since the start)
+    resumed.update_step, resumed.global_step, resumed._local_updates = 3, 3 * resumed.grad_accum, 3
+    got = _record_draws(monkeypatch, resumed)
+    resumed.fit(iter(batches[3:]))
+
+    assert sorted(got["dropout"]) == list(range(4, 10))
+    for t in range(4, 10):
+        assert got["dropout"][t] == want["dropout"][t]
+        assert want["dropout"][t] != want["dropout"][t - 1]
+        assert len(set(want["dropout"][t])) == len(want["dropout"][t])  # one seed per microbatch
+    for t in (4, 7):
+        torch.testing.assert_close(got["merge_a"][t], want["merge_a"][t], rtol=0, atol=0)
+        assert torch.equal(got["reset"][t], want["reset"][t])
+    assert not torch.equal(want["merge_a"][4], want["merge_a"][7])
+    assert not torch.equal(want["reset"][4], want["reset"][7])
+    for k in (1, 2, 3):
+        draw = [torch.rand(8, generator=keyed_generator(k, t, "cpu")) for t in (4, 5, 4)]
+        assert torch.equal(draw[0], draw[2]) and not torch.equal(draw[0], draw[1])
+
+
+def test_trainer_fit_takes_a_rank_past_256(tmp_path):
+    """lora_r = 320 with the fused path: the trainer, LoRALinear and the
+    fused Function take it (on the CPU through the twins), train, merge and
+    reset."""
+    cfg = TrainingConfig(megatron_dataset_config=_data_config(tmp_path), dtype="float32",
+                         device="cpu", lora_fused="true", **{**RECIPE, "lora_r": 320}).finalize()
+    trainer = Trainer(cfg, model_cfg=ModelConfig(**TINY))
+    module = next(relora.lora_modules(trainer.model))[1]
+    assert module.lora_a.shape[-1] == 320 and trainer.lora_spec.fused
+    rng = np.random.default_rng(0)
+    batches = ((rng.integers(0, 128, (6, 2, 4, 1)) + np.arange(16)) % 128).astype(np.int32)
+    result = trainer.fit(iter(batches))
+    losses = [r["loss"] for r in result["records"]]
+    assert len(losses) == 6 and np.isfinite(losses).all() and losses[-1] < losses[0]
+    assert (result["n_lora_restarts"], result["n_optimizer_resets"]) == (1, 1)
 
 
 def test_sigterm_stops_at_the_update_boundary(tmp_path):
