@@ -87,14 +87,23 @@ Phases, in order; any failure raises and the script exits non-zero:
                gradient norm; then one int8 merge on the card against an f64
                oracle, to the requant rule.
 
-15. kernels-5 — kernel 5 (the grouped multi-tenant LoRA forward) against its
-               twin at bf16 and f32: M in {8, 64, 72} (decode rows, a prefill
-               chunk, a packed step) x the three projection shapes, r=128,
-               S=4 slots, a mixed idx that includes slot 0, W the transposed
-               view; a ragged M=5, K=72, N=100, r=8, S=3; and r=320 (two
-               rank chunks of the z pass) at M=72, K=N=768, S=4; then each M and
-               shape timed beside its twin, the gathered chain (cuBLAS x @ W
-               plus the gathered bmm composite) and its bound.
+15. kernels-5 — ``nvcc -Xptxas -v`` registers and spills of kernel 5's four
+               kernels and the HMMA count of its two bf16 tensor-core
+               kernels (printed before the phase starts); kernel 5 (the
+               grouped multi-tenant LoRA forward) against its twin at bf16
+               and f32: M in {8, 64, 72} (decode rows, a prefill chunk, a
+               packed step) x the three projection shapes, r=128, S=4 slots,
+               a mixed idx that includes slot 0, W the transposed view; a
+               ragged M=5, K=72, N=100, r=8, S=3 (the FMA path at bf16); r=320
+               (three rank passes of the reduce kernel) at M=72, K=N=768,
+               S=4; rows with idx -1 and S (held to x @ W), M=1, every row on
+               one slot, a slot no row uses, a contiguous (K, N) W, a ragged
+               shape on the tensor cores (M=5, K=72, N=104, r=8); and batch
+               invariance: the rows of an M=8 call bit-equal to the same rows
+               of an M=72 call whose other rows sit on other slots, at each
+               projection shape.  Then each M and shape timed beside its twin,
+               the gathered chain (cuBLAS x @ W plus the gathered bmm
+               composite) and its bound.
 16. adapters  — a seeded llama_250m base (LoRA r=128) and three seeded tenant
                adapters (tA, tB, tC; alpha 32, 64, 16) written under
                ``build/chip_smoke/`` by ``train/checkpoint.save_checkpoint``;
@@ -112,8 +121,8 @@ Phases, in order; any failure raises and the script exits non-zero:
                kernel arm (kernel 5, the paged kernels) against the plain arm
                (the gathered composite, naive attention), compared on logits.
 
-``python3 chip_smoke.py --ab DIR [--train [FLAGS...]]`` times another
-checkout's package instead (see :func:`ab`); it checks nothing.
+``python3 chip_smoke.py --ab DIR [--train [FLAGS...] | --grouped | --tenants]``
+times another checkout's package instead (see :func:`ab`); it checks nothing.
 
 Output: a forward+backward timing line, one line per drain, a train line, a
 LoRA timing line, a fused-train line, an int8 timing line, the int8 train
@@ -395,26 +404,64 @@ def flash_bound(q, k, kernel):
 FLASH_TC_KERNELS = ("flash_fwd_tc_kernel", "flash_bwd_dkdv_tc_kernel", "flash_bwd_dq_tc_kernel")
 
 
-def count_hmma(lib_path):
-    """``{kernel: HMMA instructions in its SASS}`` of the bf16 flash kernels
-    in the built library (all head-dim instantiations summed), read with
+def count_hmma(lib_path, kernels):
+    """``{kernel: HMMA instructions in its SASS}`` of the named tensor-core
+    kernels in the built library (all instantiations summed), read with
     ``cuobjdump -sass``: nonzero shows the tensor cores are used."""
     from relora_tpu_torch.ops import _build
 
     cuobjdump = os.path.join(os.path.dirname(_build.find_nvcc()), "cuobjdump")
     sass = subprocess.run([cuobjdump, "-sass", str(lib_path)], capture_output=True, text=True,
                           check=True).stdout
-    counts = dict.fromkeys(FLASH_TC_KERNELS, 0)
+    counts = dict.fromkeys(kernels, 0)
     current = None
     for line in sass.splitlines():
         if "Function :" in line:
-            current = next((k for k in FLASH_TC_KERNELS if k in line), None)
+            current = next((k for k in kernels if k in line), None)
         elif current and "HMMA" in line:
             counts[current] += 1
     print(json.dumps({"sass_hmma": counts, "library": os.path.relpath(str(lib_path), REPO)}))
     if not all(counts.values()):
-        raise AssertionError(f"a bf16 flash kernel has no HMMA instruction: {counts}")
+        raise AssertionError(f"a tensor-core kernel has no HMMA instruction: {counts}")
     return counts
+
+
+def ptxas_report(source, kernels):
+    """Start ``nvcc -Xptxas -v`` on ``source`` (the build's flags, into a
+    throwaway object under ``build/``); the returned function waits for it and
+    prints ``{kernel: registers, spills, smem}`` of the named kernels."""
+    from relora_tpu_torch.ops import _build
+
+    out = os.path.join(REPO, "build", "ptxas", os.path.basename(str(source)) + ".o")
+    os.makedirs(os.path.dirname(out), exist_ok=True)
+    flags = [f for f in _build.NVCC_FLAGS if f not in ("-shared",)]
+    proc = subprocess.Popen(
+        [_build.find_nvcc(), *flags, "-Xptxas", "-v", "-c", "-I", str(_build.CSRC), "-o", out,
+         str(source)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+    def report():
+        log = proc.communicate()[0]
+        if proc.returncode != 0:
+            raise AssertionError(f"nvcc -Xptxas -v {source} failed:\n{log}")
+        rows, current = {}, None
+        for line in log.splitlines():
+            if "Compiling entry function" in line or "Function properties for" in line:
+                current = next((k for k in kernels if k in line), None)
+            elif current and "spill stores" in line:
+                nums = [int(w) for w in line.replace(",", " ").split() if w.isdigit()]
+                rows.setdefault(current, {}).update(stack=nums[0], spill_stores=nums[1],
+                                                    spill_loads=nums[2])
+            elif current and "Used" in line and "registers" in line:
+                words = line.replace(",", " ").split()
+                rows.setdefault(current, {})["registers"] = int(words[words.index("registers") - 1])
+                if "smem" in words:
+                    rows[current]["smem_bytes"] = int(words[words.index("smem") - 2])
+        print(json.dumps({"ptxas": rows, "source": os.path.relpath(str(source), REPO)}))
+        if set(rows) != set(kernels):
+            raise AssertionError(f"ptxas -v reported {sorted(rows)}, expected {sorted(kernels)}")
+        return rows
+
+    return report
 
 
 def check_flash_kernels(torch, device):
@@ -1349,10 +1396,74 @@ def grouped_bound(M, K, N, r, used, e):
     return bytes_ / HBM_BYTES_PER_S * 1e3, 2 * M * (K * N + K * r + r * N) / BF16_FLOPS_PER_S * 1e3
 
 
+GROUPED_TC_KERNELS = ("grouped_tc_base_shrink_kernel", "grouped_tc_reduce_kernel")
+GROUPED_KERNELS = GROUPED_TC_KERNELS + ("grouped_fma_base_shrink_kernel",
+                                        "grouped_fma_reduce_kernel")
+
+
+def grouped_edge_cases(torch, device, dtype, seed):
+    """Kernel 5's edge cases at llama_250m's shapes, each against its twin
+    (or, for rows without a slot, against x @ W), failing on error: out-of-
+    range idx (-1 and S), M = 1, every row on one slot, a slot no row uses
+    (with nonzero factors), a contiguous (K, N) W, and a ragged shape that
+    still takes the tensor cores at bf16; then the batch-invariance check:
+    the 8 rows of an M = 8 call equal, bit for bit, the same rows inside an
+    M = 72 call whose other rows sit on other slots, at each projection shape."""
+    from relora_tpu_torch.ops import lora_matmul as LM
+
+    S = ADAPTER_SLOTS
+    worst = 0.0
+    for label, M, K, N, r, slots, idx_of, contiguous in (
+        ("idx_out_of_range", BATCH + 64, 768, 768, ADAPTER_R, S,
+         lambda M: torch.tensor([-1, S] * 4 + [i % S for i in range(M - 8)]), False),
+        ("m1", 1, 768, 2560, ADAPTER_R, S, lambda M: torch.tensor([3]), False),
+        ("one_slot", BATCH + 64, 2560, 768, ADAPTER_R, S, lambda M: torch.full((M,), 2), False),
+        ("unused_slot", BATCH + 64, 768, 768, ADAPTER_R, S,
+         lambda M: torch.tensor([(0, 1, 3)[i % 3] for i in range(M)]), False),
+        ("contiguous_w", BATCH + 64, 768, 2560, ADAPTER_R, S, None, True),
+        ("ragged_tc", 5, 72, 104, 8, 3, None, False),
+    ):
+        x, w, a, b, s, idx = make_grouped_case(torch, device, M, K, N, r, slots, dtype, seed)
+        if idx_of is not None:
+            idx = idx_of(M).to(device=device, dtype=torch.int32)
+        a[2], b[2] = a[1], b[1]  # slot 2 is live: an unused slot must still be skipped
+        if contiguous:
+            w = w.contiguous()
+        got = LM.grouped_lora_matmul(x, w, a, b, s, idx)
+        live = (idx >= 0) & (idx < slots)
+        want = LM.grouped_lora_matmul_plain(x, w, a, b, s, idx.clamp(0, slots - 1))
+        want[~live] = (x[~live].float() @ w.float()).to(want.dtype)
+        torch.cuda.synchronize()
+        err, rel, finite = _rel_err([(got, want)])
+        ok = finite and rel <= LORA_TOL[dtype]
+        print(f"kernel-check grouped_lora_matmul {label} M={M} K={K} N={N} r={r} S={slots} "
+              f"{dtype} max_abs_err={err:.3e} rel_err={rel:.3e} tol={LORA_TOL[dtype]:g} "
+              f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"grouped_lora_matmul disagrees with its twin ({label}, {dtype})")
+        worst = max(worst, err)
+    for K, N, _ in LORA_SHAPES:
+        x, w, a, b, s, idx = make_grouped_case(torch, device, BATCH + 64, K, N, ADAPTER_R, S, dtype,
+                                               seed)
+        idx = torch.tensor([1, 2] * 4 + [(0, 3)[i % 2] for i in range(64)], device=device,
+                           dtype=torch.int32)
+        alone = LM.grouped_lora_matmul(x[:BATCH], w, a, b, s, idx[:BATCH])
+        inside = LM.grouped_lora_matmul(x, w, a, b, s, idx)[:BATCH]
+        torch.cuda.synchronize()
+        same = torch.equal(alone, inside)
+        print(f"kernel-check grouped_lora_matmul batch_invariance K={K} N={N} {dtype} "
+              f"M=8 rows inside M=72 bit-equal={same} {'ok' if same else 'FAIL'}")
+        if not same:
+            diff = (alone.float() - inside.float()).abs().max().item()
+            raise AssertionError(f"grouped_lora_matmul: an M = 8 call differs from the same rows "
+                                 f"of an M = 72 call by {diff:.3e} ({K}, {N}, {dtype})")
+    return worst
+
+
 def check_grouped_kernels(torch, device):
-    """Phase kernels-5: kernel 5 against its twin on the card, then timings
-    per M and llama_250m shape beside the twin, the gathered chain and the
-    bound."""
+    """Phase kernels-5: kernel 5 against its twin on the card (the cases of
+    :func:`grouped_edge_cases` too), then timings per M and llama_250m shape
+    beside the twin, the gathered chain and the bound."""
     from relora_tpu_torch.core.relora import full_f32_matmul
     from relora_tpu_torch.ops import lora_matmul as LM
     from relora_tpu_torch.ops.lora_dispatch import lora_matmul_grouped
@@ -1377,6 +1488,10 @@ def check_grouped_kernels(torch, device):
                 raise AssertionError(f"grouped_lora_matmul disagrees with its twin ({M, K, N, r, S, dtype})")
             if dtype == "bf16" and r == ADAPTER_R:
                 worst = max(worst, err)
+        for i, dtype in enumerate(("bf16", "f32")):
+            edge = grouped_edge_cases(torch, device, dtype, seed=171 + i)
+            if dtype == "bf16":
+                worst = max(worst, edge)
 
     keys = ("ms", "plain_ms", "library_ms", "bound_ms", "t_bytes", "t_ops")
     per_layer = {M: dict.fromkeys(keys, 0.0) for M in GROUPED_MS}
@@ -1700,7 +1815,9 @@ def main() -> int:
     t0 = time.perf_counter()
     libs = _build.build_all()
     print(f"build: {sorted(libs)} in {time.perf_counter() - t0:.1f}s")
-    count_hmma(libs["flash_attention"])
+    ptxas = ptxas_report(_build.CSRC / "lora_matmul.cu", GROUPED_KERNELS)
+    count_hmma(libs["flash_attention"], FLASH_TC_KERNELS)
+    count_hmma(libs["lora_matmul"], GROUPED_TC_KERNELS)
 
     rows = check_kernels(torch, device)
     flash_rows = check_flash_kernels(torch, device)
@@ -1745,6 +1862,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     f32_int8(torch, device, warm)
     torch.cuda.empty_cache()
+    ptxas()
     grouped_rows = check_grouped_kernels(torch, device)
     torch.cuda.empty_cache()
     base, tenants = write_adapter_checkpoints(torch, work, device)
@@ -1768,16 +1886,109 @@ def main() -> int:
     return 0
 
 
+def device_profile(torch, fn):
+    """Run ``fn`` under ``torch.profiler`` tracing the device; returns
+    ``(fn's result, wall seconds, device busy seconds, {kernel name cut to
+    80 characters: device µs})``.  Busy time is the union of kernel
+    intervals, so overlapping streams are not counted twice."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        result = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    intervals, by_name = [], {}
+    for ev in prof.events():
+        if ev.device_type == torch.autograd.DeviceType.CUDA and ev.time_range.elapsed_us() > 0:
+            intervals.append((ev.time_range.start, ev.time_range.end))
+            name = ev.name[:80]
+            by_name[name] = by_name.get(name, 0.0) + ev.time_range.elapsed_us()
+    if not intervals:
+        raise AssertionError("the profiler traced no device time")
+    busy, end = 0.0, None
+    for s, e in sorted(intervals):
+        if end is None or s > end:
+            busy += e - s
+            end = e
+        elif e > end:
+            busy += e - end
+            end = e
+    return result, wall, busy / 1e6, by_name
+
+
+def grouped_share(by_name, busy_s):
+    """Kernel 5's share of the device's busy time (its kernels are named grouped_*)."""
+    return sum(us for name, us in by_name.items() if "grouped_" in name) / 1e6 / busy_s
+
+
+def ab_grouped(torch):
+    """Kernel 5 at M = 8, 64, 72 x llama_250m's projection shapes, r = 128,
+    4 slots, bf16, 100 launches each: ms per call and per decoder layer."""
+    from relora_tpu_torch.ops import lora_matmul as LM
+
+    calls, layers = {}, {}
+    with torch.no_grad():
+        for M in GROUPED_MS:
+            layers[str(M)] = 0.0
+            for K, N, count in LORA_SHAPES:
+                args = make_grouped_case(torch, torch.device("cuda"), M, K, N, ADAPTER_R,
+                                         ADAPTER_SLOTS, "bf16", seed=99)
+                ms = time_ms(torch, lambda: LM.grouped_lora_matmul(*args), iters=100)
+                calls[f"M={M} K={K} N={N}"] = ms
+                layers[str(M)] += count * ms
+    return {"grouped_ms_per_layer": layers, "grouped_ms_per_call": calls}
+
+
+def ab_tenants(torch):
+    """The adapter phase's mixed-tenant drains (sequential, packed, and
+    sequential with 3 slots), each on a fresh engine and registry: one timed
+    drain, then one traced for the device idle share and kernel 5's share of
+    busy time.  A short drain first takes the process's first-use costs."""
+    from relora_tpu_torch.serve.adapters import AdapterRegistry
+
+    device = torch.device("cuda")
+    work = os.path.join(REPO, "build", "chip_smoke")
+    os.makedirs(work, exist_ok=True)
+    prompts_path = os.path.join(work, "prompts.txt")
+    write_prompts(prompts_path, 32100)
+    base, tenants = write_adapter_checkpoints(torch, work, device)
+    prompts = read_prompts(prompts_path)
+    mix = [None] + list(TENANT_ALPHAS)
+    requests = tenant_requests(prompts, mix)
+    out = {}
+    for label, slots, packed in (("tenants", ADAPTER_SLOTS, False),
+                                 ("tenants_packed", ADAPTER_SLOTS, True),
+                                 ("tenants_3_slots", 3, False)):
+        engine = tenant_engine(torch, base, slots, device)
+        registry = AdapterRegistry(tenants, slots, expected_r=ADAPTER_R,
+                                   writer=engine.adapter_writer())
+        if not out:
+            tenant_drain(torch, engine, registry, tenant_requests(prompts[:4], mix, max_new=8))
+        completions, seconds = tenant_drain(torch, engine, registry, requests, packed)[:2]
+        tokens = sum(len(c.tokens) for c in completions.values())
+        _, wall, busy, by_name = device_profile(
+            torch, lambda: tenant_drain(torch, engine, registry, requests, packed))
+        out[label] = {"tokens_per_s": tokens / seconds, "seconds": seconds, "profiled_wall_s": wall,
+                      "device_busy_s": busy, "device_idle_share": 1.0 - busy / wall,
+                      "grouped_lora_share": grouped_share(by_name, busy)}
+        del engine, registry
+        torch.cuda.empty_cache()
+    return out
+
+
 def ab(argv) -> int:
-    """``python3 chip_smoke.py --ab DIR [--train [FLAGS...]]``: one JSON line
-    of the times of the package in the checkout at DIR (another tree, such
-    as the parent unpacked with ``git archive``) by this script's timer and
-    shapes, so two trees compare on one card when run in turns in one call
-    (parent, change, change, parent).  Without ``--train``: kernel 3 at the
-    train phase's shape, bf16 (forward, dK/dV, dQ, the backward pair, and
-    forward+backward through autograd), 100 launches each.  With it: the
-    train phase (plus FLAGS) run twice, each run's median ms per update of
-    updates 2-9."""
+    """``python3 chip_smoke.py --ab DIR [--train [FLAGS...] | --grouped |
+    --tenants]``: one JSON line of the times of the package in the checkout
+    at DIR (another tree, such as the parent unpacked with ``git archive``)
+    by this script's timer and shapes, so two trees compare on one card when
+    run in turns in one call (parent, change, change, parent).  With no
+    option: kernel 3 at the train phase's shape, bf16 (forward, dK/dV, dQ,
+    the backward pair, and forward+backward through autograd), 100 launches
+    each.  ``--train``: the train phase (plus FLAGS) run twice, each run's
+    median ms per update of updates 2-9.  ``--grouped``: kernel 5 per call
+    and per layer (:func:`ab_grouped`).  ``--tenants``: the tenant drains'
+    tokens/s, idle share and kernel 5's share (:func:`ab_tenants`)."""
     import torch
 
     if not torch.cuda.is_available():
@@ -1800,6 +2011,10 @@ def ab(argv) -> int:
         for key in ("warm_ms_per_update", "ms_per_update"):
             steady = sorted(r["update_seconds"] for r in train_main.main(args)["records"][1:])
             out[key] = steady[len(steady) // 2] * 1e3
+    elif argv[2:3] == ["--grouped"]:
+        out.update(ab_grouped(torch))
+    elif argv[2:3] == ["--tenants"]:
+        out.update(ab_tenants(torch))
     else:
         from relora_tpu_torch.ops import flash_attention as FA
 

@@ -29,14 +29,15 @@
 // x (M, K), g (M, N), A (K, r) and B (r, N) are row-major; W is the logical
 // (K, N) base with any element strides (the port passes the (N, K) weight's
 // transpose as a view).  Inputs are f32 or bf16 and are widened to f32 as they
-// are staged; an int8 base is q (K, N) int8 codes, again at any strides, with
+// are staged (kernel 5's bf16 path excepted: it feeds bf16 to the tensor
+// cores, see its note below); an int8 base is q (K, N) int8 codes, again at any strides, with
 // qscale (1, N) f32 per output column: each code is widened and multiplied by
 // its column's scale as the tile is staged, the f32 value the TPU kernel
 // forms in VMEM, so no dequantized copy of W is ever written.  s is read from
 // a device pointer (the trainable tanh(lora_s)) or given by value, so no call
 // needs a host sync.  Any M, K, N and r (a rank past 256 included, as the
 // TPU kernels take it: the GEMM's contraction segments have no rank limit and
-// kernel 5's z pass walks the rank in chunks of 256): ragged tiles are masked.
+// kernel 5 walks the rank in tiles of 64): ragged tiles are masked.
 //
 // Design.  One tiled GEMM kernel, lora_gemm_kernel, computes
 //     C = P1 @ Q1 + P2 @ (s * Q2)
@@ -83,19 +84,51 @@
 // A (S, K, r), B (S, r, N), s (S,) f32, and each row m of a batch names its
 // slot idx[m] (int32, read on the device).  The TPU kernel steers its DMAs by
 // the prefetched idx so that no gathered A[idx] / B[idx] copy is written; here
-// too each row reads its own slot's factors in place, and z is computed once
-// per row, not once per N stripe as the TPU grid (M, N/bn) does.  Two launches:
-//   z:  part[c, m, :] = x[m, chunk c] @ A[idx[m]][chunk c], chunks of 256 rows
-//       of K, so that even M = 8 decode rows spread over many blocks; a thread
-//       owns one rank column, the columns taken 256 at a time, so any r;
-//   y:  lora_gemm_kernel's tiling: x @ W with one W tile per block for all its
-//       rows, then, for each slot present among the block's rows, z (summed
-//       over the chunks in order) of that slot's rows times s * B[slot]; a
-//       slot no row of the block uses costs nothing, a used one is read once.
-// Bound: at serving shapes (M <= 72) the bytes of W and of the distinct slots'
-// factors dominate (2M(KN + Kr + rN) flops over ~2KN bytes is M flops per byte,
-// far below the ~295 balance point), so it is bound by bytes; the f32 FMA
-// tiles at M <= 72 leave most SMs idle (a 64 x 64 tile grid of N / 64 blocks).
+// too each slot's factors are read in place, and a slot no row uses is never
+// read.
+// Bound: at serving shapes (M = 8 decode rows, 64 a prefill chunk, 72 a packed
+// step; r = 128) 2M(KN + Kr + rN) operations over ~2(KN + used (Kr + rN))
+// bytes is about M operations per byte, far below the H100's ~295: kernel 5 is
+// bound by the bytes of W and of the used slots' factors (~33 MB a llama_250m
+// layer, ~0.01 ms at 3.35 TB/s), and at these sizes by the latency of
+// reaching them.  So the design spreads W over the whole card and reads each
+// used slot's factors once.  Two launches, the second a programmatic
+// dependent launch (PDL) that starts while the first runs and waits for its
+// writes with griddepcontrol.wait:
+//   1. grouped_*_base_shrink: two kinds of block in one grid.
+//      Base blocks: y^T = W^T x^T split over K.  A block owns 16 rows of N
+//      (one m16 tile) and one K chunk of the split schedule (kc rows, the
+//      splits chosen from K and N alone, never from M or the slots, so that
+//      at llama_250m every shape launches 288-320 base blocks); its 4 warps
+//      take interleaved 32-row groups of the chunk and sum in warp order
+//      through shared memory; the f32 partial goes to part[split, m, n].
+//      Shrink blocks: one per (slot, 256 rows of K, 64 rank columns); a block
+//      whose slot no row uses returns at once; the others stage that slot's A
+//      chunk once for all their rows and write z partials (f32) of the rows of
+//      their slot to zpart[chunk, m, j].
+//   2. grouped_*_reduce: one block per (64 columns of N, 64 rows of M, slot),
+//      slot S standing for the rows without one; a block whose slot has no
+//      row in its tile returns at once.  The others read that slot's B tile
+//      once (before waiting on pass 1: it is an input), sum their rows' base
+//      partials in split order and z in chunk order (so a row's result never
+//      depends on the other rows of its batch), scale z by s and add
+//      (s z) @ B[slot].  The f32 path's reduce takes (N, M) tiles and each row
+//      its own slot's B column by column.
+// bf16 (W the transposed view of a contiguous (N, K) weight, the model's
+// layout, and K, N, r multiples of 8): the tensor cores, mma.sync m16n8k16
+// bf16 in, f32 accumulate, as y^T = W^T x^T, so the decode rows fill the
+// n = 8 side of the tile exactly.  Base blocks read W and x straight into
+// registers with 16-byte loads: lane (g, t) loads elements 8t..8t+7 of its
+// rows' 32-element group, which are the fragments of two k16 steps under
+// one permutation of k applied to both operands (a sum does not care about
+// order).  Shrink and reduce stage the A, x and B tiles in shared memory with
+// 16-byte cp.async and read them with ldmatrix (.trans for A and B).  z meets
+// B as two bf16 halves, hi = bf16(s z) and lo = bf16(s z - hi): the pair carries z to
+// ~2^-16 of its value, so the LoRA term adds ~2^-16 relative error (one
+// bf16 rounding would add 2^-9); y rounds once to bf16 at the end.  Every
+// other case (f32, a contiguous (K, N) W, ragged alignment) runs the same
+// grid and split schedule on exact f32 FMAs: there sums differ from the
+// twin in order only.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -106,7 +139,6 @@ namespace {
 constexpr int kThreads = 256;  // 16 x 16 threads
 constexpr int kBK = 16;        // contraction depth of one staged slice
 constexpr int kChunk = 512;    // rows of M per dA/dB partial
-constexpr int kZChunk = 256;   // rows of K per partial of kernel 5's z
 
 enum { kF32 = 0, kBF16 = 1, kI8 = 2 };
 
@@ -276,126 +308,561 @@ __global__ void lora_dab_reduce_kernel(const float* part, int chunks, long long 
   }
 }
 
-// Kernel 5, pass 1: part[c, m, j] = sum over k in chunk c of x[m, k] *
-// A[idx[m], k, j], chunks of kZChunk rows of K; a row whose slot is outside
-// [0, slots) gets zeros.  Block (c, m-stride): x's chunk of the row is staged
-// in shared memory; the rank columns go in chunks of up to 256 (one chunk up
-// to r = 256, so any r): within a chunk of rc columns, thread t owns column
-// j = t % rp (rp = rc rounded up to 32, so a warp reads 32 neighbouring
-// elements of A's row) and every (256 / rp)-th k of the chunk; the k groups
-// are summed in a fixed order.
-__global__ void __launch_bounds__(kThreads) grouped_z_kernel(const void* x, const void* a,
-                                                            const int* idx, int slots,
-                                                            float* part, int M, int K, int r,
-                                                            int dtype) {
-  __shared__ float xs[kZChunk];
-  __shared__ float red[kThreads];
-  const int c = blockIdx.x, tid = threadIdx.x;
-  const int k0 = c * kZChunk, k1 = min(K, k0 + kZChunk);
-  const Mat xm = {x, K, 1, dtype, nullptr, 0, 0};
-  const Mat am = {a, r, 1, dtype, nullptr, 0, 0};  // slot s, row k is row s*K + k
-  for (int m = blockIdx.y; m < M; m += gridDim.y) {
-    const int slot = idx[m];
-    const bool live = slot >= 0 && slot < slots;
-    for (int k = k0 + tid; k < k1; k += kThreads) xs[k - k0] = live ? load(xm, m, k) : 0.f;
-    __syncthreads();
-    for (int j0 = 0; j0 < r; j0 += kThreads) {
-      const int rc = min(kThreads, r - j0);
-      const int rp = (rc + 31) / 32 * 32, groups = kThreads / rp;
-      const int j = tid % rp, grp = tid / rp;
-      float acc = 0.f;
-      if (live && j < rc && grp < groups)
-        for (int k = k0 + grp; k < k1; k += groups)
-          acc = fmaf(xs[k - k0], load(am, (long long)slot * K + k, j0 + j), acc);
-      red[tid] = acc;
-      __syncthreads();
-      if (grp == 0 && j < rc) {
-        float sum = 0.f;
-        for (int q = 0; q < groups; ++q) sum += red[q * rp + j];
-        part[((long long)c * M + m) * r + j0 + j] = sum;
+// ---------------------------------------------------------------------------
+// Kernel 5: the grouped multi-tenant forward (design in the header note)
+// ---------------------------------------------------------------------------
+
+using bf16 = __nv_bfloat16;
+
+constexpr int kG5Threads = 128;  // 4 warps
+constexpr int kG5Rows = 16;      // N rows of a base block: one m16 tile of y^T
+constexpr int kG5MTile = 64;     // M columns a warp holds at once: 8 n8 tiles
+constexpr int kG5Batch = 2;      // 32-row K groups a warp has in flight
+constexpr int kG5ZChunk = 256;   // rows of K per shrink partial
+constexpr int kG5Tile = 64;      // rank columns of a shrink block; N, M of a reduce block
+constexpr int kG5Ld = kG5Tile + 8;  // smem row stride (bf16): 144 bytes, an odd multiple
+                                    // of 16, so ldmatrix reads are conflict-free
+constexpr int kG5RedLd = kG5Rows + 1;  // f32 row stride of the warps' partials in smem
+constexpr int kG5XLd = kG5ZChunk + 8;   // smem row stride (bf16) of a shrink block's x chunk
+constexpr int kG5Pass = 128;            // rank rows a reduce block stages at once
+constexpr int kG5PLd = kG5Pass + 8;     // smem row stride (bf16) of the reduce block's z halves
+constexpr int kG5YLd = kG5Tile + 4;     // f32 row stride of the reduce block's base sums
+// dynamic shared memory of the tensor-core passes: pass 1's A tile and x
+// chunk (a base block uses the front for its warps' partials); pass 2's B
+// rows, the z halves and the base sums
+constexpr int kG5Smem1 = (kG5ZChunk * kG5Ld + kG5Tile * kG5XLd) * 2 + kG5MTile * 4;
+constexpr int kG5Smem2 = (kG5Pass * kG5Ld + 2 * kG5Tile * kG5PLd) * 2 + kG5Tile * kG5YLd * 4;
+constexpr int kG5Loads = 8;  // partials a thread loads at once before summing them in order
+
+struct Grouped {
+  // y[m, n] = sum_k x[m, k] W[k, n] + s[idx[m]] * sum_j z[m, j] B[idx[m], j, n],
+  // z[m, j] = sum_k x[m, k] A[idx[m], k, j]
+  const void* x;   // (M, K) row-major
+  const void* w;   // logical (K, N) at element strides (ws0, ws1)
+  long long ws0, ws1;
+  const void* a;   // (S, K, r) row-major
+  const void* b;   // (S, r, N) row-major
+  const float* s;  // (S,)
+  const int* idx;  // (M,)
+  float* part;     // (splits, M, N) base partials
+  float* zpart;    // (zchunks, M, r) shrink partials, each row under its own slot
+  void* y;         // (M, N) in the inputs' dtype
+  int M, K, N, r, S;
+  int splits, kc;         // split s contracts K rows [s * kc, (s + 1) * kc)
+  int zchunks, rtiles;    // shrink blocks per slot: zchunks x rtiles
+  int bf16;
+};
+
+// mma.sync helpers, as in flash_attention.cu
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// four 8 x 8 b16 matrices; lanes 8i..8i+7 give the row addresses of matrix i
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+// the same, each matrix transposed
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+
+// d (16 x 8 f32) += a (16 x 16 bf16, row) b (16 x 8 bf16, col)
+__device__ __forceinline__ void mma16816(float (&d)[4], uint32_t a0, uint32_t a1, uint32_t a2,
+                                         uint32_t a3, uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+// 16 bytes from src to smem dst by cp.async, or zeros when !ok
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(ok ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
+}
+
+// A-operand address of ldmatrix.x4.trans for a 16 x 16 slice stored [k][row]:
+// row k0 + lane % 8 + (lane / 16) * 8, column (lane / 8) % 2 * 8
+__device__ __forceinline__ const bf16* a_trans(const bf16* tile, int k0, int col0, int lane) {
+  return tile + (k0 + lane % 8 + (lane / 16) * 8) * kG5Ld + col0 + ((lane / 8) % 2) * 8;
+}
+
+__device__ __forceinline__ uint4 ld16(const bf16* p, bool ok) {
+  return ok ? __ldg(reinterpret_cast<const uint4*>(p)) : make_uint4(0, 0, 0, 0);
+}
+
+__device__ __forceinline__ int g5_ntiles(const Grouped& g) { return (g.N + kG5Rows - 1) / kG5Rows; }
+
+// the accumulator element e of an m16n8 tile j: (row, column) within the tile
+__device__ __forceinline__ int acc_row(int lane, int e) { return lane / 4 + (e >> 1) * 8; }
+__device__ __forceinline__ int acc_col(int lane, int j, int e) {
+  return 8 * j + 2 * (lane % 4) + (e & 1);
+}
+
+// base block (tile nt of 16 N rows, split q) on the tensor cores.  Warp w takes
+// the chunk's 32-row groups w, w + 4, ...; lane (gr, t) loads W^T rows gr and
+// gr + 8 and x row gr of each n8 tile at elements 8t..8t+7 of the group: one
+// 16-byte load each, the fragments of two k16 steps under one permutation of k
+__device__ void base_tc(const Grouped& g, int nt, int q, float* red) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, gr = lane / 4, t = lane % 4;
+  const int n0 = nt * kG5Rows, k_begin = q * g.kc, k_end = min(g.K, k_begin + g.kc);
+  const int groups = (k_end - k_begin + 31) / 32;
+  const bf16* x = static_cast<const bf16*>(g.x);
+  const bf16* wt = static_cast<const bf16*>(g.w);  // W^T (N, K): W[k, n] at n * ws1 + k
+  const bool oka = n0 + gr < g.N, okb = n0 + gr + 8 < g.N;
+  const bf16* wa_row = wt + (long long)(oka ? n0 + gr : 0) * g.ws1;
+  const bf16* wb_row = wt + (long long)(okb ? n0 + gr + 8 : 0) * g.ws1;
+  for (int m0 = 0; m0 < g.M; m0 += kG5MTile) {
+    const int mt = min(kG5MTile, g.M - m0), n8 = (mt + 7) / 8;
+    float acc[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+    for (int g0 = warp; g0 < groups; g0 += 4 * kG5Batch) {
+      uint4 wa[kG5Batch], wb[kG5Batch];
+      int kk[kG5Batch];
+      bool ok[kG5Batch];
+#pragma unroll
+      for (int u = 0; u < kG5Batch; ++u) {
+        kk[u] = k_begin + (g0 + 4 * u) * 32 + 8 * t;
+        ok[u] = g0 + 4 * u < groups && kk[u] < k_end;
+        wa[u] = ld16(wa_row + kk[u], ok[u] && oka);
+        wb[u] = ld16(wb_row + kk[u], ok[u] && okb);
       }
-      __syncthreads();  // red, and after the last chunk xs, are free again
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        if (j >= n8) break;
+        const int m = m0 + 8 * j + gr;
+        const bf16* xr = x + (long long)(m < g.M ? m : 0) * g.K;
+        uint4 xv[kG5Batch];
+#pragma unroll
+        for (int u = 0; u < kG5Batch; ++u) xv[u] = ld16(xr + kk[u], ok[u] && m < g.M);
+#pragma unroll
+        for (int u = 0; u < kG5Batch; ++u) {
+          mma16816(acc[j], wa[u].x, wb[u].x, wa[u].y, wb[u].y, xv[u].x, xv[u].y);
+          mma16816(acc[j], wa[u].z, wb[u].z, wa[u].w, wb[u].w, xv[u].z, xv[u].w);
+        }
+      }
+    }
+    float* mine = red + warp * kG5MTile * kG5RedLd;  // [m][n]
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      if (j >= n8) break;
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        mine[acc_col(lane, j, e) * kG5RedLd + acc_row(lane, e)] = acc[j][e];
+    }
+    __syncthreads();
+    for (int e = threadIdx.x; e < mt * kG5Rows; e += kG5Threads) {
+      const int mm = e / kG5Rows, nn = e % kG5Rows, o = mm * kG5RedLd + nn;
+      const int span = kG5MTile * kG5RedLd;
+      if (n0 + nn < g.N)
+        g.part[((long long)q * g.M + m0 + mm) * g.N + n0 + nn] =
+            ((red[o] + red[span + o]) + red[2 * span + o]) + red[3 * span + o];
+    }
+    __syncthreads();
+  }
+}
+
+// base block on f32 FMAs, for any layout and dtype: thread (n = tid / 8,
+// lane kl = tid % 8) takes every 8th K row of the chunk from k_begin + kl, M in
+// tiles of 8; the 8 lanes are summed by a fixed shuffle tree
+__device__ void base_fma(const Grouped& g, int nt, int q) {
+  const int type = g.bf16 ? kBF16 : kF32;
+  const Mat x = {g.x, g.K, 1, type, nullptr, 0, 0};
+  const Mat w = {g.w, g.ws0, g.ws1, type, nullptr, 0, 0};
+  const int n = nt * kG5Rows + threadIdx.x / 8, kl = threadIdx.x % 8;
+  const int k_begin = q * g.kc, k_end = min(g.K, k_begin + g.kc);
+  for (int m0 = 0; m0 < g.M; m0 += 8) {
+    float acc[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) acc[i] = 0.f;
+    if (n < g.N)
+      for (int k = k_begin + kl; k < k_end; k += 8) {
+        const float wv = load(w, k, n);
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+          if (m0 + i < g.M) acc[i] = fmaf(load(x, m0 + i, k), wv, acc[i]);
+      }
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      float v = acc[i];
+      v += __shfl_xor_sync(0xffffffffu, v, 1);
+      v += __shfl_xor_sync(0xffffffffu, v, 2);
+      v += __shfl_xor_sync(0xffffffffu, v, 4);
+      if (kl == 0 && n < g.N && m0 + i < g.M) g.part[((long long)q * g.M + m0 + i) * g.N + n] = v;
     }
   }
 }
 
-struct GroupedY {
-  // y[m, n] = sum_k x[m, k] W[k, n] + s[idx[m]] * sum_j z[m, j] B[idx[m], j, n]
-  Mat x, w, b;         // b: (slots * r, N), slot s's row j at s*r + j
-  const float* part;   // z as (chunks, M, r) f32 partials, summed in chunk order
-  const float* s;      // (slots,) f32
-  const int* idx;      // (M,) int32
-  int slots, chunks, M, K, N, r;
-  void* y;
-  int y_bf16;
-};
+// does any row use `slot`?  (block-wide)
+__device__ bool slot_used(const Grouped& g, int slot) {
+  bool any = false;
+  for (int m = threadIdx.x; m < g.M; m += kG5Threads) any |= g.idx[m] == slot;
+  return __syncthreads_or(any);
+}
 
-// Kernel 5, pass 2: lora_gemm_kernel's tiling.  The base segment stages one W
-// tile for every row of the block, whatever their slots.  The adapter segment
-// runs once for each slot present among the block's rows: it stages that
-// slot's B tile times its scale, and z for the rows of that slot (zeros for
-// the others), so each distinct slot's B is read once per block and a row
-// only ever meets its own adapter.
-template <int BM, int BN>
-__global__ void __launch_bounds__(kThreads, 2) grouped_lora_kernel(GroupedY g) {
-  __shared__ __align__(16) float ps[kBK][BM + 4];
-  __shared__ __align__(16) float qs[kBK][BN + 4];
-  __shared__ int sidx[BM];
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  for (int i = tid; i < BM; i += kThreads) sidx[i] = m0 + i < g.M ? g.idx[m0 + i] : -1;
+// shrink block (slot, K chunk c, rank tile rt) on the tensor cores:
+// z^T = A[slot]^T x^T over the chunk.  A's (256 x 64) tile is staged once and
+// read by ldmatrix.trans; per 64 rows of M, x's (rows x 256) chunk is staged
+// beside it and read by ldmatrix (both by cp.async, zero past M, K and r);
+// warp w owns rank columns rt * 64 + 16w..+16, and stores its slot's rows only
+__device__ void shrink_tc(const Grouped& g, int slot, int c, int rt, bf16* as, bf16* xs,
+                          int* sidx) {
+  if (!slot_used(g, slot)) return;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int k0 = c * kG5ZChunk, j0 = rt * kG5Tile;
+  const bf16* a = static_cast<const bf16*>(g.a) + (long long)slot * g.K * g.r;
+  const bf16* x = static_cast<const bf16*>(g.x);
+  for (int e = threadIdx.x; e < kG5ZChunk * (kG5Tile / 8); e += kG5Threads) {
+    const int kk = e / (kG5Tile / 8), cc = (e % (kG5Tile / 8)) * 8;
+    const bool ok = k0 + kk < g.K && j0 + cc < g.r;
+    cp_async16(as + kk * kG5Ld + cc, ok ? a + (long long)(k0 + kk) * g.r + j0 + cc : a, ok);
+  }
+  for (int m0 = 0; m0 < g.M; m0 += kG5MTile) {
+    const int mt = min(kG5MTile, g.M - m0), n8 = (mt + 7) / 8, n16 = (mt + 15) / 16;
+    if (m0 > 0) __syncthreads();  // xs is free
+    for (int e = threadIdx.x; e < n16 * 16 * (kG5ZChunk / 8); e += kG5Threads) {
+      const int mm = e / (kG5ZChunk / 8), cc = (e % (kG5ZChunk / 8)) * 8;
+      const bool ok = m0 + mm < g.M && k0 + cc < g.K;
+      cp_async16(xs + mm * kG5XLd + cc, ok ? x + (long long)(m0 + mm) * g.K + k0 + cc : x, ok);
+    }
+    for (int i = threadIdx.x; i < kG5MTile; i += kG5Threads) sidx[i] = i < mt ? g.idx[m0 + i] : -1;
+    cp_async_wait();
+    __syncthreads();
+    float acc[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < kG5ZChunk / 16; ++ks) {
+      uint32_t af[4];
+      ldsm_x4_t(af, a_trans(as, ks * 16, warp * 16, lane));
+#pragma unroll
+      for (int p = 0; p < 4; ++p) {  // n8 tiles 2p and 2p + 1
+        if (p >= n16) break;
+        uint32_t bx[4];
+        ldsm_x4(bx, xs + (p * 16 + lane % 8 + (lane / 16) * 8) * kG5XLd + ks * 16 +
+                        ((lane / 8) % 2) * 8);
+        mma16816(acc[2 * p], af[0], af[1], af[2], af[3], bx[0], bx[1]);
+        mma16816(acc[2 * p + 1], af[0], af[1], af[2], af[3], bx[2], bx[3]);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      if (j >= n8) break;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = acc_col(lane, j, e), jj = j0 + warp * 16 + acc_row(lane, e);
+        if (jj < g.r && sidx[col] == slot)
+          g.zpart[((long long)c * g.M + m0 + col) * g.r + jj] = acc[j][e];
+      }
+    }
+  }
+}
 
-  float acc[BM / 16][BN / 16];
+// shrink block on f32 FMAs: thread (column j = tid % 64, half = tid / 64)
+// sums every other K row of the chunk for each row of the slot; halves added in order
+__device__ void shrink_fma(const Grouped& g, int slot, int c, int rt, float* red) {
+  if (!slot_used(g, slot)) return;
+  const int type = g.bf16 ? kBF16 : kF32;
+  const Mat x = {g.x, g.K, 1, type, nullptr, 0, 0};
+  const Mat a = {g.a, g.r, 1, type, nullptr, 0, 0};  // slot s, row k is row s*K + k
+  const int jj = threadIdx.x % kG5Tile, half = threadIdx.x / kG5Tile, j = rt * kG5Tile + jj;
+  const int k0 = c * kG5ZChunk, k1 = min(g.K, k0 + kG5ZChunk);
+  for (int m = 0; m < g.M; ++m) {
+    if (g.idx[m] != slot) continue;  // the same for every thread
+    float acc = 0.f;
+    if (j < g.r)
+      for (int k = k0 + half; k < k1; k += 2)
+        acc = fmaf(load(x, m, k), load(a, (long long)slot * g.K + k, j), acc);
+    red[threadIdx.x] = acc;
+    __syncthreads();
+    if (half == 0 && j < g.r)
+      g.zpart[((long long)c * g.M + m) * g.r + j] = red[jj] + red[kG5Tile + jj];
+    __syncthreads();
+  }
+}
+
+// pass 1: base blocks first, then shrink blocks, in one 1-D grid
+__global__ void __launch_bounds__(kG5Threads, 3) grouped_tc_base_shrink_kernel(Grouped g) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  static_assert(4 * kG5MTile * kG5RedLd * sizeof(float) <= kG5Smem1, "base partials fit");
+  // the reduce pass may launch now: it waits for this grid's writes itself
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+  const int base = g5_ntiles(g) * g.splits;
+  if ((int)blockIdx.x < base) {
+    base_tc(g, blockIdx.x % g5_ntiles(g), blockIdx.x / g5_ntiles(g),
+            reinterpret_cast<float*>(smem));
+  } else {
+    const int b = blockIdx.x - base;
+    bf16* as = reinterpret_cast<bf16*>(smem);
+    bf16* xs = as + kG5ZChunk * kG5Ld;
+    shrink_tc(g, b / (g.rtiles * g.zchunks), (b / g.rtiles) % g.zchunks, b % g.rtiles, as, xs,
+              reinterpret_cast<int*>(xs + kG5Tile * kG5XLd));
+  }
+}
+
+__global__ void __launch_bounds__(kG5Threads) grouped_fma_base_shrink_kernel(Grouped g) {
+  __shared__ float red[kG5Threads];
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+  const int base = g5_ntiles(g) * g.splits;
+  if ((int)blockIdx.x < base) {
+    base_fma(g, blockIdx.x % g5_ntiles(g), blockIdx.x / g5_ntiles(g));
+  } else {
+    const int b = blockIdx.x - base;
+    shrink_fma(g, b / (g.rtiles * g.zchunks), (b / g.rtiles) % g.zchunks, b % g.rtiles, red);
+  }
+}
+
+// slot and scale of the tile's rows (-1 and 0 past M or for a slot outside
+// [0, S)); these are inputs, so they are read before the wait on pass 1
+__device__ void tile_rows(const Grouped& g, int m0, int* sidx, float* sscale) {
+  for (int i = threadIdx.x; i < kG5Tile; i += kG5Threads) {
+    const int slot = m0 + i < g.M ? g.idx[m0 + i] : -1;
+    const bool live = slot >= 0 && slot < g.S;
+    sidx[i] = live ? slot : -1;
+    sscale[i] = live ? g.s[slot] : 0.f;
+  }
+}
+
+// row m's base, summed over the splits in order
+__device__ __forceinline__ float base_sum(const Grouped& g, int m, int n) {
+  float v = 0.f;
+#pragma unroll 4
+  for (int q = 0; q < g.splits; ++q) v += g.part[((long long)q * g.M + m) * g.N + n];
+  return v;
+}
+
+// s[idx[m]] * z[m, j], z summed over the shrink chunks in order (0 for a row without a slot)
+__device__ __forceinline__ float scaled_z(const Grouped& g, const int* sidx, const float* sscale,
+                                          int m0, int mm, int j) {
+  if (sidx[mm] < 0 || j >= g.r) return 0.f;
+  float v = 0.f;
+#pragma unroll 4
+  for (int c = 0; c < g.zchunks; ++c) v += g.zpart[((long long)c * g.M + m0 + mm) * g.r + j];
+  return v * sscale[mm];
+}
+
+// sums over `count` f32x4 partials at p, p + stride, ... in order, for two
+// series at once, so that their loads are in flight together
+__device__ __forceinline__ void sum4_pair(const float* p0, const float* p1, long long stride,
+                                          int count, float4& a0, float4& a1) {
+  a0 = a1 = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int c0 = 0; c0 < count; c0 += kG5Loads) {
+    float4 v0[kG5Loads], v1[kG5Loads];
 #pragma unroll
-  for (int i = 0; i < BM / 16; ++i)
+    for (int u = 0; u < kG5Loads; ++u) {
+      const bool ok = c0 + u < count;
+      const long long o = (c0 + u) * stride;
+      v0[u] = ok ? __ldcg(reinterpret_cast<const float4*>(p0 + o)) : a0;
+      v1[u] = ok ? __ldcg(reinterpret_cast<const float4*>(p1 + o)) : a1;
+    }
 #pragma unroll
-    for (int j = 0; j < BN / 16; ++j) acc[i][j] = 0.f;
+    for (int u = 0; u < kG5Loads; ++u) {
+      if (c0 + u >= count) break;
+      a0 = make_float4(a0.x + v0[u].x, a0.y + v0[u].y, a0.z + v0[u].z, a0.w + v0[u].w);
+      a1 = make_float4(a1.x + v1[u].x, a1.y + v1[u].y, a1.z + v1[u].z, a1.w + v1[u].w);
+    }
+  }
+}
+
+// the hi and lo bf16 halves of v into h[0] and l[0]
+__device__ __forceinline__ void split_bf16(float v, bf16* h, bf16* l) {
+  const bf16 hi = __float2bfloat16_rn(v);
+  *h = hi;
+  *l = __float2bfloat16_rn(v - __bfloat162float(hi));
+}
+
+// pass 2 on the tensor cores: block (64 columns of N, 64 rows of M, slot),
+// slot S taking the rows without one; a block with none of its slot's rows
+// returns at once.  Warp w owns N rows n0 + 16w..+16 of y^T.  The slot's B
+// rows [j][n] are staged (cp.async, before the wait: they are inputs) 256 at
+// a time and read by ldmatrix.trans; (s z) of the slot's rows as bf16 hi and
+// lo halves [m][j] (zero for the other rows) is the B operand; each of the
+// slot's rows gets its base sum plus its LoRA term.
+__global__ void __launch_bounds__(kG5Threads) grouped_tc_reduce_kernel(Grouped g) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* bs = reinterpret_cast<bf16*>(smem);
+  bf16* zh = bs + kG5Pass * kG5Ld;
+  bf16* zl = zh + kG5Tile * kG5PLd;
+  float* ys = reinterpret_cast<float*>(zl + kG5Tile * kG5PLd);
+  __shared__ int sidx[kG5Tile];
+  __shared__ float sscale[kG5Tile];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, slot = blockIdx.z;
+  const int n0 = blockIdx.x * kG5Tile, m0 = blockIdx.y * kG5Tile;
+  const int mt = min(kG5Tile, g.M - m0), n8 = (mt + 7) / 8;
+  tile_rows(g, m0, sidx, sscale);
   __syncthreads();
-
-  for (int k0 = 0; k0 < g.K; k0 += kBK) {
-    for (int e = tid; e < BM * kBK; e += kThreads) {
-      const int i = e / kBK, kk = e % kBK, m = m0 + i, k = k0 + kk;
-      ps[kk][i] = (m < g.M && k < g.K) ? load(g.x, m, k) : 0.f;
+  auto own = [&](int i) { return i < mt && sidx[i] == (slot < g.S ? slot : -1); };
+  if (!__syncthreads_or((int)threadIdx.x < kG5Tile && own(threadIdx.x))) return;
+  __shared__ int rows[kG5Tile];  // the slot's rows, in order, so that all threads share them
+  __shared__ int n_own;
+  if (threadIdx.x == 0) {
+    int n = 0;
+    for (int i = 0; i < mt; ++i)
+      if (own(i)) rows[n++] = i;
+    n_own = n;
+  }
+  const bf16* b = static_cast<const bf16*>(g.b) + (long long)min(slot, g.S - 1) * g.r * g.N;
+  auto stage_b = [&](int r0) {
+    for (int e = threadIdx.x; e < kG5Pass * (kG5Tile / 8); e += kG5Threads) {
+      const int jj = e / (kG5Tile / 8), cc = (e % (kG5Tile / 8)) * 8;
+      const bool ok = r0 + jj < g.r && n0 + cc < g.N;
+      cp_async16(bs + jj * kG5Ld + cc, ok ? b + (long long)(r0 + jj) * g.N + n0 + cc : b, ok);
     }
-    for (int e = tid; e < kBK * BN; e += kThreads) {
-      int kk, j;
-      if (g.w.s1 == 1) {
-        j = e % BN;
-        kk = e / BN;
-      } else {
-        kk = e % kBK;
-        j = e / kBK;
+  };
+  if (slot < g.S) stage_b(0);
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+
+  // zero z halves: the other rows' columns of the B operand stay zero
+  for (int e = threadIdx.x; e < 2 * kG5Tile * kG5PLd / 8; e += kG5Threads)
+    reinterpret_cast<uint4*>(zh)[e] = make_uint4(0, 0, 0, 0);
+  __syncthreads();
+  // the slot's rows' base, summed over the splits in order, 4 columns an item
+  // and two items a thread at a time; items go to the threads from the last
+  // down, so that at few rows these loads and z's below run on other warps
+  const int quads_n = kG5Tile / 4, items_n = n_own * quads_n;
+  for (int e = kG5Threads - 1 - threadIdx.x; e < items_n; e += 2 * kG5Threads) {
+    const float* p[2];
+    float* dst[2];
+    for (int u = 0; u < 2; ++u) {  // an item past the end, or past N, reads a dummy
+      const int item = e + u * kG5Threads, mm = rows[min(item, items_n - 1) / quads_n];
+      const int nn = (item % quads_n) * 4;
+      const bool live = item < items_n && n0 + nn < g.N;
+      p[u] = live ? g.part + (long long)(m0 + mm) * g.N + n0 + nn : g.part;
+      dst[u] = live ? ys + mm * kG5YLd + nn : nullptr;
+    }
+    float4 v[2];
+    sum4_pair(p[0], p[1], (long long)g.M * g.N, g.splits, v[0], v[1]);
+    for (int u = 0; u < 2; ++u)
+      if (dst[u]) *reinterpret_cast<float4*>(dst[u]) = v[u];
+  }
+  float lora[8][4];
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) lora[j][e] = 0.f;
+  for (int r0 = 0; slot < g.S && r0 < g.r; r0 += kG5Pass) {
+    if (r0 > 0) {
+      __syncthreads();  // bs, zh and zl are free
+      stage_b(r0);
+    }
+    // (s z) of the slot's rows, 4 rank columns an item and two items a
+    // thread at a time, z summed over the shrink chunks in order; zero past r
+    const int ksteps = (min(kG5Pass, g.r - r0) + 15) / 16, quads = ksteps * 4;
+    const int items = n_own * quads;
+    for (int e = threadIdx.x; e < items; e += 2 * kG5Threads) {
+      int mm[2], jj[2];
+      bool live[2];
+      const float* p[2];
+      for (int u = 0; u < 2; ++u) {  // an item past the end, or past r, reads a dummy
+        const int item = e + u * kG5Threads;
+        mm[u] = rows[min(item, items - 1) / quads];
+        jj[u] = (item % quads) * 4;
+        live[u] = item < items && r0 + jj[u] < g.r;
+        p[u] = live[u] ? g.zpart + (long long)(m0 + mm[u]) * g.r + r0 + jj[u] : g.zpart;
       }
-      const int n = n0 + j, k = k0 + kk;
-      qs[kk][j] = (n < g.N && k < g.K) ? load(g.w, k, n) : 0.f;
+      float4 v[2];
+      sum4_pair(p[0], p[1], (long long)g.M * g.r, g.zchunks, v[0], v[1]);
+      for (int u = 0; u < 2; ++u) {
+        if (e + u * kG5Threads >= items) break;
+        const float s = live[u] ? sscale[mm[u]] : 0.f;
+        bf16* h = zh + mm[u] * kG5PLd + jj[u];
+        bf16* l = zl + mm[u] * kG5PLd + jj[u];
+        split_bf16(v[u].x * s, h, l);
+        split_bf16(v[u].y * s, h + 1, l + 1);
+        split_bf16(v[u].z * s, h + 2, l + 2);
+        split_bf16(v[u].w * s, h + 3, l + 3);
+      }
+    }
+    cp_async_wait();
+    __syncthreads();
+    for (int ks = 0; ks < ksteps; ++ks) {
+      uint32_t af[4];
+      ldsm_x4_t(af, a_trans(bs, ks * 16, warp * 16, lane));
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        if (j >= n8) break;
+        const int o = (8 * j + lane / 4) * kG5PLd + ks * 16 + 2 * (lane % 4);
+        const uint32_t* h = reinterpret_cast<const uint32_t*>(zh + o);
+        const uint32_t* l = reinterpret_cast<const uint32_t*>(zl + o);
+        mma16816(lora[j], af[0], af[1], af[2], af[3], h[0], h[4]);
+        mma16816(lora[j], af[0], af[1], af[2], af[3], l[0], l[4]);
+      }
+    }
+  }
+  __syncthreads();  // ys is complete
+
+  bf16* y = static_cast<bf16*>(g.y);
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    if (j >= n8) break;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int col = acc_col(lane, j, e), n = n0 + warp * 16 + acc_row(lane, e);
+      if (own(col) && n < g.N)
+        y[(long long)(m0 + col) * g.N + n] =
+            __float2bfloat16_rn(ys[col * kG5YLd + n - n0] + lora[j][e]);
+    }
+  }
+}
+
+// pass 2 on f32 FMAs: block (64 columns of N, 64 rows of M); thread (n = tid %
+// 64, rows tid / 64 + 2i) accumulates its rows' LoRA terms in smem, per 64
+// rank columns of (s z) staged as f32, reading its row's slot of B
+__global__ void __launch_bounds__(kG5Threads) grouped_fma_reduce_kernel(Grouped g) {
+  __shared__ float zs[kG5Tile][kG5Tile + 1];
+  __shared__ float lo[kG5Tile][kG5Tile];
+  __shared__ int sidx[kG5Tile];
+  __shared__ float sscale[kG5Tile];
+  const int type = g.bf16 ? kBF16 : kF32;
+  const Mat b = {g.b, g.N, 1, type, nullptr, 0, 0};  // slot s, row j is row s*r + j
+  const int n0 = blockIdx.x * kG5Tile, m0 = blockIdx.y * kG5Tile;
+  const int mt = min(kG5Tile, g.M - m0);
+  const int nn = threadIdx.x % kG5Tile, n = n0 + nn, row0 = threadIdx.x / kG5Tile;
+  constexpr int kStep = kG5Threads / kG5Tile;
+  tile_rows(g, m0, sidx, sscale);
+  for (int mm = row0; mm < kG5Tile; mm += kStep) lo[mm][nn] = 0.f;
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+  __syncthreads();
+  for (int r0 = 0; r0 < g.r; r0 += kG5Tile) {
+    for (int e = threadIdx.x; e < kG5Tile * kG5Tile; e += kG5Threads) {
+      const int mm = e / kG5Tile, jj = e % kG5Tile;
+      zs[mm][jj] = mm < mt ? scaled_z(g, sidx, sscale, m0, mm, r0 + jj) : 0.f;
     }
     __syncthreads();
-    tile_fma<BM, BN>(ps, qs, acc, tx, ty);
+    const int rc = min(kG5Tile, g.r - r0);
+    for (int mm = row0; mm < mt; mm += kStep) {
+      const int slot = sidx[mm];
+      if (slot < 0 || n >= g.N) continue;
+      float acc = lo[mm][nn];
+      for (int jj = 0; jj < rc; ++jj)
+        acc = fmaf(zs[mm][jj], load(b, (long long)slot * g.r + r0 + jj, n), acc);
+      lo[mm][nn] = acc;
+    }
     __syncthreads();
   }
-
-  for (int slot = 0; slot < g.slots; ++slot) {
-    if (!__syncthreads_or(tid < BM && sidx[tid] == slot)) continue;
-    const float s = g.s[slot];
-    for (int k0 = 0; k0 < g.r; k0 += kBK) {
-      for (int e = tid; e < BM * kBK; e += kThreads) {
-        const int i = e / kBK, kk = e % kBK, m = m0 + i, k = k0 + kk;
-        float z = 0.f;
-        if (sidx[i] == slot && k < g.r)
-          for (int c = 0; c < g.chunks; ++c) z += g.part[((long long)c * g.M + m) * g.r + k];
-        ps[kk][i] = z;
-      }
-      for (int e = tid; e < kBK * BN; e += kThreads) {
-        const int j = e % BN, kk = e / BN, n = n0 + j, k = k0 + kk;
-        qs[kk][j] = (n < g.N && k < g.r) ? s * load(g.b, (long long)slot * g.r + k, n) : 0.f;
-      }
-      __syncthreads();
-      tile_fma<BM, BN>(ps, qs, acc, tx, ty);
-      __syncthreads();
-    }
+  for (int mm = row0; mm < mt; mm += kStep) {
+    if (n >= g.N) continue;
+    const float v = base_sum(g, m0 + mm, n) + lo[mm][nn];
+    const long long off = (long long)(m0 + mm) * g.N + n;
+    if (g.bf16)
+      static_cast<bf16*>(g.y)[off] = __float2bfloat16_rn(v);
+    else
+      static_cast<float*>(g.y)[off] = v;
   }
-
-  store_tile<BM, BN>(acc, g.y, g.y_bf16, g.N, 0, g.M, g.N, m0, n0, tx, ty);
 }
 
 int sm_count() {
@@ -507,10 +974,6 @@ const char* lora_matmul_error_string(int err) {
 // (ceil(M / chunk), K*r + r*N) f32
 int lora_matmul_dab_chunk() { return kChunk; }
 
-// rows of K per partial of kernel 5's z: the wrapper sizes the scratch as
-// (ceil(K / chunk), M, r) f32
-int grouped_lora_z_chunk() { return kZChunk; }
-
 // x (M, K); W logical (K, N) at element strides (w_s0, w_s1); A (K, r); B (r, N);
 // y (M, N) in the inputs' dtype; z (M, r) f32.  dtype: 0 float32, 1 bfloat16.
 int fused_lora_forward_launch(const void* x, const void* w, long long w_s0, long long w_s1,
@@ -604,44 +1067,76 @@ int fused_lora_bwd_dab_launch(const void* g, const void* x, const float* z, floa
 
 // kernel 5: x (M, K); W logical (K, N) at element strides (w_s0, w_s1);
 // a_stack (slots, K, r) and b_stack (slots, r, N) contiguous; s (slots,) f32;
-// idx (M,) int32; part (ceil(K / 256), M, r) f32 scratch; y (M, N) in the
-// inputs' dtype.  A row whose idx is outside [0, slots) gets x @ W alone.
+// idx (M,) int32; y (M, N) in the inputs' dtype.  The split schedule (splits
+// chunks of kc rows of K, kc a multiple of 32) comes from the wrapper, which
+// chooses it from K and N alone; scratch holds splits * M * N + ceil(K / 256)
+// * M * r f32 (the base and shrink partials).  A row whose idx is outside
+// [0, slots) gets x @ W alone.
 int grouped_lora_forward_launch(const void* x, const void* w, long long w_s0, long long w_s1,
                                 const void* a, const void* b, const float* s, const int* idx,
-                                float* part, void* y, int M, int K, int N, int r, int slots,
-                                int dtype, void* stream) {
-  if (bad_args(M, K, N, r, dtype) || slots <= 0) return (int)cudaErrorInvalidValue;
+                                float* scratch, void* y, int M, int K, int N, int r, int slots,
+                                int splits, int kc, int dtype, void* stream) {
+  if (bad_args(M, K, N, r, dtype) || slots <= 0 || kc <= 0 || kc % 32 || splits <= 0 ||
+      (long long)splits * kc < K || (long long)(splits - 1) * kc >= K)
+    return (int)cudaErrorInvalidValue;
   if (M == 0) return (int)cudaSuccess;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int chunks = tiles(K, kZChunk);
-  dim3 zgrid(chunks, M < 65535 ? M : 65535);
-  grouped_z_kernel<<<zgrid, kThreads, 0, st>>>(x, a, idx, slots, part, M, K, r, dtype);
-  int err = (int)cudaGetLastError();
-  if (err) return err;
-  GroupedY g;
-  g.x = mat(x, K, 1, dtype);
-  g.w = mat(w, w_s0, w_s1, dtype);
-  g.b = mat(b, N, 1, dtype);
-  g.part = part;
+  Grouped g{};
+  g.x = x;
+  g.w = w;
+  g.ws0 = w_s0;
+  g.ws1 = w_s1;
+  g.a = a;
+  g.b = b;
   g.s = s;
   g.idx = idx;
-  g.slots = slots;
-  g.chunks = chunks;
+  g.part = scratch;
+  g.zpart = scratch + (long long)splits * M * N;
+  g.y = y;
   g.M = M;
   g.K = K;
   g.N = N;
   g.r = r;
-  g.y = y;
-  g.y_bf16 = dtype == kBF16;
-  const bool big = (long long)tiles(M, 128) * tiles(N, 128) >= 2LL * sm_count();
-  const int bm = big ? 128 : 64;
-  if (tiles(M, bm) > 65535) return (int)cudaErrorInvalidValue;
-  dim3 grid(tiles(N, bm), tiles(M, bm));
-  if (big)
-    grouped_lora_kernel<128, 128><<<grid, kThreads, 0, st>>>(g);
-  else
-    grouped_lora_kernel<64, 64><<<grid, kThreads, 0, st>>>(g);
-  return (int)cudaGetLastError();
+  g.S = slots;
+  g.splits = splits;
+  g.kc = kc;
+  g.zchunks = tiles(K, kG5ZChunk);
+  g.rtiles = tiles(r, kG5Tile);
+  g.bf16 = dtype == kBF16;
+  auto aligned = [](const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; };
+  const bool tc = dtype == kBF16 && w_s0 == 1 && w_s1 % 8 == 0 && K % 8 == 0 && N % 8 == 0 &&
+                  r % 8 == 0 && aligned(x) && aligned(w) && aligned(a) && aligned(b) &&
+                  aligned(scratch);
+  const long long blocks = (long long)tiles(N, kG5Rows) * splits +
+                           (long long)slots * g.zchunks * g.rtiles;
+  if (blocks > 0x7fffffffLL || tiles(M, kG5Tile) > 65535 || slots >= 65535)
+    return (int)cudaErrorInvalidValue;
+  if (tc) {
+    const auto attr = cudaFuncAttributeMaxDynamicSharedMemorySize;
+    static const bool sized =  // once: both passes take more than 48 KB of shared memory
+        cudaFuncSetAttribute(grouped_tc_base_shrink_kernel, attr, kG5Smem1) == cudaSuccess &&
+        cudaFuncSetAttribute(grouped_tc_reduce_kernel, attr, kG5Smem2) == cudaSuccess;
+    if (!sized) return (int)cudaErrorInvalidValue;
+    grouped_tc_base_shrink_kernel<<<(unsigned)blocks, kG5Threads, kG5Smem1, st>>>(g);
+  } else {
+    grouped_fma_base_shrink_kernel<<<(unsigned)blocks, kG5Threads, 0, st>>>(g);
+  }
+  int err = (int)cudaGetLastError();
+  if (err) return err;
+  // the reduce pass as a programmatic dependent launch: it is scheduled while
+  // pass 1 runs and waits for pass 1's writes (griddepcontrol.wait)
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(tiles(N, kG5Tile), tiles(M, kG5Tile), tc ? slots + 1 : 1);
+  cfg.blockDim = dim3(kG5Threads);
+  cfg.dynamicSmemBytes = tc ? kG5Smem2 : 0;
+  cfg.stream = st;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return (int)(tc ? cudaLaunchKernelEx(&cfg, grouped_tc_reduce_kernel, g)
+                  : cudaLaunchKernelEx(&cfg, grouped_fma_reduce_kernel, g));
 }
 
 }  // extern "C"

@@ -139,14 +139,13 @@ def _kernel_library():
         )
         lib.dequant_matmul_launch.argtypes = [vp, vp, i64, i64, vp, vp] + [i32] * 4 + [vp]
         lib.grouped_lora_forward_launch.argtypes = (
-            [vp, vp, i64, i64, vp, vp, vp, vp, vp, vp] + [i32] * 6 + [vp]
+            [vp, vp, i64, i64, vp, vp, vp, vp, vp, vp] + [i32] * 8 + [vp]
         )
         for fn in ("fused_lora_forward", "fused_lora_bwd_dx", "fused_lora_bwd_dab",
                    "fused_lora_int8_forward", "fused_lora_int8_bwd_dx", "dequant_matmul",
                    "grouped_lora_forward"):
             getattr(lib, f"{fn}_launch").restype = i32
         lib.lora_matmul_dab_chunk.restype = i32
-        lib.grouped_lora_z_chunk.restype = i32
         lib.lora_matmul_error_string.argtypes = [i32]
         lib.lora_matmul_error_string.restype = ctypes.c_char_p
         lib._relora_typed = True
@@ -414,6 +413,35 @@ def grouped_shapes(x, w, a_stack, b_stack, idx) -> Tuple[int, int, int, int, int
     return M, K, N, r, S
 
 
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+#: kernel 5's split schedule: a base block owns 16 rows of N and one K chunk
+#: of a multiple of 32 rows; chunks are chosen so that a call launches at least
+#: two base blocks per SM of the H100 (132 SMs)
+GROUPED_ROWS, GROUPED_K_GROUP, GROUPED_TARGET_BLOCKS = 16, 32, 2 * 132
+#: rows of K per shrink partial (``kG5ZChunk`` in ``csrc/lora_matmul.cu``)
+GROUPED_Z_CHUNK = 256
+
+
+def grouped_split_schedule(K: int, N: int) -> Tuple[int, int]:
+    """``(splits, kc)``: kernel 5 contracts ``x @ W`` in ``splits`` chunks of
+    ``kc`` rows of K (the last one ragged), each a block per 16 rows of N,
+    summed in chunk order.  It depends on K and N alone, never on M or the
+    slots, so that a row's result does not depend on the rest of its batch."""
+    want = _cdiv(GROUPED_TARGET_BLOCKS, _cdiv(N, GROUPED_ROWS))  # splits for the target
+    kc = _cdiv(_cdiv(K, want), GROUPED_K_GROUP) * GROUPED_K_GROUP
+    return _cdiv(K, kc), kc
+
+
+def grouped_scratch_floats(M: int, K: int, N: int, r: int) -> int:
+    """f32 elements of kernel 5's scratch: the base partials ``(splits, M,
+    N)`` and the shrink partials ``(ceil(K / 256), M, r)``."""
+    splits, _ = grouped_split_schedule(K, N)
+    return M * (splits * N + _cdiv(K, GROUPED_Z_CHUNK) * r)
+
+
 def grouped_lora_matmul(x, w, a_stack, b_stack, s_stack, idx) -> torch.Tensor:
     """``y[m] = x[m] @ W + ((x[m] @ A[idx[m]]) @ B[idx[m]]) * s[idx[m]]`` for
     a mixed-tenant batch (kernel 5).
@@ -438,12 +466,13 @@ def grouped_lora_matmul(x, w, a_stack, b_stack, s_stack, idx) -> torch.Tensor:
     s32 = _rows(s_stack.reshape(-1), (S,), "s_stack", torch.float32)
     idx32 = _rows(idx.reshape(-1), (M,), "adapter_idx", torch.int32)
     lib = _kernel_library()
-    chunks = -(-K // lib.grouped_lora_z_chunk())
-    part = torch.empty((chunks, M, r), dtype=torch.float32, device=x.device)
+    splits, kc = grouped_split_schedule(K, N)
+    scratch = torch.empty(grouped_scratch_floats(M, K, N, r), dtype=torch.float32, device=x.device)
     y = torch.empty((M, N), dtype=x.dtype, device=x.device)
     err = lib.grouped_lora_forward_launch(
         ptr_arg(x2), ptr_arg(w), ws0, ws1, ptr_arg(a_stack), ptr_arg(b_stack), ptr_arg(s32),
-        ptr_arg(idx32), ptr_arg(part), ptr_arg(y), M, K, N, r, S, code, stream_arg(x2),
+        ptr_arg(idx32), ptr_arg(scratch), ptr_arg(y), M, K, N, r, S, splits, kc, code,
+        stream_arg(x2),
     )
     _raise_on_error(lib, err, "grouped_lora_matmul")
     grouped_lora_matmul.launches += 1

@@ -23,6 +23,7 @@ reference that its CPU dispatch picks):
 """
 
 import dataclasses
+import inspect
 import json
 import os
 
@@ -58,7 +59,15 @@ from relora_tpu_torch.models.llama import LlamaForCausalLM
 from relora_tpu_torch.models.lora import LoRALinear
 from relora_tpu_torch.models.params_util import init_params
 from relora_tpu_torch.ops.lora_dispatch import GROUPED_ARMS, lora_matmul_grouped
-from relora_tpu_torch.ops.lora_matmul import fused_lora_forward_plain, grouped_lora_matmul
+from relora_tpu_torch.ops.lora_matmul import (
+    GROUPED_K_GROUP,
+    GROUPED_ROWS,
+    GROUPED_TARGET_BLOCKS,
+    fused_lora_forward_plain,
+    grouped_lora_matmul,
+    grouped_scratch_floats,
+    grouped_split_schedule,
+)
 from relora_tpu_torch.serve.adapters import (
     BASE_ADAPTER,
     RELORA_CONFIG_FILE,
@@ -100,16 +109,54 @@ def torch_args(*arrays):
     return [torch.from_numpy(np.ascontiguousarray(t)) for t in arrays]
 
 
-@pytest.mark.parametrize("shape", [(6, 32, 128, 4, 3), (5, 72, 100, 8, 3), (6, 32, 128, 320, 3)],
-                         ids=["mixed", "ragged", "rank320"])
-def test_grouped_twin_matches_jax_kernel_and_reference(shape):
-    M, K, N, r, S = shape
-    ops = grouped_operands(M, K, N, r, S)
+# (M, K, N, r, S, rows' slots): "mixed" spreads the rows over every slot; the
+# decode-like cases (M = 1 and 8 rows, 4 slots) put every row on one slot
+# ("one"), leave slot 1 unused ("unused"), or take rank 320
+GROUPED_CASES = {
+    "mixed": (6, 32, 128, 4, 3, "mixed"),
+    "ragged": (5, 72, 100, 8, 3, "mixed"),
+    "rank320": (6, 32, 128, 320, 3, "mixed"),
+    "m1": (1, 32, 128, 4, 4, "one"),
+    "decode8": (8, 32, 128, 4, 4, "mixed"),
+    "decode8_one_slot": (8, 32, 128, 4, 4, "one"),
+    "decode8_unused_slot": (8, 32, 128, 4, 4, "unused"),
+    "decode8_rank320": (8, 32, 128, 320, 4, "mixed"),
+}
+
+
+@pytest.mark.parametrize("case", list(GROUPED_CASES.values()), ids=list(GROUPED_CASES))
+def test_grouped_twin_matches_jax_kernel_and_reference(case):
+    M, K, N, r, S, rows = case
+    x, w, a, b, s, idx = grouped_operands(M, K, N, r, S)
+    if rows == "one":
+        idx = np.full(M, S - 1, np.int32)
+    elif rows == "unused":
+        idx = np.array([(0, 2, 3)[m % 3] for m in range(M)], np.int32)
+    ops = (x, w, a, b, s, idx)
     got = grouped_lora_matmul(*torch_args(*ops)).numpy()
     jx = [jnp.asarray(t) for t in ops]
     np.testing.assert_allclose(got, np.asarray(jax_grouped(*jx, interpret=True)), atol=KERNEL_TOL)
     np.testing.assert_allclose(got, np.asarray(jax_grouped_reference(*jx)), atol=KERNEL_TOL)
-    assert len(set(ops[-1].tolist())) == S  # every slot, slot 0 included, is in use
+    used = {"mixed": S, "one": 1, "unused": S - 1}[rows]
+    assert len(set(idx.tolist())) == used  # "mixed": every slot, slot 0 included, is in use
+
+
+def test_grouped_split_schedule_depends_on_k_and_n_only():
+    """Kernel 5 splits K by a schedule of (K, N) alone: chunks of a multiple
+    of 32 rows that cover K exactly once, at least two base blocks per SM of
+    the H100 at llama_250m's projection shapes, and a scratch linear in M."""
+    for K, N in [(768, 768), (768, 2560), (2560, 768), (72, 100), (1, 1), (32, 8), (100000, 16)]:
+        splits, kc = grouped_split_schedule(K, N)
+        assert kc % GROUPED_K_GROUP == 0 and (splits - 1) * kc < K <= splits * kc
+        assert splits <= -(-K // GROUPED_K_GROUP)
+        for r in (4, 128, 320):
+            one = grouped_scratch_floats(1, K, N, r)
+            assert one == splits * N + -(-K // 256) * r
+            assert [grouped_scratch_floats(M, K, N, r) for M in (8, 64, 72)] == [8 * one, 64 * one, 72 * one]
+    for K, N in [(768, 768), (768, 2560), (2560, 768)]:
+        splits, _ = grouped_split_schedule(K, N)
+        assert -(-N // GROUPED_ROWS) * splits >= GROUPED_TARGET_BLOCKS
+    assert inspect.signature(grouped_split_schedule).parameters.keys() == {"K", "N"}
 
 
 def test_grouped_twin_one_slot_equals_fused_twin_and_slot_zero_is_base():

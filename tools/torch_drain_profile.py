@@ -20,7 +20,8 @@ the busy time.  Extra flags go to the CLI:
 ``--tenants`` drains chip_smoke.py's mixed-tenant traffic instead: a seeded
 llama_250m base and three tenant adapters written under ``build/chip_smoke/``,
 the 16 prompts round-robin over [base, tA, tB, tC] through the scheduler API
-with 4 adapter slots (``--packed`` for packed rounds).
+with 4 adapter slots (``--packed`` for packed rounds; ``--slots 3`` for the
+contention drain, adapters loaded and evicted mid-traffic).
 
 Needs a CUDA card.  Busy time is the union of kernel intervals on the
 device, so overlapping streams are not counted twice.
@@ -32,7 +33,6 @@ import json
 import os
 import subprocess
 import sys
-import time
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
@@ -40,7 +40,6 @@ sys.path.insert(0, REPO)
 
 def main(argv) -> int:
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     if not torch.cuda.is_available():
         print("torch_drain_profile: no CUDA card", file=sys.stderr)
@@ -57,8 +56,9 @@ def main(argv) -> int:
 
         device = torch.device("cuda")
         base, tenants = chip_smoke.write_adapter_checkpoints(torch, work, device)
-        engine = chip_smoke.tenant_engine(torch, base, chip_smoke.ADAPTER_SLOTS, device)
-        registry = AdapterRegistry(tenants, chip_smoke.ADAPTER_SLOTS, expected_r=chip_smoke.ADAPTER_R,
+        slots = int(argv[argv.index("--slots") + 1]) if "--slots" in argv else chip_smoke.ADAPTER_SLOTS
+        engine = chip_smoke.tenant_engine(torch, base, slots, device)
+        registry = AdapterRegistry(tenants, slots, expected_r=chip_smoke.ADAPTER_R,
                                    writer=engine.adapter_writer())
         requests = chip_smoke.tenant_requests(chip_smoke.read_prompts(prompts),
                                               [None] + list(chip_smoke.TENANT_ALPHAS))
@@ -75,30 +75,8 @@ def main(argv) -> int:
 
     drain()  # warm-up: cuBLAS handles, allocator, kernel build
     completions, seconds = drain()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        drain()
-        wall = time.perf_counter() - t0
-    intervals = []
-    by_name = {}
-    for ev in prof.events():
-        if ev.device_type == torch.autograd.DeviceType.CUDA and ev.time_range.elapsed_us() > 0:
-            intervals.append((ev.time_range.start, ev.time_range.end))
-            name = ev.name[:80]
-            by_name[name] = by_name.get(name, 0.0) + ev.time_range.elapsed_us()
-    if not intervals:
-        raise SystemExit("torch_drain_profile: the profiler traced no device time")
-    busy = 0.0
-    end = None
-    for s, e in sorted(intervals):
-        if end is None or s > end:
-            busy += e - s
-            end = e
-        elif e > end:
-            busy += e - end
-            end = e
+    _, wall, busy_s, by_name = chip_smoke.device_profile(torch, drain)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
-    grouped_us = sum(us for name, us in by_name.items() if "grouped_" in name)
     tokens = sum(len(c.tokens) for c in completions.values())
     print(json.dumps({
         "flags": argv,
@@ -109,9 +87,9 @@ def main(argv) -> int:
         "drain_s": seconds,
         "profiled_wall_s": wall,
         "tokens_per_s": tokens / seconds,
-        "device_busy_s": busy / 1e6,
-        "device_idle_share": 1.0 - busy / 1e6 / wall,
-        "grouped_lora_share": grouped_us / busy,
+        "device_busy_s": busy_s,
+        "device_idle_share": 1.0 - busy_s / wall,
+        "grouped_lora_share": chip_smoke.grouped_share(by_name, busy_s),
         "kernels_ms": {name: us / 1e3 for name, us in top},
     }))
     return 0
