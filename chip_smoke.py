@@ -6,7 +6,11 @@
 Phases, in order; any failure raises and the script exits non-zero:
 
 1. build     — nvcc builds every kernel of ``relora_tpu_torch/csrc`` for
-               sm_90a, one process per source, all started together.
+               sm_90a, one process per source, all started together; the
+               HMMA count of every bf16 tensor-core kernel of the flash and
+               LoRA sources (kernel 3, kernel 5, the fused forward's z and
+               y kernels) and, printed later, ``-Xptxas -v`` registers of
+               kernels 4 and 5, which fail on any spill.
 2. kernels   — the paged kernels (1-2) against their plain PyTorch twins on
                the card, at llama_250m (N=16, H=48) and llama_1b (N=32, H=64)
                widths, page 16, table width 64, B=8 with S in {1, 5} and a
@@ -49,15 +53,18 @@ Phases, in order; any failure raises and the script exits non-zero:
                (M=4096, r=128; (K, N) = (768, 768), (768, 2560), (2560, 768))
                at bf16 and f32 with W the transposed view the model passes, a
                contiguous W, a ragged M=200, K=72, N=100, r=8, a rank past
-               256 (M=1024, K=N=768, r=320), and a tensor scale through the
-               autograd Function (ds too); then each timed
-               per shape beside its twin, the ordered cuBLAS chain of the
-               default path and its bound.
+               256 (M=1024, K=N=768, r=320), a ragged bf16 case on the
+               tensor cores (M=200, K=72, N=104, r=8), and a tensor scale
+               through the autograd Function (ds too); each forward prints
+               the path it took (``tc`` or ``fma``), held to
+               ``forward_path``'s rule; then each timed per shape beside its
+               twin, the ordered cuBLAS chain of the default path and its
+               bound.
 9. fused-train — the train phase again with ``--lora_fused true
                --lora_dropout 0``: the same checks, and the fused launch
                counters equal 7 x layers x (microbatches x updates + eval
                batches) for the forward and 7 x layers x microbatches x
-               updates for dx and dA/dB.
+               updates for dx and dA/dB; every forward on the tensor cores.
 10. f32-fused — one update of a 2-layer llama_250m at f32 (TF32 off),
                ``lora_fused`` true against false from the same weights
                (nonzero B) and batch, on loss and gradient norm.
@@ -66,7 +73,8 @@ Phases, in order; any failure raises and the script exits non-zero:
                projection shapes at bf16 and f32 with q the transposed view of
                the (N, K) codes the model passes, a contiguous (K, N) q, a
                ragged M=200, K=72, N=100, r=8, r=320 at M=1024, K=N=768,
-               and a tensor scale through
+               the ragged tensor-core case of kernels-4 (paths printed and
+               checked as there), and a tensor scale through
                FusedLoRAMatmulInt8 (ds and dqscale too) and DequantMatmul;
                then each timed per shape beside its twin, the dequantize +
                cuBLAS chain of the JAX default path and its bound.
@@ -79,8 +87,8 @@ Phases, in order; any failure raises and the script exits non-zero:
                fused kernel.
 13. int8_fused_train — the same with ``--lora_fused true --lora_dropout 0``:
                4-int8 launched 7 x layers x (microbatches x updates + eval
-               batches) times, 6-int8 and kernel 7 7 x layers x microbatches
-               x updates, kernel 8 never.
+               batches) times, every one on the tensor cores, 6-int8 and
+               kernel 7 7 x layers x microbatches x updates, kernel 8 never.
 14. f32-int8 — one update of a 2-layer int8 llama_250m at f32 (TF32 off),
                the fused-int8 arm against the unfused kernel-8 arm from the
                same warm-started weights (nonzero B) and batch, on loss and
@@ -88,8 +96,8 @@ Phases, in order; any failure raises and the script exits non-zero:
                oracle, to the requant rule.
 
 15. kernels-5 — ``nvcc -Xptxas -v`` registers and spills of kernel 5's four
-               kernels and the HMMA count of its two bf16 tensor-core
-               kernels (printed before the phase starts); kernel 5 (the
+               kernels and of the tensor-core forward's three (printed
+               before the phase starts); kernel 5 (the
                grouped multi-tenant LoRA forward) against its twin at bf16
                and f32: M in {8, 64, 72} (decode rows, a prefill chunk, a
                packed step) x the three projection shapes, r=128, S=4 slots,
@@ -121,8 +129,9 @@ Phases, in order; any failure raises and the script exits non-zero:
                kernel arm (kernel 5, the paged kernels) against the plain arm
                (the gathered composite, naive attention), compared on logits.
 
-``python3 chip_smoke.py --ab DIR [--train [FLAGS...] | --grouped | --tenants]``
-times another checkout's package instead (see :func:`ab`); it checks nothing.
+``python3 chip_smoke.py --ab DIR [--train [FLAGS...] | --grouped | --lora |
+--tenants]`` times another checkout's package instead (see :func:`ab`); it
+checks nothing.
 
 Output: a forward+backward timing line, one line per drain, a train line, a
 LoRA timing line, a fused-train line, an int8 timing line, the int8 train
@@ -428,8 +437,9 @@ def count_hmma(lib_path, kernels):
 
 def ptxas_report(source, kernels):
     """Start ``nvcc -Xptxas -v`` on ``source`` (the build's flags, into a
-    throwaway object under ``build/``); the returned function waits for it and
-    prints ``{kernel: registers, spills, smem}`` of the named kernels."""
+    throwaway object under ``build/``); the returned function waits for it,
+    prints ``{kernel: registers, spills, smem}`` of the named kernels and
+    fails if any of them spills."""
     from relora_tpu_torch.ops import _build
 
     out = os.path.join(REPO, "build", "ptxas", os.path.basename(str(source)) + ".o")
@@ -459,6 +469,9 @@ def ptxas_report(source, kernels):
         print(json.dumps({"ptxas": rows, "source": os.path.relpath(str(source), REPO)}))
         if set(rows) != set(kernels):
             raise AssertionError(f"ptxas -v reported {sorted(rows)}, expected {sorted(kernels)}")
+        spilled = sorted(k for k, v in rows.items() if v["spill_stores"] or v["spill_loads"])
+        if spilled:
+            raise AssertionError(f"ptxas -v: {spilled} spill registers to local memory")
         return rows
 
     return report
@@ -731,6 +744,7 @@ def write_corpus(work, vocab=32100, seed=0):
 
 LORA_NAMES = ("fused_lora_forward", "fused_lora_bwd_dx", "fused_lora_bwd_dab")
 INT8_NAMES = ("dequant_matmul", "fused_lora_int8_forward", "fused_lora_int8_bwd_dx")
+TC_NAMES = ("fused_lora_forward", "fused_lora_int8_forward")  # wrappers with .tc_launches
 
 
 def _counters():
@@ -787,9 +801,12 @@ def train(torch, data_config, label="train", extra=()):
     counters = _counters()
     for c in counters.values():
         c.launches = 0
+    for n in TC_NAMES:
+        counters[n].tc_launches = 0
     with MergeWatch(torch) as watch:
         result = train_main.main(TRAIN_ARGS + list(extra) + ["--megatron_dataset_config", data_config])
     launches = {n: c.launches for n, c in counters.items()}
+    tc = {n: counters[n].tc_launches for n in TC_NAMES}
 
     records = result["records"]
     losses = [r["loss"] for r in records]
@@ -820,7 +837,7 @@ def train(torch, data_config, label="train", extra=()):
         "tokens_per_s": 16 * 512 / (ms / 1e3), "first_loss": losses[0], "last_loss": losses[-1],
         "final_eval_loss": result.get("final_eval_loss"), "merges_at": merges_at,
         "resets_at": resets_at, "eval_batches": result["eval_batches"], "launches": launches,
-        "fit_seconds": result["fit_seconds"],
+        "tc_launches": tc, "fit_seconds": result["fit_seconds"], "losses": losses,
     }
     if int8:
         line["int8_merges"] = watch.merges
@@ -833,6 +850,9 @@ def train(torch, data_config, label="train", extra=()):
         raise AssertionError(f"{label}: merges at {merges_at}, resets at {resets_at}, expected [4, 7]")
     if launches != want:
         raise AssertionError(f"{label}: launches {launches}, expected {want}")
+    if tc != {n: launches[n] for n in TC_NAMES}:
+        raise AssertionError(f"{label}: forwards on the tensor cores {tc} of {launches}: the "
+                             "model's bf16 layout must take the tensor-core path every time")
     if int8 and not (len(watch.merges) == 2 and all(
             m["modules"] == 7 * layers and m["nonzero_before"] > 0 and m["int8_after"]
             and m["moved"] > 0 for m in watch.merges)):
@@ -927,6 +947,29 @@ def _rel_err(pairs):
     return err, rel, finite
 
 
+# the ragged case the tensor-core forward takes: partial k-steps (K = 72),
+# a partial N tile (N = 104) and a rank below one m16n8k16 depth (r = 8)
+RAGGED_TC = (200, 72, 104, 8, "bf16", True)
+# the forward's two kernels on the tensor cores, and kernel 4-int8's
+FWD_TC_KERNELS = ("fused_fwd_z_tc_kernel", "fused_fwd_y_tc_bf16_kernel",
+                  "fused_fwd_y_tc_int8_kernel")
+
+
+def check_path(wrapper, tc_before, x, K, N, r, transposed):
+    """The path a forward call took (``"tc"`` if it counted a tensor-core
+    launch), held to :func:`forward_path`'s rule for its inputs: bf16 with
+    the transposed base and widths that are multiples of 8 take the tensor
+    cores, everything else the FMA kernel."""
+    from relora_tpu_torch.ops import lora_matmul as LM
+
+    path = "tc" if wrapper.tc_launches > tc_before else "fma"
+    strides = (1, K) if transposed else (N, 1)
+    if path != LM.forward_path(x.dtype, strides, K, N, r):
+        raise AssertionError(f"{wrapper.__name__} took the {path} path at {x.dtype} "
+                             f"M={x.shape[0]} K={K} N={N} r={r} transposed={transposed}")
+    return path
+
+
 def lora_bound(M, K, N, r, e, kernel):
     """The two terms of the least time on an H100 SXM, in ms: each input
     read once and each output written once (e bytes per element, f32 for z,
@@ -958,6 +1001,7 @@ def check_lora_kernels(torch, device):
     cases += [(LORA_M, 768, 768, LORA_R, dt, False) for dt in ("bf16", "f32")]
     cases += [(200, 72, 100, 8, dt, True) for dt in ("bf16", "f32")]
     cases += [(1024, 768, 768, 320, dt, True) for dt in ("bf16", "f32")]  # a rank past 256
+    cases += [RAGGED_TC]
     with full_f32_matmul():
         for i, (M, K, N, r, dtype, transposed) in enumerate(cases):
             x, w, a, b, gy = make_lora_case(torch, device, M, K, N, r, dtype, seed=21 + i,
@@ -966,8 +1010,11 @@ def check_lora_kernels(torch, device):
             y0, z0 = LM.fused_lora_forward_plain(x, w, a, b, s)
             dx0, u0 = LM.fused_lora_bwd_dx_plain(gy, w, a, b, s)
             dab0 = LM.fused_lora_bwd_dab_plain(gy, x, z0, b, s, u0)
+            tc0 = LM.fused_lora_forward.tc_launches
+            fwd = LM.fused_lora_forward(x, w, a, b, s)
+            path = check_path(LM.fused_lora_forward, tc0, x, K, N, r, transposed)
             pairs = {
-                "fused_lora_forward": list(zip(LM.fused_lora_forward(x, w, a, b, s), (y0, z0))),
+                "fused_lora_forward": list(zip(fwd, (y0, z0))),
                 "fused_lora_bwd_dx": list(zip(LM.fused_lora_bwd_dx(gy, w, a, b, s), (dx0, u0))),
                 "fused_lora_bwd_dab": list(zip(LM.fused_lora_bwd_dab(gy, x, z0, b, s, u0), dab0))
                 + list(zip(LM.fused_lora_bwd_dab(gy, x, z0, b, s), dab0)),
@@ -977,8 +1024,10 @@ def check_lora_kernels(torch, device):
                 err, rel, finite = _rel_err(outs)
                 ok = finite and rel <= LORA_TOL[dtype]
                 print(f"kernel-check {name} M={M} K={K} N={N} r={r} {dtype} "
-                      f"W={'(N,K).t()' if transposed else '(K,N)'} max_abs_err={err:.3e} "
-                      f"rel_err={rel:.3e} tol={LORA_TOL[dtype]:g} {'ok' if ok else 'FAIL'}")
+                      f"W={'(N,K).t()' if transposed else '(K,N)'}"
+                      f"{' path=' + path if name == 'fused_lora_forward' else ''} "
+                      f"max_abs_err={err:.3e} rel_err={rel:.3e} tol={LORA_TOL[dtype]:g} "
+                      f"{'ok' if ok else 'FAIL'}")
                 if not ok:
                     raise AssertionError(f"{name} disagrees with its plain twin ({M, K, N, r, dtype})")
                 if dtype == "bf16" and M == LORA_M and transposed:
@@ -1156,15 +1205,18 @@ def check_int8_kernels(torch, device):
     cases += [(LORA_M, 768, 768, LORA_R, dt, False) for dt in ("bf16", "f32")]
     cases += [(200, 72, 100, 8, dt, True) for dt in ("bf16", "f32")]
     cases += [(1024, 768, 768, 320, dt, True) for dt in ("bf16", "f32")]  # a rank past 256
+    cases += [RAGGED_TC]
     with full_f32_matmul(), torch.no_grad():
         for i, (M, K, N, r, dtype, transposed) in enumerate(cases):
             x, q, qs, a, b, gy = make_int8_case(torch, device, M, K, N, r, dtype, seed=51 + i,
                                                 transposed=transposed)
             s = 0.25
+            tc0 = LM.fused_lora_int8_forward.tc_launches
+            fwd = LM.fused_lora_int8_forward(x, q, qs, a, b, s)
+            path = check_path(LM.fused_lora_int8_forward, tc0, x, K, N, r, transposed)
             pairs = {
                 "dequant_matmul": [(QM.dequant_matmul(x, q, qs), QM.dequant_matmul_plain(x, q, qs))],
-                "fused_lora_int8_forward": list(zip(LM.fused_lora_int8_forward(x, q, qs, a, b, s),
-                                                    LM.fused_lora_int8_forward_plain(x, q, qs, a, b, s))),
+                "fused_lora_int8_forward": list(zip(fwd, LM.fused_lora_int8_forward_plain(x, q, qs, a, b, s))),
                 "fused_lora_int8_bwd_dx": list(zip(LM.fused_lora_int8_bwd_dx(gy, q, qs, a, b, s),
                                                    LM.fused_lora_int8_bwd_dx_plain(gy, q, qs, a, b, s))),
             }
@@ -1173,8 +1225,10 @@ def check_int8_kernels(torch, device):
                 err, rel, finite = _rel_err(outs)
                 ok = finite and rel <= LORA_TOL[dtype]
                 print(f"kernel-check {name} M={M} K={K} N={N} r={r} {dtype} "
-                      f"q={'(N,K).t()' if transposed else '(K,N)'} max_abs_err={err:.3e} "
-                      f"rel_err={rel:.3e} tol={LORA_TOL[dtype]:g} {'ok' if ok else 'FAIL'}")
+                      f"q={'(N,K).t()' if transposed else '(K,N)'}"
+                      f"{' path=' + path if name == 'fused_lora_int8_forward' else ''} "
+                      f"max_abs_err={err:.3e} rel_err={rel:.3e} tol={LORA_TOL[dtype]:g} "
+                      f"{'ok' if ok else 'FAIL'}")
                 if not ok:
                     raise AssertionError(f"{name} disagrees with its plain twin ({M, K, N, r, dtype})")
                 if dtype == "bf16" and M == LORA_M and transposed:
@@ -1815,9 +1869,9 @@ def main() -> int:
     t0 = time.perf_counter()
     libs = _build.build_all()
     print(f"build: {sorted(libs)} in {time.perf_counter() - t0:.1f}s")
-    ptxas = ptxas_report(_build.CSRC / "lora_matmul.cu", GROUPED_KERNELS)
+    ptxas = ptxas_report(_build.CSRC / "lora_matmul.cu", GROUPED_KERNELS + FWD_TC_KERNELS)
     count_hmma(libs["flash_attention"], FLASH_TC_KERNELS)
-    count_hmma(libs["lora_matmul"], GROUPED_TC_KERNELS)
+    count_hmma(libs["lora_matmul"], GROUPED_TC_KERNELS + FWD_TC_KERNELS)
 
     rows = check_kernels(torch, device)
     flash_rows = check_flash_kernels(torch, device)
@@ -1940,6 +1994,35 @@ def ab_grouped(torch):
     return {"grouped_ms_per_layer": layers, "grouped_ms_per_call": calls}
 
 
+def ab_lora(torch):
+    """Kernels 4 and 4-int8 (the fused forward over a bf16 and an int8 base)
+    and, as controls, kernels 6 (dx) and 8 (the int8 dequant matmul) at
+    kernels-4's three llama_250m shapes, M = 4096, r = 128, bf16, the base as
+    the model passes it, 100 launches each: ms per call and per decoder layer
+    (7 projections)."""
+    from relora_tpu_torch.ops import lora_matmul as LM
+    from relora_tpu_torch.ops import quant_matmul as QM
+    from relora_tpu_torch.ops.quant import quantize_int8
+
+    calls, layers = {}, {}
+    with torch.no_grad():
+        for K, N, count in LORA_SHAPES:
+            x, w, a, b, gy = make_lora_case(torch, torch.device("cuda"), LORA_M, K, N, LORA_R,
+                                            "bf16", seed=99)
+            q_nk, qs = quantize_int8(w.t())
+            q = q_nk.t()
+            for name, fn in (
+                ("fused_lora_forward", lambda: LM.fused_lora_forward(x, w, a, b, 0.25)),
+                ("fused_lora_int8_forward", lambda: LM.fused_lora_int8_forward(x, q, qs, a, b, 0.25)),
+                ("fused_lora_bwd_dx", lambda: LM.fused_lora_bwd_dx(gy, w, a, b, 0.25)),
+                ("dequant_matmul", lambda: QM.dequant_matmul(x, q, qs)),
+            ):
+                ms = time_ms(torch, fn, iters=100)
+                calls[f"{name} K={K} N={N}"] = ms
+                layers[name] = layers.get(name, 0.0) + count * ms
+    return {"lora_ms_per_layer": layers, "lora_ms_per_call": calls}
+
+
 def ab_tenants(torch):
     """The adapter phase's mixed-tenant drains (sequential, packed, and
     sequential with 3 slots), each on a fresh engine and registry: one timed
@@ -1979,16 +2062,19 @@ def ab_tenants(torch):
 
 def ab(argv) -> int:
     """``python3 chip_smoke.py --ab DIR [--train [FLAGS...] | --grouped |
-    --tenants]``: one JSON line of the times of the package in the checkout
-    at DIR (another tree, such as the parent unpacked with ``git archive``)
-    by this script's timer and shapes, so two trees compare on one card when
-    run in turns in one call (parent, change, change, parent).  With no
-    option: kernel 3 at the train phase's shape, bf16 (forward, dK/dV, dQ,
-    the backward pair, and forward+backward through autograd), 100 launches
-    each.  ``--train``: the train phase (plus FLAGS) run twice, each run's
-    median ms per update of updates 2-9.  ``--grouped``: kernel 5 per call
-    and per layer (:func:`ab_grouped`).  ``--tenants``: the tenant drains'
-    tokens/s, idle share and kernel 5's share (:func:`ab_tenants`)."""
+    --lora | --tenants]``: one JSON line of the times of the package in the
+    checkout at DIR (another tree, such as the parent unpacked with ``git
+    archive``) by this script's timer and shapes, so two trees compare on
+    one card when run in turns in one call (parent, change, change, parent).
+    With no option: kernel 3 at the train phase's shape, bf16 (forward,
+    dK/dV, dQ, the backward pair, and forward+backward through autograd),
+    100 launches each.  ``--train``: the train phase (plus FLAGS) run twice,
+    each run's median ms per update of updates 2-9 and its per-update
+    losses.  ``--grouped``: kernel 5 per call and per layer
+    (:func:`ab_grouped`).  ``--lora``: kernels 4, 4-int8 and the controls 6
+    and 8 per call and per layer (:func:`ab_lora`).  ``--tenants``: the
+    tenant drains' tokens/s, idle share and kernel 5's share
+    (:func:`ab_tenants`)."""
     import torch
 
     if not torch.cuda.is_available():
@@ -2008,11 +2094,15 @@ def ab(argv) -> int:
         os.makedirs(work, exist_ok=True)
         args = TRAIN_ARGS + argv[3:] + ["--megatron_dataset_config", write_corpus(work)]
         out["flags"] = argv[3:]
-        for key in ("warm_ms_per_update", "ms_per_update"):
-            steady = sorted(r["update_seconds"] for r in train_main.main(args)["records"][1:])
-            out[key] = steady[len(steady) // 2] * 1e3
+        for run in ("warm_", ""):
+            records = train_main.main(args)["records"]
+            steady = sorted(r["update_seconds"] for r in records[1:])
+            out[f"{run}ms_per_update"] = steady[len(steady) // 2] * 1e3
+            out[f"{run}losses"] = [r["loss"] for r in records]
     elif argv[2:3] == ["--grouped"]:
         out.update(ab_grouped(torch))
+    elif argv[2:3] == ["--lora"]:
+        out.update(ab_lora(torch))
     elif argv[2:3] == ["--tenants"]:
         out.update(ab_tenants(torch))
     else:

@@ -29,11 +29,12 @@
 // x (M, K), g (M, N), A (K, r) and B (r, N) are row-major; W is the logical
 // (K, N) base with any element strides (the port passes the (N, K) weight's
 // transpose as a view).  Inputs are f32 or bf16 and are widened to f32 as they
-// are staged (kernel 5's bf16 path excepted: it feeds bf16 to the tensor
-// cores, see its note below); an int8 base is q (K, N) int8 codes, again at any strides, with
+// are staged (the bf16 paths of kernels 4 and 5 excepted: they feed bf16 to
+// the tensor cores, see their notes below); an int8 base is q (K, N) int8 codes, again at any strides, with
 // qscale (1, N) f32 per output column: each code is widened and multiplied by
-// its column's scale as the tile is staged, the f32 value the TPU kernel
-// forms in VMEM, so no dequantized copy of W is ever written.  s is read from
+// its column's scale as the tile is staged (kernel 4-int8's tensor-core path
+// scales its accumulators per column instead), so no dequantized copy of W is
+// ever written.  s is read from
 // a device pointer (the trainable tanh(lora_s)) or given by value, so no call
 // needs a host sync.  Any M, K, N and r (a rank past 256 included, as the
 // TPU kernels take it: the GEMM's contraction segments have no rank limit and
@@ -42,7 +43,8 @@
 // Design.  One tiled GEMM kernel, lora_gemm_kernel, computes
 //     C = P1 @ Q1 + P2 @ (s * Q2)
 // over two contraction segments for strided f32/bf16/scaled-int8 operands,
-// and each TPU kernel is a short sequence of its launches on one stream:
+// and each TPU kernel but the bf16 forward (below) is a short sequence of its
+// launches on one stream:
 //   forward:  z = x@A (f32), then y = x@W + z@(s*B)   (contraction K + r)
 //   dx:       u = g@B^T (f32), then dx = g@W^T + u@(s*A^T)   (contraction N + r)
 //   dA/dB:    partials of x^T u and z^T g over chunks of 512 rows of M, then
@@ -67,18 +69,52 @@
 // operands staged in shared memory as f32 (k-major, so each thread reads its
 // 4 or 8 rows and columns as float4s); each thread owns a 4x4 or 8x8 block of
 // C in registers.  All math is f32 FMAs on the CUDA cores: no TF32, so the f32
-// path is exact to summation order.  Tensor cores (mma.sync or wgmma fed by
-// TMA) are later work.
+// path is exact to summation order.
 //
 // Bound.  At llama_250m training shapes (M = 4096, r = 128; (K, N) = (768,
 // 768), (768, 2560), (2560, 768)) the forward and dx do 2M(KN + Kr + rN) flops
 // over ~2(MK + KN + MN) bytes, about 600 flops per byte: above the H100's ~295
-// bf16 balance point, so on tensor cores they would be bound by operations;
-// dA/dB does 2Mr(K + N) flops over ~2M(K + N) + 4Mr bytes, below it, so bound
-// by bytes.  Kernel 8 does 2MKN flops over 2MK + KN + 2MN bytes (int8 W): bound
-// by operations too; the int8 base saves bytes that do not bound it here.
-// These kernels use the f32 CUDA cores (67 TFLOP/s peak), so all are far
-// from that bound by construction.
+// bf16 balance point, so on tensor cores they are bound by operations (0.0855
+// ms a decoder layer at 989 TFLOP/s); dA/dB does 2Mr(K + N) flops over ~2M(K +
+// N) + 4Mr bytes, below it, so bound by bytes.  Kernel 8 does 2MKN flops over
+// 2MK + KN + 2MN bytes (int8 W): bound by operations too; the int8 base saves
+// bytes that do not bound it here.  lora_gemm_kernel uses the f32 CUDA cores
+// (67 TFLOP/s peak), so dx, dA/dB, kernel 8 and the f32 forward are far from
+// that bound by construction.
+//
+// Kernels 4 and 4-int8 on the tensor cores.  The bf16 forward with the base
+// as the k-contiguous (N, K) storage (the transposed view the model passes;
+// bf16 W or int8 codes) and K, N, r multiples of 8 runs mma.sync m16n8k16,
+// bf16 in, f32 accumulate, fed by cp.async and ldmatrix, in two launches:
+//   1. fused_fwd_z_tc_kernel: z = x@A (M, r) f32, 64x64 (M x r) tiles, 4 warps
+//      of 32x32, so that r = 128 gives 128 blocks at M = 4096, one wave of the
+//      132 SMs.  A (K, r) is row-major: its fragments come through
+//      ldmatrix.trans.  It signals griddepcontrol.launch_dependents at once.
+//   2. fused_fwd_y_tc_{bf16,int8}_kernel, a programmatic dependent launch
+//      (PDL) of the first: 128x128 (M x N) tiles, 8 warps of 64x32, two
+//      blocks an SM (128 registers a thread), k-steps of 32 through a 4-stage
+//      cp.async ring.  Segment 1 is x@W: x and the
+//      (N, K) base are both k-contiguous, so both stage with cp.async and read
+//      with plain ldmatrix.  Only then griddepcontrol.wait: segment 1 of the
+//      y blocks overlaps the z launch.  Segment 2 stages z from L2 as f32
+//      (cp.async, one step of 32 rank columns ahead), multiplies it by s
+//      (read on the device) and splits it into hi = bf16(s z) and lo = bf16(s
+//      z - hi) as it converts it into bf16 tiles; each half meets B ((r, N)
+//      row-major, ldmatrix.trans, staged by cp.async one step ahead) in its
+//      own MMA, so the LoRA term carries ~2^-16
+//      relative error, not bf16's 2^-9, for 2r/K more MMAs.  y rounds once to
+//      bf16.  Shared-memory rows are padded to an odd multiple of 16 bytes
+//      (80, 144, 272), so ldmatrix is conflict-free.
+// int8 base: the same kernel, templated on the base.  The (N, K) codes stage
+// with 8-byte cp.async (half the bytes of bf16; a row of K = 8 mod 16 codes
+// is only 8-byte aligned) and widen to bf16 in registers as the B fragments
+// are formed (|q| <= 127 is exact in bf16).  sum_k x q scale[n] = scale[n]
+// sum_k x q, so the f32 accumulators are scaled per output column after
+// segment 1 and before segment 2: no per-element scale load, and no
+// dequantized tile anywhere (the TPU kernel forms q * scale in VMEM).
+// The wrapper (ops/lora_matmul.forward_path) picks this path; every other
+// forward (f32, a contiguous (K, N) base, ragged widths, unaligned pointers)
+// runs lora_gemm_kernel, exact to summation order.
 //
 // Kernel 5 (grouped).  Multi-tenant serving stacks every adapter as slabs
 // A (S, K, r), B (S, r, N), s (S,) f32, and each row m of a batch names its
@@ -865,6 +901,396 @@ __global__ void __launch_bounds__(kG5Threads) grouped_fma_reduce_kernel(Grouped 
   }
 }
 
+// ---------------------------------------------------------------------------
+// Kernels 4 and 4-int8 on the tensor cores (design in the header note)
+// ---------------------------------------------------------------------------
+
+constexpr int kFwdBK = 32;            // contraction depth of one stage
+constexpr int kFwdStages = 4;         // cp.async ring depth
+constexpr int kFwdKLd = kFwdBK + 8;   // bf16 row stride of a [row][k] tile: 80 bytes
+constexpr int kFwdQLd = kFwdBK + 16;  // int8 row stride of the codes' [n][k] tile: 48 bytes
+constexpr int kFwdZLd = kFwdBK + 4;   // f32 row stride of z's [m][j] tile: 144 bytes
+constexpr int kZThreads = 128, kZBM = 64, kZBN = 64;  // z launch: 4 warps of 32 x 32
+constexpr int kZNLd = kZBN + 8;                       // bf16 row stride of A's [k][j] tile: 144 bytes
+constexpr int kYThreads = 256, kYBM = 128, kYBN = 128;  // y launch: 8 warps of 64 x 32
+constexpr int kYWarpsN = kYBN / 32;
+constexpr int kYNLd = kYBN + 8;  // bf16 row stride of B's [j][n] tile: 272 bytes
+// y's dynamic shared memory: segment 1's ring of (x tile, base tile) stages,
+// then, reused, segment 2's two buffers of (hi and lo z tiles, B tile) and
+// its f32 z tile
+constexpr int kYTile = kYBM * kFwdKLd * 2;  // bytes of a 128-row [row][k] bf16 tile
+constexpr int kYStage = 2 * kYTile;
+constexpr int kY2Buf = 2 * kYTile + kFwdBK * kYNLd * 2;
+constexpr int kYSmem2 = 2 * kY2Buf + kYBM * kFwdZLd * 4;
+constexpr int kYSmem = kFwdStages * kYStage > kYSmem2 ? kFwdStages * kYStage : kYSmem2;
+static_assert(kYBN * kFwdQLd <= kYTile, "the int8 code tile fits in a base slot");
+
+struct FwdTc {
+  // y = x @ W (* qscale[n]) + (s z) @ B, z = x @ A; W given as its (N, K) storage
+  const bf16* x;        // (M, K) row-major
+  const void* wt;       // (N, K): bf16, or int8 codes, rows at stride ws
+  long long ws;
+  const float* qscale;  // int8: (N,) f32 per output column
+  const bf16* a;        // (K, r) row-major
+  const bf16* b;        // (r, N) row-major
+  const float* s_ptr;   // device scalar; when null, s_val is s
+  float s_val;
+  bf16* y;              // (M, N)
+  float* z;             // (M, r)
+  int M, K, N, r;
+};
+
+__device__ __forceinline__ void cp_async8(void* dst, const void* src, bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(ok ? 8 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait_n() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// A operand (16 x 16) at rows row0.., columns k0.. of a [row][k] bf16 tile
+__device__ __forceinline__ void frag_a(uint32_t (&a)[4], const bf16* t, int ld, int row0, int k0,
+                                       int lane) {
+  ldsm_x4(a, t + (row0 + lane % 16) * ld + k0 + (lane / 16) * 8);
+}
+// B operands of the n8 tiles n0 (b[0], b[1]) and n0 + 8 (b[2], b[3]) over k0..k0+15,
+// from a [n][k] tile
+__device__ __forceinline__ void frag_b_nk(uint32_t (&b)[4], const bf16* t, int ld, int n0, int k0,
+                                          int lane) {
+  ldsm_x4(b, t + (n0 + lane % 8 + (lane / 16) * 8) * ld + k0 + ((lane / 8) % 2) * 8);
+}
+// the same from a [k][n] tile, through ldmatrix.trans
+__device__ __forceinline__ void frag_b_kn(uint32_t (&b)[4], const bf16* t, int ld, int n0, int k0,
+                                          int lane) {
+  ldsm_x4_t(b, t + (k0 + lane % 8 + ((lane / 8) % 2) * 8) * ld + n0 + (lane / 16) * 8);
+}
+// two neighbouring int8 codes as a bf16 pair (exact: |q| <= 127)
+__device__ __forceinline__ uint32_t widen2(const int8_t* p) {
+  const char2 v = *reinterpret_cast<const char2*>(p);
+  __nv_bfloat162 h = __floats2bfloat162_rn(static_cast<float>(v.x), static_cast<float>(v.y));
+  return *reinterpret_cast<uint32_t*>(&h);
+}
+__device__ __forceinline__ uint32_t pack2(bf16 lo, bf16 hi) {
+  __nv_bfloat162 h;
+  h.x = lo;
+  h.y = hi;
+  return *reinterpret_cast<uint32_t*>(&h);
+}
+
+// launch 1: z = x @ A, block (64 rank columns, 64 rows of M), warp w the 32 x 32
+// at rows 32 (w / 2), columns 32 (w % 2)
+__global__ void __launch_bounds__(kZThreads) fused_fwd_z_tc_kernel(FwdTc f) {
+  __shared__ __align__(16) bf16 xs[kFwdStages][kZBM * kFwdKLd];
+  __shared__ __align__(16) bf16 as[kFwdStages][kFwdBK * kZNLd];
+  // the y launch may start now: it waits for this grid's writes itself
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int m0 = blockIdx.y * kZBM, j0 = blockIdx.x * kZBN;
+  const int wm = (warp / 2) * 32, wn = (warp % 2) * 32;
+  auto stage = [&](int st, int k0) {
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {  // x: 64 rows x 4 chunks of 8; A: 32 rows x 8 chunks
+      const int e = tid + u * kZThreads;
+      const int row = e / 4, c = (e % 4) * 8;
+      const bool okx = m0 + row < f.M && k0 + c < f.K;
+      cp_async16(&xs[st][row * kFwdKLd + c], okx ? f.x + (long long)(m0 + row) * f.K + k0 + c : f.x,
+                 okx);
+      const int kk = e / 8, cj = (e % 8) * 8;
+      const bool oka = k0 + kk < f.K && j0 + cj < f.r;
+      cp_async16(&as[st][kk * kZNLd + cj], oka ? f.a + (long long)(k0 + kk) * f.r + j0 + cj : f.a,
+                 oka);
+    }
+  };
+  float acc[2][4][4];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+  const int nk = (f.K + kFwdBK - 1) / kFwdBK;
+#pragma unroll
+  for (int st = 0; st < kFwdStages - 1; ++st) {
+    if (st < nk) stage(st, st * kFwdBK);
+    cp_async_commit();
+  }
+  for (int kt = 0; kt < nk; ++kt) {
+    cp_async_wait_n<kFwdStages - 2>();
+    __syncthreads();  // stage kt has landed, and every warp is done with stage kt - 1
+    const int pre = kt + kFwdStages - 1;
+    if (pre < nk) stage(pre % kFwdStages, pre * kFwdBK);
+    cp_async_commit();
+    const bf16* xt = xs[kt % kFwdStages];
+    const bf16* at = as[kt % kFwdStages];
+#pragma unroll
+    for (int ks = 0; ks < kFwdBK; ks += 16) {
+      uint32_t a[2][4], b[4];
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi) frag_a(a[mi], xt, kFwdKLd, wm + 16 * mi, ks, lane);
+#pragma unroll
+      for (int p = 0; p < 2; ++p) {
+        frag_b_kn(b, at, kZNLd, wn + 16 * p, ks, lane);
+#pragma unroll
+        for (int mi = 0; mi < 2; ++mi) {
+          mma16816(acc[mi][2 * p], a[mi][0], a[mi][1], a[mi][2], a[mi][3], b[0], b[1]);
+          mma16816(acc[mi][2 * p + 1], a[mi][0], a[mi][1], a[mi][2], a[mi][3], b[2], b[3]);
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int nj = 0; nj < 4; ++nj) {
+      const int j = j0 + wn + acc_col(lane, nj, 0);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int m = m0 + wm + 16 * mi + acc_row(lane, 2 * h);
+        if (m < f.M && j < f.r)
+          *reinterpret_cast<float2*>(f.z + (long long)m * f.r + j) =
+              make_float2(acc[mi][nj][2 * h], acc[mi][nj][2 * h + 1]);
+      }
+    }
+}
+
+// the thread's index and its block's (m0, n0) read anew from the special
+// registers: indices derived from them after segment 1 are recomputed rather
+// than held across its loop (at 128 registers a thread they would be spilled)
+struct YIds {
+  int tid, m0, n0;
+};
+__device__ __forceinline__ YIds fresh_ids() {
+  int tid, bx, by;
+  asm volatile("mov.u32 %0, %%tid.x;\n" : "=r"(tid));
+  asm volatile("mov.u32 %0, %%ctaid.x;\n" : "=r"(bx));
+  asm volatile("mov.u32 %0, %%ctaid.y;\n" : "=r"(by));
+  return YIds{tid, by * kYBM, bx * kYBN};
+}
+
+// launch 2: y, block (128 columns of N, 128 rows of M), warp w the 64 x 32 at
+// rows 64 (w / 4), columns 32 (w % 4).  Segment 1: acc = x @ W through the ring
+template <bool kInt8>
+__device__ __forceinline__ void fwd_y_seg1(const FwdTc& f, float (&acc)[4][4][4]) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const YIds id = fresh_ids();
+  const int tid = id.tid, m0 = id.m0, n0 = id.n0, warp = tid / 32, lane = tid % 32;
+  const int wm = (warp / kYWarpsN) * 64, wn = (warp % kYWarpsN) * 32;
+  auto xs = [&](int st) { return reinterpret_cast<bf16*>(smem + st * kYStage); };
+  auto bs = [&](int st) { return smem + st * kYStage + kYTile; };  // the base's [n][k] tile
+  auto stage = [&](int st, int k0) {
+#pragma unroll
+    for (int u = 0; u < kYBM * 4 / kYThreads; ++u) {  // 128 rows x 4 chunks of 8 elements
+      const int e = tid + u * kYThreads, row = e / 4, c = (e % 4) * 8;
+      const bool okx = m0 + row < f.M && k0 + c < f.K;
+      cp_async16(xs(st) + row * kFwdKLd + c, okx ? f.x + (long long)(m0 + row) * f.K + k0 + c : f.x,
+                 okx);
+    }
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {  // the base: 128 rows x 4 chunks of 8 elements
+      const int e = tid + u * kYThreads, row = e / 4, c = (e % 4) * 8;
+      const bool okw = n0 + row < f.N && k0 + c < f.K;
+      const long long off = (long long)(n0 + row) * f.ws + k0 + c;
+      if constexpr (kInt8) {
+        const int8_t* q = static_cast<const int8_t*>(f.wt);
+        cp_async8(bs(st) + row * kFwdQLd + c, okw ? q + off : q, okw);
+      } else {
+        const bf16* w = static_cast<const bf16*>(f.wt);
+        cp_async16(reinterpret_cast<bf16*>(bs(st)) + row * kFwdKLd + c, okw ? w + off : w, okw);
+      }
+    }
+  };
+  const int nk = (f.K + kFwdBK - 1) / kFwdBK;
+#pragma unroll
+  for (int st = 0; st < kFwdStages - 1; ++st) {
+    if (st < nk) stage(st, st * kFwdBK);
+    cp_async_commit();
+  }
+  const int g = lane / 4, t = lane % 4;
+  for (int kt = 0; kt < nk; ++kt) {
+    cp_async_wait_n<kFwdStages - 2>();
+    __syncthreads();  // stage kt has landed, and every warp is done with stage kt - 1
+    const int pre = kt + kFwdStages - 1;
+    if (pre < nk) stage(pre % kFwdStages, pre * kFwdBK);
+    cp_async_commit();
+    const bf16* xt = xs(kt % kFwdStages);
+    // k16 halves one after the other, not interleaved: the y kernel stays within
+    // 128 registers a thread
+#pragma unroll 1
+    for (int ks = 0; ks < kFwdBK; ks += 16) {
+      uint32_t b[4][2];
+      if constexpr (kInt8) {
+        const int8_t* qt = reinterpret_cast<const int8_t*>(bs(kt % kFwdStages));
+#pragma unroll
+        for (int nj = 0; nj < 4; ++nj) {
+          const int8_t* p = qt + (wn + 8 * nj + g) * kFwdQLd + ks + 2 * t;
+          b[nj][0] = widen2(p);
+          b[nj][1] = widen2(p + 8);
+        }
+      } else {
+        const bf16* wt = reinterpret_cast<const bf16*>(bs(kt % kFwdStages));
+#pragma unroll
+        for (int p = 0; p < 2; ++p) {
+          uint32_t r4[4];
+          frag_b_nk(r4, wt, kFwdKLd, wn + 16 * p, ks, lane);
+          b[2 * p][0] = r4[0];
+          b[2 * p][1] = r4[1];
+          b[2 * p + 1][0] = r4[2];
+          b[2 * p + 1][1] = r4[3];
+        }
+      }
+#pragma unroll
+      for (int mi = 0; mi < 4; ++mi) {
+        uint32_t a[4];
+        frag_a(a, xt, kFwdKLd, wm + 16 * mi, ks, lane);
+#pragma unroll
+        for (int nj = 0; nj < 4; ++nj) mma16816(acc[mi][nj], a[0], a[1], a[2], a[3], b[nj][0], b[nj][1]);
+      }
+    }
+  }
+  cp_async_wait_n<0>();
+}
+
+// the int8 base's column scales, then segment 2: acc += (s z) @ B, and y
+template <bool kInt8>
+__device__ __forceinline__ void fwd_y_seg2(const FwdTc& f, float (&acc)[4][4][4]) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const YIds id = fresh_ids();
+  const int tid = id.tid, m0 = id.m0, n0 = id.n0, warp = tid / 32, lane = tid % 32;
+  const int wm = (warp / kYWarpsN) * 64, wn = (warp % kYWarpsN) * 32;
+  if constexpr (kInt8) {  // sum_k x q scale[n] = scale[n] sum_k x q
+#pragma unroll
+    for (int nj = 0; nj < 4; ++nj) {
+      const int n = n0 + wn + acc_col(lane, nj, 0);
+      const float c0 = n < f.N ? f.qscale[n] : 0.f, c1 = n < f.N ? f.qscale[n + 1] : 0.f;
+#pragma unroll
+      for (int mi = 0; mi < 4; ++mi) {
+        acc[mi][nj][0] *= c0;
+        acc[mi][nj][1] *= c1;
+        acc[mi][nj][2] *= c0;
+        acc[mi][nj][3] *= c1;
+      }
+    }
+  }
+
+  // segment 2: (s z) @ B, 32 rank columns a step, two buffers of (z hi, z lo,
+  // B) and z's f32 tile, staged one step ahead
+  auto zh = [&](int buf) { return reinterpret_cast<bf16*>(smem + buf * kY2Buf); };
+  auto zl = [&](int buf) { return zh(buf) + kYBM * kFwdKLd; };
+  auto bt = [&](int buf) { return zl(buf) + kYBM * kFwdKLd; };
+  float* zf = reinterpret_cast<float*>(smem + 2 * kY2Buf);
+  auto stage_b = [&](int buf, int j0) {
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {  // 32 rank rows x kYBN / 8 chunks of 8 columns
+      const int e = tid + u * kYThreads, jj = e / (kYBN / 8), c = (e % (kYBN / 8)) * 8;
+      const bool ok = j0 + jj < f.r && n0 + c < f.N;
+      cp_async16(bt(buf) + jj * kYNLd + c, ok ? f.b + (long long)(j0 + jj) * f.N + n0 + c : f.b, ok);
+    }
+  };
+  const int nr = (f.r + kFwdBK - 1) / kFwdBK;
+  stage_b(0, 0);  // B is an input: staged before the wait
+  cp_async_commit();
+  const float s = f.s_ptr ? *f.s_ptr : f.s_val;
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");  // z is complete
+
+  auto stage_z = [&](int j0) {
+#pragma unroll
+    for (int u = 0; u < kYBM * 8 / kYThreads; ++u) {  // 128 rows x 8 chunks of 4 floats
+      const int e = tid + u * kYThreads, row = e / 8, c = (e % 8) * 4;
+      const bool ok = m0 + row < f.M && j0 + c < f.r;
+      cp_async16(zf + row * kFwdZLd + c, ok ? f.z + (long long)(m0 + row) * f.r + j0 + c : f.z, ok);
+    }
+  };
+  stage_z(0);
+  cp_async_commit();
+  for (int jt = 0; jt < nr; ++jt) {
+    const int buf = jt % 2;
+    cp_async_wait_n<0>();
+    __syncthreads();  // z and B of step jt have landed; every warp is done with step jt - 1
+#pragma unroll
+    for (int u = 0; u < kYBM * 8 / kYThreads; ++u) {  // hi and lo bf16 halves of s z
+      const int e = tid + u * kYThreads, row = e / 8, c = (e % 8) * 4;
+      const float4 z4 = *reinterpret_cast<const float4*>(zf + row * kFwdZLd + c);
+      const float v[4] = {z4.x * s, z4.y * s, z4.z * s, z4.w * s};
+      bf16 h[4], l[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) split_bf16(v[i], h + i, l + i);
+      *reinterpret_cast<uint2*>(zh(buf) + row * kFwdKLd + c) =
+          make_uint2(pack2(h[0], h[1]), pack2(h[2], h[3]));
+      *reinterpret_cast<uint2*>(zl(buf) + row * kFwdKLd + c) =
+          make_uint2(pack2(l[0], l[1]), pack2(l[2], l[3]));
+    }
+    __syncthreads();  // the halves are complete, and zf is free
+    if (jt + 1 < nr) {
+      stage_z((jt + 1) * kFwdBK);
+      stage_b(buf ^ 1, (jt + 1) * kFwdBK);
+    }
+    cp_async_commit();
+#pragma unroll 1
+    for (int ks = 0; ks < kFwdBK; ks += 16) {
+      uint32_t b[4][2];
+#pragma unroll
+      for (int p = 0; p < 2; ++p) {
+        uint32_t r4[4];
+        frag_b_kn(r4, bt(buf), kYNLd, wn + 16 * p, ks, lane);
+        b[2 * p][0] = r4[0];
+        b[2 * p][1] = r4[1];
+        b[2 * p + 1][0] = r4[2];
+        b[2 * p + 1][1] = r4[3];
+      }
+#pragma unroll
+      for (int mi = 0; mi < 4; ++mi) {
+        uint32_t ah[4], al[4];
+        frag_a(ah, zh(buf), kFwdKLd, wm + 16 * mi, ks, lane);
+        frag_a(al, zl(buf), kFwdKLd, wm + 16 * mi, ks, lane);
+#pragma unroll
+        for (int nj = 0; nj < 4; ++nj) {
+          mma16816(acc[mi][nj], ah[0], ah[1], ah[2], ah[3], b[nj][0], b[nj][1]);
+          mma16816(acc[mi][nj], al[0], al[1], al[2], al[3], b[nj][0], b[nj][1]);
+        }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int mi = 0; mi < 4; ++mi)
+#pragma unroll
+    for (int nj = 0; nj < 4; ++nj) {
+      const int n = n0 + wn + acc_col(lane, nj, 0);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int m = m0 + wm + 16 * mi + acc_row(lane, 2 * h);
+        if (m < f.M && n < f.N)
+          *reinterpret_cast<__nv_bfloat162*>(f.y + (long long)m * f.N + n) =
+              __floats2bfloat162_rn(acc[mi][nj][2 * h], acc[mi][nj][2 * h + 1]);
+      }
+    }
+}
+
+template <bool kInt8>
+__device__ __forceinline__ void fwd_y_tc(const FwdTc& f) {
+  float acc[4][4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+  fwd_y_seg1<kInt8>(f, acc);
+  __syncthreads();  // the ring is free for segment 2
+  fwd_y_seg2<kInt8>(f, acc);
+}
+
+__global__ void __launch_bounds__(kYThreads, 2) fused_fwd_y_tc_bf16_kernel(FwdTc f) {
+  fwd_y_tc<false>(f);
+}
+__global__ void __launch_bounds__(kYThreads, 2) fused_fwd_y_tc_int8_kernel(FwdTc f) {
+  fwd_y_tc<true>(f);
+}
+
 int sm_count() {
   static int count = 0;
   if (count == 0) {
@@ -946,6 +1372,46 @@ int fwd_pass(const void* x, const Mat& w, const void* a, const void* b, const fl
   return run_gemm(yg, 1, st);
 }
 
+// the forward on the tensor cores: z launch, then the y launch as its
+// programmatic dependent.  Refuses inputs that break the path's conditions:
+// bf16 operands, the base k-contiguous (w_s0 == 1) with a row stride, K, N
+// and r multiples of 8, every pointer 16-byte aligned
+int fwd_tc(const FwdTc& f, bool int8, long long w_s0, int dtype, cudaStream_t st) {
+  auto aligned = [](const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; };
+  if (dtype != kBF16 || w_s0 != 1 || f.ws % 8 || f.K % 8 || f.N % 8 || f.r % 8 ||
+      !aligned(f.x) || !aligned(f.wt) || !aligned(f.a) || !aligned(f.b) || !aligned(f.y) ||
+      !aligned(f.z) || tiles(f.M, kZBM) > 65535)
+    return (int)cudaErrorInvalidValue;
+  if (f.M == 0) return (int)cudaSuccess;
+  fused_fwd_z_tc_kernel<<<dim3(tiles(f.r, kZBN), tiles(f.M, kZBM)), kZThreads, 0, st>>>(f);
+  int err = (int)cudaGetLastError();
+  if (err) return err;
+  const auto attr = cudaFuncAttributeMaxDynamicSharedMemorySize;
+  static const bool sized =  // once: the y launch takes more than 48 KB of shared memory
+      cudaFuncSetAttribute(fused_fwd_y_tc_bf16_kernel, attr, kYSmem) == cudaSuccess &&
+      cudaFuncSetAttribute(fused_fwd_y_tc_int8_kernel, attr, kYSmem) == cudaSuccess;
+  if (!sized) return (int)cudaErrorInvalidValue;
+  cudaLaunchAttribute pdl[1];
+  pdl[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  pdl[0].val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(tiles(f.N, kYBN), tiles(f.M, kYBM));
+  cfg.blockDim = dim3(kYThreads);
+  cfg.dynamicSmemBytes = kYSmem;
+  cfg.stream = st;
+  cfg.attrs = pdl;
+  cfg.numAttrs = 1;
+  void (*kernel)(FwdTc) = int8 ? fused_fwd_y_tc_int8_kernel : fused_fwd_y_tc_bf16_kernel;
+  return (int)cudaLaunchKernelEx(&cfg, kernel, f);
+}
+
+FwdTc fwd_tc_args(const void* x, const void* wt, long long ws, const float* qscale, const void* a,
+                  const void* b, const float* s_ptr, float s_val, void* y, float* z, int M, int K,
+                  int N, int r) {
+  return FwdTc{static_cast<const bf16*>(x), wt, ws, qscale, static_cast<const bf16*>(a),
+               static_cast<const bf16*>(b), s_ptr, s_val, static_cast<bf16*>(y), z, M, K, N, r};
+}
+
 // u = g @ B^T, then dx = g @ W^T + u @ (s * A^T); wt is the logical (N, K) W^T
 int dx_pass(const void* g, const Mat& wt, const void* a, const void* b, const float* s_ptr,
             float s_val, void* dx, float* u, int M, int K, int N, int r, int dtype,
@@ -976,13 +1442,18 @@ int lora_matmul_dab_chunk() { return kChunk; }
 
 // x (M, K); W logical (K, N) at element strides (w_s0, w_s1); A (K, r); B (r, N);
 // y (M, N) in the inputs' dtype; z (M, r) f32.  dtype: 0 float32, 1 bfloat16.
+// tc: 1 runs the tensor-core path (its conditions at fwd_tc, which refuses
+// what breaks them), 0 lora_gemm_kernel.
 int fused_lora_forward_launch(const void* x, const void* w, long long w_s0, long long w_s1,
                               const void* a, const void* b, const float* s_ptr, float s_val,
-                              void* y, float* z, int M, int K, int N, int r, int dtype,
+                              void* y, float* z, int M, int K, int N, int r, int dtype, int tc,
                               void* stream) {
   if (bad_args(M, K, N, r, dtype)) return (int)cudaErrorInvalidValue;
-  return fwd_pass(x, mat(w, w_s0, w_s1, dtype), a, b, s_ptr, s_val, y, z, M, K, N, r, dtype,
-                  static_cast<cudaStream_t>(stream));
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (tc)
+    return fwd_tc(fwd_tc_args(x, w, w_s1, nullptr, a, b, s_ptr, s_val, y, z, M, K, N, r), false,
+                  w_s0, dtype, st);
+  return fwd_pass(x, mat(w, w_s0, w_s1, dtype), a, b, s_ptr, s_val, y, z, M, K, N, r, dtype, st);
 }
 
 // the same over an int8 base: q logical (K, N) int8 at element strides
@@ -990,10 +1461,14 @@ int fused_lora_forward_launch(const void* x, const void* w, long long w_s0, long
 int fused_lora_int8_forward_launch(const void* x, const void* q, long long q_s0, long long q_s1,
                                    const float* qscale, const void* a, const void* b,
                                    const float* s_ptr, float s_val, void* y, float* z, int M,
-                                   int K, int N, int r, int dtype, void* stream) {
+                                   int K, int N, int r, int dtype, int tc, void* stream) {
   if (bad_args(M, K, N, r, dtype)) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (tc)
+    return fwd_tc(fwd_tc_args(x, q, q_s1, qscale, a, b, s_ptr, s_val, y, z, M, K, N, r), true,
+                  q_s0, dtype, st);
   return fwd_pass(x, qmat(q, q_s0, q_s1, qscale, 0, 1), a, b, s_ptr, s_val, y, z, M, K, N, r,
-                  dtype, static_cast<cudaStream_t>(stream));
+                  dtype, st);
 }
 
 // g (M, N); dx (M, K) in the inputs' dtype; u (M, r) f32 = g @ B^T, written

@@ -17,7 +17,9 @@ design and the bound.  Here:
   :func:`fused_lora_int8_bwd_dx` ``(g, q, qscale, a, b, s) -> (dx, u)``: one
   wrapper per kernel.  A CPU tensor runs the plain twin of the same name with
   ``_plain``; a CUDA tensor launches the kernel or raises.  Each wrapper
-  counts its launches in ``.launches``.
+  counts its launches in ``.launches``.  The two forwards choose between two
+  hand-written kernels by :func:`forward_path`: bf16 tensor cores for the
+  model's layout, f32 FMAs for the rest; ``.tc_launches`` counts the first.
 - :class:`FusedLoRAMatmul` and :class:`FusedLoRAMatmulInt8`, the autograd
   Functions over them (the JAX package's ``custom_vjp`` pair, ``:375-427``),
   and :func:`fused_lora_matmul` / :func:`fused_lora_matmul_int8`, their
@@ -128,12 +130,12 @@ def _kernel_library():
     lib = library("lora_matmul")
     if not getattr(lib, "_relora_typed", False):
         vp, i32, i64, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
-        product = [vp, vp, i64, i64, vp, vp, vp, f32, vp, vp] + [i32] * 5 + [vp]
-        int8_product = [vp, vp, i64, i64, vp, vp, vp, vp, f32, vp, vp] + [i32] * 5 + [vp]
-        lib.fused_lora_forward_launch.argtypes = product
-        lib.fused_lora_bwd_dx_launch.argtypes = product
-        lib.fused_lora_int8_forward_launch.argtypes = int8_product
-        lib.fused_lora_int8_bwd_dx_launch.argtypes = int8_product
+        product = [vp, vp, i64, i64, vp, vp, vp, f32, vp, vp] + [i32] * 5
+        int8_product = [vp, vp, i64, i64, vp, vp, vp, vp, f32, vp, vp] + [i32] * 5
+        lib.fused_lora_forward_launch.argtypes = product + [i32, vp]  # ..., dtype, tc, stream
+        lib.fused_lora_bwd_dx_launch.argtypes = product + [vp]
+        lib.fused_lora_int8_forward_launch.argtypes = int8_product + [i32, vp]
+        lib.fused_lora_int8_bwd_dx_launch.argtypes = int8_product + [vp]
         lib.fused_lora_bwd_dab_launch.argtypes = (
             [vp, vp, vp, vp, i32, vp, vp, f32, vp, vp, vp] + [i32] * 5 + [vp]
         )
@@ -225,6 +227,25 @@ def _scale_arg(s: Scale, like: torch.Tensor):
     return None, float(s), None
 
 
+def forward_path(dtype: torch.dtype, base_strides: Tuple[int, int], K: int, N: int, r: int,
+                 aligned: bool = True) -> str:
+    """Which kernel a CUDA forward (dense or int8 base) launches: ``"tc"``,
+    the bf16 tensor-core kernels, for bf16 operands with the base's k
+    contiguous (``base_strides[0] == 1``: the transposed view of the ``(N,
+    K)`` storage the model passes) at a row stride, K, N and r all multiples
+    of 8, and every pointer 16-byte ``aligned``; else ``"fma"``, the f32
+    ``lora_gemm_kernel``, exact to summation order.  Both are hand-written
+    kernels: the plain twin is never taken for a CUDA tensor."""
+    s0, s1 = base_strides
+    tc = (dtype == torch.bfloat16 and s0 == 1 and s1 % 8 == 0 and K % 8 == 0 and N % 8 == 0
+          and r % 8 == 0 and aligned)
+    return "tc" if tc else "fma"
+
+
+def _aligned(*tensors) -> bool:
+    return all(t.data_ptr() % 16 == 0 for t in tensors)
+
+
 def _raise_on_error(lib, err: int, what: str) -> None:
     if err != 0:
         raise RuntimeError(f"{what}: {lib.lora_matmul_error_string(err).decode()} ({err})")
@@ -235,7 +256,9 @@ def fused_lora_forward(x, w, a, b, s: Scale = 1.0) -> Tuple[torch.Tensor, torch.
     @ A`` ``(M, r)`` f32, the residual the backward reads.
 
     A CPU ``x`` runs :func:`fused_lora_forward_plain`; any other device
-    launches the forward of ``csrc/lora_matmul.cu`` or raises."""
+    launches the forward of ``csrc/lora_matmul.cu`` on the path
+    :func:`forward_path` picks, or raises.  ``.launches`` counts every
+    launch, ``.tc_launches`` those of the tensor-core path."""
     if x.device.type == "cpu":
         return fused_lora_forward_plain(x, w, a, b, s)
     _on_cuda(x, w, a, b)
@@ -247,17 +270,20 @@ def fused_lora_forward(x, w, a, b, s: Scale = 1.0) -> Tuple[torch.Tensor, torch.
     lib = _kernel_library()
     y = torch.empty((M, N), dtype=x.dtype, device=x.device)
     z = torch.empty((M, r), dtype=torch.float32, device=x.device)
+    tc = forward_path(x.dtype, (ws0, ws1), K, N, r, _aligned(x, w, a, b)) == "tc"
     s_ptr, s_val, _keep = _scale_arg(s, x)
     err = lib.fused_lora_forward_launch(
         ptr_arg(x), ptr_arg(w), ws0, ws1, ptr_arg(a), ptr_arg(b), s_ptr, s_val,
-        ptr_arg(y), ptr_arg(z), M, K, N, r, code, stream_arg(x),
+        ptr_arg(y), ptr_arg(z), M, K, N, r, code, int(tc), stream_arg(x),
     )
     _raise_on_error(lib, err, "fused_lora_forward")
     fused_lora_forward.launches += 1
+    fused_lora_forward.tc_launches += tc
     return y, z
 
 
 fused_lora_forward.launches = 0
+fused_lora_forward.tc_launches = 0
 
 
 def fused_lora_bwd_dx(g, w, a, b, s: Scale = 1.0) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -334,7 +360,9 @@ def fused_lora_int8_forward(x, q, qscale, a, b, s: Scale = 1.0) -> Tuple[torch.T
     """:func:`fused_lora_forward` over the int8 base ``q * qscale``.
 
     A CPU ``x`` runs :func:`fused_lora_int8_forward_plain`; any other device
-    launches the int8 forward of ``csrc/lora_matmul.cu`` or raises."""
+    launches the int8 forward of ``csrc/lora_matmul.cu`` on the path
+    :func:`forward_path` picks (``q``'s strides as the base's), or raises;
+    counted as :func:`fused_lora_forward` counts."""
     if x.device.type == "cpu":
         return fused_lora_int8_forward_plain(x, q, qscale, a, b, s)
     _on_cuda(x, q, a, b)
@@ -346,17 +374,20 @@ def fused_lora_int8_forward(x, q, qscale, a, b, s: Scale = 1.0) -> Tuple[torch.T
     lib = _kernel_library()
     y = torch.empty((M, N), dtype=x.dtype, device=x.device)
     z = torch.empty((M, r), dtype=torch.float32, device=x.device)
+    tc = forward_path(x.dtype, (qs0, qs1), K, N, r, _aligned(x, q, a, b)) == "tc"
     s_ptr, s_val, _keep = _scale_arg(s, x)
     err = lib.fused_lora_int8_forward_launch(
         ptr_arg(x), ptr_arg(q), qs0, qs1, ptr_arg(qscale), ptr_arg(a), ptr_arg(b), s_ptr, s_val,
-        ptr_arg(y), ptr_arg(z), M, K, N, r, code, stream_arg(x),
+        ptr_arg(y), ptr_arg(z), M, K, N, r, code, int(tc), stream_arg(x),
     )
     _raise_on_error(lib, err, "fused_lora_int8_forward")
     fused_lora_int8_forward.launches += 1
+    fused_lora_int8_forward.tc_launches += tc
     return y, z
 
 
 fused_lora_int8_forward.launches = 0
+fused_lora_int8_forward.tc_launches = 0
 
 
 def fused_lora_int8_bwd_dx(g, q, qscale, a, b, s: Scale = 1.0) -> Tuple[torch.Tensor, torch.Tensor]:

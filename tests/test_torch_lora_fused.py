@@ -333,6 +333,56 @@ def test_cpu_takes_twins_and_counts_no_launch():
     assert [c.launches for c in counters] == before
 
 
+def test_cpu_forward_counts_no_launch_of_either_path():
+    """A CPU forward runs the twin: neither the tensor-core nor the FMA
+    kernel's count moves, even for the layout the tensor cores take."""
+    x, w, a, b, _ = _t(*_operands(16, 32, 24, 8))
+    x, w, a, b = (t.bfloat16() for t in (x, w, a, b))
+    w = w.t().contiguous().t()  # the model's (N, K) storage, transposed
+    assert LM.forward_path(x.dtype, w.stride(), 32, 24, 8) == "tc"
+    before = (LM.fused_lora_forward.launches, LM.fused_lora_forward.tc_launches)
+    y, z = LM.fused_lora_forward(x, w, a, b, 0.5)
+    want_y, want_z = LM.fused_lora_forward_plain(x, w, a, b, 0.5)
+    torch.testing.assert_close(y, want_y, rtol=0, atol=0)
+    torch.testing.assert_close(z, want_z, rtol=0, atol=0)
+    assert (LM.fused_lora_forward.launches, LM.fused_lora_forward.tc_launches) == before
+
+
+# (dtype, base strides of the logical (K, N) base, K, N, r, aligned) -> path
+FORWARD_PATHS = {
+    "bf16_transposed_view": (torch.bfloat16, (1, 768), 768, 768, 128, True, "tc"),
+    "bf16_ragged_multiples_of_8": (torch.bfloat16, (1, 72), 72, 104, 8, True, "tc"),
+    "bf16_padded_row_stride": (torch.bfloat16, (1, 776), 768, 2560, 320, True, "tc"),
+    "f32_transposed_view": (torch.float32, (1, 768), 768, 768, 128, True, "fma"),
+    "bf16_contiguous_kn": (torch.bfloat16, (768, 1), 768, 768, 128, True, "fma"),
+    "bf16_N_100": (torch.bfloat16, (1, 72), 72, 100, 8, True, "fma"),
+    "bf16_K_100": (torch.bfloat16, (1, 100), 100, 104, 8, True, "fma"),
+    "bf16_r_4": (torch.bfloat16, (1, 768), 768, 768, 4, True, "fma"),
+    "bf16_row_stride_not_8": (torch.bfloat16, (1, 772), 768, 768, 128, True, "fma"),
+    "bf16_unaligned": (torch.bfloat16, (1, 768), 768, 768, 128, False, "fma"),
+}
+
+
+@pytest.mark.parametrize("case", list(FORWARD_PATHS))
+def test_forward_path_rule(case):
+    """The tensor cores take bf16 with the base's k contiguous at a row
+    stride, K, N and r multiples of 8 and aligned pointers; everything else
+    the f32 FMA kernel."""
+    dtype, strides, K, N, r, aligned, want = FORWARD_PATHS[case]
+    assert LM.forward_path(dtype, strides, K, N, r, aligned) == want
+
+
+def test_lora_linear_fused_base_takes_the_tensor_core_path():
+    """The base view ``LoRALinear._fused`` hands the kernel (its ``(out,
+    in)`` weight in bf16, transposed) meets the tensor-core rule at widths
+    that are multiples of 8."""
+    spec = relora.LoraSpec(r=8, alpha=16.0, dropout=0.0, fused=True)
+    layer = LoRALinear(64, 40, lora=spec, dtype=torch.bfloat16)
+    base = layer.weight.detach().to(torch.bfloat16).t()
+    assert base.shape == (64, 40)
+    assert LM.forward_path(torch.bfloat16, base.stride(), 64, 40, 8) == "tc"
+
+
 @pytest.mark.parametrize("wrapper", ["forward", "bwd_dx", "bwd_dab"])
 def test_non_cpu_tensor_never_takes_the_twin(wrapper):
     """A tensor on any device but the CPU goes to the kernel path, which

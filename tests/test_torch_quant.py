@@ -267,6 +267,41 @@ def test_cpu_takes_twins_and_counts_no_launch():
     assert [c.launches for c in counters] == before
 
 
+def test_cpu_int8_forward_counts_no_launch_of_either_path():
+    """A CPU int8 forward runs the twin: neither path's count moves, even
+    for the codes' layout the tensor cores take."""
+    x, q, qs, a, b, _ = _int8_operands(16, 32, 24, 8)
+    x, a, b = (t.bfloat16() for t in _t(x, a, b))
+    qt, qst = _q_layout(q, True), torch.from_numpy(qs.copy())
+    assert LM.forward_path(x.dtype, qt.stride(), 32, 24, 8) == "tc"
+    before = (LM.fused_lora_int8_forward.launches, LM.fused_lora_int8_forward.tc_launches)
+    y, z = LM.fused_lora_int8_forward(x, qt, qst, a, b, 0.5)
+    want_y, want_z = LM.fused_lora_int8_forward_plain(x, qt, qst, a, b, 0.5)
+    torch.testing.assert_close(y, want_y, rtol=0, atol=0)
+    torch.testing.assert_close(z, want_z, rtol=0, atol=0)
+    assert (LM.fused_lora_int8_forward.launches, LM.fused_lora_int8_forward.tc_launches) == before
+
+
+# (activation dtype, codes transposed?, K, N, r) -> the int8 forward's path
+INT8_FORWARD_PATHS = {
+    "bf16_codes_transposed_view": (torch.bfloat16, True, 128, 256, 8, "tc"),
+    "bf16_ragged_multiples_of_8": (torch.bfloat16, True, 72, 104, 8, "tc"),
+    "f32_codes_transposed_view": (torch.float32, True, 128, 256, 8, "fma"),
+    "bf16_codes_contiguous_kn": (torch.bfloat16, False, 128, 256, 8, "fma"),
+    "bf16_N_100": (torch.bfloat16, True, 72, 100, 8, "fma"),
+}
+
+
+@pytest.mark.parametrize("case", list(INT8_FORWARD_PATHS))
+def test_int8_forward_path_rule(case):
+    """The int8 forward takes the tensor cores by the dense rule, with the
+    codes' strides as the base's: the model's (N, K) codes, transposed, at
+    bf16 and widths that are multiples of 8."""
+    dtype, transposed, K, N, r, want = INT8_FORWARD_PATHS[case]
+    q = _q_layout(np.zeros((K, N), np.int8), transposed)
+    assert LM.forward_path(dtype, q.stride(), K, N, r) == want
+
+
 @pytest.mark.parametrize("wrapper", ["int8_forward", "int8_bwd_dx", "dequant_matmul"])
 def test_non_cpu_tensor_never_takes_the_twin(wrapper):
     """A tensor on any device but the CPU goes to the kernel path, which

@@ -11,12 +11,13 @@ device only.  Prints one JSON line: the timed run's median ms per update
 is the tracer's cost), the device's busy time and idle share of the profiled
 fit, and device time by kernel name (names cut to 80 characters, times of
 names that share those summed), largest first, with the shares of the
-flash kernels and of ``lora_gemm_kernel``/``lora_dab_reduce_kernel``.  The
-GEMM kernel serves the fused LoRA kernels 4, 6, 7 and, over an int8 base,
-4-int8, 6-int8 and kernel 8, so the line also gives the timed run's launch
-count of every kernel wrapper: in an unfused int8 run the GEMM time is
-kernel 8's alone.  Extra training flags are appended to the train phase's,
-e.g. the fused-LoRA and the int8 runs:
+flash kernels, of ``lora_gemm_kernel``/``lora_dab_reduce_kernel`` and of
+the bf16 fused forward's tensor-core kernels (``fused_fwd_*``, kernels 4 and
+4-int8).  The GEMM kernel serves the fused LoRA kernels 6, 7 and, over an
+int8 base, 6-int8 and kernel 8 (and the f32 forward), so the line also gives
+the timed run's launch count of every kernel wrapper: in an unfused int8 run
+the GEMM time is kernel 8's alone.  Extra training flags are appended to the
+train phase's, e.g. the fused-LoRA and the int8 runs:
 
     python3 tools/torch_train_profile.py
     python3 tools/torch_train_profile.py --lora_fused true --lora_dropout 0
@@ -107,6 +108,7 @@ def main() -> int:
     busy = busy_seconds(intervals)
     flash_ms = sum(us for name, us in by_name.items() if "flash_" in name) / 1e3
     gemm_ms = sum(us for name, us in by_name.items() if "lora_gemm" in name or "lora_dab" in name) / 1e3
+    fwd_tc_ms = sum(us for name, us in by_name.items() if "fused_fwd_" in name) / 1e3
     steady = sorted(r["update_seconds"] for r in timed["records"][1:])
     ms = steady[len(steady) // 2] * 1e3
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:15]
@@ -127,6 +129,8 @@ def main() -> int:
         "flash_share_of_busy": flash_ms / 1e3 / busy,
         "lora_gemm_kernels_ms": gemm_ms,
         "lora_gemm_share_of_busy": gemm_ms / 1e3 / busy,
+        "fused_fwd_tc_kernels_ms": fwd_tc_ms,
+        "fused_fwd_tc_share_of_busy": fwd_tc_ms / 1e3 / busy,
         "launches": launches,
         "kernels_ms": {name: us / 1e3 for name, us in top},
     }))
