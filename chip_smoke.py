@@ -9,8 +9,9 @@ Phases, in order; any failure raises and the script exits non-zero:
                sm_90a, one process per source, all started together; the
                HMMA count of every bf16 tensor-core kernel of the flash and
                LoRA sources (kernel 3, kernel 5, the fused forward's z and
-               y kernels) and, printed later, ``-Xptxas -v`` registers of
-               kernels 4 and 5, which fail on any spill.
+               y kernels, the fused dx's u and dx kernels) and, printed
+               later, ``-Xptxas -v`` registers of kernels 4, 5 and 6, which
+               fail on any spill.
 2. kernels   — the paged kernels (1-2) against their plain PyTorch twins on
                the card, at llama_250m (N=16, H=48) and llama_1b (N=32, H=64)
                widths, page 16, table width 64, B=8 with S in {1, 5} and a
@@ -55,8 +56,8 @@ Phases, in order; any failure raises and the script exits non-zero:
                contiguous W, a ragged M=200, K=72, N=100, r=8, a rank past
                256 (M=1024, K=N=768, r=320), a ragged bf16 case on the
                tensor cores (M=200, K=72, N=104, r=8), and a tensor scale
-               through the autograd Function (ds too); each forward prints
-               the path it took (``tc`` or ``fma``), held to
+               through the autograd Function (ds too); each forward and dx
+               prints the path it took (``tc`` or ``fma``), held to
                ``forward_path``'s rule; then each timed per shape beside its
                twin, the ordered cuBLAS chain of the default path and its
                bound.
@@ -64,7 +65,8 @@ Phases, in order; any failure raises and the script exits non-zero:
                --lora_dropout 0``: the same checks, and the fused launch
                counters equal 7 x layers x (microbatches x updates + eval
                batches) for the forward and 7 x layers x microbatches x
-               updates for dx and dA/dB; every forward on the tensor cores.
+               updates for dx and dA/dB; every forward and dx on the tensor
+               cores.
 10. f32-fused — one update of a 2-layer llama_250m at f32 (TF32 off),
                ``lora_fused`` true against false from the same weights
                (nonzero B) and batch, on loss and gradient norm.
@@ -77,7 +79,8 @@ Phases, in order; any failure raises and the script exits non-zero:
                checked as there), and a tensor scale through
                FusedLoRAMatmulInt8 (ds and dqscale too) and DequantMatmul;
                then each timed per shape beside its twin, the dequantize +
-               cuBLAS chain of the JAX default path and its bound.
+               cuBLAS chain of the JAX default path and its bound, and
+               kernel 8 beside ``torch._weight_int8pack_mm``.
 12. int8_train — a seeded full-rank llama_250m ``pytorch_model.bin`` (f32)
                written under ``build/chip_smoke/``, then the train phase with
                ``--quantize int8 --warmed_up_model DIR``: the train checks,
@@ -87,8 +90,9 @@ Phases, in order; any failure raises and the script exits non-zero:
                fused kernel.
 13. int8_fused_train — the same with ``--lora_fused true --lora_dropout 0``:
                4-int8 launched 7 x layers x (microbatches x updates + eval
-               batches) times, every one on the tensor cores, 6-int8 and
-               kernel 7 7 x layers x microbatches x updates, kernel 8 never.
+               batches) times, 6-int8 and kernel 7 7 x layers x
+               microbatches x updates, every 4-int8 and 6-int8 on the tensor
+               cores, kernel 8 never.
 14. f32-int8 — one update of a 2-layer int8 llama_250m at f32 (TF32 off),
                the fused-int8 arm against the unfused kernel-8 arm from the
                same warm-started weights (nonzero B) and batch, on loss and
@@ -96,8 +100,8 @@ Phases, in order; any failure raises and the script exits non-zero:
                oracle, to the requant rule.
 
 15. kernels-5 — ``nvcc -Xptxas -v`` registers and spills of kernel 5's four
-               kernels and of the tensor-core forward's three (printed
-               before the phase starts); kernel 5 (the
+               kernels and of the tensor-core forward's and dx's three each
+               (printed before the phase starts); kernel 5 (the
                grouped multi-tenant LoRA forward) against its twin at bf16
                and f32: M in {8, 64, 72} (decode rows, a prefill chunk, a
                packed step) x the three projection shapes, r=128, S=4 slots,
@@ -744,7 +748,8 @@ def write_corpus(work, vocab=32100, seed=0):
 
 LORA_NAMES = ("fused_lora_forward", "fused_lora_bwd_dx", "fused_lora_bwd_dab")
 INT8_NAMES = ("dequant_matmul", "fused_lora_int8_forward", "fused_lora_int8_bwd_dx")
-TC_NAMES = ("fused_lora_forward", "fused_lora_int8_forward")  # wrappers with .tc_launches
+TC_NAMES = ("fused_lora_forward", "fused_lora_int8_forward",  # wrappers with .tc_launches
+            "fused_lora_bwd_dx", "fused_lora_int8_bwd_dx")
 
 
 def _counters():
@@ -851,8 +856,8 @@ def train(torch, data_config, label="train", extra=()):
     if launches != want:
         raise AssertionError(f"{label}: launches {launches}, expected {want}")
     if tc != {n: launches[n] for n in TC_NAMES}:
-        raise AssertionError(f"{label}: forwards on the tensor cores {tc} of {launches}: the "
-                             "model's bf16 layout must take the tensor-core path every time")
+        raise AssertionError(f"{label}: forwards and dx on the tensor cores {tc} of {launches}: "
+                             "the model's bf16 layout must take the tensor-core path every time")
     if int8 and not (len(watch.merges) == 2 and all(
             m["modules"] == 7 * layers and m["nonzero_before"] > 0 and m["int8_after"]
             and m["moved"] > 0 for m in watch.merges)):
@@ -950,16 +955,18 @@ def _rel_err(pairs):
 # the ragged case the tensor-core forward takes: partial k-steps (K = 72),
 # a partial N tile (N = 104) and a rank below one m16n8k16 depth (r = 8)
 RAGGED_TC = (200, 72, 104, 8, "bf16", True)
-# the forward's two kernels on the tensor cores, and kernel 4-int8's
+# the forward's two kernels on the tensor cores, and kernel 4-int8's; the
+# dx's (u, then dx over a bf16 or an int8 base)
 FWD_TC_KERNELS = ("fused_fwd_z_tc_kernel", "fused_fwd_y_tc_bf16_kernel",
                   "fused_fwd_y_tc_int8_kernel")
+DX_TC_KERNELS = ("fused_dx_u_tc_kernel", "fused_dx_tc_bf16_kernel", "fused_dx_tc_int8_kernel")
 
 
 def check_path(wrapper, tc_before, x, K, N, r, transposed):
-    """The path a forward call took (``"tc"`` if it counted a tensor-core
-    launch), held to :func:`forward_path`'s rule for its inputs: bf16 with
-    the transposed base and widths that are multiples of 8 take the tensor
-    cores, everything else the FMA kernel."""
+    """The path a forward or dx call took (``"tc"`` if it counted a
+    tensor-core launch), held to :func:`forward_path`'s rule for its inputs:
+    bf16 with the transposed base and widths that are multiples of 8 take
+    the tensor cores, everything else the FMA kernel."""
     from relora_tpu_torch.ops import lora_matmul as LM
 
     path = "tc" if wrapper.tc_launches > tc_before else "fma"
@@ -1012,10 +1019,15 @@ def check_lora_kernels(torch, device):
             dab0 = LM.fused_lora_bwd_dab_plain(gy, x, z0, b, s, u0)
             tc0 = LM.fused_lora_forward.tc_launches
             fwd = LM.fused_lora_forward(x, w, a, b, s)
-            path = check_path(LM.fused_lora_forward, tc0, x, K, N, r, transposed)
+            paths = {"fused_lora_forward": check_path(LM.fused_lora_forward, tc0, x, K, N, r,
+                                                      transposed)}
+            tc0 = LM.fused_lora_bwd_dx.tc_launches
+            dx = LM.fused_lora_bwd_dx(gy, w, a, b, s)
+            paths["fused_lora_bwd_dx"] = check_path(LM.fused_lora_bwd_dx, tc0, gy, K, N, r,
+                                                    transposed)
             pairs = {
                 "fused_lora_forward": list(zip(fwd, (y0, z0))),
-                "fused_lora_bwd_dx": list(zip(LM.fused_lora_bwd_dx(gy, w, a, b, s), (dx0, u0))),
+                "fused_lora_bwd_dx": list(zip(dx, (dx0, u0))),
                 "fused_lora_bwd_dab": list(zip(LM.fused_lora_bwd_dab(gy, x, z0, b, s, u0), dab0))
                 + list(zip(LM.fused_lora_bwd_dab(gy, x, z0, b, s), dab0)),
             }
@@ -1025,7 +1037,7 @@ def check_lora_kernels(torch, device):
                 ok = finite and rel <= LORA_TOL[dtype]
                 print(f"kernel-check {name} M={M} K={K} N={N} r={r} {dtype} "
                       f"W={'(N,K).t()' if transposed else '(K,N)'}"
-                      f"{' path=' + path if name == 'fused_lora_forward' else ''} "
+                      f"{' path=' + paths[name] if name in paths else ''} "
                       f"max_abs_err={err:.3e} rel_err={rel:.3e} tol={LORA_TOL[dtype]:g} "
                       f"{'ok' if ok else 'FAIL'}")
                 if not ok:
@@ -1189,6 +1201,25 @@ def int8_bound(M, K, N, r, e, kernel):
     return bytes_ / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOPS_PER_S * 1e3
 
 
+def int8pack_call(torch, x, q_nk, qscale):
+    """``(call, scales' dtype)`` of ``torch._weight_int8pack_mm(x, q_nk,
+    scales)``, the one PyTorch call that computes kernel 8's ``x @ (q *
+    qscale)`` over the ``(N, K)`` codes the model stores: f32 scales where
+    the card's implementation takes them, else the scales converted to x's
+    dtype (rounding them); ``(None, error)`` if it takes neither.  Timed
+    only; the port never calls it."""
+    scales, err = qscale.reshape(-1), None
+    for sc in (scales, scales.to(x.dtype)):
+        try:
+            torch._weight_int8pack_mm(x, q_nk, sc)
+            torch.cuda.synchronize()
+        except RuntimeError as e:
+            err = f"{type(e).__name__}: {str(e).splitlines()[0]}"
+            continue
+        return (lambda: torch._weight_int8pack_mm(x, q_nk, sc)), str(sc.dtype)
+    return None, err
+
+
 def check_int8_kernels(torch, device):
     """Phase kernels-8: kernel 8 and the int8 fused forward and dx against
     their twins on the card, then timings per llama_250m shape beside the
@@ -1213,12 +1244,16 @@ def check_int8_kernels(torch, device):
             s = 0.25
             tc0 = LM.fused_lora_int8_forward.tc_launches
             fwd = LM.fused_lora_int8_forward(x, q, qs, a, b, s)
-            path = check_path(LM.fused_lora_int8_forward, tc0, x, K, N, r, transposed)
+            paths = {"fused_lora_int8_forward": check_path(LM.fused_lora_int8_forward, tc0, x, K, N,
+                                                           r, transposed)}
+            tc0 = LM.fused_lora_int8_bwd_dx.tc_launches
+            dx = LM.fused_lora_int8_bwd_dx(gy, q, qs, a, b, s)
+            paths["fused_lora_int8_bwd_dx"] = check_path(LM.fused_lora_int8_bwd_dx, tc0, gy, K, N,
+                                                         r, transposed)
             pairs = {
                 "dequant_matmul": [(QM.dequant_matmul(x, q, qs), QM.dequant_matmul_plain(x, q, qs))],
                 "fused_lora_int8_forward": list(zip(fwd, LM.fused_lora_int8_forward_plain(x, q, qs, a, b, s))),
-                "fused_lora_int8_bwd_dx": list(zip(LM.fused_lora_int8_bwd_dx(gy, q, qs, a, b, s),
-                                                   LM.fused_lora_int8_bwd_dx_plain(gy, q, qs, a, b, s))),
+                "fused_lora_int8_bwd_dx": list(zip(dx, LM.fused_lora_int8_bwd_dx_plain(gy, q, qs, a, b, s))),
             }
             torch.cuda.synchronize()
             for name, outs in pairs.items():
@@ -1226,7 +1261,7 @@ def check_int8_kernels(torch, device):
                 ok = finite and rel <= LORA_TOL[dtype]
                 print(f"kernel-check {name} M={M} K={K} N={N} r={r} {dtype} "
                       f"q={'(N,K).t()' if transposed else '(K,N)'}"
-                      f"{' path=' + path if name == 'fused_lora_int8_forward' else ''} "
+                      f"{' path=' + paths[name] if name in paths else ''} "
                       f"max_abs_err={err:.3e} rel_err={rel:.3e} tol={LORA_TOL[dtype]:g} "
                       f"{'ok' if ok else 'FAIL'}")
                 if not ok:
@@ -1273,6 +1308,7 @@ def check_int8_kernels(torch, device):
     keys = ("ms", "plain_ms", "library_ms", "bound_ms", "t_bytes", "t_ops")
     rows = {name: dict.fromkeys(keys, 0.0) for name in INT8_NAMES}
     per_shape = []
+    int8pack_ms = 0.0  # kernel 8's one-call yardstick per layer; None once a shape raised
     with torch.no_grad():
         for K, N, count in LORA_SHAPES:
             x, q, qs, a, b, gy = make_int8_case(torch, device, LORA_M, K, N, LORA_R, "bf16", seed=99)
@@ -1301,11 +1337,26 @@ def check_int8_kernels(torch, device):
                                "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
                 for key, v in zip(keys, (ms, plain_ms, chain_ms, max(t_bytes, t_ops), t_bytes, t_ops)):
                     rows[name][key] += count * v
+            call, how = int8pack_call(torch, x, q_nk, qs)
+            row8 = shape["dequant_matmul"]
+            if call is None:
+                row8["int8pack_error"], int8pack_ms = how, None
+            else:
+                want = QM.dequant_matmul_plain(x, q, qs).float()
+                row8.update(int8pack_ms=time_ms(torch, call), int8pack_scales=how,
+                            int8pack_max_abs_err=(call().float() - want).abs().max().item())
+                if int8pack_ms is not None:
+                    int8pack_ms += count * row8["int8pack_ms"]
             per_shape.append(shape)
     print(json.dumps({"int8_timings": "bf16 activations, int8 base, ms per call; chain = the JAX "
-                      "default path's dequantize + cuBLAS matmuls, timed only", "shapes": per_shape}))
-    # one decoder layer's seven projections summed, as kernels-4; no single
-    # PyTorch call computes any of the three, so library_ms is the chain
+                      "default path's dequantize + cuBLAS matmuls, int8pack = "
+                      "torch._weight_int8pack_mm (kernel 8's one-call yardstick), timed only",
+                      "shapes": per_shape, "int8pack_ms_per_layer": int8pack_ms}))
+    # one decoder layer's seven projections summed, as kernels-4.  Kernel 8's
+    # library_ms is torch._weight_int8pack_mm (the chain if that call raised);
+    # no single PyTorch call computes 4-int8 or 6-int8, so theirs is the chain
+    if int8pack_ms is not None:
+        rows["dequant_matmul"]["library_ms"] = int8pack_ms
     return [{
         "name": name,
         "route": "cuda",
@@ -1869,9 +1920,10 @@ def main() -> int:
     t0 = time.perf_counter()
     libs = _build.build_all()
     print(f"build: {sorted(libs)} in {time.perf_counter() - t0:.1f}s")
-    ptxas = ptxas_report(_build.CSRC / "lora_matmul.cu", GROUPED_KERNELS + FWD_TC_KERNELS)
+    ptxas = ptxas_report(_build.CSRC / "lora_matmul.cu",
+                         GROUPED_KERNELS + FWD_TC_KERNELS + DX_TC_KERNELS)
     count_hmma(libs["flash_attention"], FLASH_TC_KERNELS)
-    count_hmma(libs["lora_matmul"], GROUPED_TC_KERNELS + FWD_TC_KERNELS)
+    count_hmma(libs["lora_matmul"], GROUPED_TC_KERNELS + FWD_TC_KERNELS + DX_TC_KERNELS)
 
     rows = check_kernels(torch, device)
     flash_rows = check_flash_kernels(torch, device)
@@ -1995,11 +2047,11 @@ def ab_grouped(torch):
 
 
 def ab_lora(torch):
-    """Kernels 4 and 4-int8 (the fused forward over a bf16 and an int8 base)
-    and, as controls, kernels 6 (dx) and 8 (the int8 dequant matmul) at
-    kernels-4's three llama_250m shapes, M = 4096, r = 128, bf16, the base as
-    the model passes it, 100 launches each: ms per call and per decoder layer
-    (7 projections)."""
+    """Kernels 6 and 6-int8 (the fused dx over a bf16 and an int8 base) and,
+    as controls, kernels 4 and 4-int8 (the fused forward), 7 (dA/dB, with u
+    from dx) and 8 (the int8 dequant matmul) at kernels-4's three llama_250m
+    shapes, M = 4096, r = 128, bf16, the base as the model passes it, 100
+    launches each: ms per call and per decoder layer (7 projections)."""
     from relora_tpu_torch.ops import lora_matmul as LM
     from relora_tpu_torch.ops import quant_matmul as QM
     from relora_tpu_torch.ops.quant import quantize_int8
@@ -2011,10 +2063,14 @@ def ab_lora(torch):
                                             "bf16", seed=99)
             q_nk, qs = quantize_int8(w.t())
             q = q_nk.t()
+            _, z = LM.fused_lora_forward(x, w, a, b, 0.25)
+            _, u = LM.fused_lora_bwd_dx(gy, w, a, b, 0.25)
             for name, fn in (
+                ("fused_lora_bwd_dx", lambda: LM.fused_lora_bwd_dx(gy, w, a, b, 0.25)),
+                ("fused_lora_int8_bwd_dx", lambda: LM.fused_lora_int8_bwd_dx(gy, q, qs, a, b, 0.25)),
                 ("fused_lora_forward", lambda: LM.fused_lora_forward(x, w, a, b, 0.25)),
                 ("fused_lora_int8_forward", lambda: LM.fused_lora_int8_forward(x, q, qs, a, b, 0.25)),
-                ("fused_lora_bwd_dx", lambda: LM.fused_lora_bwd_dx(gy, w, a, b, 0.25)),
+                ("fused_lora_bwd_dab", lambda: LM.fused_lora_bwd_dab(gy, x, z, b, 0.25, u)),
                 ("dequant_matmul", lambda: QM.dequant_matmul(x, q, qs)),
             ):
                 ms = time_ms(torch, fn, iters=100)
@@ -2071,8 +2127,8 @@ def ab(argv) -> int:
     100 launches each.  ``--train``: the train phase (plus FLAGS) run twice,
     each run's median ms per update of updates 2-9 and its per-update
     losses.  ``--grouped``: kernel 5 per call and per layer
-    (:func:`ab_grouped`).  ``--lora``: kernels 4, 4-int8 and the controls 6
-    and 8 per call and per layer (:func:`ab_lora`).  ``--tenants``: the
+    (:func:`ab_grouped`).  ``--lora``: kernels 6, 6-int8 and the controls 4,
+    4-int8, 7 and 8 per call and per layer (:func:`ab_lora`).  ``--tenants``: the
     tenant drains' tokens/s, idle share and kernel 5's share
     (:func:`ab_tenants`)."""
     import torch

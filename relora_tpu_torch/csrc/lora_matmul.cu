@@ -29,12 +29,13 @@
 // x (M, K), g (M, N), A (K, r) and B (r, N) are row-major; W is the logical
 // (K, N) base with any element strides (the port passes the (N, K) weight's
 // transpose as a view).  Inputs are f32 or bf16 and are widened to f32 as they
-// are staged (the bf16 paths of kernels 4 and 5 excepted: they feed bf16 to
-// the tensor cores, see their notes below); an int8 base is q (K, N) int8 codes, again at any strides, with
-// qscale (1, N) f32 per output column: each code is widened and multiplied by
-// its column's scale as the tile is staged (kernel 4-int8's tensor-core path
-// scales its accumulators per column instead), so no dequantized copy of W is
-// ever written.  s is read from
+// are staged (the bf16 paths of kernels 4, 5 and 6 excepted: they feed bf16
+// to the tensor cores, see their notes below); an int8 base is q (K, N) int8
+// codes, again at any strides, with qscale (1, N) f32 per output column: each
+// code is widened and multiplied by its column's scale as the tile is staged
+// (kernel 4-int8's tensor-core path scales its accumulators per column
+// instead; 6-int8's widens each staged tile into bf16 in shared memory), so
+// no dequantized copy of W is ever written.  s is read from
 // a device pointer (the trainable tanh(lora_s)) or given by value, so no call
 // needs a host sync.  Any M, K, N and r (a rank past 256 included, as the
 // TPU kernels take it: the GEMM's contraction segments have no rank limit and
@@ -43,8 +44,8 @@
 // Design.  One tiled GEMM kernel, lora_gemm_kernel, computes
 //     C = P1 @ Q1 + P2 @ (s * Q2)
 // over two contraction segments for strided f32/bf16/scaled-int8 operands,
-// and each TPU kernel but the bf16 forward (below) is a short sequence of its
-// launches on one stream:
+// and each TPU kernel but the bf16 forward and dx (below) is a short sequence
+// of its launches on one stream:
 //   forward:  z = x@A (f32), then y = x@W + z@(s*B)   (contraction K + r)
 //   dx:       u = g@B^T (f32), then dx = g@W^T + u@(s*A^T)   (contraction N + r)
 //   dA/dB:    partials of x^T u and z^T g over chunks of 512 rows of M, then
@@ -79,42 +80,58 @@
 // N) + 4Mr bytes, below it, so bound by bytes.  Kernel 8 does 2MKN flops over
 // 2MK + KN + 2MN bytes (int8 W): bound by operations too; the int8 base saves
 // bytes that do not bound it here.  lora_gemm_kernel uses the f32 CUDA cores
-// (67 TFLOP/s peak), so dx, dA/dB, kernel 8 and the f32 forward are far from
-// that bound by construction.
+// (67 TFLOP/s peak), so dA/dB, kernel 8 and the f32 forward and dx are far
+// from that bound by construction.
 //
-// Kernels 4 and 4-int8 on the tensor cores.  The bf16 forward with the base
-// as the k-contiguous (N, K) storage (the transposed view the model passes;
-// bf16 W or int8 codes) and K, N, r multiples of 8 runs mma.sync m16n8k16,
-// bf16 in, f32 accumulate, fed by cp.async and ldmatrix, in two launches:
-//   1. fused_fwd_z_tc_kernel: z = x@A (M, r) f32, 64x64 (M x r) tiles, 4 warps
-//      of 32x32, so that r = 128 gives 128 blocks at M = 4096, one wave of the
-//      132 SMs.  A (K, r) is row-major: its fragments come through
-//      ldmatrix.trans.  It signals griddepcontrol.launch_dependents at once.
-//   2. fused_fwd_y_tc_{bf16,int8}_kernel, a programmatic dependent launch
-//      (PDL) of the first: 128x128 (M x N) tiles, 8 warps of 64x32, two
-//      blocks an SM (128 registers a thread), k-steps of 32 through a 4-stage
-//      cp.async ring.  Segment 1 is x@W: x and the
-//      (N, K) base are both k-contiguous, so both stage with cp.async and read
-//      with plain ldmatrix.  Only then griddepcontrol.wait: segment 1 of the
-//      y blocks overlaps the z launch.  Segment 2 stages z from L2 as f32
-//      (cp.async, one step of 32 rank columns ahead), multiplies it by s
-//      (read on the device) and splits it into hi = bf16(s z) and lo = bf16(s
-//      z - hi) as it converts it into bf16 tiles; each half meets B ((r, N)
-//      row-major, ldmatrix.trans, staged by cp.async one step ahead) in its
-//      own MMA, so the LoRA term carries ~2^-16
-//      relative error, not bf16's 2^-9, for 2r/K more MMAs.  y rounds once to
-//      bf16.  Shared-memory rows are padded to an odd multiple of 16 bytes
-//      (80, 144, 272), so ldmatrix is conflict-free.
-// int8 base: the same kernel, templated on the base.  The (N, K) codes stage
-// with 8-byte cp.async (half the bytes of bf16; a row of K = 8 mod 16 codes
-// is only 8-byte aligned) and widen to bf16 in registers as the B fragments
-// are formed (|q| <= 127 is exact in bf16).  sum_k x q scale[n] = scale[n]
-// sum_k x q, so the f32 accumulators are scaled per output column after
-// segment 1 and before segment 2: no per-element scale load, and no
-// dequantized tile anywhere (the TPU kernel forms q * scale in VMEM).
-// The wrapper (ops/lora_matmul.forward_path) picks this path; every other
-// forward (f32, a contiguous (K, N) base, ragged widths, unaligned pointers)
-// runs lora_gemm_kernel, exact to summation order.
+// Kernels 4 and 6 and their int8 variants on the tensor cores.  The bf16
+// forward and dx with the base as the k-contiguous (N, K) storage (the
+// transposed view the model passes; bf16 W or int8 codes) and K, N, r
+// multiples of 8 run mma.sync m16n8k16, bf16 in, f32 accumulate, fed by
+// cp.async and ldmatrix, each in two launches (TcArgs; dx is the forward's
+// pair with x = g contracted over N, a = B, b = A, y = dx and z = u):
+//   1. fused_fwd_z_tc_kernel (z = x@A) / fused_dx_u_tc_kernel (u = g@B^T):
+//      (M, r) f32 in 64x64 tiles, 4 warps of 32x32, so that r = 128 gives 128
+//      blocks at M = 4096, one wave of the 132 SMs.  A (K, r) row-major is a
+//      [k][j] tile (ldmatrix.trans); B (r, N) row-major is B^T as a [j][k]
+//      tile, the contraction contiguous (plain ldmatrix).  It signals
+//      griddepcontrol.launch_dependents at once.
+//   2. fused_fwd_y_tc_{bf16,int8}_kernel / fused_dx_tc_{bf16,int8}_kernel, a
+//      programmatic dependent launch (PDL) of the first: 128x128 output
+//      tiles, 8 warps of 64x32, two blocks an SM (128 registers a thread),
+//      k-steps of 32 through a 4-stage cp.async ring.  Segment 1 is x@W (g@W^T):
+//      x and g stage with cp.async and read with plain ldmatrix; the (N, K)
+//      storage is [output][contraction] for the forward (plain ldmatrix) and
+//      [contraction][output] for dx (16-byte cp.async along K, then
+//      ldmatrix.trans).  Only then griddepcontrol.wait: segment 1 overlaps
+//      the first launch.  Segment 2 stages z (u) from L2 as f32 (cp.async,
+//      one step of 32 rank columns ahead), multiplies it by s (read on the
+//      device) and splits it into hi = bf16(s z) and lo = bf16(s z - hi) as
+//      it converts it into bf16 tiles; each half meets the factor in its own
+//      MMA: B ((r, N) row-major, [j][n], ldmatrix.trans) for the forward, A
+//      ((K, r) row-major, A^T as [n][j], plain ldmatrix) for dx, staged by
+//      cp.async one step ahead, before the wait (inputs).  So the LoRA term
+//      carries ~2^-16 relative error, not bf16's 2^-9, for 2r/K more MMAs.
+//      The output rounds once to bf16.  Shared-memory rows are padded to an
+//      odd multiple of 16 bytes (80, 144, 272), so ldmatrix is conflict-free.
+// int8 base, forward: the (N, K) codes stage with 8-byte cp.async (half the
+// bytes of bf16; a row of K = 8 mod 16 codes is only 8-byte aligned) and widen
+// to bf16 in registers as the B fragments are formed (|q| <= 127 is exact in
+// bf16).  sum_k x q scale[n] = scale[n] sum_k x q, so the f32 accumulators
+// are scaled per output column after segment 1 and before segment 2: no
+// per-element scale load, and no dequantized tile anywhere (the TPU kernel
+// forms q * scale in VMEM).
+// int8 base, dx: the scale runs along the contraction, so it cannot wait for
+// the accumulators, and sm_90 has no 8-bit ldmatrix.trans to pair codes of
+// two neighbouring rows into a B fragment.  So the codes' [k][n] tile stages
+// with 8-byte cp.async, and one pass of the block widens it into a bf16
+// [k][n] tile, each element bf16(q * scale[k]) formed in f32 and rounded
+// once (a bf16 W carries the same one rounding by storage), which the dense
+// path's ldmatrix.trans then reads.  The pass runs one stage ahead (stage kt
+// + 1 widened while stage kt's MMAs run, into one of two tiles), so the ring
+// keeps one barrier a step; the widened tile lives only in shared memory.
+// The wrappers pick this path by one rule (ops/lora_matmul.forward_path);
+// every other forward or dx (f32, a contiguous (K, N) base, ragged widths,
+// unaligned pointers) runs lora_gemm_kernel, exact to summation order.
 //
 // Kernel 5 (grouped).  Multi-tenant serving stacks every adapter as slabs
 // A (S, K, r), B (S, r, N), s (S,) f32, and each row m of a batch names its
@@ -902,7 +919,7 @@ __global__ void __launch_bounds__(kG5Threads) grouped_fma_reduce_kernel(Grouped 
 }
 
 // ---------------------------------------------------------------------------
-// Kernels 4 and 4-int8 on the tensor cores (design in the header note)
+// Kernels 4, 4-int8, 6 and 6-int8 on the tensor cores (design in the header note)
 // ---------------------------------------------------------------------------
 
 constexpr int kFwdBK = 32;            // contraction depth of one stage
@@ -924,15 +941,30 @@ constexpr int kY2Buf = 2 * kYTile + kFwdBK * kYNLd * 2;
 constexpr int kYSmem2 = 2 * kY2Buf + kYBM * kFwdZLd * 4;
 constexpr int kYSmem = kFwdStages * kYStage > kYSmem2 ? kFwdStages * kYStage : kYSmem2;
 static_assert(kYBN * kFwdQLd <= kYTile, "the int8 code tile fits in a base slot");
+// dx over int8 codes: a stage holds the g tile and the codes' [k][n] tile
+// (row stride 144 bytes), and two bf16 [k][n] tiles beside the ring take the
+// widened, scaled codes
+constexpr int kDxQLd = kYBN + 16;
+constexpr int kDxQTile = kFwdBK * kDxQLd;
+constexpr int kDxWTile = kFwdBK * kYNLd * 2;
+static_assert(kFwdStages * (kYTile + kDxQTile) + 2 * kDxWTile <= kYSmem, "the int8 dx ring fits");
+static_assert(2 * (3 * kYTile) + kYBM * kFwdZLd * 4 <= kYSmem, "the dx's segment 2 fits");
 
-struct FwdTc {
-  // y = x @ W (* qscale[n]) + (s z) @ B, z = x @ A; W given as its (N, K) storage
+struct TcArgs {
+  // one tensor-core pair of launches: z = x @ a (M, r) f32, then
+  // y = x @ base + (s z) @ b (M, N), contracted over K.
+  // Forward (kernel 4): x (M, K), a = A (K, r), b = B (r, N), the base's (N,
+  // K) storage read as [output][contraction]; y, z.
+  // dx (kernel 6): x = g (M, N'), a = B (r, N') read as B^T, b = A (K', r)
+  // read as A^T, the same (N', K') storage read as [contraction][output];
+  // y = dx, z = u; K = N' and N = K' (primes: the model's widths).
   const bf16* x;        // (M, K) row-major
-  const void* wt;       // (N, K): bf16, or int8 codes, rows at stride ws
+  const void* wt;       // bf16, or int8 codes, rows at stride ws
   long long ws;
-  const float* qscale;  // int8: (N,) f32 per output column
-  const bf16* a;        // (K, r) row-major
-  const bf16* b;        // (r, N) row-major
+  const float* qscale;  // int8: one f32 per row of the storage: per output column
+                        // of the forward, per contraction row of dx
+  const bf16* a;
+  const bf16* b;
   const float* s_ptr;   // device scalar; when null, s_val is s
   float s_val;
   bf16* y;              // (M, N)
@@ -968,6 +1000,24 @@ __device__ __forceinline__ void frag_b_kn(uint32_t (&b)[4], const bf16* t, int l
                                           int lane) {
   ldsm_x4_t(b, t + (k0 + lane % 8 + ((lane / 8) % 2) * 8) * ld + n0 + (lane / 16) * 8);
 }
+// the B operands of a [k][n] tile (kKN) or a [n][k] tile, as b[n8 tile][2]
+// for the warp's four n8 tiles at n0..n0+31 over k0..k0+15
+template <bool kKN>
+__device__ __forceinline__ void frags_b(uint32_t (&b)[4][2], const bf16* t, int ld, int n0, int k0,
+                                        int lane) {
+#pragma unroll
+  for (int p = 0; p < 2; ++p) {
+    uint32_t r4[4];
+    if constexpr (kKN)
+      frag_b_kn(r4, t, ld, n0 + 16 * p, k0, lane);
+    else
+      frag_b_nk(r4, t, ld, n0 + 16 * p, k0, lane);
+    b[2 * p][0] = r4[0];
+    b[2 * p][1] = r4[1];
+    b[2 * p + 1][0] = r4[2];
+    b[2 * p + 1][1] = r4[3];
+  }
+}
 // two neighbouring int8 codes as a bf16 pair (exact: |q| <= 127)
 __device__ __forceinline__ uint32_t widen2(const int8_t* p) {
   const char2 v = *reinterpret_cast<const char2*>(p);
@@ -980,12 +1030,33 @@ __device__ __forceinline__ uint32_t pack2(bf16 lo, bf16 hi) {
   h.y = hi;
   return *reinterpret_cast<uint32_t*>(&h);
 }
+// codes c[i] (byte i of w0, then of w1) as eight bf16 values bf16(c[i] * sc):
+// each product in f32, rounded once
+__device__ __forceinline__ uint4 widen8_scaled(uint32_t w0, uint32_t w1, float sc) {
+  float v[8];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    v[i] = static_cast<float>(static_cast<int8_t>(w0 >> (8 * i))) * sc;
+    v[4 + i] = static_cast<float>(static_cast<int8_t>(w1 >> (8 * i))) * sc;
+  }
+  uint32_t o[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    __nv_bfloat162 h = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
+    o[i] = *reinterpret_cast<uint32_t*>(&h);
+  }
+  return make_uint4(o[0], o[1], o[2], o[3]);
+}
 
-// launch 1: z = x @ A, block (64 rank columns, 64 rows of M), warp w the 32 x 32
-// at rows 32 (w / 2), columns 32 (w % 2)
-__global__ void __launch_bounds__(kZThreads) fused_fwd_z_tc_kernel(FwdTc f) {
+// launch 1: z = x @ a, block (64 rank columns, 64 rows of M), warp w the 32 x 32
+// at rows 32 (w / 2), columns 32 (w % 2).  Forward: A (K, r) row-major is a
+// [k][j] tile (ldmatrix.trans); dx: B (r, K) row-major is a [j][k] tile (plain
+// ldmatrix)
+template <bool kDx>
+__device__ __forceinline__ void tc_z(const TcArgs& f) {
+  constexpr int kOpTile = kDx ? kZBN * kFwdKLd : kFwdBK * kZNLd;
   __shared__ __align__(16) bf16 xs[kFwdStages][kZBM * kFwdKLd];
-  __shared__ __align__(16) bf16 as[kFwdStages][kFwdBK * kZNLd];
+  __shared__ __align__(16) bf16 as[kFwdStages][kOpTile];
   // the y launch may start now: it waits for this grid's writes itself
   asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
@@ -999,10 +1070,16 @@ __global__ void __launch_bounds__(kZThreads) fused_fwd_z_tc_kernel(FwdTc f) {
       const bool okx = m0 + row < f.M && k0 + c < f.K;
       cp_async16(&xs[st][row * kFwdKLd + c], okx ? f.x + (long long)(m0 + row) * f.K + k0 + c : f.x,
                  okx);
-      const int kk = e / 8, cj = (e % 8) * 8;
-      const bool oka = k0 + kk < f.K && j0 + cj < f.r;
-      cp_async16(&as[st][kk * kZNLd + cj], oka ? f.a + (long long)(k0 + kk) * f.r + j0 + cj : f.a,
-                 oka);
+      if constexpr (kDx) {  // B: 64 rank rows x 4 chunks of 8
+        const bool okb = j0 + row < f.r && k0 + c < f.K;
+        cp_async16(&as[st][row * kFwdKLd + c],
+                   okb ? f.a + (long long)(j0 + row) * f.K + k0 + c : f.a, okb);
+      } else {
+        const int kk = e / 8, cj = (e % 8) * 8;
+        const bool oka = k0 + kk < f.K && j0 + cj < f.r;
+        cp_async16(&as[st][kk * kZNLd + cj], oka ? f.a + (long long)(k0 + kk) * f.r + j0 + cj : f.a,
+                   oka);
+      }
     }
   };
   float acc[2][4][4];
@@ -1033,7 +1110,10 @@ __global__ void __launch_bounds__(kZThreads) fused_fwd_z_tc_kernel(FwdTc f) {
       for (int mi = 0; mi < 2; ++mi) frag_a(a[mi], xt, kFwdKLd, wm + 16 * mi, ks, lane);
 #pragma unroll
       for (int p = 0; p < 2; ++p) {
-        frag_b_kn(b, at, kZNLd, wn + 16 * p, ks, lane);
+        if constexpr (kDx)
+          frag_b_nk(b, at, kFwdKLd, wn + 16 * p, ks, lane);
+        else
+          frag_b_kn(b, at, kZNLd, wn + 16 * p, ks, lane);
 #pragma unroll
         for (int mi = 0; mi < 2; ++mi) {
           mma16816(acc[mi][2 * p], a[mi][0], a[mi][1], a[mi][2], a[mi][3], b[0], b[1]);
@@ -1057,6 +1137,9 @@ __global__ void __launch_bounds__(kZThreads) fused_fwd_z_tc_kernel(FwdTc f) {
     }
 }
 
+__global__ void __launch_bounds__(kZThreads) fused_fwd_z_tc_kernel(TcArgs f) { tc_z<false>(f); }
+__global__ void __launch_bounds__(kZThreads) fused_dx_u_tc_kernel(TcArgs f) { tc_z<true>(f); }
+
 // the thread's index and its block's (m0, n0) read anew from the special
 // registers: indices derived from them after segment 1 are recomputed rather
 // than held across its loop (at 128 registers a thread they would be spilled)
@@ -1072,15 +1155,24 @@ __device__ __forceinline__ YIds fresh_ids() {
 }
 
 // launch 2: y, block (128 columns of N, 128 rows of M), warp w the 64 x 32 at
-// rows 64 (w / 4), columns 32 (w % 4).  Segment 1: acc = x @ W through the ring
-template <bool kInt8>
-__device__ __forceinline__ void fwd_y_seg1(const FwdTc& f, float (&acc)[4][4][4]) {
+// rows 64 (w / 4), columns 32 (w % 4).  Segment 1: acc = x @ base through the
+// ring.  Forward: the base's [n][k] tile (plain ldmatrix, or int8 codes
+// widened in registers).  dx: its [k][n] tile (ldmatrix.trans); int8 codes
+// are first widened and scaled by their rows' scales into a bf16 [k][n] tile,
+// one stage ahead of the MMAs that read it
+template <bool kInt8, bool kDx>
+__device__ __forceinline__ void tc_seg1(const TcArgs& f, float (&acc)[4][4][4]) {
   extern __shared__ __align__(16) unsigned char smem[];
+  constexpr bool kWiden = kInt8 && kDx;
+  constexpr int kStage = kWiden ? kYTile + kDxQTile : kYStage;
   const YIds id = fresh_ids();
   const int tid = id.tid, m0 = id.m0, n0 = id.n0, warp = tid / 32, lane = tid % 32;
   const int wm = (warp / kYWarpsN) * 64, wn = (warp % kYWarpsN) * 32;
-  auto xs = [&](int st) { return reinterpret_cast<bf16*>(smem + st * kYStage); };
-  auto bs = [&](int st) { return smem + st * kYStage + kYTile; };  // the base's [n][k] tile
+  auto xs = [&](int st) { return reinterpret_cast<bf16*>(smem + st * kStage); };
+  auto bs = [&](int st) { return smem + st * kStage + kYTile; };  // the base's tile
+  auto wide = [&](int buf) {
+    return reinterpret_cast<bf16*>(smem + kFwdStages * kStage + buf * kDxWTile);
+  };
   auto stage = [&](int st, int k0) {
 #pragma unroll
     for (int u = 0; u < kYBM * 4 / kYThreads; ++u) {  // 128 rows x 4 chunks of 8 elements
@@ -1090,18 +1182,44 @@ __device__ __forceinline__ void fwd_y_seg1(const FwdTc& f, float (&acc)[4][4][4]
                  okx);
     }
 #pragma unroll
-    for (int u = 0; u < 2; ++u) {  // the base: 128 rows x 4 chunks of 8 elements
-      const int e = tid + u * kYThreads, row = e / 4, c = (e % 4) * 8;
-      const bool okw = n0 + row < f.N && k0 + c < f.K;
-      const long long off = (long long)(n0 + row) * f.ws + k0 + c;
-      if constexpr (kInt8) {
-        const int8_t* q = static_cast<const int8_t*>(f.wt);
-        cp_async8(bs(st) + row * kFwdQLd + c, okw ? q + off : q, okw);
-      } else {
-        const bf16* w = static_cast<const bf16*>(f.wt);
-        cp_async16(reinterpret_cast<bf16*>(bs(st)) + row * kFwdKLd + c, okw ? w + off : w, okw);
+    for (int u = 0; u < 2; ++u) {
+      if constexpr (kDx) {  // the base: 32 contraction rows x 16 chunks of 8 output columns
+        const int e = tid + u * kYThreads, kk = e / 16, c = (e % 16) * 8;
+        const bool okw = k0 + kk < f.K && n0 + c < f.N;
+        const long long off = (long long)(k0 + kk) * f.ws + n0 + c;
+        if constexpr (kInt8) {
+          const int8_t* q = static_cast<const int8_t*>(f.wt);
+          cp_async8(bs(st) + kk * kDxQLd + c, okw ? q + off : q, okw);
+        } else {
+          const bf16* w = static_cast<const bf16*>(f.wt);
+          cp_async16(reinterpret_cast<bf16*>(bs(st)) + kk * kYNLd + c, okw ? w + off : w, okw);
+        }
+      } else {  // the base: 128 rows x 4 chunks of 8 elements
+        const int e = tid + u * kYThreads, row = e / 4, c = (e % 4) * 8;
+        const bool okw = n0 + row < f.N && k0 + c < f.K;
+        const long long off = (long long)(n0 + row) * f.ws + k0 + c;
+        if constexpr (kInt8) {
+          const int8_t* q = static_cast<const int8_t*>(f.wt);
+          cp_async8(bs(st) + row * kFwdQLd + c, okw ? q + off : q, okw);
+        } else {
+          const bf16* w = static_cast<const bf16*>(f.wt);
+          cp_async16(reinterpret_cast<bf16*>(bs(st)) + row * kFwdKLd + c, okw ? w + off : w, okw);
+        }
       }
     }
+  };
+  // the codes of stage st times their rows' scales into the bf16 tile dst:
+  // thread t takes 16 codes of row t / 8; quarter-warps store their halves in
+  // two orders, so that each 16-byte store of 8 lanes fills distinct banks
+  auto widen = [&](int st, int k0, bf16* dst) {
+    const int row = tid / 8, c = (tid % 8) * 16;
+    const float sc = k0 + row < f.K ? __ldg(f.qscale + k0 + row) : 0.f;
+    const uint4 v = *reinterpret_cast<const uint4*>(bs(st) + row * kDxQLd + c);
+    const uint4 h0 = widen8_scaled(v.x, v.y, sc), h1 = widen8_scaled(v.z, v.w, sc);
+    const bool swap = (tid / 4) % 2;
+    bf16* d = dst + row * kYNLd + c;
+    *reinterpret_cast<uint4*>(d + (swap ? 8 : 0)) = swap ? h1 : h0;
+    *reinterpret_cast<uint4*>(d + (swap ? 0 : 8)) = swap ? h0 : h1;
   };
   const int nk = (f.K + kFwdBK - 1) / kFwdBK;
 #pragma unroll
@@ -1109,20 +1227,33 @@ __device__ __forceinline__ void fwd_y_seg1(const FwdTc& f, float (&acc)[4][4][4]
     if (st < nk) stage(st, st * kFwdBK);
     cp_async_commit();
   }
+  if constexpr (kWiden) {
+    cp_async_wait_n<kFwdStages - 2>();
+    __syncthreads();  // stage 0 has landed
+    widen(0, 0, wide(0));
+  }
   const int g = lane / 4, t = lane % 4;
   for (int kt = 0; kt < nk; ++kt) {
-    cp_async_wait_n<kFwdStages - 2>();
-    __syncthreads();  // stage kt has landed, and every warp is done with stage kt - 1
+    // stage kt (dx int8: kt + 1 too) has landed, and every warp is done with
+    // stage kt - 1 (and the widened tile of kt - 1)
+    cp_async_wait_n<kWiden ? kFwdStages - 3 : kFwdStages - 2>();
+    __syncthreads();
     const int pre = kt + kFwdStages - 1;
     if (pre < nk) stage(pre % kFwdStages, pre * kFwdBK);
     cp_async_commit();
+    if constexpr (kWiden) {
+      if (kt + 1 < nk) widen((kt + 1) % kFwdStages, (kt + 1) * kFwdBK, wide((kt + 1) % 2));
+    }
     const bf16* xt = xs(kt % kFwdStages);
     // k16 halves one after the other, not interleaved: the y kernel stays within
     // 128 registers a thread
 #pragma unroll 1
     for (int ks = 0; ks < kFwdBK; ks += 16) {
       uint32_t b[4][2];
-      if constexpr (kInt8) {
+      if constexpr (kDx) {
+        const bf16* bt = kWiden ? wide(kt % 2) : reinterpret_cast<const bf16*>(bs(kt % kFwdStages));
+        frags_b<true>(b, bt, kYNLd, wn, ks, lane);
+      } else if constexpr (kInt8) {
         const int8_t* qt = reinterpret_cast<const int8_t*>(bs(kt % kFwdStages));
 #pragma unroll
         for (int nj = 0; nj < 4; ++nj) {
@@ -1131,16 +1262,7 @@ __device__ __forceinline__ void fwd_y_seg1(const FwdTc& f, float (&acc)[4][4][4]
           b[nj][1] = widen2(p + 8);
         }
       } else {
-        const bf16* wt = reinterpret_cast<const bf16*>(bs(kt % kFwdStages));
-#pragma unroll
-        for (int p = 0; p < 2; ++p) {
-          uint32_t r4[4];
-          frag_b_nk(r4, wt, kFwdKLd, wn + 16 * p, ks, lane);
-          b[2 * p][0] = r4[0];
-          b[2 * p][1] = r4[1];
-          b[2 * p + 1][0] = r4[2];
-          b[2 * p + 1][1] = r4[3];
-        }
+        frags_b<false>(b, reinterpret_cast<const bf16*>(bs(kt % kFwdStages)), kFwdKLd, wn, ks, lane);
       }
 #pragma unroll
       for (int mi = 0; mi < 4; ++mi) {
@@ -1154,14 +1276,16 @@ __device__ __forceinline__ void fwd_y_seg1(const FwdTc& f, float (&acc)[4][4][4]
   cp_async_wait_n<0>();
 }
 
-// the int8 base's column scales, then segment 2: acc += (s z) @ B, and y
-template <bool kInt8>
-__device__ __forceinline__ void fwd_y_seg2(const FwdTc& f, float (&acc)[4][4][4]) {
+// the forward's int8 column scales, then segment 2: acc += (s z) @ b, and y.
+// b's tile: the forward's B (r, N) as [j][n] (ldmatrix.trans), the dx's A
+// (N, r) as [n][j] (plain ldmatrix)
+template <bool kInt8, bool kDx>
+__device__ __forceinline__ void tc_seg2(const TcArgs& f, float (&acc)[4][4][4]) {
   extern __shared__ __align__(16) unsigned char smem[];
   const YIds id = fresh_ids();
   const int tid = id.tid, m0 = id.m0, n0 = id.n0, warp = tid / 32, lane = tid % 32;
   const int wm = (warp / kYWarpsN) * 64, wn = (warp % kYWarpsN) * 32;
-  if constexpr (kInt8) {  // sum_k x q scale[n] = scale[n] sum_k x q
+  if constexpr (kInt8 && !kDx) {  // sum_k x q scale[n] = scale[n] sum_k x q
 #pragma unroll
     for (int nj = 0; nj < 4; ++nj) {
       const int n = n0 + wn + acc_col(lane, nj, 0);
@@ -1176,27 +1300,40 @@ __device__ __forceinline__ void fwd_y_seg2(const FwdTc& f, float (&acc)[4][4][4]
     }
   }
 
-  // segment 2: (s z) @ B, 32 rank columns a step, two buffers of (z hi, z lo,
-  // B) and z's f32 tile, staged one step ahead
-  auto zh = [&](int buf) { return reinterpret_cast<bf16*>(smem + buf * kY2Buf); };
+  // segment 2: (s z) @ b, 32 rank columns a step, two buffers of (z hi, z lo,
+  // b) and z's f32 tile, staged one step ahead
+  constexpr int kBuf = kDx ? 3 * kYTile : kY2Buf;
+  auto zh = [&](int buf) { return reinterpret_cast<bf16*>(smem + buf * kBuf); };
   auto zl = [&](int buf) { return zh(buf) + kYBM * kFwdKLd; };
   auto bt = [&](int buf) { return zl(buf) + kYBM * kFwdKLd; };
-  float* zf = reinterpret_cast<float*>(smem + 2 * kY2Buf);
+  float* zf = reinterpret_cast<float*>(smem + 2 * kBuf);
   auto stage_b = [&](int buf, int j0) {
 #pragma unroll
-    for (int u = 0; u < 2; ++u) {  // 32 rank rows x kYBN / 8 chunks of 8 columns
-      const int e = tid + u * kYThreads, jj = e / (kYBN / 8), c = (e % (kYBN / 8)) * 8;
-      const bool ok = j0 + jj < f.r && n0 + c < f.N;
-      cp_async16(bt(buf) + jj * kYNLd + c, ok ? f.b + (long long)(j0 + jj) * f.N + n0 + c : f.b, ok);
+    for (int u = 0; u < 2; ++u) {
+      const int e = tid + u * kYThreads;
+      if constexpr (kDx) {  // A: 128 output rows x 4 chunks of 8 rank columns
+        const int row = e / 4, c = (e % 4) * 8;
+        const bool ok = n0 + row < f.N && j0 + c < f.r;
+        cp_async16(bt(buf) + row * kFwdKLd + c, ok ? f.b + (long long)(n0 + row) * f.r + j0 + c : f.b,
+                   ok);
+      } else {  // B: 32 rank rows x kYBN / 8 chunks of 8 columns
+        const int jj = e / (kYBN / 8), c = (e % (kYBN / 8)) * 8;
+        const bool ok = j0 + jj < f.r && n0 + c < f.N;
+        cp_async16(bt(buf) + jj * kYNLd + c, ok ? f.b + (long long)(j0 + jj) * f.N + n0 + c : f.b, ok);
+      }
     }
   };
   const int nr = (f.r + kFwdBK - 1) / kFwdBK;
-  stage_b(0, 0);  // B is an input: staged before the wait
+  stage_b(0, 0);  // b is an input: staged before the wait
   cp_async_commit();
   const float s = f.s_ptr ? *f.s_ptr : f.s_val;
   asm volatile("griddepcontrol.wait;\n" ::: "memory");  // z is complete
 
   auto stage_z = [&](int j0) {
+    // the dx reads its ids anew here: its [n][j] b tile's addresses take the
+    // registers that z's held across the loop (else 8 bytes spill)
+    const YIds zi = kDx ? fresh_ids() : id;
+    const int tid = zi.tid, m0 = zi.m0;
 #pragma unroll
     for (int u = 0; u < kYBM * 8 / kYThreads; ++u) {  // 128 rows x 8 chunks of 4 floats
       const int e = tid + u * kYThreads, row = e / 8, c = (e % 8) * 4;
@@ -1209,7 +1346,7 @@ __device__ __forceinline__ void fwd_y_seg2(const FwdTc& f, float (&acc)[4][4][4]
   for (int jt = 0; jt < nr; ++jt) {
     const int buf = jt % 2;
     cp_async_wait_n<0>();
-    __syncthreads();  // z and B of step jt have landed; every warp is done with step jt - 1
+    __syncthreads();  // z and b of step jt have landed; every warp is done with step jt - 1
 #pragma unroll
     for (int u = 0; u < kYBM * 8 / kYThreads; ++u) {  // hi and lo bf16 halves of s z
       const int e = tid + u * kYThreads, row = e / 8, c = (e % 8) * 4;
@@ -1232,15 +1369,10 @@ __device__ __forceinline__ void fwd_y_seg2(const FwdTc& f, float (&acc)[4][4][4]
 #pragma unroll 1
     for (int ks = 0; ks < kFwdBK; ks += 16) {
       uint32_t b[4][2];
-#pragma unroll
-      for (int p = 0; p < 2; ++p) {
-        uint32_t r4[4];
-        frag_b_kn(r4, bt(buf), kYNLd, wn + 16 * p, ks, lane);
-        b[2 * p][0] = r4[0];
-        b[2 * p][1] = r4[1];
-        b[2 * p + 1][0] = r4[2];
-        b[2 * p + 1][1] = r4[3];
-      }
+      if constexpr (kDx)
+        frags_b<false>(b, bt(buf), kFwdKLd, wn, ks, lane);
+      else
+        frags_b<true>(b, bt(buf), kYNLd, wn, ks, lane);
 #pragma unroll
       for (int mi = 0; mi < 4; ++mi) {
         uint32_t ah[4], al[4];
@@ -1270,8 +1402,8 @@ __device__ __forceinline__ void fwd_y_seg2(const FwdTc& f, float (&acc)[4][4][4]
     }
 }
 
-template <bool kInt8>
-__device__ __forceinline__ void fwd_y_tc(const FwdTc& f) {
+template <bool kInt8, bool kDx>
+__device__ __forceinline__ void tc_y(const TcArgs& f) {
   float acc[4][4][4];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
@@ -1279,16 +1411,22 @@ __device__ __forceinline__ void fwd_y_tc(const FwdTc& f) {
     for (int j = 0; j < 4; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
-  fwd_y_seg1<kInt8>(f, acc);
+  tc_seg1<kInt8, kDx>(f, acc);
   __syncthreads();  // the ring is free for segment 2
-  fwd_y_seg2<kInt8>(f, acc);
+  tc_seg2<kInt8, kDx>(f, acc);
 }
 
-__global__ void __launch_bounds__(kYThreads, 2) fused_fwd_y_tc_bf16_kernel(FwdTc f) {
-  fwd_y_tc<false>(f);
+__global__ void __launch_bounds__(kYThreads, 2) fused_fwd_y_tc_bf16_kernel(TcArgs f) {
+  tc_y<false, false>(f);
 }
-__global__ void __launch_bounds__(kYThreads, 2) fused_fwd_y_tc_int8_kernel(FwdTc f) {
-  fwd_y_tc<true>(f);
+__global__ void __launch_bounds__(kYThreads, 2) fused_fwd_y_tc_int8_kernel(TcArgs f) {
+  tc_y<true, false>(f);
+}
+__global__ void __launch_bounds__(kYThreads, 2) fused_dx_tc_bf16_kernel(TcArgs f) {
+  tc_y<false, true>(f);
+}
+__global__ void __launch_bounds__(kYThreads, 2) fused_dx_tc_int8_kernel(TcArgs f) {
+  tc_y<true, true>(f);
 }
 
 int sm_count() {
@@ -1372,24 +1510,27 @@ int fwd_pass(const void* x, const Mat& w, const void* a, const void* b, const fl
   return run_gemm(yg, 1, st);
 }
 
-// the forward on the tensor cores: z launch, then the y launch as its
+// a tensor-core pair: the z (dx: u) launch, then the y (dx) launch as its
 // programmatic dependent.  Refuses inputs that break the path's conditions:
-// bf16 operands, the base k-contiguous (w_s0 == 1) with a row stride, K, N
-// and r multiples of 8, every pointer 16-byte aligned
-int fwd_tc(const FwdTc& f, bool int8, long long w_s0, int dtype, cudaStream_t st) {
+// bf16 operands, the base the k-contiguous view of its storage (w_s0 == 1)
+// with a row stride, K, N and r multiples of 8, every pointer 16-byte aligned
+int tc_pair(const TcArgs& f, bool dx, bool int8, long long w_s0, int dtype, cudaStream_t st) {
   auto aligned = [](const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; };
   if (dtype != kBF16 || w_s0 != 1 || f.ws % 8 || f.K % 8 || f.N % 8 || f.r % 8 ||
       !aligned(f.x) || !aligned(f.wt) || !aligned(f.a) || !aligned(f.b) || !aligned(f.y) ||
       !aligned(f.z) || tiles(f.M, kZBM) > 65535)
     return (int)cudaErrorInvalidValue;
   if (f.M == 0) return (int)cudaSuccess;
-  fused_fwd_z_tc_kernel<<<dim3(tiles(f.r, kZBN), tiles(f.M, kZBM)), kZThreads, 0, st>>>(f);
+  void (*first)(TcArgs) = dx ? fused_dx_u_tc_kernel : fused_fwd_z_tc_kernel;
+  first<<<dim3(tiles(f.r, kZBN), tiles(f.M, kZBM)), kZThreads, 0, st>>>(f);
   int err = (int)cudaGetLastError();
   if (err) return err;
   const auto attr = cudaFuncAttributeMaxDynamicSharedMemorySize;
-  static const bool sized =  // once: the y launch takes more than 48 KB of shared memory
+  static const bool sized =  // once: the second launch takes more than 48 KB of shared memory
       cudaFuncSetAttribute(fused_fwd_y_tc_bf16_kernel, attr, kYSmem) == cudaSuccess &&
-      cudaFuncSetAttribute(fused_fwd_y_tc_int8_kernel, attr, kYSmem) == cudaSuccess;
+      cudaFuncSetAttribute(fused_fwd_y_tc_int8_kernel, attr, kYSmem) == cudaSuccess &&
+      cudaFuncSetAttribute(fused_dx_tc_bf16_kernel, attr, kYSmem) == cudaSuccess &&
+      cudaFuncSetAttribute(fused_dx_tc_int8_kernel, attr, kYSmem) == cudaSuccess;
   if (!sized) return (int)cudaErrorInvalidValue;
   cudaLaunchAttribute pdl[1];
   pdl[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
@@ -1401,15 +1542,25 @@ int fwd_tc(const FwdTc& f, bool int8, long long w_s0, int dtype, cudaStream_t st
   cfg.stream = st;
   cfg.attrs = pdl;
   cfg.numAttrs = 1;
-  void (*kernel)(FwdTc) = int8 ? fused_fwd_y_tc_int8_kernel : fused_fwd_y_tc_bf16_kernel;
+  void (*kernel)(TcArgs) = dx ? (int8 ? fused_dx_tc_int8_kernel : fused_dx_tc_bf16_kernel)
+                              : (int8 ? fused_fwd_y_tc_int8_kernel : fused_fwd_y_tc_bf16_kernel);
   return (int)cudaLaunchKernelEx(&cfg, kernel, f);
 }
 
-FwdTc fwd_tc_args(const void* x, const void* wt, long long ws, const float* qscale, const void* a,
-                  const void* b, const float* s_ptr, float s_val, void* y, float* z, int M, int K,
+// the forward's arguments: x (M, K), the base's (N, K) storage, A, B, y, z
+TcArgs fwd_tc_args(const void* x, const void* wt, long long ws, const float* qscale, const void* a,
+                   const void* b, const float* s_ptr, float s_val, void* y, float* z, int M, int K,
+                   int N, int r) {
+  return TcArgs{static_cast<const bf16*>(x), wt, ws, qscale, static_cast<const bf16*>(a),
+                static_cast<const bf16*>(b), s_ptr, s_val, static_cast<bf16*>(y), z, M, K, N, r};
+}
+
+// dx's: g (M, N) is contracted over N, against the same (N, K) storage read
+// by rows; u = g @ B^T takes the first launch, (s u) @ A^T segment 2
+TcArgs dx_tc_args(const void* g, const void* wt, long long ws, const float* qscale, const void* a,
+                  const void* b, const float* s_ptr, float s_val, void* dx, float* u, int M, int K,
                   int N, int r) {
-  return FwdTc{static_cast<const bf16*>(x), wt, ws, qscale, static_cast<const bf16*>(a),
-               static_cast<const bf16*>(b), s_ptr, s_val, static_cast<bf16*>(y), z, M, K, N, r};
+  return fwd_tc_args(g, wt, ws, qscale, b, a, s_ptr, s_val, dx, u, M, N, K, r);
 }
 
 // u = g @ B^T, then dx = g @ W^T + u @ (s * A^T); wt is the logical (N, K) W^T
@@ -1442,7 +1593,7 @@ int lora_matmul_dab_chunk() { return kChunk; }
 
 // x (M, K); W logical (K, N) at element strides (w_s0, w_s1); A (K, r); B (r, N);
 // y (M, N) in the inputs' dtype; z (M, r) f32.  dtype: 0 float32, 1 bfloat16.
-// tc: 1 runs the tensor-core path (its conditions at fwd_tc, which refuses
+// tc: 1 runs the tensor-core path (its conditions at tc_pair, which refuses
 // what breaks them), 0 lora_gemm_kernel.
 int fused_lora_forward_launch(const void* x, const void* w, long long w_s0, long long w_s1,
                               const void* a, const void* b, const float* s_ptr, float s_val,
@@ -1451,8 +1602,8 @@ int fused_lora_forward_launch(const void* x, const void* w, long long w_s0, long
   if (bad_args(M, K, N, r, dtype)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (tc)
-    return fwd_tc(fwd_tc_args(x, w, w_s1, nullptr, a, b, s_ptr, s_val, y, z, M, K, N, r), false,
-                  w_s0, dtype, st);
+    return tc_pair(fwd_tc_args(x, w, w_s1, nullptr, a, b, s_ptr, s_val, y, z, M, K, N, r), false,
+                   false, w_s0, dtype, st);
   return fwd_pass(x, mat(w, w_s0, w_s1, dtype), a, b, s_ptr, s_val, y, z, M, K, N, r, dtype, st);
 }
 
@@ -1465,21 +1616,25 @@ int fused_lora_int8_forward_launch(const void* x, const void* q, long long q_s0,
   if (bad_args(M, K, N, r, dtype)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (tc)
-    return fwd_tc(fwd_tc_args(x, q, q_s1, qscale, a, b, s_ptr, s_val, y, z, M, K, N, r), true,
-                  q_s0, dtype, st);
+    return tc_pair(fwd_tc_args(x, q, q_s1, qscale, a, b, s_ptr, s_val, y, z, M, K, N, r), false,
+                   true, q_s0, dtype, st);
   return fwd_pass(x, qmat(q, q_s0, q_s1, qscale, 0, 1), a, b, s_ptr, s_val, y, z, M, K, N, r,
                   dtype, st);
 }
 
 // g (M, N); dx (M, K) in the inputs' dtype; u (M, r) f32 = g @ B^T, written
-// for fused_lora_bwd_dab_launch
+// for fused_lora_bwd_dab_launch.  tc as in fused_lora_forward_launch: 1 runs
+// the tensor-core pair (the same conditions), 0 lora_gemm_kernel.
 int fused_lora_bwd_dx_launch(const void* g, const void* w, long long w_s0, long long w_s1,
                              const void* a, const void* b, const float* s_ptr, float s_val,
-                             void* dx, float* u, int M, int K, int N, int r, int dtype,
+                             void* dx, float* u, int M, int K, int N, int r, int dtype, int tc,
                              void* stream) {
   if (bad_args(M, K, N, r, dtype)) return (int)cudaErrorInvalidValue;
-  return dx_pass(g, mat(w, w_s1, w_s0, dtype), a, b, s_ptr, s_val, dx, u, M, K, N, r, dtype,
-                 static_cast<cudaStream_t>(stream));
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (tc)
+    return tc_pair(dx_tc_args(g, w, w_s1, nullptr, a, b, s_ptr, s_val, dx, u, M, K, N, r), true,
+                   false, w_s0, dtype, st);
+  return dx_pass(g, mat(w, w_s1, w_s0, dtype), a, b, s_ptr, s_val, dx, u, M, K, N, r, dtype, st);
 }
 
 // the same over an int8 base (q, qscale as in fused_lora_int8_forward_launch):
@@ -1487,10 +1642,14 @@ int fused_lora_bwd_dx_launch(const void* g, const void* w, long long w_s0, long 
 int fused_lora_int8_bwd_dx_launch(const void* g, const void* q, long long q_s0, long long q_s1,
                                   const float* qscale, const void* a, const void* b,
                                   const float* s_ptr, float s_val, void* dx, float* u, int M,
-                                  int K, int N, int r, int dtype, void* stream) {
+                                  int K, int N, int r, int dtype, int tc, void* stream) {
   if (bad_args(M, K, N, r, dtype)) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (tc)
+    return tc_pair(dx_tc_args(g, q, q_s1, qscale, a, b, s_ptr, s_val, dx, u, M, K, N, r), true,
+                   true, q_s0, dtype, st);
   return dx_pass(g, qmat(q, q_s1, q_s0, qscale, 1, 0), a, b, s_ptr, s_val, dx, u, M, K, N, r,
-                 dtype, static_cast<cudaStream_t>(stream));
+                 dtype, st);
 }
 
 // kernel 8: y (M, N) = x (M, K) @ (q * qscale), q logical (K, N) int8 at element

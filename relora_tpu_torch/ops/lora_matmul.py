@@ -17,9 +17,10 @@ design and the bound.  Here:
   :func:`fused_lora_int8_bwd_dx` ``(g, q, qscale, a, b, s) -> (dx, u)``: one
   wrapper per kernel.  A CPU tensor runs the plain twin of the same name with
   ``_plain``; a CUDA tensor launches the kernel or raises.  Each wrapper
-  counts its launches in ``.launches``.  The two forwards choose between two
-  hand-written kernels by :func:`forward_path`: bf16 tensor cores for the
-  model's layout, f32 FMAs for the rest; ``.tc_launches`` counts the first.
+  counts its launches in ``.launches``.  The two forwards and the two dx
+  wrappers choose between two hand-written kernels by :func:`forward_path`:
+  bf16 tensor cores for the model's layout, f32 FMAs for the rest;
+  ``.tc_launches`` counts the first.
 - :class:`FusedLoRAMatmul` and :class:`FusedLoRAMatmulInt8`, the autograd
   Functions over them (the JAX package's ``custom_vjp`` pair, ``:375-427``),
   and :func:`fused_lora_matmul` / :func:`fused_lora_matmul_int8`, their
@@ -133,9 +134,9 @@ def _kernel_library():
         product = [vp, vp, i64, i64, vp, vp, vp, f32, vp, vp] + [i32] * 5
         int8_product = [vp, vp, i64, i64, vp, vp, vp, vp, f32, vp, vp] + [i32] * 5
         lib.fused_lora_forward_launch.argtypes = product + [i32, vp]  # ..., dtype, tc, stream
-        lib.fused_lora_bwd_dx_launch.argtypes = product + [vp]
+        lib.fused_lora_bwd_dx_launch.argtypes = product + [i32, vp]
         lib.fused_lora_int8_forward_launch.argtypes = int8_product + [i32, vp]
-        lib.fused_lora_int8_bwd_dx_launch.argtypes = int8_product + [vp]
+        lib.fused_lora_int8_bwd_dx_launch.argtypes = int8_product + [i32, vp]
         lib.fused_lora_bwd_dab_launch.argtypes = (
             [vp, vp, vp, vp, i32, vp, vp, f32, vp, vp, vp] + [i32] * 5 + [vp]
         )
@@ -229,13 +230,15 @@ def _scale_arg(s: Scale, like: torch.Tensor):
 
 def forward_path(dtype: torch.dtype, base_strides: Tuple[int, int], K: int, N: int, r: int,
                  aligned: bool = True) -> str:
-    """Which kernel a CUDA forward (dense or int8 base) launches: ``"tc"``,
-    the bf16 tensor-core kernels, for bf16 operands with the base's k
-    contiguous (``base_strides[0] == 1``: the transposed view of the ``(N,
+    """Which kernel a CUDA forward or dx (dense or int8 base) launches:
+    ``"tc"``, the bf16 tensor-core kernels, for bf16 operands with the base's
+    k contiguous (``base_strides[0] == 1``: the transposed view of the ``(N,
     K)`` storage the model passes) at a row stride, K, N and r all multiples
     of 8, and every pointer 16-byte ``aligned``; else ``"fma"``, the f32
-    ``lora_gemm_kernel``, exact to summation order.  Both are hand-written
-    kernels: the plain twin is never taken for a CUDA tensor."""
+    ``lora_gemm_kernel``, exact to summation order.  ``base_strides`` are
+    the logical ``(K, N)`` base's for both: dx reads the same storage by its
+    rows.  Both are hand-written kernels: the plain twin is never taken for a
+    CUDA tensor."""
     s0, s1 = base_strides
     tc = (dtype == torch.bfloat16 and s0 == 1 and s1 % 8 == 0 and K % 8 == 0 and N % 8 == 0
           and r % 8 == 0 and aligned)
@@ -291,7 +294,9 @@ def fused_lora_bwd_dx(g, w, a, b, s: Scale = 1.0) -> Tuple[torch.Tensor, torch.T
     g @ Bᵀ`` ``(M, r)`` f32, which :func:`fused_lora_bwd_dab` reuses.
 
     A CPU ``g`` runs :func:`fused_lora_bwd_dx_plain`; any other device
-    launches the dx kernel or raises."""
+    launches the dx of ``csrc/lora_matmul.cu`` on the path
+    :func:`forward_path` picks, or raises; counted as
+    :func:`fused_lora_forward` counts."""
     if g.device.type == "cpu":
         return fused_lora_bwd_dx_plain(g, w, a, b, s)
     _on_cuda(g, w, a, b)
@@ -303,17 +308,20 @@ def fused_lora_bwd_dx(g, w, a, b, s: Scale = 1.0) -> Tuple[torch.Tensor, torch.T
     lib = _kernel_library()
     dx = torch.empty((M, K), dtype=g.dtype, device=g.device)
     u = torch.empty((M, r), dtype=torch.float32, device=g.device)
+    tc = forward_path(g.dtype, (ws0, ws1), K, N, r, _aligned(g, w, a, b)) == "tc"
     s_ptr, s_val, _keep = _scale_arg(s, g)
     err = lib.fused_lora_bwd_dx_launch(
         ptr_arg(g), ptr_arg(w), ws0, ws1, ptr_arg(a), ptr_arg(b), s_ptr, s_val,
-        ptr_arg(dx), ptr_arg(u), M, K, N, r, code, stream_arg(g),
+        ptr_arg(dx), ptr_arg(u), M, K, N, r, code, int(tc), stream_arg(g),
     )
     _raise_on_error(lib, err, "fused_lora_bwd_dx")
     fused_lora_bwd_dx.launches += 1
+    fused_lora_bwd_dx.tc_launches += tc
     return dx, u
 
 
 fused_lora_bwd_dx.launches = 0
+fused_lora_bwd_dx.tc_launches = 0
 
 
 def fused_lora_bwd_dab(g, x, z, b, s: Scale = 1.0, u=None) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -394,7 +402,9 @@ def fused_lora_int8_bwd_dx(g, q, qscale, a, b, s: Scale = 1.0) -> Tuple[torch.Te
     """:func:`fused_lora_bwd_dx` over the int8 base ``q * qscale``.
 
     A CPU ``g`` runs :func:`fused_lora_int8_bwd_dx_plain`; any other device
-    launches the int8 dx kernel or raises."""
+    launches the int8 dx of ``csrc/lora_matmul.cu`` on the path
+    :func:`forward_path` picks (``q``'s strides as the base's), or raises;
+    counted as :func:`fused_lora_forward` counts."""
     if g.device.type == "cpu":
         return fused_lora_int8_bwd_dx_plain(g, q, qscale, a, b, s)
     _on_cuda(g, q, a, b)
@@ -406,17 +416,20 @@ def fused_lora_int8_bwd_dx(g, q, qscale, a, b, s: Scale = 1.0) -> Tuple[torch.Te
     lib = _kernel_library()
     dx = torch.empty((M, K), dtype=g.dtype, device=g.device)
     u = torch.empty((M, r), dtype=torch.float32, device=g.device)
+    tc = forward_path(g.dtype, (qs0, qs1), K, N, r, _aligned(g, q, a, b)) == "tc"
     s_ptr, s_val, _keep = _scale_arg(s, g)
     err = lib.fused_lora_int8_bwd_dx_launch(
         ptr_arg(g), ptr_arg(q), qs0, qs1, ptr_arg(qscale), ptr_arg(a), ptr_arg(b), s_ptr, s_val,
-        ptr_arg(dx), ptr_arg(u), M, K, N, r, code, stream_arg(g),
+        ptr_arg(dx), ptr_arg(u), M, K, N, r, code, int(tc), stream_arg(g),
     )
     _raise_on_error(lib, err, "fused_lora_int8_bwd_dx")
     fused_lora_int8_bwd_dx.launches += 1
+    fused_lora_int8_bwd_dx.tc_launches += tc
     return dx, u
 
 
 fused_lora_int8_bwd_dx.launches = 0
+fused_lora_int8_bwd_dx.tc_launches = 0
 
 
 def grouped_shapes(x, w, a_stack, b_stack, idx) -> Tuple[int, int, int, int, int]:

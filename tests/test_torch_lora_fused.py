@@ -348,6 +348,35 @@ def test_cpu_forward_counts_no_launch_of_either_path():
     assert (LM.fused_lora_forward.launches, LM.fused_lora_forward.tc_launches) == before
 
 
+def test_cpu_dx_counts_no_launch_of_either_path():
+    """A CPU dx runs the twin: neither the tensor-core nor the FMA kernel's
+    count moves, even for the layout the tensor cores take."""
+    _, w, a, b, g = _t(*_operands(16, 32, 24, 8))
+    g, w, a, b = (t.bfloat16() for t in (g, w, a, b))
+    w = w.t().contiguous().t()  # the model's (N, K) storage, transposed
+    assert LM.forward_path(g.dtype, w.stride(), 32, 24, 8) == "tc"
+    before = (LM.fused_lora_bwd_dx.launches, LM.fused_lora_bwd_dx.tc_launches)
+    dx, u = LM.fused_lora_bwd_dx(g, w, a, b, 0.5)
+    want_dx, want_u = LM.fused_lora_bwd_dx_plain(g, w, a, b, 0.5)
+    torch.testing.assert_close(dx, want_dx, rtol=0, atol=0)
+    torch.testing.assert_close(u, want_u, rtol=0, atol=0)
+    assert (LM.fused_lora_bwd_dx.launches, LM.fused_lora_bwd_dx.tc_launches) == before
+
+
+def test_dx_twin_matches_jax_interpret_kernel_at_a_ragged_tensor_core_shape():
+    """dx of the dx twin against the JAX dx kernel (interpret) at M = 200, K =
+    72, N = 104, r = 8: widths that are multiples of 8 but not of the
+    tensor-core tiles, the shape chip_smoke.py checks the CUDA dx at; u
+    against g @ Bᵀ."""
+    _, w, a, b, g = _operands(200, 72, 104, 8, seed=9)
+    dx = jax_plm._backward_dx(8, True, jnp.asarray(g), (jnp.asarray(w),), jnp.asarray(a),
+                              jnp.asarray(b), jnp.full((1, 1), 0.5, jnp.float32), jnp.float32)
+    gt, wt, at, bt = _t(g, w, a, b)
+    got_dx, got_u = LM.fused_lora_bwd_dx(gt, wt.t().contiguous().t(), at, bt, 0.5)
+    _close(got_dx, dx, "dx")
+    _close(got_u, g @ b.T, "u")
+
+
 # (dtype, base strides of the logical (K, N) base, K, N, r, aligned) -> path
 FORWARD_PATHS = {
     "bf16_transposed_view": (torch.bfloat16, (1, 768), 768, 768, 128, True, "tc"),
@@ -372,15 +401,29 @@ def test_forward_path_rule(case):
     assert LM.forward_path(dtype, strides, K, N, r, aligned) == want
 
 
-def test_lora_linear_fused_base_takes_the_tensor_core_path():
+def test_lora_linear_fused_base_takes_the_tensor_core_path(monkeypatch):
     """The base view ``LoRALinear._fused`` hands the kernel (its ``(out,
     in)`` weight in bf16, transposed) meets the tensor-core rule at widths
-    that are multiples of 8."""
+    that are multiples of 8, and so do the cotangent, base and factors its
+    backward hands the dx."""
     spec = relora.LoraSpec(r=8, alpha=16.0, dropout=0.0, fused=True)
     layer = LoRALinear(64, 40, lora=spec, dtype=torch.bfloat16)
     base = layer.weight.detach().to(torch.bfloat16).t()
     assert base.shape == (64, 40)
     assert LM.forward_path(torch.bfloat16, base.stride(), 64, 40, 8) == "tc"
+    seen, real = [], LM.fused_lora_bwd_dx
+
+    def spy(g, w, a, b, s):
+        seen.append((g.dtype, g.is_contiguous(), w.stride(), tuple(w.shape), a.shape[1]))
+        return real(g, w, a, b, s)
+
+    monkeypatch.setattr(LM, "fused_lora_bwd_dx", spy)
+    x = torch.randn((2, 3, 64), dtype=torch.bfloat16, requires_grad=True)
+    layer(x).float().square().sum().backward()
+    assert len(seen) == 1 and x.grad is not None
+    dtype, contiguous, strides, (K, N), r = seen[0]
+    assert contiguous and (K, N, r) == (64, 40, 8)
+    assert LM.forward_path(dtype, strides, K, N, r) == "tc"
 
 
 @pytest.mark.parametrize("wrapper", ["forward", "bwd_dx", "bwd_dab"])

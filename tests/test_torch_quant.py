@@ -282,6 +282,60 @@ def test_cpu_int8_forward_counts_no_launch_of_either_path():
     assert (LM.fused_lora_int8_forward.launches, LM.fused_lora_int8_forward.tc_launches) == before
 
 
+def test_cpu_int8_dx_counts_no_launch_of_either_path():
+    """A CPU int8 dx runs the twin: neither path's count moves, even for the
+    codes' layout the tensor cores take."""
+    _, q, qs, a, b, g = _int8_operands(16, 32, 24, 8)
+    g, a, b = (t.bfloat16() for t in _t(g, a, b))
+    qt, qst = _q_layout(q, True), torch.from_numpy(qs.copy())
+    assert LM.forward_path(g.dtype, qt.stride(), 32, 24, 8) == "tc"
+    before = (LM.fused_lora_int8_bwd_dx.launches, LM.fused_lora_int8_bwd_dx.tc_launches)
+    dx, u = LM.fused_lora_int8_bwd_dx(g, qt, qst, a, b, 0.5)
+    want_dx, want_u = LM.fused_lora_int8_bwd_dx_plain(g, qt, qst, a, b, 0.5)
+    torch.testing.assert_close(dx, want_dx, rtol=0, atol=0)
+    torch.testing.assert_close(u, want_u, rtol=0, atol=0)
+    assert (LM.fused_lora_int8_bwd_dx.launches, LM.fused_lora_int8_bwd_dx.tc_launches) == before
+
+
+def test_int8_dx_twin_matches_jax_interpret_kernel_at_a_ragged_tensor_core_shape():
+    """dx of the int8 dx twin against the JAX int8 dx kernel (interpret) at
+    M = 200, K = 72, N = 104, r = 8, the ragged shape chip_smoke.py checks
+    the CUDA int8 dx at (the scale along the contraction axis); u against
+    g @ Bᵀ."""
+    _, q, qs, a, b, g = _int8_operands(200, 72, 104, 8, seed=9)
+    dx = jax_plm._backward_dx(8, True, jnp.asarray(g), (jnp.asarray(q), jnp.asarray(qs)),
+                              jnp.asarray(a), jnp.asarray(b), jnp.full((1, 1), 0.5, jnp.float32),
+                              jnp.float32)
+    gt, qst, at, bt = _t(g, qs, a, b)
+    got_dx, got_u = LM.fused_lora_int8_bwd_dx(gt, _q_layout(q, True), qst, at, bt, 0.5)
+    _close(got_dx, dx, "dx")
+    _close(got_u, g @ b.T, "u")
+
+
+def test_lora_linear_int8_fused_base_takes_the_tensor_core_path(monkeypatch):
+    """The codes ``LoRALinear._fused`` hands the int8 forward (the ``(in,
+    out)`` view of its ``(out, in)`` codes, bf16 activations and factors)
+    meet the tensor-core rule at widths that are multiples of 8, and so do
+    the cotangent, codes and factors its backward hands the int8 dx."""
+    spec = relora.LoraSpec(r=8, alpha=16.0, dropout=0.0, quantize="int8", fused=True)
+    layer = LoRALinear(64, 40, lora=spec, dtype=torch.bfloat16)
+    seen = {}
+    for name in ("fused_lora_int8_forward", "fused_lora_int8_bwd_dx"):
+        real = getattr(LM, name)
+
+        def spy(act, q, qscale, a, b, s, _name=name, _real=real):
+            seen[_name] = (act.dtype, act.is_contiguous(), q.stride(), tuple(q.shape), a.shape[1])
+            return _real(act, q, qscale, a, b, s)
+
+        monkeypatch.setattr(LM, name, spy)
+    x = torch.randn((2, 3, 64), dtype=torch.bfloat16, requires_grad=True)
+    layer(x).float().square().sum().backward()
+    assert sorted(seen) == ["fused_lora_int8_bwd_dx", "fused_lora_int8_forward"]
+    for name, (dtype, contiguous, strides, (K, N), r) in seen.items():
+        assert contiguous and (K, N, r) == (64, 40, 8), name
+        assert LM.forward_path(dtype, strides, K, N, r) == "tc", name
+
+
 # (activation dtype, codes transposed?, K, N, r) -> the int8 forward's path
 INT8_FORWARD_PATHS = {
     "bf16_codes_transposed_view": (torch.bfloat16, True, 128, 256, 8, "tc"),

@@ -11,10 +11,11 @@ device only.  Prints one JSON line: the timed run's median ms per update
 is the tracer's cost), the device's busy time and idle share of the profiled
 fit, and device time by kernel name (names cut to 80 characters, times of
 names that share those summed), largest first, with the shares of the
-flash kernels, of ``lora_gemm_kernel``/``lora_dab_reduce_kernel`` and of
-the bf16 fused forward's tensor-core kernels (``fused_fwd_*``, kernels 4 and
-4-int8).  The GEMM kernel serves the fused LoRA kernels 6, 7 and, over an
-int8 base, 6-int8 and kernel 8 (and the f32 forward), so the line also gives
+flash kernels, of ``lora_gemm_kernel``/``lora_dab_reduce_kernel``, of the
+bf16 fused forward's tensor-core kernels (``fused_fwd_*``, kernels 4 and
+4-int8) and of the bf16 dx's (``fused_dx_*``, kernels 6 and 6-int8).  The
+GEMM kernel serves the fused LoRA kernel 7 and, over an int8 base, kernel 8
+(and the f32 forward and dx), so the line also gives
 the timed run's launch count of every kernel wrapper: in an unfused int8 run
 the GEMM time is kernel 8's alone.  Extra training flags are appended to the
 train phase's, e.g. the fused-LoRA and the int8 runs:
@@ -109,6 +110,7 @@ def main() -> int:
     flash_ms = sum(us for name, us in by_name.items() if "flash_" in name) / 1e3
     gemm_ms = sum(us for name, us in by_name.items() if "lora_gemm" in name or "lora_dab" in name) / 1e3
     fwd_tc_ms = sum(us for name, us in by_name.items() if "fused_fwd_" in name) / 1e3
+    dx_tc_ms = sum(us for name, us in by_name.items() if "fused_dx_" in name) / 1e3
     steady = sorted(r["update_seconds"] for r in timed["records"][1:])
     ms = steady[len(steady) // 2] * 1e3
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:15]
@@ -131,6 +133,8 @@ def main() -> int:
         "lora_gemm_share_of_busy": gemm_ms / 1e3 / busy,
         "fused_fwd_tc_kernels_ms": fwd_tc_ms,
         "fused_fwd_tc_share_of_busy": fwd_tc_ms / 1e3 / busy,
+        "fused_dx_tc_kernels_ms": dx_tc_ms,
+        "fused_dx_tc_share_of_busy": dx_tc_ms / 1e3 / busy,
         "launches": launches,
         "kernels_ms": {name: us / 1e3 for name, us in top},
     }))
