@@ -9,15 +9,21 @@ Phases, in order; any failure raises and the script exits non-zero:
                sm_90a, one process per source, all started together; the
                HMMA count of every bf16 tensor-core kernel of the flash and
                LoRA sources (kernel 3, kernel 5, the fused forward's z and
-               y kernels, the fused dx's u and dx kernels) and, printed
-               later, ``-Xptxas -v`` registers of kernels 4, 5 and 6, which
-               fail on any spill.
+               y kernels, the fused dx's u and dx kernels, kernel 8's
+               tensor-core kernel); ``-Xptxas -v`` registers of the paged
+               kernels (kernel 1's split walk and combine, kernel 2) and,
+               printed later, of kernels 4, 5, 6 and 8; any spill fails.
 2. kernels   — the paged kernels (1-2) against their plain PyTorch twins on
                the card, at llama_250m (N=16, H=48) and llama_1b (N=32, H=64)
                widths, page 16, table width 64, B=8 with S in {1, 5} and a
-               packed T=72, for f32, bf16 and int8 pools; then each is timed at
-               the main path's shape beside its plain twin, a gather +
-               scaled_dot_product_attention yardstick, and its bound.
+               packed T=72, for f32, bf16 and int8 pools; kernel 1's edge
+               cases (a row whose every position is -1, which must give 0; a
+               row with one visible key; 16 heads on 4 kv heads at S=5;
+               S=16; H=50 on scalar loads) and its batch invariance (each row
+               decoded alone gives the bits it gives in the batch of 8); then
+               each is timed at the main path's shape beside its plain twin,
+               a gather + scaled_dot_product_attention yardstick, and its
+               bound.
 3. kernels-3 — the HMMA count of each bf16 flash kernel's SASS
                (``cuobjdump -sass``: the tensor cores are used); the flash
                forward, dK/dV and dQ kernels against their twins: the train
@@ -73,10 +79,12 @@ Phases, in order; any failure raises and the script exits non-zero:
 11. kernels-8 — kernel 8 (the int8 dequant matmul) and the int8 fused
                forward and dx (4-int8, 6-int8) against their twins: the three
                projection shapes at bf16 and f32 with q the transposed view of
-               the (N, K) codes the model passes, a contiguous (K, N) q, a
+               the (N, K) codes the model passes, the three at a ragged M=200
+               (bf16), a contiguous (K, N) q, a
                ragged M=200, K=72, N=100, r=8, r=320 at M=1024, K=N=768,
-               the ragged tensor-core case of kernels-4 (paths printed and
-               checked as there), and a tensor scale through
+               the ragged tensor-core case of kernels-4 (each call's path,
+               kernel 8's too, printed and checked as there), and a tensor
+               scale through
                FusedLoRAMatmulInt8 (ds and dqscale too) and DequantMatmul;
                then each timed per shape beside its twin, the dequantize +
                cuBLAS chain of the JAX default path and its bound, and
@@ -86,8 +94,8 @@ Phases, in order; any failure raises and the script exits non-zero:
                ``--quantize int8 --warmed_up_model DIR``: the train checks,
                codes nonzero after the warm start and int8 after the merges
                at updates 4 and 7 (which move them), kernel 8 launched 7 x
-               layers x (microbatches x updates + eval batches) times and no
-               fused kernel.
+               layers x (microbatches x updates + eval batches) times, every
+               launch on the tensor cores, and no fused kernel.
 13. int8_fused_train — the same with ``--lora_fused true --lora_dropout 0``:
                4-int8 launched 7 x layers x (microbatches x updates + eval
                batches) times, 6-int8 and kernel 7 7 x layers x
@@ -134,8 +142,8 @@ Phases, in order; any failure raises and the script exits non-zero:
                (the gathered composite, naive attention), compared on logits.
 
 ``python3 chip_smoke.py --ab DIR [--train [FLAGS...] | --grouped | --lora |
---tenants]`` times another checkout's package instead (see :func:`ab`); it
-checks nothing.
+--tenants | --paged | --drains]`` times another checkout's package instead
+(see :func:`ab`); it checks nothing.
 
 Output: a forward+backward timing line, one line per drain, a train line, a
 LoRA timing line, a fused-train line, an int8 timing line, the int8 train
@@ -170,14 +178,15 @@ def _dtypes(torch, pool):
     return q, {"f32": torch.float32, "bf16": torch.bfloat16, "int8": torch.int8}[pool]
 
 
-def make_pool_case(torch, device, *, heads, head_dim, pool, S, seed, packed=False):
+def make_pool_case(torch, device, *, heads, head_dim, pool, S, seed, packed=False, kv_heads=None):
     """Inputs of one kernel call: every row owns TABLE_W pages of one shared
     pool and sits at a random position of a 1024-token cache.  Packed: the
     B rows' decode tokens, a 56-token prefill of row B, then pad tokens on
-    the all-null last row at the null position (the scheduler's layout)."""
+    the all-null last row at the null position (the scheduler's layout).
+    ``kv_heads`` (default ``heads``) groups the query heads."""
     g = torch.Generator(device=device).manual_seed(seed)
     q_dtype, kv_dtype = _dtypes(torch, pool)
-    n_kv = heads
+    n_kv = kv_heads or heads
     num_pages = (BATCH + 1) * TABLE_W + 1
     shape = (num_pages, PAGE, n_kv, head_dim)
     k = torch.randn(shape, generator=g, device=device)
@@ -300,6 +309,53 @@ def time_ms(torch, fn, iters=30):
     return sorted(times)[len(times) // 2]
 
 
+def check_decode_edges(torch, device):
+    """Kernel 1's edge cases against its twin, each pool: a row whose every
+    position is -1 (output exactly 0) and a row with exactly one visible key
+    (the key's V row), in a batch of 8 at S = 1 and 5; grouped heads (16
+    heads on 4 kv heads, S = 5: 20 queries a group, three chunks); S = 16;
+    H = 50 (rows that are no whole number of 16-byte vectors: scalar loads);
+    and batch invariance: every row decoded alone gives the bits it gives
+    inside the batch of 8.  Returns the worst error at llama_250m widths."""
+    from relora_tpu_torch.ops import attention as A
+
+    heads, head_dim = WIDTHS["llama_250m"]
+    worst = 0.0
+    cases = [(pool, dict(S=S), "pad+one") for pool in ("f32", "bf16", "int8") for S in (1, 5)]
+    cases += [(pool, dict(S=5, kv_heads=4), "gqa") for pool in ("f32", "bf16", "int8")]
+    cases += [("bf16", dict(S=16), "S=16"), ("bf16", dict(S=5, head_dim=50), "H=50"),
+              ("f32", dict(S=1, head_dim=50), "H=50")]
+    for i, (pool, extra, label) in enumerate(cases):
+        kw = dict(heads=heads, head_dim=head_dim, pool=pool, S=1, seed=301 + i)
+        kw.update(extra)
+        case = make_pool_case(torch, device, **kw)
+        scales = {k: case[k] for k in ("k_scale", "v_scale") if k in case}
+        pos = case["positions"].clone()
+        if label == "pad+one":
+            pos[0] = -1  # a pad row: no visible key
+            pos[1] = torch.arange(pos.shape[1], device=device) - (pos.shape[1] - 1)  # key 0 alone at the last token
+        args = (case["q"], case["pool_k"], case["pool_v"], case["block_tables"], pos)
+        got = A.paged_decode_attention(*args, **scales)
+        want = A.paged_decode_attention_plain(*args, **scales)
+        alone = [A.paged_decode_attention(case["q"][b:b + 1], case["pool_k"], case["pool_v"],
+                                          case["block_tables"][b:b + 1], pos[b:b + 1], **scales)
+                 for b in range(BATCH)]
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        ok = bool(torch.isfinite(got.float()).all()) and err <= KERNEL_TOL[pool]
+        invariant = all(torch.equal(got[b:b + 1], alone[b]) for b in range(BATCH))
+        pad_zero = label != "pad+one" or bool((got[0] == 0).all())
+        print(f"kernel-check paged_decode_attention {label} pool={pool} S={pos.shape[1]} "
+              f"heads={heads}/{extra.get('kv_heads', heads)} H={kw['head_dim']} "
+              f"max_abs_err={err:.3e} tol={KERNEL_TOL[pool]:g} batch_invariant={invariant} "
+              f"pad_row_zero={pad_zero} {'ok' if ok and invariant and pad_zero else 'FAIL'}")
+        if not (ok and invariant and pad_zero):
+            raise AssertionError(f"paged_decode_attention edge case {label} ({pool}) failed")
+        if kw["head_dim"] == head_dim:
+            worst = max(worst, err)
+    return worst
+
+
 def check_kernels(torch, device):
     """Phase 2: every kernel against its plain twin, then timings."""
     from relora_tpu_torch.ops import attention as A
@@ -333,6 +389,8 @@ def check_kernels(torch, device):
                     raise AssertionError(f"{name} disagrees with its plain twin ({model}, {pool}, S={S})")
                 if model == "llama_250m":
                     worst[name] = max(worst[name], err)
+    worst["paged_decode_attention"] = max(worst["paged_decode_attention"],
+                                          check_decode_edges(torch, device))
 
     rows = []
     heads, head_dim = WIDTHS["llama_250m"]
@@ -442,8 +500,9 @@ def count_hmma(lib_path, kernels):
 def ptxas_report(source, kernels):
     """Start ``nvcc -Xptxas -v`` on ``source`` (the build's flags, into a
     throwaway object under ``build/``); the returned function waits for it,
-    prints ``{kernel: registers, spills, smem}`` of the named kernels and
-    fails if any of them spills."""
+    prints ``{kernel: registers, spills, smem}`` of the named kernels (over
+    a template's instantiations: the most registers and shared memory, the
+    spills summed, and their count) and fails if any of them spills."""
     from relora_tpu_torch.ops import _build
 
     out = os.path.join(REPO, "build", "ptxas", os.path.basename(str(source)) + ".o")
@@ -461,15 +520,24 @@ def ptxas_report(source, kernels):
         for line in log.splitlines():
             if "Compiling entry function" in line or "Function properties for" in line:
                 current = next((k for k in kernels if k in line), None)
+                if current and "Compiling entry function" in line:
+                    row = rows.setdefault(current, dict(instantiations=0, stack=0, spill_stores=0,
+                                                        spill_loads=0, registers=0))
+                    row["instantiations"] += 1
             elif current and "spill stores" in line:
                 nums = [int(w) for w in line.replace(",", " ").split() if w.isdigit()]
-                rows.setdefault(current, {}).update(stack=nums[0], spill_stores=nums[1],
-                                                    spill_loads=nums[2])
+                row = rows.setdefault(current, dict(instantiations=0, stack=0, spill_stores=0,
+                                                    spill_loads=0, registers=0))
+                row["stack"] = max(row["stack"], nums[0])
+                row["spill_stores"] += nums[1]
+                row["spill_loads"] += nums[2]
             elif current and "Used" in line and "registers" in line:
                 words = line.replace(",", " ").split()
-                rows.setdefault(current, {})["registers"] = int(words[words.index("registers") - 1])
+                row = rows[current]
+                row["registers"] = max(row["registers"], int(words[words.index("registers") - 1]))
                 if "smem" in words:
-                    rows[current]["smem_bytes"] = int(words[words.index("smem") - 2])
+                    row["smem_bytes"] = max(row.get("smem_bytes", 0),
+                                            int(words[words.index("smem") - 2]))
         print(json.dumps({"ptxas": rows, "source": os.path.relpath(str(source), REPO)}))
         if set(rows) != set(kernels):
             raise AssertionError(f"ptxas -v reported {sorted(rows)}, expected {sorted(kernels)}")
@@ -749,7 +817,7 @@ def write_corpus(work, vocab=32100, seed=0):
 LORA_NAMES = ("fused_lora_forward", "fused_lora_bwd_dx", "fused_lora_bwd_dab")
 INT8_NAMES = ("dequant_matmul", "fused_lora_int8_forward", "fused_lora_int8_bwd_dx")
 TC_NAMES = ("fused_lora_forward", "fused_lora_int8_forward",  # wrappers with .tc_launches
-            "fused_lora_bwd_dx", "fused_lora_int8_bwd_dx")
+            "fused_lora_bwd_dx", "fused_lora_int8_bwd_dx", "dequant_matmul")
 
 
 def _counters():
@@ -960,13 +1028,16 @@ RAGGED_TC = (200, 72, 104, 8, "bf16", True)
 FWD_TC_KERNELS = ("fused_fwd_z_tc_kernel", "fused_fwd_y_tc_bf16_kernel",
                   "fused_fwd_y_tc_int8_kernel")
 DX_TC_KERNELS = ("fused_dx_u_tc_kernel", "fused_dx_tc_bf16_kernel", "fused_dx_tc_int8_kernel")
+DEQUANT_TC_KERNELS = ("dequant_matmul_tc_kernel",)  # kernel 8 on the tensor cores
+# kernel 1's split walk and its combine, and kernel 2
+PAGED_KERNELS = ("paged_decode_kernel", "paged_combine_kernel", "packed_paged_kernel")
 
 
 def check_path(wrapper, tc_before, x, K, N, r, transposed):
-    """The path a forward or dx call took (``"tc"`` if it counted a
-    tensor-core launch), held to :func:`forward_path`'s rule for its inputs:
-    bf16 with the transposed base and widths that are multiples of 8 take
-    the tensor cores, everything else the FMA kernel."""
+    """The path a forward, dx or kernel-8 call (``r=None``) took (``"tc"``
+    if it counted a tensor-core launch), held to :func:`forward_path`'s rule
+    for its inputs: bf16 with the transposed base and widths that are
+    multiples of 8 take the tensor cores, everything else the FMA kernel."""
     from relora_tpu_torch.ops import lora_matmul as LM
 
     path = "tc" if wrapper.tc_launches > tc_before else "fma"
@@ -1233,6 +1304,7 @@ def check_int8_kernels(torch, device):
     worst = dict.fromkeys(INT8_NAMES, 0.0)
     cases = [(LORA_M, K, N, LORA_R, dt, True) for K, N, _ in LORA_SHAPES
              for dt in ("bf16", "f32")]
+    cases += [(200, K, N, LORA_R, "bf16", True) for K, N, _ in LORA_SHAPES]  # a ragged M
     cases += [(LORA_M, 768, 768, LORA_R, dt, False) for dt in ("bf16", "f32")]
     cases += [(200, 72, 100, 8, dt, True) for dt in ("bf16", "f32")]
     cases += [(1024, 768, 768, 320, dt, True) for dt in ("bf16", "f32")]  # a rank past 256
@@ -1242,16 +1314,19 @@ def check_int8_kernels(torch, device):
             x, q, qs, a, b, gy = make_int8_case(torch, device, M, K, N, r, dtype, seed=51 + i,
                                                 transposed=transposed)
             s = 0.25
+            tc0 = QM.dequant_matmul.tc_launches
+            y8 = QM.dequant_matmul(x, q, qs)
+            paths = {"dequant_matmul": check_path(QM.dequant_matmul, tc0, x, K, N, None, transposed)}
             tc0 = LM.fused_lora_int8_forward.tc_launches
             fwd = LM.fused_lora_int8_forward(x, q, qs, a, b, s)
-            paths = {"fused_lora_int8_forward": check_path(LM.fused_lora_int8_forward, tc0, x, K, N,
-                                                           r, transposed)}
+            paths["fused_lora_int8_forward"] = check_path(LM.fused_lora_int8_forward, tc0, x, K, N,
+                                                          r, transposed)
             tc0 = LM.fused_lora_int8_bwd_dx.tc_launches
             dx = LM.fused_lora_int8_bwd_dx(gy, q, qs, a, b, s)
             paths["fused_lora_int8_bwd_dx"] = check_path(LM.fused_lora_int8_bwd_dx, tc0, gy, K, N,
                                                          r, transposed)
             pairs = {
-                "dequant_matmul": [(QM.dequant_matmul(x, q, qs), QM.dequant_matmul_plain(x, q, qs))],
+                "dequant_matmul": [(y8, QM.dequant_matmul_plain(x, q, qs))],
                 "fused_lora_int8_forward": list(zip(fwd, LM.fused_lora_int8_forward_plain(x, q, qs, a, b, s))),
                 "fused_lora_int8_bwd_dx": list(zip(dx, LM.fused_lora_int8_bwd_dx_plain(gy, q, qs, a, b, s))),
             }
@@ -1921,9 +1996,12 @@ def main() -> int:
     libs = _build.build_all()
     print(f"build: {sorted(libs)} in {time.perf_counter() - t0:.1f}s")
     ptxas = ptxas_report(_build.CSRC / "lora_matmul.cu",
-                         GROUPED_KERNELS + FWD_TC_KERNELS + DX_TC_KERNELS)
+                         GROUPED_KERNELS + FWD_TC_KERNELS + DX_TC_KERNELS + DEQUANT_TC_KERNELS)
+    paged_ptxas = ptxas_report(_build.CSRC / "paged_attention.cu", PAGED_KERNELS)
     count_hmma(libs["flash_attention"], FLASH_TC_KERNELS)
-    count_hmma(libs["lora_matmul"], GROUPED_TC_KERNELS + FWD_TC_KERNELS + DX_TC_KERNELS)
+    count_hmma(libs["lora_matmul"],
+               GROUPED_TC_KERNELS + FWD_TC_KERNELS + DX_TC_KERNELS + DEQUANT_TC_KERNELS)
+    paged_ptxas()
 
     rows = check_kernels(torch, device)
     flash_rows = check_flash_kernels(torch, device)
@@ -2116,9 +2194,74 @@ def ab_tenants(torch):
     return out
 
 
+def ab_paged(torch):
+    """Kernels 1 and 2 at the kernels phase's timed case (llama_250m widths,
+    B = 8, a 64-page table, bf16 q) with bf16 and int8 pools, kernel 1 at
+    S = 1 and 5, 100 launches each: ms per call."""
+    from relora_tpu_torch.ops import attention as A
+
+    heads, head_dim = WIDTHS["llama_250m"]
+    calls = {}
+    for pool in ("bf16", "int8"):
+        for name, S, packed in (("paged_decode_attention", 1, False),
+                                ("paged_decode_attention", 5, False),
+                                ("packed_paged_attention", 1, True)):
+            case = make_pool_case(torch, torch.device("cuda"), heads=heads, head_dim=head_dim,
+                                  pool=pool, S=S, seed=99, packed=packed)
+            keys = ("q", "pool_k", "pool_v", "block_tables") + (("row_map",) if packed else ()) + (
+                "positions",)
+            args = [case[k] for k in keys]
+            scales = {k: case[k] for k in ("k_scale", "v_scale") if k in case}
+            fn = getattr(A, name)
+            label = f"{name} pool={pool}" + ("" if packed else f" S={S}")
+            calls[label] = time_ms(torch, lambda: fn(*args, **scales), iters=100)
+    return {"paged_ms_per_call": calls}
+
+
+def paged_shares(by_name, busy_s):
+    """Kernel 1's and kernel 2's shares of the device's busy time (kernel 1
+    is paged_decode_kernel and, from its split design on, paged_combine_kernel)."""
+    k1 = sum(us for n, us in by_name.items() if "paged_decode_kernel" in n or "paged_combine_kernel" in n)
+    k2 = sum(us for n, us in by_name.items() if "packed_paged_kernel" in n)
+    return k1 / 1e6 / busy_s, k2 / 1e6 / busy_s, k1 / 1e3
+
+
+def ab_drains(torch):
+    """The drains phase's three base drains (bf16 pool, packed, int8 pool)
+    through ``serve_cli``: one timed drain each (``serve_cli.run``), then
+    one traced drain of a scheduler built outside the trace, for the device
+    busy time, idle share and kernels 1 and 2's shares of busy time.  A
+    short drain first takes the process's first-use costs."""
+    from relora_tpu_torch import serve_cli
+
+    work = os.path.join(REPO, "build", "chip_smoke")
+    os.makedirs(work, exist_ok=True)
+    prompts = os.path.join(work, "prompts.txt")
+    write_prompts(prompts, 32100)
+    base = ["--model_config", "llama_250m", "--random-init", "--dtype", "bf16",
+            "--max-batch", "8", "--paged", "--max-new-tokens", "64", "--input-file", prompts]
+    serve_cli.run(base + ["--max-new-tokens", "4"])
+    out = {}
+    for label, extra in (("bf16", ["--kv-dtype", "bf16"]),
+                         ("packed", ["--kv-dtype", "bf16", "--packed"]),
+                         ("int8", ["--kv-dtype", "int8"])):
+        completions, seconds = serve_cli.run(base + extra)
+        tokens = sum(len(c.tokens) for c in completions.values())
+        args = serve_cli.parse_args(base + extra)
+        scheduler, requests = serve_cli.build(args), serve_cli.read_requests(args)
+        _, wall, busy, by_name = device_profile(torch, lambda: scheduler.run(requests))
+        k1, k2, k1_ms = paged_shares(by_name, busy)
+        out[label] = {"tokens_per_s": tokens / seconds, "seconds": seconds, "profiled_wall_s": wall,
+                      "device_busy_s": busy, "device_idle_share": 1.0 - busy / wall,
+                      "kernel1_share": k1, "kernel1_ms": k1_ms, "kernel2_share": k2}
+        del scheduler
+        torch.cuda.empty_cache()
+    return {"drains": out}
+
+
 def ab(argv) -> int:
     """``python3 chip_smoke.py --ab DIR [--train [FLAGS...] | --grouped |
-    --lora | --tenants]``: one JSON line of the times of the package in the
+    --lora | --tenants | --paged | --drains]``: one JSON line of the times of the package in the
     checkout at DIR (another tree, such as the parent unpacked with ``git
     archive``) by this script's timer and shapes, so two trees compare on
     one card when run in turns in one call (parent, change, change, parent).
@@ -2130,7 +2273,9 @@ def ab(argv) -> int:
     (:func:`ab_grouped`).  ``--lora``: kernels 6, 6-int8 and the controls 4,
     4-int8, 7 and 8 per call and per layer (:func:`ab_lora`).  ``--tenants``: the
     tenant drains' tokens/s, idle share and kernel 5's share
-    (:func:`ab_tenants`)."""
+    (:func:`ab_tenants`).  ``--paged``: kernels 1 and 2 per call
+    (:func:`ab_paged`).  ``--drains``: the base drains' tokens/s, idle share
+    and kernels 1 and 2's shares (:func:`ab_drains`)."""
     import torch
 
     if not torch.cuda.is_available():
@@ -2161,6 +2306,10 @@ def ab(argv) -> int:
         out.update(ab_lora(torch))
     elif argv[2:3] == ["--tenants"]:
         out.update(ab_tenants(torch))
+    elif argv[2:3] == ["--paged"]:
+        out.update(ab_paged(torch))
+    elif argv[2:3] == ["--drains"]:
+        out.update(ab_drains(torch))
     else:
         from relora_tpu_torch.ops import flash_attention as FA
 

@@ -44,13 +44,13 @@
 // Design.  One tiled GEMM kernel, lora_gemm_kernel, computes
 //     C = P1 @ Q1 + P2 @ (s * Q2)
 // over two contraction segments for strided f32/bf16/scaled-int8 operands,
-// and each TPU kernel but the bf16 forward and dx (below) is a short sequence
-// of its launches on one stream:
+// and each TPU kernel but the bf16 forward, dx and kernel 8 (below) is a short
+// sequence of its launches on one stream:
 //   forward:  z = x@A (f32), then y = x@W + z@(s*B)   (contraction K + r)
 //   dx:       u = g@B^T (f32), then dx = g@W^T + u@(s*A^T)   (contraction N + r)
 //   dA/dB:    partials of x^T u and z^T g over chunks of 512 rows of M, then
 //             one reduce pass sums the chunks in a fixed order and scales by s
-//   dequant:  y = x@(q*scale), one segment
+//   dequant:  y = x@(q*scale), one segment (f32 and the other layouts)
 // An operand is (pointer, two strides, type) plus, for int8, a scale pointer
 // with two strides of its own: in the forward and kernel 8 the scale runs
 // along the logical N columns of W (strides 0, 1); in dx the operand is W^T
@@ -80,7 +80,7 @@
 // N) + 4Mr bytes, below it, so bound by bytes.  Kernel 8 does 2MKN flops over
 // 2MK + KN + 2MN bytes (int8 W): bound by operations too; the int8 base saves
 // bytes that do not bound it here.  lora_gemm_kernel uses the f32 CUDA cores
-// (67 TFLOP/s peak), so dA/dB, kernel 8 and the f32 forward and dx are far
+// (67 TFLOP/s peak), so dA/dB and the f32 forward, dx and kernel 8 are far
 // from that bound by construction.
 //
 // Kernels 4 and 6 and their int8 variants on the tensor cores.  The bf16
@@ -129,9 +129,16 @@
 // path's ldmatrix.trans then reads.  The pass runs one stage ahead (stage kt
 // + 1 widened while stage kt's MMAs run, into one of two tiles), so the ring
 // keeps one barrier a step; the widened tile lives only in shared memory.
-// The wrappers pick this path by one rule (ops/lora_matmul.forward_path);
-// every other forward or dx (f32, a contiguous (K, N) base, ragged widths,
-// unaligned pointers) runs lora_gemm_kernel, exact to summation order.
+// Kernel 8 (bf16 x, the codes the same (N, K) view, K and N multiples of 8)
+// is the int8 forward's y kernel cut to segment 1: dequant_matmul_tc_kernel,
+// one launch of the same 128x128 tiles and 4-stage ring, the codes widened in
+// registers, the accumulators scaled per column, y rounded once to bf16.  It
+// reuses tc_seg1 and the epilogue helpers, so the four kernels above keep
+// their code.
+// The wrappers pick these paths by one rule (ops/lora_matmul.forward_path,
+// with no rank test for kernel 8); every other forward, dx or kernel 8 (f32,
+// a contiguous (K, N) base, ragged widths, unaligned pointers) runs
+// lora_gemm_kernel, exact to summation order.
 //
 // Kernel 5 (grouped).  Multi-tenant serving stacks every adapter as slabs
 // A (S, K, r), B (S, r, N), s (S,) f32, and each row m of a batch names its
@@ -1276,6 +1283,42 @@ __device__ __forceinline__ void tc_seg1(const TcArgs& f, float (&acc)[4][4][4]) 
   cp_async_wait_n<0>();
 }
 
+// the int8 forward's column scales on the accumulators of the warp's 64 x 32
+// at columns n0 + wn: sum_k x q scale[n] = scale[n] sum_k x q
+__device__ __forceinline__ void scale_columns(const TcArgs& f, float (&acc)[4][4][4], int n0,
+                                              int wn, int lane) {
+#pragma unroll
+  for (int nj = 0; nj < 4; ++nj) {
+    const int n = n0 + wn + acc_col(lane, nj, 0);
+    const float c0 = n < f.N ? f.qscale[n] : 0.f, c1 = n < f.N ? f.qscale[n + 1] : 0.f;
+#pragma unroll
+    for (int mi = 0; mi < 4; ++mi) {
+      acc[mi][nj][0] *= c0;
+      acc[mi][nj][1] *= c1;
+      acc[mi][nj][2] *= c0;
+      acc[mi][nj][3] *= c1;
+    }
+  }
+}
+
+// the warp's 64 x 32 of y at rows m0 + wm, columns n0 + wn, rounded to bf16
+__device__ __forceinline__ void store_y(const TcArgs& f, const float (&acc)[4][4][4], int m0,
+                                        int n0, int wm, int wn, int lane) {
+#pragma unroll
+  for (int mi = 0; mi < 4; ++mi)
+#pragma unroll
+    for (int nj = 0; nj < 4; ++nj) {
+      const int n = n0 + wn + acc_col(lane, nj, 0);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int m = m0 + wm + 16 * mi + acc_row(lane, 2 * h);
+        if (m < f.M && n < f.N)
+          *reinterpret_cast<__nv_bfloat162*>(f.y + (long long)m * f.N + n) =
+              __floats2bfloat162_rn(acc[mi][nj][2 * h], acc[mi][nj][2 * h + 1]);
+      }
+    }
+}
+
 // the forward's int8 column scales, then segment 2: acc += (s z) @ b, and y.
 // b's tile: the forward's B (r, N) as [j][n] (ldmatrix.trans), the dx's A
 // (N, r) as [n][j] (plain ldmatrix)
@@ -1285,20 +1328,7 @@ __device__ __forceinline__ void tc_seg2(const TcArgs& f, float (&acc)[4][4][4]) 
   const YIds id = fresh_ids();
   const int tid = id.tid, m0 = id.m0, n0 = id.n0, warp = tid / 32, lane = tid % 32;
   const int wm = (warp / kYWarpsN) * 64, wn = (warp % kYWarpsN) * 32;
-  if constexpr (kInt8 && !kDx) {  // sum_k x q scale[n] = scale[n] sum_k x q
-#pragma unroll
-    for (int nj = 0; nj < 4; ++nj) {
-      const int n = n0 + wn + acc_col(lane, nj, 0);
-      const float c0 = n < f.N ? f.qscale[n] : 0.f, c1 = n < f.N ? f.qscale[n + 1] : 0.f;
-#pragma unroll
-      for (int mi = 0; mi < 4; ++mi) {
-        acc[mi][nj][0] *= c0;
-        acc[mi][nj][1] *= c1;
-        acc[mi][nj][2] *= c0;
-        acc[mi][nj][3] *= c1;
-      }
-    }
-  }
+  if constexpr (kInt8 && !kDx) scale_columns(f, acc, n0, wn, lane);
 
   // segment 2: (s z) @ b, 32 rank columns a step, two buffers of (z hi, z lo,
   // b) and z's f32 tile, staged one step ahead
@@ -1387,30 +1417,22 @@ __device__ __forceinline__ void tc_seg2(const TcArgs& f, float (&acc)[4][4][4]) 
     }
   }
 
-#pragma unroll
-  for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-    for (int nj = 0; nj < 4; ++nj) {
-      const int n = n0 + wn + acc_col(lane, nj, 0);
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int m = m0 + wm + 16 * mi + acc_row(lane, 2 * h);
-        if (m < f.M && n < f.N)
-          *reinterpret_cast<__nv_bfloat162*>(f.y + (long long)m * f.N + n) =
-              __floats2bfloat162_rn(acc[mi][nj][2 * h], acc[mi][nj][2 * h + 1]);
-      }
-    }
+  store_y(f, acc, m0, n0, wm, wn, lane);
 }
 
-template <bool kInt8, bool kDx>
-__device__ __forceinline__ void tc_y(const TcArgs& f) {
-  float acc[4][4][4];
+__device__ __forceinline__ void zero_acc(float (&acc)[4][4][4]) {
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
     for (int j = 0; j < 4; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+}
+
+template <bool kInt8, bool kDx>
+__device__ __forceinline__ void tc_y(const TcArgs& f) {
+  float acc[4][4][4];
+  zero_acc(acc);
   tc_seg1<kInt8, kDx>(f, acc);
   __syncthreads();  // the ring is free for segment 2
   tc_seg2<kInt8, kDx>(f, acc);
@@ -1427,6 +1449,21 @@ __global__ void __launch_bounds__(kYThreads, 2) fused_dx_tc_bf16_kernel(TcArgs f
 }
 __global__ void __launch_bounds__(kYThreads, 2) fused_dx_tc_int8_kernel(TcArgs f) {
   tc_y<true, true>(f);
+}
+
+// kernel 8 on the tensor cores: the int8 forward's segment 1 alone (x @ q
+// through the ring, the codes widened to bf16 in registers), its column
+// scales on the accumulators, y in bf16.  One launch: no z, no PDL, no
+// segment 2
+__global__ void __launch_bounds__(kYThreads, 2) dequant_matmul_tc_kernel(TcArgs f) {
+  float acc[4][4][4];
+  zero_acc(acc);
+  tc_seg1<true, false>(f, acc);
+  const YIds id = fresh_ids();
+  const int warp = id.tid / 32, lane = id.tid % 32;
+  const int wm = (warp / kYWarpsN) * 64, wn = (warp % kYWarpsN) * 32;
+  scale_columns(f, acc, id.n0, wn, lane);
+  store_y(f, acc, id.m0, id.n0, wm, wn, lane);
 }
 
 int sm_count() {
@@ -1547,6 +1584,23 @@ int tc_pair(const TcArgs& f, bool dx, bool int8, long long w_s0, int dtype, cuda
   return (int)cudaLaunchKernelEx(&cfg, kernel, f);
 }
 
+// kernel 8's one launch on the tensor cores.  Refuses inputs that break the
+// path's conditions: tc_pair's, with no LoRA factor
+int dequant_tc(const TcArgs& f, long long q_s0, int dtype, cudaStream_t st) {
+  auto aligned = [](const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; };
+  if (dtype != kBF16 || q_s0 != 1 || f.ws % 8 || f.K % 8 || f.N % 8 || !aligned(f.x) ||
+      !aligned(f.wt) || !aligned(f.y) || tiles(f.M, kYBM) > 65535)
+    return (int)cudaErrorInvalidValue;
+  if (f.M == 0) return (int)cudaSuccess;
+  constexpr int kSmem = kFwdStages * kYStage;  // segment 1's ring alone
+  static const bool sized = cudaFuncSetAttribute(dequant_matmul_tc_kernel,
+                                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                                 kSmem) == cudaSuccess;
+  if (!sized) return (int)cudaErrorInvalidValue;
+  dequant_matmul_tc_kernel<<<dim3(tiles(f.N, kYBN), tiles(f.M, kYBM)), kYThreads, kSmem, st>>>(f);
+  return (int)cudaGetLastError();
+}
+
 // the forward's arguments: x (M, K), the base's (N, K) storage, A, B, y, z
 TcArgs fwd_tc_args(const void* x, const void* wt, long long ws, const float* qscale, const void* a,
                    const void* b, const float* s_ptr, float s_val, void* y, float* z, int M, int K,
@@ -1653,16 +1707,23 @@ int fused_lora_int8_bwd_dx_launch(const void* g, const void* q, long long q_s0, 
 }
 
 // kernel 8: y (M, N) = x (M, K) @ (q * qscale), q logical (K, N) int8 at element
-// strides (q_s0, q_s1), qscale (1, N) f32; y in x's dtype
+// strides (q_s0, q_s1), qscale (1, N) f32; y in x's dtype.  tc: 1 runs
+// dequant_matmul_tc_kernel (its conditions at dequant_tc, which refuses what
+// breaks them), 0 lora_gemm_kernel.
 int dequant_matmul_launch(const void* x, const void* q, long long q_s0, long long q_s1,
-                          const float* qscale, void* y, int M, int K, int N, int dtype,
+                          const float* qscale, void* y, int M, int K, int N, int dtype, int tc,
                           void* stream) {
   if (bad_args(M, K, N, 1, dtype)) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (tc)
+    return dequant_tc(fwd_tc_args(x, q, q_s1, qscale, nullptr, nullptr, nullptr, 1.f, y, nullptr,
+                                  M, K, N, 0),
+                      q_s0, dtype, st);
   Gemm yg = gemm(M, N, nullptr, 1.f, y, dtype, N);
   yg.p1 = mat(x, K, 1, dtype);
   yg.q1 = qmat(q, q_s0, q_s1, qscale, 0, 1);
   yg.K1 = K;
-  return run_gemm(yg, 1, static_cast<cudaStream_t>(stream));
+  return run_gemm(yg, 1, st);
 }
 
 // g (M, N); x (M, K); z, u (M, r) f32 (u is computed here first unless

@@ -22,7 +22,7 @@ All functions take and return ``(batch, seq, heads, head_dim)`` tensors.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -245,7 +245,7 @@ def _kernel_library():
     if not getattr(lib, "_relora_typed", False):
         vp, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.paged_decode_attention_launch.argtypes = (
-            [vp] * 8 + [i32] * 7 + [f32, i32, i32, vp]
+            [vp] * 9 + [i32] * 9 + [f32, i32, i32, vp]
         )
         lib.paged_decode_attention_launch.restype = i32
         lib.packed_paged_attention_launch.argtypes = (
@@ -263,9 +263,34 @@ def _kernel_library():
 #: dynamic shared memory a block may use on Hopper (227 KB)
 _MAX_SMEM = 232448
 
+#: keys a partition of kernel 1's split walk covers at most: one round of 32
+#: keys for each of its block's 4 warps
+SPLIT_KEYS = 128
+
+
+def paged_decode_schedule(table_width: int, page_size: int) -> Tuple[int, int]:
+    """``(pages per partition, partitions per row)`` of kernel 1's split
+    walk: partition ``p`` of a row covers its table's pages ``[p * pp,
+    min(W, (p + 1) * pp))``, so the partitions cover every page once.  It
+    depends on the table width and the page size alone (not on the batch,
+    the positions or the head dim), so a row's partial sums, and so its
+    result, never depend on the rows it decodes with."""
+    if table_width < 1 or page_size < 1:
+        raise ValueError(f"table width {table_width} and page size {page_size} must be >= 1")
+    pp = max(1, min(table_width, SPLIT_KEYS // page_size))
+    return pp, -(-table_width // pp)
+
+
+def paged_decode_scratch_floats(B: int, n_kv: int, n_part: int, G: int, H: int) -> int:
+    """f32 elements of kernel 1's partials: ``(m, l)`` and ``acc`` ``(H,)``
+    for each (row, kv head, partition, query of the group)."""
+    return B * n_kv * n_part * G * (H + 2)
+
 
 def _validate_kernel_inputs(q, pool_k, pool_v, k_scale, v_scale, G, *index_tensors):
-    """Everything the kernel assumes, checked before any pointer is passed."""
+    """Everything the kernel assumes, checked before any pointer is passed.
+    ``G``, the queries per kv head, sizes the packed kernel's shared memory;
+    kernel 1's does not grow with it (``G=None``)."""
     if q.device.type != "cuda":
         raise ValueError(
             f"the paged attention kernel runs on CUDA tensors; got {q.device} "
@@ -290,7 +315,7 @@ def _validate_kernel_inputs(q, pool_k, pool_v, k_scale, v_scale, G, *index_tenso
         if t is not None and (t.device != q.device or not t.is_contiguous()):
             raise ValueError("all kernel operands must be contiguous and on q's device")
     lib = _kernel_library()
-    smem = lib.paged_attention_smem_bytes(G, H, ps)
+    smem = 0 if G is None else lib.paged_attention_smem_bytes(G, H, ps)
     if smem > _MAX_SMEM:
         raise ValueError(
             f"{G} queries per kv head x head_dim {H} x page {ps} needs {smem} B "
@@ -324,7 +349,10 @@ def paged_decode_attention(
     ``(B, S)``.  Returns ``(B, S, N, H)`` in ``q.dtype``; math is f32.
 
     A CPU ``q`` runs :func:`paged_decode_attention_plain`; any other device
-    launches ``paged_decode_kernel`` (csrc/paged_attention.cu) or raises.
+    launches ``paged_decode_kernel`` then ``paged_combine_kernel``
+    (csrc/paged_attention.cu), split over the walk by
+    :func:`paged_decode_schedule`, or raises.  ``.launches`` counts the pair
+    once.
     """
     if q.device.type == "cpu":
         return paged_decode_attention_plain(
@@ -343,14 +371,21 @@ def paged_decode_attention(
     pos = _query_positions(positions, B, S).contiguous()
     if bt.shape[0] != B:
         raise ValueError(f"block_tables has {bt.shape[0]} rows for batch {B}")
-    lib = _validate_kernel_inputs(
-        q, pool_k, pool_v, k_scale, v_scale, (N // n_kv) * S, bt, pos
+    lib = _validate_kernel_inputs(q, pool_k, pool_v, k_scale, v_scale, None, bt, pos)
+    W, ps = bt.shape[1], pool_k.shape[1]
+    if pool_k.shape[0] * ps * n_kv >= 2**32:
+        raise ValueError(f"the pool's {pool_k.shape[0] * ps * n_kv} rows of head_dim elements "
+                         "exceed the kernel's 32-bit row index")
+    pages_per_part, n_part = paged_decode_schedule(W, ps)
+    part = torch.empty(
+        paged_decode_scratch_floats(B, n_kv, n_part, (N // n_kv) * S, H),
+        dtype=torch.float32, device=q.device,
     )
     out = torch.empty_like(q)
     err = lib.paged_decode_attention_launch(
         _ptr(q), _ptr(pool_k), _ptr(pool_v), _ptr(bt), _ptr(pos),
-        _ptr(k_scale), _ptr(v_scale), _ptr(out),
-        B, S, N, n_kv, H, bt.shape[1], pool_k.shape[1], float(scale),
+        _ptr(k_scale), _ptr(v_scale), _ptr(part), _ptr(out),
+        B, S, N, n_kv, H, W, ps, pages_per_part, n_part, float(scale),
         _DTYPE_CODE[q.dtype], _DTYPE_CODE[pool_k.dtype],
         ctypes.c_void_p(torch.cuda.current_stream(q.device).cuda_stream),
     )

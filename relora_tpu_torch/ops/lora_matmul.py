@@ -46,7 +46,7 @@ base gets no gradient (the JAX package's ``stop_gradient`` contract).
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple, Union
+from typing import Optional, Tuple, Union
 
 import torch
 
@@ -140,7 +140,7 @@ def _kernel_library():
         lib.fused_lora_bwd_dab_launch.argtypes = (
             [vp, vp, vp, vp, i32, vp, vp, f32, vp, vp, vp] + [i32] * 5 + [vp]
         )
-        lib.dequant_matmul_launch.argtypes = [vp, vp, i64, i64, vp, vp] + [i32] * 4 + [vp]
+        lib.dequant_matmul_launch.argtypes = [vp, vp, i64, i64, vp, vp] + [i32] * 5 + [vp]
         lib.grouped_lora_forward_launch.argtypes = (
             [vp, vp, i64, i64, vp, vp, vp, vp, vp, vp] + [i32] * 8 + [vp]
         )
@@ -228,20 +228,21 @@ def _scale_arg(s: Scale, like: torch.Tensor):
     return None, float(s), None
 
 
-def forward_path(dtype: torch.dtype, base_strides: Tuple[int, int], K: int, N: int, r: int,
-                 aligned: bool = True) -> str:
-    """Which kernel a CUDA forward or dx (dense or int8 base) launches:
-    ``"tc"``, the bf16 tensor-core kernels, for bf16 operands with the base's
-    k contiguous (``base_strides[0] == 1``: the transposed view of the ``(N,
-    K)`` storage the model passes) at a row stride, K, N and r all multiples
-    of 8, and every pointer 16-byte ``aligned``; else ``"fma"``, the f32
-    ``lora_gemm_kernel``, exact to summation order.  ``base_strides`` are
-    the logical ``(K, N)`` base's for both: dx reads the same storage by its
-    rows.  Both are hand-written kernels: the plain twin is never taken for a
-    CUDA tensor."""
+def forward_path(dtype: torch.dtype, base_strides: Tuple[int, int], K: int, N: int,
+                 r: Optional[int], aligned: bool = True) -> str:
+    """Which kernel a CUDA forward or dx (dense or int8 base), or kernel 8,
+    launches: ``"tc"``, the bf16 tensor-core kernels, for bf16 operands with
+    the base's k contiguous (``base_strides[0] == 1``: the transposed view
+    of the ``(N, K)`` storage the model passes) at a row stride, K, N and r
+    all multiples of 8, and every pointer 16-byte ``aligned``; else
+    ``"fma"``, the f32 ``lora_gemm_kernel``, exact to summation order.
+    ``base_strides`` are the logical ``(K, N)`` base's for both: dx reads
+    the same storage by its rows.  Kernel 8 has no LoRA factor: it passes
+    ``r=None`` and the rank test drops out.  Both are hand-written kernels:
+    the plain twin is never taken for a CUDA tensor."""
     s0, s1 = base_strides
     tc = (dtype == torch.bfloat16 and s0 == 1 and s1 % 8 == 0 and K % 8 == 0 and N % 8 == 0
-          and r % 8 == 0 and aligned)
+          and (r is None or r % 8 == 0) and aligned)
     return "tc" if tc else "fma"
 
 

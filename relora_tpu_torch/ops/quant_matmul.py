@@ -3,16 +3,22 @@
 Replaces the TPU kernel of ``relora_tpu/ops/pallas_quant_matmul.py``:
 ``_pallas_forward`` (``:46``) -> ``pallas_call`` ``:49``
 (``_dequant_matmul_kernel`` ``:35``).  The Hopper kernel is
-``dequant_matmul_launch`` of ``csrc/lora_matmul.cu``: the fused LoRA GEMM
-with one contraction segment and the int8 operand, each code widened and
-multiplied by its column's f32 scale as the tile is staged, so the weight
-stays int8 in device memory and no dequantized copy is written.  Its header
-note gives the design and the bound.
+``dequant_matmul_launch`` of ``csrc/lora_matmul.cu``, on the path
+:func:`~relora_tpu_torch.ops.lora_matmul.forward_path` picks with no rank:
+bf16 x with q the transposed view of the model's ``(N, K)`` codes (K, N
+multiples of 8, aligned pointers) runs ``dequant_matmul_tc_kernel``, the
+int8 fused forward's first segment alone on the bf16 tensor cores (codes
+widened in registers, column scales on the f32 accumulators); everything
+else runs the fused LoRA GEMM with one contraction segment, each code
+widened and multiplied by its column's f32 scale as the tile is staged.
+Either way the weight stays int8 in device memory and no dequantized copy
+is written.  The source's header note gives the design and the bound.
 
 - :func:`dequant_matmul` ``(x, q, scale) -> y`` through
   :class:`DequantMatmul`, the port of ``_dequant_matmul_vjp``
   (``:69-102``).  Its forward is the kernel for a CUDA tensor (counted in
-  ``dequant_matmul.launches``) and :func:`dequant_matmul_plain` for a CPU
+  ``dequant_matmul.launches``, the tensor-core path also in
+  ``.tc_launches``) and :func:`dequant_matmul_plain` for a CPU
   tensor; nothing else.  Its backward is the JAX package's plain
   dequantize-then-matmul (``:78-99``): ``dx = g @ (q·scale)ᵀ`` with
   ``torch.matmul`` in f32, ``dscale = Σ_m g ⊙ (x @ q)`` only when asked for,
@@ -29,12 +35,14 @@ import torch
 
 from relora_tpu_torch.ops._build import ptr_arg, stream_arg
 from relora_tpu_torch.ops.lora_matmul import (
+    _aligned,
     _dtype_code,
     _kernel_library,
     _on_cuda,
     _raise_on_error,
     _rows,
     dequantize_kn,
+    forward_path,
     int8_base,
 )
 
@@ -57,12 +65,14 @@ def _forward(x2: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> torch.Te
     (qs0, qs1), scale = int8_base(q, scale)
     lib = _kernel_library()
     y = torch.empty((M, N), dtype=x2.dtype, device=x2.device)
+    tc = forward_path(x2.dtype, (qs0, qs1), K, N, None, _aligned(x2, q)) == "tc"
     err = lib.dequant_matmul_launch(
-        ptr_arg(x2), ptr_arg(q), qs0, qs1, ptr_arg(scale), ptr_arg(y), M, K, N, code,
+        ptr_arg(x2), ptr_arg(q), qs0, qs1, ptr_arg(scale), ptr_arg(y), M, K, N, code, int(tc),
         stream_arg(x2),
     )
     _raise_on_error(lib, err, "dequant_matmul")
     dequant_matmul.launches += 1
+    dequant_matmul.tc_launches += tc
     return y
 
 
@@ -101,3 +111,4 @@ def dequant_matmul(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> tor
 
 
 dequant_matmul.launches = 0
+dequant_matmul.tc_launches = 0

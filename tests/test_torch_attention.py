@@ -152,3 +152,94 @@ def test_scales_must_come_together():
     with pytest.raises(ValueError, match="k_scale"):
         _torch(torch_attention.paged_decode_attention, q, pk, pv, bt, pos,
                k_scale=scales["k_scale"])
+
+
+# ------------------------------------------------ kernel 1's split walk
+
+
+@pytest.mark.parametrize("W,ps", [(1, 16), (3, 4), (64, 16), (65, 16), (20, 16), (7, 1),
+                                  (80, 4), (4, 200), (33, 128)])
+def test_paged_decode_schedule_covers_every_page_once(W, ps):
+    """The partitions of a row's table cover each of its W pages exactly
+    once, in order, at most SPLIT_KEYS keys apiece (one page where a page is
+    longer), and the schedule is a function of (W, ps) alone: it has no
+    batch, position or head-dim argument, so a row's partials cannot depend
+    on the rows it decodes with."""
+    import inspect
+
+    sched = torch_attention.paged_decode_schedule
+    assert list(inspect.signature(sched).parameters) == ["table_width", "page_size"]
+    pp, n_part = sched(W, ps)
+    assert (pp, n_part) == sched(W, ps)
+    covered = [w for p in range(n_part) for w in range(p * pp, min(W, (p + 1) * pp))]
+    assert covered == list(range(W))
+    assert all(p * pp < W for p in range(n_part))  # no empty partition
+    assert pp * ps <= max(torch_attention.SPLIT_KEYS, ps)
+    G, H = 5, 48
+    assert torch_attention.paged_decode_scratch_floats(8, 16, n_part, G, H) == (
+        8 * 16 * n_part * G * (H + 2))
+
+
+def _split_walk(q, pk, pv, bt, pos, k_scale=None, v_scale=None):
+    """Kernel 1's split walk in plain f32 numpy: per partition of the row's
+    table (:func:`paged_decode_schedule`) over the keys the row can see, the
+    partial (m, l, acc) of each query (-1e30 masked logits, masked p); the
+    partials merged in partition order; out = acc / max(l, 1e-30)."""
+    f32 = np.float32
+    B, S, N, H = q.shape
+    ps, n_kv = pk.shape[1], pk.shape[2]
+    W, g = bt.shape[1], N // n_kv
+    pp, _ = torch_attention.paged_decode_schedule(W, ps)
+    tpp = pp * ps
+    out = np.zeros(q.shape, f32)
+    for b in range(B):
+        walk = min(W * ps, int(pos[b].max()) + 1)
+        for j in range(n_kv):
+            for h in range(g):
+                for s in range(S):
+                    qv = q[b, s, j * g + h].astype(f32)
+                    parts = []
+                    for start in range(0, walk, tpp):
+                        t = np.arange(start, min(start + tpp, walk))
+                        pages, rows = bt[b, t // ps], t % ps
+                        k = pk[pages, rows, j].astype(f32)
+                        v = pv[pages, rows, j].astype(f32)
+                        if k_scale is not None:
+                            k = k * k_scale[pages, j][:, None]
+                            v = v * v_scale[pages, j][:, None]
+                        vis = t <= pos[b, s]
+                        x = np.where(vis, (k @ qv) * f32(H ** -0.5), f32(-1e30)).astype(f32)
+                        m = x.max()
+                        e = np.where(vis, np.exp(x - m), f32(0)).astype(f32)
+                        parts.append((m, e.sum(dtype=f32), e @ v))
+                    mx = max((m for m, _, _ in parts), default=f32(-1e30))
+                    l, acc = f32(0), np.zeros(H, f32)
+                    for m, lp, ap in parts:
+                        w = np.exp(f32(m - mx))
+                        l, acc = l + lp * w, acc + ap * w
+                    out[b, s, j * g + h] = acc / max(l, f32(1e-30))
+    return out
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["f32", "int8"])
+@pytest.mark.parametrize("S", [1, 5])
+@pytest.mark.parametrize("heads,kv_heads", [(4, 4), (8, 2)], ids=["mha", "gqa"])
+def test_split_walk_merge_matches_twin_and_jax_kernel(S, int8, heads, kv_heads):
+    """The split schedule evaluated partition by partition and merged in
+    order equals the plain twin within 1e-6 and the JAX interpret-mode
+    kernel within TOL, over three partitions a row (20 pages of 16), rows
+    ending mid-partition, and a pad row (every position -1: 0 from the twin
+    and the split walk; the JAX kernel divides 0 by 0 there, so its pad row
+    is not compared)."""
+    q, pk, pv, bt, pos, scales = _pool_case(11 + S, B=3, S=S, heads=heads, kv_heads=kv_heads,
+                                            page_size=16, W=20, int8=int8)
+    q = np.concatenate([q, q[:1]])
+    bt = np.concatenate([bt, bt[:1]])
+    pos = np.concatenate([pos, np.full((1, S), -1, np.int32)])  # row 3: a pad row
+    assert torch_attention.paged_decode_schedule(20, 16)[1] == 3
+    split = _split_walk(q, pk, pv, bt, pos, scales.get("k_scale"), scales.get("v_scale"))
+    twin = _torch(torch_attention.paged_decode_attention_plain, q, pk, pv, bt, pos, **scales)
+    np.testing.assert_allclose(split, twin, atol=1e-6, rtol=0)
+    assert (split[3] == 0).all() and (twin[3] == 0).all()
+    want = _jax(jax_attention.paged_decode_attention, q[:3], pk, pv, bt[:3], pos[:3], **scales)
+    np.testing.assert_allclose(split[:3], want, atol=TOL, rtol=0)

@@ -356,6 +356,44 @@ def test_int8_forward_path_rule(case):
     assert LM.forward_path(dtype, q.stride(), K, N, r) == want
 
 
+# (activation dtype, codes transposed?, K, N, 16-byte aligned?) -> kernel 8's path
+DEQUANT_PATHS = {
+    "bf16_codes_transposed_view": (torch.bfloat16, True, 768, 2560, True, "tc"),
+    "bf16_ragged_multiples_of_8": (torch.bfloat16, True, 72, 104, True, "tc"),
+    "f32_codes_transposed_view": (torch.float32, True, 768, 768, True, "fma"),
+    "bf16_codes_contiguous_kn": (torch.bfloat16, False, 768, 768, True, "fma"),
+    "bf16_N_100": (torch.bfloat16, True, 72, 100, True, "fma"),
+    "bf16_K_100": (torch.bfloat16, True, 100, 104, True, "fma"),
+    "bf16_unaligned": (torch.bfloat16, True, 768, 768, False, "fma"),
+}
+
+
+@pytest.mark.parametrize("case", list(DEQUANT_PATHS))
+def test_dequant_matmul_path_rule(case):
+    """Kernel 8 takes the tensor cores by the fused kernels' rule with no
+    rank (``r=None``): bf16 x, the model's (N, K) codes transposed, K and N
+    multiples of 8, aligned pointers; everything else the FMA GEMM.  A rank
+    that is no multiple of 8 would refuse the fused paths, never kernel 8."""
+    dtype, transposed, K, N, aligned, want = DEQUANT_PATHS[case]
+    q = _q_layout(np.zeros((K, N), np.int8), transposed)
+    assert LM.forward_path(dtype, q.stride(), K, N, None, aligned) == want
+    if want == "tc":
+        assert LM.forward_path(dtype, q.stride(), K, N, 4, aligned) == "fma"
+
+
+def test_cpu_dequant_matmul_counts_no_launch_of_either_path():
+    """A CPU kernel-8 call runs the twin, even for the layout the tensor
+    cores take: neither count moves."""
+    x, q, qs, _, _, _ = _int8_operands(16, 32, 24, 8)
+    xt = torch.from_numpy(x).bfloat16()
+    qt, qst = _q_layout(q, True), torch.from_numpy(qs.copy())
+    assert LM.forward_path(xt.dtype, qt.stride(), 32, 24, None) == "tc"
+    before = (QM.dequant_matmul.launches, QM.dequant_matmul.tc_launches)
+    y = QM.dequant_matmul(xt, qt, qst)
+    torch.testing.assert_close(y, QM.dequant_matmul_plain(xt, qt, qst), rtol=0, atol=0)
+    assert (QM.dequant_matmul.launches, QM.dequant_matmul.tc_launches) == before
+
+
 @pytest.mark.parametrize("wrapper", ["int8_forward", "int8_bwd_dx", "dequant_matmul"])
 def test_non_cpu_tensor_never_takes_the_twin(wrapper):
     """A tensor on any device but the CPU goes to the kernel path, which
