@@ -7,12 +7,14 @@ Phases, in order; any failure raises and the script exits non-zero:
 
 1. build     — nvcc builds every kernel of ``relora_tpu_torch/csrc`` for
                sm_90a, one process per source, all started together; the
-               HMMA count of every bf16 tensor-core kernel of the flash and
-               LoRA sources (kernel 3, kernel 5, the fused forward's z and
-               y kernels, the fused dx's u and dx kernels, kernel 8's
-               tensor-core kernel); ``-Xptxas -v`` registers of the paged
-               kernels (kernel 1's split walk and combine, kernel 2) and,
-               printed later, of kernels 4, 5, 6 and 8; any spill fails.
+               HMMA count of every bf16 tensor-core kernel (kernel 3 with
+               its wide dK/dV, kernel 5, the fused forward's z and y
+               kernels, the fused dx's u and dx kernels, kernel 7's
+               partials, kernel 8's tensor-core kernel, kernel 2's tile
+               kernel); ``-Xptxas -v`` registers of the paged kernels
+               (kernel 1's split walk and combine, kernel 2's tiles) and of
+               every flash instantiation (up to H = 256) and, printed later,
+               of kernels 4, 5, 6, 7 and 8; any spill fails.
 2. kernels   — the paged kernels (1-2) against their plain PyTorch twins on
                the card, at llama_250m (N=16, H=48) and llama_1b (N=32, H=64)
                widths, page 16, table width 64, B=8 with S in {1, 5} and a
@@ -20,21 +22,29 @@ Phases, in order; any failure raises and the script exits non-zero:
                cases (a row whose every position is -1, which must give 0; a
                row with one visible key; 16 heads on 4 kv heads at S=5;
                S=16; H=50 on scalar loads) and its batch invariance (each row
-               decoded alone gives the bits it gives in the batch of 8); then
-               each is timed at the main path's shape beside its plain twin,
-               a gather + scaled_dot_product_attention yardstick, and its
+               decoded alone gives the bits it gives in the batch of 8);
+               kernel 2's (the prefill across a 64-token tile edge, grouped
+               heads with a run over four tiles, H = 256 with and without
+               grouping, H = 50, each with pads, each pool) and its batch
+               invariance (the prefill run, each decode token and the pads
+               alone give the bits they give in the window); then each is
+               timed at the main path's shape beside its plain twin, a
+               gather + scaled_dot_product_attention yardstick, and its
                bound.
 3. kernels-3 — the HMMA count of each bf16 flash kernel's SASS
                (``cuobjdump -sass``: the tensor cores are used); the flash
                forward, dK/dV and dQ kernels against their twins: the train
                phase's shape (B=8, S=512, N=16, H=48), grouped heads (N=16,
                n_kv=4, H=64), an unaligned S=200, llama_40m's H=52,
-               llama_7b's H=128 and H=50 with grouped heads at S=200, at
-               bf16 (tensor-core kernels) and f32 (FMA kernels); then each,
-               forward+backward together and the backward alone, timed
-               beside its twin, a scaled_dot_product_attention(is_causal=True)
-               yardstick (forward, its backward alone from a saved output,
-               both) and its bound.
+               llama_7b's H=128, H=50 with grouped heads at S=200, and the
+               wide kernels (pythia_1b's H=256; H=250 and 138 with grouped
+               heads at S=200), at bf16 (tensor-core kernels) and f32 (FMA
+               kernels); then each, forward+backward together and the
+               backward alone, timed beside its twin, a
+               scaled_dot_product_attention(is_causal=True) yardstick
+               (forward, its backward alone from a saved output, both) and
+               its bound; and each at H=256 (B=8, S=512, 8 heads) on a line
+               of its own.
 4. drains    — ``relora_tpu_torch.serve_cli`` drains 16 requests (prompts of
                32-512 tokens, 64 new tokens each) for llama_250m at full width,
                ``--random-init --dtype bf16 --max-batch 8 --paged``: at
@@ -61,18 +71,20 @@ Phases, in order; any failure raises and the script exits non-zero:
                at bf16 and f32 with W the transposed view the model passes, a
                contiguous W, a ragged M=200, K=72, N=100, r=8, a rank past
                256 (M=1024, K=N=768, r=320), a ragged bf16 case on the
-               tensor cores (M=200, K=72, N=104, r=8), and a tensor scale
-               through the autograd Function (ds too); each forward and dx
-               prints the path it took (``tc`` or ``fma``), held to
-               ``forward_path``'s rule; then each timed per shape beside its
-               twin, the ordered cuBLAS chain of the default path and its
-               bound.
+               tensor cores (M=200, K=72, N=104, r=8), kernel 7's M-chunk
+               schedule at M=300 (one chunk) and M=4100 (a ragged last
+               chunk), and a tensor scale through the autograd Function (ds
+               too); each forward, dx and dA/dB prints the path it took
+               (``tc`` or ``fma``), held to ``forward_path``'s (dA/dB:
+               ``dab_path``'s) rule, and dA/dB must give the same bits
+               twice; then each timed per shape beside its twin, the
+               ordered cuBLAS chain of the default path and its bound.
 9. fused-train — the train phase again with ``--lora_fused true
                --lora_dropout 0``: the same checks, and the fused launch
                counters equal 7 x layers x (microbatches x updates + eval
                batches) for the forward and 7 x layers x microbatches x
-               updates for dx and dA/dB; every forward and dx on the tensor
-               cores.
+               updates for dx and dA/dB; every forward, dx and dA/dB on the
+               tensor cores.
 10. f32-fused — one update of a 2-layer llama_250m at f32 (TF32 off),
                ``lora_fused`` true against false from the same weights
                (nonzero B) and batch, on loss and gradient norm.
@@ -83,8 +95,9 @@ Phases, in order; any failure raises and the script exits non-zero:
                (bf16), a contiguous (K, N) q, a
                ragged M=200, K=72, N=100, r=8, r=320 at M=1024, K=N=768,
                the ragged tensor-core case of kernels-4 (each call's path,
-               kernel 8's too, printed and checked as there), and a tensor
-               scale through
+               kernel 8's too, printed and checked as there; kernel 7 on the
+               int8 forward's z and the int8 dx's u), and a tensor scale
+               through
                FusedLoRAMatmulInt8 (ds and dqscale too) and DequantMatmul;
                then each timed per shape beside its twin, the dequantize +
                cuBLAS chain of the JAX default path and its bound, and
@@ -99,8 +112,8 @@ Phases, in order; any failure raises and the script exits non-zero:
 13. int8_fused_train — the same with ``--lora_fused true --lora_dropout 0``:
                4-int8 launched 7 x layers x (microbatches x updates + eval
                batches) times, 6-int8 and kernel 7 7 x layers x
-               microbatches x updates, every 4-int8 and 6-int8 on the tensor
-               cores, kernel 8 never.
+               microbatches x updates, every 4-int8, 6-int8 and kernel 7 on
+               the tensor cores, kernel 8 never.
 14. f32-int8 — one update of a 2-layer int8 llama_250m at f32 (TF32 off),
                the fused-int8 arm against the unfused kernel-8 arm from the
                same warm-started weights (nonzero B) and batch, on loss and
@@ -142,7 +155,7 @@ Phases, in order; any failure raises and the script exits non-zero:
                (the gathered composite, naive attention), compared on logits.
 
 ``python3 chip_smoke.py --ab DIR [--train [FLAGS...] | --grouped | --lora |
---tenants | --paged | --drains]`` times another checkout's package instead
+--tenants | --paged | --drains | --sass]`` times another checkout's package instead
 (see :func:`ab`); it checks nothing.
 
 Output: a forward+backward timing line, one line per drain, a train line, a
@@ -178,12 +191,14 @@ def _dtypes(torch, pool):
     return q, {"f32": torch.float32, "bf16": torch.bfloat16, "int8": torch.int8}[pool]
 
 
-def make_pool_case(torch, device, *, heads, head_dim, pool, S, seed, packed=False, kv_heads=None):
+def make_pool_case(torch, device, *, heads, head_dim, pool, S, seed, packed=False, kv_heads=None,
+                   prefill_at=0):
     """Inputs of one kernel call: every row owns TABLE_W pages of one shared
     pool and sits at a random position of a 1024-token cache.  Packed: the
-    B rows' decode tokens, a 56-token prefill of row B, then pad tokens on
-    the all-null last row at the null position (the scheduler's layout).
-    ``kv_heads`` (default ``heads``) groups the query heads."""
+    B rows' decode tokens, a 56-token prefill of row B at positions
+    ``prefill_at``.., then pad tokens on the all-null last row at the null
+    position (the scheduler's layout).  ``kv_heads`` (default ``heads``)
+    groups the query heads."""
     g = torch.Generator(device=device).manual_seed(seed)
     q_dtype, kv_dtype = _dtypes(torch, pool)
     n_kv = kv_heads or heads
@@ -217,7 +232,7 @@ def make_pool_case(torch, device, *, heads, head_dim, pool, S, seed, packed=Fals
     )
     pos = torch.cat([
         base,
-        torch.arange(n_prefill, device=device),
+        torch.arange(prefill_at, prefill_at + n_prefill, device=device),
         torch.full((8,), cache, device=device),
     ]).to(torch.int32)
     q = torch.randn((1, PACKED_T, heads, head_dim), generator=g, device=device)
@@ -356,6 +371,59 @@ def check_decode_edges(torch, device):
     return worst
 
 
+def check_packed_edges(torch, device):
+    """Kernel 2's cases against its twin, each pool: llama_250m widths with
+    the prefill across the 64-token tile edge (positions 40..95), grouped
+    heads (16 on 4 kv heads: 16-token tiles, so the 56-token run spans four),
+    H = 256 with and without grouping, and H = 50 (no tensor-core tile: every
+    token on kernel 1's pair); every window has 8 pad tokens.  And batch
+    invariance: the prefill run alone, each decode token alone and the pads
+    alone give the bits they give inside the window.  Returns the worst
+    error at llama_250m widths."""
+    from relora_tpu_torch.ops import attention as A
+
+    heads, head_dim = WIDTHS["llama_250m"]
+    worst = 0.0
+    cases = [(pool, dict(prefill_at=40), "tile-edge") for pool in ("f32", "bf16", "int8")]
+    cases += [(pool, dict(kv_heads=4, head_dim=64), "gqa") for pool in ("f32", "bf16", "int8")]
+    cases += [(pool, dict(heads=8, head_dim=256), "H=256") for pool in ("f32", "bf16", "int8")]
+    cases += [("bf16", dict(heads=8, kv_heads=2, head_dim=256), "H=256 gqa"),
+              ("bf16", dict(head_dim=50), "H=50")]
+    lo, hi = BATCH, PACKED_T - 8  # the prefill run; decode tokens before it, pads after
+    for i, (pool, extra, label) in enumerate(cases):
+        kw = dict(heads=heads, head_dim=head_dim, pool=pool, S=1, seed=401 + i, packed=True)
+        kw.update(extra)
+        case = make_pool_case(torch, device, **kw)
+        scales = {k: case[k] for k in ("k_scale", "v_scale") if k in case}
+        q, rm, pos = case["q"], case["row_map"], case["positions"]
+
+        def call(a, b):
+            return A.packed_paged_attention(q[:, a:b], case["pool_k"], case["pool_v"],
+                                            case["block_tables"], rm[a:b], pos[a:b], **scales)
+
+        tc0 = A.packed_paged_attention.tc_launches
+        got = call(0, PACKED_T)
+        tiles = A.packed_paged_attention.tc_launches > tc0
+        want = A.packed_paged_attention_plain(q, case["pool_k"], case["pool_v"],
+                                              case["block_tables"], rm, pos, **scales)
+        alone = [(lo, hi, call(lo, hi)), (hi, PACKED_T, call(hi, PACKED_T))]
+        alone += [(t, t + 1, call(t, t + 1)) for t in range(lo)]
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        ok = bool(torch.isfinite(got.float()).all()) and err <= KERNEL_TOL[pool]
+        invariant = all(torch.equal(got[:, a:b], o) for a, b, o in alone)
+        n_kv = extra.get("kv_heads", kw["heads"])
+        print(f"kernel-check packed_paged_attention {label} pool={pool} T={PACKED_T} "
+              f"heads={kw['heads']}/{n_kv} H={kw['head_dim']} "
+              f"tile_kernel={tiles} max_abs_err={err:.3e} tol={KERNEL_TOL[pool]:g} "
+              f"batch_invariant={invariant} {'ok' if ok and invariant else 'FAIL'}")
+        if not (ok and invariant):
+            raise AssertionError(f"packed_paged_attention edge case {label} ({pool}) failed")
+        if kw["head_dim"] == head_dim and kw["heads"] == heads:
+            worst = max(worst, err)
+    return worst
+
+
 def check_kernels(torch, device):
     """Phase 2: every kernel against its plain twin, then timings."""
     from relora_tpu_torch.ops import attention as A
@@ -391,6 +459,8 @@ def check_kernels(torch, device):
                     worst[name] = max(worst[name], err)
     worst["paged_decode_attention"] = max(worst["paged_decode_attention"],
                                           check_decode_edges(torch, device))
+    worst["packed_paged_attention"] = max(worst["packed_paged_attention"],
+                                          check_packed_edges(torch, device))
 
     rows = []
     heads, head_dim = WIDTHS["llama_250m"]
@@ -425,8 +495,9 @@ def check_kernels(torch, device):
 # shape (llama_250m, --batch_size 8 --max_length 512), then grouped-query
 # heads at llama_1b's head_dim, an S that is no multiple of the 64-row tile,
 # llama_40m's H = 52 (padded to 64 on the card, 8-byte copies), llama_7b's
-# H = 128 (the 32-row backward tiles), and H = 50 with grouped heads and a
-# ragged S (4-byte copies)
+# H = 128 (the 32-row backward tiles), H = 50 with grouped heads and a
+# ragged S (4-byte copies), then the wide kernels: pythia_1b's H = 256, and
+# H = 250 (bf16, padded to 256) and 138 (f32) with grouped heads at a ragged S
 FLASH_CASES = [
     (8, 512, 16, 16, 48, "bf16"), (8, 512, 16, 16, 48, "f32"),
     (2, 512, 16, 4, 64, "bf16"), (2, 512, 16, 4, 64, "f32"),
@@ -434,7 +505,12 @@ FLASH_CASES = [
     (4, 512, 8, 8, 52, "bf16"), (4, 512, 8, 8, 52, "f32"),
     (1, 512, 32, 32, 128, "bf16"), (1, 512, 32, 32, 128, "f32"),
     (2, 200, 4, 2, 50, "bf16"), (2, 200, 4, 2, 50, "f32"),
+    (1, 512, 8, 8, 256, "bf16"), (1, 512, 8, 8, 256, "f32"),
+    (2, 200, 4, 2, 250, "bf16"), (2, 200, 4, 2, 138, "f32"),
 ]
+# pythia_1b's attention (hidden 2048, 8 heads: head_dim 256) at the train
+# phase's batch: kernel 3's wide kernels, timed beside the main rows
+FLASH_WIDE = (8, 512, 8, 8, 256, "bf16")
 # error relative to max(1, max|twin|): f32 sums the same terms in another
 # order (1e-6 scale at S=512); bf16 outputs round once to bf16 (2^-8 relative)
 FLASH_TOL = {"f32": 1e-4, "bf16": 1e-2}
@@ -472,7 +548,13 @@ def flash_bound(q, k, kernel):
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
-FLASH_TC_KERNELS = ("flash_fwd_tc_kernel", "flash_bwd_dkdv_tc_kernel", "flash_bwd_dq_tc_kernel")
+FLASH_TC_KERNELS = ("flash_fwd_tc_kernel", "flash_bwd_dkdv_tc_kernel", "flash_bwd_dkdv_tc_wide_kernel",
+                    "flash_bwd_dq_tc_kernel")
+# every kernel of flash_attention.cu, for the ptxas report: the tensor-core
+# kernels and the f32 ones (64-row tiles, and 32-row past H = 128)
+FLASH_KERNELS = FLASH_TC_KERNELS + ("flash_fwd_kernel", "flash_bwd_dkdv_kernel",
+                                    "flash_bwd_dq_kernel", "flash_fwd_wide_kernel",
+                                    "flash_bwd_dkdv_wide_kernel", "flash_bwd_dq_wide_kernel")
 
 
 def count_hmma(lib_path, kernels):
@@ -495,6 +577,32 @@ def count_hmma(lib_path, kernels):
     if not all(counts.values()):
         raise AssertionError(f"a tensor-core kernel has no HMMA instruction: {counts}")
     return counts
+
+
+def sass_digests(lib_path):
+    """``{function: sha1 of its SASS}`` of a built library, read with
+    ``cuobjdump -sass``: instructions only (addresses, encodings and the
+    anonymous namespace's per-file hash dropped), so the same kernel built
+    from two trees compares equal when it compiled to the same code."""
+    import hashlib
+    import re
+
+    from relora_tpu_torch.ops import _build
+
+    cuobjdump = os.path.join(os.path.dirname(_build.find_nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", str(lib_path)], capture_output=True, text=True,
+                          check=True).stdout
+    funcs, current = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            current = re.sub(r"_GLOBAL__N__[0-9a-f]+_\d+_\w+?_cu_[0-9a-f]{8}", "ANON",
+                             line.split("Function :")[1].strip())
+            funcs[current] = hashlib.sha1()
+        elif current:
+            m = re.search(r"/\*[0-9a-f]{4,}\*/\s+(.*?)\s*;", line)
+            if m:
+                funcs[current].update(m.group(1).encode())
+    return {name: h.hexdigest() for name, h in funcs.items()}
 
 
 def ptxas_report(source, kernels):
@@ -551,7 +659,8 @@ def ptxas_report(source, kernels):
 
 def check_flash_kernels(torch, device):
     """Phase kernels-3: the three flash kernels against their twins on the
-    card, then timings at the train phase's shape."""
+    card, then timings at the train phase's shape, and at FLASH_WIDE
+    (printed as their own line: no main path runs H = 256 yet)."""
     import torch.nn.functional as F
 
     from relora_tpu_torch.ops import flash_attention as FA
@@ -664,6 +773,35 @@ def check_flash_kernels(torch, device):
         "library_backward_ms": sdpa_bwd_ms,
     }
     print(json.dumps(pair))
+
+    # the wide kernels at pythia_1b's head_dim: each kernel beside its twin,
+    # SDPA (forward; backward alone, dQ, dK and dV together) and its bound
+    B, S, N, n_kv, H, dtype = FLASH_WIDE
+    q, k, v, dout = make_flash_case(torch, device, B, S, N, n_kv, H, dtype, seed=98)
+    scale = H**-0.5
+    out, lse = FA.flash_attention_forward(q, k, v, scale)
+    bwd = (q, k, v, dout, lse, FA.flash_attention_delta(out, dout), scale)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    sdpa_in = [x.detach().requires_grad_() for x in (qt, kt, vt)]
+    sdpa_out = F.scaled_dot_product_attention(*sdpa_in, is_causal=True)
+    dout_t = dout.transpose(1, 2)
+    wide = {"flash_wide": "H=256, ms per call", "shape": list(FLASH_WIDE),
+            "library_forward_ms": time_ms(torch, lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True)),
+            "library_backward_ms": time_ms(torch, lambda: torch.autograd.grad(
+                sdpa_out, sdpa_in, dout_t, retain_graph=True))}
+    for name, kernel, fn, plain in (
+        ("flash_attention_forward", "forward", lambda: FA.flash_attention_forward(q, k, v, scale),
+         lambda: FA.flash_attention_forward_plain(q, k, v, scale)),
+        ("flash_attention_bwd_dkdv", "dkdv", lambda: FA.flash_attention_bwd_dkdv(*bwd),
+         lambda: FA.flash_attention_bwd_dkdv_plain(*bwd)),
+        ("flash_attention_bwd_dq", "dq", lambda: FA.flash_attention_bwd_dq(*bwd),
+         lambda: FA.flash_attention_bwd_dq_plain(*bwd)),
+    ):
+        bound_ms, bound_by = flash_bound(q, k, kernel)
+        wide[name] = {"ms": time_ms(torch, fn), "plain_ms": time_ms(torch, plain),
+                      "bound_ms": bound_ms, "bound_by": bound_by}
+    print(json.dumps(wide))
     return rows
 
 
@@ -817,7 +955,7 @@ def write_corpus(work, vocab=32100, seed=0):
 LORA_NAMES = ("fused_lora_forward", "fused_lora_bwd_dx", "fused_lora_bwd_dab")
 INT8_NAMES = ("dequant_matmul", "fused_lora_int8_forward", "fused_lora_int8_bwd_dx")
 TC_NAMES = ("fused_lora_forward", "fused_lora_int8_forward",  # wrappers with .tc_launches
-            "fused_lora_bwd_dx", "fused_lora_int8_bwd_dx", "dequant_matmul")
+            "fused_lora_bwd_dx", "fused_lora_int8_bwd_dx", "fused_lora_bwd_dab", "dequant_matmul")
 
 
 def _counters():
@@ -924,8 +1062,9 @@ def train(torch, data_config, label="train", extra=()):
     if launches != want:
         raise AssertionError(f"{label}: launches {launches}, expected {want}")
     if tc != {n: launches[n] for n in TC_NAMES}:
-        raise AssertionError(f"{label}: forwards and dx on the tensor cores {tc} of {launches}: "
-                             "the model's bf16 layout must take the tensor-core path every time")
+        raise AssertionError(f"{label}: forwards, dx and dA/dB on the tensor cores {tc} of "
+                             f"{launches}: the model's bf16 layout must take the tensor-core path "
+                             "every time")
     if int8 and not (len(watch.merges) == 2 and all(
             m["modules"] == 7 * layers and m["nonzero_before"] > 0 and m["int8_after"]
             and m["moved"] > 0 for m in watch.merges)):
@@ -1029,8 +1168,12 @@ FWD_TC_KERNELS = ("fused_fwd_z_tc_kernel", "fused_fwd_y_tc_bf16_kernel",
                   "fused_fwd_y_tc_int8_kernel")
 DX_TC_KERNELS = ("fused_dx_u_tc_kernel", "fused_dx_tc_bf16_kernel", "fused_dx_tc_int8_kernel")
 DEQUANT_TC_KERNELS = ("dequant_matmul_tc_kernel",)  # kernel 8 on the tensor cores
-# kernel 1's split walk and its combine, and kernel 2
-PAGED_KERNELS = ("paged_decode_kernel", "paged_combine_kernel", "packed_paged_kernel")
+DAB_TC_KERNELS = ("dab_tc_kernel",)  # kernel 7's partials on the tensor cores
+DAB_KERNELS = DAB_TC_KERNELS + ("dab_split_kernel",)  # and its split pass
+# kernel 1's split walk and its combine, and kernel 2's tensor-core tiles
+# (its other tokens take kernel 1's pair)
+PAGED_TC_KERNELS = ("packed_tile_kernel",)
+PAGED_KERNELS = ("paged_decode_kernel", "paged_combine_kernel") + PAGED_TC_KERNELS
 
 
 def check_path(wrapper, tc_before, x, K, N, r, transposed):
@@ -1045,6 +1188,17 @@ def check_path(wrapper, tc_before, x, K, N, r, transposed):
     if path != LM.forward_path(x.dtype, strides, K, N, r):
         raise AssertionError(f"{wrapper.__name__} took the {path} path at {x.dtype} "
                              f"M={x.shape[0]} K={K} N={N} r={r} transposed={transposed}")
+    return path
+
+
+def check_dab_path(tc_before, x, K, N, r):
+    """The path a dA/dB call took, held to :func:`dab_path`'s rule."""
+    from relora_tpu_torch.ops import lora_matmul as LM
+
+    path = "tc" if LM.fused_lora_bwd_dab.tc_launches > tc_before else "fma"
+    if path != LM.dab_path(x.dtype, K, N, r):
+        raise AssertionError(f"fused_lora_bwd_dab took the {path} path at {x.dtype} "
+                             f"M={x.shape[0]} K={K} N={N} r={r}")
     return path
 
 
@@ -1080,6 +1234,8 @@ def check_lora_kernels(torch, device):
     cases += [(200, 72, 100, 8, dt, True) for dt in ("bf16", "f32")]
     cases += [(1024, 768, 768, 320, dt, True) for dt in ("bf16", "f32")]  # a rank past 256
     cases += [RAGGED_TC]
+    # kernel 7's M-chunk schedule: M below one chunk, and a ragged last chunk
+    cases += [(300, 768, 768, LORA_R, "bf16", True), (LORA_M + 4, 2560, 768, LORA_R, "bf16", True)]
     with full_f32_matmul():
         for i, (M, K, N, r, dtype, transposed) in enumerate(cases):
             x, w, a, b, gy = make_lora_case(torch, device, M, K, N, r, dtype, seed=21 + i,
@@ -1096,13 +1252,19 @@ def check_lora_kernels(torch, device):
             dx = LM.fused_lora_bwd_dx(gy, w, a, b, s)
             paths["fused_lora_bwd_dx"] = check_path(LM.fused_lora_bwd_dx, tc0, gy, K, N, r,
                                                     transposed)
+            tc0 = LM.fused_lora_bwd_dab.tc_launches
+            dab = LM.fused_lora_bwd_dab(gy, x, z0, b, s, u0)
+            paths["fused_lora_bwd_dab"] = check_dab_path(tc0, x, K, N, r)
+            again = LM.fused_lora_bwd_dab(gy, x, z0, b, s, u0)
             pairs = {
                 "fused_lora_forward": list(zip(fwd, (y0, z0))),
                 "fused_lora_bwd_dx": list(zip(dx, (dx0, u0))),
-                "fused_lora_bwd_dab": list(zip(LM.fused_lora_bwd_dab(gy, x, z0, b, s, u0), dab0))
+                "fused_lora_bwd_dab": list(zip(dab, dab0))
                 + list(zip(LM.fused_lora_bwd_dab(gy, x, z0, b, s), dab0)),
             }
             torch.cuda.synchronize()
+            if not all(torch.equal(p, q) for p, q in zip(dab, again)):
+                raise AssertionError(f"fused_lora_bwd_dab is not deterministic ({M, K, N, r, dtype})")
             for name, outs in pairs.items():
                 err, rel, finite = _rel_err(outs)
                 ok = finite and rel <= LORA_TOL[dtype]
@@ -1325,10 +1487,16 @@ def check_int8_kernels(torch, device):
             dx = LM.fused_lora_int8_bwd_dx(gy, q, qs, a, b, s)
             paths["fused_lora_int8_bwd_dx"] = check_path(LM.fused_lora_int8_bwd_dx, tc0, gy, K, N,
                                                          r, transposed)
+            # kernel 7 on the int8 base's residuals: z from 4-int8, u from 6-int8
+            tc0 = LM.fused_lora_bwd_dab.tc_launches
+            dab = LM.fused_lora_bwd_dab(gy, x, fwd[1], b, s, dx[1])
+            paths["fused_lora_bwd_dab"] = check_dab_path(tc0, x, K, N, r)
             pairs = {
                 "dequant_matmul": [(y8, QM.dequant_matmul_plain(x, q, qs))],
                 "fused_lora_int8_forward": list(zip(fwd, LM.fused_lora_int8_forward_plain(x, q, qs, a, b, s))),
                 "fused_lora_int8_bwd_dx": list(zip(dx, LM.fused_lora_int8_bwd_dx_plain(gy, q, qs, a, b, s))),
+                "fused_lora_bwd_dab": list(zip(dab, LM.fused_lora_bwd_dab_plain(gy, x, fwd[1], b, s,
+                                                                                dx[1]))),
             }
             torch.cuda.synchronize()
             for name, outs in pairs.items():
@@ -1341,7 +1509,7 @@ def check_int8_kernels(torch, device):
                       f"{'ok' if ok else 'FAIL'}")
                 if not ok:
                     raise AssertionError(f"{name} disagrees with its plain twin ({M, K, N, r, dtype})")
-                if dtype == "bf16" and M == LORA_M and transposed:
+                if dtype == "bf16" and M == LORA_M and transposed and name in worst:
                     worst[name] = max(worst[name], err)
 
     # a tensor scale (and a qscale that asks for its gradient) through both
@@ -1995,13 +2163,16 @@ def main() -> int:
     t0 = time.perf_counter()
     libs = _build.build_all()
     print(f"build: {sorted(libs)} in {time.perf_counter() - t0:.1f}s")
-    ptxas = ptxas_report(_build.CSRC / "lora_matmul.cu",
-                         GROUPED_KERNELS + FWD_TC_KERNELS + DX_TC_KERNELS + DEQUANT_TC_KERNELS)
+    ptxas = ptxas_report(_build.CSRC / "lora_matmul.cu", GROUPED_KERNELS + FWD_TC_KERNELS
+                         + DX_TC_KERNELS + DEQUANT_TC_KERNELS + DAB_KERNELS)
     paged_ptxas = ptxas_report(_build.CSRC / "paged_attention.cu", PAGED_KERNELS)
+    flash_ptxas = ptxas_report(_build.CSRC / "flash_attention.cu", FLASH_KERNELS)
     count_hmma(libs["flash_attention"], FLASH_TC_KERNELS)
-    count_hmma(libs["lora_matmul"],
-               GROUPED_TC_KERNELS + FWD_TC_KERNELS + DX_TC_KERNELS + DEQUANT_TC_KERNELS)
+    count_hmma(libs["lora_matmul"], GROUPED_TC_KERNELS + FWD_TC_KERNELS + DX_TC_KERNELS
+               + DEQUANT_TC_KERNELS + DAB_TC_KERNELS)
+    count_hmma(libs["paged_attention"], PAGED_TC_KERNELS)
     paged_ptxas()
+    flash_ptxas()
 
     rows = check_kernels(torch, device)
     flash_rows = check_flash_kernels(torch, device)
@@ -2218,11 +2389,17 @@ def ab_paged(torch):
     return {"paged_ms_per_call": calls}
 
 
-def paged_shares(by_name, busy_s):
-    """Kernel 1's and kernel 2's shares of the device's busy time (kernel 1
-    is paged_decode_kernel and, from its split design on, paged_combine_kernel)."""
-    k1 = sum(us for n, us in by_name.items() if "paged_decode_kernel" in n or "paged_combine_kernel" in n)
-    k2 = sum(us for n, us in by_name.items() if "packed_paged_kernel" in n)
+def paged_shares(by_name, busy_s, packed):
+    """Kernel 1's and kernel 2's shares of the device's busy time and kernel
+    1's ms.  Kernel 1 is paged_decode_kernel and, from its split design on,
+    paged_combine_kernel; kernel 2 was packed_paged_kernel, and from its
+    redesign is packed_tile_kernel plus kernel 1's pair for its other tokens,
+    so in a packed drain (which runs no kernel 1 call) those count as kernel 2."""
+    split = sum(us for n, us in by_name.items()
+                if "paged_decode_kernel" in n or "paged_combine_kernel" in n)
+    k2 = sum(us for n, us in by_name.items() if "packed_paged_kernel" in n or "packed_tile_kernel" in n)
+    k1 = 0.0 if packed else split
+    k2 += split if packed else 0.0
     return k1 / 1e6 / busy_s, k2 / 1e6 / busy_s, k1 / 1e3
 
 
@@ -2250,7 +2427,7 @@ def ab_drains(torch):
         args = serve_cli.parse_args(base + extra)
         scheduler, requests = serve_cli.build(args), serve_cli.read_requests(args)
         _, wall, busy, by_name = device_profile(torch, lambda: scheduler.run(requests))
-        k1, k2, k1_ms = paged_shares(by_name, busy)
+        k1, k2, k1_ms = paged_shares(by_name, busy, label == "packed")
         out[label] = {"tokens_per_s": tokens / seconds, "seconds": seconds, "profiled_wall_s": wall,
                       "device_busy_s": busy, "device_idle_share": 1.0 - busy / wall,
                       "kernel1_share": k1, "kernel1_ms": k1_ms, "kernel2_share": k2}
@@ -2261,7 +2438,7 @@ def ab_drains(torch):
 
 def ab(argv) -> int:
     """``python3 chip_smoke.py --ab DIR [--train [FLAGS...] | --grouped |
-    --lora | --tenants | --paged | --drains]``: one JSON line of the times of the package in the
+    --lora | --tenants | --paged | --drains | --sass]``: one JSON line of the times of the package in the
     checkout at DIR (another tree, such as the parent unpacked with ``git
     archive``) by this script's timer and shapes, so two trees compare on
     one card when run in turns in one call (parent, change, change, parent).
@@ -2275,7 +2452,9 @@ def ab(argv) -> int:
     tenant drains' tokens/s, idle share and kernel 5's share
     (:func:`ab_tenants`).  ``--paged``: kernels 1 and 2 per call
     (:func:`ab_paged`).  ``--drains``: the base drains' tokens/s, idle share
-    and kernels 1 and 2's shares (:func:`ab_drains`)."""
+    and kernels 1 and 2's shares (:func:`ab_drains`).  ``--sass``: the tree's
+    kernels built, and each function's SASS digest (:func:`sass_digests`),
+    so two trees' lines show which kernels compiled to the same code."""
     import torch
 
     if not torch.cuda.is_available():
@@ -2310,6 +2489,10 @@ def ab(argv) -> int:
         out.update(ab_paged(torch))
     elif argv[2:3] == ["--drains"]:
         out.update(ab_drains(torch))
+    elif argv[2:3] == ["--sass"]:
+        from relora_tpu_torch.ops import _build
+
+        out["sass"] = {name: sass_digests(path) for name, path in _build.build_all().items()}
     else:
         from relora_tpu_torch.ops import flash_attention as FA
 

@@ -14,7 +14,7 @@
 // f32 or bf16; the softmax scale is given.  Key j is visible to query i iff
 // j <= i.  The backward takes the forward's lse and delta = rowsum(dO * O)
 // (B, N, S) f32, so neither backward kernel needs the forward's output.  Any
-// B and S, any even H <= 128.
+// B and S, any even H <= 256.
 //
 // Two kernel sets, chosen by dtype alone, never by shape: a bf16 call always
 // runs the tensor-core kernels (and raises where they cannot run), an f32 call
@@ -58,14 +58,21 @@
 //     dP = dO Vᵀ, dS = P (dP - delta) rounded to bf16 is the A operand of
 //     dQ += dS K (K by ldmatrix.trans).
 //   At HP > 64 the backward kernels walk 32-row tiles of the other operand
-//   instead of 64, to keep their accumulators in registers.
+//   instead of 64, to keep their accumulators in registers.  Past HP = 128 a
+//   warp's 16 x HP accumulator is 72-128 f32 registers a thread on its own:
+//   the forward and dQ read Q's (and dO's) fragments from shared memory at
+//   each key tile instead of holding them, the forward walks 32-row key
+//   tiles, and dK/dV (flash_bwd_dkdv_tc_wide_kernel) walks its query tiles
+//   twice, dV's accumulator then dK's, each written straight from registers.
 //
 // f32: flash_{fwd,bwd_dkdv,bwd_dq}_kernel, 256 threads on 64 x 64 tiles
 // staged in shared memory as f32 (row stride H + 1, conflict-free column
 // reads); each thread computes a 4 x 4 block of scores and a 4 x H/16 block of
 // the output with f32 FMAs on the CUDA cores, so the f32 path is exact to
 // summation order (no bf16 or TF32 products), which the f32 training checks
-// need.
+// need.  Past H = 128 four 64-row f32 tiles no longer fit in shared memory:
+// flash_{fwd,bwd_dkdv,bwd_dq}_wide_kernel run the same code on 32 x 32 tiles
+// (2 x 2 scores and 2 x H/16 outputs a thread).
 //
 // Bound.  At llama_250m training shapes (S = 512, H = 48) the work is
 // 2 B N S^2 H causal flops forward and 5 B N S^2 H backward, against 2 bytes
@@ -90,11 +97,12 @@
 
 namespace {
 
-constexpr int kTile = 64;              // f32: query rows and key rows per tile
-constexpr int kThreads = 256;          // f32: 16 row groups of 4 x 16 column lanes
-constexpr int kMaxH = 128;             // largest head_dim
-constexpr int kCols = kMaxH / 16;      // f32: head_dim columns a thread owns
-constexpr int kPld = kTile + 1;        // f32: row stride of score tiles in smem
+constexpr int kThreads = 256;          // f32: 16 row groups x 16 column lanes
+constexpr int kMaxH = 256;             // largest head_dim
+// f32 tiles: (rows of a query or key tile, head_dim columns a thread owns);
+// past H = 128 the tiles halve, so that four of them fit in shared memory
+constexpr int kTile = 64, kCols = 8;
+constexpr int kWideTile = 32, kWideCols = kMaxH / 16;
 constexpr float kMasked = -1e30f;
 
 // max / sum over the 16 lanes of a half-warp (lanes that share a row group)
@@ -126,83 +134,87 @@ struct Args {
 // f32: FMA kernels
 // ---------------------------------------------------------------------------
 
-// rows [row0, row0 + kTile) of a (S, row_stride)-strided head slice into smem
+// rows [row0, row0 + T) of a (S, row_stride)-strided head slice into smem
 // with row stride ld; rows past S read as zero
+template <int T>
 __device__ __forceinline__ void load_tile(float* dst, int ld, const float* src, int row0, int S,
                                           int row_stride, int H) {
-  for (int idx = threadIdx.x; idx < kTile * H; idx += kThreads) {
+  for (int idx = threadIdx.x; idx < T * H; idx += kThreads) {
     const int r = idx / H, d = idx - r * H;
     const int row = row0 + r;
     dst[r * ld + d] = row < S ? src[(size_t)row * row_stride + d] : 0.f;
   }
 }
 
-// lse and delta of query rows [row0, row0 + kTile) of one head; zero past S
+// lse and delta of query rows [row0, row0 + T) of one head; zero past S
+template <int T>
 __device__ __forceinline__ void load_rows(float* lse_s, float* dl_s, const float* lse,
                                           const float* delta, int row0, int S) {
-  for (int r = threadIdx.x; r < kTile; r += kThreads) {
+  for (int r = threadIdx.x; r < T; r += kThreads) {
     const int row = row0 + r;
     lse_s[r] = row < S ? lse[row] : 0.f;
     dl_s[r] = row < S ? delta[row] : 0.f;
   }
 }
 
-__global__ void __launch_bounds__(kThreads) flash_fwd_kernel(Args a) {
+template <int T, int C>
+__device__ __forceinline__ void flash_fwd_f32(const Args& a) {
+  constexpr int R = T / 16, PLD = T + 1;
   extern __shared__ float smem[];
   const int H = a.H, ld = H + 1, S = a.S;
   const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
   const int kh = h / (a.N / a.n_kv);
   const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-  const int q0 = qt * kTile;
+  const int q0 = qt * T;
   float* qs = smem;
-  float* ks = qs + kTile * ld;
-  float* vs = ks + kTile * ld;
-  float* ps = vs + kTile * ld;
+  float* ks = qs + T * ld;
+  float* vs = ks + T * ld;
+  float* ps = vs + T * ld;
 
   const float* q = static_cast<const float*>(a.q) + ((size_t)b * S * a.N + h) * H;
   const float* k = static_cast<const float*>(a.k) + ((size_t)b * S * a.n_kv + kh) * H;
   const float* v = static_cast<const float*>(a.v) + ((size_t)b * S * a.n_kv + kh) * H;
-  load_tile(qs, ld, q, q0, S, a.N * H, H);
+  load_tile<T>(qs, ld, q, q0, S, a.N * H, H);
 
-  float m[4], l[4], acc[4][kCols];
+  float m[R], l[R], acc[R][C];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < R; ++i) {
     m[i] = kMasked;
     l[i] = 0.f;
 #pragma unroll
-    for (int c = 0; c < kCols; ++c) acc[i][c] = 0.f;
+    for (int c = 0; c < C; ++c) acc[i][c] = 0.f;
   }
 
   for (int kt = 0; kt <= qt; ++kt) {
-    const int k0 = kt * kTile;
+    const int k0 = kt * T;
     __syncthreads();  // the previous tile's K, V and P are no longer read
-    load_tile(ks, ld, k, k0, S, a.n_kv * H, H);
-    load_tile(vs, ld, v, k0, S, a.n_kv * H, H);
+    load_tile<T>(ks, ld, k, k0, S, a.n_kv * H, H);
+    load_tile<T>(vs, ld, v, k0, S, a.n_kv * H, H);
     __syncthreads();
 
-    float s[4][4];
+    float s[R][R];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < R; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
+      for (int j = 0; j < R; ++j) s[i][j] = 0.f;
     for (int d = 0; d < H; ++d) {
-      float qv[4], kv[4];
+      float qv[R], kv[R];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) qv[i] = qs[(ty * 4 + i) * ld + d];
+      for (int i = 0; i < R; ++i) qv[i] = qs[(ty * R + i) * ld + d];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) kv[j] = ks[(tx + 16 * j) * ld + d];
+      for (int j = 0; j < R; ++j) kv[j] = ks[(tx + 16 * j) * ld + d];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < R; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
+        for (int j = 0; j < R; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
     }
 
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = q0 + ty * 4 + i;
+    for (int i = 0; i < R; ++i) {
+      const int row = q0 + ty * R + i;
       float mx = kMasked;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < R; ++j) {
         const int col = k0 + tx + 16 * j;
         s[i][j] = (col <= row && col < S) ? s[i][j] * a.scale : kMasked;
         mx = fmaxf(mx, s[i][j]);
@@ -212,31 +224,31 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(Args a) {
       const float alpha = expf(m[i] - m_new);
       float sum = 0.f;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < R; ++j) {
         const int col = k0 + tx + 16 * j;
         const float p = (col <= row && col < S) ? expf(s[i][j] - m_new) : 0.f;
-        ps[(ty * 4 + i) * kPld + tx + 16 * j] = p;
+        ps[(ty * R + i) * PLD + tx + 16 * j] = p;
         sum += p;
       }
       sum = row_sum(sum);
       l[i] = l[i] * alpha + sum;
       m[i] = m_new;
 #pragma unroll
-      for (int c = 0; c < kCols; ++c) acc[i][c] *= alpha;
+      for (int c = 0; c < C; ++c) acc[i][c] *= alpha;
     }
     __syncthreads();
 
-    for (int kk = 0; kk < kTile; ++kk) {
-      float pv[4];
+    for (int kk = 0; kk < T; ++kk) {
+      float pv[R];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) pv[i] = ps[(ty * 4 + i) * kPld + kk];
+      for (int i = 0; i < R; ++i) pv[i] = ps[(ty * R + i) * PLD + kk];
 #pragma unroll
-      for (int c = 0; c < kCols; ++c) {
+      for (int c = 0; c < C; ++c) {
         const int d = tx + 16 * c;
         if (d < H) {
           const float vv = vs[kk * ld + d];
 #pragma unroll
-          for (int i = 0; i < 4; ++i) acc[i][c] = fmaf(pv[i], vv, acc[i][c]);
+          for (int i = 0; i < R; ++i) acc[i][c] = fmaf(pv[i], vv, acc[i][c]);
         }
       }
     }
@@ -245,12 +257,12 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(Args a) {
   float* out = static_cast<float*>(a.out) + ((size_t)b * S * a.N + h) * H;
   float* lse = a.lse_out + ((size_t)b * a.N + h) * S;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + ty * 4 + i;
+  for (int i = 0; i < R; ++i) {
+    const int row = q0 + ty * R + i;
     if (row >= S) continue;
     const float inv = 1.f / fmaxf(l[i], 1e-30f);
 #pragma unroll
-    for (int c = 0; c < kCols; ++c) {
+    for (int c = 0; c < C; ++c) {
       const int d = tx + 16 * c;
       if (d < H) out[(size_t)row * a.N * H + d] = acc[i][c] * inv;
     }
@@ -258,32 +270,34 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(Args a) {
   }
 }
 
-__global__ void __launch_bounds__(kThreads) flash_bwd_dkdv_kernel(Args a) {
+template <int T, int C>
+__device__ __forceinline__ void flash_bwd_dkdv_f32(const Args& a) {
+  constexpr int R = T / 16, PLD = T + 1;
   extern __shared__ float smem[];
   const int H = a.H, ld = H + 1, S = a.S;
   const int kt = blockIdx.x, kh = blockIdx.y, b = blockIdx.z;
   const int g = a.N / a.n_kv;
   const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-  const int k0 = kt * kTile;
-  const int n_qt = (S + kTile - 1) / kTile;
+  const int k0 = kt * T;
+  const int n_qt = (S + T - 1) / T;
   float* ks = smem;
-  float* vs = ks + kTile * ld;
-  float* qs = vs + kTile * ld;
-  float* dos = qs + kTile * ld;
-  float* pt = dos + kTile * ld;   // P^T tile (key row, query col)
-  float* dst = pt + kTile * kPld; // dS^T tile
-  float* lse_s = dst + kTile * kPld;
-  float* dl_s = lse_s + kTile;
+  float* vs = ks + T * ld;
+  float* qs = vs + T * ld;
+  float* dos = qs + T * ld;
+  float* pt = dos + T * ld;   // P^T tile (key row, query col)
+  float* dst = pt + T * PLD;  // dS^T tile
+  float* lse_s = dst + T * PLD;
+  float* dl_s = lse_s + T;
 
   const size_t kv_off = ((size_t)b * S * a.n_kv + kh) * H;
-  load_tile(ks, ld, static_cast<const float*>(a.k) + kv_off, k0, S, a.n_kv * H, H);
-  load_tile(vs, ld, static_cast<const float*>(a.v) + kv_off, k0, S, a.n_kv * H, H);
+  load_tile<T>(ks, ld, static_cast<const float*>(a.k) + kv_off, k0, S, a.n_kv * H, H);
+  load_tile<T>(vs, ld, static_cast<const float*>(a.v) + kv_off, k0, S, a.n_kv * H, H);
 
-  float dk[4][kCols], dv[4][kCols];
+  float dk[R][C], dv[R][C];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < R; ++i)
 #pragma unroll
-    for (int c = 0; c < kCols; ++c) dk[i][c] = dv[i][c] = 0.f;
+    for (int c = 0; c < C; ++c) dk[i][c] = dv[i][c] = 0.f;
 
   for (int hq = kh * g; hq < (kh + 1) * g; ++hq) {
     const size_t q_off = ((size_t)b * S * a.N + hq) * H;
@@ -292,70 +306,70 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkdv_kernel(Args a) {
     const float* lse = a.lse + ((size_t)b * a.N + hq) * S;
     const float* delta = a.delta + ((size_t)b * a.N + hq) * S;
     for (int qt = kt; qt < n_qt; ++qt) {
-      const int q0 = qt * kTile;
+      const int q0 = qt * T;
       __syncthreads();  // the previous tile's Q, dO, P^T and dS^T are no longer read
-      load_tile(qs, ld, q, q0, S, a.N * H, H);
-      load_tile(dos, ld, dout, q0, S, a.N * H, H);
-      load_rows(lse_s, dl_s, lse, delta, q0, S);
+      load_tile<T>(qs, ld, q, q0, S, a.N * H, H);
+      load_tile<T>(dos, ld, dout, q0, S, a.N * H, H);
+      load_rows<T>(lse_s, dl_s, lse, delta, q0, S);
       __syncthreads();
 
-      // S^T = K Q^T and dP^T = V dO^T for key rows ty*4+i, query cols tx+16j
-      float st[4][4], dpt[4][4];
+      // S^T = K Q^T and dP^T = V dO^T for key rows ty*R+i, query cols tx+16j
+      float st[R][R], dpt[R][R];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < R; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) st[i][j] = dpt[i][j] = 0.f;
+        for (int j = 0; j < R; ++j) st[i][j] = dpt[i][j] = 0.f;
       for (int d = 0; d < H; ++d) {
-        float kv[4], vv[4], qv[4], dov[4];
+        float kv[R], vv[R], qv[R], dov[R];
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          kv[i] = ks[(ty * 4 + i) * ld + d];
-          vv[i] = vs[(ty * 4 + i) * ld + d];
+        for (int i = 0; i < R; ++i) {
+          kv[i] = ks[(ty * R + i) * ld + d];
+          vv[i] = vs[(ty * R + i) * ld + d];
         }
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
+        for (int j = 0; j < R; ++j) {
           qv[j] = qs[(tx + 16 * j) * ld + d];
           dov[j] = dos[(tx + 16 * j) * ld + d];
         }
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
+        for (int i = 0; i < R; ++i)
 #pragma unroll
-          for (int j = 0; j < 4; ++j) {
+          for (int j = 0; j < R; ++j) {
             st[i][j] = fmaf(kv[i], qv[j], st[i][j]);
             dpt[i][j] = fmaf(vv[i], dov[j], dpt[i][j]);
           }
       }
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int krow = k0 + ty * 4 + i;
+      for (int i = 0; i < R; ++i) {
+        const int krow = k0 + ty * R + i;
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
+        for (int j = 0; j < R; ++j) {
           const int qc = tx + 16 * j;
           const int qrow = q0 + qc;
           const float p =
               (qrow < S && krow <= qrow) ? expf(st[i][j] * a.scale - lse_s[qc]) : 0.f;
-          pt[(ty * 4 + i) * kPld + qc] = p;
-          dst[(ty * 4 + i) * kPld + qc] = p * (dpt[i][j] - dl_s[qc]);
+          pt[(ty * R + i) * PLD + qc] = p;
+          dst[(ty * R + i) * PLD + qc] = p * (dpt[i][j] - dl_s[qc]);
         }
       }
       __syncthreads();
 
-      // dV += P^T dO, dK += dS^T Q for key rows ty*4+i, dims tx+16c
-      for (int qq = 0; qq < kTile; ++qq) {
-        float pv[4], dsv[4];
+      // dV += P^T dO, dK += dS^T Q for key rows ty*R+i, dims tx+16c
+      for (int qq = 0; qq < T; ++qq) {
+        float pv[R], dsv[R];
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          pv[i] = pt[(ty * 4 + i) * kPld + qq];
-          dsv[i] = dst[(ty * 4 + i) * kPld + qq];
+        for (int i = 0; i < R; ++i) {
+          pv[i] = pt[(ty * R + i) * PLD + qq];
+          dsv[i] = dst[(ty * R + i) * PLD + qq];
         }
 #pragma unroll
-        for (int c = 0; c < kCols; ++c) {
+        for (int c = 0; c < C; ++c) {
           const int d = tx + 16 * c;
           if (d < H) {
             const float dov = dos[qq * ld + d];
             const float qv = qs[qq * ld + d];
 #pragma unroll
-            for (int i = 0; i < 4; ++i) {
+            for (int i = 0; i < R; ++i) {
               dv[i][c] = fmaf(pv[i], dov, dv[i][c]);
               dk[i][c] = fmaf(dsv[i], qv, dk[i][c]);
             }
@@ -368,11 +382,11 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkdv_kernel(Args a) {
   float* dk_out = static_cast<float*>(a.dk) + kv_off;
   float* dv_out = static_cast<float*>(a.dv) + kv_off;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = k0 + ty * 4 + i;
+  for (int i = 0; i < R; ++i) {
+    const int row = k0 + ty * R + i;
     if (row >= S) continue;
 #pragma unroll
-    for (int c = 0; c < kCols; ++c) {
+    for (int c = 0; c < C; ++c) {
       const int d = tx + 16 * c;
       if (d < H) {
         dk_out[(size_t)row * a.n_kv * H + d] = dk[i][c] * a.scale;
@@ -382,92 +396,94 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkdv_kernel(Args a) {
   }
 }
 
-__global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(Args a) {
+template <int T, int C>
+__device__ __forceinline__ void flash_bwd_dq_f32(const Args& a) {
+  constexpr int R = T / 16, PLD = T + 1;
   extern __shared__ float smem[];
   const int H = a.H, ld = H + 1, S = a.S;
   const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
   const int kh = h / (a.N / a.n_kv);
   const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-  const int q0 = qt * kTile;
+  const int q0 = qt * T;
   float* qs = smem;
-  float* dos = qs + kTile * ld;
-  float* ks = dos + kTile * ld;
-  float* vs = ks + kTile * ld;
-  float* dss = vs + kTile * ld;  // dS tile (query row, key col)
-  float* lse_s = dss + kTile * kPld;
-  float* dl_s = lse_s + kTile;
+  float* dos = qs + T * ld;
+  float* ks = dos + T * ld;
+  float* vs = ks + T * ld;
+  float* dss = vs + T * ld;  // dS tile (query row, key col)
+  float* lse_s = dss + T * PLD;
+  float* dl_s = lse_s + T;
 
   const size_t q_off = ((size_t)b * S * a.N + h) * H;
   const size_t kv_off = ((size_t)b * S * a.n_kv + kh) * H;
-  load_tile(qs, ld, static_cast<const float*>(a.q) + q_off, q0, S, a.N * H, H);
-  load_tile(dos, ld, static_cast<const float*>(a.dout) + q_off, q0, S, a.N * H, H);
-  load_rows(lse_s, dl_s, a.lse + ((size_t)b * a.N + h) * S,
-            a.delta + ((size_t)b * a.N + h) * S, q0, S);
+  load_tile<T>(qs, ld, static_cast<const float*>(a.q) + q_off, q0, S, a.N * H, H);
+  load_tile<T>(dos, ld, static_cast<const float*>(a.dout) + q_off, q0, S, a.N * H, H);
+  load_rows<T>(lse_s, dl_s, a.lse + ((size_t)b * a.N + h) * S,
+               a.delta + ((size_t)b * a.N + h) * S, q0, S);
   const float* k = static_cast<const float*>(a.k) + kv_off;
   const float* v = static_cast<const float*>(a.v) + kv_off;
 
-  float dq[4][kCols];
+  float dq[R][C];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < R; ++i)
 #pragma unroll
-    for (int c = 0; c < kCols; ++c) dq[i][c] = 0.f;
+    for (int c = 0; c < C; ++c) dq[i][c] = 0.f;
 
   for (int kt = 0; kt <= qt; ++kt) {
-    const int k0 = kt * kTile;
+    const int k0 = kt * T;
     __syncthreads();  // the previous tile's K and dS are no longer read
-    load_tile(ks, ld, k, k0, S, a.n_kv * H, H);
-    load_tile(vs, ld, v, k0, S, a.n_kv * H, H);
+    load_tile<T>(ks, ld, k, k0, S, a.n_kv * H, H);
+    load_tile<T>(vs, ld, v, k0, S, a.n_kv * H, H);
     __syncthreads();
 
-    float s[4][4], dp[4][4];
+    float s[R][R], dp[R][R];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < R; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
+      for (int j = 0; j < R; ++j) s[i][j] = dp[i][j] = 0.f;
     for (int d = 0; d < H; ++d) {
-      float qv[4], dov[4], kv[4], vv[4];
+      float qv[R], dov[R], kv[R], vv[R];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        qv[i] = qs[(ty * 4 + i) * ld + d];
-        dov[i] = dos[(ty * 4 + i) * ld + d];
+      for (int i = 0; i < R; ++i) {
+        qv[i] = qs[(ty * R + i) * ld + d];
+        dov[i] = dos[(ty * R + i) * ld + d];
       }
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < R; ++j) {
         kv[j] = ks[(tx + 16 * j) * ld + d];
         vv[j] = vs[(tx + 16 * j) * ld + d];
       }
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < R; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
+        for (int j = 0; j < R; ++j) {
           s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
           dp[i][j] = fmaf(dov[i], vv[j], dp[i][j]);
         }
     }
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = ty * 4 + i;
+    for (int i = 0; i < R; ++i) {
+      const int r = ty * R + i;
       const int qrow = q0 + r;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < R; ++j) {
         const int col = k0 + tx + 16 * j;
         const float p = (qrow < S && col <= qrow) ? expf(s[i][j] * a.scale - lse_s[r]) : 0.f;
-        dss[r * kPld + tx + 16 * j] = p * (dp[i][j] - dl_s[r]);
+        dss[r * PLD + tx + 16 * j] = p * (dp[i][j] - dl_s[r]);
       }
     }
     __syncthreads();
 
-    for (int kk = 0; kk < kTile; ++kk) {
-      float dsv[4];
+    for (int kk = 0; kk < T; ++kk) {
+      float dsv[R];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) dsv[i] = dss[(ty * 4 + i) * kPld + kk];
+      for (int i = 0; i < R; ++i) dsv[i] = dss[(ty * R + i) * PLD + kk];
 #pragma unroll
-      for (int c = 0; c < kCols; ++c) {
+      for (int c = 0; c < C; ++c) {
         const int d = tx + 16 * c;
         if (d < H) {
           const float kv = ks[kk * ld + d];
 #pragma unroll
-          for (int i = 0; i < 4; ++i) dq[i][c] = fmaf(dsv[i], kv, dq[i][c]);
+          for (int i = 0; i < R; ++i) dq[i][c] = fmaf(dsv[i], kv, dq[i][c]);
         }
       }
     }
@@ -475,15 +491,36 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(Args a) {
 
   float* dq_out = static_cast<float*>(a.out) + q_off;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + ty * 4 + i;
+  for (int i = 0; i < R; ++i) {
+    const int row = q0 + ty * R + i;
     if (row >= S) continue;
 #pragma unroll
-    for (int c = 0; c < kCols; ++c) {
+    for (int c = 0; c < C; ++c) {
       const int d = tx + 16 * c;
       if (d < H) dq_out[(size_t)row * a.N * H + d] = dq[i][c] * a.scale;
     }
   }
+}
+
+// the f32 kernels: 64-row tiles up to H = 128 (each thread 4 x 4 scores and
+// 4 x 8 output columns), 32-row tiles past it (2 x 2 scores, 2 x 16 columns)
+__global__ void __launch_bounds__(kThreads) flash_fwd_kernel(Args a) {
+  flash_fwd_f32<kTile, kCols>(a);
+}
+__global__ void __launch_bounds__(kThreads) flash_bwd_dkdv_kernel(Args a) {
+  flash_bwd_dkdv_f32<kTile, kCols>(a);
+}
+__global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(Args a) {
+  flash_bwd_dq_f32<kTile, kCols>(a);
+}
+__global__ void __launch_bounds__(kThreads) flash_fwd_wide_kernel(Args a) {
+  flash_fwd_f32<kWideTile, kWideCols>(a);
+}
+__global__ void __launch_bounds__(kThreads) flash_bwd_dkdv_wide_kernel(Args a) {
+  flash_bwd_dkdv_f32<kWideTile, kWideCols>(a);
+}
+__global__ void __launch_bounds__(kThreads) flash_bwd_dq_wide_kernel(Args a) {
+  flash_bwd_dq_f32<kWideTile, kWideCols>(a);
 }
 
 // ---------------------------------------------------------------------------
@@ -498,11 +535,18 @@ constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 
 // rows of the other operand's tiles a block walks (64, or 32 past HP = 64 in
-// the backward kernels, whose accumulators would not fit in registers)
+// the backward kernels, whose accumulators would not fit in registers).
+// Past HP = 128 (WIDE) a warp's 16 x HP f32 accumulator alone is HP / 2 =
+// 65-128 registers a thread: the forward and dQ then read Q's (and dO's)
+// fragments from shared memory at every key tile instead of holding them,
+// the forward walks 32-row key tiles, and dK/dV takes its own kernel
+// (flash_bwd_dkdv_tc_wide_kernel), which accumulates one of the two at a time
 template <int HP>
 struct TcShape {
   static constexpr int LD = HP + 8;  // smem row stride, elements
   static constexpr int KSTEPS = HP / 16;
+  static constexpr bool WIDE = HP > 128;
+  static constexpr int FWD_TILE = WIDE ? 32 : 64;
   static constexpr int BWD_TILE = HP <= 64 ? 64 : 32;
 };
 
@@ -652,7 +696,7 @@ __device__ __forceinline__ int bt_col(int lane) { return (lane / 16) * 8; }
 template <int HP>
 __global__ void __launch_bounds__(kTcThreads) flash_fwd_tc_kernel(Args a, int vec) {
   using Sh = TcShape<HP>;
-  constexpr int LD = Sh::LD, BM = kTcRows, BN = 64;
+  constexpr int LD = Sh::LD, BM = kTcRows, BN = Sh::FWD_TILE;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* qs = reinterpret_cast<bf16*>(smem_raw);
   bf16* ks = qs + BM * LD;      // two buffers
@@ -677,10 +721,12 @@ __global__ void __launch_bounds__(kTcThreads) flash_fwd_tc_kernel(Args a, int ve
   cp_async_wait_all();
   __syncthreads();
 
-  uint32_t qf[Sh::KSTEPS][4];
+  uint32_t qf[Sh::WIDE ? 1 : Sh::KSTEPS][4];  // WIDE: read at each key tile
+  if constexpr (!Sh::WIDE) {
 #pragma unroll
-  for (int kk = 0; kk < Sh::KSTEPS; ++kk)
-    ldsm_x4(qf[kk], qs + (w * 16 + a_row(lane)) * LD + kk * 16 + a_col(lane));
+    for (int kk = 0; kk < Sh::KSTEPS; ++kk)
+      ldsm_x4(qf[kk], qs + (w * 16 + a_row(lane)) * LD + kk * 16 + a_col(lane));
+  }
 
   float o[HP / 8][4];
 #pragma unroll
@@ -703,21 +749,26 @@ __global__ void __launch_bounds__(kTcThreads) flash_fwd_tc_kernel(Args a, int ve
     const bf16* vb = vs + buf * BN * LD;
     const int k0 = kt * BN;
 
-    // S = Q K^T, 16 x 64 per warp
+    // S = Q K^T, 16 x BN per warp
     float s[BN / 8][4];
 #pragma unroll
     for (int j = 0; j < BN / 8; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
 #pragma unroll
-    for (int kk = 0; kk < Sh::KSTEPS; ++kk)
+    for (int kk = 0; kk < Sh::KSTEPS; ++kk) {
+      uint32_t qw[4];
+      if constexpr (Sh::WIDE)
+        ldsm_x4(qw, qs + (w * 16 + a_row(lane)) * LD + kk * 16 + a_col(lane));
+      const uint32_t(&qa)[4] = Sh::WIDE ? qw : qf[Sh::WIDE ? 0 : kk];
 #pragma unroll
       for (int p = 0; p < BN / 16; ++p) {
         uint32_t bq[4];
         ldsm_x4(bq, kb + (p * 16 + bn_row(lane)) * LD + kk * 16 + bn_col(lane));
-        mma(s[2 * p], qf[kk], bq[0], bq[1]);
-        mma(s[2 * p + 1], qf[kk], bq[2], bq[3]);
+        mma(s[2 * p], qa, bq[0], bq[1]);
+        mma(s[2 * p + 1], qa, bq[2], bq[3]);
       }
+    }
 
     // online softmax over the warp's rows gr (i = 0) and gr + 8 (i = 1)
     const bool masked = k0 + BN - 1 > row_lo;
@@ -782,7 +833,7 @@ __global__ void __launch_bounds__(kTcThreads) flash_fwd_tc_kernel(Args a, int ve
     l[i] = fmaxf(l[i], 1e-30f);
     inv[i] = 1.f / l[i];
   }
-  stage_acc<HP>(qs, o, inv[0], inv[1]);  // Q's tile is free: its fragments are in registers
+  stage_acc<HP>(qs, o, inv[0], inv[1]);  // Q's tile is free: no warp reads it after the loop
   __syncthreads();
   store_tile(static_cast<bf16*>(a.out) + ((long long)b * S * a.N + h) * H, q_stride, qs, LD, q0,
              BM, S, H, vec);
@@ -928,6 +979,176 @@ __global__ void __launch_bounds__(kTcThreads) flash_bwd_dkdv_tc_kernel(Args a, i
   store_tile(static_cast<bf16*>(a.dv) + kv_off, kv_stride, vs, LD, k0, BN, S, H, vec);
 }
 
+// the warp's 16 x HP accumulator times f, as bf16 straight into rows row_lo +
+// {gr, gr + 8} of one head in device memory (row stride `stride`), columns
+// [0, H), rows < S only: two columns a 4-byte store (H is even)
+template <int HP>
+__device__ __forceinline__ void store_acc(bf16* dst, long long stride, const float (&acc)[HP / 8][4],
+                                          float f, int row_lo, int S, int H) {
+  const int lane = threadIdx.x % 32, c = (lane % 4) * 2;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = row_lo + lane / 4 + 8 * i;
+    if (row >= S) continue;
+#pragma unroll
+    for (int dt = 0; dt < HP / 8; ++dt)
+      if (dt * 8 + c < H)
+        *reinterpret_cast<__nv_bfloat162*>(dst + row * stride + dt * 8 + c) =
+            __floats2bfloat162_rn(acc[dt][2 * i] * f, acc[dt][2 * i + 1] * f);
+  }
+}
+
+// dK/dV past HP = 128.  dK and dV together would take 2 HP / 2 = 256 f32
+// registers a thread, so the block walks its query tiles twice with one
+// accumulator: pass kDk = false takes S^T = K Q^T, P^T and dV += P^T dO;
+// pass kDk = true takes S^T and dP^T again, dS^T and dK += dS^T Q.  A fifth
+// more products than flash_bwd_dkdv_tc_kernel, no spill; the tiling, the
+// shared-memory layout and the masks are that kernel's at BQ = 32
+template <int HP, bool kDk>
+__device__ __forceinline__ void dkdv_wide_pass(const Args& a, int vec) {
+  using Sh = TcShape<HP>;
+  constexpr int LD = Sh::LD, BN = kTcRows, BQ = Sh::BWD_TILE;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* ks = reinterpret_cast<bf16*>(smem_raw);
+  bf16* vs = ks + BN * LD;
+  bf16* qs = vs + BN * LD;       // two buffers
+  bf16* dos = qs + 2 * BQ * LD;  // two buffers
+  float* lse_s = reinterpret_cast<float*>(dos + 2 * BQ * LD);  // two buffers
+  float* dl_s = lse_s + 2 * BQ;                                // two buffers
+  const int S = a.S, H = a.H;
+  const int kt = blockIdx.z, kh = blockIdx.x, b = blockIdx.y;
+  const int g = a.N / a.n_kv;
+  const int k0 = kt * BN;
+  const int lane = threadIdx.x % 32, w = threadIdx.x / 32, gr = lane / 4, tq = lane % 4;
+  const long long q_stride = (long long)a.N * H, kv_stride = (long long)a.n_kv * H;
+  const long long kv_off = ((long long)b * S * a.n_kv + kh) * H;
+  const int qt0 = k0 / BQ;
+  const int per_head = (S + BQ - 1) / BQ - qt0;
+  const int total = g * per_head;
+
+  auto load_q = [&](int i, int buf) {
+    const int hq = kh * g + i / per_head, q0 = (qt0 + i % per_head) * BQ;
+    const long long q_off = ((long long)b * S * a.N + hq) * H;
+    const long long r_off = ((long long)b * a.N + hq) * S;
+    load_tile_async(qs + buf * BQ * LD, LD, static_cast<const bf16*>(a.q) + q_off, q0, BQ, S,
+                    q_stride, H, vec);
+    load_tile_async(dos + buf * BQ * LD, LD, static_cast<const bf16*>(a.dout) + q_off, q0, BQ,
+                    S, q_stride, H, vec);
+    load_vec_async(lse_s + buf * BQ, a.lse + r_off, q0, BQ, S);
+    load_vec_async(dl_s + buf * BQ, a.delta + r_off, q0, BQ, S);
+  };
+
+  __syncthreads();  // the previous pass reads no buffer any more
+  if constexpr (!kDk) {
+    zero_pad(ks, 2 * BN + 4 * BQ, LD, H, HP);
+    load_tile_async(ks, LD, static_cast<const bf16*>(a.k) + kv_off, k0, BN, S, kv_stride, H, vec);
+    load_tile_async(vs, LD, static_cast<const bf16*>(a.v) + kv_off, k0, BN, S, kv_stride, H, vec);
+  }
+  load_q(0, 0);
+  cp_async_commit();
+  cp_async_wait_all();
+  __syncthreads();
+
+  float acc[HP / 8][4];
+#pragma unroll
+  for (int dt = 0; dt < HP / 8; ++dt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[dt][e] = 0.f;
+  const float sl2 = a.scale * kLog2e;
+  const int key_hi = k0 + w * 16 + 15;
+
+  for (int i = 0; i < total; ++i) {
+    const int buf = i & 1;
+    if (i + 1 < total) load_q(i + 1, buf ^ 1);
+    cp_async_commit();
+    const int q0 = (qt0 + i % per_head) * BQ;
+    const bf16* qb = qs + buf * BQ * LD;
+    const bf16* dob = dos + buf * BQ * LD;
+    const float* lse_b = lse_s + buf * BQ;
+    const float* dl_b = dl_s + buf * BQ;
+
+    // S^T = K Q^T (and, for dK, dP^T = V dO^T), 16 keys x BQ queries per warp
+    float st[BQ / 8][4], dpt[kDk ? BQ / 8 : 1][4];
+#pragma unroll
+    for (int j = 0; j < BQ / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) st[j][e] = 0.f;
+    if constexpr (kDk) {
+#pragma unroll
+      for (int j = 0; j < BQ / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) dpt[j][e] = 0.f;
+    }
+#pragma unroll 1  // rolled: unrolled, ptxas hoists the fragments and spills
+    for (int kk = 0; kk < Sh::KSTEPS; ++kk) {
+      uint32_t ka[4];
+      ldsm_x4(ka, ks + (w * 16 + a_row(lane)) * LD + kk * 16 + a_col(lane));
+#pragma unroll
+      for (int p = 0; p < BQ / 16; ++p) {
+        uint32_t bq[4];
+        ldsm_x4(bq, qb + (p * 16 + bn_row(lane)) * LD + kk * 16 + bn_col(lane));
+        mma(st[2 * p], ka, bq[0], bq[1]);
+        mma(st[2 * p + 1], ka, bq[2], bq[3]);
+      }
+      if constexpr (kDk) {
+        uint32_t va[4];
+        ldsm_x4(va, vs + (w * 16 + a_row(lane)) * LD + kk * 16 + a_col(lane));
+#pragma unroll
+        for (int p = 0; p < BQ / 16; ++p) {
+          uint32_t bo[4];
+          ldsm_x4(bo, dob + (p * 16 + bn_row(lane)) * LD + kk * 16 + bn_col(lane));
+          mma(dpt[2 * p], va, bo[0], bo[1]);
+          mma(dpt[2 * p + 1], va, bo[2], bo[3]);
+        }
+      }
+    }
+
+    // P^T = exp(S^T scale - lse); dS^T = P^T (dP^T - delta) into st for dK
+    const bool masked = q0 < key_hi || q0 + BQ > S;
+#pragma unroll
+    for (int j = 0; j < BQ / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int ql = j * 8 + 2 * tq + e;
+        const float lse_q = lse_b[ql] * kLog2e;
+#pragma unroll
+        for (int i2 = 0; i2 < 2; ++i2) {
+          const int key = k0 + w * 16 + gr + 8 * i2;
+          float p = exp2f(st[j][2 * i2 + e] * sl2 - lse_q);
+          if (masked && (key > q0 + ql || q0 + ql >= S)) p = 0.f;
+          if constexpr (kDk) p *= dpt[j][2 * i2 + e] - dl_b[ql];
+          st[j][2 * i2 + e] = p;
+        }
+      }
+
+    // dV += P^T dO (dK += dS^T Q), the scores as bf16 A fragments
+    const bf16* other = kDk ? qb : dob;
+#pragma unroll
+    for (int c = 0; c < BQ / 16; ++c) {
+      uint32_t pa[4];
+      acc_to_a(pa, st[2 * c], st[2 * c + 1]);
+#pragma unroll
+      for (int dp = 0; dp < HP / 16; ++dp) {
+        uint32_t bo[4];
+        ldsm_x4_t(bo, other + (c * 16 + bt_row(lane)) * LD + dp * 16 + bt_col(lane));
+        mma(acc[2 * dp], pa, bo[0], bo[1]);
+        mma(acc[2 * dp + 1], pa, bo[2], bo[3]);
+      }
+    }
+    cp_async_wait_all();
+    __syncthreads();
+  }
+
+  store_acc<HP>(static_cast<bf16*>(kDk ? a.dk : a.dv) + kv_off, kv_stride, acc,
+                kDk ? a.scale : 1.f, k0 + w * 16, S, H);
+}
+
+template <int HP>
+__global__ void __launch_bounds__(kTcThreads) flash_bwd_dkdv_tc_wide_kernel(Args a, int vec) {
+  dkdv_wide_pass<HP, false>(a, vec);
+  dkdv_wide_pass<HP, true>(a, vec);
+}
+
 template <int HP>
 __global__ void __launch_bounds__(kTcThreads) flash_bwd_dq_tc_kernel(Args a, int vec) {
   using Sh = TcShape<HP>;
@@ -970,11 +1191,14 @@ __global__ void __launch_bounds__(kTcThreads) flash_bwd_dq_tc_kernel(Args a, int
   cp_async_wait_all();
   __syncthreads();
 
-  uint32_t qf[Sh::KSTEPS][4], df[Sh::KSTEPS][4];
+  constexpr int kHeld = Sh::WIDE ? 1 : Sh::KSTEPS;  // WIDE: read at each key tile
+  uint32_t qf[kHeld][4], df[kHeld][4];
+  if constexpr (!Sh::WIDE) {
 #pragma unroll
-  for (int kk = 0; kk < Sh::KSTEPS; ++kk) {
-    ldsm_x4(qf[kk], qs + (w * 16 + a_row(lane)) * LD + kk * 16 + a_col(lane));
-    ldsm_x4(df[kk], dos + (w * 16 + a_row(lane)) * LD + kk * 16 + a_col(lane));
+    for (int kk = 0; kk < Sh::KSTEPS; ++kk) {
+      ldsm_x4(qf[kk], qs + (w * 16 + a_row(lane)) * LD + kk * 16 + a_col(lane));
+      ldsm_x4(df[kk], dos + (w * 16 + a_row(lane)) * LD + kk * 16 + a_col(lane));
+    }
   }
 
   float dq[HP / 8][4];
@@ -1003,17 +1227,25 @@ __global__ void __launch_bounds__(kTcThreads) flash_bwd_dq_tc_kernel(Args a, int
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
 #pragma unroll
-    for (int kk = 0; kk < Sh::KSTEPS; ++kk)
+    for (int kk = 0; kk < Sh::KSTEPS; ++kk) {
+      uint32_t qw[4], dw[4];
+      if constexpr (Sh::WIDE) {
+        ldsm_x4(qw, qs + (w * 16 + a_row(lane)) * LD + kk * 16 + a_col(lane));
+        ldsm_x4(dw, dos + (w * 16 + a_row(lane)) * LD + kk * 16 + a_col(lane));
+      }
+      const uint32_t(&qa)[4] = Sh::WIDE ? qw : qf[Sh::WIDE ? 0 : kk];
+      const uint32_t(&da)[4] = Sh::WIDE ? dw : df[Sh::WIDE ? 0 : kk];
 #pragma unroll
       for (int p = 0; p < BN / 16; ++p) {
         uint32_t bk[4], bv[4];
         ldsm_x4(bk, kb + (p * 16 + bn_row(lane)) * LD + kk * 16 + bn_col(lane));
-        mma(s[2 * p], qf[kk], bk[0], bk[1]);
-        mma(s[2 * p + 1], qf[kk], bk[2], bk[3]);
+        mma(s[2 * p], qa, bk[0], bk[1]);
+        mma(s[2 * p + 1], qa, bk[2], bk[3]);
         ldsm_x4(bv, vb + (p * 16 + bn_row(lane)) * LD + kk * 16 + bn_col(lane));
-        mma(dp[2 * p], df[kk], bv[0], bv[1]);
-        mma(dp[2 * p + 1], df[kk], bv[2], bv[3]);
+        mma(dp[2 * p], da, bv[0], bv[1]);
+        mma(dp[2 * p + 1], da, bv[2], bv[3]);
       }
+    }
 
     // dS = P (dP - delta), P = exp(S scale - lse), into s
     const bool masked = k0 + BN - 1 > row_lo;
@@ -1045,7 +1277,7 @@ __global__ void __launch_bounds__(kTcThreads) flash_bwd_dq_tc_kernel(Args a, int
     __syncthreads();
   }
 
-  stage_acc<HP>(qs, dq, a.scale, a.scale);  // Q's tile is free: its fragments are in registers
+  stage_acc<HP>(qs, dq, a.scale, a.scale);  // Q's tile is free: no warp reads it after the loop
   __syncthreads();
   store_tile(static_cast<bf16*>(a.out) + q_off, q_stride, qs, LD, q0, BM, S, H, vec);
 }
@@ -1066,6 +1298,14 @@ R with_padded_head(int H, R otherwise, F&& f) {
     case 6: return f(std::integral_constant<int, 96>());
     case 7: return f(std::integral_constant<int, 112>());
     case 8: return f(std::integral_constant<int, 128>());
+    case 9: return f(std::integral_constant<int, 144>());
+    case 10: return f(std::integral_constant<int, 160>());
+    case 11: return f(std::integral_constant<int, 176>());
+    case 12: return f(std::integral_constant<int, 192>());
+    case 13: return f(std::integral_constant<int, 208>());
+    case 14: return f(std::integral_constant<int, 224>());
+    case 15: return f(std::integral_constant<int, 240>());
+    case 16: return f(std::integral_constant<int, 256>());
   }
   return otherwise;
 }
@@ -1078,19 +1318,20 @@ size_t smem_bytes(int which, int H, int dtype) {
       using Sh = TcShape<decltype(hp)::value>;
       const size_t row = sizeof(bf16) * Sh::LD, other = Sh::BWD_TILE;
       switch (which) {
-        case kForward: return row * (kTcRows + 4 * 64);
+        case kForward: return row * (kTcRows + 4 * Sh::FWD_TILE);
         case kBwdDkdv: return row * (2 * kTcRows + 4 * other) + sizeof(float) * 4 * other;
         case kBwdDq: return row * (2 * kTcRows + 4 * other);
       }
       return 0;
     });
   }
-  const size_t tile = (size_t)kTile * (H + 1);
-  const size_t scores = (size_t)kTile * kPld;
+  const size_t T = H <= 128 ? kTile : kWideTile;
+  const size_t tile = T * (H + 1);
+  const size_t scores = T * (T + 1);
   switch (which) {
     case kForward: return sizeof(float) * (3 * tile + scores);
-    case kBwdDkdv: return sizeof(float) * (4 * tile + 2 * scores + 2 * kTile);
-    case kBwdDq: return sizeof(float) * (4 * tile + scores + 2 * kTile);
+    case kBwdDkdv: return sizeof(float) * (4 * tile + 2 * scores + 2 * T);
+    case kBwdDq: return sizeof(float) * (4 * tile + scores + 2 * T);
   }
   return 0;
 }
@@ -1101,12 +1342,14 @@ int set_smem(const void* kern, size_t smem) {
 }
 
 int launch_f32(int which, const Args& a, cudaStream_t stream) {
-  void (*kern)(Args) = &flash_bwd_dq_kernel;
-  if (which == kForward) kern = &flash_fwd_kernel;
-  if (which == kBwdDkdv) kern = &flash_bwd_dkdv_kernel;
+  const bool wide = a.H > 128;
+  void (*kern)(Args) = wide ? &flash_bwd_dq_wide_kernel : &flash_bwd_dq_kernel;
+  if (which == kForward) kern = wide ? &flash_fwd_wide_kernel : &flash_fwd_kernel;
+  if (which == kBwdDkdv) kern = wide ? &flash_bwd_dkdv_wide_kernel : &flash_bwd_dkdv_kernel;
   const size_t smem = smem_bytes(which, a.H, kF32);
   if (int e = set_smem((const void*)kern, smem)) return e;
-  const int tiles = (a.S + kTile - 1) / kTile;
+  const int T = wide ? kWideTile : kTile;
+  const int tiles = (a.S + T - 1) / T;
   dim3 grid(tiles, which == kBwdDkdv ? a.n_kv : a.N, a.B);
   kern<<<grid, kThreads, smem, stream>>>(a);
   return (int)cudaGetLastError();
@@ -1116,7 +1359,12 @@ template <int HP>
 int launch_tc_hp(int which, const Args& a, int vec, cudaStream_t stream) {
   void (*kern)(Args, int) = &flash_bwd_dq_tc_kernel<HP>;
   if (which == kForward) kern = &flash_fwd_tc_kernel<HP>;
-  if (which == kBwdDkdv) kern = &flash_bwd_dkdv_tc_kernel<HP>;
+  if (which == kBwdDkdv) {
+    if constexpr (TcShape<HP>::WIDE)
+      kern = &flash_bwd_dkdv_tc_wide_kernel<HP>;
+    else
+      kern = &flash_bwd_dkdv_tc_kernel<HP>;
+  }
   const size_t smem = smem_bytes(which, a.H, kBF16);
   if (int e = set_smem((const void*)kern, smem)) return e;
   // the tile axis is the slowest, so blocks are handed out heaviest tiles first

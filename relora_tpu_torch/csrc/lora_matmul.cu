@@ -135,10 +135,38 @@
 // registers, the accumulators scaled per column, y rounded once to bf16.  It
 // reuses tc_seg1 and the epilogue helpers, so the four kernels above keep
 // their code.
+// Kernel 7 (bf16 g, x, K, N and r multiples of 8, aligned pointers) takes
+// the tensor cores in three launches:
+//   1. dab_split_kernel: u and z (M, r) f32 into hi = bf16(v) and lo =
+//      bf16(v - hi) halves, (4, M, r) bf16 scratch (8 M r bytes, read from
+//      L2 by launch 2).
+//   2. dab_tc_kernel: dA = x^T u (K, r) and dB^T = g^T z (N, r) are the same
+//      product C = L^T R over the rows of M, L bf16 and exact, R the two
+//      halves, so both outputs' tiles share one grid: 128 x 128 tiles
+//      (output rows x rank columns), 8 warps of 64 x 32, x blockIdx.y = the
+//      chunk of kChunk rows of M.  The chunks come from M alone, never from
+//      the card.  Stages of 64 rows of M through a 3-stage cp.async ring; L's
+//      [m][p] tile is the transposed A operand and the halves' [m][j] tiles
+//      the B operand, all by ldmatrix.trans; each L fragment meets hi and lo
+//      in its own MMA, so the f32 operand carries ~2^-16 of its value into
+//      the product, not bf16's 2^-9.  Each block writes its f32 partial,
+//      dB's transposed, into the chunk's slice of part.
+//   3. dab_reduce_kernel, a programmatic dependent launch of the second:
+//      reads s (an input), waits for the partials, and sums the chunks in
+//      order, four elements a thread with eight chunks' loads in flight, then
+//      scales: deterministic, no atomics, no host sync.
+//   On the card (tools/dab_variants.py) 64-row stages, one barrier per 64
+//   rows, beat 32-row ones; 128 x 64 tiles, 256-row chunks and a fourth
+//   stage did not help.
+//   At llama_250m (M = 4096, r = 128) a (768, 768) projection is 12 tiles x 8
+//   chunks, a (768, 2560) one 26 x 8.  Bytes still bound the function: the
+//   halves double its 2 M r (K + N) products, which at 989 TFLOP/s stay
+//   below the time of its bytes; the partials, 4 (K + N) r bytes a chunk,
+//   are written and read once more on top.
 // The wrappers pick these paths by one rule (ops/lora_matmul.forward_path,
-// with no rank test for kernel 8); every other forward, dx or kernel 8 (f32,
-// a contiguous (K, N) base, ragged widths, unaligned pointers) runs
-// lora_gemm_kernel, exact to summation order.
+// with no rank test for kernel 8, no base for kernel 7); every other forward,
+// dx, dA/dB or kernel 8 (f32, a contiguous (K, N) base, ragged widths,
+// unaligned pointers) runs lora_gemm_kernel, exact to summation order.
 //
 // Kernel 5 (grouped).  Multi-tenant serving stacks every adapter as slabs
 // A (S, K, r), B (S, r, N), s (S,) f32, and each row m of a batch names its
@@ -1466,6 +1494,176 @@ __global__ void __launch_bounds__(kYThreads, 2) dequant_matmul_tc_kernel(TcArgs 
   store_y(f, acc, id.m0, id.n0, wm, wn, lane);
 }
 
+// ---------------------------------------------------------------------------
+// Kernel 7 on the tensor cores (design in the header note)
+// ---------------------------------------------------------------------------
+
+constexpr int kDabRows = 128;                 // output rows (K or N) of a block
+constexpr int kDabCols = 128;                 // rank columns of a block
+constexpr int kDabWarpsR = 2;                 // warps along the rows; 8 / kDabWarpsR along the rank
+constexpr int kDabMI = kDabRows / kDabWarpsR / 16;  // m16 tiles of a warp (its n8 tiles: 4)
+constexpr int kDabBK = 64;                    // rows of M a stage
+constexpr int kDabStages = 3;                 // cp.async ring depth
+constexpr int kDabLdL = kDabRows + 8;         // bf16 row stride of L's [m][p] tile: 272 bytes
+constexpr int kDabLdR = kDabCols + 8;         // bf16 row stride of a half's [m][j] tile
+constexpr int kDabStage = kDabBK * (kDabLdL + 2 * kDabLdR) * 2;  // bytes: L, R hi, R lo
+constexpr int kDabSmem = kDabStages * kDabStage;
+constexpr int kDabThreads = 256;              // 8 warps of 16 kDabMI x 32
+constexpr int kDabLoads = 8;                  // partials a thread loads at once before summing
+static_assert(kDabCols == (kDabThreads / 32 / kDabWarpsR) * 32, "a warp takes 32 rank columns");
+
+struct DabArgs {
+  // part[chunk] of dA = x^T u (K, r) and of dB = z^T g (r, N), computed as
+  // dB^T = g^T z so that both are C (P, r) = L^T R over the chunk's rows of M,
+  // L bf16 (M, P) and R = hi + lo, two bf16 (M, r) halves
+  const bf16* x;      // (M, K)
+  const bf16* g;      // (M, N)
+  const bf16* split;  // (4, M, r): u hi, u lo, z hi, z lo
+  float* part;        // (chunks, K r + r N)
+  int M, K, N, r;
+  int a_tiles, rtiles;  // blocks of dA's output (the first a_tiles), rank tiles
+};
+
+// launch 1: hi = bf16(v) and lo = bf16(v - hi) of every element of u and z
+// (M, r) f32, four at a time, into split
+__global__ void __launch_bounds__(kThreads) dab_split_kernel(const float* u, const float* z,
+                                                             bf16* split, long long n) {
+  for (long long i = blockIdx.x * (long long)kThreads + threadIdx.x; i < n / 2;
+       i += (long long)gridDim.x * kThreads) {
+    const bool is_z = i >= n / 4;
+    const long long e = (is_z ? i - n / 4 : i) * 4;
+    const float4 v = *reinterpret_cast<const float4*>((is_z ? z : u) + e);
+    bf16 h[4], l[4];
+    split_bf16(v.x, h, l);
+    split_bf16(v.y, h + 1, l + 1);
+    split_bf16(v.z, h + 2, l + 2);
+    split_bf16(v.w, h + 3, l + 3);
+    bf16* hi = split + (is_z ? 2 * n : 0) + e;
+    *reinterpret_cast<uint2*>(hi) = make_uint2(pack2(h[0], h[1]), pack2(h[2], h[3]));
+    *reinterpret_cast<uint2*>(hi + n) = make_uint2(pack2(l[0], l[1]), pack2(l[2], l[3]));
+  }
+}
+
+// launch 2: block (output tile, chunk of kChunk rows of M); warp w the
+// 16 kDabMI x 32 at output rows 16 kDabMI (w / (8 / kDabWarpsR)), rank
+// columns 32 (w % (8 / kDabWarpsR)).  Stages of 32 rows of M: L's [m][p] tile
+// is the transposed A operand (ldmatrix.trans), R's hi and lo [m][j] tiles
+// the B operand (ldmatrix.trans); each L fragment meets both halves in its
+// own MMA
+__global__ void __launch_bounds__(kDabThreads, 1) dab_tc_kernel(DabArgs d) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  // the reduce may launch now: it waits for this grid's writes itself
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const bool is_a = (int)blockIdx.x < d.a_tiles;
+  const int t = is_a ? blockIdx.x : blockIdx.x - d.a_tiles;
+  const int P = is_a ? d.K : d.N;
+  const bf16* L = is_a ? d.x : d.g;
+  const long long mr = (long long)d.M * d.r;
+  const bf16* rh = d.split + (is_a ? 0 : 2 * mr);
+  const int p0 = (t / d.rtiles) * kDabRows, j0 = (t % d.rtiles) * kDabCols;
+  const int m_begin = blockIdx.y * kChunk, m_end = min(d.M, m_begin + kChunk);
+  constexpr int kWarpsC = kDabThreads / 32 / kDabWarpsR;
+  const int wm = (warp / kWarpsC) * 16 * kDabMI, wn = (warp % kWarpsC) * 32;
+  auto tile_l = [&](int st) { return reinterpret_cast<bf16*>(smem + st * kDabStage); };
+  auto tile_r = [&](int st, int half) {  // half: 0 hi, 1 lo
+    return tile_l(st) + kDabBK * kDabLdL + half * kDabBK * kDabLdR;
+  };
+  // 32 rows x chunks of 8 columns of L (width P) or of both R halves (width r)
+  auto stage_l = [&](int st, int m0) {
+    constexpr int kPerRow = kDabRows / 8;
+#pragma unroll
+    for (int u = 0; u < kDabBK * kPerRow / kDabThreads; ++u) {
+      const int e = tid + u * kDabThreads, row = e / kPerRow, c = (e % kPerRow) * 8;
+      const bool ok = m0 + row < m_end && p0 + c < P;
+      cp_async16(tile_l(st) + row * kDabLdL + c, ok ? L + (long long)(m0 + row) * P + p0 + c : L,
+                 ok);
+    }
+  };
+  auto stage_r = [&](int st, int m0) {
+    constexpr int kPerRow = kDabCols / 8;
+#pragma unroll
+    for (int u = 0; u < kDabBK * kPerRow / kDabThreads; ++u) {
+      const int e = tid + u * kDabThreads, row = e / kPerRow, c = (e % kPerRow) * 8;
+      const bool ok = m0 + row < m_end && j0 + c < d.r;
+      const long long off = ok ? (long long)(m0 + row) * d.r + j0 + c : 0;
+      cp_async16(tile_r(st, 0) + row * kDabLdR + c, rh + off, ok);
+      cp_async16(tile_r(st, 1) + row * kDabLdR + c, rh + mr + off, ok);
+    }
+  };
+  float acc[kDabMI][4][4];
+#pragma unroll
+  for (int i = 0; i < kDabMI; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+  const int nk = (m_end - m_begin + kDabBK - 1) / kDabBK;
+#pragma unroll
+  for (int st = 0; st < kDabStages - 1; ++st) {
+    if (st < nk) {
+      stage_l(st, m_begin + st * kDabBK);
+      stage_r(st, m_begin + st * kDabBK);
+    }
+    cp_async_commit();
+  }
+  for (int kt = 0; kt < nk; ++kt) {
+    cp_async_wait_n<kDabStages - 2>();
+    __syncthreads();  // stage kt has landed, and every warp is done with stage kt - 1
+    const int pre = kt + kDabStages - 1;
+    if (pre < nk) {
+      stage_l(pre % kDabStages, m_begin + pre * kDabBK);
+      stage_r(pre % kDabStages, m_begin + pre * kDabBK);
+    }
+    cp_async_commit();
+    const int st = kt % kDabStages;
+#pragma unroll
+    for (int ks = 0; ks < kDabBK; ks += 16) {
+      uint32_t bh[4][2], bl[4][2];
+      frags_b<true>(bh, tile_r(st, 0), kDabLdR, wn, ks, lane);
+      frags_b<true>(bl, tile_r(st, 1), kDabLdR, wn, ks, lane);
+      uint32_t a[kDabMI][4];  // L^T rows wm + 16 mi.., contraction ks..: L stored [m][p]
+#pragma unroll
+      for (int mi = 0; mi < kDabMI; ++mi)
+        ldsm_x4_t(a[mi], tile_l(st) + (ks + lane % 8 + (lane / 16) * 8) * kDabLdL + wm +
+                             16 * mi + ((lane / 8) % 2) * 8);
+      // every hi product, then every lo one, so no two MMAs in a row share
+      // an accumulator
+#pragma unroll
+      for (int half = 0; half < 2; ++half)
+#pragma unroll
+        for (int mi = 0; mi < kDabMI; ++mi)
+#pragma unroll
+          for (int nj = 0; nj < 4; ++nj) {
+            const uint32_t(&b)[2] = half ? bl[nj] : bh[nj];
+            mma16816(acc[mi][nj], a[mi][0], a[mi][1], a[mi][2], a[mi][3], b[0], b[1]);
+          }
+    }
+  }
+  cp_async_wait_n<0>();
+  // dA's partial [p][j] as pairs of columns; dB's [j][p], transposed
+  float* out = d.part + (long long)blockIdx.y * ((long long)d.K * d.r + (long long)d.r * d.N);
+#pragma unroll
+  for (int mi = 0; mi < kDabMI; ++mi)
+#pragma unroll
+    for (int nj = 0; nj < 4; ++nj) {
+      const int j = j0 + wn + acc_col(lane, nj, 0);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int p = p0 + wm + 16 * mi + acc_row(lane, 2 * h);
+        if (p >= P || j >= d.r) continue;
+        if (is_a) {
+          *reinterpret_cast<float2*>(out + (long long)p * d.r + j) =
+              make_float2(acc[mi][nj][2 * h], acc[mi][nj][2 * h + 1]);
+        } else {
+          float* db = out + (long long)d.K * d.r;
+          db[(long long)j * d.N + p] = acc[mi][nj][2 * h];
+          db[(long long)(j + 1) * d.N + p] = acc[mi][nj][2 * h + 1];
+        }
+      }
+    }
+}
+
 int sm_count() {
   static int count = 0;
   if (count == 0) {
@@ -1478,6 +1676,82 @@ int sm_count() {
 }
 
 int tiles(int n, int b) { return (n + b - 1) / b; }
+
+// launch 3: da[i] (i < n_da) and db[i - n_da] = s * the sum of part[chunk, i]
+// over the chunks in order, four elements a thread (len and n_da are
+// multiples of 4), kDabLoads chunks' loads in flight before they are summed.
+// s is an input, read before the wait for launch 2's partials
+__global__ void __launch_bounds__(kThreads) dab_reduce_kernel(const float* part, int chunks,
+                                                              long long len, long long n_da,
+                                                              const float* s_ptr, float s_val,
+                                                              float* da, float* db) {
+  const float s = s_ptr ? *s_ptr : s_val;
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+  for (long long i = (blockIdx.x * (long long)kThreads + threadIdx.x) * 4; i < len;
+       i += (long long)gridDim.x * kThreads * 4) {
+    float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int c0 = 0; c0 < chunks; c0 += kDabLoads) {
+      float4 v[kDabLoads];
+#pragma unroll
+      for (int u = 0; u < kDabLoads; ++u)
+        v[u] = c0 + u < chunks ? __ldcg(reinterpret_cast<const float4*>(part + (c0 + u) * len + i))
+                               : acc;
+#pragma unroll
+      for (int u = 0; u < kDabLoads; ++u) {
+        if (c0 + u >= chunks) break;
+        acc = make_float4(acc.x + v[u].x, acc.y + v[u].y, acc.z + v[u].z, acc.w + v[u].w);
+      }
+    }
+    float* dst = i < n_da ? da + i : db + (i - n_da);
+    *reinterpret_cast<float4*>(dst) = make_float4(acc.x * s, acc.y * s, acc.z * s, acc.w * s);
+  }
+}
+
+// kernel 7's three launches on the tensor cores, the reduce a programmatic
+// dependent of the partials.  Refuses inputs that break the path's
+// conditions: K, N and r multiples of 8, every pointer 16-byte aligned
+int dab_tc(const void* g, const void* x, const float* z, const float* u, float* part, void* split,
+           const float* s_ptr, float s_val, float* da, float* db, int M, int K, int N, int r,
+           cudaStream_t st) {
+  auto aligned = [](const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; };
+  if (K % 8 || N % 8 || r % 8 || !aligned(g) || !aligned(x) || !aligned(z) || !aligned(u) ||
+      !aligned(part) || !aligned(split) || !aligned(da) || !aligned(db) ||
+      tiles(M, kChunk) > 65535)
+    return (int)cudaErrorInvalidValue;
+  const int chunks = tiles(M, kChunk);  // 0 at M = 0: the reduce writes zeros
+  if (M > 0) {
+    const long long n = (long long)M * r;
+    const long long want = (n / 2 + kThreads - 1) / kThreads;
+    dab_split_kernel<<<(int)(want < 4096 ? want : 4096), kThreads, 0, st>>>(u, z,
+                                                                           static_cast<bf16*>(split), n);
+    int err = (int)cudaGetLastError();
+    if (err) return err;
+    static const bool sized = cudaFuncSetAttribute(dab_tc_kernel,
+                                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                                   kDabSmem) == cudaSuccess;
+    if (!sized) return (int)cudaErrorInvalidValue;
+    DabArgs d{static_cast<const bf16*>(x), static_cast<const bf16*>(g),
+              static_cast<const bf16*>(split), part, M, K, N, r,
+              tiles(K, kDabRows) * tiles(r, kDabCols), tiles(r, kDabCols)};
+    dab_tc_kernel<<<dim3(d.a_tiles + tiles(N, kDabRows) * d.rtiles, chunks), kDabThreads, kDabSmem,
+                    st>>>(d);
+    if ((err = (int)cudaGetLastError())) return err;
+  }
+  // the reduce as a programmatic dependent launch of the partials' grid
+  cudaLaunchAttribute pdl[1];
+  pdl[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  pdl[0].val.programmaticStreamSerializationAllowed = 1;
+  const long long len = (long long)K * r + (long long)r * N;
+  const long long want = (len / 4 + kThreads - 1) / kThreads;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((int)(want < 4096 ? want : 4096));
+  cfg.blockDim = dim3(kThreads);
+  cfg.stream = st;
+  cfg.attrs = pdl;
+  cfg.numAttrs = 1;
+  return (int)cudaLaunchKernelEx(&cfg, dab_reduce_kernel, (const float*)part, chunks, len,
+                                 (long long)K * r, s_ptr, s_val, da, db);
+}
 
 int run_gemm(const Gemm& g, int chunks, cudaStream_t stream) {
   if (g.M == 0 || g.N == 0) return (int)cudaSuccess;
@@ -1728,15 +2002,18 @@ int dequant_matmul_launch(const void* x, const void* q, long long q_s0, long lon
 
 // g (M, N); x (M, K); z, u (M, r) f32 (u is computed here first unless
 // have_u); part (chunks, K*r + r*N) f32 scratch with chunks = ceil(M / 512)
-// (at least 1); dA (K, r) and dB (r, N) f32.
+// (at least 1); dA (K, r) and dB (r, N) f32.  tc: 1 runs the bf16 tensor-core
+// path (its conditions at dab_tc, which refuses what breaks them; split is
+// its (4, M, r) bf16 scratch), 0 lora_gemm_kernel.
 int fused_lora_bwd_dab_launch(const void* g, const void* x, const float* z, float* u, int have_u,
                               const void* b, const float* s_ptr, float s_val, float* part,
-                              float* da, float* db, int M, int K, int N, int r, int dtype,
-                              void* stream) {
-  if (bad_args(M, K, N, r, dtype)) return (int)cudaErrorInvalidValue;
+                              void* split, float* da, float* db, int M, int K, int N, int r,
+                              int dtype, int tc, void* stream) {
+  if (bad_args(M, K, N, r, dtype) || (tc && dtype != kBF16)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   int err = have_u ? 0 : u_pass(g, b, u, M, N, r, dtype, st);
   if (err) return err;
+  if (tc) return dab_tc(g, x, z, u, part, split, s_ptr, s_val, da, db, M, K, N, r, st);
   const int chunks = M > 0 ? tiles(M, kChunk) : 1;
   const long long len = (long long)K * r + (long long)r * N;
   Gemm ag = gemm(K, r, nullptr, 1.f, part, 0, r);  // x^T u, per chunk

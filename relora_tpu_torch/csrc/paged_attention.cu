@@ -4,8 +4,8 @@
 //   paged_combine_kernel   _paged_decode_kernel (paged_decode_attention, :331):
 //                          small-S decode/verify attention, q (B, S, N, H),
 //                          S <= 16 in the serving path.
-//   packed_paged_kernel    replaces relora_tpu/ops/attention.py:447
-//                          _packed_paged_kernel (packed_paged_attention, :532):
+//   packed_tile_kernel +   replace relora_tpu/ops/attention.py:447
+//   kernel 1's pair        _packed_paged_kernel (packed_paged_attention, :532):
 //                          the same per packed token, q (1, T, N, H), with
 //                          row_map (T,) picking each token's block-table row.
 //
@@ -21,8 +21,10 @@
 // walk stops after the last key any query of the row can see.
 //
 // Bound.  Memory-bound: the work per K/V byte is 2 flops per query of the
-// group, far below the H100's ~295 flops/byte balance point, so the tensor
-// cores are no lever.  The least time is the bytes of the visible K/V rows
+// group, far below the H100's ~295 flops/byte balance point, so for a decode
+// row the tensor cores are no lever (a prefill tile's queries share every
+// K/V byte, which is where kernel 2 uses them).  The least time is the bytes
+// of the visible K/V rows
 // (plus q, out, tables) over 3.35 TB/s: at llama_250m decode (B = 8, 16 kv
 // heads, H = 48, ~500 visible keys a row) about 13 MB, ~4 us.  What keeps a
 // kernel from it is the parallelism and latency of the page walk.
@@ -64,19 +66,50 @@
 // any H <= 256; H whose rows are no whole number of 16-byte vectors (or
 // unaligned pools) are staged element by element on the same schedule.
 //
-// Kernel 2 keeps the first design (attend_pages): one block per (packed
-// token, kv head) walks the token's pages one at a time, each staged in
-// shared memory as f32, with scalar FMAs.  Its work differs (many prefill
-// tokens of one row share pages, which calls for tiled tensor cores).
+// Kernel 2: a packed window mixes decode tokens (one a row), verify windows
+// and prefill chunks (many consecutive tokens of one row, which share that
+// row's pages).  Runs, maximal stretches of one row's tokens at consecutive
+// positions, are found on the device from row_map and the positions (no host
+// read), and cut into query tiles at positions that are multiples of qt =
+// 64 / g tokens, so a token's tile follows from its own run alone.
+//   1. packed_tile_kernel takes every tile of two tokens or more (bf16 q over
+//      a bf16 or int8 pool, H a multiple of 8): one 4-warp block per (tile,
+//      kv head) holds the tile's tokens x heads as a 64-row query tile and
+//      walks the row's keys up to its last position in tiles of 64 (32 past
+//      a padded head of 128) as flash attention's forward does: S = Q K^T and
+//      P V by mma.sync m16n8k16 (bf16 in, f32 accumulate), K and V rows
+//      gathered from their pages by cp.async into two buffers, int8 codes
+//      widened to bf16 in shared memory, an int8 page's scales on the f32
+//      scores and on P, the causal mask inside the run.  Each key tile is
+//      read once for the whole query tile, not once a token.  A block whose
+//      token starts no such tile returns at once (the grid is T x n_kv).
+//   2. every other token (decode rows, pads, tiles of one token, and every
+//      token of an f32 call or of a pool whose rows are not whole 8-element
+//      vectors) goes through kernel 1's split pair as a row of one query
+//      with its own table row (row_map): lanes over keys, rows staged by
+//      cp.async, partitions from (W, ps) merged in order.  The partitions
+//      are 512 keys here (ops/attention.packed_walk_schedule), not kernel
+//      1's 128: every token of the window has its blocks, and the tokens of
+//      multi-token tiles return at once, so four times fewer blocks return
+//      for nothing.  The walk is a programmatic dependent launch of the tile
+//      kernel (their outputs are disjoint, and the walk reads only inputs),
+//      so the two run side by side; one of its blocks waits for the tiles,
+//      so the pair still ends after them.
+// Either way a token's path and the order of its sums come from its own run
+// and its row's table: its output is bit for bit the same whatever else
+// shares the window, and a key tile that a row of a tile cannot see adds
+// exactly 0 (m unchanged, alpha = 1, p = 0).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
 constexpr float kMasked = -1e30f;
-constexpr int kThreads = 128;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -87,20 +120,6 @@ __device__ __forceinline__ void store_f32(float v, __nv_bfloat16* dst) {
   *dst = __float2bfloat16_rn(v);
 }
 
-struct Args {
-  const void* q;          // (R, S, N, H) in TQ
-  const void* pool_k;     // (P, ps, n_kv, H) in TKV
-  const void* pool_v;
-  const int32_t* bt;      // (rows, W) block tables
-  const int32_t* row_map; // (R,) table row per query row, or null (row = r)
-  const int32_t* pos;     // (R, S) absolute positions
-  const float* k_scale;   // (P, n_kv) or null (unquantised)
-  const float* v_scale;
-  void* out;              // (R, S, N, H) in TQ
-  int S, N, n_kv, H, W, ps;
-  float sm_scale;
-};
-
 __device__ __forceinline__ float warp_max(float v) {
   for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
   return v;
@@ -109,127 +128,6 @@ __device__ __forceinline__ float warp_max(float v) {
 __device__ __forceinline__ float warp_sum(float v) {
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
-}
-
-// Shared memory, in floats: q (G*H), K page (ps*H), V page (ps*H),
-// scores/probabilities (G*ps), acc (G*H), m, l, alpha (G each), then G ints
-// of query positions.
-__host__ __device__ inline size_t smem_bytes(int G, int H, int ps) {
-  return sizeof(float) * (2 * (size_t)G * H + 2 * (size_t)ps * H + (size_t)G * ps + 3 * (size_t)G) +
-         sizeof(int) * (size_t)G;
-}
-
-template <typename TQ, typename TKV>
-__device__ void attend_pages(const Args& a) {
-  extern __shared__ float smem[];
-  __shared__ int n_walk;
-  const int r = blockIdx.x;
-  const int j = blockIdx.y;
-  const int H = a.H, ps = a.ps, S = a.S;
-  const int g = a.N / a.n_kv;
-  const int G = g * S;
-  const int tid = threadIdx.x;
-
-  float* qs = smem;
-  float* ks = qs + G * H;
-  float* vs = ks + ps * H;
-  float* sc = vs + ps * H;
-  float* acc = sc + G * ps;
-  float* m = acc + G * H;
-  float* l = m + G;
-  float* alpha = l + G;
-  int* qpos = reinterpret_cast<int*>(alpha + G);
-
-  const TQ* q = static_cast<const TQ*>(a.q);
-  // query qi = h*S + s holds token s of head j*g + h (head-major group block)
-  for (int idx = tid; idx < G * H; idx += blockDim.x) {
-    const int qi = idx / H, d = idx % H;
-    const int h = qi / S, s = qi % S;
-    qs[idx] = to_f32(q[((size_t)(r * S + s) * a.N + j * g + h) * H + d]);
-    acc[idx] = 0.f;
-  }
-  for (int qi = tid; qi < G; qi += blockDim.x) {
-    qpos[qi] = a.pos[r * S + qi % S];
-    m[qi] = kMasked;
-    l[qi] = 0.f;
-  }
-  if (tid == 0) {
-    int mx = -1;
-    for (int s = 0; s < S; ++s) mx = max(mx, a.pos[r * S + s]);
-    n_walk = mx < 0 ? 0 : min(a.W, mx / ps + 1);
-  }
-  __syncthreads();
-
-  const int row = a.row_map ? a.row_map[r] : r;
-  const int32_t* bt_row = a.bt + (size_t)row * a.W;
-  const TKV* pk = static_cast<const TKV*>(a.pool_k);
-  const TKV* pv = static_cast<const TKV*>(a.pool_v);
-  const int warp = tid / 32, lane = tid % 32, n_warps = blockDim.x / 32;
-
-  for (int w = 0; w < n_walk; ++w) {
-    const int page = bt_row[w];
-    const float kscale = a.k_scale ? a.k_scale[(size_t)page * a.n_kv + j] : 1.f;
-    const float vscale = a.v_scale ? a.v_scale[(size_t)page * a.n_kv + j] : 1.f;
-    for (int idx = tid; idx < ps * H; idx += blockDim.x) {
-      const int i = idx / H, d = idx % H;
-      const size_t off = (((size_t)page * ps + i) * a.n_kv + j) * H + d;
-      ks[idx] = to_f32(pk[off]) * kscale;
-      vs[idx] = to_f32(pv[off]) * vscale;
-    }
-    __syncthreads();
-
-    for (int idx = tid; idx < G * ps; idx += blockDim.x) {
-      const int qi = idx / ps, i = idx % ps;
-      float dot = 0.f;
-      for (int d = 0; d < H; ++d) dot = fmaf(qs[qi * H + d], ks[i * H + d], dot);
-      sc[idx] = (w * ps + i <= qpos[qi]) ? dot * a.sm_scale : kMasked;
-    }
-    __syncthreads();
-
-    // online-softmax update, one warp per query row
-    for (int qi = warp; qi < G; qi += n_warps) {
-      float mx = kMasked;
-      for (int i = lane; i < ps; i += 32) mx = fmaxf(mx, sc[qi * ps + i]);
-      mx = warp_max(mx);
-      const float m_prev = m[qi];
-      const float m_new = fmaxf(m_prev, mx);
-      float sum = 0.f;
-      for (int i = lane; i < ps; i += 32) {
-        const float p = (w * ps + i <= qpos[qi]) ? expf(sc[qi * ps + i] - m_new) : 0.f;
-        sc[qi * ps + i] = p;
-        sum += p;
-      }
-      sum = warp_sum(sum);
-      if (lane == 0) {
-        const float al = expf(m_prev - m_new);
-        alpha[qi] = al;
-        l[qi] = l[qi] * al + sum;
-        m[qi] = m_new;
-      }
-    }
-    __syncthreads();
-
-    for (int idx = tid; idx < G * H; idx += blockDim.x) {
-      const int qi = idx / H, d = idx % H;
-      float pvsum = 0.f;
-      for (int i = 0; i < ps; ++i) pvsum = fmaf(sc[qi * ps + i], vs[i * H + d], pvsum);
-      acc[idx] = acc[idx] * alpha[qi] + pvsum;
-    }
-    __syncthreads();
-  }
-
-  TQ* out = static_cast<TQ*>(a.out);
-  for (int idx = tid; idx < G * H; idx += blockDim.x) {
-    const int qi = idx / H, d = idx % H;
-    const int h = qi / S, s = qi % S;
-    store_f32(acc[idx] / fmaxf(l[qi], 1e-30f),
-              &out[((size_t)(r * S + s) * a.N + j * g + h) * H + d]);
-  }
-}
-
-template <typename TQ, typename TKV>
-__global__ void __launch_bounds__(kThreads) packed_paged_kernel(Args a) {
-  attend_pages<TQ, TKV>(a);
 }
 
 // ---------------------------------------------------------------------------
@@ -246,8 +144,10 @@ struct SplitArgs {
   const void* q;         // (B, S, N, H) in TQ
   const void* pool_k;    // (P, ps, n_kv, H) in TKV
   const void* pool_v;
-  const int32_t* bt;     // (B, W) block tables
+  const int32_t* bt;     // (B, W) block tables; packed: (rows, W)
   const int32_t* pos;    // (B, S) absolute positions
+  const int32_t* row_map;  // packed (kernel 2): (B,) table row of each token, B = T, S = 1;
+                           // null for kernel 1 (row = b)
   const float* k_scale;  // (P, n_kv) or null (unquantised)
   const float* v_scale;
   float* part;           // partials: (B, n_kv, n_part, G) x (m, l), then
@@ -259,7 +159,30 @@ struct SplitArgs {
   int vec;               // 1: rows staged with 16-byte cp.async, else element by element
   int kpr;               // keys a warp stages a round (32, fewer for rows past 256 bytes)
   int stride;            // bytes between staged rows: an odd multiple of 16
+  int qt;                // packed: tokens a query tile of the tensor-core kernel spans at
+                         // most (packed_tile_kernel), 0 when it does not run
 };
+
+// The packed window's tiles (kernel 2).  A run is a maximal stretch of
+// tokens of one table row at consecutive positions (a prefill chunk; a
+// decode token or a pad is a run of one).  A run is cut into query tiles at
+// positions that are multiples of qt, so a token's tile, and with it the
+// kernel that takes it and the order of its sums, depends on its own run and
+// position alone, never on what else shares the window
+// (ops/attention.packed_tile_schedule is the same rule in Python).
+__device__ __forceinline__ bool run_start(const int32_t* rm, const int32_t* pos, int t) {
+  return t == 0 || rm[t] != rm[t - 1] || pos[t] != pos[t - 1] + 1;
+}
+__device__ __forceinline__ bool tile_start(const int32_t* rm, const int32_t* pos, int t, int qt) {
+  return run_start(rm, pos, t) || pos[t] % qt == 0;
+}
+// token t lies in a tile of two tokens or more: packed_tile_kernel takes it,
+// and kernel 1's pair skips it
+__device__ __forceinline__ bool in_multi_tile(const int32_t* rm, const int32_t* pos, int T, int t,
+                                              int qt) {
+  if (qt < 2) return false;
+  return !tile_start(rm, pos, t, qt) || (t + 1 < T && !tile_start(rm, pos, t + 1, qt));
+}
 
 // keys any query of a row can see: positions 0 .. max_s pos[s] of its S
 // positions, cut to the table's W * ps keys; 0 for a row whose positions are
@@ -478,11 +401,17 @@ template <typename TQ, typename TKV, int QC, int NP>
 __global__ void __launch_bounds__(kSplitThreads, 1) paged_decode_kernel(SplitArgs a) {
   // the combine may launch now: it waits for this grid's writes itself
   asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+  // packed, after the tile kernel (a programmatic dependent of it, with
+  // disjoint outputs): one block waits for it, so this grid, and with it the
+  // combine, ends after the tile kernel
+  if (a.row_map && blockIdx.x == 0 && blockIdx.y == 0 && blockIdx.z == 0)
+    asm volatile("griddepcontrol.wait;\n" ::: "memory");
   const int H = a.H, S = a.S, ps = a.ps, g = a.N / a.n_kv, G = g * S;
   const int chunks = (G + QC - 1) / QC;
   const int p = blockIdx.x / chunks, c0 = (blockIdx.x % chunks) * QC, j = blockIdx.y, r = blockIdx.z;
   const int nq = min(QC, G - c0);
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  if (a.row_map && in_multi_tile(a.row_map, a.pos, a.B, r, a.qt)) return;  // a tile's token
   const int t_begin = p * a.pp * ps;
   const int t_end = min(t_begin + a.pp * ps, row_walk(a.pos + r * S, S, a.W * ps, lane));
   if (t_begin >= t_end) return;  // past the row's last visible key: the combine skips it
@@ -494,7 +423,7 @@ __global__ void __launch_bounds__(kSplitThreads, 1) paged_decode_kernel(SplitArg
   const TQ* q = static_cast<const TQ*>(a.q);
   const TKV* pk = static_cast<const TKV*>(a.pool_k);
   const TKV* pv = static_cast<const TKV*>(a.pool_v);
-  const int32_t* bt_row = a.bt + (size_t)r * a.W;
+  const int32_t* bt_row = a.bt + (size_t)(a.row_map ? a.row_map[r] : r) * a.W;
 
   // rounds of kpr keys, one a lane, dealt to the warps in turn; the first
   // round's page is read before the queries are staged, to overlap the two
@@ -610,6 +539,7 @@ __global__ void __launch_bounds__(kSplitThreads) paged_combine_kernel(SplitArgs 
   const int j = blockIdx.x, r = blockIdx.y;
   const int H = a.H, S = a.S, g = a.N / a.n_kv, G = g * S;
   const int tpp = a.pp * a.ps;
+  if (a.row_map && in_multi_tile(a.row_map, a.pos, a.B, r, a.qt)) return;
   // positions are an input: read before the wait
   const int used = (row_walk(a.pos + r * S, S, a.W * a.ps, threadIdx.x % 32) + tpp - 1) / tpp;
   asm volatile("griddepcontrol.wait;\n" ::: "memory");  // the partials are complete
@@ -644,89 +574,452 @@ void (*first_kernel(int G))(SplitArgs) {
   else return G <= 4 ? paged_decode_kernel<TQ, TKV, 4, NP> : paged_decode_kernel<TQ, TKV, 8, NP>;
 }
 
+// staged rows: 16-byte multiples, an odd number of them apart, so that the
+// lanes' 16-byte reads of their own rows fall in distinct banks; kpr keys a
+// warp a round, halved until the block's tiles fit kTileBudget
+void split_layout(int row_bytes, int& stride, int& kpr) {
+  stride = (row_bytes + 15) / 16 * 16;
+  if (stride / 16 % 2 == 0) stride += 16;
+  kpr = 32;
+  while (kpr > 1 && kSplitWarps * 2 * kpr * stride > kTileBudget) kpr /= 2;
+}
+
+// pdl: the first launch as a programmatic dependent of the kernel before it
+// (kernel 2's tile kernel)
 template <typename TQ, typename TKV>
-int launch_decode(SplitArgs a, cudaStream_t stream) {
+int launch_decode(SplitArgs a, cudaStream_t stream, bool pdl = false) {
   const int G = (a.N / a.n_kv) * a.S;
   const int np = (a.H + 63) / 64;
   void (*first)(SplitArgs) = np == 1   ? first_kernel<TQ, TKV, 1>(G)
                              : np == 2 ? first_kernel<TQ, TKV, 2>(G)
                                        : first_kernel<TQ, TKV, kMaxPairs>(G);
   const int qc = G <= 1 ? 1 : G <= 4 || np > 2 ? 4 : 8;
-  // staged rows: 16-byte multiples, an odd number of them apart, so that the
-  // lanes' 16-byte reads of their own rows fall in distinct banks
-  const int row_bytes = a.H * (int)sizeof(TKV);
-  a.stride = (row_bytes + 15) / 16 * 16;
-  if (a.stride / 16 % 2 == 0) a.stride += 16;
-  a.kpr = 32;
-  while (a.kpr > 1 && kSplitWarps * 2 * a.kpr * a.stride > kTileBudget) a.kpr /= 2;
+  split_layout(a.H * (int)sizeof(TKV), a.stride, a.kpr);
   const size_t smem = split_smem_bytes(qc, a.H, a.kpr, a.stride);
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(first, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
   const int chunks = (G + qc - 1) / qc;
-  first<<<dim3(a.n_part * chunks, a.n_kv, a.B), kSplitThreads, smem, stream>>>(a);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  cudaLaunchAttribute pdl[1];
-  pdl[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
-  pdl[0].val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(a.n_kv, a.B);
+  cfg.gridDim = dim3(a.n_part * chunks, a.n_kv, a.B);
   cfg.blockDim = dim3(kSplitThreads);
-  cfg.dynamicSmemBytes = 0;
+  cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
-  cfg.attrs = pdl;
+  cfg.attrs = attr;
+  cfg.numAttrs = pdl ? 1 : 0;
+  cudaError_t e = cudaLaunchKernelEx(&cfg, first, a);
+  if (e != cudaSuccess) return (int)e;
+  cfg.gridDim = dim3(a.n_kv, a.B);
+  cfg.dynamicSmemBytes = 0;
   cfg.numAttrs = 1;
   return (int)cudaLaunchKernelEx(&cfg, paged_combine_kernel<TQ>, a);
 }
 
-template <typename TQ, typename TKV>
-int launch_packed(const Args& a, int R, cudaStream_t stream) {
-  const int G = a.N / a.n_kv;
-  const size_t smem = smem_bytes(G, a.H, a.ps);
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        packed_paged_kernel<TQ, TKV>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
+// ---------------------------------------------------------------------------
+// Kernel 2: tiles of two tokens or more on the tensor cores (design in the
+// header note)
+// ---------------------------------------------------------------------------
+
+using bf16 = __nv_bfloat16;
+constexpr int kTcRows = 64;     // query rows (token x head of the group) of a tile
+constexpr int kTcThreads = 128;  // 4 warps of 16 rows
+constexpr float kLog2e = 1.4426950408889634f;
+
+// HPM: the head dim padded to a multiple of 16 is at most HPM (64, 128 or
+// 256); KT keys a key tile (32 at HPM = 256, where the warp's 16 x 256 f32
+// accumulator takes 128 registers a thread); LD the bf16 row stride of the
+// tiles, an odd multiple of 16 bytes (conflict-free ldmatrix); RLD the byte
+// stride of the int8 code rows
+template <int HPM>
+struct TileShape {
+  static constexpr int KT = HPM > 128 ? 32 : 64;
+  static constexpr int LD = HPM + 8;
+  static constexpr int RLD = HPM + 16;
+};
+
+template <int HPM, bool kInt8>
+__host__ __device__ constexpr size_t tile_smem_bytes() {
+  using Sh = TileShape<HPM>;
+  return sizeof(bf16) * Sh::LD * (kTcRows + 4 * Sh::KT) + sizeof(float) * 4 * Sh::KT +
+         (kInt8 ? 4 * (size_t)Sh::KT * Sh::RLD : 0);
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+// d (16 x 8 f32) += a (16 x 16 bf16, row) b (16 x 8 bf16, col)
+__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                    uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+// n bytes (16 or 8) from src to smem dst by cp.async, or zeros when !ok
+__device__ __forceinline__ void cp_async_n(void* dst, const void* src, bool ok, int n) {
+  if (n == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+                 "r"(ok ? 16 : 0));
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+                 "r"(ok ? 8 : 0));
+}
+
+// one block per (first token of a tile of two tokens or more, kv head); any
+// other token's block returns at once.  The tile's c tokens x g heads are
+// the rows of a 64-row query tile (row = token * g + head), warp w rows
+// 16w..16w+15.  The row's keys up to the tile's last position are walked in
+// tiles of KT through two buffers; K and V rows are gathered from their pages
+// by cp.async (16 bytes of bf16, 8 of int8 codes: H % 8 == 0), int8 codes then
+// widened to bf16 in shared memory (exact).  S = Q K^T on the tensor cores;
+// an int8 page's K scale multiplies the f32 scores and its V scale the
+// probabilities, before they round to bf16 as the A operand of P V; the
+// online softmax is flash attention's (exp2, row max and sum over the quad).
+// A key past a row's position is masked: a key tile that a row cannot see
+// leaves its (m, l, O) exactly as they were
+template <typename TKV, int HPM>
+__global__ void __launch_bounds__(kTcThreads) packed_tile_kernel(SplitArgs a) {
+  using Sh = TileShape<HPM>;
+  constexpr bool kInt8 = sizeof(TKV) == 1;
+  constexpr int KT = Sh::KT, LD = Sh::LD, RLD = Sh::RLD;
+  extern __shared__ __align__(16) unsigned char smem_tile[];
+  __shared__ int tile_len;
+  // kernel 1's pair may start now: its walk reads only inputs, and its
+  // outputs are the other tokens'
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+  const int t = blockIdx.x, j = blockIdx.y, T = a.B;
+  const int32_t* rm = a.row_map;
+  const int32_t* pos = a.pos;
+  if (!tile_start(rm, pos, t, a.qt)) return;
+  // the tile's length: the distance to the next tile start (or to T), found
+  // by the threads together (a tile spans at most qt <= 64 tokens)
+  if (threadIdx.x == 0) tile_len = kTcRows;
+  __syncthreads();
+  if (threadIdx.x < kTcRows - 1) {
+    const int u = t + 1 + threadIdx.x;
+    if (u >= T || tile_start(rm, pos, u, a.qt)) atomicMin(&tile_len, 1 + threadIdx.x);
   }
-  packed_paged_kernel<TQ, TKV><<<dim3(R, a.n_kv), kThreads, smem, stream>>>(a);
+  __syncthreads();
+  const int c = tile_len;
+  if (c < 2) return;  // a tile of one token: kernel 1's pair takes it
+
+  bf16* qs = reinterpret_cast<bf16*>(smem_tile);
+  bf16* ks = qs + kTcRows * LD;   // two buffers
+  bf16* vs = ks + 2 * KT * LD;    // two buffers
+  float* ksc = reinterpret_cast<float*>(vs + 2 * KT * LD);  // two buffers of KT
+  float* vsc = ksc + 2 * KT;
+  unsigned char* kraw = reinterpret_cast<unsigned char*>(vsc + 2 * KT);  // int8: two buffers
+  unsigned char* vraw = kraw + 2 * KT * RLD;
+
+  const int H = a.H, HP = (H + 15) / 16 * 16, ksteps = HP / 16, ps = a.ps;
+  const int g = a.N / a.n_kv, R = c * g;
+  const int tid = threadIdx.x, lane = tid % 32, w = tid / 32, gr = lane / 4, tq = lane % 4;
+  const int walk = min(a.W * ps, pos[t + c - 1] + 1);  // keys the tile's last token sees
+  const int n_kt = (walk + KT - 1) / KT;
+  const int32_t* bt_row = a.bt + (size_t)rm[t] * a.W;
+  const bf16* q = static_cast<const bf16*>(a.q);
+  const TKV* pk = static_cast<const TKV*>(a.pool_k);
+  const TKV* pv = static_cast<const TKV*>(a.pool_v);
+  const int chunks = H / 8;  // 8 elements a copy
+
+  // the head's padding columns [H, HP) of every tile: zero once (no copy writes them)
+  if (HP > H)
+    for (int i = tid; i < (kTcRows + 4 * KT) * (HP - H); i += kTcThreads) {
+      const int r = i / (HP - H);
+      qs[r * LD + H + i % (HP - H)] = __float2bfloat16_rn(0.f);
+    }
+  // Q: row rho is token t + rho / g, head j g + rho % g; rows past R are zero
+  for (int e = tid; e < kTcRows * chunks; e += kTcThreads) {
+    const int rho = e / chunks, cc = (e % chunks) * 8;
+    const bool ok = rho < R;
+    const bf16* src = ok ? q + ((size_t)(t + rho / g) * a.N + j * g + rho % g) * H + cc : q;
+    cp_async_n(qs + rho * LD + cc, src, ok, 16);
+  }
+  // key tile kt's K and V rows (zero past the walk) and page scales into buf
+  auto stage = [&](int kt, int buf) {
+    const int k0 = kt * KT;
+    for (int e = tid; e < KT * chunks; e += kTcThreads) {
+      const int row = e / chunks, cc = (e % chunks) * 8, key = k0 + row;
+      const bool ok = key < walk;
+      const size_t off =
+          ok ? (((size_t)bt_row[key / ps] * ps + key % ps) * a.n_kv + j) * H + cc : 0;
+      if constexpr (kInt8) {
+        cp_async_n(kraw + (buf * KT + row) * RLD + cc, pk + off, ok, 8);
+        cp_async_n(vraw + (buf * KT + row) * RLD + cc, pv + off, ok, 8);
+      } else {
+        cp_async_n(ks + (buf * KT + row) * LD + cc, pk + off, ok, 16);
+        cp_async_n(vs + (buf * KT + row) * LD + cc, pv + off, ok, 16);
+      }
+    }
+    if (tid < KT) {
+      const int key = k0 + tid;
+      const size_t page = key < walk ? (size_t)bt_row[key / ps] : 0;
+      ksc[buf * KT + tid] = a.k_scale ? a.k_scale[page * a.n_kv + j] : 1.f;
+      vsc[buf * KT + tid] = a.v_scale ? a.v_scale[page * a.n_kv + j] : 1.f;
+    }
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+  };
+  // int8: buf's codes widened into its bf16 tiles
+  auto widen = [&](int buf) {
+    for (int e = tid; e < 2 * KT * chunks; e += kTcThreads) {
+      const bool is_v = e >= KT * chunks;
+      const int i = is_v ? e - KT * chunks : e, row = i / chunks, cc = (i % chunks) * 8;
+      const uint2 v = *reinterpret_cast<const uint2*>((is_v ? vraw : kraw) + (buf * KT + row) * RLD + cc);
+      const uint32_t w2[2] = {v.x, v.y};
+      uint32_t o[4];
+#pragma unroll
+      for (int h = 0; h < 4; ++h) {
+        const uint32_t word = w2[h / 2] >> (16 * (h % 2));
+        o[h] = pack_bf16(static_cast<float>(static_cast<int8_t>(word & 0xff)),
+                         static_cast<float>(static_cast<int8_t>(word >> 8)));
+      }
+      *reinterpret_cast<uint4*>((is_v ? vs : ks) + (buf * KT + row) * LD + cc) =
+          make_uint4(o[0], o[1], o[2], o[3]);
+    }
+  };
+
+  stage(0, 0);
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+  __syncthreads();
+  if constexpr (kInt8) {
+    widen(0);
+    __syncthreads();
+  }
+
+  float o[HPM / 8][4];
+#pragma unroll
+  for (int dt = 0; dt < HPM / 8; ++dt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[dt][e] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  int rpos[2];  // the lane's rows' positions; -1 (nothing visible) past R
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int rho = w * 16 + gr + 8 * i;
+    rpos[i] = rho < R ? pos[t] + rho / g : -1;
+  }
+  const float sl2 = a.sm_scale * kLog2e;
+
+  for (int kt = 0; kt < n_kt; ++kt) {
+    const int buf = kt & 1;
+    if (kt + 1 < n_kt) stage(kt + 1, buf ^ 1);
+    const bf16* kb = ks + buf * KT * LD;
+    const bf16* vb = vs + buf * KT * LD;
+    const float* kscb = ksc + buf * KT;
+    const float* vscb = vsc + buf * KT;
+    const int k0 = kt * KT;
+
+    // S = Q K^T, 16 x KT per warp
+    float sc[KT / 8][4];
+#pragma unroll
+    for (int jj = 0; jj < KT / 8; ++jj)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sc[jj][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < HPM / 16; ++kk) {
+      if (kk >= ksteps) break;
+      uint32_t qa[4];
+      ldsm_x4(qa, qs + (w * 16 + lane % 16) * LD + kk * 16 + (lane / 16) * 8);
+#pragma unroll
+      for (int p = 0; p < KT / 16; ++p) {
+        uint32_t bk[4];
+        ldsm_x4(bk, kb + (p * 16 + lane % 8 + (lane / 16) * 8) * LD + kk * 16 + ((lane / 8) % 2) * 8);
+        mma(sc[2 * p], qa, bk[0], bk[1]);
+        mma(sc[2 * p + 1], qa, bk[2], bk[3]);
+      }
+    }
+
+    // online softmax over the lane's rows gr (i = 0) and gr + 8 (i = 1)
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      float mx = -INFINITY;
+#pragma unroll
+      for (int jj = 0; jj < KT / 8; ++jj)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int kl = jj * 8 + 2 * tq + e, key = k0 + kl;
+          float x = sc[jj][2 * i + e] * kscb[kl] * sl2;
+          if (key > rpos[i] || key >= walk) x = -INFINITY;
+          sc[jj][2 * i + e] = x;
+          mx = fmaxf(mx, x);
+        }
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float m_new = fmaxf(m[i], mx);
+      const float base = m_new == -INFINITY ? 0.f : m_new;
+      const float alpha = exp2f(m[i] - base);
+      m[i] = m_new;
+      float sum = 0.f;
+#pragma unroll
+      for (int jj = 0; jj < KT / 8; ++jj)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float p = exp2f(sc[jj][2 * i + e] - base);
+          sum += p;
+          sc[jj][2 * i + e] = kInt8 ? p * vscb[jj * 8 + 2 * tq + e] : p;
+        }
+      l[i] = l[i] * alpha + sum;  // this lane's columns; summed over the quad at the end
+#pragma unroll
+      for (int dt = 0; dt < HPM / 8; ++dt) {
+        o[dt][2 * i] *= alpha;
+        o[dt][2 * i + 1] *= alpha;
+      }
+    }
+
+    // O += P V, P as bf16 A fragments straight from the score accumulators
+#pragma unroll
+    for (int cc = 0; cc < KT / 16; ++cc) {
+      uint32_t pa[4] = {pack_bf16(sc[2 * cc][0], sc[2 * cc][1]), pack_bf16(sc[2 * cc][2], sc[2 * cc][3]),
+                        pack_bf16(sc[2 * cc + 1][0], sc[2 * cc + 1][1]),
+                        pack_bf16(sc[2 * cc + 1][2], sc[2 * cc + 1][3])};
+#pragma unroll
+      for (int dp = 0; dp < HPM / 16; ++dp) {
+        if (dp >= ksteps) break;
+        uint32_t bv[4];
+        ldsm_x4_t(bv, vb + (cc * 16 + lane % 8 + ((lane / 8) % 2) * 8) * LD + dp * 16 + (lane / 16) * 8);
+        mma(o[2 * dp], pa, bv[0], bv[1]);
+        mma(o[2 * dp + 1], pa, bv[2], bv[3]);
+      }
+    }
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+    __syncthreads();  // the next tile has landed; this one is no longer read
+    if constexpr (kInt8) {
+      if (kt + 1 < n_kt) {
+        widen(buf ^ 1);
+        __syncthreads();
+      }
+    }
+  }
+
+  // out = O / l for the tile's rows, straight from registers, two columns a store
+  bf16* out = static_cast<bf16*>(a.out);
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    float li = l[i];
+    li += __shfl_xor_sync(0xffffffffu, li, 1);
+    li += __shfl_xor_sync(0xffffffffu, li, 2);
+    const float inv = 1.f / fmaxf(li, 1e-30f);
+    const int rho = w * 16 + gr + 8 * i;
+    if (rho >= R) continue;
+    bf16* dst = out + ((size_t)(t + rho / g) * a.N + j * g + rho % g) * H;
+#pragma unroll
+    for (int dt = 0; dt < HPM / 8; ++dt) {
+      const int col = dt * 8 + 2 * tq;
+      if (col < H)
+        *reinterpret_cast<__nv_bfloat162*>(dst + col) =
+            __floats2bfloat162_rn(o[dt][2 * i] * inv, o[dt][2 * i + 1] * inv);
+    }
+  }
+}
+
+// the tile kernel for the head dim's HPM, launched over every (token, kv head)
+template <typename TKV, int HPM>
+int launch_tiles_hpm(const SplitArgs& a, cudaStream_t stream) {
+  constexpr size_t smem = tile_smem_bytes<HPM, sizeof(TKV) == 1>();
+  static const cudaError_t sized = cudaFuncSetAttribute(
+      packed_tile_kernel<TKV, HPM>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (sized != cudaSuccess) return (int)sized;
+  packed_tile_kernel<TKV, HPM><<<dim3(a.B, a.n_kv), kTcThreads, smem, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
+template <typename TKV>
+int launch_tiles(const SplitArgs& a, cudaStream_t stream) {
+  const int hp = (a.H + 15) / 16 * 16;
+  if (hp <= 64) return launch_tiles_hpm<TKV, 64>(a, stream);
+  if (hp <= 128) return launch_tiles_hpm<TKV, 128>(a, stream);
+  return launch_tiles_hpm<TKV, 256>(a, stream);
+}
+
+// kernel 2: the tiles of two tokens or more on the tensor cores (bf16 q over
+// a bf16 or int8 pool, when the wrapper gives qt >= 2), then kernel 1's pair
+// over the window's other tokens, each a row of one query with its own table
+// row (row_map) and position; the pair's walk as a programmatic dependent of
+// the tiles, so the two run side by side
+template <typename TQ, typename TKV>
+int launch_packed(SplitArgs a, cudaStream_t stream) {
+  if constexpr (std::is_same<TQ, bf16>::value && !std::is_same<TKV, float>::value) {
+    if (a.qt >= 2) {
+      const int err = launch_tiles<TKV>(a, stream);
+      if (err) return err;
+      return launch_decode<TQ, TKV>(a, stream, true);  // overlaps the tiles
+    }
+  } else if (a.qt >= 2) {
+    return (int)cudaErrorInvalidValue;  // the tensor-core tiles take bf16 q and a bf16 or int8 pool
+  }
+  return launch_decode<TQ, TKV>(a, stream);
+}
+
 // dtype codes: 0 = float32, 1 = bfloat16, 2 = int8 (pool only).  Calls
-// launch_decode<TQ, TKV> (args: SplitArgs) or launch_packed<TQ, TKV> (Args, R)
-template <bool kPacked, typename TQ, typename A>
-int launch_kv(int kv_dtype, const A& a, int R, cudaStream_t stream) {
+// launch_packed<TQ, TKV> or launch_decode<TQ, TKV>
+template <bool kPacked, typename TQ>
+int launch_kv(int kv_dtype, const SplitArgs& a, cudaStream_t stream) {
   switch (kv_dtype) {
-    case 0:
-      if constexpr (kPacked) return launch_packed<TQ, float>(a, R, stream);
-      else return launch_decode<TQ, float>(a, stream);
+    case 0: return kPacked ? launch_packed<TQ, float>(a, stream) : launch_decode<TQ, float>(a, stream);
     case 1:
-      if constexpr (kPacked) return launch_packed<TQ, __nv_bfloat16>(a, R, stream);
-      else return launch_decode<TQ, __nv_bfloat16>(a, stream);
+      return kPacked ? launch_packed<TQ, bf16>(a, stream) : launch_decode<TQ, bf16>(a, stream);
     case 2:
-      if constexpr (kPacked) return launch_packed<TQ, int8_t>(a, R, stream);
-      else return launch_decode<TQ, int8_t>(a, stream);
+      return kPacked ? launch_packed<TQ, int8_t>(a, stream) : launch_decode<TQ, int8_t>(a, stream);
   }
   return (int)cudaErrorInvalidValue;
 }
 
-template <bool kPacked, typename A>
-int launch_any(int q_dtype, int kv_dtype, const A& a, int R, cudaStream_t stream) {
-  if (R == 0) return (int)cudaSuccess;
+template <bool kPacked>
+int launch_any(int q_dtype, int kv_dtype, const SplitArgs& a, cudaStream_t stream) {
+  if (a.B == 0) return (int)cudaSuccess;
   switch (q_dtype) {
-    case 0: return launch_kv<kPacked, float>(kv_dtype, a, R, stream);
-    case 1: return launch_kv<kPacked, __nv_bfloat16>(kv_dtype, a, R, stream);
+    case 0: return launch_kv<kPacked, float>(kv_dtype, a, stream);
+    case 1: return launch_kv<kPacked, bf16>(kv_dtype, a, stream);
   }
   return (int)cudaErrorInvalidValue;
 }
+
+// the arguments both C entries check; vec as SplitArgs::vec
+bool bad_split(int B, int S, int N, int n_kv, int H, int W, int ps, int pp, int n_part) {
+  return B < 0 || S < 1 || n_kv < 1 || N % n_kv || H < 1 || H > 64 * kMaxPairs || W < 1 ||
+         ps < 1 || pp < 1 || n_part != (W + pp - 1) / pp || n_kv > 65535 || B > 65535;
+}
+
+bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
 
 }  // namespace
 
 extern "C" {
 
-size_t paged_attention_smem_bytes(int G, int H, int ps) { return smem_bytes(G, H, ps); }
+// the most dynamic shared memory a block of a paged call takes at G queries
+// per kv head and head dim H: kernel 1's first launch (its rows staged at
+// the widest, f32) or kernel 2's tile kernel (the int8 layout, the larger)
+size_t paged_attention_smem_bytes(int G, int H) {
+  const int np = (H + 63) / 64;
+  const int qc = G <= 1 ? 1 : G <= 4 || np > 2 ? 4 : 8;
+  int stride, kpr;
+  split_layout(H * 4, stride, kpr);
+  const size_t split = split_smem_bytes(qc, H, kpr, stride);
+  const int hp = (H + 15) / 16 * 16;
+  const size_t tile = hp <= 64    ? tile_smem_bytes<64, true>()
+                      : hp <= 128 ? tile_smem_bytes<128, true>()
+                                  : tile_smem_bytes<256, true>();
+  return split > tile ? split : tile;
+}
 
 const char* paged_attention_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
@@ -743,26 +1036,34 @@ int paged_decode_attention_launch(const void* q, const void* pool_k, const void*
                                   int pp, int n_part, float sm_scale, int q_dtype, int kv_dtype,
                                   void* stream) {
   const size_t kv_bytes = kv_dtype == 0 ? 4 : kv_dtype == 1 ? 2 : 1;
-  auto aligned = [](const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; };
-  if (B < 0 || S < 1 || n_kv < 1 || N % n_kv || H < 1 || H > 64 * kMaxPairs || W < 1 || ps < 1 ||
-      pp < 1 || n_part != (W + pp - 1) / pp || n_kv > 65535 || B > 65535)
-    return (int)cudaErrorInvalidValue;
-  const int vec = (H * kv_bytes) % 16 == 0 && aligned(pool_k) && aligned(pool_v);
-  SplitArgs a{q, pool_k, pool_v, bt, pos, k_scale, v_scale, part, out,
-              B, S, N, n_kv, H, W, ps, pp, n_part, sm_scale, vec, 0, 0};
-  return launch_any<false>(q_dtype, kv_dtype, a, B, static_cast<cudaStream_t>(stream));
+  if (bad_split(B, S, N, n_kv, H, W, ps, pp, n_part)) return (int)cudaErrorInvalidValue;
+  const int vec = (H * kv_bytes) % 16 == 0 && aligned16(pool_k) && aligned16(pool_v);
+  SplitArgs a{q, pool_k, pool_v, bt, pos, nullptr, k_scale, v_scale, part, out,
+              B, S, N, n_kv, H, W, ps, pp, n_part, sm_scale, vec, 0, 0, 0};
+  return launch_any<false>(q_dtype, kv_dtype, a, static_cast<cudaStream_t>(stream));
 }
 
-// q (T, N, H); bt (rows, W); row_map (T,); pos (T,); out (T, N, H)
+// q (T, N, H); bt (rows, W); row_map (T,); pos (T,); out (T, N, H).  qt:
+// the tokens a tensor-core tile spans at most (the wrapper's
+// packed_tokens_per_tile), 0 when no tile runs there; it needs bf16 q over a
+// bf16 or int8 pool, qt (N / n_kv) <= 64, H a multiple of 8 and aligned
+// pointers.  The other tokens go through kernel 1's pair, each a row of S = 1
+// with its own table row: (pp, n_part) and part as there, B = T.
 int packed_paged_attention_launch(const void* q, const void* pool_k, const void* pool_v,
                                   const int32_t* bt, const int32_t* row_map,
                                   const int32_t* pos, const float* k_scale,
-                                  const float* v_scale, void* out, int T, int N, int n_kv,
-                                  int H, int W, int ps, float sm_scale, int q_dtype,
-                                  int kv_dtype, void* stream) {
-  Args a{q, pool_k, pool_v, bt, row_map, pos, k_scale, v_scale, out,
-         1, N, n_kv, H, W, ps, sm_scale};
-  return launch_any<true>(q_dtype, kv_dtype, a, T, static_cast<cudaStream_t>(stream));
+                                  const float* v_scale, float* part, void* out, int T, int N,
+                                  int n_kv, int H, int W, int ps, int pp, int n_part, int qt,
+                                  float sm_scale, int q_dtype, int kv_dtype, void* stream) {
+  const size_t kv_bytes = kv_dtype == 0 ? 4 : kv_dtype == 1 ? 2 : 1;
+  if (bad_split(T, 1, N, n_kv, H, W, ps, pp, n_part) || qt < 0 || qt == 1 ||
+      (qt > 1 && (q_dtype != 1 || kv_dtype == 0 || qt * (N / n_kv) > kTcRows || H % 8 ||
+                  !aligned16(q) || !aligned16(pool_k) || !aligned16(pool_v))))
+    return (int)cudaErrorInvalidValue;
+  const int vec = (H * kv_bytes) % 16 == 0 && aligned16(pool_k) && aligned16(pool_v);
+  SplitArgs a{q, pool_k, pool_v, bt, pos, row_map, k_scale, v_scale, part, out,
+              T, 1, N, n_kv, H, W, ps, pp, n_part, sm_scale, vec, 0, 0, qt};
+  return launch_any<true>(q_dtype, kv_dtype, a, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -249,10 +249,10 @@ def _kernel_library():
         )
         lib.paged_decode_attention_launch.restype = i32
         lib.packed_paged_attention_launch.argtypes = (
-            [vp] * 9 + [i32] * 6 + [f32, i32, i32, vp]
+            [vp] * 10 + [i32] * 9 + [f32, i32, i32, vp]
         )
         lib.packed_paged_attention_launch.restype = i32
-        lib.paged_attention_smem_bytes.argtypes = [i32, i32, i32]
+        lib.paged_attention_smem_bytes.argtypes = [i32, i32]
         lib.paged_attention_smem_bytes.restype = ctypes.c_size_t
         lib.paged_attention_error_string.argtypes = [i32]
         lib.paged_attention_error_string.restype = ctypes.c_char_p
@@ -281,6 +281,59 @@ def paged_decode_schedule(table_width: int, page_size: int) -> Tuple[int, int]:
     return pp, -(-table_width // pp)
 
 
+#: keys a partition of kernel 2's one-token walk covers at most (kernel 1's
+#: split pair over a packed window, whose every token has its blocks)
+PACKED_SPLIT_KEYS = 512
+
+#: query rows (token x head of the kv-head group) of kernel 2's tensor-core tile
+PACKED_TILE_ROWS = 64
+
+
+def packed_walk_schedule(table_width: int, page_size: int) -> Tuple[int, int]:
+    """``(pages per partition, partitions per row)`` of kernel 2's one-token
+    walk: :func:`paged_decode_schedule`'s rule at :data:`PACKED_SPLIT_KEYS`
+    keys a partition, from the table width and page size alone."""
+    if table_width < 1 or page_size < 1:
+        raise ValueError(f"table width {table_width} and page size {page_size} must be >= 1")
+    pp = max(1, min(table_width, PACKED_SPLIT_KEYS // page_size))
+    return pp, -(-table_width // pp)
+
+
+def packed_tokens_per_tile(q_dtype, pool_dtype, num_heads: int, kv_heads: int, head_dim: int,
+                           aligned: bool = True) -> int:
+    """Tokens a query tile of kernel 2's tensor-core kernel spans at most:
+    ``64 // g`` (g = num_heads // kv_heads, so a tile holds 64 query rows)
+    for bf16 q over a bf16 or int8 pool with ``head_dim`` a multiple of 8 and
+    16-byte ``aligned`` pointers; 0 otherwise, or when that is below 2 (then
+    every token takes kernel 1's lane walk)."""
+    qt = PACKED_TILE_ROWS // (num_heads // kv_heads)
+    ok = (q_dtype == torch.bfloat16 and pool_dtype in (torch.bfloat16, torch.int8)
+          and head_dim % 8 == 0 and aligned and qt >= 2)
+    return qt if ok else 0
+
+
+def packed_tile_schedule(row_map, positions, tokens_per_tile: int):
+    """Kernel 2's tiles of a packed window, as ``[(first token, count)]`` in
+    window order, the same rule ``csrc/paged_attention.cu`` applies on the
+    device.  A run is a maximal stretch of tokens of one table row at
+    consecutive positions; a tile starts at a run's first token and at every
+    position that is a multiple of ``tokens_per_tile``.  A token's tile
+    therefore depends on its own run and position alone.  With
+    ``tokens_per_tile`` below 2 every token is a tile of its own.  Tiles of
+    two tokens or more take the tensor-core kernel, the others kernel 1's
+    lane walk."""
+    rm = [int(r) for r in row_map]
+    pos = [int(p) for p in positions]
+    tiles = []
+    for t in range(len(rm)):
+        run_start = t == 0 or rm[t] != rm[t - 1] or pos[t] != pos[t - 1] + 1
+        if tokens_per_tile < 2 or run_start or pos[t] % tokens_per_tile == 0:
+            tiles.append([t, 1])
+        else:
+            tiles[-1][1] += 1
+    return [tuple(tile) for tile in tiles]
+
+
 def paged_decode_scratch_floats(B: int, n_kv: int, n_part: int, G: int, H: int) -> int:
     """f32 elements of kernel 1's partials: ``(m, l)`` and ``acc`` ``(H,)``
     for each (row, kv head, partition, query of the group)."""
@@ -288,9 +341,10 @@ def paged_decode_scratch_floats(B: int, n_kv: int, n_part: int, G: int, H: int) 
 
 
 def _validate_kernel_inputs(q, pool_k, pool_v, k_scale, v_scale, G, *index_tensors):
-    """Everything the kernel assumes, checked before any pointer is passed.
-    ``G``, the queries per kv head, sizes the packed kernel's shared memory;
-    kernel 1's does not grow with it (``G=None``)."""
+    """Everything the kernels assume, checked before any pointer is passed,
+    the shared memory of a block of either (``paged_attention_smem_bytes``:
+    kernel 1's split walk at ``G`` queries per kv head, kernel 2's tile
+    kernel at the head dim) included."""
     if q.device.type != "cuda":
         raise ValueError(
             f"the paged attention kernel runs on CUDA tensors; got {q.device} "
@@ -305,6 +359,9 @@ def _validate_kernel_inputs(q, pool_k, pool_v, k_scale, v_scale, G, *index_tenso
     if pool_k.shape != pool_v.shape or pool_k.ndim != 4:
         raise ValueError(f"pool shapes {tuple(pool_k.shape)} / {tuple(pool_v.shape)}")
     num_pages, ps, n_kv, H = pool_k.shape
+    if num_pages * ps * n_kv >= 2**32:
+        raise ValueError(f"the pool's {num_pages * ps * n_kv} rows of head_dim elements "
+                         "exceed the kernels' 32-bit row index")
     if q.shape[-1] != H or H > 256:
         raise ValueError(f"head_dim {q.shape[-1]} must equal the pool's {H} and be <= 256")
     if k_scale is not None and (
@@ -315,11 +372,11 @@ def _validate_kernel_inputs(q, pool_k, pool_v, k_scale, v_scale, G, *index_tenso
         if t is not None and (t.device != q.device or not t.is_contiguous()):
             raise ValueError("all kernel operands must be contiguous and on q's device")
     lib = _kernel_library()
-    smem = 0 if G is None else lib.paged_attention_smem_bytes(G, H, ps)
+    smem = lib.paged_attention_smem_bytes(G, H)
     if smem > _MAX_SMEM:
         raise ValueError(
-            f"{G} queries per kv head x head_dim {H} x page {ps} needs {smem} B "
-            f"of shared memory (> {_MAX_SMEM})"
+            f"{G} queries per kv head x head_dim {H} needs {smem} B of shared memory "
+            f"(> {_MAX_SMEM})"
         )
     return lib
 
@@ -371,11 +428,8 @@ def paged_decode_attention(
     pos = _query_positions(positions, B, S).contiguous()
     if bt.shape[0] != B:
         raise ValueError(f"block_tables has {bt.shape[0]} rows for batch {B}")
-    lib = _validate_kernel_inputs(q, pool_k, pool_v, k_scale, v_scale, None, bt, pos)
+    lib = _validate_kernel_inputs(q, pool_k, pool_v, k_scale, v_scale, (N // n_kv) * S, bt, pos)
     W, ps = bt.shape[1], pool_k.shape[1]
-    if pool_k.shape[0] * ps * n_kv >= 2**32:
-        raise ValueError(f"the pool's {pool_k.shape[0] * ps * n_kv} rows of head_dim elements "
-                         "exceed the kernel's 32-bit row index")
     pages_per_part, n_part = paged_decode_schedule(W, ps)
     part = torch.empty(
         paged_decode_scratch_floats(B, n_kv, n_part, (N // n_kv) * S, H),
@@ -418,7 +472,13 @@ def packed_paged_attention(
     Returns ``(1, T, N, H)`` in ``q.dtype``; math is f32.
 
     A CPU ``q`` runs :func:`packed_paged_attention_plain`; any other device
-    launches ``packed_paged_kernel`` (csrc/paged_attention.cu) or raises.
+    launches kernel 2 (csrc/paged_attention.cu) or raises: the window's
+    tiles of two tokens or more (:func:`packed_tile_schedule` at
+    :func:`packed_tokens_per_tile`) on ``packed_tile_kernel``, every other
+    token through kernel 1's split pair with its own table row, split by
+    :func:`packed_walk_schedule`.
+    ``.launches`` counts the call once, ``.tc_launches`` the calls that
+    launch the tile kernel (``tokens_per_tile >= 2``).
     """
     B, T, N, H = q.shape
     if B != 1:
@@ -439,17 +499,25 @@ def packed_paged_attention(
     rm = row_map.reshape(T).to(torch.int32).contiguous()
     pos = positions.reshape(T).to(torch.int32).contiguous()
     lib = _validate_kernel_inputs(q, pool_k, pool_v, k_scale, v_scale, N // n_kv, bt, rm, pos)
+    W, ps = bt.shape[1], pool_k.shape[1]
     out = torch.empty_like(q)
+    qt = packed_tokens_per_tile(q.dtype, pool_k.dtype, N, n_kv, H,
+                                all(t.data_ptr() % 16 == 0 for t in (q, pool_k, pool_v)))
+    pages_per_part, n_part = packed_walk_schedule(W, ps)
+    part = torch.empty(paged_decode_scratch_floats(T, n_kv, n_part, N // n_kv, H),
+                       dtype=torch.float32, device=q.device)
     err = lib.packed_paged_attention_launch(
         _ptr(q), _ptr(pool_k), _ptr(pool_v), _ptr(bt), _ptr(rm), _ptr(pos),
-        _ptr(k_scale), _ptr(v_scale), _ptr(out),
-        T, N, n_kv, H, bt.shape[1], pool_k.shape[1], float(scale),
+        _ptr(k_scale), _ptr(v_scale), _ptr(part), _ptr(out),
+        T, N, n_kv, H, W, ps, pages_per_part, n_part, qt, float(scale),
         _DTYPE_CODE[q.dtype], _DTYPE_CODE[pool_k.dtype],
         ctypes.c_void_p(torch.cuda.current_stream(q.device).cuda_stream),
     )
-    _raise_on_error(lib, err, "packed_paged_kernel")
+    _raise_on_error(lib, err, "packed_paged_attention")
     packed_paged_attention.launches += 1
+    packed_paged_attention.tc_launches += qt >= 2
     return out
 
 
 packed_paged_attention.launches = 0
+packed_paged_attention.tc_launches = 0

@@ -39,7 +39,7 @@ from relora_tpu_torch.ops._build import ptr_arg, stream_arg
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 #: largest head_dim the kernels take (it must also be even)
-MAX_HEAD_DIM = 128
+MAX_HEAD_DIM = 256
 #: dynamic shared memory a block may use on Hopper (227 KB)
 _MAX_SMEM = 232448
 _KERNELS = {"forward": 0, "dkdv": 1, "dq": 2}
@@ -151,6 +151,14 @@ def _kernel_library():
     return lib
 
 
+def check_head_dim(H: int) -> None:
+    """Raise unless the kernels take head_dim ``H``: even and at most
+    :data:`MAX_HEAD_DIM` (bf16 pads it to a multiple of 16 in shared memory;
+    past 128 both dtypes switch to their wide kernels)."""
+    if H < 2 or H % 2 or H > MAX_HEAD_DIM:
+        raise ValueError(f"head_dim {H} must be even and <= {MAX_HEAD_DIM}")
+
+
 def _check(kernel: str, q, k, v, *others):
     """Everything the kernels assume, checked before a pointer is passed;
     returns ``(library, (B, S, N, n_kv, H), dtype code)``."""
@@ -172,8 +180,7 @@ def _check(kernel: str, q, k, v, *others):
         raise ValueError(f"k/v {tuple(k.shape)} do not match q {tuple(q.shape)} (causal self-attention)")
     if N % n_kv:
         raise ValueError(f"num_heads={N} must divide by kv_heads={n_kv}")
-    if H % 2 or H > MAX_HEAD_DIM:
-        raise ValueError(f"head_dim {H} must be even and <= {MAX_HEAD_DIM}")
+    check_head_dim(H)
     lib = _kernel_library()
     code = _DTYPE_CODE[q.dtype]
     smem = lib.flash_attention_smem_bytes(_KERNELS[kernel], H, code)

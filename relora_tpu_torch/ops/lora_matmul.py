@@ -18,9 +18,10 @@ design and the bound.  Here:
   wrapper per kernel.  A CPU tensor runs the plain twin of the same name with
   ``_plain``; a CUDA tensor launches the kernel or raises.  Each wrapper
   counts its launches in ``.launches``.  The two forwards and the two dx
-  wrappers choose between two hand-written kernels by :func:`forward_path`:
-  bf16 tensor cores for the model's layout, f32 FMAs for the rest;
-  ``.tc_launches`` counts the first.
+  wrappers choose between two hand-written kernels by :func:`forward_path`,
+  dA/dB by :func:`dab_path` (the same rule with no base): bf16 tensor cores
+  for the model's layout, f32 FMAs for the rest; ``.tc_launches`` counts the
+  first.
 - :class:`FusedLoRAMatmul` and :class:`FusedLoRAMatmulInt8`, the autograd
   Functions over them (the JAX package's ``custom_vjp`` pair, ``:375-427``),
   and :func:`fused_lora_matmul` / :func:`fused_lora_matmul_int8`, their
@@ -138,7 +139,7 @@ def _kernel_library():
         lib.fused_lora_int8_forward_launch.argtypes = int8_product + [i32, vp]
         lib.fused_lora_int8_bwd_dx_launch.argtypes = int8_product + [i32, vp]
         lib.fused_lora_bwd_dab_launch.argtypes = (
-            [vp, vp, vp, vp, i32, vp, vp, f32, vp, vp, vp] + [i32] * 5 + [vp]
+            [vp, vp, vp, vp, i32, vp, vp, f32, vp, vp, vp, vp] + [i32] * 6 + [vp]
         )
         lib.dequant_matmul_launch.argtypes = [vp, vp, i64, i64, vp, vp] + [i32] * 5 + [vp]
         lib.grouped_lora_forward_launch.argtypes = (
@@ -246,6 +247,26 @@ def forward_path(dtype: torch.dtype, base_strides: Tuple[int, int], K: int, N: i
     return "tc" if tc else "fma"
 
 
+#: rows of M per dA/dB partial, both paths (``lora_matmul_dab_chunk()`` in the library)
+DAB_CHUNK = 512
+
+
+def dab_chunks(M: int):
+    """The M-chunk schedule of dA/dB: ``[(first row, end row)]`` of every
+    partial, ``DAB_CHUNK`` rows apiece, the last cut at M.  It depends on M
+    alone (never on the card), and the reduce sums the partials in this
+    order, so the result is the same bits on every run."""
+    return [(m0, min(M, m0 + DAB_CHUNK)) for m0 in range(0, M, DAB_CHUNK)]
+
+
+def dab_path(dtype: torch.dtype, K: int, N: int, r: int, aligned: bool = True) -> str:
+    """Which kernel a CUDA dA/dB (kernel 7) launches: :func:`forward_path`'s
+    rule with no base to test (kernel 7 never reads it): ``"tc"`` for bf16
+    operands with K, N and r multiples of 8 and every pointer 16-byte
+    ``aligned``, else ``"fma"``."""
+    return forward_path(dtype, (1, K), K, N, r, aligned)
+
+
 def _aligned(*tensors) -> bool:
     return all(t.data_ptr() % 16 == 0 for t in tensors)
 
@@ -331,8 +352,11 @@ def fused_lora_bwd_dab(g, x, z, b, s: Scale = 1.0, u=None) -> Tuple[torch.Tensor
     :func:`fused_lora_bwd_dx` saves recomputing it.
 
     A CPU ``g`` runs :func:`fused_lora_bwd_dab_plain`; any other device
-    launches the dA/dB kernels (partials over 512-row chunks of M, then a
-    reduce pass) or raises."""
+    launches the dA/dB kernels on the path :func:`dab_path` picks (partials
+    over 512-row chunks of M, then a reduce pass in chunk order; the bf16
+    path on the tensor cores after splitting u and z into bf16 halves) or
+    raises.  ``.launches`` counts every launch, ``.tc_launches`` those of
+    the tensor-core path."""
     if g.device.type == "cpu":
         return fused_lora_bwd_dab_plain(g, x, z, b, s, u)
     _on_cuda(g, x, z, b, *(() if u is None else (u,)))
@@ -348,21 +372,29 @@ def fused_lora_bwd_dab(g, x, z, b, s: Scale = 1.0, u=None) -> Tuple[torch.Tensor
         u = _rows(u, (M, r), "u", torch.float32)
     else:
         u = torch.empty((M, r), dtype=torch.float32, device=g.device)
-    chunks = max(1, -(-M // lib.lora_matmul_dab_chunk()))
+    if lib.lora_matmul_dab_chunk() != DAB_CHUNK:
+        raise RuntimeError("the library's dA/dB chunk differs from DAB_CHUNK")
+    chunks = max(1, len(dab_chunks(M)))
     part = torch.empty((chunks, K * r + r * N), dtype=torch.float32, device=g.device)
     da = torch.empty((K, r), dtype=torch.float32, device=g.device)
     db = torch.empty((r, N), dtype=torch.float32, device=g.device)
+    tc = dab_path(g.dtype, K, N, r, _aligned(g, x, z, u, part)) == "tc"
+    # the tensor-core path's hi and lo bf16 halves of u and z
+    split = torch.empty((4, M, r) if tc else (0,), dtype=torch.bfloat16, device=g.device)
     s_ptr, s_val, _keep = _scale_arg(s, g)
     err = lib.fused_lora_bwd_dab_launch(
         ptr_arg(g), ptr_arg(x), ptr_arg(z), ptr_arg(u), int(have_u), ptr_arg(b), s_ptr, s_val,
-        ptr_arg(part), ptr_arg(da), ptr_arg(db), M, K, N, r, code, stream_arg(g),
+        ptr_arg(part), ptr_arg(split), ptr_arg(da), ptr_arg(db), M, K, N, r, code, int(tc),
+        stream_arg(g),
     )
     _raise_on_error(lib, err, "fused_lora_bwd_dab")
     fused_lora_bwd_dab.launches += 1
+    fused_lora_bwd_dab.tc_launches += tc
     return da, db
 
 
 fused_lora_bwd_dab.launches = 0
+fused_lora_bwd_dab.tc_launches = 0
 
 
 def fused_lora_int8_forward(x, q, qscale, a, b, s: Scale = 1.0) -> Tuple[torch.Tensor, torch.Tensor]:

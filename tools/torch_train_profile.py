@@ -13,8 +13,9 @@ fit, and device time by kernel name (names cut to 80 characters, times of
 names that share those summed), largest first, with the shares of the
 flash kernels, of ``lora_gemm_kernel``/``lora_dab_reduce_kernel``, of the
 bf16 fused forward's tensor-core kernels (``fused_fwd_*``, kernels 4 and
-4-int8), of the bf16 dx's (``fused_dx_*``, kernels 6 and 6-int8) and of
-kernel 8's (``dequant_matmul_tc_kernel``).  The GEMM kernel serves the fused
+4-int8), of the bf16 dx's (``fused_dx_*``, kernels 6 and 6-int8), of
+kernel 8's (``dequant_matmul_tc_kernel``) and of kernel 7's (``dab_*``: its
+split pass, tensor-core partials and reduce).  The GEMM kernel serves the fused
 LoRA kernel 7 and the f32 forward, dx and kernel 8, so the line also gives
 the timed run's launch count of every kernel wrapper.  Extra training flags
 are appended to the train phase's, e.g. the fused-LoRA and the int8 runs:
@@ -111,6 +112,8 @@ def main() -> int:
     fwd_tc_ms = sum(us for name, us in by_name.items() if "fused_fwd_" in name) / 1e3
     dx_tc_ms = sum(us for name, us in by_name.items() if "fused_dx_" in name) / 1e3
     dequant_tc_ms = sum(us for name, us in by_name.items() if "dequant_matmul_tc" in name) / 1e3
+    # kernel 7: on the tensor cores its split pass, partials and reduce
+    dab_ms = sum(us for name, us in by_name.items() if "dab_" in name) / 1e3
     steady = sorted(r["update_seconds"] for r in timed["records"][1:])
     ms = steady[len(steady) // 2] * 1e3
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:15]
@@ -137,6 +140,8 @@ def main() -> int:
         "fused_dx_tc_share_of_busy": dx_tc_ms / 1e3 / busy,
         "dequant_tc_kernels_ms": dequant_tc_ms,
         "dequant_tc_share_of_busy": dequant_tc_ms / 1e3 / busy,
+        "dab_kernels_ms": dab_ms,
+        "dab_share_of_busy": dab_ms / 1e3 / busy,
         "launches": launches,
         "kernels_ms": {name: us / 1e3 for name, us in top},
     }))
