@@ -21,16 +21,21 @@ Phases, in order; any failure raises and the script exits non-zero:
                packed T=72, for f32, bf16 and int8 pools; kernel 1's edge
                cases (a row whose every position is -1, which must give 0; a
                row with one visible key; 16 heads on 4 kv heads at S=5;
-               S=16; H=50 on scalar loads) and its batch invariance (each row
+               S=16; H=50 on scalar loads; a verify window, S = 5 over
+               (8, W+1) tables, one row's window across a page boundary and a
+               pad row on the null column) and its batch invariance (each row
                decoded alone gives the bits it gives in the batch of 8);
                kernel 2's (the prefill across a 64-token tile edge, grouped
                heads with a run over four tiles, H = 256 with and without
-               grouping, H = 50, each with pads, each pool) and its batch
-               invariance (the prefill run, each decode token and the pads
-               alone give the bits they give in the window); then each is
-               timed at the main path's shape beside its plain twin, a
-               gather + scaled_dot_product_attention yardstick, and its
-               bound.
+               grouping, H = 50, each with pads, each pool; verify runs of
+               5 beside decode tokens, a prefill run and pads) and its batch
+               invariance (the prefill run, each decode token, each verify
+               run and the pads alone give the bits they give in the
+               window); then each is timed at the main path's shape beside
+               its plain twin, a gather + scaled_dot_product_attention
+               yardstick, and its bound, and again at the verify shapes
+               (kernel 1 at S = 5 over (8, W+1) tables; kernel 2 on 8 verify
+               runs of 5 plus a 64-token prefill run).
 3. kernels-3 — the HMMA count of each bf16 flash kernel's SASS
                (``cuobjdump -sass``: the tensor cores are used); the flash
                forward, dK/dV and dQ kernels against their twins: the train
@@ -48,11 +53,30 @@ Phases, in order; any failure raises and the script exits non-zero:
 4. drains    — ``relora_tpu_torch.serve_cli`` drains 16 requests (prompts of
                32-512 tokens, 64 new tokens each) for llama_250m at full width,
                ``--random-init --dtype bf16 --max-batch 8 --paged``: at
-               ``--kv-dtype bf16``, with ``--packed``, and at ``--kv-dtype int8``.
+               ``--kv-dtype bf16``, with ``--packed``, and at ``--kv-dtype int8``,
+               then at bf16 over the repeat traffic (16 prompts, each a
+               seeded 8-32-token phrase repeated to 32-512 tokens).
                The launch counters are zeroed before each drain and read after;
                the drain fails if its kernel never launched.
-5. f32       — one ``decode_paged`` and one ``step_paged`` step at f32, the
-               kernel arm against the plain arm, compared on logits.
+   spec      — the same through ``--spec-k 4``: ``--spec ngram`` with a bf16
+               pool, ``--packed``, ``--kv-dtype int8`` and over the repeat
+               traffic, and ``--spec model`` with a base and a draft (the
+               base plus seeded noise) written by ``train/checkpoint.py``.
+               Each prints tokens/s beside its plain drain's, drafted and
+               accepted tokens, verify rounds and launches, and fails unless
+               a verify round ran, kernel 1 (kernel 2 when packed) launched
+               24 times a verify round at the window shape, every id is in
+               the vocabulary, and the draft's acceptance lies strictly
+               between 0 and 1.
+5. f32       — one ``decode_paged``, one ``step_paged`` and one
+               ``verify_paged`` step (S = 5 over W+1 tables, a pad row) at
+               f32, the kernel arm against the plain arm, compared on
+               logits; then each verify slot against a one-token decode at
+               its position.
+   f32-spec  — 8 repeat prompts, 32 new tokens, at f32: ``--spec ngram``
+               token-identical to the plain drain, except where the plain
+               run's top two logits lie within 1e-3 (each such divergence
+               printed with its gap).
 6. train     — ``relora_tpu_torch.main`` trains llama_250m (full width and
                depth, bf16, LoRA r=128 with dropout 0.1) for 9 updates of two
                8 x 512 microbatches on a seeded Zipf corpus written under
@@ -124,8 +148,9 @@ Phases, in order; any failure raises and the script exits non-zero:
                kernels and of the tensor-core forward's and dx's three each
                (printed before the phase starts); kernel 5 (the
                grouped multi-tenant LoRA forward) against its twin at bf16
-               and f32: M in {8, 64, 72} (decode rows, a prefill chunk, a
-               packed step) x the three projection shapes, r=128, S=4 slots,
+               and f32: M in {8, 40, 64, 72} (decode rows, a verify window,
+               a prefill chunk, a packed step) x the three projection
+               shapes, r=128, S=4 slots,
                a mixed idx that includes slot 0, W the transposed view; a
                ragged M=5, K=72, N=100, r=8, S=3 (the FMA path at bf16); r=320
                (three rank passes of the reduce kernel) at M=72, K=N=768,
@@ -144,7 +169,10 @@ Phases, in order; any failure raises and the script exits non-zero:
                --no-merge --adapter-dir D --adapters tA,tB`` (base rows
                through kernel 5), round-robin over [base, tA, tB, tC] through
                the scheduler API with 4 slots, sequential and packed, and
-               with 3 slots, so adapters load from disk and evict mid-traffic.
+               with 3 slots, so adapters load from disk and evict mid-traffic,
+               and a mixed-tenant ``spec="ngram"`` drain over the repeat
+               traffic (kernel 5 at M = 40 in every verify forward, checked
+               as the spec drains are).
                Each drain fails unless kernel 5 launched 7 x 24 times per
                forward; then tenant rows must differ from the base row on a
                shared prompt, and tB after tA on one prompt must equal tB
@@ -156,9 +184,11 @@ Phases, in order; any failure raises and the script exits non-zero:
 
 ``python3 chip_smoke.py --ab DIR [--train [FLAGS...] | --grouped | --lora |
 --tenants | --paged | --drains | --sass]`` times another checkout's package instead
-(see :func:`ab`); it checks nothing.
+(see :func:`ab`; ``--drains`` runs the spec drains beside the plain ones, in
+turns); it checks nothing.
 
-Output: a forward+backward timing line, one line per drain, a train line, a
+Output: a forward+backward timing line, one line per drain (plain and
+spec), the f32 spec line, a train line, a
 LoRA timing line, a fused-train line, an int8 timing line, the int8 train
 lines, a grouped timing line and one line per adapter drain, a
 ``{"kernels": [...]}`` line, the card's ``nvidia-smi
@@ -180,6 +210,7 @@ F32_FLOPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 REPO = os.path.dirname(os.path.abspath(__file__))
 WIDTHS = {"llama_250m": (16, 48), "llama_1b": (32, 64)}  # (heads, head_dim)
 PAGE, TABLE_W, BATCH, PACKED_T = 16, 64, 8, 72
+SPEC_K = 4  # the spec drains' --spec-k: verify windows of SPEC_K + 1 tokens
 # kernel vs plain twin on one card: f32 sums in another order (1e-6 scale);
 # bf16 outputs round once to bf16 (2^-7 relative at |out| < 4 gives 2e-2)
 KERNEL_TOL = {"f32": 1e-4, "bf16": 2e-2, "int8": 2e-2}
@@ -238,6 +269,44 @@ def make_pool_case(torch, device, *, heads, head_dim, pool, S, seed, packed=Fals
     q = torch.randn((1, PACKED_T, heads, head_dim), generator=g, device=device)
     return dict(q=q.to(q_dtype), pool_k=k, pool_v=v, block_tables=ptables,
                 row_map=row_map, positions=pos, **scales)
+
+
+def with_null_column(torch, tables):
+    """A verify window's ``(B, W+1)`` tables: each row plus a trailing null column."""
+    return torch.cat([tables, torch.zeros_like(tables[:, :1])], dim=1).contiguous()
+
+
+def make_window_case(torch, device, *, heads, head_dim, pool, seed, n_verify, n_decode,
+                     n_prefill, n_pad):
+    """A packed window as the ``--packed --spec`` scheduler lays it out:
+    ``n_verify`` verify runs of SPEC_K + 1 tokens (rows 0..; run 0 across a
+    page boundary), ``n_decode`` one-token decode rows, a prefill run of
+    ``n_prefill`` tokens of row BATCH at positions 40.., then ``n_pad`` pad
+    tokens on the all-null last row at the null position.  The pool and
+    tables are :func:`make_pool_case`'s.  Returns the case and its spans
+    ``[(first token, count)]``, one a run, decode token, prefill run or the pads."""
+    S = SPEC_K + 1
+    case = make_pool_case(torch, device, heads=heads, head_dim=head_dim, pool=pool, S=1, seed=seed,
+                          packed=True)
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    cache = TABLE_W * PAGE
+    rows, pos, spans = [], [], []
+    for r in range(n_verify + n_decode):
+        n = S if r < n_verify else 1
+        start = 5 * PAGE - 2 if r == 0 else int(torch.randint(32, cache - S, (1,), generator=g))
+        spans.append((len(rows), n))
+        rows += [r] * n
+        pos += list(range(start, start + n))
+    for n, row, at in ((n_prefill, BATCH, 40), (n_pad, BATCH + 1, None)):
+        if n:
+            spans.append((len(rows), n))
+            rows += [row] * n
+            pos += list(range(at, at + n)) if at is not None else [cache] * n
+    T = len(rows)
+    q = torch.randn((1, T, heads, head_dim), generator=g).to(device=device, dtype=case["q"].dtype)
+    case.update(q=q, row_map=torch.tensor(rows, dtype=torch.int32, device=device),
+                positions=torch.tensor(pos, dtype=torch.int32, device=device))
+    return case, spans
 
 
 def bound(torch, case, packed=False):
@@ -340,20 +409,30 @@ def check_decode_edges(torch, device):
     cases += [(pool, dict(S=5, kv_heads=4), "gqa") for pool in ("f32", "bf16", "int8")]
     cases += [("bf16", dict(S=16), "S=16"), ("bf16", dict(S=5, head_dim=50), "H=50"),
               ("f32", dict(S=1, head_dim=50), "H=50")]
+    cases += [(pool, dict(S=SPEC_K + 1), "verify") for pool in ("f32", "bf16", "int8")]
     for i, (pool, extra, label) in enumerate(cases):
         kw = dict(heads=heads, head_dim=head_dim, pool=pool, S=1, seed=301 + i)
         kw.update(extra)
         case = make_pool_case(torch, device, **kw)
         scales = {k: case[k] for k in ("k_scale", "v_scale") if k in case}
         pos = case["positions"].clone()
+        tables = case["block_tables"]
         if label == "pad+one":
             pos[0] = -1  # a pad row: no visible key
             pos[1] = torch.arange(pos.shape[1], device=device) - (pos.shape[1] - 1)  # key 0 alone at the last token
-        args = (case["q"], case["pool_k"], case["pool_v"], case["block_tables"], pos)
+        if label == "verify":
+            # the verify round's layout: (B, W+1) tables, row 0 a pad row
+            # (all-null table at the null position), row 1's window across
+            # a page boundary
+            tables = with_null_column(torch, tables)
+            tables[0] = 0
+            pos[0] = TABLE_W * PAGE
+            pos[1] = 5 * PAGE - 2 + torch.arange(pos.shape[1], device=device)
+        args = (case["q"], case["pool_k"], case["pool_v"], tables, pos)
         got = A.paged_decode_attention(*args, **scales)
         want = A.paged_decode_attention_plain(*args, **scales)
         alone = [A.paged_decode_attention(case["q"][b:b + 1], case["pool_k"], case["pool_v"],
-                                          case["block_tables"][b:b + 1], pos[b:b + 1], **scales)
+                                          tables[b:b + 1], pos[b:b + 1], **scales)
                  for b in range(BATCH)]
         torch.cuda.synchronize()
         err = (got.float() - want.float()).abs().max().item()
@@ -421,6 +500,46 @@ def check_packed_edges(torch, device):
             raise AssertionError(f"packed_paged_attention edge case {label} ({pool}) failed")
         if kw["head_dim"] == head_dim and kw["heads"] == heads:
             worst = max(worst, err)
+    return max(worst, check_verify_windows(torch, device))
+
+
+def check_verify_windows(torch, device):
+    """Kernel 2 on the ``--packed --spec`` layout, each pool, against its
+    twin: four verify runs of SPEC_K + 1 tokens (one across a page edge,
+    each shorter than a 64/g-token tile) beside four decode tokens, a
+    40-token prefill run and 8 pads; and batch invariance: each run, decode
+    token, the prefill run and the pads alone give the bits they give inside
+    the window.  Returns the worst error at llama_250m widths."""
+    from relora_tpu_torch.ops import attention as A
+
+    heads, head_dim = WIDTHS["llama_250m"]
+    worst = 0.0
+    for i, pool in enumerate(("f32", "bf16", "int8")):
+        case, spans = make_window_case(torch, device, heads=heads, head_dim=head_dim, pool=pool,
+                                       seed=451 + i, n_verify=4, n_decode=4, n_prefill=40, n_pad=8)
+        scales = {k: case[k] for k in ("k_scale", "v_scale") if k in case}
+        q, rm, pos = case["q"], case["row_map"], case["positions"]
+        T = q.shape[1]
+
+        def call(a, b):
+            return A.packed_paged_attention(q[:, a:b], case["pool_k"], case["pool_v"],
+                                            case["block_tables"], rm[a:b], pos[a:b], **scales)
+
+        got = call(0, T)
+        want = A.packed_paged_attention_plain(q, case["pool_k"], case["pool_v"],
+                                              case["block_tables"], rm, pos, **scales)
+        alone = [(a, a + n, call(a, a + n)) for a, n in spans]
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        ok = bool(torch.isfinite(got.float()).all()) and err <= KERNEL_TOL[pool]
+        invariant = all(torch.equal(got[:, a:b], o) for a, b, o in alone)
+        print(f"kernel-check packed_paged_attention verify-windows pool={pool} T={T} "
+              f"runs=4x{SPEC_K + 1}+4 decode+40 prefill+8 pads max_abs_err={err:.3e} "
+              f"tol={KERNEL_TOL[pool]:g} batch_invariant={invariant} "
+              f"{'ok' if ok and invariant else 'FAIL'}")
+        if not (ok and invariant):
+            raise AssertionError(f"packed_paged_attention verify windows ({pool}) failed")
+        worst = max(worst, err)
     return worst
 
 
@@ -464,14 +583,25 @@ def check_kernels(torch, device):
 
     rows = []
     heads, head_dim = WIDTHS["llama_250m"]
-    for name, packed, line in (
-        ("paged_decode_attention", False, 331),
-        ("packed_paged_attention", True, 532),
+    for name, kernel, packed, line in (
+        ("paged_decode_attention", "paged_decode_attention", False, 331),
+        ("packed_paged_attention", "packed_paged_attention", True, 532),
+        # the verify shapes: S = K+1 over (B, W+1) tables; a packed window
+        # of B verify runs of K+1 plus a 64-token prefill run
+        ("paged_decode_attention_verify", "paged_decode_attention", False, 331),
+        ("packed_paged_attention_verify", "packed_paged_attention", True, 532),
     ):
-        case = make_pool_case(torch, device, heads=heads, head_dim=head_dim, pool="bf16",
-                              S=1, seed=99, packed=packed)
-        fn = getattr(A, name)
-        plain = getattr(A, name + "_plain")
+        verify = name.endswith("_verify")
+        if verify and packed:
+            case, _ = make_window_case(torch, device, heads=heads, head_dim=head_dim, pool="bf16",
+                                       seed=99, n_verify=BATCH, n_decode=0, n_prefill=64, n_pad=0)
+        else:
+            case = make_pool_case(torch, device, heads=heads, head_dim=head_dim, pool="bf16",
+                                  S=SPEC_K + 1 if verify else 1, seed=99, packed=packed)
+        if verify and not packed:
+            case["block_tables"] = with_null_column(torch, case["block_tables"])
+        fn = getattr(A, kernel)
+        plain = getattr(A, kernel + "_plain")
         keys = ("q", "pool_k", "pool_v", "block_tables") + (("row_map",) if packed else ()) + ("positions",)
         args = [case[k] for k in keys]
         bound_ms, bound_by = bound(torch, case, packed)
@@ -481,7 +611,7 @@ def check_kernels(torch, device):
             "source": "relora_tpu_torch/csrc/paged_attention.cu",
             "replaces": f"relora_tpu/ops/attention.py:{line}",
             "launches": 0,
-            "max_abs_err": worst[name],
+            "max_abs_err": worst[kernel],
             "ms": time_ms(torch, lambda: fn(*args)),
             "plain_ms": time_ms(torch, lambda: plain(*args)),
             "bound_ms": bound_ms,
@@ -816,8 +946,9 @@ def write_prompts(path, vocab, seed=0):
     return int(lengths.sum())
 
 
-def drains(torch, prompts):
-    """Phase 3: the main path through the CLI's entry point, three ways."""
+def drains(torch, prompts, repeat):
+    """Phase 3: the main path through the CLI's entry point, three ways, and
+    the bf16 drain again over the repeat traffic (the spec drains' yardstick)."""
     from relora_tpu_torch import serve_cli
     from relora_tpu_torch.ops import attention as A
 
@@ -830,6 +961,7 @@ def drains(torch, prompts):
         ("bf16", ["--kv-dtype", "bf16"], "paged_decode_attention"),
         ("packed", ["--kv-dtype", "bf16", "--packed"], "packed_paged_attention"),
         ("int8", ["--kv-dtype", "int8"], "paged_decode_attention"),
+        ("bf16_repeat", ["--kv-dtype", "bf16", "--input-file", repeat], "paged_decode_attention"),
     ):
         A.paged_decode_attention.launches = 0
         A.packed_paged_attention.launches = 0
@@ -853,6 +985,211 @@ def drains(torch, prompts):
         print(json.dumps(line))
         results.append(line)
     return launches, results
+
+
+def write_repeat_prompts(path, vocab, seed=1, count=16):
+    """The prompt-lookup regime (code edits, retrieval answers that copy
+    their input): ``count`` prompts, each a seeded phrase of 8-32 tokens
+    repeated to a seeded length of 32-512 tokens."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    with open(path, "w") as f:
+        for _ in range(count):
+            phrase = rng.integers(2, vocab, int(rng.integers(8, 33))).tolist()
+            length = int(rng.integers(32, 513))
+            f.write(" ".join(str(t) for t in (phrase * (length // len(phrase) + 1))[:length]) + "\n")
+    return path
+
+
+DRAFT_NOISE = 0.02  # the draft's noise, per tensor, in units of that tensor's std
+
+
+def write_spec_checkpoints(torch, work, device):
+    """Two ``train/checkpoint.py`` directories of llama_250m at bf16: the
+    base, drawn exactly as ``serve_cli --random-init --seed 0 --dtype bf16``
+    draws it, and the draft, the base with seeded Gaussian noise of
+    DRAFT_NOISE times each weight matrix's std (norms kept), so that the
+    draft proposes the base's argmax some of the time.  Returns (base, draft)."""
+    import shutil
+
+    from relora_tpu_torch.config.model import load_model_config
+    from relora_tpu_torch.models.params_util import init_params
+    from relora_tpu_torch.serve.engine import build_decode_model
+    from relora_tpu_torch.train.checkpoint import save_checkpoint
+
+    root = os.path.join(work, "spec_llama_250m")
+    shutil.rmtree(root, ignore_errors=True)
+    model = build_decode_model(load_model_config("llama_250m"), dtype=torch.bfloat16, device=device)
+    init_params(model, torch.Generator(device=device).manual_seed(0))
+    state = model.state_dict()
+    base = save_checkpoint(os.path.join(root, "base"), 0, state, {"update_step": 0})
+    gen = torch.Generator(device=device).manual_seed(31)
+    noisy = {}
+    for name, t in state.items():
+        if t.ndim >= 2:
+            noise = torch.randn(t.shape, generator=gen, device=device)
+            t = (t.float() + DRAFT_NOISE * t.float().std() * noise).to(t.dtype)
+        noisy[name] = t
+    draft = save_checkpoint(os.path.join(root, "draft"), 0, noisy, {"update_step": 0})
+    del model, state, noisy
+    return base, draft
+
+
+class EngineCalls:
+    """Counts the calls of one ``InferenceEngine`` method while entered
+    (``_forward``: every model forward), and the launches of kernels 1 and 2
+    made inside them: the launches at the shape that method gives the
+    kernels (``verify_paged``: kernel 1 at S = K+1 over W+1 tables;
+    ``step_paged``: kernel 2 on packed windows)."""
+
+    def __init__(self, method):
+        self.method = method
+
+    def __enter__(self):
+        from relora_tpu_torch.ops import attention as A
+        from relora_tpu_torch.serve.engine import InferenceEngine
+
+        self.cls, self.real = InferenceEngine, getattr(InferenceEngine, self.method)
+        self.calls = 0
+        self.launches = {"paged_decode_attention": 0, "packed_paged_attention": 0}
+
+        def counted(engine, *args, **kwargs):
+            before = {k: getattr(A, k).launches for k in self.launches}
+            out = self.real(engine, *args, **kwargs)
+            self.calls += 1
+            for k in self.launches:
+                self.launches[k] += getattr(A, k).launches - before[k]
+            return out
+
+        setattr(InferenceEngine, self.method, counted)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.cls, self.method, self.real)
+
+
+def spec_line(label, completions, seconds, sched, window_launches, launches, plain_tps, n_requests):
+    """The drain line of a spec drain, after its checks: completions well
+    formed, every id in the vocabulary, verify rounds > 0, and the window
+    kernel launched at least 24 times a verify round."""
+    stats = sched.spec_stats()
+    tokens = [c.tokens for c in completions.values()]
+    n = sum(len(t) for t in tokens)
+    line = {"drain": label, "requests": len(tokens), "tokens": n, "seconds": seconds,
+            "tokens_per_s": n / seconds, "plain_tokens_per_s": plain_tps,
+            "drafted": stats["drafted"], "accepted": stats["accepted"],
+            "accept_rate": stats["accept_rate"], "verify_rounds": stats["verify_rounds"],
+            "window_launches": window_launches, "launches": launches}
+    print(json.dumps(line))
+    layers = sched.engine.config.num_hidden_layers
+    if len(tokens) != n_requests or not all(1 <= len(t) <= 64 for t in tokens):
+        raise AssertionError(f"drain {label}: malformed completions")
+    if not all(0 <= tok < sched.engine.config.vocab_size for t in tokens for tok in t):
+        raise AssertionError(f"drain {label}: token id out of the vocabulary")
+    if stats["verify_rounds"] == 0:
+        raise AssertionError(f"drain {label}: no verify round ran")
+    if window_launches < stats["verify_rounds"] * layers:
+        raise AssertionError(f"drain {label}: {window_launches} window launches for "
+                             f"{stats['verify_rounds']} verify rounds x {layers} layers")
+    return line
+
+
+def spec_drains(torch, prompts, repeat, base, draft, plain):
+    """Phase spec: ``serve_cli`` drains with ``--spec-k 4`` beside the
+    plain drains (``plain``: label -> tokens/s), each checked by
+    :func:`spec_line`.  The sequential drains' window launches are kernel
+    1's inside ``verify_paged`` (24 a call); the packed drain's are kernel
+    2's over its forwards (every forward launches it 24 times, one forward
+    a round).  Returns (kernel 1 and 2 launches over these drains, kernel 1
+    at the window shape, kernel 2 on windows, the lines)."""
+    from relora_tpu_torch import serve_cli
+    from relora_tpu_torch.ops import attention as A
+
+    common = ["--dtype", "bf16", "--max-batch", "8", "--paged", "--max-new-tokens", "64",
+              "--spec-k", str(SPEC_K)]
+    rnd = ["--model_config", "llama_250m", "--random-init"] + common
+    launches = {"paged_decode_attention": 0, "packed_paged_attention": 0}
+    window = {"paged_decode_attention": 0, "packed_paged_attention": 0}
+    lines = []
+    for label, argv, plain_label, method in (
+        ("spec_ngram", rnd + ["--spec", "ngram", "--input-file", prompts], "bf16", "verify_paged"),
+        ("spec_ngram_packed", rnd + ["--spec", "ngram", "--packed", "--input-file", prompts],
+         "packed", "step_paged"),
+        ("spec_ngram_int8", rnd + ["--spec", "ngram", "--kv-dtype", "int8", "--input-file", prompts],
+         "int8", "verify_paged"),
+        ("spec_model", ["--model_config", "llama_250m", "--checkpoint", base] + common
+         + ["--spec", "model", "--draft-checkpoint", draft, "--input-file", prompts], "bf16",
+         "verify_paged"),
+        ("spec_ngram_repeat", rnd + ["--spec", "ngram", "--input-file", repeat], "bf16_repeat",
+         "verify_paged"),
+    ):
+        A.paged_decode_attention.launches = 0
+        A.packed_paged_attention.launches = 0
+        with EngineCalls(method) as calls:
+            completions, seconds, sched = serve_cli.drain(argv)
+        counts = {k: getattr(A, k).launches for k in launches}
+        kernel = "packed_paged_attention" if method == "step_paged" else "paged_decode_attention"
+        layers = sched.engine.config.num_hidden_layers
+        if calls.launches[kernel] != layers * calls.calls:
+            raise AssertionError(f"drain {label}: {calls.launches[kernel]} {kernel} launches in "
+                                 f"{calls.calls} {method} calls, expected {layers} a call")
+        if method == "step_paged":
+            win = layers * sched.spec_stats()["verify_rounds"]  # one forward a round
+        else:
+            win = calls.launches[kernel]
+        lines.append(spec_line(label, completions, seconds, sched, win, counts,
+                               plain.get(plain_label), 16))
+        stats = sched.spec_stats()
+        if label == "spec_model" and not 0 < stats["accepted"] < stats["drafted"]:
+            raise AssertionError(f"drain spec_model: the draft's acceptance must lie strictly "
+                                 f"between 0 and 1, got {stats}")
+        for k in launches:
+            launches[k] += counts[k]
+        window[kernel] += win
+        del sched
+        torch.cuda.empty_cache()
+    return launches, window, lines
+
+
+def f32_spec_drains(torch, repeat, work):
+    """Phase f32-spec: 8 requests of the repeat traffic, 32 new tokens, at
+    f32 through ``serve_cli``, plain and ``--spec ngram``: greedy tokens must
+    agree, except where the plain run's top two logits lie within 1e-3 (a
+    tie, which another summation order may break the other way).  Each
+    divergence is printed with its gap."""
+    from relora_tpu_torch import serve_cli
+
+    path = os.path.join(work, "repeat8.txt")
+    with open(repeat) as f, open(path, "w") as out:
+        out.writelines(f.readlines()[:8])
+    argv = ["--model_config", "llama_250m", "--random-init", "--dtype", "f32", "--max-batch", "8",
+            "--paged", "--max-new-tokens", "32", "--input-file", path]
+    plain, _, sched = serve_cli.drain(argv)
+    spec, _, spec_sched = serve_cli.drain(argv + ["--spec", "ngram", "--spec-k", str(SPEC_K)])
+    stats = spec_sched.spec_stats()
+    prompts = read_prompts(path)
+    divergences = []
+    for uid, c in plain.items():
+        got = spec[uid].tokens
+        i = next((j for j, (a, b) in enumerate(zip(c.tokens, got)) if a != b), None)
+        if i is None and len(got) == len(c.tokens):
+            continue
+        i = min(len(got), len(c.tokens)) if i is None else i
+        ids = torch.tensor([prompts[uid] + c.tokens[:i]], device=sched.engine.device)
+        with torch.inference_mode():
+            logits = sched.engine.model(ids)[0, -1].float()
+        top = torch.topk(logits, 2).values
+        divergences.append({"uid": uid, "index": i, "top2_gap": (top[0] - top[1]).item()})
+    ok = stats["verify_rounds"] > 0 and all(d["top2_gap"] <= 1e-3 for d in divergences)
+    print(json.dumps({"f32_spec": "8 requests x 32 tokens, --spec ngram vs plain, f32",
+                      "verify_rounds": stats["verify_rounds"], "drafted": stats["drafted"],
+                      "accepted": stats["accepted"], "divergences": divergences,
+                      "ok": ok}))
+    if not ok:
+        raise AssertionError(f"f32 spec drain diverges from the plain drain: {divergences}")
+    del sched, spec_sched
+    torch.cuda.empty_cache()
 
 
 def f32_comparison(torch, device):
@@ -911,7 +1248,36 @@ def f32_comparison(torch, device):
         p, ids[None].astype(np.int32), positions[None].astype(np.int32), ptables, row_map)[0])
     if A.packed_paged_attention.launches == n1:
         raise AssertionError("f32 step_paged did not reach the kernel")
-    for name, err, out in (("decode_paged", err_d, logits), ("step_paged", err_p, plogits)):
+    # verify: (8, K+1) windows over (8, W+1) tables, row 7 a pad row (all
+    # null, at the null position), row 0's window across a page boundary
+    S = SPEC_K + 1
+    start = lengths.copy()
+    start[0] = PAGE * (lengths[0] // PAGE) - 2
+    vtokens = rng.integers(2, cfg.vocab_size, (BATCH, S)).astype(np.int32)
+    vpos = (start[:, None] + np.arange(S)).astype(np.int32)
+    # the scheduler's pad row: token 0 at the null position in every slot,
+    # so its writes to the one null slot carry the same K/V
+    vtokens[BATCH - 1] = 0
+    vpos[BATCH - 1] = cfg.max_sequence_length
+    vtables = np.zeros((BATCH, W + 1), np.int32)
+    vtables[: BATCH - 1, :W] = tables[: BATCH - 1]
+    n2 = A.paged_decode_attention.launches
+    err_v, vlogits = both(lambda p: engine.verify_paged(p, vtokens, vpos, vtables)[0])
+    if A.paged_decode_attention.launches == n2:
+        raise AssertionError("f32 verify_paged did not reach the kernel")
+    # each window slot against a one-token decode at its position, on the
+    # pool the verify wrote (kernel arm both)
+    after = [{k: t.clone() for k, t in layer.items()} for layer in pool]
+    engine.verify_paged(after, vtokens, vpos, vtables)
+    dtables = vtables[:, :W]
+    err_w = 0.0
+    for j in range(S):
+        dlogits = engine.decode_paged(after, vtokens[:, j : j + 1], vpos[:, j : j + 1], dtables)[0]
+        err_w = max(err_w, (dlogits[: BATCH - 1].float() - vlogits[: BATCH - 1, j]).abs().max().item())
+    torch.cuda.synchronize()
+    for name, err, out in (("decode_paged", err_d, logits), ("step_paged", err_p, plogits),
+                           ("verify_paged", err_v, vlogits),
+                           ("verify_vs_decode", err_w, vlogits[: BATCH - 1])):
         ok = bool(torch.isfinite(out).all()) and err <= LOGIT_TOL
         print(f"f32-compare {name} shape={tuple(out.shape)} max_abs_err={err:.3e} "
               f"tol={LOGIT_TOL:g} {'ok' if ok else 'FAIL'}")
@@ -1714,9 +2080,9 @@ def f32_int8(torch, device, warm):
 
 
 # kernel 5 at the adapter drains' shapes: M rows per call (decode rows, a
-# prefill chunk, a packed step), llama_250m's projections, r and slots as
-# served
-GROUPED_MS = (BATCH, 64, BATCH + 64)
+# verify window of BATCH x (SPEC_K + 1) rows, a prefill chunk, a packed
+# step), llama_250m's projections, r and slots as served
+GROUPED_MS = (BATCH, BATCH * (SPEC_K + 1), 64, BATCH + 64)
 ADAPTER_R, ADAPTER_SLOTS = 128, 4
 TENANT_ALPHAS = {"tA": 32.0, "tB": 64.0, "tC": 16.0}
 
@@ -1925,9 +2291,10 @@ def read_prompts(path):
         return [[int(t) for t in line.split()] for line in f if line.strip()]
 
 
-def tenant_engine(torch, base, slots, device, dtype="bf16"):
+def tenant_engine(torch, base, slots, device, dtype="bf16", spec_k=0):
     """The serving engine of the adapter drains: llama_250m from the base
-    checkpoint, unmerged, with ``slots`` adapter slots, the CLI's pool."""
+    checkpoint, unmerged, with ``slots`` adapter slots, the CLI's pool
+    (``spec_k``: a verify window of spec_k + 1)."""
     from relora_tpu_torch.config.model import load_model_config
     from relora_tpu_torch.serve.engine import InferenceEngine, compute_dtype
     from relora_tpu_torch.train.checkpoint import load_lora_spec, restore_params_host
@@ -1937,17 +2304,17 @@ def tenant_engine(torch, base, slots, device, dtype="bf16"):
     return InferenceEngine(cfg, restore_params_host(base), cache_size=cache, dtype=compute_dtype(dtype),
                            page_size=PAGE, num_pages=BATCH * (cache // PAGE) + 1, chunk_size=64,
                            token_budget=BATCH + 64, device=device, lora=load_lora_spec(base),
-                           adapter_slots=slots)
+                           adapter_slots=slots, spec_k=spec_k)
 
 
-def tenant_drain(torch, engine, registry, requests, packed=False, max_batch=BATCH):
+def tenant_drain(torch, engine, registry, requests, packed=False, max_batch=BATCH, spec="off"):
     """Drain ``requests`` through the scheduler API; returns (completions,
-    seconds ending in a device synchronize)."""
+    seconds ending in a device synchronize, the scheduler)."""
     from relora_tpu_torch.serve.scheduler import PagedContinuousBatchingScheduler
 
     sched = PagedContinuousBatchingScheduler(
         engine, max_batch=max_batch, eos_id=engine.config.eos_token_id, seed=0, packed=packed,
-        adapter_registry=registry,
+        adapter_registry=registry, spec=spec,
     )
     t0 = time.perf_counter()
     completions = sched.run(requests)
@@ -1962,29 +2329,13 @@ def tenant_requests(prompts, names, max_new=64):
             for i, p in enumerate(prompts)]
 
 
-class ForwardCount:
-    """Counts the serving engine's model forwards while it is entered."""
-
-    def __enter__(self):
-        from relora_tpu_torch.serve.engine import InferenceEngine
-
-        self.cls, self.real, self.n = InferenceEngine, InferenceEngine._forward, 0
-
-        def counted(engine, *args, **kwargs):
-            self.n += 1
-            return self.real(engine, *args, **kwargs)
-
-        InferenceEngine._forward = counted
-        return self
-
-    def __exit__(self, *exc):
-        self.cls._forward = self.real
-
-
-def adapter_drains(torch, device, prompts_path, base, tenants):
+def adapter_drains(torch, device, prompts_path, base, tenants, repeat_path):
     """Phase adapters: the CLI drain, the mixed-tenant drains (sequential,
-    packed, under slot contention), the tenant and prefix-isolation probes;
-    returns kernel 5's launches over the drains."""
+    packed, under slot contention), the tenant and prefix-isolation probes,
+    and a mixed-tenant ``spec="ngram"`` drain over the repeat traffic (kernel
+    5 at M = B(K+1) in every verify forward); returns kernel 5's launches
+    over the drains and the spec drain's (kernel 1 launches, at the window
+    shape)."""
     from relora_tpu_torch import serve_cli
     from relora_tpu_torch.config.model import load_model_config
     from relora_tpu_torch.ops import lora_matmul as LM
@@ -1998,22 +2349,22 @@ def adapter_drains(torch, device, prompts_path, base, tenants):
     def drained(label, run, **extra):
         nonlocal total
         LM.grouped_lora_matmul.launches = 0
-        with ForwardCount() as forwards:
+        with EngineCalls("_forward") as forwards:
             completions, seconds = run()[:2]
         launches = LM.grouped_lora_matmul.launches
         tokens = [c.tokens for c in completions.values()]
         n = sum(len(t) for t in tokens)
         line = {"drain": label, "requests": len(tokens), "tokens": n, "seconds": seconds,
-                "tokens_per_s": n / seconds, "forwards": forwards.n,
+                "tokens_per_s": n / seconds, "forwards": forwards.calls,
                 "launches": {"grouped_lora_matmul": launches}, **extra}
         print(json.dumps(line))
         if len(tokens) != len(prompts) or not all(1 <= len(t) <= 64 for t in tokens):
             raise AssertionError(f"drain {label}: malformed completions")
         if not all(0 <= tok < 32100 for t in tokens for tok in t):
             raise AssertionError(f"drain {label}: token id out of the vocabulary")
-        if forwards.n == 0 or launches != 7 * layers * forwards.n:
+        if forwards.calls == 0 or launches != 7 * layers * forwards.calls:
             raise AssertionError(f"drain {label}: kernel 5 launched {launches} times over "
-                                 f"{forwards.n} forwards, expected 7 x {layers} per forward")
+                                 f"{forwards.calls} forwards, expected 7 x {layers} per forward")
         total += launches
 
     drained("adapters_cli", lambda: serve_cli.run([
@@ -2061,7 +2412,32 @@ def adapter_drains(torch, device, prompts_path, base, tenants):
     print(json.dumps({"contention_registry": stats}))
     if stats["evictions_total"] < 1 or stats["loads_total"] <= len(TENANT_ALPHAS):
         raise AssertionError(f"contention drain: expected loads and evictions mid-traffic, got {stats}")
-    return total
+    del engine, registry
+    torch.cuda.empty_cache()
+
+    from relora_tpu_torch.ops import attention as A
+
+    engine = tenant_engine(torch, base, ADAPTER_SLOTS, device, spec_k=SPEC_K)
+    registry = AdapterRegistry(tenants, ADAPTER_SLOTS, expected_r=ADAPTER_R,
+                               writer=engine.adapter_writer())
+    repeat = tenant_requests(read_prompts(repeat_path), mix)
+    plain_tps = tenant_drain(torch, engine, registry, repeat)
+    plain_tps = sum(len(c.tokens) for c in plain_tps[0].values()) / plain_tps[1]
+    A.paged_decode_attention.launches = 0
+    LM.grouped_lora_matmul.launches = 0
+    with EngineCalls("_forward") as forwards, EngineCalls("verify_paged") as calls:
+        completions, seconds, sched = tenant_drain(torch, engine, registry, repeat, spec="ngram")
+    grouped = LM.grouped_lora_matmul.launches
+    k1 = A.paged_decode_attention.launches
+    if calls.launches["paged_decode_attention"] != layers * calls.calls:
+        raise AssertionError("drain tenants_spec: kernel 1 did not launch 24 times a verify call")
+    if forwards.calls == 0 or grouped != 7 * layers * forwards.calls:
+        raise AssertionError(f"drain tenants_spec: kernel 5 launched {grouped} times over "
+                             f"{forwards.calls} forwards, expected 7 x {layers} per forward")
+    spec_line("tenants_spec", completions, seconds, sched, calls.launches["paged_decode_attention"],
+              {"paged_decode_attention": k1, "grouped_lora_matmul": grouped}, plain_tps,
+              len(repeat))
+    return total + grouped, k1, calls.launches["paged_decode_attention"]
 
 
 def f32_adapters(torch, device, tenants):
@@ -2180,10 +2556,20 @@ def main() -> int:
     os.makedirs(work, exist_ok=True)
     prompts = os.path.join(work, "prompts.txt")
     write_prompts(prompts, 32100)
-    launches, _ = drains(torch, prompts)
-    for row in rows:
-        row["launches"] = launches[row["name"]]
+    repeat = write_repeat_prompts(os.path.join(work, "repeat.txt"), 32100)
+    launches, plain_lines = drains(torch, prompts, repeat)
+    torch.cuda.empty_cache()
+    spec_base, spec_draft = write_spec_checkpoints(torch, work, device)
+    spec_launches, window, _ = spec_drains(
+        torch, prompts, repeat, spec_base, spec_draft,
+        {line["drain"]: line["tokens_per_s"] for line in plain_lines})
+    paged_rows = {row["name"]: row for row in rows}
+    for name, row in paged_rows.items():
+        kernel = name.removesuffix("_verify")
+        row["launches"] = window[kernel] if name != kernel else launches[kernel] + spec_launches[kernel]
     f32_comparison(torch, device)
+    torch.cuda.empty_cache()
+    f32_spec_drains(torch, repeat, work)
     torch.cuda.empty_cache()
     launches = train(torch, write_corpus(work))
     for row in flash_rows:
@@ -2222,7 +2608,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     base, tenants = write_adapter_checkpoints(torch, work, device)
     torch.cuda.empty_cache()
-    grouped_rows[0]["launches"] = adapter_drains(torch, device, prompts, base, tenants)
+    grouped_rows[0]["launches"], k1, k1_window = adapter_drains(torch, device, prompts, base,
+                                                                 tenants, repeat)
+    paged_rows["paged_decode_attention"]["launches"] += k1
+    paged_rows["paged_decode_attention_verify"]["launches"] += k1_window
     rows += grouped_rows
     torch.cuda.empty_cache()
     f32_adapters(torch, device, tenants)
@@ -2404,35 +2793,68 @@ def paged_shares(by_name, busy_s, packed):
 
 
 def ab_drains(torch):
-    """The drains phase's three base drains (bf16 pool, packed, int8 pool)
-    through ``serve_cli``: one timed drain each (``serve_cli.run``), then
-    one traced drain of a scheduler built outside the trace, for the device
-    busy time, idle share and kernels 1 and 2's shares of busy time.  A
-    short drain first takes the process's first-use costs."""
+    """The drains phase's base drains (bf16 pool, packed, int8 pool, the bf16
+    pool over the repeat traffic) and, in a tree that has them, the spec
+    drains beside them (``--spec ngram`` on each, ``--spec model`` against
+    the bf16 drain), through ``serve_cli``: each pair timed in turns (plain,
+    spec, spec, plain; ``serve_cli.run``), then one traced drain of each, of
+    a scheduler built outside the trace, for the device busy time, idle
+    share and kernels 1 and 2's shares of busy time.  A short drain first
+    takes the process's first-use costs."""
     from relora_tpu_torch import serve_cli
 
+    device = torch.device("cuda")
     work = os.path.join(REPO, "build", "chip_smoke")
     os.makedirs(work, exist_ok=True)
     prompts = os.path.join(work, "prompts.txt")
     write_prompts(prompts, 32100)
-    base = ["--model_config", "llama_250m", "--random-init", "--dtype", "bf16",
-            "--max-batch", "8", "--paged", "--max-new-tokens", "64", "--input-file", prompts]
+    repeat = write_repeat_prompts(os.path.join(work, "repeat.txt"), 32100)
+    common = ["--model_config", "llama_250m", "--dtype", "bf16", "--max-batch", "8", "--paged",
+              "--max-new-tokens", "64"]
+    base = common + ["--random-init", "--input-file", prompts]
+    has_spec = hasattr(serve_cli, "drain")  # trees before speculative decoding lack it
+    pairs = [("bf16", base, "spec_ngram", ["--spec", "ngram"]),
+             ("packed", base + ["--packed"], "spec_ngram_packed", ["--spec", "ngram"]),
+             ("int8", base + ["--kv-dtype", "int8"], "spec_ngram_int8", ["--spec", "ngram"]),
+             ("bf16_repeat", common + ["--random-init", "--input-file", repeat],
+              "spec_ngram_repeat", ["--spec", "ngram"])]
+    if has_spec:
+        spec_base, spec_draft = write_spec_checkpoints(torch, work, device)
+        pairs.append(("bf16_ckpt", common + ["--checkpoint", spec_base, "--input-file", prompts],
+                      "spec_model", ["--spec", "model", "--draft-checkpoint", spec_draft]))
     serve_cli.run(base + ["--max-new-tokens", "4"])
     out = {}
-    for label, extra in (("bf16", ["--kv-dtype", "bf16"]),
-                         ("packed", ["--kv-dtype", "bf16", "--packed"]),
-                         ("int8", ["--kv-dtype", "int8"])):
-        completions, seconds = serve_cli.run(base + extra)
+
+    def timed(label, argv):
+        completions, seconds = serve_cli.run(argv)
         tokens = sum(len(c.tokens) for c in completions.values())
-        args = serve_cli.parse_args(base + extra)
+        out.setdefault(label, {"tokens_per_s": [], "seconds": []})
+        out[label]["tokens_per_s"].append(tokens / seconds)
+        out[label]["seconds"].append(seconds)
+
+    def traced(label, argv):
+        args = serve_cli.parse_args(argv)
         scheduler, requests = serve_cli.build(args), serve_cli.read_requests(args)
         _, wall, busy, by_name = device_profile(torch, lambda: scheduler.run(requests))
-        k1, k2, k1_ms = paged_shares(by_name, busy, label == "packed")
-        out[label] = {"tokens_per_s": tokens / seconds, "seconds": seconds, "profiled_wall_s": wall,
-                      "device_busy_s": busy, "device_idle_share": 1.0 - busy / wall,
-                      "kernel1_share": k1, "kernel1_ms": k1_ms, "kernel2_share": k2}
+        k1, k2, k1_ms = paged_shares(by_name, busy, "--packed" in argv)
+        out[label].update({"profiled_wall_s": wall, "device_busy_s": busy,
+                           "device_idle_share": 1.0 - busy / wall, "kernel1_share": k1,
+                           "kernel1_ms": k1_ms, "kernel2_share": k2})
+        if getattr(scheduler, "_spec", "off") != "off":
+            out[label].update(scheduler.spec_stats())
         del scheduler
         torch.cuda.empty_cache()
+
+    for plain_label, plain_argv, spec_label, spec_flags in pairs:
+        spec_argv = plain_argv + ["--spec-k", str(SPEC_K)] + spec_flags
+        if spec_label == "spec_model":
+            spec_argv = [a for a in spec_argv if a != "--packed"]
+        turns = [(plain_label, plain_argv), (spec_label, spec_argv)] if has_spec else [
+            (plain_label, plain_argv)]
+        for label, argv in turns + turns[::-1]:
+            timed(label, argv)
+        for label, argv in turns:
+            traced(label, argv)
     return {"drains": out}
 
 
@@ -2451,8 +2873,8 @@ def ab(argv) -> int:
     4-int8, 7 and 8 per call and per layer (:func:`ab_lora`).  ``--tenants``: the
     tenant drains' tokens/s, idle share and kernel 5's share
     (:func:`ab_tenants`).  ``--paged``: kernels 1 and 2 per call
-    (:func:`ab_paged`).  ``--drains``: the base drains' tokens/s, idle share
-    and kernels 1 and 2's shares (:func:`ab_drains`).  ``--sass``: the tree's
+    (:func:`ab_paged`).  ``--drains``: the base drains' and the spec drains'
+    tokens/s, idle share and kernels 1 and 2's shares (:func:`ab_drains`).  ``--sass``: the tree's
     kernels built, and each function's SASS digest (:func:`sass_digests`),
     so two trees' lines show which kernels compiled to the same code."""
     import torch

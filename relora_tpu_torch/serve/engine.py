@@ -8,7 +8,14 @@ owns the decode model on its device and builds the shared KV page pool
   chunk written straight into the pool through the request's block table;
 - ``decode_paged(pool, token, pos, block_tables)`` — one token per slot;
 - ``step_paged(pool, ids, positions, block_tables, row_map)`` — one packed
-  mixed batch of decode rows and prefill tokens (``token_budget`` set).
+  mixed batch of decode rows and prefill tokens (``token_budget`` set);
+- ``verify_paged(pool, tokens, pos, block_tables)`` — speculative verify
+  (``spec_k`` set): a ``(B, spec_k+1)`` window per row through ``(B, W+1)``
+  tables, returning the whole window's logits.
+
+``load_draft_params`` installs a second, same-config decode model for
+``--spec model``; ``draft_prefill_chunk`` and ``draft_decode_paged`` run it
+over its own page runs in the one shared pool.
 
 Each takes ``adapter_idx``: with ``adapter_slots`` set (multi-tenant
 serving, ``relora_tpu/serve/engine.py:159-199``, ``:556-664``) every LoRA
@@ -22,8 +29,8 @@ back; here the forward updates the pool tensors in place and returns the
 same pool, so the call shape stays ``logits, pool = engine.step(pool, ...)``.
 Every forward runs under ``torch.inference_mode()``.
 
-The contiguous engine (``prefill``/``decode``/``insert``, ``generate``),
-speculative verify and page migration are not ported yet.
+The contiguous engine (``prefill``/``decode``/``insert``, ``generate``)
+and page migration are not ported yet.
 """
 
 from __future__ import annotations
@@ -92,6 +99,8 @@ class InferenceEngine:
     serves the factors unmerged; ``adapter_slots >= 2`` with it stacks them
     for multi-tenant serving: the state dict's non-LoRA tensors are loaded,
     its own factors dropped, and every slot starts as the identity.
+    ``spec_k >= 1`` sizes the speculative verify window (``spec_k + 1``
+    tokens a row); ``draft_model`` is None until ``load_draft_params``.
     """
 
     def __init__(
@@ -110,7 +119,13 @@ class InferenceEngine:
         device="cuda",
         lora: Optional[LoraSpec] = None,
         adapter_slots: int = 0,
+        spec_k: int = 0,
     ):
+        if spec_k < 0:
+            raise ValueError(f"spec_k must be >= 0, got {spec_k}")
+        if spec_k and page_size is None:
+            raise ValueError("spec_k > 0 requires the paged engine (page_size set)")
+        self.spec_k = spec_k
         if adapter_slots:
             if lora is None:
                 raise ValueError(
@@ -160,6 +175,8 @@ class InferenceEngine:
         self.kv_dtype = kv_dtype
         self.token_budget = token_budget or 0
         self.dtype = dtype
+        self._lora = lora
+        self.draft_model: Optional[LlamaForCausalLM] = None
         if isinstance(params, LlamaForCausalLM):
             self.model = params.eval()
         else:
@@ -286,6 +303,8 @@ class InferenceEngine:
     # -- step functions ----------------------------------------------------------
 
     def _tensor(self, x, dtype=torch.int32) -> torch.Tensor:
+        if isinstance(x, torch.Tensor):  # already on the device (draft chains)
+            return x.to(self.device, dtype)
         return torch.as_tensor(np.asarray(x), dtype=dtype).to(self.device)
 
     def _row_idx(self, adapter_idx, rows: int) -> Optional[torch.Tensor]:
@@ -301,9 +320,10 @@ class InferenceEngine:
             raise ValueError(f"adapter_idx must have shape ({rows},), got {idx.shape}")
         return self._tensor(idx)
 
-    def _forward(self, ids, positions, pool, block_tables, row_map=None, adapter_idx=None):
+    def _forward(self, ids, positions, pool, block_tables, row_map=None, adapter_idx=None,
+                 model=None):
         with torch.inference_mode():
-            return self.model(
+            return (self.model if model is None else model)(
                 self._tensor(ids, torch.long),
                 self._tensor(positions),
                 pool,
@@ -346,6 +366,80 @@ class InferenceEngine:
         token.  Returns the window's logits ``(1, Tb, V)`` and the pool."""
         idx = self._row_idx(adapter_idx, np.shape(ids)[1])
         return self._forward(ids, positions, pool, block_tables, row_map, idx), pool
+
+    def verify_paged(
+        self, pool: Pool, tokens, pos, block_tables, adapter_idx=None
+    ) -> Tuple[torch.Tensor, Pool]:
+        """Speculative verify (``relora_tpu/serve/engine.py:948-975``):
+        ``tokens``/``pos`` ``(B, S)``, ``S = spec_k + 1`` (the pending token
+        then the drafts, at consecutive positions); ``block_tables`` ``(B,
+        W+1)``, each row's table plus a trailing null column, so a write past
+        ``cache_size`` lands in the null page.  Rows without a decoding
+        request carry all-null tables and ``pos = cache_size``.
+        ``adapter_idx`` ``(B,)`` is per row, over the whole window.  Returns
+        the window's logits ``(B, S, V)`` (slot ``i`` judges draft ``i``, the
+        last is the bonus distribution) and the pool.  A rejected draft needs
+        no rollback: its K/V lies inside the request's admission allocation
+        (or the null page) and is written over before any query sees it."""
+        idx = self._row_idx(adapter_idx, np.shape(tokens)[0])
+        return self._forward(tokens, pos, pool, block_tables, adapter_idx=idx), pool
+
+    # -- the draft model (--spec model) -------------------------------------------
+
+    @torch.no_grad()
+    def load_draft_params(self, params: Mapping[str, torch.Tensor]) -> None:
+        """Build the draft decode model on the engine's device from a state
+        dict of the base's config (``relora_tpu/serve/engine.py:724-745``):
+        every tensor of the base model needs a twin of its shape, cast to the
+        model's dtype.  The draft shares the one page pool; its requests own
+        page runs of their own.  Refused on an engine with adapter slots."""
+        if self.adapter_slots:
+            raise ValueError(
+                "draft models and adapter slots are mutually exclusive: the "
+                "draft is a merged base with no tenant slots (serve the "
+                "draft from a dedicated replica instead)"
+            )
+        live = self.model.state_dict()
+        for name, t in live.items():
+            if name not in params:
+                raise ValueError(f"draft checkpoint is missing param leaf {name!r}")
+            if tuple(params[name].shape) != tuple(t.shape):
+                raise ValueError(
+                    f"draft leaf {name!r} has shape {tuple(params[name].shape)}, "
+                    f"expected {tuple(t.shape)}"
+                )
+        draft = build_decode_model(
+            self.config, dtype=self.dtype, device=self.device,
+            attention_arm=self.model.attention_arm, lora=self._lora,
+        )
+        for name, t in draft.state_dict().items():
+            t.copy_(params[name])
+        self.draft_model = draft
+
+    def _require_draft(self) -> LlamaForCausalLM:
+        if self.draft_model is None:
+            raise ValueError("no draft model loaded (call load_draft_params first)")
+        return self.draft_model
+
+    def draft_prefill_chunk(
+        self, ids, start: int, pool: Pool, block_table
+    ) -> Tuple[torch.Tensor, Pool]:
+        """``prefill_chunk`` through the draft model: the same chunk and
+        positions, written through the draft's own block table ``(1, W)``."""
+        draft = self._require_draft()
+        B, T = np.shape(ids)
+        positions = start + np.broadcast_to(np.arange(T, dtype=np.int32)[None, :], (B, T))
+        return self._forward(ids, positions, pool, block_table, model=draft), pool
+
+    def draft_decode_paged(
+        self, pool: Pool, token, pos, block_tables
+    ) -> Tuple[torch.Tensor, Pool]:
+        """One draft proposal step: ``decode_paged`` through the draft model
+        over the draft block tables ``(B, W)``; ``token`` may be a device
+        tensor (the previous step's argmax).  Returns logits ``(B, V)``."""
+        draft = self._require_draft()
+        logits = self._forward(token, pos, pool, block_tables, model=draft)
+        return logits[:, -1, :], pool
 
     def packed_buckets(self) -> Tuple[int, ...]:
         """Packed-step sizes: halving from ``token_budget`` down to 8."""

@@ -26,8 +26,20 @@ Multi-tenant adapters (``adapter_registry``, an engine with
 each row (each packed token) to its request's slot, free rows and pad
 tokens to slot 0, and the pin drops at retirement.  The prefix cache is keyed
 per adapter, so a tenant never reads pages another tenant's adapter wrote.
-Speculative decoding, disaggregated roles, tracing and metrics are not
-ported yet; asking for them raises.
+
+Speculative decoding (``spec="ngram"`` or ``"model"``, an engine with
+``spec_k``; ``relora_tpu/serve/scheduler.py:690-720``): each round drafts up
+to ``spec_k`` tokens per decoding row, by prompt lookup on the host or by
+``spec_k`` greedy steps of a draft model, then ONE ``(batch, spec_k+1)``
+verify forward scores every row's window and a host walk commits the
+longest accepted prefix plus one token (:func:`~relora_tpu_torch.serve.
+sampling.spec_verify_draws`).  Greedy rows accept by argmax match, so their
+output is the plain drain's token for token.  A row drafts at most its
+remaining budget minus one, so no window writes past the request's
+admission allocation and a rejected draft needs no rollback.  A round in
+which no row drafted takes the plain decode.  Packed rounds carry the
+windows inside the one ``step_paged`` dispatch.  Disaggregated roles,
+tracing and metrics are not ported yet; asking for them raises.
 """
 
 from __future__ import annotations
@@ -39,11 +51,12 @@ from collections import deque
 from typing import Callable, Deque, Dict, Iterable, List, Optional, Sequence
 
 import numpy as np
+import torch
 
 from relora_tpu_torch.serve.adapters import BASE_ADAPTER
 from relora_tpu_torch.serve.engine import InferenceEngine
 from relora_tpu_torch.serve.paging import PageAllocator, PrefixCache, pages_needed
-from relora_tpu_torch.serve.sampling import request_generator, sample
+from relora_tpu_torch.serve.sampling import request_generator, sample, spec_verify_draws
 
 logger = logging.getLogger(__name__)
 
@@ -60,15 +73,17 @@ def _not_ported(what: str) -> NotImplementedError:
 @dataclasses.dataclass(frozen=True)
 class Request:
     """One generation request: token-id prompt plus per-request sampling.
-    ``top_k`` is batch-global and lives on the scheduler.  ``adapter`` names
-    a tenant adapter of the scheduler's registry; ``None`` decodes the base
-    model (slot 0)."""
+    ``top_k`` is batch-global and lives on the scheduler.  ``spec=False``
+    opts the request out of speculative drafting (its tokens follow the same
+    distribution either way).  ``adapter`` names a tenant adapter of the
+    scheduler's registry; ``None`` decodes the base model (slot 0)."""
 
     uid: int
     prompt: Sequence[int]
     max_new_tokens: int
     temperature: float = 0.0
     top_p: float = 1.0
+    spec: bool = True
     adapter: Optional[str] = None
 
 
@@ -357,11 +372,15 @@ class _PagedSlot(_Slot):
     prefill_progress: int = 0  # prompt tokens already written to the pool
     decoding: bool = False  # first token sampled; joins the decode batch
     seq: int = 0  # admission order; prefill is scheduled oldest-first
+    draft_pages: List[int] = dataclasses.field(default_factory=list)  # spec="model"
 
 
 class PagedContinuousBatchingScheduler(ContinuousBatchingScheduler):
     """Continuous batching over the paged engine: budgeted rounds instead
     of prefill-on-admission (see the module docstring)."""
+
+    #: longest context suffix the prompt-lookup drafter tries to match
+    _NGRAM_MAX = 3
 
     def __init__(
         self,
@@ -375,20 +394,52 @@ class PagedContinuousBatchingScheduler(ContinuousBatchingScheduler):
         **kwargs,
     ):
         super().__init__(engine, **kwargs)
-        if spec != "off":
-            raise _not_ported(f"speculative decoding (spec={spec!r})")
+        if spec not in ("off", "ngram", "model"):
+            raise ValueError(f"spec must be 'off', 'ngram', or 'model', got {spec!r}")
+        if spec != "off" and getattr(engine, "spec_k", 0) < 1:
+            raise ValueError(
+                f"spec={spec!r} needs an engine built with spec_k >= 1 "
+                "(the verify window is (batch, spec_k+1))"
+            )
+        if spec == "model":
+            if getattr(engine, "draft_model", None) is None:
+                raise ValueError(
+                    "spec='model' needs a draft model: call "
+                    "engine.load_draft_params(...) before building the scheduler"
+                )
+            if packed:
+                raise ValueError(
+                    "spec='model' is incompatible with packed=True (the draft "
+                    "proposal loop runs on the per-row decode path)"
+                )
+            if role != "mixed":
+                raise ValueError(
+                    "spec='model' needs role='mixed': draft KV pages cannot "
+                    "migrate between disaggregated peers"
+                )
+            # base and draft prefill stay in lockstep, so prefix sharing
+            # (which skips base prefill the draft still needs) is off
+            prefix_cache = False
         if role != "mixed":
             raise _not_ported(f"disaggregated serving (role={role!r})")
         if not getattr(engine, "paged", False):
             raise ValueError("PagedContinuousBatchingScheduler needs a paged engine")
+        self._spec = spec
+        self._spec_drafted = 0  # drafted tokens, cumulative
+        self._spec_accepted = 0  # accepted drafted tokens, cumulative
+        self._spec_rounds = 0  # verify forwards, cumulative
         self._packed = packed
         if packed:
             if not engine.token_budget:
                 raise ValueError("packed=True needs an engine built with token_budget")
-            if engine.token_budget < self.max_batch:
+            # every decoding row's whole window fits one dispatch: the budget
+            # throttles prefill, never decode
+            floor = self.max_batch * (engine.spec_k + 1 if spec == "ngram" else 1)
+            if engine.token_budget < floor:
                 raise ValueError(
                     f"token_budget ({engine.token_budget}) cannot hold every "
-                    f"decode row: need >= {self.max_batch} (max_batch)"
+                    f"decode row's window: need >= {floor} "
+                    f"(max_batch x window size)"
                 )
         self.allocator = PageAllocator(
             engine.num_pages,
@@ -404,6 +455,8 @@ class PagedContinuousBatchingScheduler(ContinuousBatchingScheduler):
         # decode block tables: all-null rows for free / prefilling slots, so
         # their garbage decode write lands in the null page
         self._tables = np.zeros((self.max_batch, engine.block_table_width), np.int32)
+        # spec="model": the draft's tables, null rows alike
+        self._draft_tables = np.zeros((self.max_batch, engine.block_table_width), np.int32)
         # the packed step's tables: every slot's (W plus a trailing null
         # column) and a final all-null row that padding tokens point at
         self._ptables = np.zeros(
@@ -459,11 +512,14 @@ class PagedContinuousBatchingScheduler(ContinuousBatchingScheduler):
                 shared_pages, shared_tokens = self.prefix_cache.lookup(
                     req.prompt, self._prefix_salt(req)
                 )
-            fresh = self.allocator.alloc(need - len(shared_pages))
+            # spec="model": the draft's own page run in the shared pool,
+            # allocated with the base's or not at all
+            draft_need = need if self._spec == "model" else 0
+            fresh = self.allocator.alloc(need - len(shared_pages) + draft_need)
             if fresh is None and self.prefix_cache is not None:
                 # under pressure: drop idle prefix entries (LRU) and retry
-                self.prefix_cache.evict(need - len(shared_pages))
-                fresh = self.allocator.alloc(need - len(shared_pages))
+                self.prefix_cache.evict(need - len(shared_pages) + draft_need)
+                fresh = self.allocator.alloc(need - len(shared_pages) + draft_need)
             if fresh is None:
                 # allocator exhausted: stay queued; pages free as requests retire
                 if shared_pages:
@@ -472,7 +528,7 @@ class PagedContinuousBatchingScheduler(ContinuousBatchingScheduler):
                 return
             self._pending.popleft()
             t_admit = time.monotonic()
-            pages = shared_pages + fresh
+            pages = shared_pages + fresh[: need - len(shared_pages)]
             self._slots[slot_idx] = _PagedSlot(
                 request=req,
                 pos=0,
@@ -485,11 +541,13 @@ class PagedContinuousBatchingScheduler(ContinuousBatchingScheduler):
                 prefill_progress=shared_tokens,
                 seq=self._admit_seq,
                 adapter_slot=adapter_slot,
+                draft_pages=fresh[need - len(shared_pages):],
             )
             self._admit_seq += 1
             self._tokens[slot_idx] = 0
             self._positions[slot_idx] = 0
             self._tables[slot_idx, :] = 0
+            self._draft_tables[slot_idx, :] = 0
             # the packed table row is live from admission: prefill tokens
             # route through it the round they are admitted
             self._ptables[slot_idx, :] = 0
@@ -512,6 +570,7 @@ class PagedContinuousBatchingScheduler(ContinuousBatchingScheduler):
         self._tokens[slot_idx] = first_id
         self._positions[slot_idx] = L
         self._tables[slot_idx, : len(slot.pages)] = slot.pages
+        self._draft_tables[slot_idx, : len(slot.draft_pages)] = slot.draft_pages
         self._emit_token(req.uid, first_id, 0)
         self._finish_if_done(slot_idx, finished)
 
@@ -548,16 +607,179 @@ class PagedContinuousBatchingScheduler(ContinuousBatchingScheduler):
         logits, self._pool = self.engine.prefill_chunk(
             ids, start, self._ensure_pool(), table, adapter_idx=[slot.adapter_slot]
         )
+        if self._spec == "model":
+            # the draft prefills the same chunk into its own page run, so
+            # base and draft stay in lockstep position by position
+            draft_table = np.zeros((1, self.engine.block_table_width), np.int32)
+            draft_table[0, : len(slot.draft_pages)] = slot.draft_pages
+            _, self._pool = self.engine.draft_prefill_chunk(ids, start, self._pool, draft_table)
         slot.prefill_progress = start + n_real
         if slot.prefill_progress >= L:
             self._arm_decoding(slot_idx, self._sample_one(logits[:, L - 1 - start, :], req), finished)
+
+    # -- speculative draft / verify ------------------------------------------------
+
+    def _ngram_draft(self, ctx: List[int], k: int) -> List[int]:
+        """Prompt-lookup drafting: match the longest context suffix (n-gram,
+        ``n <= _NGRAM_MAX``) against an earlier occurrence in the row's own
+        prompt and generated tokens, and propose the tokens that followed it
+        (the most recent occurrence wins)."""
+        if k <= 0 or len(ctx) < 2:
+            return []
+        for n in range(min(self._NGRAM_MAX, len(ctx) - 1), 0, -1):
+            pattern = ctx[-n:]
+            for i in range(len(ctx) - n - 1, -1, -1):
+                if ctx[i : i + n] == pattern:
+                    return ctx[i + n : i + n + k]
+        return []
+
+    def _draft_budget(self, slot: Optional[_PagedSlot]) -> int:
+        """Tokens a row may draft this round: ``spec_k``, at most its
+        remaining budget minus one (the round commits one token besides), so
+        every window write stays inside the admission allocation; 0 for a
+        row that is not decoding or opted out."""
+        if slot is None or not slot.decoding or not slot.request.spec:
+            return 0
+        return min(self.engine.spec_k, slot.request.max_new_tokens - len(slot.tokens) - 1)
+
+    def _draft_pass(self) -> Dict[int, List[int]]:
+        """spec="ngram": up to ``spec_k`` looked-up tokens per decoding row."""
+        drafts: Dict[int, List[int]] = {}
+        for slot_idx, slot in enumerate(self._slots):
+            k = self._draft_budget(slot)
+            if k <= 0:
+                continue
+            d = self._ngram_draft(list(slot.request.prompt) + slot.tokens, k)
+            if d:
+                drafts[slot_idx] = d
+        return drafts
+
+    def _model_draft_pass(self) -> Dict[int, List[int]]:
+        """spec="model": up to ``spec_k`` batched ``(batch, 1)`` greedy draft
+        decodes over the draft's page runs, chained by argmax on the device
+        and pulled to the host once at the end.  Rows past their own budget
+        go null mid-loop (all-null table, position 0), so their writes land
+        in the null page."""
+        B = self.max_batch
+        ks = np.array([max(self._draft_budget(s), 0) for s in self._slots], np.int32)
+        eligible = [i for i in range(B) if ks[i] > 0]
+        if not eligible:
+            return {}
+        cur = self._tokens[:, None]
+        proposals = []
+        for step in range(int(ks.max())):
+            live = ks > step
+            positions = np.where(live, self._positions + step, 0).astype(np.int32)
+            tables = np.where(live[:, None], self._draft_tables, 0).astype(np.int32)
+            logits, self._pool = self.engine.draft_decode_paged(
+                self._ensure_pool(), cur, positions[:, None], tables
+            )
+            cur = torch.argmax(logits, dim=-1).to(torch.int32).reshape(-1, 1)
+            proposals.append(cur)
+        stacked = torch.cat(proposals, dim=1).cpu().numpy()  # one host pull
+        return {i: [int(t) for t in stacked[i, : int(ks[i])]] for i in eligible}
+
+    def _window_rows(self, drafts: Dict[int, List[int]]):
+        """The verify sampler's per-row inputs for the decoding rows:
+        ``(draft_mat (B, spec_k), k_eff, uids, starts, temps, top_ps)``."""
+        B = self.max_batch
+        draft_mat = np.zeros((B, self.engine.spec_k), np.int32)
+        k_eff = np.zeros(B, np.int32)
+        uids = np.zeros(B, np.int64)
+        starts = np.zeros(B, np.int64)
+        temps = np.zeros(B, np.float32)
+        top_ps = np.ones(B, np.float32)
+        for slot_idx, slot in enumerate(self._slots):
+            if slot is None or not slot.decoding:
+                continue
+            d = drafts.get(slot_idx, [])
+            draft_mat[slot_idx, : len(d)] = d
+            k_eff[slot_idx] = len(d)
+            uids[slot_idx] = slot.request.uid
+            starts[slot_idx] = len(slot.tokens)
+            temps[slot_idx] = slot.request.temperature
+            top_ps[slot_idx] = slot.request.top_p
+        return draft_mat, k_eff, uids, starts, temps, top_ps
+
+    def _verify_round(self, drafts: Dict[int, List[int]], finished: List[Completion]) -> None:
+        """One ``(batch, spec_k+1)`` verify forward over every decoding row,
+        then the accept walk.  Window slot 0 carries the pending token, slots
+        ``1..k`` the drafts at consecutive positions.  Free and prefilling
+        rows, and slots past a row's drafts, write through the trailing null
+        column of the ``W+1``-wide tables (positions ``>= cache_size`` on the
+        pad rows), so no live page is touched."""
+        S = self.engine.spec_k + 1
+        B = self.max_batch
+        W = self.engine.block_table_width
+        tokens = np.zeros((B, S), np.int32)
+        positions = np.full((B, S), self.engine.cache_size, np.int32)
+        tables = np.zeros((B, W + 1), np.int32)
+        rows = self._window_rows(drafts)
+        tokens[:, 1:] = rows[0]  # the drafts, zero past each row's k_eff
+        eligible = set()
+        for slot_idx, slot in enumerate(self._slots):
+            if slot is None or not slot.decoding:
+                continue
+            tokens[slot_idx, 0] = self._tokens[slot_idx]
+            positions[slot_idx] = self._positions[slot_idx] + np.arange(S)
+            tables[slot_idx, :W] = self._tables[slot_idx]
+            eligible.add(slot_idx)
+        logits, self._pool = self.engine.verify_paged(
+            self._ensure_pool(), tokens, positions, tables, adapter_idx=self._adapter_row
+        )
+        self._spec_rounds += 1
+        self._commit_spec_walk(logits, rows, eligible, finished)
+
+    def _commit_spec_walk(self, logits, rows, eligible, finished: List[Completion]) -> None:
+        """The accept walk shared by the sequential verify round and the
+        packed step (``relora_tpu/serve/scheduler.py:1461-1503``): draw on
+        the window's logits ``(B, S, V)``, then for each row that rode the
+        window (``eligible``) commit the longest accepted draft prefix plus
+        one token through the plain emit/finish flow, stopping where the
+        request finishes."""
+        draft_mat, k_eff, uids, starts, temps, top_ps = rows
+        accept, alt = spec_verify_draws(
+            logits, draft_mat, self.seed, uids, starts, k_eff,
+            temperature=temps, top_k=self.top_k, top_p=top_ps,
+        )
+        drafted = accepted = 0
+        for slot_idx in sorted(eligible):
+            slot = self._slots[slot_idx]
+            if slot is None or not slot.decoding:
+                continue
+            k = int(k_eff[slot_idx])
+            a = 0
+            while a < k and accept[slot_idx, a]:
+                a += 1
+            drafted += k
+            accepted += a
+            commits = [int(t) for t in draft_mat[slot_idx, :a]] + [int(alt[slot_idx, a])]
+            for tok in commits:
+                self._advance(slot_idx, tok, finished)
+                if self._slots[slot_idx] is None:
+                    break  # EOS or the budget inside the window: drop the rest
+        self._spec_drafted += drafted
+        self._spec_accepted += accepted
+
+    def spec_stats(self) -> Dict:
+        """Cumulative speculative counters: mode, window size, drafted and
+        accepted tokens, their ratio, and verify rounds."""
+        return {
+            "mode": self._spec,
+            "k": self.engine.spec_k,
+            "drafted": self._spec_drafted,
+            "accepted": self._spec_accepted,
+            "accept_rate": round(self._spec_accepted / max(self._spec_drafted, 1), 4),
+            "verify_rounds": self._spec_rounds,
+        }
 
     # -- the budgeted round -------------------------------------------------------
 
     def step(self) -> List[Completion]:
         """One budgeted round: expire deadlines, admit, at most one prefill
-        chunk, then one paged decode over every decoding slot (or, packed,
-        the single-dispatch round of :meth:`_step_packed`)."""
+        chunk, then one paged decode over every decoding slot, or one verify
+        forward when any row drafted (or, packed, the single-dispatch round
+        of :meth:`_step_packed`)."""
         if self._packed:
             return self._step_packed()
         finished: List[Completion] = []
@@ -566,6 +788,17 @@ class PagedContinuousBatchingScheduler(ContinuousBatchingScheduler):
         self._prefill_pass(finished)
         decoding = [s if (s is not None and s.decoding) else None for s in self._slots]
         if not any(s is not None for s in decoding):
+            return finished
+        if self._spec == "ngram":
+            drafts = self._draft_pass()
+        elif self._spec == "model":
+            drafts = self._model_draft_pass()
+        else:
+            drafts = {}
+        if drafts:
+            # the walk commits straight into the slots
+            self._verify_round(drafts, finished)
+            self._step_count += 1
             return finished
         logits, self._pool = self.engine.decode_paged(
             self._ensure_pool(),
@@ -595,11 +828,12 @@ class PagedContinuousBatchingScheduler(ContinuousBatchingScheduler):
 
     def _step_packed(self) -> List[Completion]:
         """Token-budget round in ONE model dispatch: every decoding row's
-        token first, then oldest-first prefill tokens from as many slots as
-        the budget admits, padded to the smallest packed bucket.  Each token
-        routes through its own slot's block table (``row_map``); sampling
-        uses the sequential round's calls and keys, so the drain is
-        token-identical to the unpacked scheduler's."""
+        window first (its token, or ``spec_k+1`` tokens when any row drafted,
+        ``k_eff = 0`` rows included), then oldest-first prefill tokens from
+        as many slots as the budget admits, padded to the smallest packed
+        bucket.  Each token routes through its own slot's block table
+        (``row_map``); sampling uses the sequential round's calls and keys,
+        so the drain is token-identical to the unpacked scheduler's."""
         finished: List[Completion] = []
         self._expire_deadlines(finished)
         self._admit_pass(finished)
@@ -607,19 +841,23 @@ class PagedContinuousBatchingScheduler(ContinuousBatchingScheduler):
             return finished
         engine = self.engine
         B = self.max_batch
+        drafts = self._draft_pass() if self._spec == "ngram" else {}
+        S = engine.spec_k + 1 if drafts else 1
+        window = self._window_rows(drafts) if drafts else None
         ids: List[int] = []
         poss: List[int] = []
         rows: List[int] = []
         adap: List[int] = []  # each packed token's adapter slot
-        slot_off: Dict[int, int] = {}  # decoding slot -> its token's offset
+        slot_off: Dict[int, int] = {}  # decoding slot -> its window's offset
         for slot_idx, slot in enumerate(self._slots):
             if slot is None or not slot.decoding:
                 continue
             slot_off[slot_idx] = len(ids)
-            ids.append(int(self._tokens[slot_idx]))
-            poss.append(int(self._positions[slot_idx]))
-            rows.append(slot_idx)
-            adap.append(slot.adapter_slot)
+            d = drafts.get(slot_idx, [])
+            ids.extend([int(self._tokens[slot_idx])] + [int(t) for t in d] + [0] * (S - 1 - len(d)))
+            poss.extend(int(self._positions[slot_idx]) + j for j in range(S))
+            rows.extend([slot_idx] * S)
+            adap.extend([slot.adapter_slot] * S)
 
         # prefill from several slots into the leftover budget; every write
         # lands before any token attends, so a slot may clear its backlog
@@ -660,7 +898,15 @@ class PagedContinuousBatchingScheduler(ContinuousBatchingScheduler):
         )
         self._step_count += 1
 
-        if slot_off:
+        if slot_off and drafts:
+            # each window's logits gathered by its packed offsets: (B, S, V)
+            win_idx = np.zeros(B * S, np.int64)
+            for slot_idx, off in slot_off.items():
+                win_idx[slot_idx * S : (slot_idx + 1) * S] = off + np.arange(S)
+            win = logits[0][torch.as_tensor(win_idx, device=logits.device)]
+            self._spec_rounds += 1
+            self._commit_spec_walk(win.reshape(B, S, -1), window, set(slot_off), finished)
+        elif slot_off:
             sample_idx = np.zeros(B, np.int64)
             for slot_idx, off in slot_off.items():
                 sample_idx[slot_idx] = off
@@ -691,7 +937,11 @@ class PagedContinuousBatchingScheduler(ContinuousBatchingScheduler):
             # pages this request's lookup ref
             self.allocator.decref(slot.pages)
             slot.pages = []
+        if slot.draft_pages:
+            self.allocator.decref(slot.draft_pages)
+            slot.draft_pages = []
         self._tables[slot_idx, :] = 0
+        self._draft_tables[slot_idx, :] = 0
         self._ptables[slot_idx, :] = 0
         self._tokens[slot_idx] = 0
         self._positions[slot_idx] = 0

@@ -22,6 +22,15 @@ stacks tenant adapters over an unmerged base:
 ``--adapter-dir`` holds one checkpoint directory per tenant; the batch mode's
 requests name no adapter, so they decode the base through the grouped kernel
 (requests pick a tenant through ``Request.adapter`` in the scheduler API).
+
+Speculative decoding drafts ``--spec-k`` tokens a row and verifies them in one
+``(batch, K+1)`` forward: ``--spec ngram`` looks them up in the request's own
+context, ``--spec model`` runs a draft model, a checkpoint directory of the
+port with the base's config:
+
+    python -m relora_tpu_torch.serve_cli --model_config llama_250m \
+        --checkpoint BASE --paged --dtype bf16 --max-batch 8 \
+        --spec model --spec-k 4 --draft-checkpoint DRAFT --input-file prompts.txt
 """
 
 from __future__ import annotations
@@ -107,9 +116,24 @@ def parse_args(argv=None) -> argparse.Namespace:
     )
     p.add_argument(
         "--token-budget", type=int, default=0,
-        help="packed: tokens per dispatch (0 = max_batch + chunk_size)",
+        help="packed: tokens per dispatch (0 = max_batch x window + chunk_size, the "
+        "window spec-k+1 with --spec ngram, else 1)",
     )
     p.add_argument("--kv-dtype", choices=("bf16", "int8"), default="bf16")
+    p.add_argument(
+        "--spec", choices=("off", "ngram", "model"), default="off",
+        help="paged: speculative decoding; 'ngram' drafts by prompt lookup in "
+        "the request's own context, 'model' runs --draft-checkpoint for "
+        "--spec-k greedy steps; one (batch, spec-k+1) forward verifies",
+    )
+    p.add_argument(
+        "--spec-k", type=int, default=4,
+        help="speculative: drafted tokens per verify step (window spec-k+1)",
+    )
+    p.add_argument(
+        "--draft-checkpoint", default=None,
+        help="--spec model: a checkpoint dir of the port with the base's config",
+    )
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     return p.parse_args(argv)
 
@@ -144,6 +168,32 @@ def check_adapter_flags(args: argparse.Namespace) -> None:
         raise SystemExit(f"--adapter-dir {args.adapter_dir} is not a directory")
 
 
+def check_spec_flags(args: argparse.Namespace) -> None:
+    """``serve.py``'s checks of the speculative flags, with its messages."""
+    if args.spec != "off" and not args.paged:
+        raise SystemExit(
+            "--spec requires --paged (the verify window writes through the "
+            "paged engine's block tables)"
+        )
+    if args.spec != "off" and args.spec_k < 1:
+        raise SystemExit(f"--spec {args.spec} needs --spec-k >= 1, got {args.spec_k}")
+    if args.spec == "model":
+        if not args.draft_checkpoint:
+            raise SystemExit("--spec model needs --draft-checkpoint")
+        if args.packed:
+            raise SystemExit(
+                "--spec model is incompatible with --packed (the draft "
+                "proposal loop runs on the per-row decode path)"
+            )
+        if args.adapter_dir:
+            raise SystemExit(
+                "--spec model is incompatible with --adapter-dir (a draft model "
+                "and adapter slots do not share an engine)"
+            )
+    elif args.draft_checkpoint:
+        raise SystemExit("--draft-checkpoint only applies with --spec model")
+
+
 def load_params(args: argparse.Namespace, model_cfg, dtype, device):
     """``(params, lora_spec)``: a seeded model under ``--random-init``, else
     the checkpoint's state dict, merged unless ``--no-merge``, with its
@@ -170,6 +220,7 @@ def load_params(args: argparse.Namespace, model_cfg, dtype, device):
 def build(args: argparse.Namespace) -> PagedContinuousBatchingScheduler:
     """The engine and scheduler the flags describe, weights included."""
     check_adapter_flags(args)
+    check_spec_flags(args)
     if not args.paged:
         raise SystemExit("the contiguous engine is not ported yet: pass --paged")
     if args.packed and args.token_budget < 0:
@@ -182,7 +233,11 @@ def build(args: argparse.Namespace) -> PagedContinuousBatchingScheduler:
     dtype = compute_dtype(args.dtype)
     params, lora_spec = load_params(args, model_cfg, dtype, device)
     adapter_slots = (args.adapter_slots or 4) if args.adapter_dir else 0
-    num_pages = args.num_pages or (args.max_batch * (cache_size // args.page_size) + 1)
+    # every slot at full length at once, plus the null page; --spec model
+    # reserves a second run per slot for the draft's K/V
+    slot_pages = (cache_size // args.page_size) * (2 if args.spec == "model" else 1)
+    num_pages = args.num_pages or (args.max_batch * slot_pages + 1)
+    window = args.spec_k + 1 if args.spec != "off" else 1
     engine = InferenceEngine(
         model_cfg,
         params,
@@ -192,13 +247,17 @@ def build(args: argparse.Namespace) -> PagedContinuousBatchingScheduler:
         num_pages=num_pages,
         chunk_size=args.chunk_size,
         kv_dtype=args.kv_dtype,
-        token_budget=(args.token_budget or args.max_batch + args.chunk_size)
+        token_budget=(args.token_budget or args.max_batch * window + args.chunk_size)
         if args.packed
         else None,
         device=device,
         lora=lora_spec,
         adapter_slots=adapter_slots,
+        spec_k=args.spec_k if args.spec != "off" else 0,
     )
+    if args.spec == "model":
+        logger.info(f"restoring draft model {args.draft_checkpoint}")
+        engine.load_draft_params(restore_serving_params(args.draft_checkpoint))
     registry = None
     if args.adapter_dir:
         registry = AdapterRegistry(
@@ -222,6 +281,7 @@ def build(args: argparse.Namespace) -> PagedContinuousBatchingScheduler:
     return PagedContinuousBatchingScheduler(
         engine,
         packed=args.packed,
+        spec=args.spec,
         max_batch=args.max_batch,
         eos_id=args.eos_id if args.eos_id is not None else model_cfg.eos_token_id,
         top_k=args.top_k,
@@ -258,9 +318,10 @@ def read_requests(args: argparse.Namespace) -> List[Request]:
     ]
 
 
-def run(argv=None) -> Tuple[Dict[int, Completion], float]:
-    """Build from the flags, drain every request; returns the completions
-    and the drain's wall seconds (ending in a device synchronize)."""
+def drain(argv=None) -> Tuple[Dict[int, Completion], float, PagedContinuousBatchingScheduler]:
+    """Build from the flags, drain every request; returns the completions,
+    the drain's wall seconds (ending in a device synchronize) and the
+    scheduler, whose counters (``spec_stats``) the drain leaves behind."""
     args = parse_args(argv)
     requests = read_requests(args)
     scheduler = build(args)
@@ -268,16 +329,23 @@ def run(argv=None) -> Tuple[Dict[int, Completion], float]:
     completions = scheduler.run(requests)
     if scheduler.engine.device.type == "cuda":
         torch.cuda.synchronize(scheduler.engine.device)
-    return completions, time.perf_counter() - t0
+    return completions, time.perf_counter() - t0, scheduler
+
+
+def run(argv=None) -> Tuple[Dict[int, Completion], float]:
+    """:func:`drain`'s completions and wall seconds."""
+    return drain(argv)[:2]
 
 
 def main(argv=None) -> int:
     logging.basicConfig(level=logging.INFO, stream=sys.stderr)
-    completions, seconds = run(argv)
+    completions, seconds, scheduler = drain(argv)
     for uid in sorted(completions):
         print(" ".join(str(t) for t in completions[uid].tokens))
     n_tokens = sum(len(c.tokens) for c in completions.values())
     logger.info(f"{n_tokens} tokens in {seconds:.3f}s ({n_tokens / seconds:.1f} tokens/s)")
+    if scheduler._spec != "off":
+        logger.info(f"speculative: {scheduler.spec_stats()}")
     return 0
 
 
