@@ -16,8 +16,8 @@ Phases, in order; any failure raises and the script exits non-zero:
                every flash instantiation (up to H = 256) and, printed later,
                of kernels 4, 5, 6, 7 and 8; any spill fails.
 2. kernels   — the paged kernels (1-2) against their plain PyTorch twins on
-               the card, at llama_250m (N=16, H=48) and llama_1b (N=32, H=64)
-               widths, page 16, table width 64, B=8 with S in {1, 5} and a
+               the card, at llama_250m (N=16, H=48), llama_1b (N=32, H=64)
+               and pythia_1b (N=8, H=256) widths, page 16, table width 64, B=8 with S in {1, 5} and a
                packed T=72, for f32, bf16 and int8 pools; kernel 1's edge
                cases (a row whose every position is -1, which must give 0; a
                row with one visible key; 16 heads on 4 kv heads at S=5;
@@ -33,9 +33,10 @@ Phases, in order; any failure raises and the script exits non-zero:
                run and the pads alone give the bits they give in the
                window); then each is timed at the main path's shape beside
                its plain twin, a gather + scaled_dot_product_attention
-               yardstick, and its bound, and again at the verify shapes
+               yardstick, and its bound, again at the verify shapes
                (kernel 1 at S = 5 over (8, W+1) tables; kernel 2 on 8 verify
-               runs of 5 plus a 64-token prefill run).
+               runs of 5 plus a 64-token prefill run), and at pythia_1b's
+               width (rows ``...@pythia_1b``).
 3. kernels-3 — the HMMA count of each bf16 flash kernel's SASS
                (``cuobjdump -sass``: the tensor cores are used); the flash
                forward, dK/dV and dQ kernels against their twins: the train
@@ -43,13 +44,15 @@ Phases, in order; any failure raises and the script exits non-zero:
                n_kv=4, H=64), an unaligned S=200, llama_40m's H=52,
                llama_7b's H=128, H=50 with grouped heads at S=200, and the
                wide kernels (pythia_1b's H=256; H=250 and 138 with grouped
-               heads at S=200), at bf16 (tensor-core kernels) and f32 (FMA
-               kernels); then each, forward+backward together and the
-               backward alone, timed beside its twin, a
+               heads at S=200), and the pythia train phase's shape (B=2,
+               S=2048, 8 heads of 256), at bf16 (tensor-core kernels) and
+               f32 (FMA kernels); then each, forward+backward together and
+               the backward alone, timed beside its twin, a
                scaled_dot_product_attention(is_causal=True) yardstick
                (forward, its backward alone from a saved output, both) and
-               its bound; and each at H=256 (B=8, S=512, 8 heads) on a line
-               of its own.
+               its bound, at the train phase's shape and at the pythia train
+               phase's (rows ``...@pythia_1b``); and each at H=256 (B=8,
+               S=512, 8 heads) on a line of its own.
 4. drains    — ``relora_tpu_torch.serve_cli`` drains 16 requests (prompts of
                32-512 tokens, 64 new tokens each) for llama_250m at full width,
                ``--random-init --dtype bf16 --max-batch 8 --paged``: at
@@ -86,9 +89,10 @@ Phases, in order; any failure raises and the script exits non-zero:
                flash launch counters (zeroed before, read after) equal
                layers x microbatches x updates (+ layers x eval batches for
                the forward).
-7. f32-train — one update of a 2-layer llama_250m at f32, the flash arm
-               against the naive arm on loss and gradient norm, then one merge
-               against an f64 oracle.
+7. f32-train — one update of a 2-layer llama_250m at f32 (LoRA B drawn
+               nonzero), the flash arm against the naive arm on loss,
+               gradient norm and each of layer 0's trainable leaves'
+               gradients, then one merge against an f64 oracle.
 8. kernels-4 — the fused LoRA forward, dx and dA/dB kernels (4, 6, 7)
                against their twins: the three llama_250m projection shapes
                (M=4096, r=128; (K, N) = (768, 768), (768, 2560), (2560, 768))
@@ -101,8 +105,12 @@ Phases, in order; any failure raises and the script exits non-zero:
                too); each forward, dx and dA/dB prints the path it took
                (``tc`` or ``fma``), held to ``forward_path``'s (dA/dB:
                ``dab_path``'s) rule, and dA/dB must give the same bits
-               twice; then each timed per shape beside its twin, the
-               ordered cuBLAS chain of the default path and its bound.
+               twice; pythia_1b's four projection shapes (M=4096, r=128,
+               bf16: (K, N) = (2048, 6144), (2048, 2048), (2048, 8192),
+               (8192, 2048)) likewise; then each timed per shape beside its
+               twin, the ordered cuBLAS chain of the default path and its
+               bound, summed per decoder layer (rows ``...@pythia_1b`` for
+               pythia_1b's four).
 9. fused-train — the train phase again with ``--lora_fused true
                --lora_dropout 0``: the same checks, and the fused launch
                counters equal 7 x layers x (microbatches x updates + eval
@@ -111,7 +119,8 @@ Phases, in order; any failure raises and the script exits non-zero:
                tensor cores.
 10. f32-fused — one update of a 2-layer llama_250m at f32 (TF32 off),
                ``lora_fused`` true against false from the same weights
-               (nonzero B) and batch, on loss and gradient norm.
+               (nonzero B) and batch, on loss, gradient norm and each of layer
+               0's trainable leaves' gradients.
 11. kernels-8 — kernel 8 (the int8 dequant matmul) and the int8 fused
                forward and dx (4-int8, 6-int8) against their twins: the three
                projection shapes at bf16 and f32 with q the transposed view of
@@ -122,10 +131,12 @@ Phases, in order; any failure raises and the script exits non-zero:
                kernel 8's too, printed and checked as there; kernel 7 on the
                int8 forward's z and the int8 dx's u), and a tensor scale
                through
-               FusedLoRAMatmulInt8 (ds and dqscale too) and DequantMatmul;
-               then each timed per shape beside its twin, the dequantize +
-               cuBLAS chain of the JAX default path and its bound, and
-               kernel 8 beside ``torch._weight_int8pack_mm``.
+               FusedLoRAMatmulInt8 (ds and dqscale too) and DequantMatmul,
+               and pythia_1b's four projection shapes (bf16); then each
+               timed per shape beside its twin, the dequantize + cuBLAS
+               chain of the JAX default path and its bound, and kernel 8
+               beside ``torch._weight_int8pack_mm`` (pythia_1b's shapes on
+               a timing line of their own).
 12. int8_train — a seeded full-rank llama_250m ``pytorch_model.bin`` (f32)
                written under ``build/chip_smoke/``, then the train phase with
                ``--quantize int8 --warmed_up_model DIR``: the train checks,
@@ -181,6 +192,38 @@ Phases, in order; any failure raises and the script exits non-zero:
                slotted llama_250m at f32 with a mixed ``adapter_idx``, the
                kernel arm (kernel 5, the paged kernels) against the plain arm
                (the gathered composite, naive attention), compared on logits.
+18. pythia-drains — the GPT-NeoX family: ``serve_cli --model_config
+               pythia_1b --random-init --dtype bf16 --max-batch 8 --paged``
+               (full width and depth) on phase 4's 16 prompts, 64 new tokens,
+               at ``--kv-dtype bf16``, ``--packed`` and ``--kv-dtype int8``.
+               Each prints tokens/s, launches and the forwards counted at the
+               engine, and fails unless kernel 1 (kernel 2 when packed)
+               launched 16 times (once a layer) in every forward that
+               attends through it and every id is in the vocabulary.
+19. pythia_train — ``relora_tpu_torch.main --model_config pythia_1b``: bf16,
+               LoRA r=128 (dropout 0.1), ``--max_length 2048``, two 2 x 2048
+               microbatches an update (8192 tokens), 9 updates, merging and
+               resetting every 3, on the corpus at 2048 tokens a sample; the
+               train phase's checks, with kernel 3's launch counters equal to
+               16 x microbatches x updates (+ 16 x eval batches for the
+               forward) and every launch on the wide kernels (the wrappers'
+               ``wide_launches``, which count what the launcher reports it
+               launched).
+20. pythia_fused_train — a seeded full-rank pythia_1b ``pytorch_model.bin``
+               (bf16, HF GPT-NeoX names: ``gpt_neox.`` prefix, biases drawn
+               nonzero) written under ``build/chip_smoke/``, then the same run
+               with ``--lora_fused true --lora_dropout 0 --warmed_up_model
+               DIR``: every base parameter equal to the file's right after
+               the graft, kernels 4, 6 and 7 launched 4 x 16 x the train
+               phase's multipliers, every launch on the tensor cores.
+21. f32-pythia — on a 2-layer pythia_1b at f32 (TF32 off where the phase
+               sets it; biases drawn nonzero): f32-train (kernel 3's wide FMA
+               kernels against the naive arm, and a merge against f64),
+               f32-fused (fused against unfused, nonzero B), f32-compare
+               (``decode_paged``, ``step_paged`` and ``verify_paged``, kernel
+               arm against plain arm) and f32-adapters (a slotted step with a
+               mixed ``adapter_idx`` through kernel 5, seeded factors in each
+               slot), each printed with ``@pythia_1b``.
 
 ``python3 chip_smoke.py --ab DIR [--train [FLAGS...] | --grouped | --lora |
 --tenants | --paged | --drains | --sass]`` times another checkout's package instead
@@ -189,8 +232,9 @@ turns); it checks nothing.
 
 Output: a forward+backward timing line, one line per drain (plain and
 spec), the f32 spec line, a train line, a
-LoRA timing line, a fused-train line, an int8 timing line, the int8 train
-lines, a grouped timing line and one line per adapter drain, a
+LoRA timing line per model, a fused-train line, an int8 timing line per
+model, the int8 train lines, a grouped timing line, one line per adapter
+drain, one line per pythia drain, the two pythia train lines, a
 ``{"kernels": [...]}`` line, the card's ``nvidia-smi
 --query-gpu=name,power.limit`` line, and last ``{"ok": true, "device":
 {...}}``.  Without CUDA, or without the package beside it, it exits non-zero
@@ -208,7 +252,8 @@ import time
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 F32_FLOPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 REPO = os.path.dirname(os.path.abspath(__file__))
-WIDTHS = {"llama_250m": (16, 48), "llama_1b": (32, 64)}  # (heads, head_dim)
+WIDTHS = {"llama_250m": (16, 48), "llama_1b": (32, 64), "pythia_1b": (8, 256)}  # (heads, head_dim)
+PYTHIA = "pythia_1b"  # the NeoX model of the pythia phases; its rows carry "@pythia_1b"
 PAGE, TABLE_W, BATCH, PACKED_T = 16, 64, 8, 72
 SPEC_K = 4  # the spec drains' --spec-k: verify windows of SPEC_K + 1 tokens
 # kernel vs plain twin on one card: f32 sums in another order (1e-6 scale);
@@ -547,7 +592,8 @@ def check_kernels(torch, device):
     """Phase 2: every kernel against its plain twin, then timings."""
     from relora_tpu_torch.ops import attention as A
 
-    worst = {"paged_decode_attention": 0.0, "packed_paged_attention": 0.0}
+    worst = {"paged_decode_attention": 0.0, "packed_paged_attention": 0.0,
+             f"paged_decode_attention@{PYTHIA}": 0.0, f"packed_paged_attention@{PYTHIA}": 0.0}
     for model, (heads, head_dim) in WIDTHS.items():
         for pool in ("f32", "bf16", "int8"):
             cases = [(S, False) for S in (1, 5)] + [(1, True)]
@@ -576,13 +622,14 @@ def check_kernels(torch, device):
                     raise AssertionError(f"{name} disagrees with its plain twin ({model}, {pool}, S={S})")
                 if model == "llama_250m":
                     worst[name] = max(worst[name], err)
+                elif model == PYTHIA:
+                    worst[f"{name}@{PYTHIA}"] = max(worst[f"{name}@{PYTHIA}"], err)
     worst["paged_decode_attention"] = max(worst["paged_decode_attention"],
                                           check_decode_edges(torch, device))
     worst["packed_paged_attention"] = max(worst["packed_paged_attention"],
                                           check_packed_edges(torch, device))
 
     rows = []
-    heads, head_dim = WIDTHS["llama_250m"]
     for name, kernel, packed, line in (
         ("paged_decode_attention", "paged_decode_attention", False, 331),
         ("packed_paged_attention", "packed_paged_attention", True, 532),
@@ -590,7 +637,11 @@ def check_kernels(torch, device):
         # of B verify runs of K+1 plus a 64-token prefill run
         ("paged_decode_attention_verify", "paged_decode_attention", False, 331),
         ("packed_paged_attention_verify", "packed_paged_attention", True, 532),
+        # the pythia drains' shapes: 8 heads of 256
+        (f"paged_decode_attention@{PYTHIA}", "paged_decode_attention", False, 331),
+        (f"packed_paged_attention@{PYTHIA}", "packed_paged_attention", True, 532),
     ):
+        heads, head_dim = WIDTHS[PYTHIA if name.endswith(PYTHIA) else "llama_250m"]
         verify = name.endswith("_verify")
         if verify and packed:
             case, _ = make_window_case(torch, device, heads=heads, head_dim=head_dim, pool="bf16",
@@ -611,7 +662,7 @@ def check_kernels(torch, device):
             "source": "relora_tpu_torch/csrc/paged_attention.cu",
             "replaces": f"relora_tpu/ops/attention.py:{line}",
             "launches": 0,
-            "max_abs_err": worst[kernel],
+            "max_abs_err": worst[name if name.endswith(PYTHIA) else kernel],
             "ms": time_ms(torch, lambda: fn(*args)),
             "plain_ms": time_ms(torch, lambda: plain(*args)),
             "bound_ms": bound_ms,
@@ -641,6 +692,9 @@ FLASH_CASES = [
 # pythia_1b's attention (hidden 2048, 8 heads: head_dim 256) at the train
 # phase's batch: kernel 3's wide kernels, timed beside the main rows
 FLASH_WIDE = (8, 512, 8, 8, 256, "bf16")
+# the pythia train phase's attention: 2 x 2048 tokens, 8 heads of 256 (the
+# wide kernels), checked against the twins and timed as rows of their own
+FLASH_PYTHIA = (2, 2048, 8, 8, 256, "bf16")
 # error relative to max(1, max|twin|): f32 sums the same terms in another
 # order (1e-6 scale at S=512); bf16 outputs round once to bf16 (2^-8 relative)
 FLASH_TOL = {"f32": 1e-4, "bf16": 1e-2}
@@ -787,16 +841,65 @@ def ptxas_report(source, kernels):
     return report
 
 
+def flash_rows(torch, device, shape, worst, suffix):
+    """The three flash kernels' rows at ``shape`` (B, S, N, n_kv, H, dtype):
+    each timed beside its twin, SDPA (the backward rows both carry SDPA's
+    backward alone, which computes dQ, dK and dV in one call) and its bound;
+    ``worst`` the checks' error at that shape, ``suffix`` the names' tail."""
+    import torch.nn.functional as F
+
+    from relora_tpu_torch.ops import flash_attention as FA
+
+    B, S, N, n_kv, H, dtype = shape
+    q, k, v, dout = make_flash_case(torch, device, B, S, N, n_kv, H, dtype, seed=99)
+    scale = H**-0.5
+    out, lse = FA.flash_attention_forward(q, k, v, scale)
+    bwd = (q, k, v, dout, lse, FA.flash_attention_delta(out, dout), scale)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    sdpa_in = [x.detach().requires_grad_() for x in (qt, kt, vt)]
+    sdpa_out = F.scaled_dot_product_attention(*sdpa_in, is_causal=True)
+    dout_t = dout.transpose(1, 2)
+    sdpa_bwd_ms = time_ms(torch, lambda: torch.autograd.grad(sdpa_out, sdpa_in, dout_t,
+                                                             retain_graph=True))
+    rows = []
+    for name, kernel, fn, plain, library_ms in (
+        ("flash_attention_forward", "forward", lambda: FA.flash_attention_forward(q, k, v, scale),
+         lambda: FA.flash_attention_forward_plain(q, k, v, scale),
+         time_ms(torch, lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True))),
+        ("flash_attention_bwd_dkdv", "dkdv", lambda: FA.flash_attention_bwd_dkdv(*bwd),
+         lambda: FA.flash_attention_bwd_dkdv_plain(*bwd), sdpa_bwd_ms),
+        ("flash_attention_bwd_dq", "dq", lambda: FA.flash_attention_bwd_dq(*bwd),
+         lambda: FA.flash_attention_bwd_dq_plain(*bwd), sdpa_bwd_ms),
+    ):
+        bound_ms, bound_by = flash_bound(q, k, kernel)
+        rows.append({
+            "name": name + suffix,
+            "route": "cuda",
+            "source": "relora_tpu_torch/csrc/flash_attention.cu",
+            "replaces": "relora_tpu/ops/attention.py:84",
+            "launches": 0,
+            "max_abs_err": worst[name],
+            "ms": time_ms(torch, fn),
+            "plain_ms": time_ms(torch, plain),
+            "bound_ms": bound_ms,
+            "bound_by": bound_by,
+            "library_ms": library_ms,
+        })
+    return rows
+
+
 def check_flash_kernels(torch, device):
     """Phase kernels-3: the three flash kernels against their twins on the
-    card, then timings at the train phase's shape, and at FLASH_WIDE
-    (printed as their own line: no main path runs H = 256 yet)."""
+    card, then timings at the train phase's shape and at the pythia train
+    phase's (FLASH_PYTHIA, rows ``...@pythia_1b``), and at FLASH_WIDE
+    (printed as their own line)."""
     import torch.nn.functional as F
 
     from relora_tpu_torch.ops import flash_attention as FA
 
     worst = dict.fromkeys(FLASH_NAMES, 0.0)
-    for i, (B, S, N, n_kv, H, dtype) in enumerate(FLASH_CASES):
+    worst_pythia = dict.fromkeys(FLASH_NAMES, 0.0)
+    for i, (B, S, N, n_kv, H, dtype) in enumerate(FLASH_CASES + [FLASH_PYTHIA]):
         q, k, v, dout = make_flash_case(torch, device, B, S, N, n_kv, H, dtype, seed=11 + i)
         scale = H**-0.5
         want_out, want_lse = FA.flash_attention_forward_plain(q, k, v, scale)
@@ -830,27 +933,23 @@ def check_flash_kernels(torch, device):
                 raise AssertionError(f"{name} disagrees with its plain twin ({B, S, N, n_kv, H, dtype})")
             if i == 0:
                 worst[name] = err
+            elif i == len(FLASH_CASES):
+                worst_pythia[name] = err
 
+    rows = (flash_rows(torch, device, FLASH_CASES[0], worst, "")
+            + flash_rows(torch, device, FLASH_PYTHIA, worst_pythia, f"@{PYTHIA}"))
     B, S, N, n_kv, H, dtype = FLASH_CASES[0]
     q, k, v, dout = make_flash_case(torch, device, B, S, N, n_kv, H, dtype, seed=99)
     scale = H**-0.5
     out, lse = FA.flash_attention_forward(q, k, v, scale)
-    delta = FA.flash_attention_delta(out, dout)
-    bwd = (q, k, v, dout, lse, delta, scale)
+    bwd = (q, k, v, dout, lse, FA.flash_attention_delta(out, dout), scale)
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-
-    def sdpa():
-        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
-
     # SDPA's backward alone, from one saved forward: dQ, dK and dV together
     sdpa_in = [x.detach().requires_grad_() for x in (qt, kt, vt)]
     sdpa_out = F.scaled_dot_product_attention(*sdpa_in, is_causal=True)
     dout_t = dout.transpose(1, 2)
-
-    def sdpa_bwd():
-        return torch.autograd.grad(sdpa_out, sdpa_in, dout_t, retain_graph=True)
-
-    sdpa_bwd_ms = time_ms(torch, sdpa_bwd)
+    sdpa_bwd_ms = time_ms(torch, lambda: torch.autograd.grad(sdpa_out, sdpa_in, dout_t,
+                                                             retain_graph=True))
 
     def fwd_bwd(attend, inputs, cotangent):
         leaves = [x.detach().requires_grad_() for x in inputs]
@@ -862,31 +961,6 @@ def check_flash_kernels(torch, device):
         FA.flash_attention_bwd_dkdv_plain(q, k, v, dout, l, d, scale)
         FA.flash_attention_bwd_dq_plain(q, k, v, dout, l, d, scale)
 
-    # the backward rows both carry SDPA's backward, which computes dQ, dK and
-    # dV in one call
-    rows = []
-    for name, kernel, fn, plain, library_ms in (
-        ("flash_attention_forward", "forward", lambda: FA.flash_attention_forward(q, k, v, scale),
-         lambda: FA.flash_attention_forward_plain(q, k, v, scale), time_ms(torch, sdpa)),
-        ("flash_attention_bwd_dkdv", "dkdv", lambda: FA.flash_attention_bwd_dkdv(*bwd),
-         lambda: FA.flash_attention_bwd_dkdv_plain(*bwd), sdpa_bwd_ms),
-        ("flash_attention_bwd_dq", "dq", lambda: FA.flash_attention_bwd_dq(*bwd),
-         lambda: FA.flash_attention_bwd_dq_plain(*bwd), sdpa_bwd_ms),
-    ):
-        bound_ms, bound_by = flash_bound(q, k, kernel)
-        rows.append({
-            "name": name,
-            "route": "cuda",
-            "source": "relora_tpu_torch/csrc/flash_attention.cu",
-            "replaces": "relora_tpu/ops/attention.py:84",
-            "launches": 0,
-            "max_abs_err": worst[name],
-            "ms": time_ms(torch, fn),
-            "plain_ms": time_ms(torch, plain),
-            "bound_ms": bound_ms,
-            "bound_by": bound_by,
-            "library_ms": library_ms,
-        })
     bound_ms, bound_by = flash_bound(q, k, "fwd_bwd")
     pair = {
         "flash_fwd_bwd": "forward+backward",
@@ -985,6 +1059,52 @@ def drains(torch, prompts, repeat):
         print(json.dumps(line))
         results.append(line)
     return launches, results
+
+
+def pythia_drains(torch, prompts):
+    """Phase pythia-drains: the serving path of the NeoX family through the
+    CLI's entry point at pythia_1b's full width and depth, three ways, on
+    phase 4's prompts.  Each drain fails unless every launch of its kernel
+    came from its decode method (``decode_paged`` for kernel 1,
+    ``step_paged`` for kernel 2), once a layer in every call, and every id
+    is in the vocabulary.  Returns the launches per kernel."""
+    from relora_tpu_torch import serve_cli
+    from relora_tpu_torch.config.model import load_model_config
+    from relora_tpu_torch.ops import attention as A
+
+    cfg = load_model_config(PYTHIA)
+    base = ["--model_config", PYTHIA, "--random-init", "--dtype", "bf16",
+            "--max-batch", "8", "--paged", "--max-new-tokens", "64", "--input-file", prompts]
+    kernels = ("paged_decode_attention", "packed_paged_attention")
+    launches = dict.fromkeys(kernels, 0)
+    for label, extra, kernel, method in (
+        ("bf16", ["--kv-dtype", "bf16"], "paged_decode_attention", "decode_paged"),
+        ("packed", ["--kv-dtype", "bf16", "--packed"], "packed_paged_attention", "step_paged"),
+        ("int8", ["--kv-dtype", "int8"], "paged_decode_attention", "decode_paged"),
+    ):
+        for k in kernels:
+            getattr(A, k).launches = 0
+        with EngineCalls(method) as calls:
+            completions, seconds = serve_cli.run(base + extra)
+        counts = {k: getattr(A, k).launches for k in kernels}
+        tokens = [c.tokens for c in completions.values()]
+        n = sum(len(t) for t in tokens)
+        print(json.dumps({"pythia_drain": label, "model": PYTHIA, "requests": len(tokens),
+                          "tokens": n, "seconds": seconds, "tokens_per_s": n / seconds,
+                          "launches": counts, method: calls.calls}))
+        torch.cuda.empty_cache()
+        if len(tokens) != 16 or not all(1 <= len(t) <= 64 for t in tokens):
+            raise AssertionError(f"pythia drain {label}: malformed completions")
+        if not all(0 <= tok < cfg.vocab_size for t in tokens for tok in t):
+            raise AssertionError(f"pythia drain {label}: token id out of the vocabulary")
+        want = {k: cfg.num_hidden_layers * calls.calls if k == kernel else 0 for k in kernels}
+        if calls.calls == 0 or counts != want or calls.launches != want:
+            raise AssertionError(f"pythia drain {label}: launches {counts} ({calls.launches} in "
+                                 f"{calls.calls} {method} calls), expected "
+                                 f"{cfg.num_hidden_layers} a call: {want}")
+        for k in kernels:
+            launches[k] += counts[k]
+    return launches
 
 
 def write_repeat_prompts(path, vocab, seed=1, count=16):
@@ -1192,18 +1312,18 @@ def f32_spec_drains(torch, repeat, work):
     torch.cuda.empty_cache()
 
 
-def f32_comparison(torch, device):
+def f32_comparison(torch, device, model_name="llama_250m"):
     """Phase 4: the same decode_paged and step_paged at f32 through the
-    kernel arm and the plain arm, from identical pools; logits compared."""
+    kernel arm and the plain arm, from identical pools; logits compared.
+    llama_250m runs at full depth, any other model at 2 layers."""
     import numpy as np
 
     from relora_tpu_torch.config.model import load_model_config
-    from relora_tpu_torch.models.params_util import init_params
     from relora_tpu_torch.ops import attention as A
     from relora_tpu_torch.serve.engine import InferenceEngine, build_decode_model
 
-    cfg = load_model_config("llama_250m")
-    model = init_params(build_decode_model(cfg, device=device),
+    cfg, tag = (load_model_config(model_name), "") if model_name == "llama_250m" else two_layer(model_name)
+    model = seeded_init(torch, build_decode_model(cfg, device=device),
                         torch.Generator(device=device).manual_seed(1))
     W = cfg.max_sequence_length // PAGE
     engine = InferenceEngine(cfg, model, cache_size=cfg.max_sequence_length, page_size=PAGE,
@@ -1279,10 +1399,10 @@ def f32_comparison(torch, device):
                            ("verify_paged", err_v, vlogits),
                            ("verify_vs_decode", err_w, vlogits[: BATCH - 1])):
         ok = bool(torch.isfinite(out).all()) and err <= LOGIT_TOL
-        print(f"f32-compare {name} shape={tuple(out.shape)} max_abs_err={err:.3e} "
+        print(f"f32-compare{tag} {name} shape={tuple(out.shape)} max_abs_err={err:.3e} "
               f"tol={LOGIT_TOL:g} {'ok' if ok else 'FAIL'}")
         if not ok:
-            raise AssertionError(f"f32 {name}: kernel arm and plain arm disagree")
+            raise AssertionError(f"f32{tag} {name}: kernel arm and plain arm disagree")
 
 
 TRAIN_UPDATES = 9
@@ -1295,14 +1415,30 @@ TRAIN_ARGS = [
     "--restart_warmup_steps", "1", "--num_training_steps", str(TRAIN_UPDATES),
     "--eval_every", "1000",
 ]
+# the pythia train phases: pythia_1b at full width and depth, two 2 x 2048
+# microbatches an update (8192 tokens, as the llama phase's 16 x 512)
+PYTHIA_TRAIN_ARGS = [
+    "--model_config", PYTHIA, "--dtype", "bfloat16",
+    "--batch_size", "2", "--total_batch_size", "4", "--max_length", "2048",
+    "--use_peft", "true", "--lora_r", "128", "--lr", "1e-3", "--relora", "3",
+    "--cycle_length", "3", "--scheduler", "cosine_restarts", "--warmup_steps", "2",
+    "--restart_warmup_steps", "1", "--num_training_steps", str(TRAIN_UPDATES),
+    "--eval_every", "1000",
+]
 # f32-train: flash arm vs naive arm after 2 layers (f32 sums in another
-# order, 1e-6 scale per op); the merge vs an f64 oracle at f32 rounding
-F32_TRAIN_TOL = {"loss": 1e-5, "grad_norm": 1e-4, "merge": 1e-6}
+# order, 1e-6 scale per op); "grads" is the worst of layer 0's trainable
+# leaves, each relative to its largest entry; the merge vs an f64 oracle at
+# f32 rounding
+F32_TRAIN_TOL = {"loss": 1e-5, "grad_norm": 1e-4, "grads": 1e-4, "merge": 1e-6}
+# the widest head the narrow flash kernels take: past it the launcher
+# reports every launch on a wide kernel
+NARROW_HEAD_DIM = 128
 
 
-def write_corpus(work, vocab=32100, seed=0):
+def write_corpus(work, vocab=32100, seed=0, seq_length=512):
     """A seeded Megatron memmap corpus of Zipf-distributed token ids (so the
-    loss has something to learn) and its JSON-form data config."""
+    loss has something to learn) and its JSON-form data config at
+    ``seq_length`` tokens a sample."""
     import numpy as np
 
     from relora_tpu_torch.data.memmap import MemmapTokenWriter
@@ -1312,9 +1448,9 @@ def write_corpus(work, vocab=32100, seed=0):
     with MemmapTokenWriter(prefix, dtype=np.uint16) as w:
         for _ in range(600):
             w.add_document((rng.zipf(1.2, int(rng.integers(200, 1500))) - 1) % vocab)
-    path = os.path.join(work, "zipf_data.json")
+    path = os.path.join(work, f"zipf_data_{seq_length}.json")
     with open(path, "w") as f:
-        json.dump({"data_path": prefix, "split": "95,5,0", "seq_length": 512, "seed": 1234}, f)
+        json.dump({"data_path": prefix, "split": "95,5,0", "seq_length": seq_length, "seed": 1234}, f)
     return path
 
 
@@ -1368,10 +1504,50 @@ class MergeWatch:
         return out
 
 
-def train(torch, data_config, label="train", extra=()):
-    """Phases train, fused-train, int8_train and int8_fused_train:
-    ``relora_tpu_torch.main`` on the card, counters read around the run, and
-    for an int8 base each merge's codes read around it."""
+class GraftWatch:
+    """Wraps the trainer's ``load_warm_start`` to hold every base parameter
+    of the model, right after the graft, to its source tensor in the file
+    (the HF name's prefix stripped, cast to the parameter's dtype).  A
+    model with an int8 base is left alone: its codes are checked around the
+    merges (:class:`MergeWatch`)."""
+
+    def __init__(self, torch):
+        from relora_tpu_torch.train import trainer
+
+        self.torch, self.trainer, self.real = torch, trainer, trainer.load_warm_start
+        self.checked = 0
+
+    def __enter__(self):
+        self.trainer.load_warm_start = self._load
+        return self
+
+    def __exit__(self, *exc):
+        self.trainer.load_warm_start = self.real
+
+    def _load(self, model, path):
+        from relora_tpu_torch.core.relora import is_lora_name
+        from relora_tpu_torch.models.warm_start import WEIGHTS_FILE, strip_hf_prefix
+
+        out = self.real(model, path)
+        if any(name.endswith(".weight_q") for name, _ in model.named_parameters()):
+            return out
+        src = {strip_hf_prefix(k): v for k, v in self.torch.load(
+            os.path.join(path, WEIGHTS_FILE), map_location="cpu", weights_only=True).items()}
+        for name, p in model.named_parameters():
+            if is_lora_name(name):
+                continue
+            if not self.torch.equal(p.detach().cpu(), src[name].to(p.dtype)):
+                raise AssertionError(f"warm start: {name} differs from the file's after the graft")
+            self.checked += 1
+        return out
+
+
+def train(torch, data_config, label="train", extra=(), base_args=TRAIN_ARGS):
+    """Phases train, fused-train, int8_train, int8_fused_train and the
+    pythia train phases: ``relora_tpu_torch.main`` on the card over
+    ``base_args`` plus ``extra``, counters read around the run, for an int8
+    base each merge's codes read around it, and for a dense warm start the
+    grafted base held to the file."""
     from relora_tpu_torch import main as train_main
     from relora_tpu_torch.config.model import load_model_config
 
@@ -1380,28 +1556,36 @@ def train(torch, data_config, label="train", extra=()):
         c.launches = 0
     for n in TC_NAMES:
         counters[n].tc_launches = 0
-    with MergeWatch(torch) as watch:
-        result = train_main.main(TRAIN_ARGS + list(extra) + ["--megatron_dataset_config", data_config])
+    for n in FLASH_NAMES:
+        counters[n].wide_launches = 0
+    argv = list(base_args) + list(extra)
+    model_name = argv[argv.index("--model_config") + 1]
+    cfg = load_model_config(model_name)
+    fused = "--lora_fused" in extra
+    int8 = "--quantize" in extra
+    torch.cuda.reset_peak_memory_stats()
+    with MergeWatch(torch) as watch, GraftWatch(torch) as graft:
+        result = train_main.main(argv + ["--megatron_dataset_config", data_config])
     launches = {n: c.launches for n, c in counters.items()}
     tc = {n: counters[n].tc_launches for n in TC_NAMES}
+    wide = {n: counters[n].wide_launches for n in FLASH_NAMES}
 
     records = result["records"]
     losses = [r["loss"] for r in records]
-    layers = load_model_config("llama_250m").num_hidden_layers
+    layers = cfg.num_hidden_layers
+    projections = 7 if cfg.family == "llama" else 4  # LoRA projections a layer
     backward = layers * TRAIN_MICRO * TRAIN_UPDATES
     forward = backward + layers * result["eval_batches"]
-    fused = "--lora_fused" in extra
-    int8 = "--quantize" in extra
     want = {
         "flash_attention_forward": forward,
         "flash_attention_bwd_dkdv": backward,
         "flash_attention_bwd_dq": backward,
-        "fused_lora_forward": 7 * forward if fused and not int8 else 0,
-        "fused_lora_bwd_dx": 7 * backward if fused and not int8 else 0,
-        "fused_lora_bwd_dab": 7 * backward if fused else 0,
-        "dequant_matmul": 7 * forward if int8 and not fused else 0,
-        "fused_lora_int8_forward": 7 * forward if int8 and fused else 0,
-        "fused_lora_int8_bwd_dx": 7 * backward if int8 and fused else 0,
+        "fused_lora_forward": projections * forward if fused and not int8 else 0,
+        "fused_lora_bwd_dx": projections * backward if fused and not int8 else 0,
+        "fused_lora_bwd_dab": projections * backward if fused else 0,
+        "dequant_matmul": projections * forward if int8 and not fused else 0,
+        "fused_lora_int8_forward": projections * forward if int8 and fused else 0,
+        "fused_lora_int8_bwd_dx": projections * backward if int8 and fused else 0,
     }
     merges_at = [r["update_step"] for a, r in zip([None] + records, records)
                  if a is not None and r["n_lora_restarts"] > a["n_lora_restarts"]]
@@ -1409,15 +1593,19 @@ def train(torch, data_config, label="train", extra=()):
                  if a is not None and r["n_optimizer_resets"] > a["n_optimizer_resets"]]
     steady = sorted(r["update_seconds"] for r in records[1:])
     ms = steady[len(steady) // 2] * 1e3
+    tokens = int(argv[argv.index("--total_batch_size") + 1]) * int(argv[argv.index("--max_length") + 1])
     line = {
-        label: "llama_250m", "updates": len(records), "ms_per_update": ms,
-        "tokens_per_s": 16 * 512 / (ms / 1e3), "first_loss": losses[0], "last_loss": losses[-1],
+        label: model_name, "updates": len(records), "ms_per_update": ms,
+        "tokens_per_s": tokens / (ms / 1e3), "first_loss": losses[0], "last_loss": losses[-1],
         "final_eval_loss": result.get("final_eval_loss"), "merges_at": merges_at,
         "resets_at": resets_at, "eval_batches": result["eval_batches"], "launches": launches,
-        "tc_launches": tc, "fit_seconds": result["fit_seconds"], "losses": losses,
+        "tc_launches": tc, "wide_launches": wide, "fit_seconds": result["fit_seconds"],
+        "peak_gib": torch.cuda.max_memory_allocated() / 2**30, "losses": losses,
     }
     if int8:
         line["int8_merges"] = watch.merges
+    if graft.checked:
+        line["grafted_params_checked"] = graft.checked
     print(json.dumps(line))
     if len(records) != TRAIN_UPDATES or not all(torch.isfinite(torch.tensor(losses))):
         raise AssertionError(f"{label}: expected {TRAIN_UPDATES} finite losses, got {losses}")
@@ -1431,67 +1619,136 @@ def train(torch, data_config, label="train", extra=()):
         raise AssertionError(f"{label}: forwards, dx and dA/dB on the tensor cores {tc} of "
                              f"{launches}: the model's bf16 layout must take the tensor-core path "
                              "every time")
+    if wide != {n: launches[n] if cfg.head_dim > NARROW_HEAD_DIM else 0 for n in FLASH_NAMES}:
+        raise AssertionError(f"{label}: the launcher reported {wide} wide flash launches of "
+                             f"{launches} at head_dim {cfg.head_dim}: every attention must take "
+                             "the kernels of its width")
     if int8 and not (len(watch.merges) == 2 and all(
-            m["modules"] == 7 * layers and m["nonzero_before"] > 0 and m["int8_after"]
+            m["modules"] == projections * layers and m["nonzero_before"] > 0 and m["int8_after"]
             and m["moved"] > 0 for m in watch.merges)):
         raise AssertionError(f"{label}: int8 merges {watch.merges}: expected 2 merges over the "
-                             f"nonzero int8 codes of {7 * layers} projections, moving them")
+                             f"nonzero int8 codes of {projections * layers} projections, moving them")
+    if "--warmed_up_model" in extra and not int8 and graft.checked == 0:
+        raise AssertionError(f"{label}: the warm start grafted no base parameter")
     return launches
 
 
-def f32_train(torch, device):
-    """Phase f32-train: one update through the flash arm and the naive arm
-    from the same weights and batch, then a merge against an f64 oracle."""
+def two_layer(model_name):
+    """``model_name``'s config cut to 2 layers (the f32 phases' depth), and
+    the label its f32 phases print."""
     import dataclasses
 
+    from relora_tpu_torch.config.model import load_model_config
+
+    cfg = dataclasses.replace(load_model_config(model_name), num_hidden_layers=2)
+    return cfg, "" if model_name == "llama_250m" else f"@{model_name}"
+
+
+def seeded_init(torch, model, gen, lora_b=False):
+    """``init_params`` from ``gen``, then every bias drawn nonzero (a NeoX
+    model's; a Llama has none), so the f32 phases see the biases work, and
+    with ``lora_b`` every LoRA B too."""
+    from relora_tpu_torch.models.params_util import init_params
+
+    init_params(model, gen)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.endswith(".bias") or (lora_b and name.endswith("lora_b")):
+                p.copy_(torch.randn(p.shape, generator=gen, device=p.device) * 0.02)
+    return model
+
+
+def layer0_grads(torch, model, batch):
+    """Gradients of layer 0's trainable leaves under the train step's loss
+    (the mean over ``batch``'s microbatches), taken before the update: each
+    flows back through both layers' attention and LoRA projections."""
+    from relora_tpu_torch.train.losses import causal_lm_loss
+
+    model.zero_grad(set_to_none=True)
+    for micro in batch:
+        loss, _ = causal_lm_loss(model(micro), micro)
+        (loss / batch.shape[0]).backward()
+    grads = {n: p.grad.clone() for n, p in model.named_parameters()
+             if n.startswith("layers.0.") and p.requires_grad}
+    model.zero_grad(set_to_none=True)
+    return grads
+
+
+def check_grads(phase, grads, ref):
+    """Each leaf of ``grads`` against ``ref``'s, relative to the leaf's
+    largest reference entry; prints every leaf's error and fails past
+    ``F32_TRAIN_TOL["grads"]`` (or on a reference leaf that is all zero)."""
+    errs = {n: ((g - ref[n]).abs().max() / ref[n].abs().max()).item() for n, g in grads.items()}
+    worst = max(errs, key=lambda n: errs[n] if errs[n] == errs[n] else float("inf"))
+    ok = all(e <= F32_TRAIN_TOL["grads"] for e in errs.values())
+    print(json.dumps({f"{phase} grads": errs}))
+    print(f"{phase} grads worst={worst} rel_err={errs[worst]:.3e} "
+          f"tol={F32_TRAIN_TOL['grads']:g} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{phase}: the gradient of {worst} off by {errs[worst]:.3e}")
+
+
+def f32_train(torch, device, model_name="llama_250m"):
+    """Phase f32-train: one update of a 2-layer ``model_name`` through the
+    flash arm and the naive arm from the same weights and batch, then a
+    merge against an f64 oracle."""
     import numpy as np
 
-    from relora_tpu_torch.config.model import load_model_config
     from relora_tpu_torch.core import optim, relora
-    from relora_tpu_torch.models.llama import LlamaForCausalLM
-    from relora_tpu_torch.models.params_util import init_params
+    from relora_tpu_torch.models.family import causal_lm_class
     from relora_tpu_torch.ops import flash_attention as FA
     from relora_tpu_torch.train.step import TrainState, make_train_step
 
-    cfg = dataclasses.replace(load_model_config("llama_250m"), num_hidden_layers=2)
+    cfg, tag = two_layer(model_name)
     spec = relora.LoraSpec(r=128, alpha=32.0, dropout=0.0)
     rng = np.random.default_rng(5)
     batch = torch.as_tensor((rng.zipf(1.2, (2, 4, 512)) - 1) % cfg.vocab_size, device=device)
-    state_dict, out = None, {}
+    state_dict, out, grads = None, {}, {}
     n0 = FA.flash_attention_bwd_dq.launches
+    wide0 = FA.flash_attention_bwd_dq.wide_launches
     for arm in ("flash", "naive"):
         with torch.device(device):
-            model = LlamaForCausalLM(cfg, dtype=torch.float32, attention_arm=arm, lora=spec)
+            model = causal_lm_class(cfg)(cfg, dtype=torch.float32, attention_arm=arm, lora=spec)
         if state_dict is None:
-            init_params(model, torch.Generator(device=device).manual_seed(3))
+            seeded_init(torch, model, torch.Generator(device=device).manual_seed(3), lora_b=True)
             state_dict = {k: v.clone() for k, v in model.state_dict().items()}
         model.load_state_dict(state_dict)
         relora.set_trainable(model)
+        grads[arm] = layer0_grads(torch, model, batch)
         opt = optim.build_optimizer(p for p in model.parameters() if p.requires_grad)
         step = make_train_step(model, opt, clip_grad_norm=1.0, schedule=lambda s: 1e-3)
         out[arm] = (step(TrainState(), batch), model)
-    if FA.flash_attention_bwd_dq.launches == n0:
+    launched = FA.flash_attention_bwd_dq.launches - n0
+    if launched == 0:
         raise AssertionError("f32-train: the flash arm did not reach the kernels")
+    wide = FA.flash_attention_bwd_dq.wide_launches - wide0
+    if wide != (launched if cfg.head_dim > NARROW_HEAD_DIM else 0):
+        raise AssertionError(f"f32-train{tag}: the launcher reported {wide} of {launched} dQ "
+                             f"launches on the wide kernels at head_dim {cfg.head_dim}")
+    check_grads(f"f32-train{tag}", grads["flash"], grads["naive"])
     (mf, model), (mn, _) = out["flash"], out["naive"]
     errs = {k: abs(mf[k] - mn[k]) / abs(mn[k]) for k in ("loss", "grad_norm")}
 
-    module = model.layers[0].self_attn.q_proj
+    module = next(relora.lora_modules(model))[1]
     oracle = module.weight.double() + (
         module.lora_a.double() @ module.lora_b.double() * spec.scale).t()
     relora.merge_and_reinit(model, torch.Generator(device=device).manual_seed(4), spec)
     errs["merge"] = ((module.weight.double() - oracle).abs().max() / oracle.abs().max()).item()
     for key, err in errs.items():
         ok = err <= F32_TRAIN_TOL[key]
-        print(f"f32-train {key} flash={mf.get(key)} naive={mn.get(key)} rel_err={err:.3e} "
+        print(f"f32-train{tag} {key} flash={mf.get(key)} naive={mn.get(key)} rel_err={err:.3e} "
               f"tol={F32_TRAIN_TOL[key]:g} {'ok' if ok else 'FAIL'}")
         if not ok:
-            raise AssertionError(f"f32-train: {key} off by {err:.3e}")
+            raise AssertionError(f"f32-train{tag}: {key} off by {err:.3e}")
 
 
 # kernels 4, 6, 7: llama_250m's projections at the train phase's M = 8 x 512
 # and r = 128, (K, N) per shape and how many of each one decoder layer runs
 LORA_M, LORA_R = 8 * 512, 128
 LORA_SHAPES = ((768, 768, 4), (768, 2560, 2), (2560, 768, 1))  # q/k/v/o, gate/up, down
+# pythia_1b's projections, one each a layer: fused QKV, dense, h->4h, 4h->h
+# (the pythia train phase's M is 2 x 2048 = LORA_M as well)
+PYTHIA_LORA_SHAPES = ((2048, 6144, 1), (2048, 2048, 1), (2048, 8192, 1), (8192, 2048, 1))
 # error relative to max(1, max|twin|): f32 sums K = 2560 terms in another
 # order; bf16 outputs round once to bf16 (2^-8 relative)
 LORA_TOL = {"f32": 1e-4, "bf16": 1e-2}
@@ -1586,14 +1843,14 @@ def lora_bound(M, K, N, r, e, kernel):
 
 def check_lora_kernels(torch, device):
     """Phase kernels-4: kernels 4, 6, 7 against their twins on the card,
-    then timings per llama_250m shape beside the twin, the ordered cuBLAS
-    chain of the default path and the bound."""
-    import torch.nn.functional as F
-
+    then timings per llama_250m and pythia_1b shape beside the twin, the
+    ordered cuBLAS chain of the default path and the bound."""
     from relora_tpu_torch.core.relora import full_f32_matmul
     from relora_tpu_torch.ops import lora_matmul as LM
 
     worst = dict.fromkeys(LORA_NAMES, 0.0)
+    worst_pythia = dict.fromkeys(LORA_NAMES, 0.0)
+    pythia_shapes = {(K, N) for K, N, _ in PYTHIA_LORA_SHAPES}
     cases = [(LORA_M, K, N, LORA_R, dt, True) for K, N, _ in LORA_SHAPES
              for dt in ("bf16", "f32")]
     cases += [(LORA_M, 768, 768, LORA_R, dt, False) for dt in ("bf16", "f32")]
@@ -1602,6 +1859,8 @@ def check_lora_kernels(torch, device):
     cases += [RAGGED_TC]
     # kernel 7's M-chunk schedule: M below one chunk, and a ragged last chunk
     cases += [(300, 768, 768, LORA_R, "bf16", True), (LORA_M + 4, 2560, 768, LORA_R, "bf16", True)]
+    # pythia_1b's four projections (kernel 7 at K = 8192 among them)
+    cases += [(LORA_M, K, N, LORA_R, "bf16", True) for K, N, _ in PYTHIA_LORA_SHAPES]
     with full_f32_matmul():
         for i, (M, K, N, r, dtype, transposed) in enumerate(cases):
             x, w, a, b, gy = make_lora_case(torch, device, M, K, N, r, dtype, seed=21 + i,
@@ -1642,7 +1901,8 @@ def check_lora_kernels(torch, device):
                 if not ok:
                     raise AssertionError(f"{name} disagrees with its plain twin ({M, K, N, r, dtype})")
                 if dtype == "bf16" and M == LORA_M and transposed:
-                    worst[name] = max(worst[name], err)
+                    into = worst_pythia if (K, N) in pythia_shapes else worst
+                    into[name] = max(into[name], err)
 
         # a tensor scale through the autograd Function against autograd of
         # the plain composite, ds included
@@ -1666,11 +1926,28 @@ def check_lora_kernels(torch, device):
             if not ok:
                 raise AssertionError(f"FusedLoRAMatmul with a tensor scale: {name} disagrees")
 
+    # one decoder layer's seven projections (4 x 768->768, 2 x 768->2560,
+    # 1 x 2560->768) summed, then pythia_1b's four (QKV 2048->6144, dense
+    # 2048->2048, 2048->8192, 8192->2048)
+    return (lora_timed_rows(torch, device, LORA_SHAPES, worst, "")
+            + lora_timed_rows(torch, device, PYTHIA_LORA_SHAPES, worst_pythia, f"@{PYTHIA}"))
+
+
+def lora_timed_rows(torch, device, shapes, worst, suffix):
+    """Kernels 4, 6, 7 timed per ``(K, N, per layer)`` shape at M = LORA_M,
+    r = LORA_R, bf16, beside the twin, the ordered cuBLAS chain of the
+    default path and the bound (printed per shape), and summed per layer
+    into rows named ``kernel + suffix``.  No single PyTorch call computes
+    any of the three functions, so library_ms is the ordered chain."""
+    import torch.nn.functional as F
+
+    from relora_tpu_torch.ops import lora_matmul as LM
+
     # per layer: ms, plain_ms, library_ms (the chain), bound_ms and its two terms
     keys = ("ms", "plain_ms", "library_ms", "bound_ms", "t_bytes", "t_ops")
     rows = {name: dict.fromkeys(keys, 0.0) for name in LORA_NAMES}
     per_shape = []
-    for K, N, count in LORA_SHAPES:
+    for K, N, count in shapes:
         x, w, a, b, gy = make_lora_case(torch, device, LORA_M, K, N, LORA_R, "bf16", seed=99)
         w_nk, s = w.t(), 0.25
         y, z = LM.fused_lora_forward(x, w, a, b, s)
@@ -1700,12 +1977,10 @@ def check_lora_kernels(torch, device):
                 rows[name][key] += count * v
         per_shape.append(shape)
     print(json.dumps({"lora_timings": "bf16, ms per call; chain = the default path's ordered "
-                      "cuBLAS matmuls, timed only", "shapes": per_shape}))
-    # one decoder layer's seven projections (4 x 768->768, 2 x 768->2560,
-    # 1 x 2560->768) summed; no single PyTorch call computes any of the three
-    # functions, so library_ms is the ordered chain
+                      "cuBLAS matmuls, timed only", "rows": suffix or "@llama_250m",
+                      "shapes": per_shape}))
     return [{
-        "name": name,
+        "name": name + suffix,
         "route": "cuda",
         "source": "relora_tpu_torch/csrc/lora_matmul.cu",
         "replaces": f"relora_tpu/ops/pallas_lora_matmul.py:{LORA_LINES[name]}",
@@ -1719,52 +1994,48 @@ def check_lora_kernels(torch, device):
     } for name, row in rows.items()]
 
 
-def f32_fused(torch, device):
-    """Phase f32-fused: one update with lora_fused true and false from the
-    same weights (B drawn nonzero) and batch, at f32 with TF32 off."""
-    import dataclasses
-
+def f32_fused(torch, device, model_name="llama_250m"):
+    """Phase f32-fused: one update of a 2-layer ``model_name`` with
+    lora_fused true and false from the same weights (B, and a NeoX model's
+    biases, drawn nonzero) and batch, at f32 with TF32 off."""
     import numpy as np
 
-    from relora_tpu_torch.config.model import load_model_config
     from relora_tpu_torch.core import optim, relora
-    from relora_tpu_torch.models.llama import LlamaForCausalLM
-    from relora_tpu_torch.models.params_util import init_params
+    from relora_tpu_torch.models.family import causal_lm_class
     from relora_tpu_torch.ops import lora_matmul as LM
     from relora_tpu_torch.train.step import TrainState, make_train_step
 
-    cfg = dataclasses.replace(load_model_config("llama_250m"), num_hidden_layers=2)
+    cfg, tag = two_layer(model_name)
     rng = np.random.default_rng(6)
     batch = torch.as_tensor((rng.zipf(1.2, (2, 4, 512)) - 1) % cfg.vocab_size, device=device)
-    state_dict, out = None, {}
+    state_dict, out, grads = None, {}, {}
     n0 = LM.fused_lora_bwd_dab.launches
     with relora.full_f32_matmul():
         for fused in (True, False):
             spec = relora.LoraSpec(r=128, alpha=32.0, dropout=0.0, fused=fused)
             with torch.device(device):
-                model = LlamaForCausalLM(cfg, dtype=torch.float32, attention_arm="flash", lora=spec)
+                model = causal_lm_class(cfg)(cfg, dtype=torch.float32, attention_arm="flash",
+                                             lora=spec)
             if state_dict is None:
-                gen = torch.Generator(device=device).manual_seed(3)
-                init_params(model, gen)
-                with torch.no_grad():
-                    for name, p in model.named_parameters():
-                        if name.endswith("lora_b"):
-                            p.copy_(torch.randn(p.shape, generator=gen, device=device) * 0.02)
+                seeded_init(torch, model, torch.Generator(device=device).manual_seed(3),
+                            lora_b=True)
                 state_dict = {k: v.clone() for k, v in model.state_dict().items()}
             model.load_state_dict(state_dict)
             relora.set_trainable(model)
+            grads[fused] = layer0_grads(torch, model, batch)
             opt = optim.build_optimizer(p for p in model.parameters() if p.requires_grad)
             step = make_train_step(model, opt, clip_grad_norm=1.0, schedule=lambda s: 1e-3)
             out[fused] = step(TrainState(), batch)
     if LM.fused_lora_bwd_dab.launches == n0:
         raise AssertionError("f32-fused: the fused arm did not reach the kernels")
+    check_grads(f"f32-fused{tag}", grads[True], grads[False])
     for key in ("loss", "grad_norm"):
         err = abs(out[True][key] - out[False][key]) / abs(out[False][key])
         ok = err <= F32_TRAIN_TOL[key]
-        print(f"f32-fused {key} fused={out[True][key]} unfused={out[False][key]} rel_err={err:.3e} "
-              f"tol={F32_TRAIN_TOL[key]:g} {'ok' if ok else 'FAIL'}")
+        print(f"f32-fused{tag} {key} fused={out[True][key]} unfused={out[False][key]} "
+              f"rel_err={err:.3e} tol={F32_TRAIN_TOL[key]:g} {'ok' if ok else 'FAIL'}")
         if not ok:
-            raise AssertionError(f"f32-fused: {key} off by {err:.3e}")
+            raise AssertionError(f"f32-fused{tag}: {key} off by {err:.3e}")
 
 
 # kernel 8 and the int8 variants of 4 and 6, at kernels-4's shapes
@@ -1821,10 +2092,9 @@ def int8pack_call(torch, x, q_nk, qscale):
 
 def check_int8_kernels(torch, device):
     """Phase kernels-8: kernel 8 and the int8 fused forward and dx against
-    their twins on the card, then timings per llama_250m shape beside the
-    twin, the JAX default path's dequantize + cuBLAS chain and the bound."""
-    import torch.nn.functional as F
-
+    their twins on the card, then timings per llama_250m and pythia_1b
+    shape beside the twin, the JAX default path's dequantize + cuBLAS chain
+    and the bound."""
     from relora_tpu_torch.core.relora import full_f32_matmul
     from relora_tpu_torch.ops import lora_matmul as LM
     from relora_tpu_torch.ops import quant_matmul as QM
@@ -1837,6 +2107,9 @@ def check_int8_kernels(torch, device):
     cases += [(200, 72, 100, 8, dt, True) for dt in ("bf16", "f32")]
     cases += [(1024, 768, 768, 320, dt, True) for dt in ("bf16", "f32")]  # a rank past 256
     cases += [RAGGED_TC]
+    # pythia_1b's four projections (checked and timed; no pythia phase trains an int8 base)
+    n_llama = len(cases)
+    cases += [(LORA_M, K, N, LORA_R, "bf16", True) for K, N, _ in PYTHIA_LORA_SHAPES]
     with full_f32_matmul(), torch.no_grad():
         for i, (M, K, N, r, dtype, transposed) in enumerate(cases):
             x, q, qs, a, b, gy = make_int8_case(torch, device, M, K, N, r, dtype, seed=51 + i,
@@ -1875,7 +2148,7 @@ def check_int8_kernels(torch, device):
                       f"{'ok' if ok else 'FAIL'}")
                 if not ok:
                     raise AssertionError(f"{name} disagrees with its plain twin ({M, K, N, r, dtype})")
-                if dtype == "bf16" and M == LORA_M and transposed and name in worst:
+                if dtype == "bf16" and M == LORA_M and transposed and name in worst and i < n_llama:
                     worst[name] = max(worst[name], err)
 
     # a tensor scale (and a qscale that asks for its gradient) through both
@@ -1912,6 +2185,23 @@ def check_int8_kernels(torch, device):
             if not ok:
                 raise AssertionError(f"{fn_name} with a tensor scale: {name} disagrees")
 
+    # the rows are llama_250m's layer; pythia_1b's four projections print
+    # their timing line alone (no phase trains pythia over an int8 base)
+    rows = int8_timed_rows(torch, device, LORA_SHAPES, worst, "")
+    int8_timed_rows(torch, device, PYTHIA_LORA_SHAPES, worst, f"@{PYTHIA}")
+    return rows
+
+
+def int8_timed_rows(torch, device, shapes, worst, suffix):
+    """Kernel 8, 4-int8 and 6-int8 timed per ``(K, N, per layer)`` shape at
+    M = LORA_M, r = LORA_R, bf16 activations, beside the twin, the JAX
+    default path's dequantize + cuBLAS chain, ``torch._weight_int8pack_mm``
+    (kernel 8) and the bound (printed per shape), and summed per layer into
+    rows named ``kernel + suffix``."""
+    import torch.nn.functional as F
+
+    from relora_tpu_torch.ops import lora_matmul as LM
+    from relora_tpu_torch.ops import quant_matmul as QM
     from relora_tpu_torch.ops.quant import dequantize_int8
 
     keys = ("ms", "plain_ms", "library_ms", "bound_ms", "t_bytes", "t_ops")
@@ -1919,7 +2209,7 @@ def check_int8_kernels(torch, device):
     per_shape = []
     int8pack_ms = 0.0  # kernel 8's one-call yardstick per layer; None once a shape raised
     with torch.no_grad():
-        for K, N, count in LORA_SHAPES:
+        for K, N, count in shapes:
             x, q, qs, a, b, gy = make_int8_case(torch, device, LORA_M, K, N, LORA_R, "bf16", seed=99)
             q_nk, s = q.t(), 0.25
 
@@ -1960,14 +2250,15 @@ def check_int8_kernels(torch, device):
     print(json.dumps({"int8_timings": "bf16 activations, int8 base, ms per call; chain = the JAX "
                       "default path's dequantize + cuBLAS matmuls, int8pack = "
                       "torch._weight_int8pack_mm (kernel 8's one-call yardstick), timed only",
-                      "shapes": per_shape, "int8pack_ms_per_layer": int8pack_ms}))
+                      "rows": suffix or "@llama_250m", "shapes": per_shape,
+                      "int8pack_ms_per_layer": int8pack_ms}))
     # one decoder layer's seven projections summed, as kernels-4.  Kernel 8's
     # library_ms is torch._weight_int8pack_mm (the chain if that call raised);
     # no single PyTorch call computes 4-int8 or 6-int8, so theirs is the chain
     if int8pack_ms is not None:
         rows["dequant_matmul"]["library_ms"] = int8pack_ms
     return [{
-        "name": name,
+        "name": name + suffix,
         "route": "cuda",
         "source": "relora_tpu_torch/csrc/lora_matmul.cu",
         "replaces": f"relora_tpu/ops/{INT8_LINES[name]}",
@@ -1981,20 +2272,30 @@ def check_int8_kernels(torch, device):
     } for name, row in rows.items()]
 
 
-def write_warm_start(torch, path, device, seed=11, model_config="llama_250m"):
-    """A full-rank ``model_config`` with seeded random weights, saved as an f32
-    HF-named ``path/pytorch_model.bin`` (``model.`` prefix, ``lm_head``
-    without it) for ``--warmed_up_model path``; returns ``path``."""
+def write_warm_start(torch, path, device, seed=11, model_config="llama_250m", dtype=None):
+    """A full-rank ``model_config`` with seeded random weights, saved as an
+    HF-named ``path/pytorch_model.bin`` in ``dtype`` (default f32) for
+    ``--warmed_up_model path``: a Llama's keys under ``model.`` with
+    ``lm_head`` at the root, a GPT-NeoX's under ``gpt_neox.`` with
+    ``embed_out`` at the root, its biases drawn nonzero; returns ``path``."""
     from relora_tpu_torch.config.model import load_model_config
-    from relora_tpu_torch.models.llama import LlamaForCausalLM
+    from relora_tpu_torch.models.family import causal_lm_class
     from relora_tpu_torch.models.params_util import init_params
 
     os.makedirs(path, exist_ok=True)
+    cfg = load_model_config(model_config)
     with torch.device(device):
-        model = LlamaForCausalLM(load_model_config(model_config))
-    init_params(model, torch.Generator(device=device).manual_seed(seed))
-    torch.save({(k if k == "lm_head.weight" else f"model.{k}"): v.cpu()
+        model = causal_lm_class(cfg)(cfg)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    init_params(model, gen)
+    prefix, head = ("model.", "lm_head.weight") if cfg.family == "llama" else ("gpt_neox.", "embed_out.weight")
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.endswith(".bias"):
+                p.copy_(torch.randn(p.shape, generator=gen, device=device) * 0.02)
+    torch.save({(k if k == head else prefix + k): v.to(dtype or v.dtype).cpu()
                 for k, v in model.state_dict().items()}, os.path.join(path, "pytorch_model.bin"))
+    del model
     return path
 
 
@@ -2440,34 +2741,42 @@ def adapter_drains(torch, device, prompts_path, base, tenants, repeat_path):
     return total + grouped, k1, calls.launches["paged_decode_attention"]
 
 
-def f32_adapters(torch, device, tenants):
+def f32_adapters(torch, device, tenants, model_name="llama_250m"):
     """Phase f32-adapters: decode_paged and step_paged of a slotted
-    llama_250m at f32, the kernel arm against the plain arm from identical
-    pools, rows on mixed adapter slots; logits compared."""
+    ``model_name`` at f32, the kernel arm against the plain arm from
+    identical pools, rows on mixed adapter slots; logits compared.
+    llama_250m runs at full depth with the tenants of ``tenants``; any other
+    model at 2 layers with seeded factors in each slot (``tenants`` None)."""
     import numpy as np
 
     from relora_tpu_torch.config.model import load_model_config
-    from relora_tpu_torch.core.relora import LoraSpec
-    from relora_tpu_torch.models.llama import LlamaForCausalLM
+    from relora_tpu_torch.core.relora import LoraSpec, kaiming_uniform
+    from relora_tpu_torch.models.family import causal_lm_class
     from relora_tpu_torch.models.lora import LoRALinear
-    from relora_tpu_torch.models.params_util import init_params
     from relora_tpu_torch.ops import lora_matmul as LM
-    from relora_tpu_torch.serve.adapters import default_loader
+    from relora_tpu_torch.serve.adapters import default_loader, extract_lora_factors
     from relora_tpu_torch.serve.engine import InferenceEngine
 
-    cfg = load_model_config("llama_250m")
+    cfg, tag = (load_model_config(model_name), "") if model_name == "llama_250m" else two_layer(model_name)
     spec = LoraSpec(r=ADAPTER_R, alpha=32.0)
     with torch.device(device):
-        model = LlamaForCausalLM(cfg, lora=spec)
-    init_params(model, torch.Generator(device=device).manual_seed(1))
+        model = causal_lm_class(cfg)(cfg, lora=spec)
+    gen = torch.Generator(device=device).manual_seed(1)
+    seeded_init(torch, model, gen)
     W = cfg.max_sequence_length // PAGE
     engine = InferenceEngine(cfg, model.state_dict(), cache_size=cfg.max_sequence_length,
                              page_size=PAGE, num_pages=(BATCH + 1) * W + 1, chunk_size=64,
                              token_budget=BATCH + 64, device=device, lora=spec,
                              adapter_slots=ADAPTER_SLOTS)
+    for slot, (name, alpha) in enumerate(TENANT_ALPHAS.items(), 1):
+        if tenants is not None:
+            engine.write_adapter_slot(slot, *default_loader(os.path.join(tenants, name), ADAPTER_R))
+            continue
+        factors = {key: kaiming_uniform(p.shape, gen, device) if key.endswith("lora_a")
+                   else torch.randn(p.shape, generator=gen, device=device) * 0.05
+                   for key, p in extract_lora_factors(model.state_dict()).items()}
+        engine.write_adapter_slot(slot, factors, alpha / ADAPTER_R)
     del model
-    for slot, name in enumerate(TENANT_ALPHAS, 1):
-        engine.write_adapter_slot(slot, *default_loader(os.path.join(tenants, name), ADAPTER_R))
     modules = [m for m in engine.model.modules() if isinstance(m, LoRALinear) and m.lora is not None]
     rng = np.random.default_rng(4)
     lengths = rng.integers(32, 513, BATCH)
@@ -2515,10 +2824,19 @@ def f32_adapters(torch, device, tenants):
         adapter_idx=adapter_idx)[0])
     for name, err, out in (("decode_paged", err_d, logits), ("step_paged", err_p, plogits)):
         ok = bool(torch.isfinite(out).all()) and err <= LOGIT_TOL
-        print(f"f32-adapters {name} shape={tuple(out.shape)} slots={slots.tolist()} "
+        print(f"f32-adapters{tag} {name} shape={tuple(out.shape)} slots={slots.tolist()} "
               f"max_abs_err={err:.3e} tol={LOGIT_TOL:g} {'ok' if ok else 'FAIL'}")
         if not ok:
-            raise AssertionError(f"f32-adapters {name}: kernel arm and plain arm disagree")
+            raise AssertionError(f"f32-adapters{tag} {name}: kernel arm and plain arm disagree")
+
+
+def take_launches(rows, launches, model=""):
+    """Each row of ``rows`` named ``kernel`` (``model`` empty) or
+    ``kernel@model`` takes ``launches[kernel]``; other rows are left alone."""
+    for row in rows:
+        kernel, _, of = row["name"].partition("@")
+        if of == model and kernel in launches:
+            row["launches"] = launches[kernel]
 
 
 def main() -> int:
@@ -2565,6 +2883,8 @@ def main() -> int:
         {line["drain"]: line["tokens_per_s"] for line in plain_lines})
     paged_rows = {row["name"]: row for row in rows}
     for name, row in paged_rows.items():
+        if name.endswith(PYTHIA):
+            continue  # the pythia drains' launches, below
         kernel = name.removesuffix("_verify")
         row["launches"] = window[kernel] if name != kernel else launches[kernel] + spec_launches[kernel]
     f32_comparison(torch, device)
@@ -2572,8 +2892,7 @@ def main() -> int:
     f32_spec_drains(torch, repeat, work)
     torch.cuda.empty_cache()
     launches = train(torch, write_corpus(work))
-    for row in flash_rows:
-        row["launches"] = launches[row["name"]]
+    take_launches(flash_rows, launches)
     rows += flash_rows
     torch.cuda.empty_cache()
     f32_train(torch, device)
@@ -2582,8 +2901,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     launches = train(torch, write_corpus(work), "fused_train",
                      ["--lora_fused", "true", "--lora_dropout", "0"])
-    for row in lora_rows:
-        row["launches"] = launches[row["name"]]
+    take_launches(lora_rows, launches)
     rows += lora_rows
     torch.cuda.empty_cache()
     f32_fused(torch, device)
@@ -2615,6 +2933,26 @@ def main() -> int:
     rows += grouped_rows
     torch.cuda.empty_cache()
     f32_adapters(torch, device, tenants)
+    torch.cuda.empty_cache()
+
+    # the NeoX family at pythia_1b: its drains, its two train phases, its f32 checks
+    take_launches(paged_rows.values(), pythia_drains(torch, prompts), PYTHIA)
+    corpus = write_corpus(work, seq_length=2048)
+    take_launches(flash_rows, train(torch, corpus, "pythia_train", base_args=PYTHIA_TRAIN_ARGS),
+                  PYTHIA)
+    torch.cuda.empty_cache()
+    warm = write_warm_start(torch, os.path.join(work, f"warm_{PYTHIA}"), device,
+                            model_config=PYTHIA, dtype=torch.bfloat16)
+    torch.cuda.empty_cache()
+    take_launches(lora_rows, train(
+        torch, corpus, "pythia_fused_train",
+        ["--lora_fused", "true", "--lora_dropout", "0", "--warmed_up_model", warm],
+        base_args=PYTHIA_TRAIN_ARGS), PYTHIA)
+    for phase in (f32_train, f32_fused, f32_comparison):
+        torch.cuda.empty_cache()
+        phase(torch, device, PYTHIA)
+    torch.cuda.empty_cache()
+    f32_adapters(torch, device, None, PYTHIA)
 
     print(json.dumps({"kernels": rows}))
     smi = subprocess.run(

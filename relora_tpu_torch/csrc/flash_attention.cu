@@ -1341,7 +1341,7 @@ int set_smem(const void* kern, size_t smem) {
   return (int)cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
-int launch_f32(int which, const Args& a, cudaStream_t stream) {
+int launch_f32(int which, const Args& a, cudaStream_t stream, int* launched_wide) {
   const bool wide = a.H > 128;
   void (*kern)(Args) = wide ? &flash_bwd_dq_wide_kernel : &flash_bwd_dq_kernel;
   if (which == kForward) kern = wide ? &flash_fwd_wide_kernel : &flash_fwd_kernel;
@@ -1352,11 +1352,12 @@ int launch_f32(int which, const Args& a, cudaStream_t stream) {
   const int tiles = (a.S + T - 1) / T;
   dim3 grid(tiles, which == kBwdDkdv ? a.n_kv : a.N, a.B);
   kern<<<grid, kThreads, smem, stream>>>(a);
+  *launched_wide = wide;
   return (int)cudaGetLastError();
 }
 
 template <int HP>
-int launch_tc_hp(int which, const Args& a, int vec, cudaStream_t stream) {
+int launch_tc_hp(int which, const Args& a, int vec, cudaStream_t stream, int* launched_wide) {
   void (*kern)(Args, int) = &flash_bwd_dq_tc_kernel<HP>;
   if (which == kForward) kern = &flash_fwd_tc_kernel<HP>;
   if (which == kBwdDkdv) {
@@ -1372,6 +1373,7 @@ int launch_tc_hp(int which, const Args& a, int vec, cudaStream_t stream) {
   if (tiles > 65535 || a.B > 65535) return (int)cudaErrorInvalidValue;
   dim3 grid(which == kBwdDkdv ? a.n_kv : a.N, a.B, tiles);
   kern<<<grid, kTcThreads, smem, stream>>>(a, vec);
+  *launched_wide = TcShape<HP>::WIDE;
   return (int)cudaGetLastError();
 }
 
@@ -1385,22 +1387,24 @@ int copy_width(const Args& a) {
   return 0;
 }
 
-int launch_tc(int which, const Args& a, cudaStream_t stream) {
+int launch_tc(int which, const Args& a, cudaStream_t stream, int* launched_wide) {
   const int vec = copy_width(a);
   if (vec == 0) return (int)cudaErrorMisalignedAddress;
   return with_padded_head(a.H, (int)cudaErrorInvalidValue, [&](auto hp) {
-    return launch_tc_hp<decltype(hp)::value>(which, a, vec, stream);
+    return launch_tc_hp<decltype(hp)::value>(which, a, vec, stream, launched_wide);
   });
 }
 
-// dtype codes: 0 = float32 (FMA kernels), 1 = bfloat16 (tensor-core kernels)
-int launch(int which, int dtype, const Args& a, cudaStream_t stream) {
+// dtype codes: 0 = float32 (FMA kernels), 1 = bfloat16 (tensor-core kernels);
+// *launched_wide becomes 1 when the launch took a wide kernel (H > 128), else 0
+int launch(int which, int dtype, const Args& a, cudaStream_t stream, int* launched_wide) {
+  *launched_wide = 0;
   if (a.H <= 0 || a.H > kMaxH || a.H % 2 || a.n_kv <= 0 || a.N % a.n_kv)
     return (int)cudaErrorInvalidValue;
   if (a.B == 0 || a.S == 0) return (int)cudaSuccess;
   switch (dtype) {
-    case kF32: return launch_f32(which, a, stream);
-    case kBF16: return launch_tc(which, a, stream);
+    case kF32: return launch_f32(which, a, stream, launched_wide);
+    case kBF16: return launch_tc(which, a, stream, launched_wide);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -1422,27 +1426,27 @@ const char* flash_attention_error_string(int err) {
 // q (B, S, N, H); k, v (B, S, n_kv, H); out (B, S, N, H); lse (B, N, S) f32
 int flash_attention_forward_launch(const void* q, const void* k, const void* v, void* out,
                                    float* lse, int B, int S, int N, int n_kv, int H,
-                                   float scale, int dtype, void* stream) {
+                                   float scale, int dtype, void* stream, int* launched_wide) {
   Args a{q, k, v, nullptr, nullptr, nullptr, out, lse, nullptr, nullptr, B, S, N, n_kv, H, scale};
-  return launch(kForward, dtype, a, static_cast<cudaStream_t>(stream));
+  return launch(kForward, dtype, a, static_cast<cudaStream_t>(stream), launched_wide);
 }
 
 // dout (B, S, N, H); lse, delta (B, N, S) f32; dk, dv (B, S, n_kv, H)
 int flash_attention_bwd_dkdv_launch(const void* q, const void* k, const void* v,
                                     const void* dout, const float* lse, const float* delta,
                                     void* dk, void* dv, int B, int S, int N, int n_kv, int H,
-                                    float scale, int dtype, void* stream) {
+                                    float scale, int dtype, void* stream, int* launched_wide) {
   Args a{q, k, v, dout, lse, delta, nullptr, nullptr, dk, dv, B, S, N, n_kv, H, scale};
-  return launch(kBwdDkdv, dtype, a, static_cast<cudaStream_t>(stream));
+  return launch(kBwdDkdv, dtype, a, static_cast<cudaStream_t>(stream), launched_wide);
 }
 
 // dq (B, S, N, H)
 int flash_attention_bwd_dq_launch(const void* q, const void* k, const void* v,
                                   const void* dout, const float* lse, const float* delta,
                                   void* dq, int B, int S, int N, int n_kv, int H, float scale,
-                                  int dtype, void* stream) {
+                                  int dtype, void* stream, int* launched_wide) {
   Args a{q, k, v, dout, lse, delta, dq, nullptr, nullptr, nullptr, B, S, N, n_kv, H, scale};
-  return launch(kBwdDq, dtype, a, static_cast<cudaStream_t>(stream));
+  return launch(kBwdDq, dtype, a, static_cast<cudaStream_t>(stream), launched_wide);
 }
 
 }  // extern "C"

@@ -1,10 +1,15 @@
-"""Weights from the JAX package's parameter tree into the port's state dict.
+"""Weights from the JAX package's parameter tree into the port's state dict,
+for both model families.
 
 The JAX Llama stores ``{"embed_tokens": {"embedding"}, "layers" | "layers_{i}":
-{...}, "norm": {"scale"}, "lm_head": {"kernel"}}`` with ``(in, out)`` kernels;
-the port uses the HF names of ``relora_tpu/models/hf_compat.py`` with
-``(out, in)`` weights.  The tree arrives as nested dicts of numpy arrays, so
-this module imports neither JAX nor the JAX package.
+{...}, "norm": {"scale"}, "lm_head": {"kernel"}}``, the JAX GPT-NeoX
+``{"embed_in": {"embedding"}, "layers" | "layers_{i}": {...},
+"final_layer_norm": {"scale", "bias"}, "embed_out": {"kernel"}}``, both with
+``(in, out)`` kernels; the port uses the HF names of
+``relora_tpu/models/hf_compat.py`` (less HF NeoX's ``gpt_neox.`` prefix) with
+``(out, in)`` weights.  Biases copy as they are.  The tree arrives as nested
+dicts of numpy arrays, so this module imports neither JAX nor the JAX
+package.
 """
 
 from __future__ import annotations
@@ -26,6 +31,39 @@ _LLAMA_LAYER_MAP = {
     "input_layernorm.scale": "input_layernorm.weight",
     "post_attention_layernorm.scale": "post_attention_layernorm.weight",
 }
+
+# the same for GPT-NeoX (hf_compat's NeoX layer map); the fused QKV keeps
+# HF's per-head interleave, so no reshuffle
+_NEOX_LAYER_MAP = {
+    "attention.query_key_value.kernel": "attention.query_key_value.weight",
+    "attention.query_key_value.bias": "attention.query_key_value.bias",
+    "attention.dense.kernel": "attention.dense.weight",
+    "attention.dense.bias": "attention.dense.bias",
+    "mlp.dense_h_to_4h.kernel": "mlp.dense_h_to_4h.weight",
+    "mlp.dense_h_to_4h.bias": "mlp.dense_h_to_4h.bias",
+    "mlp.dense_4h_to_h.kernel": "mlp.dense_4h_to_h.weight",
+    "mlp.dense_4h_to_h.bias": "mlp.dense_4h_to_h.bias",
+    "input_layernorm.scale": "input_layernorm.weight",
+    "input_layernorm.bias": "input_layernorm.bias",
+    "post_attention_layernorm.scale": "post_attention_layernorm.weight",
+    "post_attention_layernorm.bias": "post_attention_layernorm.bias",
+}
+
+# top-level leaves: JAX path -> port key, per family
+_TOP = {
+    "llama": {
+        "embed_tokens.embedding": "embed_tokens.weight",
+        "norm.scale": "norm.weight",
+        "lm_head.kernel": "lm_head.weight",
+    },
+    "neox": {
+        "embed_in.embedding": "embed_in.weight",
+        "final_layer_norm.scale": "final_layer_norm.weight",
+        "final_layer_norm.bias": "final_layer_norm.bias",
+        "embed_out.kernel": "embed_out.weight",
+    },
+}
+_LAYER_MAPS = {"llama": _LLAMA_LAYER_MAP, "neox": _NEOX_LAYER_MAP}
 
 
 #: LoRA leaves of a projection, copied in the JAX layouts: lora_a (in, r),
@@ -59,15 +97,19 @@ def _weight(value: np.ndarray, src: str) -> torch.Tensor:
 
 
 def params_from_jax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
-    """State dict of :class:`relora_tpu_torch.models.llama.LlamaForCausalLM`
-    from a JAX Llama parameter tree, scanned (``layers`` with a leading axis
-    L) or unrolled (``layers_0`` .. ``layers_{L-1}``).  A LoRA tree's
-    ``lora_a``/``lora_b``/``lora_s`` leaves keep their layouts (the port's
-    ``LoRALinear`` stores them as the JAX module does), the stacked leaves
-    of a multi-tenant tree (``num_slots``) too; a ``lora_only``
-    projection has no ``kernel`` and so no ``weight``.  An int8 projection's
-    ``kernel_q`` ``(in, out)`` becomes ``weight_q`` ``(out, in)``, kept int8,
-    and its ``kernel_scale`` ``(1, out)`` becomes ``weight_scale`` as it is."""
+    """State dict of the port's model (:class:`~relora_tpu_torch.models.llama.LlamaForCausalLM`
+    or :class:`~relora_tpu_torch.models.pythia.GPTNeoXForCausalLM`) from a
+    JAX parameter tree, scanned (``layers`` with a leading axis L) or
+    unrolled (``layers_0`` .. ``layers_{L-1}``).  The tree names its family:
+    ``embed_in`` present means NeoX, else Llama.
+    A LoRA tree's ``lora_a``/``lora_b``/``lora_s`` leaves keep their layouts
+    (the port's ``LoRALinear`` stores them as the JAX module does), the
+    stacked leaves of a multi-tenant tree (``num_slots``) too; a
+    ``lora_only`` projection has no ``kernel`` and so no ``weight`` (nor
+    bias).  An int8 projection's ``kernel_q`` ``(in, out)`` becomes
+    ``weight_q`` ``(out, in)``, kept int8, and its ``kernel_scale`` ``(1,
+    out)`` becomes ``weight_scale`` as it is."""
+    family = "neox" if "embed_in" in tree else "llama"
     if "layers" in tree:
         stacked = tree["layers"]
         n_layers = _leaf(stacked, "input_layernorm.scale").shape[0]
@@ -79,15 +121,11 @@ def params_from_jax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
         layer_has = lambda i, path: _has(tree[f"layers_{i}"], path)
     if n_layers == 0:
         raise KeyError("parameter tree has no decoder layers")
-    out = {
-        "embed_tokens.weight": _weight(_leaf(tree, "embed_tokens.embedding"), "embedding"),
-        "norm.weight": _weight(_leaf(tree, "norm.scale"), "norm.scale"),
-        "lm_head.weight": _weight(_leaf(tree, "lm_head.kernel"), "lm_head.kernel"),
-    }
+    out = {dst: _weight(_leaf(tree, src), src) for src, dst in _TOP[family].items()}
     for i in range(n_layers):
-        for src, dst in _LLAMA_LAYER_MAP.items():
-            module = src.rsplit(".", 1)[0]
-            if layer_has(i, f"{module}.kernel_q"):
+        for src, dst in _LAYER_MAPS[family].items():
+            module, leaf = src.rsplit(".", 1)
+            if leaf == "kernel" and layer_has(i, f"{module}.kernel_q"):
                 codes = layer(i, f"{module}.kernel_q", np.int8)
                 out[f"layers.{i}.{module}.weight_q"] = torch.tensor(codes.T)
                 out[f"layers.{i}.{module}.weight_scale"] = torch.tensor(
@@ -95,7 +133,10 @@ def params_from_jax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
                 )
             elif layer_has(i, src) or not layer_has(i, f"{module}.lora_a"):
                 out[f"layers.{i}.{dst}"] = _weight(layer(i, src), src)
-            for name in _LORA_LEAVES:
-                if src.endswith(".kernel") and layer_has(i, f"{module}.{name}"):
-                    out[f"layers.{i}.{module}.{name}"] = torch.tensor(layer(i, f"{module}.{name}"))
+            if leaf == "kernel":
+                for name in _LORA_LEAVES:
+                    if layer_has(i, f"{module}.{name}"):
+                        out[f"layers.{i}.{module}.{name}"] = torch.tensor(
+                            layer(i, f"{module}.{name}")
+                        )
     return out

@@ -255,16 +255,29 @@ class LlamaDecoderLayer(nn.Module):
         return x + self.mlp(self.post_attention_layernorm(x), dropout_seed, adapter_idx)
 
 
-class LlamaForCausalLM(nn.Module):
-    """Causal LM returning f32 logits (``logits_dtype``).
+class CausalLM(nn.Module):
+    """A decoder-only causal LM returning f32 logits (``logits_dtype``): the
+    constructor and forward loop that both families share.
 
     ``dtype`` is the compute dtype of the projections and the embedding
     output; ``param_dtype`` (default ``dtype``) stores the weights (norm
-    weights stay f32, as in the JAX model).  ``attention_arm`` pins the
+    weights stay f32, as in the JAX models).  ``attention_arm`` pins the
     attention arm for every layer: ``"auto"``, ``"naive"``, or ``"flash"``
     (training only).  ``lora`` wraps every attention and MLP projection;
     ``remat`` recomputes each decoder layer in the backward pass
-    (``torch.utils.checkpoint``, non-reentrant)."""
+    (``torch.utils.checkpoint``, non-reentrant).
+
+    A family names its modules (``embed_name``, ``norm_name``,
+    ``head_name``: the HF parameter names), its ``layer_class``, the dropout
+    seeds a layer spends (``seeds_per_layer``), and builds its final norm
+    (:meth:`final_norm`) and rotary width (:meth:`rotary_dim`)."""
+
+    family: str
+    embed_name: str
+    norm_name: str
+    head_name: str
+    layer_class: type
+    seeds_per_layer: int
 
     def __init__(
         self,
@@ -278,9 +291,10 @@ class LlamaForCausalLM(nn.Module):
         logits_dtype=torch.float32,
     ):
         super().__init__()
-        if config.family != "llama":
-            raise NotImplementedError(
-                f"model family {config.family!r} is not ported yet (llama only)"
+        if config.family != self.family:
+            raise ValueError(
+                f"{type(self).__name__} builds the {self.family!r} family, got "
+                f"{config.family!r} (models.family.causal_lm_class picks the class of a config)"
             )
         if attention_arm not in ("auto", "naive", "flash"):
             raise ValueError(
@@ -293,15 +307,22 @@ class LlamaForCausalLM(nn.Module):
         self.lora = lora
         self.remat = remat
         self.logits_dtype = logits_dtype
-        self.embed_tokens = nn.Embedding(config.vocab_size, config.hidden_size, dtype=param_dtype)
+        setattr(self, self.embed_name,
+                nn.Embedding(config.vocab_size, config.hidden_size, dtype=param_dtype))
         self.layers = nn.ModuleList(
-            LlamaDecoderLayer(config, dtype, lora, param_dtype)
+            self.layer_class(config, dtype, lora, param_dtype)
             for _ in range(config.num_hidden_layers)
         )
-        self.norm = RMSNorm(config.hidden_size, config.rms_norm_eps, dtype)
-        self.lm_head = LoRALinear(
+        setattr(self, self.norm_name, self.final_norm(config, dtype))
+        setattr(self, self.head_name, LoRALinear(
             config.hidden_size, config.vocab_size, dtype=dtype, param_dtype=param_dtype
-        )
+        ))
+
+    def final_norm(self, config: ModelConfig, dtype) -> nn.Module:
+        raise NotImplementedError
+
+    def rotary_dim(self) -> int:
+        raise NotImplementedError
 
     def forward(
         self,
@@ -317,22 +338,24 @@ class LlamaForCausalLM(nn.Module):
         """Logits ``(B, S, vocab)``.  Without ``pool`` this is the training
         forward over ``input_ids`` ``(B, S)`` at positions ``0..S-1`` (causal
         attention; ``dropout_seed`` turns LoRA dropout on, layer ``i`` drawing
-        from seeds ``dropout_seed + 8*i + j``).  With ``pool`` it is the paged
-        decode forward at ``positions`` through ``block_tables``.
+        from seeds ``dropout_seed + seeds_per_layer*i + j``).  With ``pool``
+        it is the paged decode forward at ``positions`` through
+        ``block_tables``.  The rotary tables cover :meth:`rotary_dim`
+        (dynamic NTK scaling takes its exponent from it).
 
         ``adapter_idx`` routes a slotted model's rows (``LoraSpec(num_slots)``)
         to their adapter slots: per batch row ``(B,)``, repeated across its
         tokens, or per token ``(B*S,)`` (the packed forward, B = 1); no index
         is slot 0 everywhere.  Every LoRA projection of every layer takes it."""
         cfg = self.config
-        x = self.embed_tokens(input_ids).to(self.dtype)
+        x = getattr(self, self.embed_name)(input_ids).to(self.dtype)
         if positions is None:
             if pool is not None:
                 raise ValueError("the paged forward needs positions")
             positions = torch.arange(input_ids.shape[1], device=input_ids.device)[None, :]
         cos, sin = rotary_tables(
             positions,
-            cfg.head_dim,
+            self.rotary_dim(),
             cfg.rotary_emb_base,
             scaling_type=cfg.rope_scaling_type,
             scaling_factor=cfg.rope_scaling_factor,
@@ -343,6 +366,24 @@ class LlamaForCausalLM(nn.Module):
         remat = self.remat and pool is None and torch.is_grad_enabled()
         for i, (layer, layer_pool) in enumerate(zip(self.layers, pools)):
             args = (x, cos, sin, positions, block_tables, layer_pool, row_map,
-                    self.attention_arm, _seed(dropout_seed, SEEDS_PER_LAYER * i), adapter_idx)
+                    self.attention_arm, _seed(dropout_seed, self.seeds_per_layer * i),
+                    adapter_idx)
             x = checkpoint(layer, *args, use_reentrant=False) if remat else layer(*args)
-        return self.lm_head(self.norm(x)).to(self.logits_dtype)
+        x = getattr(self, self.norm_name)(x)
+        return getattr(self, self.head_name)(x).to(self.logits_dtype)
+
+
+class LlamaForCausalLM(CausalLM):
+    """The Llama causal LM: ``embed_tokens``, decoder layers, ``norm``
+    (RMSNorm) and ``lm_head``, with rotary over the whole head."""
+
+    family = "llama"
+    embed_name, norm_name, head_name = "embed_tokens", "norm", "lm_head"
+    layer_class = LlamaDecoderLayer
+    seeds_per_layer = SEEDS_PER_LAYER
+
+    def final_norm(self, config: ModelConfig, dtype) -> nn.Module:
+        return RMSNorm(config.hidden_size, config.rms_norm_eps, dtype)
+
+    def rotary_dim(self) -> int:
+        return self.config.head_dim

@@ -3,12 +3,17 @@
 
 Forward (the reference's ``ReLoRaLinear``)::
 
-    y = x @ Wᵀ  +  ((dropout(x) @ A) @ B) * scale
+    y = x @ Wᵀ  (+ bias)  +  ((dropout(x) @ A) @ B) * scale
 
 ``weight`` is the frozen base in the HF ``(out, in)`` layout (so a model
 without LoRA keeps the serving state-dict names), ``lora_a`` ``(in, r)`` and
 ``lora_b`` ``(r, out)`` keep the JAX package's layouts, ``lora_s`` ``(1,)``
-is the trainable scaling (``scale = tanh(lora_s)``).  Parameters are stored
+is the trainable scaling (``scale = tanh(lora_s)``).  ``bias=True`` adds a
+``bias`` ``(out,)`` (the JAX module's ``use_bias``, zero at init, never on a
+``lora_only`` layer), cast to the compute dtype and added where the JAX
+module adds it: after the base product and before the LoRA branch on the
+unfused arms (dense and int8), after the whole composite on the fused and
+grouped arms.  It trains; merges and resets never touch it.  Parameters are stored
 in ``param_dtype`` (the base in bf16 under ``base_dtype="bf16"``); every
 matmul runs in the compute ``dtype``, cast exactly where the JAX module casts.
 
@@ -66,9 +71,10 @@ def dropout_mask(shape, p: float, seed: int, device) -> torch.Tensor:
 
 
 class LoRALinear(nn.Module):
-    """``in_features -> out_features`` linear without bias, with LoRA factors
-    when ``lora`` is given.  ``grouped_arm`` pins the arm of a slotted
-    layout's composite (``ops/lora_dispatch.GROUPED_ARMS`` or ``"auto"``)."""
+    """``in_features -> out_features`` linear, with a bias when ``bias`` and
+    LoRA factors when ``lora`` is given.  ``grouped_arm`` pins the arm of a
+    slotted layout's composite (``ops/lora_dispatch.GROUPED_ARMS`` or
+    ``"auto"``)."""
 
     grouped_arm = "auto"
 
@@ -78,6 +84,7 @@ class LoRALinear(nn.Module):
         out_features: int,
         *,
         lora: Optional[LoraSpec] = None,
+        bias: bool = False,
         dtype=torch.float32,
         param_dtype=None,
     ):
@@ -94,6 +101,10 @@ class LoRALinear(nn.Module):
                 raise NotImplementedError(
                     "fused='auto' (--lora_fused auto) needs the LoRA cost model, not ported yet: see ROADMAP"
                 )
+        if bias and not (lora is not None and lora.lora_only and not lora.num_slots):
+            self.bias = nn.Parameter(torch.zeros(out_features, dtype=param_dtype))
+        else:
+            self.register_parameter("bias", None)
         if lora is not None and lora.num_slots:
             slots = lora.num_slots
             base_dtype = torch.bfloat16 if lora.base_dtype == "bf16" else param_dtype
@@ -129,19 +140,23 @@ class LoRALinear(nn.Module):
     ) -> torch.Tensor:
         spec = self.lora
         if spec is not None and spec.num_slots:
-            return self._grouped(x, adapter_idx)
+            return self._add_bias(self._grouped(x, adapter_idx))
         if spec is not None and spec.lora_only:
             return self._lora_branch(x, dropout_seed)
         dropout_active = spec is not None and spec.dropout > 0.0 and dropout_seed is not None
         if spec is not None and spec.fused is True and not dropout_active:
-            return self._fused(x)
+            return self._add_bias(self._fused(x))
         if spec is not None and spec.quantize == "int8":
             y = dequant_matmul(x.to(self.dtype), self.weight_q.t(), self.weight_scale)
         else:
             y = F.linear(x.to(self.dtype), self.weight.to(self.dtype))
+        y = self._add_bias(y)
         if spec is not None:
             y = y + self._lora_branch(x, dropout_seed)
         return y
+
+    def _add_bias(self, y: torch.Tensor) -> torch.Tensor:
+        return y if self.bias is None else y + self.bias.to(self.dtype)
 
     def _fused(self, x: torch.Tensor) -> torch.Tensor:
         """The composite through the fused arm (``relora_tpu/models/lora.py:200-232``):

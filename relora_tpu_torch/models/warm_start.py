@@ -4,14 +4,18 @@
 The port of ``relora_tpu/train/trainer.py:642-672`` (``_load_warm_start``,
 ``_warm_start_counters``) on its ``pytorch_model.bin`` branch, and of
 ``relora_tpu/models/hf_compat.py:162-214`` (``graft_base_weights``, reached
-through ``hf_to_params`` ``:79-108``).  The HF Llama names, less an optional
-``model.`` prefix, are already the port's parameter names, and both store
-linear weights ``(out, in)``, so the graft copies by name:
+through ``hf_to_params`` ``:79-127``), for both families.  The HF names,
+less an optional ``model.`` (Llama) or ``gpt_neox.`` (GPT-NeoX / Pythia, whose
+``embed_out.weight`` sits at the root) prefix, are already the port's
+parameter names, and both store linear weights ``(out, in)``, so the graft
+copies by name:
 
 - every base (non-LoRA) parameter of the model takes the source tensor of
-  its name, cast to its storage dtype; an int8 base (``weight_q``,
-  ``weight_scale``) takes the f32 source ``weight`` quantized on the fly
-  (:func:`relora_tpu_torch.ops.quant.quantize_int8`);
+  its name, cast to its storage dtype: weights, biases and norm parameters
+  alike; an int8 base (``weight_q``, ``weight_scale``) takes the f32 source
+  ``weight`` quantized on the fly
+  (:func:`relora_tpu_torch.ops.quant.quantize_int8`), and only a ``weight``
+  is ever quantized;
 - ``lora_*`` leaves are skipped on both sides: the model's keep their fresh
   init, the source's are dropped with a warning;
 - a base parameter missing from the source raises ``KeyError`` and a shape
@@ -43,12 +47,22 @@ TRAINING_STATE_FILE = "training_state.json"
 WEIGHTS_FILE = "pytorch_model.bin"
 
 
+#: HF's model prefixes: Llama's ``model.``, GPT-NeoX's ``gpt_neox.``
+HF_PREFIXES = ("model.", "gpt_neox.")
+
+
+def strip_hf_prefix(key: str) -> str:
+    """``key`` less its HF model prefix, if it has one."""
+    for prefix in HF_PREFIXES:
+        if key.startswith(prefix):
+            return key[len(prefix):]
+    return key
+
+
 def graft_base_weights(model: nn.Module, state_dict: Mapping[str, torch.Tensor]) -> nn.Module:
     """Copy the base weights of an HF-named ``state_dict`` into ``model`` in
     place; returns ``model``."""
-    src: Dict[str, torch.Tensor] = {
-        (k[len("model."):] if k.startswith("model.") else k): v for k, v in state_dict.items()
-    }
+    src: Dict[str, torch.Tensor] = {strip_hf_prefix(k): v for k, v in state_dict.items()}
     dropped = [k for k in src if is_lora_name(k)]
     params = dict(model.named_parameters())
     with torch.no_grad():

@@ -14,7 +14,8 @@ kernels cannot take raises; it never drops to the f32 kernels.  Here:
   :func:`flash_attention_bwd_dq` ``-> dq``: one wrapper per kernel.  A CPU
   tensor runs the plain twin of the same name with ``_plain``; a CUDA tensor
   launches the kernel or raises.  Each wrapper counts its launches in
-  ``.launches``.
+  ``.launches``, and in ``.wide_launches`` those the launcher reports on a
+  wide kernel (head_dim past 128).
 - :func:`flash_attention_delta` ``rowsum(dO * O)``, plain PyTorch on every
   device: both backward kernels read it instead of the forward's output.
 - :class:`FlashAttention`, the ``torch.autograd.Function`` over the three,
@@ -138,9 +139,10 @@ def _kernel_library():
     lib = _build.library("flash_attention")
     if not getattr(lib, "_relora_typed", False):
         vp, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.flash_attention_forward_launch.argtypes = [vp] * 5 + [i32] * 5 + [f32, i32, vp]
-        lib.flash_attention_bwd_dkdv_launch.argtypes = [vp] * 8 + [i32] * 5 + [f32, i32, vp]
-        lib.flash_attention_bwd_dq_launch.argtypes = [vp] * 7 + [i32] * 5 + [f32, i32, vp]
+        tail = [f32, i32, vp, ctypes.POINTER(i32)]  # scale, dtype, stream, launched_wide
+        lib.flash_attention_forward_launch.argtypes = [vp] * 5 + [i32] * 5 + tail
+        lib.flash_attention_bwd_dkdv_launch.argtypes = [vp] * 8 + [i32] * 5 + tail
+        lib.flash_attention_bwd_dq_launch.argtypes = [vp] * 7 + [i32] * 5 + tail
         for fn in ("forward", "bwd_dkdv", "bwd_dq"):
             getattr(lib, f"flash_attention_{fn}_launch").restype = i32
         lib.flash_attention_smem_bytes.argtypes = [i32, i32, i32]
@@ -218,16 +220,19 @@ def flash_attention_forward(
     lib, (B, S, N, n_kv, H), code = _check("forward", q, k, v)
     out = torch.empty_like(q)
     lse = torch.empty((B, N, S), dtype=torch.float32, device=q.device)
+    wide = ctypes.c_int(0)
     err = lib.flash_attention_forward_launch(
         ptr_arg(q), ptr_arg(k), ptr_arg(v), ptr_arg(out), ptr_arg(lse),
-        B, S, N, n_kv, H, float(scale), code, stream_arg(q),
+        B, S, N, n_kv, H, float(scale), code, stream_arg(q), ctypes.byref(wide),
     )
     _raise_on_error(lib, err, "flash_fwd_kernel")
     flash_attention_forward.launches += 1
+    flash_attention_forward.wide_launches += wide.value
     return out, lse
 
 
 flash_attention_forward.launches = 0
+flash_attention_forward.wide_launches = 0
 
 
 def flash_attention_bwd_dkdv(q, k, v, dout, lse, delta, scale: Optional[float] = None):
@@ -248,16 +253,20 @@ def flash_attention_bwd_dkdv(q, k, v, dout, lse, delta, scale: Optional[float] =
         raise ValueError(f"dout {dout.dtype} {tuple(dout.shape)} must match q")
     lib, (B, S, N, n_kv, H), code = _check("dkdv", q, k, v, dout, lse, delta)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
+    wide = ctypes.c_int(0)
     err = lib.flash_attention_bwd_dkdv_launch(
         ptr_arg(q), ptr_arg(k), ptr_arg(v), ptr_arg(dout), ptr_arg(lse), ptr_arg(delta),
         ptr_arg(dk), ptr_arg(dv), B, S, N, n_kv, H, float(scale), code, stream_arg(q),
+        ctypes.byref(wide),
     )
     _raise_on_error(lib, err, "flash_bwd_dkdv_kernel")
     flash_attention_bwd_dkdv.launches += 1
+    flash_attention_bwd_dkdv.wide_launches += wide.value
     return dk, dv
 
 
 flash_attention_bwd_dkdv.launches = 0
+flash_attention_bwd_dkdv.wide_launches = 0
 
 
 def flash_attention_bwd_dq(q, k, v, dout, lse, delta, scale: Optional[float] = None):
@@ -278,16 +287,19 @@ def flash_attention_bwd_dq(q, k, v, dout, lse, delta, scale: Optional[float] = N
         raise ValueError(f"dout {dout.dtype} {tuple(dout.shape)} must match q")
     lib, (B, S, N, n_kv, H), code = _check("dq", q, k, v, dout, lse, delta)
     dq = torch.empty_like(q)
+    wide = ctypes.c_int(0)
     err = lib.flash_attention_bwd_dq_launch(
         ptr_arg(q), ptr_arg(k), ptr_arg(v), ptr_arg(dout), ptr_arg(lse), ptr_arg(delta), ptr_arg(dq),
-        B, S, N, n_kv, H, float(scale), code, stream_arg(q),
+        B, S, N, n_kv, H, float(scale), code, stream_arg(q), ctypes.byref(wide),
     )
     _raise_on_error(lib, err, "flash_bwd_dq_kernel")
     flash_attention_bwd_dq.launches += 1
+    flash_attention_bwd_dq.wide_launches += wide.value
     return dq
 
 
 flash_attention_bwd_dq.launches = 0
+flash_attention_bwd_dq.wide_launches = 0
 
 
 class FlashAttention(torch.autograd.Function):

@@ -44,7 +44,7 @@ import torch
 from relora_tpu_torch import resolve_device
 from relora_tpu_torch.config.model import ModelConfig
 from relora_tpu_torch.core.relora import LoraSpec, is_lora_name
-from relora_tpu_torch.models.llama import LlamaForCausalLM
+from relora_tpu_torch.models.family import CausalLM, causal_lm_class
 from relora_tpu_torch.models.lora import LoRALinear
 
 Pool = List[Dict[str, torch.Tensor]]
@@ -67,8 +67,9 @@ def build_decode_model(
     attention_arm: str = "auto",
     lora: Optional[LoraSpec] = None,
     adapter_slots: int = 0,
-) -> LlamaForCausalLM:
-    """The serving model on ``device`` (parameters uninitialized: load a
+) -> CausalLM:
+    """The serving model of ``model_cfg``'s family (Llama or GPT-NeoX) on
+    ``device`` (parameters uninitialized: load a
     state dict or call ``models.params_util.init_params``).  ``lora=None``
     serves a merged, LoRA-free state dict; the checkpoint's ``LoraSpec``
     serves its factors unmerged, rewritten for decode as the JAX package
@@ -84,16 +85,18 @@ def build_decode_model(
             num_slots=adapter_slots if adapter_slots else lora.num_slots,
         )
     with torch.device("meta"):
-        model = LlamaForCausalLM(model_cfg, dtype=dtype, attention_arm=attention_arm, lora=lora)
+        model = causal_lm_class(model_cfg)(
+            model_cfg, dtype=dtype, attention_arm=attention_arm, lora=lora
+        )
     return model.to_empty(device=device).eval()
 
 
 class InferenceEngine:
     """Owns the paged decode model, its device and the pool layout.
 
-    ``params`` is a state dict of :class:`LlamaForCausalLM` (for instance
-    from :func:`relora_tpu_torch.models.convert.params_from_jax`) or an
-    already built model on ``device``.  ``dtype`` is the compute dtype;
+    ``params`` is a state dict of the config's model, Llama or GPT-NeoX
+    (for instance from :func:`relora_tpu_torch.models.convert.params_from_jax`),
+    or an already built model on ``device``.  ``dtype`` is the compute dtype;
     ``kv_dtype="bf16"`` stores the pool at it, ``"int8"`` stores codes plus
     per-``(page, kv_head)`` f32 scales.  ``lora`` (the checkpoint's spec)
     serves the factors unmerged; ``adapter_slots >= 2`` with it stacks them
@@ -176,8 +179,8 @@ class InferenceEngine:
         self.token_budget = token_budget or 0
         self.dtype = dtype
         self._lora = lora
-        self.draft_model: Optional[LlamaForCausalLM] = None
-        if isinstance(params, LlamaForCausalLM):
+        self.draft_model: Optional[CausalLM] = None
+        if isinstance(params, CausalLM):
             self.model = params.eval()
         else:
             self.model = build_decode_model(
@@ -416,7 +419,7 @@ class InferenceEngine:
             t.copy_(params[name])
         self.draft_model = draft
 
-    def _require_draft(self) -> LlamaForCausalLM:
+    def _require_draft(self) -> CausalLM:
         if self.draft_model is None:
             raise ValueError("no draft model loaded (call load_draft_params first)")
         return self.draft_model

@@ -1,7 +1,7 @@
 """Training orchestration: the update loop of ``relora_tpu/train/trainer.py``.
 
-Builds the model (LoRA on every attention and MLP projection when
-``use_peft``), initialises it from ``--seed``, splits trainable from frozen
+Builds the model of the config's family, Llama or GPT-NeoX / Pythia (LoRA
+on every attention and MLP projection when ``use_peft``), initialises it from ``--seed``, splits trainable from frozen
 parameters, builds AdamW and the schedule, and runs the loop: one update per
 ``(grad_accum, microbatch, seq)`` batch, a graceful stop at the update
 boundary after SIGTERM/SIGINT (``handle_preemption``), eval every
@@ -54,7 +54,7 @@ from relora_tpu_torch.config.training import TrainingConfig
 from relora_tpu_torch.core.optim import build_optimizer, reset_optimizer_state, zeroed_fraction
 from relora_tpu_torch.core.relora import LoraSpec, merge_and_reinit, set_trainable, split_param_counts
 from relora_tpu_torch.core.schedules import make_schedule
-from relora_tpu_torch.models.llama import LlamaForCausalLM
+from relora_tpu_torch.models.family import CausalLM, causal_lm_class
 from relora_tpu_torch.models.params_util import init_params
 from relora_tpu_torch.models.warm_start import STATE_SUBDIR, load_warm_start, warm_start_counters
 from relora_tpu_torch.train.resilience import PreemptionGuard
@@ -127,13 +127,15 @@ def refuse_unported(cfg: TrainingConfig) -> None:
 
 def build_model(
     model_cfg: ModelConfig, lora: Optional[LoraSpec], cfg: TrainingConfig, device
-) -> LlamaForCausalLM:
-    """The training model on ``device``: f32 parameters, compute in
-    ``cfg.dtype``, attention ``auto`` (the flash kernels on CUDA)."""
+) -> CausalLM:
+    """The training model of ``model_cfg``'s family (Llama or GPT-NeoX) on
+    ``device``: f32 parameters, compute in ``cfg.dtype``, attention
+    ``auto`` (the flash kernels on CUDA)."""
     if cfg.dtype not in _DTYPES:
         raise ValueError(f"dtype must be one of {sorted(_DTYPES)}, got {cfg.dtype!r}")
+    model_class = causal_lm_class(model_cfg)
     with torch.device(device):
-        return LlamaForCausalLM(
+        return model_class(
             model_cfg,
             dtype=_DTYPES[cfg.dtype],
             attention_arm="flash" if cfg.flash_attention and device.type == "cuda" else "auto",

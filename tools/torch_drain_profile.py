@@ -16,6 +16,9 @@ the busy time.  Extra flags go to the CLI:
     python3 tools/torch_drain_profile.py --packed
     python3 tools/torch_drain_profile.py --kv-dtype int8
     python3 tools/torch_drain_profile.py --checkpoint B --no-merge --adapter-dir D
+    python3 tools/torch_drain_profile.py --model_config pythia_1b   # the NeoX family
+
+``--model_config`` replaces llama_250m (the prompts are the same).
 
 ``--tenants`` drains chip_smoke.py's mixed-tenant traffic instead: a seeded
 llama_250m base and three tenant adapters written under ``build/chip_smoke/``,
@@ -67,7 +70,8 @@ def main(argv) -> int:
             return chip_smoke.tenant_drain(torch, engine, registry, requests, "--packed" in argv)[:2]
     else:
         init = [] if "--checkpoint" in argv else ["--random-init"]
-        args = ["--model_config", "llama_250m", *init, "--dtype", "bf16", "--max-batch", "8",
+        model = [] if "--model_config" in argv else ["--model_config", "llama_250m"]
+        args = [*model, *init, "--dtype", "bf16", "--max-batch", "8",
                 "--paged", "--max-new-tokens", "64", "--input-file", prompts, *argv]
 
         def drain():

@@ -27,7 +27,14 @@ are appended to the train phase's, e.g. the fused-LoRA and the int8 runs:
         --lora_fused true --lora_dropout 0
 
 A ``--warmed_up_model`` directory without a ``pytorch_model.bin`` gets one
-first: ``chip_smoke.write_warm_start``'s seeded full-rank llama_250m (f32).
+first: ``chip_smoke.write_warm_start``'s seeded full-rank model (f32; bf16
+for pythia_1b).  ``--model_config pythia_1b`` profiles ``chip_smoke.py``'s
+pythia train phase instead (pythia_1b at full width and depth, two 2 x 2048
+microbatches an update, the same corpus at 2048 tokens a sample):
+
+    python3 tools/torch_train_profile.py --model_config pythia_1b
+    python3 tools/torch_train_profile.py --model_config pythia_1b --lora_fused true \
+        --lora_dropout 0 --warmed_up_model build/warm_pythia_1b
 
 Needs a CUDA card.  Busy time is the union of kernel intervals on the
 device, so overlapping streams are not counted twice.
@@ -71,13 +78,22 @@ def main() -> int:
 
     work = os.path.join(REPO, "build", "chip_smoke")
     os.makedirs(work, exist_ok=True)
-    if "--warmed_up_model" in sys.argv:
-        warm = sys.argv[sys.argv.index("--warmed_up_model") + 1]
+    flags = sys.argv[1:]
+    model = flags[flags.index("--model_config") + 1] if "--model_config" in flags else "llama_250m"
+    if model not in ("llama_250m", chip_smoke.PYTHIA):
+        raise SystemExit(f"torch_train_profile: --model_config takes {chip_smoke.PYTHIA} only")
+    pythia = model == chip_smoke.PYTHIA
+    if "--warmed_up_model" in flags:
+        warm = flags[flags.index("--warmed_up_model") + 1]
         if not os.path.exists(os.path.join(warm, "pytorch_model.bin")):
-            chip_smoke.write_warm_start(torch, warm, torch.device("cuda"))
-    cfg = parse_train_args(
-        chip_smoke.TRAIN_ARGS + sys.argv[1:] + ["--megatron_dataset_config", chip_smoke.write_corpus(work)]
-    )
+            if pythia:
+                chip_smoke.write_warm_start(torch, warm, torch.device("cuda"),
+                                            model_config=chip_smoke.PYTHIA, dtype=torch.bfloat16)
+            else:
+                chip_smoke.write_warm_start(torch, warm, torch.device("cuda"))
+    base = chip_smoke.PYTHIA_TRAIN_ARGS if pythia else chip_smoke.TRAIN_ARGS
+    corpus = chip_smoke.write_corpus(work, seq_length=2048 if pythia else 512)
+    cfg = parse_train_args(base + flags + ["--megatron_dataset_config", corpus])
 
     def run(prof=None):
         trainer = Trainer(cfg)
@@ -118,7 +134,7 @@ def main() -> int:
     ms = steady[len(steady) // 2] * 1e3
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:15]
     print(json.dumps({
-        "extra_flags": sys.argv[1:],
+        "extra_flags": flags,
         "card": subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
             capture_output=True, text=True, check=True,
