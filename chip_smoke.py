@@ -139,7 +139,8 @@ Phases, in order; any failure raises and the script exits non-zero:
                a timing line of their own).
 12. int8_train — a seeded full-rank llama_250m ``pytorch_model.bin`` (f32)
                written under ``build/chip_smoke/``, then the train phase with
-               ``--quantize int8 --warmed_up_model DIR``: the train checks,
+               ``--quantize int8 --warmed_up_model DIR --save_dir`` (its final
+               checkpoint is phase nomerge's int8 base): the train checks,
                codes nonzero after the warm start and int8 after the merges
                at updates 4 and 7 (which move them), kernel 8 launched 7 x
                layers x (microbatches x updates + eval batches) times, every
@@ -192,6 +193,40 @@ Phases, in order; any failure raises and the script exits non-zero:
                slotted llama_250m at f32 with a mixed ``adapter_idx``, the
                kernel arm (kernel 5, the paged kernels) against the plain arm
                (the gathered composite, naive attention), compared on logits.
+   auto-arms — at llama_250m's and pythia_1b's projection shapes (r=128,
+               bf16; a bf16 base as the model passes it and an int8 one),
+               each arm of ``lora_matmul`` timed back to back (CUDA events
+               around the run, so the host's time counts where it sets the
+               pace; the median of three runs in turns): forward and
+               forward+backward at M = 4096, forward at M = 8 and 72 with
+               ``weights_static``; one line per case with the three times,
+               ``choose_arm``'s pick under the H100 model, and whether it was
+               the fastest arm it may pick (merged only with
+               ``weights_static``); first the host cost of one eager op back to back
+               (an in-place add, an 8 x 8 matmul: the model's launch term).
+   auto_train — the train phase with ``--lora_fused auto --lora_dropout 0``:
+               the train checks, every projection through the cost model,
+               the arm each took printed, and kernels 4, 6, 7 launched
+               exactly where it picked fused.
+   resume    — that run again with ``--save_dir W --save_every 3
+               --keep_checkpoints 2``, SIGTERM while update 5 runs (an
+               emergency ``model_5``), then ``--autoresume`` to update 9
+               across the merge and reset at 7: per-update losses equal to
+               auto_train's (every kernel on the path is deterministic),
+               saves at 3, 5, 9, ``model_5`` and ``model_9`` kept, the save
+               and restore seconds and the checkpoint's bytes printed.
+   nomerge   — kernel 4-int8 at M = 8 (a decode step) against its twin,
+               timed per layer beside it, the dequantize + cuBLAS chain and
+               the bound (the row ``fused_lora_int8_forward@decode``, whose
+               launches are the unmerged int8 drains'); then resume's
+               ``model_9`` (a bf16 base) and int8_train's final
+               checkpoint (an int8 base) each drained by ``serve_cli
+               --checkpoint C`` merged, then ``--no-merge`` sequential and
+               ``--packed`` (every projection through the cost model): the
+               first forward's logits within 5e-2 of the merged engine's
+               (relative to max(1, max|logit|)), greedy agreement and tokens/s
+               beside the merged drain's, the fused kernels launched exactly
+               where the model picked fused, the paged kernel launched.
 18. pythia-drains — the GPT-NeoX family: ``serve_cli --model_config
                pythia_1b --random-init --dtype bf16 --max-batch 8 --paged``
                (full width and depth) on phase 4's 16 prompts, 64 new tokens,
@@ -224,6 +259,8 @@ Phases, in order; any failure raises and the script exits non-zero:
                arm against plain arm) and f32-adapters (a slotted step with a
                mixed ``adapter_idx`` through kernel 5, seeded factors in each
                slot), each printed with ``@pythia_1b``.
+22. auto_train@pythia_1b — the pythia train phase with ``--lora_fused auto
+               --lora_dropout 0``, checked as auto_train.
 
 ``python3 chip_smoke.py --ab DIR [--train [FLAGS...] | --grouped | --lora |
 --tenants | --paged | --drains | --sass]`` times another checkout's package instead
@@ -234,7 +271,8 @@ Output: a forward+backward timing line, one line per drain (plain and
 spec), the f32 spec line, a train line, a
 LoRA timing line per model, a fused-train line, an int8 timing line per
 model, the int8 train lines, a grouped timing line, one line per adapter
-drain, one line per pythia drain, the two pythia train lines, a
+drain, the auto-arms lines, the auto_train and resume lines, one line per
+unmerged drain, one line per pythia drain, the three pythia train lines, a
 ``{"kernels": [...]}`` line, the card's ``nvidia-smi
 --query-gpu=name,power.limit`` line, and last ``{"ok": true, "device":
 {...}}``.  Without CUDA, or without the package beside it, it exits non-zero
@@ -245,6 +283,7 @@ from __future__ import annotations
 
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -1542,6 +1581,41 @@ class GraftWatch:
         return out
 
 
+class ArmWatch:
+    """Wraps ``lora_dispatch.choose_arm`` to count the arm ``lora_matmul(arm=
+    "auto")`` takes per call: ``{(K, N, backward, arm): calls}``."""
+
+    def __init__(self):
+        from relora_tpu_torch.ops import lora_dispatch
+
+        self.module, self.real = lora_dispatch, lora_dispatch.choose_arm
+        self.calls = {}
+
+    def __enter__(self):
+        self.module.choose_arm = self._choose
+        return self
+
+    def __exit__(self, *exc):
+        self.module.choose_arm = self.real
+
+    def _choose(self, M, K, N, r, *args, **kwargs):
+        arm = self.real(M, K, N, r, *args, **kwargs)
+        key = (K, N, bool(kwargs.get("backward")), arm)
+        self.calls[key] = self.calls.get(key, 0) + 1
+        return arm
+
+    def count(self, arm, backward=None):
+        return sum(n for (_, _, bwd, a), n in self.calls.items()
+                   if a == arm and backward in (None, bwd))
+
+    def summary(self):
+        """``{"KxN fwd|fwd_bwd": {arm: calls}}``, printable."""
+        out = {}
+        for (K, N, bwd, arm), n in sorted(self.calls.items()):
+            out.setdefault(f"{K}x{N} {'fwd_bwd' if bwd else 'fwd'}", {})[arm] = n
+        return out
+
+
 def train(torch, data_config, label="train", extra=(), base_args=TRAIN_ARGS):
     """Phases train, fused-train, int8_train, int8_fused_train and the
     pythia train phases: ``relora_tpu_torch.main`` on the card over
@@ -1561,10 +1635,12 @@ def train(torch, data_config, label="train", extra=(), base_args=TRAIN_ARGS):
     argv = list(base_args) + list(extra)
     model_name = argv[argv.index("--model_config") + 1]
     cfg = load_model_config(model_name)
-    fused = "--lora_fused" in extra
+    flag = dict(zip(argv, argv[1:]))
+    fused = flag.get("--lora_fused", "false") == "true"
+    auto = flag.get("--lora_fused") == "auto"
     int8 = "--quantize" in extra
     torch.cuda.reset_peak_memory_stats()
-    with MergeWatch(torch) as watch, GraftWatch(torch) as graft:
+    with MergeWatch(torch) as watch, GraftWatch(torch) as graft, ArmWatch() as arms:
         result = train_main.main(argv + ["--megatron_dataset_config", data_config])
     launches = {n: c.launches for n, c in counters.items()}
     tc = {n: counters[n].tc_launches for n in TC_NAMES}
@@ -1576,17 +1652,24 @@ def train(torch, data_config, label="train", extra=(), base_args=TRAIN_ARGS):
     projections = 7 if cfg.family == "llama" else 4  # LoRA projections a layer
     backward = layers * TRAIN_MICRO * TRAIN_UPDATES
     forward = backward + layers * result["eval_batches"]
+    # fused launches: every projection under --lora_fused true, the calls the
+    # cost model sent to the fused arm under auto (which never runs kernel 8)
+    fwd_fused = arms.count("fused") if auto else projections * forward if fused else 0
+    bwd_fused = arms.count("fused", backward=True) if auto else projections * backward if fused else 0
     want = {
         "flash_attention_forward": forward,
         "flash_attention_bwd_dkdv": backward,
         "flash_attention_bwd_dq": backward,
-        "fused_lora_forward": projections * forward if fused and not int8 else 0,
-        "fused_lora_bwd_dx": projections * backward if fused and not int8 else 0,
-        "fused_lora_bwd_dab": projections * backward if fused else 0,
-        "dequant_matmul": projections * forward if int8 and not fused else 0,
-        "fused_lora_int8_forward": projections * forward if int8 and fused else 0,
-        "fused_lora_int8_bwd_dx": projections * backward if int8 and fused else 0,
+        "fused_lora_forward": 0 if int8 else fwd_fused,
+        "fused_lora_bwd_dx": 0 if int8 else bwd_fused,
+        "fused_lora_bwd_dab": bwd_fused,
+        "dequant_matmul": projections * forward if int8 and not (fused or auto) else 0,
+        "fused_lora_int8_forward": fwd_fused if int8 else 0,
+        "fused_lora_int8_bwd_dx": bwd_fused if int8 else 0,
     }
+    if auto and sum(arms.calls.values()) != projections * forward:
+        raise AssertionError(f"{label}: {sum(arms.calls.values())} projections took the cost "
+                             f"model, expected {projections * forward}")
     merges_at = [r["update_step"] for a, r in zip([None] + records, records)
                  if a is not None and r["n_lora_restarts"] > a["n_lora_restarts"]]
     resets_at = [r["update_step"] for a, r in zip([None] + records, records)
@@ -1602,6 +1685,8 @@ def train(torch, data_config, label="train", extra=(), base_args=TRAIN_ARGS):
         "tc_launches": tc, "wide_launches": wide, "fit_seconds": result["fit_seconds"],
         "peak_gib": torch.cuda.max_memory_allocated() / 2**30, "losses": losses,
     }
+    if auto:
+        line["arms"] = arms.summary()
     if int8:
         line["int8_merges"] = watch.merges
     if graft.checked:
@@ -1630,7 +1715,7 @@ def train(torch, data_config, label="train", extra=(), base_args=TRAIN_ARGS):
                              f"nonzero int8 codes of {projections * layers} projections, moving them")
     if "--warmed_up_model" in extra and not int8 and graft.checked == 0:
         raise AssertionError(f"{label}: the warm start grafted no base parameter")
-    return launches
+    return launches, line
 
 
 def two_layer(model_name):
@@ -2830,13 +2915,313 @@ def f32_adapters(torch, device, tenants, model_name="llama_250m"):
             raise AssertionError(f"f32-adapters{tag} {name}: kernel arm and plain arm disagree")
 
 
+# auto-arms: the projections of each model, (K, N) -> names
+ARM_SHAPES = {
+    "llama_250m": (((768, 768), ("q_proj", "k_proj", "v_proj", "o_proj")),
+                   ((768, 2560), ("gate_proj", "up_proj")), ((2560, 768), ("down_proj",))),
+    PYTHIA: (((2048, 6144), ("query_key_value",)), ((2048, 2048), ("dense",)),
+             ((2048, 8192), ("dense_h_to_4h",)), ((8192, 2048), ("dense_4h_to_h",))),
+}
+# (mode, M, backward, weights_static, calls timed): a training forward (eval),
+# a training forward+backward, and serving's decode and packed-step forwards
+ARM_MODES = (("fwd", LORA_M, False, False, 20), ("fwd_bwd", LORA_M, True, False, 10),
+             ("decode", 8, False, True, 100), ("decode", 72, False, True, 100))
+
+
+def stream_ms(torch, fn, iters):
+    """ms per call of ``fn`` run ``iters`` times back to back, CUDA events
+    around the run: the device's time where it is the bottleneck, the host's
+    (Python, dispatch, launches) where that is, as a model's step meets it."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def launch_cost_us(torch, device):
+    """µs per call of a one-element in-place add and of an 8 x 8 bf16 matmul,
+    each run 2000 times back to back: what one more eager op costs a path
+    the host sets the pace of (the cost model's launch term)."""
+    t = torch.zeros(1, device=device)
+    m = torch.zeros(8, 8, device=device, dtype=torch.bfloat16)
+    return {"add": stream_ms(torch, lambda: t.add_(1.0), 2000) * 1e3,
+            "matmul": stream_ms(torch, lambda: torch.matmul(m, m), 2000) * 1e3}
+
+
+def auto_arms(torch, device, model_name):
+    """Phase auto-arms: at each of ``model_name``'s projection shapes, r = 128,
+    bf16, over a bf16 base (the transposed view the model passes) and an
+    int8 one (the codes' view and scales), each arm of ``lora_matmul`` timed
+    by :func:`stream_ms` in every mode of :data:`ARM_MODES`, beside
+    ``choose_arm``'s pick under the H100 model and the fastest arm it may
+    pick (merged only for static weights).  Prints one line per (shape, base,
+    mode); returns the entries."""
+    from relora_tpu_torch.ops.lora_dispatch import ARMS, candidate_arms, choose_arm, lora_matmul
+    from relora_tpu_torch.ops.quant import quantize_int8
+
+    entries = []
+    for (K, N), names in ARM_SHAPES[model_name]:
+        for mode, M, backward, static, iters in ARM_MODES:
+            x, w, a, b, gy = make_lora_case(torch, device, M, K, N, LORA_R, "bf16", seed=7)
+            q_nk, qs = quantize_int8(w.t())
+            for base_kind, base in (("bf16", w), ("int8", (q_nk.t(), qs))):
+                leaves = [t.detach().requires_grad_(backward) for t in (x, a, b)]
+
+                def call(arm):
+                    if not backward:
+                        with torch.no_grad():
+                            return lora_matmul(*leaves[:1], base, *leaves[1:], 0.25, arm=arm,
+                                               weights_static=static)
+                    y = lora_matmul(leaves[0], base, leaves[1], leaves[2], 0.25, arm=arm)
+                    return torch.autograd.grad(y, leaves, gy)
+
+                runs = {arm: [] for arm in ARMS}
+                for _ in range(3):  # in turns, the median of three runs each
+                    for arm in ARMS:
+                        runs[arm].append(stream_ms(torch, lambda: call(arm), iters))
+                ms = {arm: sorted(t)[1] for arm, t in runs.items()}
+                pick = choose_arm(M, K, N, LORA_R, 2, 1 if base_kind == "int8" else 2,
+                                  weights_static=static, backward=backward)
+                fastest = min(candidate_arms(weights_static=static), key=ms.get)
+                entry = {"auto_arms": model_name, "K": K, "N": N, "projections": list(names),
+                         "base": base_kind, "mode": mode, "M": M, "ms": ms, "pick": pick,
+                         "fastest": fastest, "pick_is_fastest": pick == fastest,
+                         "pick_over_fastest": ms[pick] / ms[fastest]}
+                print(json.dumps(entry))
+                entries.append(entry)
+            torch.cuda.empty_cache()
+    return entries
+
+
+# the first forward of an unmerged drain against the merged drain's of the
+# same checkpoint: bf16 logits after 24 layers, where the merged weight
+# W + s·A@B is rounded to bf16 once and the unmerged arms round x@W and the
+# branch apart (each a few bf16 ulps a layer), relative to max(1, max|logit|)
+NOMERGE_LOGIT_TOL = 5e-2
+
+
+def first_forward_logits(torch, engine, prompt):
+    """The logits of ``prompt``'s first prefill chunk through ``engine`` on a
+    fresh pool, as a drain's first forward computes them."""
+    import numpy as np
+
+    ids = np.zeros((1, engine.chunk_size), np.int32)
+    part = prompt[: engine.chunk_size]
+    ids[0, : len(part)] = part
+    table = np.arange(1, engine.block_table_width + 1, dtype=np.int32)[None]
+    with torch.inference_mode():
+        logits, _ = engine.prefill_chunk(ids, 0, engine.init_pool(), table)
+    return logits[0, : len(part)].float()
+
+
+def nomerge_drains(torch, prompts, checkpoints):
+    """Phase nomerge: each checkpoint of ``checkpoints`` (``{base: dir}``, a
+    bf16 and an int8 base) drained by ``serve_cli --checkpoint C`` merged,
+    then ``--no-merge`` sequential and ``--packed`` (every projection through
+    ``lora_matmul(arm="auto")``): the picks printed, the fused kernels'
+    launches equal to the fused picks, the paged kernel launched, the first
+    forward's logits held to the merged engine's within NOMERGE_LOGIT_TOL,
+    greedy tokens' agreement and tokens/s printed beside the merged drain's.
+    Returns the fused kernels' launches."""
+    from relora_tpu_torch import serve_cli
+    from relora_tpu_torch.ops import attention as A
+    from relora_tpu_torch.ops import lora_matmul as LM
+
+    common = ["--model_config", "llama_250m", "--dtype", "bf16", "--max-batch", "8", "--paged",
+              "--max-new-tokens", "64", "--input-file", prompts]
+    first = read_prompts(prompts)[0]
+    wrappers = {"fused_lora_forward": LM.fused_lora_forward,
+                "fused_lora_int8_forward": LM.fused_lora_int8_forward,
+                "paged_decode_attention": A.paged_decode_attention,
+                "packed_paged_attention": A.packed_paged_attention}
+    fused_launches = {"fused_lora_forward": 0, "fused_lora_int8_forward": 0}
+    for base, ckpt in checkpoints.items():
+        merged, merged_s, sched = serve_cli.drain(common + ["--checkpoint", ckpt])
+        merged_n = sum(len(c.tokens) for c in merged.values())
+        want = first_forward_logits(torch, sched.engine, first)
+        del sched
+        torch.cuda.empty_cache()
+        for label, extra, kernel in (("nomerge", [], "paged_decode_attention"),
+                                     ("nomerge_packed", ["--packed"], "packed_paged_attention")):
+            for w in wrappers.values():
+                w.launches = 0
+            with ArmWatch() as arms:
+                completions, seconds, sched = serve_cli.drain(
+                    common + ["--checkpoint", ckpt, "--no-merge"] + extra)
+            launches = {n: w.launches for n, w in wrappers.items()}
+            got = first_forward_logits(torch, sched.engine, first)
+            del sched
+            torch.cuda.empty_cache()
+            err = (got - want).abs().max().item() / max(1.0, want.abs().max().item())
+            tokens = [completions[u].tokens for u in sorted(completions)]
+            n = sum(len(t) for t in tokens)
+            same = sum(a == b for u, t in zip(sorted(merged), tokens)
+                       for a, b in zip(t, merged[u].tokens))
+            fused_kernel = "fused_lora_int8_forward" if base == "int8" else "fused_lora_forward"
+            line = {"drain": f"{label}_{base}", "checkpoint": os.path.basename(ckpt), "tokens": n,
+                    "seconds": seconds, "tokens_per_s": n / seconds,
+                    "merged_tokens_per_s": merged_n / merged_s,
+                    "greedy_agreement": same / max(1, merged_n), "first_logits_rel_err": err,
+                    "tol": NOMERGE_LOGIT_TOL, "arms": arms.summary(), "launches": launches}
+            print(json.dumps(line))
+            if len(tokens) != 16 or not all(0 <= tok < 32100 for t in tokens for tok in t):
+                raise AssertionError(f"{line['drain']}: malformed completions")
+            if not err <= NOMERGE_LOGIT_TOL:
+                raise AssertionError(f"{line['drain']}: first forward {err:.3e} from the merged "
+                                     f"engine's, beyond {NOMERGE_LOGIT_TOL}")
+            if launches[kernel] == 0 or not arms.calls:
+                raise AssertionError(f"{line['drain']}: {kernel} or the cost model never ran")
+            other = "fused_lora_forward" if base == "int8" else "fused_lora_int8_forward"
+            if launches[fused_kernel] != arms.count("fused") or launches[other]:
+                raise AssertionError(f"{line['drain']}: fused launches {launches}, "
+                                     f"{arms.count('fused')} fused picks")
+            fused_launches[fused_kernel] += launches[fused_kernel]
+    return fused_launches
+
+
+DECODE_M = 8  # a sequential decode step's rows (--max-batch 8)
+
+
+def int8_decode_row(torch, device):
+    """Kernel 4-int8 where the unmerged int8 drains run it most: M = DECODE_M
+    rows at llama_250m's three projection shapes, r = 128, bf16, held to its
+    twin (relative to max(1, max|twin|), LORA_TOL["bf16"]) and timed beside
+    it, the dequantize + cuBLAS chain and the bound, summed per decoder layer
+    into the row ``fused_lora_int8_forward@decode``."""
+    import torch.nn.functional as F
+
+    from relora_tpu_torch.ops import lora_matmul as LM
+    from relora_tpu_torch.ops.quant import dequantize_int8
+
+    name = "fused_lora_int8_forward"
+    row = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "t_bytes": 0.0, "t_ops": 0.0}
+    worst = 0.0
+    with torch.no_grad():
+        for K, N, count in LORA_SHAPES:
+            x, q, qs, a, b, _ = make_int8_case(torch, device, DECODE_M, K, N, LORA_R, "bf16", seed=98)
+            q_nk, s = q.t(), 0.25
+            got, want = LM.fused_lora_int8_forward(x, q, qs, a, b, s)[0], LM.fused_lora_int8_forward_plain(
+                x, q, qs, a, b, s)[0]
+            err, rel, finite = _rel_err([(got, want)])
+            if not (finite and rel <= LORA_TOL["bf16"]):
+                raise AssertionError(f"{name} at M={DECODE_M}, K={K}, N={N}: {rel:.3e} from its twin")
+            worst = max(worst, err)
+            t_bytes, t_ops = int8_bound(DECODE_M, K, N, LORA_R, 2, name)
+            for key, v in (("ms", time_ms(torch, lambda: LM.fused_lora_int8_forward(x, q, qs, a, b, s))),
+                           ("plain_ms", time_ms(torch, lambda: LM.fused_lora_int8_forward_plain(
+                               x, q, qs, a, b, s))),
+                           ("library_ms", time_ms(torch, lambda: F.linear(
+                               x, dequantize_int8(q_nk, qs, x.dtype)) + ((x @ a) @ b) * s)),
+                           ("t_bytes", t_bytes), ("t_ops", t_ops)):
+                row[key] += count * v
+    line = {"name": f"{name}@decode", "route": "cuda", "source": "relora_tpu_torch/csrc/lora_matmul.cu",
+            "replaces": f"relora_tpu/ops/{INT8_LINES[name]}", "launches": 0, "max_abs_err": worst,
+            "ms": row["ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": max(row["t_bytes"], row["t_ops"]),
+            "bound_by": "bytes" if row["t_bytes"] >= row["t_ops"] else "operations",
+            "library_ms": row["library_ms"]}
+    print(json.dumps({"int8_decode_timing": f"M={DECODE_M}, ms per decoder layer", **line}))
+    return line
+
+
+RESUME_ARGS = ["--lora_fused", "auto", "--lora_dropout", "0"]
+RESUME_CUT = 5  # the update SIGTERM arrives in
+# resumed against straight per-update losses: every kernel on the path is
+# deterministic (kernel 3 and kernels 4, 6, 7 write each output from one
+# block, no atomics; cuBLAS on one stream), so the runs must agree bit for bit
+RESUME_TOL = 0.0
+
+
+def resume(torch, data_config, straight, work):
+    """Phase resume: the auto_train phase's run (``straight``: its line)
+    again with ``--save_dir W --save_every 3 --keep_checkpoints 2``, SIGTERM
+    while update RESUME_CUT runs (an emergency ``model_5``), then
+    ``--autoresume`` on to update 9 across the merge and reset at 7; the
+    per-update losses held to the straight run's within RESUME_TOL, the
+    checkpoints kept, the save and restore seconds and the checkpoint's
+    bytes printed.  Returns the final checkpoint's directory."""
+    import signal
+
+    from relora_tpu_torch import main as train_main
+    from relora_tpu_torch.train import trainer as trainer_mod
+
+    save_dir = os.path.join(work, "resume_llama_250m")
+    shutil.rmtree(save_dir, ignore_errors=True)
+    argv = TRAIN_ARGS + RESUME_ARGS + ["--save_dir", save_dir, "--save_every", "3",
+                                       "--keep_checkpoints", "2",
+                                       "--megatron_dataset_config", data_config]
+    real = {"seeds": trainer_mod.dropout_seeds, "save": trainer_mod.save_checkpoint,
+            "restore": trainer_mod.Trainer._restore}
+    saves, restores = [], []
+
+    def seeds(seed, update_step, n):
+        if update_step == RESUME_CUT - 1:
+            os.kill(os.getpid(), signal.SIGTERM)
+        return real["seeds"](seed, update_step, n)
+
+    def save(save_dir, step, *args, **kwargs):
+        t0 = time.perf_counter()
+        path = real["save"](save_dir, step, *args, **kwargs)
+        size = sum(os.path.getsize(os.path.join(path, f)) for f in os.listdir(path))
+        saves.append({"step": step, "seconds": time.perf_counter() - t0, "bytes": size})
+        return path
+
+    def restore(self, path, optimizer=True):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        real["restore"](self, path, optimizer)
+        torch.cuda.synchronize()
+        restores.append({"path": os.path.basename(path), "seconds": time.perf_counter() - t0})
+
+    trainer_mod.save_checkpoint, trainer_mod.Trainer._restore = save, restore
+    try:
+        trainer_mod.dropout_seeds = seeds
+        cut = train_main.main(argv)
+        trainer_mod.dropout_seeds = real["seeds"]
+        resumed = train_main.main(argv + ["--autoresume", "true"])
+    finally:
+        trainer_mod.dropout_seeds = real["seeds"]
+        trainer_mod.save_checkpoint, trainer_mod.Trainer._restore = real["save"], real["restore"]
+    losses = [r["loss"] for r in cut["records"] + resumed["records"]]
+    diff = max(abs(a - b) for a, b in zip(losses, straight["losses"]))
+    kept = sorted(d for d in os.listdir(save_dir) if d.startswith("model_"))
+    line = {"resume": "llama_250m", "cut_at": cut["update_step"], "preempted": cut["preempted"],
+            "resumed_to": resumed["update_step"], "n_lora_restarts": resumed["n_lora_restarts"],
+            "n_optimizer_resets": resumed["n_optimizer_resets"], "kept": kept, "saves": saves,
+            "restores": restores, "max_loss_diff": diff, "tol": RESUME_TOL, "losses": losses}
+    print(json.dumps(line))
+    if not (cut["preempted"] and cut["update_step"] == RESUME_CUT):
+        raise AssertionError(f"resume: the cut run stopped at {cut['update_step']}, "
+                             f"preempted={cut['preempted']}")
+    if [s["step"] for s in saves] != [3, RESUME_CUT, TRAIN_UPDATES] or kept != [
+            f"model_{RESUME_CUT}", f"model_{TRAIN_UPDATES}"]:
+        raise AssertionError(f"resume: saves {saves}, kept {kept}")
+    if [r["path"] for r in restores] != [f"model_{RESUME_CUT}"]:
+        raise AssertionError(f"resume: restored {restores}")
+    if (resumed["update_step"], resumed["n_lora_restarts"], resumed["n_optimizer_resets"]) != (
+            TRAIN_UPDATES, 2, 2):
+        raise AssertionError(f"resume: the resumed run ended at {resumed['update_step']} with "
+                             f"{resumed['n_lora_restarts']} merges")
+    if len(losses) != TRAIN_UPDATES or not diff <= RESUME_TOL:
+        raise AssertionError(f"resume: losses {losses} against the straight run's "
+                             f"{straight['losses']}: {diff} beyond {RESUME_TOL}")
+    return os.path.join(save_dir, f"model_{TRAIN_UPDATES}")
+
+
 def take_launches(rows, launches, model=""):
     """Each row of ``rows`` named ``kernel`` (``model`` empty) or
-    ``kernel@model`` takes ``launches[kernel]``; other rows are left alone."""
+    ``kernel@model`` adds ``launches[kernel]``; other rows are left alone."""
     for row in rows:
         kernel, _, of = row["name"].partition("@")
         if of == model and kernel in launches:
-            row["launches"] = launches[kernel]
+            row["launches"] += launches[kernel]
 
 
 def main() -> int:
@@ -2891,7 +3276,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     f32_spec_drains(torch, repeat, work)
     torch.cuda.empty_cache()
-    launches = train(torch, write_corpus(work))
+    launches, _ = train(torch, write_corpus(work))
     take_launches(flash_rows, launches)
     rows += flash_rows
     torch.cuda.empty_cache()
@@ -2899,8 +3284,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     lora_rows = check_lora_kernels(torch, device)
     torch.cuda.empty_cache()
-    launches = train(torch, write_corpus(work), "fused_train",
-                     ["--lora_fused", "true", "--lora_dropout", "0"])
+    launches, _ = train(torch, write_corpus(work), "fused_train",
+                        ["--lora_fused", "true", "--lora_dropout", "0"])
     take_launches(lora_rows, launches)
     rows += lora_rows
     torch.cuda.empty_cache()
@@ -2910,11 +3295,13 @@ def main() -> int:
     torch.cuda.empty_cache()
     warm = write_warm_start(torch, os.path.join(work, "warm_llama_250m"), device)
     int8 = ["--quantize", "int8", "--warmed_up_model", warm]
-    launches = train(torch, write_corpus(work), "int8_train", int8)
+    int8_dir = os.path.join(work, "int8_llama_250m")
+    shutil.rmtree(int8_dir, ignore_errors=True)
+    launches, _ = train(torch, write_corpus(work), "int8_train", int8 + ["--save_dir", int8_dir])
     int8_rows[0]["launches"] = launches["dequant_matmul"]
     torch.cuda.empty_cache()
-    launches = train(torch, write_corpus(work), "int8_fused_train",
-                     int8 + ["--lora_fused", "true", "--lora_dropout", "0"])
+    launches, _ = train(torch, write_corpus(work), "int8_fused_train",
+                        int8 + ["--lora_fused", "true", "--lora_dropout", "0"])
     for row in int8_rows[1:]:
         row["launches"] = launches[row["name"]]
     rows += int8_rows
@@ -2935,10 +3322,31 @@ def main() -> int:
     f32_adapters(torch, device, tenants)
     torch.cuda.empty_cache()
 
+    # the cost model: its picks against each arm's time, --lora_fused auto
+    # training, a run cut by SIGTERM and resumed, and unmerged serving of a
+    # bf16 and an int8 base through its picks
+    print(json.dumps({"launch_us": launch_cost_us(torch, device)}))
+    for model_name in ("llama_250m", PYTHIA):
+        auto_arms(torch, device, model_name)
+        torch.cuda.empty_cache()
+    corpus = write_corpus(work)
+    launches, auto_line = train(torch, corpus, "auto_train", RESUME_ARGS)
+    take_launches(lora_rows, launches)
+    torch.cuda.empty_cache()
+    trained = resume(torch, corpus, auto_line, work)
+    torch.cuda.empty_cache()
+    decode_row = int8_decode_row(torch, device)
+    launches = nomerge_drains(torch, prompts, {
+        "bf16": trained, "int8": os.path.join(int8_dir, f"model_{TRAIN_UPDATES}")})
+    decode_row["launches"] = launches.pop("fused_lora_int8_forward")
+    take_launches(rows, launches)
+    rows.append(decode_row)
+    torch.cuda.empty_cache()
+
     # the NeoX family at pythia_1b: its drains, its two train phases, its f32 checks
     take_launches(paged_rows.values(), pythia_drains(torch, prompts), PYTHIA)
     corpus = write_corpus(work, seq_length=2048)
-    take_launches(flash_rows, train(torch, corpus, "pythia_train", base_args=PYTHIA_TRAIN_ARGS),
+    take_launches(flash_rows, train(torch, corpus, "pythia_train", base_args=PYTHIA_TRAIN_ARGS)[0],
                   PYTHIA)
     torch.cuda.empty_cache()
     warm = write_warm_start(torch, os.path.join(work, f"warm_{PYTHIA}"), device,
@@ -2947,7 +3355,10 @@ def main() -> int:
     take_launches(lora_rows, train(
         torch, corpus, "pythia_fused_train",
         ["--lora_fused", "true", "--lora_dropout", "0", "--warmed_up_model", warm],
-        base_args=PYTHIA_TRAIN_ARGS), PYTHIA)
+        base_args=PYTHIA_TRAIN_ARGS)[0], PYTHIA)
+    torch.cuda.empty_cache()
+    take_launches(lora_rows, train(torch, corpus, f"auto_train@{PYTHIA}", RESUME_ARGS,
+                                   base_args=PYTHIA_TRAIN_ARGS)[0], PYTHIA)
     for phase in (f32_train, f32_fused, f32_comparison):
         torch.cuda.empty_cache()
         phase(torch, device, PYTHIA)
@@ -3206,7 +3617,8 @@ def ab(argv) -> int:
     dK/dV, dQ, the backward pair, and forward+backward through autograd),
     100 launches each.  ``--train``: the train phase (plus FLAGS) run twice,
     each run's median ms per update of updates 2-9 and its per-update
-    losses.  ``--grouped``: kernel 5 per call and per layer
+    losses; with ``--model_config pythia_1b`` among FLAGS, the pythia train
+    phase's run.  ``--grouped``: kernel 5 per call and per layer
     (:func:`ab_grouped`).  ``--lora``: kernels 6, 6-int8 and the controls 4,
     4-int8, 7 and 8 per call and per layer (:func:`ab_lora`).  ``--tenants``: the
     tenant drains' tokens/s, idle share and kernel 5's share
@@ -3232,7 +3644,10 @@ def ab(argv) -> int:
 
         work = os.path.join(REPO, "build", "chip_smoke")
         os.makedirs(work, exist_ok=True)
-        args = TRAIN_ARGS + argv[3:] + ["--megatron_dataset_config", write_corpus(work)]
+        pythia = PYTHIA in argv[3:]  # --model_config pythia_1b: the pythia train phase's run
+        base = PYTHIA_TRAIN_ARGS if pythia else TRAIN_ARGS
+        corpus = write_corpus(work, seq_length=2048 if pythia else 512)
+        args = base + argv[3:] + ["--megatron_dataset_config", corpus]
         out["flags"] = argv[3:]
         for run in ("warm_", ""):
             records = train_main.main(args)["records"]

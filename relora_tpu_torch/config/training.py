@@ -11,6 +11,7 @@ and refused by the trainer with ``NotImplementedError``.
 from __future__ import annotations
 
 import dataclasses
+import json
 import logging
 import os
 from dataclasses import dataclass, field
@@ -62,8 +63,8 @@ class TrainingConfig:
     relora: Optional[int] = None  # merge-and-reinit every N update steps
     train_scaling: bool = False
     # LoRA composite execution: "false" = historical unfused path, "true" =
-    # the fused CUDA kernels (ops/lora_matmul), "auto" = per-shape dispatch
-    # (not ported: the trainer refuses it).  A string (not bool) so the CLI
+    # the fused CUDA kernels (ops/lora_matmul), "auto" = the cost model's
+    # per-shape pick (ops/lora_dispatch).  A string (not bool) so the CLI
     # accepts "auto" — maps onto LoraSpec.fused.
     lora_fused: str = "false"
     reset_optimizer_on_relora: bool = True
@@ -371,6 +372,13 @@ class TrainingConfig:
         d.pop("_finalized", None)
         d["skip_batches"] = sorted(d.get("skip_batches") or ())
         return d
+
+    def save_json(self, path: str) -> None:
+        """Persist the resolved config as JSON, the port's counterpart of
+        ``save_dir/training_config.yaml`` (the card's machine has no PyYAML);
+        the trainer's batch-size guard reads it back on resume."""
+        with open(path, "w") as f:
+            json.dump(self.to_dict(), f, indent=2)
 
     def save(self, path: str) -> None:
         """Persist resolved config (parity: save_dir/training_config.yaml)."""

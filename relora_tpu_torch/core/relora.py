@@ -41,10 +41,11 @@ class LoraSpec:
     the same fields, so a ``relora_config.json`` sidecar written by either
     package loads into either.
 
-    ``quantize="nf4"`` and ``fused="auto"`` are accepted for parity and
-    raise where a module would use them: those paths are not ported yet.
+    ``quantize="nf4"`` is accepted for parity and raises where a module
+    would use it: that path is not ported yet.
     ``quantize="int8"`` stores each frozen base as int8 codes and scales;
-    ``fused=True`` routes each projection through the fused LoRA kernels;
+    ``fused=True`` routes each projection through the fused LoRA kernels,
+    ``fused="auto"`` through the cost model's pick of an arm;
     ``num_slots > 0`` stacks the factors as multi-tenant adapter slots
     served through the grouped kernel.  ``use_double_quant`` (nf4 only) is
     carried for the sidecar; ``weights_static`` is the serving hint the

@@ -12,10 +12,11 @@ is the trainable scaling (``scale = tanh(lora_s)``).  ``bias=True`` adds a
 ``bias`` ``(out,)`` (the JAX module's ``use_bias``, zero at init, never on a
 ``lora_only`` layer), cast to the compute dtype and added where the JAX
 module adds it: after the base product and before the LoRA branch on the
-unfused arms (dense and int8), after the whole composite on the fused and
-grouped arms.  It trains; merges and resets never touch it.  Parameters are stored
-in ``param_dtype`` (the base in bf16 under ``base_dtype="bf16"``); every
-matmul runs in the compute ``dtype``, cast exactly where the JAX module casts.
+unfused arms (dense and int8), after the whole composite through the
+dispatcher and the grouped arms.  It trains; merges and resets never touch
+it.  Parameters are stored in ``param_dtype`` (the base in bf16 under
+``base_dtype="bf16"``); every matmul runs in the compute ``dtype``, cast
+exactly where the JAX module casts.
 
 Dropout draws its mask from a generator seeded by the caller's
 ``dropout_seed``: the same seed draws the same mask, so a layer recomputed
@@ -23,11 +24,14 @@ under activation checkpointing reuses its forward's masks.  No seed means
 deterministic (eval), like the JAX module's ``deterministic=True``.
 
 ``LoraSpec(fused=True)`` routes the whole composite through
-``ops/lora_dispatch.lora_matmul(arm="fused")`` (the fused CUDA kernels), by
-the JAX module's rule (``relora_tpu/models/lora.py:117-126``): not for a
+``ops/lora_dispatch.lora_matmul(arm="fused")`` (the fused CUDA kernels), and
+``fused="auto"`` through ``lora_matmul(arm="auto")``, whose cost model picks
+the fused, ordered or merged arm per shape (merged only where the spec's
+``weights_static`` is set, as the serving engine sets it), by the JAX module's rule
+(``relora_tpu/models/lora.py:113-126``, ``:200-232``): not for a
 ``lora_only`` layer (branch only), and not while dropout is active (a seed
 and ``dropout > 0``: the branch input then differs from the base input), so
-training with dropout keeps the historical path and eval takes the kernels.
+training with dropout keeps the historical path and eval takes the dispatcher.
 
 ``LoraSpec(quantize="int8")`` stores the frozen base as ``weight_q`` ``(out,
 in)`` int8 codes and ``weight_scale`` ``(1, out)`` f32 per-output scales
@@ -97,10 +101,6 @@ class LoRALinear(nn.Module):
                 raise NotImplementedError(
                     f"a {lora.quantize} frozen base is not ported yet: see ROADMAP"
                 )
-            if lora.fused == "auto" and not lora.num_slots:
-                raise NotImplementedError(
-                    "fused='auto' (--lora_fused auto) needs the LoRA cost model, not ported yet: see ROADMAP"
-                )
         if bias and not (lora is not None and lora.lora_only and not lora.num_slots):
             self.bias = nn.Parameter(torch.zeros(out_features, dtype=param_dtype))
         else:
@@ -144,8 +144,8 @@ class LoRALinear(nn.Module):
         if spec is not None and spec.lora_only:
             return self._lora_branch(x, dropout_seed)
         dropout_active = spec is not None and spec.dropout > 0.0 and dropout_seed is not None
-        if spec is not None and spec.fused is True and not dropout_active:
-            return self._add_bias(self._fused(x))
+        if spec is not None and spec.fused in (True, "auto") and not dropout_active:
+            return self._add_bias(self._dispatched(x))
         if spec is not None and spec.quantize == "int8":
             y = dequant_matmul(x.to(self.dtype), self.weight_q.t(), self.weight_scale)
         else:
@@ -158,8 +158,9 @@ class LoRALinear(nn.Module):
     def _add_bias(self, y: torch.Tensor) -> torch.Tensor:
         return y if self.bias is None else y + self.bias.to(self.dtype)
 
-    def _fused(self, x: torch.Tensor) -> torch.Tensor:
-        """The composite through the fused arm (``relora_tpu/models/lora.py:200-232``):
+    def _dispatched(self, x: torch.Tensor) -> torch.Tensor:
+        """The composite through ``lora_matmul`` (``relora_tpu/models/lora.py:200-232``),
+        the fused arm for ``fused=True``, the cost model's pick for ``"auto"``:
         every operand in the compute dtype, the frozen base detached and
         passed as the ``(in, out)`` view of its ``(out, in)`` storage; an
         int8 base as the ``(in, out)`` view of its codes and its f32 scales."""
@@ -177,8 +178,9 @@ class LoRALinear(nn.Module):
             self.lora_a.to(self.dtype),
             self.lora_b.to(self.dtype),
             scale,
-            arm="fused",
+            arm="fused" if spec.fused is True else "auto",
             dtype=self.dtype,
+            weights_static=spec.weights_static,
         )
 
     def _grouped(self, x: torch.Tensor, adapter_idx: Optional[torch.Tensor]) -> torch.Tensor:

@@ -22,9 +22,14 @@ copies by name:
   mismatch ``ValueError``; other source keys (rotary buffers) are ignored,
   as ``hf_to_params`` reads by name.
 
-A directory holding ``state/`` (the JAX package's own checkpoint) raises
-``NotImplementedError``: checkpoints are not ported yet.  The file is read
-once, onto the CPU, and each tensor moves to its parameter's device.
+A port checkpoint directory (``params.pt``, ``train/checkpoint.py``) warm
+starts by the same graft, verified against its manifest first, as the JAX
+trainer warm-starts from a checkpoint's ``state/`` (``:642-663``): its names
+are the model's, and an int8 source's codes and scales go to an int8 target
+as they are.  A directory holding ``state/`` (the JAX package's own
+checkpoint) raises ``NotImplementedError``: the port reads only its own
+format.  The file is read once, onto the CPU, and each tensor moves to its
+parameter's device.
 """
 
 from __future__ import annotations
@@ -39,6 +44,7 @@ from torch import nn
 
 from relora_tpu_torch.core.relora import INT8_LEAVES, is_lora_name
 from relora_tpu_torch.ops.quant import quantize_int8
+from relora_tpu_torch.train import checkpoint as ckpt
 
 logger = logging.getLogger(__name__)
 
@@ -71,6 +77,14 @@ def graft_base_weights(model: nn.Module, state_dict: Mapping[str, torch.Tensor])
             if is_lora_name(name) or leaf == "weight_scale":
                 continue  # weight_scale is written with its weight_q
             key = name[: -len("_q")] if leaf == "weight_q" else name
+            if leaf in INT8_LEAVES and key not in src and name in src:
+                # an int8 source (a port checkpoint): codes and scales as they are
+                for part in (name, f"{name[: -len('_q')]}_scale"):
+                    if src[part].shape != params[part].shape:
+                        raise ValueError(f"shape mismatch for {part}: {tuple(params[part].shape)} "
+                                         f"vs {tuple(src[part].shape)}")
+                    params[part].copy_(src[part].to(params[part].device))
+                continue
             if key not in src:
                 raise KeyError(f"warm start: the source has no {key!r} for the model's {name!r}")
             value = src[key]
@@ -93,16 +107,23 @@ def graft_base_weights(model: nn.Module, state_dict: Mapping[str, torch.Tensor])
 
 
 def load_warm_start(model: nn.Module, path: str) -> nn.Module:
-    """Graft ``path/pytorch_model.bin`` into ``model``."""
-    if os.path.isdir(os.path.join(path, STATE_SUBDIR)):
+    """Graft the params of the port checkpoint at ``path``, else
+    ``path/pytorch_model.bin``, into ``model``."""
+    if os.path.exists(os.path.join(path, ckpt.PARAMS_FILE)):
+        ok, reason = ckpt.verify_checkpoint(path)
+        if not ok:
+            raise ValueError(f"warmed_up_model {path!r} is a corrupt checkpoint: {reason}")
+        state_dict = ckpt.restore_params_host(path)
+    elif os.path.isdir(os.path.join(path, STATE_SUBDIR)):
         raise NotImplementedError(
-            f"warmed_up_model {path!r} is a checkpoint (state/): checkpoints are not ported "
-            "to relora_tpu_torch yet (see ROADMAP)"
+            f"warmed_up_model {path!r} is a JAX checkpoint (state/), a format not ported: "
+            f"relora_tpu_torch reads its own checkpoints ({ckpt.PARAMS_FILE}) and {WEIGHTS_FILE}"
         )
-    bin_path = os.path.join(path, WEIGHTS_FILE)
-    if not os.path.exists(bin_path):
-        raise ValueError(f"warmed_up_model {path!r} has neither state/ nor {WEIGHTS_FILE}")
-    state_dict = torch.load(bin_path, map_location="cpu", weights_only=True)
+    else:
+        bin_path = os.path.join(path, WEIGHTS_FILE)
+        if not os.path.exists(bin_path):
+            raise ValueError(f"warmed_up_model {path!r} has neither state/ nor {WEIGHTS_FILE}")
+        state_dict = torch.load(bin_path, map_location="cpu", weights_only=True)
     graft_base_weights(model, state_dict)
     logger.info(f"Warm-started base weights from {path}")
     return model

@@ -12,8 +12,15 @@ per request, in request order.  Runs on ``--device cuda`` (the default);
 
 Weights come from ``--random-init`` or from ``--checkpoint DIR``, a
 checkpoint directory of ``relora_tpu_torch.train.checkpoint``: merged by
-default, its factors unmerged with ``--no-merge``.  Multi-tenant serving
-stacks tenant adapters over an unmerged base:
+default, its factors unmerged with ``--no-merge`` (dense or int8 base; every
+projection then runs the cost model's pick of the fused, ordered or merged
+arm, as the JAX package serves a quantized base it cannot merge into):
+
+    python -m relora_tpu_torch.serve_cli --model_config llama_250m \
+        --checkpoint CKPT --no-merge --paged --dtype bf16 --max-batch 8 \
+        --input-file prompts.txt
+
+Multi-tenant serving stacks tenant adapters over an unmerged base:
 
     python -m relora_tpu_torch.serve_cli --model_config llama_250m \
         --checkpoint BASE --no-merge --adapter-dir ADAPTERS --adapters tA,tB \
@@ -58,6 +65,7 @@ from relora_tpu_torch.train.checkpoint import (
     load_lora_spec,
     restore_params_host,
     restore_serving_params,
+    verify_checkpoint,
 )
 
 logger = logging.getLogger("relora_tpu_torch.serve")
@@ -214,6 +222,9 @@ def load_params(args: argparse.Namespace, model_cfg, dtype, device):
             f"--no-merge: {args.checkpoint} has no relora_config.json sidecar "
             "(full-rank checkpoint? drop the flag)"
         )
+    ok, reason = verify_checkpoint(args.checkpoint)
+    if not ok:
+        raise SystemExit(f"refusing to serve corrupt checkpoint {args.checkpoint}: {reason}")
     return restore_params_host(args.checkpoint), spec
 
 

@@ -12,21 +12,36 @@ the optimizer reset on the same rule with ``cycle_length``
 record; :meth:`Trainer.fit` returns the result dict of the JAX trainer plus
 the port's counters and the records.
 
-``--warmed_up_model DIR`` grafts ``DIR/pytorch_model.bin`` into the freshly
-initialised model (``models/warm_start.py``) and takes the counters of
+``--warmed_up_model DIR`` grafts ``DIR/pytorch_model.bin``, or the params of
+a port checkpoint directory, into the freshly initialised model
+(``models/warm_start.py``) and takes the counters of
 ``DIR/training_state.json`` when it exists, the schedule starting there
 (``relora_tpu/train/trainer.py:284-319``).  ``--quantize int8`` stores every
 LoRA projection's frozen base as int8 codes and scales: kernel 8 in each
 unfused projection, the int8 fused kernels under ``--lora_fused true``, and
 a dequantize-add-requantize merge.
 
-Options the port does not run yet raise ``NotImplementedError`` when set:
-checkpoints (``save_dir``, resume, autoresume, a warm start from a
-checkpoint's ``state/``), loss-spike rollback, pruning, magnitude re-init,
-``--quantize nf4``, ``--lora_fused auto``, chunked loss, the
-``wandb``/``watch``/``profile`` observability, a custom PRNG, and
-parallelism beyond one device.  ``--lora_fused true`` runs every LoRA
-projection through the fused kernels wherever dropout is not active.
+``--save_dir`` writes ``model_{step}`` checkpoints (``train/checkpoint.py``:
+params, AdamW state, counters) every ``--save_every`` updates, at the end,
+and on SIGTERM/SIGINT before stopping (the emergency save), keeping the
+newest ``--keep_checkpoints``; the resolved config goes to
+``save_dir/training_config.json`` (the reference writes YAML; the card's
+machine has no PyYAML).  ``--autoresume`` resumes from the newest verified
+checkpoint of ``save_dir``, else ``--resume_from DIR`` from DIR
+(``relora_tpu/train/trainer.py:252-319``): params, AdamW state unless
+``--load_optimizer_state_on_resume false``, counters, the schedule's origin,
+``skip_batches``, and the data rewound to the update reached; a resumed run
+may merge and reset at once.  ``--spike_threshold`` rolls a sustained loss
+spike back to the last checkpoint before it and skips its batches
+(``:1280-1330``).
+
+Options the port does not run yet raise ``NotImplementedError`` when set: a
+warm start from a JAX checkpoint's ``state/``, pruning, magnitude re-init,
+``--quantize nf4``, chunked loss, the ``wandb``/``watch``/``profile``
+observability, a custom PRNG, and parallelism beyond one device.
+``--lora_fused true`` runs every LoRA projection through the fused kernels
+wherever dropout is not active, ``--lora_fused auto`` through the cost
+model's pick of the fused, ordered or merged arm.
 
 Randomness is keyed, as the JAX package's ``fold_in(PRNGKey(seed + k),
 update_step)``: the weights come from ``seed``; LoRA dropout (``k = 1``, one
@@ -57,12 +72,23 @@ from relora_tpu_torch.core.schedules import make_schedule
 from relora_tpu_torch.models.family import CausalLM, causal_lm_class
 from relora_tpu_torch.models.params_util import init_params
 from relora_tpu_torch.models.warm_start import STATE_SUBDIR, load_warm_start, warm_start_counters
-from relora_tpu_torch.train.resilience import PreemptionGuard
+from relora_tpu_torch.train.checkpoint import (
+    delete_old_checkpoints,
+    get_last_checkpoint,
+    load_optimizer_state,
+    load_training_state,
+    restore_params_host,
+    save_checkpoint,
+    verify_checkpoint,
+)
+from relora_tpu_torch.train.resilience import LossSpikeDetector, PreemptionGuard, SpikeEvent
 from relora_tpu_torch.train.step import TrainState, eval_step, make_train_step
 
 logger = logging.getLogger(__name__)
 
 _MASK64 = (1 << 64) - 1
+#: the resolved config beside the checkpoints, read by the batch-size guard
+TRAINING_CONFIG_FILE = "training_config.json"
 
 
 def fold_in(seed: int, data: int) -> int:
@@ -97,17 +123,12 @@ def refuse_unported(cfg: TrainingConfig) -> None:
     """Raise ``NotImplementedError`` for every option whose code path the
     port does not have yet: none is skipped silently."""
     unported = {
-        "save_dir (checkpoints)": cfg.save_dir is not None,
-        "resume_from": cfg.resume_from is not None,
-        "autoresume": cfg.autoresume,
         "warmed_up_model with a state/ checkpoint": cfg.warmed_up_model is not None
         and os.path.isdir(os.path.join(cfg.warmed_up_model, STATE_SUBDIR)),
         "dataset_path (HF datasets)": cfg.dataset_path is not None,
-        "spike_threshold (loss-spike rollback)": cfg.spike_threshold > 0,
         "prune_sparsity / prune_nm (pruning)": cfg.prune_enabled,
         "reset_init='magnitude'": cfg.reset_init != "random",
         "quantize='nf4'": cfg.quantize == "nf4",
-        "lora_fused='auto' (the LoRA cost model)": cfg.lora_fused == "auto",
         "loss_impl='chunked'": cfg.loss_impl != "dense",
         "wandb": cfg.wandb,
         "wandb_watch": cfg.wandb_watch,
@@ -176,14 +197,24 @@ class Trainer:
                 quantize=cfg.quantize,
                 base_dtype=cfg.base_dtype,
                 lora_only=not need_linear_weight,
-                fused=cfg.lora_fused == "true",
+                fused="auto" if cfg.lora_fused == "auto" else cfg.lora_fused == "true",
             )
             if cfg.use_peft
             else None
         )
         self.model = build_model(model_cfg, self.lora_spec, cfg, self.device)
         init_params(self.model, torch.Generator(device=self.device).manual_seed(cfg.seed))
-        if cfg.warmed_up_model:
+
+        # the resume target (relora_tpu/train/trainer.py:252-261)
+        self.resume_dir: Optional[str] = None
+        if cfg.autoresume and cfg.save_dir and os.path.isdir(cfg.save_dir):
+            _, self.resume_dir = get_last_checkpoint(cfg.save_dir)
+            if self.resume_dir:
+                self._guard_batch_size_unchanged()
+        elif cfg.resume_from:
+            self.resume_dir = cfg.resume_from
+            self._guard_batch_size_unchanged()
+        if cfg.warmed_up_model and not self.resume_dir:
             load_warm_start(self.model, cfg.warmed_up_model)
         set_trainable(self.model)
         self.param_counts = split_param_counts(self.model)
@@ -201,16 +232,33 @@ class Trainer:
         self.tokens_seen_before = 0
         self.n_lora_restarts = 0
         self.n_optimizer_resets = 0
+        self.n_spike_rollbacks = 0
         self.eval_batches = 0
         self._local_updates = 0
-        if cfg.warmed_up_model:
-            counters = warm_start_counters(cfg.warmed_up_model)
-            if counters:
-                self.update_step = counters.get("update_step", 0)
-                self.global_step = counters.get("global_step", 0)
-                self.tokens_seen = counters.get("tokens_seen", 0)
-        # the schedule runs over the remaining steps with a fresh first warmup
-        self.scheduler_start_step = self.update_step
+        self._resumed = False
+        if self.resume_dir:
+            ts = load_training_state(self.resume_dir)
+            self.update_step = ts["update_step"]
+            self.global_step = ts["global_step"]
+            self.tokens_seen = ts["tokens_seen"]
+            self.tokens_seen_before = ts.get("tokens_seen_before", 0)
+            self.n_lora_restarts = ts.get("n_lora_restarts", 0)
+            self.n_optimizer_resets = ts.get("n_optimizer_resets", 0)
+            self.n_spike_rollbacks = ts.get("n_spike_rollbacks", 0)
+            # a rollback of the run before may have extended the blacklist
+            cfg.skip_batches |= set(ts.get("skip_batches") or ())
+            self._resumed = True
+            # the schedule's origin as saved, so the schedule is the same one
+            self.scheduler_start_step = ts.get("scheduler_start_step", self.update_step)
+        else:
+            if cfg.warmed_up_model:
+                counters = warm_start_counters(cfg.warmed_up_model)
+                if counters:
+                    self.update_step = counters.get("update_step", 0)
+                    self.global_step = counters.get("global_step", 0)
+                    self.tokens_seen = counters.get("tokens_seen", 0)
+            # the schedule runs over the remaining steps with a fresh first warmup
+            self.scheduler_start_step = self.update_step
         self.schedule = make_schedule(
             cfg.scheduler,
             lr=cfg.lr,
@@ -229,6 +277,10 @@ class Trainer:
             weight_decay=cfg.weight_decay,
         )
         self.state = TrainState(step=self.update_step)
+        if self.resume_dir:
+            # a fresh optimizer keeps the schedule's position: state.step is
+            # the update reached and nothing was skipped since
+            self._restore(self.resume_dir, optimizer=cfg.load_optimizer_state_on_resume)
         start = self.scheduler_start_step
         self._train_step = make_train_step(
             self.model,
@@ -239,6 +291,119 @@ class Trainer:
             log_per_layer_scaling=cfg.train_scaling,
         )
         self.records: list = []
+        if cfg.save_dir:
+            os.makedirs(cfg.save_dir, exist_ok=True)
+            cfg.save_json(os.path.join(cfg.save_dir, TRAINING_CONFIG_FILE))
+
+    def _guard_batch_size_unchanged(self) -> None:
+        """A resume at another batch size would rewind the data wrongly
+        (``relora_tpu/train/trainer.py:626-640``); the config beside the
+        checkpoints says which size wrote them."""
+        p = os.path.join(os.path.dirname(self.resume_dir), TRAINING_CONFIG_FILE)
+        if not os.path.exists(p) and self.cfg.save_dir:
+            p = os.path.join(self.cfg.save_dir, TRAINING_CONFIG_FILE)
+        if os.path.exists(p):
+            with open(p) as f:
+                old = json.load(f)
+            if old.get("batch_size") != self.cfg.batch_size:
+                raise RuntimeError("Cannot resume from a checkpoint with a different batch size")
+
+    def _restore(self, path: str, optimizer: bool = True) -> None:
+        """The params of the checkpoint at ``path`` and, with ``optimizer``,
+        AdamW's state and the NaN gate's counters, the directory verified
+        against its manifest first."""
+        ok, reason = verify_checkpoint(path)
+        if not ok:
+            raise ValueError(f"cannot restore from corrupt checkpoint {path}: {reason}")
+        self.model.load_state_dict(restore_params_host(path))
+        if optimizer:
+            saved = load_optimizer_state(path)
+            self.optimizer.load_state_dict(saved["optimizer"])
+            self.state.step, self.state.n_skipped = saved["step"], saved["n_skipped"]
+        logger.info(f"Restored params{' and optimizer state' if optimizer else ''} from {path}")
+
+    def save(self, update_time: float = 0.0) -> str:
+        """Checkpoint the run at ``save_dir/model_{update_step}``
+        (``relora_tpu/train/trainer.py:1366-1410``) and apply the retention;
+        a failed save is logged and returns ``""``: the previous checkpoint
+        stays the resume target and the next cadence tries again."""
+        cfg = self.cfg
+        training_state = {
+            "global_step": self.global_step,
+            "update_step": self.update_step,
+            "tokens_seen": self.tokens_seen,
+            "tokens_seen_before": self.tokens_seen_before,
+            "n_lora_restarts": self.n_lora_restarts,
+            "n_optimizer_resets": self.n_optimizer_resets,
+            "update_time": update_time,
+            "wandb_id": None,
+            "scheduler_start_step": self.scheduler_start_step,
+            "skip_batches": sorted(cfg.skip_batches),
+            "n_spike_rollbacks": self.n_spike_rollbacks,
+        }
+        optimizer_state = {
+            "optimizer": self.optimizer.state_dict(),
+            "step": self.state.step,
+            "n_skipped": self.state.n_skipped,
+        }
+        t0 = time.perf_counter()
+        try:
+            path = save_checkpoint(
+                cfg.save_dir, self.update_step, self.model.state_dict(), training_state,
+                self.lora_spec, optimizer_state,
+                retries=cfg.save_retries, retry_backoff=cfg.save_retry_backoff,
+            )
+        except (OSError, ValueError) as e:
+            logger.error(f"Checkpoint save at step {self.update_step} abandoned: {e}")
+            return ""
+        logger.info(f"Saved checkpoint {path} in {time.perf_counter() - t0:.2f}s")
+        delete_old_checkpoints(cfg.save_dir, cfg.keep_checkpoints)
+        return path
+
+    def _handle_spike(self, spike: SpikeEvent, can_realign: bool) -> bool:
+        """Roll back to the last checkpoint strictly before the spike and
+        blacklist its batches (``relora_tpu/train/trainer.py:1280-1330``);
+        True when it rolled back (the caller rebuilds the data iterator), False
+        when the spike is only logged."""
+        cfg = self.cfg
+        logger.error(
+            f"Sustained loss spike over updates {spike.first_step}..{spike.last_step} "
+            f"(loss={spike.loss:.4f}, baseline median={spike.median:.4f}, mad={spike.mad:.4f})"
+        )
+        reason = None
+        if self.n_spike_rollbacks >= cfg.max_spike_rollbacks:
+            reason = f"rollback budget exhausted ({cfg.max_spike_rollbacks})"
+        elif not can_realign:
+            reason = "no train_iter_factory to realign the data stream"
+        elif not cfg.save_dir:
+            reason = "no save_dir to roll back to"
+        if reason is None:
+            ts, target = get_last_checkpoint(cfg.save_dir, before_step=spike.first_step)
+            if target is None:
+                reason = "no committed checkpoint precedes the spike"
+        if reason is not None:
+            logger.error(f"Loss spike NOT rolled back: {reason}")
+            return False
+        # skip indices are the pre-increment counter: the logged window
+        # [first, last] is indices [first - 1, last - 1], plus the margin
+        new_skips = set(range(spike.first_step - 1, spike.last_step + cfg.spike_rollback_margin))
+        cfg.skip_batches |= new_skips
+        self._restore(target)
+        self.update_step = ts["update_step"]
+        self.global_step = ts["global_step"]
+        self.tokens_seen = ts["tokens_seen"]
+        self.tokens_seen_before = ts.get("tokens_seen_before", self.tokens_seen)
+        self.n_lora_restarts = ts.get("n_lora_restarts", self.n_lora_restarts)
+        self.n_optimizer_resets = ts.get("n_optimizer_resets", self.n_optimizer_resets)
+        # as after a resume: the partial cycle from the target completes first
+        self._local_updates = 0
+        self._resumed = True
+        self.n_spike_rollbacks += 1
+        logger.warning(
+            f"Rolled back to {target} (update {self.update_step}); blacklisted batch indices "
+            f"{sorted(new_skips)} (rollback {self.n_spike_rollbacks}/{cfg.max_spike_rollbacks})"
+        )
+        return True
 
     # ------------------------------------------------------------------
     def _device_batch(self, batch: np.ndarray) -> torch.Tensor:
@@ -253,20 +418,35 @@ class Trainer:
         """The update loop (``relora_tpu/train/trainer.py:780-1203``).
         ``train_iter`` yields ``(grad_accum, microbatch, seq)`` token arrays;
         ``eval_iter_factory()`` a fresh iterator of ``(microbatch, seq)``
-        arrays.  ``train_iter_factory`` is accepted for signature parity (the
-        JAX trainer needs it for spike rollback, which is not ported)."""
+        arrays.  ``train_iter_factory()`` rebuilds the training iterator from
+        the trainer's current counters: a spike rollback needs it to realign
+        the data, and without it a spike is logged, not rolled back."""
         cfg = self.cfg
         exhausted = True
         aborted = False
         preempted = False
+        saved_at = -1
+        detector = (
+            LossSpikeDetector(cfg.spike_threshold, window=cfg.spike_window,
+                              min_history=cfg.spike_min_history, patience=cfg.spike_patience)
+            if cfg.spike_threshold > 0
+            else None
+        )
         t_fit = time.perf_counter()
         update_start = time.perf_counter()
         logger.info(
             f"Starting training at update step {self.update_step} "
             f"({cfg.num_training_steps - self.update_step} to go)"
         )
+        if self.update_step >= cfg.num_training_steps:
+            train_iter = iter(())  # a run resumed past its budget reads no data
         self.model.train()
         with PreemptionGuard(enabled=cfg.handle_preemption) as guard:
+          # the outer loop exists for spike rollback: it rewinds the counters
+          # and restarts the inner loop on a rebuilt iterator
+          while True:
+            restart = False
+            exhausted = True
             for batch in train_iter:
                 if self.update_step >= cfg.num_training_steps:
                     exhausted = False
@@ -282,10 +462,24 @@ class Trainer:
                 self._local_updates += 1
                 self.global_step += self.grad_accum
                 if guard.requested:
-                    # JAX writes an emergency checkpoint here; checkpoints are not ported
+                    # the update ran in full: log it, then save and stop
+                    update_time = time.perf_counter() - update_start
+                    update_start = self._log_update(metrics, update_start)
+                    if cfg.save_dir and self.save(update_time):
+                        saved_at = self.update_step
+                        logger.warning(f"Emergency checkpoint at update {self.update_step}")
                     preempted = True
                     exhausted = False
                     break
+
+                if (
+                    cfg.save_dir
+                    and cfg.save_every > 0
+                    and self._local_updates > 1
+                    and self.update_step % cfg.save_every == 0
+                ):
+                    if self.save(time.perf_counter() - update_start):
+                        saved_at = self.update_step
 
                 if eval_iter_factory is not None and cfg.eval_every > 0 and self.update_step % cfg.eval_every == 0:
                     eval_loss, eval_tokens = self.evaluate(eval_iter_factory(), cfg.eval_tokens_during_training)
@@ -295,7 +489,7 @@ class Trainer:
                 relora_every = cfg.relora
                 if (
                     relora_every is not None
-                    and self._local_updates >= relora_every
+                    and (self._resumed or self._local_updates >= relora_every)
                     and (self.update_step - self.scheduler_start_step) % relora_every == 1
                 ):
                     t0 = time.perf_counter()
@@ -311,7 +505,7 @@ class Trainer:
                 if (
                     cfg.relora is not None
                     and cycle is not None
-                    and self._local_updates >= cycle
+                    and (self._resumed or self._local_updates >= cycle)
                     and (self.update_step - self.scheduler_start_step) % cycle == 1
                 ):
                     self.n_optimizer_resets += 1
@@ -330,23 +524,7 @@ class Trainer:
                     if lr_now > cfg.lr:
                         logger.warning(f"Learning rate check: LR after reset is {lr_now} > max {cfg.lr}")
 
-                now = time.perf_counter()
-                update_time, update_start = now - update_start, now
-                tokens_in_update = self.tokens_seen - self.tokens_seen_before
-                self.tokens_seen_before = self.tokens_seen
-                record = {
-                    **metrics,
-                    "update_step": self.update_step,
-                    "global_step": self.global_step,
-                    "update_seconds": update_time,
-                    "throughput_tokens": tokens_in_update / update_time,
-                    "throughput_examples": cfg.total_batch_size / update_time,
-                    "tokens_seen": self.tokens_seen,
-                    "n_lora_restarts": self.n_lora_restarts,
-                    "n_optimizer_resets": self.n_optimizer_resets,
-                }
-                self.records.append(record)
-                logger.info(json.dumps(record))
+                update_start = self._log_update(metrics, update_start)
                 if metrics["skipped"]:
                     logger.error(f"NaN update skipped at step {self.update_step} ({metrics['n_skipped']} total)")
                     if metrics["n_skipped"] > cfg.nan_abort_fraction * cfg.num_training_steps:
@@ -354,15 +532,31 @@ class Trainer:
                         aborted = True
                         exhausted = False
                         break
+
+                spike = detector.update(self.update_step, metrics["loss"]) if detector else None
+                if spike is not None:
+                    rolled_back = self._handle_spike(spike, can_realign=train_iter_factory is not None)
+                    detector.reset_streak()
+                    if rolled_back:
+                        restart = True
+                        exhausted = False
+                        break
+            if restart:
+                train_iter = train_iter_factory()
+                update_start = time.perf_counter()
+                continue
+            break
         if exhausted and self.update_step < cfg.num_training_steps:
             logger.warning("Reached the end of the dataset before num_training_steps")
+        if cfg.save_dir and self.update_step != saved_at:
+            self.save(time.perf_counter() - update_start)
 
         result = {
             "update_step": self.update_step,
             "tokens_seen": self.tokens_seen,
             "aborted": aborted,
             "preempted": preempted,
-            "n_rollbacks": 0,
+            "n_rollbacks": self.n_spike_rollbacks,
             "n_skipped": self.state.n_skipped,
             "n_lora_restarts": self.n_lora_restarts,
             "n_optimizer_resets": self.n_optimizer_resets,
@@ -375,6 +569,28 @@ class Trainer:
         result["records"] = self.records
         logger.info("Training finished")
         return result
+
+    def _log_update(self, metrics: dict, update_start: float) -> float:
+        """Append and log the record of the update just taken; returns the
+        next update's start time."""
+        now = time.perf_counter()
+        update_time = now - update_start
+        tokens_in_update = self.tokens_seen - self.tokens_seen_before
+        self.tokens_seen_before = self.tokens_seen
+        record = {
+            **metrics,
+            "update_step": self.update_step,
+            "global_step": self.global_step,
+            "update_seconds": update_time,
+            "throughput_tokens": tokens_in_update / update_time,
+            "throughput_examples": self.cfg.total_batch_size / update_time,
+            "tokens_seen": self.tokens_seen,
+            "n_lora_restarts": self.n_lora_restarts,
+            "n_optimizer_resets": self.n_optimizer_resets,
+        }
+        self.records.append(record)
+        logger.info(json.dumps(record))
+        return now
 
     # ------------------------------------------------------------------
     def evaluate(self, eval_iter: Iterator[np.ndarray], target_tokens: int = -1, sync_every: int = 8):

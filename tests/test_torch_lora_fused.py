@@ -40,7 +40,7 @@ from relora_tpu_torch.models.convert import params_from_jax
 from relora_tpu_torch.models.llama import LlamaForCausalLM
 from relora_tpu_torch.models.lora import LoRALinear
 from relora_tpu_torch.ops import lora_matmul as LM
-from relora_tpu_torch.ops.lora_dispatch import lora_matmul
+from relora_tpu_torch.ops.lora_dispatch import choose_arm, lora_matmul
 from relora_tpu_torch.train.trainer import Trainer
 
 pytestmark = pytest.mark.torch_port
@@ -181,9 +181,13 @@ def test_dispatch_arms_match_jax(arm):
 
 
 def test_dispatch_auto_and_unknown_arms_raise():
+    """``auto`` on CPU tensors runs the cost model's pick among the unfused
+    arms (never the fused twin); an unknown arm and bad shapes raise."""
     x, w, a, b, _ = _t(*_operands(8, 16, 8, 2))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        lora_matmul(x, w, a, b, 1.0, arm="auto")
+    pick = choose_arm(8, 16, 8, 2, 4, 4, fused_available=False)
+    assert pick in ("ordered", "merged")
+    torch.testing.assert_close(lora_matmul(x, w, a, b, 1.0, arm="auto"),
+                               lora_matmul(x, w, a, b, 1.0, arm=pick), rtol=0, atol=0)
     with pytest.raises(ValueError, match="unknown arm"):
         lora_matmul(x, w, a, b, 1.0, arm="tiled")
     with pytest.raises(ValueError, match="contraction mismatch"):

@@ -211,13 +211,13 @@ def test_sigterm_stops_at_the_update_boundary(tmp_path):
 
 
 @pytest.mark.parametrize("flag,value", [
-    ("save_dir", "ckpt"), ("warmed_up_model", "state/"), ("spike_threshold", 3.0),
-    ("prune_sparsity", 0.5), ("quantize", "nf4"), ("lora_fused", "auto"),
+    ("warmed_up_model", "state/"), ("prune_sparsity", 0.5), ("quantize", "nf4"),
     ("loss_impl", "chunked"), ("wandb", True), ("tp_size", 2),
 ])
 def test_unported_options_raise(tmp_path, flag, value):
-    """Each option raises; a warm start from a checkpoint directory (one
-    holding state/) does too, while a pytorch_model.bin one is ported."""
+    """Each option raises; a warm start from a JAX checkpoint directory (one
+    holding state/) does too, while a pytorch_model.bin or a port checkpoint
+    one is ported."""
     if flag == "warmed_up_model":
         (tmp_path / "ckpt" / "state").mkdir(parents=True)
         value = str(tmp_path / "ckpt")
