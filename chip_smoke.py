@@ -71,6 +71,25 @@ Phases, in order; any failure raises and the script exits non-zero:
                24 times a verify round at the window shape, every id is in
                the vocabulary, and the draft's acceptance lies strictly
                between 0 and 1.
+   server    — ``serve_cli``'s HTTP server (``--port``) at the drains'
+               flags: the 16 prompts from 16 concurrent raw-socket SSE clients,
+               sequential (``/healthz`` ``warming`` while the warmup is held,
+               then ``ok``; tokens identical to the in-process drain; kernel 1
+               launched; ``/metrics`` parsed for the scheduler's gauges; a
+               short traced burst for the idle share) and ``--packed``
+               (kernel 2; divergence from the in-process drain reported);
+               ``--max-queue 8`` under 40 requests at once (429s with a
+               Retry-After, every admitted request done, a ``deadline_s``
+               request ending ``timeout`` with partial output, a hung-up
+               client's slot freed); the real ``python -m
+               relora_tpu_torch.serve_cli --port 0 --port-file F`` process
+               (``/healthz`` ok, 10 streams, SIGTERM mid-stream: a new
+               request 503, every stream done, exit 0); f32 sequential and
+               packed server drains against the in-process f32 drains
+               (divergence only at top-2 gaps <= 1e-3).  One line per drain:
+               TTFT p50/p99, TPOT p50, tokens/s beside the in-process
+               drain's, the 429 share, warmup seconds.  Tenant traffic
+               through the server (kernel 5) runs after phase 16.
 5. f32       — one ``decode_paged``, one ``step_paged`` and one
                ``verify_paged`` step (S = 5 over W+1 tables, a pad row) at
                f32, the kernel arm against the plain arm, compared on
@@ -189,6 +208,11 @@ Phases, in order; any failure raises and the script exits non-zero:
                forward; then tenant rows must differ from the base row on a
                shared prompt, and tB after tA on one prompt must equal tB
                alone (the prefix cache is keyed per adapter).
+               Then server-tenants: the 16 prompts through ``serve_cli
+               --port`` over that base and ``--adapter-dir`` (tA, tB
+               preloaded after the warmup), requests naming [base, tA, tB,
+               tC] round-robin, kernel 5 launched 7 x 24 per forward, an
+               unknown adapter answering 400.
 17. f32-adapters — one ``decode_paged`` and one ``step_paged`` step of a
                slotted llama_250m at f32 with a mixed ``adapter_idx``, the
                kernel arm (kernel 5, the paged kernels) against the plain arm
@@ -263,16 +287,17 @@ Phases, in order; any failure raises and the script exits non-zero:
                --lora_dropout 0``, checked as auto_train.
 
 ``python3 chip_smoke.py --ab DIR [--train [FLAGS...] | --grouped | --lora |
---tenants | --paged | --drains | --sass]`` times another checkout's package instead
+--tenants | --paged | --drains | --server | --sass]`` times another checkout's package instead
 (see :func:`ab`; ``--drains`` runs the spec drains beside the plain ones, in
 turns); it checks nothing.
 
 Output: a forward+backward timing line, one line per drain (plain and
-spec), the f32 spec line, a train line, a
-LoRA timing line per model, a fused-train line, an int8 timing line per
-model, the int8 train lines, a grouped timing line, one line per adapter
-drain, the auto-arms lines, the auto_train and resume lines, one line per
-unmerged drain, one line per pythia drain, the three pythia train lines, a
+spec), one per server drain, the server process line, the f32 server and
+f32 spec lines, a train line, a LoRA timing line per model, a fused-train
+line, an int8 timing line per model, the int8 train lines, a grouped timing
+line, one line per adapter drain and the tenant server drain, the
+auto-arms lines, the auto_train and resume lines, one line per unmerged
+drain, one line per pythia drain, the three pythia train lines, a
 ``{"kernels": [...]}`` line, the card's ``nvidia-smi
 --query-gpu=name,power.limit`` line, and last ``{"ok": true, "device":
 {...}}``.  Without CUDA, or without the package beside it, it exits non-zero
@@ -284,8 +309,10 @@ from __future__ import annotations
 import json
 import os
 import shutil
+import signal
 import subprocess
 import sys
+import threading
 import time
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
@@ -1061,7 +1088,9 @@ def write_prompts(path, vocab, seed=0):
 
 def drains(torch, prompts, repeat):
     """Phase 3: the main path through the CLI's entry point, three ways, and
-    the bf16 drain again over the repeat traffic (the spec drains' yardstick)."""
+    the bf16 drain again over the repeat traffic (the spec drains' yardstick).
+    Returns (launches, the lines, label -> {"tokens": uid -> tokens,
+    "tokens_per_s"}: the server phase's yardstick)."""
     from relora_tpu_torch import serve_cli
     from relora_tpu_torch.ops import attention as A
 
@@ -1069,7 +1098,7 @@ def drains(torch, prompts, repeat):
             "--max-batch", "8", "--paged", "--max-new-tokens", "64",
             "--input-file", prompts]
     launches = {"paged_decode_attention": 0, "packed_paged_attention": 0}
-    results = []
+    results, outputs = [], {}
     for label, extra, kernel in (
         ("bf16", ["--kv-dtype", "bf16"], "paged_decode_attention"),
         ("packed", ["--kv-dtype", "bf16", "--packed"], "packed_paged_attention"),
@@ -1097,7 +1126,9 @@ def drains(torch, prompts, repeat):
                 "tokens_per_s": n / seconds, "launches": counts}
         print(json.dumps(line))
         results.append(line)
-    return launches, results
+        outputs[label] = {"tokens": {uid: c.tokens for uid, c in completions.items()},
+                          "tokens_per_s": n / seconds}
+    return launches, results, outputs
 
 
 def pythia_drains(torch, prompts):
@@ -3215,6 +3246,531 @@ def resume(torch, data_config, straight, work):
     return os.path.join(save_dir, f"model_{TRAIN_UPDATES}")
 
 
+SERVER_ARGS = ["--model_config", "llama_250m", "--random-init", "--dtype", "bf16", "--max-batch", "8",
+               "--paged", "--max-new-tokens", "64"]
+SERVER_WAIT = 180.0  # every wait of the server phase: an event or a state, never a fixed sleep
+SERVER_GAUGES = ("batch_fill", "kv_pages_used", "kv_pages_free", "dispatches_per_round",
+                 "tokens_per_dispatch", "prefill_pad_share", "active_slots", "queue_depth")
+
+
+def http_call(port, method, path, payload=None):
+    """One HTTP/1.1 request read to EOF: ``(status, headers, body)``."""
+    import socket
+
+    body = b"" if payload is None else json.dumps(payload).encode()
+    with socket.create_connection(("127.0.0.1", port), timeout=SERVER_WAIT) as sock:
+        sock.sendall(f"{method} {path} HTTP/1.1\r\nHost: smoke\r\nContent-Length: {len(body)}\r\n\r\n"
+                     .encode() + body)
+        data = b""
+        while chunk := sock.recv(65536):
+            data += chunk
+    head, _, rest = data.partition(b"\r\n\r\n")
+    lines = head.decode("latin-1").split("\r\n")
+    headers = {k.strip().lower(): v.strip() for k, _, v in (ln.partition(":") for ln in lines[1:])}
+    return int(lines[0].split()[1]), headers, rest
+
+
+def wait_state(cond, what, timeout=SERVER_WAIT):
+    """Poll ``cond`` (a server's own state) until true, or fail."""
+    t_end = time.monotonic() + timeout
+    while time.monotonic() < t_end:
+        value = cond()
+        if value:
+            return value
+        time.sleep(0.02)
+    raise AssertionError(f"server: timed out waiting for {what}")
+
+
+class Client(threading.Thread):
+    """One raw-socket ``POST /v1/generate``; SSE events are timed as they
+    arrive (``close_after``: hang up after that many tokens)."""
+
+    def __init__(self, port, payload, close_after=None):
+        super().__init__(daemon=True)
+        self.port, self.payload, self.close_after = port, payload, close_after
+        self.status, self.headers, self.body, self.final = None, {}, b"", None
+        self.tokens, self.times, self.error = [], [], None
+        self.headed = threading.Event()
+
+    def run(self):
+        try:
+            self._exchange()
+        except Exception as e:  # reported by the phase's checks
+            self.error = repr(e)
+        finally:
+            self.headed.set()
+
+    def _exchange(self):
+        import socket
+
+        body = json.dumps(self.payload).encode()
+        self.t_send = time.perf_counter()
+        with socket.create_connection(("127.0.0.1", self.port), timeout=SERVER_WAIT) as sock:
+            sock.sendall(f"POST /v1/generate HTTP/1.1\r\nHost: smoke\r\nContent-Length: {len(body)}"
+                         f"\r\n\r\n".encode() + body)
+            buf = b""
+            while b"\r\n\r\n" not in buf:
+                chunk = sock.recv(65536)
+                if not chunk:
+                    raise ConnectionError("closed before the response head")
+                buf += chunk
+            head, buf = buf.split(b"\r\n\r\n", 1)
+            lines = head.decode("latin-1").split("\r\n")
+            self.status = int(lines[0].split()[1])
+            self.headers = {k.strip().lower(): v.strip()
+                            for k, _, v in (ln.partition(":") for ln in lines[1:])}
+            self.headed.set()
+            if self.status != 200 or not self.payload.get("stream", True):
+                while chunk := sock.recv(65536):
+                    buf += chunk
+                self.body = buf
+                return
+            while True:
+                while b"\n\n" not in buf:
+                    chunk = sock.recv(65536)
+                    if not chunk:
+                        return
+                    buf += chunk
+                block, buf = buf.split(b"\n\n", 1)
+                data = block.strip()[len(b"data: "):]
+                if data == b"[DONE]":
+                    return
+                event = json.loads(data)
+                if "token" in event:
+                    self.tokens.append(event["token"])
+                    self.times.append(time.perf_counter())
+                    if self.close_after is not None and len(self.tokens) >= self.close_after:
+                        return
+                else:
+                    self.final = event
+
+
+    def result(self):
+        return {k: getattr(self, k) for k in ("status", "headers", "body", "final", "tokens",
+                                              "times", "error", "t_send")}
+
+
+def client_batch(port, payloads):
+    """Every payload from a client thread of its own, all started together;
+    each client's result once all have finished."""
+    clients = [Client(port, p) for p in payloads]
+    for c in clients:
+        c.start()
+    for c in clients:
+        c.join(SERVER_WAIT)
+        if c.is_alive():
+            raise AssertionError("server: a client did not finish")
+    return [c.result() for c in clients]
+
+
+def client_pool():
+    """One worker process for :func:`run_clients`: the clients then take no
+    interpreter time from the server's model thread, as real clients in
+    other processes take none.  ``time.perf_counter`` is the system's
+    monotonic clock, so its stamps compare across the two processes."""
+    import multiprocessing
+
+    return multiprocessing.get_context("spawn").Pool(1)
+
+
+def run_clients(pool, port, payloads):
+    """:func:`client_batch` in ``pool``'s worker."""
+    import types
+
+    return [types.SimpleNamespace(**r) for r in pool.apply(client_batch, (port, payloads))]
+
+
+def latency_stats(clients):
+    """TTFT (send to first token event) p50 / p99 over the requests, TPOT
+    (the gaps between a stream's token events, pooled) p50, and tokens/s
+    over the wall from the first send to the last token."""
+    import numpy as np
+
+    served = [c for c in clients if c.tokens]
+    ttft = [c.times[0] - c.t_send for c in served]
+    gaps = [b - a for c in served for a, b in zip(c.times, c.times[1:])]
+    n = sum(len(c.tokens) for c in served)
+    wall = max(c.times[-1] for c in served) - min(c.t_send for c in clients)
+    return {"ttft_p50_s": float(np.percentile(ttft, 50)), "ttft_p99_s": float(np.percentile(ttft, 99)),
+            "tpot_p50_s": float(np.percentile(gaps, 50)) if gaps else None,
+            "tokens": n, "seconds": wall, "tokens_per_s": n / wall}
+
+
+def check_stream(label, c, vocab):
+    """A served stream: status 200, a finish record equal to the stream,
+    every id in the vocabulary."""
+    if c.error or c.status != 200 or c.final is None:
+        raise AssertionError(f"server {label}: request failed: {c.status} {c.error} {c.body[:200]}")
+    if c.final["tokens"] != c.tokens:
+        raise AssertionError(f"server {label}: the stream differs from its finish record")
+    if not all(0 <= t < vocab for t in c.tokens):
+        raise AssertionError(f"server {label}: token id out of the vocabulary")
+
+
+def check_metrics_text(label, text):
+    """``/metrics`` parses as Prometheus text (a ``# TYPE`` line or ``name
+    value`` per line) and carries the scheduler's gauges."""
+    names = set()
+    for line in text.strip().splitlines():
+        if line.startswith("# TYPE "):
+            if line.split()[3] not in ("counter", "gauge", "histogram"):
+                raise AssertionError(f"server {label}: bad /metrics line {line!r}")
+            continue
+        name, value = line.rsplit(" ", 1)
+        float(value)
+        names.add(name.split("{")[0])
+    missing = [g for g in SERVER_GAUGES if f"relora_serve_{g}" not in names]
+    if missing:
+        raise AssertionError(f"server {label}: /metrics lacks {missing}")
+
+
+class InProcessServer:
+    """``serve_cli``'s server mode in this process: the flags' scheduler and
+    ``GenerateServer`` on a thread of its own (signal handlers off).
+    ``gated`` holds the warmup until :meth:`release`, so ``/healthz`` can be
+    seen warming; the warmup's seconds are kept.  Leaving drains and joins."""
+
+    def __init__(self, argv, gated=False):
+        from relora_tpu_torch import serve_cli
+        from relora_tpu_torch.serve.server import GenerateServer
+
+        sched, kw = serve_cli.build_server(serve_cli.parse_args(argv + ["--port", "0"]))
+        self.gate = threading.Event()
+        if not gated:
+            self.gate.set()
+        warmup, self.warmup_s = kw["warmup_fn"], None
+
+        def gated_warmup():
+            self.gate.wait(SERVER_WAIT)
+            t0 = time.perf_counter()
+            report = warmup()
+            self.warmup_s = time.perf_counter() - t0
+            return report
+
+        kw["warmup_fn"] = gated_warmup
+        self.scheduler, self.server = sched, GenerateServer(sched, **kw)
+        self.thread = threading.Thread(target=self._serve, daemon=True)
+        self.raised = None
+
+    def _serve(self):
+        import asyncio
+
+        try:
+            asyncio.run(self.server.serve_forever(install_signal_handlers=False))
+        except RuntimeError as e:
+            self.raised = e
+
+    def __enter__(self):
+        self.thread.start()
+        if not self.server.started.wait(SERVER_WAIT):
+            raise AssertionError("server: the listener did not start")
+        return self
+
+    def release(self):
+        self.gate.set()
+        wait_state(lambda: self.health()[1]["status"] == "ok", "/healthz ok")
+
+    def health(self):
+        status, _, body = http_call(self.server.port, "GET", "/healthz")
+        return status, json.loads(body)
+
+    def __exit__(self, *exc):
+        self.gate.set()
+        self.server.begin_drain()
+        self.thread.join(SERVER_WAIT)
+        if self.thread.is_alive() or self.raised or self.server._worker_error:
+            raise AssertionError(f"server: did not drain cleanly ({self.raised!r})")
+
+
+def server_drains(torch, prompts_path, inproc):
+    """Phase server (a, b, e): the 16 prompts through ``serve_cli``'s HTTP
+    server, sequential then ``--packed``, from 16 concurrent SSE clients.
+    ``/healthz`` must answer ``warming`` while the warmup is held and run,
+    then ``ok``; every stream equals its finish record and ends ``length``
+    (``eos`` where the in-process drain did); ``/metrics`` parses with the
+    scheduler's gauges; the kernel launched; the sequential tokens are
+    identical to the in-process drain's (``inproc``: label -> uid ->
+    tokens), the packed ones reported beside it.  The sequential drain then
+    runs once more, on a server of its own (a cold prefix cache, as the
+    timed drain had) and under the profiler: the device's idle share over
+    the same 16-client traffic.  Returns (kernel launches, the lines)."""
+    from relora_tpu_torch.ops import attention as A
+
+    payloads = [{"prompt": p} for p in read_prompts(prompts_path)]
+    launches = {"paged_decode_attention": 0, "packed_paged_attention": 0}
+    lines = []
+    with client_pool() as pool:
+        for label, extra, kernel in (("bf16", [], "paged_decode_attention"),
+                                     ("packed", ["--packed"], "packed_paged_attention")):
+            A.paged_decode_attention.launches = 0
+            A.packed_paged_attention.launches = 0
+            with InProcessServer(SERVER_ARGS + extra, gated=True) as srv:
+                status, body = srv.health()
+                if status != 503 or body["status"] != "warming":
+                    raise AssertionError(f"server {label}: /healthz {status} {body} while warming")
+                srv.release()
+                clients = run_clients(pool, srv.server.port, payloads)
+                stats = latency_stats(clients)
+                _, _, text = http_call(srv.server.port, "GET", "/metrics")
+                check_metrics_text(label, text.decode())
+            counts = {k: getattr(A, k).launches for k in launches}
+            warmup_s, vocab = srv.warmup_s, srv.scheduler.engine.config.vocab_size
+            del srv
+            torch.cuda.empty_cache()
+            idle = None
+            if label == "bf16":
+                with InProcessServer(SERVER_ARGS) as traced:
+                    wait_state(lambda: traced.health()[1]["status"] == "ok", "/healthz ok")
+                    again, wall, busy, _ = device_profile(
+                        torch, lambda: run_clients(pool, traced.server.port, payloads))
+                idle = {"device_idle_share": 1.0 - busy / wall, "profiled_wall_s": wall,
+                        "device_busy_s": busy}
+                del traced
+                torch.cuda.empty_cache()
+                if [c.tokens for c in again] != [c.tokens for c in clients]:
+                    raise AssertionError("server bf16: the traced drain's tokens differ")
+            diverged = []
+            for uid, c in enumerate(clients):
+                check_stream(label, c, vocab)
+                want = "length" if len(c.tokens) == 64 else "eos"
+                if c.final["finish_reason"] != want:
+                    raise AssertionError(
+                        f"server {label}: request {uid} ended {c.final['finish_reason']}")
+                ref = inproc[label]["tokens"][uid]
+                if c.tokens != ref:
+                    i = next((j for j, (a, b) in enumerate(zip(c.tokens, ref)) if a != b),
+                             min(len(c.tokens), len(ref)))
+                    diverged.append({"request": uid, "index": i})
+            line = {"server_drain": label, "requests": len(clients), **stats,
+                    "inproc_tokens_per_s": inproc[label]["tokens_per_s"],
+                    "rejected_429_share": 0.0, "warmup_s": warmup_s,
+                    "profiled": idle, "identical_to_inproc": not diverged,
+                    "divergences": diverged, "launches": counts}
+            print(json.dumps(line))
+            lines.append(line)
+            if counts[kernel] == 0:
+                raise AssertionError(f"server {label}: {kernel} never launched")
+            if label == "bf16" and diverged:
+                raise AssertionError(
+                    f"server bf16: tokens differ from the in-process drain: {diverged}")
+            for k in launches:
+                launches[k] += counts[k]
+    return launches, lines
+
+
+def server_overload(torch, prompts_path):
+    """Phase server (d): ``--max-queue 8`` under 40 concurrent requests
+    (16 new tokens each): some answer 429 with a Retry-After, every admitted
+    one completes; then a ``deadline_s`` request ends ``timeout`` with
+    partial output, and a client that hangs up mid-stream frees its slot.
+    Returns (kernel 1 launches, the line)."""
+    from relora_tpu_torch.ops import attention as A
+
+    prompts = read_prompts(prompts_path)
+    A.paged_decode_attention.launches = 0
+    with InProcessServer(SERVER_ARGS + ["--max-queue", "8"]) as srv:
+        port = srv.server.port
+        wait_state(lambda: srv.health()[1]["status"] == "ok", "/healthz ok")
+        with client_pool() as pool:
+            clients = run_clients(pool, port, [{"prompt": prompts[i % len(prompts)],
+                                                "max_new_tokens": 16} for i in range(40)])
+        served = [c for c in clients if c.status == 200]
+        shed = [c for c in clients if c.status == 429]
+        stats = latency_stats(served)
+        late = Client(port, {"prompt": prompts[0][:32], "max_new_tokens": 512,
+                             "deadline_s": 0.5})
+        late.start()
+        late.join(SERVER_WAIT)
+        gone = Client(port, {"prompt": prompts[1][:32], "max_new_tokens": 512},
+                      close_after=2)
+        gone.start()
+        gone.join(SERVER_WAIT)
+
+        def freed():
+            text = http_call(port, "GET", "/metrics")[2].decode()
+            return ('relora_serve_requests_finished_total{reason="cancelled"} 1' in text
+                    and "relora_serve_active_slots 0" in text)
+
+        wait_state(freed, "the hung-up request's slot to free")
+        metrics = http_call(port, "GET", "/metrics")[2].decode()
+    vocab = srv.scheduler.engine.config.vocab_size
+    for c in served:
+        check_stream("overload", c, vocab)
+        if c.final["finish_reason"] not in ("length", "eos"):
+            raise AssertionError(f"server overload: an admitted request ended {c.final}")
+    line = {"server_drain": "overload", "requests": len(clients), "served": len(served),
+            "rejected_429": len(shed), "rejected_429_share": len(shed) / len(clients), **stats,
+            "retry_after": sorted({c.headers.get("retry-after") for c in shed}),
+            "deadline_tokens": len(late.tokens),
+            "deadline_finish": late.final and late.final["finish_reason"],
+            "hung_up_after": len(gone.tokens), "launches": A.paged_decode_attention.launches}
+    print(json.dumps(line))
+    if not shed or any(not c.headers.get("retry-after") for c in shed):
+        raise AssertionError(f"server overload: no 429 with Retry-After under 40 requests: {line}")
+    if len(served) + len(shed) != len(clients):
+        raise AssertionError(f"server overload: a request neither served nor shed: "
+                             f"{[(c.status, c.error) for c in clients]}")
+    if (late.final is None or late.final["finish_reason"] != "timeout"
+            or not 0 < len(late.tokens) < 512):
+        raise AssertionError(f"server overload: the deadline request did not end in a partial "
+                             f"timeout: {line}")
+    if "relora_serve_disconnects_total 1" not in metrics:
+        raise AssertionError("server overload: the hang-up was not counted")
+    if A.paged_decode_attention.launches == 0:
+        raise AssertionError("server overload: paged_decode_attention never launched")
+    torch.cuda.empty_cache()
+    return A.paged_decode_attention.launches, line
+
+
+def server_subprocess(work, prompts_path, inproc):
+    """Phase server (f): the real entry point, ``python -m
+    relora_tpu_torch.serve_cli ... --port 0 --port-file F --run-dir R``, as
+    a process of its own: ``/healthz`` goes ok, 10 requests stream (8
+    decoding, 2 queued), SIGTERM lands while they do; then a new request
+    gets 503, every accepted one finishes, and the process exits 0.  Its
+    warmup seconds come from its ``metrics.jsonl`` (``serve_warm``)."""
+    prompts = read_prompts(prompts_path)
+    port_file = os.path.join(work, "server.port")
+    run_dir = os.path.join(work, "server_run")
+    for path in (port_file, os.path.join(run_dir, "metrics.jsonl")):
+        if os.path.exists(path):
+            os.remove(path)
+    env = {k: v for k, v in os.environ.items() if k not in ("RELORA_TPU_FAULTS", "RELORA_TPU_REPLICA_ID")}
+    with open(os.path.join(work, "server_stderr.log"), "w") as log:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "relora_tpu_torch.serve_cli", *SERVER_ARGS, "--port", "0",
+             "--port-file", port_file, "--run-dir", run_dir],
+            cwd=REPO, env=env, stdout=subprocess.DEVNULL, stderr=log)
+        try:
+            t_start = time.perf_counter()
+            wait_state(lambda: os.path.exists(port_file) and open(port_file).read().strip(),
+                       "the port file")
+            port = int(open(port_file).read())
+            seen = set()
+
+            def healthy():
+                status, _, body = http_call(port, "GET", "/healthz")
+                seen.add(json.loads(body)["status"])
+                return status == 200
+
+            wait_state(healthy, "/healthz ok")
+            ready_s = time.perf_counter() - t_start
+            clients = [Client(port, {"prompt": p}) for p in prompts[:10]]
+            for c in clients:
+                c.start()
+            for c in clients:
+                c.headed.wait(SERVER_WAIT)
+            wait_state(lambda: any(c.tokens for c in clients), "a first token")
+            proc.send_signal(signal.SIGTERM)
+            wait_state(lambda: http_call(port, "GET", "/healthz")[0] == 503, "draining")
+            late = http_call(port, "POST", "/v1/generate", {"prompt": prompts[11]})
+            for c in clients:
+                c.join(SERVER_WAIT)
+            code = proc.wait(SERVER_WAIT)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(SERVER_WAIT)
+    with open(os.path.join(run_dir, "metrics.jsonl")) as f:
+        records = [json.loads(line) for line in f]
+    warm = [r for r in records if r.get("_event") == "serve_warm"]
+    same = sum(c.tokens == inproc["bf16"]["tokens"][i] for i, c in enumerate(clients))
+    line = {"server_process": "serve_cli --port 0, SIGTERM mid-stream", "requests": len(clients),
+            "healthz_seen": sorted(seen), "ready_s": ready_s,
+            "warmup_s": warm[0]["duration_s"] if warm else None, "late_status": late[0],
+            "finished": sum(c.final is not None and c.final["finish_reason"] in ("length", "eos")
+                            for c in clients),
+            "identical_to_inproc": same, "exit_code": code}
+    print(json.dumps(line))
+    if (code != 0 or late[0] != 503 or line["finished"] != len(clients) or not warm
+            or same != len(clients)):
+        raise AssertionError(f"server process: {line}")
+    for c in clients:
+        check_stream("process", c, 32100)
+
+
+def server_f32(torch, work, prompts_path):
+    """Phase server (g): the first 8 prompts, 32 new tokens, at f32, through
+    the server and through the in-process drain, sequential and packed:
+    greedy tokens identical, except where the in-process run's top two
+    logits lie within 1e-3 (each divergence printed with its gap)."""
+    from relora_tpu_torch import serve_cli
+
+    prompts = read_prompts(prompts_path)[:8]
+    path = os.path.join(work, "prompts8.txt")
+    with open(path, "w") as f:
+        f.writelines(" ".join(map(str, p)) + "\n" for p in prompts)
+    f32 = [a if a != "bf16" else "f32" for a in SERVER_ARGS] + ["--max-new-tokens", "32"]
+    for label, extra in (("f32", []), ("f32_packed", ["--packed"])):
+        ref, _, sched = serve_cli.drain(f32 + extra + ["--input-file", path])
+        with InProcessServer(f32 + extra) as srv:
+            wait_state(lambda: srv.health()[1]["status"] == "ok", "/healthz ok")
+            with client_pool() as pool:
+                clients = run_clients(pool, srv.server.port, [{"prompt": p} for p in prompts])
+        divergences = []
+        for uid, c in enumerate(clients):
+            check_stream(label, c, sched.engine.config.vocab_size)
+            want = ref[uid].tokens
+            i = next((j for j, (a, b) in enumerate(zip(c.tokens, want)) if a != b), None)
+            if i is None and len(c.tokens) == len(want):
+                continue
+            i = min(len(c.tokens), len(want)) if i is None else i
+            ids = torch.tensor([prompts[uid] + want[:i]], device=sched.engine.device)
+            with torch.inference_mode():
+                logits = sched.engine.model(ids)[0, -1].float()
+            top = torch.topk(logits, 2).values
+            divergences.append({"request": uid, "index": i, "top2_gap": (top[0] - top[1]).item()})
+        ok = all(d["top2_gap"] <= 1e-3 for d in divergences)
+        print(json.dumps({"server_f32": label, "requests": len(clients), "divergences": divergences,
+                          "ok": ok}))
+        if not ok:
+            raise AssertionError(f"server {label}: diverges from the in-process drain: {divergences}")
+        del sched, srv, clients
+        torch.cuda.empty_cache()
+
+
+def server_tenants(torch, base_ckpt, tenants, prompts_path):
+    """Phase server (c): tenant traffic through the server over ``--no-merge
+    --adapter-dir`` (``--adapters tA,tB`` preloaded after the warmup; tC
+    loaded on demand): the 16 prompts, 32 new tokens, naming [base, tA, tB,
+    tC] round-robin; kernel 5 launched 7 x layers in every forward; an
+    unknown adapter answers 400.  Returns kernel 5's launches."""
+    from relora_tpu_torch.ops import lora_matmul as LM
+
+    prompts = read_prompts(prompts_path)
+    mix = [None] + list(TENANT_ALPHAS)
+    argv = ["--model_config", "llama_250m", "--checkpoint", base_ckpt, "--no-merge", "--adapter-dir",
+            tenants, "--adapters", "tA,tB", "--paged", "--dtype", "bf16", "--max-batch", "8",
+            "--max-new-tokens", "32"]
+    LM.grouped_lora_matmul.launches = 0
+    with EngineCalls("_forward") as forwards, InProcessServer(argv) as srv:
+        wait_state(lambda: srv.health()[1]["status"] == "ok", "/healthz ok")
+        with client_pool() as pool:
+            clients = run_clients(pool, srv.server.port, [
+                {"prompt": p, "adapter": mix[i % len(mix)]} for i, p in enumerate(prompts)])
+        stats = latency_stats(clients)
+        unknown = http_call(srv.server.port, "POST", "/v1/generate",
+                            {"prompt": prompts[0][:8], "adapter": "nope"})
+        registry = srv.scheduler.adapter_stats()
+    launches = LM.grouped_lora_matmul.launches
+    layers = srv.scheduler.engine.config.num_hidden_layers
+    line = {"server_drain": "tenants", "requests": len(clients), "adapters": mix, **stats,
+            "warmup_s": srv.warmup_s, "unknown_adapter_status": unknown[0],
+            "loads": registry["loads_total"], "forwards": forwards.calls,
+            "launches": {"grouped_lora_matmul": launches}}
+    print(json.dumps(line))
+    for c in clients:
+        check_stream("tenants", c, srv.scheduler.engine.config.vocab_size)
+    if unknown[0] != 400 or b"unknown adapter" not in unknown[2]:
+        raise AssertionError(f"server tenants: an unknown adapter answered {unknown[0]}")
+    if forwards.calls == 0 or launches != 7 * layers * forwards.calls:
+        raise AssertionError(f"server tenants: kernel 5 launched {launches} times over "
+                             f"{forwards.calls} forwards, expected 7 x {layers} per forward")
+    del srv
+    torch.cuda.empty_cache()
+    return launches
+
+
 def take_launches(rows, launches, model=""):
     """Each row of ``rows`` named ``kernel`` (``model`` empty) or
     ``kernel@model`` adds ``launches[kernel]``; other rows are left alone."""
@@ -3260,18 +3816,24 @@ def main() -> int:
     prompts = os.path.join(work, "prompts.txt")
     write_prompts(prompts, 32100)
     repeat = write_repeat_prompts(os.path.join(work, "repeat.txt"), 32100)
-    launches, plain_lines = drains(torch, prompts, repeat)
+    launches, plain_lines, inproc = drains(torch, prompts, repeat)
     torch.cuda.empty_cache()
     spec_base, spec_draft = write_spec_checkpoints(torch, work, device)
     spec_launches, window, _ = spec_drains(
         torch, prompts, repeat, spec_base, spec_draft,
         {line["drain"]: line["tokens_per_s"] for line in plain_lines})
+    # the online front end: serve_cli --port over kernels 1 and 2
+    server_launches, _ = server_drains(torch, prompts, inproc)
+    server_launches["paged_decode_attention"] += server_overload(torch, prompts)[0]
+    server_subprocess(work, prompts, inproc)
+    server_f32(torch, work, prompts)
     paged_rows = {row["name"]: row for row in rows}
     for name, row in paged_rows.items():
         if name.endswith(PYTHIA):
             continue  # the pythia drains' launches, below
         kernel = name.removesuffix("_verify")
-        row["launches"] = window[kernel] if name != kernel else launches[kernel] + spec_launches[kernel]
+        row["launches"] = window[kernel] if name != kernel else (
+            launches[kernel] + spec_launches[kernel] + server_launches[kernel])
     f32_comparison(torch, device)
     torch.cuda.empty_cache()
     f32_spec_drains(torch, repeat, work)
@@ -3317,6 +3879,7 @@ def main() -> int:
                                                                  tenants, repeat)
     paged_rows["paged_decode_attention"]["launches"] += k1
     paged_rows["paged_decode_attention_verify"]["launches"] += k1_window
+    grouped_rows[0]["launches"] += server_tenants(torch, base, tenants, prompts)
     rows += grouped_rows
     torch.cuda.empty_cache()
     f32_adapters(torch, device, tenants)
@@ -3541,15 +4104,15 @@ def paged_shares(by_name, busy_s, packed):
     return k1 / 1e6 / busy_s, k2 / 1e6 / busy_s, k1 / 1e3
 
 
-def ab_drains(torch):
+def ab_drains(torch, spec=True):
     """The drains phase's base drains (bf16 pool, packed, int8 pool, the bf16
-    pool over the repeat traffic) and, in a tree that has them, the spec
-    drains beside them (``--spec ngram`` on each, ``--spec model`` against
-    the bf16 drain), through ``serve_cli``: each pair timed in turns (plain,
-    spec, spec, plain; ``serve_cli.run``), then one traced drain of each, of
-    a scheduler built outside the trace, for the device busy time, idle
-    share and kernels 1 and 2's shares of busy time.  A short drain first
-    takes the process's first-use costs."""
+    pool over the repeat traffic) and, in a tree that has them and with
+    ``spec``, the spec drains beside them (``--spec ngram`` on each,
+    ``--spec model`` against the bf16 drain), through ``serve_cli``: each
+    pair timed in turns (plain, spec, spec, plain; ``serve_cli.run``), then
+    one traced drain of each, of a scheduler built outside the trace, for
+    the device busy time, idle share and kernels 1 and 2's shares of busy
+    time.  A short drain first takes the process's first-use costs."""
     from relora_tpu_torch import serve_cli
 
     device = torch.device("cuda")
@@ -3561,7 +4124,7 @@ def ab_drains(torch):
     common = ["--model_config", "llama_250m", "--dtype", "bf16", "--max-batch", "8", "--paged",
               "--max-new-tokens", "64"]
     base = common + ["--random-init", "--input-file", prompts]
-    has_spec = hasattr(serve_cli, "drain")  # trees before speculative decoding lack it
+    has_spec = spec and hasattr(serve_cli, "drain")  # trees before speculative decoding lack it
     pairs = [("bf16", base, "spec_ngram", ["--spec", "ngram"]),
              ("packed", base + ["--packed"], "spec_ngram_packed", ["--spec", "ngram"]),
              ("int8", base + ["--kv-dtype", "int8"], "spec_ngram_int8", ["--spec", "ngram"]),
@@ -3609,7 +4172,7 @@ def ab_drains(torch):
 
 def ab(argv) -> int:
     """``python3 chip_smoke.py --ab DIR [--train [FLAGS...] | --grouped |
-    --lora | --tenants | --paged | --drains | --sass]``: one JSON line of the times of the package in the
+    --lora | --tenants | --paged | --drains [--no-spec] | --sass]``: one JSON line of the times of the package in the
     checkout at DIR (another tree, such as the parent unpacked with ``git
     archive``) by this script's timer and shapes, so two trees compare on
     one card when run in turns in one call (parent, change, change, parent).
@@ -3624,7 +4187,8 @@ def ab(argv) -> int:
     tenant drains' tokens/s, idle share and kernel 5's share
     (:func:`ab_tenants`).  ``--paged``: kernels 1 and 2 per call
     (:func:`ab_paged`).  ``--drains``: the base drains' and the spec drains'
-    tokens/s, idle share and kernels 1 and 2's shares (:func:`ab_drains`).  ``--sass``: the tree's
+    tokens/s, idle share and kernels 1 and 2's shares (:func:`ab_drains`;
+    ``--no-spec``: the base drains alone).  ``--sass``: the tree's
     kernels built, and each function's SASS digest (:func:`sass_digests`),
     so two trees' lines show which kernels compiled to the same code."""
     import torch
@@ -3638,7 +4202,9 @@ def ab(argv) -> int:
 
     if not os.path.abspath(relora_tpu_torch.__file__).startswith(tree + os.sep):
         raise RuntimeError(f"imported {relora_tpu_torch.__file__}, not the package in {tree}")
-    out = {"tree": argv[1], "card": torch.cuda.get_device_name(0)}
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True)
+    out = {"tree": argv[1], "card": smi.stdout.strip().splitlines()[0]}
     if argv[2:3] == ["--train"]:
         from relora_tpu_torch import main as train_main
 
@@ -3663,7 +4229,8 @@ def ab(argv) -> int:
     elif argv[2:3] == ["--paged"]:
         out.update(ab_paged(torch))
     elif argv[2:3] == ["--drains"]:
-        out.update(ab_drains(torch))
+        out["flags"] = argv[3:]
+        out.update(ab_drains(torch, spec="--no-spec" not in argv[3:]))
     elif argv[2:3] == ["--sass"]:
         from relora_tpu_torch.ops import _build
 

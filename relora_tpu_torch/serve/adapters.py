@@ -86,6 +86,7 @@ class AdapterRegistry:
         expected_r: Optional[int] = None,
         writer: Optional[Callable[[int, Factors, float], None]] = None,
         loader: Optional[Callable[[str, Optional[int]], Tuple[Factors, float]]] = None,
+        metrics: Any = None,
     ):
         if num_slots < 2:
             raise ValueError(
@@ -96,6 +97,8 @@ class AdapterRegistry:
         self.expected_r = expected_r
         self._writer = writer
         self._loader = loader or default_loader
+        # a metrics registry (the server's): evictions and load seconds
+        self.metrics = metrics
         # slot 0 is the identity adapter: out of the free list forever
         self._free: List[int] = list(range(num_slots - 1, 0, -1))
         self._resident: "OrderedDict[str, int]" = OrderedDict()  # name -> slot, LRU order
@@ -188,6 +191,8 @@ class AdapterRegistry:
                 del self._resident[victim]
                 del self._refs[victim]
                 self.evictions_total += 1
+                if self.metrics is not None:
+                    self.metrics.inc("adapter_evictions_total")
                 logger.info(f"evicting adapter {victim!r} from slot {slot}")
                 return slot
         return None
@@ -200,6 +205,8 @@ class AdapterRegistry:
             self._writer(slot, factors, scale)
         dt = time.monotonic() - t0
         self.loads_total += 1
+        if self.metrics is not None:
+            self.metrics.observe("adapter_load_seconds", dt)
         self._resident[name] = slot
         self._resident.move_to_end(name)
         logger.info(f"loaded adapter {name!r} into slot {slot} in {dt * 1e3:.1f} ms")

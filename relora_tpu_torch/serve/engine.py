@@ -29,14 +29,17 @@ back; here the forward updates the pool tensors in place and returns the
 same pool, so the call shape stays ``logits, pool = engine.step(pool, ...)``.
 Every forward runs under ``torch.inference_mode()``.
 
-The contiguous engine (``prefill``/``decode``/``insert``, ``generate``)
-and page migration are not ported yet.
+``warmup`` runs each of those shapes once, so an online server builds the
+kernels before it reports ready.  The contiguous engine (``prefill`` /
+``decode`` / ``insert``, ``generate``) and page migration are not ported
+yet.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Mapping, Optional, Tuple
+import time
+from typing import Callable, Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -226,6 +229,11 @@ class InferenceEngine:
         if self.kv_dtype == "int8":
             per_page += 2 * cfg.kv_heads * 4
         return per_page * self.num_pages * cfg.num_hidden_layers
+
+    def kv_bytes_per_token(self) -> float:
+        """Pool bytes per cacheable token position (``num_pages x
+        page_size`` over the whole pool)."""
+        return self.pool_bytes() / float(self.num_pages * self.page_size)
 
     # -- multi-tenant adapter slots (adapter_slots set at construction) ------
 
@@ -443,6 +451,73 @@ class InferenceEngine:
         draft = self._require_draft()
         logits = self._forward(token, pos, pool, block_tables, model=draft)
         return logits[:, -1, :], pool
+
+    # -- warmup --------------------------------------------------------------------
+
+    def warmup(self, batch: int, *, packed: bool = False) -> dict:
+        """Run every serving shape once before traffic arrives
+        (``relora_tpu/serve/engine.py:1152``): the ``(1, chunk_size)``
+        prefill chunk and the ``(batch, 1)`` decode (and the ``(batch,
+        spec_k+1)`` verify window when ``spec_k`` is set), or, ``packed``,
+        one ``step_paged`` per bucket of :meth:`packed_buckets`.  The port
+        compiles no program, but the first launch of each CUDA kernel builds
+        and loads it and the first GEMM of a shape creates cuBLAS's handle
+        and workspace: an online server pays that here, not inside a
+        request.  Every write lands in the null page of a pool of its own.
+
+        Returns the reference's report keys, filled with what ran:
+        ``shapes``, ``compiles`` (one ``{"fn", "duration_s", "reason"}`` per
+        shape run, its wall seconds ending in a device synchronize) and
+        ``n_compiles``, the number of shapes run."""
+        pool = self.init_pool()
+        W = self.block_table_width
+        runs: List[Tuple[str, list, Callable]] = []
+        if packed:
+            buckets = self.packed_buckets()
+            for Tb in buckets:
+                runs.append(("step_paged", [1, Tb], lambda Tb=Tb: self.step_paged(
+                    pool, np.zeros((1, Tb), np.int32), np.full((1, Tb), self.cache_size, np.int32),
+                    np.zeros((batch + 1, W + 1), np.int32), np.full((Tb,), batch, np.int32),
+                )))
+        else:
+            runs.append(("prefill_chunk", [1, self.chunk_size], lambda: self.prefill_chunk(
+                np.zeros((1, self.chunk_size), np.int32), 0, pool, np.zeros((1, W), np.int32),
+            )))
+            runs.append(("decode_paged", [batch, 1], lambda: self.decode_paged(
+                pool, np.zeros((batch, 1), np.int32), np.zeros((batch, 1), np.int32),
+                np.zeros((batch, W), np.int32),
+            )))
+            if self.spec_k > 0:
+                S = self.spec_k + 1
+                runs.append(("verify_paged", [batch, S], lambda: self.verify_paged(
+                    pool, np.zeros((batch, S), np.int32),
+                    np.full((batch, S), self.cache_size, np.int32),
+                    np.zeros((batch, W + 1), np.int32),
+                )))
+        compiles = []
+        shapes: dict = {}
+        for fn, shape, run in runs:
+            t0 = time.perf_counter()
+            run()
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            compiles.append(
+                {"fn": fn, "duration_s": round(time.perf_counter() - t0, 4), "reason": "warmup"}
+            )
+            shapes.setdefault(fn, []).append(shape)
+        report = {
+            "batch": batch,
+            "prompt_buckets": [],
+            "kv_dtype": self.kv_dtype,
+            "spec_k": self.spec_k,
+            "shapes": {fn: v if fn == "step_paged" else v[0] for fn, v in shapes.items()},
+            "n_compiles": len(compiles),
+            "compiles": compiles,
+        }
+        if packed:
+            report["packed_buckets"] = list(buckets)
+            report["token_budget"] = self.token_budget
+        return report
 
     def packed_buckets(self) -> Tuple[int, ...]:
         """Packed-step sizes: halving from ``token_budget`` down to 8."""

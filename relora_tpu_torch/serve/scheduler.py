@@ -38,8 +38,16 @@ output is the plain drain's token for token.  A row drafts at most its
 remaining budget minus one, so no window writes past the request's
 admission allocation and a rejected draft needs no rollback.  A round in
 which no row drafted takes the plain decode.  Packed rounds carry the
-windows inside the one ``step_paged`` dispatch.  Disaggregated roles,
-tracing and metrics are not ported yet; asking for them raises.
+windows inside the one ``step_paged`` dispatch.  Disaggregated roles are
+not ported yet; asking for one raises.
+
+Telemetry (``relora_tpu/serve/scheduler.py``): ``metrics`` (a
+:class:`~relora_tpu_torch.utils.logging.MetricsLogger`) receives one
+``serve/*`` record per round and one per finished request; ``tracer`` gets
+the ``prefill_chunk``, ``decode_step`` and per-request ``decode`` spans under
+each request's ``trace_id`` (``submit(trace_id=)``); ``obs_registry`` (the
+server's ``ServeMetrics``) the per-phase histograms, the dispatch, round and
+speculative counters and the round's gauges.  All three default to off.
 """
 
 from __future__ import annotations
@@ -53,6 +61,7 @@ from typing import Callable, Deque, Dict, Iterable, List, Optional, Sequence
 import numpy as np
 import torch
 
+from relora_tpu_torch.obs.tracer import NoopTracer
 from relora_tpu_torch.serve.adapters import BASE_ADAPTER
 from relora_tpu_torch.serve.engine import InferenceEngine
 from relora_tpu_torch.serve.paging import PageAllocator, PrefixCache, pages_needed
@@ -106,6 +115,7 @@ class _Slot:
     t_admit: float
     t_first: float
     deadline: Optional[float] = None
+    span: Optional[object] = None  # the request's "decode" span, ended at retirement
     adapter_slot: int = 0  # the slot this request's adapter is pinned to
 
 
@@ -132,14 +142,17 @@ class ContinuousBatchingScheduler:
                 "adapter_registry needs an engine built with adapter_slots "
                 "(the stacked multi-tenant LoRA layout)"
             )
-        if metrics is not None or tracer is not None or obs_registry is not None:
-            raise _not_ported("serving metrics and tracing")
         self.engine = engine
         self.max_batch = max_batch
         self.eos_id = eos_id
         self.top_k = top_k
         self.seed = seed
+        self.metrics = metrics
         self.adapter_registry = adapter_registry
+        # tracing is off unless a tracer is given; the HTTP server gives its
+        # own Tracer and ServeMetrics
+        self.tracer = tracer if tracer is not None else NoopTracer()
+        self.obs_registry = obs_registry
         self._step_count = 0
         self._pending: Deque[Request] = deque()
         self._slots: List[Optional[_Slot]] = [None] * max_batch
@@ -151,6 +164,7 @@ class ContinuousBatchingScheduler:
         self._deadlines: Dict[int, float] = {}
         self._on_token: Dict[int, TokenCallback] = {}
         self._on_finish: Dict[int, FinishCallback] = {}
+        self._trace_ids: Dict[int, str] = {}  # uid -> the request's trace id
 
     def _request_generator(self, req: Request, token_index: int):
         # keyed by (uid, token index): a request's sample stream does not
@@ -196,12 +210,13 @@ class ContinuousBatchingScheduler:
         on_token: Optional[TokenCallback] = None,
         on_finish: Optional[FinishCallback] = None,
         deadline: Optional[float] = None,
+        trace_id: Optional[str] = None,
     ) -> None:
         """Queue a request for admission at the next ``step()``.
         ``on_token(uid, token, index)`` fires per sampled token, ``on_finish``
         once with the Completion; ``deadline`` is an absolute
         ``time.monotonic()`` bound (past it the request finishes with reason
-        ``"timeout"``)."""
+        ``"timeout"``); ``trace_id`` tags every span the request produces."""
         self.validate_request(req)
         if req.uid in self._deadlines or req.uid in self._on_finish or any(
             r.uid == req.uid for r in self._pending
@@ -213,7 +228,13 @@ class ContinuousBatchingScheduler:
             self._on_token[req.uid] = on_token
         if on_finish is not None:
             self._on_finish[req.uid] = on_finish
+        if trace_id is not None:
+            self._trace_ids[req.uid] = trace_id
         self._pending.append(req)
+
+    def _observe(self, name: str, value: float) -> None:
+        if self.obs_registry is not None:
+            self.obs_registry.observe(name, value)
 
     def cancel(
         self, uid: int, reason: str = "cancelled", detail: Optional[str] = None
@@ -229,8 +250,29 @@ class ContinuousBatchingScheduler:
                 return self._retire(slot_idx, reason, detail)
         return None
 
+    def fail_all(self, reason: str = "error", detail: Optional[str] = None) -> List[Completion]:
+        """Finish every queued and active request with ``reason`` (the
+        model thread's death): each keeps the tokens it has, callbacks fire
+        as usual, and nothing touches the device."""
+        completions: List[Completion] = []
+        for req in list(self._pending):
+            self._pending.remove(req)
+            completions.append(self._finalize_unadmitted(req, reason, detail))
+        for slot_idx, slot in enumerate(self._slots):
+            if slot is not None:
+                completions.append(self._retire(slot_idx, reason, detail))
+        return completions
+
     def has_work(self) -> bool:
         return bool(self._pending) or any(s is not None for s in self._slots)
+
+    @property
+    def queue_depth(self) -> int:
+        return len(self._pending)
+
+    @property
+    def active_slots(self) -> int:
+        return sum(s is not None for s in self._slots)
 
     def step(self) -> List[Completion]:
         raise _not_ported("the contiguous (prefill-on-admission) scheduler")
@@ -268,6 +310,26 @@ class ContinuousBatchingScheduler:
     def _release_adapter(self, req: Request) -> None:
         if self.adapter_registry is not None and req.adapter is not None:
             self.adapter_registry.release(req.adapter)
+
+    def _count_adapter_request(self, req: Request) -> None:
+        if self.adapter_registry is not None and self.obs_registry is not None:
+            self.obs_registry.inc(
+                "adapter_requests_total", label=("adapter", req.adapter or "base")
+            )
+
+    def _adapter_gauges(self, record: Optional[Dict] = None) -> None:
+        """Publish the registry's occupancy beside the round's gauges, and
+        into the round's record when one is being built."""
+        if self.adapter_registry is None:
+            return
+        stats = self.adapter_registry.stats()
+        if self.obs_registry is not None:
+            self.obs_registry.set_gauge("adapter_slots_used", stats["slots_used"])
+            self.obs_registry.set_gauge("adapter_hit_rate", stats["hit_rate"])
+        if record is not None:
+            record["serve/adapter_slots_used"] = stats["slots_used"]
+            record["serve/adapter_evictions_total"] = stats["evictions_total"]
+            record["serve/adapter_hit_rate"] = stats["hit_rate"]
 
     def _expire_deadlines(self, finished: List[Completion]) -> None:
         if not self._deadlines:
@@ -340,22 +402,45 @@ class ContinuousBatchingScheduler:
         self._slots[slot_idx] = None
         self._adapter_row[slot_idx] = 0  # free rows decode the identity adapter
         self._release_adapter(req)
+        self._count_adapter_request(req)
+        if slot.span is not None:
+            slot.span.set(finish_reason=reason, output_tokens=len(completion.tokens)).end()
+            self._observe("decode_seconds", now - slot.t_first)
+        n = len(completion.tokens)
+        self._log_request(completion, (n - 1) / max(now - slot.t_first, 1e-9) if n > 1 else 0.0)
         self._finalize(completion)
         return completion
+
+    def _log_request(self, completion: Completion, decode_tokens_per_s: float) -> None:
+        """The finished request's ``metrics.jsonl`` record."""
+        if self.metrics is not None:
+            self.metrics.log({
+                "serve_request": completion.uid,
+                "serve/prompt_tokens": completion.prompt_tokens,
+                "serve/output_tokens": len(completion.tokens),
+                "serve/finish_reason": completion.finish_reason,
+                "serve/ttft_s": completion.ttft_s,
+                "serve/latency_s": completion.latency_s,
+                "serve/decode_tokens_per_s": decode_tokens_per_s,
+            })
 
     def _finalize_unadmitted(
         self, req: Request, reason: str, detail: Optional[str] = None
     ) -> Completion:
+        """A request that never reached a slot: empty output, zero times."""
+        self._count_adapter_request(req)
         completion = Completion(
             uid=req.uid, tokens=[], finish_reason=reason,
             prompt_tokens=len(req.prompt), ttft_s=0.0, latency_s=0.0, error=detail,
         )
+        self._log_request(completion, 0.0)
         self._finalize(completion)
         return completion
 
     def _finalize(self, completion: Completion) -> None:
         self._deadlines.pop(completion.uid, None)
         self._on_token.pop(completion.uid, None)
+        self._trace_ids.pop(completion.uid, None)
         callback = self._on_finish.pop(completion.uid, None)
         if callback is None:
             return
@@ -422,6 +507,7 @@ class PagedContinuousBatchingScheduler(ContinuousBatchingScheduler):
             prefix_cache = False
         if role != "mixed":
             raise _not_ported(f"disaggregated serving (role={role!r})")
+        self.role = role
         if not getattr(engine, "paged", False):
             raise ValueError("PagedContinuousBatchingScheduler needs a paged engine")
         self._spec = spec
@@ -463,6 +549,18 @@ class PagedContinuousBatchingScheduler(ContinuousBatchingScheduler):
             (self.max_batch + 1, engine.block_table_width + 1), np.int32
         )
         self._admit_seq = 0
+        self._pad_tokens = 0  # prefill chunk padding written, cumulative
+        self._prefill_tokens = 0  # real prompt tokens written, cumulative
+        # dispatch economics, cumulative: rounds, model dispatches, and the
+        # dispatched window positions (all, and those carrying live work)
+        self._round_total = 0
+        self._dispatch_total = 0
+        self._dispatch_tokens = 0
+        self._dispatch_tokens_real = 0
+        self._admit_time_s = 0.0  # admission and prefill wall time
+        self._decode_time_s = 0.0  # decode / packed step wall time
+        self._kv_cache_bytes = engine.pool_bytes()
+        self._kv_bytes_per_token = engine.kv_bytes_per_token()
 
     def _ensure_pool(self):
         if self._pool is None:
@@ -567,6 +665,9 @@ class PagedContinuousBatchingScheduler(ContinuousBatchingScheduler):
         slot.tokens = [first_id]
         slot.pos = L
         slot.t_first = time.monotonic()
+        slot.span = self.tracer.start_span(
+            "decode", trace_id=self._trace_ids.get(req.uid), uid=req.uid
+        )
         self._tokens[slot_idx] = first_id
         self._positions[slot_idx] = L
         self._tables[slot_idx, : len(slot.pages)] = slot.pages
@@ -604,18 +705,32 @@ class PagedContinuousBatchingScheduler(ContinuousBatchingScheduler):
         ids[0, :n_real] = list(req.prompt[start : start + n_real])
         table = np.zeros((1, self.engine.block_table_width), np.int32)
         table[0, : len(slot.pages)] = slot.pages
-        logits, self._pool = self.engine.prefill_chunk(
-            ids, start, self._ensure_pool(), table, adapter_idx=[slot.adapter_slot]
-        )
-        if self._spec == "model":
-            # the draft prefills the same chunk into its own page run, so
-            # base and draft stay in lockstep position by position
-            draft_table = np.zeros((1, self.engine.block_table_width), np.int32)
-            draft_table[0, : len(slot.draft_pages)] = slot.draft_pages
-            _, self._pool = self.engine.draft_prefill_chunk(ids, start, self._pool, draft_table)
-        slot.prefill_progress = start + n_real
-        if slot.prefill_progress >= L:
-            self._arm_decoding(slot_idx, self._sample_one(logits[:, L - 1 - start, :], req), finished)
+        self._pad_tokens += chunk - n_real
+        self._prefill_tokens += n_real
+        first_id = None
+        t0 = time.monotonic()
+        with self.tracer.span(
+            "prefill_chunk", trace_id=self._trace_ids.get(req.uid), uid=req.uid,
+            start=start, chunk=chunk,
+        ):
+            logits, self._pool = self.engine.prefill_chunk(
+                ids, start, self._ensure_pool(), table, adapter_idx=[slot.adapter_slot]
+            )
+            self._count_dispatch(chunk, n_real)
+            if self._spec == "model":
+                # the draft prefills the same chunk into its own page run, so
+                # base and draft stay in lockstep position by position
+                draft_table = np.zeros((1, self.engine.block_table_width), np.int32)
+                draft_table[0, : len(slot.draft_pages)] = slot.draft_pages
+                _, self._pool = self.engine.draft_prefill_chunk(ids, start, self._pool, draft_table)
+                self._count_dispatch(chunk, n_real)
+            slot.prefill_progress = start + n_real
+            if slot.prefill_progress >= L:
+                # the first token's host pull is the span's sync point
+                first_id = self._sample_one(logits[:, L - 1 - start, :], req)
+        self._observe("prefill_seconds", time.monotonic() - t0)
+        if first_id is not None:
+            self._arm_decoding(slot_idx, first_id, finished)
 
     # -- speculative draft / verify ------------------------------------------------
 
@@ -674,6 +789,7 @@ class PagedContinuousBatchingScheduler(ContinuousBatchingScheduler):
             logits, self._pool = self.engine.draft_decode_paged(
                 self._ensure_pool(), cur, positions[:, None], tables
             )
+            self._count_dispatch(B, int(live.sum()))
             cur = torch.argmax(logits, dim=-1).to(torch.int32).reshape(-1, 1)
             proposals.append(cur)
         stacked = torch.cat(proposals, dim=1).cpu().numpy()  # one host pull
@@ -727,6 +843,7 @@ class PagedContinuousBatchingScheduler(ContinuousBatchingScheduler):
         logits, self._pool = self.engine.verify_paged(
             self._ensure_pool(), tokens, positions, tables, adapter_idx=self._adapter_row
         )
+        self._count_dispatch(B * S, len(eligible) + int(rows[1].sum()))
         self._spec_rounds += 1
         self._commit_spec_walk(logits, rows, eligible, finished)
 
@@ -760,6 +877,9 @@ class PagedContinuousBatchingScheduler(ContinuousBatchingScheduler):
                     break  # EOS or the budget inside the window: drop the rest
         self._spec_drafted += drafted
         self._spec_accepted += accepted
+        if self.obs_registry is not None and drafted:
+            self.obs_registry.inc("spec_drafted_total", by=drafted)
+            self.obs_registry.inc("spec_accepted_total", by=accepted)
 
     def spec_stats(self) -> Dict:
         """Cumulative speculative counters: mode, window size, drafted and
@@ -783,36 +903,53 @@ class PagedContinuousBatchingScheduler(ContinuousBatchingScheduler):
         if self._packed:
             return self._step_packed()
         finished: List[Completion] = []
+        t_step = time.monotonic()
+        d0 = self._dispatch_total
         self._expire_deadlines(finished)
         self._admit_pass(finished)
         self._prefill_pass(finished)
+        admit_s = time.monotonic() - t_step
         decoding = [s if (s is not None and s.decoding) else None for s in self._slots]
-        if not any(s is not None for s in decoding):
+        n_decoding = sum(s is not None for s in decoding)
+        if n_decoding == 0:
+            if self._dispatch_total > d0:
+                self._count_round()  # a round of prefill alone still dispatched
+                self._admit_time_s += admit_s
             return finished
+        t_decode = time.monotonic()
         if self._spec == "ngram":
             drafts = self._draft_pass()
         elif self._spec == "model":
             drafts = self._model_draft_pass()
         else:
             drafts = {}
-        if drafts:
-            # the walk commits straight into the slots
-            self._verify_round(drafts, finished)
+        next_tokens = None
+        with self.tracer.span(
+            "decode_step", step=self._step_count, active_slots=n_decoding,
+            spec_drafted=sum(len(d) for d in drafts.values()),
+        ):
+            if drafts:
+                # the walk commits straight into the slots
+                self._verify_round(drafts, finished)
+            else:
+                logits, self._pool = self.engine.decode_paged(
+                    self._ensure_pool(),
+                    self._tokens[:, None],
+                    self._positions[:, None],
+                    self._tables,
+                    adapter_idx=self._adapter_row,
+                )
+                self._count_dispatch(self.max_batch, n_decoding)
+                next_tokens = self._sample_rows(logits, decoding).tolist()
             self._step_count += 1
-            return finished
-        logits, self._pool = self.engine.decode_paged(
-            self._ensure_pool(),
-            self._tokens[:, None],
-            self._positions[:, None],
-            self._tables,
-            adapter_idx=self._adapter_row,
-        )
-        self._step_count += 1
-        next_tokens = self._sample_rows(logits, decoding).tolist()
-        for slot_idx, slot in enumerate(decoding):
-            if slot is None:
-                continue
-            self._advance(slot_idx, next_tokens[slot_idx], finished)
+        decode_s = time.monotonic() - t_decode
+        self._observe("decode_step_seconds", decode_s)
+        self._count_round()
+        if next_tokens is not None:
+            for slot_idx, slot in enumerate(decoding):
+                if slot is not None:
+                    self._advance(slot_idx, next_tokens[slot_idx], finished)
+        self._round_metrics(admit_s, decode_s, n_decoding)
         return finished
 
     def _advance(self, slot_idx: int, tok: int, finished: List[Completion]) -> None:
@@ -835,10 +972,13 @@ class PagedContinuousBatchingScheduler(ContinuousBatchingScheduler):
         (``row_map``); sampling uses the sequential round's calls and keys,
         so the drain is token-identical to the unpacked scheduler's."""
         finished: List[Completion] = []
+        t_step = time.monotonic()
         self._expire_deadlines(finished)
         self._admit_pass(finished)
+        admit_s = time.monotonic() - t_step
         if not any(s is not None for s in self._slots):
             return finished
+        t_decode = time.monotonic()
         engine = self.engine
         B = self.max_batch
         drafts = self._draft_pass() if self._spec == "ngram" else {}
@@ -888,44 +1028,155 @@ class PagedContinuousBatchingScheduler(ContinuousBatchingScheduler):
         poss.extend([engine.cache_size] * pad)  # clips into the null page
         rows.extend([B] * pad)  # the all-null pad row of _ptables
         adap.extend([0] * pad)  # pad tokens decode the identity adapter
-        logits, self._pool = engine.step_paged(
-            self._ensure_pool(),
-            np.asarray(ids, np.int32)[None, :],
-            np.asarray(poss, np.int32)[None, :],
-            self._ptables,
-            np.asarray(rows, np.int32),
-            adapter_idx=np.asarray(adap, np.int32),
-        )
-        self._step_count += 1
+        self._pad_tokens += pad
+        self._prefill_tokens += sum(n for _, _, n, _ in prefill_spans)
+        with self.tracer.span(
+            "decode_step", step=self._step_count, active_slots=len(slot_off),
+            spec_drafted=int(window[1].sum()) if drafts else 0, packed_tokens=bucket,
+        ):
+            logits, self._pool = engine.step_paged(
+                self._ensure_pool(),
+                np.asarray(ids, np.int32)[None, :],
+                np.asarray(poss, np.int32)[None, :],
+                self._ptables,
+                np.asarray(rows, np.int32),
+                adapter_idx=np.asarray(adap, np.int32),
+            )
+            self._step_count += 1
 
-        if slot_off and drafts:
-            # each window's logits gathered by its packed offsets: (B, S, V)
-            win_idx = np.zeros(B * S, np.int64)
-            for slot_idx, off in slot_off.items():
-                win_idx[slot_idx * S : (slot_idx + 1) * S] = off + np.arange(S)
-            win = logits[0][torch.as_tensor(win_idx, device=logits.device)]
-            self._spec_rounds += 1
-            self._commit_spec_walk(win.reshape(B, S, -1), window, set(slot_off), finished)
-        elif slot_off:
-            sample_idx = np.zeros(B, np.int64)
-            for slot_idx, off in slot_off.items():
-                sample_idx[slot_idx] = off
-            gathered = logits[0][sample_idx]
-            masked = [s if i in slot_off else None for i, s in enumerate(self._slots)]
-            next_tokens = self._sample_rows(gathered, masked).tolist()
-            for slot_idx in sorted(slot_off):
-                self._advance(slot_idx, next_tokens[slot_idx], finished)
+            if slot_off and drafts:
+                # each window's logits gathered by its packed offsets: (B, S, V)
+                win_idx = np.zeros(B * S, np.int64)
+                for slot_idx, off in slot_off.items():
+                    win_idx[slot_idx * S : (slot_idx + 1) * S] = off + np.arange(S)
+                win = logits[0][torch.as_tensor(win_idx, device=logits.device)]
+                self._spec_rounds += 1
+                self._commit_spec_walk(win.reshape(B, S, -1), window, set(slot_off), finished)
+            elif slot_off:
+                sample_idx = np.zeros(B, np.int64)
+                for slot_idx, off in slot_off.items():
+                    sample_idx[slot_idx] = off
+                gathered = logits[0][sample_idx]
+                masked = [s if i in slot_off else None for i, s in enumerate(self._slots)]
+                next_tokens = self._sample_rows(gathered, masked).tolist()
+                for slot_idx in sorted(slot_off):
+                    self._advance(slot_idx, next_tokens[slot_idx], finished)
 
-        for slot_idx, start, n, off in prefill_spans:
-            slot = self._slots[slot_idx]
-            if slot is None:
-                continue
-            slot.prefill_progress = start + n
-            if slot.prefill_progress < len(slot.request.prompt):
-                continue
-            first_id = self._sample_one(logits[:, off + n - 1, :], slot.request)
-            self._arm_decoding(slot_idx, first_id, finished)
+            for slot_idx, start, n, off in prefill_spans:
+                slot = self._slots[slot_idx]
+                if slot is None:
+                    continue
+                slot.prefill_progress = start + n
+                if slot.prefill_progress < len(slot.request.prompt):
+                    continue
+                first_id = self._sample_one(logits[:, off + n - 1, :], slot.request)
+                self._arm_decoding(slot_idx, first_id, finished)
+        decode_s = time.monotonic() - t_decode
+        self._observe("decode_step_seconds", decode_s)
+        # dispatch and round tick together at the round's end, so a /healthz
+        # read between them never sees dispatches != rounds
+        self._count_dispatch(bucket, n_real)
+        self._count_round()
+        self._round_metrics(admit_s, decode_s, len(slot_off))
         return finished
+
+    # -- dispatch accounting and the round's telemetry ----------------------------
+
+    def _count_dispatch(self, tokens: int, real: int) -> None:
+        """One model dispatch of ``tokens`` window positions, ``real`` of
+        which carried live work (the rest is shape padding)."""
+        self._dispatch_total += 1
+        self._dispatch_tokens += tokens
+        self._dispatch_tokens_real += real
+        if self.obs_registry is not None:
+            self.obs_registry.inc("model_dispatches_total")
+            self.obs_registry.inc("dispatch_tokens_total", by=tokens)
+            self.obs_registry.inc("dispatch_tokens_real_total", by=real)
+
+    def _count_round(self) -> None:
+        self._round_total += 1
+        if self.obs_registry is not None:
+            self.obs_registry.inc("sched_rounds_total")
+
+    def _round_metrics(self, admit_s: float, decode_s: float, n_decoding: int) -> None:
+        """The round's gauges and ``metrics.jsonl`` record, shared by the
+        sequential and packed rounds (``relora_tpu/serve/scheduler.py:
+        1605-1686``: the same gauge and counter names and record keys).
+        With neither sink attached it only adds up the round's times."""
+        self._admit_time_s += admit_s
+        self._decode_time_s += decode_s
+        if self.obs_registry is None and self.metrics is None:
+            return
+        batch_fill = n_decoding / self.max_batch
+        stall_share = admit_s / max(admit_s + decode_s, 1e-9)
+        pad_share = self._pad_tokens / max(self._pad_tokens + self._prefill_tokens, 1)
+        hit_rate = self.prefix_cache.hit_rate if self.prefix_cache is not None else 0.0
+        dispatches_per_round = self._dispatch_total / max(self._round_total, 1)
+        tokens_per_dispatch = self._dispatch_tokens / max(self._dispatch_total, 1)
+        token_utilization = self._dispatch_tokens_real / max(self._dispatch_tokens, 1)
+        reg = self.obs_registry
+        if reg is not None:
+            for name, value in (
+                ("batch_fill", batch_fill),
+                ("prefill_stall_share", stall_share),
+                ("kv_pages_used", self.allocator.used_pages),
+                ("kv_pages_free", self.allocator.free_pages),
+                ("prefix_cache_hit_rate", hit_rate),
+                ("prefill_pad_share", pad_share),
+                ("kv_cache_bytes", self._kv_cache_bytes),
+                ("kv_bytes_per_token", self._kv_bytes_per_token),
+                ("dispatches_per_round", dispatches_per_round),
+                ("tokens_per_dispatch", tokens_per_dispatch),
+                ("packed_token_utilization", token_utilization),
+            ):
+                reg.set_gauge(name, value)
+            # by=0 materializes the counters, so /metrics shows every series
+            # from the first round (the migration and fetch counters stay 0:
+            # the disaggregated tier is not ported)
+            for name in (
+                "model_dispatches_total", "sched_rounds_total", "dispatch_tokens_total",
+                "dispatch_tokens_real_total", "pages_migrated_total", "migration_bytes_total",
+                "migration_failures_total", "migrated_inserts_total", "prefix_fetch_total",
+                "prefix_fetch_failures_total",
+            ):
+                reg.inc(name, by=0)
+            if self._spec != "off":
+                reg.set_gauge("spec_accept_rate", self._spec_accepted / max(self._spec_drafted, 1))
+                reg.set_gauge("spec_mode_model", 1.0 if self._spec == "model" else 0.0)
+                reg.inc("spec_drafted_total", by=0)
+                reg.inc("spec_accepted_total", by=0)
+        record = None
+        if self.metrics is not None:
+            record = {
+                "serve/decode_step": self._step_count,
+                "serve/queue_depth": len(self._pending),
+                "serve/active_slots": self.active_slots,
+                "serve/batch_fill": round(batch_fill, 4),
+                "serve/prefill_stall_s": round(admit_s, 6),
+                "serve/prefill_stall_share": round(stall_share, 4),
+                "serve/kv_pages_used": self.allocator.used_pages,
+                "serve/kv_pages_free": self.allocator.free_pages,
+                "serve/prefix_cache_hit_rate": round(hit_rate, 4),
+                "serve/prefill_pad_share": round(pad_share, 4),
+                "serve/kv_cache_bytes": self._kv_cache_bytes,
+                "serve/kv_bytes_per_token": round(self._kv_bytes_per_token, 4),
+                "serve/dispatches_per_round": round(dispatches_per_round, 4),
+                "serve/tokens_per_dispatch": round(tokens_per_dispatch, 4),
+                "serve/packed_token_utilization": round(token_utilization, 4),
+                # the reference counts jit retraces after warmup here; the
+                # port compiles nothing at run time
+                "compile/steady_state_retraces": 0,
+            }
+            if self._spec != "off":
+                record["serve/spec_drafted_total"] = self._spec_drafted
+                record["serve/spec_accepted_total"] = self._spec_accepted
+                record["serve/spec_accept_rate"] = round(
+                    self._spec_accepted / max(self._spec_drafted, 1), 4
+                )
+                record["serve/spec_mode_model"] = 1 if self._spec == "model" else 0
+        self._adapter_gauges(record)
+        if record is not None:
+            self.metrics.log(record)
 
     # -- retirement (page bookkeeping) --------------------------------------------
 
@@ -946,3 +1197,50 @@ class PagedContinuousBatchingScheduler(ContinuousBatchingScheduler):
         self._tokens[slot_idx] = 0
         self._positions[slot_idx] = 0
         return completion
+
+    def paging_stats(self) -> Dict:
+        """Pool, prefix-cache, speculative and dispatch counters: the
+        ``paging`` block of ``/healthz``."""
+        stats: Dict = {
+            "kv_pages_used": self.allocator.used_pages,
+            "kv_pages_free": self.allocator.free_pages,
+            "kv_pages_peak": self.allocator.peak_used,
+            "kv_dtype": self.engine.kv_dtype,
+            "kv_cache_bytes": self._kv_cache_bytes,
+            "kv_bytes_per_token": round(self._kv_bytes_per_token, 4),
+            "kv_used_bytes": self.allocator.used_bytes,
+            "prefill_pad_share": round(
+                self._pad_tokens / max(self._pad_tokens + self._prefill_tokens, 1), 4
+            ),
+        }
+        if self.prefix_cache is not None:
+            stats["prefix_cache"] = self.prefix_cache.stats()
+        if self._spec != "off":
+            stats["spec"] = self.spec_stats()
+        stats["dispatch"] = self.dispatch_stats()
+        return stats
+
+    def dispatch_stats(self) -> Dict:
+        """Cumulative dispatch economics: rounds, dispatches, dispatched and
+        live window positions, admission and decode wall time."""
+        stats: Dict = {
+            "mode": "packed" if self._packed else "sequential",
+            "rounds": self._round_total,
+            "model_dispatches": self._dispatch_total,
+            "dispatches_per_round": round(self._dispatch_total / max(self._round_total, 1), 4),
+            "tokens_total": self._dispatch_tokens,
+            "tokens_real": self._dispatch_tokens_real,
+            "tokens_per_dispatch": round(self._dispatch_tokens / max(self._dispatch_total, 1), 4),
+            "packed_token_utilization": round(
+                self._dispatch_tokens_real / max(self._dispatch_tokens, 1), 4
+            ),
+            "admit_time_s": round(self._admit_time_s, 6),
+            "decode_time_s": round(self._decode_time_s, 6),
+            "prefill_stall_share": round(
+                self._admit_time_s / max(self._admit_time_s + self._decode_time_s, 1e-9), 4
+            ),
+        }
+        if self._packed:
+            stats["token_budget"] = self.engine.token_budget
+            stats["buckets"] = list(self.engine.packed_buckets())
+        return stats

@@ -1,0 +1,839 @@
+"""Async HTTP/1.1 serving front end: streaming generation over the scheduler.
+
+The port's own copy of ``relora_tpu/serve/server.py``, stdlib only beside
+the scheduler: one asyncio listener accepts requests while a dedicated
+**model thread** drives the paged engine through the scheduler's
+incremental core.  The decode loop never blocks the event loop, and the
+event loop never touches a tensor.
+
+Endpoints:
+
+- ``POST /v1/generate`` — body ``{"prompt": [ids...], "max_new_tokens": N,
+  "temperature": T, "top_p": P, "stream": true, "deadline_s": S, "spec":
+  true, "adapter": NAME}``.  Streaming responses are Server-Sent Events:
+  one ``data: {"uid", "index", "token"}`` event per sampled token, a final
+  ``data: {...finish record...}`` with the tokens and latency fields, then
+  ``data: [DONE]``.  ``"stream": false`` returns the finish record alone.
+- ``GET /healthz`` — 200 ``ok`` while routable; 503 with ``error`` (the
+  model thread died), ``stuck`` (no decode step for ``stall_timeout_s``),
+  ``draining`` (SIGTERM) or ``warming`` (``warmup_fn`` still running the
+  serving shapes), with the scheduler's ``paging`` block.
+- ``GET /metrics`` — Prometheus text (``serve/admission.ServeMetrics``).
+- ``/admin/reload``, ``/internal/migrate``, ``/internal/prefix/*`` answer
+  501: weight hot-swap and the disaggregated tier are not ported yet
+  (ROADMAP Queue 1 item 4.4).
+
+Flow control: the ``AdmissionController`` is the only waiting room (a full
+queue answers 429 + Retry-After); ``deadline_s`` ends a request at a round
+boundary with its partial output (``finish_reason: "timeout"``); a client
+that hangs up is cancelled at the next round, freeing its slot; a drain
+(``begin_drain()`` or SIGTERM) answers 503 to new requests, finishes every
+accepted one, then stops the listener.
+
+CUDA on the model thread: the thread sets the engine's device before it
+runs anything, and the warmup (the first launch of every kernel, which
+builds and loads it) runs there before ``/healthz`` reports ``ok``.
+"""
+
+from __future__ import annotations
+
+import asyncio
+import json
+import os
+import signal
+import threading
+import time
+import zlib
+from typing import Any, Callable, Dict, Optional, Set, Tuple
+
+import torch
+
+from relora_tpu_torch.obs.flight import dump_on_fault
+from relora_tpu_torch.obs.tracer import NoopTracer, Tracer, new_trace_id
+from relora_tpu_torch.serve.admission import (
+    AdmissionController,
+    Draining,
+    QueueFull,
+    ServeMetrics,
+    Ticket,
+)
+from relora_tpu_torch.serve.scheduler import (
+    Completion,
+    ContinuousBatchingScheduler,
+    Request,
+)
+from relora_tpu_torch.serve.wire import (
+    head as _head,
+    read_http_request as _read_http_request,
+    respond as _respond,
+    respond_json as _respond_json,
+    sse as _sse,
+)
+from relora_tpu_torch.utils import faults
+from relora_tpu_torch.utils.logging import MetricsLogger, get_logger
+
+logger = get_logger(__name__)
+
+_REQUEST_TIMEOUT_S = 30.0
+_IDLE_POP_S = 0.02
+
+#: the fleet tier's routes (and their metrics label), answered 501 until
+#: it is ported; "/internal/prefix/" is a prefix
+_FLEET_ROUTES = {"/admin/reload": "reload", "/internal/migrate": "migrate"}
+_FLEET_PREFIX = "/internal/prefix/"
+_FLEET_501 = (
+    "not implemented in relora_tpu_torch: weight hot-swap and the "
+    "disaggregated tier wait for ROADMAP Queue 1 item 4.4"
+)
+
+
+def _completion_record(completion: Completion) -> Dict[str, Any]:
+    record = {
+        "uid": completion.uid,
+        "finish_reason": completion.finish_reason,
+        "tokens": completion.tokens,
+        "prompt_tokens": completion.prompt_tokens,
+        "output_tokens": len(completion.tokens),
+        "ttft_s": round(completion.ttft_s, 6),
+        "latency_s": round(completion.latency_s, 6),
+    }
+    if completion.error is not None:
+        record["error"] = completion.error
+    return record
+
+
+def _failed(ticket: Ticket, detail: str) -> Completion:
+    """The finish record of a request that never produced a token."""
+    return Completion(
+        uid=ticket.uid, tokens=[], finish_reason="error",
+        prompt_tokens=len(ticket.request.prompt), ttft_s=0.0, latency_s=0.0, error=detail,
+    )
+
+
+class BadRequest(Exception):
+    """Malformed request body: HTTP 400."""
+
+
+def parse_generate_body(
+    body: bytes,
+    *,
+    default_max_new_tokens: int,
+    default_temperature: float,
+    default_top_p: float,
+) -> Dict[str, Any]:
+    """Validate the /v1/generate JSON body into plain fields (no uid yet).
+    Raises BadRequest with a reader-facing message on any violation."""
+    try:
+        payload = json.loads(body.decode("utf-8") or "{}")
+    except (UnicodeDecodeError, json.JSONDecodeError) as e:
+        raise BadRequest(f"body is not valid JSON: {e}") from None
+    if not isinstance(payload, dict):
+        raise BadRequest("body must be a JSON object")
+    prompt = payload.get("prompt")
+    if not isinstance(prompt, list) or not all(
+        isinstance(t, int) and not isinstance(t, bool) for t in prompt
+    ):
+        raise BadRequest('"prompt" must be a list of token ids (ints)')
+    max_new = payload.get("max_new_tokens", default_max_new_tokens)
+    if not isinstance(max_new, int) or isinstance(max_new, bool) or max_new < 1:
+        raise BadRequest('"max_new_tokens" must be an int >= 1')
+    temperature = payload.get("temperature", default_temperature)
+    top_p = payload.get("top_p", default_top_p)
+    if not isinstance(temperature, (int, float)) or temperature < 0:
+        raise BadRequest('"temperature" must be a number >= 0')
+    if not isinstance(top_p, (int, float)) or not 0.0 < top_p <= 1.0:
+        raise BadRequest('"top_p" must be in (0, 1]')
+    stream = payload.get("stream", True)
+    if not isinstance(stream, bool):
+        raise BadRequest('"stream" must be a boolean')
+    deadline_s = payload.get("deadline_s")
+    if deadline_s is not None and (not isinstance(deadline_s, (int, float)) or deadline_s <= 0):
+        raise BadRequest('"deadline_s" must be a number > 0')
+    # "spec": false opts this request out of drafting on a --spec server
+    # (its tokens follow the same distribution); a no-op elsewhere
+    spec = payload.get("spec", True)
+    if not isinstance(spec, bool):
+        raise BadRequest('"spec" must be a boolean')
+    # "adapter" names a tenant under --adapter-dir; whether it is servable
+    # is the scheduler's call (validate_request)
+    adapter = payload.get("adapter")
+    if adapter is not None and (not isinstance(adapter, str) or not adapter.strip()):
+        raise BadRequest('"adapter" must be a non-empty string')
+    return {
+        "prompt": prompt,
+        "max_new_tokens": max_new,
+        "temperature": float(temperature),
+        "top_p": float(top_p),
+        "stream": stream,
+        "deadline_s": deadline_s,
+        "spec": spec,
+        "adapter": adapter.strip() if isinstance(adapter, str) else None,
+    }
+
+
+class GenerateServer:
+    """Asyncio front end over a paged continuous-batching scheduler.
+
+    The constructor takes an idle scheduler (the model thread becomes its
+    one driving thread).  ``serve_forever()`` binds, starts the model
+    thread, and runs until a drain completes; ``begin_drain()`` (thread-safe,
+    also wired to SIGTERM) starts the drain.
+    """
+
+    def __init__(
+        self,
+        scheduler: ContinuousBatchingScheduler,
+        *,
+        host: str = "127.0.0.1",
+        port: int = 8000,
+        max_queue: int = 64,
+        default_max_new_tokens: int = 64,
+        default_temperature: float = 0.0,
+        default_top_p: float = 1.0,
+        retry_after_s: float = 1.0,
+        stall_timeout_s: float = 0.0,
+        error_linger_s: float = 1.0,
+        metrics: Optional[MetricsLogger] = None,
+        tracer: Optional[Tracer] = None,
+        warmup_fn: Optional[Callable[[], Any]] = None,
+        reload_prepare: Optional[Callable] = None,
+        peer_file: Optional[str] = None,
+        fleet_url: Optional[str] = None,
+    ):
+        for name, value in (
+            ("reload_prepare", reload_prepare), ("peer_file", peer_file), ("fleet_url", fleet_url)
+        ):
+            if value is not None:
+                raise NotImplementedError(
+                    f"{name}: weight hot-swap and the disaggregated tier are not ported "
+                    "to relora_tpu_torch yet (ROADMAP Queue 1 item 4.4)"
+                )
+        self.scheduler = scheduler
+        self.host = host
+        self.port = port  # the bound port after bind (port=0 = ephemeral)
+        # fleet replicas mint disjoint uid spaces (a request's uid keys its
+        # sampling draws, so two replicas must never mint the same one)
+        self.replica_id = os.environ.get("RELORA_TPU_REPLICA_ID", f"pid{os.getpid()}")
+        uid_base = (
+            (zlib.crc32(self.replica_id.encode()) % 1021 + 1) << 21
+            if "RELORA_TPU_REPLICA_ID" in os.environ
+            else 0
+        )
+        self.admission = AdmissionController(
+            max_queue, retry_after_s=retry_after_s, uid_base=uid_base
+        )
+        self.stats = ServeMetrics()
+        self.metrics = metrics
+        if tracer is None:
+            # one JSONL sink a process: replicas of a fleet share a trace dir
+            trace_dir = os.environ.get("RELORA_TPU_TRACE_DIR")
+            tracer = Tracer(
+                service="serve",
+                jsonl_path=(
+                    os.path.join(trace_dir, f"serve_spans_{os.getpid()}.jsonl")
+                    if trace_dir
+                    else None
+                ),
+            )
+        self.tracer = tracer
+        # the scheduler's phase spans carry the requests' trace ids and its
+        # histograms land on this /metrics (unless it was given its own)
+        if isinstance(scheduler.tracer, NoopTracer):
+            scheduler.tracer = self.tracer
+        if scheduler.obs_registry is None:
+            scheduler.obs_registry = self.stats
+        # every adapter's series at zero before any tenant traffic
+        registry = scheduler.adapter_registry
+        if registry is not None:
+            if registry.metrics is None:
+                registry.metrics = self.stats
+            self.stats.inc("adapter_requests_total", ("adapter", "base"), 0)
+            for name in registry.list_adapters():
+                self.stats.inc("adapter_requests_total", ("adapter", name), 0)
+            self.stats.inc("adapter_evictions_total", by=0)
+            self.stats.set_gauge("adapter_slots_used", registry.slots_used())
+            self.stats.materialize_histogram("adapter_load_seconds")
+        self.stats.inc("requests_finished_total", ("reason", "stop"), 0)
+        self.stats.inc("requests_finished_total", ("reason", "error"), 0)
+        self.default_max_new_tokens = default_max_new_tokens
+        self.default_temperature = default_temperature
+        self.default_top_p = default_top_p
+        self.started = threading.Event()  # set once the listener is bound
+        self.drained = threading.Event()  # set once the model thread exits
+        self._t_start = time.monotonic()
+        self._loop: Optional[asyncio.AbstractEventLoop] = None
+        self._shutdown: Optional[asyncio.Event] = None
+        self._handler_tasks: Set[asyncio.Task] = set()
+        self._active: Dict[int, Ticket] = {}  # model thread only
+        self._worker = threading.Thread(target=self._model_loop, name="serve-model", daemon=True)
+        self._worker_error: Optional[BaseException] = None
+        # stall watchdog: no decode step for stall_timeout_s while the
+        # scheduler had work -> /healthz 503 "stuck" and one flight dump an
+        # episode (0 disables)
+        self.stall_timeout_s = stall_timeout_s
+        # after the model thread dies the listener stays up this long (or
+        # until a drain is asked for), so probes see 503 "error" before the
+        # process exits
+        self.error_linger_s = error_linger_s
+        self._drain_requested = threading.Event()  # ends the linger early
+        self._tokens_emitted = 0  # feeds faults.serve_tick
+        self._emitted_lock = threading.Lock()
+        self._last_step_t = time.monotonic()
+        self._model_busy = False  # model thread writes; watchdog reads
+        self._stuck = False  # watchdog writes; healthz reads
+        self._watchdog: Optional[threading.Thread] = None
+        # warmup runs first on the model thread: the listener binds (and
+        # the port file lands) at once, but /healthz answers 503 "warming"
+        # until every serving shape has run
+        self.warmup_fn = warmup_fn
+        self.warmup_report: Optional[Any] = None
+        self._warming = warmup_fn is not None
+        self.stats.set_gauge("warming", 1 if self._warming else 0)
+        self.role = getattr(scheduler, "role", "mixed")
+
+    # -- lifecycle -----------------------------------------------------------------
+
+    def begin_drain(self) -> None:
+        """Stop admitting (new requests get 503), finish in-flight and queued
+        work, then shut down.  Thread-safe and idempotent; after the model
+        thread died it also ends the error linger."""
+        self._drain_requested.set()
+        if self.admission.draining:
+            return
+        logger.info("drain requested: rejecting new requests, finishing in-flight")
+        self.admission.begin_drain()
+        self.stats.set_gauge("draining", 1)
+        if self.metrics is not None:
+            self.metrics.event(
+                "serve_drain_begin",
+                queue_depth=self.admission.depth(),
+                active_slots=self.scheduler.active_slots,
+            )
+
+    async def serve_forever(self, *, install_signal_handlers: bool = True) -> None:
+        self._loop = asyncio.get_running_loop()
+        self._shutdown = asyncio.Event()
+        server = await asyncio.start_server(self._client_connected, self.host, self.port)
+        self.port = server.sockets[0].getsockname()[1]
+        if install_signal_handlers:
+            try:
+                self._loop.add_signal_handler(signal.SIGTERM, self.begin_drain)
+            except (NotImplementedError, RuntimeError):
+                # not the main thread: callers drain with begin_drain()
+                logger.warning("SIGTERM handler unavailable; use begin_drain()")
+        self.stats.set_gauge("draining", 0)
+        self._worker.start()
+        if self.stall_timeout_s > 0:
+            self._watchdog = threading.Thread(
+                target=self._watchdog_loop, name="serve-watchdog", daemon=True
+            )
+            self._watchdog.start()
+        self.started.set()
+        logger.info(f"serving on http://{self.host}:{self.port}")
+        async with server:
+            await self._shutdown.wait()
+            server.close()
+            await server.wait_closed()
+        if self._handler_tasks:
+            # the finish events are queued on the loop: a bounded grace for
+            # the handlers to flush their last bytes
+            await asyncio.wait(set(self._handler_tasks), timeout=10.0)
+        if self.metrics is not None:
+            self.metrics.event("serve_drain_complete", **self.stats.snapshot())
+        logger.info("drain complete; server stopped")
+        if self._worker_error is not None:
+            raise RuntimeError("model thread died") from self._worker_error
+
+    def _signal_shutdown(self) -> None:
+        loop, shutdown = self._loop, self._shutdown
+        if loop is None or shutdown is None:
+            return
+        try:
+            loop.call_soon_threadsafe(shutdown.set)
+        except RuntimeError:
+            pass  # the loop already closed
+
+    # -- model thread ----------------------------------------------------------------
+
+    def _model_loop(self) -> None:
+        """The scheduler's one driving thread: claim tickets while slots are
+        free, apply cancellations, run one round, repeat.  Exits when
+        draining and nothing is left anywhere."""
+        sched = self.scheduler
+        try:
+            device = next(sched.engine.model.parameters()).device
+            if device.type == "cuda":
+                # a thread's current CUDA device is its own: launch every
+                # kernel on the card that holds the weights
+                torch.cuda.set_device(device)
+            if self.warmup_fn is not None:
+                t0 = time.monotonic()
+                logger.info("warmup: running every serving shape before going routable")
+                self.warmup_report = self.warmup_fn()
+                self._warming = False
+                self.stats.set_gauge("warming", 0)
+                self._last_step_t = time.monotonic()
+                logger.info(f"warmup complete in {time.monotonic() - t0:.1f}s; healthz -> ok")
+                if self.metrics is not None:
+                    detail = self.warmup_report if isinstance(self.warmup_report, dict) else {}
+                    self.metrics.event(
+                        "serve_warm", duration_s=round(time.monotonic() - t0, 3), **detail
+                    )
+            while True:
+                faults.serve_tick(self._tokens_emitted)  # serving drills only
+                while sched.active_slots + sched.queue_depth < sched.max_batch:
+                    ticket = self.admission.pop(timeout=None)
+                    if ticket is None:
+                        break
+                    self._claim(ticket)
+                for uid, ticket in list(self._active.items()):
+                    if ticket.cancelled.is_set():
+                        sched.cancel(uid)  # fires on_finish -> _active cleanup
+                self.stats.set_gauge("queue_depth", self.admission.depth() + sched.queue_depth)
+                self.stats.set_gauge("active_slots", sched.active_slots)
+                self.stats.set_gauge("retry_after_s", round(self.admission.retry_after_s, 3))
+                if sched.has_work():
+                    self._model_busy = True
+                    sched.step()
+                    self._last_step_t = time.monotonic()
+                    continue
+                self._model_busy = False
+                self._last_step_t = time.monotonic()  # idle is not a stall
+                if self.admission.draining and self.admission.depth() == 0:
+                    break
+                ticket = self.admission.pop(timeout=_IDLE_POP_S)
+                if ticket is not None:
+                    self._claim(ticket)
+        except BaseException as e:  # recorded and re-raised by serve_forever
+            self._worker_error = e
+            logger.error(f"model thread died: {e!r}")
+            dump_on_fault("serve_model_thread")  # the spans before the death
+            self._fail_pending(e)
+        finally:
+            self.drained.set()
+            if self._worker_error is not None and self.error_linger_s > 0:
+                self._drain_requested.wait(self.error_linger_s)
+            self._signal_shutdown()
+
+    def _fail_pending(self, error: BaseException) -> None:
+        """The model thread died: finish every active and queued request with
+        ``finish_reason="error"`` instead of stranding its stream."""
+        detail = f"model thread died: {error!r}"
+        self.stats.set_gauge("model_dead", 1)
+        try:
+            # the scheduler's requests: fail_all fires the usual on_finish
+            # wrappers, so metrics, spans and SSE finishes flow as always
+            self.scheduler.fail_all(reason="error", detail=detail)
+        except Exception as e:
+            logger.error(f"fail_all after model-thread death failed too: {e!r}")
+            for uid, ticket in list(self._active.items()):
+                self._active.pop(uid, None)
+                try:
+                    ticket.on_finish(_failed(ticket, detail))
+                except Exception:
+                    logger.exception(f"request {uid}: finish callback failed")
+        # tickets still waiting in admission, never claimed
+        while True:
+            ticket = self.admission.pop(timeout=None)
+            if ticket is None:
+                break
+            self.stats.inc("requests_finished_total", ("reason", "error"))
+            if ticket.queue_span is not None:
+                ticket.queue_span.set(outcome="error").end()
+            if ticket.span is not None:
+                ticket.span.set(finish_reason="error", output_tokens=0).end()
+            try:
+                ticket.on_finish(_failed(ticket, detail))
+            except Exception as e:
+                logger.warning(f"request {ticket.uid}: finish callback failed: {e!r}")
+
+    def _watchdog_loop(self) -> None:
+        """When the scheduler had work but no step completed for
+        ``stall_timeout_s``, flip ``/healthz`` to 503 "stuck" and dump the
+        flight recorder once an episode; un-stick when a step completes."""
+        interval = max(0.02, min(self.stall_timeout_s / 4.0, 1.0))
+        while not self.drained.is_set():
+            time.sleep(interval)
+            # _model_busy and _last_step_t freeze while the model thread is
+            # wedged, which is exactly the signal
+            stalled = (
+                self._model_busy
+                and time.monotonic() - self._last_step_t > self.stall_timeout_s
+            )
+            if stalled and not self._stuck:
+                self._stuck = True
+                self.stats.set_gauge("stuck", 1)
+                logger.error(
+                    f"watchdog: no decode step for {self.stall_timeout_s:.1f}s "
+                    "with work queued; healthz -> 503 stuck"
+                )
+                dump_on_fault("serve_stall")
+                if self.metrics is not None:
+                    self.metrics.event(
+                        "serve_stall_detected",
+                        stall_timeout_s=self.stall_timeout_s,
+                        active_slots=self.scheduler.active_slots,
+                    )
+            elif not stalled and self._stuck:
+                self._stuck = False
+                self.stats.set_gauge("stuck", 0)
+                logger.warning("watchdog: decode progress resumed; healthz -> ok")
+
+    def _claim(self, ticket: Ticket) -> None:
+        """Hand one admitted ticket to the scheduler (model thread only)."""
+        # the queue-wait span opened at admission on the event loop ends here
+        if ticket.queue_span is not None:
+            self.stats.observe("queue_wait_seconds", ticket.queue_span.end())
+        if ticket.cancelled.is_set():
+            # the client left while the request was queued: never admit it
+            self.stats.inc("requests_finished_total", ("reason", "cancelled"))
+            if ticket.span is not None:
+                ticket.span.set(finish_reason="cancelled", output_tokens=0).end()
+            ticket.on_finish(
+                Completion(
+                    uid=ticket.uid, tokens=[], finish_reason="cancelled",
+                    prompt_tokens=len(ticket.request.prompt), ttft_s=0.0, latency_s=0.0,
+                )
+            )
+            return
+        self._active[ticket.uid] = ticket
+        self.scheduler.submit(
+            ticket.request,
+            on_token=lambda uid, tok, idx, _t=ticket: self._token_cb(_t, uid, tok, idx),
+            on_finish=lambda completion, _t=ticket: self._finish_cb(_t, completion),
+            deadline=ticket.deadline,
+            trace_id=ticket.trace_id,
+        )
+
+    def _token_cb(self, ticket: Ticket, uid: int, token: int, index: int) -> None:
+        """Per-token bookkeeping: the latency histograms, the Retry-After
+        TPOT estimate, and the client's own on_token."""
+        now = time.monotonic()
+        if index == 0:
+            self.stats.observe("ttft_seconds", now - ticket.t_enqueue)
+        elif ticket.t_last_token is not None:
+            tpot = now - ticket.t_last_token
+            self.stats.observe("tpot_seconds", tpot)
+            self.admission.note_tpot(tpot)
+        ticket.t_last_token = now
+        with self._emitted_lock:
+            self._tokens_emitted += 1
+        self.stats.inc("tokens_generated_total")
+        ticket.on_token(uid, token, index)
+
+    def _finish_cb(self, ticket: Ticket, completion: Completion) -> None:
+        """Finish bookkeeping: counters, end-to-end latency, the root span,
+        the client's stream."""
+        self._active.pop(completion.uid, None)
+        self.stats.inc("requests_finished_total", ("reason", completion.finish_reason))
+        self.stats.observe("e2e_latency_seconds", time.monotonic() - ticket.t_enqueue)
+        if ticket.span is not None:
+            ticket.span.set(
+                finish_reason=completion.finish_reason, output_tokens=len(completion.tokens)
+            ).end()
+        ticket.on_finish(completion)
+
+    # -- asyncio handlers --------------------------------------------------------------
+
+    async def _client_connected(
+        self, reader: asyncio.StreamReader, writer: asyncio.StreamWriter
+    ) -> None:
+        task = asyncio.current_task()
+        if task is not None:
+            self._handler_tasks.add(task)
+            task.add_done_callback(self._handler_tasks.discard)
+        try:
+            await self._handle(reader, writer)
+        except (ConnectionError, asyncio.IncompleteReadError, TimeoutError):
+            pass  # the client went away; per-request cleanup already ran
+        except Exception as e:
+            logger.warning(f"handler error: {e!r}")
+        finally:
+            try:
+                writer.close()
+                await writer.wait_closed()
+            except (ConnectionError, OSError):
+                pass
+
+    async def _handle(self, reader: asyncio.StreamReader, writer: asyncio.StreamWriter) -> None:
+        if faults.should("serve_accept_drop"):
+            # drill: an accepted connection that dies before a byte of
+            # response, what a router's pre-stream retry must absorb
+            self.stats.inc("accept_drops_total")
+            return
+        try:
+            parsed = await asyncio.wait_for(_read_http_request(reader), _REQUEST_TIMEOUT_S)
+        except ValueError as e:
+            await _respond_json(writer, 400, {"error": str(e)})
+            return
+        if parsed is None:
+            return
+        method, path, headers, body = parsed
+        route = path.split("?", 1)[0]
+        if route == "/healthz" and method == "GET":
+            self.stats.inc("http_requests_total", ("route", "healthz"))
+            await self._handle_healthz(writer)
+        elif route == "/metrics" and method == "GET":
+            self.stats.inc("http_requests_total", ("route", "metrics"))
+            await _respond(
+                writer, 200, self.stats.render(), content_type="text/plain; version=0.0.4"
+            )
+        elif route == "/v1/generate":
+            self.stats.inc("http_requests_total", ("route", "generate"))
+            if method != "POST":
+                await _respond_json(writer, 405, {"error": "use POST"})
+                return
+            await self._handle_generate(reader, writer, body, headers)
+        elif route in _FLEET_ROUTES or route.startswith(_FLEET_PREFIX):
+            self.stats.inc("http_requests_total", ("route", _FLEET_ROUTES.get(route, "prefix")))
+            await _respond_json(writer, 501, {"error": _FLEET_501})
+        else:
+            self.stats.inc("http_requests_total", ("route", "other"))
+            await _respond_json(writer, 404, {"error": f"no route {route}"})
+
+    async def _handle_healthz(self, writer: asyncio.StreamWriter) -> None:
+        # a dead worker trumps everything, a wedged one the drain, the drain
+        # the warmup: a router stops routing (or never starts) on all four
+        if self._worker_error is not None:
+            state, status = "error", 503
+        elif self._stuck:
+            state, status = "stuck", 503
+        elif self.admission.draining:
+            state, status = "draining", 503
+        elif self._warming:
+            state, status = "warming", 503
+        else:
+            state, status = "ok", 200
+        payload = {
+            "status": state,
+            "active_slots": self.scheduler.active_slots,
+            "queue_depth": self.admission.depth() + self.scheduler.queue_depth,
+            "max_batch": self.scheduler.max_batch,
+            "max_queue": self.admission.max_queue,
+            "retry_after_s": round(self.admission.retry_after_s, 3),
+            "uptime_s": round(time.monotonic() - self._t_start, 3),
+            "weights_version": 0,
+            "weights_checkpoint": "",
+            "role": self.role,
+        }
+        prefix_cache = getattr(self.scheduler, "prefix_cache", None)
+        if prefix_cache is not None:
+            try:
+                payload["prefix_digests"] = prefix_cache.digests()
+            except RuntimeError:
+                pass  # the model thread mutated the cache mid-iteration
+        if self._worker_error is not None:
+            payload["detail"] = f"model thread died: {self._worker_error!r}"
+        elif self._stuck:
+            payload["detail"] = f"no decode step completed for {self.stall_timeout_s:.1f}s"
+        elif self._warming:
+            payload["detail"] = "warmup in progress"
+        paging_stats = getattr(self.scheduler, "paging_stats", None)
+        if paging_stats is not None:
+            payload["paging"] = paging_stats()
+        adapter_stats = self.scheduler.adapter_stats()
+        if adapter_stats is not None:
+            payload["adapters"] = adapter_stats
+        await _respond_json(writer, status, payload)
+
+    async def _handle_generate(
+        self,
+        reader: asyncio.StreamReader,
+        writer: asyncio.StreamWriter,
+        body: bytes,
+        headers: Optional[Dict[str, str]] = None,
+    ) -> None:
+        # the request id is the span trace id and the X-Request-Id header: a
+        # caller's header is honored, else one is minted here
+        rid = ((headers or {}).get("x-request-id") or "").strip() or new_trace_id()
+        rid_header = {"X-Request-Id": rid}
+        if self._worker_error is not None:
+            # a dead worker, the listener lingering for probes: fail fast
+            self.stats.inc("rejected_total", ("reason", "error"))
+            await _respond_json(
+                writer, 500, {"error": f"model thread died: {self._worker_error!r}"},
+                extra_headers=rid_header,
+            )
+            return
+        try:
+            fields = parse_generate_body(
+                body,
+                default_max_new_tokens=self.default_max_new_tokens,
+                default_temperature=self.default_temperature,
+                default_top_p=self.default_top_p,
+            )
+            req = Request(
+                uid=self.admission.next_uid(),
+                prompt=fields["prompt"],
+                max_new_tokens=fields["max_new_tokens"],
+                temperature=fields["temperature"],
+                top_p=fields["top_p"],
+                spec=fields["spec"],
+                adapter=fields["adapter"],
+            )
+            # capacity and adapter errors answer 400 here, before admission
+            self.scheduler.validate_request(req)
+        except (BadRequest, ValueError) as e:
+            self.stats.inc("rejected_total", ("reason", "bad_request"))
+            await _respond_json(writer, 400, {"error": str(e)}, extra_headers=rid_header)
+            return
+
+        loop = asyncio.get_running_loop()
+        events: "asyncio.Queue[Tuple[str, Any, Any]]" = asyncio.Queue()
+
+        def post(kind: str, a: Any = None, b: Any = None) -> None:
+            try:
+                loop.call_soon_threadsafe(events.put_nowait, (kind, a, b))
+            except RuntimeError:
+                pass  # the loop closed mid-drain; the record is in the metrics
+
+        deadline = (
+            time.monotonic() + fields["deadline_s"] if fields["deadline_s"] is not None else None
+        )
+        # the root span; queue_wait opens now and the model thread ends it
+        # when it claims the ticket
+        root = self.tracer.start_span(
+            "request", trace_id=rid, uid=req.uid, route="generate",
+            prompt_tokens=len(req.prompt),
+        )
+        ticket = Ticket(
+            uid=req.uid,
+            request=req,
+            deadline=deadline,
+            on_token=lambda uid, tok, idx: post("token", tok, idx),
+            on_finish=lambda completion: post("finish", completion),
+            trace_id=rid,
+            span=root,
+            queue_span=self.tracer.start_span("queue_wait", trace_id=rid, parent=root, uid=req.uid),
+        )
+        try:
+            self.admission.try_admit(ticket)
+        except (QueueFull, Draining) as e:
+            full = isinstance(e, QueueFull)
+            reason = "queue_full" if full else "draining"
+            self.stats.inc("rejected_total", ("reason", reason))
+            ticket.queue_span.set(outcome=reason).end()
+            root.set(finish_reason=f"rejected_{reason}").end()
+            await _respond_json(
+                writer,
+                429 if full else 503,
+                {"error": str(e)},
+                extra_headers={
+                    "Retry-After": f"{self.admission.retry_after_s:.0f}",
+                    **rid_header,
+                },
+            )
+            return
+        if fields["stream"]:
+            await self._stream_response(reader, writer, ticket, events)
+        else:
+            await self._unary_response(reader, writer, ticket, events)
+
+    async def _next_event(self, reader, ticket, events, eof_watch):
+        """The ticket's next (kind, a, b) event, or None when the client hung
+        up first (the ticket is then cancelled)."""
+        getter = asyncio.ensure_future(events.get())
+        done, _ = await asyncio.wait({getter, eof_watch}, return_when=asyncio.FIRST_COMPLETED)
+        if eof_watch in done and getter not in done:
+            getter.cancel()
+            self._client_gone(ticket)
+            return None
+        return getter.result()
+
+    async def _stream_response(self, reader, writer, ticket, events) -> None:
+        writer.write(
+            _head(
+                200, "OK", "text/event-stream",
+                {
+                    "Cache-Control": "no-cache",
+                    "X-Request-Id": ticket.trace_id or "",
+                    "X-Relora-Weights": "0",
+                },
+            )
+        )
+        await writer.drain()
+        eof_watch = asyncio.ensure_future(reader.read(1))
+        try:
+            while True:
+                event = await self._next_event(reader, ticket, events, eof_watch)
+                if event is None:
+                    return
+                kind, a, b = event
+                if kind == "token":
+                    # an explicit parent: handlers interleave on one thread, so
+                    # the tracer's per-thread nesting would cross-wire streams
+                    flush = self.tracer.start_span(
+                        "sse_flush", trace_id=ticket.trace_id, parent=ticket.span, index=b
+                    )
+                    writer.write(_sse({"uid": ticket.uid, "index": b, "token": a}))
+                    try:
+                        await writer.drain()
+                    except (ConnectionError, OSError):
+                        flush.set(outcome="disconnect").end()
+                        self._client_gone(ticket)
+                        return
+                    self.stats.observe("sse_flush_seconds", flush.end())
+                else:  # finish
+                    writer.write(_sse(_completion_record(a)))
+                    writer.write(b"data: [DONE]\n\n")
+                    await writer.drain()
+                    return
+        finally:
+            if not eof_watch.done():
+                eof_watch.cancel()
+
+    async def _unary_response(self, reader, writer, ticket, events) -> None:
+        eof_watch = asyncio.ensure_future(reader.read(1))
+        try:
+            while True:
+                event = await self._next_event(reader, ticket, events, eof_watch)
+                if event is None:
+                    return
+                kind, a, _ = event
+                if kind == "finish":
+                    await _respond_json(
+                        writer,
+                        500 if a.finish_reason == "error" else 200,
+                        _completion_record(a),
+                        extra_headers={
+                            "X-Request-Id": ticket.trace_id or "",
+                            "X-Relora-Weights": "0",
+                        },
+                    )
+                    return
+        finally:
+            if not eof_watch.done():
+                eof_watch.cancel()
+
+    def _client_gone(self, ticket: Ticket) -> None:
+        """The client disconnected: flag the ticket so the model thread frees
+        its slot at the next round."""
+        ticket.cancelled.set()
+        self.stats.inc("disconnects_total")
+
+
+def run_server(
+    scheduler: ContinuousBatchingScheduler,
+    *,
+    host: str = "127.0.0.1",
+    port: int = 8000,
+    ready_cb: Optional[Callable[["GenerateServer"], None]] = None,
+    **kwargs: Any,
+) -> int:
+    """The CLI's blocking entry point: build a GenerateServer and run it
+    until a SIGTERM drain completes.  ``ready_cb(server)`` fires once the
+    listener is bound (the CLI writes the chosen port for --port 0)."""
+    server = GenerateServer(scheduler, host=host, port=port, **kwargs)
+
+    async def _main() -> None:
+        serve = asyncio.ensure_future(server.serve_forever())
+        while not server.started.is_set():
+            await asyncio.sleep(0.01)
+            if serve.done():
+                break
+        if ready_cb is not None and not serve.done():
+            ready_cb(server)
+        await serve
+
+    asyncio.run(_main())
+    return 0

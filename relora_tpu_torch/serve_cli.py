@@ -38,6 +38,17 @@ port with the base's config:
     python -m relora_tpu_torch.serve_cli --model_config llama_250m \
         --checkpoint BASE --paged --dtype bf16 --max-batch 8 \
         --spec model --spec-k 4 --draft-checkpoint DRAFT --input-file prompts.txt
+
+``--port N`` (0 = ephemeral; ``--port-file`` receives the bound port) serves
+the same engine online instead (``serve/server.py``): ``POST /v1/generate``
+(SSE or one JSON body; ``"adapter"`` picks a tenant under ``--adapter-dir``),
+``GET /healthz`` and ``GET /metrics``, with bounded admission
+(``--max-queue``, 429 + Retry-After), a warmup that runs every serving shape
+before ``/healthz`` reports ok (``--no-warmup`` skips it), a stall watchdog
+(``--stall-timeout-s``) and a SIGTERM drain:
+
+    python -m relora_tpu_torch.serve_cli --model_config llama_250m \
+        --random-init --paged --dtype bf16 --max-batch 8 --port 0 --port-file F
 """
 
 from __future__ import annotations
@@ -47,7 +58,7 @@ import logging
 import os
 import sys
 import time
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
@@ -61,12 +72,15 @@ from relora_tpu_torch.serve.scheduler import (
     PagedContinuousBatchingScheduler,
     Request,
 )
+from relora_tpu_torch.serve.server import GenerateServer, run_server
 from relora_tpu_torch.train.checkpoint import (
     load_lora_spec,
     restore_params_host,
     restore_serving_params,
     verify_checkpoint,
 )
+from relora_tpu_torch.utils import faults
+from relora_tpu_torch.utils.logging import MetricsLogger
 
 logger = logging.getLogger("relora_tpu_torch.serve")
 
@@ -143,6 +157,40 @@ def parse_args(argv=None) -> argparse.Namespace:
         help="--spec model: a checkpoint dir of the port with the base's config",
     )
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    p.add_argument(
+        "--run-dir", default=None, help="metrics.jsonl destination (request-loop/server mode)"
+    )
+    p.add_argument(
+        "--port", type=int, default=None, help="launch the HTTP server on this port (0 = ephemeral)"
+    )
+    p.add_argument("--host", default="127.0.0.1", help="server bind address")
+    p.add_argument(
+        "--max-queue", type=int, default=64, help="server: max waiting requests before 429"
+    )
+    p.add_argument(
+        "--port-file", default=None, help="server: write the bound port here once listening"
+    )
+    p.add_argument(
+        "--no-warmup", action="store_true",
+        help="server: skip the warmup at startup (the first request then builds the kernels)",
+    )
+    p.add_argument(
+        "--stall-timeout-s", type=float, default=0.0,
+        help="server: decode-progress watchdog; no scheduler step for this long flips "
+        "/healthz to 503 'stuck' and dumps the flight recorder (0 disables)",
+    )
+    p.add_argument(
+        "--watch-checkpoints", default=None, metavar="DIR",
+        help="server: hot-swap verified new checkpoints (not ported yet)",
+    )
+    p.add_argument(
+        "--role", choices=("prefill", "decode", "mixed"), default="mixed",
+        help="disaggregated fleet role (only 'mixed' is ported)",
+    )
+    p.add_argument("--peer-file", default=None, help="disagg: peers roster (not ported yet)")
+    p.add_argument(
+        "--fleet-url", default=None, help="disagg: the fleet prefix directory (not ported yet)"
+    )
     return p.parse_args(argv)
 
 
@@ -202,6 +250,34 @@ def check_spec_flags(args: argparse.Namespace) -> None:
         raise SystemExit("--draft-checkpoint only applies with --spec model")
 
 
+_FLEET = "is not ported to relora_tpu_torch yet (ROADMAP Queue 1 item 4.4)"
+
+
+def check_server_flags(args: argparse.Namespace) -> None:
+    """``serve.py``'s checks of the server flags, with its messages; the
+    fleet tier's flags (hot swap, disaggregated roles) are refused."""
+    if args.port is not None and (args.prompt or args.input_file):
+        raise SystemExit("--port runs the HTTP server; drop --prompt/--input-file")
+    if (args.peer_file or args.fleet_url) and args.port is None:
+        raise SystemExit("--peer-file/--fleet-url configure the HTTP server; pass --port")
+    if args.watch_checkpoints is not None:
+        if args.port is None:
+            raise SystemExit(
+                "--watch-checkpoints hot-swaps a running server and requires --port"
+            )
+        if args.random_init:
+            raise SystemExit(
+                "--watch-checkpoints needs a checkpoint-backed server, not --random-init"
+            )
+        raise SystemExit(f"--watch-checkpoints: weight hot-swap {_FLEET}")
+    if args.role != "mixed":
+        raise SystemExit(f"--role {args.role}: disaggregated serving {_FLEET}")
+    if args.peer_file or args.fleet_url:
+        raise SystemExit(f"--peer-file/--fleet-url: the disaggregated tier {_FLEET}")
+    if args.max_queue < 1:
+        raise SystemExit(f"--max-queue must be >= 1, got {args.max_queue}")
+
+
 def load_params(args: argparse.Namespace, model_cfg, dtype, device):
     """``(params, lora_spec)``: a seeded model under ``--random-init``, else
     the checkpoint's state dict, merged unless ``--no-merge``, with its
@@ -228,10 +304,30 @@ def load_params(args: argparse.Namespace, model_cfg, dtype, device):
     return restore_params_host(args.checkpoint), spec
 
 
-def build(args: argparse.Namespace) -> PagedContinuousBatchingScheduler:
-    """The engine and scheduler the flags describe, weights included."""
+def preload_adapters(args: argparse.Namespace, registry: Optional[AdapterRegistry]) -> None:
+    """Load ``--adapters`` into slots (none pinned)."""
+    if registry is None:
+        return
+    for name in [n.strip() for n in (args.adapters or "").split(",") if n.strip()]:
+        try:
+            slot = registry.acquire(name)
+        except ValueError as e:
+            raise SystemExit(f"--adapters: {e}")
+        if slot is None:
+            raise SystemExit(f"--adapters: no free slot for {name!r} (raise --adapter-slots)")
+        registry.release(name)
+        logger.info(f"preloaded adapter {name!r} into slot {slot}")
+
+
+def build(
+    args: argparse.Namespace, metrics: Optional[MetricsLogger] = None, preload: bool = True
+) -> PagedContinuousBatchingScheduler:
+    """The engine and scheduler the flags describe, weights included;
+    ``metrics`` receives the scheduler's records, ``preload=False`` leaves
+    ``--adapters`` to the caller (the server preloads after its warmup)."""
     check_adapter_flags(args)
     check_spec_flags(args)
+    check_server_flags(args)
     if not args.paged:
         raise SystemExit("the contiguous engine is not ported yet: pass --paged")
     if args.packed and args.token_budget < 0:
@@ -280,15 +376,8 @@ def build(args: argparse.Namespace) -> PagedContinuousBatchingScheduler:
             f"adapter registry: {adapter_slots} slots over {args.adapter_dir} "
             f"({len(names)} adapters: {', '.join(names) or 'none'})"
         )
-        for name in [n.strip() for n in (args.adapters or "").split(",") if n.strip()]:
-            try:
-                slot = registry.acquire(name)
-            except ValueError as e:
-                raise SystemExit(f"--adapters: {e}")
-            if slot is None:
-                raise SystemExit(f"--adapters: no free slot for {name!r} (raise --adapter-slots)")
-            registry.release(name)
-            logger.info(f"preloaded adapter {name!r} into slot {slot}")
+        if preload:
+            preload_adapters(args, registry)
     return PagedContinuousBatchingScheduler(
         engine,
         packed=args.packed,
@@ -297,8 +386,81 @@ def build(args: argparse.Namespace) -> PagedContinuousBatchingScheduler:
         eos_id=args.eos_id if args.eos_id is not None else model_cfg.eos_token_id,
         top_k=args.top_k,
         seed=args.seed,
+        metrics=metrics,
         adapter_registry=registry,
     )
+
+
+def build_server(
+    args: argparse.Namespace, metrics: Optional[MetricsLogger] = None
+) -> Tuple[PagedContinuousBatchingScheduler, dict]:
+    """The server mode's scheduler and ``GenerateServer`` keyword arguments,
+    in ``serve.py``'s order: weights restored and the scheduler built with
+    ``metrics`` here; the warmup (every serving shape once, which builds
+    the kernels) and then the ``--adapters`` preload run on the server's
+    model thread before ``/healthz`` reports ok."""
+    scheduler = build(args, metrics, preload=args.no_warmup)
+    warmup_fn = None
+    if not args.no_warmup:
+        def warmup_fn():
+            logger.info("warming the serving shapes (disable with --no-warmup)")
+            report = scheduler.engine.warmup(args.max_batch, packed=args.packed)
+            timings = ", ".join(f"{c['fn']} {c['duration_s']:.2f}s" for c in report["compiles"])
+            buckets = report.get("packed_buckets") or report["prompt_buckets"]
+            logger.info(
+                f"warmup ran {report['n_compiles']} shapes "
+                f"({'packed' if args.packed else 'prompt'} buckets {buckets}, "
+                f"decode batch {report['batch']}): {timings}"
+            )
+            if metrics is not None:
+                metrics.event(
+                    "warmup",
+                    batch=report["batch"],
+                    prompt_buckets=report["prompt_buckets"],
+                    packed_buckets=report.get("packed_buckets", []),
+                    n_compiles=report["n_compiles"],
+                )
+            preload_adapters(args, scheduler.adapter_registry)
+            return {"batch": report["batch"], "n_compiles": report["n_compiles"]}
+
+    return scheduler, dict(
+        host=args.host,
+        port=args.port,
+        max_queue=args.max_queue,
+        default_max_new_tokens=args.max_new_tokens,
+        default_temperature=args.temperature,
+        default_top_p=args.top_p,
+        stall_timeout_s=args.stall_timeout_s,
+        metrics=metrics,
+        warmup_fn=warmup_fn,
+    )
+
+
+def serve(args: argparse.Namespace) -> int:
+    """``--port``: serve ``/v1/generate``, ``/healthz`` and ``/metrics``
+    until SIGTERM drains the server; the bound port goes to ``--port-file``
+    once the listener is up."""
+    faults.configure_from_env()
+    if faults.active():
+        logger.warning(faults.summary())
+    # _source: the replica's identity, as the reference's fleet tooling reads it
+    metrics = (
+        MetricsLogger(run_dir=args.run_dir, source=os.environ.get("RELORA_TPU_REPLICA_ID", "serve"))
+        if args.run_dir
+        else None
+    )
+    scheduler, kwargs = build_server(args, metrics)
+
+    def ready(server: GenerateServer) -> None:
+        if args.port_file:
+            with open(args.port_file, "w") as f:
+                f.write(str(server.port))
+
+    try:
+        return run_server(scheduler, ready_cb=ready, **kwargs)
+    finally:
+        if metrics is not None:
+            metrics.finish()
 
 
 def read_requests(args: argparse.Namespace) -> List[Request]:
@@ -335,11 +497,16 @@ def drain(argv=None) -> Tuple[Dict[int, Completion], float, PagedContinuousBatch
     scheduler, whose counters (``spec_stats``) the drain leaves behind."""
     args = parse_args(argv)
     requests = read_requests(args)
-    scheduler = build(args)
+    metrics = MetricsLogger(run_dir=args.run_dir) if args.run_dir else None
+    scheduler = build(args, metrics)
     t0 = time.perf_counter()
-    completions = scheduler.run(requests)
-    if scheduler.engine.device.type == "cuda":
-        torch.cuda.synchronize(scheduler.engine.device)
+    try:
+        completions = scheduler.run(requests)
+        if scheduler.engine.device.type == "cuda":
+            torch.cuda.synchronize(scheduler.engine.device)
+    finally:
+        if metrics is not None:
+            metrics.finish()
     return completions, time.perf_counter() - t0, scheduler
 
 
@@ -350,6 +517,10 @@ def run(argv=None) -> Tuple[Dict[int, Completion], float]:
 
 def main(argv=None) -> int:
     logging.basicConfig(level=logging.INFO, stream=sys.stderr)
+    args = parse_args(argv)
+    if args.port is not None:
+        check_server_flags(args)
+        return serve(args)
     completions, seconds, scheduler = drain(argv)
     for uid in sorted(completions):
         print(" ".join(str(t) for t in completions[uid].tokens))
