@@ -108,6 +108,27 @@ Phases, in order; any failure raises and the script exits non-zero:
                flash launch counters (zeroed before, read after) equal
                layers x microbatches x updates (+ layers x eval batches for
                the forward).
+               Telemetry, in every train phase (train, fused_train,
+               int8_train, int8_fused_train, the pythia ones, both
+               auto_train phases, resume): each run writes
+               ``metrics.jsonl`` into its ``--save_dir`` (its own under
+               ``build/chip_smoke/telemetry/<phase>`` where the phase sets
+               none; its checkpoints are deleted after the checks).  The
+               phase's line adds the median ``mfu`` of updates 2-9 with the
+               peak it used, the update's counted ``step_flops``, the mean
+               ``mfu_gap`` shares, the trainer's last
+               ``hbm/peak_bytes_in_use`` beside the phase's own
+               ``torch.cuda.max_memory_allocated()``; it fails unless every
+               step record's mfu lies in (0, 1], every waterfall's five
+               shares sum to 1 within 1e-3, there is one waterfall record
+               per ``--log_every`` updates (pythia_train runs
+               ``--log_every 4``: 3 for its 9 updates), the trainer's HBM peak
+               is at least the ``memory_plan``'s ``total_bytes`` (parameters
+               and AdamW state, counted from the tensors' sizes) and at most
+               the phase's own (the same allocator counter read later, so
+               this bound holds unless the trainer read a stale counter), and
+               ``tools/perf_report.py`` renders the directory (exit 0,
+               "MFU-gap waterfall", "per-pytree").
 7. f32-train — one update of a 2-layer llama_250m at f32 (LoRA B drawn
                nonzero), the flash arm against the naive arm on loss,
                gradient norm and each of layer 0's trainable leaves'
@@ -136,6 +157,12 @@ Phases, in order; any failure raises and the script exits non-zero:
                batches) for the forward and 7 x layers x microbatches x
                updates for dx and dA/dB; every forward, dx and dA/dB on the
                tensor cores.
+   profile_train — the fused-train run with ``--profile true``: the train
+               checks, then the two ``torch.profiler`` windows it writes
+               (``profiler_logs/profile_train/trace_{0,1}.json``, the second
+               ended by ``close()`` at the run's end) must load and name
+               ``flash_fwd_tc_kernel`` and one of the port's LoRA or int8
+               kernels among their device kernels.
 10. f32-fused — one update of a 2-layer llama_250m at f32 (TF32 off),
                ``lora_fused`` true against false from the same weights
                (nonzero B) and batch, on loss, gradient norm and each of layer
@@ -161,7 +188,8 @@ Phases, in order; any failure raises and the script exits non-zero:
                ``--quantize int8 --warmed_up_model DIR --save_dir`` (its final
                checkpoint is phase nomerge's int8 base): the train checks,
                codes nonzero after the warm start and int8 after the merges
-               at updates 4 and 7 (which move them), kernel 8 launched 7 x
+               at updates 4 and 7, each of which moves every projection's
+               codes or scales off its unmerged base, kernel 8 launched 7 x
                layers x (microbatches x updates + eval batches) times, every
                launch on the tensor cores, and no fused kernel.
 13. int8_fused_train — the same with ``--lora_fused true --lora_dropout 0``:
@@ -275,6 +303,16 @@ Phases, in order; any failure raises and the script exits non-zero:
                DIR``: every base parameter equal to the file's right after
                the graft, kernels 4, 6 and 7 launched 4 x 16 x the train
                phase's multipliers, every launch on the tensor cores.
+   int8_train@pythia_1b — the pythia train phase over an int8 base:
+               ``--quantize int8 --warmed_up_model`` that seeded pythia_1b
+               file: the train checks, two int8 merges moving the codes or
+               scales of all 4 x 16 projections, kernel 8 launched in every
+               projection and never a fused kernel; its launches go to the
+               ``8@pythia_1b`` row.
+   int8_fused_train@pythia_1b — the same with ``--lora_fused true
+               --lora_dropout 0``: 4-int8, 6-int8 and kernel 7 in every
+               projection, on the tensor cores; launches to the
+               ``@pythia_1b`` rows of 4-int8, 6-int8 and 7.
 21. f32-pythia — on a 2-layer pythia_1b at f32 (TF32 off where the phase
                sets it; biases drawn nonzero): f32-train (kernel 3's wide FMA
                kernels against the naive arm, and a merge against f64),
@@ -294,10 +332,11 @@ turns); it checks nothing.
 Output: a forward+backward timing line, one line per drain (plain and
 spec), one per server drain, the server process line, the f32 server and
 f32 spec lines, a train line, a LoRA timing line per model, a fused-train
-line, an int8 timing line per model, the int8 train lines, a grouped timing
-line, one line per adapter drain and the tenant server drain, the
-auto-arms lines, the auto_train and resume lines, one line per unmerged
-drain, one line per pythia drain, the three pythia train lines, a
+line, the profile line, an int8 timing line per model, the int8 train lines,
+a grouped timing line, one line per adapter drain and the tenant server
+drain, the auto-arms lines, the auto_train and resume lines, one line per
+unmerged drain, one line per pythia drain, the five pythia train lines
+(every train line carries its telemetry), a
 ``{"kernels": [...]}`` line, the card's ``nvidia-smi
 --query-gpu=name,power.limit`` line, and last ``{"ok": true, "device":
 {...}}``.  Without CUDA, or without the package beside it, it exits non-zero
@@ -306,6 +345,7 @@ and prints no result.
 
 from __future__ import annotations
 
+import gc
 import json
 import os
 import shutil
@@ -1543,8 +1583,14 @@ def _counters():
 
 class MergeWatch:
     """Wraps the trainer's ``merge_and_reinit`` to read every int8 base
-    around each merge: the codes' dtype, how many are nonzero before, and
-    whether the merge moved them."""
+    around each merge: the codes' dtype, how many are nonzero before, how
+    many projections' codes it moved (``codes_moved``), how many it wrote
+    otherwise than a merge that dropped its delta would (``moved``: codes or
+    scales unequal to the requantized base alone), and ``reach``: the
+    largest ``|ΔW|`` over half its row's quantization step.  A code moves
+    only where the delta reaches half a step, but a row's f32 scale, its
+    absmax over 127, moves with any delta at the row's largest weight, so
+    ``moved`` sees a merge at any reach."""
 
     def __init__(self, torch):
         from relora_tpu_torch.train import trainer
@@ -1559,17 +1605,27 @@ class MergeWatch:
     def __exit__(self, *exc):
         self.trainer.merge_and_reinit = self.real
 
-    def _merge(self, model, *args, **kwargs):
-        from relora_tpu_torch.core.relora import lora_modules
+    def _merge(self, model, generator, spec, **kwargs):
+        from relora_tpu_torch.core.relora import lora_delta, lora_modules
 
-        codes = [m.weight_q for _, m in lora_modules(model) if getattr(m, "weight_q", None) is not None]
-        before = [q.clone() for q in codes]
-        out = self.real(model, *args, **kwargs)
+        from relora_tpu_torch.ops.quant import dequantize_int8, quantize_int8
+
+        modules = [m for _, m in lora_modules(model) if getattr(m, "weight_q", None) is not None]
+        before = [m.weight_q.clone() for m in modules]
+        # what each projection would hold after a merge that dropped its delta
+        idle = [quantize_int8(dequantize_int8(m.weight_q, m.weight_scale)) for m in modules]
+        reach = max((float((lora_delta(m, spec).abs() / (m.weight_scale.t() / 2)).max())
+                     for m in modules), default=0.0)
+        out = self.real(model, generator, spec, **kwargs)
+        eq = self.torch.equal
         self.merges.append({
-            "modules": len(codes),
+            "modules": len(modules),
             "nonzero_before": sum(int(q.count_nonzero()) for q in before),
-            "int8_after": all(q.dtype == self.torch.int8 for q in codes),
-            "moved": sum(int(not self.torch.equal(q, b)) for q, b in zip(codes, before)),
+            "int8_after": all(m.weight_q.dtype == self.torch.int8 for m in modules),
+            "codes_moved": sum(int(not eq(m.weight_q, b)) for m, b in zip(modules, before)),
+            "moved": sum(int(not (eq(m.weight_q, q) and eq(m.weight_scale, s)))
+                         for m, (q, s) in zip(modules, idle)),
+            "reach": reach,
         })
         return out
 
@@ -1647,12 +1703,63 @@ class ArmWatch:
         return out
 
 
+TELEMETRY_DIR = os.path.join(REPO, "build", "chip_smoke", "telemetry")
+GAP_SHARES = ("data_fetch", "dispatch", "compute", "comms", "host")
+SHARE_SUM_TOL = 1e-3  # the waterfall's shares, each rounded to 1e-4, sum to 1
+
+
+def telemetry(torch, save_dir, result, windows):
+    """The run's ``save_dir/metrics.jsonl`` read back: the median mfu of
+    updates 2-9 and the peak it used, the counted step FLOPs, the mean
+    waterfall shares, the trainer's last HBM peak beside the phase's own;
+    ``problems`` lists every check that failed (``windows``: the mfu_gap
+    records expected)."""
+    import statistics
+
+    with open(os.path.join(save_dir, "metrics.jsonl")) as f:
+        records = [json.loads(line) for line in f]
+    steps = [r for r in records if "loss" in r and "_event" not in r]
+    gaps = [r for r in records if "mfu_gap/wall_s" in r]
+    plans = [r for r in records if r.get("_event") == "memory_plan"]
+    mfus = [r["mfu"] for r in steps]
+    hbm = gaps[-1].get("hbm/peak_bytes_in_use") if gaps else None
+    phase_peak = torch.cuda.max_memory_allocated()
+    # the independent figure: parameters and AdamW state by their sizes
+    plan_bytes = plans[-1]["total_bytes"] if plans else None
+    report = subprocess.run(
+        [sys.executable, os.path.join(REPO, "tools", "perf_report.py"), save_dir, "--bench-dir", ""],
+        capture_output=True, text=True, timeout=120,
+    )
+    problems = []
+    if len(steps) != TRAIN_UPDATES or not all(m is not None and 0 < m <= 1 for m in mfus):
+        problems.append(f"{len(steps)} step records with mfu {mfus}: expected {TRAIN_UPDATES} in (0, 1]")
+    sums = [sum(g[f"mfu_gap/{k}"] for k in GAP_SHARES) for g in gaps]
+    if len(gaps) != windows or not all(abs(x - 1) <= SHARE_SUM_TOL for x in sums):
+        problems.append(f"{len(gaps)} mfu_gap records (expected {windows}) with shares summing to {sums}")
+    if hbm is None or plan_bytes is None or not plan_bytes <= hbm <= phase_peak:
+        problems.append(f"trainer HBM peak {hbm} outside [the memory plan's total_bytes {plan_bytes}, "
+                        f"the phase's peak {phase_peak}]")
+    if report.returncode != 0 or "MFU-gap waterfall" not in report.stdout or (
+            "per-pytree" not in report.stdout):
+        problems.append(f"perf_report.py exit {report.returncode}: {report.stdout[-500:]}"
+                        f"{report.stderr[-500:]}")
+    return {
+        "mfu": statistics.median(mfus[1:]) if len(mfus) > 1 and None not in mfus else None,
+        "peak_flops": result["peak_flops"], "step_flops": result["step_flops"],
+        "mfu_gap": {k: statistics.fmean(g[f"mfu_gap/{k}"] for g in gaps) for k in GAP_SHARES}
+        if gaps else None,
+        "mfu_gap_windows": len(gaps), "hbm_peak_bytes": hbm, "max_memory_allocated": phase_peak,
+        "plan_total_bytes": plan_bytes, "problems": problems,
+    }
+
+
 def train(torch, data_config, label="train", extra=(), base_args=TRAIN_ARGS):
-    """Phases train, fused-train, int8_train, int8_fused_train and the
-    pythia train phases: ``relora_tpu_torch.main`` on the card over
-    ``base_args`` plus ``extra``, counters read around the run, for an int8
-    base each merge's codes read around it, and for a dense warm start the
-    grafted base held to the file."""
+    """Phases train, fused-train, int8_train, int8_fused_train, the pythia
+    train phases and profile_train: ``relora_tpu_torch.main`` on the card
+    over ``base_args`` plus ``extra`` (plus ``--save_dir`` under
+    TELEMETRY_DIR where they set none), counters read around the run, for
+    an int8 base each merge's codes read around it, for a dense warm start
+    the grafted base held to the file, and the run's telemetry read back."""
     from relora_tpu_torch import main as train_main
     from relora_tpu_torch.config.model import load_model_config
 
@@ -1664,12 +1771,18 @@ def train(torch, data_config, label="train", extra=(), base_args=TRAIN_ARGS):
     for n in FLASH_NAMES:
         counters[n].wide_launches = 0
     argv = list(base_args) + list(extra)
+    own_dir = None
+    if "--save_dir" not in argv:
+        own_dir = os.path.join(TELEMETRY_DIR, label)
+        shutil.rmtree(own_dir, ignore_errors=True)
+        argv += ["--save_dir", own_dir]
     model_name = argv[argv.index("--model_config") + 1]
     cfg = load_model_config(model_name)
     flag = dict(zip(argv, argv[1:]))
     fused = flag.get("--lora_fused", "false") == "true"
     auto = flag.get("--lora_fused") == "auto"
     int8 = "--quantize" in extra
+    gc.collect()  # what earlier phases left unreachable is not this phase's peak
     torch.cuda.reset_peak_memory_stats()
     with MergeWatch(torch) as watch, GraftWatch(torch) as graft, ArmWatch() as arms:
         result = train_main.main(argv + ["--megatron_dataset_config", data_config])
@@ -1722,7 +1835,15 @@ def train(torch, data_config, label="train", extra=(), base_args=TRAIN_ARGS):
         line["int8_merges"] = watch.merges
     if graft.checked:
         line["grafted_params_checked"] = graft.checked
+    line["telemetry"] = telemetry(torch, flag["--save_dir"], result,
+                                  -(-TRAIN_UPDATES // int(flag.get("--log_every", 1))))
+    if own_dir:  # the phase keeps its metrics, not its checkpoints
+        for name in os.listdir(own_dir):
+            if name.startswith("model_"):
+                shutil.rmtree(os.path.join(own_dir, name))
     print(json.dumps(line))
+    if line["telemetry"]["problems"]:
+        raise AssertionError(f"{label}: telemetry {line['telemetry']['problems']}")
     if len(records) != TRAIN_UPDATES or not all(torch.isfinite(torch.tensor(losses))):
         raise AssertionError(f"{label}: expected {TRAIN_UPDATES} finite losses, got {losses}")
     if not losses[-1] < losses[0]:
@@ -1739,14 +1860,48 @@ def train(torch, data_config, label="train", extra=(), base_args=TRAIN_ARGS):
         raise AssertionError(f"{label}: the launcher reported {wide} wide flash launches of "
                              f"{launches} at head_dim {cfg.head_dim}: every attention must take "
                              "the kernels of its width")
+    # every merge writes its delta into every projection's codes or scales
     if int8 and not (len(watch.merges) == 2 and all(
-            m["modules"] == projections * layers and m["nonzero_before"] > 0 and m["int8_after"]
-            and m["moved"] > 0 for m in watch.merges)):
+            m["modules"] == m["moved"] == projections * layers and m["nonzero_before"] > 0
+            and m["int8_after"] for m in watch.merges)):
         raise AssertionError(f"{label}: int8 merges {watch.merges}: expected 2 merges over the "
-                             f"nonzero int8 codes of {projections * layers} projections, moving them")
+                             f"nonzero int8 codes of {projections * layers} projections, each "
+                             "moving every projection's codes or scales off its unmerged base")
     if "--warmed_up_model" in extra and not int8 and graft.checked == 0:
         raise AssertionError(f"{label}: the warm start grafted no base parameter")
     return launches, line
+
+
+def profile_train(torch, data_config, label="profile_train"):
+    """Phase profile_train: the fused-train run with ``--profile true``,
+    checked as train(), then its ``torch.profiler`` windows: two Chrome
+    traces under ``profiler_logs/<label>`` (the trainer's run name is its
+    save_dir's), each loading, that name ``flash_fwd_tc_kernel`` and one of
+    the port's LoRA or int8 kernels among their device kernels."""
+    import glob
+
+    trace_dir = os.path.join(os.getcwd(), "profiler_logs", label)
+    shutil.rmtree(trace_dir, ignore_errors=True)
+    train(torch, data_config, label, ["--lora_fused", "true", "--lora_dropout", "0",
+                                      "--profile", "true"])
+    traces = sorted(glob.glob(os.path.join(trace_dir, "trace_*.json")))
+    kernels, runtime = set(), {}
+    for path in traces:
+        with open(path) as f:
+            for e in json.load(f)["traceEvents"]:
+                if e.get("cat") == "kernel":
+                    kernels.add(e.get("name", ""))
+                elif e.get("cat") == "cuda_runtime":  # the host's CUDA calls: where it waits
+                    runtime[e["name"]] = runtime.get(e["name"], 0.0) + e.get("dur", 0.0) / 1e3
+    port = ("flash_fwd_tc_kernel",) + FWD_TC_KERNELS + DX_TC_KERNELS + DAB_KERNELS + DEQUANT_TC_KERNELS
+    found = sorted(k for k in port if any(k in name for name in kernels))
+    print(json.dumps({label: "llama_250m", "traces": [os.path.basename(t) for t in traces],
+                      "bytes": [os.path.getsize(t) for t in traces], "device_kernels": len(kernels),
+                      "port_kernels_named": found,
+                      "host_cuda_calls_ms": dict(sorted(runtime.items(), key=lambda kv: -kv[1])[:8])}))
+    if len(traces) != 2 or "flash_fwd_tc_kernel" not in found or len(found) < 2:
+        raise AssertionError(f"{label}: traces {traces} name {found} of the port's kernels; "
+                             "expected two windows naming flash_fwd_tc_kernel and a LoRA kernel")
 
 
 def two_layer(model_name):
@@ -2216,6 +2371,7 @@ def check_int8_kernels(torch, device):
     from relora_tpu_torch.ops import quant_matmul as QM
 
     worst = dict.fromkeys(INT8_NAMES, 0.0)
+    worst_pythia = dict.fromkeys(INT8_NAMES, 0.0)
     cases = [(LORA_M, K, N, LORA_R, dt, True) for K, N, _ in LORA_SHAPES
              for dt in ("bf16", "f32")]
     cases += [(200, K, N, LORA_R, "bf16", True) for K, N, _ in LORA_SHAPES]  # a ragged M
@@ -2223,7 +2379,7 @@ def check_int8_kernels(torch, device):
     cases += [(200, 72, 100, 8, dt, True) for dt in ("bf16", "f32")]
     cases += [(1024, 768, 768, 320, dt, True) for dt in ("bf16", "f32")]  # a rank past 256
     cases += [RAGGED_TC]
-    # pythia_1b's four projections (checked and timed; no pythia phase trains an int8 base)
+    # pythia_1b's four projections (its rows: int8_train@pythia_1b's launches)
     n_llama = len(cases)
     cases += [(LORA_M, K, N, LORA_R, "bf16", True) for K, N, _ in PYTHIA_LORA_SHAPES]
     with full_f32_matmul(), torch.no_grad():
@@ -2264,8 +2420,9 @@ def check_int8_kernels(torch, device):
                       f"{'ok' if ok else 'FAIL'}")
                 if not ok:
                     raise AssertionError(f"{name} disagrees with its plain twin ({M, K, N, r, dtype})")
-                if dtype == "bf16" and M == LORA_M and transposed and name in worst and i < n_llama:
-                    worst[name] = max(worst[name], err)
+                if dtype == "bf16" and M == LORA_M and transposed and name in worst:
+                    rows_of = worst if i < n_llama else worst_pythia
+                    rows_of[name] = max(rows_of[name], err)
 
     # a tensor scale (and a qscale that asks for its gradient) through both
     # Functions against autograd of the plain composite
@@ -2301,11 +2458,9 @@ def check_int8_kernels(torch, device):
             if not ok:
                 raise AssertionError(f"{fn_name} with a tensor scale: {name} disagrees")
 
-    # the rows are llama_250m's layer; pythia_1b's four projections print
-    # their timing line alone (no phase trains pythia over an int8 base)
-    rows = int8_timed_rows(torch, device, LORA_SHAPES, worst, "")
-    int8_timed_rows(torch, device, PYTHIA_LORA_SHAPES, worst, f"@{PYTHIA}")
-    return rows
+    # rows per decoder layer: llama_250m's, then pythia_1b's (``...@pythia_1b``)
+    return (int8_timed_rows(torch, device, LORA_SHAPES, worst, "")
+            + int8_timed_rows(torch, device, PYTHIA_LORA_SHAPES, worst_pythia, f"@{PYTHIA}"))
 
 
 def int8_timed_rows(torch, device, shapes, worst, suffix):
@@ -3185,6 +3340,8 @@ def resume(torch, data_config, straight, work):
 
     save_dir = os.path.join(work, "resume_llama_250m")
     shutil.rmtree(save_dir, ignore_errors=True)
+    gc.collect()
+    torch.cuda.reset_peak_memory_stats()
     argv = TRAIN_ARGS + RESUME_ARGS + ["--save_dir", save_dir, "--save_every", "3",
                                        "--keep_checkpoints", "2",
                                        "--megatron_dataset_config", data_config]
@@ -3226,8 +3383,11 @@ def resume(torch, data_config, straight, work):
     line = {"resume": "llama_250m", "cut_at": cut["update_step"], "preempted": cut["preempted"],
             "resumed_to": resumed["update_step"], "n_lora_restarts": resumed["n_lora_restarts"],
             "n_optimizer_resets": resumed["n_optimizer_resets"], "kept": kept, "saves": saves,
-            "restores": restores, "max_loss_diff": diff, "tol": RESUME_TOL, "losses": losses}
+            "restores": restores, "max_loss_diff": diff, "tol": RESUME_TOL, "losses": losses,
+            "telemetry": telemetry(torch, save_dir, resumed, TRAIN_UPDATES)}
     print(json.dumps(line))
+    if line["telemetry"]["problems"]:
+        raise AssertionError(f"resume: telemetry {line['telemetry']['problems']}")
     if not (cut["preempted"] and cut["update_step"] == RESUME_CUT):
         raise AssertionError(f"resume: the cut run stopped at {cut['update_step']}, "
                              f"preempted={cut['preempted']}")
@@ -3851,6 +4011,8 @@ def main() -> int:
     take_launches(lora_rows, launches)
     rows += lora_rows
     torch.cuda.empty_cache()
+    profile_train(torch, write_corpus(work))
+    torch.cuda.empty_cache()
     f32_fused(torch, device)
     torch.cuda.empty_cache()
     int8_rows = check_int8_kernels(torch, device)
@@ -3860,12 +4022,11 @@ def main() -> int:
     int8_dir = os.path.join(work, "int8_llama_250m")
     shutil.rmtree(int8_dir, ignore_errors=True)
     launches, _ = train(torch, write_corpus(work), "int8_train", int8 + ["--save_dir", int8_dir])
-    int8_rows[0]["launches"] = launches["dequant_matmul"]
+    take_launches(int8_rows, launches)
     torch.cuda.empty_cache()
     launches, _ = train(torch, write_corpus(work), "int8_fused_train",
                         int8 + ["--lora_fused", "true", "--lora_dropout", "0"])
-    for row in int8_rows[1:]:
-        row["launches"] = launches[row["name"]]
+    take_launches(int8_rows, launches)
     rows += int8_rows
     torch.cuda.empty_cache()
     f32_int8(torch, device, warm)
@@ -3909,8 +4070,8 @@ def main() -> int:
     # the NeoX family at pythia_1b: its drains, its two train phases, its f32 checks
     take_launches(paged_rows.values(), pythia_drains(torch, prompts), PYTHIA)
     corpus = write_corpus(work, seq_length=2048)
-    take_launches(flash_rows, train(torch, corpus, "pythia_train", base_args=PYTHIA_TRAIN_ARGS)[0],
-                  PYTHIA)
+    take_launches(flash_rows, train(torch, corpus, "pythia_train", ["--log_every", "4"],
+                                    base_args=PYTHIA_TRAIN_ARGS)[0], PYTHIA)
     torch.cuda.empty_cache()
     warm = write_warm_start(torch, os.path.join(work, f"warm_{PYTHIA}"), device,
                             model_config=PYTHIA, dtype=torch.bfloat16)
@@ -3919,6 +4080,16 @@ def main() -> int:
         torch, corpus, "pythia_fused_train",
         ["--lora_fused", "true", "--lora_dropout", "0", "--warmed_up_model", warm],
         base_args=PYTHIA_TRAIN_ARGS)[0], PYTHIA)
+    torch.cuda.empty_cache()
+    # pythia_1b over an int8 base: kernel 8, then 4-int8, 6-int8 and 7
+    int8 = ["--quantize", "int8", "--warmed_up_model", warm]
+    take_launches(int8_rows, train(torch, corpus, f"int8_train@{PYTHIA}", int8,
+                                   base_args=PYTHIA_TRAIN_ARGS)[0], PYTHIA)
+    torch.cuda.empty_cache()
+    launches, _ = train(torch, corpus, f"int8_fused_train@{PYTHIA}",
+                        int8 + ["--lora_fused", "true", "--lora_dropout", "0"],
+                        base_args=PYTHIA_TRAIN_ARGS)
+    take_launches(int8_rows + lora_rows, launches, PYTHIA)
     torch.cuda.empty_cache()
     take_launches(lora_rows, train(torch, corpus, f"auto_train@{PYTHIA}", RESUME_ARGS,
                                    base_args=PYTHIA_TRAIN_ARGS)[0], PYTHIA)

@@ -166,7 +166,9 @@ def rotary_tables(
     elif scaling_type not in (None, "linear", "dynamic"):
         raise ValueError(f"Unknown rope scaling type {scaling_type!r}")
     exponent = torch.arange(0, head_dim, 2, dtype=torch.float32, device=pos.device) / head_dim
-    inv_freq = 1.0 / torch.pow(torch.tensor(base, dtype=torch.float32, device=pos.device), exponent)
+    # the base filled on the device: a tensor built from a host value would be
+    # a blocking copy, a wait on the device in every forward
+    inv_freq = 1.0 / torch.pow(torch.full((), base, dtype=torch.float32, device=pos.device), exponent)
     freqs = pos[..., None] * inv_freq
     emb = torch.cat([freqs, freqs], dim=-1)
     return torch.cos(emb), torch.sin(emb)

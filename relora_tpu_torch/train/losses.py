@@ -25,5 +25,7 @@ def causal_lm_loss(
         shift_mask = mask[:, 1:].reshape(-1).float()
         n = torch.clamp(shift_mask.sum(), min=1.0)
         return (token_nll * shift_mask).sum() / n, n
-    n = torch.tensor(float(token_nll.numel()), device=logits.device)
+    # filled on the device: a tensor built from a host value would be a
+    # blocking copy, a wait on the device in every microbatch
+    n = torch.full((), float(token_nll.numel()), device=logits.device)
     return token_nll.mean(), n

@@ -9,12 +9,16 @@ when any microbatch loss is NaN or the gradient norm is not finite, the
 update is skipped whole, so parameters, Adam moments, Adam's ``step`` and the
 schedule's count of applied updates all stay as they were
 (``relora_tpu/train/step.py:182-212``); the update step still advances.  The
-gate reads one host value per update.
+gate reads one host value per update: the one place the step waits on the
+device (with ``lora_scaling``'s read under trainable scaling), timed into
+``TrainState.device_wait_s`` for the trainer's ``mfu_gap`` waterfall.  The
+JAX step gates on the device (``jnp.where``) and never waits.
 """
 
 from __future__ import annotations
 
 import math
+import time
 from dataclasses import dataclass
 from typing import Callable, Dict, Optional, Sequence
 
@@ -82,9 +86,11 @@ def make_train_step(
             grad_norm = clip_by_global_norm(grads, clip_grad_norm)
         else:
             grad_norm = global_norm(grads)
+        t0 = time.perf_counter()
         loss_mean, norm, nans = torch.stack(
             [loss_sum / ga, grad_norm.to(loss_sum.device), nan_count]
         ).tolist()
+        state.device_wait_s = time.perf_counter() - t0
         skip = nans > 0 or not math.isfinite(norm)
         lr = schedule(state.step - state.n_skipped) if schedule is not None else None
         if not skip:
@@ -107,7 +113,9 @@ def make_train_step(
             # mean of the effective scales, tanh(lora_s), as the forward uses them
             with torch.no_grad():
                 effective = [torch.tanh(p.float()).mean() for _, p in scales]
+                t0 = time.perf_counter()
                 metrics["lora_scaling"] = torch.stack(effective).mean().item()
+                state.device_wait_s += time.perf_counter() - t0
                 if log_per_layer_scaling:
                     for (name, _), eff in zip(scales, torch.stack(effective).tolist()):
                         metrics[f"lora_scaling/{name[: -len('.lora_s')]}"] = eff

@@ -8,9 +8,37 @@ boundary after SIGTERM/SIGINT (``handle_preemption``), eval every
 ``eval_every``, the ReLoRA merge-and-reinit when ``(update_step -
 scheduler_start_step) % relora == 1`` once ``relora`` updates ran here, and
 the optimizer reset on the same rule with ``cycle_length``
-(``relora_tpu/train/trainer.py:1053-1106``).  Each update logs one metrics
+(``relora_tpu/train/trainer.py:1053-1106``).  Each update makes one metrics
 record; :meth:`Trainer.fit` returns the result dict of the JAX trainer plus
-the port's counters and the records.
+the port's counters, the update's counted FLOPs and the card's peak, and the
+records.
+
+Telemetry, as the JAX trainer's (``relora_tpu/train/trainer.py:441-505``,
+``:834-930``): with ``--save_dir D`` the run writes ``D/metrics.jsonl``
+(``source: "train"``) and ``D/run_config.json``.  ``metrics.jsonl`` holds a
+``memory_plan`` event at the start (parameter and AdamW state bytes, the
+allocator's live stats), one record per update (loss, lr, grad_norm, live
+``mfu`` against the card's peak from ``obs/mfu.py``, throughputs, counters,
+``update_seconds``) written every ``--log_every`` updates, and at each such
+flush one ``mfu_gap`` record: the window's wall time split into
+data_fetch, dispatch, compute, comms and host shares that sum to 1, with
+the ``hbm/*`` gauges.  The port's step reads the device once an update
+(the NaN gate, ``train/step.py``), where the JAX step does not: the time
+blocked in that read counts as compute, the rest of the step call (kernel
+launches included, which block once the launch queue is full) as dispatch,
+the batch wait and its copy to the device as data_fetch and the rest of the
+window as host (comms is 0 on one card).  The flush itself waits on no
+device work: the records are host values already.  Lifecycle events (``batch_skipped``,
+``nan_skip``, ``preemption``, ``emergency_checkpoint``, ``loss_spike``,
+``rollback``, ``rollback_skipped``, ``save_failed``) go to the same file;
+spans over the update loop (``update_step`` with ``data_fetch`` and
+``dispatch``, ``metric_pull``, ``eval``, ``checkpoint``, ``relora_merge``,
+``optimizer_reset``) to the flight recorder, dumped into ``save_dir`` when
+the loop raises, and to ``$RELORA_TPU_TRACE_DIR/train_spans.jsonl`` when
+that is set.  ``--profile true`` writes ``torch.profiler`` Chrome traces
+under ``profiler_logs/<run name>`` (``utils/profiling.py``).  Batches are
+copied to the card from pinned memory without blocking the host.  None of
+this changes a number the trainer computes.
 
 ``--warmed_up_model DIR`` grafts ``DIR/pytorch_model.bin``, or the params of
 a port checkpoint directory, into the freshly initialised model
@@ -37,8 +65,8 @@ spike back to the last checkpoint before it and skips its batches
 
 Options the port does not run yet raise ``NotImplementedError`` when set: a
 warm start from a JAX checkpoint's ``state/``, pruning, magnitude re-init,
-``--quantize nf4``, chunked loss, the ``wandb``/``watch``/``profile``
-observability, a custom PRNG, and parallelism beyond one device.
+``--quantize nf4``, chunked loss, ``wandb`` and its ``watch`` histograms,
+a custom PRNG, and parallelism beyond one device.
 ``--lora_fused true`` runs every LoRA projection through the fused kernels
 wherever dropout is not active, ``--lora_fused auto`` through the cost
 model's pick of the fused, ordered or merged arm.
@@ -72,6 +100,11 @@ from relora_tpu_torch.core.schedules import make_schedule
 from relora_tpu_torch.models.family import CausalLM, causal_lm_class
 from relora_tpu_torch.models.params_util import init_params
 from relora_tpu_torch.models.warm_start import STATE_SUBDIR, load_warm_start, warm_start_counters
+from relora_tpu_torch.obs import flight
+from relora_tpu_torch.obs import memory as obs_memory
+from relora_tpu_torch.obs.metrics import MetricsRegistry
+from relora_tpu_torch.obs.mfu import peak_flops, step_flops
+from relora_tpu_torch.obs.tracer import Tracer
 from relora_tpu_torch.train.checkpoint import (
     delete_old_checkpoints,
     get_last_checkpoint,
@@ -83,12 +116,16 @@ from relora_tpu_torch.train.checkpoint import (
 )
 from relora_tpu_torch.train.resilience import LossSpikeDetector, PreemptionGuard, SpikeEvent
 from relora_tpu_torch.train.step import TrainState, eval_step, make_train_step
+from relora_tpu_torch.utils.logging import MetricsLogger
+from relora_tpu_torch.utils.profiling import maybe_make_profiler
 
 logger = logging.getLogger(__name__)
 
 _MASK64 = (1 << 64) - 1
 #: the resolved config beside the checkpoints, read by the batch-size guard
 TRAINING_CONFIG_FILE = "training_config.json"
+#: the mfu_gap waterfall's shares, in the JAX trainer's order
+GAP_KEYS = ("data_fetch", "dispatch", "compute", "comms", "host")
 
 
 def fold_in(seed: int, data: int) -> int:
@@ -132,7 +169,6 @@ def refuse_unported(cfg: TrainingConfig) -> None:
         "loss_impl='chunked'": cfg.loss_impl != "dense",
         "wandb": cfg.wandb,
         "wandb_watch": cfg.wandb_watch,
-        "profile": cfg.profile,
         "prng_impl": bool(cfg.prng_impl),
         "remat_policy other than 'full'": cfg.remat_policy != "full",
         "fsdp_size / tp_size / sp_size / dp_size > 1 (parallelism)": max(
@@ -295,6 +331,39 @@ class Trainer:
             os.makedirs(cfg.save_dir, exist_ok=True)
             cfg.save_json(os.path.join(cfg.save_dir, TRAINING_CONFIG_FILE))
 
+        # ---- observability (relora_tpu/train/trainer.py:441-505) ----------
+        run_config = dict(cfg.to_dict())
+        run_config.update({
+            "model": model_cfg.to_dict(),
+            "mesh": {"data": self.n_batch_shards},
+            "grad_accum": self.grad_accum,
+            **{k: v / 1e6 for k, v in counts.items()},
+        })
+        self.metrics = MetricsLogger(run_dir=cfg.save_dir, source="train", config=run_config)
+        trace_dir = os.environ.get("RELORA_TPU_TRACE_DIR")
+        # perf_counter spans: the waterfall adds their durations to intervals
+        # of the same clock
+        self.tracer = Tracer(
+            service="train",
+            jsonl_path=os.path.join(trace_dir, "train_spans.jsonl") if trace_dir else None,
+            clock=time.perf_counter,
+        )
+        self.obs = MetricsRegistry(namespace="relora_train")
+        self._mem_poller = obs_memory.MemoryPoller(registry=self.obs, device=self.device)
+        self.metrics.event(
+            "memory_plan",
+            step=self.update_step,
+            source="pytree",
+            **obs_memory.state_breakdown({"params": self.model, "opt_state": self.optimizer}),
+            **{f"live_{k}": v for k, v in self._mem_poller.poll().items()},
+        )
+        if cfg.save_dir:
+            flight.configure(dump_dir=cfg.save_dir)
+        # live MFU: the update's counted FLOPs (on its first batch) over the
+        # card's peak; null without a peak
+        self._peak_flops = peak_flops(self.device)
+        self._step_flops: Optional[float] = None
+
     def _guard_batch_size_unchanged(self) -> None:
         """A resume at another batch size would rewind the data wrongly
         (``relora_tpu/train/trainer.py:626-640``); the config beside the
@@ -348,13 +417,15 @@ class Trainer:
         }
         t0 = time.perf_counter()
         try:
-            path = save_checkpoint(
-                cfg.save_dir, self.update_step, self.model.state_dict(), training_state,
-                self.lora_spec, optimizer_state,
-                retries=cfg.save_retries, retry_backoff=cfg.save_retry_backoff,
-            )
+            with self.tracer.span("checkpoint", step=self.update_step):
+                path = save_checkpoint(
+                    cfg.save_dir, self.update_step, self.model.state_dict(), training_state,
+                    self.lora_spec, optimizer_state,
+                    retries=cfg.save_retries, retry_backoff=cfg.save_retry_backoff,
+                )
         except (OSError, ValueError) as e:
             logger.error(f"Checkpoint save at step {self.update_step} abandoned: {e}")
+            self.metrics.event("save_failed", step=self.update_step, error=str(e))
             return ""
         logger.info(f"Saved checkpoint {path} in {time.perf_counter() - t0:.2f}s")
         delete_old_checkpoints(cfg.save_dir, cfg.keep_checkpoints)
@@ -366,10 +437,17 @@ class Trainer:
         True when it rolled back (the caller rebuilds the data iterator), False
         when the spike is only logged."""
         cfg = self.cfg
+        self.metrics.event(
+            "loss_spike", step=spike.last_step, first_step=spike.first_step,
+            last_step=spike.last_step, loss=spike.loss, median=spike.median, mad=spike.mad,
+        )
         logger.error(
             f"Sustained loss spike over updates {spike.first_step}..{spike.last_step} "
             f"(loss={spike.loss:.4f}, baseline median={spike.median:.4f}, mad={spike.mad:.4f})"
         )
+        # what the loop did in the updates before the spike, before a
+        # rollback changes the state
+        flight.dump_on_fault("loss_spike")
         reason = None
         if self.n_spike_rollbacks >= cfg.max_spike_rollbacks:
             reason = f"rollback budget exhausted ({cfg.max_spike_rollbacks})"
@@ -383,6 +461,7 @@ class Trainer:
                 reason = "no committed checkpoint precedes the spike"
         if reason is not None:
             logger.error(f"Loss spike NOT rolled back: {reason}")
+            self.metrics.event("rollback_skipped", step=spike.last_step, reason=reason)
             return False
         # skip indices are the pre-increment counter: the logged window
         # [first, last] is indices [first - 1, last - 1], plus the margin
@@ -399,6 +478,10 @@ class Trainer:
         self._local_updates = 0
         self._resumed = True
         self.n_spike_rollbacks += 1
+        self.metrics.event(
+            "rollback", step=self.update_step, target=target, skip_batches=sorted(new_skips),
+            n_spike_rollbacks=self.n_spike_rollbacks,
+        )
         logger.warning(
             f"Rolled back to {target} (update {self.update_step}); blacklisted batch indices "
             f"{sorted(new_skips)} (rollback {self.n_spike_rollbacks}/{cfg.max_spike_rollbacks})"
@@ -407,7 +490,26 @@ class Trainer:
 
     # ------------------------------------------------------------------
     def _device_batch(self, batch: np.ndarray) -> torch.Tensor:
-        return torch.as_tensor(np.asarray(batch), dtype=torch.long).to(self.device)
+        """Token ids on the model's device; to a CUDA device through a pinned
+        host tensor and an asynchronous copy."""
+        host = torch.as_tensor(np.asarray(batch), dtype=torch.long)
+        if self.device.type == "cuda":
+            return host.pin_memory().to(self.device, non_blocking=True)
+        return host.to(self.device)
+
+    def _measure_step_flops(self, batch: torch.Tensor) -> float:
+        """Counted FLOPs of one update of ``batch``'s shape (``obs/mfu.py``),
+        attention counted as the arm the device runs (the flash kernels on
+        CUDA, the naive arm elsewhere)."""
+        ga, micro, seq = batch.shape
+        spec = self.lora_spec
+        return step_flops(
+            self.model_cfg, microbatch=micro, seq=seq, grad_accum=ga,
+            lora_r=spec.r if spec is not None else None,
+            lora_only=spec is not None and spec.lora_only,
+            remat=self.cfg.remat,
+            attention="flash" if self.device.type == "cuda" else "naive",
+        )
 
     def fit(
         self,
@@ -432,120 +534,208 @@ class Trainer:
             if cfg.spike_threshold > 0
             else None
         )
+        prof = maybe_make_profiler(cfg, run_name=os.path.basename(cfg.save_dir or "run"))
         t_fit = time.perf_counter()
         update_start = time.perf_counter()
         logger.info(
             f"Starting training at update step {self.update_step} "
             f"({cfg.num_training_steps - self.update_step} to go)"
         )
+        # records wait here for the flush every log_every updates; the
+        # window's seconds by waterfall share, each interval inside the window
+        pending: list = []  # (record, global_step)
+        window = dict.fromkeys(("data_fetch", "dispatch", "compute"), 0.0)
+        window_t0 = time.perf_counter()
+
+        def flush_pending() -> None:
+            """Write the pending records and the window's mfu_gap record (the
+            shares of its wall time, hbm gauges polled here only)."""
+            nonlocal window_t0
+            if not pending:
+                return
+            now = time.perf_counter()
+            wall = now - window_t0
+            window_t0 = now
+            if wall > 0:
+                shares = {k: v / wall for k, v in window.items()}
+                shares["comms"] = 0.0  # one card: no collective
+                shares["host"] = max(0.0, 1.0 - sum(shares.values()))
+                gap = {"mfu_gap/window_steps": len(pending), "mfu_gap/wall_s": round(wall, 4)}
+                for key in GAP_KEYS:
+                    gap[f"mfu_gap/{key}"] = round(shares[key], 4)
+                    self.obs.set_gauge(f"mfu_gap_{key}", gap[f"mfu_gap/{key}"])
+                mem = self._mem_poller.poll()
+                if mem["available"]:
+                    gap["hbm/bytes_in_use"] = mem["bytes_in_use"]
+                    gap["hbm/peak_bytes_in_use"] = mem["peak_bytes_in_use"]
+                self.metrics.log(gap, step=pending[-1][1])
+            # the records are host values already: the pull is their write
+            with self.tracer.span("metric_pull", n_records=len(pending)):
+                for record, at_global in pending:
+                    self.metrics.log(record, step=at_global)
+            pending.clear()
+            for key in window:
+                window[key] = 0.0
+
+        def take_record(metrics: dict) -> None:
+            """The record of the update just taken, queued for the flush."""
+            nonlocal update_start
+            now = time.perf_counter()
+            pending.append((self._log_update(metrics, now - update_start), self.global_step))
+            update_start = now
+            if len(pending) >= cfg.log_every:
+                flush_pending()
+
         if self.update_step >= cfg.num_training_steps:
             train_iter = iter(())  # a run resumed past its budget reads no data
         self.model.train()
-        with PreemptionGuard(enabled=cfg.handle_preemption) as guard:
-          # the outer loop exists for spike rollback: it rewinds the counters
-          # and restarts the inner loop on a rebuilt iterator
-          while True:
-            restart = False
-            exhausted = True
-            for batch in train_iter:
-                if self.update_step >= cfg.num_training_steps:
-                    exhausted = False
-                    break
-                if self.update_step in cfg.skip_batches:
-                    self.update_step += 1
-                    self.global_step += self.grad_accum
-                    continue
-                self.tokens_seen += int(np.asarray(batch).size)
-                seeds = dropout_seeds(cfg.seed + 1, self.update_step, self.grad_accum)
-                metrics = self._train_step(self.state, self._device_batch(batch), seeds)
-                self.update_step += 1
-                self._local_updates += 1
-                self.global_step += self.grad_accum
-                if guard.requested:
-                    # the update ran in full: log it, then save and stop
-                    update_time = time.perf_counter() - update_start
-                    update_start = self._log_update(metrics, update_start)
-                    if cfg.save_dir and self.save(update_time):
-                        saved_at = self.update_step
-                        logger.warning(f"Emergency checkpoint at update {self.update_step}")
-                    preempted = True
-                    exhausted = False
-                    break
+        try:
+          with PreemptionGuard(enabled=cfg.handle_preemption) as guard:
+            # the outer loop exists for spike rollback: it rewinds the counters
+            # and restarts the inner loop on a rebuilt iterator
+            while True:
+              restart = False
+              exhausted = True
+              batches = iter(train_iter)
+              while True:
+                # one update_step span an iteration, the batch wait inside it
+                with self.tracer.span("update_step", step=self.update_step):
+                  with self.tracer.span("data_fetch") as sp_fetch:
+                      batch = next(batches, None)
+                      if batch is not None:
+                          batch = self._device_batch(batch)
+                  window["data_fetch"] += sp_fetch.duration_s
+                  if batch is None:
+                      break  # the data ran out: exhausted stays True
+                  if self.update_step >= cfg.num_training_steps:
+                      exhausted = False
+                      break
+                  if self.update_step in cfg.skip_batches:
+                      self.metrics.event("batch_skipped", step=self.update_step)
+                      self.update_step += 1
+                      self.global_step += self.grad_accum
+                      continue
+                  self.tokens_seen += batch.numel()
+                  if self._step_flops is None:
+                      self._step_flops = self._measure_step_flops(batch)
+                  seeds = dropout_seeds(cfg.seed + 1, self.update_step, self.grad_accum)
+                  with self.tracer.span("dispatch", step=self.update_step) as sp_dispatch:
+                      metrics = self._train_step(self.state, batch, seeds)
+                  wait = min(self.state.device_wait_s, sp_dispatch.duration_s)
+                  window["dispatch"] += sp_dispatch.duration_s - wait
+                  window["compute"] += wait
+                  self.update_step += 1
+                  self._local_updates += 1
+                  self.global_step += self.grad_accum
+                  if guard.requested:
+                      # the update ran in full: log it, then save and stop
+                      self.metrics.event("preemption", step=self.update_step, signum=guard.signum)
+                      update_time = time.perf_counter() - update_start
+                      take_record(metrics)
+                      flush_pending()
+                      if cfg.save_dir:
+                          path = self.save(update_time)
+                          if path:
+                              saved_at = self.update_step
+                              logger.warning(f"Emergency checkpoint at update {self.update_step}")
+                              self.metrics.event("emergency_checkpoint", step=self.update_step, path=path)
+                      preempted = True
+                      exhausted = False
+                      break
 
-                if (
-                    cfg.save_dir
-                    and cfg.save_every > 0
-                    and self._local_updates > 1
-                    and self.update_step % cfg.save_every == 0
-                ):
-                    if self.save(time.perf_counter() - update_start):
-                        saved_at = self.update_step
+                  if (
+                      cfg.save_dir
+                      and cfg.save_every > 0
+                      and self._local_updates > 1
+                      and self.update_step % cfg.save_every == 0
+                  ):
+                      if self.save(time.perf_counter() - update_start):
+                          saved_at = self.update_step
 
-                if eval_iter_factory is not None and cfg.eval_every > 0 and self.update_step % cfg.eval_every == 0:
-                    eval_loss, eval_tokens = self.evaluate(eval_iter_factory(), cfg.eval_tokens_during_training)
-                    self.model.train()
-                    logger.info(f"Eval loss at step {self.update_step}: {eval_loss:.4f} ({eval_tokens:.0f} tokens)")
+                  if eval_iter_factory is not None and cfg.eval_every > 0 and self.update_step % cfg.eval_every == 0:
+                      with self.tracer.span("eval", step=self.update_step):
+                          eval_loss, eval_tokens = self.evaluate(
+                              eval_iter_factory(), cfg.eval_tokens_during_training
+                          )
+                      self.model.train()
+                      self.metrics.log({"final_eval_loss": eval_loss, "final_eval_tokens": eval_tokens},
+                                       step=self.global_step)
+                      logger.info(f"Eval loss at step {self.update_step}: {eval_loss:.4f} ({eval_tokens:.0f} tokens)")
 
-                relora_every = cfg.relora
-                if (
-                    relora_every is not None
-                    and (self._resumed or self._local_updates >= relora_every)
-                    and (self.update_step - self.scheduler_start_step) % relora_every == 1
-                ):
-                    t0 = time.perf_counter()
-                    self.n_lora_restarts += 1
-                    merge_and_reinit(self.model, keyed_generator(cfg.seed + 2, self.update_step, self.device),
-                                     self.lora_spec)
-                    logger.info(
-                        f"LoRA merge #{self.n_lora_restarts} at update {self.update_step} "
-                        f"took {time.perf_counter() - t0:.2f}s"
-                    )
+                  relora_every = cfg.relora
+                  if (
+                      relora_every is not None
+                      and (self._resumed or self._local_updates >= relora_every)
+                      and (self.update_step - self.scheduler_start_step) % relora_every == 1
+                  ):
+                      t0 = time.perf_counter()
+                      self.n_lora_restarts += 1
+                      with self.tracer.span("relora_merge", step=self.update_step, n=self.n_lora_restarts):
+                          merge_and_reinit(self.model, keyed_generator(cfg.seed + 2, self.update_step, self.device),
+                                           self.lora_spec)
+                      logger.info(
+                          f"LoRA merge #{self.n_lora_restarts} at update {self.update_step} "
+                          f"took {time.perf_counter() - t0:.2f}s"
+                      )
 
-                cycle = cfg.cycle_length or cfg.relora
-                if (
-                    cfg.relora is not None
-                    and cycle is not None
-                    and (self._resumed or self._local_updates >= cycle)
-                    and (self.update_step - self.scheduler_start_step) % cycle == 1
-                ):
-                    self.n_optimizer_resets += 1
-                    reset_optimizer_state(
-                        self.optimizer, self.model,
-                        mode=cfg.optimizer_reset_mode or "zero",
-                        ratio=cfg.optimizer_reset_ratio,
-                        generator=keyed_generator(cfg.seed + 3, self.update_step, self.device),
-                    )
-                    z = zeroed_fraction(self.optimizer)
-                    logger.info(
-                        f"Optimizer reset #{self.n_optimizer_resets} ({cfg.optimizer_reset_mode}) "
-                        f"at update {self.update_step}: {z * 100:.2f}% of moments zero"
-                    )
-                    lr_now = self.schedule(self.update_step - self.scheduler_start_step)
-                    if lr_now > cfg.lr:
-                        logger.warning(f"Learning rate check: LR after reset is {lr_now} > max {cfg.lr}")
+                  cycle = cfg.cycle_length or cfg.relora
+                  if (
+                      cfg.relora is not None
+                      and cycle is not None
+                      and (self._resumed or self._local_updates >= cycle)
+                      and (self.update_step - self.scheduler_start_step) % cycle == 1
+                  ):
+                      self.n_optimizer_resets += 1
+                      with self.tracer.span("optimizer_reset", step=self.update_step, n=self.n_optimizer_resets):
+                          reset_optimizer_state(
+                              self.optimizer, self.model,
+                              mode=cfg.optimizer_reset_mode or "zero",
+                              ratio=cfg.optimizer_reset_ratio,
+                              generator=keyed_generator(cfg.seed + 3, self.update_step, self.device),
+                          )
+                          z = zeroed_fraction(self.optimizer)
+                      logger.info(
+                          f"Optimizer reset #{self.n_optimizer_resets} ({cfg.optimizer_reset_mode}) "
+                          f"at update {self.update_step}: {z * 100:.2f}% of moments zero"
+                      )
+                      lr_now = self.schedule(self.update_step - self.scheduler_start_step)
+                      if lr_now > cfg.lr:
+                          self.metrics.alert("Learning rate issue", f"LR after reset is {lr_now} > max {cfg.lr}")
 
-                update_start = self._log_update(metrics, update_start)
-                if metrics["skipped"]:
-                    logger.error(f"NaN update skipped at step {self.update_step} ({metrics['n_skipped']} total)")
-                    if metrics["n_skipped"] > cfg.nan_abort_fraction * cfg.num_training_steps:
-                        logger.error("More than 5% of updates NaN-skipped; aborting")
-                        aborted = True
-                        exhausted = False
-                        break
+                  take_record(metrics)
+                  if prof is not None:
+                      prof.step()
+                  if metrics["skipped"]:
+                      logger.error(f"NaN update skipped at step {self.update_step} ({metrics['n_skipped']} total)")
+                      self.metrics.event("nan_skip", step=self.update_step, n_skipped=metrics["n_skipped"])
+                      if metrics["n_skipped"] > cfg.nan_abort_fraction * cfg.num_training_steps:
+                          logger.error("More than 5% of updates NaN-skipped; aborting")
+                          aborted = True
+                          exhausted = False
+                          break
 
-                spike = detector.update(self.update_step, metrics["loss"]) if detector else None
-                if spike is not None:
-                    rolled_back = self._handle_spike(spike, can_realign=train_iter_factory is not None)
-                    detector.reset_streak()
-                    if rolled_back:
-                        restart = True
-                        exhausted = False
-                        break
-            if restart:
-                train_iter = train_iter_factory()
-                update_start = time.perf_counter()
-                continue
-            break
+                  spike = detector.update(self.update_step, metrics["loss"]) if detector else None
+                  if spike is not None:
+                      rolled_back = self._handle_spike(spike, can_realign=train_iter_factory is not None)
+                      detector.reset_streak()
+                      if rolled_back:
+                          pending.clear()  # the updates they describe were undone
+                          restart = True
+                          exhausted = False
+                          break
+              if restart:
+                  train_iter = train_iter_factory()
+                  update_start = time.perf_counter()
+                  continue
+              break
+        except BaseException:
+            # a crash inside the loop leaves the last spans and events behind
+            flight.dump_on_fault("crash")
+            raise
+        finally:
+            if prof is not None:
+                prof.close()  # a window open at the exit ends and is written
+        flush_pending()
         if exhausted and self.update_step < cfg.num_training_steps:
             logger.warning("Reached the end of the dataset before num_training_steps")
         if cfg.save_dir and self.update_step != saved_at:
@@ -561,36 +751,48 @@ class Trainer:
             "n_lora_restarts": self.n_lora_restarts,
             "n_optimizer_resets": self.n_optimizer_resets,
             "fit_seconds": time.perf_counter() - t_fit,
+            "step_flops": self._step_flops,
+            "peak_flops": self._peak_flops,
         }
         if eval_iter_factory is not None and not preempted:
-            final_loss, _ = self.evaluate(eval_iter_factory(), target_tokens=cfg.final_eval_tokens)
+            final_loss, final_tokens = self.evaluate(eval_iter_factory(), target_tokens=cfg.final_eval_tokens)
+            self.metrics.log({"final_eval_loss": final_loss, "final_eval_tokens": final_tokens},
+                             step=self.global_step)
             result["final_eval_loss"] = final_loss
         result["eval_batches"] = self.eval_batches
         result["records"] = self.records
+        self.metrics.finish()
+        self.tracer.close()
         logger.info("Training finished")
         return result
 
-    def _log_update(self, metrics: dict, update_start: float) -> float:
-        """Append and log the record of the update just taken; returns the
-        next update's start time."""
-        now = time.perf_counter()
-        update_time = now - update_start
+    def _log_update(self, metrics: dict, update_time: float) -> dict:
+        """Append and log the record of the update just taken, its live MFU
+        and throughputs over ``update_time`` seconds; returns the record of
+        ``metrics.jsonl`` (the JAX trainer's keys and ``update_seconds``)."""
         tokens_in_update = self.tokens_seen - self.tokens_seen_before
         self.tokens_seen_before = self.tokens_seen
+        tokens_per_sec = tokens_in_update / update_time
+        mfu = None if self._peak_flops is None else self._step_flops / update_time / self._peak_flops
+        if mfu is not None:
+            self.obs.set_gauge("mfu", mfu)
+        self.obs.set_gauge("throughput_tokens_per_s", tokens_per_sec)
         record = {
             **metrics,
             "update_step": self.update_step,
             "global_step": self.global_step,
             "update_seconds": update_time,
-            "throughput_tokens": tokens_in_update / update_time,
+            "mfu": mfu,
+            "throughput_tokens": tokens_per_sec,
             "throughput_examples": self.cfg.total_batch_size / update_time,
+            "throughput_batches": self.grad_accum * self.n_batch_shards / update_time,
             "tokens_seen": self.tokens_seen,
             "n_lora_restarts": self.n_lora_restarts,
             "n_optimizer_resets": self.n_optimizer_resets,
         }
         self.records.append(record)
         logger.info(json.dumps(record))
-        return now
+        return {k: v for k, v in record.items() if k not in ("skipped", "n_skipped", "global_step")}
 
     # ------------------------------------------------------------------
     def evaluate(self, eval_iter: Iterator[np.ndarray], target_tokens: int = -1, sync_every: int = 8):

@@ -3,7 +3,8 @@
 The port's own copy of ``relora_tpu/utils/logging.py``'s ``get_logger`` and
 ``MetricsLogger``.  The reference also forwards records to wandb when it is
 importable; wandb is absent on every machine the port runs on, where the
-reference writes JSONL alone, so this copy writes JSONL alone.
+reference writes JSONL alone, so this copy writes JSONL alone (the
+trainer refuses ``--wandb``).
 """
 
 from __future__ import annotations
@@ -17,6 +18,10 @@ import time
 from typing import Any, Mapping, Optional
 
 _LOGGERS: dict[str, logging.Logger] = {}
+# the sink's own messages go through a plain module logger: get_logger()'s
+# package logger stops propagation, which would hide every relora_tpu_torch
+# record from the root logger's handlers once a trainer logged an event
+_log = logging.getLogger(__name__)
 
 
 def _process_index() -> int:
@@ -56,11 +61,18 @@ class MetricsLogger:
 
     ``log(dict, step=)`` writes a metrics record, ``event(kind, **fields)`` a
     lifecycle record tagged ``_event``; every record carries ``_time`` and,
-    when ``source`` is set, ``_source``.  Writes are line-atomic under a lock:
-    the server logs from its model thread and its event loop alike.
+    when ``source`` is set, ``_source``.  ``config`` is written once to
+    ``<run_dir>/run_config.json`` (the reference's wandb config capture,
+    offline).  Writes are line-atomic under a lock: the server logs from its
+    model thread and its event loop alike.
     """
 
-    def __init__(self, run_dir: Optional[str] = None, source: Optional[str] = None):
+    def __init__(
+        self,
+        run_dir: Optional[str] = None,
+        source: Optional[str] = None,
+        config: Optional[Mapping[str, Any]] = None,
+    ):
         self.enabled = _process_index() == 0
         self.source = source
         self._fh = None
@@ -68,6 +80,12 @@ class MetricsLogger:
         if self.enabled and run_dir is not None:
             os.makedirs(run_dir, exist_ok=True)
             self._fh = open(os.path.join(run_dir, "metrics.jsonl"), "a")
+            if config:
+                try:
+                    with open(os.path.join(run_dir, "run_config.json"), "w") as f:
+                        json.dump(dict(config), f, indent=2, default=str)
+                except OSError as e:
+                    _log.warning(f"could not write run_config.json: {e}")
 
     def _write(self, record: dict) -> None:
         record["_time"] = time.time()
@@ -90,11 +108,16 @@ class MetricsLogger:
         """A lifecycle record (drain, warmup, stall, ...) tagged ``_event``."""
         if not self.enabled:
             return
-        get_logger().info(f"event {kind}: {fields}")
+        _log.info(f"event {kind}: {fields}")
         record = {"_event": kind, **{k: _to_scalar(v) for k, v in fields.items()}}
         if step is not None:
             record["_step"] = step
         self._write(record)
+
+    def alert(self, title: str, text: str) -> None:
+        """A warning the run's operator must see (the reference's
+        ``wandb.alert``, training_utils.py:397-404): logged at WARNING."""
+        _log.warning(f"ALERT [{title}]: {text}")
 
     def finish(self) -> None:
         with self._lock:

@@ -126,6 +126,20 @@ def test_cut_and_resumed_run_is_bit_equal_to_a_straight_run(tmp_path):
     assert os.path.exists(os.path.join(save_dir, TRAINING_CONFIG_FILE))
     ts = ckpt.load_training_state(os.path.join(save_dir, "model_9"))
     assert ts["update_step"] == 9 and ts["scheduler_start_step"] == 0 and ts["n_lora_restarts"] == 2
+    # metrics.jsonl: both runs' memory plans, the SIGTERM and the emergency
+    # save at the cut, then every update's record once
+    records = _metrics(save_dir)
+    assert [(e["_event"], e["_step"]) for e in records if "_event" in e] == [
+        ("memory_plan", 0), ("preemption", CUT), ("emergency_checkpoint", CUT), ("memory_plan", CUT)]
+    emergency = next(e for e in records if e.get("_event") == "emergency_checkpoint")
+    assert emergency["path"] == os.path.join(save_dir, f"model_{CUT}")
+    assert next(e for e in records if e.get("_event") == "preemption")["signum"] == signal.SIGTERM
+    assert [r["loss"] for r in records if "loss" in r] == _losses(want)
+
+
+def _metrics(save_dir):
+    with open(os.path.join(save_dir, "metrics.jsonl")) as f:
+        return [json.loads(line) for line in f]
 
 
 def _jax_run(batches):
@@ -267,6 +281,8 @@ def test_a_failed_save_is_retried_then_abandoned_without_stopping_the_run(tmp_pa
     # two saves (the cadence's at 2, the final one at 3), three attempts each
     assert failures["left"] == 10**6 - 2 * 3
     assert ckpt.get_last_checkpoint(str(tmp_path / "lost")) == (None, None)
+    failed = [e for e in _metrics(str(tmp_path / "lost")) if e.get("_event") == "save_failed"]
+    assert [e["_step"] for e in failed] == [2, 3] and all("disk hiccup" in e["error"] for e in failed)
 
 
 @pytest.mark.parametrize("quantize", [None, "int8"], ids=["dense", "int8"])
@@ -347,6 +363,16 @@ def test_an_injected_spike_rolls_back_and_respects_the_budget(tmp_path):
     assert steps == [1, 2, 3, 4, 5, 6, 7, 8, 10, 11, 12, 13, 14, 15]
     ts = ckpt.load_training_state(os.path.join(save_dir, "model_15"))
     assert ts["n_spike_rollbacks"] == 1 and {6, 7, 8} <= set(ts["skip_batches"])
+    # metrics.jsonl: the spike, the rollback to model_6, the blacklisted
+    # batches skipped, the second spike logged with the budget spent
+    events = [e for e in _metrics(save_dir) if "_event" in e and e["_event"] != "memory_plan"]
+    assert [(e["_event"], e["_step"]) for e in events] == [
+        ("loss_spike", 8), ("rollback", 6), ("batch_skipped", 6), ("batch_skipped", 7),
+        ("batch_skipped", 8), ("loss_spike", 13), ("rollback_skipped", 13)]
+    assert (events[0]["first_step"], events[0]["last_step"]) == (7, 8)
+    assert events[1]["target"] == os.path.join(save_dir, "model_6")
+    assert events[1]["skip_batches"] == [6, 7, 8] and events[1]["n_spike_rollbacks"] == 1
+    assert "budget exhausted" in events[-1]["reason"]
     # a resumed run inherits the blacklist and the spent budget
     resumed = _trainer(tmp_path, save_dir=save_dir, autoresume=True, num_training_steps=15)
     assert {6, 7, 8} <= resumed.cfg.skip_batches and resumed.n_spike_rollbacks == 1
