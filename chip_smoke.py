@@ -220,7 +220,11 @@ Phases, in order; any failure raises and the script exits non-zero:
                of an M=72 call whose other rows sit on other slots, at each
                projection shape.  Then each M and shape timed beside its twin,
                the gathered chain (cuBLAS x @ W plus the gathered bmm
-               composite) and its bound.
+               composite) and its bound; and two rows of their own, each
+               checked against its twin at bf16 and f32 and timed so:
+               ``@prefill`` (M = 512, the largest bucket the drain's prompts
+               reach, every row on one slot: a batch-1 prefill) and
+               ``@pythia_1b`` (M = 8 over pythia_1b's four projections).
 16. adapters  — a seeded llama_250m base (LoRA r=128) and three seeded tenant
                adapters (tA, tB, tC; alpha 32, 64, 16) written under
                ``build/chip_smoke/`` by ``train/checkpoint.save_checkpoint``;
@@ -245,6 +249,28 @@ Phases, in order; any failure raises and the script exits non-zero:
                slotted llama_250m at f32 with a mixed ``adapter_idx``, the
                kernel arm (kernel 5, the paged kernels) against the plain arm
                (the gathered composite, naive attention), compared on logits.
+   contiguous — the reference's default serving mode, ``serve_cli``
+               without ``--paged`` (the contiguous cache: each admitted
+               request prefills alone at its bucket and is inserted into
+               the (8, 1024) decode cache; one decode over 8 rows a round;
+               attention the plain ``cached_attention``, as the reference's
+               is ``jnp``): the 16 prompts, tokens/s, a profiled second
+               drain for the device idle share, and the streams identical
+               to the paged sequential drain (reported).
+               contiguous_tenants: phase 16's base and tenants through
+               ``ContinuousBatchingScheduler(adapter_registry=)`` with 4
+               slots; fails unless kernel 5 launched 7 x 24 in every decode
+               round and in every prefill whose bucket ``choose_grouped_arm``
+               gives it (the pick printed per bucket 16-512); the decode
+               launches join row 5, the prefill ones row 5 @ prefill.
+               generate: ``serve_cli --prompt`` x 8 (``engine.generate``),
+               tokens/s.  contiguous_server: ``serve_cli --port 0`` without
+               ``--paged``, 16 clients; TTFT, TPOT, warmup over every
+               bucket; tokens identical to the in-process contiguous drain.
+               f32_contiguous: a 2-layer llama_250m at f32, contiguous
+               against paged on one engine: prefill and decode logits within
+               2e-3, the drain, ``generate`` and a tenant drain
+               token-identical.  Each line carries its wall seconds.
    auto-arms — at llama_250m's and pythia_1b's projection shapes (r=128,
                bf16; a bf16 base as the model passes it and an int8 one),
                each arm of ``lora_matmul`` timed back to back (CUDA events
@@ -334,9 +360,11 @@ spec), one per server drain, the server process line, the f32 server and
 f32 spec lines, a train line, a LoRA timing line per model, a fused-train
 line, the profile line, an int8 timing line per model, the int8 train lines,
 a grouped timing line, one line per adapter drain and the tenant server
-drain, the auto-arms lines, the auto_train and resume lines, one line per
-unmerged drain, one line per pythia drain, the five pythia train lines
-(every train line carries its telemetry), a
+drain, the contiguous, contiguous_tenants, generate, contiguous server and
+f32_contiguous lines, the auto-arms lines, the auto_train and resume lines,
+one line per unmerged drain, one line per pythia drain, the five pythia
+train lines (every train line carries its telemetry), the wall seconds of
+each group of phases (``{"phase_seconds": ...}``), a
 ``{"kernels": [...]}`` line, the card's ``nvidia-smi
 --query-gpu=name,power.limit`` line, and last ``{"ok": true, "device":
 {...}}``.  Without CUDA, or without the package beside it, it exits non-zero
@@ -347,6 +375,7 @@ from __future__ import annotations
 
 import gc
 import json
+import math
 import os
 import shutil
 import signal
@@ -1269,12 +1298,14 @@ def write_spec_checkpoints(torch, work, device):
 class EngineCalls:
     """Counts the calls of one ``InferenceEngine`` method while entered
     (``_forward``: every model forward), and the launches of kernels 1 and 2
-    made inside them: the launches at the shape that method gives the
-    kernels (``verify_paged``: kernel 1 at S = K+1 over W+1 tables;
-    ``step_paged``: kernel 2 on packed windows)."""
+    (or of the wrappers ``kernels`` maps by name) made inside them: the
+    launches at the shape that method gives the kernels (``verify_paged``:
+    kernel 1 at S = K+1 over W+1 tables; ``step_paged``: kernel 2 on packed
+    windows; ``decode``: kernel 5 at M = max_batch)."""
 
-    def __init__(self, method):
+    def __init__(self, method, kernels=None):
         self.method = method
+        self.kernels = kernels
 
     def __enter__(self):
         from relora_tpu_torch.ops import attention as A
@@ -1282,14 +1313,16 @@ class EngineCalls:
 
         self.cls, self.real = InferenceEngine, getattr(InferenceEngine, self.method)
         self.calls = 0
-        self.launches = {"paged_decode_attention": 0, "packed_paged_attention": 0}
+        kernels = self.kernels or {k: getattr(A, k) for k in ("paged_decode_attention",
+                                                              "packed_paged_attention")}
+        self.launches = dict.fromkeys(kernels, 0)
 
         def counted(engine, *args, **kwargs):
-            before = {k: getattr(A, k).launches for k in self.launches}
+            before = {k: w.launches for k, w in kernels.items()}
             out = self.real(engine, *args, **kwargs)
             self.calls += 1
-            for k in self.launches:
-                self.launches[k] += getattr(A, k).launches - before[k]
+            for k, w in kernels.items():
+                self.launches[k] += w.launches - before[k]
             return out
 
         setattr(InferenceEngine, self.method, counted)
@@ -2805,19 +2838,95 @@ def check_grouped_kernels(torch, device):
     # (M = 8 rows, most of the drains' calls); no single PyTorch call computes
     # the function, so library_ms is the gathered chain
     row = per_layer[BATCH]
-    return [{
-        "name": "grouped_lora_matmul",
+    return [grouped_row("grouped_lora_matmul", worst, row),
+            grouped_shape_row(torch, device, "prefill", GROUPED_PREFILL_M, LORA_SHAPES, 1),
+            grouped_shape_row(torch, device, PYTHIA, BATCH, PYTHIA_LORA_SHAPES, ADAPTER_SLOTS)]
+
+
+def grouped_row(name, worst, layer):
+    """A kernels-line row of kernel 5 from one decoder layer's sums."""
+    return {
+        "name": name,
         "route": "cuda",
         "source": "relora_tpu_torch/csrc/lora_matmul.cu",
         "replaces": "relora_tpu/ops/pallas_lora_matmul.py:161",
         "launches": 0,
         "max_abs_err": worst,
-        "ms": row["ms"],
-        "plain_ms": row["plain_ms"],
-        "bound_ms": row["bound_ms"],
-        "bound_by": "bytes" if row["t_bytes"] >= row["t_ops"] else "operations",
-        "library_ms": row["library_ms"],
-    }]
+        "ms": layer["ms"],
+        "plain_ms": layer["plain_ms"],
+        "bound_ms": layer["bound_ms"],
+        "bound_by": "bytes" if layer["t_bytes"] >= layer["t_ops"] else "operations",
+        "library_ms": layer["library_ms"],
+    }
+
+
+GROUPED_PREFILL_M = 512  # the largest prompt bucket the drain's prompts (32-512 tokens) reach
+
+
+def grouped_shape_row(torch, device, tag, M, shapes, slots_used):
+    """Kernel 5 at ``M`` rows over ``shapes`` (one decoder layer's
+    projections), r = 128, 4 slots, the rows on ``slots_used`` of them
+    (1: a batch-1 prefill, every row one request's slot): held to its twin
+    at bf16 and f32, then timed at bf16 beside the twin, the gathered chain
+    and the bound, summed per layer; the row ``grouped_lora_matmul@tag``.
+    Its library_ms is the gathered chain, or at one slot the single-adapter
+    cuBLAS chain ``x @ W + s * (x @ A_i) @ B_i`` (row 4's chain), which a
+    caller with one slot would run instead (the gathered chain is printed
+    beside it)."""
+    from relora_tpu_torch.core.relora import full_f32_matmul
+    from relora_tpu_torch.ops import lora_matmul as LM
+    from relora_tpu_torch.ops.lora_dispatch import lora_matmul_grouped
+
+    def case(K, N, dtype, seed):
+        x, w, a, b, s, idx = make_grouped_case(torch, device, M, K, N, ADAPTER_R, ADAPTER_SLOTS,
+                                               dtype, seed)
+        if slots_used == 1:
+            idx = torch.full_like(idx, 1)
+        return x, w, a, b, s, idx
+
+    worst = 0.0
+    with full_f32_matmul(), torch.no_grad():
+        for i, (K, N, _) in enumerate(shapes):
+            for dtype in ("bf16", "f32"):
+                args = case(K, N, dtype, 301 + i)
+                got = LM.grouped_lora_matmul(*args)
+                want = LM.grouped_lora_matmul_plain(*args)
+                torch.cuda.synchronize()
+                err, rel, finite = _rel_err([(got, want)])
+                ok = finite and rel <= LORA_TOL[dtype]
+                print(f"kernel-check grouped_lora_matmul@{tag} M={M} K={K} N={N} r={ADAPTER_R} "
+                      f"slots_used={slots_used} {dtype} max_abs_err={err:.3e} rel_err={rel:.3e} "
+                      f"tol={LORA_TOL[dtype]:g} {'ok' if ok else 'FAIL'}")
+                if not ok:
+                    raise AssertionError(f"grouped_lora_matmul@{tag} disagrees with its twin "
+                                         f"({M, K, N, dtype})")
+                if dtype == "bf16":
+                    worst = max(worst, err)
+    layer = dict.fromkeys(("ms", "plain_ms", "library_ms", "gathered_ms", "bound_ms", "t_bytes",
+                           "t_ops"), 0.0)
+    per_shape = []
+    with torch.no_grad():
+        for K, N, count in shapes:
+            args = case(K, N, "bf16", 99)
+            x, w, a, b, sc, _ = args
+            a1, b1, s1 = a[1], b[1], float(sc[1])
+            t_bytes, t_ops = grouped_bound(M, K, N, ADAPTER_R, slots_used, 2)
+            gathered = time_ms(torch, lambda: lora_matmul_grouped(*args, arm="gathered"))
+            times = (time_ms(torch, lambda: LM.grouped_lora_matmul(*args)),
+                     time_ms(torch, lambda: LM.grouped_lora_matmul_plain(*args)),
+                     time_ms(torch, lambda: x @ w + ((x @ a1) @ b1) * s1)
+                     if slots_used == 1 else gathered,
+                     gathered)
+            per_shape.append({"K": K, "N": N, "ms": times[0], "plain_ms": times[1],
+                              "library_ms": times[2], "gathered_ms": times[3],
+                              "bound_ms": max(t_bytes, t_ops)})
+            for key, v in zip(layer, times + (max(t_bytes, t_ops), t_bytes, t_ops)):
+                layer[key] += count * v
+    print(json.dumps({"grouped_timings": f"@{tag}", "M": M, "r": ADAPTER_R,
+                      "slots_used": slots_used,
+                      "library": "single-slot cuBLAS chain" if slots_used == 1 else "gathered chain",
+                      "shapes": per_shape, "per_layer": layer}))
+    return grouped_row(f"grouped_lora_matmul@{tag}", worst, layer)
 
 
 def write_adapter_checkpoints(torch, work, device, model_config="llama_250m"):
@@ -2863,20 +2972,21 @@ def read_prompts(path):
         return [[int(t) for t in line.split()] for line in f if line.strip()]
 
 
-def tenant_engine(torch, base, slots, device, dtype="bf16", spec_k=0):
+def tenant_engine(torch, base, slots, device, dtype="bf16", spec_k=0, paged=True):
     """The serving engine of the adapter drains: llama_250m from the base
     checkpoint, unmerged, with ``slots`` adapter slots, the CLI's pool
-    (``spec_k``: a verify window of spec_k + 1)."""
+    (``spec_k``: a verify window of spec_k + 1), or with ``paged=False``
+    the contiguous cache alone."""
     from relora_tpu_torch.config.model import load_model_config
     from relora_tpu_torch.serve.engine import InferenceEngine, compute_dtype
     from relora_tpu_torch.train.checkpoint import load_lora_spec, restore_params_host
 
     cfg = load_model_config("llama_250m")
     cache = cfg.max_sequence_length
+    pool = dict(page_size=PAGE, num_pages=BATCH * (cache // PAGE) + 1, chunk_size=64,
+                token_budget=BATCH + 64, spec_k=spec_k) if paged else {}
     return InferenceEngine(cfg, restore_params_host(base), cache_size=cache, dtype=compute_dtype(dtype),
-                           page_size=PAGE, num_pages=BATCH * (cache // PAGE) + 1, chunk_size=64,
-                           token_budget=BATCH + 64, device=device, lora=load_lora_spec(base),
-                           adapter_slots=slots, spec_k=spec_k)
+                           device=device, lora=load_lora_spec(base), adapter_slots=slots, **pool)
 
 
 def tenant_drain(torch, engine, registry, requests, packed=False, max_batch=BATCH, spec="off"):
@@ -3931,6 +4041,334 @@ def server_tenants(torch, base_ckpt, tenants, prompts_path):
     return launches
 
 
+# the reference's default serving mode: the server phase's flags without --paged
+CONTIGUOUS_ARGS = [a for a in SERVER_ARGS if a != "--paged"]
+
+
+def contiguous_drain(torch, prompts_path, paged):
+    """Phase contiguous: ``serve_cli`` without ``--paged`` (the contiguous
+    cache, prefill-on-admission; merged bf16 llama_250m, ``cache_size``
+    1024, 8 slots) drains the 16 prompts, then drains them again under the
+    profiler for the device idle share and the prefill stall share (the
+    prefill and insert seconds over those plus the decode rounds').  Prints tokens/s beside the paged
+    sequential drain's and the count of streams identical to it (``paged``:
+    its label -> tokens and tokens/s; reported, not gated: kernel 1 and the
+    f32 plain attention round differently in bf16).  Fails unless every
+    completion is well formed and in the vocabulary, every request
+    prefilled once, the profiled drain's tokens equal the timed drain's, and
+    kernels 1 and 2 never launched (the contiguous cache attends in plain
+    PyTorch, as the reference's does in ``jnp``).  Returns uid -> tokens and
+    tokens/s, the yardstick of the generate and server phases."""
+    from relora_tpu_torch import serve_cli
+    from relora_tpu_torch.ops import attention as A
+    from relora_tpu_torch.serve.admission import ServeMetrics
+
+    t0 = time.perf_counter()
+    argv = CONTIGUOUS_ARGS + ["--input-file", prompts_path]
+    A.paged_decode_attention.launches = A.packed_paged_attention.launches = 0
+    with EngineCalls("prefill") as prefills, EngineCalls("decode") as decodes:
+        completions, seconds, sched = serve_cli.drain(argv)
+    tokens = {uid: c.tokens for uid, c in completions.items()}
+    vocab = sched.engine.config.vocab_size
+    del sched
+    torch.cuda.empty_cache()
+    args = serve_cli.parse_args(argv)
+    sched = serve_cli.build(args)
+    sched.obs_registry = ServeMetrics()  # the prefill, insert and decode_step histograms
+    again, wall, busy, _ = device_profile(torch, lambda: sched.run(serve_cli.read_requests(args)))
+    phases = sched.obs_registry.snapshot()
+    admit_s = phases["prefill_seconds_sum"] + phases["insert_seconds_sum"]
+    del sched
+    torch.cuda.empty_cache()
+    n = sum(len(t) for t in tokens.values())
+    ref = paged["bf16"]
+    line = {"drain": "contiguous", "requests": len(tokens), "tokens": n, "seconds": seconds,
+            "tokens_per_s": n / seconds, "paged_tokens_per_s": ref["tokens_per_s"],
+            "identical_to_paged": sum(tokens[u] == ref["tokens"][u] for u in ref["tokens"]),
+            "prefills": prefills.calls, "decode_rounds": decodes.calls,
+            "profiled": {"device_idle_share": 1.0 - busy / wall, "profiled_wall_s": wall,
+                         "device_busy_s": busy, "prefill_insert_s": admit_s,
+                         "prefill_stall_share": admit_s / (admit_s + phases[
+                             "decode_step_seconds_sum"])},
+            "paged_kernel_launches": A.paged_decode_attention.launches
+            + A.packed_paged_attention.launches,
+            "wall_s": time.perf_counter() - t0}
+    print(json.dumps(line))
+    if len(tokens) != 16 or not all(1 <= len(t) <= 64 for t in tokens.values()):
+        raise AssertionError("drain contiguous: malformed completions")
+    if not all(0 <= tok < vocab for t in tokens.values() for tok in t):
+        raise AssertionError("drain contiguous: token id out of the vocabulary")
+    if prefills.calls != 16 or decodes.calls == 0 or line["paged_kernel_launches"]:
+        raise AssertionError(f"drain contiguous: {prefills.calls} prefills, {decodes.calls} "
+                             f"decode rounds, {line['paged_kernel_launches']} paged launches")
+    if {u: c.tokens for u, c in again.items()} != tokens:
+        raise AssertionError("drain contiguous: the profiled drain's tokens differ")
+    return {"tokens": tokens, "tokens_per_s": n / seconds}
+
+
+def prefill_arms(buckets):
+    """``choose_grouped_arm``'s pick at each projection of a batch-1 prefill
+    of each bucket (llama_250m's shapes, r = 128, 4 slots, bf16: the call
+    ``lora_matmul_grouped`` makes on the card, which counts min(slots, M)
+    adapters although a batch-1 prefill's rows all use one)."""
+    from relora_tpu_torch.ops.lora_dispatch import choose_grouped_arm
+
+    return {T: [choose_grouped_arm(T, K, N, ADAPTER_R, min(ADAPTER_SLOTS, T), 2, 2,
+                                   grouped_available=True) for K, N, _ in LORA_SHAPES]
+            for T in buckets}
+
+
+def contiguous_tenants(torch, device, prompts_path, base, tenants):
+    """Phase contiguous_tenants: the adapter phase's base and tenants through
+    ``ContinuousBatchingScheduler(adapter_registry=)`` on the contiguous
+    engine (4 slots, requests naming [base, tA, tB, tC] round-robin, 64 new
+    tokens).  Prints tokens/s, kernel 5's launches in decode rounds and in
+    prefills, and the arm ``choose_grouped_arm`` takes at each prompt bucket
+    16-512.  Fails unless kernel 5 launched in every projection of every
+    layer of every decode round (7 x 24 a round), each prefill launched it
+    where its bucket's pick is the kernel and nowhere else, and nothing
+    else launched it.  Returns (decode launches, prefill launches)."""
+    from relora_tpu_torch.config.model import load_model_config
+    from relora_tpu_torch.ops import lora_matmul as LM
+    from relora_tpu_torch.serve.adapters import AdapterRegistry
+    from relora_tpu_torch.serve.engine import bucket_length
+    from relora_tpu_torch.serve.scheduler import ContinuousBatchingScheduler
+
+    t0 = time.perf_counter()
+    layers = load_model_config("llama_250m").num_hidden_layers
+    prompts = read_prompts(prompts_path)
+    mix = [None] + list(TENANT_ALPHAS)
+    engine = tenant_engine(torch, base, ADAPTER_SLOTS, device, paged=False)
+    registry = AdapterRegistry(tenants, ADAPTER_SLOTS, expected_r=ADAPTER_R,
+                               writer=engine.adapter_writer())
+    sched = ContinuousBatchingScheduler(engine, max_batch=BATCH, eos_id=engine.config.eos_token_id,
+                                        seed=0, adapter_registry=registry)
+    grouped = {"grouped_lora_matmul": LM.grouped_lora_matmul}
+    LM.grouped_lora_matmul.launches = 0
+    with EngineCalls("decode", grouped) as decodes, EngineCalls("prefill", grouped) as prefills:
+        t1 = time.perf_counter()
+        completions = sched.run(tenant_requests(prompts, mix))
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t1
+    total = LM.grouped_lora_matmul.launches
+    arms = prefill_arms((16, 32, 64, 128, 256, 512))
+    per_prompt = [layers * sum(count for (_, _, count), arm in zip(LORA_SHAPES, arms[bucket_length(len(p))])
+                               if arm == "grouped") for p in prompts]
+    decode_launches = decodes.launches["grouped_lora_matmul"]
+    prefill_launches = prefills.launches["grouped_lora_matmul"]
+    tokens = [c.tokens for c in completions.values()]
+    n = sum(len(t) for t in tokens)
+    print(json.dumps({"drain": "contiguous_tenants", "requests": len(tokens), "adapters": mix,
+                      "tokens": n, "seconds": seconds, "tokens_per_s": n / seconds,
+                      "decode_rounds": decodes.calls, "prefills": prefills.calls,
+                      "launches": {"decode": decode_launches, "prefill": prefill_launches},
+                      "prefill_arms": {str(T): a for T, a in arms.items()},
+                      "prefill_buckets": sorted({bucket_length(len(p)) for p in prompts}),
+                      "loads": registry.stats()["loads_total"], "wall_s": time.perf_counter() - t0}))
+    del sched, engine, registry
+    torch.cuda.empty_cache()
+    if len(tokens) != len(prompts) or not all(1 <= len(t) <= 64 for t in tokens):
+        raise AssertionError("drain contiguous_tenants: malformed completions")
+    if not all(0 <= tok < 32100 for t in tokens for tok in t):
+        raise AssertionError("drain contiguous_tenants: token id out of the vocabulary")
+    if decodes.calls == 0 or decode_launches != 7 * layers * decodes.calls:
+        raise AssertionError(f"contiguous_tenants: kernel 5 launched {decode_launches} times in "
+                             f"{decodes.calls} decode rounds, expected 7 x {layers} a round")
+    if prefills.calls != len(prompts) or prefill_launches != sum(per_prompt):
+        raise AssertionError(f"contiguous_tenants: kernel 5 launched {prefill_launches} times in "
+                             f"{prefills.calls} prefills, expected {sum(per_prompt)}")
+    if total != decode_launches + prefill_launches:
+        raise AssertionError(f"contiguous_tenants: {total} kernel 5 launches, "
+                             f"{decode_launches + prefill_launches} in decode and prefill")
+    return decode_launches, prefill_launches
+
+
+def generate_phase(torch, prompts_path, contiguous):
+    """Phase generate: ``serve_cli --prompt`` x 8 (the first 8 drain prompts,
+    64 new tokens) without ``--paged``, the one-shot mode through
+    ``InferenceEngine.generate`` (every prompt padded to one bucket, one
+    batch-8 prefill, then decode steps).  Prints tokens/s and the count of
+    outputs identical to the contiguous drain's (reported: the batch-8
+    prefill rounds otherwise in bf16).  Fails unless 8 well-formed outputs
+    of in-vocabulary ids came back."""
+    from relora_tpu_torch import serve_cli
+
+    t0 = time.perf_counter()
+    prompts = read_prompts(prompts_path)[:8]
+    argv = CONTIGUOUS_ARGS + [a for p in prompts for a in ("--prompt", " ".join(map(str, p)))]
+    outs, seconds, engine = serve_cli.one_shot(argv)
+    vocab = engine.config.vocab_size
+    del engine
+    torch.cuda.empty_cache()
+    n = sum(len(t) for t in outs)
+    print(json.dumps({"drain": "generate", "prompts": len(outs), "tokens": n, "seconds": seconds,
+                      "tokens_per_s": n / seconds,
+                      "identical_to_contiguous": sum(o == contiguous["tokens"][i]
+                                                     for i, o in enumerate(outs)),
+                      "wall_s": time.perf_counter() - t0}))
+    if len(outs) != 8 or not all(1 <= len(t) <= 64 for t in outs):
+        raise AssertionError("generate: malformed outputs")
+    if not all(0 <= tok < vocab for t in outs for tok in t):
+        raise AssertionError("generate: token id out of the vocabulary")
+
+
+def contiguous_server(torch, prompts_path, contiguous):
+    """Phase contiguous_server: ``serve_cli --port 0`` without ``--paged``,
+    the 16 prompts from 16 concurrent SSE clients after the warmup.  Prints
+    TTFT p50/p99, TPOT p50, tokens/s beside the in-process contiguous
+    drain's and the warmup's seconds.  Fails unless the warmup ran every
+    prompt bucket (16-1024), the insert and the decode, ``/healthz`` carries
+    no ``paging`` block and ``/metrics`` the round's gauges but no page
+    series, and every stream is token-identical to the in-process drain's
+    (decode always runs 8 rows, prefill 1: a request's tokens do not depend
+    on its neighbours)."""
+    t0 = time.perf_counter()
+    payloads = [{"prompt": p} for p in read_prompts(prompts_path)]
+    with client_pool() as pool, InProcessServer(CONTIGUOUS_ARGS) as srv:
+        wait_state(lambda: srv.health()[1]["status"] == "ok", "/healthz ok")
+        clients = run_clients(pool, srv.server.port, payloads)
+        stats = latency_stats(clients)
+        _, body = srv.health()
+        text = http_call(srv.server.port, "GET", "/metrics")[2].decode()
+        buckets = list(srv.scheduler.engine.default_prompt_buckets())
+        vocab = srv.scheduler.engine.config.vocab_size
+    report, warmup_s = srv.server.warmup_report, srv.warmup_s
+    del srv
+    torch.cuda.empty_cache()
+    diverged = [uid for uid, c in enumerate(clients) if c.tokens != contiguous["tokens"][uid]]
+    print(json.dumps({"server_drain": "contiguous", "requests": len(clients), **stats,
+                      "inproc_tokens_per_s": contiguous["tokens_per_s"], "warmup_s": warmup_s,
+                      "warmup": report, "prompt_buckets": buckets,
+                      "identical_to_inproc": not diverged, "divergences": diverged,
+                      "wall_s": time.perf_counter() - t0}))
+    for c in clients:
+        check_stream("contiguous", c, vocab)
+    if report != {"batch": BATCH, "n_compiles": len(buckets) + 2}:
+        raise AssertionError(f"server contiguous: the warmup ran {report}, expected "
+                             f"{len(buckets)} prefill buckets, the insert and the decode")
+    if "paging" in body or "relora_serve_kv_pages_used" in text:
+        raise AssertionError("server contiguous: page-pool series on a contiguous server")
+    for gauge in ("batch_fill", "prefill_stall_share", "active_slots", "queue_depth"):
+        if f"relora_serve_{gauge} " not in text:
+            raise AssertionError(f"server contiguous: /metrics lacks {gauge}")
+    if diverged:
+        raise AssertionError(f"server contiguous: requests {diverged} differ from the in-process drain")
+
+
+def f32_contiguous(torch, device):
+    """Phase f32_contiguous: a 2-layer llama_250m at f32 (TF32 off) on one
+    engine with a page pool, the contiguous path against the paged one:
+    the prefill logits of 8 prompts (32-512 tokens; batch-1 ``prefill``
+    against 64-token ``prefill_chunk`` calls) and one decode step over the 8
+    rows (``decode`` on the inserted cache against ``decode_paged``, kernel
+    1) within 2e-3; then the 16 prompts (32 new tokens) drained by
+    ``ContinuousBatchingScheduler`` and ``PagedContinuousBatchingScheduler``,
+    ``generate`` over the first 8 against the paged drain's tokens, and a
+    tenant drain (a slotted model, seeded factors in three slots, requests
+    naming [base, tA, tB, tC] round-robin) through both schedulers, each
+    token-identical."""
+    import numpy as np
+
+    from relora_tpu_torch.core.relora import LoraSpec, full_f32_matmul, kaiming_uniform
+    from relora_tpu_torch.models.family import causal_lm_class
+    from relora_tpu_torch.serve.adapters import AdapterRegistry, extract_lora_factors
+    from relora_tpu_torch.serve.engine import InferenceEngine, bucket_length, build_decode_model
+    from relora_tpu_torch.serve.scheduler import (
+        ContinuousBatchingScheduler,
+        PagedContinuousBatchingScheduler,
+        Request,
+    )
+
+    t0 = time.perf_counter()
+    cfg, _ = two_layer("llama_250m")
+    C = cfg.max_sequence_length
+    W = C // PAGE
+    gen = torch.Generator(device=device).manual_seed(5)
+    model = seeded_init(torch, build_decode_model(cfg, device=device), gen)
+    engine = InferenceEngine(cfg, model, cache_size=C, page_size=PAGE, num_pages=BATCH * W + 1,
+                             chunk_size=64, device=device)
+    rng = np.random.default_rng(6)
+    lengths = rng.integers(32, 513, BATCH)
+    prompts = [rng.integers(2, cfg.vocab_size, L).tolist() for L in lengths]
+    tables = (np.arange(BATCH * W).reshape(BATCH, W) + 1).astype(np.int32)
+    lines = {}
+    with full_f32_matmul():
+        pool, cache = engine.init_pool(), engine.init_cache(BATCH)
+        err_prefill = 0.0
+        for row, prompt in enumerate(prompts):
+            L = len(prompt)
+            chunks = []
+            for start in range(0, L, 64):
+                ids = np.zeros((1, 64), np.int32)
+                part = prompt[start : start + 64]
+                ids[0, : len(part)] = part
+                logits, pool = engine.prefill_chunk(ids, start, pool, tables[row : row + 1])
+                chunks.append(logits[0, : len(part)])
+            ids = np.zeros((1, bucket_length(L)), np.int32)
+            ids[0, :L] = prompt
+            logits, pcache = engine.prefill(ids)
+            engine.insert(cache, pcache, row)
+            err_prefill = max(err_prefill, (logits[0, :L] - torch.cat(chunks)).abs().max().item())
+        token = rng.integers(2, cfg.vocab_size, (BATCH, 1)).astype(np.int32)
+        contig, _ = engine.decode(cache, token, lengths[:, None])
+        paged, _ = engine.decode_paged(pool, token, lengths[:, None], tables)
+        err_decode = (contig - paged).abs().max().item()
+        del pool, cache, pcache
+        torch.cuda.synchronize()
+        for name, err in (("prefill", err_prefill), ("decode", err_decode)):
+            ok = math.isfinite(err) and err <= LOGIT_TOL
+            print(f"f32-contiguous {name} max_abs_err={err:.3e} tol={LOGIT_TOL:g} "
+                  f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"f32-contiguous {name}: contiguous and paged logits disagree")
+
+        drain_prompts = read_prompts(os.path.join(REPO, "build", "chip_smoke", "prompts.txt"))
+
+        def both_drains(engine, registry=None, names=(None,)):
+            out = []
+            for cls in (ContinuousBatchingScheduler, PagedContinuousBatchingScheduler):
+                sched = cls(engine, max_batch=BATCH, eos_id=cfg.eos_token_id, seed=0,
+                            adapter_registry=registry)
+                done = sched.run([Request(uid=i, prompt=p, max_new_tokens=32,
+                                          adapter=names[i % len(names)])
+                                  for i, p in enumerate(drain_prompts)])
+                out.append({u: c.tokens for u, c in done.items()})
+            return out
+
+        contiguous_tokens, paged_tokens = both_drains(engine)
+        generated = engine.generate(drain_prompts[:8], max_new_tokens=32, eos_id=cfg.eos_token_id)
+        lines["drain"] = [u for u in paged_tokens if contiguous_tokens[u] != paged_tokens[u]]
+        lines["generate"] = [i for i, g in enumerate(generated) if g != paged_tokens[i]]
+        del engine, model
+        torch.cuda.empty_cache()
+
+        spec = LoraSpec(r=ADAPTER_R, alpha=32.0)
+        with torch.device(device):
+            lora_model = causal_lm_class(cfg)(cfg, lora=spec)
+        seeded_init(torch, lora_model, gen)
+        engine = InferenceEngine(cfg, lora_model.state_dict(), cache_size=C, page_size=PAGE,
+                                 num_pages=BATCH * W + 1, chunk_size=64, device=device, lora=spec,
+                                 adapter_slots=ADAPTER_SLOTS)
+        registry = AdapterRegistry(None, ADAPTER_SLOTS, writer=engine.adapter_writer())
+        for name, alpha in TENANT_ALPHAS.items():
+            factors = {key: kaiming_uniform(p.shape, gen, device) if key.endswith("lora_a")
+                       else torch.randn(p.shape, generator=gen, device=device) * 0.05
+                       for key, p in extract_lora_factors(lora_model.state_dict()).items()}
+            registry.preload(name, factors, alpha / ADAPTER_R)
+        del lora_model
+        contiguous_tenants_tokens, paged_tenants_tokens = both_drains(
+            engine, registry, [None] + list(TENANT_ALPHAS))
+        lines["tenants"] = [u for u in paged_tenants_tokens
+                            if contiguous_tenants_tokens[u] != paged_tenants_tokens[u]]
+        del engine, registry
+        torch.cuda.empty_cache()
+    print(json.dumps({"f32_contiguous": "token-identical to the paged path",
+                      "divergences": lines, "wall_s": time.perf_counter() - t0}))
+    for name, diverged in lines.items():
+        if diverged:
+            raise AssertionError(f"f32-contiguous {name}: requests {diverged} differ from the paged path")
+
+
 def take_launches(rows, launches, model=""):
     """Each row of ``rows`` named ``kernel`` (``model`` empty) or
     ``kernel@model`` adds ``launches[kernel]``; other rows are left alone."""
@@ -3956,6 +4394,14 @@ def main() -> int:
 
     device = torch.device("cuda")
     t0 = time.perf_counter()
+    laps, last = {}, [t0]
+
+    def lap(name):
+        """The wall seconds since the previous lap, under ``name``."""
+        now = time.perf_counter()
+        laps[name] = round(now - last[0], 1)
+        last[0] = now
+
     libs = _build.build_all()
     print(f"build: {sorted(libs)} in {time.perf_counter() - t0:.1f}s")
     ptxas = ptxas_report(_build.CSRC / "lora_matmul.cu", GROUPED_KERNELS + FWD_TC_KERNELS
@@ -3968,25 +4414,31 @@ def main() -> int:
     count_hmma(libs["paged_attention"], PAGED_TC_KERNELS)
     paged_ptxas()
     flash_ptxas()
+    lap("build")
 
     rows = check_kernels(torch, device)
     flash_rows = check_flash_kernels(torch, device)
+    lap("kernels, kernels-3")
     work = os.path.join(REPO, "build", "chip_smoke")
     os.makedirs(work, exist_ok=True)
     prompts = os.path.join(work, "prompts.txt")
     write_prompts(prompts, 32100)
     repeat = write_repeat_prompts(os.path.join(work, "repeat.txt"), 32100)
+    check_profile_readers(torch, device)
     launches, plain_lines, inproc = drains(torch, prompts, repeat)
     torch.cuda.empty_cache()
+    lap("drains")
     spec_base, spec_draft = write_spec_checkpoints(torch, work, device)
     spec_launches, window, _ = spec_drains(
         torch, prompts, repeat, spec_base, spec_draft,
         {line["drain"]: line["tokens_per_s"] for line in plain_lines})
+    lap("spec")
     # the online front end: serve_cli --port over kernels 1 and 2
     server_launches, _ = server_drains(torch, prompts, inproc)
     server_launches["paged_decode_attention"] += server_overload(torch, prompts)[0]
     server_subprocess(work, prompts, inproc)
     server_f32(torch, work, prompts)
+    lap("server")
     paged_rows = {row["name"]: row for row in rows}
     for name, row in paged_rows.items():
         if name.endswith(PYTHIA):
@@ -3998,12 +4450,14 @@ def main() -> int:
     torch.cuda.empty_cache()
     f32_spec_drains(torch, repeat, work)
     torch.cuda.empty_cache()
+    lap("f32, f32-spec")
     launches, _ = train(torch, write_corpus(work))
     take_launches(flash_rows, launches)
     rows += flash_rows
     torch.cuda.empty_cache()
     f32_train(torch, device)
     torch.cuda.empty_cache()
+    lap("train, f32-train")
     lora_rows = check_lora_kernels(torch, device)
     torch.cuda.empty_cache()
     launches, _ = train(torch, write_corpus(work), "fused_train",
@@ -4015,6 +4469,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     f32_fused(torch, device)
     torch.cuda.empty_cache()
+    lap("kernels-4, fused_train, profile_train, f32-fused")
     int8_rows = check_int8_kernels(torch, device)
     torch.cuda.empty_cache()
     warm = write_warm_start(torch, os.path.join(work, "warm_llama_250m"), device)
@@ -4031,6 +4486,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     f32_int8(torch, device, warm)
     torch.cuda.empty_cache()
+    lap("kernels-8, int8_train, int8_fused_train, f32-int8")
     ptxas()
     grouped_rows = check_grouped_kernels(torch, device)
     torch.cuda.empty_cache()
@@ -4045,6 +4501,19 @@ def main() -> int:
     torch.cuda.empty_cache()
     f32_adapters(torch, device, tenants)
     torch.cuda.empty_cache()
+    lap("kernels-5, adapters, f32-adapters")
+
+    # the reference's default serving mode: the contiguous engine, its
+    # scheduler (kernel 5 for tenants), generate, the server over it
+    contiguous = contiguous_drain(torch, prompts, inproc)
+    decode_launches, prefill_launches = contiguous_tenants(torch, device, prompts, base, tenants)
+    grouped_rows[0]["launches"] += decode_launches
+    grouped_rows[1]["launches"] += prefill_launches
+    generate_phase(torch, prompts, contiguous)
+    contiguous_server(torch, prompts, contiguous)
+    f32_contiguous(torch, device)
+    torch.cuda.empty_cache()
+    lap("contiguous phases")
 
     # the cost model: its picks against each arm's time, --lora_fused auto
     # training, a run cut by SIGTERM and resumed, and unmerged serving of a
@@ -4066,9 +4535,11 @@ def main() -> int:
     take_launches(rows, launches)
     rows.append(decode_row)
     torch.cuda.empty_cache()
+    lap("auto-arms, auto_train, resume, nomerge")
 
     # the NeoX family at pythia_1b: its drains, its two train phases, its f32 checks
     take_launches(paged_rows.values(), pythia_drains(torch, prompts), PYTHIA)
+    lap("pythia-drains")
     corpus = write_corpus(work, seq_length=2048)
     take_launches(flash_rows, train(torch, corpus, "pythia_train", ["--log_every", "4"],
                                     base_args=PYTHIA_TRAIN_ARGS)[0], PYTHIA)
@@ -4093,12 +4564,15 @@ def main() -> int:
     torch.cuda.empty_cache()
     take_launches(lora_rows, train(torch, corpus, f"auto_train@{PYTHIA}", RESUME_ARGS,
                                    base_args=PYTHIA_TRAIN_ARGS)[0], PYTHIA)
+    lap("pythia train phases")
     for phase in (f32_train, f32_fused, f32_comparison):
         torch.cuda.empty_cache()
         phase(torch, device, PYTHIA)
     torch.cuda.empty_cache()
     f32_adapters(torch, device, None, PYTHIA)
+    lap("f32-pythia")
 
+    print(json.dumps({"phase_seconds": laps, "total_s": time.perf_counter() - t0}))
     print(json.dumps({"kernels": rows}))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -4125,15 +4599,32 @@ def device_profile(torch, fn):
         result = fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    intervals, by_name = [], {}
-    for ev in prof.events():
-        if ev.device_type == torch.autograd.DeviceType.CUDA and ev.time_range.elapsed_us() > 0:
-            intervals.append((ev.time_range.start, ev.time_range.end))
-            name = ev.name[:80]
-            by_name[name] = by_name.get(name, 0.0) + ev.time_range.elapsed_us()
+    intervals, by_name = kineto_intervals(torch, prof)
     if not intervals:
         raise AssertionError("the profiler traced no device time")
-    busy, end = 0.0, None
+    return result, wall, busy_ns(intervals) / 1e9, by_name
+
+
+def kineto_intervals(torch, prof):
+    """The device kernels' ``[(start ns, end ns)]`` and ``{name cut to 80
+    characters: µs}`` from the profiler's raw records: ``prof.events()``
+    builds an object tree over them first, about a minute over a drain's
+    10^5 kernels (:func:`check_profile_readers` holds the two readers
+    equal)."""
+    intervals, by_name = [], {}
+    for ev in prof.profiler.kineto_results.events():
+        if ev.device_type() == torch.autograd.DeviceType.CUDA and ev.duration_ns() > 0:
+            start = ev.start_ns()
+            intervals.append((start, start + ev.duration_ns()))
+            name = ev.name()[:80]
+            by_name[name] = by_name.get(name, 0.0) + ev.duration_ns() / 1e3
+    return intervals, by_name
+
+
+def busy_ns(intervals):
+    """The length of the union of ``intervals``, so that overlapping
+    streams are not counted twice."""
+    busy, end = 0, None
     for s, e in sorted(intervals):
         if end is None or s > end:
             busy += e - s
@@ -4141,7 +4632,45 @@ def device_profile(torch, fn):
         elif e > end:
             busy += e - end
             end = e
-    return result, wall, busy / 1e6, by_name
+    return busy
+
+
+def check_profile_readers(torch, device):
+    """:func:`device_profile`'s reader against ``prof.events()`` (the
+    profiler's public reader) on one small profiled region: matmuls,
+    softmaxes, host-to-device copies and memsets on two streams, 200 rounds.
+    Fails unless both see the same number of device intervals, the same
+    busy time and the same time per kernel name within 1e-6 relative."""
+    from torch.profiler import ProfilerActivity, profile
+
+    host = torch.randn((256, 256)).pin_memory()
+    x = torch.randn((256, 256), device=device)
+    y = torch.empty_like(x)
+    side = torch.cuda.Stream(device)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(200):
+            z = torch.softmax(x @ x, dim=-1)
+            with torch.cuda.stream(side):
+                y.copy_(host, non_blocking=True)
+                y.zero_()
+            x = z + 1e-3 * y
+        torch.cuda.synchronize()
+    raw, raw_names = kineto_intervals(torch, prof)
+    tree, tree_names = [], {}
+    for ev in prof.events():
+        if ev.device_type == torch.autograd.DeviceType.CUDA and ev.time_range.elapsed_us() > 0:
+            tree.append((ev.time_range.start * 1e3, ev.time_range.end * 1e3))
+            name = ev.name[:80]
+            tree_names[name] = tree_names.get(name, 0.0) + ev.time_range.elapsed_us()
+    busy_raw, busy_tree = busy_ns(raw), busy_ns(tree)
+    print(json.dumps({"profile_readers": {"intervals": [len(raw), len(tree)],
+                                          "busy_us": [busy_raw / 1e3, busy_tree / 1e3],
+                                          "names": len(raw_names)}}))
+    if not raw or len(raw) != len(tree) or abs(busy_raw - busy_tree) > 1e-6 * busy_tree + 1:
+        raise AssertionError("profile readers: raw records and prof.events() disagree on busy time")
+    if set(raw_names) != set(tree_names) or any(
+            abs(raw_names[k] - tree_names[k]) > 1e-6 * tree_names[k] + 1e-3 for k in raw_names):
+        raise AssertionError("profile readers: raw records and prof.events() disagree per kernel")
 
 
 def grouped_share(by_name, busy_s):

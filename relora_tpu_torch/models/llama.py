@@ -1,4 +1,4 @@
-"""Llama decoder in PyTorch: the training forward and the paged serving forward.
+"""Llama decoder in PyTorch: the training forward and the two serving forwards.
 
 Counterpart of ``relora_tpu/models/llama.py``: RMSNorm, rotary tables (with
 linear and dynamic scaling), grouped-query attention, the SwiGLU MLP, and the
@@ -15,14 +15,16 @@ masters in training, the compute dtype in serving), projections run in the
 compute dtype, norms and rotary in f32, attention math in f32, logits
 returned in f32.
 
-Called without a pool, the model runs the training forward: causal
-self-attention through ``ops.attention.dot_product_attention`` (the flash
-kernels on CUDA), optional per-layer activation checkpointing, and LoRA
-dropout seeded per call.  Called with a pool, it runs the paged decode
-forward: the engine owns the pool as one dict per layer (``k``/``v`` of
-shape ``(num_pages, page_size, n_kv, head_dim)`` plus ``k_scale``/``v_scale``
-``(num_pages, n_kv)`` for an int8 pool) and every forward updates it in
-place.
+Called without a pool or a cache, the model runs the training forward:
+causal self-attention through ``ops.attention.dot_product_attention`` (the
+flash kernels on CUDA), optional per-layer activation checkpointing, and
+LoRA dropout seeded per call.  Called with a cache, it runs the contiguous
+decode forward (``attend_with_cache``): one dict per layer, ``k``/``v`` of
+shape ``(B, cache_size, n_kv, head_dim)``, one row per sequence.  Called
+with a pool, it runs the paged decode forward: the engine owns the pool as
+one dict per layer (``k``/``v`` of shape ``(num_pages, page_size, n_kv,
+head_dim)`` plus ``k_scale``/``v_scale`` ``(num_pages, n_kv)`` for an int8
+pool).  Either serving forward updates its K/V in place.
 """
 
 from __future__ import annotations
@@ -38,7 +40,7 @@ from torch.utils.checkpoint import checkpoint
 from relora_tpu_torch.config.model import ModelConfig
 from relora_tpu_torch.core.relora import LoraSpec
 from relora_tpu_torch.models.lora import LoRALinear
-from relora_tpu_torch.ops.attention import dot_product_attention
+from relora_tpu_torch.ops.attention import cached_attention, dot_product_attention
 from relora_tpu_torch.ops.attention_dispatch import packed_attention, paged_attention
 
 #: dropout seeds a decoder layer spends: one per projection (7), rounded up
@@ -123,6 +125,50 @@ def attend_with_paged_cache(
             q, pk, pv, block_tables, row_map, positions, arm=arm, **scales
         )
     return paged_attention(q, pk, pv, block_tables, positions, arm=arm, **scales)
+
+
+def attend_with_cache(
+    q: torch.Tensor,
+    k_new: torch.Tensor,
+    v_new: torch.Tensor,
+    positions: torch.Tensor,
+    cache: LayerPool,
+) -> torch.Tensor:
+    """Write this call's K/V into the contiguous ``cache`` (``k``/``v`` of
+    shape ``(B, C, n_kv, H)``) and attend against all of it
+    (``relora_tpu/models/llama.py:37-69``).
+
+    Row ``b`` writes its ``T`` new entries at ``positions[b, 0] ..``; as in
+    JAX's ``dynamic_update_slice`` the start clamps to ``[0, C - T]``, so an
+    idle row decoding at a stale position never writes out of bounds.  The
+    write comes before the attention, whose mask ``j <= p``
+    (:func:`~relora_tpu_torch.ops.attention.cached_attention`) is at once the
+    causal mask, the length mask and the pad mask of a right-padded prompt:
+    an entry written by padding becomes visible only at a position that a
+    later step overwrites first."""
+    B, T = q.shape[:2]
+    ck, cv = cache["k"], cache["v"]
+    C = ck.shape[1]
+    if T > C:
+        raise ValueError(f"a {T}-token write does not fit the cache's {C} entries")
+    positions = positions.expand(B, T)
+    start = torch.clamp(positions[:, 0].long(), 0, C - T)
+    cols = start[:, None] + torch.arange(T, device=start.device)
+    rows = torch.arange(B, device=start.device)[:, None]
+    ck[rows, cols] = k_new.to(ck.dtype)
+    cv[rows, cols] = v_new.to(cv.dtype)
+    return cached_attention(q, ck, cv, positions)
+
+
+def attend(q, k, v, positions, block_tables, kv, row_map, arm):
+    """The attention of a decoder layer, shared by both families: causal
+    training attention without ``kv``, the contiguous cache's with ``kv``
+    and no ``block_tables``, the paged pool's with both."""
+    if kv is None:
+        return dot_product_attention(q, k, v, causal=True, impl=arm)
+    if block_tables is None:
+        return attend_with_cache(q, k, v, positions, kv)
+    return attend_with_paged_cache(q, k, v, positions, block_tables, kv, row_map, arm)
 
 
 class RMSNorm(nn.Module):
@@ -214,10 +260,7 @@ class LlamaAttention(nn.Module):
         v = v.reshape(B, S, cfg.kv_heads, cfg.head_dim)
         q = apply_rotary(q, cos, sin)
         k = apply_rotary(k, cos, sin)
-        if pool is None:
-            out = dot_product_attention(q, k, v, causal=True, impl=arm)
-        else:
-            out = attend_with_paged_cache(q, k, v, positions, block_tables, pool, row_map, arm)
+        out = attend(q, k, v, positions, block_tables, pool, row_map, arm)
         return self.o_proj(out.reshape(B, S, cfg.hidden_size), _seed(dropout_seed, 3), adapter_idx)
 
 
@@ -334,14 +377,17 @@ class CausalLM(nn.Module):
         block_tables: Optional[torch.Tensor] = None,
         row_map: Optional[torch.Tensor] = None,
         *,
+        cache: Optional[List[LayerPool]] = None,
         dropout_seed: Optional[int] = None,
         adapter_idx: Optional[torch.Tensor] = None,
     ) -> torch.Tensor:
-        """Logits ``(B, S, vocab)``.  Without ``pool`` this is the training
-        forward over ``input_ids`` ``(B, S)`` at positions ``0..S-1`` (causal
-        attention; ``dropout_seed`` turns LoRA dropout on, layer ``i`` drawing
-        from seeds ``dropout_seed + seeds_per_layer*i + j``).  With ``pool``
-        it is the paged decode forward at ``positions`` through
+        """Logits ``(B, S, vocab)``.  Without ``pool`` or ``cache`` this is
+        the training forward over ``input_ids`` ``(B, S)`` at positions
+        ``0..S-1`` (causal attention; ``dropout_seed`` turns LoRA dropout on,
+        layer ``i`` drawing from seeds ``dropout_seed + seeds_per_layer*i +
+        j``).  With ``cache`` (one ``{"k", "v"}`` dict per layer, ``(B, C,
+        n_kv, H)``) it is the contiguous decode forward at ``positions``;
+        with ``pool`` the paged decode forward at ``positions`` through
         ``block_tables``.  The rotary tables cover :meth:`rotary_dim`
         (dynamic NTK scaling takes its exponent from it).
 
@@ -350,10 +396,13 @@ class CausalLM(nn.Module):
         tokens, or per token ``(B*S,)`` (the packed forward, B = 1); no index
         is slot 0 everywhere.  Every LoRA projection of every layer takes it."""
         cfg = self.config
+        if pool is not None and (cache is not None or block_tables is None):
+            raise ValueError("the paged forward takes block_tables and no contiguous cache")
+        kv = pool if pool is not None else cache
         x = getattr(self, self.embed_name)(input_ids).to(self.dtype)
         if positions is None:
-            if pool is not None:
-                raise ValueError("the paged forward needs positions")
+            if kv is not None:
+                raise ValueError("a decode forward needs positions")
             positions = torch.arange(input_ids.shape[1], device=input_ids.device)[None, :]
         cos, sin = rotary_tables(
             positions,
@@ -364,9 +413,9 @@ class CausalLM(nn.Module):
             max_position=cfg.max_sequence_length,
             current_length=input_ids.shape[1],
         )
-        pools = pool if pool is not None else [None] * len(self.layers)
-        remat = self.remat and pool is None and torch.is_grad_enabled()
-        for i, (layer, layer_pool) in enumerate(zip(self.layers, pools)):
+        layer_kv = kv if kv is not None else [None] * len(self.layers)
+        remat = self.remat and kv is None and torch.is_grad_enabled()
+        for i, (layer, layer_pool) in enumerate(zip(self.layers, layer_kv)):
             args = (x, cos, sin, positions, block_tables, layer_pool, row_map,
                     self.attention_arm, _seed(dropout_seed, self.seeds_per_layer * i),
                     adapter_idx)

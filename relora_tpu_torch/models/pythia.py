@@ -1,5 +1,5 @@
-"""GPT-NeoX / Pythia decoder in PyTorch: the training forward and the paged
-serving forward.
+"""GPT-NeoX / Pythia decoder in PyTorch: the training forward and the two
+serving forwards.
 
 Counterpart of ``relora_tpu/models/pythia.py``: LayerNorm with biases, a
 fused and biased QKV projection, partial rotary embeddings (the first
@@ -15,7 +15,7 @@ names follow HF GPT-NeoX less its ``gpt_neox.`` prefix
 
 With a ``LoraSpec`` every attention and MLP projection is a biased
 :class:`~relora_tpu_torch.models.lora.LoRALinear`; ``embed_out`` never is.
-Numerics, the forward's signature and the pool layout are those of
+Numerics, the forward's signature and the cache and pool layouts are those of
 :class:`~relora_tpu_torch.models.llama.LlamaForCausalLM`: both are
 :class:`~relora_tpu_torch.models.llama.CausalLM`, so the engine, the
 scheduler and the trainer drive either model unchanged.
@@ -28,9 +28,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from relora_tpu_torch.config.model import ModelConfig
-from relora_tpu_torch.models.llama import CausalLM, _seed, apply_rotary, attend_with_paged_cache
+from relora_tpu_torch.models.llama import CausalLM, _seed, apply_rotary, attend
 from relora_tpu_torch.models.lora import LoRALinear
-from relora_tpu_torch.ops.attention import dot_product_attention
 
 #: dropout seeds a NeoX layer spends: one per projection
 SEEDS_PER_LAYER = 4
@@ -79,10 +78,7 @@ class NeoXAttention(nn.Module):
         q = torch.cat([apply_rotary(q[..., :rot], cos, sin), q[..., rot:]], dim=-1)
         k = torch.cat([apply_rotary(k[..., :rot], cos, sin), k[..., rot:]], dim=-1)
         v = v.contiguous()
-        if pool is None:
-            out = dot_product_attention(q, k, v, causal=True, impl=arm)
-        else:
-            out = attend_with_paged_cache(q, k, v, positions, block_tables, pool, row_map, arm)
+        out = attend(q, k, v, positions, block_tables, pool, row_map, arm)
         return self.dense(out.reshape(B, S, cfg.hidden_size), _seed(dropout_seed, 1), adapter_idx)
 
 

@@ -1,8 +1,19 @@
-"""The paged inference engine: model, KV page pool, and step functions.
+"""The inference engine: model, KV cache or page pool, and step functions.
 
-Counterpart of the paged half of ``relora_tpu/serve/engine.py``.  The engine
-owns the decode model on its device and builds the shared KV page pool
-(``init_pool``); three step functions run forwards through it:
+Counterpart of ``relora_tpu/serve/engine.py``.  The engine owns the decode
+model on its device.  Without ``page_size`` it serves the contiguous cache,
+one ``(B, cache_size, n_kv, head_dim)`` row per sequence and layer
+(``init_cache``):
+
+- ``prefill(ids)`` — a right-padded prompt batch ``(B, T)`` in one forward
+  into a fresh cache: the full logits and the cache;
+- ``decode(cache, token, pos)`` — one token per row against the cache;
+- ``insert(dcache, pcache, slot)`` — a batch-1 prefill cache copied into
+  row ``slot`` of the persistent decode cache (continuous batching);
+- ``generate(prompts, ...)`` — one-shot batch generation over the three.
+
+With ``page_size`` it also builds the shared KV page pool (``init_pool``),
+and four more step functions run forwards through it:
 
 - ``prefill_chunk(ids, start, pool, block_table)`` — one fixed-size prompt
   chunk written straight into the pool through the request's block table;
@@ -24,22 +35,20 @@ packed step) decodes through its own slot, slot 0 being the base model;
 ``write_adapter_slot`` copies a tenant's factors into a slot in place.  With
 ``lora=`` and no slots the factors are served unmerged for one tenant.
 
-The JAX engine donates the pool to each jitted step and gets a new one
-back; here the forward updates the pool tensors in place and returns the
-same pool, so the call shape stays ``logits, pool = engine.step(pool, ...)``.
-Every forward runs under ``torch.inference_mode()``.
+The JAX engine donates the cache or pool to each jitted step and gets a
+new one back; here the forward updates the tensors in place and returns the
+same object, so the call shape stays ``logits, cache = engine.step(cache,
+...)``.  Every forward runs under ``torch.inference_mode()``.
 
-``warmup`` runs each of those shapes once, so an online server builds the
-kernels before it reports ready.  The contiguous engine (``prefill`` /
-``decode`` / ``insert``, ``generate``) and page migration are not ported
-yet.
+``warmup`` runs each serving shape once, so an online server builds the
+kernels before it reports ready.  Page migration is not ported yet.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Callable, Dict, List, Mapping, Optional, Tuple
+from typing import Callable, Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -49,8 +58,11 @@ from relora_tpu_torch.config.model import ModelConfig
 from relora_tpu_torch.core.relora import LoraSpec, is_lora_name
 from relora_tpu_torch.models.family import CausalLM, causal_lm_class
 from relora_tpu_torch.models.lora import LoRALinear
+from relora_tpu_torch.serve.sampling import SamplingParams, sample, step_generator
 
 Pool = List[Dict[str, torch.Tensor]]
+#: the contiguous cache: per layer ``k``/``v`` of shape ``(B, cache_size, n_kv, head_dim)``
+Cache = List[Dict[str, torch.Tensor]]
 
 _DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
 
@@ -95,13 +107,16 @@ def build_decode_model(
 
 
 class InferenceEngine:
-    """Owns the paged decode model, its device and the pool layout.
+    """Owns the decode model, its device and the cache or pool layout.
 
     ``params`` is a state dict of the config's model, Llama or GPT-NeoX
     (for instance from :func:`relora_tpu_torch.models.convert.params_from_jax`),
-    or an already built model on ``device``.  ``dtype`` is the compute dtype;
-    ``kv_dtype="bf16"`` stores the pool at it, ``"int8"`` stores codes plus
-    per-``(page, kv_head)`` f32 scales.  ``lora`` (the checkpoint's spec)
+    or an already built model on ``device``.  ``dtype`` is the compute dtype
+    and the contiguous cache's.  ``page_size`` (with ``num_pages``) adds the
+    paged pool; ``kv_dtype="bf16"`` stores it at the compute dtype,
+    ``"int8"`` stores codes plus per-``(page, kv_head)`` f32 scales.
+    ``token_budget``, ``kv_dtype="int8"`` and ``spec_k`` need the pool, as
+    in the reference.  ``lora`` (the checkpoint's spec)
     serves the factors unmerged; ``adapter_slots >= 2`` with it stacks them
     for multi-tenant serving: the state dict's non-LoRA tensors are loaded,
     its own factors dropped, and every slot starts as the identity.
@@ -127,11 +142,13 @@ class InferenceEngine:
         adapter_slots: int = 0,
         spec_k: int = 0,
     ):
-        if spec_k < 0:
-            raise ValueError(f"spec_k must be >= 0, got {spec_k}")
-        if spec_k and page_size is None:
-            raise ValueError("spec_k > 0 requires the paged engine (page_size set)")
-        self.spec_k = spec_k
+        if cache_size < 1:
+            raise ValueError(f"cache_size must be >= 1, got {cache_size}")
+        if token_budget is not None:
+            if page_size is None:
+                raise ValueError("token_budget requires the paged engine (page_size set)")
+            if token_budget < 1:
+                raise ValueError(f"token_budget must be >= 1, got {token_budget}")
         if adapter_slots:
             if lora is None:
                 raise ValueError(
@@ -144,39 +161,40 @@ class InferenceEngine:
                     f"adapter), got {adapter_slots}"
                 )
         self.adapter_slots = adapter_slots
-        if cache_size < 1:
-            raise ValueError(f"cache_size must be >= 1, got {cache_size}")
-        if page_size is None:
-            raise NotImplementedError(
-                "the contiguous engine is not ported yet: pass page_size/num_pages"
-            )
-        if page_size < 1:
-            raise ValueError(f"page_size must be >= 1, got {page_size}")
-        if cache_size % page_size:
-            raise ValueError(
-                f"cache_size ({cache_size}) must be a multiple of "
-                f"page_size ({page_size}) for paged decode"
-            )
-        self.block_table_width = cache_size // page_size
-        if num_pages is None:
-            raise ValueError("paged decode requires num_pages")
-        if num_pages < self.block_table_width + 1:
-            raise ValueError(
-                f"num_pages ({num_pages}) cannot hold one max-size request: "
-                f"need >= {self.block_table_width} + 1 (page 0 is the null page)"
-            )
-        if chunk_size < 1:
-            raise ValueError(f"chunk_size must be >= 1, got {chunk_size}")
         if kv_dtype not in ("bf16", "int8"):
             raise ValueError(f"kv_dtype must be 'bf16' or 'int8', got {kv_dtype!r}")
-        if token_budget is not None and token_budget < 1:
-            raise ValueError(f"token_budget must be >= 1, got {token_budget}")
+        if kv_dtype == "int8" and page_size is None:
+            raise ValueError("kv_dtype='int8' requires the paged engine (page_size set)")
+        if spec_k < 0:
+            raise ValueError(f"spec_k must be >= 0, got {spec_k}")
+        if spec_k and page_size is None:
+            raise ValueError("spec_k > 0 requires the paged engine (page_size set)")
+        self.spec_k = spec_k
+        self.paged = page_size is not None
+        self.block_table_width = 0
+        if self.paged:
+            if page_size < 1:
+                raise ValueError(f"page_size must be >= 1, got {page_size}")
+            if cache_size % page_size:
+                raise ValueError(
+                    f"cache_size ({cache_size}) must be a multiple of "
+                    f"page_size ({page_size}) for paged decode"
+                )
+            self.block_table_width = cache_size // page_size
+            if num_pages is None:
+                raise ValueError("paged decode requires num_pages")
+            if num_pages < self.block_table_width + 1:
+                raise ValueError(
+                    f"num_pages ({num_pages}) cannot hold one max-size request: "
+                    f"need >= {self.block_table_width} + 1 (page 0 is the null page)"
+                )
+            if chunk_size < 1:
+                raise ValueError(f"chunk_size must be >= 1, got {chunk_size}")
         self.device = resolve_device(device)
         self.config = model_cfg
         self.cache_size = cache_size
-        self.paged = True
-        self.page_size = page_size
-        self.num_pages = num_pages
+        self.page_size = page_size or 0
+        self.num_pages = num_pages or 0
         self.chunk_size = min(chunk_size, cache_size)
         self.kv_dtype = kv_dtype
         self.token_budget = token_budget or 0
@@ -196,12 +214,37 @@ class InferenceEngine:
                 self.model.load_state_dict(dict(params))
         self.model.attention_arm = attention_arm
 
+    # -- the contiguous cache ----------------------------------------------------
+
+    def cache_shapes(self, batch: int) -> Cache:
+        """The cache of ``batch`` rows as meta tensors: per layer ``k``/``v``
+        of shape ``(batch, cache_size, kv_heads, head_dim)`` at the compute
+        dtype, with no memory behind them (the reference's ``eval_shape``)."""
+        return self._cache(batch, "meta")
+
+    def init_cache(self, batch: int) -> Cache:
+        """A zero cache of ``batch`` rows on the engine's device."""
+        return self._cache(batch, self.device)
+
+    def _cache(self, batch: int, device) -> Cache:
+        cfg = self.config
+        shape = (batch, self.cache_size, cfg.kv_heads, cfg.head_dim)
+        return [
+            {name: torch.zeros(shape, dtype=self.dtype, device=device) for name in ("k", "v")}
+            for _ in range(cfg.num_hidden_layers)
+        ]
+
     # -- pool ------------------------------------------------------------------
+
+    def _require_paged(self):
+        if not self.paged:
+            raise ValueError("engine was built without page_size: no paged entry points")
 
     def init_pool(self) -> Pool:
         """Zero page pool: per layer ``k``/``v`` ``(num_pages, page_size,
         kv_heads, head_dim)`` at the compute dtype, or int8 codes plus
         ``k_scale``/``v_scale`` ``(num_pages, kv_heads)`` f32."""
+        self._require_paged()
         cfg = self.config
         shape = (self.num_pages, self.page_size, cfg.kv_heads, cfg.head_dim)
         quantized = self.kv_dtype == "int8"
@@ -332,16 +375,55 @@ class InferenceEngine:
         return self._tensor(idx)
 
     def _forward(self, ids, positions, pool, block_tables, row_map=None, adapter_idx=None,
-                 model=None):
+                 model=None, cache=None):
         with torch.inference_mode():
             return (self.model if model is None else model)(
                 self._tensor(ids, torch.long),
                 self._tensor(positions),
                 pool,
-                self._tensor(block_tables),
+                None if block_tables is None else self._tensor(block_tables),
                 None if row_map is None else self._tensor(row_map),
+                cache=cache,
                 adapter_idx=adapter_idx,
             )
+
+    def prefill(self, ids, lengths=None, adapter_idx=None) -> Tuple[torch.Tensor, Cache]:
+        """A right-padded prompt batch ``ids`` ``(B, T)`` at positions
+        ``0..T-1`` into a fresh cache of ``B`` rows: the full logits ``(B, T,
+        V)`` and the cache.  ``T`` must be <= ``cache_size`` (bucket prompts
+        with :func:`bucket_length` first).  Pads need no mask: an entry a pad
+        writes at ``j`` is seen only from position ``j`` on, which decode
+        overwrites before it attends.  ``lengths`` is accepted for the
+        reference's signature and unused; ``adapter_idx`` ``(B,)`` each row's
+        slot."""
+        B, T = np.shape(ids)
+        if T > self.cache_size:
+            raise ValueError(f"prompt length {T} exceeds cache capacity {self.cache_size}")
+        positions = np.tile(np.arange(T, dtype=np.int32), (B, 1))
+        cache = self.init_cache(B)
+        idx = self._row_idx(adapter_idx, B)
+        logits = self._forward(ids, positions, None, None, adapter_idx=idx, cache=cache)
+        return logits, cache
+
+    def decode(self, cache: Cache, token, pos, adapter_idx=None) -> Tuple[torch.Tensor, Cache]:
+        """One decode step: ``token``/``pos`` ``(B, 1)`` (each row writes at
+        its ``pos``, then attends to entries ``<= pos``), ``adapter_idx``
+        ``(B,)``.  Returns logits ``(B, V)`` and the cache, updated in place."""
+        idx = self._row_idx(adapter_idx, np.shape(token)[0])
+        logits = self._forward(token, pos, None, None, adapter_idx=idx, cache=cache)
+        return logits[:, -1, :], cache
+
+    @torch.no_grad()
+    def insert(self, dcache: Cache, pcache: Cache, slot: int) -> Cache:
+        """Copy a prefilled cache (batch 1) into row ``slot`` of the decode
+        cache, in place; ``slot`` clamps as JAX's ``dynamic_update_slice``
+        clamps its start.  Returns ``dcache``."""
+        for dst, src in zip(dcache, pcache):
+            for name, d in dst.items():
+                n = src[name].shape[0]
+                start = min(max(int(slot), 0), d.shape[0] - n)
+                d[start : start + n].copy_(src[name])
+        return dcache
 
     def prefill_chunk(
         self, ids, start: int, pool: Pool, block_table, adapter_idx=None
@@ -350,6 +432,7 @@ class InferenceEngine:
         ``start ..`` through ``block_table`` ``(1, W)``; ``adapter_idx`` the
         request's slot, ``(1,)``.  Returns the chunk's logits ``(1,
         chunk_size, V)`` and the (updated) pool."""
+        self._require_paged()
         B, T = np.shape(ids)
         positions = start + np.broadcast_to(np.arange(T, dtype=np.int32)[None, :], (B, T))
         idx = self._row_idx(adapter_idx, B)
@@ -362,6 +445,7 @@ class InferenceEngine:
         ``(B, W)``, ``adapter_idx`` ``(B,)`` each row's slot.  Rows without a
         decoding request carry all-null tables.  Returns logits ``(B, V)``
         and the pool."""
+        self._require_paged()
         idx = self._row_idx(adapter_idx, np.shape(token)[0])
         logits = self._forward(token, pos, pool, block_tables, adapter_idx=idx)
         return logits[:, -1, :], pool
@@ -375,6 +459,7 @@ class InferenceEngine:
         null column and a final all-null pad row.  ``adapter_idx`` is per
         token here, ``(Tb,)``: the grouped kernel sees one row per packed
         token.  Returns the window's logits ``(1, Tb, V)`` and the pool."""
+        self._require_paged()
         idx = self._row_idx(adapter_idx, np.shape(ids)[1])
         return self._forward(ids, positions, pool, block_tables, row_map, idx), pool
 
@@ -392,6 +477,7 @@ class InferenceEngine:
         last is the bonus distribution) and the pool.  A rejected draft needs
         no rollback: its K/V lies inside the request's admission allocation
         (or the null page) and is written over before any query sees it."""
+        self._require_paged()
         idx = self._row_idx(adapter_idx, np.shape(tokens)[0])
         return self._forward(tokens, pos, pool, block_tables, adapter_idx=idx), pool
 
@@ -454,32 +540,64 @@ class InferenceEngine:
 
     # -- warmup --------------------------------------------------------------------
 
+    def default_prompt_buckets(self) -> Tuple[int, ...]:
+        """Every prefill shape a prompt can land in: powers of two from the
+        bucket minimum up, capped at ``cache_size`` (itself a bucket when it
+        is not a power of two)."""
+        buckets: List[int] = []
+        t = bucket_length(1)
+        while t < self.cache_size:
+            buckets.append(t)
+            t *= 2
+        buckets.append(self.cache_size)
+        return tuple(buckets)
+
     def warmup(self, batch: int, *, packed: bool = False) -> dict:
         """Run every serving shape once before traffic arrives
-        (``relora_tpu/serve/engine.py:1152``): the ``(1, chunk_size)``
-        prefill chunk and the ``(batch, 1)`` decode (and the ``(batch,
-        spec_k+1)`` verify window when ``spec_k`` is set), or, ``packed``,
-        one ``step_paged`` per bucket of :meth:`packed_buckets`.  The port
-        compiles no program, but the first launch of each CUDA kernel builds
-        and loads it and the first GEMM of a shape creates cuBLAS's handle
-        and workspace: an online server pays that here, not inside a
-        request.  Every write lands in the null page of a pool of its own.
+        (``relora_tpu/serve/engine.py:1152``).  Contiguous engine: one
+        ``prefill`` per bucket of :meth:`default_prompt_buckets` (every
+        bucket a prompt can land in), one ``insert`` and one ``(batch, 1)``
+        ``decode``.  Paged engine: the ``(1, chunk_size)`` prefill chunk
+        and the ``(batch, 1)`` decode (and the ``(batch, spec_k+1)`` verify
+        window when ``spec_k`` is set), or, ``packed``, one ``step_paged``
+        per bucket of :meth:`packed_buckets`.  The port compiles no program,
+        but the first launch of each CUDA kernel builds and loads it and the
+        first GEMM of a shape creates cuBLAS's handle and workspace: an
+        online server pays that here, not inside a request.  Paged writes
+        land in the null page of a pool of their own, contiguous ones in a
+        cache of their own.  A contiguous engine with adapter slots also
+        writes a zero adapter into the last slot, as the reference does to
+        compile its slot write (warm up before preloading adapters).
 
         Returns the reference's report keys, filled with what ran:
         ``shapes``, ``compiles`` (one ``{"fn", "duration_s", "reason"}`` per
         shape run, its wall seconds ending in a device synchronize) and
         ``n_compiles``, the number of shapes run."""
-        pool = self.init_pool()
-        W = self.block_table_width
         runs: List[Tuple[str, list, Callable]] = []
-        if packed:
-            buckets = self.packed_buckets()
+        if not self.paged:
+            buckets = list(self.default_prompt_buckets())
+            for T in buckets:
+                runs.append(("prefill", [1, T], lambda T=T: self.prefill(np.zeros((1, T), np.int32))))
+            cache = self.init_cache(batch)
+            runs.append(("insert", [[batch], [1]], lambda: self.insert(cache, self.init_cache(1), 0)))
+            runs.append(("decode", [batch, 1], lambda: self.decode(
+                cache, np.zeros((batch, 1), np.int32), np.zeros((batch, 1), np.int32),
+            )))
+            if self.adapter_slots:
+                runs.append(("adapter_write", [self.adapter_slots],
+                             lambda: self.write_adapter_slot(self.adapter_slots - 1, {}, 0.0)))
+        elif packed:
+            buckets = list(self.packed_buckets())
+            pool = self.init_pool()
+            W = self.block_table_width
             for Tb in buckets:
                 runs.append(("step_paged", [1, Tb], lambda Tb=Tb: self.step_paged(
                     pool, np.zeros((1, Tb), np.int32), np.full((1, Tb), self.cache_size, np.int32),
                     np.zeros((batch + 1, W + 1), np.int32), np.full((Tb,), batch, np.int32),
                 )))
         else:
+            pool = self.init_pool()
+            W = self.block_table_width
             runs.append(("prefill_chunk", [1, self.chunk_size], lambda: self.prefill_chunk(
                 np.zeros((1, self.chunk_size), np.int32), 0, pool, np.zeros((1, W), np.int32),
             )))
@@ -505,17 +623,15 @@ class InferenceEngine:
                 {"fn": fn, "duration_s": round(time.perf_counter() - t0, 4), "reason": "warmup"}
             )
             shapes.setdefault(fn, []).append(shape)
-        report = {
-            "batch": batch,
-            "prompt_buckets": [],
-            "kv_dtype": self.kv_dtype,
-            "spec_k": self.spec_k,
-            "shapes": {fn: v if fn == "step_paged" else v[0] for fn, v in shapes.items()},
-            "n_compiles": len(compiles),
-            "compiles": compiles,
+        report = {"batch": batch, "prompt_buckets": [] if self.paged else buckets}
+        if self.paged:
+            report.update(kv_dtype=self.kv_dtype, spec_k=self.spec_k)
+        report["shapes"] = {
+            fn: v if fn in ("step_paged", "prefill") else v[0] for fn, v in shapes.items()
         }
-        if packed:
-            report["packed_buckets"] = list(buckets)
+        report.update(n_compiles=len(compiles), compiles=compiles)
+        if self.paged and packed:
+            report["packed_buckets"] = buckets
             report["token_budget"] = self.token_budget
         return report
 
@@ -531,6 +647,71 @@ class InferenceEngine:
                 break
             t = max(8, t // 2)
         return tuple(sorted(buckets))
+
+
+    # -- one-shot batch generation ---------------------------------------------------
+
+    def generate(
+        self,
+        prompts: Sequence[Sequence[int]],
+        *,
+        max_new_tokens: int,
+        sampling: SamplingParams = SamplingParams(),
+        eos_id: Optional[int] = None,
+        seed: int = 0,
+        adapter_idx: Optional[Sequence[int]] = None,
+    ) -> List[List[int]]:
+        """Batch generation without continuous batching
+        (``relora_tpu/serve/engine.py:1418-1485``): every prompt right-padded
+        to one bucket, one ``prefill``, then ``decode`` steps until every row
+        has hit ``eos_id`` or ``max_new_tokens``.  The one-shot ``--prompt``
+        path and a parity oracle; the scheduler is the serving path.  Runs on
+        a paged engine too, through the contiguous cache.
+
+        Sampled draws come from :func:`~relora_tpu_torch.serve.sampling.
+        step_generator` ``(seed, step)``, one stream a step shared by the
+        batch (the reference folds ``step`` into its key), so only greedy
+        output is token-identical to the JAX package."""
+        if not prompts:
+            return []
+        lengths = np.array([len(p) for p in prompts], np.int64)
+        if lengths.min() < 1:
+            raise ValueError("empty prompt")
+        T = min(bucket_length(int(lengths.max())), self.cache_size)
+        if int(lengths.max()) + max_new_tokens > self.cache_size:
+            raise ValueError(
+                f"prompt ({lengths.max()}) + max_new_tokens ({max_new_tokens}) "
+                f"exceeds cache capacity {self.cache_size}"
+            )
+        B = len(prompts)
+        ids = np.zeros((B, T), np.int32)
+        for i, p in enumerate(prompts):
+            ids[i, : lengths[i]] = np.asarray(p, np.int32)
+        logits, cache = self.prefill(ids, lengths, adapter_idx=adapter_idx)
+        last = logits[torch.arange(B, device=logits.device), torch.as_tensor(lengths - 1)]
+
+        def draw(step_logits, step):
+            gens = [step_generator(seed, step)] * B  # one stream, rows in turn
+            return sample(step_logits, gens, temperature=sampling.temperature,
+                          top_k=sampling.top_k, top_p=sampling.top_p)
+
+        token = draw(last, 0)
+        pos = lengths.astype(np.int32)
+        out: List[List[int]] = [[] for _ in range(B)]
+        done = np.zeros(B, bool)
+        for step in range(max_new_tokens):
+            host = token.cpu().numpy()
+            for i in range(B):
+                if not done[i]:
+                    out[i].append(int(host[i]))
+                    if eos_id is not None and host[i] == eos_id:
+                        done[i] = True
+            if done.all() or step == max_new_tokens - 1:
+                break
+            step_logits, cache = self.decode(cache, host[:, None], pos[:, None], adapter_idx)
+            pos = pos + 1
+            token = draw(step_logits, step + 1)
+        return out
 
 
 def compute_dtype(name: str) -> torch.dtype:

@@ -22,6 +22,10 @@ row's walk stops.  Its draws keep the reference's split of streams per
 uid, token_index, 1])``, the residual or bonus draw from ``[..., 2]``, and a
 row that drafted nothing draws from the plain :func:`request_generator`,
 so its stream is the non-speculative one.
+
+``InferenceEngine.generate`` keys its draws by ``(seed, step)`` instead
+(:func:`step_generator`), one stream a step for the whole batch, as the
+reference folds the step into one batch key.
 """
 
 from __future__ import annotations
@@ -66,6 +70,13 @@ def _keyed_generator(*key: int) -> torch.Generator:
 def request_generator(seed: int, uid: int, token_index: int) -> torch.Generator:
     """The CPU generator of one draw, keyed by ``(seed, uid, token_index)``."""
     return _keyed_generator(seed, uid, token_index)
+
+
+def step_generator(seed: int, step: int) -> torch.Generator:
+    """The CPU generator of one step of ``InferenceEngine.generate``, keyed
+    by ``(seed, step)`` and shared by the batch's rows, which draw from it in
+    row order (the reference's ``fold_in(key, step)``)."""
+    return _keyed_generator(seed, step)
 
 
 def top_k_mask(logits: torch.Tensor, k: int) -> torch.Tensor:

@@ -1,13 +1,18 @@
-"""Continuous batching over the paged engine.
+"""Continuous batching over the contiguous and the paged engine.
 
-Counterpart of ``relora_tpu/serve/scheduler.py`` for the paged path:
+Counterpart of ``relora_tpu/serve/scheduler.py``:
 
 - :class:`ContinuousBatchingScheduler` is the incremental core —
   ``submit`` queues a validated request, ``step`` runs one round and
   returns the requests that finished in it, ``cancel`` frees a request
-  mid-flight, ``run`` submits a batch and steps until idle.  Its own
-  ``step`` (the contiguous engine's prefill-on-admission round) is not
-  ported yet.
+  mid-flight, ``run`` submits a batch and steps until idle.  Its own round
+  serves the contiguous cache by prefill-on-admission: each request admitted
+  to a free slot prefills alone (batch 1, its length bucketed), its first
+  token is sampled from that prefill, and its cache row is copied into the
+  slot of the persistent ``(max_batch, cache_size)`` decode cache; then one
+  decode runs over all ``max_batch`` rows, free ones included (a free row
+  decodes at its stale position, hidden by the mask and overwritten by the
+  next insert, through adapter slot 0).
 - :class:`PagedContinuousBatchingScheduler` runs budgeted rounds: expire
   deadlines, admit pending requests (page allocation and a prefix-cache
   lookup, all-or-nothing on the worst-case page count; the queue head waits
@@ -44,10 +49,11 @@ not ported yet; asking for one raises.
 Telemetry (``relora_tpu/serve/scheduler.py``): ``metrics`` (a
 :class:`~relora_tpu_torch.utils.logging.MetricsLogger`) receives one
 ``serve/*`` record per round and one per finished request; ``tracer`` gets
-the ``prefill_chunk``, ``decode_step`` and per-request ``decode`` spans under
-each request's ``trace_id`` (``submit(trace_id=)``); ``obs_registry`` (the
-server's ``ServeMetrics``) the per-phase histograms, the dispatch, round and
-speculative counters and the round's gauges.  All three default to off.
+the ``prefill`` and ``insert`` (contiguous) or ``prefill_chunk`` (paged),
+``decode_step`` and per-request ``decode`` spans under each request's
+``trace_id`` (``submit(trace_id=)``); ``obs_registry`` (the server's
+``ServeMetrics``) the per-phase histograms, the round's gauges and, paged,
+the dispatch, round and speculative counters.  All three default to off.
 """
 
 from __future__ import annotations
@@ -63,7 +69,7 @@ import torch
 
 from relora_tpu_torch.obs.tracer import NoopTracer
 from relora_tpu_torch.serve.adapters import BASE_ADAPTER
-from relora_tpu_torch.serve.engine import InferenceEngine
+from relora_tpu_torch.serve.engine import InferenceEngine, bucket_length
 from relora_tpu_torch.serve.paging import PageAllocator, PrefixCache, pages_needed
 from relora_tpu_torch.serve.sampling import request_generator, sample, spec_verify_draws
 
@@ -156,6 +162,7 @@ class ContinuousBatchingScheduler:
         self._step_count = 0
         self._pending: Deque[Request] = deque()
         self._slots: List[Optional[_Slot]] = [None] * max_batch
+        self._cache = None  # the contiguous decode cache, made at the first admission
         self._tokens = np.zeros(max_batch, np.int32)
         self._positions = np.zeros(max_batch, np.int32)
         # each row's adapter slot for the grouped kernel; free rows point at
@@ -275,7 +282,68 @@ class ContinuousBatchingScheduler:
         return sum(s is not None for s in self._slots)
 
     def step(self) -> List[Completion]:
-        raise _not_ported("the contiguous (prefill-on-admission) scheduler")
+        """One admit-plus-decode round (``relora_tpu/serve/scheduler.py:
+        287-366``): expire deadlines, fill free slots from the queue (a
+        prefill and an insert each), then one decode over all ``max_batch``
+        rows.  Returns the requests that finished in the round, at admission
+        too when the first token already ends one."""
+        finished: List[Completion] = []
+        # admission runs on the decode loop's critical path: its share of
+        # the round is the prefill stall every in-flight stream pays
+        t_step = time.monotonic()
+        self._expire_deadlines(finished)
+        while True:
+            self._admit_pass(finished)
+            if any(s is not None for s in self._slots) or not self._pending:
+                break
+            # everything admitted finished at once: admit again
+        admit_s = time.monotonic() - t_step
+        if not any(s is not None for s in self._slots):
+            return finished
+        t_decode = time.monotonic()
+        n_active = self.active_slots
+        with self.tracer.span("decode_step", step=self._step_count, active_slots=n_active):
+            logits, self._cache = self.engine.decode(
+                self._cache, self._tokens[:, None], self._positions[:, None],
+                adapter_idx=self._adapter_row,
+            )
+            self._step_count += 1
+            # one pull of the whole batch's tokens to the host
+            next_tokens = self._sample_rows(logits, self._slots).tolist()
+        decode_s = time.monotonic() - t_decode
+        self._observe("decode_step_seconds", decode_s)
+        batch_fill = n_active / self.max_batch
+        stall_share = admit_s / max(admit_s + decode_s, 1e-9)
+        if self.obs_registry is not None:
+            self.obs_registry.set_gauge("batch_fill", batch_fill)
+            self.obs_registry.set_gauge("prefill_stall_share", stall_share)
+        for slot_idx, slot in enumerate(self._slots):
+            if slot is None:
+                continue
+            tok = next_tokens[slot_idx]
+            slot.tokens.append(tok)
+            slot.pos += 1
+            self._tokens[slot_idx] = tok
+            self._positions[slot_idx] = slot.pos
+            self._emit_token(slot.request.uid, tok, len(slot.tokens) - 1)
+            self._finish_if_done(slot_idx, finished)
+        record = None
+        if self.metrics is not None:
+            record = {
+                "serve/decode_step": self._step_count,
+                "serve/queue_depth": len(self._pending),
+                "serve/active_slots": self.active_slots,
+                "serve/batch_fill": round(batch_fill, 4),
+                "serve/prefill_stall_s": round(admit_s, 6),
+                "serve/prefill_stall_share": round(stall_share, 4),
+                # the reference counts jit retraces after warmup here; the
+                # port compiles nothing at run time
+                "compile/steady_state_retraces": 0,
+            }
+        self._adapter_gauges(record)
+        if record is not None:
+            self.metrics.log(record)
+        return finished
 
     def run(self, requests: Iterable[Request]) -> Dict[int, Completion]:
         """Admit-and-decode until every request completes.  Returns
@@ -298,6 +366,78 @@ class ContinuousBatchingScheduler:
         return completions
 
     # -- internals -------------------------------------------------------------
+
+    def _admit_pass(self, finished: List[Completion]) -> None:
+        """Fill free slots, in slot order, from the queue head.  A request
+        whose deadline passed while queued times out without a prefill; one
+        whose adapter fails to load finishes with ``"error"``; when every
+        adapter slot is pinned the head stays queued (FIFO) until a
+        retirement drops a pin."""
+        for slot_idx in range(self.max_batch):
+            if self._slots[slot_idx] is not None or not self._pending:
+                continue
+            req = self._pending.popleft()
+            deadline = self._deadlines.get(req.uid)
+            if deadline is not None and time.monotonic() >= deadline:
+                finished.append(self._finalize_unadmitted(req, "timeout"))
+                continue
+            try:
+                adapter_slot = self._acquire_adapter(req)
+            except Exception as e:
+                logger.warning(f"request {req.uid}: adapter load failed: {e!r}")
+                finished.append(
+                    self._finalize_unadmitted(req, "error", f"adapter load failed: {e}")
+                )
+                continue
+            if adapter_slot is None:
+                self._pending.appendleft(req)
+                return
+            t_admit = time.monotonic()
+            self._cache, first = self._admit(req, slot_idx, self._ensure_cache(), adapter_slot)
+            self._slots[slot_idx] = _Slot(
+                request=req,
+                pos=len(req.prompt),
+                tokens=[first],
+                t_admit=t_admit,
+                t_first=time.monotonic(),
+                deadline=deadline,
+                span=self.tracer.start_span(
+                    "decode", trace_id=self._trace_ids.get(req.uid), uid=req.uid
+                ),
+                adapter_slot=adapter_slot,
+            )
+            self._tokens[slot_idx] = first
+            self._positions[slot_idx] = len(req.prompt)
+            self._adapter_row[slot_idx] = adapter_slot
+            self._emit_token(req.uid, first, 0)
+            self._finish_if_done(slot_idx, finished)
+
+    def _ensure_cache(self):
+        if self._cache is None:
+            self._cache = self.engine.init_cache(self.max_batch)
+        return self._cache
+
+    def _admit(self, req: Request, slot_idx: int, cache, adapter_slot: int = 0):
+        """Prefill one request alone (batch 1, its length bucketed), sample
+        its first token from the logits at its last prompt position, and
+        copy its cache row into ``slot_idx``.  Returns (cache, first token)."""
+        L = len(req.prompt)
+        T = min(bucket_length(L), self.engine.cache_size)
+        ids = np.zeros((1, T), np.int32)
+        ids[0, :L] = np.asarray(req.prompt, np.int32)
+        tid = self._trace_ids.get(req.uid)
+        t0 = time.monotonic()
+        # the first token's host pull is the span's sync point
+        with self.tracer.span("prefill", trace_id=tid, uid=req.uid, prompt_tokens=L, bucket=T):
+            logits, pcache = self.engine.prefill(ids, adapter_idx=[adapter_slot])
+            first = self._sample_one(logits[:, L - 1, :], req)
+        t1 = time.monotonic()
+        self._observe("prefill_seconds", t1 - t0)
+        with self.tracer.span("insert", trace_id=tid, uid=req.uid, slot=slot_idx):
+            cache = self.engine.insert(cache, pcache, slot_idx)
+        del pcache, logits  # the batch-1 cache is spent (the reference donates it)
+        self._observe("insert_seconds", time.monotonic() - t1)
+        return cache, first
 
     def _acquire_adapter(self, req: Request) -> Optional[int]:
         """Pin the request's adapter for admission: its slot, or None when

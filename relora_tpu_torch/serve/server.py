@@ -2,9 +2,10 @@
 
 The port's own copy of ``relora_tpu/serve/server.py``, stdlib only beside
 the scheduler: one asyncio listener accepts requests while a dedicated
-**model thread** drives the paged engine through the scheduler's
-incremental core.  The decode loop never blocks the event loop, and the
-event loop never touches a tensor.
+**model thread** drives the engine, contiguous or paged, through the
+scheduler's incremental core (any ``ContinuousBatchingScheduler``).  The
+decode loop never blocks the event loop, and the event loop never touches a
+tensor.
 
 Endpoints:
 
@@ -17,7 +18,8 @@ Endpoints:
 - ``GET /healthz`` — 200 ``ok`` while routable; 503 with ``error`` (the
   model thread died), ``stuck`` (no decode step for ``stall_timeout_s``),
   ``draining`` (SIGTERM) or ``warming`` (``warmup_fn`` still running the
-  serving shapes), with the scheduler's ``paging`` block.
+  serving shapes), with the scheduler's ``paging`` block when it has a
+  page pool.
 - ``GET /metrics`` — Prometheus text (``serve/admission.ServeMetrics``).
 - ``/admin/reload``, ``/internal/migrate``, ``/internal/prefix/*`` answer
   501: weight hot-swap and the disaggregated tier are not ported yet
@@ -172,7 +174,8 @@ def parse_generate_body(
 
 
 class GenerateServer:
-    """Asyncio front end over a paged continuous-batching scheduler.
+    """Asyncio front end over a continuous-batching scheduler, contiguous
+    (:class:`ContinuousBatchingScheduler`) or paged (its subclass).
 
     The constructor takes an idle scheduler (the model thread becomes its
     one driving thread).  ``serve_forever()`` binds, starts the model

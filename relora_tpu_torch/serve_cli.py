@@ -1,11 +1,28 @@
-"""Generate with the PyTorch port: drain token-id requests through the paged
-continuous-batching scheduler.
+"""Generate with the PyTorch port: token-id prompts through the contiguous or
+the paged engine.
 
 Counterpart of ``serve.py`` for the flags the port serves.  Prompts are
 token ids (comma- or space-separated ints), one per ``--prompt`` or one per
 line of ``--input-file`` (``-`` = stdin); one line of generated ids is printed
-per request, in request order.  Runs on ``--device cuda`` (the default);
+per request, in request order.  ``--prompt`` is the one-shot mode: every
+prompt padded to one bucket and generated together by
+``InferenceEngine.generate``.  ``--input-file`` drains the requests through
+the continuous-batching scheduler.  Called from Python, :func:`drain` and
+:func:`run` queue ``--prompt`` lines as scheduler requests too (the API the
+tests drive); only :func:`main` and :func:`one_shot` send ``--prompt`` to
+``generate``.  Runs on ``--device cuda`` (the default);
 ``--device cpu`` runs every kernel's plain version.
+
+Without ``--paged`` the engine keeps the contiguous KV cache, one
+``cache_size`` row per decode slot, and each admitted request prefills
+alone before it joins the decode batch (the reference's default mode):
+
+    python -m relora_tpu_torch.serve_cli --model_config llama_250m \
+        --random-init --dtype bf16 --max-batch 8 --input-file prompts.txt
+
+``--paged`` serves from a shared page pool instead, prefilling in chunks
+between decode rounds; ``--packed``, ``--kv-dtype int8`` and ``--spec``
+need it:
 
     python -m relora_tpu_torch.serve_cli --model_config llama_250m \
         --random-init --paged --dtype bf16 --max-batch 8 --input-file prompts.txt
@@ -40,12 +57,12 @@ port with the base's config:
         --spec model --spec-k 4 --draft-checkpoint DRAFT --input-file prompts.txt
 
 ``--port N`` (0 = ephemeral; ``--port-file`` receives the bound port) serves
-the same engine online instead (``serve/server.py``): ``POST /v1/generate``
-(SSE or one JSON body; ``"adapter"`` picks a tenant under ``--adapter-dir``),
-``GET /healthz`` and ``GET /metrics``, with bounded admission
-(``--max-queue``, 429 + Retry-After), a warmup that runs every serving shape
-before ``/healthz`` reports ok (``--no-warmup`` skips it), a stall watchdog
-(``--stall-timeout-s``) and a SIGTERM drain:
+the same engine online instead (``serve/server.py``), paged or contiguous:
+``POST /v1/generate`` (SSE or one JSON body; ``"adapter"`` picks a tenant
+under ``--adapter-dir``), ``GET /healthz`` and ``GET /metrics``, with bounded
+admission (``--max-queue``, 429 + Retry-After), a warmup that runs every
+serving shape before ``/healthz`` reports ok (``--no-warmup`` skips it), a
+stall watchdog (``--stall-timeout-s``) and a SIGTERM drain:
 
     python -m relora_tpu_torch.serve_cli --model_config llama_250m \
         --random-init --paged --dtype bf16 --max-batch 8 --port 0 --port-file F
@@ -67,8 +84,10 @@ from relora_tpu_torch.config.model import load_model_config
 from relora_tpu_torch.models.params_util import init_params
 from relora_tpu_torch.serve.adapters import AdapterRegistry
 from relora_tpu_torch.serve.engine import InferenceEngine, build_decode_model, compute_dtype
+from relora_tpu_torch.serve.sampling import SamplingParams
 from relora_tpu_torch.serve.scheduler import (
     Completion,
+    ContinuousBatchingScheduler,
     PagedContinuousBatchingScheduler,
     Request,
 )
@@ -124,7 +143,11 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--max-batch", type=int, default=4, help="decode slots")
     p.add_argument("--dtype", choices=["f32", "bf16"], default="f32")
     p.add_argument("--seed", type=int, default=0)
-    p.add_argument("--paged", action="store_true", help="paged KV cache (required for now)")
+    p.add_argument(
+        "--paged", action="store_true",
+        help="paged KV cache: chunked prefill between decode rounds, page-pool "
+        "admission, prefix caching (default: the contiguous cache)",
+    )
     p.add_argument("--page-size", type=int, default=16, help="tokens per KV page")
     p.add_argument(
         "--num-pages", type=int, default=0,
@@ -224,6 +247,20 @@ def check_adapter_flags(args: argparse.Namespace) -> None:
         raise SystemExit(f"--adapter-dir {args.adapter_dir} is not a directory")
 
 
+def check_paged_flags(args: argparse.Namespace) -> None:
+    """``serve.py``'s refusals of the paged-only flags without ``--paged``,
+    in its order and with its messages."""
+    if args.paged:
+        return
+    if args.packed:
+        raise SystemExit(
+            "--packed requires --paged (the packed step routes every token "
+            "through the paged pool's block tables)"
+        )
+    if args.kv_dtype != "bf16":
+        raise SystemExit("--kv-dtype int8 requires --paged (the contiguous cache is unquantized)")
+
+
 def check_spec_flags(args: argparse.Namespace) -> None:
     """``serve.py``'s checks of the speculative flags, with its messages."""
     if args.spec != "off" and not args.paged:
@@ -319,17 +356,16 @@ def preload_adapters(args: argparse.Namespace, registry: Optional[AdapterRegistr
         logger.info(f"preloaded adapter {name!r} into slot {slot}")
 
 
-def build(
-    args: argparse.Namespace, metrics: Optional[MetricsLogger] = None, preload: bool = True
-) -> PagedContinuousBatchingScheduler:
-    """The engine and scheduler the flags describe, weights included;
-    ``metrics`` receives the scheduler's records, ``preload=False`` leaves
+def build_engine(
+    args: argparse.Namespace, preload: bool = True
+) -> Tuple[InferenceEngine, Optional[AdapterRegistry]]:
+    """The engine the flags describe, weights included, and its adapter
+    registry (None without ``--adapter-dir``); ``preload=False`` leaves
     ``--adapters`` to the caller (the server preloads after its warmup)."""
     check_adapter_flags(args)
+    check_paged_flags(args)
     check_spec_flags(args)
     check_server_flags(args)
-    if not args.paged:
-        raise SystemExit("the contiguous engine is not ported yet: pass --paged")
     if args.packed and args.token_budget < 0:
         raise SystemExit("--token-budget must be >= 0")
     if args.token_budget and not args.packed:
@@ -340,27 +376,31 @@ def build(
     dtype = compute_dtype(args.dtype)
     params, lora_spec = load_params(args, model_cfg, dtype, device)
     adapter_slots = (args.adapter_slots or 4) if args.adapter_dir else 0
-    # every slot at full length at once, plus the null page; --spec model
-    # reserves a second run per slot for the draft's K/V
-    slot_pages = (cache_size // args.page_size) * (2 if args.spec == "model" else 1)
-    num_pages = args.num_pages or (args.max_batch * slot_pages + 1)
-    window = args.spec_k + 1 if args.spec != "off" else 1
+    paged = {}
+    if args.paged:
+        # every slot at full length at once, plus the null page; --spec model
+        # reserves a second run per slot for the draft's K/V
+        slot_pages = (cache_size // args.page_size) * (2 if args.spec == "model" else 1)
+        window = args.spec_k + 1 if args.spec != "off" else 1
+        paged = dict(
+            page_size=args.page_size,
+            num_pages=args.num_pages or (args.max_batch * slot_pages + 1),
+            chunk_size=args.chunk_size,
+            kv_dtype=args.kv_dtype,
+            token_budget=(args.token_budget or args.max_batch * window + args.chunk_size)
+            if args.packed
+            else None,
+            spec_k=args.spec_k if args.spec != "off" else 0,
+        )
     engine = InferenceEngine(
         model_cfg,
         params,
         cache_size=cache_size,
         dtype=dtype,
-        page_size=args.page_size,
-        num_pages=num_pages,
-        chunk_size=args.chunk_size,
-        kv_dtype=args.kv_dtype,
-        token_budget=(args.token_budget or args.max_batch * window + args.chunk_size)
-        if args.packed
-        else None,
         device=device,
         lora=lora_spec,
         adapter_slots=adapter_slots,
-        spec_k=args.spec_k if args.spec != "off" else 0,
+        **paged,
     )
     if args.spec == "model":
         logger.info(f"restoring draft model {args.draft_checkpoint}")
@@ -378,27 +418,46 @@ def build(
         )
         if preload:
             preload_adapters(args, registry)
-    return PagedContinuousBatchingScheduler(
-        engine,
-        packed=args.packed,
-        spec=args.spec,
+    return engine, registry
+
+
+def resolve_eos(args: argparse.Namespace, engine: InferenceEngine) -> Optional[int]:
+    return args.eos_id if args.eos_id is not None else engine.config.eos_token_id
+
+
+def build(
+    args: argparse.Namespace, metrics: Optional[MetricsLogger] = None, preload: bool = True
+) -> ContinuousBatchingScheduler:
+    """The scheduler the flags describe over :func:`build_engine`'s engine:
+    a ``PagedContinuousBatchingScheduler`` with ``--paged``, else the
+    contiguous ``ContinuousBatchingScheduler``; ``metrics`` receives its
+    records, ``preload`` as :func:`build_engine`."""
+    engine, registry = build_engine(args, preload)
+    common = dict(
         max_batch=args.max_batch,
-        eos_id=args.eos_id if args.eos_id is not None else model_cfg.eos_token_id,
+        eos_id=resolve_eos(args, engine),
         top_k=args.top_k,
         seed=args.seed,
         metrics=metrics,
         adapter_registry=registry,
     )
+    if args.paged:
+        return PagedContinuousBatchingScheduler(
+            engine, packed=args.packed, spec=args.spec, **common
+        )
+    return ContinuousBatchingScheduler(engine, **common)
 
 
 def build_server(
     args: argparse.Namespace, metrics: Optional[MetricsLogger] = None
-) -> Tuple[PagedContinuousBatchingScheduler, dict]:
+) -> Tuple[ContinuousBatchingScheduler, dict]:
     """The server mode's scheduler and ``GenerateServer`` keyword arguments,
     in ``serve.py``'s order: weights restored and the scheduler built with
     ``metrics`` here; the warmup (every serving shape once, which builds
-    the kernels) and then the ``--adapters`` preload run on the server's
-    model thread before ``/healthz`` reports ok."""
+    the kernels: the chunk and decode shapes, the packed buckets, or
+    without ``--paged`` every prompt bucket's prefill, the insert and the
+    decode) and then the ``--adapters`` preload run on the server's model
+    thread before ``/healthz`` reports ok."""
     scheduler = build(args, metrics, preload=args.no_warmup)
     warmup_fn = None
     if not args.no_warmup:
@@ -491,10 +550,14 @@ def read_requests(args: argparse.Namespace) -> List[Request]:
     ]
 
 
-def drain(argv=None) -> Tuple[Dict[int, Completion], float, PagedContinuousBatchingScheduler]:
-    """Build from the flags, drain every request; returns the completions,
-    the drain's wall seconds (ending in a device synchronize) and the
-    scheduler, whose counters (``spec_stats``) the drain leaves behind."""
+def drain(argv=None) -> Tuple[Dict[int, Completion], float, ContinuousBatchingScheduler]:
+    """Build from the flags, drain every request through the scheduler:
+    ``--input-file``'s, or ``--prompt``'s queued as requests.  Here
+    ``--prompt`` is not the command line's one-shot mode (that is
+    :func:`one_shot`, which :func:`main` calls); returns the
+    completions, the drain's wall seconds (ending in a device synchronize)
+    and the scheduler, whose counters (``spec_stats``) the drain leaves
+    behind."""
     args = parse_args(argv)
     requests = read_requests(args)
     metrics = MetricsLogger(run_dir=args.run_dir) if args.run_dir else None
@@ -511,8 +574,34 @@ def drain(argv=None) -> Tuple[Dict[int, Completion], float, PagedContinuousBatch
 
 
 def run(argv=None) -> Tuple[Dict[int, Completion], float]:
-    """:func:`drain`'s completions and wall seconds."""
+    """:func:`drain`'s completions and wall seconds (``--prompt`` lines
+    queued as scheduler requests, as in :func:`drain`)."""
     return drain(argv)[:2]
+
+
+def one_shot(argv=None) -> Tuple[List[List[int]], float, InferenceEngine]:
+    """The ``--prompt`` mode (``serve.py:680-692``): every prompt generated
+    together by ``InferenceEngine.generate``, on either engine.  Returns the
+    generated ids per prompt, the wall seconds of the call (ending in a
+    device synchronize) and the engine."""
+    args = parse_args(argv)
+    if not args.prompt:
+        raise SystemExit("the one-shot mode needs --prompt")
+    if args.input_file:
+        raise SystemExit("--prompt and --input-file are mutually exclusive")
+    engine, _ = build_engine(args)
+    prompts = [_encode(text) for text in args.prompt]
+    t0 = time.perf_counter()
+    outs = engine.generate(
+        prompts,
+        max_new_tokens=args.max_new_tokens,
+        sampling=SamplingParams(temperature=args.temperature, top_k=args.top_k, top_p=args.top_p),
+        eos_id=resolve_eos(args, engine),
+        seed=args.seed,
+    )
+    if engine.device.type == "cuda":
+        torch.cuda.synchronize(engine.device)
+    return outs, time.perf_counter() - t0, engine
 
 
 def main(argv=None) -> int:
@@ -521,12 +610,19 @@ def main(argv=None) -> int:
     if args.port is not None:
         check_server_flags(args)
         return serve(args)
+    if args.prompt and not args.input_file:
+        outs, seconds, _ = one_shot(argv)
+        for tokens in outs:
+            print(" ".join(str(t) for t in tokens))
+        n_tokens = sum(len(t) for t in outs)
+        logger.info(f"{n_tokens} tokens in {seconds:.3f}s ({n_tokens / seconds:.1f} tokens/s)")
+        return 0
     completions, seconds, scheduler = drain(argv)
     for uid in sorted(completions):
         print(" ".join(str(t) for t in completions[uid].tokens))
     n_tokens = sum(len(c.tokens) for c in completions.values())
     logger.info(f"{n_tokens} tokens in {seconds:.3f}s ({n_tokens / seconds:.1f} tokens/s)")
-    if scheduler._spec != "off":
+    if isinstance(scheduler, PagedContinuousBatchingScheduler) and scheduler._spec != "off":
         logger.info(f"speculative: {scheduler.spec_stats()}")
     return 0
 
