@@ -1623,13 +1623,17 @@ class MergeWatch:
     largest ``|ΔW|`` over half its row's quantization step.  A code moves
     only where the delta reaches half a step, but a row's f32 scale, its
     absmax over 127, moves with any delta at the row's largest weight, so
-    ``moved`` sees a merge at any reach."""
+    ``moved`` sees a merge at any reach.  Every nf4 base likewise
+    (``nf4_merges``): how many projections' codes moved, how many moved
+    their block scales (``bscale_q``, ``bscale_scale``, ``bscale_offset``:
+    double quant re-encodes them every merge), and ``moved``, codes or
+    scales."""
 
     def __init__(self, torch):
         from relora_tpu_torch.train import trainer
 
         self.torch, self.trainer, self.real = torch, trainer, trainer.merge_and_reinit
-        self.merges = []
+        self.merges, self.nf4_merges = [], []
 
     def __enter__(self):
         self.trainer.merge_and_reinit = self._merge
@@ -1644,6 +1648,9 @@ class MergeWatch:
         from relora_tpu_torch.ops.quant import dequantize_int8, quantize_int8
 
         modules = [m for _, m in lora_modules(model) if getattr(m, "weight_q", None) is not None]
+        nf4 = [m for _, m in lora_modules(model) if getattr(m, "weight_codes", None) is not None]
+        nf4_leaves = ("weight_codes", "weight_bscale_q", "weight_bscale_scale", "weight_bscale_offset")
+        nf4_before = [[getattr(m, leaf).clone() for leaf in nf4_leaves] for m in nf4]
         before = [m.weight_q.clone() for m in modules]
         # what each projection would hold after a merge that dropped its delta
         idle = [quantize_int8(dequantize_int8(m.weight_q, m.weight_scale)) for m in modules]
@@ -1660,21 +1667,34 @@ class MergeWatch:
                          for m, (q, s) in zip(modules, idle)),
             "reach": reach,
         })
+        if nf4:
+            eq = self.torch.equal
+            after = [[getattr(m, leaf) for leaf in nf4_leaves] for m in nf4]
+            codes = [not eq(a[0], b[0]) for a, b in zip(after, nf4_before)]
+            scales = [not all(eq(x, y) for x, y in zip(a[1:], b[1:])) for a, b in zip(after, nf4_before)]
+            self.nf4_merges.append({
+                "modules": len(nf4), "codes_moved": sum(codes), "scales_moved": sum(scales),
+                "moved": sum(c or s for c, s in zip(codes, scales)),
+                "uint8_after": all(m.weight_codes.dtype == self.torch.uint8 for m in nf4),
+            })
         return out
 
 
 class GraftWatch:
     """Wraps the trainer's ``load_warm_start`` to hold every base parameter
     of the model, right after the graft, to its source tensor in the file
-    (the HF name's prefix stripped, cast to the parameter's dtype).  A
-    model with an int8 base is left alone: its codes are checked around the
-    merges (:class:`MergeWatch`)."""
+    (the HF name's prefix stripped, cast to the parameter's dtype), an nf4
+    base dequantized within nf4's error bound of the file's weight (half the
+    widest codebook gap times its block's absmax, plus the double quant's
+    step of that absmax; ``nf4_worst`` is the largest error in units of the
+    bound).  A model with an int8 base is left alone: its codes are checked
+    around the merges (:class:`MergeWatch`)."""
 
     def __init__(self, torch):
         from relora_tpu_torch.train import trainer
 
         self.torch, self.trainer, self.real = torch, trainer, trainer.load_warm_start
-        self.checked = 0
+        self.checked, self.nf4_worst = 0, 0.0
 
     def __enter__(self):
         self.trainer.load_warm_start = self._load
@@ -1692,13 +1712,44 @@ class GraftWatch:
             return out
         src = {strip_hf_prefix(k): v for k, v in self.torch.load(
             os.path.join(path, WEIGHTS_FILE), map_location="cpu", weights_only=True).items()}
+        modules = dict(model.named_modules())
         for name, p in model.named_parameters():
-            if is_lora_name(name):
+            if is_lora_name(name) or name.rsplit(".", 1)[-1].startswith("weight_bscale"):
+                continue  # an nf4 base's scales are checked with its codes
+            if name.endswith(".weight_codes"):
+                module = name[: -len(".weight_codes")]
+                self.nf4_worst = max(self.nf4_worst,
+                                     nf4_error(self.torch, modules[module], src[f"{module}.weight"]))
+                if not self.nf4_worst <= 1.0:
+                    raise AssertionError(f"warm start: {module}'s nf4 base is {self.nf4_worst:.3f}x "
+                                         "nf4's error bound off the file's weight")
+                self.checked += 1
                 continue
             if not self.torch.equal(p.detach().cpu(), src[name].to(p.dtype)):
                 raise AssertionError(f"warm start: {name} differs from the file's after the graft")
             self.checked += 1
         return out
+
+
+def nf4_error(torch, module, weight):
+    """The largest error of ``module``'s dequantized nf4 base against the
+    ``(out, in)`` source ``weight``, in units of nf4's bound: half the widest
+    code gap times the block's absmax, plus one double-quant step (the
+    block scale stored as int8 over its column's spread)."""
+    import numpy as np
+
+    from relora_tpu_torch.ops.quant import NF4_CODEBOOK, NF4_LEAVES, dequantize_nf4, nf4_block_for
+
+    gap = float(np.diff(NF4_CODEBOOK).max())  # a value lies within half of it of its code
+    leaves = {leaf: getattr(module, param) for param, leaf in NF4_LEAVES.items()}
+    deq = dequantize_nf4(leaves)  # (in, out)
+    w = weight.to(device=deq.device, dtype=torch.float32).t()
+    block = nf4_block_for(w.shape[0])
+    absmax = w.abs().reshape(-1, block, w.shape[1]).amax(dim=1)
+    scale_step = leaves["bscale_scale"] if leaves["bscale_q"].dtype == torch.int8 else 0.0
+    bound = absmax * gap / 2 + scale_step + 1e-6
+    err = (deq - w).abs().reshape(-1, block, w.shape[1]).amax(dim=1)
+    return float((err / bound).max())
 
 
 class ArmWatch:
@@ -1782,7 +1833,8 @@ def telemetry(torch, save_dir, result, windows):
         "mfu_gap": {k: statistics.fmean(g[f"mfu_gap/{k}"] for g in gaps) for k in GAP_SHARES}
         if gaps else None,
         "mfu_gap_windows": len(gaps), "hbm_peak_bytes": hbm, "max_memory_allocated": phase_peak,
-        "plan_total_bytes": plan_bytes, "problems": problems,
+        "plan_total_bytes": plan_bytes, "plan_params_bytes": plans[-1]["params_bytes"] if plans else None,
+        "problems": problems,
     }
 
 
@@ -1814,7 +1866,9 @@ def train(torch, data_config, label="train", extra=(), base_args=TRAIN_ARGS):
     flag = dict(zip(argv, argv[1:]))
     fused = flag.get("--lora_fused", "false") == "true"
     auto = flag.get("--lora_fused") == "auto"
-    int8 = "--quantize" in extra
+    int8 = flag.get("--quantize") == "int8"
+    nf4 = flag.get("--quantize") == "nf4"  # every projection even: no int8 fallback here
+    remat = flag.get("--remat") == "true"  # kernel 3's forward runs again in every backward
     gc.collect()  # what earlier phases left unreachable is not this phase's peak
     torch.cuda.reset_peak_memory_stats()
     with MergeWatch(torch) as watch, GraftWatch(torch) as graft, ArmWatch() as arms:
@@ -1834,7 +1888,7 @@ def train(torch, data_config, label="train", extra=(), base_args=TRAIN_ARGS):
     fwd_fused = arms.count("fused") if auto else projections * forward if fused else 0
     bwd_fused = arms.count("fused", backward=True) if auto else projections * backward if fused else 0
     want = {
-        "flash_attention_forward": forward,
+        "flash_attention_forward": forward + (backward if remat else 0),
         "flash_attention_bwd_dkdv": backward,
         "flash_attention_bwd_dq": backward,
         "fused_lora_forward": 0 if int8 else fwd_fused,
@@ -1866,6 +1920,9 @@ def train(torch, data_config, label="train", extra=(), base_args=TRAIN_ARGS):
         line["arms"] = arms.summary()
     if int8:
         line["int8_merges"] = watch.merges
+    if nf4:
+        line["nf4_merges"] = watch.nf4_merges
+        line["nf4_graft_worst_in_bounds"] = graft.nf4_worst
     if graft.checked:
         line["grafted_params_checked"] = graft.checked
     line["telemetry"] = telemetry(torch, flag["--save_dir"], result,
@@ -1900,6 +1957,12 @@ def train(torch, data_config, label="train", extra=(), base_args=TRAIN_ARGS):
         raise AssertionError(f"{label}: int8 merges {watch.merges}: expected 2 merges over the "
                              f"nonzero int8 codes of {projections * layers} projections, each "
                              "moving every projection's codes or scales off its unmerged base")
+    if nf4 and not (len(watch.nf4_merges) == 2 and all(
+            m["modules"] == m["moved"] == projections * layers and m["uint8_after"]
+            for m in watch.nf4_merges)):
+        raise AssertionError(f"{label}: nf4 merges {watch.nf4_merges}: expected 2 merges, each "
+                             f"moving the codes or block scales of all {projections * layers} "
+                             "projections")
     if "--warmed_up_model" in extra and not int8 and graft.checked == 0:
         raise AssertionError(f"{label}: the warm start grafted no base parameter")
     return launches, line
@@ -4369,6 +4432,297 @@ def f32_contiguous(torch, device):
             raise AssertionError(f"f32-contiguous {name}: requests {diverged} differ from the paged path")
 
 
+# the memory levers (an nf4 base, the chunked loss, the remat policies)
+CHUNKED_LOSS_TOL = 2e-3  # chunked@pythia_1b's losses against pythia_train's, bf16
+REMAT_LOSS_TOL = 1e-5  # remat@pythia_1b's losses against pythia_train's
+# dots_all is left to the CPU tests: on the flash path it saves what dots saves
+REMAT_POLICIES = ("full", "dots", "dots_narrow")
+NF4_ARGS = ["--quantize", "nf4"]
+
+
+def nf4_param_bytes(model_name, r):
+    """The parameter bytes of ``model_name`` with LoRA of rank ``r`` on every
+    projection over an nf4 base with double quant, reckoned from the config
+    alone: per projection ``(K, N)`` the codes ``K/2 x N``, int8 block scales
+    ``K/block x N`` and two f32 scales ``(1, N)``, the factors, a NeoX bias
+    in f32; the embeddings, head and norms in f32."""
+    from relora_tpu_torch.config.model import load_model_config
+    from relora_tpu_torch.ops.quant import nf4_block_for
+
+    cfg = load_model_config(model_name)
+    h, i, v = cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size
+    neox = cfg.family == "neox"
+    if neox:
+        shapes = [(h, 3 * h), (h, h), (h, i), (i, h)]
+    else:
+        q, kv = cfg.num_attention_heads * cfg.head_dim, cfg.kv_heads * cfg.head_dim
+        shapes = [(h, q), (h, kv), (h, kv), (q, h), (h, i), (h, i), (i, h)]
+    layer = sum(K // 2 * N + K // nf4_block_for(K) * N + 8 * N + 4 * r * (K + N) + (4 * N if neox else 0)
+                for K, N in shapes)
+    norms = 2 * h * 4 * (2 if neox else 1)  # two norms a layer, NeoX's with biases
+    return cfg.num_hidden_layers * (layer + norms) + 2 * v * h * 4 + h * 4 * (2 if neox else 1)
+
+
+def memory_line(label, line, beside):
+    """Prints ``label``'s HBM peaks and memory plan beside the lines of
+    ``beside`` (``{label: train line}``)."""
+    def gib(x):
+        return None if x is None else x / 2**30
+
+    out = {"memory": label}
+    for name, ln in {label: line, **beside}.items():
+        t = ln["telemetry"]
+        out[name] = {"peak_gib": ln["peak_gib"], "trainer_hbm_peak_gib": gib(t["hbm_peak_bytes"]),
+                     "plan_gib": gib(t["plan_total_bytes"]), "ms_per_update": ln["ms_per_update"],
+                     "mfu": t["mfu"]}
+    print(json.dumps(out))
+
+
+def nf4_serve(torch, prompts, checkpoint):
+    """Phase nf4_serve: nf4_train's checkpoint drained by ``serve_cli
+    --paged`` over the 16 prompts merged (``merged_params`` dequantizes the
+    base and adds the delta), then ``--no-merge`` (the nf4 LoRALinear on the
+    plain path: no projection asks the cost model); kernel 1 in both.  The
+    first forward's logits of the two within NOMERGE_LOGIT_TOL; tokens/s of
+    both and the count of identical streams printed.  Returns kernel 1's
+    launches."""
+    from relora_tpu_torch import serve_cli
+    from relora_tpu_torch.ops import attention as A
+
+    common = ["--model_config", "llama_250m", "--dtype", "bf16", "--max-batch", "8", "--paged",
+              "--max-new-tokens", "64", "--input-file", prompts, "--checkpoint", checkpoint]
+    first = read_prompts(prompts)[0]
+    out, launches = {}, 0
+    for label, extra in (("merged", []), ("nomerge", ["--no-merge"])):
+        A.paged_decode_attention.launches = 0
+        with ArmWatch() as arms:
+            completions, seconds, sched = serve_cli.drain(common + extra)
+        projections = [m for m in sched.engine.model.modules() if getattr(m, "lora", None) is not None]
+        logits = first_forward_logits(torch, sched.engine, first)
+        del sched
+        torch.cuda.empty_cache()
+        tokens = [completions[u].tokens for u in sorted(completions)]
+        n = sum(len(t) for t in tokens)
+        out[label] = {"tokens": tokens, "logits": logits, "tokens_per_s": n / seconds,
+                      "launches": A.paged_decode_attention.launches,
+                      "nf4_projections": sum(getattr(m, "quantize", None) == "nf4" for m in projections),
+                      "cost_model_calls": sum(arms.calls.values())}
+        launches += A.paged_decode_attention.launches
+        if len(tokens) != 16 or not all(0 <= tok < 32100 for t in tokens for tok in t):
+            raise AssertionError(f"nf4_serve {label}: malformed completions")
+    want = out["merged"]["logits"]
+    err = (out["nomerge"]["logits"] - want).abs().max().item() / max(1.0, want.abs().max().item())
+    same = sum(a == b for a, b in zip(out["merged"]["tokens"], out["nomerge"]["tokens"]))
+    line = {"nf4_serve": "llama_250m", "checkpoint": os.path.basename(checkpoint),
+            "merged_tokens_per_s": out["merged"]["tokens_per_s"],
+            "nomerge_tokens_per_s": out["nomerge"]["tokens_per_s"],
+            "identical_streams": same, "first_logits_rel_err": err, "tol": NOMERGE_LOGIT_TOL,
+            **{f"{k}_{lbl}": out[lbl][k] for lbl in out
+               for k in ("launches", "nf4_projections", "cost_model_calls")}}
+    print(json.dumps(line))
+    if not err <= NOMERGE_LOGIT_TOL:
+        raise AssertionError(f"nf4_serve: unmerged first forward {err:.3e} off the merged one")
+    if out["nomerge"]["nf4_projections"] != 7 * 24 or out["nomerge"]["cost_model_calls"]:
+        raise AssertionError(f"nf4_serve: {line}: every unmerged projection must be nf4 and none "
+                             "may reach the cost model")
+    if not (out["merged"]["launches"] and out["nomerge"]["launches"]):
+        raise AssertionError("nf4_serve: a drain never launched kernel 1")
+    return launches
+
+
+def nf4_pythia(torch, corpus, warm, beside):
+    """Phase nf4_train@pythia_1b: the pythia train phase over an nf4 base
+    warm-started from ``warm``; its memory plan's parameter bytes must equal
+    :func:`nf4_param_bytes`, its peaks printed beside ``beside``'s."""
+    launches, line = train(torch, corpus, f"nf4_train@{PYTHIA}", NF4_ARGS + ["--warmed_up_model", warm],
+                           base_args=PYTHIA_TRAIN_ARGS)
+    want = nf4_param_bytes(PYTHIA, LORA_R)
+    got = line["telemetry"]["plan_params_bytes"]
+    memory_line(f"nf4_train@{PYTHIA}", line, beside)
+    print(json.dumps({"nf4_plan": PYTHIA, "params_bytes": got, "reckoned": want,
+                      "plan_total_gib": line["telemetry"]["plan_total_bytes"] / 2**30}))
+    if got != want:
+        raise AssertionError(f"nf4_train@{PYTHIA}: memory_plan holds {got} parameter bytes, the "
+                             f"nf4 reckoning {want}")
+    return launches
+
+
+def check_losses(label, line, ref, tol):
+    """Every update's loss of ``line`` within ``tol`` of ``ref``'s; prints
+    the worst difference and whether they are bit-equal."""
+    diffs = [abs(a - b) for a, b in zip(line["losses"], ref["losses"])]
+    worst = max(diffs)
+    print(json.dumps({"losses": label, "worst_abs_diff": worst, "tol": tol,
+                      "bit_equal": line["losses"] == ref["losses"],
+                      "ms_per_update": line["ms_per_update"], "ref_ms_per_update": ref["ms_per_update"],
+                      "peak_gib": line["peak_gib"], "ref_peak_gib": ref["peak_gib"]}))
+    if len(diffs) != TRAIN_UPDATES or not worst <= tol:
+        raise AssertionError(f"{label}: losses {worst:.3e} off pythia_train's, beyond {tol}")
+
+
+def memory_levers(torch, work, pythia_train_line):
+    """Phases chunked@pythia_1b and remat@pythia_1b: pythia_train's run with
+    ``--loss_impl chunked`` (8192-row chunks: 7 of the 50304 rows), then
+    with ``--remat true`` under each of REMAT_POLICIES.  Each update's loss
+    against pythia_train's (chunked within CHUNKED_LOSS_TOL, remat within
+    REMAT_LOSS_TOL); the chunked peak below pythia_train's, the remat peaks
+    ordered full < dots_narrow < dots (each policy saves more).  Returns
+    the runs' kernel launches."""
+    corpus = write_corpus(work, seq_length=2048)
+    total = {}
+
+    def add(launches):
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+
+    launches, line = train(torch, corpus, f"chunked@{PYTHIA}",
+                           ["--loss_impl", "chunked", "--vocab_chunk", "8192"],
+                           base_args=PYTHIA_TRAIN_ARGS)
+    add(launches)
+    check_losses(f"chunked@{PYTHIA}", line, pythia_train_line, CHUNKED_LOSS_TOL)
+    if not line["peak_gib"] < pythia_train_line["peak_gib"]:
+        raise AssertionError(f"chunked@{PYTHIA}: peak {line['peak_gib']:.3f} GiB, not below "
+                             f"pythia_train's {pythia_train_line['peak_gib']:.3f}")
+    torch.cuda.empty_cache()
+    peaks = {}
+    for policy in REMAT_POLICIES:
+        launches, line = train(torch, corpus, f"remat_{policy}@{PYTHIA}",
+                               ["--remat", "true", "--remat_policy", policy],
+                               base_args=PYTHIA_TRAIN_ARGS)
+        add(launches)
+        check_losses(f"remat_{policy}@{PYTHIA}", line, pythia_train_line, REMAT_LOSS_TOL)
+        peaks[policy] = line["peak_gib"]
+        torch.cuda.empty_cache()
+    print(json.dumps({"remat_peaks_gib": peaks, "no_remat_peak_gib": pythia_train_line["peak_gib"]}))
+    if not peaks["full"] < peaks["dots_narrow"] < peaks["dots"]:
+        raise AssertionError(f"remat@{PYTHIA}: peaks {peaks} not ordered full < dots_narrow < dots: "
+                             "a policy whose peak does not rise saved nothing")
+    return total
+
+
+# f32-nf4: llama_1b cut to 2 layers, an update on the card against the CPU
+F32_NF4_BATCH = (2, 2, 256)  # (grad_accum, microbatch, seq): the CPU reference's size
+
+
+def f32_nf4(torch, device, pythia_warm):
+    """Phase f32-nf4: llama_1b cut to 2 layers over an nf4 base (its 5461-wide
+    down_proj stores int8: the fallback) at f32 with TF32 off, warm-started
+    from seeded weights with B drawn nonzero: one update on the card with
+    ``--lora_fused true`` (down_proj through kernels 4-int8, 6-int8, 7, the
+    nf4 projections plain) and unfused (down_proj through kernel 8), each
+    against the same update on the CPU (loss and layer-0 gradients, as
+    f32-train).  Then quantize_nf4 of pythia_1b's warm-start weights (layers
+    0 and 15) on the card against the CPU: codes equal apart from ties (a
+    value at a midpoint within an ulp), bscale_q within one step.  Returns
+    the kernels' launches on the card."""
+    import numpy as np
+
+    from relora_tpu_torch.core import optim, relora
+    from relora_tpu_torch.models.llama import LlamaForCausalLM
+    from relora_tpu_torch.models.params_util import init_params
+    from relora_tpu_torch.models.warm_start import graft_base_weights
+    from relora_tpu_torch.train.step import TrainState, make_train_step
+
+    cfg, _ = two_layer("llama_1b")
+    rng = np.random.default_rng(13)
+    batch = (rng.zipf(1.2, F32_NF4_BATCH) - 1) % cfg.vocab_size
+    dense = LlamaForCausalLM(cfg)
+    init_params(dense, torch.Generator().manual_seed(17))
+    source = {f"model.{k}": v for k, v in dense.state_dict().items()}
+    del dense
+    state_dict = None
+    counters = _counters()
+    out, grads, launches = {}, {}, {}
+    with relora.full_f32_matmul():
+        for arm, dev in (("cpu", torch.device("cpu")), ("fused", device), ("unfused", device)):
+            spec = relora.LoraSpec(r=128, alpha=32.0, dropout=0.0, quantize="nf4",
+                                   fused=arm == "fused")
+            model = LlamaForCausalLM(cfg, dtype=torch.float32, attention_arm="auto", lora=spec)
+            if state_dict is None:
+                gen = torch.Generator().manual_seed(3)
+                init_params(model, gen)
+                graft_base_weights(model, source)
+                with torch.no_grad():
+                    for name, p in model.named_parameters():
+                        if name.endswith("lora_b"):
+                            p.copy_(torch.randn(p.shape, generator=gen) * 0.02)
+                state_dict = {k: v.clone() for k, v in model.state_dict().items()}
+            model.load_state_dict(state_dict)
+            model.to(dev)
+            relora.set_trainable(model)
+            down = model.layers[0].mlp.down_proj
+            if not (down.quantize == "int8" and model.layers[0].mlp.up_proj.quantize == "nf4"):
+                raise AssertionError("f32-nf4: the 5461-wide down_proj must store int8, the rest nf4")
+            tokens = torch.as_tensor(batch, device=dev)
+            before = {n: c.launches for n, c in counters.items()}
+            grads[arm] = layer0_grads(torch, model, tokens)
+            opt = optim.build_optimizer(p for p in model.parameters() if p.requires_grad)
+            step = make_train_step(model, opt, clip_grad_norm=1.0, schedule=lambda s: 1e-3)
+            out[arm] = step(TrainState(), tokens)
+            launches[arm] = {n: c.launches - before[n] for n, c in counters.items()}
+            del model, opt
+            torch.cuda.empty_cache()
+    layers = cfg.num_hidden_layers
+    want = {"fused": {"fused_lora_int8_forward": 2 * 2 * layers, "fused_lora_int8_bwd_dx": 2 * 2 * layers,
+                      "fused_lora_bwd_dab": 2 * 2 * layers},
+            "unfused": {"dequant_matmul": 2 * 2 * layers}}  # two passes (grads, step) x 2 micro
+    for arm in ("fused", "unfused"):
+        check_grads(f"f32-nf4 {arm}", grads[arm], {n: g.to(device) for n, g in grads["cpu"].items()})
+        for key in ("loss", "grad_norm"):
+            err = abs(out[arm][key] - out["cpu"][key]) / abs(out["cpu"][key])
+            ok = err <= F32_TRAIN_TOL[key]
+            print(f"f32-nf4 {arm} {key} card={out[arm][key]} cpu={out['cpu'][key]} rel_err={err:.3e} "
+                  f"tol={F32_TRAIN_TOL[key]:g} {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"f32-nf4 {arm}: {key} off the CPU's by {err:.3e}")
+        ran = {n: v for n, v in launches[arm].items() if v and not n.startswith("flash")}
+        print(json.dumps({"f32-nf4 launches": arm, **ran}))
+        if ran != want[arm] or launches[arm]["flash_attention_bwd_dq"] == 0:
+            raise AssertionError(f"f32-nf4 {arm}: launches {ran}, expected {want[arm]} and flash")
+    check_nf4_quantize(torch, device, pythia_warm)
+    return {n: launches["fused"][n] + launches["unfused"][n] for n in counters if not n.startswith("flash")}
+
+
+def check_nf4_quantize(torch, device, pythia_warm):
+    """``quantize_nf4`` of pythia_1b's warm-start weights (layers 0 and 15)
+    on the card against the CPU: codes equal apart from ties (a value at a
+    midpoint within an ulp, counted), ``bscale_q`` within one step (the
+    per-column mean reduces in another order)."""
+    from relora_tpu_torch.ops.quant import NF4_MIDPOINTS, quantize_nf4
+
+    src = torch.load(os.path.join(pythia_warm, "pytorch_model.bin"), map_location="cpu", weights_only=True)
+    mids = torch.as_tensor(NF4_MIDPOINTS)
+    stats = {"weights": 0, "codes": 0, "code_mismatches": 0, "ties": 0, "bscale_q_off": 0,
+             "bscale_q_max_step": 0}
+    for key, w in src.items():
+        if not key.startswith(("gpt_neox.layers.0.", "gpt_neox.layers.15.")) or not key.endswith(
+                "weight") or w.ndim != 2:
+            continue
+        wt = w.float().t()
+        cpu = quantize_nf4(wt)
+        card = {k: v.cpu() for k, v in quantize_nf4(wt.to(device)).items()}
+        K = wt.shape[0]
+        idx_cpu = torch.stack([cpu["codes"] & 15, cpu["codes"] >> 4], 1).reshape(K, -1)
+        idx_card = torch.stack([card["codes"] & 15, card["codes"] >> 4], 1).reshape(K, -1)
+        off = idx_cpu != idx_card
+        if off.any():
+            block = K // cpu["bscale_q"].shape[0]
+            absmax = wt.abs().reshape(-1, block, wt.shape[1]).amax(1).repeat_interleave(block, 0)
+            x = (wt / absmax)[off]
+            ulp = torch.finfo(torch.float32).eps * x.abs().clamp(min=1e-30)
+            stats["ties"] += int(((x[:, None] - mids).abs().min(dim=1).values <= ulp).sum())
+        step = (cpu["bscale_q"].int() - card["bscale_q"].int()).abs()
+        stats["weights"] += 1
+        stats["codes"] += idx_cpu.numel()
+        stats["code_mismatches"] += int(off.sum())
+        stats["bscale_q_off"] += int((step != 0).sum())
+        stats["bscale_q_max_step"] = max(stats["bscale_q_max_step"], int(step.max()))
+    print(json.dumps({"f32-nf4 quantize card vs cpu": PYTHIA, **stats}))
+    if (stats["weights"] != 8 or stats["code_mismatches"] != stats["ties"]
+            or stats["bscale_q_max_step"] > 1):
+        raise AssertionError(f"f32-nf4: quantize_nf4 on the card against the CPU: {stats}")
+
+
 def take_launches(rows, launches, model=""):
     """Each row of ``rows`` named ``kernel`` (``model`` empty) or
     ``kernel@model`` adds ``launches[kernel]``; other rows are left alone."""
@@ -4476,7 +4830,7 @@ def main() -> int:
     int8 = ["--quantize", "int8", "--warmed_up_model", warm]
     int8_dir = os.path.join(work, "int8_llama_250m")
     shutil.rmtree(int8_dir, ignore_errors=True)
-    launches, _ = train(torch, write_corpus(work), "int8_train", int8 + ["--save_dir", int8_dir])
+    launches, int8_line = train(torch, write_corpus(work), "int8_train", int8 + ["--save_dir", int8_dir])
     take_launches(int8_rows, launches)
     torch.cuda.empty_cache()
     launches, _ = train(torch, write_corpus(work), "int8_fused_train",
@@ -4541,21 +4895,23 @@ def main() -> int:
     take_launches(paged_rows.values(), pythia_drains(torch, prompts), PYTHIA)
     lap("pythia-drains")
     corpus = write_corpus(work, seq_length=2048)
-    take_launches(flash_rows, train(torch, corpus, "pythia_train", ["--log_every", "4"],
-                                    base_args=PYTHIA_TRAIN_ARGS)[0], PYTHIA)
+    launches, pythia_line = train(torch, corpus, "pythia_train", ["--log_every", "4"],
+                                  base_args=PYTHIA_TRAIN_ARGS)
+    take_launches(flash_rows, launches, PYTHIA)
     torch.cuda.empty_cache()
-    warm = write_warm_start(torch, os.path.join(work, f"warm_{PYTHIA}"), device,
-                            model_config=PYTHIA, dtype=torch.bfloat16)
+    pythia_warm = write_warm_start(torch, os.path.join(work, f"warm_{PYTHIA}"), device,
+                                   model_config=PYTHIA, dtype=torch.bfloat16)
     torch.cuda.empty_cache()
     take_launches(lora_rows, train(
         torch, corpus, "pythia_fused_train",
-        ["--lora_fused", "true", "--lora_dropout", "0", "--warmed_up_model", warm],
+        ["--lora_fused", "true", "--lora_dropout", "0", "--warmed_up_model", pythia_warm],
         base_args=PYTHIA_TRAIN_ARGS)[0], PYTHIA)
     torch.cuda.empty_cache()
     # pythia_1b over an int8 base: kernel 8, then 4-int8, 6-int8 and 7
-    int8 = ["--quantize", "int8", "--warmed_up_model", warm]
-    take_launches(int8_rows, train(torch, corpus, f"int8_train@{PYTHIA}", int8,
-                                   base_args=PYTHIA_TRAIN_ARGS)[0], PYTHIA)
+    int8 = ["--quantize", "int8", "--warmed_up_model", pythia_warm]
+    launches, int8_pythia_line = train(torch, corpus, f"int8_train@{PYTHIA}", int8,
+                                       base_args=PYTHIA_TRAIN_ARGS)
+    take_launches(int8_rows, launches, PYTHIA)
     torch.cuda.empty_cache()
     launches, _ = train(torch, corpus, f"int8_fused_train@{PYTHIA}",
                         int8 + ["--lora_fused", "true", "--lora_dropout", "0"],
@@ -4565,6 +4921,28 @@ def main() -> int:
     take_launches(lora_rows, train(torch, corpus, f"auto_train@{PYTHIA}", RESUME_ARGS,
                                    base_args=PYTHIA_TRAIN_ARGS)[0], PYTHIA)
     lap("pythia train phases")
+
+    # the memory levers: an nf4 base trained, served merged and unmerged,
+    # its odd-width int8 fallback; the chunked loss; the remat policies
+    torch.cuda.empty_cache()
+    nf4_dir = os.path.join(work, "nf4_llama_250m")
+    shutil.rmtree(nf4_dir, ignore_errors=True)
+    launches, nf4_line = train(torch, write_corpus(work), "nf4_train", NF4_ARGS + [
+        "--warmed_up_model", os.path.join(work, "warm_llama_250m"), "--save_dir", nf4_dir])
+    take_launches(flash_rows, launches)
+    memory_line("nf4_train", nf4_line, {"int8_train": int8_line})
+    torch.cuda.empty_cache()
+    paged_rows["paged_decode_attention"]["launches"] += nf4_serve(
+        torch, prompts, os.path.join(nf4_dir, f"model_{TRAIN_UPDATES}"))
+    torch.cuda.empty_cache()
+    take_launches(flash_rows, nf4_pythia(torch, corpus, pythia_warm, {
+        f"int8_train@{PYTHIA}": int8_pythia_line, "pythia_train": pythia_line}), PYTHIA)
+    torch.cuda.empty_cache()
+    take_launches(flash_rows, memory_levers(torch, work, pythia_line), PYTHIA)
+    torch.cuda.empty_cache()
+    take_launches(rows, f32_nf4(torch, device, pythia_warm))
+    torch.cuda.empty_cache()
+    lap("nf4_train, nf4_serve, nf4@pythia_1b, chunked, remat, f32-nf4")
     for phase in (f32_train, f32_fused, f32_comparison):
         torch.cuda.empty_cache()
         phase(torch, device, PYTHIA)

@@ -6,16 +6,18 @@ frozen base, ``(out, in)``), ``lora_a`` ``(in, r)``, ``lora_b`` ``(r, out)``
 and optionally ``lora_s`` ``(1,)``: the factor layouts of the JAX package, so
 ``params_from_jax`` copies them unchanged.  An int8 base (``LoraSpec(quantize=
 "int8")``) is ``weight_q`` ``(out, in)`` int8 codes and ``weight_scale`` ``(1,
-out)`` f32 scales in place of ``weight``.  Trainability is ``requires_grad``:
-every parameter trains except the frozen bases and the int8 codes and scales
-(with ``lora_only`` only the factors), the JAX package's
-``trainable_param_mask``.
+out)`` f32 scales in place of ``weight``; an nf4 base (``quantize="nf4"``)
+the four nf4 leaves of ``ops/quant.py`` (``weight_codes``, ...) in their
+``(in, out)`` layout, and an odd-width projection under nf4 an int8 base.
+Trainability is ``requires_grad``: every parameter trains except the frozen
+bases and the quantized leaves (with ``lora_only`` only the factors), the
+JAX package's ``trainable_param_mask``.
 
 :func:`merge_and_reinit` folds ``A @ B * scale`` into each base in f32 with
 TF32 off (the JAX package merges at ``Precision.HIGHEST``: merge error would
-otherwise compound over every cycle), an int8 base by dequantize, add,
-requantize; then re-draws A from the kaiming-uniform bound and zeroes B (and
-``lora_s``), in place.
+otherwise compound over every cycle), a quantized base by dequantize, add,
+requantize, module by module by its leaves; then re-draws A from the
+kaiming-uniform bound and zeroes B (and ``lora_s``), in place.
 """
 
 from __future__ import annotations
@@ -28,11 +30,20 @@ from typing import Dict, Iterator, Optional, Tuple, Union
 import torch
 from torch import nn
 
-from relora_tpu_torch.ops.quant import dequantize_int8, quantize_int8
+from relora_tpu_torch.ops.quant import (
+    NF4_LEAVES,
+    dequantize_int8,
+    dequantize_nf4,
+    nf4_leaves_from_module,
+    quantize_int8,
+    quantize_nf4,
+)
 
 LORA_PREFIX = "lora_"
 #: the int8 base's leaves, never trainable (``frozen_param_mask``, ``:149-168``)
 INT8_LEAVES = ("weight_q", "weight_scale")
+#: every quantized base leaf, int8 and nf4: never trainable, never drawn
+QUANT_LEAVES = INT8_LEAVES + tuple(NF4_LEAVES)
 
 
 @dataclass(frozen=True)
@@ -41,15 +52,15 @@ class LoraSpec:
     the same fields, so a ``relora_config.json`` sidecar written by either
     package loads into either.
 
-    ``quantize="nf4"`` is accepted for parity and raises where a module
-    would use it: that path is not ported yet.
-    ``quantize="int8"`` stores each frozen base as int8 codes and scales;
+    ``quantize="int8"`` stores each frozen base as int8 codes and scales,
+    ``quantize="nf4"`` as nf4 codes and block scales (int8 where a
+    projection's ``in`` is odd), the block scales double-quantized under
+    ``use_double_quant``;
     ``fused=True`` routes each projection through the fused LoRA kernels,
     ``fused="auto"`` through the cost model's pick of an arm;
     ``num_slots > 0`` stacks the factors as multi-tenant adapter slots
-    served through the grouped kernel.  ``use_double_quant`` (nf4 only) is
-    carried for the sidecar; ``weights_static`` is the serving hint the
-    decode model sets."""
+    served through the grouped kernel.  ``weights_static`` is the serving
+    hint the decode model sets."""
 
     r: int
     alpha: float = 32.0
@@ -115,8 +126,8 @@ def lora_modules(model: nn.Module) -> Iterator[Tuple[str, nn.Module]]:
 def set_trainable(model: nn.Module, lora_only: bool = False) -> None:
     """``requires_grad`` per the JAX package's ``trainable_param_mask``:
     False for the base weight of every LoRA-wrapped linear and for every
-    int8 code and scale, True elsewhere; with ``lora_only`` only the LoRA
-    factors train."""
+    quantized leaf (int8 and nf4), True elsewhere; with ``lora_only`` only
+    the LoRA factors train."""
     frozen = {
         f"{name}.weight" if name else "weight"
         for name, module in lora_modules(model)
@@ -126,7 +137,7 @@ def set_trainable(model: nn.Module, lora_only: bool = False) -> None:
         if lora_only:
             trainable = is_lora_name(name)
         else:
-            trainable = name not in frozen and name.rsplit(".", 1)[-1] not in INT8_LEAVES
+            trainable = name not in frozen and name.rsplit(".", 1)[-1] not in QUANT_LEAVES
         p.requires_grad_(trainable)
 
 
@@ -185,18 +196,24 @@ def merge_and_reinit(
     """ReLoRA reset in place (``relora_tpu/core/relora.py:232-324``): for every
     LoRA-wrapped linear, ``W += (A @ B * scale)ᵀ`` computed in f32 and cast
     back to W's storage dtype (f32 master or ``base_dtype="bf16"``), or, for
-    an int8 base, dequantized, added to and requantized in f32 (``:287-294``);
-    then A re-drawn kaiming-uniform from ``generator``, B zeroed, and
-    ``lora_s`` zeroed under trainable scaling.  ``lora_only`` modules (no
-    base) are skipped, as in the reference."""
+    an int8 base, dequantized, added to and requantized in f32 (``:287-294``),
+    for an nf4 base the same with the module's double-quant layout kept
+    (``:295-310``; the ``bscale_q`` dtype decides it); then A re-drawn
+    kaiming-uniform from ``generator``, B zeroed, and ``lora_s`` zeroed under
+    trainable scaling.  ``lora_only`` modules (no base) are skipped, as in
+    the reference."""
     if a_init is not None:
         raise NotImplementedError(
             "merge_and_reinit(a_init=...) (reset_init='magnitude') is not ported yet: see ROADMAP"
         )
-    if spec.quantize == "nf4":
-        raise NotImplementedError("merging an nf4 base is not ported yet: see ROADMAP")
     for _, module in lora_modules(model):
-        if getattr(module, "weight_q", None) is not None:
+        if getattr(module, "weight_codes", None) is not None:
+            leaves = nf4_leaves_from_module(module)
+            merged = dequantize_nf4(leaves) + lora_delta(module, spec).t()  # (in, out)
+            requant = quantize_nf4(merged, double_quant=leaves["bscale_q"].dtype == torch.int8)
+            for param, leaf in NF4_LEAVES.items():
+                getattr(module, param).copy_(requant[leaf])
+        elif getattr(module, "weight_q", None) is not None:
             merged = dequantize_int8(module.weight_q, module.weight_scale) + lora_delta(module, spec)
             q, scale = quantize_int8(merged)
             module.weight_q.copy_(q)
@@ -219,8 +236,9 @@ def merged_params(params: Dict[str, torch.Tensor], spec: LoraSpec) -> Dict[str, 
     """Merge without reinit (``relora_tpu/core/relora.py:335-375``) over a
     flat state dict: every module with ``lora_a`` and ``lora_b`` gets
     ``weight + (A @ B * scale)ᵀ`` in f32 with TF32 off, cast back to the
-    weight's dtype; an int8 base (``weight_q``, ``weight_scale``) becomes a
-    dequantized f32 ``weight`` plus the delta.  LoRA leaves are dropped, so
+    weight's dtype; an int8 base (``weight_q``, ``weight_scale``) or an nf4
+    base (its four leaves) becomes a dequantized f32 ``weight`` plus the
+    delta, its quantized leaves dropped.  LoRA leaves are dropped, so
     the result loads into a model without LoRA.  A state dict without
     factors (an already merged export that kept its sidecar) passes
     through."""
@@ -242,6 +260,9 @@ def merged_params(params: Dict[str, torch.Tensor], spec: LoraSpec) -> Dict[str, 
             out.pop(prefix + "weight_q")
             scale = out.pop(prefix + "weight_scale")
             out[prefix + "weight"] = dequantize_int8(params[prefix + "weight_q"], scale) + delta.t()
+        elif prefix + "weight_codes" in params:
+            leaves = {leaf: out.pop(prefix + param) for param, leaf in NF4_LEAVES.items()}
+            out[prefix + "weight"] = dequantize_nf4(leaves).t() + delta.t()
         else:
             weight = params[prefix + "weight"]
             out[prefix + "weight"] = (weight.float() + delta.t()).to(weight.dtype)

@@ -19,6 +19,8 @@ from typing import Any, Dict, Mapping
 import numpy as np
 import torch
 
+from relora_tpu_torch.ops.quant import NF4_LEAVES, jax_nf4_name
+
 # unrolled JAX path -> port state-dict key (hf_compat's layer map)
 _LLAMA_LAYER_MAP = {
     "self_attn.q_proj.kernel": "self_attn.q_proj.weight",
@@ -108,7 +110,11 @@ def params_from_jax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     ``lora_only`` projection has no ``kernel`` and so no ``weight`` (nor
     bias).  An int8 projection's ``kernel_q`` ``(in, out)`` becomes
     ``weight_q`` ``(out, in)``, kept int8, and its ``kernel_scale`` ``(1,
-    out)`` becomes ``weight_scale`` as it is."""
+    out)`` becomes ``weight_scale`` as it is.  An nf4 projection's
+    ``kernel_codes``, ``kernel_bscale_q``, ``kernel_bscale_scale`` and
+    ``kernel_bscale_offset`` become ``weight_codes``, ... unchanged: both
+    packages store them ``(in, out)`` in the same dtypes (an odd-width
+    projection's int8 fallback goes as any int8 base)."""
     family = "neox" if "embed_in" in tree else "llama"
     if "layers" in tree:
         stacked = tree["layers"]
@@ -131,6 +137,11 @@ def params_from_jax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
                 out[f"layers.{i}.{module}.weight_scale"] = torch.tensor(
                     layer(i, f"{module}.kernel_scale")
                 )
+            elif leaf == "kernel" and layer_has(i, f"{module}.kernel_codes"):
+                for param in NF4_LEAVES:  # (in, out) leaves in both packages, dtypes kept
+                    out[f"layers.{i}.{module}.{param}"] = torch.tensor(
+                        layer(i, f"{module}.{jax_nf4_name(param)}", None)
+                    )
             elif layer_has(i, src) or not layer_has(i, f"{module}.lora_a"):
                 out[f"layers.{i}.{dst}"] = _weight(layer(i, src), src)
             if leaf == "kernel":

@@ -39,7 +39,7 @@ from torch.utils.checkpoint import checkpoint
 
 from relora_tpu_torch.config.model import ModelConfig
 from relora_tpu_torch.core.relora import LoraSpec
-from relora_tpu_torch.models.lora import LoRALinear
+from relora_tpu_torch.models.lora import LoRALinear, warn_nf4_fallbacks
 from relora_tpu_torch.ops.attention import cached_attention, dot_product_attention
 from relora_tpu_torch.ops.attention_dispatch import packed_attention, paged_attention
 
@@ -310,7 +310,11 @@ class CausalLM(nn.Module):
     attention arm for every layer: ``"auto"``, ``"naive"``, or ``"flash"``
     (training only).  ``lora`` wraps every attention and MLP projection;
     ``remat`` recomputes each decoder layer in the backward pass
-    (``torch.utils.checkpoint``, non-reentrant).
+    (``torch.utils.checkpoint``, non-reentrant), saving what
+    ``remat_policy`` saves (``models/params_util.remat_context_fn``: ``full``,
+    ``dots``, ``dots_narrow`` or ``dots_all``).  Every LoRA projection of an
+    odd width under nf4 warns once, per module name and width, that it
+    stores int8.
 
     A family names its modules (``embed_name``, ``norm_name``,
     ``head_name``: the HF parameter names), its ``layer_class``, the dropout
@@ -333,9 +337,12 @@ class CausalLM(nn.Module):
         lora: Optional[LoraSpec] = None,
         param_dtype=None,
         remat: bool = False,
+        remat_policy: str = "full",
         logits_dtype=torch.float32,
     ):
         super().__init__()
+        from relora_tpu_torch.models.params_util import remat_context_fn
+
         if config.family != self.family:
             raise ValueError(
                 f"{type(self).__name__} builds the {self.family!r} family, got "
@@ -351,6 +358,7 @@ class CausalLM(nn.Module):
         self.attention_arm = attention_arm
         self.lora = lora
         self.remat = remat
+        self.remat_context = remat_context_fn(remat_policy, config.hidden_size)
         self.logits_dtype = logits_dtype
         setattr(self, self.embed_name,
                 nn.Embedding(config.vocab_size, config.hidden_size, dtype=param_dtype))
@@ -362,6 +370,7 @@ class CausalLM(nn.Module):
         setattr(self, self.head_name, LoRALinear(
             config.hidden_size, config.vocab_size, dtype=dtype, param_dtype=param_dtype
         ))
+        warn_nf4_fallbacks(self)
 
     def final_norm(self, config: ModelConfig, dtype) -> nn.Module:
         raise NotImplementedError
@@ -380,9 +389,13 @@ class CausalLM(nn.Module):
         cache: Optional[List[LayerPool]] = None,
         dropout_seed: Optional[int] = None,
         adapter_idx: Optional[torch.Tensor] = None,
+        return_hidden: bool = False,
     ) -> torch.Tensor:
-        """Logits ``(B, S, vocab)``.  Without ``pool`` or ``cache`` this is
-        the training forward over ``input_ids`` ``(B, S)`` at positions
+        """Logits ``(B, S, vocab)``, or with ``return_hidden`` the final
+        normed hidden states ``(B, S, hidden)`` before the head, at the
+        compute dtype (the chunked loss streams the head itself).  Without
+        ``pool`` or ``cache`` this is the training forward over
+        ``input_ids`` ``(B, S)`` at positions
         ``0..S-1`` (causal attention; ``dropout_seed`` turns LoRA dropout on,
         layer ``i`` drawing from seeds ``dropout_seed + seeds_per_layer*i +
         j``).  With ``cache`` (one ``{"k", "v"}`` dict per layer, ``(B, C,
@@ -419,8 +432,11 @@ class CausalLM(nn.Module):
             args = (x, cos, sin, positions, block_tables, layer_pool, row_map,
                     self.attention_arm, _seed(dropout_seed, self.seeds_per_layer * i),
                     adapter_idx)
-            x = checkpoint(layer, *args, use_reentrant=False) if remat else layer(*args)
+            x = checkpoint(layer, *args, use_reentrant=False,
+                           context_fn=self.remat_context) if remat else layer(*args)
         x = getattr(self, self.norm_name)(x)
+        if return_hidden:
+            return x
         return getattr(self, self.head_name)(x).to(self.logits_dtype)
 
 

@@ -53,10 +53,27 @@ through ``ops/lora_dispatch.lora_matmul_grouped`` (kernel 5 on CUDA); a
 per-batch index ``(B,)`` repeats across each batch row's tokens, and no index
 routes every row to slot 0.  The serving engine writes tenants' factors into
 the slots in place (``serve/engine.py``); nothing trains them.
+
+``LoraSpec(quantize="nf4")`` stores the frozen base as the nf4 leaves of
+``ops/quant.py`` in their ``(in, out)`` layout: ``weight_codes``,
+``weight_bscale_q`` (int8 under ``use_double_quant``, else f32),
+``weight_bscale_scale`` and ``weight_bscale_offset``, parameters that never
+train (the JAX module's ``kernel_codes``, ... ``:331-384``).  A fresh init is
+W = 0: codes ``0x77`` (codebook entry 7 is 0.0), ``bscale_q`` zeros under
+double quant and ones without, scales ones, offsets zeros.  The forward is
+``x @ dequantize_nf4(...)`` in the compute dtype plus the bias plus the LoRA
+branch, whatever ``fused`` says: the JAX module dispatches only a dense or
+int8 base (``:113-126``), nf4 has no kernel.  The product is an autograd
+Function that saves the leaves, not the dequantized weight, and dequantizes
+again for ``dx``, so no layer's weight stays alive until the backward.  An
+odd ``in_features`` cannot pack two codes a byte: that projection stores an
+int8 base and takes int8's routes (``:92-111``), and the model warns once per
+module name and width (:func:`warn_nf4_fallbacks`).
 """
 
 from __future__ import annotations
 
+import logging
 from typing import Optional
 
 import torch
@@ -64,7 +81,46 @@ import torch.nn.functional as F
 from torch import nn
 
 from relora_tpu_torch.core.relora import LoraSpec
+from relora_tpu_torch.ops.quant import NF4_LEAVES, dequantize_nf4, nf4_block_for, nf4_leaves_from_module
 from relora_tpu_torch.ops.quant_matmul import dequant_matmul
+
+logger = logging.getLogger(__name__)
+
+#: (module name, width) pairs already warned about the nf4 -> int8 fallback
+_NF4_FALLBACK_WARNED: set = set()
+
+
+def warn_nf4_fallbacks(model: nn.Module) -> None:
+    """Warn once per (module name, width) for every projection of ``model``
+    that asked for nf4 and stores int8 (an odd ``in_features``), as the JAX
+    module warns once per module name and width."""
+    for path, module in model.named_modules():
+        if not getattr(module, "nf4_fallback", False):
+            continue
+        key = (path.rsplit(".", 1)[-1], module.in_features)
+        if key not in _NF4_FALLBACK_WARNED:
+            _NF4_FALLBACK_WARNED.add(key)
+            logger.warning(
+                "nf4 requested but in_features=%d is odd for module %r; storing this base "
+                "as int8 (memory_plan accounts for it)", key[1], key[0],
+            )
+
+
+class _NF4Matmul(torch.autograd.Function):
+    """``x @ dequantize_nf4(leaves)`` at ``x``'s dtype, the leaves frozen:
+    the forward saves the leaves and the backward dequantizes again for
+    ``dx``, so the dequantized weight lives only inside each call."""
+
+    @staticmethod
+    def forward(ctx, x, codes, bscale_q, bscale_scale, bscale_offset):
+        leaves = (codes, bscale_q, bscale_scale, bscale_offset)
+        ctx.save_for_backward(*leaves)
+        return torch.matmul(x, dequantize_nf4(dict(zip(NF4_LEAVES.values(), leaves)), x.dtype))
+
+    @staticmethod
+    def backward(ctx, grad):
+        w = dequantize_nf4(dict(zip(NF4_LEAVES.values(), ctx.saved_tensors)), grad.dtype)
+        return torch.matmul(grad, w.t()), None, None, None, None
 
 
 def dropout_mask(shape, p: float, seed: int, device) -> torch.Tensor:
@@ -96,11 +152,12 @@ class LoRALinear(nn.Module):
         param_dtype = param_dtype or dtype
         self.lora = lora
         self.dtype = dtype
-        if lora is not None:
-            if lora.quantize not in (None, "int8"):
-                raise NotImplementedError(
-                    f"a {lora.quantize} frozen base is not ported yet: see ROADMAP"
-                )
+        self.in_features = in_features
+        #: the base's storage: the spec's quantize, int8 for an odd-width nf4
+        self.quantize = lora.quantize if lora is not None else None
+        self.nf4_fallback = self.quantize == "nf4" and in_features % 2 == 1
+        if self.nf4_fallback:
+            self.quantize = "int8"
         if bias and not (lora is not None and lora.lora_only and not lora.num_slots):
             self.bias = nn.Parameter(torch.zeros(out_features, dtype=param_dtype))
         else:
@@ -115,7 +172,19 @@ class LoRALinear(nn.Module):
             return
         if lora is not None and lora.lora_only:
             self.register_parameter("weight", None)
-        elif lora is not None and lora.quantize == "int8":
+        elif self.quantize == "nf4":
+            self.register_parameter("weight", None)
+            block = nf4_block_for(in_features)
+            frozen = lambda t: nn.Parameter(t, requires_grad=False)
+            self.weight_codes = frozen(
+                torch.full((in_features // 2, out_features), 0x77, dtype=torch.uint8))
+            self.weight_bscale_q = frozen(
+                torch.zeros(in_features // block, out_features, dtype=torch.int8)
+                if lora.use_double_quant
+                else torch.ones(in_features // block, out_features, dtype=torch.float32))
+            self.weight_bscale_scale = frozen(torch.ones(1, out_features, dtype=torch.float32))
+            self.weight_bscale_offset = frozen(torch.zeros(1, out_features, dtype=torch.float32))
+        elif self.quantize == "int8":
             self.register_parameter("weight", None)
             self.weight_q = nn.Parameter(
                 torch.zeros(out_features, in_features, dtype=torch.int8), requires_grad=False
@@ -144,10 +213,13 @@ class LoRALinear(nn.Module):
         if spec is not None and spec.lora_only:
             return self._lora_branch(x, dropout_seed)
         dropout_active = spec is not None and spec.dropout > 0.0 and dropout_seed is not None
-        if spec is not None and spec.fused in (True, "auto") and not dropout_active:
+        if (spec is not None and spec.fused in (True, "auto") and self.quantize != "nf4"
+                and not dropout_active):
             return self._add_bias(self._dispatched(x))
-        if spec is not None and spec.quantize == "int8":
+        if self.quantize == "int8":
             y = dequant_matmul(x.to(self.dtype), self.weight_q.t(), self.weight_scale)
+        elif self.quantize == "nf4":
+            y = _NF4Matmul.apply(x.to(self.dtype), *nf4_leaves_from_module(self).values())
         else:
             y = F.linear(x.to(self.dtype), self.weight.to(self.dtype))
         y = self._add_bias(y)
@@ -168,7 +240,7 @@ class LoRALinear(nn.Module):
 
         spec = self.lora
         scale = torch.tanh(self.lora_s.to(self.dtype)) if spec.trainable_scaling else spec.scale
-        if spec.quantize == "int8":
+        if self.quantize == "int8":
             base = (self.weight_q.t(), self.weight_scale)
         else:
             base = self.weight.detach().to(self.dtype).t()

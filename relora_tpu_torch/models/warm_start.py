@@ -14,8 +14,11 @@ copies by name:
   its name, cast to its storage dtype: weights, biases and norm parameters
   alike; an int8 base (``weight_q``, ``weight_scale``) takes the f32 source
   ``weight`` quantized on the fly
-  (:func:`relora_tpu_torch.ops.quant.quantize_int8`), and only a ``weight``
-  is ever quantized;
+  (:func:`relora_tpu_torch.ops.quant.quantize_int8`), an nf4 base (its four
+  leaves) the transpose of that ``weight`` quantized by
+  :func:`~relora_tpu_torch.ops.quant.quantize_nf4` in the target's
+  double-quant layout (``relora_tpu/models/hf_compat.py:202-215``), and
+  only a ``weight`` is ever quantized;
 - ``lora_*`` leaves are skipped on both sides: the model's keep their fresh
   init, the source's are dropped with a warning;
 - a base parameter missing from the source raises ``KeyError`` and a shape
@@ -25,8 +28,8 @@ copies by name:
 A port checkpoint directory (``params.pt``, ``train/checkpoint.py``) warm
 starts by the same graft, verified against its manifest first, as the JAX
 trainer warm-starts from a checkpoint's ``state/`` (``:642-663``): its names
-are the model's, and an int8 source's codes and scales go to an int8 target
-as they are.  A directory holding ``state/`` (the JAX package's own
+are the model's, and an int8 or nf4 source's leaves go to a target of the
+same kind as they are.  A directory holding ``state/`` (the JAX package's own
 checkpoint) raises ``NotImplementedError``: the port reads only its own
 format.  The file is read once, onto the CPU, and each tensor moves to its
 parameter's device.
@@ -42,8 +45,8 @@ from typing import Dict, Mapping, Optional
 import torch
 from torch import nn
 
-from relora_tpu_torch.core.relora import INT8_LEAVES, is_lora_name
-from relora_tpu_torch.ops.quant import quantize_int8
+from relora_tpu_torch.core.relora import INT8_LEAVES, QUANT_LEAVES, is_lora_name
+from relora_tpu_torch.ops.quant import NF4_LEAVES, quantize_int8, quantize_nf4
 from relora_tpu_torch.train import checkpoint as ckpt
 
 logger = logging.getLogger(__name__)
@@ -51,6 +54,8 @@ logger = logging.getLogger(__name__)
 STATE_SUBDIR = "state"  # the JAX package's checkpoint layout
 TRAINING_STATE_FILE = "training_state.json"
 WEIGHTS_FILE = "pytorch_model.bin"
+#: a quantized base's first leaf -> all its leaves, written together
+QUANT_HEADS = {"weight_q": INT8_LEAVES, "weight_codes": tuple(NF4_LEAVES)}
 
 
 #: HF's model prefixes: Llama's ``model.``, GPT-NeoX's ``gpt_neox.``
@@ -65,6 +70,18 @@ def strip_hf_prefix(key: str) -> str:
     return key
 
 
+def _quantized_leaves(module: str, head: str, value: torch.Tensor, params) -> Dict[str, torch.Tensor]:
+    """The quantized leaves of ``module`` (an int8 base when ``head`` is
+    ``weight_q``, else nf4) from the f32 ``(out, in)`` source ``value``; nf4
+    quantizes the transpose in the layout of the target's ``bscale_q``."""
+    if head == "weight_q":
+        q, scale = quantize_int8(value)
+        return {f"{module}weight_q": q, f"{module}weight_scale": scale}
+    double_quant = params[f"{module}weight_bscale_q"].dtype == torch.int8
+    leaves = quantize_nf4(value.t(), double_quant=double_quant)
+    return {f"{module}{param}": leaves[leaf] for param, leaf in NF4_LEAVES.items()}
+
+
 def graft_base_weights(model: nn.Module, state_dict: Mapping[str, torch.Tensor]) -> nn.Module:
     """Copy the base weights of an HF-named ``state_dict`` into ``model`` in
     place; returns ``model``."""
@@ -74,29 +91,32 @@ def graft_base_weights(model: nn.Module, state_dict: Mapping[str, torch.Tensor])
     with torch.no_grad():
         for name, p in params.items():
             leaf = name.rsplit(".", 1)[-1]
-            if is_lora_name(name) or leaf == "weight_scale":
-                continue  # weight_scale is written with its weight_q
-            key = name[: -len("_q")] if leaf == "weight_q" else name
-            if leaf in INT8_LEAVES and key not in src and name in src:
-                # an int8 source (a port checkpoint): codes and scales as they are
-                for part in (name, f"{name[: -len('_q')]}_scale"):
-                    if src[part].shape != params[part].shape:
+            if is_lora_name(name) or (leaf in QUANT_LEAVES and leaf not in QUANT_HEADS):
+                continue  # a quantized base's other leaves are written with its head
+            if leaf in QUANT_HEADS:
+                module = name[: -len(leaf)]
+                key = f"{module}weight"
+                if key not in src and name in src:
+                    # a quantized source (a port checkpoint): its leaves as they are
+                    new = {f"{module}{part}": src[f"{module}{part}"] for part in QUANT_HEADS[leaf]}
+                else:
+                    if key not in src:
+                        raise KeyError(f"warm start: the source has no {key!r} for the model's {name!r}")
+                    value = src[key].to(device=p.device, dtype=torch.float32)
+                    if value.ndim != 2 or (leaf == "weight_codes" and value.shape[1] % 2):
+                        raise ValueError(f"shape mismatch for {key}: {tuple(value.shape)}")
+                    new = _quantized_leaves(module, leaf, value, params)
+                for part, value in new.items():
+                    if value.shape != params[part].shape:
                         raise ValueError(f"shape mismatch for {part}: {tuple(params[part].shape)} "
-                                         f"vs {tuple(src[part].shape)}")
-                    params[part].copy_(src[part].to(params[part].device))
+                                         f"vs {tuple(value.shape)}")
+                    params[part].copy_(value.to(params[part].device))
                 continue
-            if key not in src:
-                raise KeyError(f"warm start: the source has no {key!r} for the model's {name!r}")
-            value = src[key]
-            if leaf in INT8_LEAVES:
-                q, scale = quantize_int8(value.to(device=p.device, dtype=torch.float32))
-                if q.shape != p.shape:
-                    raise ValueError(f"shape mismatch for {key}: {tuple(p.shape)} vs {tuple(q.shape)}")
-                p.copy_(q)
-                params[f"{name[: -len('_q')]}_scale"].copy_(scale)
-                continue
+            if name not in src:
+                raise KeyError(f"warm start: the source has no {name!r}")
+            value = src[name]
             if value.shape != p.shape:
-                raise ValueError(f"shape mismatch for {key}: {tuple(p.shape)} vs {tuple(value.shape)}")
+                raise ValueError(f"shape mismatch for {name}: {tuple(p.shape)} vs {tuple(value.shape)}")
             p.copy_(value.to(device=p.device, dtype=p.dtype))
     if dropped:
         logger.warning(

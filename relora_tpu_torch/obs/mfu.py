@@ -36,10 +36,17 @@ What one update of ``grad_accum`` microbatches of ``(B, S)`` tokens does:
   ``S²`` pairs: two products forward, four backward (autograd's two grads
   of each);
 - ``remat`` recomputes each decoder layer's forward in the backward pass:
-  the layers' forward products once more (not the LM head's).  The
-  non-reentrant checkpoint stops recomputing after the last tensor the
-  backward saved, which can spare a layer's last product: the count is
-  high by at most that (0.3% at the tests' tiny widths).
+  under ``remat_policy="full"`` the layers' forward products once more (not
+  the LM head's).  The non-reentrant checkpoint stops recomputing after the
+  last tensor the backward saved, which can spare a layer's last product:
+  the count is high by at most that (0.3% at the tests' tiny widths).  The
+  other policies save matmul outputs (``models/params_util.remat_context_fn``)
+  and recompute only the rest: attention's products under ``dots``, those and
+  the projections wider than the hidden size under ``dots_narrow``, and under
+  ``dots_all`` attention on the flash arm alone (a kernel, never saved);
+- ``loss_impl="chunked"`` recomputes the head's logits in the backward: one
+  head product more;
+- an nf4 base counts as a dense one: its dequantize is elementwise work.
 
 The count is always available, so the JAX trainer's ``RELORA_TPU_LIVE_MFU=0``
 fallback to ``6 N D`` (for when XLA offers no cost model) has no
@@ -110,6 +117,8 @@ def step_flops(
     lora_r: Optional[int] = None,
     lora_only: bool = False,
     remat: bool = False,
+    remat_policy: str = "full",
+    loss_impl: str = "dense",
     attention: str = "flash",
 ) -> float:
     """Matrix FLOPs of one update (module docstring): ``grad_accum``
@@ -119,16 +128,19 @@ def step_flops(
     if attention not in ("flash", "naive"):
         raise ValueError(f"attention must be 'flash' or 'naive', got {attention!r}")
     T = microbatch * seq
-    layer_fwd = layer_bwd = 0
+    layer_fwd = layer_bwd = recompute = 0
     for K, N in _projection_shapes(model_cfg):
         base = 0 if lora_only and lora_r else 2 * T * K * N
+        wide = N > model_cfg.hidden_size and remat_policy == "dots_narrow"
         if lora_r:
             factors = 2 * T * lora_r * (K + N)
             layer_fwd += base + factors
             layer_bwd += base + 2 * factors
+            recompute += (base + 2 * T * lora_r * N) if wide else 0
         else:
             layer_fwd += base
             layer_bwd += 2 * base
+            recompute += base if wide else 0
     heads, H = model_cfg.num_attention_heads, model_cfg.head_dim
     if attention == "flash":
         pairs, fwd_products, bwd_products = seq * (seq + 1) // 2, 2, 7
@@ -137,7 +149,12 @@ def step_flops(
     per_product = 2 * microbatch * heads * pairs * H
     layer_fwd += fwd_products * per_product
     layer_bwd += bwd_products * per_product
+    if remat_policy == "full":
+        recompute = layer_fwd
+    elif attention == "flash" or remat_policy != "dots_all":
+        recompute += fwd_products * per_product
     layers = model_cfg.num_hidden_layers
     head = 2 * T * model_cfg.hidden_size * model_cfg.vocab_size
-    micro = layers * (layer_fwd * (2 if remat else 1) + layer_bwd) + 3 * head
+    head_products = 4 if loss_impl == "chunked" else 3
+    micro = layers * (layer_fwd + layer_bwd + (recompute if remat else 0)) + head_products * head
     return float(grad_accum * micro)

@@ -29,9 +29,12 @@ need it:
 
 Weights come from ``--random-init`` or from ``--checkpoint DIR``, a
 checkpoint directory of ``relora_tpu_torch.train.checkpoint``: merged by
-default, its factors unmerged with ``--no-merge`` (dense or int8 base; every
-projection then runs the cost model's pick of the fused, ordered or merged
-arm, as the JAX package serves a quantized base it cannot merge into):
+default (an int8 or nf4 base dequantized into an f32 weight plus the
+delta), its factors unmerged with ``--no-merge`` (a dense or int8 base's
+projections then run the cost model's pick of the fused, ordered or merged
+arm, as the JAX package serves a quantized base it cannot merge into; an
+nf4 base's run its plain dequantize-matmul plus the branch, nf4 having no
+kernel):
 
     python -m relora_tpu_torch.serve_cli --model_config llama_250m \
         --checkpoint CKPT --no-merge --paged --dtype bf16 --max-batch 8 \

@@ -13,6 +13,12 @@ gate reads one host value per update: the one place the step waits on the
 device (with ``lora_scaling``'s read under trainable scaling), timed into
 ``TrainState.device_wait_s`` for the trainer's ``mfu_gap`` waterfall.  The
 JAX step gates on the device (``jnp.where``) and never waits.
+
+``loss_impl="chunked"`` takes the model's final normed hidden states
+(``return_hidden=True``) and streams the LM head over ``vocab_chunk`` rows at
+a time (``train/losses.chunked_softmax_ce``), never forming the ``(B, S,
+V)`` logits, in the train step and in :func:`eval_step` alike
+(``relora_tpu/train/step.py:54-104``, ``:252-300``).
 """
 
 from __future__ import annotations
@@ -26,7 +32,7 @@ import torch
 from torch import nn
 
 from relora_tpu_torch.core.optim import clip_by_global_norm, global_norm, set_lr
-from relora_tpu_torch.train.losses import causal_lm_loss
+from relora_tpu_torch.train.losses import causal_lm_loss, chunked_softmax_ce, shifted_targets
 
 
 @dataclass
@@ -46,6 +52,7 @@ def make_train_step(
     clip_grad_norm: float = 1.0,
     schedule: Optional[Callable[[int], float]] = None,
     loss_impl: str = "dense",
+    vocab_chunk: int = 8192,
     log_per_layer_scaling: bool = False,
 ) -> Callable[[TrainState, torch.Tensor, Optional[Sequence[int]]], Dict[str, float]]:
     """Build ``train_step(state, batch, dropout_seeds) -> metrics``.
@@ -57,10 +64,8 @@ def make_train_step(
     ``n_skipped``, ``lr`` (the rate of this update: the schedule at the count
     of previously applied updates), and ``lora_scaling`` under trainable
     scaling."""
-    if loss_impl != "dense":
-        raise NotImplementedError(
-            f"loss_impl={loss_impl!r} (streamed vocab CE) is not ported yet: see ROADMAP"
-        )
+    if loss_impl not in ("dense", "chunked"):
+        raise ValueError(f"loss_impl must be 'dense' or 'chunked', got {loss_impl!r}")
     params = [p for p in model.parameters() if p.requires_grad]
     scales = [(n, p) for n, p in model.named_parameters() if n.endswith("lora_s")]
 
@@ -72,7 +77,7 @@ def make_train_step(
         nan_count = torch.zeros((), device=batch.device)
         for i in range(ga):
             seed = None if dropout_seeds is None else dropout_seeds[i]
-            loss, _ = causal_lm_loss(model(batch[i], dropout_seed=seed), batch[i])
+            loss, _ = lm_loss(model, batch[i], seed, loss_impl, vocab_chunk)
             loss.backward()
             loss_sum += loss.detach()
             nan_count += torch.isnan(loss.detach())
@@ -124,9 +129,22 @@ def make_train_step(
     return train_step
 
 
+def lm_loss(model: nn.Module, tokens: torch.Tensor, dropout_seed: Optional[int] = None,
+            loss_impl: str = "dense", vocab_chunk: int = 8192):
+    """``(mean loss, n_tokens)`` of ``tokens`` ``(micro, seq)``: the dense
+    loss over the model's logits, or the chunked one over its hidden states
+    and its head."""
+    if loss_impl == "chunked":
+        hidden = model(tokens, dropout_seed=dropout_seed, return_hidden=True)
+        head = getattr(model, model.head_name).weight
+        return chunked_softmax_ce(hidden, head, shifted_targets(tokens), vocab_chunk)
+    return causal_lm_loss(model(tokens, dropout_seed=dropout_seed), tokens)
+
+
 @torch.no_grad()
-def eval_step(model: nn.Module, tokens: torch.Tensor):
+def eval_step(model: nn.Module, tokens: torch.Tensor, loss_impl: str = "dense",
+              vocab_chunk: int = 8192):
     """``(loss_sum, n_tokens)`` on the device for one ``(micro, seq)`` batch,
-    deterministic (no dropout)."""
-    loss, n = causal_lm_loss(model(tokens), tokens)
+    deterministic (no dropout), by the train step's ``loss_impl``."""
+    loss, n = lm_loss(model, tokens, None, loss_impl, vocab_chunk)
     return loss * n, n

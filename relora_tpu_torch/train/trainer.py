@@ -47,7 +47,14 @@ a port checkpoint directory, into the freshly initialised model
 (``relora_tpu/train/trainer.py:284-319``).  ``--quantize int8`` stores every
 LoRA projection's frozen base as int8 codes and scales: kernel 8 in each
 unfused projection, the int8 fused kernels under ``--lora_fused true``, and
-a dequantize-add-requantize merge.
+a dequantize-add-requantize merge.  ``--quantize nf4`` stores it as nf4
+codes and block scales (double-quantized unless ``--use_double_quant
+false``): a plain dequantize-matmul under every ``--lora_fused``, and the
+same merge; an odd-width projection stores int8 and takes int8's routes.
+``--loss_impl chunked`` streams the LM head over ``--vocab_chunk`` rows in
+the train and eval steps (``train/step.py``); ``--remat true`` with
+``--remat_policy dots | dots_narrow | dots_all`` saves the matmul outputs the
+policy names (``models/params_util.remat_context_fn``).
 
 ``--save_dir`` writes ``model_{step}`` checkpoints (``train/checkpoint.py``:
 params, AdamW state, counters) every ``--save_every`` updates, at the end,
@@ -64,9 +71,9 @@ spike back to the last checkpoint before it and skips its batches
 (``:1280-1330``).
 
 Options the port does not run yet raise ``NotImplementedError`` when set: a
-warm start from a JAX checkpoint's ``state/``, pruning, magnitude re-init,
-``--quantize nf4``, chunked loss, ``wandb`` and its ``watch`` histograms,
-a custom PRNG, and parallelism beyond one device.
+warm start from a JAX checkpoint's ``state/``, HF datasets, pruning,
+magnitude re-init, ``wandb`` and its ``watch`` histograms, a custom PRNG,
+and parallelism beyond one device.
 ``--lora_fused true`` runs every LoRA projection through the fused kernels
 wherever dropout is not active, ``--lora_fused auto`` through the cost
 model's pick of the fused, ordered or merged arm.
@@ -165,12 +172,9 @@ def refuse_unported(cfg: TrainingConfig) -> None:
         "dataset_path (HF datasets)": cfg.dataset_path is not None,
         "prune_sparsity / prune_nm (pruning)": cfg.prune_enabled,
         "reset_init='magnitude'": cfg.reset_init != "random",
-        "quantize='nf4'": cfg.quantize == "nf4",
-        "loss_impl='chunked'": cfg.loss_impl != "dense",
         "wandb": cfg.wandb,
         "wandb_watch": cfg.wandb_watch,
         "prng_impl": bool(cfg.prng_impl),
-        "remat_policy other than 'full'": cfg.remat_policy != "full",
         "fsdp_size / tp_size / sp_size / dp_size > 1 (parallelism)": max(
             cfg.fsdp_size, cfg.tp_size, cfg.sp_size, cfg.dp_size or 1
         ) > 1,
@@ -199,6 +203,7 @@ def build_model(
             lora=lora,
             param_dtype=torch.float32,
             remat=cfg.remat,
+            remat_policy=cfg.remat_policy,
             logits_dtype=torch.bfloat16 if cfg.bf16_logits else torch.float32,
         )
 
@@ -232,6 +237,7 @@ class Trainer:
                 trainable_scaling=cfg.train_scaling,
                 quantize=cfg.quantize,
                 base_dtype=cfg.base_dtype,
+                use_double_quant=cfg.use_double_quant,
                 lora_only=not need_linear_weight,
                 fused="auto" if cfg.lora_fused == "auto" else cfg.lora_fused == "true",
             )
@@ -324,6 +330,7 @@ class Trainer:
             clip_grad_norm=cfg.clip_grad_norm,
             schedule=lambda s: self.schedule(s - start),
             loss_impl=cfg.loss_impl,
+            vocab_chunk=cfg.vocab_chunk,
             log_per_layer_scaling=cfg.train_scaling,
         )
         self.records: list = []
@@ -508,6 +515,8 @@ class Trainer:
             lora_r=spec.r if spec is not None else None,
             lora_only=spec is not None and spec.lora_only,
             remat=self.cfg.remat,
+            remat_policy=self.cfg.remat_policy,
+            loss_impl=self.cfg.loss_impl,
             attention="flash" if self.device.type == "cuda" else "naive",
         )
 
@@ -815,7 +824,8 @@ class Trainer:
                     raise RuntimeError("NaN in evaluation loss")
 
         for arr in eval_iter:
-            pending.append(eval_step(self.model, self._device_batch(arr)))
+            pending.append(eval_step(self.model, self._device_batch(arr), self.cfg.loss_impl,
+                                     self.cfg.vocab_chunk))
             self.eval_batches += 1
             shape = np.shape(arr)
             expected += shape[0] * max(shape[-1] - 1, 1)

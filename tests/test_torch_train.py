@@ -211,8 +211,8 @@ def test_sigterm_stops_at_the_update_boundary(tmp_path):
 
 
 @pytest.mark.parametrize("flag,value", [
-    ("warmed_up_model", "state/"), ("prune_sparsity", 0.5), ("quantize", "nf4"),
-    ("loss_impl", "chunked"), ("wandb", True), ("tp_size", 2),
+    ("warmed_up_model", "state/"), ("prune_sparsity", 0.5), ("reset_init", "magnitude"),
+    ("prng_impl", "rbg"), ("wandb", True), ("tp_size", 2),
 ])
 def test_unported_options_raise(tmp_path, flag, value):
     """Each option raises; a warm start from a JAX checkpoint directory (one
