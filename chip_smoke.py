@@ -57,14 +57,16 @@ Phases, in order; any failure raises and the script exits non-zero:
                32-512 tokens, 64 new tokens each) for llama_250m at full width,
                ``--random-init --dtype bf16 --max-batch 8 --paged``: at
                ``--kv-dtype bf16``, with ``--packed``, and at ``--kv-dtype int8``,
-               then at bf16 over the repeat traffic (16 prompts, each a
+               the first 8 with ``--packed --kv-dtype int8`` (fleet_disagg's
+               packed leg's yardstick), then at bf16 over the repeat traffic (16 prompts, each a
                seeded 8-32-token phrase repeated to 32-512 tokens).
                The launch counters are zeroed before each drain and read after;
                the drain fails if its kernel never launched.
    spec      — the same through ``--spec-k 4``: ``--spec ngram`` with a bf16
-               pool, ``--packed``, ``--kv-dtype int8`` and over the repeat
-               traffic, and ``--spec model`` with a base and a draft (the
-               base plus seeded noise) written by ``train/checkpoint.py``.
+               pool, ``--packed``, ``--kv-dtype int8`` (the first 8 prompts)
+               and over the repeat traffic, and ``--spec model`` with a base
+               and a draft (the base plus seeded noise) written by
+               ``train/checkpoint.py`` (the first 8 prompts).
                Each prints tokens/s beside its plain drain's, drafted and
                accepted tokens, verify rounds and launches, and fails unless
                a verify round ran, kernel 1 (kernel 2 when packed) launched
@@ -75,8 +77,8 @@ Phases, in order; any failure raises and the script exits non-zero:
                flags: the 16 prompts from 16 concurrent raw-socket SSE clients,
                sequential (``/healthz`` ``warming`` while the warmup is held,
                then ``ok``; tokens identical to the in-process drain; kernel 1
-               launched; ``/metrics`` parsed for the scheduler's gauges; a
-               short traced burst for the idle share) and ``--packed``
+               launched; ``/metrics`` parsed for the scheduler's gauges; its
+               first 8 clients again, traced, for the idle share) and ``--packed``
                (kernel 2; divergence from the in-process drain reported);
                ``--max-queue 8`` under 40 requests at once (429s with a
                Retry-After, every admitted request done, a ``deadline_s``
@@ -84,12 +86,48 @@ Phases, in order; any failure raises and the script exits non-zero:
                client's slot freed); the real ``python -m
                relora_tpu_torch.serve_cli --port 0 --port-file F`` process
                (``/healthz`` ok, 10 streams, SIGTERM mid-stream: a new
-               request 503, every stream done, exit 0); f32 sequential and
+               request 503, every stream done, exit 0; it starts beside the
+               fleet phases' six replicas, so its ready seconds carry their
+               start-up); f32 sequential and
                packed server drains against the in-process f32 drains
                (divergence only at top-2 gaps <= 1e-3).  One line per drain:
                TTFT p50/p99, TPOT p50, tokens/s beside the in-process
                drain's, the 429 share, warmup seconds.  Tenant traffic
                through the server (kernel 5) runs after phase 16.
+   fleet_disagg — six ``serve_cli --port 0`` replica processes on the
+               card at llama_250m's full width, int8 pool: ``--role
+               decode``, ``--role prefill`` (``serve_migrate`` armed once)
+               and ``--role prefill --packed`` naming it in a ``peers.json``,
+               a watcher, and a tenant pair (``--no-merge --adapter-dir``,
+               ``--role prefill`` into ``--role decode``).  Prompt 0 through
+               the prefill replica fails open (decoded at home,
+               token-identical); then the packed replica's drain of 8
+               prompts (kernel 2), held to finishing, its streams counted
+               against the in-process ``--packed --kv-dtype int8`` drain and
+               that drain's against the sequential one; then one tenant
+               request through the tenant pair twice, at home
+               (``serve_migrate``) and migrated (kernel 5 on the receiver),
+               token-identical; last the 16 prompts, each prefilled on the
+               prefill replica (kernel 1's pool writes) and decoded on the
+               decode replica (kernel 1) from its migrated page run, inside
+               both replicas' ``/admin/profile`` windows.  The windows'
+               close is sent without waiting: while the two replicas read
+               their traces, the phases that time nothing run (f32,
+               f32-spec, f32-train, f32-fused, f32-adapters,
+               f32_contiguous, f32-pythia, f32-int8, f32-nf4; each described
+               in its place below).  Then the drain's checks: token-identical to
+               the in-process int8 drain, the donor's pages and frame bytes
+               equal to the reckoning, 16 inserts, each replica's device
+               idle share over the drain.
+   fleet_reload — a ``RollingUpdater`` onto a seeded llama_250m checkpoint
+               over {decode, prefill} (then token-identical to an in-process
+               drain of it); an update with ``deploy_reload`` armed on the
+               packed replica rolls all three back while requests in flight
+               finish; ``python -m relora_tpu_torch.serve.deploy publish``
+               swaps the ``--watch-checkpoints`` replica, and a publish with
+               ``deploy_corrupt_manifest`` armed does not.  The replicas'
+               kernel 1 and 2 launches after their warmups (their
+               ``metrics.jsonl``) join the rows.
 5. f32       — one ``decode_paged``, one ``step_paged`` and one
                ``verify_paged`` step (S = 5 over W+1 tables, a pad row) at
                f32, the kernel arm against the plain arm, compared on
@@ -227,13 +265,15 @@ Phases, in order; any failure raises and the script exits non-zero:
                ``@pythia_1b`` (M = 8 over pythia_1b's four projections).
 16. adapters  — a seeded llama_250m base (LoRA r=128) and three seeded tenant
                adapters (tA, tB, tC; alpha 32, 64, 16) written under
-               ``build/chip_smoke/`` by ``train/checkpoint.save_checkpoint``;
-               then the 16 prompts drained by ``serve_cli --checkpoint BASE
+               ``build/chip_smoke/`` by ``train/checkpoint.save_checkpoint``
+               (while the fleet's replicas start); then the 16 prompts (32
+               new tokens) drained by ``serve_cli --checkpoint BASE
                --no-merge --adapter-dir D --adapters tA,tB`` (base rows
                through kernel 5), round-robin over [base, tA, tB, tC] through
-               the scheduler API with 4 slots, sequential and packed, and
-               with 3 slots, so adapters load from disk and evict mid-traffic,
-               and a mixed-tenant ``spec="ngram"`` drain over the repeat
+               the scheduler API with 4 slots, sequential and packed (32 new
+               tokens), and with 3 slots (16), so adapters load from disk and
+               evict mid-traffic, and a mixed-tenant ``spec="ngram"`` drain
+               (32) over the repeat
                traffic (kernel 5 at M = 40 in every verify forward, checked
                as the spec drains are).
                Each drain fails unless kernel 5 launched 7 x 24 times per
@@ -307,18 +347,21 @@ Phases, in order; any failure raises and the script exits non-zero:
                where the model picked fused, the paged kernel launched.
 18. pythia-drains — the GPT-NeoX family: ``serve_cli --model_config
                pythia_1b --random-init --dtype bf16 --max-batch 8 --paged``
-               (full width and depth) on phase 4's 16 prompts, 64 new tokens,
+               (full width, cut to PYTHIA_TRAIN_LAYERS of its 16 layers as the
+               pythia train phases are) on phase 4's 16 prompts, 64 new tokens,
                at ``--kv-dtype bf16``, ``--packed`` and ``--kv-dtype int8``.
                Each prints tokens/s, launches and the forwards counted at the
                engine, and fails unless kernel 1 (kernel 2 when packed)
-               launched 16 times (once a layer) in every forward that
+               launched once a layer in every forward that
                attends through it and every id is in the vocabulary.
-19. pythia_train — ``relora_tpu_torch.main --model_config pythia_1b``: bf16,
+19. pythia_train — ``relora_tpu_torch.main --model_config`` pythia_1b at
+               full width cut to PYTHIA_TRAIN_LAYERS (4 of its 16) layers, as
+               every pythia train phase below: bf16,
                LoRA r=128 (dropout 0.1), ``--max_length 2048``, two 2 x 2048
                microbatches an update (8192 tokens), 9 updates, merging and
                resetting every 3, on the corpus at 2048 tokens a sample; the
                train phase's checks, with kernel 3's launch counters equal to
-               16 x microbatches x updates (+ 16 x eval batches for the
+               layers x microbatches x updates (+ layers x eval batches for the
                forward) and every launch on the wide kernels (the wrappers'
                ``wide_launches``, which count what the launcher reports it
                launched).
@@ -327,12 +370,12 @@ Phases, in order; any failure raises and the script exits non-zero:
                nonzero) written under ``build/chip_smoke/``, then the same run
                with ``--lora_fused true --lora_dropout 0 --warmed_up_model
                DIR``: every base parameter equal to the file's right after
-               the graft, kernels 4, 6 and 7 launched 4 x 16 x the train
+               the graft, kernels 4, 6 and 7 launched 4 x layers x the train
                phase's multipliers, every launch on the tensor cores.
    int8_train@pythia_1b — the pythia train phase over an int8 base:
                ``--quantize int8 --warmed_up_model`` that seeded pythia_1b
                file: the train checks, two int8 merges moving the codes or
-               scales of all 4 x 16 projections, kernel 8 launched in every
+               scales of all 4 x layers projections, kernel 8 launched in every
                projection and never a fused kernel; its launches go to the
                ``8@pythia_1b`` row.
    int8_fused_train@pythia_1b — the same with ``--lora_fused true
@@ -357,7 +400,7 @@ turns); it checks nothing.
 
 Output: a forward+backward timing line, one line per drain (plain and
 spec), one per server drain, the server process line, the f32 server and
-f32 spec lines, a train line, a LoRA timing line per model, a fused-train
+f32 spec lines, the fleet_disagg, fleet_reload and fleet_launches lines, a train line, a LoRA timing line per model, a fused-train
 line, the profile line, an int8 timing line per model, the int8 train lines,
 a grouped timing line, one line per adapter drain and the tenant server
 drain, the contiguous, contiguous_tenants, generate, contiguous server and
@@ -391,6 +434,7 @@ WIDTHS = {"llama_250m": (16, 48), "llama_1b": (32, 64), "pythia_1b": (8, 256)}  
 PYTHIA = "pythia_1b"  # the NeoX model of the pythia phases; its rows carry "@pythia_1b"
 PAGE, TABLE_W, BATCH, PACKED_T = 16, 64, 8, 72
 SPEC_K = 4  # the spec drains' --spec-k: verify windows of SPEC_K + 1 tokens
+SPEC_HEAD_PROMPTS = 8  # spec_ngram_int8 and spec_model drain the first 8 prompts (one batch)
 # kernel vs plain twin on one card: f32 sums in another order (1e-6 scale);
 # bf16 outputs round once to bf16 (2^-7 relative at |out| < 4 gives 2e-2)
 KERNEL_TOL = {"f32": 1e-4, "bf16": 2e-2, "int8": 2e-2}
@@ -877,14 +921,26 @@ FLASH_KERNELS = FLASH_TC_KERNELS + ("flash_fwd_kernel", "flash_bwd_dkdv_kernel",
 
 
 def count_hmma(lib_path, kernels):
-    """``{kernel: HMMA instructions in its SASS}`` of the named tensor-core
-    kernels in the built library (all instantiations summed), read with
-    ``cuobjdump -sass``: nonzero shows the tensor cores are used."""
+    """Start ``cuobjdump -sass`` on the built library; the returned function
+    waits for it and returns ``{kernel: HMMA instructions in its SASS}`` of
+    the named tensor-core kernels (all instantiations summed), printed:
+    nonzero shows the tensor cores are used, and a zero fails."""
     from relora_tpu_torch.ops import _build
 
     cuobjdump = os.path.join(os.path.dirname(_build.find_nvcc()), "cuobjdump")
-    sass = subprocess.run([cuobjdump, "-sass", str(lib_path)], capture_output=True, text=True,
-                          check=True).stdout
+    proc = subprocess.Popen([cuobjdump, "-sass", str(lib_path)], stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+
+    def report():
+        sass, err = proc.communicate()
+        if proc.returncode != 0:
+            raise AssertionError(f"cuobjdump -sass {lib_path} failed: {err[-2000:]}")
+        return _hmma_counts(sass, lib_path, kernels)
+
+    return report
+
+
+def _hmma_counts(sass, lib_path, kernels):
     counts = dict.fromkeys(kernels, 0)
     current = None
     for line in sass.splitlines():
@@ -1168,10 +1224,15 @@ def drains(torch, prompts, repeat):
             "--input-file", prompts]
     launches = {"paged_decode_attention": 0, "packed_paged_attention": 0}
     results, outputs = [], {}
+    # the fleet's packed leg's yardstick: its FLEET_PACKED prompts packed
+    # over the int8 pool
+    first = head_prompts(prompts, FLEET_PACKED, "prompts_packed_leg.txt")
     for label, extra, kernel in (
         ("bf16", ["--kv-dtype", "bf16"], "paged_decode_attention"),
         ("packed", ["--kv-dtype", "bf16", "--packed"], "packed_paged_attention"),
         ("int8", ["--kv-dtype", "int8"], "paged_decode_attention"),
+        ("packed_int8", ["--kv-dtype", "int8", "--packed", "--input-file", first],
+         "packed_paged_attention"),
         ("bf16_repeat", ["--kv-dtype", "bf16", "--input-file", repeat], "paged_decode_attention"),
     ):
         A.paged_decode_attention.launches = 0
@@ -1182,7 +1243,8 @@ def drains(torch, prompts, repeat):
             "packed_paged_attention": A.packed_paged_attention.launches,
         }
         tokens = [c.tokens for c in completions.values()]
-        if len(tokens) != 16 or not all(1 <= len(t) <= 64 for t in tokens):
+        want = FLEET_PACKED if label == "packed_int8" else 16
+        if len(tokens) != want or not all(1 <= len(t) <= 64 for t in tokens):
             raise AssertionError(f"drain {label}: malformed completions")
         if not all(0 <= tok < 32100 for t in tokens for tok in t):
             raise AssertionError(f"drain {label}: token id out of the vocabulary")
@@ -1191,7 +1253,7 @@ def drains(torch, prompts, repeat):
         for k in launches:
             launches[k] += counts[k]
         n = sum(len(t) for t in tokens)
-        line = {"drain": label, "requests": 16, "tokens": n, "seconds": seconds,
+        line = {"drain": label, "requests": len(tokens), "tokens": n, "seconds": seconds,
                 "tokens_per_s": n / seconds, "launches": counts}
         print(json.dumps(line))
         results.append(line)
@@ -1200,10 +1262,10 @@ def drains(torch, prompts, repeat):
     return launches, results, outputs
 
 
-def pythia_drains(torch, prompts):
+def pythia_drains(torch, prompts, model_config):
     """Phase pythia-drains: the serving path of the NeoX family through the
-    CLI's entry point at pythia_1b's full width and depth, three ways, on
-    phase 4's prompts.  Each drain fails unless every launch of its kernel
+    CLI's entry point at pythia_1b's full width, cut to ``model_config``'s
+    PYTHIA_TRAIN_LAYERS layers, three ways, on phase 4's prompts.  Each drain fails unless every launch of its kernel
     came from its decode method (``decode_paged`` for kernel 1,
     ``step_paged`` for kernel 2), once a layer in every call, and every id
     is in the vocabulary.  Returns the launches per kernel."""
@@ -1211,8 +1273,8 @@ def pythia_drains(torch, prompts):
     from relora_tpu_torch.config.model import load_model_config
     from relora_tpu_torch.ops import attention as A
 
-    cfg = load_model_config(PYTHIA)
-    base = ["--model_config", PYTHIA, "--random-init", "--dtype", "bf16",
+    cfg = load_model_config(model_config)
+    base = ["--model_config", model_config, "--random-init", "--dtype", "bf16",
             "--max-batch", "8", "--paged", "--max-new-tokens", "64", "--input-file", prompts]
     kernels = ("paged_decode_attention", "packed_paged_attention")
     launches = dict.fromkeys(kernels, 0)
@@ -1372,6 +1434,7 @@ def spec_drains(torch, prompts, repeat, base, draft, plain):
     common = ["--dtype", "bf16", "--max-batch", "8", "--paged", "--max-new-tokens", "64",
               "--spec-k", str(SPEC_K)]
     rnd = ["--model_config", "llama_250m", "--random-init"] + common
+    head = head_prompts(prompts, SPEC_HEAD_PROMPTS, "spec_prompts.txt")
     launches = {"paged_decode_attention": 0, "packed_paged_attention": 0}
     window = {"paged_decode_attention": 0, "packed_paged_attention": 0}
     lines = []
@@ -1379,10 +1442,10 @@ def spec_drains(torch, prompts, repeat, base, draft, plain):
         ("spec_ngram", rnd + ["--spec", "ngram", "--input-file", prompts], "bf16", "verify_paged"),
         ("spec_ngram_packed", rnd + ["--spec", "ngram", "--packed", "--input-file", prompts],
          "packed", "step_paged"),
-        ("spec_ngram_int8", rnd + ["--spec", "ngram", "--kv-dtype", "int8", "--input-file", prompts],
+        ("spec_ngram_int8", rnd + ["--spec", "ngram", "--kv-dtype", "int8", "--input-file", head],
          "int8", "verify_paged"),
         ("spec_model", ["--model_config", "llama_250m", "--checkpoint", base] + common
-         + ["--spec", "model", "--draft-checkpoint", draft, "--input-file", prompts], "bf16",
+         + ["--spec", "model", "--draft-checkpoint", draft, "--input-file", head], "bf16",
          "verify_paged"),
         ("spec_ngram_repeat", rnd + ["--spec", "ngram", "--input-file", repeat], "bf16_repeat",
          "verify_paged"),
@@ -1402,7 +1465,8 @@ def spec_drains(torch, prompts, repeat, base, draft, plain):
         else:
             win = calls.launches[kernel]
         lines.append(spec_line(label, completions, seconds, sched, win, counts,
-                               plain.get(plain_label), 16))
+                               plain.get(plain_label),
+                               len(read_prompts(argv[argv.index("--input-file") + 1]))))
         stats = sched.spec_stats()
         if label == "spec_model" and not 0 < stats["accepted"] < stats["drafted"]:
             raise AssertionError(f"drain spec_model: the draft's acceptance must lie strictly "
@@ -1558,7 +1622,9 @@ TRAIN_ARGS = [
     "--restart_warmup_steps", "1", "--num_training_steps", str(TRAIN_UPDATES),
     "--eval_every", "1000",
 ]
-# the pythia train phases: pythia_1b at full width and depth, two 2 x 2048
+# pythia_1b's train arguments at full width and depth (the --ab and profile
+# tools); the run's pythia train phases take them at PYTHIA_TRAIN_LAYERS
+# (:func:`pythia_train_args`): two 2 x 2048
 # microbatches an update (8192 tokens, as the llama phase's 16 x 512)
 PYTHIA_TRAIN_ARGS = [
     "--model_config", PYTHIA, "--dtype", "bfloat16",
@@ -1568,6 +1634,42 @@ PYTHIA_TRAIN_ARGS = [
     "--restart_warmup_steps", "1", "--num_training_steps", str(TRAIN_UPDATES),
     "--eval_every", "1000",
 ]
+# the depth of the run's pythia drains and train phases (pythia_1b has 16):
+# full width, a quarter of the layers, so the phases fit the run's time limit
+PYTHIA_TRAIN_LAYERS = 4
+
+
+def pythia_train_args(work):
+    """PYTHIA_TRAIN_ARGS over pythia_1b cut to PYTHIA_TRAIN_LAYERS layers:
+    its HF-style ``config.json`` written under ``work`` (every other field
+    pythia_1b's, checked by reading it back)."""
+    import dataclasses
+
+    from relora_tpu_torch.config.model import load_model_config
+
+    cfg = load_model_config(PYTHIA)
+    path = os.path.join(work, f"{PYTHIA}_{PYTHIA_TRAIN_LAYERS}_layers")
+    os.makedirs(path, exist_ok=True)
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump({
+            "model_type": "gpt_neox", "vocab_size": cfg.vocab_size, "hidden_size": cfg.hidden_size,
+            "intermediate_size": cfg.intermediate_size, "num_hidden_layers": PYTHIA_TRAIN_LAYERS,
+            "num_attention_heads": cfg.num_attention_heads,
+            "max_position_embeddings": cfg.max_sequence_length, "layer_norm_eps": cfg.layer_norm_eps,
+            "initializer_range": cfg.initializer_range, "rotary_pct": cfg.rotary_pct,
+            "rotary_emb_base": cfg.rotary_emb_base,
+            "use_parallel_residual": cfg.use_parallel_residual,
+            "tie_word_embeddings": cfg.tie_word_embeddings, "bos_token_id": cfg.bos_token_id,
+            "eos_token_id": cfg.eos_token_id,
+        }, f)
+    cut = dataclasses.replace(cfg, num_hidden_layers=PYTHIA_TRAIN_LAYERS)
+    if load_model_config(path) != cut:
+        raise AssertionError(f"{path}: reads back as {load_model_config(path)}, not {cut}")
+    args = list(PYTHIA_TRAIN_ARGS)
+    args[args.index("--model_config") + 1] = path
+    return args
+
+
 # f32-train: flash arm vs naive arm after 2 layers (f32 sums in another
 # order, 1e-6 scale per op); "grads" is the worst of layer 0's trainable
 # leaves, each relative to its largest entry; the merge vs an f64 oracle at
@@ -3030,6 +3132,15 @@ def write_adapter_checkpoints(torch, work, device, model_config="llama_250m"):
     return base, tenants
 
 
+def head_prompts(path, n, name):
+    """The first ``n`` prompts of the prompt file ``path``, written beside it
+    as ``name``; returns that file's path."""
+    out = os.path.join(os.path.dirname(path), name)
+    with open(out, "w") as f:
+        f.writelines(" ".join(map(str, p)) + "\n" for p in read_prompts(path)[:n])
+    return out
+
+
 def read_prompts(path):
     with open(path) as f:
         return [[int(t) for t in line.split()] for line in f if line.strip()]
@@ -3065,6 +3176,10 @@ def tenant_drain(torch, engine, registry, requests, packed=False, max_batch=BATC
     completions = sched.run(requests)
     torch.cuda.synchronize()
     return completions, time.perf_counter() - t0, sched
+
+
+TENANT_NEW = 32  # the tenant drains' new tokens a request (sequential, packed, spec)
+CONTENTION_NEW = 16  # the contention drain's new tokens a request
 
 
 def tenant_requests(prompts, names, max_new=64):
@@ -3115,11 +3230,11 @@ def adapter_drains(torch, device, prompts_path, base, tenants, repeat_path):
     drained("adapters_cli", lambda: serve_cli.run([
         "--model_config", "llama_250m", "--checkpoint", base, "--no-merge", "--adapter-dir",
         tenants, "--adapters", "tA,tB", "--paged", "--dtype", "bf16", "--max-batch", str(BATCH),
-        "--max-new-tokens", "64", "--input-file", prompts_path]))
+        "--max-new-tokens", "32", "--input-file", prompts_path]))
 
     engine = tenant_engine(torch, base, ADAPTER_SLOTS, device)
     registry = AdapterRegistry(tenants, ADAPTER_SLOTS, expected_r=ADAPTER_R, writer=engine.adapter_writer())
-    requests = tenant_requests(prompts, mix)
+    requests = tenant_requests(prompts, mix, max_new=TENANT_NEW)
     for packed in (False, True):
         drained("tenants_packed" if packed else "tenants",
                 lambda: tenant_drain(torch, engine, registry, requests, packed), adapters=mix)
@@ -3151,8 +3266,10 @@ def adapter_drains(torch, device, prompts_path, base, tenants, repeat_path):
 
     engine = tenant_engine(torch, base, 3, device)
     registry = AdapterRegistry(tenants, 3, expected_r=ADAPTER_R, writer=engine.adapter_writer())
-    drained("tenants_contention", lambda: tenant_drain(torch, engine, registry, requests),
-            adapters=mix, slots=3)
+    # contention at CONTENTION_NEW new tokens: the slots churn all the same
+    drained("tenants_contention", lambda: tenant_drain(
+        torch, engine, registry, tenant_requests(prompts, mix, max_new=CONTENTION_NEW)),
+        adapters=mix, slots=3)
     stats = registry.stats()
     print(json.dumps({"contention_registry": stats}))
     if stats["evictions_total"] < 1 or stats["loads_total"] <= len(TENANT_ALPHAS):
@@ -3165,7 +3282,7 @@ def adapter_drains(torch, device, prompts_path, base, tenants, repeat_path):
     engine = tenant_engine(torch, base, ADAPTER_SLOTS, device, spec_k=SPEC_K)
     registry = AdapterRegistry(tenants, ADAPTER_SLOTS, expected_r=ADAPTER_R,
                                writer=engine.adapter_writer())
-    repeat = tenant_requests(read_prompts(repeat_path), mix)
+    repeat = tenant_requests(read_prompts(repeat_path), mix, max_new=TENANT_NEW)
     plain_tps = tenant_drain(torch, engine, registry, repeat)
     plain_tps = sum(len(c.tokens) for c in plain_tps[0].values()) / plain_tps[1]
     A.paged_decode_attention.launches = 0
@@ -3380,9 +3497,14 @@ def first_forward_logits(torch, engine, prompt):
     return logits[0, : len(part)].float()
 
 
+NOMERGE_PROMPTS = 8  # nomerge drains the first 8 prompts (one full batch)
+NOMERGE_NEW = 32  # nomerge's new tokens a request
+
+
 def nomerge_drains(torch, prompts, checkpoints):
     """Phase nomerge: each checkpoint of ``checkpoints`` (``{base: dir}``, a
-    bf16 and an int8 base) drained by ``serve_cli --checkpoint C`` merged,
+    bf16 and an int8 base) drained over the first NOMERGE_PROMPTS prompts
+    by ``serve_cli --checkpoint C`` merged,
     then ``--no-merge`` sequential and ``--packed`` (every projection through
     ``lora_matmul(arm="auto")``): the picks printed, the fused kernels'
     launches equal to the fused picks, the paged kernel launched, the first
@@ -3393,8 +3515,9 @@ def nomerge_drains(torch, prompts, checkpoints):
     from relora_tpu_torch.ops import attention as A
     from relora_tpu_torch.ops import lora_matmul as LM
 
+    head = head_prompts(prompts, NOMERGE_PROMPTS, "nomerge_prompts.txt")
     common = ["--model_config", "llama_250m", "--dtype", "bf16", "--max-batch", "8", "--paged",
-              "--max-new-tokens", "64", "--input-file", prompts]
+              "--max-new-tokens", str(NOMERGE_NEW), "--input-file", head]
     first = read_prompts(prompts)[0]
     wrappers = {"fused_lora_forward": LM.fused_lora_forward,
                 "fused_lora_int8_forward": LM.fused_lora_int8_forward,
@@ -3430,7 +3553,7 @@ def nomerge_drains(torch, prompts, checkpoints):
                     "greedy_agreement": same / max(1, merged_n), "first_logits_rel_err": err,
                     "tol": NOMERGE_LOGIT_TOL, "arms": arms.summary(), "launches": launches}
             print(json.dumps(line))
-            if len(tokens) != 16 or not all(0 <= tok < 32100 for t in tokens for tok in t):
+            if len(tokens) != NOMERGE_PROMPTS or not all(0 <= tok < 32100 for t in tokens for tok in t):
                 raise AssertionError(f"{line['drain']}: malformed completions")
             if not err <= NOMERGE_LOGIT_TOL:
                 raise AssertionError(f"{line['drain']}: first forward {err:.3e} from the merged "
@@ -3582,6 +3705,7 @@ def resume(torch, data_config, straight, work):
 SERVER_ARGS = ["--model_config", "llama_250m", "--random-init", "--dtype", "bf16", "--max-batch", "8",
                "--paged", "--max-new-tokens", "64"]
 SERVER_WAIT = 180.0  # every wait of the server phase: an event or a state, never a fixed sleep
+PROFILED_CLIENTS = 8  # the server's traced drain: the first 8 clients (one batch)
 SERVER_GAUGES = ("batch_fill", "kv_pages_used", "kv_pages_free", "dispatches_per_round",
                  "tokens_per_dispatch", "prefill_pad_share", "active_slots", "queue_depth")
 
@@ -3823,10 +3947,12 @@ def server_drains(torch, prompts_path, inproc):
     (``eos`` where the in-process drain did); ``/metrics`` parses with the
     scheduler's gauges; the kernel launched; the sequential tokens are
     identical to the in-process drain's (``inproc``: label -> uid ->
-    tokens), the packed ones reported beside it.  The sequential drain then
-    runs once more, on a server of its own (a cold prefix cache, as the
-    timed drain had) and under the profiler: the device's idle share over
-    the same 16-client traffic.  Returns (kernel launches, the lines)."""
+    tokens), the packed ones reported beside it.  The first PROFILED_CLIENTS
+    of the sequential drain's clients (one batch) then run once more, on a
+    server of its own (a cold prefix cache, as the timed drain had) and
+    under the profiler: the device's idle share over that traffic, whose
+    tokens must equal the timed drain's.  Returns (kernel launches, the
+    lines)."""
     from relora_tpu_torch.ops import attention as A
 
     payloads = [{"prompt": p} for p in read_prompts(prompts_path)]
@@ -3854,13 +3980,13 @@ def server_drains(torch, prompts_path, inproc):
             if label == "bf16":
                 with InProcessServer(SERVER_ARGS) as traced:
                     wait_state(lambda: traced.health()[1]["status"] == "ok", "/healthz ok")
-                    again, wall, busy, _ = device_profile(
-                        torch, lambda: run_clients(pool, traced.server.port, payloads))
+                    again, wall, busy, _ = device_profile(torch, lambda: run_clients(
+                        pool, traced.server.port, payloads[:PROFILED_CLIENTS]))
                 idle = {"device_idle_share": 1.0 - busy / wall, "profiled_wall_s": wall,
-                        "device_busy_s": busy}
+                        "device_busy_s": busy, "clients": PROFILED_CLIENTS}
                 del traced
                 torch.cuda.empty_cache()
-                if [c.tokens for c in again] != [c.tokens for c in clients]:
+                if [c.tokens for c in again] != [c.tokens for c in clients[:PROFILED_CLIENTS]]:
                     raise AssertionError("server bf16: the traced drain's tokens differ")
             diverged = []
             for uid, c in enumerate(clients):
@@ -4060,6 +4186,536 @@ def server_f32(torch, work, prompts_path):
             raise AssertionError(f"server {label}: diverges from the in-process drain: {divergences}")
         del sched, srv, clients
         torch.cuda.empty_cache()
+
+
+# -- the fleet tier's replica half: disaggregated serving and the weight hot swap --------
+
+# every replica of the fleet phases: the server drains' flags over an int8 pool
+FLEET_ARGS = SERVER_ARGS + ["--kv-dtype", "int8"]
+FLEET_POLL_S = 0.5  # the watching replica's --watch-interval-s
+FLEET_RELOAD_S = 10.0  # bound on one reload's restore and copy, beside two polls
+FLEET_NEW = 16  # new tokens of the reload phase's identity and in-flight requests
+FLEET_PACKED = 8  # requests of the packed prefill replica's drain
+
+
+def fleet_config():
+    """The fleet replicas' model config (FLEET_ARGS' ``--model_config``)."""
+    from relora_tpu_torch.config.model import load_model_config
+
+    return load_model_config(FLEET_ARGS[FLEET_ARGS.index("--model_config") + 1])
+
+
+class Replica:
+    """One ``python -m relora_tpu_torch.serve_cli ... --port 0 --port-file F
+    --run-dir R`` process of the fleet phases, under ``work/name``: its own
+    ``RELORA_TPU_REPLICA_ID`` (a uid space of its own) and ``faults``
+    (``RELORA_TPU_FAULTS``), its stderr in ``stderr.log``."""
+
+    def __init__(self, work, name, argv, faults=""):
+        self.name, self.dir, self.port = name, os.path.join(work, name), None
+        shutil.rmtree(self.dir, ignore_errors=True)
+        os.makedirs(self.dir)
+        env = {k: v for k, v in os.environ.items() if k != "RELORA_TPU_FAULTS"}
+        env["RELORA_TPU_REPLICA_ID"] = name
+        if faults:
+            env["RELORA_TPU_FAULTS"] = faults
+        self.log_path = os.path.join(self.dir, "stderr.log")
+        self.log = open(self.log_path, "w")
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "relora_tpu_torch.serve_cli", *argv, "--port", "0",
+             "--port-file", os.path.join(self.dir, "port"), "--run-dir", self.dir],
+            cwd=REPO, env=env, stdout=subprocess.DEVNULL, stderr=self.log)
+
+    def _alive(self):
+        if self.proc.poll() is not None:
+            with open(self.log_path) as f:
+                tail = f.read()[-3000:]
+            raise AssertionError(f"replica {self.name} exited {self.proc.returncode}:\n{tail}")
+
+    def ready(self):
+        """Wait for the bound port, then ``/healthz`` ok (the warmup done)."""
+        path = os.path.join(self.dir, "port")
+
+        def bound():
+            self._alive()
+            return os.path.exists(path) and open(path).read().strip()
+
+        self.port = int(wait_state(bound, f"{self.name}'s port file"))
+
+        def ok():
+            self._alive()
+            return self.health()["status"] == "ok"
+
+        wait_state(ok, f"{self.name} /healthz ok")
+        return self
+
+    def health(self):
+        return json.loads(http_call(self.port, "GET", "/healthz")[2])
+
+    def disagg(self):
+        return self.health()["paging"]["disagg"]
+
+    def post(self, path, payload):
+        status, _, body = http_call(self.port, "POST", path, payload)
+        return status, json.loads(body or b"{}")
+
+    def endpoint(self):
+        return ("127.0.0.1", self.port)
+
+    def stop(self):
+        """SIGTERM (the drain); the exit code and each serving kernel's
+        launches after the warmup (the ``kernel_launches`` event the
+        replica logs at its exit)."""
+        if self.proc.poll() is None:
+            self.proc.send_signal(signal.SIGTERM)
+        try:
+            code = self.proc.wait(SERVER_WAIT)
+        finally:
+            if self.proc.poll() is None:
+                self.proc.kill()
+                self.proc.wait(SERVER_WAIT)
+            self.log.close()
+        with open(os.path.join(self.dir, "metrics.jsonl")) as f:
+            counts = next(r for r in map(json.loads, f) if r.get("_event") == "kernel_launches")
+        self.launches = {k: v for k, v in counts.items() if not k.startswith(("_", "warmup/"))}
+        return code, self.launches
+
+
+def fleet_checkpoints(torch, work, device):
+    """``train/checkpoint.py`` directories ``model_{step}`` of the fleet's
+    model (llama_250m) at bf16 under one save directory, each drawn from
+    ``init_params`` with its step as the seed (other weights than the
+    ``--random-init`` replicas', whose seed is 0); no ``latest`` pointer
+    yet.  Returns (save dir, {step: path})."""
+    from relora_tpu_torch.models.params_util import init_params
+    from relora_tpu_torch.serve.engine import build_decode_model
+    from relora_tpu_torch.train.checkpoint import save_checkpoint
+
+    root = os.path.join(work, "fleet_checkpoints")
+    shutil.rmtree(root, ignore_errors=True)
+    model = build_decode_model(fleet_config(), dtype=torch.bfloat16, device=device)
+    paths = {}
+    for step in (1, 2, 3, 4):
+        init_params(model, torch.Generator(device=device).manual_seed(step))
+        paths[step] = save_checkpoint(root, step, model.state_dict(), {"update_step": step})
+    del model
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    return root, paths
+
+
+def fleet_launch(torch, work, device):
+    """Start the fleet phases' six replicas, without waiting for them (the
+    kernels are built already, so none races another's build): ``decode``
+    (``--role decode``) first, then ``prefill`` (``--role prefill`` with
+    ``serve_migrate`` armed once) and ``packed`` (``--role prefill
+    --packed`` with ``deploy_reload`` armed once), both naming ``decode`` in
+    ``peers.json`` (written by :func:`fleet_ready`); while those start,
+    :func:`fleet_checkpoints` and ``write_adapter_checkpoints`` write the
+    checkpoints, then ``watch`` starts, mixed, on ``--checkpoint model_1
+    --watch-checkpoints`` over their save directory, and the tenant pair
+    over the adapters' base with ``--no-merge --adapter-dir --adapters
+    tA``: ``tdecode`` (``--role decode``), then ``tprefill`` (``--role
+    prefill``, ``serve_migrate`` armed once) naming it in
+    ``peers_tenant.json``.  Returns (fleet, save dir, {step: path}, (base
+    dir, adapter dir))."""
+    root = os.path.join(work, "fleet")
+    os.makedirs(root, exist_ok=True)
+    for name in ("peers.json", "peers_tenant.json"):
+        if os.path.exists(os.path.join(root, name)):
+            os.remove(os.path.join(root, name))
+    fleet = {"decode": Replica(root, "decode", FLEET_ARGS + ["--role", "decode"])}
+    migrate_once = "serve_migrate:times=1,exc=runtimeerror"
+    for name, extra, armed in (
+        ("prefill", [], migrate_once),
+        ("packed", ["--packed"], "deploy_reload:times=1,exc=runtimeerror"),
+    ):
+        fleet[name] = Replica(root, name, FLEET_ARGS + ["--role", "prefill", "--peer-file",
+                                                        os.path.join(root, "peers.json")]
+                              + extra, armed)
+    try:
+        save_dir, paths = fleet_checkpoints(torch, work, device)
+        unmerged = [a for a in FLEET_ARGS if a != "--random-init"]
+        fleet["watch"] = Replica(
+            root, "watch", unmerged + ["--checkpoint", paths[1], "--watch-checkpoints", save_dir,
+                                       "--watch-interval-s", str(FLEET_POLL_S)])
+        model = FLEET_ARGS[FLEET_ARGS.index("--model_config") + 1]
+        adapters = write_adapter_checkpoints(torch, work, device, model)
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+        tenant = unmerged + ["--checkpoint", adapters[0], "--no-merge", "--adapter-dir",
+                             adapters[1], "--adapters", "tA"]
+        fleet["tdecode"] = Replica(root, "tdecode", tenant + ["--role", "decode"])
+        fleet["tprefill"] = Replica(root, "tprefill", tenant + [
+            "--role", "prefill", "--peer-file", os.path.join(root, "peers_tenant.json")],
+            migrate_once)
+    except BaseException:
+        fleet_stop(fleet, check=False)
+        raise
+    return fleet, save_dir, paths, adapters
+
+
+def fleet_ready(fleet):
+    """Wait for each decode replica's port, write the ``peers.json`` naming
+    it (``decode`` for the prefill replicas, ``tdecode`` for the tenant
+    pair's), then wait for every replica's ``/healthz`` ok."""
+    try:
+        for name, roster in (("decode", "peers.json"), ("tdecode", "peers_tenant.json")):
+            decode = fleet[name].ready()
+            peers = os.path.join(os.path.dirname(decode.dir), roster)
+            with open(peers + ".tmp", "w") as f:
+                json.dump({"replicas": [{"rid": name, "host": "127.0.0.1", "port": decode.port,
+                                         "role": "decode"}]}, f)
+            os.replace(peers + ".tmp", peers)
+        for r in fleet.values():
+            r.ready()
+    except BaseException:
+        fleet_stop(fleet, check=False)
+        raise
+    return fleet
+
+
+def fleet_stop(fleet, check=True):
+    """SIGTERM every replica; with ``check``, each must exit 0, else (a
+    phase failed) the tail of each one's stderr goes to this stderr.
+    Returns the replicas' kernel launches after their warmups, summed."""
+    total, codes = {}, {}
+    for name, r in fleet.items():
+        if not check:
+            with open(r.log_path) as f:
+                print(f"--- replica {name} stderr (tail):\n" + "".join(f.readlines()[-40:]),
+                      file=sys.stderr)
+        try:
+            codes[name], launches = r.stop()
+        except Exception as e:
+            codes[name], launches = repr(e), {}
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+    if check and any(c != 0 for c in codes.values()):
+        raise AssertionError(f"fleet: replicas did not drain cleanly: {codes}")
+    return total
+
+
+def frame_bytes(c, prompt, page_size):
+    """The length of the page-run frame the prefill replica sent for the
+    stream ``c`` (``wire.encode_page_run`` of its migration record, the
+    request id the response named as ``trace_id``, and the int8 pool
+    leaves for the prompt's pages), reckoned without the replica."""
+    from relora_tpu_torch.serve import wire
+    from relora_tpu_torch.serve.paging import pages_needed
+
+    cfg = fleet_config()
+    n = pages_needed(len(prompt), page_size)
+    record = wire.build_migration_record(
+        uid=c.final["uid"], prompt=prompt, max_new_tokens=64, temperature=0.0, top_p=1.0,
+        spec=True, adapter=None, first_token=c.tokens[0], position=len(prompt), token_index=1,
+        n_pages=n)
+    record["weights_version"] = 0  # the --random-init replicas'
+    record["trace_id"] = c.headers["x-request-id"]
+    entries = []
+    for i in range(cfg.num_hidden_layers):
+        for leaf in ("k", "v"):
+            shape = (n, page_size, cfg.kv_heads, cfg.head_dim)
+            entries.append((f"layers.{i}.{leaf}", "int8", shape, bytes(math.prod(shape))))
+        for leaf in ("k_scale", "v_scale"):
+            entries.append((f"layers.{i}.{leaf}", "float32", (n, cfg.kv_heads),
+                            bytes(4 * n * cfg.kv_heads)))
+    return len(wire.encode_page_run(record, entries))
+
+
+def profile(replicas, action):
+    """``POST /admin/profile`` with ``action`` to every replica at once (each
+    window opens or closes at the same moment, and the processes read their
+    traces in parallel; a window closes itself after the server's
+    PROFILE_MAX_S), without waiting: the returned function waits for the
+    replies and returns them by replica name."""
+    out = {}
+
+    def call(r):
+        out[r.name] = r.post("/admin/profile", {"action": action})
+
+    threads = [threading.Thread(target=call, args=(r,), daemon=True) for r in replicas]
+    for t in threads:
+        t.start()
+
+    def join():
+        for t in threads:
+            t.join(SERVER_WAIT)
+        bad = {k: v for k, v in out.items() if v[0] != 200}
+        if bad or len(out) != len(replicas):
+            raise AssertionError(f"fleet: /admin/profile {action}: {out}")
+        return {k: v[1] for k, v in out.items()}
+
+    return join
+
+
+def first_divergence(got, want):
+    return next((j for j, (a, b) in enumerate(zip(got, want)) if a != b), min(len(got), len(want)))
+
+
+def fleet_disagg(fleet, prompts_path, inproc):
+    """Phase fleet_disagg: the 16 prompts (64 new tokens) through the
+    ``--role prefill`` replica, which prefills each (kernel 1's pool writes
+    through the chunk path) and hands its int8 page run to the ``--role
+    decode`` replica (kernel 1), whose continuation it relays.  First a
+    drill: with ``serve_migrate`` armed once, prompt 0 decodes at home,
+    token-identical, one failure counted.  Then the first FLEET_PACKED
+    prompts through the ``--packed`` prefill replica (kernel 2 in its
+    prefills): every request finishes; its streams are counted against the
+    in-process ``--packed --kv-dtype int8`` drain (packing without
+    migration), and that drain's against the sequential one (what packing
+    alone changes).  Then prompt 0 as tenant tA through the tenant pair
+    twice: at home (``serve_migrate`` armed once on ``tprefill``) and
+    migrated to ``tdecode`` (kernel 5 in its adapter slot), token-identical,
+    one failure and one insert counted.  Last the timed drain, inside both
+    replicas' ``/admin/profile`` windows (each one's device idle share over
+    this drain; the profiler records while it runs), whose close is sent
+    without waiting: the two replicas read their traces (~0.1 ms a kernel)
+    while the caller runs phases that time nothing.  Returns the function
+    that waits for those reads and checks the drain: all 16 streams
+    token-identical to the in-process sequential int8 drain; the donor's
+    ``pages_migrated`` equal to the prompts' pages and ``migration_bytes``
+    to the frames' reckoned bytes; the receiver's ``migrated_inserts`` 16
+    more.  It prints the line: tokens/s, TTFT p50, TPOT p50, migration
+    bytes per prompt token, the idle shares, each step's seconds."""
+    import types
+
+    from relora_tpu_torch.serve.paging import pages_needed
+
+    prompts = read_prompts(prompts_path)
+    ref = inproc["int8"]["tokens"]
+    vocab = fleet_config().vocab_size
+    P, D, Q = fleet["prefill"], fleet["decode"], fleet["packed"]
+    TP, TD = fleet["tprefill"], fleet["tdecode"]
+    laps, t0 = {}, [time.perf_counter()]
+
+    def lap(name):
+        now = time.perf_counter()
+        laps[name], t0[0] = now - t0[0], now
+
+    def diverged_from(streams, want):
+        return [{"request": i, "index": first_divergence(got, want[i])}
+                for i, got in enumerate(streams) if got != want[i]]
+
+    drill = types.SimpleNamespace(**client_batch(P.port, [{"prompt": prompts[0]}])[0])
+    check_stream("fleet drill", drill, vocab)
+    drill_failures = P.disagg()["migration_failures"]
+    lap("drill")
+    packed = [types.SimpleNamespace(**c)
+              for c in client_batch(Q.port, [{"prompt": p} for p in prompts[:FLEET_PACKED]])]
+    packed_inserts = wait_state(
+        lambda: (n := D.disagg()["migrated_inserts"]) == FLEET_PACKED and n, "the packed leg's inserts")
+    lap("packed")
+    tenant = [types.SimpleNamespace(**client_batch(
+        TP.port, [{"prompt": prompts[0], "adapter": "tA", "max_new_tokens": FLEET_NEW}])[0])
+        for _ in ("home", "migrated")]
+    for c in tenant:
+        check_stream("fleet tenant", c, vocab)
+    tenant_failures = TP.disagg()["migration_failures"]
+    tenant_inserts = TD.disagg()["migrated_inserts"]
+    lap("tenant")
+    profile((P, D), "start")()
+    t_drain = time.perf_counter()
+    clients = [types.SimpleNamespace(**c)
+               for c in client_batch(P.port, [{"prompt": p} for p in prompts])]
+    drain_s = time.perf_counter() - t_drain
+    read = profile((P, D), "stop")
+    lap("profiled_drain")
+
+    def finish():
+        idle = read()
+        lap("profile_reads_waited")
+        stats = latency_stats(clients)
+        for c in clients:
+            check_stream("fleet", c, vocab)
+        diverged = diverged_from([c.tokens for c in clients], ref)
+        pages = sum(pages_needed(len(p), PAGE) for p in prompts)
+        frames = sum(frame_bytes(c, p, PAGE) for c, p in zip(clients, prompts))
+        # the donor counts a run at its commit, once the relay has finished
+        donor = wait_state(lambda: (d := P.disagg())["pages_migrated"] >= pages and d,
+                           "the donor's commits")
+        inserts = D.disagg()["migrated_inserts"] - packed_inserts
+        lap("checks")
+        packed_tokens = [c.tokens for c in packed]
+        inproc_packed = inproc["packed_int8"]["tokens"]
+        line = {"fleet_disagg": "--role prefill -> --role decode, int8 pool",
+                "requests": len(clients), **stats, "drain_s": drain_s,
+                "inproc_tokens_per_s": inproc["int8"]["tokens_per_s"],
+                "identical_to_inproc": len(clients) - len(diverged), "divergences": diverged,
+                "drill_identical": drill.tokens == ref[0], "drill_failures": drill_failures,
+                "pages_migrated": donor["pages_migrated"], "pages_reckoned": pages,
+                "migration_bytes": donor["migration_bytes"], "frame_bytes_reckoned": frames,
+                "migration_bytes_per_prompt_token": donor["migration_bytes"]
+                / sum(map(len, prompts)),
+                "migration_failures": donor["migration_failures"], "migrated_inserts": inserts,
+                "device_idle_share": {k: v["device_idle_share"] for k, v in idle.items()},
+                "profiled_drain": idle, "step_seconds": laps,
+                "packed": {"requests": len(packed), **latency_stats(packed),
+                           "finished": sum(c.final is not None and c.final["finish_reason"]
+                                           in ("length", "eos") for c in packed),
+                           "identical_to_inproc": len(packed) - len(diverged_from(packed_tokens,
+                                                                                  ref)),
+                           "divergences_from_inproc_packed": diverged_from(packed_tokens,
+                                                                           inproc_packed),
+                           "inproc_packed_divergences_from_sequential": diverged_from(
+                               [inproc_packed[i] for i in range(FLEET_PACKED)], ref)},
+                "tenant": {"adapter": "tA", "identical": tenant[0].tokens == tenant[1].tokens,
+                           "migration_failures": tenant_failures,
+                           "migrated_inserts": tenant_inserts}}
+        print(json.dumps(line))
+        if not line["drill_identical"] or drill_failures != 1:
+            raise AssertionError(f"fleet_disagg: the serve_migrate drill did not fail open "
+                                 f"token-identical: {line}")
+        if diverged:
+            raise AssertionError(f"fleet_disagg: migrated streams differ from the in-process "
+                                 f"drain: {diverged}")
+        if (donor["pages_migrated"] != pages or donor["migration_bytes"] != frames
+                or donor["migration_failures"] != 1 or inserts != len(prompts)):
+            raise AssertionError(f"fleet_disagg: counters off the reckoning: {line}")
+        # (a CPU rehearsal's windows see no kernel)
+        if any((v["kernels"] == 0 and "--device" not in FLEET_ARGS) or v.get("expired")
+               for v in idle.values()):
+            raise AssertionError(f"fleet_disagg: a profile window saw no kernel or expired: "
+                                 f"{idle}")
+        if line["packed"]["finished"] != len(packed):
+            raise AssertionError(f"fleet_disagg: a packed-leg request did not finish: {line}")
+        if not line["tenant"]["identical"] or tenant_failures != 1 or tenant_inserts != 1:
+            raise AssertionError(f"fleet_disagg: the tenant request did not migrate "
+                                 f"token-identical to its local decode: {line}")
+        return line
+
+    return finish
+
+
+def fleet_reload(torch, fleet, prompts_path, save_dir, paths):
+    """Phase fleet_reload, over the fleet phases' replicas.  (a) A
+    ``RollingUpdater`` over the fixed map {0: decode, 1: prefill} to
+    ``model_1``: both report weights_version 1, the canary recorded on the
+    first and matched on the second; 4 prompts (16 new tokens) through the
+    prefill replica then equal an in-process drain of that checkpoint.  (b)
+    An update of {decode, prefill, packed} to ``model_2`` with
+    ``deploy_reload`` armed once on ``packed``: it fails, the whole fleet
+    rolls back to version 1, and every request in flight on the prefill and
+    packed replicas during it finishes.  (c) ``python -m
+    relora_tpu_torch.serve.deploy publish model_3``, run beside (a) and (b):
+    the watching replica swaps to version 3 within two polls and the
+    reload's FLEET_RELOAD_S (``watch_swap_s``: from the pointer's
+    ``published_unix`` to the replica's ``serve_reload`` event); then
+    ``deploy_corrupt_manifest`` armed on the publish of ``model_4``
+    (``deploy.main`` in this process): the watcher rejects it and stays on
+    version 3."""
+    from relora_tpu_torch import serve_cli
+    from relora_tpu_torch.serve import deploy
+    from relora_tpu_torch.serve.deploy import RollingUpdater
+    from relora_tpu_torch.utils import faults
+
+    prompts = read_prompts(prompts_path)[:4]
+    D, P, Q, W = fleet["decode"], fleet["prefill"], fleet["packed"], fleet["watch"]
+    events = []
+    # the command publishes model_3 while the updates run (the watcher's
+    # replica is in neither update); its swap is timed from the pointer's
+    # published_unix to the replica's serve_reload event
+    env = {k: v for k, v in os.environ.items() if k != "RELORA_TPU_FAULTS"}
+    pub = subprocess.Popen([sys.executable, "-m", "relora_tpu_torch.serve.deploy", "publish",
+                            paths[3]], cwd=REPO, env=env, stdout=subprocess.PIPE,
+                           stderr=subprocess.PIPE, text=True)
+
+    def updater(replicas):
+        eps = {i: r.endpoint() for i, r in enumerate(replicas)}
+        return RollingUpdater(lambda: eps, probe_interval_s=0.05, probe_timeout_s=SERVER_WAIT,
+                              emit=lambda event, idx, detail: events.append((event, idx, detail)))
+
+    t0 = time.perf_counter()
+    rolled = updater([D, P]).run(paths[1])
+    roll_s = time.perf_counter() - t0
+    versions = {r.name: (r.health()["weights_version"], r.health()["weights_checkpoint"])
+                for r in (D, P)}
+    got = client_batch(P.port, [{"prompt": p, "max_new_tokens": FLEET_NEW} for p in prompts])
+    small = os.path.join(os.path.dirname(prompts_path), "fleet_prompts.txt")
+    with open(small, "w") as f:
+        f.writelines(" ".join(map(str, p)) + "\n" for p in prompts)
+    argv = [a for a in FLEET_ARGS if a != "--random-init"]
+    argv[argv.index("--max-new-tokens") + 1] = str(FLEET_NEW)
+    want, _ = serve_cli.run(argv + ["--checkpoint", paths[1], "--input-file", small])
+    same = sum(c["tokens"] == want[i].tokens for i, c in enumerate(got))
+
+    inflight, done = [], threading.Event()
+
+    def traffic(r):
+        try:
+            inflight.extend(client_batch(r.port, [{"prompt": p, "max_new_tokens": FLEET_NEW}
+                                                  for p in prompts]))
+        finally:
+            done.set()
+
+    threads = [threading.Thread(target=traffic, args=(r,), daemon=True) for r in (P, Q)]
+    for t in threads:
+        t.start()
+    wait_state(lambda: P.health()["active_slots"] > 0 or done.is_set(), "requests in flight")
+    n_events = len(events)
+    t0 = time.perf_counter()
+    refused = updater([D, P, Q]).run(paths[2])
+    rollback_s = time.perf_counter() - t0
+    for t in threads:
+        t.join(SERVER_WAIT)
+    drill = [e[0] for e in events[n_events:]]
+    after = {r.name: (r.health()["weights_version"], r.health()["weights_checkpoint"])
+             for r in (D, P, Q)}
+
+    pub_out, pub_err = pub.communicate(timeout=SERVER_WAIT)
+    with open(os.path.join(save_dir, "latest")) as f:
+        published = json.load(f)["published_unix"]
+    wait_state(lambda: W.health()["weights_version"] == 3, "the watcher's swap to model_3")
+    with open(os.path.join(W.dir, "metrics.jsonl")) as f:
+        swapped = next(r["_time"] for r in map(json.loads, f)
+                       if r.get("_event") == "serve_reload" and r.get("weights_version") == 3)
+    swap_s = swapped - published
+    # the drill's publish in this process: deploy.main, as the command runs it
+    faults.configure("deploy_corrupt_manifest")
+    try:
+        bad = deploy.main(["publish", paths[4]])
+        corrupted = faults.fire_count("deploy_corrupt_manifest")
+    finally:
+        faults.reset()
+
+    def rejected():
+        with open(W.log_path) as f:
+            return f"rejecting {paths[4]}" in f.read()
+
+    wait_state(rejected, "the watcher's reject of the corrupt model_4")
+    watched = W.health()
+    line = {"fleet_reload": "4 replicas", "rolled": rolled, "roll_s": roll_s,
+            "versions_after_roll": versions, "identical_to_inproc_checkpoint": same,
+            "requests": len(prompts), "drill_rolled_back": refused is False,
+            "drill_events": drill, "rollback_s": rollback_s, "versions_after_drill": after,
+            "inflight": len(inflight),
+            "inflight_finished": sum(c["final"] is not None and c["final"]["finish_reason"]
+                                     in ("length", "eos") for c in inflight),
+            "publish_rc": pub.returncode, "watch_swap_s": swap_s,
+            "watch_poll_s": FLEET_POLL_S, "corrupt_publish_rc": bad,
+            "manifest_corrupted": corrupted,
+            "watch_version_after_corrupt": watched["weights_version"],
+            "watch_checkpoint": watched["weights_checkpoint"]}
+    print(json.dumps(line))
+    if not rolled or any(v != (1, paths[1]) for v in versions.values()):
+        raise AssertionError(f"fleet_reload: the rolling update did not land: {line} {events}")
+    if same != len(prompts):
+        raise AssertionError(f"fleet_reload: after the swap, {len(prompts) - same} streams differ "
+                             "from an in-process engine on the checkpoint")
+    if (refused is not False or "deploy_reload_failed" not in drill or "deploy_rollback" not in drill
+            or any(v != (1, paths[1]) for v in after.values())):
+        raise AssertionError(f"fleet_reload: the deploy_reload drill did not roll the fleet back: "
+                             f"{line} {events[n_events:]}")
+    if line["inflight_finished"] != 2 * len(prompts):
+        raise AssertionError(f"fleet_reload: requests in flight during the update did not all "
+                             f"finish: {line}")
+    if pub.returncode != 0 or bad != 0 or corrupted != 1:
+        raise AssertionError(f"fleet_reload: publish failed: {pub_out} {pub_err[-2000:]} {line}")
+    if not swap_s <= 2 * FLEET_POLL_S + FLEET_RELOAD_S:
+        raise AssertionError(f"fleet_reload: the watcher took {swap_s:.2f} s to swap: {line}")
+    if watched["weights_version"] != 3 or watched["weights_checkpoint"] != paths[3]:
+        raise AssertionError(f"fleet_reload: the watcher acted on a corrupt publish: {line}")
+    return line
 
 
 def server_tenants(torch, base_ckpt, tenants, prompts_path):
@@ -4435,9 +5091,13 @@ def f32_contiguous(torch, device):
 # the memory levers (an nf4 base, the chunked loss, the remat policies)
 CHUNKED_LOSS_TOL = 2e-3  # chunked@pythia_1b's losses against pythia_train's, bf16
 REMAT_LOSS_TOL = 1e-5  # remat@pythia_1b's losses against pythia_train's
-# dots_all is left to the CPU tests: on the flash path it saves what dots saves
-REMAT_POLICIES = ("full", "dots", "dots_narrow")
+# dots_all and dots_narrow are left to the CPU tests (tests/test_torch_memory_levers.py:
+# gradients bit-equal to no remat, recomputed matmuls counted): on the flash
+# path dots_all saves what dots saves, and dots_narrow sits between full and dots
+REMAT_POLICIES = ("full", "dots")
 NF4_ARGS = ["--quantize", "nf4"]
+NF4_SERVE_NEW = 16  # nf4_serve's new tokens a request
+NF4_SERVE_PROMPTS = 8  # nf4_serve drains the first 8 prompts (one batch)
 
 
 def nf4_param_bytes(model_name, r):
@@ -4480,7 +5140,7 @@ def memory_line(label, line, beside):
 
 def nf4_serve(torch, prompts, checkpoint):
     """Phase nf4_serve: nf4_train's checkpoint drained by ``serve_cli
-    --paged`` over the 16 prompts merged (``merged_params`` dequantizes the
+    --paged`` over the first NF4_SERVE_PROMPTS prompts merged (``merged_params`` dequantizes the
     base and adds the delta), then ``--no-merge`` (the nf4 LoRALinear on the
     plain path: no projection asks the cost model); kernel 1 in both.  The
     first forward's logits of the two within NOMERGE_LOGIT_TOL; tokens/s of
@@ -4490,7 +5150,8 @@ def nf4_serve(torch, prompts, checkpoint):
     from relora_tpu_torch.ops import attention as A
 
     common = ["--model_config", "llama_250m", "--dtype", "bf16", "--max-batch", "8", "--paged",
-              "--max-new-tokens", "64", "--input-file", prompts, "--checkpoint", checkpoint]
+              "--max-new-tokens", str(NF4_SERVE_NEW), "--input-file",
+              head_prompts(prompts, NF4_SERVE_PROMPTS, "nf4_prompts.txt"), "--checkpoint", checkpoint]
     first = read_prompts(prompts)[0]
     out, launches = {}, 0
     for label, extra in (("merged", []), ("nomerge", ["--no-merge"])):
@@ -4508,7 +5169,7 @@ def nf4_serve(torch, prompts, checkpoint):
                       "nf4_projections": sum(getattr(m, "quantize", None) == "nf4" for m in projections),
                       "cost_model_calls": sum(arms.calls.values())}
         launches += A.paged_decode_attention.launches
-        if len(tokens) != 16 or not all(0 <= tok < 32100 for t in tokens for tok in t):
+        if len(tokens) != NF4_SERVE_PROMPTS or not all(0 <= tok < 32100 for t in tokens for tok in t):
             raise AssertionError(f"nf4_serve {label}: malformed completions")
     want = out["merged"]["logits"]
     err = (out["nomerge"]["logits"] - want).abs().max().item() / max(1.0, want.abs().max().item())
@@ -4530,13 +5191,14 @@ def nf4_serve(torch, prompts, checkpoint):
     return launches
 
 
-def nf4_pythia(torch, corpus, warm, beside):
-    """Phase nf4_train@pythia_1b: the pythia train phase over an nf4 base
-    warm-started from ``warm``; its memory plan's parameter bytes must equal
-    :func:`nf4_param_bytes`, its peaks printed beside ``beside``'s."""
+def nf4_pythia(torch, corpus, warm, beside, pythia_args):
+    """Phase nf4_train@pythia_1b: the pythia train phase (``pythia_args``)
+    over an nf4 base warm-started from ``warm``; its memory plan's
+    parameter bytes must equal :func:`nf4_param_bytes`, its peaks printed
+    beside ``beside``'s."""
     launches, line = train(torch, corpus, f"nf4_train@{PYTHIA}", NF4_ARGS + ["--warmed_up_model", warm],
-                           base_args=PYTHIA_TRAIN_ARGS)
-    want = nf4_param_bytes(PYTHIA, LORA_R)
+                           base_args=pythia_args)
+    want = nf4_param_bytes(pythia_args[pythia_args.index("--model_config") + 1], LORA_R)
     got = line["telemetry"]["plan_params_bytes"]
     memory_line(f"nf4_train@{PYTHIA}", line, beside)
     print(json.dumps({"nf4_plan": PYTHIA, "params_bytes": got, "reckoned": want,
@@ -4560,13 +5222,13 @@ def check_losses(label, line, ref, tol):
         raise AssertionError(f"{label}: losses {worst:.3e} off pythia_train's, beyond {tol}")
 
 
-def memory_levers(torch, work, pythia_train_line):
+def memory_levers(torch, work, pythia_train_line, pythia_args):
     """Phases chunked@pythia_1b and remat@pythia_1b: pythia_train's run with
     ``--loss_impl chunked`` (8192-row chunks: 7 of the 50304 rows), then
     with ``--remat true`` under each of REMAT_POLICIES.  Each update's loss
     against pythia_train's (chunked within CHUNKED_LOSS_TOL, remat within
     REMAT_LOSS_TOL); the chunked peak below pythia_train's, the remat peaks
-    ordered full < dots_narrow < dots (each policy saves more).  Returns
+    ordered full < dots (each policy saves more).  Returns
     the runs' kernel launches."""
     corpus = write_corpus(work, seq_length=2048)
     total = {}
@@ -4577,7 +5239,7 @@ def memory_levers(torch, work, pythia_train_line):
 
     launches, line = train(torch, corpus, f"chunked@{PYTHIA}",
                            ["--loss_impl", "chunked", "--vocab_chunk", "8192"],
-                           base_args=PYTHIA_TRAIN_ARGS)
+                           base_args=pythia_args)
     add(launches)
     check_losses(f"chunked@{PYTHIA}", line, pythia_train_line, CHUNKED_LOSS_TOL)
     if not line["peak_gib"] < pythia_train_line["peak_gib"]:
@@ -4588,14 +5250,14 @@ def memory_levers(torch, work, pythia_train_line):
     for policy in REMAT_POLICIES:
         launches, line = train(torch, corpus, f"remat_{policy}@{PYTHIA}",
                                ["--remat", "true", "--remat_policy", policy],
-                               base_args=PYTHIA_TRAIN_ARGS)
+                               base_args=pythia_args)
         add(launches)
         check_losses(f"remat_{policy}@{PYTHIA}", line, pythia_train_line, REMAT_LOSS_TOL)
         peaks[policy] = line["peak_gib"]
         torch.cuda.empty_cache()
     print(json.dumps({"remat_peaks_gib": peaks, "no_remat_peak_gib": pythia_train_line["peak_gib"]}))
-    if not peaks["full"] < peaks["dots_narrow"] < peaks["dots"]:
-        raise AssertionError(f"remat@{PYTHIA}: peaks {peaks} not ordered full < dots_narrow < dots: "
+    if not peaks["full"] < peaks["dots"]:
+        raise AssertionError(f"remat@{PYTHIA}: peaks {peaks} not ordered full < dots: "
                              "a policy whose peak does not rise saved nothing")
     return total
 
@@ -4611,8 +5273,8 @@ def f32_nf4(torch, device, pythia_warm):
     ``--lora_fused true`` (down_proj through kernels 4-int8, 6-int8, 7, the
     nf4 projections plain) and unfused (down_proj through kernel 8), each
     against the same update on the CPU (loss and layer-0 gradients, as
-    f32-train).  Then quantize_nf4 of pythia_1b's warm-start weights (layers
-    0 and 15) on the card against the CPU: codes equal apart from ties (a
+    f32-train).  Then quantize_nf4 of pythia_1b's warm-start weights (its
+    first and last layers) on the card against the CPU: codes equal apart from ties (a
     value at a midpoint within an ulp), bscale_q within one step.  Returns
     the kernels' launches on the card."""
     import numpy as np
@@ -4684,8 +5346,8 @@ def f32_nf4(torch, device, pythia_warm):
 
 
 def check_nf4_quantize(torch, device, pythia_warm):
-    """``quantize_nf4`` of pythia_1b's warm-start weights (layers 0 and 15)
-    on the card against the CPU: codes equal apart from ties (a value at a
+    """``quantize_nf4`` of pythia_1b's warm-start weights (its first and last
+    layers) on the card against the CPU: codes equal apart from ties (a value at a
     midpoint within an ulp, counted), ``bscale_q`` within one step (the
     per-column mean reduces in another order)."""
     from relora_tpu_torch.ops.quant import NF4_MIDPOINTS, quantize_nf4
@@ -4694,8 +5356,9 @@ def check_nf4_quantize(torch, device, pythia_warm):
     mids = torch.as_tensor(NF4_MIDPOINTS)
     stats = {"weights": 0, "codes": 0, "code_mismatches": 0, "ties": 0, "bscale_q_off": 0,
              "bscale_q_max_step": 0}
+    last = max(int(k.split(".")[2]) for k in src if k.startswith("gpt_neox.layers."))
     for key, w in src.items():
-        if not key.startswith(("gpt_neox.layers.0.", "gpt_neox.layers.15.")) or not key.endswith(
+        if not key.startswith(("gpt_neox.layers.0.", f"gpt_neox.layers.{last}.")) or not key.endswith(
                 "weight") or w.ndim != 2:
             continue
         wt = w.float().t()
@@ -4756,16 +5419,19 @@ def main() -> int:
         laps[name] = round(now - last[0], 1)
         last[0] = now
 
-    libs = _build.build_all()
-    print(f"build: {sorted(libs)} in {time.perf_counter() - t0:.1f}s")
+    # the -Xptxas -v compiles start with the build's, every nvcc at once
     ptxas = ptxas_report(_build.CSRC / "lora_matmul.cu", GROUPED_KERNELS + FWD_TC_KERNELS
                          + DX_TC_KERNELS + DEQUANT_TC_KERNELS + DAB_KERNELS)
     paged_ptxas = ptxas_report(_build.CSRC / "paged_attention.cu", PAGED_KERNELS)
     flash_ptxas = ptxas_report(_build.CSRC / "flash_attention.cu", FLASH_KERNELS)
-    count_hmma(libs["flash_attention"], FLASH_TC_KERNELS)
-    count_hmma(libs["lora_matmul"], GROUPED_TC_KERNELS + FWD_TC_KERNELS + DX_TC_KERNELS
-               + DEQUANT_TC_KERNELS + DAB_TC_KERNELS)
-    count_hmma(libs["paged_attention"], PAGED_TC_KERNELS)
+    libs = _build.build_all()
+    print(f"build: {sorted(libs)} in {time.perf_counter() - t0:.1f}s")
+    # the three cuobjdump reads run together too
+    for report in [count_hmma(libs["flash_attention"], FLASH_TC_KERNELS),
+                   count_hmma(libs["lora_matmul"], GROUPED_TC_KERNELS + FWD_TC_KERNELS
+                              + DX_TC_KERNELS + DEQUANT_TC_KERNELS + DAB_TC_KERNELS),
+                   count_hmma(libs["paged_attention"], PAGED_TC_KERNELS)]:
+        report()
     paged_ptxas()
     flash_ptxas()
     lap("build")
@@ -4790,9 +5456,69 @@ def main() -> int:
     # the online front end: serve_cli --port over kernels 1 and 2
     server_launches, _ = server_drains(torch, prompts, inproc)
     server_launches["paged_decode_attention"] += server_overload(torch, prompts)[0]
-    server_subprocess(work, prompts, inproc)
-    server_f32(torch, work, prompts)
+    # the fleet tier's replica half: six serve_cli replicas share the card;
+    # they start while server_subprocess and server_f32 run (neither times
+    # the device)
+    fleet, fleet_dir, fleet_paths, (base, tenants) = fleet_launch(torch, work, device)
+    try:
+        server_subprocess(work, prompts, inproc)
+        server_f32(torch, work, prompts)
+    except BaseException:
+        fleet_stop(fleet, check=False)
+        raise
     lap("server")
+    fleet_ready(fleet)
+    try:
+        fleet_disagg_checks = fleet_disagg(fleet, prompts, inproc)
+        lap("fleet_disagg")
+        # the f32 phases time nothing: they run while two replicas read the
+        # fleet drain's device traces
+        f32_comparison(torch, device)
+        torch.cuda.empty_cache()
+        f32_spec_drains(torch, repeat, work)
+        torch.cuda.empty_cache()
+        f32_train(torch, device)
+        torch.cuda.empty_cache()
+        f32_fused(torch, device)
+        torch.cuda.empty_cache()
+        f32_adapters(torch, device, tenants)
+        torch.cuda.empty_cache()
+        f32_contiguous(torch, device)
+        for phase in (f32_train, f32_fused, f32_comparison):
+            torch.cuda.empty_cache()
+            phase(torch, device, PYTHIA)
+        torch.cuda.empty_cache()
+        f32_adapters(torch, device, None, PYTHIA)
+        torch.cuda.empty_cache()
+        warm = write_warm_start(torch, os.path.join(work, "warm_llama_250m"), device)
+        f32_int8(torch, device, warm)
+        torch.cuda.empty_cache()
+        pythia_args = pythia_train_args(work)
+        pythia_warm = write_warm_start(torch, os.path.join(work, f"warm_{PYTHIA}"), device,
+                                       model_config=pythia_args[pythia_args.index("--model_config") + 1],
+                                       dtype=torch.bfloat16)
+        torch.cuda.empty_cache()
+        f32_nf4_launches = f32_nf4(torch, device, pythia_warm)
+        torch.cuda.empty_cache()
+        lap("f32, f32-spec, f32-train, f32-fused, f32-adapters, f32_contiguous, f32-pythia, "
+            "f32-int8, f32-nf4")
+        fleet_disagg_checks()
+        fleet_reload(torch, fleet, prompts, fleet_dir, fleet_paths)
+    except BaseException:
+        fleet_stop(fleet, check=False)
+        raise
+    fleet_launches = fleet_stop(fleet)
+    print(json.dumps({"fleet_launches": fleet_launches,
+                      "tdecode_launches": fleet["tdecode"].launches}))
+    for kernel in server_launches:
+        if not fleet_launches.get(kernel):
+            raise AssertionError(f"fleet: no replica launched {kernel}: {fleet_launches}")
+        server_launches[kernel] += fleet_launches[kernel]
+    if not fleet["tdecode"].launches.get("grouped_lora_matmul"):
+        raise AssertionError(f"fleet: the tenant receiver never launched kernel 5: "
+                             f"{fleet['tdecode'].launches}")
+    shutil.rmtree(fleet_dir, ignore_errors=True)
+    lap("fleet_reload")
     paged_rows = {row["name"]: row for row in rows}
     for name, row in paged_rows.items():
         if name.endswith(PYTHIA):
@@ -4800,18 +5526,11 @@ def main() -> int:
         kernel = name.removesuffix("_verify")
         row["launches"] = window[kernel] if name != kernel else (
             launches[kernel] + spec_launches[kernel] + server_launches[kernel])
-    f32_comparison(torch, device)
-    torch.cuda.empty_cache()
-    f32_spec_drains(torch, repeat, work)
-    torch.cuda.empty_cache()
-    lap("f32, f32-spec")
     launches, _ = train(torch, write_corpus(work))
     take_launches(flash_rows, launches)
     rows += flash_rows
     torch.cuda.empty_cache()
-    f32_train(torch, device)
-    torch.cuda.empty_cache()
-    lap("train, f32-train")
+    lap("train")
     lora_rows = check_lora_kernels(torch, device)
     torch.cuda.empty_cache()
     launches, _ = train(torch, write_corpus(work), "fused_train",
@@ -4821,12 +5540,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     profile_train(torch, write_corpus(work))
     torch.cuda.empty_cache()
-    f32_fused(torch, device)
-    torch.cuda.empty_cache()
-    lap("kernels-4, fused_train, profile_train, f32-fused")
+    lap("kernels-4, fused_train, profile_train")
     int8_rows = check_int8_kernels(torch, device)
     torch.cuda.empty_cache()
-    warm = write_warm_start(torch, os.path.join(work, "warm_llama_250m"), device)
     int8 = ["--quantize", "int8", "--warmed_up_model", warm]
     int8_dir = os.path.join(work, "int8_llama_250m")
     shutil.rmtree(int8_dir, ignore_errors=True)
@@ -4838,24 +5554,19 @@ def main() -> int:
     take_launches(int8_rows, launches)
     rows += int8_rows
     torch.cuda.empty_cache()
-    f32_int8(torch, device, warm)
-    torch.cuda.empty_cache()
-    lap("kernels-8, int8_train, int8_fused_train, f32-int8")
+    lap("kernels-8, int8_train, int8_fused_train")
     ptxas()
     grouped_rows = check_grouped_kernels(torch, device)
     torch.cuda.empty_cache()
-    base, tenants = write_adapter_checkpoints(torch, work, device)
-    torch.cuda.empty_cache()
     grouped_rows[0]["launches"], k1, k1_window = adapter_drains(torch, device, prompts, base,
                                                                  tenants, repeat)
+    grouped_rows[0]["launches"] += fleet_launches["grouped_lora_matmul"]
     paged_rows["paged_decode_attention"]["launches"] += k1
     paged_rows["paged_decode_attention_verify"]["launches"] += k1_window
     grouped_rows[0]["launches"] += server_tenants(torch, base, tenants, prompts)
     rows += grouped_rows
     torch.cuda.empty_cache()
-    f32_adapters(torch, device, tenants)
-    torch.cuda.empty_cache()
-    lap("kernels-5, adapters, f32-adapters")
+    lap("kernels-5, adapters")
 
     # the reference's default serving mode: the contiguous engine, its
     # scheduler (kernel 5 for tenants), generate, the server over it
@@ -4865,7 +5576,6 @@ def main() -> int:
     grouped_rows[1]["launches"] += prefill_launches
     generate_phase(torch, prompts, contiguous)
     contiguous_server(torch, prompts, contiguous)
-    f32_contiguous(torch, device)
     torch.cuda.empty_cache()
     lap("contiguous phases")
 
@@ -4891,35 +5601,33 @@ def main() -> int:
     torch.cuda.empty_cache()
     lap("auto-arms, auto_train, resume, nomerge")
 
-    # the NeoX family at pythia_1b: its drains, its two train phases, its f32 checks
-    take_launches(paged_rows.values(), pythia_drains(torch, prompts), PYTHIA)
+    # the NeoX family at pythia_1b: its drains and train phases
+    take_launches(paged_rows.values(), pythia_drains(
+        torch, prompts, pythia_args[pythia_args.index("--model_config") + 1]), PYTHIA)
     lap("pythia-drains")
     corpus = write_corpus(work, seq_length=2048)
     launches, pythia_line = train(torch, corpus, "pythia_train", ["--log_every", "4"],
-                                  base_args=PYTHIA_TRAIN_ARGS)
+                                  base_args=pythia_args)
     take_launches(flash_rows, launches, PYTHIA)
-    torch.cuda.empty_cache()
-    pythia_warm = write_warm_start(torch, os.path.join(work, f"warm_{PYTHIA}"), device,
-                                   model_config=PYTHIA, dtype=torch.bfloat16)
     torch.cuda.empty_cache()
     take_launches(lora_rows, train(
         torch, corpus, "pythia_fused_train",
         ["--lora_fused", "true", "--lora_dropout", "0", "--warmed_up_model", pythia_warm],
-        base_args=PYTHIA_TRAIN_ARGS)[0], PYTHIA)
+        base_args=pythia_args)[0], PYTHIA)
     torch.cuda.empty_cache()
     # pythia_1b over an int8 base: kernel 8, then 4-int8, 6-int8 and 7
     int8 = ["--quantize", "int8", "--warmed_up_model", pythia_warm]
     launches, int8_pythia_line = train(torch, corpus, f"int8_train@{PYTHIA}", int8,
-                                       base_args=PYTHIA_TRAIN_ARGS)
+                                       base_args=pythia_args)
     take_launches(int8_rows, launches, PYTHIA)
     torch.cuda.empty_cache()
     launches, _ = train(torch, corpus, f"int8_fused_train@{PYTHIA}",
                         int8 + ["--lora_fused", "true", "--lora_dropout", "0"],
-                        base_args=PYTHIA_TRAIN_ARGS)
+                        base_args=pythia_args)
     take_launches(int8_rows + lora_rows, launches, PYTHIA)
     torch.cuda.empty_cache()
     take_launches(lora_rows, train(torch, corpus, f"auto_train@{PYTHIA}", RESUME_ARGS,
-                                   base_args=PYTHIA_TRAIN_ARGS)[0], PYTHIA)
+                                   base_args=pythia_args)[0], PYTHIA)
     lap("pythia train phases")
 
     # the memory levers: an nf4 base trained, served merged and unmerged,
@@ -4936,19 +5644,12 @@ def main() -> int:
         torch, prompts, os.path.join(nf4_dir, f"model_{TRAIN_UPDATES}"))
     torch.cuda.empty_cache()
     take_launches(flash_rows, nf4_pythia(torch, corpus, pythia_warm, {
-        f"int8_train@{PYTHIA}": int8_pythia_line, "pythia_train": pythia_line}), PYTHIA)
+        f"int8_train@{PYTHIA}": int8_pythia_line, "pythia_train": pythia_line}, pythia_args), PYTHIA)
     torch.cuda.empty_cache()
-    take_launches(flash_rows, memory_levers(torch, work, pythia_line), PYTHIA)
+    take_launches(flash_rows, memory_levers(torch, work, pythia_line, pythia_args), PYTHIA)
     torch.cuda.empty_cache()
-    take_launches(rows, f32_nf4(torch, device, pythia_warm))
-    torch.cuda.empty_cache()
-    lap("nf4_train, nf4_serve, nf4@pythia_1b, chunked, remat, f32-nf4")
-    for phase in (f32_train, f32_fused, f32_comparison):
-        torch.cuda.empty_cache()
-        phase(torch, device, PYTHIA)
-    torch.cuda.empty_cache()
-    f32_adapters(torch, device, None, PYTHIA)
-    lap("f32-pythia")
+    take_launches(rows, f32_nf4_launches)
+    lap("nf4_train, nf4_serve, nf4@pythia_1b, chunked, remat")
 
     print(json.dumps({"phase_seconds": laps, "total_s": time.perf_counter() - t0}))
     print(json.dumps({"kernels": rows}))
@@ -4972,54 +5673,31 @@ def device_profile(torch, fn):
     intervals, so overlapping streams are not counted twice."""
     from torch.profiler import ProfilerActivity, profile
 
+    from relora_tpu_torch.utils.profiling import busy_ns, kineto_intervals
+
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         result = fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    intervals, by_name = kineto_intervals(torch, prof)
+    intervals, by_name = kineto_intervals(prof)
     if not intervals:
         raise AssertionError("the profiler traced no device time")
     return result, wall, busy_ns(intervals) / 1e9, by_name
 
 
-def kineto_intervals(torch, prof):
-    """The device kernels' ``[(start ns, end ns)]`` and ``{name cut to 80
-    characters: µs}`` from the profiler's raw records: ``prof.events()``
-    builds an object tree over them first, about a minute over a drain's
-    10^5 kernels (:func:`check_profile_readers` holds the two readers
-    equal)."""
-    intervals, by_name = [], {}
-    for ev in prof.profiler.kineto_results.events():
-        if ev.device_type() == torch.autograd.DeviceType.CUDA and ev.duration_ns() > 0:
-            start = ev.start_ns()
-            intervals.append((start, start + ev.duration_ns()))
-            name = ev.name()[:80]
-            by_name[name] = by_name.get(name, 0.0) + ev.duration_ns() / 1e3
-    return intervals, by_name
-
-
-def busy_ns(intervals):
-    """The length of the union of ``intervals``, so that overlapping
-    streams are not counted twice."""
-    busy, end = 0, None
-    for s, e in sorted(intervals):
-        if end is None or s > end:
-            busy += e - s
-            end = e
-        elif e > end:
-            busy += e - end
-            end = e
-    return busy
-
-
 def check_profile_readers(torch, device):
-    """:func:`device_profile`'s reader against ``prof.events()`` (the
-    profiler's public reader) on one small profiled region: matmuls,
-    softmaxes, host-to-device copies and memsets on two streams, 200 rounds.
-    Fails unless both see the same number of device intervals, the same
-    busy time and the same time per kernel name within 1e-6 relative."""
+    """The port's one reader of the profiler's raw records
+    (``utils/profiling.kineto_intervals`` and ``busy_ns``, which
+    :func:`device_profile` and every replica's ``/admin/profile`` window
+    use) against ``prof.events()`` (the profiler's public reader) on one
+    small profiled region: matmuls, softmaxes, host-to-device copies and
+    memsets on two streams, 200 rounds.  Fails unless both see the same
+    number of device intervals, the same busy time and the same time per
+    kernel name within 1e-6 relative."""
     from torch.profiler import ProfilerActivity, profile
+
+    from relora_tpu_torch.utils.profiling import busy_ns, kineto_intervals
 
     host = torch.randn((256, 256)).pin_memory()
     x = torch.randn((256, 256), device=device)
@@ -5033,7 +5711,7 @@ def check_profile_readers(torch, device):
                 y.zero_()
             x = z + 1e-3 * y
         torch.cuda.synchronize()
-    raw, raw_names = kineto_intervals(torch, prof)
+    raw, raw_names = kineto_intervals(prof)
     tree, tree_names = [], {}
     for ev in prof.events():
         if ev.device_type == torch.autograd.DeviceType.CUDA and ev.time_range.elapsed_us() > 0:

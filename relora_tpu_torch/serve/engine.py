@@ -41,7 +41,12 @@ same object, so the call shape stays ``logits, cache = engine.step(cache,
 ...)``.  Every forward runs under ``torch.inference_mode()``.
 
 ``warmup`` runs each serving shape once, so an online server builds the
-kernels before it reports ready.  Page migration is not ported yet.
+kernels before it reports ready.
+
+The fleet tier (``relora_tpu/serve/engine.py:668-722``, ``:1037-1140``):
+``reload_params`` swaps the serving weights in place (a hot swap between
+decode rounds); ``export_page_run`` and ``import_page_run`` move a request's
+page run between two replicas of one config for disaggregated serving.
 """
 
 from __future__ import annotations
@@ -353,6 +358,151 @@ class InferenceEngine:
         :class:`~relora_tpu_torch.serve.adapters.AdapterRegistry` wants."""
         self._require_slots()
         return self.write_adapter_slot
+
+    # -- weight hot swap -----------------------------------------------------------
+
+    @torch.no_grad()
+    def reload_params(self, params: Mapping[str, torch.Tensor]) -> None:
+        """Swap the serving weights for ``params`` in place
+        (``relora_tpu/serve/engine.py:668-722``), a host state dict such as
+        ``train/checkpoint.restore_serving_params`` returns.  Every live
+        tensor needs a twin of its shape, and no incoming name may be
+        unknown; all of it is checked, and every dtype cast on the host,
+        before the first device write, so a refused dict leaves the live
+        weights untouched.  Then each tensor is copied into the live one's
+        storage, one at a time: no second full set of weights is held on
+        the device.  On an engine with adapter slots the LoRA leaves (the
+        tenants' slabs) are not touched.  Errors of the copies surface here,
+        not at the next decode."""
+        live = self.model.state_dict()
+        extra = sorted(set(params) - set(live))
+        if extra:
+            raise ValueError(
+                f"reload: checkpoint leaf {extra[0]!r} does not exist in the live tree "
+                "(wrong model config?)"
+            )
+        staged = []
+        for name, value in live.items():
+            if self.adapter_slots and is_lora_name(name):
+                continue  # tenant slabs survive a base reload
+            if name not in params:
+                raise ValueError(f"reload: checkpoint is missing leaf {name!r}")
+            new = torch.as_tensor(params[name])
+            if tuple(new.shape) != tuple(value.shape):
+                raise ValueError(
+                    f"reload: shape mismatch at {name!r}: checkpoint {tuple(new.shape)} "
+                    f"vs live {tuple(value.shape)}"
+                )
+            staged.append((value, new.to(value.dtype)))
+        for value, new in staged:
+            value.copy_(new)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    # -- page-run migration (disaggregated serving) ----------------------------------
+
+    def page_run_buckets(self) -> Tuple[int, ...]:
+        """Page counts a migration gathers and scatters at: powers of two up
+        to ``block_table_width`` and the width itself; a run's ids pad with
+        the null page to the next one."""
+        self._require_paged()
+        buckets: List[int] = []
+        t = 1
+        while t < self.block_table_width:
+            buckets.append(t)
+            t *= 2
+        buckets.append(self.block_table_width)
+        return tuple(buckets)
+
+    def _page_run_bucket(self, n: int) -> int:
+        for b in self.page_run_buckets():
+            if b >= n:
+                return b
+        raise ValueError(f"page run of {n} pages exceeds block_table_width {self.block_table_width}")
+
+    def _page_run_leaves(self, pool: Pool):
+        """``(name, tensor)`` of every pool leaf, pages on axis 0:
+        ``layers.{i}.k``, ``layers.{i}.v`` and, int8,
+        ``layers.{i}.k_scale``, ``layers.{i}.v_scale``."""
+        for i, layer in enumerate(pool):
+            for leaf, t in layer.items():
+                yield f"layers.{i}.{leaf}", t
+
+    @staticmethod
+    def _dtype_name(dtype: torch.dtype) -> str:
+        return str(dtype).removeprefix("torch.")
+
+    def export_page_run(
+        self, pool: Pool, pages: Sequence[int]
+    ) -> List[Tuple[str, str, Tuple[int, ...], bytes]]:
+        """A page run's slices of every pool leaf as host bytes, ready for
+        ``wire.encode_page_run`` (``relora_tpu/serve/engine.py:1060-1084``):
+        one ``index_select`` per leaf at the run's padded bucket, one copy to
+        the host, then a trim to ``len(pages)``.  Entries are ``(name,
+        dtype, shape, bytes)``, named ``layers.{i}.{k|v|k_scale|v_scale}``
+        (an int8 pool's codes travel with their per-page scales).  The JAX
+        pool stacks its layers under one name, so a frame goes only between
+        replicas of the port with one config."""
+        self._require_paged()
+        n = len(pages)
+        if n < 1:
+            raise ValueError("empty page run")
+        bucket = self._page_run_bucket(n)
+        ids = torch.as_tensor(list(pages) + [0] * (bucket - n), dtype=torch.long,
+                              device=self.device)
+        gathered = [(name, t.index_select(0, ids)) for name, t in self._page_run_leaves(pool)]
+        out = []
+        for name, t in gathered:
+            host = t.cpu()[:n].contiguous()
+            out.append((name, self._dtype_name(host.dtype), tuple(host.shape),
+                        host.view(torch.uint8).numpy().tobytes()))
+        return out
+
+    def import_page_run(
+        self,
+        pool: Pool,
+        pages: Sequence[int],
+        entries: Sequence[Tuple[str, str, Sequence[int], bytes]],
+    ) -> Pool:
+        """Scatter a received run into ``pages`` of ``pool``
+        (``relora_tpu/serve/engine.py:1086-1140``).  Every entry is checked
+        against the engine's own pool first (the name set; each dtype and
+        shape, pages axis ``len(pages)``; each payload's size), and any
+        mismatch raises ValueError before a byte lands.  Then one
+        ``index_copy_`` per leaf at the padded bucket (pad rows, zeros, land
+        in the null page) writes codes and scales together, so a recycled
+        page takes the donor's scale with its codes.  Returns the pool."""
+        self._require_paged()
+        n = len(pages)
+        if n < 1:
+            raise ValueError("empty page run")
+        bucket = self._page_run_bucket(n)
+        leaves = dict(self._page_run_leaves(pool))
+        got = {e[0]: e for e in entries}
+        if set(got) != set(leaves):
+            raise ValueError(
+                f"page-run leaves mismatch: got {sorted(got)}, want {sorted(leaves)}"
+            )
+        staged = []
+        for name, t in leaves.items():
+            _, dtype, shape, raw = got[name]
+            want = [n, *t.shape[1:]]
+            if str(dtype) != self._dtype_name(t.dtype) or list(shape) != want:
+                raise ValueError(
+                    f"page-run leaf {name!r}: got {dtype}{list(shape)}, "
+                    f"want {self._dtype_name(t.dtype)}{want}"
+                )
+            if len(raw) != int(np.prod(want)) * t.element_size():
+                raise ValueError(f"page-run leaf {name!r}: payload size mismatch")
+            staged.append((t, raw, want))
+        ids = torch.as_tensor(list(pages) + [0] * (bucket - n), dtype=torch.long,
+                              device=self.device)
+        with torch.inference_mode():
+            for t, raw, want in staged:
+                host = torch.zeros((bucket, *want[1:]), dtype=t.dtype)
+                host[:n] = torch.frombuffer(bytearray(raw), dtype=t.dtype).reshape(want)
+                t.index_copy_(0, ids, host.to(self.device))
+        return pool
 
     # -- step functions ----------------------------------------------------------
 

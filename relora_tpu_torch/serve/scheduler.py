@@ -43,8 +43,19 @@ output is the plain drain's token for token.  A row drafts at most its
 remaining budget minus one, so no window writes past the request's
 admission allocation and a rejected draft needs no rollback.  A round in
 which no row drafted takes the plain decode.  Packed rounds carry the
-windows inside the one ``step_paged`` dispatch.  Disaggregated roles are
-not ported yet; asking for one raises.
+windows inside the one ``step_paged`` dispatch.
+
+Disaggregated roles (``role="prefill"`` / ``"decode"``,
+``relora_tpu/serve/scheduler.py:731-761``, ``:1036-1266``): a prefill-role
+scheduler hands each finished prompt's page run, with its first token, to
+``migration_sink`` (set by the server) and parks the slot as ``migrating``
+until the server reports the handoff's outcome: ``migration_commit`` (the
+peer finished the stream), ``migration_failed`` (no token reached the
+client: decode locally, token-identical) or ``migration_abort`` (the peer
+died mid-stream).  A decode-role scheduler adopts such a run through
+``submit_migrated`` into free pages and a free slot, at the donor's
+position and with the donor's uid, so the sampling keys ``(uid,
+token_index)`` do not change.  ``disagg_stats`` holds the counters.
 
 Telemetry (``relora_tpu/serve/scheduler.py``): ``metrics`` (a
 :class:`~relora_tpu_torch.utils.logging.MetricsLogger`) receives one
@@ -62,16 +73,18 @@ import dataclasses
 import logging
 import time
 from collections import deque
-from typing import Callable, Deque, Dict, Iterable, List, Optional, Sequence
+from typing import Any, Callable, Deque, Dict, Iterable, List, Optional, Sequence
 
 import numpy as np
 import torch
 
 from relora_tpu_torch.obs.tracer import NoopTracer
+from relora_tpu_torch.serve import wire
 from relora_tpu_torch.serve.adapters import BASE_ADAPTER
 from relora_tpu_torch.serve.engine import InferenceEngine, bucket_length
 from relora_tpu_torch.serve.paging import PageAllocator, PrefixCache, pages_needed
 from relora_tpu_torch.serve.sampling import request_generator, sample, spec_verify_draws
+from relora_tpu_torch.utils import faults
 
 logger = logging.getLogger(__name__)
 
@@ -79,10 +92,6 @@ logger = logging.getLogger(__name__)
 TokenCallback = Callable[[int, int, int], None]
 #: called exactly once per request with its Completion
 FinishCallback = Callable[["Completion"], None]
-
-
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported to relora_tpu_torch yet")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -598,6 +607,7 @@ class _PagedSlot(_Slot):
     decoding: bool = False  # first token sampled; joins the decode batch
     seq: int = 0  # admission order; prefill is scheduled oldest-first
     draft_pages: List[int] = dataclasses.field(default_factory=list)  # spec="model"
+    migrating: bool = False  # the handoff to a decode peer is in flight
 
 
 class PagedContinuousBatchingScheduler(ContinuousBatchingScheduler):
@@ -619,6 +629,8 @@ class PagedContinuousBatchingScheduler(ContinuousBatchingScheduler):
         **kwargs,
     ):
         super().__init__(engine, **kwargs)
+        if role not in ("prefill", "decode", "mixed"):
+            raise ValueError(f"role must be 'prefill', 'decode', or 'mixed', got {role!r}")
         if spec not in ("off", "ngram", "model"):
             raise ValueError(f"spec must be 'off', 'ngram', or 'model', got {spec!r}")
         if spec != "off" and getattr(engine, "spec_k", 0) < 1:
@@ -645,9 +657,14 @@ class PagedContinuousBatchingScheduler(ContinuousBatchingScheduler):
             # base and draft prefill stay in lockstep, so prefix sharing
             # (which skips base prefill the draft still needs) is off
             prefix_cache = False
-        if role != "mixed":
-            raise _not_ported(f"disaggregated serving (role={role!r})")
+        # the disaggregated tier: the server sets migration_sink on a
+        # prefill-role scheduler (called on the model thread; must not block)
         self.role = role
+        self.migration_sink: Optional[Callable[[Dict[str, Any], list], bool]] = None
+        self._pages_migrated = 0
+        self._migration_bytes = 0
+        self._migration_failures = 0
+        self._migrated_inserts = 0
         if not getattr(engine, "paged", False):
             raise ValueError("PagedContinuousBatchingScheduler needs a paged engine")
         self._spec = spec
@@ -814,15 +831,247 @@ class PagedContinuousBatchingScheduler(ContinuousBatchingScheduler):
         self._draft_tables[slot_idx, : len(slot.draft_pages)] = slot.draft_pages
         self._emit_token(req.uid, first_id, 0)
         self._finish_if_done(slot_idx, finished)
+        self._maybe_migrate(slot_idx)
+
+    # -- the disaggregated handoff (prefill role -> decode peer) ---------------------
+
+    def _find_slot(self, uid: int) -> Optional[int]:
+        for slot_idx, slot in enumerate(self._slots):
+            if slot is not None and slot.request.uid == uid:
+                return slot_idx
+        return None
+
+    def _maybe_migrate(self, slot_idx: int) -> None:
+        """Donor side: a prefill-role scheduler whose slot just finished its
+        prompt exports the prompt's page run and hands ``(record, entries)``
+        to ``migration_sink``.  The slot parks as ``migrating``, out of the
+        prefill and decode sets, until the server resolves it.  A failed
+        export or a refusing sink fails open: the slot decodes locally."""
+        if self.role != "prefill" or self.migration_sink is None:
+            return
+        slot = self._slots[slot_idx]
+        if slot is None or slot.migrating or not slot.decoding:
+            return  # finished at its first token
+        req = slot.request
+        n_pages = pages_needed(len(req.prompt), self.engine.page_size)
+        try:
+            faults.maybe_fail("serve_migrate")
+            entries = self.engine.export_page_run(self._ensure_pool(), slot.pages[:n_pages])
+        except Exception as e:
+            logger.warning(f"request {req.uid}: page-run export failed: {e!r}")
+            self._count_migration_failure(req.uid, f"export failed: {e}")
+            return  # the slot keeps decoding here, untouched
+        record = wire.build_migration_record(
+            uid=req.uid,
+            prompt=req.prompt,
+            max_new_tokens=req.max_new_tokens,
+            temperature=req.temperature,
+            top_p=req.top_p,
+            spec=req.spec,
+            adapter=req.adapter,
+            first_token=slot.tokens[0],
+            position=slot.pos,
+            token_index=len(slot.tokens),
+            n_pages=n_pages,
+        )
+        # park: the decode row goes back to the null table, so this round's
+        # and every later round's write of it lands in the null page
+        slot.migrating = True
+        slot.decoding = False
+        self._tokens[slot_idx] = 0
+        self._positions[slot_idx] = 0
+        self._tables[slot_idx, :] = 0
+        ok = False
+        try:
+            ok = bool(self.migration_sink(record, entries))
+        except Exception as e:
+            logger.warning(f"request {req.uid}: migration sink failed: {e!r}")
+        if not ok:
+            self.migration_failed(req.uid, "sink rejected handoff")
+
+    def migration_failed(self, uid: int, detail: Optional[str] = None) -> None:
+        """Fail open: the handoff ended before the peer relayed a token, so
+        decoding resumes here exactly where the prefill left it (the same
+        keys and token indices); counted as a migration failure."""
+        slot_idx = self._find_slot(uid)
+        if slot_idx is None:
+            return  # cancelled or expired while the transfer was in flight
+        slot = self._slots[slot_idx]
+        if not slot.migrating:
+            return
+        slot.migrating = False
+        slot.decoding = True
+        self._tokens[slot_idx] = slot.tokens[-1]
+        self._positions[slot_idx] = slot.pos
+        self._tables[slot_idx, : len(slot.pages)] = slot.pages
+        self._count_migration_failure(uid, detail)
+
+    def _count_migration_failure(self, uid: int, detail: Optional[str]) -> None:
+        self._migration_failures += 1
+        logger.warning(
+            f"request {uid}: migration failed open to local decode"
+            + (f" ({detail})" if detail else "")
+        )
+        if self.obs_registry is not None:
+            self.obs_registry.inc("migration_failures_total")
+
+    def migration_commit(self, uid: int, bytes_sent: int = 0) -> Optional[Completion]:
+        """The peer took the run and the relay delivered its finish: retire
+        the donor slot without firing the client's callbacks (the relay owns
+        that stream) and free its pages; counts the pages and bytes."""
+        slot_idx = self._find_slot(uid)
+        if slot_idx is None or not self._slots[slot_idx].migrating:
+            return None
+        slot = self._slots[slot_idx]
+        self._on_token.pop(uid, None)
+        self._on_finish.pop(uid, None)
+        n_pages = pages_needed(len(slot.request.prompt), self.engine.page_size)
+        self._pages_migrated += n_pages
+        self._migration_bytes += bytes_sent
+        if self.obs_registry is not None:
+            self.obs_registry.inc("pages_migrated_total", by=n_pages)
+            self.obs_registry.inc("migration_bytes_total", by=bytes_sent)
+        return self._retire(slot_idx, "migrated")
+
+    def migration_abort(self, uid: int, detail: Optional[str] = None) -> Optional[Completion]:
+        """The peer died after relaying a token: the request cannot be
+        replayed, so the server sends the client a typed error finish and
+        this retires the donor slot without firing the callbacks."""
+        slot_idx = self._find_slot(uid)
+        if slot_idx is None or not self._slots[slot_idx].migrating:
+            return None
+        self._on_token.pop(uid, None)
+        self._on_finish.pop(uid, None)
+        self._count_migration_failure(uid, detail or "peer died mid-relay")
+        return self._retire(slot_idx, "error", detail or "migration_failed")
+
+    def submit_migrated(
+        self,
+        record: Dict[str, Any],
+        entries: Sequence,
+        *,
+        on_token: Optional[TokenCallback] = None,
+        on_finish: Optional[FinishCallback] = None,
+        deadline: Optional[float] = None,
+        trace_id: Optional[str] = None,
+    ) -> None:
+        """Receiver side: adopt a migrated request straight into a decoding
+        slot.  Its run is scattered into freshly allocated pages, the decode
+        row armed at the donor's position with the donor's first token, and
+        the uid kept, so sampling continues with the keys ``(uid,
+        token_index)`` unchanged: token-identical to a mixed replica.
+        Raises on any missed precondition (a uid in flight, no free slot,
+        no adapter capacity, an exhausted pool, an inconsistent or malformed
+        run) with nothing allocated: the donor then decodes locally."""
+        fields = wire.parse_migration_record(record)
+        req = Request(
+            uid=fields["uid"],
+            prompt=fields["prompt"],
+            max_new_tokens=fields["max_new_tokens"],
+            temperature=fields["temperature"],
+            top_p=fields["top_p"],
+            spec=fields["spec"],
+            adapter=fields["adapter"],
+        )
+        self.validate_request(req)
+        if req.uid in self._deadlines or req.uid in self._on_finish or any(
+            r.uid == req.uid for r in self._pending
+        ) or self._find_slot(req.uid) is not None:
+            raise ValueError(f"migrated request {req.uid}: uid already in flight")
+        L = len(req.prompt)
+        n_pages = fields["n_pages"]
+        if fields["position"] != L or n_pages != pages_needed(L, self.engine.page_size):
+            raise ValueError(
+                f"migrated request {req.uid}: inconsistent run "
+                f"(position {fields['position']}, n_pages {n_pages}, prompt {L})"
+            )
+        slot_idx = next((i for i in range(self.max_batch) if self._slots[i] is None), None)
+        if slot_idx is None:
+            raise RuntimeError(f"migrated request {req.uid}: no free slot")
+        adapter_slot = self._acquire_adapter(req)
+        if adapter_slot is None:
+            raise RuntimeError(f"migrated request {req.uid}: no adapter capacity")
+        try:
+            need = pages_needed(L + req.max_new_tokens, self.engine.page_size)
+            pages = self.allocator.alloc(need)
+            if pages is None and self.prefix_cache is not None:
+                self.prefix_cache.evict(need)
+                pages = self.allocator.alloc(need)
+            if pages is None:
+                raise RuntimeError(f"migrated request {req.uid}: pool exhausted")
+            try:
+                self._pool = self.engine.import_page_run(
+                    self._ensure_pool(), pages[:n_pages], entries
+                )
+            except Exception:
+                self.allocator.decref(pages)
+                raise
+        except Exception:
+            self._release_adapter(req)
+            raise
+        first = fields["first_token"]
+        now = time.monotonic()
+        self._slots[slot_idx] = _PagedSlot(
+            request=req,
+            pos=L,
+            tokens=[first],
+            t_admit=now,
+            t_first=now,
+            deadline=deadline,
+            span=self.tracer.start_span("decode", trace_id=trace_id, uid=req.uid),
+            adapter_slot=adapter_slot,
+            pages=pages,
+            prefill_progress=L,
+            decoding=True,
+            seq=self._admit_seq,
+        )
+        self._admit_seq += 1
+        if deadline is not None:
+            self._deadlines[req.uid] = deadline
+        if on_token is not None:
+            self._on_token[req.uid] = on_token
+        if on_finish is not None:
+            self._on_finish[req.uid] = on_finish
+        if trace_id is not None:
+            self._trace_ids[req.uid] = trace_id
+        self._tokens[slot_idx] = first
+        self._positions[slot_idx] = L
+        self._tables[slot_idx, :] = 0
+        self._tables[slot_idx, : len(pages)] = pages
+        self._ptables[slot_idx, :] = 0
+        self._ptables[slot_idx, : len(pages)] = pages
+        self._adapter_row[slot_idx] = adapter_slot
+        if self.prefix_cache is not None:
+            # the adopted prompt's pages serve later local hits as well
+            self.prefix_cache.register(list(req.prompt), pages, self._prefix_salt(req))
+        self._migrated_inserts += 1
+        if self.obs_registry is not None:
+            self.obs_registry.inc("migrated_inserts_total")
+
+    def disagg_stats(self) -> Dict:
+        """The disaggregation counters, the ``disagg`` block of
+        ``/healthz``: role, pages and bytes migrated, failures, adopted
+        runs (the prefix-fetch pair stays 0: the fleet prefix directory is
+        not ported)."""
+        return {
+            "role": self.role,
+            "pages_migrated": self._pages_migrated,
+            "migration_bytes": self._migration_bytes,
+            "migration_failures": self._migration_failures,
+            "migrated_inserts": self._migrated_inserts,
+            "prefix_fetches": 0,
+            "prefix_fetch_failures": 0,
+        }
 
     def _prefilling(self) -> List[int]:
-        """Slots still prefilling, oldest admission first."""
+        """Slots still prefilling, oldest admission first (a parked handoff
+        is neither prefilling nor decoding)."""
         return [
             i
             for _, i in sorted(
                 (s.seq, i)
                 for i, s in enumerate(self._slots)
-                if s is not None and not s.decoding
+                if s is not None and not s.decoding and not s.migrating
             )
         ]
 
@@ -1055,6 +1304,8 @@ class PagedContinuousBatchingScheduler(ContinuousBatchingScheduler):
             if self._dispatch_total > d0:
                 self._count_round()  # a round of prefill alone still dispatched
                 self._admit_time_s += admit_s
+            elif any(s is not None and s.migrating for s in self._slots):
+                time.sleep(0.001)  # only parked handoffs: no hot spin
             return finished
         t_decode = time.monotonic()
         if self._spec == "ngram":
@@ -1161,6 +1412,8 @@ class PagedContinuousBatchingScheduler(ContinuousBatchingScheduler):
 
         n_real = len(ids)
         if n_real == 0:
+            if any(s is not None and s.migrating for s in self._slots):
+                time.sleep(0.001)  # only parked handoffs: no hot spin
             return finished
         bucket = next(b for b in engine.packed_buckets() if b >= n_real)
         pad = bucket - n_real
@@ -1271,8 +1524,8 @@ class PagedContinuousBatchingScheduler(ContinuousBatchingScheduler):
             ):
                 reg.set_gauge(name, value)
             # by=0 materializes the counters, so /metrics shows every series
-            # from the first round (the migration and fetch counters stay 0:
-            # the disaggregated tier is not ported)
+            # from the first round (the prefix-fetch pair stays 0: the fleet
+            # prefix directory is not ported)
             for name in (
                 "model_dispatches_total", "sched_rounds_total", "dispatch_tokens_total",
                 "dispatch_tokens_real_total", "pages_migrated_total", "migration_bytes_total",
@@ -1358,6 +1611,7 @@ class PagedContinuousBatchingScheduler(ContinuousBatchingScheduler):
         if self._spec != "off":
             stats["spec"] = self.spec_stats()
         stats["dispatch"] = self.dispatch_stats()
+        stats["disagg"] = self.disagg_stats()
         return stats
 
     def dispatch_stats(self) -> Dict:

@@ -21,9 +21,45 @@ Endpoints:
   serving shapes), with the scheduler's ``paging`` block when it has a
   page pool.
 - ``GET /metrics`` — Prometheus text (``serve/admission.ServeMetrics``).
-- ``/admin/reload``, ``/internal/migrate``, ``/internal/prefix/*`` answer
-  501: weight hot-swap and the disaggregated tier are not ported yet
-  (ROADMAP Queue 1 item 4.4).
+- ``POST /admin/reload`` — body ``{"checkpoint": DIR}``: ``reload_prepare``
+  verifies and restores the checkpoint off the model thread (422 when it
+  refuses; 409 while another reload is pending), then the model thread
+  swaps the weights at its next idle boundary: claiming pauses, the
+  requests in flight finish on the old weights, nothing is dropped.  A
+  failed swap (500) keeps the old ``weights_version``.  ``/healthz`` carries
+  ``weights_version`` and ``weights_checkpoint``, every generate response
+  the ``X-Relora-Weights`` header.
+- ``POST /internal/migrate`` — a donor's page-run frame
+  (``wire.encode_page_run``; 400 when it does not decode): the run is
+  adopted into a decoding slot on the model thread and the continuation
+  streams back as SSE, which the donor relays to its client.  409 when the
+  scheduler refuses the run, while a reload is pending here (so the swap's
+  idle boundary is reached under steady handoffs), or when the record's
+  ``weights_version`` is not this replica's: K/V prefilled by other weights
+  never decodes here (the reference adopts it, ROADMAP Queue 3 item 0).
+- ``/internal/prefix/*`` answers 501: the fleet prefix directory waits for
+  the fleet front-end slice (ROADMAP Queue 1 item 5b).
+- ``POST /admin/profile`` — an operator route, unauthenticated like
+  ``/admin/reload`` (bind the server where only operators reach it).  Body
+  ``{"action": "start"}`` opens a device profile window
+  (``utils/profiling.DeviceWindow``) that closes itself after
+  ``PROFILE_MAX_S`` seconds, so a window nobody closes does not record
+  without end; ``{"action": "stop"}`` closes it (or takes the
+  window that closed itself, marked ``"expired": true``) and answers its
+  wall and device busy seconds and idle share: a replica's own share of a
+  card that several processes share.  The window's read costs ~0.1 ms a
+  kernel, on a thread of its own.
+
+Disaggregated serving (``role`` from the scheduler, ``peer_file`` the
+``peers.json`` roster): a prefill replica's scheduler hands each finished
+prompt's run to ``_migration_sink``, which frames it and starts the handoff
+on the event loop (``_migrate_task``): per decode peer, ``relayed`` (the
+peer finished the stream: the donor slot is committed away), ``rejected``
+(no token reached the client: the next peer, then local decode,
+token-identical) or ``aborted`` (the peer died after a token reached the
+client: a typed ``migration_failed`` error finish).  Work crossing into
+the model thread (handoff outcomes, adopted runs) goes through an inbox the
+model loop drains every iteration, as the reload goes through its fence.
 
 Flow control: the ``AdmissionController`` is the only waiting room (a full
 queue answers 429 + Retry-After); ``deadline_s`` ends a request at a round
@@ -40,18 +76,21 @@ builds and loads it) runs there before ``/healthz`` reports ``ok``.
 from __future__ import annotations
 
 import asyncio
+import concurrent.futures
 import json
 import os
 import signal
 import threading
 import time
 import zlib
-from typing import Any, Callable, Dict, Optional, Set, Tuple
+from collections import deque
+from typing import Any, Callable, Deque, Dict, Optional, Set, Tuple
 
 import torch
 
 from relora_tpu_torch.obs.flight import dump_on_fault
 from relora_tpu_torch.obs.tracer import NoopTracer, Tracer, new_trace_id
+from relora_tpu_torch.serve import disagg
 from relora_tpu_torch.serve.admission import (
     AdmissionController,
     Draining,
@@ -64,7 +103,11 @@ from relora_tpu_torch.serve.scheduler import (
     ContinuousBatchingScheduler,
     Request,
 )
+from relora_tpu_torch.serve.deploy import checkpoint_step
 from relora_tpu_torch.serve.wire import (
+    MAX_BODY_BYTES,
+    decode_page_run as _decode_page_run,
+    encode_page_run as _encode_page_run,
     head as _head,
     read_http_request as _read_http_request,
     respond as _respond,
@@ -73,19 +116,21 @@ from relora_tpu_torch.serve.wire import (
 )
 from relora_tpu_torch.utils import faults
 from relora_tpu_torch.utils.logging import MetricsLogger, get_logger
+from relora_tpu_torch.utils.profiling import DeviceWindow
 
 logger = get_logger(__name__)
 
 _REQUEST_TIMEOUT_S = 30.0
 _IDLE_POP_S = 0.02
+#: the longest an ``/admin/profile`` window stays open
+PROFILE_MAX_S = 120.0
 
-#: the fleet tier's routes (and their metrics label), answered 501 until
-#: it is ported; "/internal/prefix/" is a prefix
-_FLEET_ROUTES = {"/admin/reload": "reload", "/internal/migrate": "migrate"}
-_FLEET_PREFIX = "/internal/prefix/"
-_FLEET_501 = (
-    "not implemented in relora_tpu_torch: weight hot-swap and the "
-    "disaggregated tier wait for ROADMAP Queue 1 item 4.4"
+#: the peer prefix-page route, refused until the fleet front end is ported
+_PREFIX_ROUTE = "/internal/prefix/"
+FLEET_FRONT_END = (
+    "the fleet prefix directory (GET /internal/prefix/<digest>, --fleet-url) is not "
+    "ported to relora_tpu_torch yet: it comes with the fleet front end "
+    "(ROADMAP Queue 1 item 5b)"
 )
 
 
@@ -114,6 +159,21 @@ def _failed(ticket: Ticket, detail: str) -> Completion:
 
 class BadRequest(Exception):
     """Malformed request body: HTTP 400."""
+
+
+class _ReloadRequest:
+    """One pending weight swap for the model thread: ``apply`` is the
+    prepared copy onto the device (the checkpoint already verified and
+    restored on the host); the model thread runs it at an idle boundary and
+    sets ``done`` with ``ok`` or ``error`` filled in."""
+
+    def __init__(self, apply: Callable[[], None], version: int, checkpoint: str):
+        self.apply = apply
+        self.version = version
+        self.checkpoint = checkpoint
+        self.done = threading.Event()
+        self.ok = False
+        self.error: Optional[str] = None
 
 
 def parse_generate_body(
@@ -199,18 +259,15 @@ class GenerateServer:
         metrics: Optional[MetricsLogger] = None,
         tracer: Optional[Tracer] = None,
         warmup_fn: Optional[Callable[[], Any]] = None,
-        reload_prepare: Optional[Callable] = None,
+        reload_prepare: Optional[Callable[[str], Callable[[], None]]] = None,
+        weights_version: int = 0,
+        weights_checkpoint: str = "",
         peer_file: Optional[str] = None,
         fleet_url: Optional[str] = None,
+        migrate_timeout_s: float = 30.0,
     ):
-        for name, value in (
-            ("reload_prepare", reload_prepare), ("peer_file", peer_file), ("fleet_url", fleet_url)
-        ):
-            if value is not None:
-                raise NotImplementedError(
-                    f"{name}: weight hot-swap and the disaggregated tier are not ported "
-                    "to relora_tpu_torch yet (ROADMAP Queue 1 item 4.4)"
-                )
+        if fleet_url is not None:
+            raise NotImplementedError(f"fleet_url: {FLEET_FRONT_END}")
         self.scheduler = scheduler
         self.host = host
         self.port = port  # the bound port after bind (port=0 = ephemeral)
@@ -279,8 +336,27 @@ class GenerateServer:
         # process exits
         self.error_linger_s = error_linger_s
         self._drain_requested = threading.Event()  # ends the linger early
-        self._tokens_emitted = 0  # feeds faults.serve_tick
+        # feeds faults.serve_tick; the model thread (local decode) and the
+        # event loop (relayed migration streams) both count, hence the lock
+        self._tokens_emitted = 0
         self._emitted_lock = threading.Lock()
+        # the weight hot swap: reload_prepare(path) runs off the model
+        # thread (verify, restore on the host) and returns the apply the
+        # model thread runs at an idle boundary
+        self.reload_prepare = reload_prepare
+        self.weights_version = weights_version
+        self.weights_checkpoint = weights_checkpoint
+        self.stats.set_gauge("weights_version", weights_version)
+        self._reload_lock = threading.Lock()
+        self._pending_reload: Optional[_ReloadRequest] = None
+        # the profiler's state is its starting thread's: one thread starts
+        # and stops every window
+        self._profile = DeviceWindow()
+        self._profile_thread = concurrent.futures.ThreadPoolExecutor(
+            max_workers=1, thread_name_prefix="serve-profile"
+        )
+        self._profile_expiry: Optional[asyncio.TimerHandle] = None
+        self._profile_expired: Optional[Dict[str, Any]] = None  # a window that closed itself
         self._last_step_t = time.monotonic()
         self._model_busy = False  # model thread writes; watchdog reads
         self._stuck = False  # watchdog writes; healthz reads
@@ -292,7 +368,27 @@ class GenerateServer:
         self.warmup_report: Optional[Any] = None
         self._warming = warmup_fn is not None
         self.stats.set_gauge("warming", 1 if self._warming else 0)
+        # the disaggregated tier: the role is the scheduler's, peer_file the
+        # peers.json roster; the inbox carries work into the model thread
         self.role = getattr(scheduler, "role", "mixed")
+        self.peer_file = peer_file
+        self.migrate_timeout_s = migrate_timeout_s
+        self._disagg_inbox: Deque[Tuple[str, Any]] = deque()
+        # a frame carries up to a whole block table of pages: the migrate
+        # route takes that beside the general body limit (the reference's
+        # 16 MiB alone refuses a 512-token run of llama_250m's int8 pool)
+        self._route_limits: Dict[str, int] = {}
+        engine = scheduler.engine
+        if getattr(engine, "paged", False):
+            run_bytes = engine.pool_bytes() // engine.num_pages * engine.block_table_width
+            self._route_limits["/internal/migrate"] = MAX_BODY_BYTES + run_bytes
+        if hasattr(scheduler, "migration_sink"):
+            if self.role == "prefill" and peer_file:
+                scheduler.migration_sink = self._migration_sink
+            for name in ("pages_migrated_total", "migration_bytes_total",
+                         "migration_failures_total", "migrated_inserts_total",
+                         "prefix_fetch_total", "prefix_fetch_failures_total"):
+                self.stats.inc(name, by=0)
 
     # -- lifecycle -----------------------------------------------------------------
 
@@ -341,6 +437,10 @@ class GenerateServer:
             # the finish events are queued on the loop: a bounded grace for
             # the handlers to flush their last bytes
             await asyncio.wait(set(self._handler_tasks), timeout=10.0)
+        if self._profile_expiry is not None:
+            self._profile_expiry.cancel()
+        self._profile_thread.submit(self._close_profile)
+        self._profile_thread.shutdown(wait=True)
         if self.metrics is not None:
             self.metrics.event("serve_drain_complete", **self.stats.snapshot())
         logger.info("drain complete; server stopped")
@@ -384,7 +484,13 @@ class GenerateServer:
                     )
             while True:
                 faults.serve_tick(self._tokens_emitted)  # serving drills only
-                while sched.active_slots + sched.queue_depth < sched.max_batch:
+                # a pending reload pauses claiming only: queued tickets wait
+                # in admission, the requests in flight finish on the old
+                # weights, and the swap runs at the idle boundary below
+                reload_req = self._pending_reload
+                while reload_req is None and (
+                    sched.active_slots + sched.queue_depth < sched.max_batch
+                ):
                     ticket = self.admission.pop(timeout=None)
                     if ticket is None:
                         break
@@ -392,6 +498,7 @@ class GenerateServer:
                 for uid, ticket in list(self._active.items()):
                     if ticket.cancelled.is_set():
                         sched.cancel(uid)  # fires on_finish -> _active cleanup
+                self._drain_disagg_inbox()
                 self.stats.set_gauge("queue_depth", self.admission.depth() + sched.queue_depth)
                 self.stats.set_gauge("active_slots", sched.active_slots)
                 self.stats.set_gauge("retry_after_s", round(self.admission.retry_after_s, 3))
@@ -402,6 +509,11 @@ class GenerateServer:
                     continue
                 self._model_busy = False
                 self._last_step_t = time.monotonic()  # idle is not a stall
+                if reload_req is not None:
+                    # the boundary: nothing active, nothing queued in the
+                    # scheduler; swap now, claim again next iteration
+                    self._apply_reload(reload_req)
+                    continue
                 if self.admission.draining and self.admission.depth() == 0:
                     break
                 ticket = self.admission.pop(timeout=_IDLE_POP_S)
@@ -413,6 +525,7 @@ class GenerateServer:
             dump_on_fault("serve_model_thread")  # the spans before the death
             self._fail_pending(e)
         finally:
+            self._fail_reload("model thread exited")
             self.drained.set()
             if self._worker_error is not None and self.error_linger_s > 0:
                 self._drain_requested.wait(self.error_linger_s)
@@ -449,6 +562,68 @@ class GenerateServer:
                 ticket.on_finish(_failed(ticket, detail))
             except Exception as e:
                 logger.warning(f"request {ticket.uid}: finish callback failed: {e!r}")
+
+    # -- the weight hot swap ---------------------------------------------------------
+
+    def request_reload(
+        self, apply: Callable[[], None], version: int, checkpoint: str
+    ) -> _ReloadRequest:
+        """Queue a prepared swap for the model thread's next idle boundary.
+        Thread-safe; raises RuntimeError while another is pending (one swap
+        at a time keeps the versions in order)."""
+        req = _ReloadRequest(apply, version, checkpoint)
+        with self._reload_lock:
+            if self._pending_reload is not None:
+                raise RuntimeError("a weight reload is already pending")
+            self._pending_reload = req
+        return req
+
+    def _apply_reload(self, req: _ReloadRequest) -> None:
+        """Model thread, idle boundary: run the swap.  A failure fails
+        closed: the old weights keep serving and the version stays."""
+        try:
+            faults.maybe_fail("deploy_reload")
+            req.apply()
+        except Exception as e:
+            req.error = f"{e!r}"
+            self.stats.inc("weights_reload_failures_total")
+            logger.error(
+                f"weight reload to {req.checkpoint!r} failed ({e!r}); "
+                f"keeping weights_version {self.weights_version}"
+            )
+            if self.metrics is not None:
+                self.metrics.event("serve_reload_failed", checkpoint=req.checkpoint,
+                                   error=f"{e!r}")
+        else:
+            # prefix pages hold K/V of the old weights: no later request may
+            # reuse them (nothing is active at this boundary, so every
+            # entry is the cache's alone)
+            prefix_cache = getattr(self.scheduler, "prefix_cache", None)
+            if prefix_cache is not None:
+                prefix_cache.clear()
+            req.ok = True
+            self.weights_version = req.version
+            self.weights_checkpoint = req.checkpoint
+            self.stats.inc("weights_reloads_total")
+            self.stats.set_gauge("weights_version", req.version)
+            logger.info(f"weights hot-swapped to version {req.version} ({req.checkpoint})")
+            if self.metrics is not None:
+                self.metrics.event("serve_reload", weights_version=req.version,
+                                   checkpoint=req.checkpoint)
+        finally:
+            with self._reload_lock:
+                self._pending_reload = None
+            req.done.set()
+
+    def _fail_reload(self, detail: str) -> None:
+        """Finish a still-pending reload with an error, so its requester never
+        hangs (the model thread died or drained)."""
+        with self._reload_lock:
+            req, self._pending_reload = self._pending_reload, None
+        if req is not None and not req.done.is_set():
+            req.error = detail
+            self.stats.inc("weights_reload_failures_total")
+            req.done.set()
 
     def _watchdog_loop(self) -> None:
         """When the scheduler had work but no step completed for
@@ -536,6 +711,222 @@ class GenerateServer:
             ).end()
         ticket.on_finish(completion)
 
+    # -- the disaggregated handoff ---------------------------------------------------
+    #
+    # The scheduler is the model thread's alone: every handoff outcome and
+    # adopted run crosses from the event loop through _disagg_inbox, applied
+    # by _drain_disagg_inbox inside the model loop.  _migration_sink is
+    # called by the scheduler on the model thread; the relay (_migrate_task)
+    # and the /internal/migrate handler run on the event loop.
+
+    def _drain_disagg_inbox(self) -> None:
+        """Model thread: apply the queued cross-thread work."""
+        sched = self.scheduler
+        while self._disagg_inbox:
+            kind, payload = self._disagg_inbox.popleft()
+            try:
+                if kind == "failed":
+                    sched.migration_failed(payload[0], payload[1])
+                elif kind == "commit":
+                    sched.migration_commit(payload[0], bytes_sent=payload[1])
+                elif kind == "abort":
+                    sched.migration_abort(payload[0], payload[1])
+                elif kind == "insert":
+                    self._apply_migrate_insert(*payload)
+            except Exception as e:
+                # inbox work never kills the model thread: each message has
+                # its own fail-open path, and this is the last resort
+                logger.warning(f"disagg inbox {kind!r} failed: {e!r}")
+
+    def _apply_migrate_insert(
+        self, record: Dict[str, Any], arrays: Any, ticket: Ticket, done: threading.Event,
+        result: Dict[str, Any],
+    ) -> None:
+        """Model thread: adopt a migrated run into a decoding slot; a raise
+        lands in ``result["error"]`` and the donor fails open."""
+        try:
+            if ticket.cancelled.is_set():
+                raise RuntimeError("donor went away before the insert")
+            # the fence and the version are read on this thread, which is the
+            # one that swaps: nothing changes between this check and the insert
+            if self._pending_reload is not None:
+                raise RuntimeError("a weight reload is pending")
+            if record.get("weights_version") != self.weights_version:
+                raise RuntimeError(
+                    f"run prefilled on weights_version {record.get('weights_version')}, "
+                    f"serving {self.weights_version}"
+                )
+            self.scheduler.submit_migrated(
+                record,
+                arrays,
+                on_token=lambda uid, tok, idx, _t=ticket: self._token_cb(_t, uid, tok, idx),
+                on_finish=lambda completion, _t=ticket: self._finish_cb(_t, completion),
+                deadline=ticket.deadline,
+                trace_id=ticket.trace_id,
+            )
+            self._active[ticket.uid] = ticket
+        except Exception as e:
+            result["error"] = str(e)
+        finally:
+            done.set()
+
+    def _migration_sink(self, record: Dict[str, Any], entries: Any) -> bool:
+        """Model thread (the scheduler's ``_maybe_migrate``): pick decode
+        peers, frame the run and start the handoff on the event loop.  False
+        means it could not start, and the scheduler fails open at once."""
+        loop = self._loop
+        if loop is None or loop.is_closed():
+            return False
+        ticket = self._active.get(int(record["uid"]))
+        if ticket is None or ticket.cancelled.is_set():
+            return False
+        peers = disagg.load_peers(self.peer_file)
+        candidates = disagg.pick_peers(peers, role="decode", exclude_rid=self.replica_id)
+        if not candidates:
+            return False
+        # what only the server knows: the deadline left, the request id and
+        # the weights that prefilled the run
+        record["weights_version"] = self.weights_version
+        if ticket.deadline is not None:
+            record["deadline_s"] = max(0.1, ticket.deadline - time.monotonic())
+        if ticket.trace_id:
+            record["trace_id"] = ticket.trace_id
+        try:
+            blob = _encode_page_run(record, entries)
+        except Exception as e:
+            logger.warning(f"request {record['uid']}: wire encode failed: {e!r}")
+            return False
+        asyncio.run_coroutine_threadsafe(
+            self._migrate_task(record, blob, ticket, candidates[:2]), loop
+        )
+        return True
+
+    async def _migrate_task(
+        self, record: Dict[str, Any], blob: bytes, ticket: Ticket, candidates: list
+    ) -> None:
+        """Event loop: the handoff against each candidate peer in turn.  An
+        attempt is ``relayed`` (the peer finished the stream: commit the
+        donor slot), ``rejected`` (no token reached the client: the next
+        peer, else local decode, still token-identical) or ``aborted`` (the
+        peer died after relaying a token: a replay would repeat tokens, so
+        the client gets a typed error finish)."""
+        uid = int(record["uid"])
+        detail = "no decode peer accepted the handoff"
+        for peer in candidates:
+            try:
+                outcome, detail = await self._migrate_attempt(blob, ticket, peer, uid)
+            except Exception as e:
+                outcome, detail = "rejected", f"{peer.get('rid')}: {e!r}"
+            if outcome == "relayed":
+                self._disagg_inbox.append(("commit", (uid, len(blob))))
+                return
+            if outcome == "aborted":
+                self._disagg_inbox.append(("abort", (uid, detail)))
+                try:
+                    self._finish_cb(ticket, Completion(
+                        uid=uid, tokens=[], finish_reason="error",
+                        prompt_tokens=len(ticket.request.prompt), ttft_s=0.0,
+                        latency_s=time.monotonic() - ticket.t_enqueue,
+                        error=f"migration_failed: {detail}",
+                    ))
+                except Exception as e:
+                    logger.warning(f"request {uid}: finish callback failed: {e!r}")
+                if self.metrics is not None:
+                    self.metrics.event("migration_failed", uid=uid, detail=str(detail),
+                                       aborted=True)
+                return
+            logger.warning(f"request {uid}: handoff to {peer.get('rid')} rejected ({detail})")
+        self._disagg_inbox.append(("failed", (uid, detail)))
+        if self.metrics is not None:
+            self.metrics.event("migration_failed", uid=uid, detail=str(detail))
+
+    async def _migrate_attempt(
+        self, blob: bytes, ticket: Ticket, peer: Dict[str, Any], uid: int
+    ) -> Tuple[str, str]:
+        """One ``POST /internal/migrate`` exchange: send the frame, then relay
+        the peer's SSE continuation into the client ticket's callbacks.
+        Returns ``("relayed" | "rejected" | "aborted", detail)``."""
+        host = str(peer.get("host") or "127.0.0.1")
+        port = int(peer["port"])
+        relayed_any = False
+        timeout = self.migrate_timeout_s
+        try:
+            reader, writer = await asyncio.wait_for(asyncio.open_connection(host, port), 5.0)
+        except (OSError, asyncio.TimeoutError) as e:
+            return "rejected", f"connect {host}:{port}: {e!r}"
+        try:
+            writer.write(
+                (f"POST /internal/migrate HTTP/1.1\r\nHost: {host}:{port}\r\n"
+                 f"Content-Type: application/octet-stream\r\nContent-Length: {len(blob)}\r\n"
+                 f"Connection: close\r\n\r\n").encode()
+            )
+            writer.write(blob)
+            await asyncio.wait_for(writer.drain(), timeout)
+            status_line = await asyncio.wait_for(reader.readline(), timeout)
+            parts = status_line.decode("latin-1", "replace").split()
+            status = int(parts[1]) if len(parts) >= 2 and parts[1].isdigit() else 0
+            while True:  # the response head; an SSE or JSON body follows
+                line = await asyncio.wait_for(reader.readline(), timeout)
+                if line in (b"\r\n", b"\n", b""):
+                    break
+            if status != 200:
+                body = await reader.read(4096)
+                return "rejected", f"{host}:{port} -> {status} {body[:200]!r}"
+            while True:
+                if ticket.cancelled.is_set():
+                    # the client left: closing our end is the peer's
+                    # disconnect, which frees its slot; commit the donor's
+                    self._finish_cb(ticket, Completion(
+                        uid=uid, tokens=[], finish_reason="cancelled",
+                        prompt_tokens=len(ticket.request.prompt), ttft_s=0.0,
+                        latency_s=time.monotonic() - ticket.t_enqueue,
+                    ))
+                    return "relayed", "client cancelled mid-relay"
+                line = await asyncio.wait_for(reader.readline(), timeout)
+                if not line:
+                    if relayed_any:
+                        return "aborted", f"{host}:{port}: peer died mid-stream"
+                    return "rejected", f"{host}:{port}: peer died before first token"
+                line = line.strip()
+                if not line.startswith(b"data: "):
+                    continue
+                data = line[len(b"data: "):]
+                if data == b"[DONE]":
+                    continue
+                try:
+                    rec = json.loads(data.decode("utf-8"))
+                except (UnicodeDecodeError, json.JSONDecodeError):
+                    continue
+                if not isinstance(rec, dict):
+                    continue
+                if "finish_reason" in rec:
+                    if rec["finish_reason"] == "error" and not relayed_any:
+                        # nothing reached the client: the next peer or local
+                        # decode is still safe
+                        return "rejected", f"{host}:{port}: {rec.get('error')}"
+                    self._finish_cb(ticket, Completion(
+                        uid=uid,
+                        tokens=[int(t) for t in rec.get("tokens", [])],
+                        finish_reason=str(rec["finish_reason"]),
+                        prompt_tokens=int(rec.get("prompt_tokens", len(ticket.request.prompt))),
+                        ttft_s=float(rec.get("ttft_s", 0.0)),
+                        latency_s=time.monotonic() - ticket.t_enqueue,
+                        error=rec.get("error"),
+                    ))
+                    return "relayed", "ok"
+                if "token" in rec:
+                    relayed_any = True
+                    self._token_cb(ticket, uid, int(rec["token"]), int(rec["index"]))
+        except (asyncio.TimeoutError, ConnectionError, OSError) as e:
+            if relayed_any:
+                return "aborted", f"{host}:{port}: {e!r}"
+            return "rejected", f"{host}:{port}: {e!r}"
+        finally:
+            try:
+                writer.close()
+            except Exception:
+                pass
+
     # -- asyncio handlers --------------------------------------------------------------
 
     async def _client_connected(
@@ -565,7 +956,9 @@ class GenerateServer:
             self.stats.inc("accept_drops_total")
             return
         try:
-            parsed = await asyncio.wait_for(_read_http_request(reader), _REQUEST_TIMEOUT_S)
+            parsed = await asyncio.wait_for(
+                _read_http_request(reader, self._route_limits), _REQUEST_TIMEOUT_S
+            )
         except ValueError as e:
             await _respond_json(writer, 400, {"error": str(e)})
             return
@@ -587,9 +980,27 @@ class GenerateServer:
                 await _respond_json(writer, 405, {"error": "use POST"})
                 return
             await self._handle_generate(reader, writer, body, headers)
-        elif route in _FLEET_ROUTES or route.startswith(_FLEET_PREFIX):
-            self.stats.inc("http_requests_total", ("route", _FLEET_ROUTES.get(route, "prefix")))
-            await _respond_json(writer, 501, {"error": _FLEET_501})
+        elif route == "/admin/reload":
+            self.stats.inc("http_requests_total", ("route", "reload"))
+            if method != "POST":
+                await _respond_json(writer, 405, {"error": "use POST"})
+                return
+            await self._handle_reload(writer, body)
+        elif route == "/internal/migrate":
+            self.stats.inc("http_requests_total", ("route", "migrate"))
+            if method != "POST":
+                await _respond_json(writer, 405, {"error": "use POST"})
+                return
+            await self._handle_migrate(reader, writer, body)
+        elif route == "/admin/profile":
+            self.stats.inc("http_requests_total", ("route", "profile"))
+            if method != "POST":
+                await _respond_json(writer, 405, {"error": "use POST"})
+                return
+            await self._handle_profile(writer, body)
+        elif route.startswith(_PREFIX_ROUTE):
+            self.stats.inc("http_requests_total", ("route", "prefix"))
+            await _respond_json(writer, 501, {"error": FLEET_FRONT_END})
         else:
             self.stats.inc("http_requests_total", ("route", "other"))
             await _respond_json(writer, 404, {"error": f"no route {route}"})
@@ -615,8 +1026,10 @@ class GenerateServer:
             "max_queue": self.admission.max_queue,
             "retry_after_s": round(self.admission.retry_after_s, 3),
             "uptime_s": round(time.monotonic() - self._t_start, 3),
-            "weights_version": 0,
-            "weights_checkpoint": "",
+            # numeric, so a fleet collector can ingest it; the checkpoint
+            # path is what a rolling updater reads back as its rollback target
+            "weights_version": self.weights_version,
+            "weights_checkpoint": self.weights_checkpoint,
             "role": self.role,
         }
         prefix_cache = getattr(self.scheduler, "prefix_cache", None)
@@ -638,6 +1051,171 @@ class GenerateServer:
         if adapter_stats is not None:
             payload["adapters"] = adapter_stats
         await _respond_json(writer, status, payload)
+
+    async def _handle_reload(self, writer: asyncio.StreamWriter, body: bytes) -> None:
+        """``POST /admin/reload {"checkpoint": DIR}``: ``reload_prepare``
+        (verify, restore on the host) off the event loop and the model
+        thread, then the swap at the model thread's idle boundary, whose
+        verdict is the answer.  Every failure keeps the old weights serving:
+        the version moves only on a full success."""
+        if self.reload_prepare is None:
+            await _respond_json(writer, 501, {"error": "no reload path configured"})
+            return
+        if self._worker_error is not None:
+            await _respond_json(writer, 503, {"error": f"model thread died: {self._worker_error!r}"})
+            return
+        try:
+            payload = json.loads(body.decode("utf-8") or "{}")
+            path = payload.get("checkpoint") if isinstance(payload, dict) else None
+            if not isinstance(path, str) or not path.strip():
+                raise BadRequest('"checkpoint" must be a non-empty path string')
+        except (UnicodeDecodeError, json.JSONDecodeError, BadRequest) as e:
+            await _respond_json(writer, 400, {"error": str(e)})
+            return
+        path = path.strip()
+        version = checkpoint_step(path)
+        if version is None:
+            version = self.weights_version + 1  # directories not named model_N still order
+        loop = asyncio.get_running_loop()
+        try:
+            # decode keeps running while the host restores the checkpoint
+            apply = await loop.run_in_executor(None, self.reload_prepare, path)
+        except Exception as e:
+            self.stats.inc("weights_reload_failures_total")
+            logger.error(f"reload rejected before any device write: {e!r}")
+            if self.metrics is not None:
+                self.metrics.event("serve_reload_failed", checkpoint=path, error=f"{e!r}")
+            await _respond_json(writer, 422, {"error": f"{e}",
+                                              "weights_version": self.weights_version})
+            return
+        try:
+            req = self.request_reload(apply, version, path)
+        except RuntimeError as e:
+            await _respond_json(writer, 409, {"error": str(e),
+                                              "weights_version": self.weights_version})
+            return
+        await loop.run_in_executor(None, req.done.wait)
+        await _respond_json(writer, 200 if req.ok else 500, {
+            "ok": req.ok,
+            "weights_version": self.weights_version,
+            "weights_checkpoint": self.weights_checkpoint,
+            **({"error": req.error} if req.error else {}),
+        })
+
+    async def _handle_profile(self, writer: asyncio.StreamWriter, body: bytes) -> None:
+        """``POST /admin/profile {"action": "start" | "stop"}``: open the
+        device profile window, closing itself after ``PROFILE_MAX_S``
+        seconds, or close it (409 when it is already open, or neither open
+        nor expired)."""
+        try:
+            payload = json.loads(body.decode("utf-8") or "{}")
+            action = payload.get("action") if isinstance(payload, dict) else None
+            if action not in ("start", "stop"):
+                raise BadRequest('"action" must be "start" or "stop"')
+        except (UnicodeDecodeError, json.JSONDecodeError, BadRequest) as e:
+            await _respond_json(writer, 400, {"error": str(e)})
+            return
+        loop = asyncio.get_running_loop()
+        try:
+            if action == "start":
+                await loop.run_in_executor(self._profile_thread, self._profile.start)
+                window = self._profile.opened
+                self._profile_expiry = loop.call_later(
+                    PROFILE_MAX_S, self._profile_thread.submit, self._expire_profile, window
+                )
+                result = {"profiling": True, "max_s": PROFILE_MAX_S}
+            else:
+                if self._profile_expiry is not None:
+                    self._profile_expiry.cancel()
+                result = await loop.run_in_executor(self._profile_thread, self._stop_profile)
+        except RuntimeError as e:
+            await _respond_json(writer, 409, {"error": str(e)})
+            return
+        await _respond_json(writer, 200, result)
+
+    # the profile thread's own: the profiler's state is the thread's that
+    # started it
+
+    def _expire_profile(self, window: int) -> None:
+        """Close window ``window`` if it is still the open one."""
+        if self._profile.open and self._profile.opened == window:
+            self._profile_expired = {**self._profile.stop(), "expired": True}
+            logger.warning(f"device profile window {window} closed itself after "
+                           f"{PROFILE_MAX_S:g} s")
+
+    def _stop_profile(self) -> Dict[str, Any]:
+        if self._profile.open:
+            self._profile_expired = None
+            return self._profile.stop()
+        expired, self._profile_expired = self._profile_expired, None
+        if expired is None:
+            raise RuntimeError("no device profile window is open")
+        return expired
+
+    def _close_profile(self) -> None:
+        """At the server's exit: a window still open stops recording."""
+        if self._profile.open:
+            self._profile.stop()
+
+    async def _handle_migrate(
+        self, reader: asyncio.StreamReader, writer: asyncio.StreamWriter, body: bytes
+    ) -> None:
+        """``POST /internal/migrate``: adopt a donor's page run into a
+        decoding slot and stream the continuation back as SSE.  Every
+        refusal is a non-200 the donor answers with local decode, so
+        refusing is always safe; accepting makes this replica the owner of
+        the request's stream."""
+        if self._worker_error is not None or self._warming or self.admission.draining:
+            await _respond_json(writer, 503, {"error": "replica not accepting handoffs"})
+            return
+        try:
+            record, arrays = _decode_page_run(body)
+            if not isinstance(record, dict):
+                raise ValueError("page-run meta must be an object")
+            req = Request(
+                uid=int(record["uid"]),
+                prompt=[int(t) for t in record["prompt"]],
+                max_new_tokens=int(record["max_new_tokens"]),
+                temperature=float(record.get("temperature", 0.0)),
+                top_p=float(record.get("top_p", 1.0)),
+                spec=bool(record.get("spec", True)),
+                adapter=record.get("adapter"),
+            )
+        except (ValueError, KeyError, TypeError) as e:
+            await _respond_json(writer, 400, {"error": f"bad page run: {e}"})
+            return
+        loop = asyncio.get_running_loop()
+        events: "asyncio.Queue[Tuple[str, Any, Any]]" = asyncio.Queue()
+
+        def post(kind: str, a: Any = None, b: Any = None) -> None:
+            try:
+                loop.call_soon_threadsafe(events.put_nowait, (kind, a, b))
+            except RuntimeError:
+                pass
+
+        deadline_s = record.get("deadline_s")
+        ticket = Ticket(
+            uid=req.uid,
+            request=req,
+            deadline=(time.monotonic() + float(deadline_s)
+                      if isinstance(deadline_s, (int, float)) and deadline_s > 0 else None),
+            on_token=lambda uid, tok, idx: post("token", tok, idx),
+            on_finish=lambda completion: post("finish", completion),
+            trace_id=record.get("trace_id"),
+        )
+        done = threading.Event()
+        result: Dict[str, Any] = {}
+        self._disagg_inbox.append(("insert", (record, arrays, ticket, done, result)))
+        ok = await loop.run_in_executor(None, done.wait, self.migrate_timeout_s)
+        if not ok:
+            # a late insert is refused (or, landed, freed by the cancel scan)
+            ticket.cancelled.set()
+            await _respond_json(writer, 503, {"error": "migrated insert timed out"})
+            return
+        if result.get("error"):
+            await _respond_json(writer, 409, {"error": result["error"]})
+            return
+        await self._stream_response(reader, writer, ticket, events)
 
     async def _handle_generate(
         self,
@@ -750,7 +1328,7 @@ class GenerateServer:
                 {
                     "Cache-Control": "no-cache",
                     "X-Request-Id": ticket.trace_id or "",
-                    "X-Relora-Weights": "0",
+                    "X-Relora-Weights": str(self.weights_version),
                 },
             )
         )
@@ -800,7 +1378,7 @@ class GenerateServer:
                         _completion_record(a),
                         extra_headers={
                             "X-Request-Id": ticket.trace_id or "",
-                            "X-Relora-Weights": "0",
+                            "X-Relora-Weights": str(self.weights_version),
                         },
                     )
                     return

@@ -69,6 +69,21 @@ stall watchdog (``--stall-timeout-s``) and a SIGTERM drain:
 
     python -m relora_tpu_torch.serve_cli --model_config llama_250m \
         --random-init --paged --dtype bf16 --max-batch 8 --port 0 --port-file F
+
+A server swaps its weights in place for a verified checkpoint on ``POST
+/admin/reload {"checkpoint": DIR}``; ``--watch-checkpoints SAVE_DIR`` makes a
+checkpoint-backed server do it for every directory the trainer (or
+``python -m relora_tpu_torch.serve.deploy publish DIR``) publishes as
+``SAVE_DIR/latest``.  ``--role prefill`` and ``--role decode`` split
+serving between replicas (``--paged``): a prefill replica hands each
+finished prompt's page run to a decode peer of ``--peer-file`` (a
+``peers.json`` roster, ``{"replicas": [{"rid", "host", "port", "role"}]}``)
+and relays the peer's stream; any failure before a token reached the
+client decodes locally:
+
+    python -m relora_tpu_torch.serve_cli --model_config llama_250m \
+        --random-init --paged --kv-dtype int8 --dtype bf16 --max-batch 8 \
+        --port 0 --port-file F --role prefill --peer-file peers.json
 """
 
 from __future__ import annotations
@@ -94,7 +109,8 @@ from relora_tpu_torch.serve.scheduler import (
     PagedContinuousBatchingScheduler,
     Request,
 )
-from relora_tpu_torch.serve.server import GenerateServer, run_server
+from relora_tpu_torch.serve.deploy import CheckpointWatcher, checkpoint_step
+from relora_tpu_torch.serve.server import FLEET_FRONT_END, GenerateServer, run_server
 from relora_tpu_torch.train.checkpoint import (
     load_lora_spec,
     restore_params_host,
@@ -207,15 +223,31 @@ def parse_args(argv=None) -> argparse.Namespace:
     )
     p.add_argument(
         "--watch-checkpoints", default=None, metavar="DIR",
-        help="server: hot-swap verified new checkpoints (not ported yet)",
+        help="server: poll DIR/latest (published at every manifest commit of the "
+        "trainer) and hot-swap verified new checkpoints in place, the requests in "
+        "flight finishing on the old weights; requires --port",
+    )
+    p.add_argument(
+        "--watch-interval-s", type=float, default=2.0, help="checkpoint watcher poll interval"
     )
     p.add_argument(
         "--role", choices=("prefill", "decode", "mixed"), default="mixed",
-        help="disaggregated fleet role (only 'mixed' is ported)",
+        help="disaggregated fleet role: 'prefill' replicas hand finished prompts' KV "
+        "pages to a decode peer over /internal/migrate, 'decode' replicas adopt them, "
+        "'mixed' serves everything (the fallback pool); prefill/decode require --paged",
     )
-    p.add_argument("--peer-file", default=None, help="disagg: peers roster (not ported yet)")
     p.add_argument(
-        "--fleet-url", default=None, help="disagg: the fleet prefix directory (not ported yet)"
+        "--peer-file", default=None,
+        help="disagg: the peers.json roster prefill replicas pick migration targets "
+        "from; requires --port",
+    )
+    p.add_argument(
+        "--fleet-url", default=None,
+        help="disagg: the fleet prefix directory (not ported yet: ROADMAP Queue 1 item 5b)",
+    )
+    p.add_argument(
+        "--migrate-timeout-s", type=float, default=30.0,
+        help="disagg: per-I/O timeout of the migration transfer",
     )
     return p.parse_args(argv)
 
@@ -286,18 +318,25 @@ def check_spec_flags(args: argparse.Namespace) -> None:
                 "--spec model is incompatible with --adapter-dir (a draft model "
                 "and adapter slots do not share an engine)"
             )
+        if args.role != "mixed":
+            raise SystemExit(
+                "--spec model needs --role mixed: draft KV pages cannot "
+                "migrate between disaggregated peers"
+            )
     elif args.draft_checkpoint:
         raise SystemExit("--draft-checkpoint only applies with --spec model")
 
 
-_FLEET = "is not ported to relora_tpu_torch yet (ROADMAP Queue 1 item 4.4)"
-
-
 def check_server_flags(args: argparse.Namespace) -> None:
-    """``serve.py``'s checks of the server flags, with its messages; the
-    fleet tier's flags (hot swap, disaggregated roles) are refused."""
+    """``serve.py``'s checks of the server and fleet flags, with its
+    messages (``serve.py:305-320``); ``--fleet-url`` is refused."""
     if args.port is not None and (args.prompt or args.input_file):
         raise SystemExit("--port runs the HTTP server; drop --prompt/--input-file")
+    if args.role != "mixed" and not args.paged:
+        raise SystemExit(
+            f"--role {args.role} requires --paged (KV-page migration ships "
+            "page runs; the contiguous cache has none)"
+        )
     if (args.peer_file or args.fleet_url) and args.port is None:
         raise SystemExit("--peer-file/--fleet-url configure the HTTP server; pass --port")
     if args.watch_checkpoints is not None:
@@ -309,11 +348,8 @@ def check_server_flags(args: argparse.Namespace) -> None:
             raise SystemExit(
                 "--watch-checkpoints needs a checkpoint-backed server, not --random-init"
             )
-        raise SystemExit(f"--watch-checkpoints: weight hot-swap {_FLEET}")
-    if args.role != "mixed":
-        raise SystemExit(f"--role {args.role}: disaggregated serving {_FLEET}")
-    if args.peer_file or args.fleet_url:
-        raise SystemExit(f"--peer-file/--fleet-url: the disaggregated tier {_FLEET}")
+    if args.fleet_url:
+        raise SystemExit(f"--fleet-url: {FLEET_FRONT_END}")
     if args.max_queue < 1:
         raise SystemExit(f"--max-queue must be >= 1, got {args.max_queue}")
 
@@ -446,7 +482,7 @@ def build(
     )
     if args.paged:
         return PagedContinuousBatchingScheduler(
-            engine, packed=args.packed, spec=args.spec, **common
+            engine, packed=args.packed, spec=args.spec, role=args.role, **common
         )
     return ContinuousBatchingScheduler(engine, **common)
 
@@ -460,8 +496,30 @@ def build_server(
     the kernels: the chunk and decode shapes, the packed buckets, or
     without ``--paged`` every prompt bucket's prefill, the insert and the
     decode) and then the ``--adapters`` preload run on the server's model
-    thread before ``/healthz`` reports ok."""
+    thread before ``/healthz`` reports ok.  ``reload_prepare`` is the host
+    half of a hot swap (``serve.py:589-606``): it verifies and restores a
+    checkpoint off the model thread (raising fails the reload closed) and
+    returns the swap the model thread applies."""
     scheduler = build(args, metrics, preload=args.no_warmup)
+    engine = scheduler.engine
+    lora_spec = engine._lora
+
+    def reload_prepare(path: str):
+        if args.no_merge:
+            ok, reason = verify_checkpoint(path)
+            if not ok:
+                raise ValueError(f"refusing to reload corrupt checkpoint {path}: {reason}")
+            spec = load_lora_spec(path)
+            if spec is not None and spec.r != (lora_spec.r if lora_spec else None):
+                raise ValueError(
+                    f"reload rank mismatch: serving r={lora_spec.r if lora_spec else None}, "
+                    f"{path} has r={spec.r}"
+                )
+            params = restore_params_host(path)
+        else:
+            params = restore_serving_params(path)  # verifies the manifest first
+        return lambda: engine.reload_params(params)
+
     warmup_fn = None
     if not args.no_warmup:
         def warmup_fn():
@@ -495,7 +553,27 @@ def build_server(
         stall_timeout_s=args.stall_timeout_s,
         metrics=metrics,
         warmup_fn=warmup_fn,
+        reload_prepare=reload_prepare,
+        weights_version=(checkpoint_step(args.checkpoint) if args.checkpoint else None) or 0,
+        weights_checkpoint=os.path.abspath(args.checkpoint) if args.checkpoint else "",
+        peer_file=args.peer_file,
+        migrate_timeout_s=args.migrate_timeout_s,
     )
+
+
+def kernel_launches() -> Dict[str, int]:
+    """Each serving kernel wrapper's launches in this process so far.  A
+    server logs a ``kernel_launches`` event at its exit: each kernel's
+    launches after the warmup, and the warmup's own as ``warmup/<name>``
+    (a fleet's kernel accounting across replica processes)."""
+    from relora_tpu_torch.ops import attention, lora_matmul
+
+    return {
+        fn.__name__: fn.launches
+        for fn in (attention.paged_decode_attention, attention.packed_paged_attention,
+                   lora_matmul.grouped_lora_matmul, lora_matmul.fused_lora_forward,
+                   lora_matmul.fused_lora_int8_forward)
+    }
 
 
 def serve(args: argparse.Namespace) -> int:
@@ -512,16 +590,61 @@ def serve(args: argparse.Namespace) -> int:
         else None
     )
     scheduler, kwargs = build_server(args, metrics)
+    warm: Dict[str, int] = {}  # the kernel launches of the warmup
+    if kwargs["warmup_fn"] is not None:
+        warmup = kwargs["warmup_fn"]
+
+        def counted_warmup():
+            report = warmup()
+            warm.update(kernel_launches())
+            return report
+
+        kwargs["warmup_fn"] = counted_warmup
+    watcher: Optional[CheckpointWatcher] = None
 
     def ready(server: GenerateServer) -> None:
+        nonlocal watcher
         if args.port_file:
             with open(args.port_file, "w") as f:
                 f.write(str(server.port))
+        if args.watch_checkpoints:
+            # verified new checkpoints go through the server's reload fence
+            def on_new(path: str):
+                try:
+                    req = server.request_reload(
+                        kwargs["reload_prepare"](path),
+                        checkpoint_step(path) or server.weights_version + 1, path,
+                    )
+                except Exception as e:
+                    logger.error(f"self-update to {path} failed: {e!r}")
+                    return False  # the watcher tries again at the next poll
+                req.done.wait()
+                if not req.ok:
+                    logger.error(f"self-update to {path} failed: {req.error}")
+                    return False
+                logger.info(
+                    f"self-update: now serving {path} (weights_version {server.weights_version})"
+                )
+
+            watcher = CheckpointWatcher(
+                args.watch_checkpoints, on_new, interval_s=args.watch_interval_s,
+                current=args.checkpoint,
+            ).start()
+            logger.info(
+                f"watching {args.watch_checkpoints}/latest every {args.watch_interval_s:g}s "
+                "for verified checkpoints"
+            )
 
     try:
         return run_server(scheduler, ready_cb=ready, **kwargs)
     finally:
+        if watcher is not None:
+            watcher.stop()
         if metrics is not None:
+            metrics.event("kernel_launches", **{
+                **{k: v - warm.get(k, 0) for k, v in kernel_launches().items()},
+                **{f"warmup/{k}": v for k, v in warm.items()},
+            })
             metrics.finish()
 
 

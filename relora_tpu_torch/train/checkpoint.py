@@ -18,6 +18,11 @@ its own format beside the same JSON sidecars:
   directory without it was cut off mid-write and is invisible to
   :func:`get_last_checkpoint` and :func:`delete_old_checkpoints`.
 
+A trainer's save (``publish=True``) then moves the save directory's
+``latest`` pointer onto the new directory (``serve/deploy.publish_latest``,
+``relora_tpu/train/checkpoint.py:157-163``): the pointer names only
+committed directories, so a watching server never sees a torn one.
+
 A tenant adapter directory is such a checkpoint of an unmerged ReLoRA run;
 it may hold only the ``lora_*`` tensors.  An orbax directory (``state/``)
 raises: the port reads only its own format.  Saves are synchronous (the
@@ -75,6 +80,7 @@ def _write_checkpoint(
     optimizer_state: Optional[dict],
     training_state: dict,
     lora_spec: Optional[LoraSpec],
+    publish: bool = False,
 ) -> None:
     os.makedirs(path, exist_ok=True)
     for name in (MANIFEST_FILE, RELORA_CONFIG_FILE, OPTIMIZER_FILE):
@@ -104,6 +110,11 @@ def _write_checkpoint(
         "metadata": {"format": "relora_tpu_torch"},
     }
     _write_json(os.path.join(path, MANIFEST_FILE), manifest)
+    if publish:
+        # the manifest is the commit: only now may the pointer name the dir
+        from relora_tpu_torch.serve import deploy
+
+        deploy.publish_latest(os.path.dirname(path) or ".", path)
 
 
 def _to_cpu(tree):
@@ -125,10 +136,12 @@ def save_checkpoint(
     optimizer_state: Optional[dict] = None,
     retries: int = 3,
     retry_backoff: float = 0.5,
+    publish: bool = False,
 ) -> str:
     """Write ``save_dir/model_{update_step}/`` and return its path: the
     params, the optimizer state when given, the JSON sidecars, then the
-    manifest over all of them.  A failed write (``OSError``, ``ValueError``)
+    manifest over all of them; ``publish`` then points ``save_dir/latest``
+    at it (the trainer's saves).  A failed write (``OSError``, ``ValueError``)
     is retried ``retries`` times, ``retry_backoff`` seconds doubled each time
     (``relora_tpu/train/checkpoint.py:205-274``), then raised."""
     path = checkpoint_dir(save_dir, update_step)
@@ -136,7 +149,7 @@ def save_checkpoint(
     optimizer_state = _to_cpu(optimizer_state)
     for attempt in range(retries + 1):
         try:
-            _write_checkpoint(path, params, optimizer_state, training_state, lora_spec)
+            _write_checkpoint(path, params, optimizer_state, training_state, lora_spec, publish)
             return path
         except (OSError, ValueError) as e:
             if attempt >= retries:
@@ -173,7 +186,7 @@ def verify_checkpoint(path: str) -> Tuple[bool, str]:
     try:
         with open(os.path.join(path, MANIFEST_FILE)) as f:
             manifest = json.load(f)
-    except (OSError, json.JSONDecodeError) as e:
+    except (OSError, ValueError) as e:  # ValueError: bad JSON or bytes that are not UTF-8
         return False, f"unreadable manifest: {e}"
     for rel, rec in manifest.get("files", {}).items():
         full = os.path.join(path, rel)

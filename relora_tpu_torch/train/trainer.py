@@ -429,6 +429,7 @@ class Trainer:
                     cfg.save_dir, self.update_step, self.model.state_dict(), training_state,
                     self.lora_spec, optimizer_state,
                     retries=cfg.save_retries, retry_backoff=cfg.save_retry_backoff,
+                    publish=True,
                 )
         except (OSError, ValueError) as e:
             logger.error(f"Checkpoint save at step {self.update_step} abandoned: {e}")

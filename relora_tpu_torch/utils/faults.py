@@ -1,9 +1,9 @@
-"""Fault injection for the serving drills.
+"""Fault injection for the serving and deployment drills.
 
-The port's own copy of the serving sites of ``relora_tpu/utils/faults.py``;
-the training sites (``perturb``, ``nan_grad_steps``, ``crash_point``,
-``tick``) come with the slice that needs them.  Every site is a no-op until
-a fault is armed:
+The port's own copy of the serving and deployment sites of
+``relora_tpu/utils/faults.py``; the training sites (``perturb``,
+``nan_grad_steps``, ``tick``) come with the slice that needs them.  Every
+site is a no-op until a fault is armed:
 
 - ``serve_tick(tokens)`` — called by the server's model thread once per loop
   iteration with the cumulative sampled-token count; drives ``serve_stall``
@@ -13,7 +13,16 @@ a fault is armed:
   ``os._exit``, a kill -9-shaped crash).
 - ``should("serve_accept_drop")`` — the server closes the first ``times``
   accepted connections without a byte of response.
-- ``maybe_fail(site)`` — raise the armed exception ``times`` times.
+- ``maybe_fail(site)`` — raise the armed exception ``times`` times; the
+  sites are ``serve_migrate`` (the donor's page-run export: the prefill
+  replica fails open to local decode, counted as a migration failure) and
+  ``deploy_reload`` (the server's apply boundary: the reload fails closed
+  and the old weights keep serving).
+- ``should("deploy_corrupt_manifest")`` — a publish of the ``latest``
+  pointer flips a byte of the checkpoint's manifest: watchers must reject
+  the directory.
+- ``crash_point("deploy_crash_mid_update")`` — the rolling updater dies
+  between replicas (``code=N``: ``os._exit``; else the armed exception).
 
 Faults are armed with ``configure`` / ``reset`` (tests) or, for CLI drills,
 ``RELORA_TPU_FAULTS`` read by ``configure_from_env`` (``serve_cli`` calls it
@@ -90,6 +99,22 @@ def maybe_fail(site: str) -> None:
     if spec is None or not _take(site, spec):
         return
     exc = spec.get("exc", OSError)
+    raise exc(f"injected fault at {site!r} ({_FIRED[site]}/{int(spec.get('times', 1))})")
+
+
+def crash_point(site: str) -> None:
+    """A death or an abort in the middle of a procedure: with ``code=N`` the
+    process exits through ``os._exit`` (a SIGKILL-shaped drill for a fleet
+    of processes), else the armed exception (default RuntimeError) is
+    raised, ``times`` times."""
+    spec = _FAULTS.get(site)
+    if spec is None or not _take(site, spec):
+        return
+    if "code" in spec:
+        code = int(spec["code"])
+        logger.warning(f"fault {site!r}: os._exit({code})")
+        os._exit(code)
+    exc = spec.get("exc", RuntimeError)
     raise exc(f"injected fault at {site!r} ({_FIRED[site]}/{int(spec.get('times', 1))})")
 
 

@@ -7,13 +7,17 @@ closes its windows on the same calls as the JAX package's, over
 ``torch.profiler`` (CPU activity, and the device's kernels where CUDA is
 available), and writes each window as Chrome trace-event JSON,
 ``<log_dir>/trace_<window>.json``, which Perfetto and
-``chrome://tracing`` open.
+``chrome://tracing`` open.  :class:`DeviceWindow` measures a device's busy
+and idle share over a window a caller opens and closes (a server's
+``/admin/profile``), through the one reader of the profiler's raw records,
+:func:`kineto_intervals` and :func:`busy_ns`.
 """
 
 from __future__ import annotations
 
 import logging
 import os
+import time
 from typing import Optional
 
 logger = logging.getLogger(__name__)
@@ -92,6 +96,91 @@ class StepProfiler:
     # the profiler running: the trainer calls close() from a finally
     def close(self) -> None:
         self.stop()
+
+
+def kineto_intervals(prof, device_type=None):
+    """The ``[(start ns, end ns)]`` and ``{name cut to 80 characters: µs}``
+    of a stopped profiler's events on ``device_type`` (the CUDA device by
+    default), from its raw records (``prof.profiler.kineto_results``).
+    ``prof.events()`` builds an object tree over the same records first,
+    about a minute over a drain's 10^5 kernels; ``chip_smoke.py``'s
+    ``check_profile_readers`` holds the two equal on the card, a CPU test on
+    the CPU's events."""
+    import torch
+
+    if device_type is None:
+        device_type = torch.autograd.DeviceType.CUDA
+    intervals, by_name = [], {}
+    for ev in prof.profiler.kineto_results.events():
+        if ev.device_type() == device_type and ev.duration_ns() > 0:
+            start = ev.start_ns()
+            intervals.append((start, start + ev.duration_ns()))
+            name = ev.name()[:80]
+            by_name[name] = by_name.get(name, 0.0) + ev.duration_ns() / 1e3
+    return intervals, by_name
+
+
+def busy_ns(intervals) -> int:
+    """The length of the union of ``intervals``, so that overlapping
+    streams are not counted twice."""
+    busy, end = 0, None
+    for s, e in sorted(intervals):
+        if end is None or s > end:
+            busy, end = busy + e - s, e
+        elif e > end:
+            busy, end = busy + e - end, e
+    return busy
+
+
+class DeviceWindow:
+    """A ``torch.profiler`` window over the device's kernels alone, for a
+    busy and idle share: :meth:`stop` returns the window's wall seconds,
+    the device's busy seconds (:func:`busy_ns` over :func:`kineto_intervals`),
+    the idle share, the kernel count, and ``read_s``, the seconds the stop
+    and the read took (the window's own cost).  Without a CUDA device it
+    traces the CPU and counts no kernel.  The profiler's state belongs to
+    the thread that started it: call :meth:`start` and :meth:`stop` on one
+    thread.  ``opened`` counts the windows started, so a deferred close can
+    tell whether its window is still the open one."""
+
+    def __init__(self):
+        self._prof = None
+        self._t0 = 0.0
+        self.opened = 0
+
+    @property
+    def open(self) -> bool:
+        return self._prof is not None
+
+    def start(self) -> None:
+        import torch
+
+        if self._prof is not None:
+            raise RuntimeError("a device profile window is already open")
+        cuda = torch.cuda.is_available()
+        self._prof = torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CUDA if cuda else torch.profiler.ProfilerActivity.CPU
+        ])
+        self._prof.start()
+        self._t0 = time.perf_counter()
+        self.opened += 1
+
+    def stop(self) -> dict:
+        import torch
+
+        if self._prof is None:
+            raise RuntimeError("no device profile window is open")
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+        t_stop = time.perf_counter()
+        wall = t_stop - self._t0
+        prof, self._prof = self._prof, None
+        prof.stop()
+        intervals, _ = kineto_intervals(prof)
+        busy = busy_ns(intervals) / 1e9
+        return {"wall_s": wall, "device_busy_s": busy,
+                "device_idle_share": 1.0 - busy / max(wall, 1e-9),
+                "kernels": len(intervals), "read_s": time.perf_counter() - t_stop}
 
 
 def maybe_make_profiler(cfg, run_name: str = "run") -> Optional[StepProfiler]:

@@ -555,8 +555,7 @@ def test_server_greedy_output_matches_jax_server(pairs, family, stream, monkeypa
     """The same requests, admitted in the same order, through the port's and
     JAX's servers over their contiguous schedulers: identical tokens, no
     ``paging`` block on ``/healthz``, no paged dispatch series on
-    ``/metrics``, the same series names (but the hot-swap gauge) and
-    ``/healthz`` keys."""
+    ``/metrics``, the same series names and ``/healthz`` keys."""
     monkeypatch.delenv("RELORA_TPU_REPLICA_ID", raising=False)
     jx, pt, _ = pairs[family]
     mix = mixed_requests(FAMILIES[family]["vocab_size"], seed=7)[:5]
@@ -578,8 +577,8 @@ def test_server_greedy_output_matches_jax_server(pairs, family, stream, monkeypa
     ours, ref = ({final["uid"]: tokens for tokens, final in r} for r in results)
     assert ours == ref and len(ours) == 5
     assert "paging" not in bodies[0] and set(bodies[0]) == set(bodies[1])
-    # the reference's hot-swap gauge: weight reloads are not ported (the fleet tier)
-    assert names[0] == names[1] - {"relora_serve_weights_version"}
+    # the hot-swap gauge (weights_version) included: the port reloads too
+    assert names[0] == names[1]
     assert not any("dispatch" in n or "kv_pages" in n for n in names[0])
 
 

@@ -12,8 +12,10 @@ the JAX package's, on the CPU.
 - one request's spans have the reference's names, parents and attribute
   keys, and the scheduler's ``metrics.jsonl`` records and ``/metrics``
   series have its keys and, outside the timings, its values;
-- tenant requests (``"adapter"``) run the grouped kernel's CPU twin; the
-  fleet routes answer 501; ``serve_cli --port`` serves and drains on SIGTERM.
+- tenant requests (``"adapter"``) run the grouped kernel's CPU twin;
+  ``/admin/reload`` refuses a missing checkpoint with 422 and
+  ``/internal/migrate`` a malformed frame with 400, while the peer prefix
+  route answers 501; ``serve_cli --port`` serves and drains on SIGTERM.
 
 Steady by construction: every server binds loopback port 0 on a thread of
 its own and is drained and joined in a ``finally``; waits are on events or
@@ -627,10 +629,28 @@ def test_accept_drop_closes_then_recovers(pair, armed):
 
 @pytest.mark.parametrize("method,route", [("POST", "/admin/reload"), ("POST", "/internal/migrate"),
                                           ("GET", "/internal/prefix/00ff")])
-def test_fleet_routes_answer_501(pair, armed, method, route):
-    with Served(scheduler(pair[1])) as server:
-        status, _, body = http(server.port, method, route, {})
-    assert status == 501 and b"ROADMAP Queue 1 item 4.4" in body
+def test_fleet_routes_answer_501(pair, armed, method, route, tmp_path):
+    """The fleet routes' refusals: a reload of a missing checkpoint answers
+    422 (``reload_prepare`` refuses it before any device write, as the
+    reference answers) and keeps the version; a frame that does not decode
+    answers 400; the peer prefix route, whose directory is not ported,
+    answers 501 naming the ROADMAP item that holds it."""
+    from relora_tpu_torch.train.checkpoint import restore_serving_params
+
+    def reload_prepare(path):
+        params = restore_serving_params(path)
+        return lambda: pair[1].reload_params(params)
+
+    with Served(scheduler(pair[1]), reload_prepare=reload_prepare) as server:
+        body = {"checkpoint": str(tmp_path / "model_3")} if route == "/admin/reload" else b"RPR1junk"
+        status, _, reply = http(server.port, method, route, body)
+        version = health(server.port)[1]["weights_version"]
+    if route == "/admin/reload":
+        assert status == 422 and b"no params.pt" in reply and version == 0
+    elif route == "/internal/migrate":
+        assert status == 400 and b"bad page run" in reply
+    else:
+        assert status == 501 and b"ROADMAP Queue 1 item 5b" in reply
 
 
 def test_error_paths_and_endpoints(pair, armed):
@@ -658,9 +678,14 @@ def test_error_paths_and_endpoints(pair, armed):
 
 
 def test_server_refuses_fleet_arguments(pair):
-    for kw in ({"reload_prepare": lambda path: None}, {"peer_file": "p"}, {"fleet_url": "u"}):
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 4.4"):
-            GenerateServer(scheduler(pair[1]), **kw)
+    """``fleet_url`` (the fleet prefix directory) is refused, naming the
+    ROADMAP item that holds it; a reload path and a peer roster are taken."""
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 5b"):
+        GenerateServer(scheduler(pair[1]), fleet_url="u")
+    server = GenerateServer(scheduler(pair[1], role="prefill"), reload_prepare=lambda path: None,
+                            peer_file="p", weights_version=3)
+    assert server.weights_version == 3 and server.role == "prefill"
+    assert server.scheduler.migration_sink == server._migration_sink
 
 
 # -- tracing and telemetry against the reference -----------------------------------------
@@ -784,12 +809,14 @@ def test_adapter_requests_through_the_grouped_twin(tenant_pair, armed):
     (["--peer-file", "p"], "pass --port"),
     (["--watch-checkpoints", "d"], "requires --port"),
     (["--port", "0", "--watch-checkpoints", "d"], "not --random-init"),
-    (["--port", "0", "--role", "prefill"], "ROADMAP Queue 1 item 4.4"),
-    (["--port", "0", "--fleet-url", "u"], "ROADMAP Queue 1 item 4.4"),
+    (["--port", "0", "--role", "prefill"], "--role prefill requires --paged"),
+    (["--port", "0", "--fleet-url", "u"], "ROADMAP Queue 1 item 5b"),
     (["--port", "0", "--max-queue", "0"], "--max-queue must be >= 1"),
 ])
 def test_cli_server_flags_refused(extra, message):
     argv = ["--model_config", "llama_9m", "--random-init", "--paged", "--device", "cpu"]
+    if "--role" in extra:
+        argv.remove("--paged")  # a role needs the paged pool
     if "--prompt" not in extra and "--port" not in extra:
         argv += ["--prompt", "1 2"]
     with pytest.raises(SystemExit, match=message):

@@ -412,8 +412,11 @@ def test_engine_and_scheduler_guards(raw, engines):
     draft_eng.load_draft_params(params)
     with pytest.raises(ValueError, match="packed"):
         PagedContinuousBatchingScheduler(draft_eng, max_batch=2, spec="model", packed=True)
-    with pytest.raises(NotImplementedError, match="disaggregated"):
-        PagedContinuousBatchingScheduler(draft_eng, max_batch=2, spec="ngram", role="decode")
+    # disaggregated roles take the prompt-lookup drafter, not a draft model
+    assert PagedContinuousBatchingScheduler(draft_eng, max_batch=2, spec="ngram",
+                                            role="decode").role == "decode"
+    with pytest.raises(ValueError, match="role must be"):
+        PagedContinuousBatchingScheduler(draft_eng, max_batch=2, role="donor")
     with pytest.raises(ValueError, match="role"):
         PagedContinuousBatchingScheduler(draft_eng, max_batch=2, spec="model", role="decode")
 

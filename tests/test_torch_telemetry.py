@@ -473,3 +473,29 @@ def test_cli_writes_telemetry_and_a_profile_on_cpu_without_jax(tmp_path):
                             capture_output=True, text=True, timeout=120)
     assert report.returncode == 0 and "MFU-gap waterfall" in report.stdout
     assert "per-pytree" in report.stdout
+
+
+def test_raw_record_reader_matches_the_profilers_event_tree():
+    """``profiling.kineto_intervals`` and ``busy_ns`` (the one reader of the
+    profiler's raw records, behind ``DeviceWindow`` and chip_smoke's device
+    profiles) against ``prof.events()`` over a CPU region: the same
+    intervals, the same busy time and the same time per op name (the card's
+    kernels get the same check in chip_smoke's ``check_profile_readers``)."""
+    cpu = torch.autograd.DeviceType.CPU
+    x = torch.randn(64, 64)
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        for _ in range(20):
+            x = torch.softmax(x @ x, dim=-1) + 1e-3
+    raw, raw_names = profiling.kineto_intervals(prof, cpu)
+    tree, tree_names = [], {}
+    for ev in prof.events():
+        if ev.device_type == cpu and ev.time_range.elapsed_us() > 0:
+            tree.append((ev.time_range.start * 1e3, ev.time_range.end * 1e3))
+            tree_names[ev.name[:80]] = tree_names.get(ev.name[:80], 0.0) + ev.time_range.elapsed_us()
+    assert raw and len(raw) == len(tree)
+    busy = profiling.busy_ns(raw)
+    assert abs(busy - profiling.busy_ns(tree)) <= 1e-6 * busy + 1
+    assert busy < sum(e - s for s, e in raw)  # nested ops count once
+    assert set(raw_names) == set(tree_names)
+    assert all(abs(raw_names[k] - tree_names[k]) <= 1e-6 * tree_names[k] + 1e-3 for k in raw_names)
+    assert profiling.busy_ns([(0, 10), (5, 20), (30, 40), (32, 35)]) == 30
