@@ -57,7 +57,7 @@ Phases, in order; any failure raises and the script exits non-zero:
                32-512 tokens, 64 new tokens each) for llama_250m at full width,
                ``--random-init --dtype bf16 --max-batch 8 --paged``: at
                ``--kv-dtype bf16``, with ``--packed``, and at ``--kv-dtype int8``,
-               the first 8 with ``--packed --kv-dtype int8`` (fleet_disagg's
+               the first 4 with ``--packed --kv-dtype int8`` (fleet_disagg's
                packed leg's yardstick), then at bf16 over the repeat traffic (16 prompts, each a
                seeded 8-32-token phrase repeated to 32-512 tokens).
                The launch counters are zeroed before each drain and read after;
@@ -101,7 +101,7 @@ Phases, in order; any failure raises and the script exits non-zero:
                a watcher, and a tenant pair (``--no-merge --adapter-dir``,
                ``--role prefill`` into ``--role decode``).  Prompt 0 through
                the prefill replica fails open (decoded at home,
-               token-identical); then the packed replica's drain of 8
+               token-identical); then the packed replica's drain of 4
                prompts (kernel 2), held to finishing, its streams counted
                against the in-process ``--packed --kv-dtype int8`` drain and
                that drain's against the sequential one; then one tenant
@@ -119,6 +119,30 @@ Phases, in order; any failure raises and the script exits non-zero:
                the in-process int8 drain, the donor's pages and frame bytes
                equal to the reckoning, 16 inserts, each replica's device
                idle share over the drain.
+   fleet_front — one ``python -m relora_tpu_torch.serve.supervisor``
+               process (started beside the six): three ``serve_cli``
+               replicas at the fleet's flags (``r0`` prefill with
+               ``serve_migrate`` armed once, ``r1`` decode, ``r2`` mixed),
+               its router (classifying at 128 prompt tokens) and its
+               collector every 0.5 s.  Before fleet_disagg: a drill request
+               (decoded at home on ``r0``), then the 16 prompts through the
+               router, timed, each identical to the in-process int8 drain
+               and routed by its length (long ones migrate ``r0`` -> ``r1``);
+               a seeded 512-token P through the router (cached on ``r0``),
+               then Q (P's first 256 tokens and 32 fresh ones) straight to
+               ``r2``, which fetches the 16 pages from the holder the
+               directory names (``/fleet/prefix``): one fetch, its bytes as
+               reckoned, only the tail prefilled, Q identical to its
+               in-process drain.
+               After fleet_disagg: ``kill -9`` of ``r1`` under 8 short
+               streams; its restart runs beside the f32 slot.  Then: no
+               client hung, each stream done identical (retried on ``r2``) or
+               ended by a typed ``stream_interrupted``, ``r1`` routable
+               again; ``/fleet/series`` holds each replica's series, the
+               router's, the restart and the SLO status; ``r1`` reloaded to
+               another weights version refuses the holder's run; SIGTERM to
+               the supervisor with 4 requests in flight loses none.  The
+               replicas' kernel launches join rows 1-2.
    fleet_reload — a ``RollingUpdater`` onto a seeded llama_250m checkpoint
                over {decode, prefill} (then token-identical to an in-process
                drain of it); an update with ``deploy_reload`` armed on the
@@ -295,8 +319,8 @@ Phases, in order; any failure raises and the script exits non-zero:
                the (8, 1024) decode cache; one decode over 8 rows a round;
                attention the plain ``cached_attention``, as the reference's
                is ``jnp``): the 16 prompts, tokens/s, a profiled second
-               drain for the device idle share, and the streams identical
-               to the paged sequential drain (reported).
+               drain of the first 8 for the device idle share, and the
+               streams identical to the paged sequential drain (reported).
                contiguous_tenants: phase 16's base and tenants through
                ``ContinuousBatchingScheduler(adapter_registry=)`` with 4
                slots; fails unless kernel 5 launched 7 x 24 in every decode
@@ -400,7 +424,8 @@ turns); it checks nothing.
 
 Output: a forward+backward timing line, one line per drain (plain and
 spec), one per server drain, the server process line, the f32 server and
-f32 spec lines, the fleet_disagg, fleet_reload and fleet_launches lines, a train line, a LoRA timing line per model, a fused-train
+f32 spec lines, the fleet_front, fleet_disagg, fleet_reload and fleet_launches lines, a
+train line, a LoRA timing line per model, a fused-train
 line, the profile line, an int8 timing line per model, the int8 train lines,
 a grouped timing line, one line per adapter drain and the tenant server
 drain, the contiguous, contiguous_tenants, generate, contiguous server and
@@ -3746,7 +3771,7 @@ class Client(threading.Thread):
         super().__init__(daemon=True)
         self.port, self.payload, self.close_after = port, payload, close_after
         self.status, self.headers, self.body, self.final = None, {}, b"", None
-        self.tokens, self.times, self.error = [], [], None
+        self.tokens, self.times, self.error, self.done = [], [], None, False
         self.headed = threading.Event()
 
     def run(self):
@@ -3791,6 +3816,7 @@ class Client(threading.Thread):
                 block, buf = buf.split(b"\n\n", 1)
                 data = block.strip()[len(b"data: "):]
                 if data == b"[DONE]":
+                    self.done = True
                     return
                 event = json.loads(data)
                 if "token" in event:
@@ -3804,7 +3830,7 @@ class Client(threading.Thread):
 
     def result(self):
         return {k: getattr(self, k) for k in ("status", "headers", "body", "final", "tokens",
-                                              "times", "error", "t_send")}
+                                              "times", "error", "t_send", "done")}
 
 
 def client_batch(port, payloads):
@@ -4195,7 +4221,7 @@ FLEET_ARGS = SERVER_ARGS + ["--kv-dtype", "int8"]
 FLEET_POLL_S = 0.5  # the watching replica's --watch-interval-s
 FLEET_RELOAD_S = 10.0  # bound on one reload's restore and copy, beside two polls
 FLEET_NEW = 16  # new tokens of the reload phase's identity and in-flight requests
-FLEET_PACKED = 8  # requests of the packed prefill replica's drain
+FLEET_PACKED = 4  # requests of the packed prefill replica's drain
 
 
 def fleet_config():
@@ -4412,6 +4438,13 @@ def frame_bytes(c, prompt, page_size):
         n_pages=n)
     record["weights_version"] = 0  # the --random-init replicas'
     record["trace_id"] = c.headers["x-request-id"]
+    return len(wire.encode_page_run(record, run_entries(cfg, n, page_size)))
+
+
+def run_entries(cfg, n, page_size):
+    """Zero-filled pool leaves of an ``n``-page run of the int8 pool, as
+    ``export_page_run`` names and shapes them: codes per layer for k and v,
+    and their per-page scales."""
     entries = []
     for i in range(cfg.num_hidden_layers):
         for leaf in ("k", "v"):
@@ -4420,7 +4453,7 @@ def frame_bytes(c, prompt, page_size):
         for leaf in ("k_scale", "v_scale"):
             entries.append((f"layers.{i}.{leaf}", "float32", (n, cfg.kv_heads),
                             bytes(4 * n * cfg.kv_heads)))
-    return len(wire.encode_page_run(record, entries))
+    return entries
 
 
 def profile(replicas, action):
@@ -4718,6 +4751,489 @@ def fleet_reload(torch, fleet, prompts_path, save_dir, paths):
     return line
 
 
+FRONT_CADENCE_S = 0.5  # the fleet_front collector's --fleet-cadence-s
+FRONT_PROBE_S = 0.25  # its router's --probe-interval-s
+FRONT_THRESHOLD = 128  # the router's classify threshold: the reference's default
+FRONT_PREFIX = 256  # tokens of P's prefix that the prefix fetch moves (16 pages)
+FRONT_FRESH = 32  # fresh tokens after that prefix
+FRONT_NEW = 16  # new tokens of the phase's single requests (drill, Q, after the restart, drain)
+
+
+class Front:
+    """The fleet_front phase's one ``python -m relora_tpu_torch.serve.supervisor``
+    process under ``work/front``: three replicas of ``FLEET_ARGS`` (``r0``
+    prefill, ``r1`` decode, ``r2`` mixed; ``serve_migrate`` armed once on
+    ``r0``'s first incarnation), its router on an ephemeral port (the port
+    file ``router.port`` beside the replicas' port and pid files), and the
+    collector every FRONT_CADENCE_S.  The replicas share one ``--run-dir``;
+    each record carries its replica's ``_source``."""
+
+    def __init__(self, work):
+        self.dir = os.path.join(work, "front")
+        shutil.rmtree(self.dir, ignore_errors=True)
+        os.makedirs(self.dir)
+        self.run_dir = os.path.join(self.dir, "run")
+        self.port_file = os.path.join(self.dir, "router.port")
+        env = {k: v for k, v in os.environ.items() if k != "RELORA_TPU_FAULTS"}
+        self.log_path = os.path.join(self.dir, "supervisor.log")
+        self.log = open(self.log_path, "w")
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "relora_tpu_torch.serve.supervisor", "--replicas", "3",
+             "--prefill-replicas", "1", "--decode-replicas", "1", "--workdir", self.dir,
+             "--router-port", "0", "--probe-interval-s", str(FRONT_PROBE_S),
+             "--fleet-cadence-s", str(FRONT_CADENCE_S), "--backoff-base-s", "0.5",
+             "--drain-timeout-s", str(SERVER_WAIT),
+             "--replica-env", "0:RELORA_TPU_FAULTS=serve_migrate:times=1,exc=runtimeerror",
+             "--", sys.executable, "-m", "relora_tpu_torch.serve_cli", *FLEET_ARGS,
+             "--run-dir", self.run_dir],
+            cwd=REPO, env=env, stdout=subprocess.DEVNULL, stderr=self.log)
+        self.port = None
+        self.launches = {}
+
+    def _alive(self):
+        if self.proc.poll() is not None:
+            with open(self.log_path) as f:
+                raise AssertionError(f"fleet_front: the supervisor exited {self.proc.returncode}:"
+                                     f"\n{f.read()[-3000:]}")
+
+    def ready(self):
+        """The router's port, then its ``/healthz`` with three healthy
+        replicas whose roles it has read."""
+        def bound():
+            self._alive()
+            return os.path.exists(self.port_file) and open(self.port_file).read().strip()
+
+        self.port = int(wait_state(bound, "the front router's port file"))
+
+        def routable():
+            self._alive()
+            h = self.router_health()
+            return h["healthy_replicas"] == 3 and h
+
+        wait_state(routable, "three routable supervised replicas")
+        return self
+
+    def router_health(self):
+        return json.loads(http_call(self.port, "GET", "/healthz")[2])
+
+    def replica_port(self, i):
+        with open(os.path.join(self.dir, f"replica_{i}.port")) as f:
+            return int(f.read())
+
+    def pid(self, i):
+        with open(os.path.join(self.dir, f"replica_{i}.pid")) as f:
+            return int(f.read())
+
+    def health(self, i):
+        return json.loads(http_call(self.replica_port(i), "GET", "/healthz")[2])
+
+    def metrics(self, port):
+        from relora_tpu_torch.obs.fleet import parse_prometheus
+
+        return parse_prometheus(http_call(port, "GET", "/metrics")[2].decode())
+
+    def get(self, path):
+        status, _, body = http_call(self.port, "GET", path)
+        return status, json.loads(body) if body.startswith(b"{") else body.decode()
+
+    def stop(self, check=True):
+        """SIGTERM the supervisor (its rolling drain, one replica at a time)
+        and wait, then kill anything left; without ``check`` (a phase
+        failed) the supervisor's log tail goes to stderr.  Returns
+        its exit code and each replica's kernel launches after its warmup,
+        summed over its incarnations (``_source`` of the ``kernel_launches``
+        events in the shared run directory).  Without ``check`` it kills
+        the supervisor and the replicas at once."""
+        code = None
+        if check and self.proc.poll() is None:
+            self.proc.send_signal(signal.SIGTERM)
+            try:
+                code = self.proc.wait(SERVER_WAIT)
+            except subprocess.TimeoutExpired:
+                pass
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait(SERVER_WAIT)
+        for i in range(3):
+            try:
+                os.kill(self.pid(i), signal.SIGKILL)  # a replica left behind
+            except (OSError, ValueError):
+                pass
+        self.log.close()
+        if not check:
+            with open(self.log_path) as f:
+                print("--- fleet_front supervisor log (tail):\n" + "".join(f.readlines()[-60:]),
+                      file=sys.stderr)
+        by_source = {}
+        path = os.path.join(self.run_dir, "metrics.jsonl")
+        if os.path.exists(path):
+            with open(path) as f:
+                for line in f:
+                    try:
+                        r = json.loads(line)
+                    except json.JSONDecodeError:
+                        continue  # a line torn by the drill's kill -9
+                    if r.get("_event") != "kernel_launches":
+                        continue
+                    counts = by_source.setdefault(r["_source"], {})
+                    for k, v in r.items():
+                        if not k.startswith(("_", "warmup/")):
+                            counts[k] = counts.get(k, 0) + v
+        self.launches = by_source
+        return code, by_source
+
+
+def front_prompts(prompts):
+    """P (a seeded 512-token prompt, in none of the drains) and the two
+    prefix-fetch requests: FRONT_PREFIX tokens of P then FRONT_FRESH tokens
+    of their own."""
+    import numpy as np
+
+    vocab = fleet_config().vocab_size
+    rng = np.random.default_rng(20)
+    p = rng.integers(2, vocab, 512).tolist()
+    q = [p[:FRONT_PREFIX] + rng.integers(2, vocab, FRONT_FRESH).tolist() for _ in range(2)]
+    return p, q
+
+
+def fleet_front(front, prompts_path, inproc):
+    """Phase fleet_front, part one, over the supervised fleet and before
+    fleet_disagg times its drain.  (1) The drill: prompt 0 (FRONT_NEW new
+    tokens) through the router goes to ``r0`` (prefill), whose armed
+    ``serve_migrate`` fails the handoff once: decoded at home,
+    token-identical.  Then the routed drain:
+    the 16 prompts (64 new tokens) through the router, timed; each stream
+    must equal the in-process int8 drain, land on ``r0`` (prompts of
+    FRONT_THRESHOLD tokens and more, then migrated to ``r1``) or ``r1``, as
+    the router's ``routed_*`` counters and the receivers' inserts say (a
+    run goes to ``r2``, mixed, when ``r1``'s slots are full).  (2)
+    The prefix fetch: P through the router to ``r0`` with one new token
+    (it finishes there, cached); once the directory (``/fleet/prefix``)
+    names a holder, Q (P's first FRONT_PREFIX tokens, then FRONT_FRESH
+    fresh ones; FRONT_NEW new tokens) straight to ``r2``, which never saw
+    P: it fetches the 16 pages from the holder and prefills the tail.
+    Returns the phase's state for :func:`fleet_front_finish`."""
+    import types
+
+    from relora_tpu_torch.serve.paging import PrefixCache
+
+    prompts = read_prompts(prompts_path)
+    ref = inproc["int8"]["tokens"]
+    vocab = fleet_config().vocab_size
+    steps, t0 = {}, [time.perf_counter()]
+
+    def lap(name):
+        now = time.perf_counter()
+        steps[name], t0[0] = now - t0[0], now
+
+    drill = types.SimpleNamespace(**client_batch(front.port, [{"prompt": prompts[0],
+                                                               "max_new_tokens": FRONT_NEW}])[0])
+    check_stream("fleet_front drill", drill, vocab)
+    drill_failures = front.health(0)["paging"]["disagg"]["migration_failures"]
+    def inserted():  # the runs each receiver adopted: the decode replica, else mixed
+        return {f"r{i}": front.health(i)["paging"]["disagg"]["migrated_inserts"] for i in (1, 2)}
+
+    inserts0 = inserted()
+    lap("drill")
+    t_drain = time.perf_counter()
+    clients = [types.SimpleNamespace(**c)
+               for c in client_batch(front.port, [{"prompt": p} for p in prompts])]
+    drain_s = time.perf_counter() - t_drain
+    lap("routed_drain")
+    for c in clients:
+        check_stream("fleet_front", c, vocab)
+    flat, _ = front.metrics(front.port)
+    long = [len(p) >= FRONT_THRESHOLD for p in prompts]
+    routed = [c.headers.get("x-relora-replica") for c in clients]
+    inserts = wait_state(lambda: sum((n := {k: v - inserts0[k] for k, v in inserted().items()})
+                                     .values()) >= sum(long) and n, "the routed drain's inserts")
+    state = {
+        "steps": steps, "prompts": prompts, "ref": ref, "drain_s": drain_s,
+        "inproc_tokens_per_s": inproc["int8"]["tokens_per_s"],
+        "stats": latency_stats(clients),
+        "diverged": [{"request": i, "index": first_divergence(c.tokens, ref[i])}
+                     for i, c in enumerate(clients) if c.tokens != ref[i]],
+        "drill_identical": drill.tokens == ref[0][:FRONT_NEW], "drill_replica":
+            drill.headers.get("x-relora-replica"), "drill_failures": drill_failures,
+        "routed": routed, "routed_wrong": [i for i, (r, lg) in enumerate(zip(routed, long))
+                                           if r != ("r0" if lg else "r1")],
+        "routed_prefill_total": flat["relora_router_routed_prefill_total"],
+        "routed_decode_total": flat["relora_router_routed_decode_total"],
+        "long": sum(long), "migrated_inserts": inserts,
+        "migration_failures_after": front.health(0)["paging"]["disagg"]["migration_failures"],
+    }
+
+    # the prefix fetch: P cached on r0 (one new token: it finishes there), Q
+    # to r2
+    p, (q, q2) = front_prompts(prompts)
+    state["p"], state["q"], state["q2"] = p, q, q2
+    check_stream("fleet_front P", types.SimpleNamespace(
+        **client_batch(front.port, [{"prompt": p, "max_new_tokens": 1}])[0]), vocab)
+    digest = PrefixCache._digest(p[:FRONT_PREFIX]).hex()
+    state["digest"] = digest
+    status, holder = wait_state(
+        lambda: (a := front.get(f"/fleet/prefix?d={digest}&exclude=r2"))[0] == 200 and a,
+        "the directory's holder of P's prefix")
+    port2 = front.replica_port(2)
+    before = front.health(2)
+    before_flat, before_h = front.metrics(port2)
+    lap("prefix_donor")
+    t_q = time.perf_counter()
+    fetched = types.SimpleNamespace(**client_batch(port2, [{"prompt": q,
+                                                            "max_new_tokens": FRONT_NEW}])[0])
+    q_s = time.perf_counter() - t_q
+    lap("prefix_fetch")
+    check_stream("fleet_front Q", fetched, vocab)
+    after = front.health(2)
+    after_flat, after_h = front.metrics(port2)
+    exports = {i: front.metrics(front.replica_port(i))[0].get(
+        "relora_serve_http_requests_total.prefix", 0.0) for i in (0, 1)}
+    seconds = (after_h["relora_serve_prefix_fetch_seconds"]["sum"]
+               - before_h.get("relora_serve_prefix_fetch_seconds", {"sum": 0.0})["sum"])
+    cfg = fleet_config()
+    from relora_tpu_torch.serve import wire
+
+    n_pages = FRONT_PREFIX // PAGE
+    reckoned = len(wire.encode_page_run(
+        {"digest": digest, "n_tokens": FRONT_PREFIX, "n_pages": n_pages, "weights_version": 0},
+        run_entries(cfg, n_pages, PAGE)))
+    state["prefix"] = {
+        "holder": holder, "receiver": "r2", "tokens": fetched.tokens, "request_s": q_s,
+        "fetch_seconds": seconds,
+        "fetches": after["paging"]["disagg"]["prefix_fetches"]
+        - before["paging"]["disagg"]["prefix_fetches"],
+        "failures": after["paging"]["disagg"]["prefix_fetch_failures"]
+        - before["paging"]["disagg"]["prefix_fetch_failures"],
+        "pages": n_pages, "bytes": after["paging"]["disagg"]["migration_bytes"]
+        - before["paging"]["disagg"]["migration_bytes"], "bytes_reckoned": reckoned,
+        "prefix_hits": after["paging"]["prefix_cache"]["hits"]
+        - before["paging"]["prefix_cache"]["hits"],
+        "exports": {f"r{i}": v for i, v in exports.items()},
+        "prefix_fetch_total": after_flat["relora_serve_prefix_fetch_total"]
+        - before_flat["relora_serve_prefix_fetch_total"],
+    }
+    return state
+
+
+def fleet_front_crash(front, state):
+    """Phase fleet_front, part two, just before the f32 slot: the crash
+    drill.  Four short-prompt streams go through the router to the decode
+    pool (``r1``) and run; four more are sent, and once ``r1`` holds all
+    eight, ``kill -9`` of its pid file's process.  The restart and its
+    warmup then run beside the phases that time nothing; every client must
+    have ended by then (checked in :func:`fleet_front_finish`)."""
+    short = [i for i, p in enumerate(state["prompts"]) if len(p) < FRONT_THRESHOLD]
+    order = (short * 2)[:8]
+    first = [Client(front.port, {"prompt": state["prompts"][i]}) for i in order[:4]]
+    for c in first:
+        c.start()
+    wait_state(lambda: all(c.tokens or not c.is_alive() for c in first), "the first streams")
+    second = [Client(front.port, {"prompt": state["prompts"][i]}) for i in order[4:]]
+    for c in second:
+        c.start()
+    wait_state(lambda: (h := front.health(1))["active_slots"] + h["queue_depth"] >= 8
+               or not any(c.is_alive() for c in second), "eight streams on r1", timeout=30.0)
+    pid = front.pid(1)
+    os.kill(pid, signal.SIGKILL)
+    state["crash"] = {"t_kill": time.time(), "pid": pid, "clients": first + second,
+                      "order": order}
+
+
+def fleet_front_reference(prompts_path, state):
+    """The in-process int8 drain of the prefix fetch's Q (timing-free: it
+    runs in the f32 slot)."""
+    from relora_tpu_torch import serve_cli
+
+    path = os.path.join(os.path.dirname(prompts_path), "front_q.txt")
+    with open(path, "w") as f:
+        f.write(" ".join(map(str, state["q"])) + "\n")
+    completions, _ = serve_cli.run(FLEET_ARGS + ["--input-file", path, "--max-new-tokens",
+                                                 str(FRONT_NEW)])
+    state["q_ref"] = completions[0].tokens
+
+
+def fleet_front_finish(front, state, paths, disagg_line):
+    """Phase fleet_front, the rest: (3) the crash drill's verdict: no
+    client hung; each stream ended with ``[DONE]`` token-identical to the
+    in-process drain (retried on ``r2`` when it had no byte yet) or with a
+    typed ``stream_interrupted`` event and no ``[DONE]`` after a prefix of
+    its tokens; none lost; ``r1`` restarted and routable again (seconds
+    from the kill to the collector's first ``/healthz`` ok of it), and a
+    request routed to it again.  (4) The collector: ``/fleet/series``
+    holds each replica's TTFT p95, queue depth and slot gauges, the
+    router's own series, the restart and ``r1``'s health flips as events,
+    the SLO status; ``/fleet/prefix`` answers the fetch's digest.  The
+    weights-version guard: the restarted ``r1`` reloads ``model_1``
+    (``/admin/reload``), then a second Q straight to it must refuse the
+    holder's version-0 run (one fetch failure) and still finish.  (5) The
+    rolling drain: four requests in flight, SIGTERM to the supervisor: each
+    finishes, the supervisor exits 0, and the replicas' ``kernel_launches``
+    events are read.  Prints the ``fleet_front`` line and returns the
+    launches summed over the replicas."""
+    import types
+
+    from relora_tpu_torch.obs.fleet import parse_prometheus
+
+    ref, prompts = state["ref"], state["prompts"]
+    vocab = fleet_config().vocab_size
+    steps, t0 = state["steps"], [time.perf_counter()]
+
+    def lap(name):
+        now = time.perf_counter()
+        steps[name], t0[0] = now - t0[0], now
+
+    crash = state["crash"]
+    for c in crash["clients"]:
+        c.join(SERVER_WAIT)
+    hung = sum(c.is_alive() for c in crash["clients"])
+    done, interrupted, lost, off = 0, 0, 0, []
+    for c, i in zip(crash["clients"], crash["order"]):
+        err = (c.final or {}).get("error") if isinstance((c.final or {}).get("error"), dict) else None
+        if c.done and c.tokens == ref[i]:
+            done += 1
+        elif not c.done and err is not None and err.get("type") == "stream_interrupted" \
+                and c.tokens == ref[i][:len(c.tokens)]:
+            interrupted += 1
+        else:
+            lost += 1
+            off.append({"request": i, "done": c.done, "final": c.final, "error": c.error,
+                        "tokens": len(c.tokens)})
+    wait_state(lambda: front.router_health()["replicas"]["r1"]["healthy"], "r1 routable again")
+    again = types.SimpleNamespace(**client_batch(front.port, [{"prompt": prompts[crash["order"][0]],
+                                                               "max_new_tokens": FRONT_NEW}])[0])
+    flat, _ = front.metrics(front.port)
+    router = front.router_health()
+    lap("crash_verdict")
+
+    # the collector and the SLO engine
+    _, series = front.get("/fleet/series?last=4")
+    names = {src: sorted(v) for src, v in series["sources"].items()}
+    events = [(e["_event"], e["_source"]) for e in series["events"]]
+    # the restart's seconds: the kill to the collector's first scrape of r1's
+    # /healthz ok after it (a scrape every FRONT_CADENCE_S)
+    back = [e["_time"] for e in series["events"] if e["_event"] == "health_flip"
+            and e["_source"] == "r1" and e.get("to") == "ok" and e["_time"] > crash["t_kill"]]
+    kill_to_routable = back[0] - crash["t_kill"] if back else None
+    _, fleet_metrics = front.get("/fleet/metrics")
+    fleet_flat, _ = parse_prometheus(fleet_metrics)
+    prefix_status, prefix_answer = front.get(f"/fleet/prefix?d={state['digest']}")
+    lap("collector")
+
+    # the weights-version guard on the card: the restarted r1 (no prefix of
+    # P) on model_1, the directory's holder of P's prefix on version 0
+    port1 = front.replica_port(1)
+    status, _, body = http_call(port1, "POST", "/admin/reload", {"checkpoint": paths[1]})
+    before = front.health(1)["paging"]["disagg"]
+    guarded = types.SimpleNamespace(**client_batch(port1, [{"prompt": state["q2"],
+                                                            "max_new_tokens": 1}])[0])
+    check_stream("fleet_front version guard", guarded, vocab)
+    after = front.health(1)
+    version = {"reload_status": status, "weights_version": after["weights_version"],
+               "fetch_failures": after["paging"]["disagg"]["prefix_fetch_failures"]
+               - before["prefix_fetch_failures"],
+               "fetches": after["paging"]["disagg"]["prefix_fetches"] - before["prefix_fetches"]}
+    lap("version_guard")
+
+    # the rolling drain under SIGTERM
+    inflight = [Client(front.port, {"prompt": prompts[i], "max_new_tokens": FRONT_NEW})
+                for i in (crash["order"][0], 1, 2, crash["order"][1])]
+    for c in inflight:
+        c.start()
+    wait_state(lambda: any(c.tokens for c in inflight) or not any(c.is_alive() for c in inflight),
+               "requests in flight")
+    code, launches = front.stop()
+    for c in inflight:
+        c.join(SERVER_WAIT)
+    drain_lost = sum(not (c.done and c.final and c.final.get("finish_reason") in ("length", "eos"))
+                     for c in inflight)
+    lap("rolling_drain")
+
+    pre = state["prefix"]
+    line = {
+        "fleet_front": "supervisor: r0 prefill, r1 decode, r2 mixed; router, collector",
+        "requests": len(prompts), **state["stats"], "drain_s": state["drain_s"],
+        "fleet_disagg_tokens_per_s": disagg_line["tokens_per_s"],
+        "fleet_disagg_ttft_p50_s": disagg_line["ttft_p50_s"],
+        "fleet_disagg_tpot_p50_s": disagg_line["tpot_p50_s"],
+        "inproc_tokens_per_s": state["inproc_tokens_per_s"],
+        "identical_to_inproc": len(prompts) - len(state["diverged"]),
+        "divergences": state["diverged"], "drill_identical": state["drill_identical"],
+        "drill_replica": state["drill_replica"], "drill_failures": state["drill_failures"],
+        "routed_prefill_total": state["routed_prefill_total"],
+        "routed_decode_total": state["routed_decode_total"], "long_prompts": state["long"],
+        "routed_wrong": state["routed_wrong"], "migrated_inserts": state["migrated_inserts"],
+        "migration_failures_after_drain": state["migration_failures_after"],
+        "prefix_fetch": {**{k: v for k, v in pre.items() if k != "tokens"},
+                         "identical": pre["tokens"] == state["q_ref"],
+                         "directory_answer": prefix_answer if prefix_status == 200 else None},
+        "crash": {"streams": len(crash["clients"]), "hung": hung, "done_identical": done,
+                  "interrupted": interrupted, "lost": lost, "off": off,
+                  "kill_to_routable_s": kill_to_routable,
+                  "again_replica": again.headers.get("x-relora-replica"),
+                  "again_identical": again.tokens == ref[crash["order"][0]][:FRONT_NEW],
+                  "failovers": {k: v for k, v in flat.items() if "failovers_total" in k},
+                  "midstream_errors": {k: v for k, v in flat.items() if "midstream" in k},
+                  "retries_total": flat.get("relora_router_retries_total", 0.0),
+                  "breaker_r1": router["replicas"]["r1"]["circuit"]},
+        "series": names,
+        "events": sorted(set(events)),
+        "slo": {"objectives": len(series["slo"]["objectives"]),
+                "active": [a["slo"] + "/" + a["source"] for a in series["slo"]["active"]],
+                "history": len(series["slo"]["history"]),
+                "scrape_rounds": fleet_flat.get("relora_fleet_scrape_rounds_total"),
+                "alerts_firing": fleet_flat.get("relora_fleet_alerts_firing")},
+        "version_guard": version,
+        "drain": {"requests": len(inflight), "lost": drain_lost, "supervisor_exit": code},
+        "launches": launches, "step_seconds": steps,
+    }
+    print(json.dumps(line))
+    if line["identical_to_inproc"] != len(prompts) or not line["drill_identical"]:
+        raise AssertionError(f"fleet_front: routed streams differ from the in-process drain: "
+                             f"{line}")
+    if (line["routed_wrong"] or line["drill_replica"] != "r0" or line["drill_failures"] != 1
+            or line["migration_failures_after_drain"] != 1
+            or line["routed_prefill_total"] != state["long"] + 1  # the drill's too
+            or line["routed_decode_total"] != len(prompts) - state["long"]
+            or sum(line["migrated_inserts"].values()) != state["long"]):
+        raise AssertionError(f"fleet_front: routing off the classification: {line}")
+    if (pre["fetches"] != 1 or pre["failures"] != 0 or pre["prefix_fetch_total"] != 1
+            or pre["bytes"] != pre["bytes_reckoned"] or pre["prefix_hits"] != 1
+            or not line["prefix_fetch"]["identical"] or sum(pre["exports"].values()) != 1):
+        raise AssertionError(f"fleet_front: the prefix fetch is off: {line}")
+    crash_line = line["crash"]
+    if (hung or lost or done + interrupted != len(crash["clients"])
+            or crash_line["again_replica"] != "r1" or not crash_line["again_identical"]
+            or (interrupted and not any(k.endswith(".r1") for k in crash_line["midstream_errors"]))):
+        raise AssertionError(f"fleet_front: the crash drill lost or hung a request: {line}")
+    if ("supervisor_respawn", "r1") not in events or kill_to_routable is None:
+        raise AssertionError(f"fleet_front: the collector missed the restart: {line}")
+    for src in ("r0", "r1", "r2"):
+        want = {"healthz_queue_depth", "healthz_active_slots", "healthz_max_batch", "up"}
+        if not want <= set(names.get(src, ())):
+            raise AssertionError(f"fleet_front: {src}'s series are missing: {names}")
+    if not any("relora_serve_ttft_seconds_p95" in names.get(s, ()) for s in ("r0", "r1", "r2")) \
+            or not any(n.startswith("relora_router_") for n in names.get("router", ())):
+        raise AssertionError(f"fleet_front: the TTFT or router series are missing: {names}")
+    if not line["slo"]["objectives"] or line["slo"]["scrape_rounds"] is None \
+            or line["slo"]["alerts_firing"] is None or prefix_status != 200:
+        raise AssertionError(f"fleet_front: the SLO engine or /fleet/prefix did not answer: {line}")
+    if (version["reload_status"] != 200 or version["weights_version"] != 1
+            or version["fetch_failures"] != 1 or version["fetches"] != 0):
+        raise AssertionError(f"fleet_front: a run of another weights version was not refused: "
+                             f"{line}")
+    if code != 0 or drain_lost:
+        raise AssertionError(f"fleet_front: the rolling drain lost a request or failed: {line}")
+    total = {}
+    for counts in launches.values():
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+    if not total.get("paged_decode_attention") and "--device" not in FLEET_ARGS:
+        # (a CPU rehearsal's replicas run the plain twins)
+        raise AssertionError(f"fleet_front: no supervised replica launched kernel 1: {launches}")
+    return total
+
+
+
 def server_tenants(torch, base_ckpt, tenants, prompts_path):
     """Phase server (c): tenant traffic through the server over ``--no-merge
     --adapter-dir`` (``--adapters tA,tB`` preloaded after the warmup; tC
@@ -4767,14 +5283,16 @@ CONTIGUOUS_ARGS = [a for a in SERVER_ARGS if a != "--paged"]
 def contiguous_drain(torch, prompts_path, paged):
     """Phase contiguous: ``serve_cli`` without ``--paged`` (the contiguous
     cache, prefill-on-admission; merged bf16 llama_250m, ``cache_size``
-    1024, 8 slots) drains the 16 prompts, then drains them again under the
-    profiler for the device idle share and the prefill stall share (the
-    prefill and insert seconds over those plus the decode rounds').  Prints tokens/s beside the paged
+    1024, 8 slots) drains the 16 prompts, then the first PROFILED_CLIENTS
+    (one batch) again under the profiler for the device idle share and the
+    prefill stall share (the prefill and insert seconds over those plus the
+    decode rounds').  Prints tokens/s beside the paged
     sequential drain's and the count of streams identical to it (``paged``:
     its label -> tokens and tokens/s; reported, not gated: kernel 1 and the
     f32 plain attention round differently in bf16).  Fails unless every
     completion is well formed and in the vocabulary, every request
-    prefilled once, the profiled drain's tokens equal the timed drain's, and
+    prefilled once, the profiled drain's tokens equal the timed drain's
+    (for its requests), and
     kernels 1 and 2 never launched (the contiguous cache attends in plain
     PyTorch, as the reference's does in ``jnp``).  Returns uid -> tokens and
     tokens/s, the yardstick of the generate and server phases."""
@@ -4794,7 +5312,8 @@ def contiguous_drain(torch, prompts_path, paged):
     args = serve_cli.parse_args(argv)
     sched = serve_cli.build(args)
     sched.obs_registry = ServeMetrics()  # the prefill, insert and decode_step histograms
-    again, wall, busy, _ = device_profile(torch, lambda: sched.run(serve_cli.read_requests(args)))
+    again, wall, busy, _ = device_profile(
+        torch, lambda: sched.run(serve_cli.read_requests(args)[:PROFILED_CLIENTS]))
     phases = sched.obs_registry.snapshot()
     admit_s = phases["prefill_seconds_sum"] + phases["insert_seconds_sum"]
     del sched
@@ -4820,7 +5339,7 @@ def contiguous_drain(torch, prompts_path, paged):
     if prefills.calls != 16 or decodes.calls == 0 or line["paged_kernel_launches"]:
         raise AssertionError(f"drain contiguous: {prefills.calls} prefills, {decodes.calls} "
                              f"decode rounds, {line['paged_kernel_launches']} paged launches")
-    if {u: c.tokens for u, c in again.items()} != tokens:
+    if {u: c.tokens for u, c in again.items()} != {u: tokens[u] for u in again}:
         raise AssertionError("drain contiguous: the profiled drain's tokens differ")
     return {"tokens": tokens, "tokens_per_s": n / seconds}
 
@@ -5456,23 +5975,34 @@ def main() -> int:
     # the online front end: serve_cli --port over kernels 1 and 2
     server_launches, _ = server_drains(torch, prompts, inproc)
     server_launches["paged_decode_attention"] += server_overload(torch, prompts)[0]
-    # the fleet tier's replica half: six serve_cli replicas share the card;
-    # they start while server_subprocess and server_f32 run (neither times
-    # the device)
+    # the fleet tier: six serve_cli replicas and the supervised fleet (its
+    # router, collector and three replicas) share the card; they start while
+    # server_subprocess and server_f32 run (neither times the device)
     fleet, fleet_dir, fleet_paths, (base, tenants) = fleet_launch(torch, work, device)
+    front = Front(work)
     try:
         server_subprocess(work, prompts, inproc)
         server_f32(torch, work, prompts)
     except BaseException:
         fleet_stop(fleet, check=False)
+        front.stop(check=False)
         raise
     lap("server")
-    fleet_ready(fleet)
     try:
+        fleet_ready(fleet)
+    except BaseException:
+        front.stop(check=False)
+        raise
+    try:
+        front_state = fleet_front(front.ready(), prompts, inproc)
+        lap("fleet_front")
         fleet_disagg_checks = fleet_disagg(fleet, prompts, inproc)
         lap("fleet_disagg")
-        # the f32 phases time nothing: they run while two replicas read the
-        # fleet drain's device traces
+        # the crash drill's kill, then the f32 phases, which time nothing:
+        # they run while two replicas read the fleet drain's device traces
+        # and the killed replica restarts and warms up
+        fleet_front_crash(front, front_state)
+        fleet_front_reference(prompts, front_state)
         f32_comparison(torch, device)
         torch.cuda.empty_cache()
         f32_spec_drains(torch, repeat, work)
@@ -5502,22 +6032,27 @@ def main() -> int:
         torch.cuda.empty_cache()
         lap("f32, f32-spec, f32-train, f32-fused, f32-adapters, f32_contiguous, f32-pythia, "
             "f32-int8, f32-nf4")
-        fleet_disagg_checks()
+        disagg_line = fleet_disagg_checks()
+        front_launches = fleet_front_finish(front, front_state, fleet_paths, disagg_line)
+        lap("fleet_front_finish")
         fleet_reload(torch, fleet, prompts, fleet_dir, fleet_paths)
     except BaseException:
         fleet_stop(fleet, check=False)
+        front.stop(check=False)
         raise
     fleet_launches = fleet_stop(fleet)
     print(json.dumps({"fleet_launches": fleet_launches,
-                      "tdecode_launches": fleet["tdecode"].launches}))
+                      "tdecode_launches": fleet["tdecode"].launches,
+                      "front_launches": front.launches}))
     for kernel in server_launches:
         if not fleet_launches.get(kernel):
             raise AssertionError(f"fleet: no replica launched {kernel}: {fleet_launches}")
-        server_launches[kernel] += fleet_launches[kernel]
+        server_launches[kernel] += fleet_launches[kernel] + front_launches.get(kernel, 0)
     if not fleet["tdecode"].launches.get("grouped_lora_matmul"):
         raise AssertionError(f"fleet: the tenant receiver never launched kernel 5: "
                              f"{fleet['tdecode'].launches}")
     shutil.rmtree(fleet_dir, ignore_errors=True)
+    shutil.rmtree(front.dir, ignore_errors=True)
     lap("fleet_reload")
     paged_rows = {row["name"]: row for row in rows}
     for name, row in paged_rows.items():

@@ -1,5 +1,5 @@
-"""Disaggregated prefill/decode serving: roles, request classification and
-peer discovery.
+"""Disaggregated prefill/decode serving: roles, request classification, the
+fleet prefix-page directory and peer discovery.
 
 The port's own copy of ``relora_tpu/serve/disagg.py``.  A fleet split by
 role serves each request on two replicas:
@@ -13,14 +13,12 @@ role serves each request on two replicas:
 - **mixed** replicas serve everything and are the fallback pool.
 
 The router classifies by prompt length (:func:`classify_request`); a
-``peers.json`` roster (:func:`load_peers`) lets replicas find each other
-without a discovery service.  Every failure path of this module's consumers
-fails open to local work.
-
-The fleet prefix-page directory (the reference's ``PrefixPageDirectory``,
-fed by the collector and served at its ``/fleet/prefix``) waits for the
-fleet front-end slice (ROADMAP Queue 1 item 5b), with the router, the
-supervisor that writes ``peers.json`` and the collector.
+``peers.json`` roster (:func:`load_peers`, kept by the supervisor) lets
+replicas find each other without a discovery service; the collector feeds
+:class:`PrefixPageDirectory` from the prefix digests each replica advertises
+on ``/healthz`` and serves lookups at ``/fleet/prefix``, so a local prefix
+miss becomes a fetch from a peer instead of a recompute.  Every failure
+path of this module's consumers fails open to local work.
 
 Stdlib only (json, threading, http.client), so a front-end process can
 import it without torch.
@@ -32,6 +30,7 @@ import http.client
 import json
 import os
 import threading
+from collections import OrderedDict
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 ROLES = ("prefill", "decode", "mixed")
@@ -45,6 +44,90 @@ def classify_request(prompt_tokens: int, threshold: int) -> str:
     """Route class of a request: long prompts are prefill-heavy work, short
     ones decode-dominated chat traffic."""
     return "prefill" if prompt_tokens >= threshold else "decode"
+
+
+class PrefixPageDirectory:
+    """Fleet-wide map: page-aligned prefix digest (hex) -> the replica
+    holding those pages, ``(rid, host, port)``.
+
+    The collector feeds it from the ``prefix_digests`` each replica
+    advertises on ``/healthz`` (``PrefixCache.digests``, salted per adapter
+    in the port); replicas query it through ``GET /fleet/prefix?d=<hex>,...``
+    on the router.  It is advisory: an entry may be stale (the donor evicted
+    the run since its last scrape), and then the fetch answers 404 and the
+    requester prefills locally.  Capacity is a plain LRU bound.
+
+    Written from the collector's scrape thread, read from the router's event
+    loop: every operation takes the one lock.
+    """
+
+    def __init__(self, max_entries: int = 4096):
+        if max_entries < 1:
+            raise ValueError(f"max_entries must be >= 1, got {max_entries}")
+        self.max_entries = max_entries
+        self._lock = threading.Lock()
+        # digest hex -> (rid, host, port); insertion order is the LRU order
+        self._entries: "OrderedDict[str, Tuple[str, str, int]]" = OrderedDict()
+        self._by_rid: Dict[str, set] = {}
+        self.updates = 0
+        self.lookups = 0
+        self.hits = 0
+
+    def __len__(self) -> int:
+        with self._lock:
+            return len(self._entries)
+
+    def update(self, rid: str, host: str, port: int, digests: Sequence[str]) -> None:
+        """Replace ``rid``'s advertised set: digests it no longer holds drop
+        out (unless another replica advertised them since), new ones file in."""
+        with self._lock:
+            self.updates += 1
+            fresh = {str(d) for d in digests}
+            for stale in self._by_rid.get(rid, set()) - fresh:
+                if self._entries.get(stale, (None,))[0] == rid:
+                    del self._entries[stale]
+            for digest in fresh:
+                self._entries[digest] = (rid, host, int(port))
+                self._entries.move_to_end(digest)
+            self._by_rid[rid] = fresh
+            while len(self._entries) > self.max_entries:
+                dropped, (drid, _, _) = self._entries.popitem(last=False)
+                self._by_rid.get(drid, set()).discard(dropped)
+
+    def drop_replica(self, rid: str) -> None:
+        """Forget a replica's entries (it went down or left the fleet)."""
+        with self._lock:
+            for digest in self._by_rid.pop(rid, set()):
+                if self._entries.get(digest, (None,))[0] == rid:
+                    del self._entries[digest]
+
+    def lookup(
+        self, digests: Sequence[str], exclude_rid: Optional[str] = None
+    ) -> Optional[Tuple[str, str, str, int]]:
+        """The first digest (in the caller's order, longest prefix first)
+        with a known holder, as ``(digest, rid, host, port)``; None on a
+        total miss.  ``exclude_rid`` keeps a replica from fetching from
+        itself."""
+        with self._lock:
+            self.lookups += 1
+            for digest in digests:
+                entry = self._entries.get(str(digest))
+                if entry is None or entry[0] == exclude_rid:
+                    continue
+                self._entries.move_to_end(str(digest))
+                self.hits += 1
+                return (str(digest),) + entry
+            return None
+
+    def stats(self) -> Dict[str, Any]:
+        with self._lock:
+            return {
+                "entries": len(self._entries),
+                "replicas": sum(1 for s in self._by_rid.values() if s),
+                "updates": self.updates,
+                "lookups": self.lookups,
+                "hits": self.hits,
+            }
 
 
 _peers_cache: Dict[str, Tuple[float, List[Dict[str, Any]]]] = {}

@@ -661,10 +661,17 @@ class PagedContinuousBatchingScheduler(ContinuousBatchingScheduler):
         # prefill-role scheduler (called on the model thread; must not block)
         self.role = role
         self.migration_sink: Optional[Callable[[Dict[str, Any], list], bool]] = None
+        # the fleet prefix directory's client: the server sets prefix_fetch
+        # (digests -> (n_tokens, entries, nbytes) or None; called on the
+        # model thread, blocking) when it has a --fleet-url
+        self.prefix_fetch: Optional[Callable[[List[str]], Any]] = None
+        self._prefix_fetch_tried: set = set()
         self._pages_migrated = 0
         self._migration_bytes = 0
         self._migration_failures = 0
         self._migrated_inserts = 0
+        self._prefix_fetches = 0
+        self._prefix_fetch_failures = 0
         if not getattr(engine, "paged", False):
             raise ValueError("PagedContinuousBatchingScheduler needs a paged engine")
         self._spec = spec
@@ -767,6 +774,17 @@ class PagedContinuousBatchingScheduler(ContinuousBatchingScheduler):
                 shared_pages, shared_tokens = self.prefix_cache.lookup(
                     req.prompt, self._prefix_salt(req)
                 )
+                if (
+                    not shared_pages
+                    and self.prefix_fetch is not None
+                    and req.uid not in self._prefix_fetch_tried
+                ):
+                    # one fetch a uid: a miss or a failed peer falls open
+                    # to local prefill, never a retry loop
+                    if len(self._prefix_fetch_tried) > 8192:
+                        self._prefix_fetch_tried.clear()
+                    self._prefix_fetch_tried.add(req.uid)
+                    shared_pages, shared_tokens = self._fetch_prefix(req)
             # spec="model": the draft's own page run in the shared pool,
             # allocated with the base's or not at all
             draft_need = need if self._spec == "model" else 0
@@ -1048,19 +1066,91 @@ class PagedContinuousBatchingScheduler(ContinuousBatchingScheduler):
         if self.obs_registry is not None:
             self.obs_registry.inc("migrated_inserts_total")
 
+    def _fetch_prefix(self, req: Request) -> tuple:
+        """The fleet prefix directory's client path
+        (``relora_tpu/serve/scheduler.py:1267-1320``): on a local miss, ask
+        ``prefix_fetch`` for the longest page-aligned prefix of ``req``'s
+        prompt that a peer holds, import its pages, register them and look
+        up again.  The digests carry the request's adapter salt, so a
+        tenant's pages never come back for another tenant or for the base
+        (the reference asks for unsalted ones).  Every failure returns
+        ``([], 0)``: local prefill.  The fetch blocks this thread, and so
+        every other slot: each attempt's seconds go to the
+        ``prefix_fetch_seconds`` histogram and a ``prefix_fetch`` span."""
+        ps = self.engine.page_size
+        k_max = (len(req.prompt) - 1) // ps
+        if k_max < 1 or self.prefix_cache is None:
+            return [], 0
+        salt = self._prefix_salt(req)
+        digests = [
+            PrefixCache._digest(req.prompt[: k * ps], salt).hex() for k in range(k_max, 0, -1)
+        ]
+        t0 = time.monotonic()
+        span = self.tracer.start_span(
+            "prefix_fetch", trace_id=self._trace_ids.get(req.uid), uid=req.uid
+        )
+        outcome = "miss"
+        try:
+            faults.maybe_fail("serve_prefix_fetch")
+            hit = self.prefix_fetch(digests)
+            if hit is None:
+                return [], 0
+            n_tokens, entries, nbytes = hit
+            n_tokens = int(n_tokens)
+            if n_tokens < ps or n_tokens % ps or n_tokens > k_max * ps:
+                raise ValueError(f"peer returned unusable prefix ({n_tokens} tokens)")
+            n_pages = n_tokens // ps
+            pages = self.allocator.alloc(n_pages)
+            if pages is None:
+                self.prefix_cache.evict(n_pages)
+                pages = self.allocator.alloc(n_pages)
+            if pages is None:
+                outcome = "no_pages"
+                return [], 0  # pool pressure: not a failure, just skip
+            try:
+                # codes and (int8 pool) scales land together, so a recycled
+                # page takes the donor's scale with its codes
+                self._pool = self.engine.import_page_run(self._ensure_pool(), pages, entries)
+            except Exception:
+                self.allocator.decref(pages)
+                raise
+            self.prefix_cache.register(list(req.prompt[:n_tokens]), pages, salt)
+            # the cache's own refs keep the run; drop the alloc ref and let
+            # the lookup incref for this request like any local hit
+            self.allocator.decref(pages)
+            self._prefix_fetches += 1
+            self._migration_bytes += int(nbytes)
+            if self.obs_registry is not None:
+                self.obs_registry.inc("prefix_fetch_total")
+                self.obs_registry.inc("migration_bytes_total", by=int(nbytes))
+            outcome = "fetched"
+            span.set(pages=n_pages, bytes=int(nbytes))
+            return self.prefix_cache.lookup(req.prompt, salt)
+        except Exception as e:
+            logger.warning(f"request {req.uid}: prefix fetch failed: {e!r}")
+            outcome = "failed"
+            self._prefix_fetch_failures += 1
+            if self.obs_registry is not None:
+                self.obs_registry.inc("prefix_fetch_failures_total")
+            return [], 0
+        finally:
+            if self.obs_registry is not None:
+                self.obs_registry.observe("prefix_fetch_seconds", time.monotonic() - t0)
+            span.set(outcome=outcome).end()
+
     def disagg_stats(self) -> Dict:
         """The disaggregation counters, the ``disagg`` block of
-        ``/healthz``: role, pages and bytes migrated, failures, adopted
-        runs (the prefix-fetch pair stays 0: the fleet prefix directory is
-        not ported)."""
+        ``/healthz``: role, pages and bytes migrated (prefix fetches'
+        bytes included, as the reference counts them), failures, adopted
+        runs, prefix fetches and their failures."""
         return {
             "role": self.role,
             "pages_migrated": self._pages_migrated,
             "migration_bytes": self._migration_bytes,
             "migration_failures": self._migration_failures,
             "migrated_inserts": self._migrated_inserts,
-            "prefix_fetches": 0,
-            "prefix_fetch_failures": 0,
+            "prefix_fetches": self._prefix_fetches,
+            "prefix_fetch_failures": self._prefix_fetch_failures,
         }
 
     def _prefilling(self) -> List[int]:

@@ -37,8 +37,13 @@ Endpoints:
   idle boundary is reached under steady handoffs), or when the record's
   ``weights_version`` is not this replica's: K/V prefilled by other weights
   never decodes here (the reference adopts it, ROADMAP Queue 3 item 0).
-- ``/internal/prefix/*`` answers 501: the fleet prefix directory waits for
-  the fleet front-end slice (ROADMAP Queue 1 item 5b).
+- ``GET /internal/prefix/<digest>`` — export a cached prefix page run for a
+  peer (the model thread pins the run, copies it off the device and
+  unpins it; the frame is ``wire.encode_page_run`` with the digest, its
+  tokens and pages and this replica's ``weights_version``); 404 when the
+  digest is not cached here, so the peer prefills locally.  The response
+  is not held to the request body limit: a 512-token int8 run of
+  llama_250m is ~19 MB.
 - ``POST /admin/profile`` — an operator route, unauthenticated like
   ``/admin/reload`` (bind the server where only operators reach it).  Body
   ``{"action": "start"}`` opens a device profile window
@@ -51,15 +56,25 @@ Endpoints:
   kernel, on a thread of its own.
 
 Disaggregated serving (``role`` from the scheduler, ``peer_file`` the
-``peers.json`` roster): a prefill replica's scheduler hands each finished
-prompt's run to ``_migration_sink``, which frames it and starts the handoff
-on the event loop (``_migrate_task``): per decode peer, ``relayed`` (the
-peer finished the stream: the donor slot is committed away), ``rejected``
+``peers.json`` roster, ``fleet_url`` the fleet prefix directory on the
+router: a router-port file or ``host:port``): a prefill replica's
+scheduler hands each finished prompt's run to ``_migration_sink``, which
+frames it and starts the handoff on the event loop (``_migrate_task``): per
+decode peer, ``relayed`` (the peer finished the stream: the donor slot is
+committed away), ``rejected``
 (no token reached the client: the next peer, then local decode,
 token-identical) or ``aborted`` (the peer died after a token reached the
 client: a typed ``migration_failed`` error finish).  Work crossing into
-the model thread (handoff outcomes, adopted runs) goes through an inbox the
-model loop drains every iteration, as the reload goes through its fence.
+the model thread (handoff outcomes, adopted runs, prefix exports) goes
+through an inbox the model loop drains every iteration, as the reload goes
+through its fence.  With ``fleet_url`` the scheduler's local prefix miss
+asks the directory for a peer that holds the prompt's prefix and fetches
+the run (:meth:`GenerateServer._prefix_fetch`, a blocking round trip on the
+model thread, as in the reference).  Two guards go beyond the reference: a
+fetched run of another ``weights_version``, or any fetch while a reload is
+pending here, is refused (a counted fetch failure, local prefill); and the
+digests carry the request's adapter salt (``PrefixCache._digest``), so a
+tenant's pages never serve another tenant or the base.
 
 Flow control: the ``AdmissionController`` is the only waiting room (a full
 queue answers 429 + Retry-After); ``deadline_s`` ends a request at a round
@@ -85,6 +100,7 @@ import time
 import zlib
 from collections import deque
 from typing import Any, Callable, Deque, Dict, Optional, Set, Tuple
+from urllib.parse import urlsplit
 
 import torch
 
@@ -125,13 +141,8 @@ _IDLE_POP_S = 0.02
 #: the longest an ``/admin/profile`` window stays open
 PROFILE_MAX_S = 120.0
 
-#: the peer prefix-page route, refused until the fleet front end is ported
+#: the peer prefix-page export route
 _PREFIX_ROUTE = "/internal/prefix/"
-FLEET_FRONT_END = (
-    "the fleet prefix directory (GET /internal/prefix/<digest>, --fleet-url) is not "
-    "ported to relora_tpu_torch yet: it comes with the fleet front end "
-    "(ROADMAP Queue 1 item 5b)"
-)
 
 
 def _completion_record(completion: Completion) -> Dict[str, Any]:
@@ -266,8 +277,6 @@ class GenerateServer:
         fleet_url: Optional[str] = None,
         migrate_timeout_s: float = 30.0,
     ):
-        if fleet_url is not None:
-            raise NotImplementedError(f"fleet_url: {FLEET_FRONT_END}")
         self.scheduler = scheduler
         self.host = host
         self.port = port  # the bound port after bind (port=0 = ephemeral)
@@ -372,6 +381,7 @@ class GenerateServer:
         # peers.json roster; the inbox carries work into the model thread
         self.role = getattr(scheduler, "role", "mixed")
         self.peer_file = peer_file
+        self.fleet_url = fleet_url
         self.migrate_timeout_s = migrate_timeout_s
         self._disagg_inbox: Deque[Tuple[str, Any]] = deque()
         # a frame carries up to a whole block table of pages: the migrate
@@ -385,6 +395,8 @@ class GenerateServer:
         if hasattr(scheduler, "migration_sink"):
             if self.role == "prefill" and peer_file:
                 scheduler.migration_sink = self._migration_sink
+            if fleet_url:
+                scheduler.prefix_fetch = self._prefix_fetch
             for name in ("pages_migrated_total", "migration_bytes_total",
                          "migration_failures_total", "migrated_inserts_total",
                          "prefix_fetch_total", "prefix_fetch_failures_total"):
@@ -733,6 +745,8 @@ class GenerateServer:
                     sched.migration_abort(payload[0], payload[1])
                 elif kind == "insert":
                     self._apply_migrate_insert(*payload)
+                elif kind == "export_prefix":
+                    self._apply_prefix_export(*payload)
             except Exception as e:
                 # inbox work never kills the model thread: each message has
                 # its own fail-open path, and this is the last resort
@@ -769,6 +783,102 @@ class GenerateServer:
             result["error"] = str(e)
         finally:
             done.set()
+
+    def _apply_prefix_export(
+        self, digest_hex: str, done: threading.Event, result: Dict[str, Any]
+    ) -> None:
+        """Model thread: pin and export a locally cached prefix run for a
+        peer (``GET /internal/prefix/<digest>``).  ``result["blob"]`` stays
+        absent on a miss, and the handler answers 404.  The acquire/decref
+        pair is the donor's pin: eviction cannot free the run while
+        ``export_page_run`` copies it off the device."""
+        try:
+            sched = self.scheduler
+            cache = getattr(sched, "prefix_cache", None)
+            if cache is None:
+                return
+            acquired = cache.acquire(digest_hex)
+            if acquired is None:
+                return
+            pages, n_tokens = acquired
+            try:
+                entries = sched.engine.export_page_run(sched._ensure_pool(), pages)
+            finally:
+                sched.allocator.decref(pages)  # the transfer pin
+            # the version is read on the thread that swaps: the pages were
+            # written by exactly these weights
+            result["blob"] = _encode_page_run(
+                {"digest": digest_hex, "n_tokens": n_tokens, "n_pages": len(pages),
+                 "weights_version": self.weights_version},
+                entries,
+            )
+        except Exception as e:
+            result["error"] = str(e)
+        finally:
+            done.set()
+
+    def _fleet_address(self) -> Optional[Tuple[str, int]]:
+        """``fleet_url`` as ``(host, port)``: a file holding the router's
+        port (the supervisor's ``<workdir>/router.port``, written once the
+        router binds, so read at each fetch) or ``[http://]host:port``."""
+        url = self.fleet_url
+        if not url:
+            return None
+        if os.path.exists(url):
+            try:
+                with open(url) as f:
+                    url = f.read().strip()
+                if ":" not in url:
+                    url = f"127.0.0.1:{int(url)}"
+            except (OSError, ValueError):
+                return None
+        parts = urlsplit(url if "//" in url else f"//{url}")
+        return parts.hostname or "127.0.0.1", parts.port or 80
+
+    def _prefix_fetch(self, digests: list) -> Optional[Tuple[int, Any, int]]:
+        """Model thread (the scheduler's ``_fetch_prefix``): ask the fleet
+        directory for the longest known digest of ``digests`` (longest
+        prefix first), then pull the run from its holder's
+        ``/internal/prefix/``.  Returns ``(n_tokens, entries, nbytes)`` or
+        None (no holder known, or the holder no longer has it); a raise is
+        the scheduler's counted failure.  Refused beyond the reference: any
+        fetch while a reload is pending here, a run of another
+        ``weights_version``, and a run that is not the digest asked for."""
+        if self._pending_reload is not None:
+            raise RuntimeError("a weight reload is pending")
+        address = self._fleet_address()
+        if address is None:
+            return None
+        status, body = disagg.http_fetch(
+            address[0], address[1],
+            "/fleet/prefix?d=" + ",".join(digests) + "&exclude=" + self.replica_id,
+            timeout_s=2.0,
+        )
+        if status != 200:
+            return None
+        doc = json.loads(body.decode("utf-8"))
+        digest = doc.get("digest")
+        if not digest or doc.get("replica") == self.replica_id:
+            return None
+        if digest not in digests:
+            raise ValueError(f"the directory answered digest {digest!r}, not one asked for")
+        status, blob = disagg.http_fetch(
+            str(doc["host"]), int(doc["port"]), f"/internal/prefix/{digest}", timeout_s=5.0
+        )
+        if status != 200:
+            return None  # a stale directory entry: the holder evicted the run
+        meta, arrays = _decode_page_run(blob)
+        if meta.get("weights_version") != self.weights_version:
+            raise RuntimeError(
+                f"prefix run written by weights_version {meta.get('weights_version')}, "
+                f"serving {self.weights_version}"
+            )
+        # the digest's place in the list is its page count (longest first)
+        want_pages = len(digests) - digests.index(digest)
+        if meta.get("digest") != digest or int(meta.get("n_pages", -1)) != want_pages:
+            raise ValueError(f"peer exported {meta.get('digest')!r} ({meta.get('n_pages')} "
+                             f"pages) for {digest!r} ({want_pages} pages)")
+        return int(meta["n_tokens"]), arrays, len(blob)
 
     def _migration_sink(self, record: Dict[str, Any], entries: Any) -> bool:
         """Model thread (the scheduler's ``_maybe_migrate``): pick decode
@@ -1000,10 +1110,35 @@ class GenerateServer:
             await self._handle_profile(writer, body)
         elif route.startswith(_PREFIX_ROUTE):
             self.stats.inc("http_requests_total", ("route", "prefix"))
-            await _respond_json(writer, 501, {"error": FLEET_FRONT_END})
+            if method != "GET":
+                await _respond_json(writer, 405, {"error": "use GET"})
+                return
+            await self._handle_prefix(writer, route[len(_PREFIX_ROUTE):])
         else:
             self.stats.inc("http_requests_total", ("route", "other"))
             await _respond_json(writer, 404, {"error": f"no route {route}"})
+
+    async def _handle_prefix(self, writer: asyncio.StreamWriter, digest_hex: str) -> None:
+        """``GET /internal/prefix/<digest>``: a cached prefix run's frame
+        for a peer; 404 when it is not cached here (a stale directory entry),
+        503 while warming or after the model thread died.  The frame is
+        written as it is, whatever its size."""
+        if self._worker_error is not None or self._warming:
+            await _respond_json(writer, 503, {"error": "replica not serving prefixes"})
+            return
+        done = threading.Event()
+        result: Dict[str, Any] = {}
+        self._disagg_inbox.append(("export_prefix", (digest_hex.strip(), done, result)))
+        ok = await asyncio.get_running_loop().run_in_executor(None, done.wait, 10.0)
+        blob = result.get("blob") if ok else None
+        if blob is None:
+            await _respond_json(
+                writer, 404, {"error": result.get("error") or "prefix not cached on this replica"}
+            )
+            return
+        writer.write(_head(200, "OK", "application/octet-stream", content_length=len(blob)))
+        writer.write(blob)
+        await writer.drain()
 
     async def _handle_healthz(self, writer: asyncio.StreamWriter) -> None:
         # a dead worker trumps everything, a wedged one the drain, the drain

@@ -84,6 +84,11 @@ client decodes locally:
     python -m relora_tpu_torch.serve_cli --model_config llama_250m \
         --random-init --paged --kv-dtype int8 --dtype bf16 --max-batch 8 \
         --port 0 --port-file F --role prefill --peer-file peers.json
+
+``--fleet-url`` names the fleet prefix directory (the router of ``python -m
+relora_tpu_torch.serve.supervisor``, which passes it with ``--role`` and
+``--peer-file``): a local prefix miss fetches the prompt's prefix pages from
+a peer that holds them, or prefills locally.
 """
 
 from __future__ import annotations
@@ -110,7 +115,7 @@ from relora_tpu_torch.serve.scheduler import (
     Request,
 )
 from relora_tpu_torch.serve.deploy import CheckpointWatcher, checkpoint_step
-from relora_tpu_torch.serve.server import FLEET_FRONT_END, GenerateServer, run_server
+from relora_tpu_torch.serve.server import GenerateServer, run_server
 from relora_tpu_torch.train.checkpoint import (
     load_lora_spec,
     restore_params_host,
@@ -243,7 +248,9 @@ def parse_args(argv=None) -> argparse.Namespace:
     )
     p.add_argument(
         "--fleet-url", default=None,
-        help="disagg: the fleet prefix directory (not ported yet: ROADMAP Queue 1 item 5b)",
+        help="disagg: the fleet prefix directory, a router-port file (the supervisor's "
+        "<workdir>/router.port) or host:port; a local prefix miss asks it for a peer "
+        "holding the prompt's prefix and fetches the pages; requires --port",
     )
     p.add_argument(
         "--migrate-timeout-s", type=float, default=30.0,
@@ -329,7 +336,7 @@ def check_spec_flags(args: argparse.Namespace) -> None:
 
 def check_server_flags(args: argparse.Namespace) -> None:
     """``serve.py``'s checks of the server and fleet flags, with its
-    messages (``serve.py:305-320``); ``--fleet-url`` is refused."""
+    messages (``serve.py:305-320``)."""
     if args.port is not None and (args.prompt or args.input_file):
         raise SystemExit("--port runs the HTTP server; drop --prompt/--input-file")
     if args.role != "mixed" and not args.paged:
@@ -348,8 +355,6 @@ def check_server_flags(args: argparse.Namespace) -> None:
             raise SystemExit(
                 "--watch-checkpoints needs a checkpoint-backed server, not --random-init"
             )
-    if args.fleet_url:
-        raise SystemExit(f"--fleet-url: {FLEET_FRONT_END}")
     if args.max_queue < 1:
         raise SystemExit(f"--max-queue must be >= 1, got {args.max_queue}")
 
@@ -557,6 +562,7 @@ def build_server(
         weights_version=(checkpoint_step(args.checkpoint) if args.checkpoint else None) or 0,
         weights_checkpoint=os.path.abspath(args.checkpoint) if args.checkpoint else "",
         peer_file=args.peer_file,
+        fleet_url=args.fleet_url,
         migrate_timeout_s=args.migrate_timeout_s,
     )
 

@@ -633,8 +633,8 @@ def test_fleet_routes_answer_501(pair, armed, method, route, tmp_path):
     """The fleet routes' refusals: a reload of a missing checkpoint answers
     422 (``reload_prepare`` refuses it before any device write, as the
     reference answers) and keeps the version; a frame that does not decode
-    answers 400; the peer prefix route, whose directory is not ported,
-    answers 501 naming the ROADMAP item that holds it."""
+    answers 400; the peer prefix route answers 404 for a digest that is not
+    cached here (the peer prefills locally), as the reference answers."""
     from relora_tpu_torch.train.checkpoint import restore_serving_params
 
     def reload_prepare(path):
@@ -650,7 +650,7 @@ def test_fleet_routes_answer_501(pair, armed, method, route, tmp_path):
     elif route == "/internal/migrate":
         assert status == 400 and b"bad page run" in reply
     else:
-        assert status == 501 and b"ROADMAP Queue 1 item 5b" in reply
+        assert status == 404 and b"prefix not cached" in reply
 
 
 def test_error_paths_and_endpoints(pair, armed):
@@ -678,10 +678,11 @@ def test_error_paths_and_endpoints(pair, armed):
 
 
 def test_server_refuses_fleet_arguments(pair):
-    """``fleet_url`` (the fleet prefix directory) is refused, naming the
-    ROADMAP item that holds it; a reload path and a peer roster are taken."""
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 5b"):
-        GenerateServer(scheduler(pair[1]), fleet_url="u")
+    """``fleet_url`` (the fleet prefix directory) is taken and arms the
+    scheduler's prefix fetch; a reload path and a peer roster are taken."""
+    fetching = GenerateServer(scheduler(pair[1]), fleet_url="u")
+    assert fetching.fleet_url == "u"
+    assert fetching.scheduler.prefix_fetch == fetching._prefix_fetch
     server = GenerateServer(scheduler(pair[1], role="prefill"), reload_prepare=lambda path: None,
                             peer_file="p", weights_version=3)
     assert server.weights_version == 3 and server.role == "prefill"
@@ -810,7 +811,7 @@ def test_adapter_requests_through_the_grouped_twin(tenant_pair, armed):
     (["--watch-checkpoints", "d"], "requires --port"),
     (["--port", "0", "--watch-checkpoints", "d"], "not --random-init"),
     (["--port", "0", "--role", "prefill"], "--role prefill requires --paged"),
-    (["--port", "0", "--fleet-url", "u"], "ROADMAP Queue 1 item 5b"),
+    (["--fleet-url", "u"], "pass --port"),
     (["--port", "0", "--max-queue", "0"], "--max-queue must be >= 1"),
 ])
 def test_cli_server_flags_refused(extra, message):
