@@ -145,10 +145,11 @@ Phases, in order; any failure raises and the script exits non-zero:
                replicas' kernel launches join rows 1-2.
    fleet_reload — a ``RollingUpdater`` onto a seeded llama_250m checkpoint
                over {decode, prefill} (then token-identical to an in-process
-               drain of it); an update with ``deploy_reload`` armed on the
-               packed replica rolls all three back while requests in flight
-               finish; ``python -m relora_tpu_torch.serve.deploy publish``
-               swaps the ``--watch-checkpoints`` replica, and a publish with
+               drain of it); an update of {prefill, packed} with
+               ``deploy_reload`` armed on the packed replica rolls both back
+               while requests in flight finish; ``python -m
+               relora_tpu_torch.serve.deploy publish`` swaps the
+               ``--watch-checkpoints`` replica, and a publish with
                ``deploy_corrupt_manifest`` armed does not.  The replicas'
                kernel 1 and 2 launches after their warmups (their
                ``metrics.jsonl``) join the rows.
@@ -191,6 +192,21 @@ Phases, in order; any failure raises and the script exits non-zero:
                this bound holds unless the trainer read a stale counter), and
                ``tools/perf_report.py`` renders the directory (exit 0,
                "MFU-gap waterfall", "per-pytree").
+   glue      — the quick start's last step (``relora_tpu_torch.run_glue``'s
+               engine): a seeded llama_250m checkpoint (full width and depth)
+               with unmerged LoRA factors, read and merged by
+               ``run_glue.load_backbone``, fine-tuned by ``eval/glue.finetune``
+               at f32 on a seeded two-class task (class by token range), batch
+               32 trimmed by ``run_glue.pad_bucket`` to widths 32-128: 8
+               updates with ``use_lora`` false, then 8 with it true, each arm
+               evaluating 64 rows and predicting 32.  Fails unless every loss
+               is finite, kernel 3's f32 forward, dK/dV and dQ launched, and
+               the classifier's flash-arm logits lie within 2e-3 of the naive
+               arm's at every width; then the three f32 kernels are checked
+               and timed at B=32, S=128 (rows ``...@glue``).  The card has no
+               ``transformers`` or ``datasets``, so the tokenizer and the
+               pretokenize / ``--dataset_path`` steps run on the CPU only
+               (``tests/test_torch_hf_pipeline.py``, ``tests/test_torch_glue.py``).
 7. f32-train — one update of a 2-layer llama_250m at f32 (LoRA B drawn
                nonzero), the flash arm against the naive arm on loss,
                gradient norm and each of layer 0's trainable leaves'
@@ -290,21 +306,21 @@ Phases, in order; any failure raises and the script exits non-zero:
 16. adapters  — a seeded llama_250m base (LoRA r=128) and three seeded tenant
                adapters (tA, tB, tC; alpha 32, 64, 16) written under
                ``build/chip_smoke/`` by ``train/checkpoint.save_checkpoint``
-               (while the fleet's replicas start); then the 16 prompts (32
-               new tokens) drained by ``serve_cli --checkpoint BASE
+               (while the fleet's replicas start); then the first 8 prompts
+               (32 new tokens) drained by ``serve_cli --checkpoint BASE
                --no-merge --adapter-dir D --adapters tA,tB`` (base rows
-               through kernel 5), round-robin over [base, tA, tB, tC] through
-               the scheduler API with 4 slots, sequential and packed (32 new
-               tokens), and with 3 slots (16), so adapters load from disk and
-               evict mid-traffic, and a mixed-tenant ``spec="ngram"`` drain
-               (32) over the repeat
-               traffic (kernel 5 at M = 40 in every verify forward, checked
-               as the spec drains are).
+               through kernel 5), the 16 round-robin over [base, tA, tB, tC]
+               through the scheduler API with 4 slots, sequential and packed
+               (32 new tokens), and with 3 slots (16), so adapters load from
+               disk and evict mid-traffic, and a mixed-tenant
+               ``spec="ngram"`` drain (32) over the first 8 repeat prompts
+               (kernel 5 at M = 40 in every verify forward, checked as the
+               spec drains are).
                Each drain fails unless kernel 5 launched 7 x 24 times per
                forward; then tenant rows must differ from the base row on a
                shared prompt, and tB after tA on one prompt must equal tB
                alone (the prefix cache is keyed per adapter).
-               Then server-tenants: the 16 prompts through ``serve_cli
+               Then server-tenants: the first 8 prompts through ``serve_cli
                --port`` over that base and ``--adapter-dir`` (tA, tB
                preloaded after the warmup), requests naming [base, tA, tB,
                tC] round-robin, kernel 5 launched 7 x 24 per forward, an
@@ -425,7 +441,7 @@ turns); it checks nothing.
 Output: a forward+backward timing line, one line per drain (plain and
 spec), one per server drain, the server process line, the f32 server and
 f32 spec lines, the fleet_front, fleet_disagg, fleet_reload and fleet_launches lines, a
-train line, a LoRA timing line per model, a fused-train
+train line, the glue line, a LoRA timing line per model, a fused-train
 line, the profile line, an int8 timing line per model, the int8 train lines,
 a grouped timing line, one line per adapter drain and the tenant server
 drain, the contiguous, contiguous_tenants, generate, contiguous server and
@@ -903,6 +919,7 @@ FLASH_PYTHIA = (2, 2048, 8, 8, 256, "bf16")
 # order (1e-6 scale at S=512); bf16 outputs round once to bf16 (2^-8 relative)
 FLASH_TOL = {"f32": 1e-4, "bf16": 1e-2}
 BF16_FLOPS_PER_S = 989e12  # H100 SXM dense bf16 tensor-core peak
+F32_FLOPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores (kernel 3's f32 FMA kernels)
 FLASH_NAMES = ("flash_attention_forward", "flash_attention_bwd_dkdv", "flash_attention_bwd_dq")
 
 
@@ -920,7 +937,8 @@ def flash_bound(q, k, kernel):
     """Least time on an H100 SXM: each input read once and each output
     written once over 3.35 TB/s, against the causal matmul work (in units of
     B*N*S^2*H: forward 2, dK/dV 4 with the recomputed QK^T, dQ 3, forward
-    plus backward 2 + 5) over the bf16 tensor-core peak."""
+    plus backward 2 + 5) over the peak of the inputs' type: the bf16
+    tensor-core peak, or for f32 inputs (the FMA kernels) the float32 one."""
     B, S, N, H = q.shape
     qb = q.numel() * q.element_size()
     kb = k.numel() * k.element_size()
@@ -932,7 +950,8 @@ def flash_bound(q, k, kernel):
         "fwd_bwd": (4 * qb + 4 * kb, 7),
     }[kernel]
     t_bytes = bytes_ / HBM_BYTES_PER_S
-    t_ops = units * B * N * S * S * H / BF16_FLOPS_PER_S
+    peak = F32_FLOPS_PER_S if q.element_size() == 4 else BF16_FLOPS_PER_S
+    t_ops = units * B * N * S * S * H / peak
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
@@ -1104,6 +1123,49 @@ def flash_rows(torch, device, shape, worst, suffix):
     return rows
 
 
+def check_flash_case(torch, device, case, seed):
+    """The three flash kernels against their twins at ``case`` (B, S, N,
+    n_kv, H, dtype), each printed; raises on a disagreement.  Returns each
+    kernel's max abs error."""
+    from relora_tpu_torch.ops import flash_attention as FA
+
+    B, S, N, n_kv, H, dtype = case
+    q, k, v, dout = make_flash_case(torch, device, B, S, N, n_kv, H, dtype, seed=seed)
+    scale = H**-0.5
+    want_out, want_lse = FA.flash_attention_forward_plain(q, k, v, scale)
+    delta = FA.flash_attention_delta(want_out, dout)
+    got_out, got_lse = FA.flash_attention_forward(q, k, v, scale)
+    pairs = {
+        "flash_attention_forward": [(got_out, want_out), (got_lse, want_lse)],
+        "flash_attention_bwd_dkdv": list(zip(
+            FA.flash_attention_bwd_dkdv(q, k, v, dout, want_lse, delta, scale),
+            FA.flash_attention_bwd_dkdv_plain(q, k, v, dout, want_lse, delta, scale))),
+        "flash_attention_bwd_dq": [(
+            FA.flash_attention_bwd_dq(q, k, v, dout, want_lse, delta, scale),
+            FA.flash_attention_bwd_dq_plain(q, k, v, dout, want_lse, delta, scale))],
+    }
+    torch.cuda.synchronize()
+    errs = {}
+    for name, outs in pairs.items():
+        err = rel = peak = 0.0
+        finite = True
+        for got, want in outs:
+            got, want = got.float(), want.float()
+            finite = finite and bool(torch.isfinite(got).all() and torch.isfinite(want).all())
+            diff = (got - want).abs().max().item()
+            err = max(err, diff)
+            peak = max(peak, want.abs().max().item())
+            rel = max(rel, diff / max(1.0, want.abs().max().item()))
+        ok = finite and peak > 0 and rel <= FLASH_TOL[dtype]
+        print(f"kernel-check {name} B={B} S={S} N={N} n_kv={n_kv} H={H} {dtype} "
+              f"max_abs_err={err:.3e} rel_err={rel:.3e} max_abs={peak:.3e} "
+              f"tol={FLASH_TOL[dtype]:g} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"{name} disagrees with its plain twin ({B, S, N, n_kv, H, dtype})")
+        errs[name] = err
+    return errs
+
+
 def check_flash_kernels(torch, device):
     """Phase kernels-3: the three flash kernels against their twins on the
     card, then timings at the train phase's shape and at the pythia train
@@ -1113,44 +1175,12 @@ def check_flash_kernels(torch, device):
 
     from relora_tpu_torch.ops import flash_attention as FA
 
-    worst = dict.fromkeys(FLASH_NAMES, 0.0)
-    worst_pythia = dict.fromkeys(FLASH_NAMES, 0.0)
-    for i, (B, S, N, n_kv, H, dtype) in enumerate(FLASH_CASES + [FLASH_PYTHIA]):
-        q, k, v, dout = make_flash_case(torch, device, B, S, N, n_kv, H, dtype, seed=11 + i)
-        scale = H**-0.5
-        want_out, want_lse = FA.flash_attention_forward_plain(q, k, v, scale)
-        delta = FA.flash_attention_delta(want_out, dout)
-        got_out, got_lse = FA.flash_attention_forward(q, k, v, scale)
-        pairs = {
-            "flash_attention_forward": [(got_out, want_out), (got_lse, want_lse)],
-            "flash_attention_bwd_dkdv": list(zip(
-                FA.flash_attention_bwd_dkdv(q, k, v, dout, want_lse, delta, scale),
-                FA.flash_attention_bwd_dkdv_plain(q, k, v, dout, want_lse, delta, scale))),
-            "flash_attention_bwd_dq": [(
-                FA.flash_attention_bwd_dq(q, k, v, dout, want_lse, delta, scale),
-                FA.flash_attention_bwd_dq_plain(q, k, v, dout, want_lse, delta, scale))],
-        }
-        torch.cuda.synchronize()
-        for name, outs in pairs.items():
-            err = rel = peak = 0.0
-            finite = True
-            for got, want in outs:
-                got, want = got.float(), want.float()
-                finite = finite and bool(torch.isfinite(got).all() and torch.isfinite(want).all())
-                diff = (got - want).abs().max().item()
-                err = max(err, diff)
-                peak = max(peak, want.abs().max().item())
-                rel = max(rel, diff / max(1.0, want.abs().max().item()))
-            ok = finite and peak > 0 and rel <= FLASH_TOL[dtype]
-            print(f"kernel-check {name} B={B} S={S} N={N} n_kv={n_kv} H={H} {dtype} "
-                  f"max_abs_err={err:.3e} rel_err={rel:.3e} max_abs={peak:.3e} "
-                  f"tol={FLASH_TOL[dtype]:g} {'ok' if ok else 'FAIL'}")
-            if not ok:
-                raise AssertionError(f"{name} disagrees with its plain twin ({B, S, N, n_kv, H, dtype})")
-            if i == 0:
-                worst[name] = err
-            elif i == len(FLASH_CASES):
-                worst_pythia[name] = err
+    for i, case in enumerate(FLASH_CASES + [FLASH_PYTHIA]):
+        errs = check_flash_case(torch, device, case, seed=11 + i)
+        if i == 0:
+            worst = errs
+        elif i == len(FLASH_CASES):
+            worst_pythia = errs
 
     rows = (flash_rows(torch, device, FLASH_CASES[0], worst, "")
             + flash_rows(torch, device, FLASH_PYTHIA, worst_pythia, f"@{PYTHIA}"))
@@ -2125,6 +2155,151 @@ def profile_train(torch, data_config, label="profile_train"):
     if len(traces) != 2 or "flash_fwd_tc_kernel" not in found or len(found) < 2:
         raise AssertionError(f"{label}: traces {traces} name {found} of the port's kernels; "
                              "expected two windows naming flash_fwd_tc_kernel and a LoRA kernel")
+
+
+GLUE_MODEL = "llama_250m"
+GLUE_BATCH = 32
+GLUE_WIDTHS = (32, 64, 96, 128)  # run_glue's pad buckets up to --max_seq_length 128
+GLUE_EPOCHS = 2  # each arm: 2 epochs of one batch a bucket, 8 updates
+GLUE_EVAL, GLUE_PREDICT = 64, 32
+GLUE_FLASH = (GLUE_BATCH, 128, 16, 16, 48, "f32")  # kernel 3's f32 arm at the widest bucket
+GLUE_LORA = dict(r=8, alpha=16.0)  # the written checkpoint's unmerged factors
+
+
+def write_glue_checkpoint(torch, work, device):
+    """A seeded llama_250m ``train/checkpoint.py`` directory with unmerged
+    LoRA factors (B drawn nonzero) and their ``relora_config.json``."""
+    from relora_tpu_torch.config.model import load_model_config
+    from relora_tpu_torch.core.relora import LoraSpec
+    from relora_tpu_torch.models.llama import LlamaForCausalLM
+    from relora_tpu_torch.train.checkpoint import save_checkpoint
+
+    root = os.path.join(work, "glue_llama_250m")
+    shutil.rmtree(root, ignore_errors=True)
+    spec = LoraSpec(**GLUE_LORA)
+    with torch.device(device):
+        model = LlamaForCausalLM(load_model_config(GLUE_MODEL), lora=spec)
+    seeded_init(torch, model, torch.Generator(device=device).manual_seed(41), lora_b=True)
+    path = save_checkpoint(root, 0, model.state_dict(), {"update_step": 0}, lora_spec=spec)
+    del model
+    return path
+
+
+GLUE_RANGES = ((1000, 1064), (2000, 2064))  # label l draws its ids from GLUE_RANGES[l]
+
+
+def glue_rows(n, seed):
+    """``n`` rows of a seeded two-class task, class by token range (label
+    ``l`` draws its ids from ``GLUE_RANGES[l]``, narrow enough that training
+    sees every id), right-padded with the pad id 0 to 128.  Batch ``i`` of
+    GLUE_BATCH rows takes lengths in ``[max(20, w - 31), w]`` for ``w =
+    GLUE_WIDTHS[i % 4]``, so ``run_glue.pad_bucket`` gives every width."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    labels = rng.integers(0, 2, n)
+    ids = np.zeros((n, GLUE_WIDTHS[-1]), np.int32)
+    for r in range(n):
+        w = GLUE_WIDTHS[(r // GLUE_BATCH) % len(GLUE_WIDTHS)]
+        length = rng.integers(max(20, w - 31), w + 1)
+        ids[r, :length] = rng.integers(*GLUE_RANGES[labels[r]], length)
+    return ids, labels
+
+
+def glue(torch, device, work):
+    """Phase glue: the quick start's last step on the card.  A seeded
+    llama_250m port checkpoint with unmerged LoRA factors, read by
+    ``run_glue.load_backbone`` (merged), is fine-tuned through
+    ``eval/glue.finetune`` at f32 on a two-class task (batch 32, each batch
+    trimmed by ``run_glue.pad_bucket``: widths 32-128), 8 updates with
+    ``use_lora`` false, then 8 with it true; each arm evaluates 64 rows and
+    predicts 32.  Fails unless every loss is finite, every metric lies in
+    [0, 1], kernel 3's f32 forward, dK/dV and dQ each launched (counters
+    zeroed before the two arms, read after), and the classifier's logits on
+    the flash arm lie within LOGIT_TOL of the naive arm's on every width.
+    Then the three kernels are checked against their twins and timed at
+    GLUE_FLASH.  Returns the kernel rows ``...@glue``."""
+    import statistics
+
+    import numpy as np
+
+    from relora_tpu_torch.config.model import load_model_config
+    from relora_tpu_torch.eval import glue as G
+    from relora_tpu_torch.ops import flash_attention as FA
+    from relora_tpu_torch.run_glue import load_backbone, pad_bucket
+
+    cfg = load_model_config(GLUE_MODEL)
+    backbone = load_backbone(write_glue_checkpoint(torch, work, device))
+    steps = len(GLUE_WIDTHS)
+    train = glue_rows(GLUE_BATCH * steps, seed=1)
+    evals = glue_rows(GLUE_EVAL, seed=2)
+    test = glue_rows(GLUE_PREDICT, seed=3)[0]
+    max_len = GLUE_WIDTHS[-1]
+
+    def batches(ids, labels):
+        return lambda: ((pad_bucket(ids[i:i + GLUE_BATCH], 0, max_len), labels[i:i + GLUE_BATCH])
+                        for i in range(0, len(ids), GLUE_BATCH))
+
+    counters = {n: getattr(FA, n) for n in FLASH_NAMES}
+    for c in counters.values():
+        c.launches = 0
+    arms = {}
+    for use_lora in (False, True):
+        gc.collect()
+        torch.cuda.empty_cache()
+        stamps, losses, evaluated = [], [], {}
+
+        def on_step(step, loss):
+            losses.append(loss.item())  # waits for the update
+            stamps.append(time.perf_counter())
+
+        def timed_eval():
+            t0 = time.perf_counter()
+            yield from batches(*evals)()
+            evaluated["s"] = time.perf_counter() - t0  # after the last batch's predictions
+
+        gcfg = G.GlueConfig(task="sst2", batch_size=GLUE_BATCH, num_epochs=GLUE_EPOCHS,
+                            max_length=max_len, use_lora=use_lora, seed=0)
+        metrics, preds = G.finetune(
+            cfg, gcfg, batches(*train), timed_eval, steps, pad_token_id=0, pretrained_backbone=backbone,
+            predict_batches=lambda: (pad_bucket(test[i:i + GLUE_BATCH], 0, max_len)
+                                     for i in range(0, len(test), GLUE_BATCH)),
+            device=device, on_step=on_step)
+        label = "lora" if use_lora else "full"
+        arms[label] = {"ms_per_step": statistics.median(np.diff(stamps)) * 1e3,
+                       "losses": losses, "eval_rows_per_s": GLUE_EVAL / evaluated["s"],
+                       "metrics": metrics}
+        if (len(losses) != steps * GLUE_EPOCHS or not np.isfinite(losses).all()
+                or preds.shape != (GLUE_PREDICT,) or not all(0.0 <= v <= 1.0 for v in metrics.values())):
+            raise AssertionError(f"glue: the {label} arm failed: {arms[label]} {preds}")
+    launches = {n: c.launches for n, c in counters.items()}
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    model = G.build_classifier(cfg, 2, 0, None, device, pretrained_backbone=backbone)
+    logit_err, finite = 0.0, True
+    with torch.no_grad():
+        for i in range(0, len(train[0]), GLUE_BATCH):  # half a training batch at each width
+            ids = torch.as_tensor(pad_bucket(train[0][i:i + GLUE_BATCH // 2], 0, max_len), device=device)
+            out = {}
+            for arm in ("auto", "naive"):
+                model.model.attention_arm = arm
+                out[arm] = model(ids.long())
+            finite = finite and bool(torch.isfinite(out["auto"]).all())
+            logit_err = max(logit_err, (out["auto"] - out["naive"]).abs().max().item())
+    del model
+    line = {"glue": GLUE_MODEL, "batch": GLUE_BATCH, "widths": list(GLUE_WIDTHS), "arms": arms,
+            "launches": launches, "logits_max_abs_err": logit_err, "logit_tol": LOGIT_TOL}
+    print(json.dumps(line))
+    if not all(launches.values()):
+        raise AssertionError(f"glue: a kernel 3 f32 kernel never launched: {launches}")
+    if not finite or logit_err > LOGIT_TOL:
+        raise AssertionError(f"glue: flash-arm logits off the naive arm's by {logit_err:.3e}")
+    torch.cuda.empty_cache()
+    rows = flash_rows(torch, device, GLUE_FLASH, check_flash_case(torch, device, GLUE_FLASH, seed=43),
+                      "@glue")
+    take_launches(rows, launches, "glue")
+    return rows
 
 
 def two_layer(model_name):
@@ -3204,6 +3379,7 @@ def tenant_drain(torch, engine, registry, requests, packed=False, max_batch=BATC
 
 
 TENANT_NEW = 32  # the tenant drains' new tokens a request (sequential, packed, spec)
+TENANT_HEAD = 8  # adapters_cli, tenants_spec and server-tenants drain the first 8 prompts (one batch)
 CONTENTION_NEW = 16  # the contention drain's new tokens a request
 
 
@@ -3231,7 +3407,7 @@ def adapter_drains(torch, device, prompts_path, base, tenants, repeat_path):
     mix = [None] + list(TENANT_ALPHAS)
     total = 0
 
-    def drained(label, run, **extra):
+    def drained(label, run, n_requests=len(prompts), **extra):
         nonlocal total
         LM.grouped_lora_matmul.launches = 0
         with EngineCalls("_forward") as forwards:
@@ -3243,7 +3419,7 @@ def adapter_drains(torch, device, prompts_path, base, tenants, repeat_path):
                 "tokens_per_s": n / seconds, "forwards": forwards.calls,
                 "launches": {"grouped_lora_matmul": launches}, **extra}
         print(json.dumps(line))
-        if len(tokens) != len(prompts) or not all(1 <= len(t) <= 64 for t in tokens):
+        if len(tokens) != n_requests or not all(1 <= len(t) <= 64 for t in tokens):
             raise AssertionError(f"drain {label}: malformed completions")
         if not all(0 <= tok < 32100 for t in tokens for tok in t):
             raise AssertionError(f"drain {label}: token id out of the vocabulary")
@@ -3255,7 +3431,8 @@ def adapter_drains(torch, device, prompts_path, base, tenants, repeat_path):
     drained("adapters_cli", lambda: serve_cli.run([
         "--model_config", "llama_250m", "--checkpoint", base, "--no-merge", "--adapter-dir",
         tenants, "--adapters", "tA,tB", "--paged", "--dtype", "bf16", "--max-batch", str(BATCH),
-        "--max-new-tokens", "32", "--input-file", prompts_path]))
+        "--max-new-tokens", "32", "--input-file",
+        head_prompts(prompts_path, TENANT_HEAD, "adapters_cli_prompts.txt")]), TENANT_HEAD)
 
     engine = tenant_engine(torch, base, ADAPTER_SLOTS, device)
     registry = AdapterRegistry(tenants, ADAPTER_SLOTS, expected_r=ADAPTER_R, writer=engine.adapter_writer())
@@ -3307,7 +3484,7 @@ def adapter_drains(torch, device, prompts_path, base, tenants, repeat_path):
     engine = tenant_engine(torch, base, ADAPTER_SLOTS, device, spec_k=SPEC_K)
     registry = AdapterRegistry(tenants, ADAPTER_SLOTS, expected_r=ADAPTER_R,
                                writer=engine.adapter_writer())
-    repeat = tenant_requests(read_prompts(repeat_path), mix, max_new=TENANT_NEW)
+    repeat = tenant_requests(read_prompts(repeat_path)[:TENANT_HEAD], mix, max_new=TENANT_NEW)
     plain_tps = tenant_drain(torch, engine, registry, repeat)
     plain_tps = sum(len(c.tokens) for c in plain_tps[0].values()) / plain_tps[1]
     A.paged_decode_attention.launches = 0
@@ -4626,9 +4803,9 @@ def fleet_reload(torch, fleet, prompts_path, save_dir, paths):
     ``model_1``: both report weights_version 1, the canary recorded on the
     first and matched on the second; 4 prompts (16 new tokens) through the
     prefill replica then equal an in-process drain of that checkpoint.  (b)
-    An update of {decode, prefill, packed} to ``model_2`` with
-    ``deploy_reload`` armed once on ``packed``: it fails, the whole fleet
-    rolls back to version 1, and every request in flight on the prefill and
+    An update of {prefill, packed} to ``model_2`` with
+    ``deploy_reload`` armed once on ``packed``: it fails, both roll back to
+    version 1 (decode stays on it), and every request in flight on the prefill and
     packed replicas during it finishes.  (c) ``python -m
     relora_tpu_torch.serve.deploy publish model_3``, run beside (a) and (b):
     the watching replica swaps to version 3 within two polls and the
@@ -4687,7 +4864,7 @@ def fleet_reload(torch, fleet, prompts_path, save_dir, paths):
     wait_state(lambda: P.health()["active_slots"] > 0 or done.is_set(), "requests in flight")
     n_events = len(events)
     t0 = time.perf_counter()
-    refused = updater([D, P, Q]).run(paths[2])
+    refused = updater([P, Q]).run(paths[2])
     rollback_s = time.perf_counter() - t0
     for t in threads:
         t.join(SERVER_WAIT)
@@ -5237,12 +5414,12 @@ def fleet_front_finish(front, state, paths, disagg_line):
 def server_tenants(torch, base_ckpt, tenants, prompts_path):
     """Phase server (c): tenant traffic through the server over ``--no-merge
     --adapter-dir`` (``--adapters tA,tB`` preloaded after the warmup; tC
-    loaded on demand): the 16 prompts, 32 new tokens, naming [base, tA, tB,
-    tC] round-robin; kernel 5 launched 7 x layers in every forward; an
+    loaded on demand): the first TENANT_HEAD prompts, 32 new tokens, naming
+    [base, tA, tB, tC] round-robin; kernel 5 launched 7 x layers in every forward; an
     unknown adapter answers 400.  Returns kernel 5's launches."""
     from relora_tpu_torch.ops import lora_matmul as LM
 
-    prompts = read_prompts(prompts_path)
+    prompts = read_prompts(prompts_path)[:TENANT_HEAD]
     mix = [None] + list(TENANT_ALPHAS)
     argv = ["--model_config", "llama_250m", "--checkpoint", base_ckpt, "--no-merge", "--adapter-dir",
             tenants, "--adapters", "tA,tB", "--paged", "--dtype", "bf16", "--max-batch", "8",
@@ -6066,6 +6243,9 @@ def main() -> int:
     rows += flash_rows
     torch.cuda.empty_cache()
     lap("train")
+    rows += glue(torch, device, work)
+    torch.cuda.empty_cache()
+    lap("glue")
     lora_rows = check_lora_kernels(torch, device)
     torch.cuda.empty_cache()
     launches, _ = train(torch, write_corpus(work), "fused_train",

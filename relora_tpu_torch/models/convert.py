@@ -66,6 +66,8 @@ _TOP = {
     },
 }
 _LAYER_MAPS = {"llama": _LLAMA_LAYER_MAP, "neox": _NEOX_LAYER_MAP}
+#: the heads, absent from a backbone's tree (the classifier's ``model``)
+_HEADS = ("lm_head.kernel", "embed_out.kernel")
 
 
 #: LoRA leaves of a projection, copied in the JAX layouts: lora_a (in, r),
@@ -114,7 +116,16 @@ def params_from_jax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     ``kernel_codes``, ``kernel_bscale_q``, ``kernel_bscale_scale`` and
     ``kernel_bscale_offset`` become ``weight_codes``, ... unchanged: both
     packages store them ``(in, out)`` in the same dtypes (an odd-width
-    projection's int8 fallback goes as any int8 base)."""
+    projection's int8 fallback goes as any int8 base).
+
+    A backbone's tree (no head) gives a state dict without the head.  The
+    tree of ``LlamaForSequenceClassification`` (``model`` and ``score``)
+    gives :class:`~relora_tpu_torch.models.llama.LlamaForSequenceClassification`'s:
+    ``model.`` before each of the backbone's keys, and ``score.weight``."""
+    if "score" in tree:
+        out = {f"model.{k}": v for k, v in params_from_jax(tree["model"]).items()}
+        out["score.weight"] = _weight(_leaf(tree, "score.kernel"), "score.kernel")
+        return out
     family = "neox" if "embed_in" in tree else "llama"
     if "layers" in tree:
         stacked = tree["layers"]
@@ -127,7 +138,8 @@ def params_from_jax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
         layer_has = lambda i, path: _has(tree[f"layers_{i}"], path)
     if n_layers == 0:
         raise KeyError("parameter tree has no decoder layers")
-    out = {dst: _weight(_leaf(tree, src), src) for src, dst in _TOP[family].items()}
+    out = {dst: _weight(_leaf(tree, src), src) for src, dst in _TOP[family].items()
+           if src not in _HEADS or _has(tree, src)}
     for i in range(n_layers):
         for src, dst in _LAYER_MAPS[family].items():
             module, leaf = src.rsplit(".", 1)

@@ -317,7 +317,8 @@ class CausalLM(nn.Module):
     stores int8.
 
     A family names its modules (``embed_name``, ``norm_name``,
-    ``head_name``: the HF parameter names), its ``layer_class``, the dropout
+    ``head_name``: the HF parameter names; no ``head_name``, no head and the
+    forward returns the hidden states), its ``layer_class``, the dropout
     seeds a layer spends (``seeds_per_layer``), and builds its final norm
     (:meth:`final_norm`) and rotary width (:meth:`rotary_dim`)."""
 
@@ -367,9 +368,10 @@ class CausalLM(nn.Module):
             for _ in range(config.num_hidden_layers)
         )
         setattr(self, self.norm_name, self.final_norm(config, dtype))
-        setattr(self, self.head_name, LoRALinear(
-            config.hidden_size, config.vocab_size, dtype=dtype, param_dtype=param_dtype
-        ))
+        if self.head_name is not None:
+            setattr(self, self.head_name, LoRALinear(
+                config.hidden_size, config.vocab_size, dtype=dtype, param_dtype=param_dtype
+            ))
         warn_nf4_fallbacks(self)
 
     def final_norm(self, config: ModelConfig, dtype) -> nn.Module:
@@ -435,7 +437,7 @@ class CausalLM(nn.Module):
             x = checkpoint(layer, *args, use_reentrant=False,
                            context_fn=self.remat_context) if remat else layer(*args)
         x = getattr(self, self.norm_name)(x)
-        if return_hidden:
+        if return_hidden or self.head_name is None:
             return x
         return getattr(self, self.head_name)(x).to(self.logits_dtype)
 
@@ -454,3 +456,48 @@ class LlamaForCausalLM(CausalLM):
 
     def rotary_dim(self) -> int:
         return self.config.head_dim
+
+
+class LlamaBackbone(LlamaForCausalLM):
+    """The Llama decoder stack without ``lm_head`` (``relora_tpu/models/llama.py:536-550``):
+    the forward returns the final normed hidden states ``(B, S, hidden)``."""
+
+    head_name = None
+
+
+class LlamaForSequenceClassification(nn.Module):
+    """A classification or regression head over the last non-pad token
+    (``relora_tpu/models/llama.py:553-593``): the backbone as ``model``, a
+    bias-free ``score`` projection to ``num_labels``, pooled at
+    ``max(sum(input_ids != pad_token_id) - 1, 0)`` per row (the JAX rule
+    exactly, also when a pad id occurs mid-row), at the last position when
+    ``pad_token_id`` is None; f32 output.  Llama only, as in the JAX
+    package.  ``lora`` wraps the backbone's projections, never ``score``."""
+
+    def __init__(
+        self,
+        config: ModelConfig,
+        num_labels: int = 2,
+        pad_token_id: Optional[int] = None,
+        *,
+        lora: Optional[LoraSpec] = None,
+        dtype=torch.float32,
+    ):
+        super().__init__()
+        self.config = config
+        self.num_labels = num_labels
+        self.pad_token_id = pad_token_id
+        self.model = LlamaBackbone(config, dtype, lora=lora)
+        self.score = LoRALinear(config.hidden_size, num_labels, dtype=dtype)
+
+    def forward(self, input_ids: torch.Tensor, dropout_seed: Optional[int] = None) -> torch.Tensor:
+        """Logits ``(B, num_labels)`` f32; ``dropout_seed`` turns LoRA dropout
+        on (training), as :meth:`CausalLM.forward`."""
+        logits = self.score(self.model(input_ids, dropout_seed=dropout_seed))
+        B, S = input_ids.shape
+        if self.pad_token_id is None:
+            last = torch.full((B,), S - 1, dtype=torch.long, device=input_ids.device)
+        else:
+            last = torch.clamp((input_ids != self.pad_token_id).sum(dim=-1) - 1, min=0)
+        pooled = logits[torch.arange(B, device=input_ids.device), last]
+        return pooled.float()

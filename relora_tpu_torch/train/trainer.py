@@ -169,7 +169,6 @@ def refuse_unported(cfg: TrainingConfig) -> None:
     unported = {
         "warmed_up_model with a state/ checkpoint": cfg.warmed_up_model is not None
         and os.path.isdir(os.path.join(cfg.warmed_up_model, STATE_SUBDIR)),
-        "dataset_path (HF datasets)": cfg.dataset_path is not None,
         "prune_sparsity / prune_nm (pruning)": cfg.prune_enabled,
         "reset_init='magnitude'": cfg.reset_init != "random",
         "wandb": cfg.wandb,
