@@ -86,9 +86,10 @@ Phases, in order; any failure raises and the script exits non-zero:
                client's slot freed); the real ``python -m
                relora_tpu_torch.serve_cli --port 0 --port-file F`` process
                (``/healthz`` ok, 10 streams, SIGTERM mid-stream: a new
-               request 503, every stream done, exit 0; it starts beside the
-               fleet phases' six replicas, so its ready seconds carry their
-               start-up); f32 sequential and
+               request 503, every stream done, exit 0; it starts after the
+               traced sequential drain and warms up while the packed and
+               overload drains run and the fleet phases' replicas start, so
+               its ready seconds carry theirs); f32 sequential and
                packed server drains against the in-process f32 drains
                (divergence only at top-2 gaps <= 1e-3).  One line per drain:
                TTFT p50/p99, TPOT p50, tokens/s beside the in-process
@@ -112,10 +113,14 @@ Phases, in order; any failure raises and the script exits non-zero:
                decode replica (kernel 1) from its migrated page run, inside
                both replicas' ``/admin/profile`` windows.  The windows'
                close is sent without waiting: while the two replicas read
-               their traces, the phases that time nothing run (f32,
-               f32-spec, f32-train, f32-fused, f32-adapters,
+               their traces, the phases that time nothing run (fleet_tools,
+               f32, f32-spec, f32-train, f32-fused, f32-adapters,
                f32_contiguous, f32-pythia, f32-int8, f32-nf4; each described
-               in its place below).  Then the drain's checks: token-identical to
+               in its place below; fleet_tools runs ``python -m
+               relora_tpu_torch.tools.fleet_report`` over fleet_front's
+               persisted ``fleet_series.jsonl`` and ``trace_report`` over its
+               router's span stream merged with its replicas', and fails on
+               an empty or malformed report).  Then the drain's checks: token-identical to
                the in-process int8 drain, the donor's pages and frame bytes
                equal to the reckoning, 16 inserts, each replica's device
                idle share over the drain.
@@ -311,8 +316,9 @@ Phases, in order; any failure raises and the script exits non-zero:
                --no-merge --adapter-dir D --adapters tA,tB`` (base rows
                through kernel 5), the 16 round-robin over [base, tA, tB, tC]
                through the scheduler API with 4 slots, sequential and packed
-               (32 new tokens), and with 3 slots (16), so adapters load from
-               disk and evict mid-traffic, and a mixed-tenant
+               (32 new tokens), and the first 8 with 3 slots (16 new
+               tokens), so adapters load from disk and evict mid-traffic
+               (the registry's loads and evictions printed), and a mixed-tenant
                ``spec="ngram"`` drain (32) over the first 8 repeat prompts
                (kernel 5 at M = 40 in every verify forward, checked as the
                spec drains are).
@@ -339,7 +345,7 @@ Phases, in order; any failure raises and the script exits non-zero:
                streams identical to the paged sequential drain (reported).
                contiguous_tenants: phase 16's base and tenants through
                ``ContinuousBatchingScheduler(adapter_registry=)`` with 4
-               slots; fails unless kernel 5 launched 7 x 24 in every decode
+               slots, 32 new tokens; fails unless kernel 5 launched 7 x 24 in every decode
                round and in every prefill whose bucket ``choose_grouped_arm``
                gives it (the pick printed per bucket 16-512); the decode
                launches join row 5, the prefill ones row 5 @ prefill.
@@ -388,12 +394,38 @@ Phases, in order; any failure raises and the script exits non-zero:
 18. pythia-drains — the GPT-NeoX family: ``serve_cli --model_config
                pythia_1b --random-init --dtype bf16 --max-batch 8 --paged``
                (full width, cut to PYTHIA_TRAIN_LAYERS of its 16 layers as the
-               pythia train phases are) on phase 4's 16 prompts, 64 new tokens,
-               at ``--kv-dtype bf16``, ``--packed`` and ``--kv-dtype int8``.
-               Each prints tokens/s, launches and the forwards counted at the
-               engine, and fails unless kernel 1 (kernel 2 when packed)
-               launched once a layer in every forward that
+               pythia train phases are) on phase 4's first 8 prompts, 64 new
+               tokens, at ``--kv-dtype bf16``, ``--packed`` and ``--kv-dtype
+               int8``.  Each prints tokens/s, launches and the forwards
+               counted at the engine, and fails unless kernel 1 (kernel 2
+               when packed) launched once a layer in every forward that
                attends through it and every id is in the vocabulary.
+   pythia_serving — the same cut pythia_1b (bf16) through every serving
+               path; its checkpoints (a seeded base with LoRA r=128 on all
+               four projections, biases nonzero, B = 0; tenants tA, tB, tC;
+               a bf16 draft, the base plus DRAFT_NOISE) are written while
+               the fleet's replicas start.  Tenants: ``serve_cli
+               --checkpoint BASE --no-merge --adapter-dir D --packed`` builds
+               the engine and registry (4 slots), and 8 prompts at 32 new
+               tokens drain round-robin over [base, tA, tB, tC], sequential
+               and packed, kernel 5 launched 4 x layers in every forward;
+               then the tenant probes (each tenant steers, tB after tA
+               equals tB alone).  Contiguous: ``serve_cli`` without
+               ``--paged`` over the 8 prompts, its streams counted against
+               the paged bf16 pythia drain's; then contiguous_tenants at
+               pythia_1b's projections (kernel 5 in every decode round and
+               every prefill; the prefill launches go to row 5 @
+               prefill_pythia_1b).  Spec: ``--spec ngram`` sequential and
+               ``--packed`` and ``--spec model`` with the NeoX draft over 8
+               repeat prompts at 32 new tokens, as the spec phase checks
+               them (kernel 1 or 2 once a layer in every verify forward;
+               the model drafter's acceptance strictly in (0, 1)); the
+               window launches go to rows ``..._verify@pythia_1b``.  Server:
+               ``serve_cli --port`` over the base with ``--no-merge
+               --adapter-dir --spec ngram``, 8 SSE clients round-robin over
+               the tenants, every other one ``"spec": false``: TTFT and TPOT
+               p50, tokens identical to the in-process drain of the same
+               requests, kernels 5 and 1 launched.
 19. pythia_train — ``relora_tpu_torch.main --model_config`` pythia_1b at
                full width cut to PYTHIA_TRAIN_LAYERS (4 of its 16) layers, as
                every pythia train phase below: bf16,
@@ -440,13 +472,16 @@ turns); it checks nothing.
 
 Output: a forward+backward timing line, one line per drain (plain and
 spec), one per server drain, the server process line, the f32 server and
-f32 spec lines, the fleet_front, fleet_disagg, fleet_reload and fleet_launches lines, a
+f32 spec lines, the fleet_front, fleet_tools, fleet_disagg, fleet_reload and fleet_launches
+lines, a
 train line, the glue line, a LoRA timing line per model, a fused-train
 line, the profile line, an int8 timing line per model, the int8 train lines,
 a grouped timing line, one line per adapter drain and the tenant server
 drain, the contiguous, contiguous_tenants, generate, contiguous server and
 f32_contiguous lines, the auto-arms lines, the auto_train and resume lines,
-one line per unmerged drain, one line per pythia drain, the five pythia
+one line per unmerged drain, one line per pythia drain, the pythia_serving
+lines (tenant drains and probe, contiguous, contiguous tenants, three spec
+drains, the server), the five pythia
 train lines (every train line carries its telemetry), the wall seconds of
 each group of phases (``{"phase_seconds": ...}``), a
 ``{"kernels": [...]}`` line, the card's ``nvidia-smi
@@ -768,16 +803,16 @@ def check_packed_edges(torch, device):
     return max(worst, check_verify_windows(torch, device))
 
 
-def check_verify_windows(torch, device):
+def check_verify_windows(torch, device, model="llama_250m"):
     """Kernel 2 on the ``--packed --spec`` layout, each pool, against its
     twin: four verify runs of SPEC_K + 1 tokens (one across a page edge,
     each shorter than a 64/g-token tile) beside four decode tokens, a
     40-token prefill run and 8 pads; and batch invariance: each run, decode
     token, the prefill run and the pads alone give the bits they give inside
-    the window.  Returns the worst error at llama_250m widths."""
+    the window.  Returns the worst error at ``model``'s widths."""
     from relora_tpu_torch.ops import attention as A
 
-    heads, head_dim = WIDTHS["llama_250m"]
+    heads, head_dim = WIDTHS[model]
     worst = 0.0
     for i, pool in enumerate(("f32", "bf16", "int8")):
         case, spans = make_window_case(torch, device, heads=heads, head_dim=head_dim, pool=pool,
@@ -798,12 +833,12 @@ def check_verify_windows(torch, device):
         err = (got.float() - want.float()).abs().max().item()
         ok = bool(torch.isfinite(got.float()).all()) and err <= KERNEL_TOL[pool]
         invariant = all(torch.equal(got[:, a:b], o) for a, b, o in alone)
-        print(f"kernel-check packed_paged_attention verify-windows pool={pool} T={T} "
+        print(f"kernel-check packed_paged_attention verify-windows {model} pool={pool} T={T} "
               f"runs=4x{SPEC_K + 1}+4 decode+40 prefill+8 pads max_abs_err={err:.3e} "
               f"tol={KERNEL_TOL[pool]:g} batch_invariant={invariant} "
               f"{'ok' if ok and invariant else 'FAIL'}")
         if not (ok and invariant):
-            raise AssertionError(f"packed_paged_attention verify windows ({pool}) failed")
+            raise AssertionError(f"packed_paged_attention verify windows ({model}, {pool}) failed")
         worst = max(worst, err)
     return worst
 
@@ -813,7 +848,8 @@ def check_kernels(torch, device):
     from relora_tpu_torch.ops import attention as A
 
     worst = {"paged_decode_attention": 0.0, "packed_paged_attention": 0.0,
-             f"paged_decode_attention@{PYTHIA}": 0.0, f"packed_paged_attention@{PYTHIA}": 0.0}
+             f"paged_decode_attention@{PYTHIA}": 0.0, f"packed_paged_attention@{PYTHIA}": 0.0,
+             f"paged_decode_attention_verify@{PYTHIA}": 0.0}
     for model, (heads, head_dim) in WIDTHS.items():
         for pool in ("f32", "bf16", "int8"):
             cases = [(S, False) for S in (1, 5)] + [(1, True)]
@@ -844,10 +880,14 @@ def check_kernels(torch, device):
                     worst[name] = max(worst[name], err)
                 elif model == PYTHIA:
                     worst[f"{name}@{PYTHIA}"] = max(worst[f"{name}@{PYTHIA}"], err)
+                    if S == SPEC_K + 1:  # the pythia spec drains' verify shape
+                        worst[f"{name}_verify@{PYTHIA}"] = max(
+                            worst[f"{name}_verify@{PYTHIA}"], err)
     worst["paged_decode_attention"] = max(worst["paged_decode_attention"],
                                           check_decode_edges(torch, device))
     worst["packed_paged_attention"] = max(worst["packed_paged_attention"],
                                           check_packed_edges(torch, device))
+    worst[f"packed_paged_attention_verify@{PYTHIA}"] = check_verify_windows(torch, device, PYTHIA)
 
     rows = []
     for name, kernel, packed, line in (
@@ -857,12 +897,14 @@ def check_kernels(torch, device):
         # of B verify runs of K+1 plus a 64-token prefill run
         ("paged_decode_attention_verify", "paged_decode_attention", False, 331),
         ("packed_paged_attention_verify", "packed_paged_attention", True, 532),
-        # the pythia drains' shapes: 8 heads of 256
+        # the pythia drains' shapes: 8 heads of 256, and its spec drains' verify
         (f"paged_decode_attention@{PYTHIA}", "paged_decode_attention", False, 331),
         (f"packed_paged_attention@{PYTHIA}", "packed_paged_attention", True, 532),
+        (f"paged_decode_attention_verify@{PYTHIA}", "paged_decode_attention", False, 331),
+        (f"packed_paged_attention_verify@{PYTHIA}", "packed_paged_attention", True, 532),
     ):
         heads, head_dim = WIDTHS[PYTHIA if name.endswith(PYTHIA) else "llama_250m"]
-        verify = name.endswith("_verify")
+        verify = "_verify" in name
         if verify and packed:
             case, _ = make_window_case(torch, device, heads=heads, head_dim=head_dim, pool="bf16",
                                        seed=99, n_verify=BATCH, n_decode=0, n_prefill=64, n_pad=0)
@@ -1317,22 +1359,29 @@ def drains(torch, prompts, repeat):
     return launches, results, outputs
 
 
+PYTHIA_PROMPTS = 8  # the pythia drains' prompts: the first 8 (one batch)
+
+
 def pythia_drains(torch, prompts, model_config):
     """Phase pythia-drains: the serving path of the NeoX family through the
     CLI's entry point at pythia_1b's full width, cut to ``model_config``'s
-    PYTHIA_TRAIN_LAYERS layers, three ways, on phase 4's prompts.  Each drain fails unless every launch of its kernel
+    PYTHIA_TRAIN_LAYERS layers, three ways, on the first PYTHIA_PROMPTS of
+    phase 4's prompts.  Each drain fails unless every launch of its kernel
     came from its decode method (``decode_paged`` for kernel 1,
     ``step_paged`` for kernel 2), once a layer in every call, and every id
-    is in the vocabulary.  Returns the launches per kernel."""
+    is in the vocabulary.  Returns the launches per kernel and the bf16
+    drain's uid -> tokens (the contiguous pythia drain's yardstick)."""
     from relora_tpu_torch import serve_cli
     from relora_tpu_torch.config.model import load_model_config
     from relora_tpu_torch.ops import attention as A
 
     cfg = load_model_config(model_config)
+    head = head_prompts(prompts, PYTHIA_PROMPTS, "pythia_prompts.txt")
     base = ["--model_config", model_config, "--random-init", "--dtype", "bf16",
-            "--max-batch", "8", "--paged", "--max-new-tokens", "64", "--input-file", prompts]
+            "--max-batch", "8", "--paged", "--max-new-tokens", "64", "--input-file", head]
     kernels = ("paged_decode_attention", "packed_paged_attention")
     launches = dict.fromkeys(kernels, 0)
+    outputs = {}
     for label, extra, kernel, method in (
         ("bf16", ["--kv-dtype", "bf16"], "paged_decode_attention", "decode_paged"),
         ("packed", ["--kv-dtype", "bf16", "--packed"], "packed_paged_attention", "step_paged"),
@@ -1349,7 +1398,8 @@ def pythia_drains(torch, prompts, model_config):
                           "tokens": n, "seconds": seconds, "tokens_per_s": n / seconds,
                           "launches": counts, method: calls.calls}))
         torch.cuda.empty_cache()
-        if len(tokens) != 16 or not all(1 <= len(t) <= 64 for t in tokens):
+        outputs[label] = {uid: c.tokens for uid, c in completions.items()}
+        if len(tokens) != PYTHIA_PROMPTS or not all(1 <= len(t) <= 64 for t in tokens):
             raise AssertionError(f"pythia drain {label}: malformed completions")
         if not all(0 <= tok < cfg.vocab_size for t in tokens for tok in t):
             raise AssertionError(f"pythia drain {label}: token id out of the vocabulary")
@@ -1360,7 +1410,7 @@ def pythia_drains(torch, prompts, model_config):
                                  f"{cfg.num_hidden_layers} a call: {want}")
         for k in kernels:
             launches[k] += counts[k]
-    return launches
+    return launches, outputs["bf16"]
 
 
 def write_repeat_prompts(path, vocab, seed=1, count=16):
@@ -1400,16 +1450,24 @@ def write_spec_checkpoints(torch, work, device):
     init_params(model, torch.Generator(device=device).manual_seed(0))
     state = model.state_dict()
     base = save_checkpoint(os.path.join(root, "base"), 0, state, {"update_step": 0})
+    draft = save_checkpoint(os.path.join(root, "draft"), 0, noisy_draft(torch, state, device),
+                            {"update_step": 0})
+    del model, state
+    return base, draft
+
+
+def noisy_draft(torch, state, device, dtype=None):
+    """``state`` with seeded Gaussian noise (seed 31) of DRAFT_NOISE times
+    each weight matrix's std added to every tensor of two or more dimensions
+    (norms and biases kept), cast to ``dtype`` (default: each tensor's own)."""
     gen = torch.Generator(device=device).manual_seed(31)
     noisy = {}
     for name, t in state.items():
         if t.ndim >= 2:
             noise = torch.randn(t.shape, generator=gen, device=device)
             t = (t.float() + DRAFT_NOISE * t.float().std() * noise).to(t.dtype)
-        noisy[name] = t
-    draft = save_checkpoint(os.path.join(root, "draft"), 0, noisy, {"update_step": 0})
-    del model, state, noisy
-    return base, draft
+        noisy[name] = t if dtype is None else t.to(dtype)
+    return noisy
 
 
 class EngineCalls:
@@ -3205,7 +3263,9 @@ def check_grouped_kernels(torch, device):
     row = per_layer[BATCH]
     return [grouped_row("grouped_lora_matmul", worst, row),
             grouped_shape_row(torch, device, "prefill", GROUPED_PREFILL_M, LORA_SHAPES, 1),
-            grouped_shape_row(torch, device, PYTHIA, BATCH, PYTHIA_LORA_SHAPES, ADAPTER_SLOTS)]
+            grouped_shape_row(torch, device, PYTHIA, BATCH, PYTHIA_LORA_SHAPES, ADAPTER_SLOTS),
+            grouped_shape_row(torch, device, f"prefill_{PYTHIA}", GROUPED_PREFILL_M,
+                              PYTHIA_LORA_SHAPES, 1)]
 
 
 def grouped_row(name, worst, layer):
@@ -3294,27 +3354,31 @@ def grouped_shape_row(torch, device, tag, M, shapes, slots_used):
     return grouped_row(f"grouped_lora_matmul@{tag}", worst, layer)
 
 
-def write_adapter_checkpoints(torch, work, device, model_config="llama_250m"):
-    """A seeded ``model_config`` base with LoRA r=128 (f32, B = 0, as a
-    ReLoRA checkpoint right after a merge) and three seeded tenant adapters
-    (their factors only, alpha per TENANT_ALPHAS), each written by
-    ``train/checkpoint.save_checkpoint``; returns (base dir, adapter dir)."""
+def write_adapter_checkpoints(torch, work, device, model_config="llama_250m", draft=False):
+    """A seeded ``model_config`` base with LoRA r=128 on every projection
+    (f32, B = 0, as a ReLoRA checkpoint right after a merge; a NeoX base's
+    biases drawn nonzero) and three seeded tenant adapters (their factors
+    only, alpha per TENANT_ALPHAS), each written by
+    ``train/checkpoint.save_checkpoint``; with ``draft``, also the base's
+    merged weights plus :func:`noisy_draft`'s noise at bf16 (a ``--spec
+    model`` draft of the base served merged).  Returns (base dir, adapter
+    dir) and, with ``draft``, the draft dir third."""
     import shutil
 
     from relora_tpu_torch.config.model import load_model_config
-    from relora_tpu_torch.core.relora import LoraSpec, kaiming_uniform
-    from relora_tpu_torch.models.llama import LlamaForCausalLM
-    from relora_tpu_torch.models.params_util import init_params
+    from relora_tpu_torch.core.relora import LoraSpec, is_lora_name, kaiming_uniform
+    from relora_tpu_torch.models.family import causal_lm_class
     from relora_tpu_torch.serve.adapters import extract_lora_factors
     from relora_tpu_torch.train.checkpoint import save_checkpoint
 
-    root = os.path.join(work, f"adapters_{model_config}")
+    root = os.path.join(work, f"adapters_{os.path.basename(model_config)}")
     shutil.rmtree(root, ignore_errors=True)
     spec = LoraSpec(r=ADAPTER_R, alpha=32.0)
+    cfg = load_model_config(model_config)
     with torch.device(device):
-        model = LlamaForCausalLM(load_model_config(model_config), lora=spec)
+        model = causal_lm_class(cfg)(cfg, lora=spec)
     gen = torch.Generator(device=device).manual_seed(21)
-    init_params(model, gen)
+    seeded_init(torch, model, gen)
     base = save_checkpoint(os.path.join(root, "base"), 0, model.state_dict(), {"update_step": 0},
                            lora_spec=spec)
     tenants = os.path.join(root, "tenants")
@@ -3328,8 +3392,14 @@ def write_adapter_checkpoints(torch, work, device, model_config="llama_250m"):
         path = save_checkpoint(tenants, i, factors, {"update_step": 0},
                                lora_spec=LoraSpec(r=ADAPTER_R, alpha=alpha))
         os.rename(path, os.path.join(tenants, name))
-    del model
-    return base, tenants
+    if not draft:
+        del model
+        return base, tenants
+    merged = {k: v for k, v in model.state_dict().items() if not is_lora_name(k)}  # B = 0
+    path = save_checkpoint(os.path.join(root, "draft"), 0,
+                           noisy_draft(torch, merged, device, torch.bfloat16), {"update_step": 0})
+    del model, merged
+    return base, tenants, path
 
 
 def head_prompts(path, n, name):
@@ -3346,16 +3416,17 @@ def read_prompts(path):
         return [[int(t) for t in line.split()] for line in f if line.strip()]
 
 
-def tenant_engine(torch, base, slots, device, dtype="bf16", spec_k=0, paged=True):
-    """The serving engine of the adapter drains: llama_250m from the base
-    checkpoint, unmerged, with ``slots`` adapter slots, the CLI's pool
+def tenant_engine(torch, base, slots, device, dtype="bf16", spec_k=0, paged=True,
+                  model_config="llama_250m"):
+    """The serving engine of the adapter drains: ``model_config`` from the
+    base checkpoint, unmerged, with ``slots`` adapter slots, the CLI's pool
     (``spec_k``: a verify window of spec_k + 1), or with ``paged=False``
     the contiguous cache alone."""
     from relora_tpu_torch.config.model import load_model_config
     from relora_tpu_torch.serve.engine import InferenceEngine, compute_dtype
     from relora_tpu_torch.train.checkpoint import load_lora_spec, restore_params_host
 
-    cfg = load_model_config("llama_250m")
+    cfg = load_model_config(model_config)
     cache = cfg.max_sequence_length
     pool = dict(page_size=PAGE, num_pages=BATCH * (cache // PAGE) + 1, chunk_size=64,
                 token_budget=BATCH + 64, spec_k=spec_k) if paged else {}
@@ -3381,6 +3452,7 @@ def tenant_drain(torch, engine, registry, requests, packed=False, max_batch=BATC
 TENANT_NEW = 32  # the tenant drains' new tokens a request (sequential, packed, spec)
 TENANT_HEAD = 8  # adapters_cli, tenants_spec and server-tenants drain the first 8 prompts (one batch)
 CONTENTION_NEW = 16  # the contention drain's new tokens a request
+CONTENTION_PROMPTS = 8  # the contention drain's prompts: the first 8
 
 
 def tenant_requests(prompts, names, max_new=64):
@@ -3388,6 +3460,34 @@ def tenant_requests(prompts, names, max_new=64):
 
     return [Request(uid=i, prompt=p, max_new_tokens=max_new, adapter=names[i % len(names)])
             for i, p in enumerate(prompts)]
+
+
+def tenant_probes(torch, engine, registry, prompts, label):
+    """The tenant checks on ``engine``'s slots: every tenant steers (its row
+    differs from the base row on one prompt), and tB after tA on one prompt
+    equals tB alone (tA's prefix pages are not tB's; a tenant's own repeat
+    does hit them).  Prints the probe line; fails unless both hold."""
+    mix = [None] + list(TENANT_ALPHAS)
+    probe = tenant_requests([prompts[0]] * len(mix), mix, max_new=16)
+    done = tenant_drain(torch, engine, registry, probe)[0]
+    steered = {name: done[i].tokens != done[0].tokens for i, name in enumerate(mix) if name}
+
+    def alone(names):
+        got = tenant_drain(torch, engine, registry, tenant_requests([prompts[1]] * len(names), names,
+                                                                    max_new=16), max_batch=1)
+        return [got[0][i].tokens for i in range(len(names))], got[2].prefix_cache.hits
+
+    (_, b_after), hits_ab = alone(["tA", "tB"])
+    (b_alone,), _ = alone(["tB"])
+    _, hits_aa = alone(["tA", "tA"])
+    probe_line = {"tenant_probe": steered, "phase": label, "prompt_tokens": len(prompts[1]),
+                  "tB_after_tA_equals_tB_alone": b_after == b_alone, "prefix_hits_tA_tB": hits_ab,
+                  "prefix_hits_tA_tA": hits_aa}
+    print(json.dumps(probe_line))
+    if not all(steered.values()):
+        raise AssertionError(f"{label}: a tenant decoded the base's tokens: {steered}")
+    if b_after != b_alone or hits_ab != 0 or hits_aa != 1:
+        raise AssertionError(f"{label}: prefix isolation failed: {probe_line}")
 
 
 def adapter_drains(torch, device, prompts_path, base, tenants, repeat_path):
@@ -3441,37 +3541,18 @@ def adapter_drains(torch, device, prompts_path, base, tenants, repeat_path):
         drained("tenants_packed" if packed else "tenants",
                 lambda: tenant_drain(torch, engine, registry, requests, packed), adapters=mix)
 
-    # every tenant steers: its row differs from the base row on one prompt
-    probe = tenant_requests([prompts[0]] * len(mix), mix, max_new=16)
-    done = tenant_drain(torch, engine, registry, probe)[0]
-    steered = {name: done[i].tokens != done[0].tokens for i, name in enumerate(mix) if name}
-    # tB after tA on one prompt equals tB alone: tA's prefix pages are not
-    # tB's; a tenant's own repeat does hit them
-    def alone(names):
-        got = tenant_drain(torch, engine, registry, tenant_requests([prompts[1]] * len(names), names,
-                                                                    max_new=16), max_batch=1)
-        return [got[0][i].tokens for i in range(len(names))], got[2].prefix_cache.hits
-
-    (_, b_after), hits_ab = alone(["tA", "tB"])
-    (b_alone,), _ = alone(["tB"])
-    _, hits_aa = alone(["tA", "tA"])
-    probe_line = {"tenant_probe": steered, "prompt_tokens": len(prompts[1]),
-                  "tB_after_tA_equals_tB_alone": b_after == b_alone, "prefix_hits_tA_tB": hits_ab,
-                  "prefix_hits_tA_tA": hits_aa}
-    print(json.dumps(probe_line))
-    if not all(steered.values()):
-        raise AssertionError(f"adapters: a tenant decoded the base's tokens: {steered}")
-    if b_after != b_alone or hits_ab != 0 or hits_aa != 1:
-        raise AssertionError(f"adapters: prefix isolation failed: {probe_line}")
+    tenant_probes(torch, engine, registry, prompts, "adapters")
     del engine, registry
     torch.cuda.empty_cache()
 
     engine = tenant_engine(torch, base, 3, device)
     registry = AdapterRegistry(tenants, 3, expected_r=ADAPTER_R, writer=engine.adapter_writer())
-    # contention at CONTENTION_NEW new tokens: the slots churn all the same
+    # contention over CONTENTION_PROMPTS prompts at CONTENTION_NEW new tokens:
+    # the slots churn all the same (the registry line counts it)
     drained("tenants_contention", lambda: tenant_drain(
-        torch, engine, registry, tenant_requests(prompts, mix, max_new=CONTENTION_NEW)),
-        adapters=mix, slots=3)
+        torch, engine, registry,
+        tenant_requests(prompts[:CONTENTION_PROMPTS], mix, max_new=CONTENTION_NEW)),
+        CONTENTION_PROMPTS, adapters=mix, slots=3)
     stats = registry.stats()
     print(json.dumps({"contention_registry": stats}))
     if stats["evictions_total"] < 1 or stats["loads_total"] <= len(TENANT_ALPHAS):
@@ -3700,7 +3781,7 @@ def first_forward_logits(torch, engine, prompt):
 
 
 NOMERGE_PROMPTS = 8  # nomerge drains the first 8 prompts (one full batch)
-NOMERGE_NEW = 32  # nomerge's new tokens a request
+NOMERGE_NEW = 16  # nomerge's new tokens a request
 
 
 def nomerge_drains(torch, prompts, checkpoints):
@@ -4088,16 +4169,21 @@ class InProcessServer:
     """``serve_cli``'s server mode in this process: the flags' scheduler and
     ``GenerateServer`` on a thread of its own (signal handlers off).
     ``gated`` holds the warmup until :meth:`release`, so ``/healthz`` can be
-    seen warming; the warmup's seconds are kept.  Leaving drains and joins."""
+    seen warming; ``held`` holds the model thread after its warmup until
+    ``hold`` is set (``warm`` is set when the warmup is done), so requests
+    queue and the first round admits them all; the warmup's seconds are
+    kept.  Leaving drains and joins."""
 
-    def __init__(self, argv, gated=False):
+    def __init__(self, argv, gated=False, held=False):
         from relora_tpu_torch import serve_cli
         from relora_tpu_torch.serve.server import GenerateServer
 
         sched, kw = serve_cli.build_server(serve_cli.parse_args(argv + ["--port", "0"]))
-        self.gate = threading.Event()
+        self.gate, self.warm, self.hold = threading.Event(), threading.Event(), threading.Event()
         if not gated:
             self.gate.set()
+        if not held:
+            self.hold.set()
         warmup, self.warmup_s = kw["warmup_fn"], None
 
         def gated_warmup():
@@ -4105,6 +4191,8 @@ class InProcessServer:
             t0 = time.perf_counter()
             report = warmup()
             self.warmup_s = time.perf_counter() - t0
+            self.warm.set()
+            self.hold.wait(SERVER_WAIT)
             return report
 
         kw["warmup_fn"] = gated_warmup
@@ -4136,13 +4224,14 @@ class InProcessServer:
 
     def __exit__(self, *exc):
         self.gate.set()
+        self.hold.set()
         self.server.begin_drain()
         self.thread.join(SERVER_WAIT)
         if self.thread.is_alive() or self.raised or self.server._worker_error:
             raise AssertionError(f"server: did not drain cleanly ({self.raised!r})")
 
 
-def server_drains(torch, prompts_path, inproc):
+def server_drains(torch, prompts_path, inproc, midway=None):
     """Phase server (a, b, e): the 16 prompts through ``serve_cli``'s HTTP
     server, sequential then ``--packed``, from 16 concurrent SSE clients.
     ``/healthz`` must answer ``warming`` while the warmup is held and run,
@@ -4154,8 +4243,9 @@ def server_drains(torch, prompts_path, inproc):
     of the sequential drain's clients (one batch) then run once more, on a
     server of its own (a cold prefix cache, as the timed drain had) and
     under the profiler: the device's idle share over that traffic, whose
-    tokens must equal the timed drain's.  Returns (kernel launches, the
-    lines)."""
+    tokens must equal the timed drain's.  ``midway`` (if given) is called
+    after that profiled drain, before the packed one.  Returns (kernel
+    launches, the lines)."""
     from relora_tpu_torch.ops import attention as A
 
     payloads = [{"prompt": p} for p in read_prompts(prompts_path)]
@@ -4191,6 +4281,8 @@ def server_drains(torch, prompts_path, inproc):
                 torch.cuda.empty_cache()
                 if [c.tokens for c in again] != [c.tokens for c in clients[:PROFILED_CLIENTS]]:
                     raise AssertionError("server bf16: the traced drain's tokens differ")
+                if midway is not None:
+                    midway()
             diverged = []
             for uid, c in enumerate(clients):
                 check_stream(label, c, vocab)
@@ -4284,27 +4376,36 @@ def server_overload(torch, prompts_path):
     return A.paged_decode_attention.launches, line
 
 
-def server_subprocess(work, prompts_path, inproc):
-    """Phase server (f): the real entry point, ``python -m
-    relora_tpu_torch.serve_cli ... --port 0 --port-file F --run-dir R``, as
-    a process of its own: ``/healthz`` goes ok, 10 requests stream (8
-    decoding, 2 queued), SIGTERM lands while they do; then a new request
-    gets 503, every accepted one finishes, and the process exits 0.  Its
-    warmup seconds come from its ``metrics.jsonl`` (``serve_warm``)."""
-    prompts = read_prompts(prompts_path)
+def server_process(work):
+    """Start server (f)'s process, the real entry point ``python -m
+    relora_tpu_torch.serve_cli ... --port 0 --port-file F --run-dir R``,
+    without waiting: it starts up and warms while the phases before
+    :func:`server_subprocess` run.  Returns (process, its stderr log, port
+    file, run dir, the start's clock)."""
     port_file = os.path.join(work, "server.port")
     run_dir = os.path.join(work, "server_run")
     for path in (port_file, os.path.join(run_dir, "metrics.jsonl")):
         if os.path.exists(path):
             os.remove(path)
     env = {k: v for k, v in os.environ.items() if k not in ("RELORA_TPU_FAULTS", "RELORA_TPU_REPLICA_ID")}
-    with open(os.path.join(work, "server_stderr.log"), "w") as log:
-        proc = subprocess.Popen(
-            [sys.executable, "-m", "relora_tpu_torch.serve_cli", *SERVER_ARGS, "--port", "0",
-             "--port-file", port_file, "--run-dir", run_dir],
-            cwd=REPO, env=env, stdout=subprocess.DEVNULL, stderr=log)
+    log = open(os.path.join(work, "server_stderr.log"), "w")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "relora_tpu_torch.serve_cli", *SERVER_ARGS, "--port", "0",
+         "--port-file", port_file, "--run-dir", run_dir],
+        cwd=REPO, env=env, stdout=subprocess.DEVNULL, stderr=log)
+    return proc, log, port_file, run_dir, time.perf_counter()
+
+
+def server_subprocess(started, prompts_path, inproc):
+    """Phase server (f) over :func:`server_process`'s process (``started``):
+    ``/healthz`` goes ok, 10 requests stream (8 decoding, 2 queued), SIGTERM
+    lands while they do; then a new request gets 503, every accepted one
+    finishes, and the process exits 0.  Its warmup seconds come from its
+    ``metrics.jsonl`` (``serve_warm``); ``ready_s`` counts from its start."""
+    prompts = read_prompts(prompts_path)
+    proc, log, port_file, run_dir, t_start = started
+    with log:
         try:
-            t_start = time.perf_counter()
             wait_state(lambda: os.path.exists(port_file) and open(port_file).read().strip(),
                        "the port file")
             port = int(open(port_file).read())
@@ -4520,8 +4621,11 @@ def fleet_launch(torch, work, device):
     over the adapters' base with ``--no-merge --adapter-dir --adapters
     tA``: ``tdecode`` (``--role decode``), then ``tprefill`` (``--role
     prefill``, ``serve_migrate`` armed once) naming it in
-    ``peers_tenant.json``.  Returns (fleet, save dir, {step: path}, (base
-    dir, adapter dir))."""
+    ``peers_tenant.json``; last, the pythia_serving group's checkpoints
+    (``write_adapter_checkpoints`` at pythia_1b's widths and
+    PYTHIA_TRAIN_LAYERS layers, with a draft).  Returns (fleet, save dir,
+    {step: path}, (base dir, adapter dir), (pythia base, adapter dir,
+    draft))."""
     root = os.path.join(work, "fleet")
     os.makedirs(root, exist_ok=True)
     for name in ("peers.json", "peers_tenant.json"):
@@ -4552,10 +4656,16 @@ def fleet_launch(torch, work, device):
         fleet["tprefill"] = Replica(root, "tprefill", tenant + [
             "--role", "prefill", "--peer-file", os.path.join(root, "peers_tenant.json")],
             migrate_once)
+        pythia_args = pythia_train_args(work)
+        pythia = write_adapter_checkpoints(torch, work, device,
+                                           pythia_args[pythia_args.index("--model_config") + 1],
+                                           draft=True)
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
     except BaseException:
         fleet_stop(fleet, check=False)
         raise
-    return fleet, save_dir, paths, adapters
+    return fleet, save_dir, paths, adapters, pythia
 
 
 def fleet_ready(fleet):
@@ -4943,7 +5053,9 @@ class Front:
     ``r0``'s first incarnation), its router on an ephemeral port (the port
     file ``router.port`` beside the replicas' port and pid files), and the
     collector every FRONT_CADENCE_S.  The replicas share one ``--run-dir``;
-    each record carries its replica's ``_source``."""
+    each record carries its replica's ``_source``.  The router and the
+    replicas write their spans under ``traces/`` (``RELORA_TPU_TRACE_DIR``),
+    the collector its series to ``fleet_series.jsonl``: fleet_tools' input."""
 
     def __init__(self, work):
         self.dir = os.path.join(work, "front")
@@ -4951,7 +5063,9 @@ class Front:
         os.makedirs(self.dir)
         self.run_dir = os.path.join(self.dir, "run")
         self.port_file = os.path.join(self.dir, "router.port")
+        self.trace_dir = os.path.join(self.dir, "traces")
         env = {k: v for k, v in os.environ.items() if k != "RELORA_TPU_FAULTS"}
+        env["RELORA_TPU_TRACE_DIR"] = self.trace_dir
         self.log_path = os.path.join(self.dir, "supervisor.log")
         self.log = open(self.log_path, "w")
         self.proc = subprocess.Popen(
@@ -5521,28 +5635,35 @@ def contiguous_drain(torch, prompts_path, paged):
     return {"tokens": tokens, "tokens_per_s": n / seconds}
 
 
-def prefill_arms(buckets):
-    """``choose_grouped_arm``'s pick at each projection of a batch-1 prefill
-    of each bucket (llama_250m's shapes, r = 128, 4 slots, bf16: the call
-    ``lora_matmul_grouped`` makes on the card, which counts min(slots, M)
-    adapters although a batch-1 prefill's rows all use one)."""
+def prefill_arms(buckets, shapes=LORA_SHAPES):
+    """``choose_grouped_arm``'s pick at each projection of ``shapes`` (one
+    layer's, default llama_250m's) in a batch-1 prefill of each bucket (r =
+    128, 4 slots, bf16: the call ``lora_matmul_grouped`` makes on the card,
+    which counts min(slots, M) adapters although a batch-1 prefill's rows
+    all use one)."""
     from relora_tpu_torch.ops.lora_dispatch import choose_grouped_arm
 
     return {T: [choose_grouped_arm(T, K, N, ADAPTER_R, min(ADAPTER_SLOTS, T), 2, 2,
-                                   grouped_available=True) for K, N, _ in LORA_SHAPES]
+                                   grouped_available=True) for K, N, _ in shapes]
             for T in buckets}
 
 
-def contiguous_tenants(torch, device, prompts_path, base, tenants):
+CONTIGUOUS_TENANT_NEW = 32  # contiguous_tenants' new tokens a request
+
+
+def contiguous_tenants(torch, device, prompts_path, base, tenants, model_config="llama_250m",
+                       shapes=LORA_SHAPES, label="contiguous_tenants"):
     """Phase contiguous_tenants: the adapter phase's base and tenants through
     ``ContinuousBatchingScheduler(adapter_registry=)`` on the contiguous
-    engine (4 slots, requests naming [base, tA, tB, tC] round-robin, 64 new
-    tokens).  Prints tokens/s, kernel 5's launches in decode rounds and in
-    prefills, and the arm ``choose_grouped_arm`` takes at each prompt bucket
-    16-512.  Fails unless kernel 5 launched in every projection of every
-    layer of every decode round (7 x 24 a round), each prefill launched it
-    where its bucket's pick is the kernel and nowhere else, and nothing
-    else launched it.  Returns (decode launches, prefill launches)."""
+    engine of ``model_config`` (4 slots, requests naming [base, tA, tB, tC]
+    round-robin, CONTIGUOUS_TENANT_NEW new tokens).  Prints tokens/s,
+    kernel 5's launches in decode rounds and in prefills, and the arm
+    ``choose_grouped_arm`` takes at each prompt bucket 16-512 over
+    ``shapes`` (one layer's projections, as counted per layer).  Fails
+    unless kernel 5 launched in every projection of every layer of every
+    decode round, each prefill launched it where its bucket's pick is the
+    kernel and nowhere else, and nothing else launched it.  Returns (decode
+    launches, prefill launches)."""
     from relora_tpu_torch.config.model import load_model_config
     from relora_tpu_torch.ops import lora_matmul as LM
     from relora_tpu_torch.serve.adapters import AdapterRegistry
@@ -5550,10 +5671,11 @@ def contiguous_tenants(torch, device, prompts_path, base, tenants):
     from relora_tpu_torch.serve.scheduler import ContinuousBatchingScheduler
 
     t0 = time.perf_counter()
-    layers = load_model_config("llama_250m").num_hidden_layers
+    cfg = load_model_config(model_config)
+    layers, per_layer = cfg.num_hidden_layers, sum(count for _, _, count in shapes)
     prompts = read_prompts(prompts_path)
     mix = [None] + list(TENANT_ALPHAS)
-    engine = tenant_engine(torch, base, ADAPTER_SLOTS, device, paged=False)
+    engine = tenant_engine(torch, base, ADAPTER_SLOTS, device, paged=False, model_config=model_config)
     registry = AdapterRegistry(tenants, ADAPTER_SLOTS, expected_r=ADAPTER_R,
                                writer=engine.adapter_writer())
     sched = ContinuousBatchingScheduler(engine, max_batch=BATCH, eos_id=engine.config.eos_token_id,
@@ -5562,18 +5684,18 @@ def contiguous_tenants(torch, device, prompts_path, base, tenants):
     LM.grouped_lora_matmul.launches = 0
     with EngineCalls("decode", grouped) as decodes, EngineCalls("prefill", grouped) as prefills:
         t1 = time.perf_counter()
-        completions = sched.run(tenant_requests(prompts, mix))
+        completions = sched.run(tenant_requests(prompts, mix, max_new=CONTIGUOUS_TENANT_NEW))
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t1
     total = LM.grouped_lora_matmul.launches
-    arms = prefill_arms((16, 32, 64, 128, 256, 512))
-    per_prompt = [layers * sum(count for (_, _, count), arm in zip(LORA_SHAPES, arms[bucket_length(len(p))])
+    arms = prefill_arms((16, 32, 64, 128, 256, 512), shapes)
+    per_prompt = [layers * sum(count for (_, _, count), arm in zip(shapes, arms[bucket_length(len(p))])
                                if arm == "grouped") for p in prompts]
     decode_launches = decodes.launches["grouped_lora_matmul"]
     prefill_launches = prefills.launches["grouped_lora_matmul"]
     tokens = [c.tokens for c in completions.values()]
     n = sum(len(t) for t in tokens)
-    print(json.dumps({"drain": "contiguous_tenants", "requests": len(tokens), "adapters": mix,
+    print(json.dumps({"drain": label, "requests": len(tokens), "adapters": mix,
                       "tokens": n, "seconds": seconds, "tokens_per_s": n / seconds,
                       "decode_rounds": decodes.calls, "prefills": prefills.calls,
                       "launches": {"decode": decode_launches, "prefill": prefill_launches},
@@ -5582,18 +5704,18 @@ def contiguous_tenants(torch, device, prompts_path, base, tenants):
                       "loads": registry.stats()["loads_total"], "wall_s": time.perf_counter() - t0}))
     del sched, engine, registry
     torch.cuda.empty_cache()
-    if len(tokens) != len(prompts) or not all(1 <= len(t) <= 64 for t in tokens):
-        raise AssertionError("drain contiguous_tenants: malformed completions")
-    if not all(0 <= tok < 32100 for t in tokens for tok in t):
-        raise AssertionError("drain contiguous_tenants: token id out of the vocabulary")
-    if decodes.calls == 0 or decode_launches != 7 * layers * decodes.calls:
-        raise AssertionError(f"contiguous_tenants: kernel 5 launched {decode_launches} times in "
-                             f"{decodes.calls} decode rounds, expected 7 x {layers} a round")
+    if len(tokens) != len(prompts) or not all(1 <= len(t) <= CONTIGUOUS_TENANT_NEW for t in tokens):
+        raise AssertionError(f"drain {label}: malformed completions")
+    if not all(0 <= tok < cfg.vocab_size for t in tokens for tok in t):
+        raise AssertionError(f"drain {label}: token id out of the vocabulary")
+    if decodes.calls == 0 or decode_launches != per_layer * layers * decodes.calls:
+        raise AssertionError(f"{label}: kernel 5 launched {decode_launches} times in "
+                             f"{decodes.calls} decode rounds, expected {per_layer} x {layers} a round")
     if prefills.calls != len(prompts) or prefill_launches != sum(per_prompt):
-        raise AssertionError(f"contiguous_tenants: kernel 5 launched {prefill_launches} times in "
+        raise AssertionError(f"{label}: kernel 5 launched {prefill_launches} times in "
                              f"{prefills.calls} prefills, expected {sum(per_prompt)}")
     if total != decode_launches + prefill_launches:
-        raise AssertionError(f"contiguous_tenants: {total} kernel 5 launches, "
+        raise AssertionError(f"{label}: {total} kernel 5 launches, "
                              f"{decode_launches + prefill_launches} in decode and prefill")
     return decode_launches, prefill_launches
 
@@ -6082,6 +6204,319 @@ def check_nf4_quantize(torch, device, pythia_warm):
         raise AssertionError(f"f32-nf4: quantize_nf4 on the card against the CPU: {stats}")
 
 
+# -- pythia_1b through every serving path: the pythia_serving group -----------------
+
+PYTHIA_SPEC_NEW = 32  # the pythia spec drains' and server's new tokens a request
+
+
+def pythia_tenants(torch, prompts_path, ckpts, model_config):
+    """Group pythia_serving, part 1: ``serve_cli --checkpoint BASE --no-merge
+    --adapter-dir D --packed`` (4 slots; ``ckpts``: base, adapter dir,
+    draft) builds the pythia engine and its registry; a sequential and a
+    packed scheduler over them drain the first TENANT_HEAD prompts at
+    TENANT_NEW new tokens, round-robin over [base, tA, tB, tC].  Each drain
+    fails unless kernel 5 launched once a projection and layer (4 x layers)
+    in every forward, kernel 1 (kernel 2 when packed) launched, and every
+    id is in the vocabulary; then :func:`tenant_probes`.  Returns the
+    kernels' launches over the two drains."""
+    from relora_tpu_torch import serve_cli
+    from relora_tpu_torch.ops import attention as A
+    from relora_tpu_torch.ops import lora_matmul as LM
+
+    base, tenants, _ = ckpts
+    sched = serve_cli.build(serve_cli.parse_args([
+        "--model_config", model_config, "--checkpoint", base, "--no-merge", "--adapter-dir", tenants,
+        "--paged", "--packed", "--dtype", "bf16", "--max-batch", str(BATCH)]))
+    engine, registry = sched.engine, sched.adapter_registry
+    del sched
+    cfg = engine.config
+    per_forward = sum(count for _, _, count in PYTHIA_LORA_SHAPES) * cfg.num_hidden_layers
+    prompts = read_prompts(prompts_path)
+    mix = [None] + list(TENANT_ALPHAS)
+    requests = tenant_requests(prompts[:TENANT_HEAD], mix, max_new=TENANT_NEW)
+    wrappers = {"paged_decode_attention": A.paged_decode_attention,
+                "packed_paged_attention": A.packed_paged_attention,
+                "grouped_lora_matmul": LM.grouped_lora_matmul}
+    total = dict.fromkeys(wrappers, 0)
+    for packed, kernel in ((False, "paged_decode_attention"), (True, "packed_paged_attention")):
+        label = "pythia_tenants_packed" if packed else "pythia_tenants"
+        for w in wrappers.values():
+            w.launches = 0
+        with EngineCalls("_forward") as forwards:
+            completions, seconds, _ = tenant_drain(torch, engine, registry, requests, packed)
+        launches = {k: w.launches for k, w in wrappers.items()}
+        tokens = [c.tokens for c in completions.values()]
+        n = sum(len(t) for t in tokens)
+        print(json.dumps({"drain": label, "model": PYTHIA, "requests": len(tokens), "tokens": n,
+                          "seconds": seconds, "tokens_per_s": n / seconds, "adapters": mix,
+                          "forwards": forwards.calls, "launches": launches}))
+        if len(tokens) != TENANT_HEAD or not all(1 <= len(t) <= TENANT_NEW for t in tokens):
+            raise AssertionError(f"drain {label}: malformed completions")
+        if not all(0 <= tok < cfg.vocab_size for t in tokens for tok in t):
+            raise AssertionError(f"drain {label}: token id out of the vocabulary")
+        if forwards.calls == 0 or launches["grouped_lora_matmul"] != per_forward * forwards.calls:
+            raise AssertionError(f"drain {label}: kernel 5 launched {launches['grouped_lora_matmul']}"
+                                 f" times over {forwards.calls} forwards, expected {per_forward} "
+                                 f"per forward")
+        if launches[kernel] == 0:
+            raise AssertionError(f"drain {label}: {kernel} never launched")
+        for k in total:
+            total[k] += launches[k]
+    tenant_probes(torch, engine, registry, prompts, "pythia_tenants")
+    del engine, registry
+    torch.cuda.empty_cache()
+    return total
+
+
+def pythia_contiguous(torch, device, prompts_path, ckpts, model_config, paged):
+    """Group pythia_serving, part 2: ``serve_cli`` without ``--paged`` (the
+    contiguous cache, prefill-on-admission; ``--random-init`` as the pythia
+    drains) over the same PYTHIA_PROMPTS prompts, 64 new tokens, its streams
+    counted against the paged bf16 pythia drain's (``paged``: uid ->
+    tokens; reported, not gated: kernel 1 and the plain f32 attention round
+    differently in bf16); fails unless every completion is well formed and
+    in the vocabulary, every request prefilled once and kernels 1 and 2
+    never launched.  Then :func:`contiguous_tenants` over part 1's base and
+    tenants at pythia_1b's projections.  Returns (kernel 5's decode
+    launches, its prefill launches)."""
+    from relora_tpu_torch import serve_cli
+    from relora_tpu_torch.ops import attention as A
+
+    A.paged_decode_attention.launches = A.packed_paged_attention.launches = 0
+    with EngineCalls("prefill") as prefills, EngineCalls("decode") as decodes:
+        completions, seconds, sched = serve_cli.drain([
+            "--model_config", model_config, "--random-init", "--dtype", "bf16", "--max-batch",
+            str(BATCH), "--max-new-tokens", "64", "--input-file", prompts_path])
+    vocab = sched.engine.config.vocab_size
+    del sched
+    torch.cuda.empty_cache()
+    tokens = {uid: c.tokens for uid, c in completions.items()}
+    n = sum(len(t) for t in tokens.values())
+    paged_launches = A.paged_decode_attention.launches + A.packed_paged_attention.launches
+    print(json.dumps({"drain": "pythia_contiguous", "model": PYTHIA, "requests": len(tokens),
+                      "tokens": n, "seconds": seconds, "tokens_per_s": n / seconds,
+                      "identical_to_paged": sum(tokens[u] == paged[u] for u in paged),
+                      "prefills": prefills.calls, "decode_rounds": decodes.calls,
+                      "paged_kernel_launches": paged_launches}))
+    if len(tokens) != PYTHIA_PROMPTS or not all(1 <= len(t) <= 64 for t in tokens.values()):
+        raise AssertionError("drain pythia_contiguous: malformed completions")
+    if not all(0 <= tok < vocab for t in tokens.values() for tok in t):
+        raise AssertionError("drain pythia_contiguous: token id out of the vocabulary")
+    if prefills.calls != PYTHIA_PROMPTS or decodes.calls == 0 or paged_launches:
+        raise AssertionError(f"drain pythia_contiguous: {prefills.calls} prefills, {decodes.calls} "
+                             f"decode rounds, {paged_launches} paged launches")
+    return contiguous_tenants(torch, device, prompts_path, ckpts[0], ckpts[1], model_config,
+                              PYTHIA_LORA_SHAPES, label="pythia_contiguous_tenants")
+
+
+def pythia_spec(torch, repeat_path, ckpts, model_config):
+    """Group pythia_serving, part 3: ``serve_cli --spec-k 4`` drains of the
+    first SPEC_HEAD_PROMPTS repeat prompts at PYTHIA_SPEC_NEW new tokens:
+    ``--spec ngram`` sequential and ``--packed`` (``--random-init``), and
+    ``--spec model`` over part 1's base served merged with its NeoX draft
+    (the base plus :func:`noisy_draft`'s noise).  Each is checked by
+    :func:`spec_line`, and fails unless kernel 1 (``verify_paged``) or
+    kernel 2 (``step_paged``, packed) launched once a layer in every call;
+    the model drafter's acceptance must lie strictly between 0 and 1.
+    Returns (kernels 1 and 2's launches, their launches at the window
+    shape)."""
+    from relora_tpu_torch import serve_cli
+    from relora_tpu_torch.ops import attention as A
+
+    head = head_prompts(repeat_path, SPEC_HEAD_PROMPTS, "pythia_repeat_prompts.txt")
+    common = ["--dtype", "bf16", "--max-batch", str(BATCH), "--paged", "--max-new-tokens",
+              str(PYTHIA_SPEC_NEW), "--spec-k", str(SPEC_K), "--input-file", head]
+    rnd = ["--model_config", model_config, "--random-init"] + common
+    launches = {"paged_decode_attention": 0, "packed_paged_attention": 0}
+    window = dict(launches)
+    for label, argv, method in (
+        ("pythia_spec_ngram", rnd + ["--spec", "ngram"], "verify_paged"),
+        ("pythia_spec_ngram_packed", rnd + ["--spec", "ngram", "--packed"], "step_paged"),
+        ("pythia_spec_model", ["--model_config", model_config, "--checkpoint", ckpts[0]] + common
+         + ["--spec", "model", "--draft-checkpoint", ckpts[2]], "verify_paged"),
+    ):
+        A.paged_decode_attention.launches = A.packed_paged_attention.launches = 0
+        with EngineCalls(method) as calls:
+            completions, seconds, sched = serve_cli.drain(argv)
+        counts = {k: getattr(A, k).launches for k in launches}
+        kernel = "packed_paged_attention" if method == "step_paged" else "paged_decode_attention"
+        layers = sched.engine.config.num_hidden_layers
+        if calls.calls == 0 or calls.launches[kernel] != layers * calls.calls:
+            raise AssertionError(f"drain {label}: {calls.launches[kernel]} {kernel} launches in "
+                                 f"{calls.calls} {method} calls, expected {layers} a call")
+        stats = sched.spec_stats()
+        win = layers * stats["verify_rounds"] if method == "step_paged" else calls.launches[kernel]
+        spec_line(label, completions, seconds, sched, win, counts, None, SPEC_HEAD_PROMPTS)
+        if label == "pythia_spec_model" and not 0 < stats["accepted"] < stats["drafted"]:
+            raise AssertionError(f"drain {label}: the draft's acceptance must lie strictly "
+                                 f"between 0 and 1, got {stats}")
+        for k in launches:
+            launches[k] += counts[k]
+        window[kernel] += win
+        del sched
+        torch.cuda.empty_cache()
+    return launches, window
+
+
+def pythia_server(torch, repeat_path, ckpts, model_config):
+    """Group pythia_serving, part 4: one in-process ``serve_cli --port``
+    server over part 1's base with ``--no-merge --adapter-dir --adapters
+    tA,tB --spec ngram``: 8 concurrent SSE clients (the first 8 repeat
+    prompts, PYTHIA_SPEC_NEW new tokens) round-robin over [base, tA, tB,
+    tC], every other one with ``"spec": false``, all queued while the model
+    thread is held after its warmup and released together, so the first
+    round admits all eight in the server's uid order.  Prints TTFT p50
+    (from the release) and TPOT p50; fails unless every stream is well
+    formed and token-identical to the in-process drain of the same requests
+    in that order (a scheduler built from the same flags: the same rounds,
+    so the same GEMM shapes), a verify round ran, and kernels 5 and 1
+    launched.  Returns the kernels' launches (server and in-process drain)
+    and kernel 1's at the window shape."""
+    from relora_tpu_torch import serve_cli
+    from relora_tpu_torch.ops import attention as A
+    from relora_tpu_torch.ops import lora_matmul as LM
+    from relora_tpu_torch.serve.scheduler import Request
+
+    base, tenants, _ = ckpts
+    argv = ["--model_config", model_config, "--checkpoint", base, "--no-merge", "--adapter-dir",
+            tenants, "--adapters", "tA,tB", "--paged", "--dtype", "bf16", "--max-batch", str(BATCH),
+            "--max-new-tokens", str(PYTHIA_SPEC_NEW), "--spec", "ngram", "--spec-k", str(SPEC_K)]
+    mix = [None] + list(TENANT_ALPHAS)
+    payloads = [{"prompt": p, "adapter": mix[i % len(mix)], "spec": i % 2 == 0}
+                for i, p in enumerate(read_prompts(repeat_path)[:TENANT_HEAD])]
+    wrappers = {"paged_decode_attention": A.paged_decode_attention,
+                "grouped_lora_matmul": LM.grouped_lora_matmul}
+    for w in wrappers.values():
+        w.launches = 0
+    import types
+
+    with EngineCalls("verify_paged") as verifies, InProcessServer(argv, held=True) as srv:
+        if not srv.warm.wait(SERVER_WAIT):
+            raise AssertionError("server pythia: the warmup did not finish")
+        with client_pool() as pool:
+            pending = pool.apply_async(client_batch, (srv.server.port, payloads))
+            wait_state(lambda: srv.server.admission.depth() == len(payloads), "8 queued requests")
+            released = time.perf_counter()
+            srv.hold.set()
+            clients = [types.SimpleNamespace(**r) for r in pending.get(SERVER_WAIT)]
+        for c in clients:  # TTFT from the release: the queue's wait is the hold's
+            c.t_send = max(c.t_send, released)
+        stats = latency_stats(clients)
+        spec = srv.scheduler.spec_stats()
+        vocab = srv.scheduler.engine.config.vocab_size
+    served = {k: w.launches for k, w in wrappers.items()}
+    warmup_s = srv.warmup_s
+    del srv
+    torch.cuda.empty_cache()
+    for c in clients:
+        check_stream("pythia", c, vocab)
+    order = sorted(range(len(clients)), key=lambda i: clients[i].final["uid"])
+    for w in wrappers.values():
+        w.launches = 0
+    with EngineCalls("verify_paged") as inproc_verifies:
+        sched = serve_cli.build(serve_cli.parse_args(argv))
+        done = sched.run([Request(uid=clients[i].final["uid"], prompt=payloads[i]["prompt"],
+                                  max_new_tokens=PYTHIA_SPEC_NEW, adapter=payloads[i]["adapter"],
+                                  spec=payloads[i]["spec"]) for i in order])
+    del sched
+    torch.cuda.empty_cache()
+    diverged = [i for i, c in enumerate(clients) if c.tokens != done[c.final["uid"]].tokens]
+    print(json.dumps({"server_drain": "pythia_tenants_spec", "model": PYTHIA,
+                      "requests": len(clients), "adapters": mix, **stats, "warmup_s": warmup_s,
+                      "verify_rounds": spec["verify_rounds"], "accepted": spec["accepted"],
+                      "identical_to_inproc": not diverged, "divergences": diverged,
+                      "launches": served}))
+    if diverged:
+        raise AssertionError(f"server pythia: requests {diverged} differ from the in-process drain")
+    if spec["verify_rounds"] == 0 or not all(served.values()):
+        raise AssertionError(f"server pythia: {spec['verify_rounds']} verify rounds, launches {served}")
+    launches = {k: served[k] + w.launches for k, w in wrappers.items()}
+    return launches, (verifies.launches["paged_decode_attention"]
+                      + inproc_verifies.launches["paged_decode_attention"])
+
+
+def pythia_serving(torch, device, prompts_path, repeat_path, ckpts, model_config, paged):
+    """Group pythia_serving: pythia_1b at full width, PYTHIA_TRAIN_LAYERS
+    layers, bf16, through every serving path (:func:`pythia_tenants`,
+    :func:`pythia_contiguous`, :func:`pythia_spec`, :func:`pythia_server`).
+    ``prompts_path`` holds the pythia drains' prompts.  Returns {kernels-line
+    row name: launches}."""
+    rows = dict.fromkeys((f"paged_decode_attention@{PYTHIA}", f"packed_paged_attention@{PYTHIA}",
+                          f"paged_decode_attention_verify@{PYTHIA}",
+                          f"packed_paged_attention_verify@{PYTHIA}",
+                          f"grouped_lora_matmul@{PYTHIA}", f"grouped_lora_matmul@prefill_{PYTHIA}"),
+                         0)
+
+    def add(launches, suffix=f"@{PYTHIA}"):
+        for kernel, n in launches.items():
+            rows[kernel + suffix] += n
+
+    add(pythia_tenants(torch, prompts_path, ckpts, model_config))
+    decode, prefill = pythia_contiguous(torch, device, prompts_path, ckpts, model_config, paged)
+    add({"grouped_lora_matmul": decode})
+    add({"grouped_lora_matmul": prefill}, f"@prefill_{PYTHIA}")
+    launches, window = pythia_spec(torch, repeat_path, ckpts, model_config)
+    add(launches)
+    add(window, f"_verify@{PYTHIA}")
+    launches, verify = pythia_server(torch, repeat_path, ckpts, model_config)
+    add(launches)
+    add({"paged_decode_attention": verify}, f"_verify@{PYTHIA}")
+    return rows
+
+
+# -- the fleet tools over fleet_front's files ----------------------------------------
+
+
+def fleet_tools(front):
+    """Phase fleet_tools (in the f32 slot; no kernel): ``python -m
+    relora_tpu_torch.tools.fleet_report`` over the supervisor's persisted
+    ``fleet_series.jsonl`` (text and ``--json``), and ``python -m
+    relora_tpu_torch.tools.trace_report`` over the router's
+    ``router_spans_<pid>.jsonl`` merged with the replicas'
+    ``serve_spans_<pid>.jsonl`` (``RELORA_TPU_TRACE_DIR`` of fleet_front's
+    supervisor), with a Chrome export.  Fails unless each exits 0 with every
+    section of its report: the three replicas in the fleet health table,
+    the SLO table, the merged streams' span trees with the router's and a
+    replica's spans, a non-empty Chrome trace."""
+    import glob
+
+    series = os.path.join(front.dir, "fleet_series.jsonl")
+    routers = sorted(glob.glob(os.path.join(front.trace_dir, "router_spans_*.jsonl")))
+    replicas = sorted(glob.glob(os.path.join(front.trace_dir, "serve_spans_*.jsonl")))
+    if not os.path.exists(series) or not routers or not replicas:
+        raise AssertionError(f"fleet_tools: missing inputs: series {os.path.exists(series)}, "
+                             f"router spans {routers}, replica spans {replicas}")
+    chrome = os.path.join(front.dir, "trace_chrome.json")
+
+    def tool(name, *args):
+        t0 = time.perf_counter()
+        out = subprocess.run([sys.executable, "-m", f"relora_tpu_torch.tools.{name}", *args],
+                             cwd=REPO, capture_output=True, text=True, timeout=SERVER_WAIT)
+        if out.returncode != 0:
+            raise AssertionError(f"fleet_tools: {name} exited {out.returncode}:\n{out.stderr[-2000:]}")
+        return out.stdout, time.perf_counter() - t0
+
+    report, report_s = tool("fleet_report", series)
+    payload = json.loads(tool("fleet_report", series, "--json")[0])
+    trace, trace_s = tool("trace_report", *routers, *replicas, "--chrome", chrome)
+    with open(chrome) as f:
+        events = json.load(f)["traceEvents"]
+    health = report.split("== fleet health ==", 1)[-1].split("==", 1)[0]
+    rows = {line.split()[0] for line in health.strip().splitlines()[1:] if line.strip()}
+    line = {"fleet_tools": "fleet_report, trace_report", "series_records": payload["loaded_records"],
+            "sources": payload["sources"], "slo_objectives": len(payload["slo"]["objectives"]),
+            "router_streams": len(routers), "replica_streams": len(replicas),
+            "trace_lines": len(trace.splitlines()), "chrome_events": len(events),
+            "report_s": report_s, "trace_report_s": trace_s}
+    print(json.dumps(line))
+    if (not {"r0", "r1", "r2"} <= rows or "== SLO / error budget ==" not in report
+            or "== timeline" not in report or not payload["loaded_records"]):
+        raise AssertionError(f"fleet_tools: malformed fleet report:\n{report[:3000]}")
+    phases = {ln.split()[0] for ln in trace.split("\nphase ", 1)[-1].splitlines()[1:] if ln.strip()}
+    if not trace.startswith("merged ") or not {"route", "request"} <= phases or not events:
+        raise AssertionError(f"fleet_tools: malformed trace report:\n{trace[:3000]}")
+
+
 def take_launches(rows, launches, model=""):
     """Each row of ``rows`` named ``kernel`` (``model`` empty) or
     ``kernel@model`` adds ``launches[kernel]``; other rows are left alone."""
@@ -6150,15 +6585,26 @@ def main() -> int:
         {line["drain"]: line["tokens_per_s"] for line in plain_lines})
     lap("spec")
     # the online front end: serve_cli --port over kernels 1 and 2
-    server_launches, _ = server_drains(torch, prompts, inproc)
-    server_launches["paged_decode_attention"] += server_overload(torch, prompts)[0]
-    # the fleet tier: six serve_cli replicas and the supervised fleet (its
-    # router, collector and three replicas) share the card; they start while
-    # server_subprocess and server_f32 run (neither times the device)
-    fleet, fleet_dir, fleet_paths, (base, tenants) = fleet_launch(torch, work, device)
+    # server (f)'s process starts after the profiled bf16 server drain and
+    # warms up while the packed server drain and server_overload run (their
+    # timings are reported, not gated)
+    started = []
+    try:
+        server_launches, _ = server_drains(torch, prompts, inproc,
+                                           midway=lambda: started.append(server_process(work)))
+        server_launches["paged_decode_attention"] += server_overload(torch, prompts)[0]
+        # the fleet tier: six serve_cli replicas and the supervised fleet (its
+        # router, collector and three replicas) share the card; they start while
+        # server_subprocess and server_f32 run (neither times the device)
+        fleet, fleet_dir, fleet_paths, (base, tenants), pythia_ckpts = fleet_launch(
+            torch, work, device)
+    except BaseException:
+        for proc, *_ in started:
+            proc.kill()
+        raise
     front = Front(work)
     try:
-        server_subprocess(work, prompts, inproc)
+        server_subprocess(started[0], prompts, inproc)
         server_f32(torch, work, prompts)
     except BaseException:
         fleet_stop(fleet, check=False)
@@ -6180,6 +6626,7 @@ def main() -> int:
         # and the killed replica restarts and warms up
         fleet_front_crash(front, front_state)
         fleet_front_reference(prompts, front_state)
+        fleet_tools(front)
         f32_comparison(torch, device)
         torch.cuda.empty_cache()
         f32_spec_drains(torch, repeat, work)
@@ -6207,8 +6654,8 @@ def main() -> int:
         torch.cuda.empty_cache()
         f32_nf4_launches = f32_nf4(torch, device, pythia_warm)
         torch.cuda.empty_cache()
-        lap("f32, f32-spec, f32-train, f32-fused, f32-adapters, f32_contiguous, f32-pythia, "
-            "f32-int8, f32-nf4")
+        lap("fleet_tools, f32, f32-spec, f32-train, f32-fused, f32-adapters, f32_contiguous, "
+            "f32-pythia, f32-int8, f32-nf4")
         disagg_line = fleet_disagg_checks()
         front_launches = fleet_front_finish(front, front_state, fleet_paths, disagg_line)
         lap("fleet_front_finish")
@@ -6316,10 +6763,18 @@ def main() -> int:
     torch.cuda.empty_cache()
     lap("auto-arms, auto_train, resume, nomerge")
 
-    # the NeoX family at pythia_1b: its drains and train phases
-    take_launches(paged_rows.values(), pythia_drains(
-        torch, prompts, pythia_args[pythia_args.index("--model_config") + 1]), PYTHIA)
+    # the NeoX family at pythia_1b: its drains, every serving path, train phases
+    pythia_config = pythia_args[pythia_args.index("--model_config") + 1]
+    launches, pythia_paged = pythia_drains(torch, prompts, pythia_config)
+    take_launches(paged_rows.values(), launches, PYTHIA)
     lap("pythia-drains")
+    by_name = {row["name"]: row for row in rows + grouped_rows}
+    for name, n in pythia_serving(torch, device, head_prompts(prompts, PYTHIA_PROMPTS,
+                                                              "pythia_prompts.txt"),
+                                  repeat, pythia_ckpts, pythia_config, pythia_paged).items():
+        by_name[name]["launches"] += n
+    torch.cuda.empty_cache()
+    lap("pythia_serving")
     corpus = write_corpus(work, seq_length=2048)
     launches, pythia_line = train(torch, corpus, "pythia_train", ["--log_every", "4"],
                                   base_args=pythia_args)

@@ -4,7 +4,9 @@ the paged engine.
 Counterpart of ``serve.py`` for the flags the port serves.  Prompts are
 token ids (comma- or space-separated ints), one per ``--prompt`` or one per
 line of ``--input-file`` (``-`` = stdin); one line of generated ids is printed
-per request, in request order.  ``--prompt`` is the one-shot mode: every
+per request, in request order.  ``--tokenizer NAME`` (an HF tokenizer name or
+directory; ``transformers`` is imported only then) takes text prompts
+instead and prints the decoded text.  ``--prompt`` is the one-shot mode: every
 prompt padded to one bucket and generated together by
 ``InferenceEngine.generate``.  ``--input-file`` drains the requests through
 the continuous-batching scheduler.  Called from Python, :func:`drain` and
@@ -21,8 +23,9 @@ alone before it joins the decode batch (the reference's default mode):
         --random-init --dtype bf16 --max-batch 8 --input-file prompts.txt
 
 ``--paged`` serves from a shared page pool instead, prefilling in chunks
-between decode rounds; ``--packed``, ``--kv-dtype int8`` and ``--spec``
-need it:
+between decode rounds and sharing prompt-prefix pages between requests
+(``--no-prefix-cache`` turns the sharing off); ``--packed``, ``--kv-dtype
+int8`` and ``--spec`` need it:
 
     python -m relora_tpu_torch.serve_cli --model_config llama_250m \
         --random-init --paged --dtype bf16 --max-batch 8 --input-file prompts.txt
@@ -158,6 +161,7 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--model_config", required=True, help="zoo name, HF config JSON, or dir")
     p.add_argument("--prompt", action="append", default=[], help="one prompt (repeatable)")
     p.add_argument("--input-file", default=None, help="one prompt per line ('-' = stdin)")
+    p.add_argument("--tokenizer", default=None, help="HF tokenizer name (default: token-id prompts)")
     p.add_argument("--max-new-tokens", type=int, default=64)
     p.add_argument("--temperature", type=float, default=0.0, help="0 = greedy")
     p.add_argument("--top-k", type=int, default=0, help="0 disables")
@@ -189,6 +193,10 @@ def parse_args(argv=None) -> argparse.Namespace:
         "window spec-k+1 with --spec ngram, else 1)",
     )
     p.add_argument("--kv-dtype", choices=("bf16", "int8"), default="bf16")
+    p.add_argument(
+        "--no-prefix-cache", action="store_true",
+        help="paged: disable shared-prefix page reuse",
+    )
     p.add_argument(
         "--spec", choices=("off", "ngram", "model"), default="off",
         help="paged: speculative decoding; 'ngram' drafts by prompt lookup in "
@@ -259,11 +267,31 @@ def parse_args(argv=None) -> argparse.Namespace:
     return p.parse_args(argv)
 
 
-def _encode(text: str) -> List[int]:
+def load_tokenizer(args: argparse.Namespace):
+    """``--tokenizer``'s ``AutoTokenizer`` (``transformers`` is imported only
+    when the flag is given), else None: prompts are token ids."""
+    if not args.tokenizer:
+        return None
+    from transformers import AutoTokenizer
+
+    return AutoTokenizer.from_pretrained(args.tokenizer)
+
+
+def _encode(text: str, tokenizer=None) -> List[int]:
+    if tokenizer is not None:
+        return tokenizer.encode(text)
     try:
         return [int(t) for t in text.replace(",", " ").split()]
     except ValueError:
-        raise SystemExit(f"prompt {text!r} is not a token-id list")
+        raise SystemExit(
+            f"prompt {text!r} is not a token-id list; pass --tokenizer to use text prompts"
+        )
+
+
+def _decode_tokens(tokens: List[int], tokenizer=None) -> str:
+    if tokenizer is not None:
+        return tokenizer.decode(tokens)
+    return " ".join(str(t) for t in tokens)
 
 
 def check_adapter_flags(args: argparse.Namespace) -> None:
@@ -487,7 +515,8 @@ def build(
     )
     if args.paged:
         return PagedContinuousBatchingScheduler(
-            engine, packed=args.packed, spec=args.spec, role=args.role, **common
+            engine, prefix_cache=not args.no_prefix_cache, packed=args.packed, spec=args.spec,
+            role=args.role, **common,
         )
     return ContinuousBatchingScheduler(engine, **common)
 
@@ -654,7 +683,7 @@ def serve(args: argparse.Namespace) -> int:
             metrics.finish()
 
 
-def read_requests(args: argparse.Namespace) -> List[Request]:
+def read_requests(args: argparse.Namespace, tokenizer=None) -> List[Request]:
     if args.prompt and args.input_file:
         raise SystemExit("--prompt and --input-file are mutually exclusive")
     if args.prompt:
@@ -673,7 +702,7 @@ def read_requests(args: argparse.Namespace) -> List[Request]:
     return [
         Request(
             uid=i,
-            prompt=_encode(line),
+            prompt=_encode(line, tokenizer),
             max_new_tokens=args.max_new_tokens,
             temperature=args.temperature,
             top_p=args.top_p,
@@ -682,16 +711,21 @@ def read_requests(args: argparse.Namespace) -> List[Request]:
     ]
 
 
-def drain(argv=None) -> Tuple[Dict[int, Completion], float, ContinuousBatchingScheduler]:
+def drain(
+    argv=None, tokenizer=None
+) -> Tuple[Dict[int, Completion], float, ContinuousBatchingScheduler]:
     """Build from the flags, drain every request through the scheduler:
-    ``--input-file``'s, or ``--prompt``'s queued as requests.  Here
+    ``--input-file``'s, or ``--prompt``'s queued as requests, encoded by
+    ``tokenizer`` (default: ``--tokenizer``'s, if given).  Here
     ``--prompt`` is not the command line's one-shot mode (that is
     :func:`one_shot`, which :func:`main` calls); returns the
     completions, the drain's wall seconds (ending in a device synchronize)
     and the scheduler, whose counters (``spec_stats``) the drain leaves
     behind."""
     args = parse_args(argv)
-    requests = read_requests(args)
+    if tokenizer is None:
+        tokenizer = load_tokenizer(args)
+    requests = read_requests(args, tokenizer)
     metrics = MetricsLogger(run_dir=args.run_dir) if args.run_dir else None
     scheduler = build(args, metrics)
     t0 = time.perf_counter()
@@ -711,18 +745,20 @@ def run(argv=None) -> Tuple[Dict[int, Completion], float]:
     return drain(argv)[:2]
 
 
-def one_shot(argv=None) -> Tuple[List[List[int]], float, InferenceEngine]:
-    """The ``--prompt`` mode (``serve.py:680-692``): every prompt generated
-    together by ``InferenceEngine.generate``, on either engine.  Returns the
-    generated ids per prompt, the wall seconds of the call (ending in a
-    device synchronize) and the engine."""
+def one_shot(argv=None, tokenizer=None) -> Tuple[List[List[int]], float, InferenceEngine]:
+    """The ``--prompt`` mode (``serve.py:680-692``): every prompt (encoded as
+    in :func:`drain`) generated together by ``InferenceEngine.generate``, on
+    either engine.  Returns the generated ids per prompt, the wall seconds of
+    the call (ending in a device synchronize) and the engine."""
     args = parse_args(argv)
     if not args.prompt:
         raise SystemExit("the one-shot mode needs --prompt")
     if args.input_file:
         raise SystemExit("--prompt and --input-file are mutually exclusive")
+    if tokenizer is None:
+        tokenizer = load_tokenizer(args)
     engine, _ = build_engine(args)
-    prompts = [_encode(text) for text in args.prompt]
+    prompts = [_encode(text, tokenizer) for text in args.prompt]
     t0 = time.perf_counter()
     outs = engine.generate(
         prompts,
@@ -742,16 +778,17 @@ def main(argv=None) -> int:
     if args.port is not None:
         check_server_flags(args)
         return serve(args)
+    tokenizer = load_tokenizer(args)
     if args.prompt and not args.input_file:
-        outs, seconds, _ = one_shot(argv)
+        outs, seconds, _ = one_shot(argv, tokenizer)
         for tokens in outs:
-            print(" ".join(str(t) for t in tokens))
+            print(_decode_tokens(tokens, tokenizer))
         n_tokens = sum(len(t) for t in outs)
         logger.info(f"{n_tokens} tokens in {seconds:.3f}s ({n_tokens / seconds:.1f} tokens/s)")
         return 0
-    completions, seconds, scheduler = drain(argv)
+    completions, seconds, scheduler = drain(argv, tokenizer)
     for uid in sorted(completions):
-        print(" ".join(str(t) for t in completions[uid].tokens))
+        print(_decode_tokens(completions[uid].tokens, tokenizer))
     n_tokens = sum(len(c.tokens) for c in completions.values())
     logger.info(f"{n_tokens} tokens in {seconds:.3f}s ({n_tokens / seconds:.1f} tokens/s)")
     if isinstance(scheduler, PagedContinuousBatchingScheduler) and scheduler._spec != "off":

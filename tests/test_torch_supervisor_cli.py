@@ -22,6 +22,7 @@ Waits are on state (port files, ``/healthz``, counters) with deadlines.
 import json
 import os
 import signal
+import socket
 import subprocess
 import sys
 import threading
@@ -68,22 +69,44 @@ def health(port):
     return status, json.loads(body)
 
 
-def stream(port, payload, out, i):
-    """One client: (status, X-Relora-Replica, events) or the exception."""
+def stream(port, payload, out, i, head):
+    """One client: (status, X-Relora-Replica, events) or the exception;
+    ``head`` is set once the response's status line and headers arrived
+    (the router has placed the stream on a replica)."""
     try:
-        status, headers, body = _http(port, "POST", "/v1/generate", payload, timeout=WAIT)
-        out[i] = (status, headers.get("x-relora-replica"), _sse_events(body))
+        body = json.dumps(payload).encode()
+        req = (f"POST /v1/generate HTTP/1.1\r\nHost: t\r\nContent-Length: {len(body)}\r\n\r\n"
+               .encode() + body)
+        with socket.create_connection(("127.0.0.1", port), timeout=WAIT) as sock:
+            sock.sendall(req)
+            data = b""
+            while True:
+                chunk = sock.recv(65536)
+                if not chunk:
+                    break
+                data += chunk
+                if b"\r\n\r\n" in data:
+                    head.set()
+        lines = data.partition(b"\r\n\r\n")[0].split(b"\r\n")
+        headers = dict(line.decode("latin-1").lower().split(":", 1) for line in lines[1:])
+        out[i] = (int(lines[0].split(b" ", 2)[1]), headers.get("x-relora-replica", "").strip() or None,
+                  _sse_events(data.partition(b"\r\n\r\n")[2]))
     except Exception as e:  # recorded, never raised: the drill counts them
         out[i] = ("raised", None, repr(e))
+    finally:
+        head.set()
 
 
 def run_clients(port, payloads):
+    """Start one client thread a payload; returns (threads, outcomes, the
+    events set as each client's response head arrives)."""
     out = [None] * len(payloads)
-    threads = [threading.Thread(target=stream, args=(port, p, out, i), daemon=True)
+    heads = [threading.Event() for _ in payloads]
+    threads = [threading.Thread(target=stream, args=(port, p, out, i, heads[i]), daemon=True)
                for i, p in enumerate(payloads)]
     for t in threads:
         t.start()
-    return threads, out
+    return threads, out, heads
 
 
 def join(threads):
@@ -153,10 +176,12 @@ def test_supervised_fleet_routes_rolls_survives_a_crash_and_drains(tmp_path):
 
         # kill -9 of the decode replica under load
         old_pid = int((work / "replica_1.pid").read_text())
-        threads, out = run_clients(port, [{"prompt": p, "max_new_tokens": 48}
-                                          for p in [prompts[1], prompts[3], prompts[5]] * 3])
-        wait_for(lambda: health(replica_ports[1])[1]["active_slots"] > 0
-                 or not any(t.is_alive() for t in threads), "streams on r1")
+        threads, out, heads = run_clients(port, [{"prompt": p, "max_new_tokens": 48}
+                                                 for p in [prompts[1], prompts[3], prompts[5]] * 3])
+        # every stream admitted (its head through the router) before the
+        # kill: a request reaching the router after it would find no decode
+        # replica and rightly get 503 + Retry-After
+        wait_for(lambda: all(h.is_set() for h in heads), "nine streams admitted")
         os.kill(old_pid, signal.SIGKILL)
         t_kill = time.monotonic()
         assert not any(join(threads)), "a client hung"
@@ -173,7 +198,7 @@ def test_supervised_fleet_routes_rolls_survives_a_crash_and_drains(tmp_path):
         assert any(e["_event"] == "supervisor_respawn" for e in series["events"])
 
         # SIGTERM with requests in flight: a rolling drain loses none
-        threads, out = run_clients(port, [{"prompt": p, "max_new_tokens": 32} for p in prompts])
+        threads, out, _ = run_clients(port, [{"prompt": p, "max_new_tokens": 32} for p in prompts])
         wait_for(lambda: sum(r["inflight"] for r in health(port)[1]["replicas"].values()) > 0
                  or not any(t.is_alive() for t in threads), "requests in flight")
         sup.send_signal(signal.SIGTERM)
