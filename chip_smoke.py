@@ -402,9 +402,13 @@ Phases, in order; any failure raises and the script exits non-zero:
                attends through it and every id is in the vocabulary.
    pythia_serving — the same cut pythia_1b (bf16) through every serving
                path; its checkpoints (a seeded base with LoRA r=128 on all
-               four projections, biases nonzero, B = 0; tenants tA, tB, tC;
-               a bf16 draft, the base plus DRAFT_NOISE) are written while
-               the fleet's replicas start.  Tenants: ``serve_cli
+               four projections, biases nonzero, B = 0; tenants tA, tB, tC)
+               are written while the fleet's replicas start, and its draft
+               (``python -m relora_tpu_torch.compress.draft BASE OUT
+               --sparsity 0.2``: the base merged and pruned by one global
+               magnitude threshold, ``pythia_draft``) while the supervised
+               replicas finish starting; each engine's restore reads and
+               verifies a checkpoint once.  Tenants: ``serve_cli
                --checkpoint BASE --no-merge --adapter-dir D --packed`` builds
                the engine and registry (4 slots), and 8 prompts at 32 new
                tokens drain round-robin over [base, tA, tB, tC], sequential
@@ -464,6 +468,20 @@ Phases, in order; any failure raises and the script exits non-zero:
                slot), each printed with ``@pythia_1b``.
 22. auto_train@pythia_1b — the pythia train phase with ``--lora_fused auto
                --lora_dropout 0``, checked as auto_train.
+23. prune    — prune-retrain at the pythia train phase's cut pythia_1b:
+               pythia_train's run with ``--prune_sparsity 0.5 --prune_scope
+               global --reset_init magnitude`` (the mask computed at the
+               merge at 4 from the merged base, the merge at 7 masked) and
+               int8_train@pythia_1b's with ``--prune_nm 2:4`` (kernel 8),
+               each with the train phase's checks, every pruned position of
+               every masked base read as exactly 0 on the card after the
+               prune event and after the later merge, 2 of every 4 int8
+               codes along ``in`` kept, the ``prune_mask_computed`` crc equal
+               to the last checkpoint's sidecar (the dense one verified); then
+               ``compress.draft`` and ``tools.export_hf --pruned`` of the
+               dense run: its ``pytorch_model.bin`` grafted into a fresh
+               model (``graft_base_weights``) and the draft both equal the
+               checkpoint's merged weights with its mask applied.
 
 ``python3 chip_smoke.py --ab DIR [--train [FLAGS...] | --grouped | --lora |
 --tenants | --paged | --drains | --server | --sass]`` times another checkout's package instead
@@ -479,10 +497,12 @@ line, the profile line, an int8 timing line per model, the int8 train lines,
 a grouped timing line, one line per adapter drain and the tenant server
 drain, the contiguous, contiguous_tenants, generate, contiguous server and
 f32_contiguous lines, the auto-arms lines, the auto_train and resume lines,
-one line per unmerged drain, one line per pythia drain, the pythia_serving
+one line per unmerged drain, one line per pythia drain, the pythia_draft
+line, the pythia_serving
 lines (tenant drains and probe, contiguous, contiguous tenants, three spec
 drains, the server), the five pythia
-train lines (every train line carries its telemetry), the wall seconds of
+train lines (every train line carries its telemetry), the prune group's
+two train lines, two prune lines and its export line, the wall seconds of
 each group of phases (``{"phase_seconds": ...}``), a
 ``{"kernels": [...]}`` line, the card's ``nvidia-smi
 --query-gpu=name,power.limit`` line, and last ``{"ok": true, "device":
@@ -1456,17 +1476,17 @@ def write_spec_checkpoints(torch, work, device):
     return base, draft
 
 
-def noisy_draft(torch, state, device, dtype=None):
+def noisy_draft(torch, state, device):
     """``state`` with seeded Gaussian noise (seed 31) of DRAFT_NOISE times
     each weight matrix's std added to every tensor of two or more dimensions
-    (norms and biases kept), cast to ``dtype`` (default: each tensor's own)."""
+    (norms and biases kept)."""
     gen = torch.Generator(device=device).manual_seed(31)
     noisy = {}
     for name, t in state.items():
         if t.ndim >= 2:
             noise = torch.randn(t.shape, generator=gen, device=device)
             t = (t.float() + DRAFT_NOISE * t.float().std() * noise).to(t.dtype)
-        noisy[name] = t if dtype is None else t.to(dtype)
+        noisy[name] = t
     return noisy
 
 
@@ -3354,19 +3374,17 @@ def grouped_shape_row(torch, device, tag, M, shapes, slots_used):
     return grouped_row(f"grouped_lora_matmul@{tag}", worst, layer)
 
 
-def write_adapter_checkpoints(torch, work, device, model_config="llama_250m", draft=False):
+def write_adapter_checkpoints(torch, work, device, model_config="llama_250m"):
     """A seeded ``model_config`` base with LoRA r=128 on every projection
     (f32, B = 0, as a ReLoRA checkpoint right after a merge; a NeoX base's
     biases drawn nonzero) and three seeded tenant adapters (their factors
     only, alpha per TENANT_ALPHAS), each written by
-    ``train/checkpoint.save_checkpoint``; with ``draft``, also the base's
-    merged weights plus :func:`noisy_draft`'s noise at bf16 (a ``--spec
-    model`` draft of the base served merged).  Returns (base dir, adapter
-    dir) and, with ``draft``, the draft dir third."""
+    ``train/checkpoint.save_checkpoint``.  Returns (base dir, adapter
+    dir)."""
     import shutil
 
     from relora_tpu_torch.config.model import load_model_config
-    from relora_tpu_torch.core.relora import LoraSpec, is_lora_name, kaiming_uniform
+    from relora_tpu_torch.core.relora import LoraSpec, kaiming_uniform
     from relora_tpu_torch.models.family import causal_lm_class
     from relora_tpu_torch.serve.adapters import extract_lora_factors
     from relora_tpu_torch.train.checkpoint import save_checkpoint
@@ -3392,14 +3410,8 @@ def write_adapter_checkpoints(torch, work, device, model_config="llama_250m", dr
         path = save_checkpoint(tenants, i, factors, {"update_step": 0},
                                lora_spec=LoraSpec(r=ADAPTER_R, alpha=alpha))
         os.rename(path, os.path.join(tenants, name))
-    if not draft:
-        del model
-        return base, tenants
-    merged = {k: v for k, v in model.state_dict().items() if not is_lora_name(k)}  # B = 0
-    path = save_checkpoint(os.path.join(root, "draft"), 0,
-                           noisy_draft(torch, merged, device, torch.bfloat16), {"update_step": 0})
-    del model, merged
-    return base, tenants, path
+    del model
+    return base, tenants
 
 
 def head_prompts(path, n, name):
@@ -4623,9 +4635,9 @@ def fleet_launch(torch, work, device):
     prefill``, ``serve_migrate`` armed once) naming it in
     ``peers_tenant.json``; last, the pythia_serving group's checkpoints
     (``write_adapter_checkpoints`` at pythia_1b's widths and
-    PYTHIA_TRAIN_LAYERS layers, with a draft).  Returns (fleet, save dir,
-    {step: path}, (base dir, adapter dir), (pythia base, adapter dir,
-    draft))."""
+    PYTHIA_TRAIN_LAYERS layers; its draft is :func:`pythia_draft`'s).
+    Returns (fleet, save dir, {step: path}, (base dir, adapter dir),
+    (pythia base, adapter dir))."""
     root = os.path.join(work, "fleet")
     os.makedirs(root, exist_ok=True)
     for name in ("peers.json", "peers_tenant.json"):
@@ -4658,8 +4670,7 @@ def fleet_launch(torch, work, device):
             migrate_once)
         pythia_args = pythia_train_args(work)
         pythia = write_adapter_checkpoints(torch, work, device,
-                                           pythia_args[pythia_args.index("--model_config") + 1],
-                                           draft=True)
+                                           pythia_args[pythia_args.index("--model_config") + 1])
         if device.type == "cuda":
             torch.cuda.empty_cache()
     except BaseException:
@@ -6314,7 +6325,8 @@ def pythia_spec(torch, repeat_path, ckpts, model_config):
     first SPEC_HEAD_PROMPTS repeat prompts at PYTHIA_SPEC_NEW new tokens:
     ``--spec ngram`` sequential and ``--packed`` (``--random-init``), and
     ``--spec model`` over part 1's base served merged with its NeoX draft
-    (the base plus :func:`noisy_draft`'s noise).  Each is checked by
+    (:func:`pythia_draft`'s: the base pruned by magnitude at
+    DRAFT_SPARSITY).  Each is checked by
     :func:`spec_line`, and fails unless kernel 1 (``verify_paged``) or
     kernel 2 (``step_paged``, packed) launched once a layer in every call;
     the model drafter's acceptance must lie strictly between 0 and 1.
@@ -6435,10 +6447,46 @@ def pythia_server(torch, repeat_path, ckpts, model_config):
                       + inproc_verifies.launches["paged_decode_attention"])
 
 
+class RestoreOnce:
+    """While entered, ``train/checkpoint.py``'s ``verify_checkpoint`` and
+    ``restore_params_host`` (and ``serve_cli``'s names for them) answer each
+    directory with the first call's result, the params as a new dict of the
+    same CPU tensors (every caller copies them to the card): pythia_serving's
+    five engines over one 1.7 GB f32 base, and the prune group's tools and
+    checks over one checkpoint, each go through the serving path's restore,
+    and each directory is read and verified from disk once."""
+
+    NAMES = ("verify_checkpoint", "restore_params_host")
+
+    def __enter__(self):
+        from relora_tpu_torch import serve_cli
+        from relora_tpu_torch.train import checkpoint as ckpt
+
+        self.saved = []
+        for name in self.NAMES:
+            real, memo = getattr(ckpt, name), {}
+
+            def once(path, _real=real, _memo=memo):
+                if path not in _memo:
+                    _memo[path] = _real(path)
+                value = _memo[path]
+                return dict(value) if isinstance(value, dict) else value
+
+            for module in (ckpt, serve_cli):
+                self.saved.append((module, name, getattr(module, name)))
+                setattr(module, name, once)
+        return self
+
+    def __exit__(self, *exc):
+        for module, name, fn in reversed(self.saved):
+            setattr(module, name, fn)
+
+
 def pythia_serving(torch, device, prompts_path, repeat_path, ckpts, model_config, paged):
     """Group pythia_serving: pythia_1b at full width, PYTHIA_TRAIN_LAYERS
     layers, bf16, through every serving path (:func:`pythia_tenants`,
-    :func:`pythia_contiguous`, :func:`pythia_spec`, :func:`pythia_server`).
+    :func:`pythia_contiguous`, :func:`pythia_spec`, :func:`pythia_server`),
+    each checkpoint read and verified once (:class:`RestoreOnce`).
     ``prompts_path`` holds the pythia drains' prompts.  Returns {kernels-line
     row name: launches}."""
     rows = dict.fromkeys((f"paged_decode_attention@{PYTHIA}", f"packed_paged_attention@{PYTHIA}",
@@ -6451,17 +6499,233 @@ def pythia_serving(torch, device, prompts_path, repeat_path, ckpts, model_config
         for kernel, n in launches.items():
             rows[kernel + suffix] += n
 
-    add(pythia_tenants(torch, prompts_path, ckpts, model_config))
-    decode, prefill = pythia_contiguous(torch, device, prompts_path, ckpts, model_config, paged)
-    add({"grouped_lora_matmul": decode})
-    add({"grouped_lora_matmul": prefill}, f"@prefill_{PYTHIA}")
-    launches, window = pythia_spec(torch, repeat_path, ckpts, model_config)
-    add(launches)
-    add(window, f"_verify@{PYTHIA}")
-    launches, verify = pythia_server(torch, repeat_path, ckpts, model_config)
-    add(launches)
-    add({"paged_decode_attention": verify}, f"_verify@{PYTHIA}")
+    with RestoreOnce():
+        add(pythia_tenants(torch, prompts_path, ckpts, model_config))
+        decode, prefill = pythia_contiguous(torch, device, prompts_path, ckpts, model_config, paged)
+        add({"grouped_lora_matmul": decode})
+        add({"grouped_lora_matmul": prefill}, f"@prefill_{PYTHIA}")
+        launches, window = pythia_spec(torch, repeat_path, ckpts, model_config)
+        add(launches)
+        add(window, f"_verify@{PYTHIA}")
+        launches, verify = pythia_server(torch, repeat_path, ckpts, model_config)
+        add(launches)
+        add({"paged_decode_attention": verify}, f"_verify@{PYTHIA}")
     return rows
+
+
+# -- prune-retrain at pythia_1b ----------------------------------------------------
+
+DRAFT_SPARSITY = 0.2  # pythia_spec's draft: its base pruned by magnitude, globally
+PRUNE_SPARSITY = "0.5"  # the dense prune run's --prune_sparsity (global)
+PRUNE_NM = "2:4"  # the int8 prune run's --prune_nm
+
+
+def pythia_draft(torch, work, base):
+    """pythia_spec's ``--spec model`` draft: ``python -m
+    relora_tpu_torch.compress.draft BASE OUT --sparsity DRAFT_SPARSITY`` over
+    pythia_serving's base (merged on the card, pruned by one global
+    magnitude threshold over its LoRA projections).  Fails unless the
+    manifest lists the sidecar and its ``pruned`` block records the
+    sidecar's mask at that sparsity (pythia_spec's restore verifies the
+    files).  Returns the draft directory."""
+    from relora_tpu_torch.compress import draft as compress_draft
+    from relora_tpu_torch.compress import prune
+    from relora_tpu_torch.train import checkpoint as ckpt
+
+    out = os.path.join(work, "pythia_draft")
+    shutil.rmtree(out, ignore_errors=True)
+    t0 = time.perf_counter()
+    path = compress_draft.main([base, out, "--sparsity", str(DRAFT_SPARSITY)])
+    seconds = time.perf_counter() - t0
+    with open(os.path.join(path, ckpt.MANIFEST_FILE)) as f:
+        manifest = json.load(f)
+    with open(os.path.join(path, prune.PRUNE_META_FILE)) as f:
+        meta = json.load(f)
+    pruned = manifest["metadata"]["pruned"]
+    print(json.dumps({"pythia_draft": path, "seconds": seconds, **pruned}))
+    # pythia_spec's restore verifies the files against the manifest
+    if prune.PRUNE_MASK_FILE not in manifest["files"] or pruned["mask_crc32"] != meta[
+            "mask_crc32"] or abs(pruned["sparsity"] - DRAFT_SPARSITY) > 1e-3:
+        raise AssertionError(f"pythia_draft: manifest {manifest['files'].keys()}, pruned "
+                             f"{pruned}, sidecar crc {meta['mask_crc32']}")
+    return path
+
+
+class PruneWatch:
+    """Wraps the trainer's ``merge_and_reinit`` and
+    ``Trainer._maybe_compute_prune_mask`` for one prune run: right after the
+    prune event, and after every merge that carries the mask, it reads every
+    masked base on the card and counts the pruned positions that are not
+    exactly 0 (``nonzero``: one entry a check, ``at``: the update); it
+    times the event (the mask's computation and application, the device
+    synchronized on both sides) and keeps the trainer's mask."""
+
+    def __init__(self, torch):
+        from relora_tpu_torch.train import trainer
+
+        self.torch, self.trainer = torch, trainer
+        self.real_merge = trainer.merge_and_reinit
+        self.real_compute = trainer.Trainer._maybe_compute_prune_mask
+        self.nonzero, self.at, self.seconds, self.mask = [], [], [], None
+
+    def __enter__(self):
+        watch = self
+
+        def compute(trainer_self):
+            before = trainer_self._prune_mask
+            watch.torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            watch.real_compute(trainer_self)
+            watch.torch.cuda.synchronize()
+            if before is None and trainer_self._prune_mask is not None:
+                watch.seconds.append(time.perf_counter() - t0)
+                watch.mask = trainer_self._prune_mask
+                watch._check(trainer_self.model, watch.mask, trainer_self.update_step)
+
+        self.trainer.merge_and_reinit = self._merge
+        self.trainer.Trainer._maybe_compute_prune_mask = compute
+        return self
+
+    def __exit__(self, *exc):
+        self.trainer.merge_and_reinit = self.real_merge
+        self.trainer.Trainer._maybe_compute_prune_mask = self.real_compute
+
+    def _merge(self, model, generator, spec, **kwargs):
+        out = self.real_merge(model, generator, spec, **kwargs)
+        if kwargs.get("mask"):
+            self._check(model, kwargs["mask"], None)
+        return out
+
+    def _check(self, model, mask, step):
+        nonzero = 0
+        for name, keep in mask.items():
+            module = model.get_submodule(name)
+            base = module.weight_q if getattr(module, "weight_q", None) is not None else module.weight
+            nonzero += int((base.t()[~keep] != 0).sum())
+        self.nonzero.append(nonzero)
+        self.at.append(step)
+
+
+def prune_group(torch, device, corpus, pythia_args, pythia_warm, work, beside):
+    """Group prune, at pythia_1b's full width and PYTHIA_TRAIN_LAYERS layers:
+
+    (a) ``relora_tpu_torch.main`` with pythia_train's arguments plus
+        ``--prune_sparsity 0.5 --prune_scope global --reset_init magnitude``
+        (merges at 4 and 7: the mask computed at 4 from the merged base, the
+        merge at 7 masked), bf16 over an f32 dense base, every attention on
+        kernel 3's wide kernels (the train phase's checks);
+    (b) int8_train@pythia_1b's run plus ``--prune_nm 2:4``: kernel 8 in
+        every projection, every group of 4 codes along ``in`` holding
+        exactly 2 kept, pruned share exactly 0.5;
+    (c) ``python -m relora_tpu_torch.compress.draft`` and
+        ``relora_tpu_torch.tools.export_hf --pruned`` over (a)'s last
+        checkpoint; the ``pytorch_model.bin`` grafted into a fresh model by
+        ``models/warm_start.graft_base_weights`` equals the checkpoint's
+        merged weights with the mask applied, zeros included, and so does
+        the draft.
+
+    Fails unless every pruned position of every masked base is exactly 0
+    right after the prune event and after the later merge, and the
+    ``prune_mask_computed`` event's crc equals the last checkpoint's sidecar
+    (whose files (a)'s ``verify_checkpoint`` checks).  Prints one line a run (ms per update
+    beside the plain run at the same depth in ``beside``, the event's
+    seconds, sparsity and crc) and one for (c).  Returns the two runs'
+    launches."""
+    from relora_tpu_torch.compress import draft as compress_draft
+    from relora_tpu_torch.compress import prune
+    from relora_tpu_torch.config.model import load_model_config
+    from relora_tpu_torch.models.family import causal_lm_class
+    from relora_tpu_torch.models.warm_start import graft_base_weights
+    from relora_tpu_torch.tools import export_hf
+    from relora_tpu_torch.train import checkpoint as ckpt
+
+    model_config = pythia_args[pythia_args.index("--model_config") + 1]
+    runs = (
+        ("dense", f"prune_train@{PYTHIA}", "pythia_train",
+         ["--prune_sparsity", PRUNE_SPARSITY, "--prune_scope", "global", "--reset_init", "magnitude",
+          "--log_every", "4"]),
+        ("int8", f"prune_int8_train@{PYTHIA}", f"int8_train@{PYTHIA}",
+         ["--quantize", "int8", "--warmed_up_model", pythia_warm, "--prune_nm", PRUNE_NM]),
+    )
+    launches, dirs = [], {}
+    for kind, label, plain, extra in runs:
+        save_dir = dirs[kind] = os.path.join(work, f"prune_{kind}_{PYTHIA}")
+        shutil.rmtree(save_dir, ignore_errors=True)
+        with PruneWatch(torch) as watch:
+            counts, line = train(torch, corpus, label, extra + ["--save_dir", save_dir],
+                                 base_args=pythia_args)
+        launches.append(counts)
+        last = os.path.join(save_dir, f"model_{TRAIN_UPDATES}")
+        ok, reason = ckpt.verify_checkpoint(last) if kind == "dense" else (True, "not read")
+        with open(os.path.join(last, prune.PRUNE_META_FILE)) as f:
+            meta = json.load(f)
+        with open(os.path.join(save_dir, "metrics.jsonl")) as f:
+            events = [r for r in map(json.loads, f) if r.get("_event") == "prune_mask_computed"]
+        mask = watch.mask
+        stats = prune.sparsity_stats(mask) if mask is not None else {}
+        out = {"prune": kind, "model": PYTHIA, "ms_per_update": line["ms_per_update"],
+               f"{plain}_ms_per_update": beside[plain]["ms_per_update"],
+               "mask_seconds": watch.seconds, "sparsity": stats.get("sparsity"),
+               "masked_modules": len(mask or ()), "masked_weights": stats.get("total"),
+               "mask_crc32": [e["mask_crc32"] for e in events], "sidecar_crc32": meta["mask_crc32"],
+               "checks_at": watch.at, "nonzero_pruned": watch.nonzero, "verify": reason}
+        if kind == "int8":
+            groups = [keep.reshape(keep.shape[0] // 4, 4, keep.shape[1]).sum(1) for keep in mask.values()]
+            out["groups_of_4_with_2_kept"] = all(bool((g == 2).all()) for g in groups)
+        print(json.dumps(out))
+        layers = load_model_config(model_config).num_hidden_layers
+        if not (ok and len(events) == 1 and events[0]["_step"] == 4 and mask is not None
+                and len(mask) == 4 * layers and events[0]["mask_crc32"] == meta["mask_crc32"]
+                == prune.mask_checksum(mask)):
+            raise AssertionError(f"prune {kind}: {out}")
+        if watch.at != [4, None] or any(watch.nonzero):
+            raise AssertionError(f"prune {kind}: pruned positions not exactly 0 after the prune "
+                                 f"event and the merge at 7: {out}")
+        if kind == "int8" and not (out["groups_of_4_with_2_kept"] and stats["sparsity"] == 0.5):
+            raise AssertionError(f"prune int8: not 2 of every 4 kept: {out}")
+        del watch, mask
+        torch.cuda.empty_cache()
+
+    # (c) the draft and the HF export of the dense run's last checkpoint,
+    # read and verified from disk once for the tools and the checks
+    last = os.path.join(dirs["dense"], f"model_{TRAIN_UPDATES}")
+    with RestoreOnce():
+        mask, meta = prune.load_mask(last, device=device)
+        t0 = time.perf_counter()
+        drafted = compress_draft.main([last, os.path.join(work, "prune_draft")])
+        draft_s = time.perf_counter() - t0
+        hf_dir = os.path.join(work, "prune_hf")
+        t0 = time.perf_counter()
+        export_hf.main(["--checkpoint", last, "--model_config", model_config, "--out", hf_dir,
+                        "--pruned"])
+        export_s = time.perf_counter() - t0
+        want = prune.apply_mask(ckpt.restore_serving_params(last, device=device), mask)
+        draft_params = ckpt.restore_serving_params(drafted, device=device)
+    cfg = load_model_config(model_config)
+    with torch.device(device):
+        fresh = causal_lm_class(cfg)(cfg)
+    graft_base_weights(fresh, torch.load(os.path.join(hf_dir, "pytorch_model.bin"), weights_only=True))
+    differ = [n for n, p in fresh.named_parameters() if not torch.equal(p, want[n])]
+    zeros = sum(int((fresh.get_submodule(n).weight.t()[~keep] != 0).sum()) for n, keep in mask.items())
+    draft_differ = [n for n, t in want.items() if not torch.equal(draft_params[n], t)]
+    with open(os.path.join(hf_dir, "config.json")) as f:
+        hf_pruning = json.load(f).get("relora_tpu_pruning")
+    with open(os.path.join(drafted, ckpt.MANIFEST_FILE)) as f:
+        draft_pruned = json.load(f)["metadata"]["pruned"]
+    print(json.dumps({"prune_export": PYTHIA, "draft_seconds": draft_s, "export_seconds": export_s,
+                      "grafted_params": sum(1 for _ in fresh.parameters()), "grafted_differ": differ,
+                      "pruned_nonzero": zeros, "draft_differ": draft_differ,
+                      "hf_pruning": hf_pruning, "draft_pruned": draft_pruned}))
+    crc = meta["mask_crc32"]
+    if differ or zeros or draft_differ or hf_pruning["mask_crc32"] != crc or (
+            draft_pruned["mask_crc32"] != crc) or sorted(draft_params) != sorted(want):
+        raise AssertionError("prune export: the grafted export or the draft is not the merged, "
+                             "masked checkpoint")
+    del fresh, want, draft_params, mask
+    for path in list(dirs.values()) + [os.path.join(work, "prune_draft"), hf_dir]:
+        shutil.rmtree(path, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return launches
 
 
 # -- the fleet tools over fleet_front's files ----------------------------------------
@@ -6606,11 +6870,16 @@ def main() -> int:
     try:
         server_subprocess(started[0], prompts, inproc)
         server_f32(torch, work, prompts)
+        lap("server")
+        # pythia_serving's pruned draft, exported while the fleet's and the
+        # supervisor's replicas finish starting
+        pythia_ckpts = (*pythia_ckpts, pythia_draft(torch, work, pythia_ckpts[0]))
+        torch.cuda.empty_cache()
+        lap("pythia_draft")
     except BaseException:
         fleet_stop(fleet, check=False)
         front.stop(check=False)
         raise
-    lap("server")
     try:
         fleet_ready(fleet)
     except BaseException:
@@ -6799,6 +7068,16 @@ def main() -> int:
     take_launches(lora_rows, train(torch, corpus, f"auto_train@{PYTHIA}", RESUME_ARGS,
                                    base_args=pythia_args)[0], PYTHIA)
     lap("pythia train phases")
+
+    # prune-retrain: a dense run with the magnitude re-init, an int8 run at
+    # 2:4, the draft and the HF export of the dense run
+    torch.cuda.empty_cache()
+    dense, int8_pruned = prune_group(torch, device, corpus, pythia_args, pythia_warm, work, {
+        "pythia_train": pythia_line, f"int8_train@{PYTHIA}": int8_pythia_line})
+    take_launches(flash_rows, dense, PYTHIA)
+    take_launches(flash_rows + int8_rows, int8_pruned, PYTHIA)
+    torch.cuda.empty_cache()
+    lap("prune")
 
     # the memory levers: an nf4 base trained, served merged and unmerged,
     # its odd-width int8 fallback; the chunked loss; the remat policies

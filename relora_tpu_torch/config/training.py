@@ -299,6 +299,10 @@ class TrainingConfig:
             raise ValueError(
                 f"prune_scope must be 'global' or 'per_matrix', got {self.prune_scope!r}"
             )
+        if self.prune_nm is not None:
+            from relora_tpu_torch.compress.prune import parse_nm
+
+            parse_nm(self.prune_nm)  # raises on malformed "N:M"
         if self.reset_init not in ("random", "magnitude"):
             raise ValueError(
                 f"reset_init must be 'random' or 'magnitude', got {self.reset_init!r}"

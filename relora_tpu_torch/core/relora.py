@@ -17,7 +17,9 @@ JAX package's ``trainable_param_mask``.
 TF32 off (the JAX package merges at ``Precision.HIGHEST``: merge error would
 otherwise compound over every cycle), a quantized base by dequantize, add,
 requantize, module by module by its leaves; then re-draws A from the
-kaiming-uniform bound and zeroes B (and ``lora_s``), in place.
+kaiming-uniform bound and zeroes B (and ``lora_s``), in place; with a prune
+mask the pruned positions are zeroed before the cast or the requant, and
+``a_init`` may draw A from the merged base (``compress/``).
 """
 
 from __future__ import annotations
@@ -192,8 +194,9 @@ def merge_and_reinit(
     spec: LoraSpec,
     *,
     a_init=None,
+    mask: Optional[Dict[str, torch.Tensor]] = None,
 ) -> nn.Module:
-    """ReLoRA reset in place (``relora_tpu/core/relora.py:232-324``): for every
+    """ReLoRA reset in place (``relora_tpu/core/relora.py:232-333``): for every
     LoRA-wrapped linear, ``W += (A @ B * scale)ᵀ`` computed in f32 and cast
     back to W's storage dtype (f32 master or ``base_dtype="bf16"``), or, for
     an int8 base, dequantized, added to and requantized in f32 (``:287-294``),
@@ -201,20 +204,27 @@ def merge_and_reinit(
     (``:295-310``; the ``bscale_q`` dtype decides it); then A re-drawn
     kaiming-uniform from ``generator``, B zeroed, and ``lora_s`` zeroed under
     trainable scaling.  ``lora_only`` modules (no base) are skipped, as in
-    the reference."""
-    if a_init is not None:
-        raise NotImplementedError(
-            "merge_and_reinit(a_init=...) (reset_init='magnitude') is not ported yet: see ROADMAP"
-        )
-    for _, module in lora_modules(model):
+    the reference.
+
+    ``mask`` (``compress/prune.py``: module name -> ``(in, out)`` keep) zeroes
+    the pruned positions of the merged f32 values before the cast or the
+    requant, so they land exactly 0 in every storage with one quantization.
+    ``a_init(shape, generator, device, merged)`` (``compress/resets.py``)
+    draws A in place of the kaiming draw, given that merged, masked f32 base
+    in the ``(in, out)`` layout."""
+    for name, module in lora_modules(model):
+        keep = mask.get(name) if mask else None
         if getattr(module, "weight_codes", None) is not None:
             leaves = nf4_leaves_from_module(module)
             merged = dequantize_nf4(leaves) + lora_delta(module, spec).t()  # (in, out)
+            merged = _masked(merged, keep)
             requant = quantize_nf4(merged, double_quant=leaves["bscale_q"].dtype == torch.int8)
             for param, leaf in NF4_LEAVES.items():
                 getattr(module, param).copy_(requant[leaf])
+            merged = merged.t()
         elif getattr(module, "weight_q", None) is not None:
             merged = dequantize_int8(module.weight_q, module.weight_scale) + lora_delta(module, spec)
+            merged = _masked(merged, None if keep is None else keep.t())
             q, scale = quantize_int8(merged)
             module.weight_q.copy_(q)
             module.weight_scale.copy_(scale)
@@ -222,13 +232,26 @@ def merge_and_reinit(
             continue  # lora_only: nothing to merge into
         else:
             merged = module.weight.float() + lora_delta(module, spec)
+            merged = _masked(merged, None if keep is None else keep.t())
             module.weight.copy_(merged.to(module.weight.dtype))
-        fresh = kaiming_uniform(module.lora_a.shape, generator, module.lora_a.device)
+        shape, device = module.lora_a.shape, module.lora_a.device
+        if a_init is None:
+            fresh = kaiming_uniform(shape, generator, device)
+        else:
+            fresh = a_init(shape, generator, device, merged.t())
         module.lora_a.copy_(fresh.to(module.lora_a.dtype))
         module.lora_b.zero_()
         if spec.trainable_scaling and getattr(module, "lora_s", None) is not None:
             module.lora_s.zero_()
     return model
+
+
+def _masked(merged: torch.Tensor, keep: Optional[torch.Tensor]) -> torch.Tensor:
+    """A module's merged f32 base with its prune mask (in ``merged``'s
+    layout) applied, if it has one (``:326-331``)."""
+    if keep is None:
+        return merged
+    return torch.where(keep, merged, 0.0)
 
 
 @torch.no_grad()

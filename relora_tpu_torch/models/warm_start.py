@@ -58,8 +58,11 @@ WEIGHTS_FILE = "pytorch_model.bin"
 QUANT_HEADS = {"weight_q": INT8_LEAVES, "weight_codes": tuple(NF4_LEAVES)}
 
 
-#: HF's model prefixes: Llama's ``model.``, GPT-NeoX's ``gpt_neox.``
-HF_PREFIXES = ("model.", "gpt_neox.")
+#: HF's model prefix of each family, read both ways: stripped by the warm
+#: start, added by :func:`params_to_hf`; each family's head sits at the root
+HF_PREFIX = {"llama": "model.", "neox": "gpt_neox."}
+HF_HEADS = {"llama": "lm_head.weight", "neox": "embed_out.weight"}
+HF_PREFIXES = tuple(HF_PREFIX.values())
 
 
 def strip_hf_prefix(key: str) -> str:
@@ -68,6 +71,25 @@ def strip_hf_prefix(key: str) -> str:
         if key.startswith(prefix):
             return key[len(prefix):]
     return key
+
+
+def params_to_hf(params: Mapping[str, torch.Tensor], config) -> Dict[str, torch.Tensor]:
+    """The HF state dict of a merged (LoRA-free, dense) port state dict,
+    for either family (``relora_tpu/models/hf_compat.py:130-159``): the
+    reference's keys, each the port's name with the family's HF prefix, the
+    head at the root; weights stay ``(out, in)``, HF's layout too."""
+    from relora_tpu_torch.models.convert import _LAYER_MAPS, _TOP
+
+    family = "llama" if config.family == "llama" else "neox"
+    names = list(_TOP[family].values()) + [
+        f"layers.{i}.{name}" for i in range(config.num_hidden_layers)
+        for name in _LAYER_MAPS[family].values()
+    ]
+    missing = [n for n in names if n not in params]
+    if missing:
+        raise KeyError(f"params_to_hf: the state dict has no {missing[:3]} (merge the LoRA "
+                       "factors and dequantize first: core.relora.merged_params)")
+    return {(n if n == HF_HEADS[family] else HF_PREFIX[family] + n): params[n] for n in names}
 
 
 def _quantized_leaves(module: str, head: str, value: torch.Tensor, params) -> Dict[str, torch.Tensor]:

@@ -56,7 +56,8 @@ requests name no adapter, so they decode the base through the grouped kernel
 Speculative decoding drafts ``--spec-k`` tokens a row and verifies them in one
 ``(batch, K+1)`` forward: ``--spec ngram`` looks them up in the request's own
 context, ``--spec model`` runs a draft model, a checkpoint directory of the
-port with the base's config:
+port with the base's config (a pruned, merged one from ``python -m
+relora_tpu_torch.compress.draft CKPT OUT``):
 
     python -m relora_tpu_torch.serve_cli --model_config llama_250m \
         --checkpoint BASE --paged --dtype bf16 --max-batch 8 \
@@ -209,7 +210,9 @@ def parse_args(argv=None) -> argparse.Namespace:
     )
     p.add_argument(
         "--draft-checkpoint", default=None,
-        help="--spec model: a checkpoint dir of the port with the base's config",
+        help="--spec model: a checkpoint dir of the port with the base's config, such as "
+        "a pruned+merged draft (model_N) from python -m relora_tpu_torch.compress.draft; "
+        "loads next to the base weights and shares the one KV page pool",
     )
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     p.add_argument(

@@ -12,8 +12,13 @@ its own format beside the same JSON sidecars:
 - ``training_state.json`` — the reference's counters, as given;
 - ``relora_config.json`` — ``dataclasses.asdict`` of the ``LoraSpec``, the
   same keys as the JAX sidecar, so either package's spec loads it;
-- ``manifest.json`` — per tensor ``{shape, dtype}`` and per file ``{size,
-  crc32}`` (``_walk_state_files``, ``:116-134``), written last: it is the
+- ``prune_mask.npz`` and ``prune_meta.json`` — a pruned run's keep-mask
+  sidecar pair (``compress/prune.py``, the reference's format), when the
+  caller passes one;
+- ``manifest.json`` — per tensor ``{shape, dtype}``, per file ``{size,
+  crc32}`` (``_walk_state_files``, ``:116-134``; the sidecar pair
+  included, so :func:`verify_checkpoint` covers the pruned zeros' mask) and
+  the caller's ``metadata`` beside ``format``, written last: it is the
   port's commit marker (the reference's is orbax's renamed ``state/``), so a
   directory without it was cut off mid-write and is invisible to
   :func:`get_last_checkpoint` and :func:`delete_old_checkpoints`.
@@ -42,6 +47,7 @@ from typing import Dict, Mapping, Optional, Tuple
 
 import torch
 
+from relora_tpu_torch.compress.prune import PRUNE_MASK_FILE, PRUNE_META_FILE, save_mask
 from relora_tpu_torch.core.relora import LoraSpec, merged_params
 
 logger = logging.getLogger(__name__)
@@ -81,9 +87,11 @@ def _write_checkpoint(
     training_state: dict,
     lora_spec: Optional[LoraSpec],
     publish: bool = False,
+    prune: Optional[Tuple[Mapping[str, torch.Tensor], Optional[dict]]] = None,
+    metadata: Optional[dict] = None,
 ) -> None:
     os.makedirs(path, exist_ok=True)
-    for name in (MANIFEST_FILE, RELORA_CONFIG_FILE, OPTIMIZER_FILE):
+    for name in (MANIFEST_FILE, RELORA_CONFIG_FILE, OPTIMIZER_FILE, PRUNE_MASK_FILE, PRUNE_META_FILE):
         if os.path.exists(os.path.join(path, name)):
             os.remove(os.path.join(path, name))  # a stale file must not survive
     files = [PARAMS_FILE]
@@ -100,6 +108,9 @@ def _write_checkpoint(
     if lora_spec is not None:
         _write_json(os.path.join(path, RELORA_CONFIG_FILE), dataclasses.asdict(lora_spec))
         files.append(RELORA_CONFIG_FILE)
+    if prune is not None:
+        save_mask(path, *prune)
+        files += [PRUNE_MASK_FILE, PRUNE_META_FILE]
     manifest = {
         "arrays": {k: {"shape": list(v.shape), "dtype": str(v.dtype)} for k, v in params.items()},
         "files": {
@@ -107,7 +118,7 @@ def _write_checkpoint(
                    "crc32": file_crc32(os.path.join(path, name))}
             for name in files
         },
-        "metadata": {"format": "relora_tpu_torch"},
+        "metadata": {"format": "relora_tpu_torch", **(metadata or {})},
     }
     _write_json(os.path.join(path, MANIFEST_FILE), manifest)
     if publish:
@@ -137,10 +148,15 @@ def save_checkpoint(
     retries: int = 3,
     retry_backoff: float = 0.5,
     publish: bool = False,
+    prune_mask: Optional[Mapping[str, torch.Tensor]] = None,
+    prune_meta: Optional[dict] = None,
+    metadata: Optional[dict] = None,
 ) -> str:
     """Write ``save_dir/model_{update_step}/`` and return its path: the
-    params, the optimizer state when given, the JSON sidecars, then the
-    manifest over all of them; ``publish`` then points ``save_dir/latest``
+    params, the optimizer state when given, the JSON sidecars, the prune
+    sidecar pair of ``prune_mask`` (and ``prune_meta``) when given, then the
+    manifest over all of them, ``metadata`` in its ``metadata`` block
+    (a draft's ``pruned``); ``publish`` then points ``save_dir/latest``
     at it (the trainer's saves).  A failed write (``OSError``, ``ValueError``)
     is retried ``retries`` times, ``retry_backoff`` seconds doubled each time
     (``relora_tpu/train/checkpoint.py:205-274``), then raised."""
@@ -149,7 +165,8 @@ def save_checkpoint(
     optimizer_state = _to_cpu(optimizer_state)
     for attempt in range(retries + 1):
         try:
-            _write_checkpoint(path, params, optimizer_state, training_state, lora_spec, publish)
+            _write_checkpoint(path, params, optimizer_state, training_state, lora_spec, publish,
+                              None if prune_mask is None else (prune_mask, prune_meta), metadata)
             return path
         except (OSError, ValueError) as e:
             if attempt >= retries:
@@ -218,15 +235,17 @@ def load_lora_spec(path: str) -> Optional[LoraSpec]:
         return LoraSpec(**json.load(f))
 
 
-def restore_serving_params(path: str) -> Dict[str, torch.Tensor]:
+def restore_serving_params(path: str, device=None) -> Dict[str, torch.Tensor]:
     """Params ready for merged serving (``:336-375``): verified against the
     manifest first (a corrupt directory raises before anything is read),
-    then, when a sidecar is present, the factors merged into the bases in f32
-    with TF32 off and dropped."""
+    moved to ``device`` when given, then, when a sidecar is present, the
+    factors merged into the bases in f32 with TF32 off and dropped."""
     ok, reason = verify_checkpoint(path)
     if not ok:
         raise ValueError(f"refusing to serve corrupt checkpoint {path}: {reason}")
     params = restore_params_host(path)
+    if device is not None:
+        params = {k: v.to(device) for k, v in params.items()}
     spec = load_lora_spec(path)
     return params if spec is None else merged_params(params, spec)
 

@@ -70,10 +70,20 @@ may merge and reset at once.  ``--spike_threshold`` rolls a sustained loss
 spike back to the last checkpoint before it and skips its batches
 (``:1280-1330``).
 
+Prune-retrain (``relora_tpu/train/trainer.py:414-431``, ``:531-575``): with
+``--prune_sparsity`` or ``--prune_nm`` the first merge at or past
+``--prune_start_step`` runs unmasked, then computes the keep-mask from the
+just-merged base (``compress/prune.magnitude_mask``), zeroes the pruned
+positions in place and writes a ``prune_mask_computed`` event (``sparsity``,
+``mask_crc32``); every later merge masks the merged base before its cast or
+requant.  ``--reset_init magnitude`` draws each merge's A through
+``compress/resets.magnitude_a_init``.  Every save writes the mask's sidecar
+pair before the manifest; a resume restores it, and a spike rollback takes
+its target's (or none).
+
 Options the port does not run yet raise ``NotImplementedError`` when set: a
-warm start from a JAX checkpoint's ``state/``, HF datasets, pruning,
-magnitude re-init, ``wandb`` and its ``watch`` histograms, a custom PRNG,
-and parallelism beyond one device.
+warm start from a JAX checkpoint's ``state/``, ``wandb`` and its ``watch``
+histograms, a custom PRNG, and parallelism beyond one device.
 ``--lora_fused true`` runs every LoRA projection through the fused kernels
 wherever dropout is not active, ``--lora_fused auto`` through the cost
 model's pick of the fused, ordered or merged arm.
@@ -99,6 +109,14 @@ import numpy as np
 import torch
 
 from relora_tpu_torch import resolve_device
+from relora_tpu_torch.compress.prune import (
+    apply_mask,
+    load_mask,
+    magnitude_mask,
+    mask_checksum,
+    sparsity_stats,
+)
+from relora_tpu_torch.compress.resets import make_reinit_fn
 from relora_tpu_torch.config.model import ModelConfig, load_model_config
 from relora_tpu_torch.config.training import TrainingConfig
 from relora_tpu_torch.core.optim import build_optimizer, reset_optimizer_state, zeroed_fraction
@@ -169,8 +187,6 @@ def refuse_unported(cfg: TrainingConfig) -> None:
     unported = {
         "warmed_up_model with a state/ checkpoint": cfg.warmed_up_model is not None
         and os.path.isdir(os.path.join(cfg.warmed_up_model, STATE_SUBDIR)),
-        "prune_sparsity / prune_nm (pruning)": cfg.prune_enabled,
-        "reset_init='magnitude'": cfg.reset_init != "random",
         "wandb": cfg.wandb,
         "wandb_watch": cfg.wandb_watch,
         "prng_impl": bool(cfg.prng_impl),
@@ -318,6 +334,17 @@ class Trainer:
             weight_decay=cfg.weight_decay,
         )
         self.state = TrainState(step=self.update_step)
+        # prune-retrain state (relora_tpu/train/trainer.py:414-431): the mask
+        # is computed once at the first merge at or past prune_start_step;
+        # a resume restores it from the checkpoint's sidecar
+        self._reinit = make_reinit_fn(cfg.reset_init)
+        self._prune_mask = None
+        self._prune_meta: Optional[dict] = None
+        if self.resume_dir and cfg.prune_enabled and self.lora_spec is not None:
+            self._prune_mask, self._prune_meta = load_mask(self.resume_dir, device=self.device)
+            if self._prune_mask is not None:
+                logger.info(f"Restored prune mask from {self.resume_dir} "
+                            f"(sparsity {self._prune_meta.get('sparsity', 0) if self._prune_meta else 0:.3f})")
         if self.resume_dir:
             # a fresh optimizer keeps the schedule's position: state.step is
             # the update reached and nothing was skipped since
@@ -369,6 +396,30 @@ class Trainer:
         # card's peak; null without a peak
         self._peak_flops = peak_flops(self.device)
         self._step_flops: Optional[float] = None
+
+    def _maybe_compute_prune_mask(self) -> None:
+        """First prune event (``relora_tpu/train/trainer.py:531-575``): the
+        keep-mask from the just-merged base, the pruned positions zeroed in
+        place, and a ``prune_mask_computed`` event."""
+        cfg = self.cfg
+        if self._prune_mask is not None or not cfg.prune_enabled or self.update_step < cfg.prune_start_step:
+            return
+        t0 = time.perf_counter()
+        mask = magnitude_mask(self.model, cfg.prune_sparsity, scope=cfg.prune_scope, nm=cfg.prune_nm)
+        apply_mask(self.model, mask)
+        stats = sparsity_stats(mask)
+        self._prune_mask = mask
+        self._prune_meta = {
+            "target_sparsity": cfg.prune_sparsity,
+            "scope": cfg.prune_scope,
+            "nm": cfg.prune_nm,
+            "computed_at_step": self.update_step,
+        }
+        self.metrics.event("prune_mask_computed", step=self.update_step,
+                           sparsity=stats["sparsity"], mask_crc32=mask_checksum(mask))
+        logger.info(f"Prune mask computed at update {self.update_step}: "
+                    f"{stats['sparsity'] * 100:.2f}% of base weights zeroed "
+                    f"({time.perf_counter() - t0:.2f}s)")
 
     def _guard_batch_size_unchanged(self) -> None:
         """A resume at another batch size would rewind the data wrongly
@@ -428,7 +479,7 @@ class Trainer:
                     cfg.save_dir, self.update_step, self.model.state_dict(), training_state,
                     self.lora_spec, optimizer_state,
                     retries=cfg.save_retries, retry_backoff=cfg.save_retry_backoff,
-                    publish=True,
+                    publish=True, prune_mask=self._prune_mask, prune_meta=self._prune_meta,
                 )
         except (OSError, ValueError) as e:
             logger.error(f"Checkpoint save at step {self.update_step} abandoned: {e}")
@@ -475,6 +526,9 @@ class Trainer:
         new_skips = set(range(spike.first_step - 1, spike.last_step + cfg.spike_rollback_margin))
         cfg.skip_batches |= new_skips
         self._restore(target)
+        if cfg.prune_enabled and self.lora_spec is not None:
+            # the target may predate the prune event: its mask, or none
+            self._prune_mask, self._prune_meta = load_mask(target, device=self.device)
         self.update_step = ts["update_step"]
         self.global_step = ts["global_step"]
         self.tokens_seen = ts["tokens_seen"]
@@ -681,7 +735,10 @@ class Trainer:
                       self.n_lora_restarts += 1
                       with self.tracer.span("relora_merge", step=self.update_step, n=self.n_lora_restarts):
                           merge_and_reinit(self.model, keyed_generator(cfg.seed + 2, self.update_step, self.device),
-                                           self.lora_spec)
+                                           self.lora_spec, a_init=self._reinit, mask=self._prune_mask)
+                          # PERP: the first eligible merge fixes the mask,
+                          # later merges apply it before the cast or requant
+                          self._maybe_compute_prune_mask()
                       logger.info(
                           f"LoRA merge #{self.n_lora_restarts} at update {self.update_step} "
                           f"took {time.perf_counter() - t0:.2f}s"

@@ -476,8 +476,7 @@ def test_lora_linear_int8_matches_jax(fused, trainable_scaling, monkeypatch):
 def test_int8_spec_layout_freezing_and_refusals():
     """Codes (out, in) int8 at 0 and scales (1, out) f32 at 1 (W = 0), frozen
     and counted as the JAX package counts kernel_q/kernel_scale; unknown
-    modes and a magnitude re-init at the merge refuse (nf4 is ported:
-    tests/test_torch_nf4.py)."""
+    modes refuse (nf4 is ported: tests/test_torch_nf4.py)."""
     model = LlamaForCausalLM(ModelConfig(**TINY), lora=relora.LoraSpec(r=8, quantize="int8"))
     relora.set_trainable(model)
     proj = model.layers[0].mlp.down_proj
@@ -492,9 +491,6 @@ def test_int8_spec_layout_freezing_and_refusals():
                       dtype=jnp.float32, scan_layers=True, attention_impl="naive")
     jparams = jax_init_params(jmodel, jax.random.PRNGKey(0), jnp.zeros((1, 16), jnp.int32))
     assert relora.split_param_counts(model) == jax_relora.split_param_counts(jparams)
-    with pytest.raises(NotImplementedError, match="magnitude"):
-        relora.merge_and_reinit(model, torch.Generator(), relora.LoraSpec(r=8, quantize="int8"),
-                                a_init=lambda *a: None)
     with pytest.raises(ValueError, match="quantize"):
         relora.LoraSpec(r=2, quantize="int4")
 

@@ -119,8 +119,8 @@ def _record_draws(monkeypatch, trainer):
         draws["dropout"][trainer.update_step + 1] = list(seeds)
         return step(state, batch, seeds)
 
-    def spy_merge(model, generator, spec):
-        out = real_merge(model, generator, spec)
+    def spy_merge(model, generator, spec, **kw):
+        out = real_merge(model, generator, spec, **kw)
         name = next(relora.lora_modules(model))[0]
         draws["merge_a"][trainer.update_step] = model.get_submodule(name).lora_a.detach().clone()
         return out
@@ -211,8 +211,7 @@ def test_sigterm_stops_at_the_update_boundary(tmp_path):
 
 
 @pytest.mark.parametrize("flag,value", [
-    ("warmed_up_model", "state/"), ("prune_sparsity", 0.5), ("reset_init", "magnitude"),
-    ("prng_impl", "rbg"), ("wandb", True), ("tp_size", 2),
+    ("warmed_up_model", "state/"), ("prng_impl", "rbg"), ("wandb", True), ("tp_size", 2),
 ])
 def test_unported_options_raise(tmp_path, flag, value):
     """Each option raises; a warm start from a JAX checkpoint directory (one
